@@ -1,0 +1,60 @@
+"""Global configuration of the PyTorch / CUDA port.
+
+Counterpart of ``probreg_tpu/config.py``, keeping the knobs that still mean
+something off the TPU. The dispatch thresholds have the reference's values,
+so the port takes the same branch as the reference for the same sizes.
+Every knob is read per call: there is no compiled program to invalidate.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class Config:
+    # Device that entry points move numpy inputs to. The port never falls
+    # back to the CPU on its own: see resolve_device.
+    device: str = "cuda"
+    # dtype used for point clouds and EM state.
+    dtype: torch.dtype = torch.float32
+    # Target-block size of the streaming plain E-step (ops/estep.estep_xla).
+    estep_chunk: int = 4096
+    # Largest M*N routed to the one-launch E-step kernel (estep_small).
+    small_estep_max_pairs: int = 1024 * 1024
+    # Smallest M*N routed to the Morton-sorted tile-culled stash E-step.
+    culled_estep_min_pairs: int = 1 << 24
+    # Largest M*N for the whole-EM dense loop (cpd._run_em_t), which holds
+    # the (M, N) posterior; above it registration streams (cpd._run_em).
+    transposed_em_max_pairs: int = 1 << 28
+    # Route large E-steps through the tile-culled stash kernels.
+    use_culled_estep: bool = True
+    # Source / target tile sizes of the stash E-step.
+    tile_m: int = 512
+    tile_n: int = 1024
+    # Cap on the (M_padded, tile_n) f32 stash of one target stripe. None
+    # derives it from the device: an eighth of the card's memory, 1 GiB on
+    # the CPU. Above it tile_n halves (floor 256); beyond the floor the
+    # E-step raises.
+    stash_max_bytes: Optional[int] = None
+
+
+config = Config()
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` or ``config.device``.
+
+    Raises when that is a CUDA device and none is available, so a run never
+    moves to the CPU unless the caller asked for it.
+    """
+    dev = torch.device(device if device is not None else config.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "probreg_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' or set "
+            "probreg_tpu_torch.config.config.device = 'cpu' to run on the CPU")
+    return dev

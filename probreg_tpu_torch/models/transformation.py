@@ -1,0 +1,71 @@
+"""Transformation models (counterpart of probreg_tpu/models/transformation.py).
+
+Parameters are tensors on one device. ``transform`` is the user-facing call
+(numpy, tensors or Open3D clouds in, a tensor out); ``_transform`` works on
+tensors already on the transformation's device. Affine and the nonrigid
+models come with later slices of the port.
+"""
+
+from __future__ import annotations
+
+import abc
+
+import torch
+
+from .. import config as _config
+from ..utils import interop
+
+
+class Transformation(abc.ABC):
+    """ABC matching reference transformation.py:18-30."""
+
+    device: torch.device
+
+    def transform(self, points) -> torch.Tensor:
+        return self._transform(interop.as_points(points, device=self.device))
+
+    @abc.abstractmethod
+    def _transform(self, points: torch.Tensor) -> torch.Tensor:
+        ...
+
+
+def _param(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=_config.config.dtype, device=device)
+
+
+class RigidTransformation(Transformation):
+    """x -> scale * R x + t (reference transformation.py:33-60)."""
+
+    def __init__(self, rot=None, t=None, scale=1.0, dim: int = 3,
+                 device=None):
+        if device is None:
+            given = [p for p in (rot, t, scale) if isinstance(p, torch.Tensor)]
+            device = (given[0].device if given
+                      else _config.resolve_device(None))
+        self.device = torch.device(device)
+        if rot is None:
+            rot = torch.eye(dim)
+        if t is None:
+            t = torch.zeros(dim)
+        self.rot = _param(rot, self.device)
+        self.t = _param(t, self.device)
+        self.scale = _param(scale, self.device)
+
+    def _transform(self, points):
+        return self.scale * points @ self.rot.T + self.t
+
+    def inverse(self) -> "RigidTransformation":
+        return RigidTransformation(
+            self.rot.T, -(self.rot.T @ self.t) / self.scale, 1.0 / self.scale,
+            device=self.device)
+
+    def __mul__(self, other: "RigidTransformation") -> "RigidTransformation":
+        return RigidTransformation(
+            self.rot @ other.rot,
+            self.t + self.scale * self.rot @ other.t,
+            self.scale * other.scale,
+            device=self.device)
+
+    def __repr__(self):
+        return (f"RigidTransformation(rot={self.rot}, t={self.t}, "
+                f"scale={self.scale})")

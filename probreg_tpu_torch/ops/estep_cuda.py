@@ -1,0 +1,416 @@
+"""CPD E-step kernels on the card, each beside its plain PyTorch version.
+
+Counterpart of the three kernels of probreg_tpu/ops/estep_pallas.py on the
+rigid CPD path, with their helpers:
+
+* ``estep_small``: the whole E-step in one launch for M * N <= 2^20
+  (replaces ``_small_kernel``).
+* ``estep_auto``: the single-exp, tile-culled stash E-step on Morton-sorted
+  clouds, one target stripe of ``tile_n`` columns at a time: pass A
+  (``stash_den``, replaces ``_stash_den_kernel``) evaluates each active
+  pair's exp once, stashes it and forms the column normalizer, pt1 and xx;
+  pass B (``stash_moment``, replaces ``_stash_moment_kernel``) reads the
+  stash back into p1 and px.
+
+A tile pair is culled when its box-gap bound proves that every exp in it
+underflows f32 to exactly 0 (sum_d max(0, gap_d)^2 * 0.5 / sigma2 > 104),
+so culling never changes a result. The reference's fast-start branch (bf16
+cross term and stash under an error bound derived for the TPU) is not
+ported: the port always runs the exact branch.
+
+Each wrapper runs its CUDA kernel (``csrc/estep.cu``) on CUDA tensors and
+its plain version on CPU tensors; nothing else picks between them. Every
+kernel launch adds one to ``LAUNCHES[<kernel>]``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ..config import config
+from . import _build
+from .estep import EstepMoments, outlier_constant
+from .spatial import morton_order
+
+# exp(-x) underflows below the smallest f32 subnormal (2^-149) for
+# x > 103.28; 104 leaves margin for the f32 bound arithmetic.
+_CUT = 104.0
+_EPS = float(torch.finfo(torch.float32).eps)
+_DEN_THREADS = 256   # columns per pass-A block (csrc/estep.cu kDenThreads)
+_SMALL_COLS = 32     # columns per K2 block (kSmallCols)
+_MAX_TILE_N = 3072   # pass B keeps a stripe's columns in 48 KB of shared mem
+_MAX_GRID_Y = 65535
+
+LAUNCHES = {"estep_small": 0, "stash_den": 0, "stash_moment": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "probreg_estep_small": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "probreg_stash_den": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _P, _P],
+    "probreg_stash_moment": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("estep")
+    if not getattr(lib, "_probreg_typed", False):
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib._probreg_typed = True
+    return lib
+
+
+def _check(status: int, kernel: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
+                           f"{status}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _round_up(x: int, k: int) -> int:
+    return -(-x // k) * k
+
+
+def _check_points(t_source: torch.Tensor, target: torch.Tensor):
+    if t_source.dim() != 2 or target.dim() != 2 \
+            or t_source.shape[1] != target.shape[1]:
+        raise ValueError("expected (M, D) and (N, D) point tensors, got "
+                         f"{tuple(t_source.shape)} and {tuple(target.shape)}")
+    if not 1 <= t_source.shape[1] <= 3:
+        raise ValueError(f"the E-step kernels take D <= 3, got "
+                         f"D = {t_source.shape[1]}")
+    if t_source.shape[0] == 0 or target.shape[0] == 0:
+        raise ValueError("empty point cloud")
+    if t_source.device != target.device:
+        raise ValueError(f"source on {t_source.device}, target on "
+                         f"{target.device}")
+    if t_source.dtype != torch.float32 or target.dtype != torch.float32:
+        raise ValueError("the E-step kernels take float32 points")
+    return t_source.contiguous(), target.contiguous()
+
+
+def _scalars(sigma2, w, m, n, dim, device) -> torch.Tensor:
+    """[0.5 / sigma2, outlier c] as a device f32 tensor (no host sync)."""
+    sigma2 = torch.as_tensor(sigma2, dtype=torch.float32, device=device)
+    c = outlier_constant(sigma2, w, m, n, dim)
+    return torch.stack([0.5 / sigma2, torch.as_tensor(c, dtype=torch.float32,
+                                                      device=device)])
+
+
+def _pack(points: torch.Tensor) -> torch.Tensor:
+    """(M, D <= 3) -> (M, 4) f32: coordinates zero-padded to 3, then |p|^2."""
+    m, dim = points.shape
+    out = points.new_zeros((m, 4))
+    out[:, :dim] = points
+    out[:, 3] = (points * points).sum(1)
+    return out
+
+
+# --------------------------------------------------------------------------
+# Tile culling
+# --------------------------------------------------------------------------
+
+def _tile_bounds(points: torch.Tensor, tile: int):
+    """Per-tile axis-aligned boxes, (n_tiles, D) mins and maxes.
+
+    Rows past the cloud (the ragged last tile) are excluded through +/-inf
+    sentinels, so padding never widens a box.
+    """
+    m, dim = points.shape
+    nb = -(-m // tile)
+    pad = points.new_full((nb * tile - m, dim), math.inf)
+    bmin = torch.cat([points, pad]).view(nb, tile, dim).amin(1)
+    bmax = torch.cat([points, -pad]).view(nb, tile, dim).amax(1)
+    return bmin, bmax
+
+
+def _box_gap_lb2(ymin, ymax, xmin, xmax) -> torch.Tensor:
+    """(nb_m, nb_n) lower bound on any pair's squared distance between two
+    tiles: sum_d max(0, gap_d)^2 with gap_d the boxes' separation on axis d."""
+    lb2 = ymin.new_zeros((ymin.shape[0], xmin.shape[0]))
+    for d in range(ymin.shape[1]):
+        gap = torch.clamp(torch.maximum(ymin[:, d, None] - xmax[None, :, d],
+                                        xmin[None, :, d] - ymax[:, d, None]),
+                          min=0.0)
+        lb2 = lb2 + gap * gap
+    return lb2
+
+
+def _active_mask(ymin, ymax, xmin, xmax, inv2s2) -> torch.Tensor:
+    """(nb_m, nb_n) bool: True where the tile pair may contribute, False
+    where every exp(-d2 * inv2s2) in it underflows to exactly 0."""
+    return _box_gap_lb2(ymin, ymax, xmin, xmax) * inv2s2 <= _CUT
+
+
+def active_tile_fraction(t_source, target, sigma2, tile_m=None, tile_n=None):
+    """Fraction of tile pairs the stash E-step computes (1.0: dense), for
+    clouds already in Morton order. A diagnostic; returns a 0-d tensor."""
+    tile_m = tile_m or config.tile_m
+    tile_n = tile_n or config.tile_n
+    inv2s2 = 0.5 / torch.as_tensor(sigma2, dtype=torch.float32,
+                                   device=t_source.device)
+    ymin, ymax = _tile_bounds(t_source, tile_m)
+    xmin, xmax = _tile_bounds(target, tile_n)
+    return _active_mask(ymin, ymax, xmin, xmax, inv2s2).float().mean()
+
+
+def _compact(mask: torch.Tensor):
+    """Per-stripe active-tile lists, built on the device.
+
+    Returns act_idx (n_j, n_i) int32, whose row j lists stripe j's active
+    source tiles in ascending order first, and act_cnt (n_j,) int32. This
+    replaces the reference's scalar-prefetch ``eff`` arrays, which exist
+    for TPU DMA elision: a block here loads its own tile index.
+    """
+    mask_t = mask.T
+    order = torch.argsort((~mask_t).to(torch.int8), dim=1, stable=True)
+    return (order.to(torch.int32).contiguous(),
+            mask_t.sum(1).to(torch.int32).contiguous())
+
+
+def stash_budget(device) -> int:
+    """Bytes allowed for one stripe's stash (config.stash_max_bytes, else an
+    eighth of the card's memory, or 1 GiB on the CPU)."""
+    if config.stash_max_bytes:
+        return int(config.stash_max_bytes)
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory // 8
+    return 1 << 30
+
+
+def _capped_tile_n(m: int, tile_m: int, tile_n: int, budget: int) -> int:
+    """Halve tile_n (multiples of 128, floor 256) until the (M_padded,
+    tile_n) f32 stash fits the budget; raise beyond the floor."""
+    mp = _round_up(m, tile_m)
+    while tile_n > 256 and mp * tile_n * 4 > budget:
+        tile_n = max(256, (tile_n // 2 // 128) * 128)
+    if mp * tile_n * 4 > budget:
+        raise ValueError(
+            f"the E-step stash needs {mp * tile_n * 4 / 2**30:.2f} GiB even "
+            f"at tile_n={tile_n} (M_padded={mp}), over the "
+            f"{budget / 2**30:.2f} GiB cap; raise config.stash_max_bytes")
+    return tile_n
+
+
+# --------------------------------------------------------------------------
+# K2: estep_small
+# --------------------------------------------------------------------------
+
+def estep_small(t_source: torch.Tensor, target: torch.Tensor, sigma2,
+                w: float = 0.0) -> EstepMoments:
+    """Whole E-step in one launch (M * N <= 2^20 pairs)."""
+    t_source, target = _check_points(t_source, target)
+    (m, dim), n = t_source.shape, target.shape[0]
+    scal = _scalars(sigma2, w, m, n, dim, t_source.device)
+    if t_source.is_cuda:
+        pt1, p1, px, xx = _estep_small_cuda(t_source, target, scal)
+    else:
+        pt1, p1, px, xx = estep_small_plain(t_source, target, scal)
+    return EstepMoments(pt1, p1, px, p1.sum(), xx)
+
+
+def _estep_small_cuda(t_source, target, scal):
+    (m, dim), n = t_source.shape, target.shape[0]
+    ys, xs = _pack(t_source), _pack(target)
+    blocks = -(-n // _SMALL_COLS)
+    pt1 = ys.new_empty(n)
+    part = ys.new_empty((blocks, m, 4))
+    xx_part = ys.new_empty(blocks)
+    ticket = torch.zeros(1, dtype=torch.int32, device=ys.device)
+    p1px = ys.new_empty((m, 4))
+    xx = ys.new_empty(())
+    status = _lib().probreg_estep_small(
+        ys.data_ptr(), m, xs.data_ptr(), n, scal.data_ptr(), pt1.data_ptr(),
+        part.data_ptr(), xx_part.data_ptr(), ticket.data_ptr(),
+        p1px.data_ptr(), xx.data_ptr(), _stream(ys))
+    _check(status, "estep_small")
+    LAUNCHES["estep_small"] += 1
+    return pt1, p1px[:, 3], p1px[:, :dim], xx
+
+
+def estep_small_plain(t_source, target, scal):
+    """Plain version of the K2 kernel: the dense (M, N) posterior, with the
+    reference kernel's divisions by den."""
+    inv2s2, c = scal[0], scal[1]
+    y2 = (t_source * t_source).sum(1)
+    x2 = (target * target).sum(1)
+    d2 = torch.clamp(y2[:, None] + x2[None, :] - 2.0 * (t_source @ target.T),
+                     min=0.0)
+    g = torch.exp(-d2 * inv2s2)
+    den_raw = g.sum(0)
+    den = torch.where(den_raw == 0.0, _EPS, den_raw) + c
+    pt1 = den_raw / den
+    pmat = g / den
+    return pt1, pmat.sum(1), pmat @ target, (pt1 * x2).sum()
+
+
+# --------------------------------------------------------------------------
+# K3: the stash E-step
+# --------------------------------------------------------------------------
+
+def estep_auto(t_source: torch.Tensor, target: torch.Tensor, sigma2,
+               w: float = 0.0, tile_m: int = None, tile_n: int = None,
+               assume_sorted: bool = False) -> EstepMoments:
+    """Exact tile-culled E-step through the stash kernels.
+
+    ``assume_sorted``: the caller guarantees both clouds are in Morton
+    order (cpd.registration sorts once); the moments then come back in that
+    order. Otherwise the clouds are sorted here and the moments returned in
+    the input order.
+    """
+    t_source, target = _check_points(t_source, target)
+    (m, dim), n = t_source.shape, target.shape[0]
+    tile_m = min(tile_m or config.tile_m, _round_up(m, 8))
+    tile_n = min(tile_n or config.tile_n, _round_up(n, 128))
+    tile_n = _capped_tile_n(m, tile_m, tile_n, stash_budget(t_source.device))
+    if assume_sorted:
+        ys, xs = t_source, target
+    else:
+        perm_y, perm_x = morton_order(t_source), morton_order(target)
+        ys, xs = t_source[perm_y], target[perm_x]
+    scal = _scalars(sigma2, w, m, n, dim, t_source.device)
+    ymin, ymax = _tile_bounds(ys, tile_m)
+    xmin, xmax = _tile_bounds(xs, tile_n)
+    mask = _active_mask(ymin, ymax, xmin, xmax, scal[0])
+    pt1, p1, px, xx = stash_estep(ys, xs, scal, mask, tile_m, tile_n)
+    if not assume_sorted:
+        pt1 = torch.empty_like(pt1).index_copy_(0, perm_x, pt1)
+        p1 = torch.empty_like(p1).index_copy_(0, perm_y, p1)
+        px = torch.empty_like(px).index_copy_(0, perm_y, px)
+    return EstepMoments(pt1, p1, px, p1.sum(), xx)
+
+
+def stash_estep(ys, xs, scal, mask, tile_m: int, tile_n: int):
+    """(pt1, p1, px, xx) of the stash E-step on sorted clouds, given the
+    (n_i, n_j) active-tile mask: the kernels for CUDA tensors, the plain
+    version for CPU tensors."""
+    if ys.is_cuda:
+        plan = StashPlan(ys, xs, scal, mask, tile_m, tile_n)
+        for j in range(plan.n_j):
+            plan.den(j)
+            plan.moment(j)
+        return plan.result()
+    return stash_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
+
+
+class StashPlan:
+    """Device buffers of one stash E-step and its per-stripe launches.
+
+    ``den(j)`` runs pass A on stripe j (writes the stash, inv_den, pt1 and
+    xx partials), ``moment(j)`` runs pass B (adds into p1/px); a stripe's
+    ``moment`` must follow its ``den``. Stripes run in order on the current
+    stream, so one stash buffer serves them all.
+    """
+
+    def __init__(self, ys, xs, scal, mask, tile_m: int, tile_n: int):
+        (m, self.dim), n = ys.shape, xs.shape[0]
+        self.n_i, self.n_j = mask.shape
+        if tile_n > _MAX_TILE_N or self.n_i > _MAX_GRID_Y:
+            raise ValueError(f"tile_n={tile_n} / {self.n_i} source tiles "
+                             "exceed the stash kernels' launch limits")
+        if self.n_i != -(-m // tile_m) or self.n_j != -(-n // tile_n):
+            raise ValueError("mask shape does not match the tiles")
+        self.m, self.n, self.tile_m, self.tile_n = m, n, tile_m, tile_n
+        self.ys, self.xs = _pack(ys), _pack(xs)
+        self.scal = scal.to(torch.float32).contiguous()
+        self.act_idx, self.act_cnt = _compact(mask)
+        n_cx = -(-tile_n // _DEN_THREADS)
+        new = self.ys.new_empty
+        self.stash = new((self.n_i * tile_m, tile_n))
+        self.part = new((self.n_i, tile_n))
+        self.tickets = torch.zeros(n_cx, dtype=torch.int32,
+                                   device=ys.device)
+        self.inv_den = new(tile_n)
+        self.pt1 = new(n)
+        self.xx_part = new((self.n_j, n_cx))
+        self.p1px = self.ys.new_zeros((m, 4))
+        self.lib = _lib()
+        self.stream = _stream(self.ys)
+
+    def _cols(self, j: int):
+        c0 = j * self.tile_n
+        return c0, min(self.tile_n, self.n - c0)
+
+    def den(self, j: int) -> None:
+        c0, ncols = self._cols(j)
+        status = self.lib.probreg_stash_den(
+            self.ys.data_ptr(), self.m, self.tile_m, self.n_i,
+            self.xs[c0].data_ptr(), ncols, self.tile_n,
+            self.act_idx[j].data_ptr(), self.act_cnt[j].data_ptr(),
+            self.scal.data_ptr(), self.stash.data_ptr(), self.part.data_ptr(),
+            self.tickets.data_ptr(), self.inv_den.data_ptr(),
+            self.pt1[c0].data_ptr(), self.xx_part[j].data_ptr(), self.stream)
+        _check(status, "stash_den")
+        LAUNCHES["stash_den"] += 1
+
+    def moment(self, j: int) -> None:
+        c0, ncols = self._cols(j)
+        status = self.lib.probreg_stash_moment(
+            self.xs[c0].data_ptr(), ncols, self.tile_n, self.m, self.tile_m,
+            self.n_i, self.act_idx[j].data_ptr(), self.act_cnt[j].data_ptr(),
+            self.stash.data_ptr(), self.inv_den.data_ptr(),
+            self.p1px.data_ptr(), self.stream)
+        _check(status, "stash_moment")
+        LAUNCHES["stash_moment"] += 1
+
+    def result(self):
+        return (self.pt1, self.p1px[:, 3], self.p1px[:, :self.dim],
+                self.xx_part.sum())
+
+
+def _plain_pass_a(ys, y2, x, x2, scal, act_rows, n_i, tile_m):
+    """Pass A of one stripe: g (zero in culled tiles), inv_den, pt1, xx."""
+    d2 = torch.clamp(y2[:, None] + x2[None, :] - 2.0 * (ys @ x.T), min=0.0)
+    g = torch.where(act_rows[:, None], torch.exp(-d2 * scal[0]), 0.0)
+    pad = n_i * tile_m - ys.shape[0]
+    part = torch.nn.functional.pad(g, (0, 0, 0, pad)).view(
+        n_i, tile_m, -1).sum(1)
+    den_raw = part.sum(0)
+    inv_den = 1.0 / (torch.where(den_raw == 0.0, _EPS, den_raw) + scal[1])
+    pt1 = den_raw * inv_den
+    return g, inv_den, pt1, (pt1 * x2).sum()
+
+
+def _plain_pass_b(g, inv_den, x):
+    """Pass B of one stripe: the stripe's p1 and px contributions."""
+    p = g * inv_den[None, :]
+    return p.sum(1), p @ x
+
+
+def stash_estep_plain(ys, xs, scal, mask, tile_m: int, tile_n: int):
+    """Plain version of the stash kernels, stripe by stripe: per-tile
+    column sums added in tile order, culled tiles contributing nothing."""
+    m, n = ys.shape[0], xs.shape[0]
+    n_i = mask.shape[0]
+    y2 = (ys * ys).sum(1)
+    x2 = (xs * xs).sum(1)
+    p1 = ys.new_zeros(m)
+    px = torch.zeros_like(ys)
+    xx = ys.new_zeros(())
+    pt1 = []
+    for j in range(mask.shape[1]):
+        c0 = j * tile_n
+        x, xj2 = xs[c0:c0 + tile_n], x2[c0:c0 + tile_n]
+        act_rows = mask[:, j].repeat_interleave(tile_m)[:m]
+        g, inv_den, pt1_j, xx_j = _plain_pass_a(ys, y2, x, xj2, scal,
+                                                act_rows, n_i, tile_m)
+        p1_j, px_j = _plain_pass_b(g, inv_den, x)
+        p1, px, xx = p1 + p1_j, px + px_j, xx + xx_j
+        pt1.append(pt1_j)
+    return torch.cat(pt1), p1, px, xx

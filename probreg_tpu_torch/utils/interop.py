@@ -1,0 +1,67 @@
+"""Host-boundary conversion helpers (counterpart of probreg_tpu/utils/interop.py).
+
+``as_points`` turns point-cloud-ish input (numpy, lists, tensors, Open3D
+clouds when Open3D is installed) into a tensor on the port's device. The
+carry-across functions build the port's objects from the JAX package's
+state given as numpy, so both packages can start from the same state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .. import config as _config
+
+try:  # pragma: no cover - open3d is optional
+    import open3d as _o3
+except ImportError:  # pragma: no cover
+    _o3 = None
+
+
+def as_points(x: Any, dtype=None, device=None) -> torch.Tensor:
+    """Convert point-cloud-ish input to an (N, D) tensor on ``device``.
+
+    ``device`` defaults to ``config.device`` and is checked by
+    :func:`probreg_tpu_torch.config.resolve_device` (no silent CPU run).
+    """
+    dtype = dtype or _config.config.dtype
+    dev = _config.resolve_device(device)
+    if _o3 is not None:
+        if isinstance(x, _o3.geometry.PointCloud):
+            x = np.asarray(x.points)
+        elif isinstance(x, _o3.utility.Vector3dVector):
+            x = np.asarray(x)
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=dtype)
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+
+def rigid_from_reference(params: Mapping[str, Any], device=None):
+    """Port RigidTransformation from a JAX one's parameters as numpy.
+
+    ``params`` holds ``rot`` (D, D), ``t`` (D,) and optionally ``scale``,
+    e.g. ``{k: np.asarray(getattr(tr, k)) for k in ("rot", "t", "scale")}``.
+    """
+    from ..models.transformation import RigidTransformation
+
+    rot = np.asarray(params["rot"])
+    return RigidTransformation(rot, np.asarray(params["t"]),
+                               float(np.asarray(params.get("scale", 1.0))),
+                               dim=rot.shape[0], device=device)
+
+
+def config_from_reference(fields: Mapping[str, Any]) -> "_config.Config":
+    """Port Config carrying the JAX Config's fields that exist in both.
+
+    ``fields`` is e.g. ``dataclasses.asdict(probreg_tpu.config.config)``.
+    Fields of the JAX Config the port does not have (TPU-only knobs) and
+    ``dtype`` (a JAX dtype object) are left out; every other field keeps
+    the port's default.
+    """
+    own = {f.name for f in dataclasses.fields(_config.Config)}
+    kept = {k: v for k, v in fields.items() if k in own and k != "dtype"}
+    return _config.Config(**kept)

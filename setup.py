@@ -60,8 +60,11 @@ setup(
     version=_version(),
     description="TPU-native probabilistic point-cloud registration "
                 "(JAX/XLA/Pallas)",
-    packages=find_packages(include=["probreg_tpu", "probreg_tpu.*"]),
-    package_data={"probreg_tpu": ["cc/*.cpp"]},
+    packages=find_packages(include=["probreg_tpu", "probreg_tpu.*",
+                                    "probreg_tpu_torch",
+                                    "probreg_tpu_torch.*"]),
+    package_data={"probreg_tpu": ["cc/*.cpp"],
+                  "probreg_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
     ext_modules=_ext_modules(),

@@ -1,0 +1,234 @@
+"""The port's E-step (probreg_tpu_torch.ops) held to the JAX package.
+
+The same numpy inputs go through the JAX function (its Pallas kernels in
+interpret mode) and the port's counterpart, which runs its kernels' plain
+versions here because the tensors lie on the CPU.
+
+Tolerance for the moments: rtol 1e-5, atol 1e-6, elementwise. The two
+packages evaluate d2 = |y|^2 + |x|^2 - 2 y.x in different f32 operation
+orders, and that cancellation noise (~eps |y|^2) is multiplied by
+1/(2 sigma2) in the exponent. The clouds are therefore centred, like the
+EM loops centre them, and the annealed case uses sigma2 = 0.1, where tiles
+are culled and the noise stays near half the tolerance (at sigma2 = 0.05
+it would exceed it).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from probreg_tpu.ops import estep as jeo  # noqa: E402
+from probreg_tpu.ops import estep_pallas as jep  # noqa: E402
+from probreg_tpu.ops import spatial as jsp  # noqa: E402
+from probreg_tpu_torch import config as pcfg  # noqa: E402
+from probreg_tpu_torch.ops import estep as peo  # noqa: E402
+from probreg_tpu_torch.ops import estep_cuda as pec  # noqa: E402
+from probreg_tpu_torch.ops import spatial as psp  # noqa: E402
+
+RTOL, ATOL = 1e-5, 1e-6
+TILE = 128
+
+
+def _two_blobs(m=640, n=700, seed=11):
+    """Two blobs on the z axis (Morton's top bit), 384 points in the first:
+    the first three 128-tiles of each cloud lie in one blob, so separated
+    tiles can be culled."""
+    rng = np.random.default_rng(seed)
+
+    def cloud(k):
+        c = np.zeros((k, 3), np.float32)
+        c[:384, 2], c[384:, 2] = -3.0, 3.0
+        return (c + rng.normal(0, 0.2, (k, 3))).astype(np.float32)
+
+    return cloud(m), cloud(n)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _assert_moments(ref, out):
+    for name, a, b in zip(ref._fields, ref, out):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=RTOL,
+                                   atol=ATOL, err_msg=name)
+
+
+def _sorted(src, tgt):
+    return (src[np.asarray(jsp.morton_order(src))],
+            tgt[np.asarray(jsp.morton_order(tgt))])
+
+
+@pytest.mark.parametrize("sigma2", [5.0, 0.1])
+@pytest.mark.parametrize("w", [0.0, 0.05])
+def test_estep_small_matches_reference_kernel(sigma2, w):
+    src, tgt = _two_blobs()
+    ref = jep.estep_small(src, tgt, jnp.float32(sigma2), w, interpret=True)
+    out = pec.estep_small(_t(src), _t(tgt), sigma2, w)
+    _assert_moments(ref, out)
+
+
+@pytest.mark.parametrize("sigma2,culled", [(5.0, False), (0.1, True)])
+def test_stash_estep_matches_reference(sigma2, culled):
+    """Dense and culled regimes: against the reference stash kernels
+    (exact branch) and the reference's plain streaming E-step."""
+    src, tgt = _two_blobs()
+    s_s, t_s = _sorted(src, tgt)
+    frac_ref = float(jep.active_tile_fraction(s_s, t_s, sigma2, TILE, TILE))
+    frac = float(pec.active_tile_fraction(_t(s_s), _t(t_s), sigma2, TILE,
+                                          TILE))
+    assert frac == pytest.approx(frac_ref)
+    assert (frac < 1.0) == culled, frac
+
+    w = 0.05
+    out = pec.estep_auto(_t(src), _t(tgt), sigma2, w, tile_m=TILE,
+                         tile_n=TILE)
+    ref = jep.estep_auto(src, tgt, jnp.float32(sigma2), w, tile_m=TILE,
+                         tile_n=TILE, interpret=True, fast_start=False)
+    _assert_moments(ref, out)
+    _assert_moments(jeo.estep_xla(src, tgt, jnp.float32(sigma2), w), out)
+
+    # Pre-sorted mode (the EM loop's): moments stay in the sorted order.
+    out_s = pec.estep_auto(_t(s_s), _t(t_s), sigma2, w, tile_m=TILE,
+                           tile_n=TILE, assume_sorted=True)
+    _assert_moments(jeo.estep_xla(s_s, t_s, jnp.float32(sigma2), w), out_s)
+
+
+def test_stash_ragged_tiles_and_all_culled_stripes():
+    """Tile sizes that divide neither cloud, and a sigma2 so small that
+    whole stripes are culled: those columns get pt1 = 0, exactly as the
+    reference's normalizer gives them."""
+    src, tgt = _two_blobs(600, 520, seed=3)
+    tgt[:200, 2] += 40.0  # far away from every source tile
+    s_s, t_s = _sorted(src, tgt)
+    out = pec.estep_auto(_t(s_s), _t(t_s), 0.1, 0.0, tile_m=96,
+                         tile_n=128, assume_sorted=True)
+    ref = jeo.estep_xla(s_s, t_s, jnp.float32(0.1), 0.0)
+    _assert_moments(ref, out)
+    far = t_s[:, 2] > 20.0
+    assert np.all(out.pt1.numpy()[far] == 0.0)
+
+
+@pytest.mark.parametrize("block", [None, 128])
+@pytest.mark.parametrize("sigma2", [5.0, 0.1])
+def test_estep_xla_matches_reference(sigma2, block):
+    src, tgt = _two_blobs()
+    ref = jeo.estep_xla(src, tgt, jnp.float32(sigma2), 0.05, block=block)
+    out = peo.estep_xla(_t(src), _t(tgt), sigma2, 0.05, block=block)
+    _assert_moments(ref, out)
+
+
+@pytest.mark.parametrize("small,culled,sorted_,branch", [
+    (1 << 20, 1 << 24, False, "small"),
+    (0, 1 << 10, True, "stash"),
+    (0, 1 << 10, False, "xla"),     # unsorted callers cull only from 2^28
+    (0, 1 << 24, True, "xla"),
+])
+def test_dispatcher_picks_branch_by_size(monkeypatch, small, culled,
+                                         sorted_, branch):
+    """The branch depends on sizes and flags only; on the CPU each branch
+    runs its plain version, and every branch matches the reference."""
+    monkeypatch.setattr(pcfg.config, "small_estep_max_pairs", small)
+    monkeypatch.setattr(pcfg.config, "culled_estep_min_pairs", culled)
+    monkeypatch.setattr(pcfg.config, "tile_m", TILE)
+    monkeypatch.setattr(pcfg.config, "tile_n", TILE)
+    taken = []
+    for name, fn in [("small", "estep_small_plain"),
+                     ("stash", "stash_estep_plain")]:
+        orig = getattr(pec, fn)
+        monkeypatch.setattr(pec, fn, lambda *a, _o=orig, _n=name:
+                            taken.append(_n) or _o(*a))
+    src, tgt = _sorted(*_two_blobs())
+    out = peo.estep(_t(src), _t(tgt), 0.1, 0.05, assume_sorted=sorted_)
+    assert taken == ([] if branch == "xla" else [branch])
+    _assert_moments(jeo.estep_xla(src, tgt, jnp.float32(0.1), 0.05), out)
+
+
+def test_tile_bounds_and_mask_match_reference():
+    src, tgt = _sorted(*_two_blobs(600, 520, seed=5))
+    ys_t, y2 = jep._pad_transpose(jnp.asarray(src), 96)
+    xs_t, x2 = jep._pad_transpose(jnp.asarray(tgt), TILE)
+    ymin, ymax = jep._tile_bounds(ys_t, y2, 96)
+    xmin, xmax = jep._tile_bounds(xs_t, x2, TILE)
+    pymin, pymax = pec._tile_bounds(_t(src), 96)
+    pxmin, pxmax = pec._tile_bounds(_t(tgt), TILE)
+    np.testing.assert_array_equal(pymin.numpy(), np.asarray(ymin)[:3].T)
+    np.testing.assert_array_equal(pymax.numpy(), np.asarray(ymax)[:3].T)
+    np.testing.assert_array_equal(pxmin.numpy(), np.asarray(xmin)[:3].T)
+    np.testing.assert_array_equal(pxmax.numpy(), np.asarray(xmax)[:3].T)
+    for sigma2 in (5.0, 0.1, 0.01):
+        inv2s2 = 0.5 / sigma2
+        ref = np.asarray(jep._active_mask(ymin, ymax, xmin, xmax,
+                                          jnp.float32(inv2s2)))
+        out = pec._active_mask(pymin, pymax, pxmin, pxmax,
+                               torch.tensor(inv2s2))
+        np.testing.assert_array_equal(out.numpy(), ref > 0)
+
+
+def test_mask_never_culls_a_live_tile():
+    """Any tile pair holding a pair whose exponent is above the f32
+    underflow bound must stay active."""
+    src, tgt = _sorted(*_two_blobs(512, 512, seed=3))
+    sigma2 = 0.03
+    inv2s2 = 0.5 / sigma2
+    ymin, ymax = pec._tile_bounds(_t(src), TILE)
+    xmin, xmax = pec._tile_bounds(_t(tgt), TILE)
+    mask = pec._active_mask(ymin, ymax, xmin, xmax,
+                            torch.tensor(inv2s2)).numpy()
+    assert not mask.all()
+    d2 = ((src[:, None, :] - tgt[None, :, :]) ** 2).sum(-1)
+    for i in range(mask.shape[0]):
+        for j in range(mask.shape[1]):
+            blk = d2[i * TILE:(i + 1) * TILE, j * TILE:(j + 1) * TILE]
+            if blk.min() * inv2s2 <= pec._CUT:
+                assert mask[i, j], (i, j, blk.min())
+
+
+def test_compact_lists_active_tiles_in_order():
+    mask = torch.tensor([[0, 1, 0],
+                         [1, 1, 0],
+                         [0, 1, 0],
+                         [1, 0, 0]], dtype=torch.bool)  # (n_i=4, n_j=3)
+    idx, cnt = pec._compact(mask)
+    assert idx.dtype == cnt.dtype == torch.int32
+    assert cnt.tolist() == [2, 3, 0]
+    assert idx[0, :2].tolist() == [1, 3]
+    assert idx[1, :3].tolist() == [0, 1, 2]
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_morton_order_matches_reference(dim):
+    rng = np.random.default_rng(9)
+    pts = rng.uniform(-1, 2, (777, dim)).astype(np.float32)
+    pts[5:40] = pts[4]  # ties: the stable sorts must agree
+    np.testing.assert_array_equal(psp.morton_code(_t(pts)).numpy(),
+                                  np.asarray(jsp.morton_code(pts)))
+    np.testing.assert_array_equal(psp.morton_order(_t(pts)).numpy(),
+                                  np.asarray(jsp.morton_order(pts)))
+
+
+def test_stash_cap_shrinks_tile_then_raises(monkeypatch):
+    assert pec._capped_tile_n(150_000, 512, 1024, 1 << 30) == 1024
+    # 150,016 x 1024 x 4 B = 614 MB: a 400 MB cap halves tile_n to 512.
+    assert pec._capped_tile_n(150_000, 512, 1024, 400 << 20) == 512
+    with pytest.raises(ValueError, match="stash_max_bytes"):
+        pec._capped_tile_n(150_000, 512, 1024, 64 << 20)
+    monkeypatch.setattr(pcfg.config, "stash_max_bytes", 1 << 10)
+    src, tgt = _two_blobs()
+    with pytest.raises(ValueError, match="stash"):
+        pec.estep_auto(_t(src), _t(tgt), 0.1)
+
+
+def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
+    pts = torch.zeros((10, 4))
+    with pytest.raises(ValueError, match="D <= 3"):
+        pec.estep_small(pts, pts, 1.0)
+    with pytest.raises(ValueError, match="float32"):
+        pec.estep_auto(pts[:, :3].double(), pts[:, :3].double(), 1.0)
+    # D > 3 is still served, by the plain streaming E-step.
+    rng = np.random.default_rng(0)
+    a = rng.normal(size=(50, 4)).astype(np.float32)
+    out = peo.estep(_t(a), _t(a[::-1]), 1.0)
+    _assert_moments(jeo.estep_xla(a, a[::-1], jnp.float32(1.0)), out)

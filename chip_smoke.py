@@ -13,10 +13,15 @@ before it and read just after:
   [-1, 1]^3, seed 0, Euler (3, -2, 5) degrees, maxiter 40, tol 1e-8):
   the streaming EM with the tile-culled stash kernels (stash_den,
   stash_moment);
+* the same clouds with use_pallas=True at a smaller depth: the streaming EM
+  with the two-pass kernels (fused_den, fused_moment);
 * the public E-step on a 1,000-point pair (RigidCPD.expectation_step):
   the one-launch small E-step kernel (estep_small);
-* rigid CPD on the bunny (bench.py's configuration): the dense whole-EM
-  loop, which has no kernel in this slice.
+* rigid and affine CPD on the bunny (bench.py's configuration): the whole
+  EM in one launch of the whole-EM kernel (em_rigid, em_affine);
+* registration_cpd_batch on a ragged batch of 256 pairs of 300-1024 points
+  (rigid) and a fixed-size batch of 64 pairs (affine): one launch of the
+  whole-EM kernel for each batch.
 
 Prints the card, a {"kernels": [...]} line and, last, {"ok": true, ...}.
 Exits non-zero without a CUDA device or when any phase fails.
@@ -51,12 +56,31 @@ N_LARGE = 150_000
 # on the CPU ends at 2.5e-3 / 2.3e-3 rad for 3,000 / 8,000 points. The
 # sharper check is the kernel-driven run against the plain-driven one.
 ROT_ERR_MAX = 3e-3
-REPLACES = {
-    "estep_small": "probreg_tpu/ops/estep_pallas.py:1571",
-    "stash_den": "probreg_tpu/ops/estep_pallas.py:393",
-    "stash_moment": "probreg_tpu/ops/estep_pallas.py:429",
+_ESTEP_CU = "probreg_tpu_torch/csrc/estep.cu"
+_EM_CU = "probreg_tpu_torch/csrc/em.cu"
+# name -> (source of the kernel, file:line of the TPU kernel it replaces)
+KERNELS = {
+    "estep_small": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:1571"),
+    "stash_den": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:393"),
+    "stash_moment": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:429"),
+    "em_rigid": (_EM_CU, "probreg_tpu/ops/em_pallas.py:262"),
+    "em_affine": (_EM_CU, "probreg_tpu/ops/em_pallas.py:262"),
+    "fused_den": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:87"),
+    "fused_moment": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:124"),
 }
-SOURCE = "probreg_tpu_torch/csrc/estep.cu"
+# A whole EM iteration needs, per pair, the Gaussian once and the moments
+# once: that is what the bound charges. (The kernel itself forms the
+# Gaussian again in its second pass, 32 operations per pair, because the
+# posterior does not fit shared memory; that is its choice, not the
+# function's.)
+FLOPS_EM = FLOPS_GAUSS + FLOPS_MOMENTS
+# Depth of the whole-EM batch runs that are compared and timed (tol 0: the
+# kernel and its plain version both run exactly this many iterations).
+EM_BATCH_ITERS = 20
+# Depth of the 150k runs that are only compared with each other (kernels
+# against their plain version, two-pass against stash).
+COMPARE_ITERS = 10
+TWO_PASS_ITERS = 5
 
 
 def log(*a):
@@ -166,87 +190,387 @@ def check_small(dev, kernels):
                                   bound_ms=b_ms, bound_by=b_by)
 
 
-def check_stash(dev, kernels):
-    """K3 on the 150k clouds for one E-step, dense (sigma2_0) and culled
-    (an annealed sigma2), against the plain version."""
+def estep_regimes(dev, shared):
+    """One E-step on the centred, Morton-sorted 150k clouds in two regimes:
+    dense (sigma2_0) and culled (an annealed sigma2): a list of (regime,
+    sigma2, ys, xs, scal, mask, tile_m, tile_n, active pairs), made once
+    and kept in ``shared`` for the phase that follows."""
     from probreg_tpu_torch.config import config
     from probreg_tpu_torch.ops import estep_cuda as ec
     from probreg_tpu_torch.ops.spatial import morton_order
     from probreg_tpu_torch.utils import math_utils
 
-    src, tgt, _ = large_clouds(dev)
-    ys = torch.as_tensor(src, device=dev)
-    xs = torch.as_tensor(tgt, device=dev)
-    cen = (ys.sum(0) + xs.sum(0)) / (ys.shape[0] + xs.shape[0])
-    ys, xs = ys - cen, xs - cen
-    ys, xs = ys[morton_order(ys)], xs[morton_order(xs)]
-    sigma2_0 = float(math_utils.squared_kernel_sum(ys, xs))
-    m, n = ys.shape[0], xs.shape[0]
-    tile_m = config.tile_m
-    tile_n = ec._capped_tile_n(m, tile_m, config.tile_n,
-                               ec.stash_budget(dev))
-    rows = torch.full((-(-m // tile_m),), float(tile_m), device=dev)
-    rows[-1] = m - (rows.numel() - 1) * tile_m
-    cols = torch.full((-(-n // tile_n),), float(tile_n), device=dev)
-    cols[-1] = n - (cols.numel() - 1) * tile_n
+    regimes = shared.setdefault("regimes", [])
+    if not regimes:
+        src, tgt, _ = large_clouds(dev)
+        ys = torch.as_tensor(src, device=dev)
+        xs = torch.as_tensor(tgt, device=dev)
+        cen = (ys.sum(0) + xs.sum(0)) / (ys.shape[0] + xs.shape[0])
+        ys, xs = ys - cen, xs - cen
+        ys, xs = ys[morton_order(ys)], xs[morton_order(xs)]
+        sigma2_0 = float(math_utils.squared_kernel_sum(ys, xs))
+        m, n = ys.shape[0], xs.shape[0]
+        tile_m = config.tile_m
+        tile_n = ec._capped_tile_n(m, tile_m, config.tile_n,
+                                   ec.stash_budget(dev))
+        rows = torch.full((-(-m // tile_m),), float(tile_m), device=dev)
+        rows[-1] = m - (rows.numel() - 1) * tile_m
+        cols = torch.full((-(-n // tile_n),), float(tile_n), device=dev)
+        cols[-1] = n - (cols.numel() - 1) * tile_n
+        for regime, sigma2 in (("dense", sigma2_0), ("culled", 1e-3)):
+            scal = ec._scalars(sigma2, 0.0, m, n, 3, dev)
+            mask = ec._active_mask(*ec._tile_bounds(ys, tile_m),
+                                   *ec._tile_bounds(xs, tile_n), scal[0])
+            pairs = float(rows @ mask.float() @ cols)
+            regimes.append((regime, sigma2, ys, xs, scal, mask, tile_m,
+                            tile_n, pairs))
+    return regimes
+
+
+def plain_pass_times(ys, xs, scal, mask, tile_m, tile_n, recompute):
+    """ms of the plain passes A and B over all stripes, each stripe between
+    its own events. ``recompute``: pass B forms the stripe's Gaussian again
+    (the two-pass kernels' plain version) instead of keeping pass A's."""
+    from probreg_tpu_torch.ops import estep_cuda as ec
+
+    m = ys.shape[0]
+    y2, x2 = (ys * ys).sum(1), (xs * xs).sum(1)
+    pa = pb = 0.0
+    for j in range(mask.shape[1]):
+        c0 = j * tile_n
+        x, xj2 = xs[c0:c0 + tile_n], x2[c0:c0 + tile_n]
+        act = mask[:, j].repeat_interleave(tile_m)[:m]
+        args = (ys, y2, x, xj2, scal, act, mask.shape[0], tile_m)
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        g, inv_den, _, _ = ec._plain_pass_a(*args)
+        e[1].record()
+        if recompute:
+            del g
+            g = ec._plain_pass_a(*args)[0]
+        ec._plain_pass_b(g, inv_den, x)
+        e[2].record()
+        torch.cuda.synchronize()
+        pa += e[0].elapsed_time(e[1])
+        pb += e[1].elapsed_time(e[2])
+        del g
+    return pa, pb
+
+
+def check_pass_kernels(dev, kernels, shared, names, core, plain, plan_cls,
+                       label, bounds, recompute):
+    """Shared body of check_stash and check_fused_estep: a pair of pass
+    kernels against their plain version in both regimes, then timed.
+    ``recompute``: pass B forms the Gaussian again (K4) and K3's times on
+    the same inputs are printed beside."""
     out = {}
-    for regime, sigma2 in (("dense", sigma2_0), ("culled", 1e-3)):
-        scal = ec._scalars(sigma2, 0.0, m, n, 3, dev)
-        mask = ec._active_mask(*ec._tile_bounds(ys, tile_m),
-                               *ec._tile_bounds(xs, tile_n), scal[0])
-        frac = float(mask.float().mean())
-        pairs = float(rows @ mask.float() @ cols)
-        log(f"[K3 stash] {regime}: sigma2 {sigma2:.6g}, tiles {tile_m} x "
-            f"{tile_n}, active tile fraction {frac:.4f}, active pairs "
-            f"{pairs:.4g}")
-        got = ec.stash_estep(ys, xs, scal, mask, tile_m, tile_n)
-        want = ec.stash_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
+    stash_ms = shared.setdefault("stash_ms", {})  # K3's times, for K4's log
+    for (regime, sigma2, ys, xs, scal, mask, tile_m, tile_n,
+         pairs) in estep_regimes(dev, shared):
+        m, n = ys.shape[0], xs.shape[0]
+        log(f"[{label}] {regime}: sigma2 {sigma2:.6g}, tiles {tile_m} x "
+            f"{tile_n}, active tile fraction {float(mask.float().mean()):.4f},"
+            f" active pairs {pairs:.4g}")
+        got = core(ys, xs, scal, mask, tile_m, tile_n)
+        want = plain(ys, xs, scal, mask, tile_m, tile_n)
         torch.cuda.synchronize()
         err_a = max(compare("pt1", got[0], want[0]),
                     compare("xx", got[3], want[3]))
         err_b = max(compare("p1", got[1], want[1]),
                     compare("px", got[2], want[2]))
         del got, want
-
-        plan = ec.StashPlan(ys, xs, scal, mask, tile_m, tile_n)
-        n_j = plan.n_j
-        ms_a = timed(lambda: [plan.den(j) for j in range(n_j)], 5)
-        ms_b = timed(lambda: [plan.moment(j) for j in range(n_j)], 5)
+        plan = plan_cls(ys, xs, scal, mask, tile_m, tile_n)
+        if recompute:  # one launch per pass
+            ms_a, ms_b = timed(plan.den, 5), timed(plan.moment, 5)
+        else:          # one launch per stripe and pass
+            stripes = range(plan.n_j)
+            ms_a = timed(lambda: [plan.den(j) for j in stripes], 5)
+            ms_b = timed(lambda: [plan.moment(j) for j in stripes], 5)
         del plan
-        # Plain passes, each stripe between its own events.
-        y2, x2 = (ys * ys).sum(1), (xs * xs).sum(1)
-        pa = pb = 0.0
-        for j in range(n_j):
-            c0 = j * tile_n
-            x, xj2 = xs[c0:c0 + tile_n], x2[c0:c0 + tile_n]
-            act = mask[:, j].repeat_interleave(tile_m)[:m]
-            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            e[0].record()
-            g, inv_den, _, _ = ec._plain_pass_a(ys, y2, x, xj2, scal, act,
-                                                mask.shape[0], tile_m)
-            e[1].record()
-            ec._plain_pass_b(g, inv_den, x)
-            e[2].record()
-            torch.cuda.synchronize()
-            pa += e[0].elapsed_time(e[1])
-            pb += e[1].elapsed_time(e[2])
-            del g
-        ba = bound(12 * (m + n) + 4 * pairs + 8 * n, pairs * FLOPS_GAUSS)
-        bb = bound(4 * pairs + 16 * n + 16 * m, pairs * FLOPS_MOMENTS)
+        pa, pb = plain_pass_times(ys, xs, scal, mask, tile_m, tile_n,
+                                  recompute)
+        ba, bb = bounds(m, n, pairs)
+        beside = ""
+        if recompute:
+            k3 = stash_ms[regime]
+            beside = (f"  [K3 on the same inputs: pass A {k3[0]:.3f} ms, "
+                      f"pass B {k3[1]:.3f} ms]")
+        else:
+            stash_ms[regime] = (ms_a, ms_b)
         log(f"  pass A kernel {ms_a:.3f} ms  plain {pa:.3f} ms  bound "
             f"{ba[0]:.3f} ms ({ba[1]})")
         log(f"  pass B kernel {ms_b:.3f} ms  plain {pb:.3f} ms  bound "
-            f"{bb[0]:.3f} ms ({bb[1]})")
+            f"{bb[0]:.3f} ms ({bb[1]}){beside}")
         out[regime] = (err_a, err_b, ms_a, ms_b, pa, pb, ba, bb)
     # The kernels line carries the dense E-step (the first iterations of
     # the 150k run); the culled numbers are printed above.
     err_a, err_b, ms_a, ms_b, pa, pb, ba, bb = out["dense"]
-    kernels["stash_den"] = dict(max_abs_err=max(err_a, out["culled"][0]),
-                                ms=ms_a, plain_ms=pa, bound_ms=ba[0],
-                                bound_by=ba[1])
-    kernels["stash_moment"] = dict(max_abs_err=max(err_b, out["culled"][1]),
-                                   ms=ms_b, plain_ms=pb, bound_ms=bb[0],
-                                   bound_by=bb[1])
+    kernels[names[0]] = dict(max_abs_err=max(err_a, out["culled"][0]),
+                             ms=ms_a, plain_ms=pa, bound_ms=ba[0],
+                             bound_by=ba[1])
+    kernels[names[1]] = dict(max_abs_err=max(err_b, out["culled"][1]),
+                             ms=ms_b, plain_ms=pb, bound_ms=bb[0],
+                             bound_by=bb[1])
+
+
+def check_stash(dev, kernels, shared):
+    """K3 on the 150k clouds for one E-step, dense (sigma2_0) and culled
+    (an annealed sigma2), against the plain version."""
+    from probreg_tpu_torch.ops import estep_cuda as ec
+
+    def bounds(m, n, pairs):  # the stash is pass A's output, pass B's input
+        return (bound(12 * (m + n) + 4 * pairs + 8 * n, pairs * FLOPS_GAUSS),
+                bound(4 * pairs + 16 * n + 16 * m, pairs * FLOPS_MOMENTS))
+
+    check_pass_kernels(dev, kernels, shared, ("stash_den", "stash_moment"),
+                       ec.stash_estep, ec.stash_estep_plain, ec.StashPlan,
+                       "K3 stash", bounds, recompute=False)
+
+
+def check_fused_estep(dev, kernels, shared):
+    """K4 on the same inputs as K3: no stash, the Gaussian in both passes,
+    so both passes are bound by operations (12 and 11 + 8 per pair)."""
+    from probreg_tpu_torch.ops import estep_cuda as ec
+
+    def bounds(m, n, pairs):
+        return (bound(12 * (m + n) + 8 * n, pairs * FLOPS_GAUSS),
+                bound(12 * (m + n) + 4 * n + 16 * m,
+                      pairs * (FLOPS_GAUSS - 1 + FLOPS_MOMENTS)))
+
+    check_pass_kernels(dev, kernels, shared, ("fused_den", "fused_moment"),
+                       ec.fused_core, ec.fused_estep_plain, ec.FusedPlan,
+                       "K4 two-pass", bounds, recompute=True)
+
+
+# --------------------------------------------------------------------------
+# The whole-EM kernel
+# --------------------------------------------------------------------------
+
+def data_path(name):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        name)
+
+
+def bunny_clouds(lin):
+    """bench.py's bunny configuration: the bunny at voxel 0.005 and a
+    shuffled copy with 1e-3 noise, moved by the 3 x 3 map ``lin``."""
+    from probreg_tpu_torch.utils import io
+
+    rng = np.random.default_rng(3)
+    src = io.voxel_down_sample(io.read_point_cloud(data_path("bunny.pcd")),
+                               0.005)
+    tgt = src.copy()
+    rng.shuffle(tgt)
+    tgt = tgt + 1e-3 * rng.standard_normal(tgt.shape)
+    return src.astype(np.float32), (tgt @ lin.T).astype(np.float32)
+
+
+def z_rotation(deg):
+    from probreg_tpu_torch.utils import se3_op
+
+    return se3_op.euler2mat(0.0, 0.0, np.deg2rad(deg)).double().numpy()
+
+
+AFFINE_MAP = np.diag([1.1, 0.95, 1.05])
+
+
+def serving_batches(seed=4):
+    """Seeded serving traffic from the horse scan (data/horse.ply, 2,936
+    points): a ragged rigid batch of 256 pairs, source and target two
+    different random subsets of 300-1024 points, the target rotated by
+    Euler angles up to 15 degrees, shifted and given 5e-4 noise; and a
+    fixed-size affine batch of 64 pairs of 512 points with a known map."""
+    from probreg_tpu_torch.utils import io, se3_op
+
+    horse = io.read_point_cloud(data_path("horse.ply")).astype(np.float64)
+    rng = np.random.default_rng(seed)
+
+    def pair(m, n, lin):
+        src = horse[rng.choice(len(horse), m, replace=False)]
+        tgt = horse[rng.choice(len(horse), n, replace=False)]
+        tgt = (tgt @ lin.T + rng.uniform(-0.01, 0.01, 3)
+               + 5e-4 * rng.standard_normal(tgt.shape))
+        return src.astype(np.float32), tgt.astype(np.float32)
+
+    rigid = []
+    for _ in range(256):
+        m, n = rng.integers(300, 1025, 2)
+        rot = se3_op.euler2mat(*np.deg2rad(rng.uniform(-15, 15, 3))
+                               ).double().numpy()
+        rigid.append(pair(m, n, rot) + (rot,))
+    affine = []
+    for _ in range(64):
+        lin = z_rotation(rng.uniform(-10, 10)) @ np.diag(
+            rng.uniform(0.9, 1.1, 3))
+        affine.append(pair(512, 512, lin) + (lin,))
+    return rigid, affine
+
+
+def em_pair_check(name, src, tgt, kind, smask=None, tmask=None):
+    """The whole-EM kernel against its plain version on one pair: tightly
+    after 1 and 5 iterations (only the order of the sums differs), loosely
+    over a whole run (the iterations amplify it, and the two may stop one
+    iteration apart). Returns the largest |lin|, |t| error seen."""
+    from probreg_tpu_torch.ops import em_cuda as em
+
+    worst = 0.0
+    for maxiter, tol, atol, rtol in ((1, 0.0, 1e-5, 1e-5),
+                                     (5, 0.0, 1e-5, 1e-5),
+                                     (100, 1e-3, 2e-4, 1e-3)):
+        kw = dict(kind=kind, w=0.0, maxiter=maxiter, tol=tol,
+                  update_scale=True)
+        masks = (None, None) if smask is None else (smask[None], tmask[None])
+        got = em.run_em_cpd_fused_batch(src[None], tgt[None], *masks, **kw)
+        want = em.run_em_cpd_fused_plain(
+            *em.compact_batch(src[None], tgt[None], *masks),
+            affine=kind == "affine", w=0.0, maxiter=maxiter, tol=tol,
+            update_scale=True)[0]
+        torch.cuda.synchronize()
+        d_lin = float((got[0][0].reshape(-1) - want[:9]).abs().max())
+        d_t = float((got[1][0] - want[9:12]).abs().max())
+        r_s2 = abs(float(got[2][0]) / float(want[12]) - 1.0)
+        r_q = abs(float(got[3][0]) / float(want[13]) - 1.0)
+        log(f"  {name} {kind} maxiter {maxiter}: iterations kernel "
+            f"{int(got[4][0])} plain {int(want[14])}, |lin| {d_lin:.2e} |t| "
+            f"{d_t:.2e} sigma2 rel {r_s2:.2e} q rel {r_q:.2e}")
+        if not (d_lin <= atol and d_t <= atol and r_s2 <= rtol
+                and (maxiter > 5 or r_q <= rtol)):
+            raise AssertionError(f"whole-EM kernel disagrees with its plain "
+                                 f"version: {name} {kind} maxiter {maxiter}")
+        worst = max(worst, d_lin, d_t)
+    return worst
+
+
+def em_batch_tensors(pairs, dev):
+    from probreg_tpu_torch.utils import interop
+
+    srcs, smask = interop.pad_ragged([p[0] for p in pairs], device=dev)
+    tgts, tmask = interop.pad_ragged([p[1] for p in pairs], device=dev)
+    return srcs, tgts, smask, tmask
+
+
+def check_em(dev, kernels):
+    """K1 against run_em_cpd_fused_plain on the card: single pairs at the
+    gate's edge (1024 x 1024), at the bunny's size and masked, then the two
+    serving batches that run_batch drives, at a fixed depth, which give the
+    kernels line its numbers."""
+    from probreg_tpu_torch.ops import em_cuda as em
+
+    log("[K1 whole EM] single pairs")
+    rng = np.random.default_rng(5)
+    big = rng.uniform(-1, 1, (1024, 3))
+    pairs = {"1024x1024": (big, rng.permutation(
+        big @ z_rotation(12.0).T + 0.01 * rng.standard_normal(big.shape)))}
+    pairs["bunny 390"] = bunny_clouds(z_rotation(10.0))
+    worst = {"rigid": 0.0, "affine": 0.0}
+    for name, (src, tgt) in pairs.items():
+        src = torch.as_tensor(src, dtype=torch.float32, device=dev)
+        tgt = torch.as_tensor(tgt, dtype=torch.float32, device=dev)
+        for kind in worst:
+            worst[kind] = max(worst[kind],
+                              em_pair_check(name, src, tgt, kind))
+        if name == "1024x1024":  # masked: 700 of 1024 and 900 of 1024 valid
+            smask = torch.zeros(1024, device=dev)
+            tmask = torch.zeros(1024, device=dev)
+            smask[torch.as_tensor(rng.permutation(1024)[:700])] = 1.0
+            tmask[torch.as_tensor(rng.permutation(1024)[:900])] = 1.0
+            worst["rigid"] = max(worst["rigid"], em_pair_check(
+                "masked 700/900", src, tgt, "rigid", smask, tmask))
+        for kind in worst:
+            kw = dict(kind=kind, w=0.0, maxiter=100, tol=1e-3,
+                      update_scale=True)
+            its = int(em._run_em_cpd_fused(src, tgt, **kw)[4])
+            ms = timed(lambda: em._run_em_cpd_fused(src, tgt, **kw), 5)
+            m, n = src.shape[0], tgt.shape[0]
+            b_ms, b_by = bound(12 * (m + n) + 64, its * m * n * FLOPS_EM)
+            log(f"  {name} {kind}: {its} iterations in {ms:.3f} ms "
+                f"({ms / its * 1e3:.1f} us per iteration), bound "
+                f"{b_ms:.4f} ms ({b_by}); one block on one SM")
+
+    # The serving batches, through the wrapper (masks and their compaction
+    # included) against the plain version on each pair's own unpadded
+    # clouds. Both run at a fixed depth (tol 0: exactly EM_BATCH_ITERS
+    # iterations), because at tol 1e-3 the loop test |q - q_prev| < tol sits
+    # at the f32 resolution of q (~1e-3 at |q| ~ 5,000), so two correct
+    # versions stop iterations apart on slowly converging pairs. Times and
+    # the bound are of that same fixed-depth run.
+    rigid, affine = serving_batches()
+    for key, kind, batch in (("em_rigid", "rigid", rigid),
+                             ("em_affine", "affine", affine)):
+        srcs, tgts, smask, tmask = em_batch_tensors(batch, dev)
+        if kind == "affine":  # fixed-size: no masks, as run_batch sends it
+            smask = tmask = None
+        args = dict(w=0.0, maxiter=EM_BATCH_ITERS, tol=0.0, update_scale=True)
+        lin, t, sigma2, _, it = em.run_em_cpd_fused_batch(
+            srcs, tgts, smask, tmask, kind=kind, **args)
+        if not bool((it == EM_BATCH_ITERS).all()):
+            raise AssertionError("whole-EM batch: wrong iteration count")
+        own = [(torch.as_tensor(p[0], device=dev)[None],
+                torch.as_tensor(p[1], device=dev)[None]) for p in batch]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = torch.cat([em.run_em_cpd_fused_plain(
+            s, x, None, affine=kind == "affine", **args) for s, x in own])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = torch.cat([lin.reshape(-1, 9), t], dim=1)
+        err = float((got - want[:, :12]).abs().max())
+        r_s2 = float((sigma2 / want[:, 12] - 1.0).abs().max())
+        log(f"[K1 whole EM] {kind} batch of {len(batch)}, {EM_BATCH_ITERS} "
+            f"iterations: max |lin|, |t| {err:.2e}, sigma2 rel {r_s2:.2e}")
+        # sigma2 is a small difference of large f32 sums (xx - scale
+        # tr(A^T R)); both versions carry that cancellation noise.
+        if not (err <= 1e-5 and r_s2 <= 1e-3):
+            raise AssertionError(f"whole-EM {kind} batch disagrees with its "
+                                 "plain version")
+        # Raw launches on the compacted tensors (the wrapper's compaction
+        # is not the kernel's time).
+        s_c, t_c, counts = em.compact_batch(srcs, tgts, smask, tmask)
+        raw = dict(affine=kind == "affine", **args)
+        ms = timed(lambda: em._em_cuda(s_c, t_c, counts, **raw), 5)
+        sizes = torch.tensor([[p[0].shape[0], p[1].shape[0]] for p in batch],
+                             dtype=torch.float64)
+        pair_its = float(sizes.prod(1).sum()) * EM_BATCH_ITERS
+        b_ms, b_by = bound(float(12 * sizes.sum() + 64 * len(batch)),
+                           pair_its * FLOPS_EM)
+        log(f"  kernel {ms:.3f} ms  plain {plain_ms:.1f} ms (a host loop "
+            f"over the pairs)  bound {b_ms:.4f} ms ({b_by}), "
+            f"{pair_its:.4g} pair-iterations")
+        kernels[key] = dict(max_abs_err=max(err, worst[kind]), ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        # As served (the entry point's maxiter 50, tol 1e-3): the kernel
+        # alone, for its iteration spread and time.
+        raw.update(maxiter=50, tol=1e-3)
+        it = em._em_cuda(s_c, t_c, counts, **raw)[:, 14].cpu().double()
+        ms = timed(lambda: em._em_cuda(s_c, t_c, counts, **raw), 5)
+        pair_its = float((it * sizes.prod(1)).sum())
+        log(f"  served (maxiter 50, tol 1e-3): iterations {int(it.min())}-"
+            f"{int(it.max())}, kernel {ms:.3f} ms, {pair_its:.4g} "
+            f"pair-iterations, bound "
+            f"{bound(0.0, pair_its * FLOPS_EM)[0]:.4f} ms (operations)")
+
+
+def reset_launches():
+    from probreg_tpu_torch.ops import em_cuda, estep_cuda
+
+    em_cuda.reset_launches()
+    estep_cuda.reset_launches()
+
+
+def all_launches():
+    from probreg_tpu_torch.ops import em_cuda, estep_cuda
+
+    return {**estep_cuda.LAUNCHES, **em_cuda.LAUNCHES}
+
+
+def expect_launches(path, **want):
+    """Every kernel named launched that often on ``path``, no other did."""
+    got = all_launches()
+    log(f"  launches: { {k: v for k, v in got.items() if v} }")
+    for name, count in got.items():
+        if count != want.get(name, 0):
+            raise AssertionError(f"{path}: {name} launched {count} times, "
+                                 f"expected {want.get(name, 0)}")
 
 
 def run_large_registration(dev, launches):
@@ -272,16 +596,16 @@ def run_large_registration(dev, launches):
     ec._active_mask = recording_mask
     torch.cuda.reset_peak_memory_stats()
     try:
-        ec.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         res = cpd.registration_cpd(src, tgt, "rigid", maxiter=40, tol=1e-8)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches.update(stash_den=ec.LAUNCHES["stash_den"],
-                        stash_moment=ec.LAUNCHES["stash_moment"])
-        unexpected = ec.LAUNCHES["estep_small"]
+        got = all_launches()
     finally:
         ec._active_mask = active_mask
+    launches.update(stash_den=got["stash_den"],
+                    stash_moment=got["stash_moment"])
     peak = torch.cuda.max_memory_allocated()
     err = float(se3_op.rotation_angle(res.transformation.rot.cpu().double(),
                                       torch.as_tensor(rot).double()))
@@ -290,81 +614,182 @@ def run_large_registration(dev, launches):
         f"{sigma2:.6g}, rotation error {err:.3e} rad")
     log(f"  active tile fraction: first E-step {float(masks[0]):.4f}, "
         f"last {float(masks[-1]):.4f}; peak memory {peak / 2**30:.3f} GiB")
-    log(f"  launches: {launches}")
-    if not (launches["stash_den"] > 0 and launches["stash_moment"] > 0):
+    if not got["stash_den"] > 0:
         raise AssertionError("the main path did not launch the stash kernels")
-    if unexpected:
-        raise AssertionError("estep_small launched on the 150k path")
+    expect_launches("150k registration", stash_den=got["stash_den"],
+                    stash_moment=got["stash_den"])
+    if not (math.isfinite(sigma2) and err <= ROT_ERR_MAX):
+        raise AssertionError(f"150k registration wrong: rotation error {err}")
     # The same registration with every stash E-step run by the plain
-    # version: the kernels may change only the summation order.
+    # version: the kernels may change only the summation order. Both at a
+    # smaller depth, because the plain version takes ~0.9 s per iteration.
+    res = cpd.registration_cpd(src, tgt, "rigid", maxiter=COMPARE_ITERS,
+                               tol=1e-8)
     stash_estep = ec.stash_estep
     ec.stash_estep = ec.stash_estep_plain
     try:
         t0 = time.perf_counter()
-        ref = cpd.registration_cpd(src, tgt, "rigid", maxiter=40, tol=1e-8)
+        ref = cpd.registration_cpd(src, tgt, "rigid", maxiter=COMPARE_ITERS,
+                                   tol=1e-8)
         torch.cuda.synchronize()
     finally:
         ec.stash_estep = stash_estep
     d_rot = float((res.transformation.rot - ref.transformation.rot)
                   .abs().max())
     d_t = float((res.transformation.t - ref.transformation.t).abs().max())
-    log(f"  plain-version registration {time.perf_counter() - t0:.3f} s: "
-        f"max |rot diff| {d_rot:.3e}, max |t diff| {d_t:.3e}, sigma2 "
-        f"{float(ref.sigma2):.6g}")
-    if not (math.isfinite(sigma2) and err <= ROT_ERR_MAX):
-        raise AssertionError(f"150k registration wrong: rotation error {err}")
+    log(f"  plain-version registration, {COMPARE_ITERS} iterations (not 40, "
+        f"to save time), {time.perf_counter() - t0:.3f} s: max |rot diff| "
+        f"{d_rot:.3e}, max |t diff| {d_t:.3e}, sigma2 {float(ref.sigma2):.6g}"
+        f" against {float(res.sigma2):.6g}")
     if not (d_rot <= 1e-4 and d_t <= 1e-4):
         raise AssertionError("kernel and plain registrations disagree")
+
+
+def run_two_pass_path(dev, launches):
+    """registration_cpd(use_pallas=True) on the 150k clouds: the streaming
+    EM through the two-pass kernels, against the stash-driven run."""
+    from probreg_tpu_torch import cpd
+
+    src, tgt, _ = large_clouds(dev)
+    kw = dict(maxiter=TWO_PASS_ITERS, tol=1e-8)
+    log(f"[two-pass path] registration_cpd rigid use_pallas=True, "
+        f"{N_LARGE:,} points, maxiter {TWO_PASS_ITERS}")
+    cpd.registration_cpd(src, tgt, "rigid", use_pallas=True, **kw)  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = cpd.registration_cpd(src, tgt, "rigid", use_pallas=True, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect_launches("two-pass path", fused_den=TWO_PASS_ITERS,
+                    fused_moment=TWO_PASS_ITERS)
+    launches.update(fused_den=TWO_PASS_ITERS, fused_moment=TWO_PASS_ITERS)
+    t0 = time.perf_counter()
+    ref = cpd.registration_cpd(src, tgt, "rigid", **kw)
+    torch.cuda.synchronize()
+    wall_ref = time.perf_counter() - t0
+    d_rot = float((res.transformation.rot - ref.transformation.rot)
+                  .abs().max())
+    d_t = float((res.transformation.t - ref.transformation.t).abs().max())
+    log(f"  two-pass {wall:.3f} s, stash {wall_ref:.3f} s for "
+        f"{TWO_PASS_ITERS} iterations: max |rot diff| {d_rot:.3e}, max "
+        f"|t diff| {d_t:.3e}, sigma2 {float(res.sigma2):.6g} against "
+        f"{float(ref.sigma2):.6g}")
+    if not (d_rot <= 1e-4 and d_t <= 1e-4 and math.isfinite(float(res.q))):
+        raise AssertionError("two-pass and stash registrations disagree")
 
 
 def run_small_estep_path(dev, launches):
     """The public E-step of a small problem goes through estep_small."""
     from probreg_tpu_torch import cpd
-    from probreg_tpu_torch.ops import estep_cuda as ec
     from probreg_tpu_torch.ops import estep as eo
 
     rng = np.random.default_rng(2)
     src = rng.uniform(-1, 1, (1000, 3)).astype(np.float32)
     tgt = rng.uniform(-1, 1, (1000, 3)).astype(np.float32)
     reg = cpd.RigidCPD(src)
-    ec.reset_launches()
+    reset_launches()
     res = reg.expectation_step(src, tgt, 0.1, 0.05)
     torch.cuda.synchronize()
-    launches["estep_small"] = ec.LAUNCHES["estep_small"]
-    log(f"[E-step path] RigidCPD.expectation_step, 1000 x 1000: launches "
-        f"{ec.LAUNCHES}")
-    if launches["estep_small"] != 1:
-        raise AssertionError("the small E-step did not launch estep_small")
+    log("[E-step path] RigidCPD.expectation_step, 1000 x 1000")
+    expect_launches("small E-step", estep_small=1)
+    launches["estep_small"] = 1
     ref = eo.estep_xla(torch.as_tensor(src, device=dev),
                        torch.as_tensor(tgt, device=dev), 0.1, 0.05)
     for name, a, b in zip(("pt1", "p1", "px", "n_p"), res, ref):
         compare(name, a, b)
 
 
-def run_bunny(dev):
-    """bench.py's bunny configuration through the dense whole-EM loop."""
+def run_bunny(dev, launches):
+    """bench.py's bunny configuration, rigid and affine, each as one launch
+    of the whole-EM kernel, held to the port's own dense loop."""
     from probreg_tpu_torch import cpd
-    from probreg_tpu_torch.utils import io, se3_op
+    from probreg_tpu_torch.utils import se3_op
 
-    rng = np.random.default_rng(3)
-    src = io.voxel_down_sample(io.read_point_cloud(
-        os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
-                     "bunny.pcd")), 0.005)
-    tgt = src.copy()
-    rng.shuffle(tgt)
-    tgt = tgt + 1e-3 * rng.standard_normal(tgt.shape)
-    rot = se3_op.euler2mat(0.0, 0.0, np.deg2rad(10.0)).double().numpy()
-    tgt = (tgt @ rot.T).astype(np.float32)
-    t0 = time.perf_counter()
-    res = cpd.registration_cpd(src.astype(np.float32), tgt, maxiter=100,
-                               tol=1e-3)
-    torch.cuda.synchronize()
-    ang = np.rad2deg(se3_op.mat2euler(res.transformation.rot.cpu()).numpy())
-    log(f"[bunny] {src.shape[0]} points, dense loop, "
-        f"{time.perf_counter() - t0:.3f} s (first call), recovered Euler "
-        f"{np.round(ang, 3).tolist()} deg")
-    if not np.allclose(ang, [0.0, 0.0, 10.0], atol=0.5):
-        raise AssertionError("bunny registration did not recover 10 deg")
+    for kind, lin_true in (("rigid", z_rotation(10.0)),
+                           ("affine", z_rotation(10.0) @ AFFINE_MAP)):
+        src, tgt = bunny_clouds(lin_true)
+        kw = dict(maxiter=100, tol=1e-3)
+        cpd.registration_cpd(src, tgt, kind, **kw)  # warm
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = cpd.registration_cpd(src, tgt, kind, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        log(f"[bunny] {kind}, {src.shape[0]} points, second call "
+            f"{wall:.3f} ms")
+        expect_launches(f"bunny {kind}", **{f"em_{kind}": 1})
+        ys = torch.as_tensor(src, device=dev)
+        xs = torch.as_tensor(tgt, device=dev)
+        t0 = time.perf_counter()
+        lin, t, scale, _, _ = cpd._run_em_t(
+            ys, xs, kind=kind, w=0.0, update_scale=kind == "rigid", **kw)
+        torch.cuda.synchronize()
+        loop_ms = (time.perf_counter() - t0) * 1e3
+        tr = res.transformation
+        if kind == "rigid":
+            d_ang = float(se3_op.rotation_angle(tr.rot.double(),
+                                                lin.double()))
+            ang = np.rad2deg(se3_op.mat2euler(tr.rot.cpu()).numpy())
+            log(f"  dense loop {loop_ms:.1f} ms; rotation against it "
+                f"{d_ang:.2e} rad, |t| {float((tr.t - t).abs().max()):.2e}, "
+                f"recovered Euler {np.round(ang, 3).tolist()} deg")
+            if not (d_ang <= 2e-4
+                    and np.allclose(ang, [0.0, 0.0, 10.0], atol=0.5)):
+                raise AssertionError("bunny registration wrong")
+        else:
+            d_lin = float((tr.b - lin).abs().max())
+            d_true = float(np.abs(tr.b.cpu().numpy() - lin_true).max())
+            log(f"  dense loop {loop_ms:.1f} ms; |B| against it {d_lin:.2e}, "
+                f"against the known map {d_true:.2e}")
+            if not (d_lin <= 2e-4 and d_true <= 2e-2):
+                raise AssertionError("bunny affine registration wrong")
+
+
+def run_batch(dev, launches):
+    """registration_cpd_batch on the serving batches: one launch each."""
+    from probreg_tpu_torch import cpd
+    from probreg_tpu_torch.utils import se3_op
+
+    rigid, affine = serving_batches()
+    for kind, batch in (("rigid", rigid), ("affine", affine)):
+        srcs, tgts = [p[0] for p in batch], [p[1] for p in batch]
+        if kind == "affine":  # fixed-size: arrays, no masks
+            srcs, tgts = np.stack(srcs), np.stack(tgts)
+        cpd.registration_cpd_batch(srcs, tgts, kind)  # warm
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = cpd.registration_cpd_batch(srcs, tgts, kind)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        log(f"[batch] registration_cpd_batch {kind}, {len(batch)} pairs, "
+            f"second call {wall:.2f} ms ({wall / len(batch):.3f} ms per pair)")
+        expect_launches(f"{kind} batch", **{f"em_{kind}": 1})
+        launches[f"em_{kind}"] = 1
+        errs, d_single = [], 0.0
+        for (src, tgt, lin_true), r in zip(batch, res):
+            one = cpd.registration_cpd(src, tgt, kind).transformation
+            if kind == "rigid":
+                errs.append(np.rad2deg(float(se3_op.rotation_angle(
+                    r.transformation.rot.cpu().double(),
+                    torch.as_tensor(lin_true)))))
+                d = (one.rot * one.scale
+                     - r.transformation.rot * r.transformation.scale)
+            else:
+                errs.append(float(np.abs(r.transformation.b.cpu().numpy()
+                                         - lin_true).max()))
+                d = one.b - r.transformation.b
+            d_single = max(d_single, float(d.abs().max()))
+        unit = "deg rotation error" if kind == "rigid" else "|B - known map|"
+        log(f"  {unit}: max {max(errs):.4f} median {np.median(errs):.4f}; "
+            f"max difference to the single-pair registrations "
+            f"{d_single:.2e}")
+        limit = (5.0, 1.0) if kind == "rigid" else (0.15, 0.05)
+        if not (max(errs) <= limit[0] and np.median(errs) <= limit[1]
+                and d_single <= 1e-6):
+            raise AssertionError(f"{kind} batch registration wrong")
 
 
 def main() -> int:
@@ -386,26 +811,32 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    kernels, launches, failed = {}, {}, []
+    kernels, launches, shared, failed = {}, {}, {}, []
     for phase, args in ((check_small, (dev, kernels)),
-                        (check_stash, (dev, kernels)),
+                        (check_stash, (dev, kernels, shared)),
+                        (check_fused_estep, (dev, kernels, shared)),
+                        (check_em, (dev, kernels)),
                         (run_large_registration, (dev, launches)),
+                        (run_two_pass_path, (dev, launches)),
                         (run_small_estep_path, (dev, launches)),
-                        (run_bunny, (dev,))):
+                        (run_bunny, (dev, launches)),
+                        (run_batch, (dev, launches))):
+        t0 = time.perf_counter()
         try:
             phase(*args)
         except Exception:  # report every phase; the run fails below
             traceback.print_exc()
             failed.append(phase.__name__)
+        log(f"  ({phase.__name__}: {time.perf_counter() - t0:.1f} s)")
     if failed:
         log(f"FAILED phases: {failed}")
         return 1
 
     line = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches[name],
          **kernels[name], "library_ms": None}
-        for name in ("estep_small", "stash_den", "stash_moment")]}
+        for name, (source, replaces) in KERNELS.items()]}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

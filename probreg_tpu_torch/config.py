@@ -30,6 +30,15 @@ class Config:
     # Largest M*N for the whole-EM dense loop (cpd._run_em_t), which holds
     # the (M, N) posterior; above it registration streams (cpd._run_em).
     transposed_em_max_pairs: int = 1 << 28
+    # Run small 3-D rigid / affine pairs as one launch of the whole-EM
+    # kernel (ops/em_cuda.py), up to this many pairs M*N.
+    use_fused_em: bool = True
+    fused_em_max_pairs: int = 1 << 20
+    # Opt-in: the two-pass E-step kernels (estep_cuda.estep_fused) for
+    # M*N >= pallas_min_pairs where no other kernel branch applies. The
+    # names are the reference's, so both packages read one set of knobs.
+    use_pallas: bool = False
+    pallas_min_pairs: int = 1 << 22
     # Route large E-steps through the tile-culled stash kernels.
     use_culled_estep: bool = True
     # Source / target tile sizes of the stash E-step.

@@ -1,0 +1,462 @@
+// Whole-EM rigid / affine CPD for Hopper (sm_90a), bound to Python with ctypes.
+//
+// Replaces probreg_tpu/ops/em_pallas.py:_em_kernel (run_em_rigid_fused,
+// run_em_affine_fused, run_em_cpd_fused_batch): one launch runs a whole
+// registration, E-steps, M-steps and the convergence test included, with no
+// host read between launch and result. One thread block is one pair, and
+// the grid is the batch; every block keeps its own convergence state, so
+// the pairs of a ragged batch stop at their own iterations.
+//
+// What the TPU kernel keeps in VMEM, the (M, N) posterior, does not fit the
+// 227 KB of shared memory of an SM (4 MB at 1024 x 1024), so it is never
+// stored: pass A gives a thread (or a group of 2..32 adjacent lanes, when
+// there are fewer columns than threads) one target column and a loop over
+// the transformed sources in shared memory, which completes the column's
+// normalizer with no cross-block sum; pass B gives a thread group one source
+// row and a loop over the targets, recomputes the Gaussian and multiplies by
+// 1/den from shared memory. Both clouds, the transformed source and 1/den
+// stay in shared memory for the whole run: 32 B per source point and 20 B
+// per target point. The kernel is bound by operations (two Gaussians and
+// the moment FMAs per pair and iteration); its only device-memory traffic
+// is reading the clouds once and writing 16 floats.
+//
+// d2 is (y - x).(y - x) in f32 FMAs on clouds centred on their shared
+// centroid (computed here, as cpd._run_em_t does; t converts back at the
+// end). IEEE f32, expf, no fast-math. All sums are fixed-order trees
+// (shuffles, then warps in order): no atomics, so a result is the same from
+// run to run.
+//
+// The rigid M-step is Horn's quaternion method like the TPU kernel, but the
+// dominant eigenvector of the 4 x 4 matrix comes from cyclic Jacobi sweeps
+// in one thread, in double: it converges for every symmetric matrix, needs
+// no cancellation guard, and returns a unit vector of an orthonormal basis
+// even when the top eigenvalues tie (a planar or collinear cloud), so the
+// rotation is always proper (det = +1). The affine M-step is
+// B = a inv(yp1y) with a 3 x 3 cofactor inverse, also in double.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kEpsF32 = 1.1920928955078125e-07f;  // np.finfo(f32).eps
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRed = 18;  // widest block reduction (the M-step sums)
+
+struct State {
+  float lin[9], t[3], cen[3];
+  float sigma2, q, q_prev, wratio;
+  float inv2s2, c;            // of the E-step about to run
+  float mu_x[3], mu_y[3], n_p, xx;
+  int it, go;
+};
+
+__device__ __forceinline__ float gauss(float4 y, float4 x, float inv2s2) {
+  const float dx = y.x - x.x, dy = y.y - x.y, dz = y.z - x.z;
+  return expf(-(dx * dx + dy * dy + dz * dz) * inv2s2);
+}
+
+// Sum over the `width` adjacent lanes of a group (width a power of two <= 32).
+__device__ __forceinline__ float group_sum(float v, int width) {
+  for (int o = width >> 1; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Block-wide sums of K values per thread, in a fixed order; the totals land
+// in out[0..K) and are visible to every thread on return.
+template <int K>
+__device__ void block_reduce(float (&v)[K], float* red, float* out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = group_sum(v[k], 32);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) red[warp * K + k] = v[k];
+  }
+  __syncthreads();
+  if (threadIdx.x < K) {
+    float s = 0.0f;
+    for (int w = 0; w < kWarps; ++w) s += red[w * K + threadIdx.x];
+    out[threadIdx.x] = s;
+  }
+  __syncthreads();
+}
+
+// Lanes that share one column (pass A) or one row (pass B): the largest
+// power of two <= 32 that still gives every item its own group.
+__device__ __forceinline__ int pick_split(int items) {
+  int s = 1;
+  while (s < 32 && 2 * s * items <= kThreads) s *= 2;
+  return s;
+}
+
+// Eigenvectors of a symmetric 4 x 4 by cyclic Jacobi; returns in q the unit
+// eigenvector of the largest eigenvalue.
+__device__ void dominant_eigvec4(double a[4][4], double q[4]) {
+  double v[4][4];
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) v[i][j] = (i == j) ? 1.0 : 0.0;
+  for (int sweep = 0; sweep < 16; ++sweep) {
+    double off = 0.0, diag = 0.0;
+    for (int i = 0; i < 4; ++i) {
+      diag += a[i][i] * a[i][i];
+      for (int j = i + 1; j < 4; ++j) off += a[i][j] * a[i][j];
+    }
+    if (off <= 1e-32 * diag) break;
+    for (int p = 0; p < 3; ++p) {
+      for (int r = p + 1; r < 4; ++r) {
+        const double apr = a[p][r];
+        if (apr == 0.0) continue;
+        const double theta = (a[r][r] - a[p][p]) / (2.0 * apr);
+        const double tt = (theta >= 0.0 ? 1.0 : -1.0) /
+                          (fabs(theta) + sqrt(theta * theta + 1.0));
+        const double c = 1.0 / sqrt(tt * tt + 1.0), s = tt * c;
+        for (int k = 0; k < 4; ++k) {
+          const double akp = a[k][p], akr = a[k][r];
+          a[k][p] = c * akp - s * akr;
+          a[k][r] = s * akp + c * akr;
+        }
+        for (int k = 0; k < 4; ++k) {
+          const double apk = a[p][k], ark = a[r][k];
+          a[p][k] = c * apk - s * ark;
+          a[r][k] = s * apk + c * ark;
+        }
+        for (int k = 0; k < 4; ++k) {
+          const double vkp = v[k][p], vkr = v[k][r];
+          v[k][p] = c * vkp - s * vkr;
+          v[k][r] = s * vkp + c * vkr;
+        }
+      }
+    }
+  }
+  int best = 0;
+  for (int i = 1; i < 4; ++i)
+    if (a[i][i] > a[best][best]) best = i;
+  double nrm = 0.0;
+  for (int k = 0; k < 4; ++k) nrm += v[k][best] * v[k][best];
+  nrm = sqrt(nrm > 1e-300 ? nrm : 1e-300);
+  for (int k = 0; k < 4; ++k) q[k] = v[k][best] / nrm;
+}
+
+// The M-step of one iteration, in one thread, from the block's sums:
+// s[0..9) = a = sum_i px_i (y_i - mu_y)^T, s[9..12) = sum_i p1_i (y_i - mu_y),
+// s[12..18) = yp1y (xx, xy, xz, yy, yz, zz). Updates st for the next E-step.
+__device__ void mstep(State& st, const float* s, int maxiter, float tol,
+                      int update_scale, int affine) {
+  const double n_p = st.n_p;
+  double a[3][3];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      a[i][j] = (double)s[3 * i + j] - (double)st.mu_x[i] * (double)s[9 + j];
+  double mx2 = 0.0;
+  for (int i = 0; i < 3; ++i) mx2 += (double)st.mu_x[i] * (double)st.mu_x[i];
+  const double tr_xp1x = (double)st.xx - n_p * mx2;
+  const double yy[3][3] = {{s[12], s[13], s[14]},
+                           {s[13], s[15], s[16]},
+                           {s[14], s[16], s[17]}};
+  double lin[3][3], resid, qnum;
+  if (affine) {
+    double cof[3][3];  // cofactors of the symmetric yp1y (symmetric too)
+    cof[0][0] = yy[1][1] * yy[2][2] - yy[1][2] * yy[2][1];
+    cof[0][1] = yy[1][2] * yy[2][0] - yy[1][0] * yy[2][2];
+    cof[0][2] = yy[1][0] * yy[2][1] - yy[1][1] * yy[2][0];
+    cof[1][1] = yy[0][0] * yy[2][2] - yy[0][2] * yy[2][0];
+    cof[1][2] = yy[0][1] * yy[2][0] - yy[0][0] * yy[2][1];
+    cof[2][2] = yy[0][0] * yy[1][1] - yy[0][1] * yy[1][0];
+    cof[1][0] = cof[0][1]; cof[2][0] = cof[0][2]; cof[2][1] = cof[1][2];
+    double det = yy[0][0] * cof[0][0] + yy[0][1] * cof[0][1]
+                 + yy[0][2] * cof[0][2];
+    if (fabs(det) < 1e-30) det = 1e-30;
+    double tr_ab = 0.0;
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) {
+        double b = 0.0;
+        for (int k = 0; k < 3; ++k) b += a[i][k] * cof[k][j];
+        lin[i][j] = b / det;
+        tr_ab += a[i][j] * lin[i][j];
+      }
+    resid = qnum = tr_xp1x - tr_ab;
+  } else {
+    // Horn: S = a^T (source x target), dominant eigenvector of N(S).
+    const double sxx = a[0][0], sxy = a[1][0], sxz = a[2][0];
+    const double syx = a[0][1], syy = a[1][1], syz = a[2][1];
+    const double szx = a[0][2], szy = a[1][2], szz = a[2][2];
+    double k4[4][4] = {
+        {sxx + syy + szz, syz - szy, szx - sxz, sxy - syx},
+        {syz - szy, sxx - syy - szz, sxy + syx, szx + sxz},
+        {szx - sxz, sxy + syx, -sxx + syy - szz, syz + szy},
+        {sxy - syx, szx + sxz, syz + szy, -sxx - syy + szz}};
+    double q[4];
+    dominant_eigvec4(k4, q);
+    const double qw = q[0], qx = q[1], qy = q[2], qz = q[3];
+    const double rot[3][3] = {
+        {qw * qw + qx * qx - qy * qy - qz * qz, 2.0 * (qx * qy - qw * qz),
+         2.0 * (qx * qz + qw * qy)},
+        {2.0 * (qx * qy + qw * qz), qw * qw - qx * qx + qy * qy - qz * qz,
+         2.0 * (qy * qz - qw * qx)},
+        {2.0 * (qx * qz - qw * qy), 2.0 * (qy * qz + qw * qx),
+         qw * qw - qx * qx - qy * qy + qz * qz}};
+    double tr_atr = 0.0;
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) tr_atr += a[i][j] * rot[i][j];
+    const double tr_yp1y = yy[0][0] + yy[1][1] + yy[2][2];
+    const double scale = update_scale ? tr_atr / tr_yp1y : 1.0;
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) lin[i][j] = scale * rot[i][j];
+    resid = update_scale ? tr_xp1x - scale * tr_atr
+                         : tr_xp1x - 2.0 * scale * tr_atr + tr_yp1y;
+    // Equals resid up to rounding when the scale is updated; formed
+    // separately as the reference does.
+    qnum = tr_xp1x - 2.0 * scale * tr_atr + scale * scale * tr_yp1y;
+  }
+  double sigma2 = resid / (n_p * 3.0);
+  sigma2 = sigma2 > (double)kEpsF32 ? sigma2 : (double)kEpsF32;
+  st.q_prev = st.q;
+  st.q = (float)(qnum / (2.0 * sigma2) + 3.0 * n_p * 0.5 * log(sigma2));
+  st.sigma2 = (float)sigma2;
+  for (int i = 0; i < 3; ++i) {
+    double t = st.mu_x[i];
+    for (int j = 0; j < 3; ++j) {
+      st.lin[3 * i + j] = (float)lin[i][j];
+      t -= lin[i][j] * (double)st.mu_y[j];
+    }
+    st.t[i] = (float)t;
+  }
+  st.it += 1;
+  // Go on while |q - q_prev| >= tol; a NaN q stops the loop.
+  st.go = st.it < maxiter && fabsf(st.q - st.q_prev) >= tol;
+  const double s2 = st.sigma2;
+  st.inv2s2 = (float)(0.5 / s2);
+  st.c = (float)((double)st.wratio * pow(2.0 * 3.14159265358979323846 * s2,
+                                         1.5));
+}
+
+__global__ void __launch_bounds__(kThreads)
+em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
+          const float* __restrict__ tgt, int n_cap,   // (B, n_cap, 3)
+          const int* __restrict__ counts,  // (B, 2) valid points, or null
+          float w, int maxiter, float tol, int update_scale, int affine,
+          float* __restrict__ out) {       // (B, 16)
+  extern __shared__ float4 pts[];
+  float4* ys = pts;                // centred source
+  float4* ts = ys + m_cap;         // transformed source, then (px, p1)
+  float4* xs = ts + m_cap;         // centred target, |x|^2 in w
+  float* inv_den = reinterpret_cast<float*>(xs + n_cap);
+  __shared__ float red[kWarps * kRed];
+  __shared__ float sums[kRed];
+  __shared__ State st;
+
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int m = counts ? counts[2 * b] : m_cap;
+  const int n = counts ? counts[2 * b + 1] : n_cap;
+  src += (size_t)b * m_cap * 3;
+  tgt += (size_t)b * n_cap * 3;
+
+  // Load, then centre on the shared centroid of the valid points.
+  float v[kRed];
+#pragma unroll
+  for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
+  for (int i = tid; i < m; i += kThreads) {
+    const float4 p = make_float4(src[3 * i], src[3 * i + 1], src[3 * i + 2],
+                                 0.0f);
+    ys[i] = p;
+    v[0] += p.x; v[1] += p.y; v[2] += p.z;
+  }
+  for (int j = tid; j < n; j += kThreads) {
+    const float4 p = make_float4(tgt[3 * j], tgt[3 * j + 1], tgt[3 * j + 2],
+                                 0.0f);
+    xs[j] = p;
+    v[3] += p.x; v[4] += p.y; v[5] += p.z;
+  }
+  block_reduce(v, red, sums);
+  const float inv_mn = 1.0f / (float)(m + n);
+  const float cx = (sums[0] + sums[3]) * inv_mn;
+  const float cy = (sums[1] + sums[4]) * inv_mn;
+  const float cz = (sums[2] + sums[5]) * inv_mn;
+#pragma unroll
+  for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
+  for (int i = tid; i < m; i += kThreads) {
+    float4 p = ys[i];
+    p.x -= cx; p.y -= cy; p.z -= cz;
+    ys[i] = p;
+    v[0] += p.x; v[1] += p.y; v[2] += p.z;
+    v[6] += p.x * p.x + p.y * p.y + p.z * p.z;
+  }
+  for (int j = tid; j < n; j += kThreads) {
+    float4 p = xs[j];
+    p.x -= cx; p.y -= cy; p.z -= cz;
+    p.w = p.x * p.x + p.y * p.y + p.z * p.z;
+    xs[j] = p;
+    v[3] += p.x; v[4] += p.y; v[5] += p.z;
+    v[7] += p.w;
+  }
+  block_reduce(v, red, sums);
+  if (tid == 0) {
+    // sigma2_0 = mean pairwise squared distance / 3, in closed form, and q0.
+    const float fm = (float)m, fn = (float)n;
+    const float dot = sums[0] * sums[3] + sums[1] * sums[4]
+                      + sums[2] * sums[5];
+    const float sigma2 = (fn * sums[6] + fm * sums[7] - 2.0f * dot)
+                         / (fm * 3.0f * fn);
+    for (int k = 0; k < 9; ++k) st.lin[k] = (k % 4 == 0) ? 1.0f : 0.0f;
+    st.t[0] = st.t[1] = st.t[2] = 0.0f;
+    st.cen[0] = cx; st.cen[1] = cy; st.cen[2] = cz;
+    st.sigma2 = sigma2;
+    st.q = 1.0f + fn * 1.5f * logf(sigma2);
+    st.q_prev = 3.4e38f;
+    st.wratio = w > 0.0f ? w / (1.0f - w) * fm / fn : 0.0f;
+    st.inv2s2 = 0.5f / sigma2;
+    st.c = (float)((double)st.wratio
+                   * pow(2.0 * 3.14159265358979323846 * (double)sigma2, 1.5));
+    st.it = 0;
+    st.go = maxiter > 0;
+  }
+  __syncthreads();
+
+  const int split_a = pick_split(n), split_b = pick_split(m);
+  while (st.go) {
+    const float inv2s2 = st.inv2s2, c = st.c;
+    {
+      float l[9], t[3];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) l[k] = st.lin[k];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) t[k] = st.t[k];
+      for (int i = tid; i < m; i += kThreads) {
+        const float4 y = ys[i];
+        ts[i] = make_float4(l[0] * y.x + l[1] * y.y + l[2] * y.z + t[0],
+                            l[3] * y.x + l[4] * y.y + l[5] * y.z + t[1],
+                            l[6] * y.x + l[7] * y.y + l[8] * y.z + t[2],
+                            0.0f);
+      }
+    }
+    __syncthreads();
+
+    // Pass A: column normalizers, complete inside the block.
+    float xx = 0.0f;
+    {
+      const int sub = tid & (split_a - 1), slot = tid / split_a;
+      const int nslots = kThreads / split_a;
+      for (int j0 = 0; j0 < n; j0 += nslots) {
+        const int j = j0 + slot;
+        const bool ok = j < n;
+        const float4 x = ok ? xs[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+        float s = 0.0f;
+        if (ok)
+          for (int i = sub; i < m; i += split_a) s += gauss(ts[i], x, inv2s2);
+        s = group_sum(s, split_a);
+        if (ok && sub == 0) {
+          const float inv = 1.0f / ((s == 0.0f ? kEpsF32 : s) + c);
+          inv_den[j] = inv;
+          xx += s * inv * x.w;  // pt1_j |x_j|^2
+        }
+      }
+    }
+    __syncthreads();
+
+    // Pass B: row moments with the Gaussian recomputed.
+#pragma unroll
+    for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
+    {
+      const int sub = tid & (split_b - 1), slot = tid / split_b;
+      const int nslots = kThreads / split_b;
+      for (int i0 = 0; i0 < m; i0 += nslots) {
+        const int i = i0 + slot;
+        const bool ok = i < m;
+        const float4 y = ok ? ts[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+        if (ok)
+          for (int j = sub; j < n; j += split_b) {
+            const float4 x = xs[j];
+            const float p = gauss(y, x, inv2s2) * inv_den[j];
+            a3 += p;
+            a0 += p * x.x;
+            a1 += p * x.y;
+            a2 += p * x.z;
+          }
+        a0 = group_sum(a0, split_b); a1 = group_sum(a1, split_b);
+        a2 = group_sum(a2, split_b); a3 = group_sum(a3, split_b);
+        if (ok && sub == 0) {
+          ts[i] = make_float4(a0, a1, a2, a3);  // (px_i, p1_i)
+          const float4 yr = ys[i];
+          v[0] += a3;
+          v[1] += a0; v[2] += a1; v[3] += a2;
+          v[4] += a3 * yr.x; v[5] += a3 * yr.y; v[6] += a3 * yr.z;
+        }
+      }
+    }
+    v[7] = xx;
+    block_reduce(v, red, sums);
+    if (tid == 0) {
+      const float n_p = sums[0];
+      st.n_p = n_p;
+      st.xx = sums[7];
+      for (int k = 0; k < 3; ++k) {
+        st.mu_x[k] = sums[1 + k] / n_p;
+        st.mu_y[k] = sums[4 + k] / n_p;
+      }
+    }
+    __syncthreads();
+
+    // M-step sums about the weighted source mean.
+    {
+      const float my0 = st.mu_y[0], my1 = st.mu_y[1], my2 = st.mu_y[2];
+#pragma unroll
+      for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
+      for (int i = tid; i < m; i += kThreads) {
+        const float4 pp = ts[i], yr = ys[i];
+        const float h0 = yr.x - my0, h1 = yr.y - my1, h2 = yr.z - my2;
+        v[0] += pp.x * h0; v[1] += pp.x * h1; v[2] += pp.x * h2;
+        v[3] += pp.y * h0; v[4] += pp.y * h1; v[5] += pp.y * h2;
+        v[6] += pp.z * h0; v[7] += pp.z * h1; v[8] += pp.z * h2;
+        const float w0 = pp.w * h0, w1 = pp.w * h1, w2 = pp.w * h2;
+        v[9] += w0; v[10] += w1; v[11] += w2;
+        v[12] += w0 * h0; v[13] += w0 * h1; v[14] += w0 * h2;
+        v[15] += w1 * h1; v[16] += w1 * h2; v[17] += w2 * h2;
+      }
+    }
+    block_reduce(v, red, sums);
+    if (tid == 0) mstep(st, sums, maxiter, tol, update_scale, affine);
+    __syncthreads();
+  }
+
+  if (tid == 0) {
+    float* o = out + (size_t)b * 16;
+    for (int k = 0; k < 9; ++k) o[k] = st.lin[k];
+    // Centred frame -> raw frame: t = t_c + cen - lin cen.
+    for (int i = 0; i < 3; ++i)
+      o[9 + i] = st.t[i] + st.cen[i]
+                 - (st.lin[3 * i] * st.cen[0] + st.lin[3 * i + 1] * st.cen[1]
+                    + st.lin[3 * i + 2] * st.cen[2]);
+    o[12] = st.sigma2;
+    o[13] = st.q;
+    o[14] = (float)st.it;
+    o[15] = 0.0f;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory of one block for clouds of m_cap and n_cap points.
+int probreg_em_smem_bytes(int m_cap, int n_cap) {
+  return 32 * m_cap + 20 * n_cap;
+}
+
+int probreg_em_cpd(const void* src, int m_cap, const void* tgt, int n_cap,
+                   const void* counts, int batch, float w, int maxiter,
+                   float tol, int update_scale, int affine, void* out,
+                   void* stream) {
+  const int smem = probreg_em_smem_bytes(m_cap, n_cap);
+  cudaError_t err = cudaFuncSetAttribute(
+      em_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  em_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)src, m_cap, (const float*)tgt, n_cap, (const int*)counts,
+      w, maxiter, tol, update_scale, affine, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -274,6 +274,121 @@ stash_moment_kernel(const float4* __restrict__ xs, int ncols, int tile_n,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4a: pass A of the two-pass E-step, every target stripe in one launch.
+//
+// Replaces probreg_tpu/ops/estep_pallas.py:_den_kernel. A block owns 256
+// columns of one stripe and walks that stripe's ACTIVE source tiles in
+// ascending order (act_idx[stripe][0..cnt)), so a column's normalizer is
+// complete inside the block: no partials, no ticket. It writes inv_den, pt1
+// and the block's share of xx; the shares are added up in block order by
+// the caller. Culled tiles are never visited, so they add exact zeros.
+//
+// Nothing per pair goes to device memory: the kernel is bound by operations
+// (one Gaussian per active pair), where K3a is bound by its 4 B-per-pair
+// stash write.
+// ---------------------------------------------------------------------------
+constexpr int kFusedThreads = 256;
+
+__global__ void __launch_bounds__(kFusedThreads)
+fused_den_kernel(const float4* __restrict__ ys, int m, int tile_m, int n_i,
+                 const float4* __restrict__ xs, int n, int tile_n,
+                 const int* __restrict__ act_idx,   // (n_j, n_i)
+                 const int* __restrict__ act_cnt,   // (n_j)
+                 const float* __restrict__ scal,
+                 float* __restrict__ inv_den,       // (n)
+                 float* __restrict__ pt1,           // (n)
+                 float* __restrict__ xx_part) {     // (gridDim.y, gridDim.x)
+  __shared__ float4 ysh[kFusedThreads];
+  const int stripe = blockIdx.y;
+  const int c0 = stripe * tile_n;
+  const int col = c0 + blockIdx.x * kFusedThreads + threadIdx.x;
+  const bool ok = col < min(c0 + tile_n, n);
+  const float4 xv = ok ? xs[col] : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float inv2s2 = scal[0];
+  const int cnt = act_cnt[stripe];
+  const int* idx = act_idx + (size_t)stripe * n_i;
+  float s = 0.0f;
+  for (int k = 0; k < cnt; ++k) {
+    const int r0 = idx[k] * tile_m;
+    const int r1 = min(r0 + tile_m, m);
+    for (int rc = r0; rc < r1; rc += kFusedThreads) {
+      const int nr = min(kFusedThreads, r1 - rc);
+      __syncthreads();
+      if (threadIdx.x < nr) ysh[threadIdx.x] = ys[rc + threadIdx.x];
+      __syncthreads();
+      if (ok)
+        for (int r = 0; r < nr; ++r) s += gauss(ysh[r], xv, inv2s2);
+    }
+  }
+  float xxv = 0.0f;
+  if (ok) {
+    const float inv = 1.0f / ((s == 0.0f ? kEpsF32 : s) + scal[1]);
+    const float p = s * inv;
+    inv_den[col] = inv;
+    pt1[col] = p;
+    xxv = p * xv.w;
+  }
+  const float xx = block_sum<kFusedThreads>(xxv);
+  if (threadIdx.x == 0) xx_part[blockIdx.y * gridDim.x + blockIdx.x] = xx;
+}
+
+// ---------------------------------------------------------------------------
+// K4b: pass B of the two-pass E-step, every source tile in one launch.
+//
+// Replaces probreg_tpu/ops/estep_pallas.py:_moment_kernel. A block owns 256
+// rows of one source tile and walks that tile's ACTIVE target stripes in
+// ascending order (the compaction along the other axis). The Gaussian is
+// computed again (no stash), multiplied by inv_den and summed into the
+// thread's own row: p1 and px need no cross-thread sum and no atomics, and
+// a row of a tile with no active stripe gets exact zeros. Bound: operations
+// (one Gaussian and the four moment FMAs per active pair).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kFusedThreads)
+fused_moment_kernel(const float4* __restrict__ ys, int m, int tile_m,
+                    const float4* __restrict__ xs, int n, int tile_n,
+                    int n_j,
+                    const int* __restrict__ act_idx,   // (n_i, n_j)
+                    const int* __restrict__ act_cnt,   // (n_i)
+                    const float* __restrict__ scal,
+                    const float* __restrict__ inv_den,
+                    float4* __restrict__ p1px) {       // (m)
+  __shared__ float4 xw[kFusedThreads];  // x, y, z, |x|^2
+  __shared__ float iw[kFusedThreads];   // inv_den
+  const int tile = blockIdx.y;
+  const int r0 = tile * tile_m;
+  const int row = r0 + blockIdx.x * kFusedThreads + threadIdx.x;
+  const bool ok = row < min(r0 + tile_m, m);
+  const float4 yv = ok ? ys[row] : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float inv2s2 = scal[0];
+  const int cnt = act_cnt[tile];
+  const int* idx = act_idx + (size_t)tile * n_j;
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  for (int k = 0; k < cnt; ++k) {
+    const int c0 = idx[k] * tile_n;
+    const int c1 = min(c0 + tile_n, n);
+    for (int cc = c0; cc < c1; cc += kFusedThreads) {
+      const int nc = min(kFusedThreads, c1 - cc);
+      __syncthreads();
+      if (threadIdx.x < nc) {
+        xw[threadIdx.x] = xs[cc + threadIdx.x];
+        iw[threadIdx.x] = inv_den[cc + threadIdx.x];
+      }
+      __syncthreads();
+      if (ok)
+        for (int c = 0; c < nc; ++c) {
+          const float4 x = xw[c];
+          const float p = gauss(yv, x, inv2s2) * iw[c];
+          a3 += p;
+          a0 += p * x.x;
+          a1 += p * x.y;
+          a2 += p * x.z;
+        }
+    }
+  }
+  if (ok) p1px[row] = make_float4(a0, a1, a2, a3);
+}
+
 }  // namespace
 
 extern "C" {
@@ -315,6 +430,32 @@ int probreg_stash_moment(const void* xs, int ncols, int tile_n, int m,
       (const float4*)xs, ncols, tile_n, m, tile_m, (const int*)act_idx,
       (const int*)act_cnt, (const float*)stash, (const float*)inv_den,
       (float4*)p1px);
+  return (int)cudaGetLastError();
+}
+
+int probreg_fused_den(const void* ys, int m, int tile_m, int n_i,
+                      const void* xs, int n, int tile_n, int n_j,
+                      const void* act_idx, const void* act_cnt,
+                      const void* scal, void* inv_den, void* pt1,
+                      void* xx_part, void* stream) {
+  const dim3 grid((tile_n + kFusedThreads - 1) / kFusedThreads, n_j);
+  fused_den_kernel<<<grid, kFusedThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)ys, m, tile_m, n_i, (const float4*)xs, n, tile_n,
+      (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
+      (float*)inv_den, (float*)pt1, (float*)xx_part);
+  return (int)cudaGetLastError();
+}
+
+int probreg_fused_moment(const void* ys, int m, int tile_m, int n_i,
+                         const void* xs, int n, int tile_n, int n_j,
+                         const void* act_idx, const void* act_cnt,
+                         const void* scal, const void* inv_den, void* p1px,
+                         void* stream) {
+  const dim3 grid((tile_m + kFusedThreads - 1) / kFusedThreads, n_i);
+  fused_moment_kernel<<<grid, kFusedThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)ys, m, tile_m, (const float4*)xs, n, tile_n, n_j,
+      (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
+      (const float*)inv_den, (float4*)p1px);
   return (int)cudaGetLastError();
 }
 

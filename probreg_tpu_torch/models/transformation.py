@@ -2,8 +2,8 @@
 
 Parameters are tensors on one device. ``transform`` is the user-facing call
 (numpy, tensors or Open3D clouds in, a tensor out); ``_transform`` works on
-tensors already on the transformation's device. Affine and the nonrigid
-models come with later slices of the port.
+tensors already on the transformation's device. The nonrigid models come
+with later slices of the port.
 """
 
 from __future__ import annotations
@@ -33,16 +33,21 @@ def _param(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=_config.config.dtype, device=device)
 
 
+def _device_of(device, *params) -> torch.device:
+    """``device``, else the device of the first tensor parameter, else the
+    configured one."""
+    if device is None:
+        given = [p for p in params if isinstance(p, torch.Tensor)]
+        device = given[0].device if given else _config.resolve_device(None)
+    return torch.device(device)
+
+
 class RigidTransformation(Transformation):
     """x -> scale * R x + t (reference transformation.py:33-60)."""
 
     def __init__(self, rot=None, t=None, scale=1.0, dim: int = 3,
                  device=None):
-        if device is None:
-            given = [p for p in (rot, t, scale) if isinstance(p, torch.Tensor)]
-            device = (given[0].device if given
-                      else _config.resolve_device(None))
-        self.device = torch.device(device)
+        self.device = _device_of(device, rot, t, scale)
         if rot is None:
             rot = torch.eye(dim)
         if t is None:
@@ -69,3 +74,22 @@ class RigidTransformation(Transformation):
     def __repr__(self):
         return (f"RigidTransformation(rot={self.rot}, t={self.t}, "
                 f"scale={self.scale})")
+
+
+class AffineTransformation(Transformation):
+    """x -> B x + t (reference transformation.py:63-78)."""
+
+    def __init__(self, b=None, t=None, dim: int = 3, device=None):
+        self.device = _device_of(device, b, t)
+        if b is None:
+            b = torch.eye(dim)
+        if t is None:
+            t = torch.zeros(dim)
+        self.b = _param(b, self.device)
+        self.t = _param(t, self.device)
+
+    def _transform(self, points):
+        return points @ self.b.T + self.t
+
+    def __repr__(self):
+        return f"AffineTransformation(b={self.b}, t={self.t})"

@@ -113,23 +113,37 @@ def estep_xla(t_source: torch.Tensor, target: torch.Tensor, sigma2,
 
 
 def estep(t_source: torch.Tensor, target: torch.Tensor, sigma2,
-          w: float = 0.0, assume_sorted: bool = False) -> EstepMoments:
+          w: float = 0.0, use_pallas: Optional[bool] = None,
+          assume_sorted: bool = False) -> EstepMoments:
     """Dispatch by size: the one-launch kernel for small problems, the
     Morton-sorted tile-culled stash kernels for large ones (exact: only
     tiles whose exps provably underflow are skipped), the streaming plain
-    E-step otherwise (and for D > 3, which the kernels do not take)."""
+    E-step otherwise (and for D > 3, which the kernels do not take).
+
+    ``use_pallas`` keeps the reference's name and order of tests: None
+    picks as above, and then the two-pass kernels (estep_fused) only where
+    ``config.use_pallas`` is set and M * N >= ``config.pallas_min_pairs``;
+    True asks for the two-pass kernels; False for no hand-written kernel at
+    all (the streaming plain E-step).
+    """
     from . import estep_cuda
 
     m, n = t_source.shape[0], target.shape[0]
     kernel_dim = t_source.shape[1] <= 3
-    if kernel_dim and m * n <= config.small_estep_max_pairs:
+    if use_pallas is None and kernel_dim \
+            and m * n <= config.small_estep_max_pairs:
         return estep_cuda.estep_small(t_source, target, sigma2, w)
     # Pre-sorted callers (the cpd sorted steps) take the culled path from
     # culled_estep_min_pairs; unsorted ones only from 2^28, since they pay a
     # Morton sort on every call.
     min_pairs = (config.culled_estep_min_pairs if assume_sorted
                  else max(config.culled_estep_min_pairs, 1 << 28))
-    if kernel_dim and config.use_culled_estep and m * n >= min_pairs:
+    if use_pallas is None and kernel_dim and config.use_culled_estep \
+            and m * n >= min_pairs:
         return estep_cuda.estep_auto(t_source, target, sigma2, w,
                                      assume_sorted=assume_sorted)
+    if use_pallas is None:
+        use_pallas = config.use_pallas and m * n >= config.pallas_min_pairs
+    if use_pallas and kernel_dim:
+        return estep_cuda.estep_fused(t_source, target, sigma2, w)
     return estep_xla(t_source, target, sigma2, w)

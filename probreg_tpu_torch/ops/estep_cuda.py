@@ -1,7 +1,7 @@
 """CPD E-step kernels on the card, each beside its plain PyTorch version.
 
-Counterpart of the three kernels of probreg_tpu/ops/estep_pallas.py on the
-rigid CPD path, with their helpers:
+Counterpart of the kernels of probreg_tpu/ops/estep_pallas.py on the CPD
+path, with their helpers:
 
 * ``estep_small``: the whole E-step in one launch for M * N <= 2^20
   (replaces ``_small_kernel``).
@@ -11,6 +11,11 @@ rigid CPD path, with their helpers:
   pair's exp once, stashes it and forms the column normalizer, pt1 and xx;
   pass B (``stash_moment``, replaces ``_stash_moment_kernel``) reads the
   stash back into p1 and px.
+* ``estep_fused`` / ``estep_culled``: the two-pass tile-culled E-step with
+  no stash: pass A (``fused_den``, replaces ``_den_kernel``) forms the column
+  normalizer, pt1 and xx, pass B (``fused_moment``, replaces
+  ``_moment_kernel``) computes each active pair's exp again and sums p1 and
+  px. Each pass is one launch for the whole E-step.
 
 A tile pair is culled when its box-gap bound proves that every exp in it
 underflows f32 to exactly 0 (sum_d max(0, gap_d)^2 * 0.5 / sigma2 > 104),
@@ -44,7 +49,8 @@ _SMALL_COLS = 32     # columns per K2 block (kSmallCols)
 _MAX_TILE_N = 3072   # pass B keeps a stripe's columns in 48 KB of shared mem
 _MAX_GRID_Y = 65535
 
-LAUNCHES = {"estep_small": 0, "stash_den": 0, "stash_moment": 0}
+LAUNCHES = {"estep_small": 0, "stash_den": 0, "stash_moment": 0,
+            "fused_den": 0, "fused_moment": 0}
 
 
 def reset_launches() -> None:
@@ -58,6 +64,10 @@ _SIGNATURES = {
     "probreg_stash_den": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
                           _P, _P, _P, _P, _P],
     "probreg_stash_moment": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "probreg_fused_den": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                          _P, _P],
+    "probreg_fused_moment": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P,
+                             _P, _P],
 }
 
 
@@ -413,4 +423,134 @@ def stash_estep_plain(ys, xs, scal, mask, tile_m: int, tile_n: int):
         p1_j, px_j = _plain_pass_b(g, inv_den, x)
         p1, px, xx = p1 + p1_j, px + px_j, xx + xx_j
         pt1.append(pt1_j)
+    return torch.cat(pt1), p1, px, xx
+
+
+# --------------------------------------------------------------------------
+# K4: the two-pass E-step (no stash, the Gaussian computed in both passes)
+# --------------------------------------------------------------------------
+
+def estep_fused(t_source: torch.Tensor, target: torch.Tensor, sigma2,
+                w: float = 0.0, tile_m: int = None, tile_n: int = None,
+                cull: bool = True) -> EstepMoments:
+    """Exact two-pass E-step on the clouds in the order given.
+
+    ``cull=True`` skips tile pairs whose box-gap bound proves that every
+    exp underflows to exactly 0. That only fires on spatially sorted
+    clouds: use :func:`estep_culled` unless the caller sorted already.
+    """
+    t_source, target = _check_points(t_source, target)
+    (m, dim), n = t_source.shape, target.shape[0]
+    tile_m = min(tile_m or config.tile_m, _round_up(m, 8))
+    tile_n = min(tile_n or config.tile_n, _round_up(n, 128))
+    scal = _scalars(sigma2, w, m, n, dim, t_source.device)
+    if cull:
+        mask = _active_mask(*_tile_bounds(t_source, tile_m),
+                            *_tile_bounds(target, tile_n), scal[0])
+    else:
+        mask = torch.ones((-(-m // tile_m), -(-n // tile_n)),
+                          dtype=torch.bool, device=t_source.device)
+    pt1, p1, px, xx = fused_core(t_source, target, scal, mask, tile_m, tile_n)
+    return EstepMoments(pt1, p1, px, p1.sum(), xx)
+
+
+def estep_culled(t_source: torch.Tensor, target: torch.Tensor, sigma2,
+                 w: float = 0.0, tile_m: int = None,
+                 tile_n: int = None) -> EstepMoments:
+    """Morton-sorted two-pass E-step; moments in the input order."""
+    perm_y, perm_x = morton_order(t_source), morton_order(target)
+    mom = estep_fused(t_source[perm_y], target[perm_x], sigma2, w,
+                      tile_m=tile_m, tile_n=tile_n, cull=True)
+    return EstepMoments(
+        torch.empty_like(mom.pt1).index_copy_(0, perm_x, mom.pt1),
+        torch.empty_like(mom.p1).index_copy_(0, perm_y, mom.p1),
+        torch.empty_like(mom.px).index_copy_(0, perm_y, mom.px),
+        mom.n_p, mom.xx)
+
+
+def fused_core(ys, xs, scal, mask, tile_m: int, tile_n: int):
+    """(pt1, p1, px, xx) of the two-pass E-step given the (n_i, n_j)
+    active-tile mask: two kernel launches for CUDA tensors, the plain
+    version for CPU tensors."""
+    if not ys.is_cuda:
+        return fused_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
+    plan = FusedPlan(ys, xs, scal, mask, tile_m, tile_n)
+    plan.den()
+    plan.moment()
+    return plan.result()
+
+
+class FusedPlan:
+    """Device buffers of one two-pass E-step and its two launches:
+    ``den()`` (pass A) must precede ``moment()`` (pass B)."""
+
+    def __init__(self, ys, xs, scal, mask, tile_m: int, tile_n: int):
+        (m, self.dim), n = ys.shape, xs.shape[0]
+        self.n_i, self.n_j = mask.shape
+        if max(self.n_i, self.n_j) > _MAX_GRID_Y:
+            raise ValueError(f"{self.n_i} x {self.n_j} tiles exceed the "
+                             "two-pass kernels' launch limits")
+        if self.n_i != -(-m // tile_m) or self.n_j != -(-n // tile_n):
+            raise ValueError("mask shape does not match the tiles")
+        self.m, self.n, self.tile_m, self.tile_n = m, n, tile_m, tile_n
+        self.ys, self.xs = _pack(ys), _pack(xs)
+        self.scal = scal.to(torch.float32).contiguous()
+        self.col_idx, self.col_cnt = _compact(mask)      # per stripe
+        self.row_idx, self.row_cnt = _compact(mask.T)    # per source tile
+        new = self.ys.new_empty
+        self.inv_den, self.pt1 = new(n), new(n)
+        self.xx_part = new((self.n_j, -(-tile_n // _DEN_THREADS)))
+        self.p1px = new((m, 4))
+        self.lib = _lib()
+        self.stream = _stream(self.ys)
+
+    def _args(self, idx, cnt):
+        return (self.ys.data_ptr(), self.m, self.tile_m, self.n_i,
+                self.xs.data_ptr(), self.n, self.tile_n, self.n_j,
+                idx.data_ptr(), cnt.data_ptr(), self.scal.data_ptr())
+
+    def den(self) -> None:
+        status = self.lib.probreg_fused_den(
+            *self._args(self.col_idx, self.col_cnt), self.inv_den.data_ptr(),
+            self.pt1.data_ptr(), self.xx_part.data_ptr(), self.stream)
+        _check(status, "fused_den")
+        LAUNCHES["fused_den"] += 1
+
+    def moment(self) -> None:
+        status = self.lib.probreg_fused_moment(
+            *self._args(self.row_idx, self.row_cnt), self.inv_den.data_ptr(),
+            self.p1px.data_ptr(), self.stream)
+        _check(status, "fused_moment")
+        LAUNCHES["fused_moment"] += 1
+
+    def result(self):
+        return (self.pt1, self.p1px[:, 3], self.p1px[:, :self.dim],
+                self.xx_part.sum())
+
+
+def fused_estep_plain(ys, xs, scal, mask, tile_m: int, tile_n: int):
+    """Plain version of the two-pass kernels: pass A over every stripe
+    keeps only inv_den, pt1 and xx; pass B computes each stripe's Gaussian
+    again, culled tiles contributing nothing in either."""
+    m, n_i = ys.shape[0], mask.shape[0]
+    y2, x2 = (ys * ys).sum(1), (xs * xs).sum(1)
+
+    def stripe(j):
+        cols = slice(j * tile_n, (j + 1) * tile_n)
+        act_rows = mask[:, j].repeat_interleave(tile_m)[:m]
+        return _plain_pass_a(ys, y2, xs[cols], x2[cols], scal, act_rows, n_i,
+                             tile_m)
+
+    inv_den, pt1 = [], []
+    xx = ys.new_zeros(())
+    for j in range(mask.shape[1]):
+        _, inv_den_j, pt1_j, xx_j = stripe(j)
+        inv_den.append(inv_den_j)
+        pt1.append(pt1_j)
+        xx = xx + xx_j
+    p1, px = ys.new_zeros(m), torch.zeros_like(ys)
+    for j in range(mask.shape[1]):
+        p1_j, px_j = _plain_pass_b(stripe(j)[0], inv_den[j],
+                                   xs[j * tile_n:(j + 1) * tile_n])
+        p1, px = p1 + p1_j, px + px_j
     return torch.cat(pt1), p1, px, xx

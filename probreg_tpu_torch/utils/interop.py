@@ -40,6 +40,26 @@ def as_points(x: Any, dtype=None, device=None) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
 
 
+def pad_ragged(clouds, dtype=None, device=None):
+    """Stack clouds of different lengths into (B, max_N, D) and (B, max_N)
+    0/1 masks, both tensors on ``device``.
+
+    The padded rows are zeros with mask 0; the batch entry points route
+    masked inputs through E-steps where padded points carry no posterior
+    mass (the same registration as each pair without its padding).
+    """
+    dtype = dtype or _config.config.dtype
+    arrs = [as_points(c, dtype=dtype, device="cpu") for c in clouds]
+    nmax = max(a.shape[0] for a in arrs)
+    out = torch.zeros((len(arrs), nmax, arrs[0].shape[1]), dtype=dtype)
+    mask = torch.zeros((len(arrs), nmax), dtype=dtype)
+    for i, a in enumerate(arrs):
+        out[i, :a.shape[0]] = a
+        mask[i, :a.shape[0]] = 1.0
+    dev = _config.resolve_device(device)
+    return out.to(dev), mask.to(dev)
+
+
 def rigid_from_reference(params: Mapping[str, Any], device=None):
     """Port RigidTransformation from a JAX one's parameters as numpy.
 
@@ -52,6 +72,16 @@ def rigid_from_reference(params: Mapping[str, Any], device=None):
     return RigidTransformation(rot, np.asarray(params["t"]),
                                float(np.asarray(params.get("scale", 1.0))),
                                dim=rot.shape[0], device=device)
+
+
+def affine_from_reference(params: Mapping[str, Any], device=None):
+    """Port AffineTransformation from a JAX one's parameters as numpy:
+    ``params`` holds ``b`` (D, D) and ``t`` (D,)."""
+    from ..models.transformation import AffineTransformation
+
+    b = np.asarray(params["b"])
+    return AffineTransformation(b, np.asarray(params["t"]), dim=b.shape[0],
+                                device=device)
 
 
 def config_from_reference(fields: Mapping[str, Any]) -> "_config.Config":

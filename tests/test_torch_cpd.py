@@ -1,15 +1,18 @@
-"""Rigid CPD of the port (probreg_tpu_torch.cpd) held to the JAX package.
+"""Rigid and affine CPD of the port (probreg_tpu_torch.cpd) held to the JAX
+package.
 
-Both packages register the same numpy clouds on the CPU, through both
-branches of the port's main path: the whole-EM dense loop (_run_em_t) and
-the streaming loop (_run_em) with the one-time Morton sort and the tile-
-culled stash E-step, forced at test size by lowering the thresholds.
+Both packages register the same numpy clouds on the CPU, through the
+branches of the port's paths: the one-launch whole-EM branch (on the CPU
+its plain version), the whole-EM dense loop (_run_em_t), the streaming loop
+(_run_em) with the one-time Morton sort and the tile-culled E-steps, forced
+at test size by lowering the thresholds, and the batch entry point.
 
 Tolerances: the transform agrees to 1e-5 absolute (the per-iteration
 moments agree to ~1e-6, test_torch_estep.py). sigma2 and q agree to 5e-3
 and 1e-3 relative: at convergence sigma2 is the small difference of large
 sums (xx - scale tr(A^T R)), which amplifies summation-order noise, and q
-adds dim * n_p / 2 * log(sigma2).
+adds dim * n_p / 2 * log(sigma2). Affine and batch results agree to 2e-4
+absolute (tests/test_torch_em.py says why).
 """
 
 import dataclasses
@@ -26,6 +29,7 @@ from probreg_tpu.utils import se3_op as jso  # noqa: E402
 from probreg_tpu_torch import config as pcfg  # noqa: E402
 from probreg_tpu_torch import cpd as pcpd  # noqa: E402
 from probreg_tpu_torch.models import transformation as ptf  # noqa: E402
+from probreg_tpu_torch.ops import em_cuda as pem  # noqa: E402
 from probreg_tpu_torch.ops import estep_cuda as pec  # noqa: E402
 from probreg_tpu_torch.utils import interop, se3_op as pso  # noqa: E402
 
@@ -180,6 +184,11 @@ def test_carry_across_config():
     assert cfg.transposed_em_max_pairs == jcfg.config.transposed_em_max_pairs
     assert cfg.culled_estep_min_pairs == jcfg.config.culled_estep_min_pairs
     assert cfg.tile_n == pcfg.Config().tile_n
+    # The whole-EM and two-pass knobs carry over with the reference's values.
+    for knob in ("use_fused_em", "fused_em_max_pairs", "use_pallas",
+                 "pallas_min_pairs"):
+        assert getattr(cfg, knob) == getattr(jcfg.config, knob), knob
+        assert getattr(pcfg.Config(), knob) == getattr(jcfg.Config(), knob)
     assert cfg.dtype == torch.float32 and cfg.device == "cuda"
 
 
@@ -197,8 +206,8 @@ def test_se3_helpers_match_reference():
 
 def test_unported_kinds_raise():
     src, tgt, _ = _problem(50)
-    with pytest.raises(NotImplementedError, match="affine"):
-        pcpd.registration_cpd(src, tgt, "affine", device="cpu")
+    with pytest.raises(NotImplementedError, match="nonrigid"):
+        pcpd.registration_cpd(src, tgt, "nonrigid", device="cpu")
     with pytest.raises(ValueError, match="Unknown"):
         pcpd.registration_cpd(src, tgt, "bogus", device="cpu")
 
@@ -208,3 +217,233 @@ def test_transformation_defaults_follow_config_device(monkeypatch):
     tr = ptf.RigidTransformation()
     assert tr.device.type == "cpu"
     assert torch.equal(tr.rot, torch.eye(3))
+
+
+# --------------------------------------------------------------------------
+# Affine, batches, dispatch
+# --------------------------------------------------------------------------
+
+def _affine_problem(m=400, seed=1):
+    src, tgt, _ = _problem(m, seed)
+    return src, (tgt * np.float32([1.15, 0.9, 1.05])).astype(np.float32)
+
+
+def _assert_affine_same(ref, out):
+    np.testing.assert_allclose(out.transformation.b.numpy(),
+                               np.asarray(ref.transformation.b), atol=2e-4)
+    np.testing.assert_allclose(out.transformation.t.numpy(),
+                               np.asarray(ref.transformation.t), atol=2e-4)
+    np.testing.assert_allclose(float(out.sigma2), float(ref.sigma2),
+                               rtol=5e-3)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_affine_registration_matches_reference(monkeypatch, fused):
+    """Through the one-launch branch and through the dense loop."""
+    monkeypatch.setattr(pcfg.config, "use_fused_em", fused)
+    src, tgt = _affine_problem()
+    ref = jcpd.registration_cpd(src, tgt, "affine", w=0.05, maxiter=40,
+                                tol=1e-6)
+    out = pcpd.registration_cpd(src, tgt, "affine", w=0.05, maxiter=40,
+                                tol=1e-6, device="cpu")
+    assert isinstance(out.transformation, ptf.AffineTransformation)
+    _assert_affine_same(ref, out)
+    moved = out.transformation.transform(src).numpy()
+    assert np.abs(moved - tgt).max() < 0.1
+
+
+def test_affine_streaming_branch_and_init_params_match_reference(monkeypatch):
+    monkeypatch.setattr(jcfg.config, "transposed_em_max_pairs", 1000)
+    for k, v in [("transposed_em_max_pairs", 1000),
+                 ("culled_estep_min_pairs", 1000),
+                 ("small_estep_max_pairs", 0),
+                 ("tile_m", 128), ("tile_n", 128)]:
+        monkeypatch.setattr(pcfg.config, k, v)
+    src, tgt = _affine_problem()
+    init = {"b": np.eye(3, dtype=np.float32) * 1.02,
+            "t": np.float32([0.05, 0.0, 0.1])}
+    ref = jcpd.registration_cpd(src, tgt, "affine", maxiter=30, tol=1e-6,
+                                tf_init_params=init)
+    out = pcpd.registration_cpd(src, tgt, "affine", maxiter=30, tol=1e-6,
+                                tf_init_params=init, device="cpu")
+    _assert_affine_same(ref, out)
+    # Below the streaming threshold the same start runs the dense loop.
+    monkeypatch.setattr(jcfg.config, "transposed_em_max_pairs", 1 << 28)
+    monkeypatch.setattr(pcfg.config, "transposed_em_max_pairs", 1 << 28)
+    ref = jcpd.registration_cpd(src, tgt, "affine", maxiter=30, tol=1e-6,
+                                tf_init_params=init)
+    out = pcpd.registration_cpd(src, tgt, "affine", maxiter=30, tol=1e-6,
+                                tf_init_params=init, device="cpu")
+    _assert_affine_same(ref, out)
+
+
+@pytest.mark.parametrize("kind", ["rigid", "affine"])
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("fused", [True, False])
+def test_batch_registration_matches_reference(monkeypatch, kind, ragged,
+                                              fused):
+    """On the CPU the JAX package runs its vmapped dense loop; the port
+    runs the whole-EM kernel's plain version (fused) or its own dense loop
+    pair by pair."""
+    monkeypatch.setattr(pcfg.config, "use_fused_em", fused)
+    sizes = [(120, 100), (90, 120), (120, 120)] if ragged else [(100, 110)] * 3
+    srcs, tgts = [], []
+    for seed, (m, n) in enumerate(sizes):
+        src, tgt, _ = _problem(max(m, n), seed)
+        if kind == "affine":
+            tgt = (tgt * np.float32([1.1, 0.95, 1.0])).astype(np.float32)
+        srcs.append(src[:m])
+        tgts.append(tgt[:n])
+    if not ragged:
+        srcs, tgts = np.stack(srcs), np.stack(tgts)
+    kw = dict(w=0.05, maxiter=25, tol=1e-5)
+    ref = jcpd.registration_cpd_batch(srcs, tgts, kind, **kw)
+    out = pcpd.registration_cpd_batch(srcs, tgts, kind, device="cpu", **kw)
+    assert len(out) == len(ref) == 3
+    for r, o in zip(ref, out):
+        if kind == "affine":
+            _assert_affine_same(r, o)
+            continue
+        np.testing.assert_allclose(
+            (o.transformation.rot * o.transformation.scale).numpy(),
+            np.asarray(r.transformation.rot * r.transformation.scale),
+            atol=2e-4)
+        np.testing.assert_allclose(o.transformation.t.numpy(),
+                                   np.asarray(r.transformation.t), atol=2e-4)
+        np.testing.assert_allclose(float(o.sigma2), float(r.sigma2),
+                                   rtol=5e-3)
+    # Each pair of the batch equals its own single registration (the masked
+    # dense loop sums over the padded length, hence not bit for bit).
+    one = pcpd.registration_cpd(srcs[1], tgts[1], kind, device="cpu", **kw)
+    lin = "b" if kind == "affine" else "rot"
+    np.testing.assert_allclose(getattr(out[1].transformation, lin).numpy(),
+                               getattr(one.transformation, lin).numpy(),
+                               atol=1e-5)
+
+
+def _spy_fused(monkeypatch):
+    calls = []
+    orig = pem.run_em_cpd_fused_batch
+
+    def spy(*a, **k):
+        calls.append(k.get("kind"))
+        return orig(*a, **k)
+
+    monkeypatch.setattr(pem, "run_em_cpd_fused_batch", spy)
+    return calls
+
+
+@pytest.mark.parametrize("kind", ["rigid", "affine"])
+def test_small_3d_pair_reaches_the_whole_em_kernel(monkeypatch, kind):
+    calls = _spy_fused(monkeypatch)
+    src, tgt, _ = _problem(80)
+    pcpd.registration_cpd(src, tgt, kind, maxiter=3, device="cpu")
+    assert calls == [kind]
+    pcpd.registration_cpd_batch([src, src[:50]], [tgt[:60], tgt], kind,
+                                maxiter=3, device="cpu")
+    assert calls == [kind, kind]
+
+
+@pytest.mark.parametrize("bypass", ["tf_init_params", "sigma2_init", "dim2",
+                                    "use_pallas_false", "use_fused_em_false",
+                                    "max_pairs", "dims"])
+def test_whole_em_kernel_is_bypassed(monkeypatch, bypass):
+    """Each of the reference's conditions (cpd.py:958-963) sends the pair
+    to the dense loop instead."""
+    calls = _spy_fused(monkeypatch)
+    src, tgt, _ = _problem(80)
+    kw = {}
+    if bypass == "tf_init_params":
+        kw["tf_init_params"] = {"t": np.zeros(3, np.float32)}
+    elif bypass == "sigma2_init":
+        kw["sigma2_init"] = 0.5
+    elif bypass == "dim2":
+        src, tgt = src[:, :2].copy(), tgt[:, :2].copy()
+    elif bypass == "use_pallas_false":
+        kw["use_pallas"] = False
+    elif bypass == "use_fused_em_false":
+        monkeypatch.setattr(pcfg.config, "use_fused_em", False)
+    elif bypass == "max_pairs":
+        monkeypatch.setattr(pcfg.config, "fused_em_max_pairs", 80 * 80 - 1)
+    else:
+        monkeypatch.setattr(pem, "fused_dims_ok", lambda m, n: False)
+    for kind in ("rigid", "affine"):
+        res = pcpd.registration_cpd(src, tgt, kind, maxiter=3, device="cpu",
+                                    **kw)
+        assert bool(torch.isfinite(res.sigma2))
+    if bypass not in ("tf_init_params", "sigma2_init"):
+        batch_kw = {"use_pallas": False} if bypass == "use_pallas_false" else {}
+        pcpd.registration_cpd_batch([src, src[:50]], [tgt, tgt], maxiter=3,
+                                    device="cpu", **batch_kw)
+    assert calls == []
+
+
+@pytest.mark.parametrize("use_pallas,branch", [(None, "stash"),
+                                               (True, "two_pass"),
+                                               (False, "xla")])
+def test_use_pallas_pins_the_streaming_estep(monkeypatch, use_pallas, branch):
+    """None: the sorted stash E-step; True: the two-pass E-step on the
+    sorted clouds; False: no kernel branch at all. All three register the
+    same pair as the reference."""
+    monkeypatch.setattr(jcfg.config, "transposed_em_max_pairs", 1000)
+    for k, v in [("transposed_em_max_pairs", 1000),
+                 ("culled_estep_min_pairs", 1000),
+                 ("tile_m", 128), ("tile_n", 128)]:
+        monkeypatch.setattr(pcfg.config, k, v)
+    taken = []
+    for name, fn in [("small", "estep_small_plain"),
+                     ("stash", "stash_estep_plain"),
+                     ("two_pass", "fused_estep_plain")]:
+        orig = getattr(pec, fn)
+        monkeypatch.setattr(pec, fn, lambda *a, _o=orig, _n=name:
+                            taken.append(_n) or _o(*a))
+    monkeypatch.setattr(pcfg.config, "small_estep_max_pairs", 0)
+    src, tgt, rot = _problem(400)
+    ref = jcpd.registration_cpd(src, tgt, maxiter=50, tol=1e-6)
+    out = pcpd.registration_cpd(src, tgt, maxiter=50, tol=1e-6, device="cpu",
+                                use_pallas=use_pallas)
+    _assert_same(ref, out, rot)
+    assert set(taken) == (set() if branch == "xla" else {branch})
+    monkeypatch.setattr(pcfg.config, "small_estep_max_pairs", 1 << 20)
+    # The public E-step follows the same pin.
+    taken.clear()
+    reg = pcpd.RigidCPD(src, device="cpu", use_pallas=use_pallas)
+    reg.expectation_step(src, tgt, 0.3, 0.1)
+    assert taken == {None: ["small"], True: ["two_pass"], False: []}[use_pallas]
+
+
+def test_callbacks_and_multistart_are_named_as_not_ported():
+    src, tgt, _ = _problem(50)
+    with pytest.raises(NotImplementedError, match="callbacks.*ROADMAP"):
+        pcpd.registration_cpd(src, tgt, callbacks=[print], device="cpu")
+    with pytest.raises(NotImplementedError, match="n_starts.*ROADMAP"):
+        pcpd.registration_cpd(src, tgt, n_starts=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="n_starts.*ROADMAP"):
+        pcpd.registration_cpd_batch(src[None], tgt[None], n_starts=4,
+                                    device="cpu")
+    with pytest.raises(ValueError, match="rigid.*affine"):
+        pcpd.registration_cpd_batch(src[None], tgt[None], "nonrigid",
+                                    device="cpu")
+    # The reference's full signature is accepted when no callback is given.
+    res = pcpd.registration_cpd(src, tgt, "rigid", 0.0, 5, 1e-3, [], False, 4,
+                                device="cpu")
+    assert bool(torch.isfinite(res.q))
+
+
+def test_carry_across_affine_transformation_and_pad_ragged():
+    from probreg_tpu.models import transformation as jtf
+    from probreg_tpu.utils import interop as jinterop
+
+    b = (np.eye(3) + np.random.default_rng(2).normal(0, 0.1, (3, 3))
+         ).astype(np.float32)
+    jt = jtf.AffineTransformation(b, np.array([0.5, -1.0, 2.0]))
+    pt = interop.affine_from_reference(
+        {k: np.asarray(getattr(jt, k)) for k in ("b", "t")}, device="cpu")
+    pts = np.random.default_rng(1).normal(size=(50, 3)).astype(np.float32)
+    np.testing.assert_allclose(pt.transform(pts).numpy(),
+                               np.asarray(jt.transform(pts)), atol=1e-5)
+    clouds = [pts[:20], pts[:50], pts[:7]]
+    ref_pts, ref_mask = jinterop.pad_ragged(clouds)
+    out_pts, out_mask = interop.pad_ragged(clouds, device="cpu")
+    np.testing.assert_array_equal(out_pts.numpy(), ref_pts)
+    np.testing.assert_array_equal(out_mask.numpy(), ref_mask)

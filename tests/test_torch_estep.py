@@ -232,3 +232,117 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     a = rng.normal(size=(50, 4)).astype(np.float32)
     out = peo.estep(_t(a), _t(a[::-1]), 1.0)
     _assert_moments(jeo.estep_xla(a, a[::-1], jnp.float32(1.0)), out)
+
+
+# --------------------------------------------------------------------------
+# The two-pass E-step (estep_fused / estep_culled) and the use_pallas knob
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sigma2,culled", [(5.0, False), (0.1, True)])
+def test_two_pass_estep_matches_reference(sigma2, culled):
+    """Dense and culled regimes: against the reference's two-pass kernels
+    on the same sorted clouds and tiles, and its plain streaming E-step."""
+    src, tgt = _two_blobs()
+    s_s, t_s = _sorted(src, tgt)
+    w = 0.05
+    taken = []
+    orig = pec.fused_estep_plain
+    pec.fused_estep_plain = lambda ys, xs, scal, mask, *a: (
+        taken.append(float(mask.float().mean())) or orig(ys, xs, scal, mask,
+                                                         *a))
+    try:
+        out = pec.estep_fused(_t(s_s), _t(t_s), sigma2, w, tile_m=TILE,
+                              tile_n=TILE)
+        out_c = pec.estep_culled(_t(src), _t(tgt), sigma2, w, tile_m=TILE,
+                                 tile_n=TILE)
+        out_d = pec.estep_fused(_t(s_s), _t(t_s), sigma2, w, tile_m=TILE,
+                                tile_n=TILE, cull=False)
+    finally:
+        pec.fused_estep_plain = orig
+    assert (taken[0] < 1.0) == culled and taken[1] == taken[0], taken
+    assert taken[2] == 1.0
+    ref = jep.estep_fused(s_s, t_s, jnp.float32(sigma2), w, tile_m=TILE,
+                          tile_n=TILE, interpret=True)
+    _assert_moments(ref, out)
+    _assert_moments(ref, out_d)
+    _assert_moments(jeo.estep_xla(s_s, t_s, jnp.float32(sigma2), w), out)
+    # estep_culled sorts inside and returns the moments in the input order.
+    _assert_moments(jeo.estep_xla(src, tgt, jnp.float32(sigma2), w), out_c)
+
+
+def test_two_pass_ragged_tiles_and_dead_stripes_and_rows():
+    """Tile sizes that divide neither cloud; target stripes and source
+    tiles with no active partner get exact zeros."""
+    src, tgt = _two_blobs(600, 520, seed=3)
+    tgt[:200, 2] += 40.0   # far away from every source tile
+    src[:150, 0] += 90.0   # far away from every target stripe
+    s_s, t_s = _sorted(src, tgt)
+    out = pec.estep_fused(_t(s_s), _t(t_s), 0.1, 0.0, tile_m=96, tile_n=128)
+    ref = jeo.estep_xla(s_s, t_s, jnp.float32(0.1), 0.0)
+    _assert_moments(ref, out)
+    assert np.all(out.pt1.numpy()[t_s[:, 2] > 20.0] == 0.0)
+    lonely = s_s[:, 0] > 50.0
+    assert np.all(out.p1.numpy()[lonely] == 0.0)
+    assert np.all(out.px.numpy()[lonely] == 0.0)
+    # The two-pass and the stash versions are the same function.
+    stash = pec.estep_auto(_t(s_s), _t(t_s), 0.1, 0.0, tile_m=96,
+                           tile_n=128, assume_sorted=True)
+    _assert_moments(stash, out)
+
+
+@pytest.mark.parametrize("use_pallas,cfg_flag,min_pairs,branch", [
+    (True, False, 1 << 22, "two_pass"),    # asked for by the caller
+    (False, True, 0, "xla"),               # pinned off, whatever the config
+    (None, True, 1 << 10, "two_pass"),     # config.use_pallas from min_pairs
+    (None, True, 1 << 22, "xla"),          # below pallas_min_pairs
+    (None, False, 0, "xla"),               # the default: opt-in only
+])
+def test_dispatcher_use_pallas(monkeypatch, use_pallas, cfg_flag, min_pairs,
+                               branch):
+    """The reference's order (estep.py:184-213): small, sorted culled, then
+    the two-pass kernels only by request."""
+    monkeypatch.setattr(pcfg.config, "small_estep_max_pairs", 0)
+    monkeypatch.setattr(pcfg.config, "use_pallas", cfg_flag)
+    monkeypatch.setattr(pcfg.config, "pallas_min_pairs", min_pairs)
+    monkeypatch.setattr(pcfg.config, "tile_m", TILE)
+    monkeypatch.setattr(pcfg.config, "tile_n", TILE)
+    taken = []
+    for name, fn in [("small", "estep_small_plain"),
+                     ("stash", "stash_estep_plain"),
+                     ("two_pass", "fused_estep_plain")]:
+        orig = getattr(pec, fn)
+        monkeypatch.setattr(pec, fn, lambda *a, _o=orig, _n=name:
+                            taken.append(_n) or _o(*a))
+    src, tgt = _sorted(*_two_blobs())
+    out = peo.estep(_t(src), _t(tgt), 0.1, 0.05, use_pallas=use_pallas)
+    assert taken == ([] if branch == "xla" else [branch])
+    _assert_moments(jeo.estep_xla(src, tgt, jnp.float32(0.1), 0.05), out)
+
+
+def test_dispatcher_use_pallas_keeps_small_and_culled_first(monkeypatch):
+    """With use_pallas None the small and the sorted culled branches win
+    over config.use_pallas, as in the reference; D > 3 never reaches a
+    kernel."""
+    monkeypatch.setattr(pcfg.config, "use_pallas", True)
+    monkeypatch.setattr(pcfg.config, "pallas_min_pairs", 0)
+    monkeypatch.setattr(pcfg.config, "tile_m", TILE)
+    monkeypatch.setattr(pcfg.config, "tile_n", TILE)
+    taken = []
+    for name, fn in [("small", "estep_small_plain"),
+                     ("stash", "stash_estep_plain"),
+                     ("two_pass", "fused_estep_plain")]:
+        orig = getattr(pec, fn)
+        monkeypatch.setattr(pec, fn, lambda *a, _o=orig, _n=name:
+                            taken.append(_n) or _o(*a))
+    src, tgt = _sorted(*_two_blobs())
+    peo.estep(_t(src), _t(tgt), 0.1)
+    monkeypatch.setattr(pcfg.config, "small_estep_max_pairs", 0)
+    monkeypatch.setattr(pcfg.config, "culled_estep_min_pairs", 1 << 10)
+    peo.estep(_t(src), _t(tgt), 0.1, assume_sorted=True)
+    peo.estep(_t(src), _t(tgt), 0.1)
+    assert taken == ["small", "stash", "two_pass"]
+    rng = np.random.default_rng(0)
+    a = rng.normal(size=(50, 4)).astype(np.float32)
+    out = peo.estep(_t(a), _t(a[::-1]), 1.0, use_pallas=True)
+    assert taken == ["small", "stash", "two_pass"]
+    _assert_moments(jeo.estep_xla(a, a[::-1], jnp.float32(1.0)), out)

@@ -19,6 +19,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = (
         "import sys, probreg_tpu_torch\n"
         "import probreg_tpu_torch.ops.estep_cuda, probreg_tpu_torch.ops._build\n"
+        "import probreg_tpu_torch.ops.em_cuda\n"
         "import probreg_tpu_torch.utils.io, probreg_tpu_torch.utils.datagen\n"
         "import probreg_tpu_torch.utils.interop\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -48,6 +49,7 @@ def test_kernel_sources_ship_with_the_package():
     from probreg_tpu_torch.ops import _build
 
     assert (_build.CSRC / "estep.cu").exists()
+    assert (_build.CSRC / "em.cu").exists()
     assert _build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

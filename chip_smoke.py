@@ -21,7 +21,15 @@ before it and read just after:
   EM in one launch of the whole-EM kernel (em_rigid, em_affine);
 * registration_cpd_batch on a ragged batch of 256 pairs of 300-1024 points
   (rigid) and a fixed-size batch of 64 pairs (affine): one launch of the
-  whole-EM kernel for each batch.
+  whole-EM kernel for each batch;
+* rigid FilterReg at 150,000 points (examples/largescale_rigid.py: maxiter
+  40, tol 1e-8, sigma2_decay 0.9): the streaming EM, each E-step one launch
+  of the tile-culled Gauss transform (gauss_transform);
+* rigid FilterReg on the bunny, pt2pt and pt2pl (examples/filterreg_rigid.py
+  and filterreg_rigid_pt2pl.py): the whole EM in one launch of the FilterReg
+  whole-EM kernel (frg_pt2pt, frg_pt2pl);
+* registration_filterreg_batch on the 256 ragged horse pairs (pt2pt) and on
+  64 pt2pl pairs of 512 points: one launch of that kernel for each batch.
 
 Prints the card, a {"kernels": [...]} line and, last, {"ok": true, ...}.
 Exits non-zero without a CUDA device or when any phase fails.
@@ -58,6 +66,8 @@ N_LARGE = 150_000
 ROT_ERR_MAX = 3e-3
 _ESTEP_CU = "probreg_tpu_torch/csrc/estep.cu"
 _EM_CU = "probreg_tpu_torch/csrc/em.cu"
+_FRG_CU = "probreg_tpu_torch/csrc/frg.cu"
+_GT_CU = "probreg_tpu_torch/csrc/gt.cu"
 # name -> (source of the kernel, file:line of the TPU kernel it replaces)
 KERNELS = {
     "estep_small": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:1571"),
@@ -67,6 +77,9 @@ KERNELS = {
     "em_affine": (_EM_CU, "probreg_tpu/ops/em_pallas.py:262"),
     "fused_den": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:87"),
     "fused_moment": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:124"),
+    "frg_pt2pt": (_FRG_CU, "probreg_tpu/ops/em_pallas.py:797"),
+    "frg_pt2pl": (_FRG_CU, "probreg_tpu/ops/em_pallas.py:797"),
+    "gauss_transform": (_GT_CU, "probreg_tpu/ops/estep_pallas.py:1210"),
 }
 # A whole EM iteration needs, per pair, the Gaussian once and the moments
 # once: that is what the bound charges. (The kernel itself forms the
@@ -81,6 +94,19 @@ EM_BATCH_ITERS = 20
 # against their plain version, two-pass against stash).
 COMPARE_ITERS = 10
 TWO_PASS_ITERS = 5
+# Rotation error (rad) the 150k FilterReg run must reach. With sigma2
+# decaying by 0.9 for 40 iterations the smoothing ends at sigma2 ~ 0.01, and
+# the port's streaming loop on this configuration ends at 2.84e-3 / 3.44e-3
+# rad on the CPU for 3,000 / 8,000 points; 6e-3 leaves room for the trend.
+FRG_ROT_ERR_MAX = 6e-3
+
+
+def flops_frg(channels: int) -> int:
+    """f32 operations per pair of a FilterReg E-step or Gauss transform: the
+    Gaussian from differences (3 subtractions, 3 products and 2 sums for
+    d2, the scale and the exp: 10; d2 >= 0 needs no clamp) and 2 per moment
+    channel."""
+    return 10 + 2 * channels
 
 
 def log(*a):
@@ -351,12 +377,13 @@ def data_path(name):
                         name)
 
 
-def bunny_clouds(lin):
-    """bench.py's bunny configuration: the bunny at voxel 0.005 and a
-    shuffled copy with 1e-3 noise, moved by the 3 x 3 map ``lin``."""
+def bunny_clouds(lin, seed=3):
+    """bench.py's bunny configuration (seed 3; the FilterReg examples' is
+    seed 4): the bunny at voxel 0.005 and a shuffled copy with 1e-3 noise,
+    moved by the 3 x 3 map ``lin``."""
     from probreg_tpu_torch.utils import io
 
-    rng = np.random.default_rng(3)
+    rng = np.random.default_rng(seed)
     src = io.voxel_down_sample(io.read_point_cloud(data_path("bunny.pcd")),
                                0.005)
     tgt = src.copy()
@@ -551,16 +578,17 @@ def check_em(dev, kernels):
 
 
 def reset_launches():
-    from probreg_tpu_torch.ops import em_cuda, estep_cuda
+    from probreg_tpu_torch.ops import em_cuda, estep_cuda, frg_cuda, gt_cuda
 
-    em_cuda.reset_launches()
-    estep_cuda.reset_launches()
+    for mod in (em_cuda, estep_cuda, frg_cuda, gt_cuda):
+        mod.reset_launches()
 
 
 def all_launches():
-    from probreg_tpu_torch.ops import em_cuda, estep_cuda
+    from probreg_tpu_torch.ops import em_cuda, estep_cuda, frg_cuda, gt_cuda
 
-    return {**estep_cuda.LAUNCHES, **em_cuda.LAUNCHES}
+    return {**estep_cuda.LAUNCHES, **em_cuda.LAUNCHES, **frg_cuda.LAUNCHES,
+            **gt_cuda.LAUNCHES}
 
 
 def expect_launches(path, **want):
@@ -792,6 +820,477 @@ def run_batch(dev, launches):
             raise AssertionError(f"{kind} batch registration wrong")
 
 
+# --------------------------------------------------------------------------
+# FilterReg: the whole-EM kernel (K5) and the culled Gauss transform (K6)
+# --------------------------------------------------------------------------
+
+def estimate_normals(pts, k=12):
+    """PCA normals over k neighbours, oriented outward from the centroid (a
+    numpy copy of examples/utils.py estimate_normals)."""
+    d2 = ((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
+    nbrs = pts[np.argsort(d2, axis=1)[:, :k]]
+    ctr = nbrs.mean(axis=1, keepdims=True)
+    cov = np.einsum("nki,nkj->nij", nbrs - ctr, nbrs - ctr)
+    normals = np.linalg.eigh(cov)[1][:, :, 0]
+    sign = np.sign((normals * (pts - pts.mean(0))).sum(1, keepdims=True))
+    sign[sign == 0] = 1.0
+    return (normals * sign).astype(pts.dtype)
+
+
+def surface_pair(n, seed):
+    """n points each of two samplings of z = 0.3 sin(2x) + 0.24 cos(2y) over
+    [-1, 1]^2, the target rotated 8 degrees about z and shifted, with its
+    analytic normals: a well-posed pt2pl pair."""
+    rng = np.random.default_rng(seed)
+
+    def sample(rot):
+        xy = rng.uniform(-1, 1, (n, 2))
+        pts = np.column_stack([xy, 0.3 * np.sin(2 * xy[:, 0])
+                               + 0.24 * np.cos(2 * xy[:, 1])])
+        nrm = np.column_stack([-0.6 * np.cos(2 * xy[:, 0]),
+                               0.48 * np.sin(2 * xy[:, 1]), np.ones(n)])
+        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+        return pts @ rot.T, nrm @ rot.T
+
+    src, _ = sample(np.eye(3))
+    tgt, nrm = sample(z_rotation(8.0))
+    return (src.astype(np.float32), (tgt + [0.05, -0.02, 0.03]).astype(
+        np.float32), nrm.astype(np.float32))
+
+
+def filterreg_batches(seed=5):
+    """The FilterReg serving traffic: the 256 ragged rigid horse pairs of
+    serving_batches (pt2pt), and 64 pt2pl pairs of 512 points, source and
+    target two random subsets of the horse, the target rotated by Euler
+    angles up to 10 degrees, shifted and given 5e-4 noise, with the PCA
+    normals of the target subset."""
+    from probreg_tpu_torch.utils import io, se3_op
+
+    horse = io.read_point_cloud(data_path("horse.ply")).astype(np.float64)
+    rng = np.random.default_rng(seed)
+    pt2pl = []
+    for _ in range(64):
+        src = horse[rng.choice(len(horse), 512, replace=False)]
+        tgt = horse[rng.choice(len(horse), 512, replace=False)]
+        rot = se3_op.euler2mat(*np.deg2rad(rng.uniform(-10, 10, 3))
+                               ).double().numpy()
+        tgt = (tgt @ rot.T + rng.uniform(-0.01, 0.01, 3)
+               + 5e-4 * rng.standard_normal(tgt.shape)).astype(np.float32)
+        pt2pl.append((src.astype(np.float32), tgt, estimate_normals(tgt),
+                      rot))
+    return serving_batches()[0], pt2pl
+
+
+# The FilterReg serving configurations: pt2pt anneals sigma2 by 0.9 per
+# iteration (at its fixed cloud-scale start FilterReg stays 2-10 degrees off
+# on these pairs); pt2pl starts at the point spacing.
+FRG_SERVE = {"pt2pt": dict(sigma2_decay=0.9), "pt2pl": {}}
+
+
+def frg_pair_check(name, src, tgt, nrm, objective, smask=None, tmask=None,
+                   update_sigma2=False):
+    """K5 against its plain version on one pair after 1 and 5 iterations
+    (tol 0: only the order of the sums differs). Returns the largest |rot|,
+    |t| error."""
+    from probreg_tpu_torch.ops import frg_cuda as fc
+
+    worst = 0.0
+    for maxiter in (1, 5):
+        kw = dict(w=0.0, maxiter=maxiter, tol=0.0, update_sigma2=update_sigma2,
+                  sigma2_decay=0.9, min_sigma2=1e-4, auto_sigma2=True)
+        batch = (src[None], tgt[None], None if nrm is None else nrm[None],
+                 None if smask is None else smask[None],
+                 None if tmask is None else tmask[None])
+        got = fc.run_em_filterreg_fused_batch(*batch, objective=objective,
+                                              **kw)
+        want = fc.run_em_filterreg_fused_plain(
+            *fc.compact_batch(*batch), pt2pl=objective == "pt2pl",
+            sigma2_0=0.0, **kw)[0]
+        torch.cuda.synchronize()
+        d_rot = float((got[0][0].reshape(-1) - want[:9]).abs().max())
+        d_t = float((got[1][0] - want[9:12]).abs().max())
+        r_s2 = abs(float(got[2][0]) / float(want[12]) - 1.0)
+        r_q = abs(float(got[3][0]) - float(want[13])) / max(
+            abs(float(want[13])), 1e-3)
+        log(f"  {name} {objective}{' update_sigma2' if update_sigma2 else ''}"
+            f" maxiter {maxiter}: |rot| {d_rot:.2e} |t| {d_t:.2e} sigma2 rel "
+            f"{r_s2:.2e} q rel {r_q:.2e}")
+        # q of pt2pl is a sum of squared residuals that are small
+        # differences: it carries the summation-order noise amplified.
+        if not (d_rot <= 1e-5 and d_t <= 1e-5 and r_s2 <= 1e-5
+                and r_q <= 1e-3 and int(got[4][0]) == maxiter):
+            raise AssertionError(f"FilterReg whole-EM kernel disagrees with "
+                                 f"its plain version: {name} {objective}")
+        worst = max(worst, d_rot, d_t)
+    return worst
+
+
+def check_frg(dev, kernels):
+    """K5 against run_em_filterreg_fused_plain on the card: single pairs
+    (the bunny, a 1024 x 1024 surface pair, update_sigma2, a masked pair),
+    then the two FilterReg batches that run_filterreg_batch drives, at a
+    fixed depth, which give the kernels line its numbers."""
+    from probreg_tpu_torch.ops import frg_cuda as fc
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    log("[K5 FilterReg whole EM] single pairs")
+    src, tgt = bunny_clouds(z_rotation(10.0), seed=4)
+    s_big, t_big, n_big = surface_pair(1024, 6)
+    pairs = {"bunny 390": (t(src), t(tgt), t(estimate_normals(tgt))),
+             "1024x1024": (t(s_big), t(t_big), t(n_big))}
+    worst = {"pt2pt": 0.0, "pt2pl": 0.0}
+    for name, (s, x, nv) in pairs.items():
+        for obj in worst:
+            worst[obj] = max(worst[obj], frg_pair_check(
+                name, s, x, nv if obj == "pt2pl" else None, obj))
+        m, n = s.shape[0], x.shape[0]
+        for obj in worst:
+            kw = dict(objective=obj, maxiter=50, tol=0.0)
+            args = (s, x, nv if obj == "pt2pl" else None)
+            ms = timed(lambda: fc.run_em_filterreg_fused(*args, **kw), 5)
+            chans = 7 if obj == "pt2pl" else 4
+            b_ms, b_by = bound(12 * (m + 2 * n) + 64,
+                               50 * m * n * flops_frg(chans))
+            log(f"  {name} {obj}: 50 iterations in {ms:.3f} ms "
+                f"({ms / 50 * 1e3:.1f} us per iteration), bound {b_ms:.4f} "
+                f"ms ({b_by}); one block on one SM")
+    s, x, nv = pairs["1024x1024"]
+    for obj in worst:
+        worst[obj] = max(worst[obj], frg_pair_check(
+            "1024x1024", s, x, nv if obj == "pt2pl" else None, obj,
+            update_sigma2=True))
+    rng = np.random.default_rng(7)
+    k = s.shape[0]  # 700 and 900 of the 1024 points valid
+    smask = torch.zeros(k, device=dev)
+    tmask = torch.zeros(k, device=dev)
+    smask[torch.as_tensor(rng.permutation(k)[:k * 700 // 1024])] = 1.0
+    tmask[torch.as_tensor(rng.permutation(k)[:k * 900 // 1024])] = 1.0
+    worst["pt2pl"] = max(worst["pt2pl"], frg_pair_check(
+        "masked 700/900", s, x, nv, "pt2pl", smask, tmask))
+
+    # The serving batches at a fixed depth (tol 0: both run exactly
+    # EM_BATCH_ITERS iterations), through the wrapper (masks and their
+    # compaction included) against the plain version on each pair's own
+    # unpadded clouds; times and bound of that same run.
+    rigid, pt2pl = filterreg_batches()
+    for obj, batch in (("pt2pt", rigid), ("pt2pl", pt2pl)):
+        srcs, tgts, smask, tmask = em_batch_tensors(batch, dev)
+        nrms = None
+        if obj == "pt2pl":  # fixed-size: no masks, as run_filterreg_batch
+            nrms = torch.as_tensor(np.stack([p[2] for p in batch]),
+                                   device=dev)
+            smask = tmask = None
+        args = dict(w=0.0, maxiter=EM_BATCH_ITERS, tol=0.0,
+                    update_sigma2=False, min_sigma2=1e-4, auto_sigma2=True,
+                    sigma2_decay=FRG_SERVE[obj].get("sigma2_decay", 1.0))
+        n0 = fc.LAUNCHES["frg_" + obj]
+        rot, tt, sigma2, _, it = fc.run_em_filterreg_fused_batch(
+            srcs, tgts, nrms, smask, tmask, objective=obj, **args)
+        n_launch = fc.LAUNCHES["frg_" + obj] - n0
+        if not bool((it == EM_BATCH_ITERS).all()):
+            raise AssertionError("FilterReg batch: wrong iteration count")
+        own = [(t(p[0])[None], t(p[1])[None],
+                t(p[2])[None] if obj == "pt2pl" else None) for p in batch]
+        plain = dict(pt2pl=obj == "pt2pl", sigma2_0=0.0, **args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = torch.cat([fc.run_em_filterreg_fused_plain(s, x, nv, None,
+                                                          **plain)
+                          for s, x, nv in own])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = torch.cat([rot.reshape(-1, 9), tt], dim=1)
+        err = float((got - want[:, :12]).abs().max())
+        r_s2 = float((sigma2 / want[:, 12] - 1.0).abs().max())
+        log(f"[K5 FilterReg whole EM] {obj} batch of {len(batch)}, "
+            f"{EM_BATCH_ITERS} iterations, {n_launch} launch: max |rot|, |t| "
+            f"{err:.2e}, sigma2 rel {r_s2:.2e}")
+        if not (err <= 1e-5 and r_s2 <= 1e-5):
+            raise AssertionError(f"FilterReg {obj} batch disagrees with its "
+                                 "plain version")
+        s_c, t_c, n_c, counts = fc.compact_batch(srcs, tgts, nrms, smask,
+                                                 tmask)
+        raw = dict(plain)
+        ms = timed(lambda: fc._frg_cuda(s_c, t_c, n_c, counts, **raw), 5)
+        sizes = torch.tensor([[p[0].shape[0], p[1].shape[0]] for p in batch],
+                             dtype=torch.float64)
+        pair_its = float(sizes.prod(1).sum()) * EM_BATCH_ITERS
+        chans = 7 if obj == "pt2pl" else 4
+        nbytes = float(12 * sizes[:, 0].sum()
+                       + (24 if obj == "pt2pl" else 12) * sizes[:, 1].sum()
+                       + 64 * len(batch))
+        b_ms, b_by = bound(nbytes, pair_its * flops_frg(chans))
+        log(f"  kernel {ms:.3f} ms  plain {plain_ms:.1f} ms (a host loop "
+            f"over the pairs)  bound {b_ms:.4f} ms ({b_by}), "
+            f"{pair_its:.4g} pair-iterations")
+        kernels["frg_" + obj] = dict(max_abs_err=max(err, worst[obj]), ms=ms,
+                                     plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by)
+
+
+def check_gt(dev, kernels):
+    """K6 against its plain version on the 150k clouds, as the streaming
+    FilterReg E-step calls it (points: the target / sigma; queries: the
+    transformed source / sigma; h = sqrt 2): dense at the run's sigma2_0
+    with 4 and 8 channels, culled at sigma2 = 1e-3, with M != N in one case;
+    then the wrapper with sort=True on unsorted clouds and sort=False on
+    sorted ones."""
+    from probreg_tpu_torch.ops import gt_cuda as gc
+    from probreg_tpu_torch.ops.spatial import morton_order
+    from probreg_tpu_torch.utils import math_utils
+
+    # The clouds Morton-sorted once, as the streaming loop holds them, and
+    # its automatic sigma2_0.
+    src, tgt, _ = large_clouds(dev)
+    src, tgt = torch.as_tensor(src, device=dev), torch.as_tensor(tgt,
+                                                                 device=dev)
+    ys, xs = src[morton_order(src)], tgt[morton_order(tgt)]
+    sigma2_0 = float(math_utils.squared_kernel_sum(ys, xs))
+    rng = np.random.default_rng(8)
+    nrm = torch.as_tensor(rng.normal(size=xs.shape), dtype=torch.float32,
+                          device=dev)
+    nrm = nrm / nrm.norm(dim=1, keepdim=True)
+    out = {}
+    for label, sigma2, chans, n in (("dense", sigma2_0, 4, None),
+                                    ("dense C=8", sigma2_0, 8, None),
+                                    ("culled", 1e-3, 4, None),
+                                    ("dense M != N", sigma2_0, 4, 120_000)):
+        x = xs[:n] if n else xs
+        w = torch.cat([torch.ones_like(x[:, :1]), x]
+                      + ([(x * x).sum(1, keepdim=True), nrm[:x.shape[0]]]
+                         if chans == 8 else []), dim=1)
+        sigma = sigma2 ** 0.5
+        ps, qs = x / sigma, ys / sigma
+        cen = (ps.sum(0) + qs.sum(0)) / (ps.shape[0] + qs.shape[0])
+        prep = gc.prepare(ps - cen, qs - cen, w, 2.0 ** 0.5)
+        mask = prep[4]
+        rows = torch.full((mask.shape[1],), float(gc._ROWS), device=dev)
+        rows[-1] = qs.shape[0] - (rows.numel() - 1) * gc._ROWS
+        cols = torch.full((mask.shape[0],), float(prep[5]), device=dev)
+        cols[-1] = ps.shape[0] - (cols.numel() - 1) * prep[5]
+        pairs = float(cols @ mask.float() @ rows)
+        log(f"[K6 gauss_transform] {label}: sigma2 {sigma2:.6g}, "
+            f"{qs.shape[0]} x {ps.shape[0]}, C = {chans}, active tile "
+            f"fraction {float(mask.float().mean()):.4f}, active pairs "
+            f"{pairs:.4g}")
+        n0 = gc.LAUNCHES["gauss_transform"]
+        got = gc.gt_core(*prep)
+        want = gc.gauss_transform_culled_plain(*prep)
+        torch.cuda.synchronize()
+        log(f"  {gc.LAUNCHES['gauss_transform'] - n0} launch")
+        err = compare("out", got, want)
+        del got, want
+        ms = timed(gc.gt_launcher(*prep)[0], 5)
+        plain_ms = timed(lambda: gc.gauss_transform_culled_plain(*prep), 2)
+        nq, m = qs.shape[0], ps.shape[0]
+        b_ms, b_by = bound(4 * (3 * (nq + m) + chans * (m + nq)),
+                           pairs * flops_frg(chans))
+        log(f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
+            f"{b_ms:.3f} ms ({b_by})")
+        out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+    # The wrapper's own centring, sort and unsort, against the same path
+    # with the plain version in place of the launch.
+    sigma = sigma2_0 ** 0.5
+    core = gc.gt_core
+    for label, (p, q), sort in (("sort=True, unsorted", (tgt, src), True),
+                                ("sort=False, sorted", (xs, ys), False)):
+        w = torch.cat([torch.ones_like(p[:, :1]), p], dim=1)
+        got = gc.gauss_transform_culled(p / sigma, q / sigma, w, 2.0 ** 0.5,
+                                        sort=sort)
+        gc.gt_core = gc.gauss_transform_culled_plain
+        try:
+            want = gc.gauss_transform_culled(p / sigma, q / sigma, w,
+                                             2.0 ** 0.5, sort=sort)
+        finally:
+            gc.gt_core = core
+        torch.cuda.synchronize()
+        log(f"[K6 gauss_transform] wrapper, {label}:")
+        err = compare("out", got, want)
+        out["dense"]["max_abs_err"] = max(out["dense"]["max_abs_err"], err)
+    kernels["gauss_transform"] = dict(
+        out["dense"], max_abs_err=max(v["max_abs_err"] for v in out.values()))
+
+
+def run_filterreg_large(dev, launches):
+    """registration_filterreg on the 150k clouds of
+    examples/largescale_rigid.py: the streaming EM, one K6 launch per E-step
+    and no plain-version call."""
+    from probreg_tpu_torch import filterreg
+    from probreg_tpu_torch.ops import estep_cuda as ec
+    from probreg_tpu_torch.ops import gt_cuda as gc
+    from probreg_tpu_torch.utils import se3_op
+
+    src, tgt, rot = large_clouds(dev)
+    kw = dict(maxiter=40, tol=1e-8, sigma2_decay=0.9)
+    log(f"[FilterReg path] registration_filterreg rigid, {N_LARGE:,} points, "
+        "maxiter 40, tol 1e-8, sigma2_decay 0.9")
+    t0 = time.perf_counter()
+    filterreg.registration_filterreg(src, tgt, **kw)
+    torch.cuda.synchronize()
+    log(f"  warm call {time.perf_counter() - t0:.3f} s")
+    masks = []
+    active_mask, plain = ec._active_mask, gc.gauss_transform_culled_plain
+
+    def recording_mask(*a):  # observes each E-step's tile mask
+        mask = active_mask(*a)
+        masks.append(mask.float().mean())
+        return mask
+
+    def refuse(*a):
+        raise AssertionError("the plain Gauss transform ran on the card")
+
+    ec._active_mask, gc.gauss_transform_culled_plain = recording_mask, refuse
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = filterreg.registration_filterreg(src, tgt, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ec._active_mask, gc.gauss_transform_culled_plain = active_mask, plain
+    n_gt = all_launches()["gauss_transform"]
+    expect_launches("150k FilterReg", gauss_transform=len(masks))
+    launches["gauss_transform"] = n_gt
+    peak = torch.cuda.max_memory_allocated()
+    err = float(se3_op.rotation_angle(res.transformation.rot.cpu().double(),
+                                      torch.as_tensor(rot).double()))
+    ang = np.rad2deg(se3_op.mat2euler(res.transformation.rot.cpu()).numpy())
+    log(f"  timed call {wall:.3f} s, E-steps {len(masks)}, gauss_transform "
+        f"launches {n_gt}, final sigma2 {float(res.sigma2):.6g}, rotation "
+        f"error {err:.3e} rad, recovered {np.round(ang, 3).tolist()} deg")
+    log(f"  active tile fraction: first E-step {float(masks[0]):.4f}, last "
+        f"{float(masks[-1]):.4f}; peak memory {peak / 2**30:.3f} GiB")
+    if not (n_gt == 40 and math.isfinite(float(res.sigma2))
+            and err <= FRG_ROT_ERR_MAX):
+        raise AssertionError(f"150k FilterReg wrong: {n_gt} launches, "
+                             f"rotation error {err}")
+    # The same registration with the plain version in place of every
+    # launch, at a smaller depth: the kernel may change only sum orders.
+    kw["maxiter"] = COMPARE_ITERS
+    res = filterreg.registration_filterreg(src, tgt, **kw)
+    core = gc.gt_core
+    gc.gt_core = gc.gauss_transform_culled_plain
+    try:
+        t0 = time.perf_counter()
+        ref = filterreg.registration_filterreg(src, tgt, **kw)
+        torch.cuda.synchronize()
+    finally:
+        gc.gt_core = core
+    d_rot = float((res.transformation.rot - ref.transformation.rot)
+                  .abs().max())
+    d_t = float((res.transformation.t - ref.transformation.t).abs().max())
+    log(f"  plain-version registration, {COMPARE_ITERS} iterations, "
+        f"{time.perf_counter() - t0:.3f} s: max |rot diff| {d_rot:.3e}, "
+        f"max |t diff| {d_t:.3e}")
+    if not (d_rot <= 1e-4 and d_t <= 1e-4):
+        raise AssertionError("kernel and plain FilterReg registrations "
+                             "disagree")
+
+
+def run_filterreg_bunny(dev, launches):
+    """examples/filterreg_rigid.py (pt2pt) and filterreg_rigid_pt2pl.py
+    (pt2pl, PCA normals): each one K5 launch, held to the port's own dense
+    loop _run_em_rigid run to the kernel's iteration count (at tol 1e-3 the
+    two would stop apart while a pt2pt pair with a fixed sigma2 still
+    moves)."""
+    from probreg_tpu_torch import filterreg
+    from probreg_tpu_torch.ops import frg_cuda as fc
+    from probreg_tpu_torch.utils import se3_op
+
+    src, tgt = bunny_clouds(z_rotation(10.0), seed=4)
+    nrm = estimate_normals(tgt)
+    ys, xs = torch.as_tensor(src, device=dev), torch.as_tensor(tgt, device=dev)
+    ns = torch.as_tensor(nrm, device=dev)
+    for obj in ("pt2pt", "pt2pl"):
+        kw = dict(objective_type=obj,
+                  target_normals=nrm if obj == "pt2pl" else None)
+        filterreg.registration_filterreg(src, tgt, **kw)  # warm
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = filterreg.registration_filterreg(src, tgt, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        log(f"[FilterReg bunny] {obj}, {src.shape[0]} points, second call "
+            f"{wall:.3f} ms")
+        expect_launches(f"FilterReg bunny {obj}", **{f"frg_{obj}": 1})
+        its = int(fc.run_em_filterreg_fused_batch(
+            ys[None], xs[None], ns[None] if obj == "pt2pl" else None,
+            objective=obj)[4][0])
+        t0 = time.perf_counter()
+        dense = filterreg._run_em_rigid(
+            ys, xs, ns if obj == "pt2pl" else None, torch.eye(3, device=dev),
+            torch.zeros(3, device=dev), 0.0, objective_type=obj,
+            update_sigma2=False, w=0.0, maxiter=its, tol=0.0, min_sigma2=1e-4,
+            auto_sigma2=True)
+        torch.cuda.synchronize()
+        loop_ms = (time.perf_counter() - t0) * 1e3
+        tr, tr_d = res.transformation, dense.transformation
+        d_ang = float(se3_op.rotation_angle(tr.rot.double(),
+                                            tr_d.rot.double()))
+        ang = np.rad2deg(se3_op.mat2euler(tr.rot.cpu()).numpy())
+        log(f"  {its} iterations; dense loop {loop_ms:.1f} ms; rotation "
+            f"against it {d_ang:.2e}"
+            f" rad, |t| {float((tr.t - tr_d.t).abs().max()):.2e}, recovered "
+            f"Euler {np.round(ang, 3).tolist()} deg (the JAX package's "
+            "example on the CPU: [2.543, -0.281, 12.059] pt2pt, [0.076, "
+            "-0.485, 8.831] pt2pl)")
+        if not (d_ang <= 2e-4
+                and np.allclose(ang, [0.0, 0.0, 10.0], atol=3.5)):
+            raise AssertionError(f"FilterReg bunny {obj} wrong")
+
+
+def run_filterreg_batch(dev, launches):
+    """registration_filterreg_batch on the FilterReg serving batches: one K5
+    launch each, every pair equal to its single-pair registration."""
+    from probreg_tpu_torch import filterreg
+    from probreg_tpu_torch.utils import se3_op
+
+    rigid, pt2pl = filterreg_batches()
+    for obj, batch in (("pt2pt", rigid), ("pt2pl", pt2pl)):
+        srcs, tgts = [p[0] for p in batch], [p[1] for p in batch]
+        kw = dict(objective_type=obj, **FRG_SERVE[obj])
+        if obj == "pt2pl":  # fixed-size: arrays, no masks
+            srcs, tgts = np.stack(srcs), np.stack(tgts)
+            kw["target_normals"] = np.stack([p[2] for p in batch])
+        filterreg.registration_filterreg_batch(srcs, tgts, **kw)  # warm
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = filterreg.registration_filterreg_batch(srcs, tgts, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        log(f"[FilterReg batch] registration_filterreg_batch {obj}, "
+            f"{len(batch)} pairs, second call {wall:.2f} ms "
+            f"({wall / len(batch):.3f} ms per pair)")
+        expect_launches(f"FilterReg {obj} batch", **{f"frg_{obj}": 1})
+        launches[f"frg_{obj}"] = 1
+        errs, d_single = [], 0.0
+        for b, (p, r) in enumerate(zip(batch, res)):
+            one_kw = dict(kw)
+            if obj == "pt2pl":
+                one_kw["target_normals"] = p[2]
+            one = filterreg.registration_filterreg(p[0], p[1], **one_kw)
+            errs.append(np.rad2deg(float(se3_op.rotation_angle(
+                r.transformation.rot.cpu().double(), torch.as_tensor(p[-1])))))
+            d_single = max(d_single,
+                           float((one.transformation.rot
+                                  - r.transformation.rot).abs().max()),
+                           float((one.transformation.t
+                                  - r.transformation.t).abs().max()))
+        log(f"  deg rotation error: max {max(errs):.4f} median "
+            f"{np.median(errs):.4f}; max difference to the single-pair "
+            f"registrations {d_single:.2e}")
+        limit = (5.0, 1.5) if obj == "pt2pt" else (5.0, 2.5)
+        if not (max(errs) <= limit[0] and np.median(errs) <= limit[1]
+                and d_single <= 1e-6):
+            raise AssertionError(f"FilterReg {obj} batch registration wrong")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -820,7 +1319,12 @@ def main() -> int:
                         (run_two_pass_path, (dev, launches)),
                         (run_small_estep_path, (dev, launches)),
                         (run_bunny, (dev, launches)),
-                        (run_batch, (dev, launches))):
+                        (run_batch, (dev, launches)),
+                        (check_frg, (dev, kernels)),
+                        (check_gt, (dev, kernels)),
+                        (run_filterreg_large, (dev, launches)),
+                        (run_filterreg_bunny, (dev, launches)),
+                        (run_filterreg_batch, (dev, launches))):
         t0 = time.perf_counter()
         try:
             phase(*args)

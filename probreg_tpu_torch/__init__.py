@@ -1,8 +1,11 @@
 """probreg_tpu_torch: the PyTorch / CUDA port of probreg_tpu.
 
-A second package beside the JAX one. Rigid CPD runs end to end; above the
-dense threshold its E-steps go through hand-written CUDA kernels for the
-H100 (``csrc/estep.cu``). It imports neither JAX nor the JAX package.
+A second package beside the JAX one. Rigid and affine CPD and rigid
+FilterReg (pt2pt and pt2pl) run end to end, single pairs, batches and large
+clouds, on hand-written CUDA kernels for the H100 (``csrc/``): the CPD
+E-steps (``estep.cu``), the whole-EM CPD and FilterReg kernels (``em.cu``,
+``frg.cu``) and the tile-culled Gauss transform (``gt.cu``). It imports
+neither JAX nor the JAX package.
 """
 
 import torch as _torch
@@ -13,7 +16,7 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-from . import config, cpd, log  # noqa: E402,F401
+from . import config, cpd, filterreg, gauss_transform, log  # noqa: E402,F401
 from .models import transformation  # noqa: E402,F401
 from .utils import se3_op  # noqa: E402,F401
 from .version import __version__  # noqa: E402,F401

@@ -36,9 +36,10 @@
 
 #include <cuda_runtime.h>
 
+#include "em_common.cuh"
+
 namespace {
 
-constexpr float kEpsF32 = 1.1920928955078125e-07f;  // np.finfo(f32).eps
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRed = 18;  // widest block reduction (the M-step sums)
@@ -54,89 +55,6 @@ struct State {
 __device__ __forceinline__ float gauss(float4 y, float4 x, float inv2s2) {
   const float dx = y.x - x.x, dy = y.y - x.y, dz = y.z - x.z;
   return expf(-(dx * dx + dy * dy + dz * dz) * inv2s2);
-}
-
-// Sum over the `width` adjacent lanes of a group (width a power of two <= 32).
-__device__ __forceinline__ float group_sum(float v, int width) {
-  for (int o = width >> 1; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Block-wide sums of K values per thread, in a fixed order; the totals land
-// in out[0..K) and are visible to every thread on return.
-template <int K>
-__device__ void block_reduce(float (&v)[K], float* red, float* out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int k = 0; k < K; ++k) v[k] = group_sum(v[k], 32);
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) red[warp * K + k] = v[k];
-  }
-  __syncthreads();
-  if (threadIdx.x < K) {
-    float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += red[w * K + threadIdx.x];
-    out[threadIdx.x] = s;
-  }
-  __syncthreads();
-}
-
-// Lanes that share one column (pass A) or one row (pass B): the largest
-// power of two <= 32 that still gives every item its own group.
-__device__ __forceinline__ int pick_split(int items) {
-  int s = 1;
-  while (s < 32 && 2 * s * items <= kThreads) s *= 2;
-  return s;
-}
-
-// Eigenvectors of a symmetric 4 x 4 by cyclic Jacobi; returns in q the unit
-// eigenvector of the largest eigenvalue.
-__device__ void dominant_eigvec4(double a[4][4], double q[4]) {
-  double v[4][4];
-  for (int i = 0; i < 4; ++i)
-    for (int j = 0; j < 4; ++j) v[i][j] = (i == j) ? 1.0 : 0.0;
-  for (int sweep = 0; sweep < 16; ++sweep) {
-    double off = 0.0, diag = 0.0;
-    for (int i = 0; i < 4; ++i) {
-      diag += a[i][i] * a[i][i];
-      for (int j = i + 1; j < 4; ++j) off += a[i][j] * a[i][j];
-    }
-    if (off <= 1e-32 * diag) break;
-    for (int p = 0; p < 3; ++p) {
-      for (int r = p + 1; r < 4; ++r) {
-        const double apr = a[p][r];
-        if (apr == 0.0) continue;
-        const double theta = (a[r][r] - a[p][p]) / (2.0 * apr);
-        const double tt = (theta >= 0.0 ? 1.0 : -1.0) /
-                          (fabs(theta) + sqrt(theta * theta + 1.0));
-        const double c = 1.0 / sqrt(tt * tt + 1.0), s = tt * c;
-        for (int k = 0; k < 4; ++k) {
-          const double akp = a[k][p], akr = a[k][r];
-          a[k][p] = c * akp - s * akr;
-          a[k][r] = s * akp + c * akr;
-        }
-        for (int k = 0; k < 4; ++k) {
-          const double apk = a[p][k], ark = a[r][k];
-          a[p][k] = c * apk - s * ark;
-          a[r][k] = s * apk + c * ark;
-        }
-        for (int k = 0; k < 4; ++k) {
-          const double vkp = v[k][p], vkr = v[k][r];
-          v[k][p] = c * vkp - s * vkr;
-          v[k][r] = s * vkp + c * vkr;
-        }
-      }
-    }
-  }
-  int best = 0;
-  for (int i = 1; i < 4; ++i)
-    if (a[i][i] > a[best][best]) best = i;
-  double nrm = 0.0;
-  for (int k = 0; k < 4; ++k) nrm += v[k][best] * v[k][best];
-  nrm = sqrt(nrm > 1e-300 ? nrm : 1e-300);
-  for (int k = 0; k < 4; ++k) q[k] = v[k][best] / nrm;
 }
 
 // The M-step of one iteration, in one thread, from the block's sums:
@@ -178,25 +96,8 @@ __device__ void mstep(State& st, const float* s, int maxiter, float tol,
       }
     resid = qnum = tr_xp1x - tr_ab;
   } else {
-    // Horn: S = a^T (source x target), dominant eigenvector of N(S).
-    const double sxx = a[0][0], sxy = a[1][0], sxz = a[2][0];
-    const double syx = a[0][1], syy = a[1][1], syz = a[2][1];
-    const double szx = a[0][2], szy = a[1][2], szz = a[2][2];
-    double k4[4][4] = {
-        {sxx + syy + szz, syz - szy, szx - sxz, sxy - syx},
-        {syz - szy, sxx - syy - szz, sxy + syx, szx + sxz},
-        {szx - sxz, sxy + syx, -sxx + syy - szz, syz + szy},
-        {sxy - syx, szx + sxz, syz + szy, -sxx - syy + szz}};
-    double q[4];
-    dominant_eigvec4(k4, q);
-    const double qw = q[0], qx = q[1], qy = q[2], qz = q[3];
-    const double rot[3][3] = {
-        {qw * qw + qx * qx - qy * qy - qz * qz, 2.0 * (qx * qy - qw * qz),
-         2.0 * (qx * qz + qw * qy)},
-        {2.0 * (qx * qy + qw * qz), qw * qw - qx * qx + qy * qy - qz * qz,
-         2.0 * (qy * qz - qw * qx)},
-        {2.0 * (qx * qz - qw * qy), 2.0 * (qy * qz + qw * qx),
-         qw * qw - qx * qx - qy * qy + qz * qz}};
+    double rot[3][3];
+    horn_rotation(a, rot);
     double tr_atr = 0.0;
     for (int i = 0; i < 3; ++i)
       for (int j = 0; j < 3; ++j) tr_atr += a[i][j] * rot[i][j];
@@ -269,7 +170,7 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
     xs[j] = p;
     v[3] += p.x; v[4] += p.y; v[5] += p.z;
   }
-  block_reduce(v, red, sums);
+  block_reduce<kRed, kThreads>(v, red, sums);
   const float inv_mn = 1.0f / (float)(m + n);
   const float cx = (sums[0] + sums[3]) * inv_mn;
   const float cy = (sums[1] + sums[4]) * inv_mn;
@@ -291,7 +192,7 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
     v[3] += p.x; v[4] += p.y; v[5] += p.z;
     v[7] += p.w;
   }
-  block_reduce(v, red, sums);
+  block_reduce<kRed, kThreads>(v, red, sums);
   if (tid == 0) {
     // sigma2_0 = mean pairwise squared distance / 3, in closed form, and q0.
     const float fm = (float)m, fn = (float)n;
@@ -314,7 +215,8 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
   }
   __syncthreads();
 
-  const int split_a = pick_split(n), split_b = pick_split(m);
+  const int split_a = pick_split<kThreads>(n);
+  const int split_b = pick_split<kThreads>(m);
   while (st.go) {
     const float inv2s2 = st.inv2s2, c = st.c;
     {
@@ -387,7 +289,7 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
       }
     }
     v[7] = xx;
-    block_reduce(v, red, sums);
+    block_reduce<kRed, kThreads>(v, red, sums);
     if (tid == 0) {
       const float n_p = sums[0];
       st.n_p = n_p;
@@ -416,7 +318,7 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
         v[15] += w1 * h1; v[16] += w1 * h2; v[17] += w2 * h2;
       }
     }
-    block_reduce(v, red, sums);
+    block_reduce<kRed, kThreads>(v, red, sums);
     if (tid == 0) mstep(st, sums, maxiter, tol, update_scale, affine);
     __syncthreads();
   }

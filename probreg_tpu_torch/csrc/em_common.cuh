@@ -1,0 +1,124 @@
+// Device helpers shared by the whole-EM kernels (em.cu: CPD, frg.cu:
+// FilterReg): fixed-order block reductions, the lane-group split, and
+// Horn's rotation solve by Jacobi sweeps in double.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kEpsF32 = 1.1920928955078125e-07f;  // np.finfo(f32).eps
+
+// Sum over the `width` adjacent lanes of a group (width a power of two <= 32).
+__device__ __forceinline__ float group_sum(float v, int width) {
+  for (int o = width >> 1; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Block-wide sums of K values per thread, in a fixed order (shuffles, then
+// the warps in order); the totals land in out[0..K) and are visible to every
+// thread on return. red holds (THREADS / 32) * K floats.
+template <int K, int THREADS>
+__device__ void block_reduce(float (&v)[K], float* red, float* out) {
+  constexpr int kWarps = THREADS / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = group_sum(v[k], 32);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) red[warp * K + k] = v[k];
+  }
+  __syncthreads();
+  if (threadIdx.x < K) {
+    float s = 0.0f;
+    for (int w = 0; w < kWarps; ++w) s += red[w * K + threadIdx.x];
+    out[threadIdx.x] = s;
+  }
+  __syncthreads();
+}
+
+// Lanes that share one item (a column or a row): the largest power of two
+// <= 32 that still gives every item its own group of a THREADS-wide block.
+template <int THREADS>
+__device__ __forceinline__ int pick_split(int items) {
+  int s = 1;
+  while (s < 32 && 2 * s * items <= THREADS) s *= 2;
+  return s;
+}
+
+// Eigenvectors of a symmetric 4 x 4 by cyclic Jacobi; returns in q the unit
+// eigenvector of the largest eigenvalue. Converges for every symmetric
+// matrix and returns a unit vector even when the top eigenvalues tie.
+__device__ void dominant_eigvec4(double a[4][4], double q[4]) {
+  double v[4][4];
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) v[i][j] = (i == j) ? 1.0 : 0.0;
+  for (int sweep = 0; sweep < 16; ++sweep) {
+    double off = 0.0, diag = 0.0;
+    for (int i = 0; i < 4; ++i) {
+      diag += a[i][i] * a[i][i];
+      for (int j = i + 1; j < 4; ++j) off += a[i][j] * a[i][j];
+    }
+    if (off <= 1e-32 * diag) break;
+    for (int p = 0; p < 3; ++p) {
+      for (int r = p + 1; r < 4; ++r) {
+        const double apr = a[p][r];
+        if (apr == 0.0) continue;
+        const double theta = (a[r][r] - a[p][p]) / (2.0 * apr);
+        const double tt = (theta >= 0.0 ? 1.0 : -1.0) /
+                          (fabs(theta) + sqrt(theta * theta + 1.0));
+        const double c = 1.0 / sqrt(tt * tt + 1.0), s = tt * c;
+        for (int k = 0; k < 4; ++k) {
+          const double akp = a[k][p], akr = a[k][r];
+          a[k][p] = c * akp - s * akr;
+          a[k][r] = s * akp + c * akr;
+        }
+        for (int k = 0; k < 4; ++k) {
+          const double apk = a[p][k], ark = a[r][k];
+          a[p][k] = c * apk - s * ark;
+          a[r][k] = s * apk + c * ark;
+        }
+        for (int k = 0; k < 4; ++k) {
+          const double vkp = v[k][p], vkr = v[k][r];
+          v[k][p] = c * vkp - s * vkr;
+          v[k][r] = s * vkp + c * vkr;
+        }
+      }
+    }
+  }
+  int best = 0;
+  for (int i = 1; i < 4; ++i)
+    if (a[i][i] > a[best][best]) best = i;
+  double nrm = 0.0;
+  for (int k = 0; k < 4; ++k) nrm += v[k][best] * v[k][best];
+  nrm = sqrt(nrm > 1e-300 ? nrm : 1e-300);
+  for (int k = 0; k < 4; ++k) q[k] = v[k][best] / nrm;
+}
+
+// Horn's quaternion method: the proper rotation maximizing tr(a^T R) for a
+// (target x source) cross-covariance a, i.e. S = a^T (source x target).
+__device__ void horn_rotation(double a[3][3], double rot[3][3]) {
+  const double sxx = a[0][0], sxy = a[1][0], sxz = a[2][0];
+  const double syx = a[0][1], syy = a[1][1], syz = a[2][1];
+  const double szx = a[0][2], szy = a[1][2], szz = a[2][2];
+  double k4[4][4] = {
+      {sxx + syy + szz, syz - szy, szx - sxz, sxy - syx},
+      {syz - szy, sxx - syy - szz, sxy + syx, szx + sxz},
+      {szx - sxz, sxy + syx, -sxx + syy - szz, syz + szy},
+      {sxy - syx, szx + sxz, syz + szy, -sxx - syy + szz}};
+  double q[4];
+  dominant_eigvec4(k4, q);
+  const double qw = q[0], qx = q[1], qy = q[2], qz = q[3];
+  rot[0][0] = qw * qw + qx * qx - qy * qy - qz * qz;
+  rot[0][1] = 2.0 * (qx * qy - qw * qz);
+  rot[0][2] = 2.0 * (qx * qz + qw * qy);
+  rot[1][0] = 2.0 * (qx * qy + qw * qz);
+  rot[1][1] = qw * qw - qx * qx + qy * qy - qz * qz;
+  rot[1][2] = 2.0 * (qy * qz - qw * qx);
+  rot[2][0] = 2.0 * (qx * qz - qw * qy);
+  rot[2][1] = 2.0 * (qy * qz + qw * qx);
+  rot[2][2] = qw * qw - qx * qx - qy * qy + qz * qz;
+}
+
+}  // namespace

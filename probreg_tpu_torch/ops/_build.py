@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds) and
 loaded with ``ctypes``. Libraries go to ``build/torch_kernels/`` beside the
-package, named by a hash of the source and the flags, so a changed source
-is rebuilt and an unchanged one is loaded as it is. A failed build raises.
+package, named by a hash of the source, the shared ``csrc/*.cuh`` headers
+and the flags, so a changed source is rebuilt and an unchanged one is
+loaded as it is. A failed build raises.
 """
 
 from __future__ import annotations
@@ -42,7 +43,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # The shared headers count too: a changed header rebuilds every source.
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 

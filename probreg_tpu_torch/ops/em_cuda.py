@@ -69,7 +69,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_batch(sources, targets):
+def _check_batch(sources, targets, dims_ok=None):
+    """The checked, contiguous (B, M, 3) and (B, N, 3) clouds of a whole-EM
+    kernel; ``dims_ok`` is the kernel's shared-memory gate (default K1's)."""
     if sources.dim() != 3 or targets.dim() != 3 \
             or sources.shape[0] != targets.shape[0]:
         raise ValueError("expected (B, M, 3) and (B, N, 3) point tensors, got "
@@ -83,7 +85,7 @@ def _check_batch(sources, targets):
                          f"{targets.device}")
     if sources.dtype != torch.float32 or targets.dtype != torch.float32:
         raise ValueError("the whole-EM kernel takes float32 points")
-    if not fused_dims_ok(sources.shape[1], targets.shape[1]):
+    if not (dims_ok or fused_dims_ok)(sources.shape[1], targets.shape[1]):
         raise ValueError(
             f"a pair of {sources.shape[1]} x {targets.shape[1]} points does "
             "not fit one block's shared memory (see fused_dims_ok)")

@@ -9,7 +9,7 @@ state given as numpy, so both packages can start from the same state.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -38,6 +38,17 @@ def as_points(x: Any, dtype=None, device=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=dev, dtype=dtype)
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+
+def as_normals(x: Any, dtype=None, device=None) -> Optional[torch.Tensor]:
+    """Normals as an (N, D) tensor on ``device``: None stays None, an Open3D
+    cloud gives its ``normals``, anything else goes through ``as_points``
+    (reference interop.py:66)."""
+    if x is None:
+        return None
+    if _o3 is not None and isinstance(x, _o3.geometry.PointCloud):
+        x = np.asarray(x.normals)
+    return as_points(x, dtype=dtype, device=device)
 
 
 def pad_ragged(clouds, dtype=None, device=None):

@@ -64,7 +64,7 @@ setup(
                                     "probreg_tpu_torch",
                                     "probreg_tpu_torch.*"]),
     package_data={"probreg_tpu": ["cc/*.cpp"],
-                  "probreg_tpu_torch": ["csrc/*.cu"]},
+                  "probreg_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
     ext_modules=_ext_modules(),

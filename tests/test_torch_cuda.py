@@ -12,6 +12,7 @@ operation orders and sum in different orders). The whole-EM kernel is held
 to its plain version at a fixed small number of iterations (lin, t to 1e-5
 absolute, sigma2 to 1e-5 relative: only the summation order differs) and
 over a whole run (2e-4 absolute, 1e-3 relative: the iterations amplify it).
+The FilterReg whole-EM kernel is held to the same figures.
 """
 
 import numpy as np
@@ -23,6 +24,8 @@ from probreg_tpu_torch import config as pcfg  # noqa: E402
 from probreg_tpu_torch import cpd as pcpd  # noqa: E402
 from probreg_tpu_torch.ops import em_cuda as pem  # noqa: E402
 from probreg_tpu_torch.ops import estep_cuda as pec  # noqa: E402
+from probreg_tpu_torch.ops import frg_cuda as pfc  # noqa: E402
+from probreg_tpu_torch.ops import gt_cuda as pgc  # noqa: E402
 from probreg_tpu_torch.ops.spatial import morton_order  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -314,3 +317,212 @@ def test_two_pass_registration_equals_stash_registration(dev, monkeypatch):
         assert float((a - b).abs().max()) <= 1e-4
     np.testing.assert_allclose(float(res.sigma2), float(ref.sigma2),
                                rtol=1e-3)
+
+
+# --------------------------------------------------------------------------
+# FilterReg: the whole-EM kernel (K5) and the culled Gauss transform (K6)
+# --------------------------------------------------------------------------
+
+def _surface(n, seed, dev, rot_deg=0.0):
+    """n points of the surface z = 0.3 sin(2x) + 0.24 cos(2y) over [-1, 1]^2
+    with their analytic normals, rotated about z by ``rot_deg``."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-1, 1, (n, 2))
+    z = 0.3 * np.sin(2 * xy[:, 0]) + 0.24 * np.cos(2 * xy[:, 1])
+    pts = np.column_stack([xy, z])
+    nrm = np.column_stack([-0.6 * np.cos(2 * xy[:, 0]),
+                           0.48 * np.sin(2 * xy[:, 1]), np.ones(n)])
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    a = np.deg2rad(rot_deg)
+    rot = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                    [0, 0, 1]])
+    return (torch.as_tensor(pts @ rot.T, dtype=torch.float32, device=dev),
+            torch.as_tensor(nrm @ rot.T, dtype=torch.float32, device=dev))
+
+
+def _frg_pair(m, n, seed, dev):
+    src, _ = _surface(m, seed, dev)
+    tgt, nrm = _surface(n, seed + 1, dev, rot_deg=8.0)
+    return src, tgt + torch.tensor([0.05, -0.02, 0.03], device=dev), nrm
+
+
+def _frg_close(got, want, atol, rtol):
+    """q to 1e-3 relative: for pt2pl it is a sum of squared residuals that
+    are small differences, which amplifies the summation-order noise."""
+    rot, t, sigma2, q, it = got
+    rot_w, t_w, sigma2_w, q_w, it_w = want
+    assert float((rot - rot_w).abs().max()) <= atol
+    assert float((t - t_w).abs().max()) <= atol
+    assert float(((sigma2 - sigma2_w).abs() / sigma2_w).max()) <= rtol
+    assert float(((q - q_w).abs() / q_w.abs().clamp(min=1e-3)).max()) <= \
+        1e-3
+    assert torch.equal(it, it_w)
+
+
+def _frg_plain(src, tgt, nrm, smask=None, tmask=None, sigma2_0=0.0, **kw):
+    out = pfc.run_em_filterreg_fused_plain(
+        *pfc.compact_batch(src, tgt, nrm, smask, tmask),
+        pt2pl=kw["objective"] == "pt2pl", w=kw["w"], maxiter=kw["maxiter"],
+        tol=kw["tol"], update_sigma2=kw["update_sigma2"],
+        sigma2_decay=kw["sigma2_decay"], min_sigma2=1e-4, auto_sigma2=True,
+        sigma2_0=sigma2_0)
+    return (out[:, :9].reshape(-1, 3, 3), out[:, 9:12], out[:, 12],
+            out[:, 13], out[:, 14])
+
+
+@pytest.mark.parametrize("objective,update_sigma2", [("pt2pt", False),
+                                                     ("pt2pt", True),
+                                                     ("pt2pl", False),
+                                                     ("pt2pl", True)])
+@pytest.mark.parametrize("m,n", [(1024, 1024), (390, 390), (33, 700),
+                                 (700, 33)])
+def test_frg_kernel_matches_plain(dev, objective, update_sigma2, m, n):
+    """After 1 and 5 iterations only the summation order differs; over 30
+    the iterations amplify it. All at tol 0: at tol 1e-3 the two may stop
+    iterations apart while a pt2pl transform is still moving (q is a small
+    sum of squared residuals)."""
+    src, tgt, nrm = _frg_pair(m, n, m + n, dev)
+    nrm = nrm if objective == "pt2pl" else None
+    key = "frg_" + objective
+    for maxiter, atol in ((1, 1e-5), (5, 1e-5), (30, 2e-4)):
+        kw = dict(objective=objective, w=0.05, maxiter=maxiter, tol=0.0,
+                  update_sigma2=update_sigma2, sigma2_decay=0.9)
+        before = pfc.LAUNCHES[key]
+        got = pfc.run_em_filterreg_fused_batch(
+            src[None], tgt[None], None if nrm is None else nrm[None], **kw)
+        assert pfc.LAUNCHES[key] == before + 1
+        want = _frg_plain(src[None], tgt[None],
+                          None if nrm is None else nrm[None], **kw)
+        _frg_close(got, want, atol, 1e-5 if maxiter <= 5 else 1e-3)
+        assert int(got[4][0]) == maxiter
+        assert abs(float(torch.linalg.det(got[0][0])) - 1.0) < 1e-5
+
+
+@pytest.mark.parametrize("objective", ["pt2pt", "pt2pl"])
+def test_frg_batch_is_one_launch_and_equals_single_pairs(dev, objective):
+    """A ragged masked batch (valid points scattered, normals with their
+    points): one launch, each pair equal to its own single-pair launch
+    without padding, bit for bit, and to the plain version."""
+    rng = np.random.default_rng(11)
+    sizes = [(300, 1024), (1024, 700), (517, 333), (64, 64), (1000, 1000)]
+    pairs = [_frg_pair(m, n, 20 + i, dev) for i, (m, n) in enumerate(sizes)]
+    cap, b = 1024, len(pairs)
+    srcs, tgts, nrms = (torch.zeros((b, cap, 3), device=dev)
+                        for _ in range(3))
+    smask, tmask = (torch.zeros((b, cap), device=dev) for _ in range(2))
+    for i, (s, t, nv) in enumerate(pairs):
+        rows = torch.as_tensor(np.sort(rng.permutation(cap)[:s.shape[0]]),
+                               device=dev)
+        cols = torch.as_tensor(np.sort(rng.permutation(cap)[:t.shape[0]]),
+                               device=dev)
+        srcs[i, rows], smask[i, rows] = s, 1.0
+        tgts[i, cols], nrms[i, cols], tmask[i, cols] = t, nv, 1.0
+    kw = dict(objective=objective, w=0.05, maxiter=100, tol=1e-2,
+              update_sigma2=objective == "pt2pl", sigma2_decay=0.9)
+    pt2pl = objective == "pt2pl"
+    before = pfc.LAUNCHES["frg_" + objective]
+    got = pfc.run_em_filterreg_fused_batch(
+        srcs, tgts, nrms if pt2pl else None, smask, tmask, **kw)
+    assert pfc.LAUNCHES["frg_" + objective] == before + 1
+    for i, (s, t, nv) in enumerate(pairs):
+        one = pfc.run_em_filterreg_fused_batch(
+            s[None], t[None], nv[None] if pt2pl else None, **kw)
+        for a, c in zip(got, one):
+            assert torch.equal(a[i], c[0])
+    kw.update(maxiter=5, tol=0.0)
+    got = pfc.run_em_filterreg_fused_batch(
+        srcs, tgts, nrms if pt2pl else None, smask, tmask, **kw)
+    want = _frg_plain(srcs, tgts, nrms if pt2pl else None, smask, tmask,
+                      **kw)
+    _frg_close(got, want, 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("channels", [1, 4, 5, 8])
+@pytest.mark.parametrize("h2", [2.0, 0.02, 1e-3])
+@pytest.mark.parametrize("dim,tile", [(3, 256), (3, 96), (5, 256)])
+def test_gauss_transform_kernel_matches_plain(dev, channels, h2, dim, tile):
+    """Dense to mostly culled on Morton-sorted clouds with a far query
+    cluster, whose tiles see no active point tile and get exact zeros."""
+    from probreg_tpu_torch.ops.spatial import morton_order as mo
+
+    rng = np.random.default_rng(dim * 100 + channels)
+    ps = torch.as_tensor(rng.uniform(-1, 1, (3000, dim)),
+                         dtype=torch.float32, device=dev)
+    qs = torch.as_tensor(rng.uniform(-1, 1, (2500, dim)),
+                         dtype=torch.float32, device=dev)
+    qs[:700, 2] += 30.0  # z leads the Morton order: whole far tiles
+    w = torch.as_tensor(rng.uniform(0, 1, (3000, channels)),
+                        dtype=torch.float32, device=dev)
+    perm = mo(ps)
+    ps, w, qs = ps[perm], w[perm], qs[mo(qs)]
+    prep = pgc.prepare(ps, qs, w, h2 ** 0.5, tile)
+    before = pgc.LAUNCHES["gauss_transform"]
+    got = pgc.gt_core(*prep)
+    assert pgc.LAUNCHES["gauss_transform"] == before + 1
+    want = pgc.gauss_transform_culled_plain(*prep)
+    _close(got, want, "gauss_transform")
+    dead = (~prep[4].any(0)).repeat_interleave(pgc._ROWS)[:2500]
+    assert bool(dead.any()) and bool((got[dead] == 0).all())
+
+
+def test_gauss_transform_wrapper_on_the_card(dev):
+    """The wrapper (centring, sort, unsort, 1-D weights) against the dense
+    plain transform, with M != N."""
+    from probreg_tpu_torch.ops import gausstransform as pgt
+
+    rng = np.random.default_rng(12)
+    src = torch.as_tensor(rng.uniform(-1, 1, (4000, 3)) + 5.0,
+                          dtype=torch.float32, device=dev)
+    tgt = torch.as_tensor(rng.uniform(-1, 1, (2600, 3)) + 5.0,
+                          dtype=torch.float32, device=dev)
+    w = torch.as_tensor(rng.uniform(0, 1, 4000), dtype=torch.float32,
+                        device=dev)
+    got = pgc.gauss_transform_culled(src, tgt, w, 0.2)
+    want = pgt.gauss_transform(src, tgt, w, 0.2)   # dense: below the gate
+    assert got.shape == want.shape == (2600,)
+    _close(got, want, "wrapper")
+
+
+def test_filterreg_cuda_tensors_never_reach_the_plain_versions(dev,
+                                                               monkeypatch):
+    from probreg_tpu_torch import filterreg as pf
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called with CUDA tensors")
+
+    monkeypatch.setattr(pfc, "run_em_filterreg_fused_plain", refuse)
+    monkeypatch.setattr(pgc, "gauss_transform_culled_plain", refuse)
+    src, tgt, nrm = _frg_pair(500, 600, 30, dev)
+    pfc.reset_launches()
+    res = pf.registration_filterreg(src, tgt, target_normals=nrm,
+                                    objective_type="pt2pl", maxiter=10)
+    assert bool(torch.isfinite(res.transformation.rot).all())
+    pf.registration_filterreg_batch([src, src[:300]], [tgt, tgt[:400]],
+                                    maxiter=5)
+    assert pfc.LAUNCHES == {"frg_pt2pt": 1, "frg_pt2pl": 1}
+    monkeypatch.setattr(pcfg.config, "transposed_em_max_pairs", 1 << 18)
+    monkeypatch.setattr(pcfg.config, "culled_estep_min_pairs", 1 << 18)
+    pgc.reset_launches()
+    pf.registration_filterreg(src, tgt, maxiter=4, tol=0.0)
+    assert pgc.LAUNCHES["gauss_transform"] == 4
+    torch.cuda.synchronize()
+
+
+def test_streaming_filterreg_kernel_matches_plain(dev, monkeypatch):
+    """A 20k-point streaming FilterReg through K6 equals the same
+    registration through its plain version, up to summation order."""
+    from probreg_tpu_torch import filterreg as pf
+
+    monkeypatch.setattr(pcfg.config, "transposed_em_max_pairs", 1 << 20)
+    monkeypatch.setattr(pcfg.config, "culled_estep_min_pairs", 1 << 20)
+    src, tgt = _pair(20_000, 20_000, 13, dev)
+    kw = dict(maxiter=15, tol=0.0, sigma2_decay=0.8)
+    pgc.reset_launches()
+    res = pf.registration_filterreg(src, tgt, **kw)
+    assert pgc.LAUNCHES["gauss_transform"] == 15
+    monkeypatch.setattr(pgc, "gt_core", lambda *a:
+                        pgc.gauss_transform_culled_plain(*a))
+    ref = pf.registration_filterreg(src, tgt, **kw)
+    for a, b in ((res.transformation.rot, ref.transformation.rot),
+                 (res.transformation.t, ref.transformation.t)):
+        assert float((a - b).abs().max()) <= 1e-4

@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 
 from probreg_tpu_torch import config as pcfg  # noqa: E402
 from probreg_tpu_torch import cpd as pcpd  # noqa: E402
+from probreg_tpu_torch import filterreg as pfilterreg  # noqa: E402
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -19,7 +20,12 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = (
         "import sys, probreg_tpu_torch\n"
         "import probreg_tpu_torch.ops.estep_cuda, probreg_tpu_torch.ops._build\n"
-        "import probreg_tpu_torch.ops.em_cuda\n"
+        "import probreg_tpu_torch.ops.em_cuda, probreg_tpu_torch.filterreg\n"
+        "import probreg_tpu_torch.ops.gausstransform\n"
+        "import probreg_tpu_torch.ops.gt_cuda\n"
+        "import probreg_tpu_torch.ops.frg_cuda\n"
+        "import probreg_tpu_torch.gauss_transform\n"
+        "import probreg_tpu_torch.ops.rigid_solvers\n"
         "import probreg_tpu_torch.utils.io, probreg_tpu_torch.utils.datagen\n"
         "import probreg_tpu_torch.utils.interop\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -39,6 +45,13 @@ def test_entry_point_without_cuda_raises_instead_of_running_on_cpu():
     pts = np.zeros((10, 3), np.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pcpd.registration_cpd(pts, pts)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pfilterreg.registration_filterreg(pts, pts)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pfilterreg.registration_filterreg_batch(pts[None], pts[None])
+    res = pfilterreg.registration_filterreg(pts + 1.0, pts, maxiter=2,
+                                            device="cpu")
+    assert res.transformation.rot.device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         pcfg.resolve_device(None)
     assert pcfg.resolve_device("cpu").type == "cpu"
@@ -48,8 +61,10 @@ def test_entry_point_without_cuda_raises_instead_of_running_on_cpu():
 def test_kernel_sources_ship_with_the_package():
     from probreg_tpu_torch.ops import _build
 
-    assert (_build.CSRC / "estep.cu").exists()
-    assert (_build.CSRC / "em.cu").exists()
+    for name in ("estep.cu", "em.cu", "frg.cu", "gt.cu", "em_common.cuh"):
+        assert (_build.CSRC / name).exists(), name
+    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
+        "em", "estep", "frg", "gt"]
     assert _build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

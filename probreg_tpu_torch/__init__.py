@@ -1,11 +1,13 @@
 """probreg_tpu_torch: the PyTorch / CUDA port of probreg_tpu.
 
-A second package beside the JAX one. Rigid and affine CPD and rigid
-FilterReg (pt2pt and pt2pl) run end to end, single pairs, batches and large
-clouds, on hand-written CUDA kernels for the H100 (``csrc/``): the CPD
-E-steps (``estep.cu``), the whole-EM CPD and FilterReg kernels (``em.cu``,
-``frg.cu``) and the tile-culled Gauss transform (``gt.cu``). It imports
-neither JAX nor the JAX package.
+A second package beside the JAX one. Rigid and affine CPD, rigid FilterReg
+(pt2pt and pt2pl) and ICP run end to end, single pairs, batches and large
+clouds, and combined BCPD single pairs up to 10^5 points and beyond, on
+hand-written CUDA kernels for the H100 (``csrc/``): the CPD E-steps
+(``estep.cu``), the whole-EM CPD and FilterReg kernels (``em.cu``,
+``frg.cu``), the whole-ICP kernel (``icp.cu``), the tile-culled Gauss
+transform (``gt.cu``) and the row-weighted culled BCPD E-step
+(``wstash.cu``). It imports neither JAX nor the JAX package.
 """
 
 import torch as _torch
@@ -16,7 +18,8 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-from . import config, cpd, filterreg, gauss_transform, log  # noqa: E402,F401
+from . import bcpd, config, cpd, filterreg, gauss_transform  # noqa: E402,F401
+from . import icp, log  # noqa: E402,F401
 from .models import transformation  # noqa: E402,F401
 from .utils import se3_op  # noqa: E402,F401
 from .version import __version__  # noqa: E402,F401

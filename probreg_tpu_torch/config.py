@@ -49,6 +49,13 @@ class Config:
     # the CPU. Above it tile_n halves (floor 256); beyond the floor the
     # E-step raises.
     stash_max_bytes: Optional[int] = None
+    # Largest source cloud that BCPD runs through the row-weighted culled
+    # stash E-step (ops/bcpd_cuda.py); above it the VI loop streams target
+    # blocks. The value is the reference's, which it set after that
+    # kernel faulted a TPU worker at 1M source points; it says nothing
+    # about this card, and is kept so both packages take the same branch
+    # at the same sizes.
+    bcpd_culled_max_points: int = 750_000
 
 
 config = Config()

@@ -1,0 +1,253 @@
+// Whole point-to-point ICP for Hopper (sm_90a), bound to Python with ctypes.
+//
+// Replaces probreg_tpu/ops/em_pallas.py:_icp_kernel (run_icp_fused,
+// run_icp_fused_batch): one launch runs a whole ICP registration, the
+// nearest-neighbour matching, the rigid solve and the stop test of every
+// iteration, with no host read between launch and result. One thread block
+// is one pair and the grid is the batch; every block keeps its own stop
+// state, so the pairs of a ragged batch stop at their own iterations.
+//
+// The TPU kernel forms the (M, N) distance matrix with one matmul and the
+// hard correspondences as a one-hot matrix, because the MXU makes both
+// cheap. Neither fits or pays here: a thread (or a group of 2..32 adjacent
+// lanes, when there are fewer rows than threads) owns one source row,
+// transforms it and scans the targets in shared memory for the nearest one,
+// d2 from coordinate differences in f32 FMAs, keeping the first index on
+// ties (the reference's twin icp._run_icp takes argmin; its kernel averages
+// exactly tied targets instead). The matched target goes straight into the
+// Kabsch sums. Both centred clouds stay in shared memory for the whole run,
+// 16 B per point; device memory is read once and 16 floats are written.
+//
+// Bound on this card: operations, about 9 instructions per pair and
+// iteration (a broadcast 16 B shared load, 3 differences, 3 FMAs, a
+// compare and two selects) on the one SM that runs the pair, plus the
+// serial part of each iteration: one block reduction of 13 sums and the
+// Horn solve by Jacobi sweeps in double in one thread (em_common.cuh).
+//
+// Per iteration, from the clouds centred on the shared centroid of the
+// valid points (y the source, x the target):
+//   n_p = max(m, 1), mu_y = sum y / n_p (fixed), yh = y - mu_y;
+//   x_i = the nearest target to R y_i + t, dmin_i its squared distance;
+//   mu_x = sum x_i / n_p, a = sum x_i yh_i^T - mu_x (sum yh)^T;
+//   R = Horn(a) (scale 1), t = mu_x - R mu_y;
+//   rmse = sqrt(sum dmin / n_p), taken at the incoming transform.
+// Go on while it < maxiter and (it < 2 or |rmse_prev - rmse| >= tol)
+// (em_pallas.py:645-649). All sums are fixed-order trees (shuffles, then
+// warps in order): no atomics, so a result is the same from run to run.
+
+#include <cuda_runtime.h>
+
+#include "em_common.cuh"
+
+namespace {
+
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRed = 13;  // sum x (3), sum x yh^T (9), sum dmin (1)
+
+struct State {
+  float rot[9], t[3], cen[3], mu_y[3], sy[3];
+  float n_p, rmse, rmse_prev;
+  int it, go;
+};
+
+// The rigid solve of one iteration, in one thread, from the block's sums.
+__device__ void solve(State& st, const float* s, int maxiter, float tol) {
+  const float n_p = st.n_p;
+  float mu_x[3];
+  for (int i = 0; i < 3; ++i) mu_x[i] = s[i] / n_p;
+  double a[3][3];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      a[i][j] = (double)s[3 + 3 * i + j] - (double)mu_x[i] * (double)st.sy[j];
+  double rot[3][3];
+  horn_rotation(a, rot);
+  for (int i = 0; i < 3; ++i) {
+    double t = mu_x[i];
+    for (int j = 0; j < 3; ++j) {
+      st.rot[3 * i + j] = (float)rot[i][j];
+      t -= rot[i][j] * (double)st.mu_y[j];
+    }
+    st.t[i] = (float)t;
+  }
+  st.rmse_prev = st.rmse;
+  st.rmse = sqrtf(s[12] / n_p);
+  st.it += 1;
+  // A NaN rmse stops the loop.
+  st.go = st.it < maxiter
+          && (st.it < 2 || fabsf(st.rmse_prev - st.rmse) >= tol);
+}
+
+__global__ void __launch_bounds__(kThreads)
+icp_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
+           const float* __restrict__ tgt, int n_cap,   // (B, n_cap, 3)
+           const int* __restrict__ counts,  // (B, 2) valid points, or null
+           const float* __restrict__ init,  // (B, 12) [rot0, t0], or null
+           int maxiter, float tol,
+           float* __restrict__ out) {       // (B, 16)
+  extern __shared__ float4 pts[];
+  float4* ys = pts;           // centred source
+  float4* xs = ys + m_cap;    // centred target
+  __shared__ float red[kWarps * kRed];
+  __shared__ float sums[kRed];
+  __shared__ State st;
+
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int m = counts ? counts[2 * b] : m_cap;
+  const int n = counts ? counts[2 * b + 1] : n_cap;
+  src += (size_t)b * m_cap * 3;
+  tgt += (size_t)b * n_cap * 3;
+
+  // Load, centre on the shared centroid of the valid points, then the
+  // fixed source mean and sum of yh.
+  float v[kRed];
+#pragma unroll
+  for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
+  for (int i = tid; i < m; i += kThreads) {
+    const float4 p = make_float4(src[3 * i], src[3 * i + 1], src[3 * i + 2],
+                                 0.0f);
+    ys[i] = p;
+    v[0] += p.x; v[1] += p.y; v[2] += p.z;
+  }
+  for (int j = tid; j < n; j += kThreads) {
+    const float4 p = make_float4(tgt[3 * j], tgt[3 * j + 1], tgt[3 * j + 2],
+                                 0.0f);
+    xs[j] = p;
+    v[3] += p.x; v[4] += p.y; v[5] += p.z;
+  }
+  block_reduce<kRed, kThreads>(v, red, sums);
+  const float mn = (float)(m + n > 0 ? m + n : 1);
+  const float cx = (sums[0] + sums[3]) / mn;
+  const float cy = (sums[1] + sums[4]) / mn;
+  const float cz = (sums[2] + sums[5]) / mn;
+#pragma unroll
+  for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
+  for (int i = tid; i < m; i += kThreads) {
+    float4 p = ys[i];
+    p.x -= cx; p.y -= cy; p.z -= cz;
+    ys[i] = p;
+    v[0] += p.x; v[1] += p.y; v[2] += p.z;
+  }
+  for (int j = tid; j < n; j += kThreads) {
+    float4 p = xs[j];
+    p.x -= cx; p.y -= cy; p.z -= cz;
+    xs[j] = p;
+  }
+  block_reduce<kRed, kThreads>(v, red, sums);
+  const float n_p = (float)(m > 1 ? m : 1);
+  const float my0 = sums[0] / n_p, my1 = sums[1] / n_p, my2 = sums[2] / n_p;
+#pragma unroll
+  for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
+  for (int i = tid; i < m; i += kThreads) {
+    const float4 p = ys[i];
+    v[0] += p.x - my0; v[1] += p.y - my1; v[2] += p.z - my2;
+  }
+  block_reduce<kRed, kThreads>(v, red, sums);
+  if (tid == 0) {
+    st.cen[0] = cx; st.cen[1] = cy; st.cen[2] = cz;
+    st.mu_y[0] = my0; st.mu_y[1] = my1; st.mu_y[2] = my2;
+    st.sy[0] = sums[0]; st.sy[1] = sums[1]; st.sy[2] = sums[2];
+    st.n_p = n_p;
+    if (init) {
+      // Raw frame -> centred frame: t_c = t0 + rot0 cen - cen.
+      const float* r0 = init + (size_t)b * 12;
+      for (int k = 0; k < 9; ++k) st.rot[k] = r0[k];
+      for (int i = 0; i < 3; ++i)
+        st.t[i] = r0[9 + i] + (r0[3 * i] * cx + r0[3 * i + 1] * cy
+                               + r0[3 * i + 2] * cz) - st.cen[i];
+    } else {
+      for (int k = 0; k < 9; ++k) st.rot[k] = (k % 4 == 0) ? 1.0f : 0.0f;
+      st.t[0] = st.t[1] = st.t[2] = 0.0f;
+    }
+    st.rmse = st.rmse_prev = 3.4e38f;
+    st.it = 0;
+    st.go = maxiter > 0 && m > 0 && n > 0;
+  }
+  __syncthreads();
+
+  const int split = pick_split<kThreads>(m);
+  const int sub = tid & (split - 1), slot = tid / split;
+  const int nslots = kThreads / split;
+  while (st.go) {
+    float r[9], t[3];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) r[k] = st.rot[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) t[k] = st.t[k];
+#pragma unroll
+    for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
+    for (int i0 = 0; i0 < m; i0 += nslots) {
+      const int i = i0 + slot;
+      const bool ok = i < m;
+      const float4 y = ok ? ys[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float tx = r[0] * y.x + r[1] * y.y + r[2] * y.z + t[0];
+      const float ty = r[3] * y.x + r[4] * y.y + r[5] * y.z + t[1];
+      const float tz = r[6] * y.x + r[7] * y.y + r[8] * y.z + t[2];
+      float best = 3.4e38f;
+      int bj = 0x7fffffff;
+      if (ok)
+        for (int j = sub; j < n; j += split) {
+          const float4 x = xs[j];
+          const float dx = tx - x.x, dy = ty - x.y, dz = tz - x.z;
+          const float d = dx * dx + dy * dy + dz * dz;
+          if (d < best) { best = d; bj = j; }  // strict: the first index
+        }
+      // The group's nearest target; equal distances keep the lower index.
+      for (int o = split >> 1; o > 0; o >>= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+        const int oj = __shfl_xor_sync(0xffffffffu, bj, o);
+        if (ob < best || (ob == best && oj < bj)) { best = ob; bj = oj; }
+      }
+      if (ok && sub == 0) {
+        const float4 x = xs[bj];
+        const float h0 = y.x - my0, h1 = y.y - my1, h2 = y.z - my2;
+        v[0] += x.x; v[1] += x.y; v[2] += x.z;
+        v[3] += x.x * h0; v[4] += x.x * h1; v[5] += x.x * h2;
+        v[6] += x.y * h0; v[7] += x.y * h1; v[8] += x.y * h2;
+        v[9] += x.z * h0; v[10] += x.z * h1; v[11] += x.z * h2;
+        v[12] += best;
+      }
+    }
+    block_reduce<kRed, kThreads>(v, red, sums);
+    if (tid == 0) solve(st, sums, maxiter, tol);
+    __syncthreads();
+  }
+
+  if (tid == 0) {
+    float* o = out + (size_t)b * 16;
+    for (int k = 0; k < 9; ++k) o[k] = st.rot[k];
+    // Centred frame -> raw frame: t = t_c + cen - rot cen.
+    for (int i = 0; i < 3; ++i)
+      o[9 + i] = st.t[i] + st.cen[i]
+                 - (st.rot[3 * i] * st.cen[0] + st.rot[3 * i + 1] * st.cen[1]
+                    + st.rot[3 * i + 2] * st.cen[2]);
+    o[12] = st.rmse;
+    o[13] = (float)st.it;
+    o[14] = 0.0f;
+    o[15] = 0.0f;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory of one block for clouds of m_cap and n_cap points.
+int probreg_icp_smem_bytes(int m_cap, int n_cap) {
+  return 16 * (m_cap + n_cap);
+}
+
+int probreg_icp(const void* src, int m_cap, const void* tgt, int n_cap,
+                const void* counts, const void* init, int batch, int maxiter,
+                float tol, void* out, void* stream) {
+  const int smem = probreg_icp_smem_bytes(m_cap, n_cap);
+  cudaError_t err = cudaFuncSetAttribute(
+      icp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  icp_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)src, m_cap, (const float*)tgt, n_cap, (const int*)counts,
+      (const float*)init, maxiter, tol, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

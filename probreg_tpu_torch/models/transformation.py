@@ -2,8 +2,9 @@
 
 Parameters are tensors on one device. ``transform`` is the user-facing call
 (numpy, tensors or Open3D clouds in, a tensor out); ``_transform`` works on
-tensors already on the transformation's device. The nonrigid models come
-with later slices of the port.
+tensors already on the transformation's device. Of the nonrigid models,
+BCPD's combined transformation is here; the others come with later slices
+of the port.
 """
 
 from __future__ import annotations
@@ -93,3 +94,24 @@ class AffineTransformation(Transformation):
 
     def __repr__(self):
         return f"AffineTransformation(b={self.b}, t={self.t})"
+
+
+class CombinedTransformation(Transformation):
+    """x -> scale * R (x + v) + t: BCPD's combined rigid, scale and nonrigid
+    model (reference transformation.py:196). ``v`` is the (M, D)
+    displacement of each source point (or a scalar, as the reference
+    allows), so ``transform`` takes the source the model was fitted to."""
+
+    def __init__(self, rot=None, t=None, scale=1.0, v=0.0, dim: int = 3,
+                 device=None):
+        self.rigid_trans = RigidTransformation(rot, t, scale, dim=dim,
+                                               device=device)
+        self.device = self.rigid_trans.device
+        self.v = _param(v, self.device)
+
+    def _transform(self, points):
+        return self.rigid_trans._transform(points + self.v)
+
+    def __repr__(self):
+        return (f"CombinedTransformation(rigid_trans={self.rigid_trans!r}, "
+                f"v={self.v})")

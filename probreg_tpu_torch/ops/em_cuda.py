@@ -101,13 +101,14 @@ def _compact(points: torch.Tensor, mask: torch.Tensor):
     return points.contiguous(), valid.sum(1).to(torch.int32)
 
 
-def compact_batch(sources, targets, smasks=None, tmasks=None):
+def compact_batch(sources, targets, smasks=None, tmasks=None, dims_ok=None):
     """What the kernel and its plain version take: the checked (B, M, 3) and
     (B, N, 3) clouds with each pair's valid points first, and the (B, 2)
-    int32 counts of valid points (None without masks: all are valid)."""
+    int32 counts of valid points (None without masks: all are valid).
+    ``dims_ok`` is the kernel's size gate (default K1's)."""
     if (smasks is None) != (tmasks is None):
         raise ValueError("give both masks or neither")
-    sources, targets = _check_batch(sources, targets)
+    sources, targets = _check_batch(sources, targets, dims_ok)
     if smasks is None:
         return sources, targets, None
     sources, m_cnt = _compact(sources, smasks)

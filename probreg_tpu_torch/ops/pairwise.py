@@ -26,6 +26,18 @@ def sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x2 + y2 - 2.0 * (x @ y.T), min=0.0)
 
 
+def rbf_kernel(x: torch.Tensor, y: torch.Tensor, beta: float) -> torch.Tensor:
+    """exp(-d^2 / (2 beta)) Gram matrix (reference pairwise.py:63; beta
+    enters linearly, it is the variance)."""
+    return torch.exp(-sqdist(x, y) / (2.0 * beta))
+
+
+def inverse_multiquadric_kernel(x: torch.Tensor, y: torch.Tensor,
+                                c: float = 1.0) -> torch.Tensor:
+    """1 / sqrt(d^2 + c) Gram matrix (reference pairwise.py:86), BCPD's G."""
+    return 1.0 / torch.sqrt(sqdist(x, y) + c)
+
+
 def sqdist_diff(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """(M, N) squared distances summed from coordinate differences: slower
     than ``sqdist`` but exact to rounding at any offset, and exactly 0 for

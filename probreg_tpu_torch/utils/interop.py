@@ -95,6 +95,19 @@ def affine_from_reference(params: Mapping[str, Any], device=None):
                                 device=device)
 
 
+def combined_from_reference(params: Mapping[str, Any], device=None):
+    """Port CombinedTransformation from a JAX one's parameters as numpy:
+    ``params`` holds ``rot`` (D, D), ``t`` (D,), ``scale`` and ``v`` (the
+    (M, D) displacement field), e.g. ``rot``, ``t``, ``scale`` of its
+    ``rigid_trans`` and its ``v``."""
+    from ..models.transformation import CombinedTransformation
+
+    rot = np.asarray(params["rot"])
+    return CombinedTransformation(
+        rot, np.asarray(params["t"]), float(np.asarray(params["scale"])),
+        np.asarray(params["v"]), dim=rot.shape[0], device=device)
+
+
 def config_from_reference(fields: Mapping[str, Any]) -> "_config.Config":
     """Port Config carrying the JAX Config's fields that exist in both.
 

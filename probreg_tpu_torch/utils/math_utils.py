@@ -2,9 +2,34 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops import pairwise
+
+
+def squared_kernel_sum_np(x, y) -> float:
+    """Host-side :func:`squared_kernel_sum` in float64 numpy (reference
+    math_utils.py:51), centred on the joint centroid."""
+    x = np.asarray(x, np.float64)
+    y = np.asarray(y, np.float64)
+    m, d = x.shape
+    n = y.shape[0]
+    cen = (x.sum(0) + y.sum(0)) / (m + n)
+    xh, yh = x - cen, y - cen
+    return float(((xh ** 2).sum() * n + (yh ** 2).sum() * m
+                  - 2.0 * float(xh.sum(0) @ yh.sum(0))) / (m * d * n))
+
+
+def compute_rmse(source: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean nearest-neighbour distance from source to target (reference
+    math_utils.py:86): the chunked search of ``pairwise.nearest_sqdist``,
+    which takes differences."""
+    return torch.sqrt(pairwise.nearest_sqdist(source, target)).mean()
+
+
+def inverse_multiquadric_kernel(x, y, c: float = 1.0) -> torch.Tensor:
+    return pairwise.inverse_multiquadric_kernel(x, y, c)
 
 
 def squared_kernel_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -526,3 +526,177 @@ def test_streaming_filterreg_kernel_matches_plain(dev, monkeypatch):
     for a, b in ((res.transformation.rot, ref.transformation.rot),
                  (res.transformation.t, ref.transformation.t)):
         assert float((a - b).abs().max()) <= 1e-4
+
+
+# --------------------------------------------------------------------------
+# The whole-ICP kernel (K7) and the row-weighted culled E-step (K8)
+# --------------------------------------------------------------------------
+
+def _icp_pair(m, n, seed, dev):
+    """A source and, as the target, its rotated (6 degrees), shifted, noisy
+    copy among other points: once aligned every match is clear, so rounding
+    flips no nearest neighbour."""
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(-0.5, 0.5, (m, 3))
+    c, s = np.cos(0.1), np.sin(0.1)
+    rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    k = min(m, n)
+    tgt = np.concatenate([src[:k] @ rot.T + 0.01
+                          + 1e-3 * rng.standard_normal((k, 3)),
+                          rng.uniform(-0.5, 0.5, (n - k, 3))])
+    tgt = rng.permutation(tgt)
+    return (torch.as_tensor(src, dtype=torch.float32, device=dev),
+            torch.as_tensor(tgt, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("m,n", [(1024, 1024), (390, 420), (33, 700),
+                                 (700, 33), (2000, 300)])
+def test_icp_kernel_matches_plain(dev, m, n):
+    """K7 against its plain version at a fixed depth: rot and t to 1e-5, the
+    rmse to 1e-4 relative (summation order only); a warm start too."""
+    from probreg_tpu_torch.ops import icp_cuda as pic
+
+    src, tgt = _icp_pair(m, n, 21, dev)
+    for init in (None, (torch.eye(3, device=dev) * 1.0,
+                        torch.tensor([0.01, 0.0, -0.01], device=dev))):
+        kw = dict(maxiter=15, tol=0.0)
+        rot0, t0 = init if init else (None, None)
+        before = pic.LAUNCHES["icp"]
+        got = pic.run_icp_fused(src, tgt, rot0, t0, **kw)
+        assert pic.LAUNCHES["icp"] == before + 1
+        want = pic.run_icp_fused_plain(
+            src[None], tgt[None], None,
+            pic._init_rows(1, rot0, t0, src), **kw)[0]
+        assert float((got[0].reshape(-1) - want[:9]).abs().max()) <= 1e-5
+        assert float((got[1] - want[9:12]).abs().max()) <= 1e-5
+        assert abs(float(got[2]) / float(want[12]) - 1.0) <= 1e-4
+        assert int(got[3]) == int(want[13]) == 15
+
+
+def test_icp_kernel_masked_equals_unpadded_and_batch_one_launch(dev):
+    """A ragged batch is one launch, each pair bit for bit its own launch;
+    registration_icp and registration_icp_batch launch K7 once each."""
+    from probreg_tpu_torch import icp as picp
+    from probreg_tpu_torch.ops import icp_cuda as pic
+    from probreg_tpu_torch.utils import interop
+
+    pairs = [_icp_pair(m, n, 30 + i, dev)
+             for i, (m, n) in enumerate([(300, 500), (1024, 700), (64, 900),
+                                         (512, 512)])]
+    srcs, smask = interop.pad_ragged([p[0] for p in pairs], device=dev)
+    tgts, tmask = interop.pad_ragged([p[1] for p in pairs], device=dev)
+    pic.reset_launches()
+    rot, t, rmse, it = pic.run_icp_fused_batch(srcs, tgts, smask, tmask,
+                                               maxiter=30, tol=1e-7)
+    assert pic.LAUNCHES["icp"] == 1
+    for b, (s, x) in enumerate(pairs):
+        one = pic.run_icp_fused(s, x, maxiter=30, tol=1e-7)
+        assert torch.equal(rot[b], one[0]) and torch.equal(t[b], one[1])
+        assert torch.equal(rmse[b], one[2]) and int(it[b]) == int(one[3])
+    pic.reset_launches()
+    res = picp.registration_icp_batch([p[0] for p in pairs],
+                                      [p[1] for p in pairs])
+    assert pic.LAUNCHES["icp"] == 1
+    single = picp.registration_icp(pairs[0][0], pairs[0][1])
+    assert pic.LAUNCHES["icp"] == 2
+    assert torch.equal(res[0].transformation.rot, single.transformation.rot)
+    torch.cuda.synchronize()
+
+
+def _wstash_inputs(m, n, dim, seed, dev, far=0):
+    rng = np.random.default_rng(seed)
+    ys, xs = _cloud(m, seed, dev, far=far), _cloud(n, seed + 1, dev)
+    ys, xs = ys[:, :dim].contiguous(), xs[:, :dim].contiguous()
+    x2 = (xs * xs).sum(1)
+    v_t = torch.cat([xs.T, torch.ones_like(x2)[None], x2[None]])
+    alpha = torch.as_tensor(rng.uniform(0.5, 1.5, m) / m,
+                            dtype=torch.float32, device=dev)
+    return ys, xs, v_t, alpha
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("sigma2", [0.5, 1e-3])
+@pytest.mark.parametrize("tile_m,tile_n", [(128, 256), (1024, 1024),
+                                           (700, 384)])
+def test_wstash_kernels_match_plain(dev, dim, sigma2, tile_m, tile_n):
+    """K8 against its plain version, dense and culled, 2-D and 3-D, ragged
+    tiles (a far source cluster leaves whole tiles culled): nu_d, the
+    moments and e1 to 1e-4 of their largest entry; dmin equal over active
+    pairs to 1e-6 (both expanded form)."""
+    from probreg_tpu_torch.ops import bcpd_cuda as pbc
+
+    m, n = 3000, 2500
+    ys, xs, v_t, alpha = _wstash_inputs(m, n, dim, 40, dev, far=600)
+    rowlog = torch.log(alpha) - dim * 0.5 * np.log(2 * np.pi * sigma2)
+    scal = torch.tensor([0.5 / sigma2, 0.1 / n, 1.1920929e-07], device=dev)
+    mask, _ = pbc.cull_mask(ys, xs, rowlog, scal[0], tile_m, tile_n)
+    before = dict(pbc.LAUNCHES)
+    got = pbc.wstash_estep(ys, xs, rowlog, v_t, scal, mask, tile_m, tile_n)
+    n_j = mask.shape[1]
+    assert pbc.LAUNCHES["wstash_den"] == before["wstash_den"] + n_j
+    assert pbc.LAUNCHES["wstash_moment"] == before["wstash_moment"] + n_j
+    want = pbc.wstash_estep_plain(ys, xs, rowlog, v_t, scal, mask, tile_m,
+                                  tile_n)
+    for name, i in (("nu_d", 0), ("mom", 1), ("e1", 3)):
+        _close(got[i], want[i], name)
+    assert torch.equal(torch.isinf(got[2]), torch.isinf(want[2]))
+    fin = torch.isfinite(want[2])
+    assert float((got[2] - want[2])[fin].abs().max()) <= 1e-6
+
+
+def test_wstash_wrapper_dmin_bound_and_no_plain_call(dev, monkeypatch):
+    from probreg_tpu_torch import icp as picp
+    from probreg_tpu_torch.ops import bcpd_cuda as pbc
+
+    def refuse(*a):
+        raise AssertionError("plain version called with CUDA tensors")
+
+    monkeypatch.setattr(pbc, "wstash_estep_plain", refuse)
+    ys, xs, v_t, alpha = _wstash_inputs(5000, 4000, 3, 50, dev, far=800)
+    sigma2 = 1e-3
+    rowlog = torch.log(alpha) - 1.5 * np.log(2 * np.pi * sigma2)
+    _, _, dmin, _ = pbc.bcpd_estep_culled(ys, xs, rowlog, v_t, 0.0, sigma2,
+                                          tile_m=256, tile_n=256)
+    nn_d2, _ = picp._nearest_t(ys.T, xs.T)
+    assert float((dmin - nn_d2).max()) <= 1e-6
+
+
+def test_bcpd_culled_registration_matches_plain(dev, monkeypatch):
+    """registration_bcpd through K8 (forced at test size) against the same
+    registration through the plain version at a fixed depth; the launches
+    are two per stripe per E-step. The low-rank VI amplifies rounding, so
+    the kernel is held to 10x the spread between two plain versions that
+    differ only in the summation order (tiles of 1024 and of 512)."""
+    from probreg_tpu_torch import bcpd as pb
+    from probreg_tpu_torch.ops import bcpd_cuda as pbc
+
+    monkeypatch.setattr(pcfg.config, "culled_estep_min_pairs", 1 << 20)
+    rng = np.random.default_rng(60)
+    src = rng.uniform(-1, 1, (4000, 3)).astype(np.float32)
+    c, s = np.cos(0.1), np.sin(0.1)
+    rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    tgt = (src @ rot.T + 0.05).astype(np.float32)
+    kw = dict(rank=32, maxiter=2, tol=0.0, w=0.0, callbacks=[],
+              normalize=True, callback_chunk=1, return_last=True)
+    pbc.reset_launches()
+    res = pb._registration_bcpd_impl(src, tgt, **kw)[2]
+    stripes = -(-4000 // 1024)
+    assert pbc.LAUNCHES["wstash_den"] == 3 * stripes
+    assert pbc.LAUNCHES["wstash_moment"] == 3 * stripes
+    monkeypatch.setattr(pbc, "wstash_estep", pbc.wstash_estep_plain)
+    ref = pb._registration_bcpd_impl(src, tgt, **kw)[2]
+    culled = pbc.bcpd_estep_culled
+    monkeypatch.setattr(pbc, "bcpd_estep_culled", lambda *a: culled(
+        *a, tile_m=512, tile_n=512))
+    other = pb._registration_bcpd_impl(src, tgt, **kw)[2]
+
+    def diff(a, b):  # the final iterates: rot, t and v
+        return np.array([
+            np.abs(a["tf_init_params"]["rot"] - b["tf_init_params"]["rot"])
+            .max(),
+            np.abs(a["tf_init_params"]["t"] - b["tf_init_params"]["t"])
+            .max(),
+            np.abs(a["v_init"] - b["v_init"]).max()])
+
+    assert np.all(diff(res, ref) <= np.maximum(10.0 * diff(other, ref),
+                                               1e-6))

@@ -39,7 +39,16 @@ before it and read just after:
   fixture: blobby_surface(100_000, seed=2), deformed by 0.02 sin(3x) [1,
   0.5, -0.3] and rotated by Euler (8, -4, 6) degrees; rank 64, maxiter 50,
   tol 1e-4, one level): each VI iteration runs the row-weighted culled
-  E-step kernels (wstash_den, wstash_moment) once per target stripe.
+  E-step kernels (wstash_den, wstash_moment) once per target stripe;
+* GMMTree (tree_level 2, maxiter 20, tol 1e-4 unless named): the bunny of
+  examples/gmmtree_rigid.py and bench.py's bunny pair; 32 copies of that
+  pair (benchmarks/bench_full.py) and the 256 ragged horse pairs (maxiter
+  30, tol 1e-6, examples/batch_serving.py) through
+  registration_gmmtree_batch; and two 150,000-point samples of
+  blobby_surface (seeds 2 and 3), the target rotated by Euler (3, -2, 5)
+  degrees: each call or batch builds its trees with one launch of the
+  level-EM kernel (gmmtree_level_em) per level and registers with one
+  launch of the registration kernel (gmmtree_reg).
 
 Prints the card, a {"kernels": [...]} line and, last, {"ok": true, ...}.
 Exits non-zero without a CUDA device or when any phase fails.
@@ -80,6 +89,7 @@ _FRG_CU = "probreg_tpu_torch/csrc/frg.cu"
 _GT_CU = "probreg_tpu_torch/csrc/gt.cu"
 _ICP_CU = "probreg_tpu_torch/csrc/icp.cu"
 _WSTASH_CU = "probreg_tpu_torch/csrc/wstash.cu"
+_GMMTREE_CU = "probreg_tpu_torch/csrc/gmmtree.cu"
 # name -> (source of the kernel, file:line of the TPU kernel it replaces)
 KERNELS = {
     "estep_small": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:1571"),
@@ -95,6 +105,9 @@ KERNELS = {
     "icp": (_ICP_CU, "probreg_tpu/ops/em_pallas.py:563"),
     "wstash_den": (_WSTASH_CU, "probreg_tpu/ops/estep_pallas.py:943"),
     "wstash_moment": (_WSTASH_CU, "probreg_tpu/ops/estep_pallas.py:987"),
+    "gmmtree_level_em": (_GMMTREE_CU,
+                         "probreg_tpu/ops/gmmtree_pallas.py:109"),
+    "gmmtree_reg": (_GMMTREE_CU, "probreg_tpu/ops/gmmtree_pallas.py:297"),
 }
 # A whole EM iteration needs, per pair, the Gaussian once and the moments
 # once: that is what the bound charges. (The kernel itself forms the
@@ -124,6 +137,16 @@ N_BCPD = 100_000
 BCPD_ARGS = dict(rank=64, maxiter=50, tol=1e-4)
 # Depth of the kernel-driven and plain-driven BCPD runs that are compared.
 BCPD_COMPARE_ITERS = 3
+# GMMTree: f32 operations of one weighted Gaussian of a node from
+# differences (3 subtractions, 15 for inv d, 5 for d . inv d, the scale, the
+# exp and the two weights: 27).
+FLOPS_GMM_GAUSS = 27
+# Depths of the GMMTree comparisons (lambda_s = 0 / tol = 0: both run
+# exactly this many iterations). At 150k |q| is ~1e5, so one f32 ulp of q
+# passes lambda_s = 1e-3 and a stop test cannot be compared there.
+GMM_BUILD_ITERS = 10
+GMM_REG_ITERS = 20
+N_GMM = 150_000
 
 
 def flops_wstash(channels: int):
@@ -140,6 +163,23 @@ def flops_frg(channels: int) -> int:
     d2, the scale and the exp: 10; d2 >= 0 needs no clamp) and 2 per moment
     channel."""
     return 10 + 2 * channels
+
+
+def flops_level_em(k: int) -> int:
+    """f32 operations per point and iteration of K9 on a level of k nodes:
+    the 8 children's Gaussians with the sum, the division and the
+    first-maximum test (3), and the 10 moments (20), plus the 6 feature
+    products; then the stop test's Gaussian over all k nodes with its sum,
+    the log and the point's share of q (2)."""
+    return 8 * (FLOPS_GMM_GAUSS + 3 + 20) + 6 + k * (FLOPS_GMM_GAUSS + 1) + 2
+
+
+def flops_gmm_reg(levels: float) -> float:
+    """f32 operations per point and iteration of K10 whose descent visits
+    ``levels`` levels on average: the transform (18), per level 8 Gaussians
+    with the clamp, the sum, the division and the first-maximum test (31
+    each), and the point's 4 moments (4)."""
+    return 18 + levels * 8 * (FLOPS_GMM_GAUSS + 4) + 4
 
 
 def log(*a):
@@ -612,9 +652,11 @@ def check_em(dev, kernels):
 
 def _kernel_modules():
     from probreg_tpu_torch.ops import (bcpd_cuda, em_cuda, estep_cuda,
-                                       frg_cuda, gt_cuda, icp_cuda)
+                                       frg_cuda, gmmtree_cuda, gt_cuda,
+                                       icp_cuda)
 
-    return (estep_cuda, em_cuda, frg_cuda, gt_cuda, icp_cuda, bcpd_cuda)
+    return (estep_cuda, em_cuda, frg_cuda, gt_cuda, icp_cuda, bcpd_cuda,
+            gmmtree_cuda)
 
 
 def reset_launches():
@@ -1817,6 +1859,454 @@ def bcpd_spread(src, a, b):
             "sigma2 rel": abs(a["sigma2_init"] / b["sigma2_init"] - 1.0)}
 
 
+# --------------------------------------------------------------------------
+# GMMTree: the level-EM kernel (K9) and the registration kernel (K10)
+# --------------------------------------------------------------------------
+
+def gmm_surface_pair():
+    """The large GMMTree pair: source blobby_surface(150_000, seed=2),
+    target a second sample of the same surface (seed 3) rotated by Euler
+    (3, -2, 5) degrees (examples/largescale_rigid.py's rotation): (src,
+    tgt, rot)."""
+    from probreg_tpu_torch.utils import se3_op
+    from probreg_tpu_torch.utils.datagen import blobby_surface
+
+    rot = se3_op.euler2mat(*np.deg2rad([3.0, -2.0, 5.0])).double().numpy()
+    src = blobby_surface(N_GMM, seed=2)
+    tgt = (blobby_surface(N_GMM, seed=3) @ rot.T).astype(np.float32)
+    return src, tgt, rot
+
+
+def gmm_level_inputs(pts, counts, dev):
+    """Clouds (B, N, 3) with each pair's ``counts`` (B,) valid points first,
+    centred and with the padding zeroed as _build_fused does, and, for
+    levels 0 and 1 of their initial 2-level trees (64 leaves drawn with
+    seed 0), (state, parent map): level 1's parents from a whole level-0
+    run of K9 on the batch. Returns (x, counts, levels)."""
+    from probreg_tpu_torch import gmmtree as pgt
+    from probreg_tpu_torch.ops import gmmtree_cuda as gc
+
+    x = torch.as_tensor(pts, dtype=torch.float32, device=dev)
+    counts = torch.as_tensor(counts, dtype=torch.int64, device=dev)
+    valid = (torch.arange(x.shape[1], device=dev)[None, :]
+             < counts[:, None]).float()[..., None]
+    cen = (x * valid).double().sum(1) / counts[:, None].double()
+    x = ((x - cen.float()[:, None, :]) * valid).contiguous()
+    pi, mu, cov = pgt._init_tree(x, pgt._leaf_indices(0, counts.tolist(), 64,
+                                                      dev), counts, 2)
+    states = [pgt._pack_level(pi[:, lb:le], mu[:, lb:le], cov[:, lb:le])
+              for lb, le in ((0, 8), (8, 72))]
+    parent0 = torch.zeros(x.shape[:2], dtype=torch.int64, device=dev)
+    parent1 = gc.level_em(x, counts, states[0], parent0, lambda_s=1e-3,
+                          lambda_d=1e-4)[1]
+    return x, counts, [(states[0], parent0), (states[1], parent1)]
+
+
+def level_em_check(name, x, counts, state, parent, maxiter, quiet=False):
+    """K9 against its plain version at a fixed depth (lambda_s = 0), pair by
+    pair: per field (pi, mu, cov) within 1e-4 of the pair's largest entry,
+    or within 3x the spread between the plain version in f32 and in f64 on
+    that pair (the EM amplifies rounding over iterations: a small node's
+    m2 / m0 - mu mu^T cancels); the hard child on all but 0.1 % of the
+    valid points; every pair at maxiter iterations. Returns (the max abs
+    error, the plain version's state)."""
+    from probreg_tpu_torch.ops import gmmtree_cuda as gc
+
+    kw = dict(lambda_s=0.0, lambda_d=1e-4, maxiter=maxiter)
+    got = gc.level_em(x, counts, state, parent, **kw)
+    want = gc.level_em_plain(x, counts, state, parent, **kw)
+    w64 = gc.level_em_plain(x.double(), counts, state.double(), parent, **kw)
+    torch.cuda.synchronize()
+    ok, worst, parts, wide = True, 0.0, [], 0
+    for label, sl in (("pi", slice(0, 1)), ("mu", slice(1, 4)),
+                      ("cov", slice(4, 10))):
+        err = (got[0][..., sl] - want[0][..., sl]).abs().amax((1, 2))
+        spread = (want[0][..., sl].double() - w64[0][..., sl]).abs().amax(
+            (1, 2))
+        scale = want[0][..., sl].abs().amax((1, 2))
+        tight = err <= 1e-4 * scale + 1e-6
+        ok = ok and bool((tight | (err <= 3.0 * spread)).all())
+        wide += int((~tight).sum())
+        worst = max(worst, float(err.max()))
+        b = int(err.argmax())
+        parts.append(f"{label} {float(err[b]):.2e} (f32-f64 "
+                     f"{float(spread[b]):.2e})")
+    valid = (torch.arange(x.shape[1], device=x.device)[None, :]
+             < counts[:, None])
+    flips = float(((got[1] != want[1]) & valid).sum()) / float(counts.sum())
+    q_rel = float((got[2][:, 0].double() / want[2][:, 0].double() - 1.0)
+                  .abs().max())
+    pairs = f"{x.shape[0]} pair(s), " if x.shape[0] > 1 else ""
+    if not quiet:
+        log(f"  {name}, {pairs}{maxiter} iteration(s): " + ", ".join(parts)
+            + f"; fields over 1e-4 held to the spread: {wide}; hard child "
+            f"differs on {flips:.2e} of the points; q rel {q_rel:.2e}")
+    if not (ok and flips <= 1e-3
+            and bool((got[2][:, 1] == maxiter).all())):
+        raise AssertionError(f"level-EM kernel disagrees with its plain "
+                             f"version: {name}, {maxiter} iterations: "
+                             + ", ".join(parts))
+    return worst, want[0]
+
+
+def level_em_batch_check(name, x, counts, state, parent):
+    """K9 on a ragged batch. On clouds of 300-1024 points a level-1 node
+    holds ~10 of them, and past a few iterations the EM parts any two
+    summation orders far beyond their f32-to-f64 spread (two plain versions
+    that differ only in the order of the points do, logged below). So:
+    whole launches at 1 and 3 iterations and each of GMM_BUILD_ITERS
+    one-iteration launches from the plain version's state along its own
+    trajectory are held pair by pair as in level_em_check; in the whole
+    launch at GMM_BUILD_ITERS a pair's field is within 1e-4 of its largest
+    entry or within 3x the largest per-pair difference between those two
+    plain versions. Returns the max abs error of the pair-by-pair checks."""
+    from probreg_tpu_torch.ops import gmmtree_cuda as gc
+
+    worst = max(level_em_check(name, x, counts, state, parent, m)[0]
+                for m in (1, 3))
+    st, step_worst = state, 0.0
+    for _ in range(GMM_BUILD_ITERS):
+        err, st = level_em_check(f"{name}, stepwise", x, counts, st, parent,
+                                 1, quiet=True)
+        step_worst = max(step_worst, err)
+    log(f"  {name}, {x.shape[0]} pair(s), each of {GMM_BUILD_ITERS} single "
+        f"iterations from the plain version's state: max {step_worst:.2e}, "
+        "every pair within the pair-by-pair criterion")
+    kw = dict(lambda_s=0.0, lambda_d=1e-4, maxiter=GMM_BUILD_ITERS)
+    got = gc.level_em(x, counts, state, parent, **kw)
+    want = gc.level_em_plain(x, counts, state, parent, **kw)
+    pts_s, _, order = gc.sort_by_parent(x, counts, parent,
+                                        state.shape[1] // 8)
+    other = gc.level_em_plain(pts_s, counts, state,
+                              torch.gather(parent, 1, order), **kw)
+    ok, parts = bool((got[2][:, 1] == GMM_BUILD_ITERS).all()), []
+    for label, sl in (("pi", slice(0, 1)), ("mu", slice(1, 4)),
+                      ("cov", slice(4, 10))):
+        err = (got[0][..., sl] - want[0][..., sl]).abs().amax((1, 2))
+        ref = (other[0][..., sl] - want[0][..., sl]).abs().amax((1, 2))
+        cut = 1e-4 * want[0][..., sl].abs().amax((1, 2)) + 1e-6
+        ok = ok and bool(((err <= cut) | (err <= 3.0 * ref.max())).all())
+        parts.append(f"{label} max {float(err.max()):.2e}, "
+                     f"{int((err > cut).sum())} over 1e-4 (plain orders: "
+                     f"max {float(ref.max()):.2e}, {int((ref > cut).sum())} "
+                     "over 1e-4)")
+    log(f"  {name}, {x.shape[0]} pair(s), {GMM_BUILD_ITERS} iterations in "
+        "one launch: " + ", ".join(parts))
+    if not ok:
+        raise AssertionError(f"level-EM kernel disagrees with its plain "
+                             f"version: {name}, {GMM_BUILD_ITERS} iterations")
+    return max(worst, step_worst)
+
+
+def check_gmmtree_build(dev, kernels):
+    """K9 against level_em_plain on the horse (2,936 points), the 150k
+    surface and the 256 ragged horse sources as one compacted batch (the
+    launches run_gmmtree_batch makes), levels 0 and 1 of a 2-level tree,
+    at 1 iteration and at GMM_BUILD_ITERS (the batch as
+    level_em_batch_check says); the 150k level 1 at that depth gives the
+    kernels line its numbers."""
+    from probreg_tpu_torch.ops import gmmtree_cuda as gc
+    from probreg_tpu_torch.ops.em_cuda import _compact
+    from probreg_tpu_torch.utils import io, interop
+
+    log(f"[K9 level EM] kernel against its plain version, lambda_s 0")
+    horse = io.read_point_cloud(data_path("horse.ply"))
+    s_p, smask = interop.pad_ragged([p[0] for p in serving_batches()[0]],
+                                    device=dev)
+    s_c, s_cnt = _compact(s_p, smask)
+    worst = 0.0
+    cases = {"horse": (horse[None], [len(horse)]),
+             "horse 256 ragged": (s_c, s_cnt),
+             f"surface {N_GMM:,}": (gmm_surface_pair()[0][None], [N_GMM])}
+    inputs = {}
+    for name, (pts, cnt) in cases.items():
+        x, counts, levels = inputs[name] = gmm_level_inputs(pts, cnt, dev)
+        for lev, (state, parent) in enumerate(levels):
+            if x.shape[0] > 1:
+                worst = max(worst, level_em_batch_check(
+                    f"{name} level {lev}", x, counts, state, parent))
+                continue
+            for maxiter in (1, GMM_BUILD_ITERS):
+                worst = max(worst, level_em_check(
+                    f"{name} level {lev}", x, counts, state, parent,
+                    maxiter)[0])
+    # Raw launches on the sorted points (the wrapper's sort is not the
+    # kernel's time), at the depth compared above.
+    kw = dict(lambda_s=0.0, lambda_d=1e-4, maxiter=GMM_BUILD_ITERS)
+    x, counts, levels = inputs["horse 256 ragged"]
+    state, parent = levels[1]
+    pts_s, seg, _ = gc.sort_by_parent(x, counts, parent, 8)
+    ms = timed(lambda: gc.level_launch(pts_s, seg, state, **kw), 5)
+    log(f"  256 ragged pairs, level 1, {GMM_BUILD_ITERS} iterations: kernel "
+        f"{ms:.3f} ms for the batch (one block per pair)")
+    x, _, levels = inputs[f"surface {N_GMM:,}"]
+    state, parent = levels[1]
+    n, k = x.shape[1], state.shape[1]
+    pts_s, seg, _ = gc.sort_by_parent(x, None, parent, k // 8)
+    ms = timed(lambda: gc.level_launch(pts_s, seg, state, **kw), 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gc.level_em_plain(x, None, state, parent, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    b_ms, b_by = bound(16 * n + 80 * k + 8,
+                       float(n) * flops_level_em(k) * GMM_BUILD_ITERS)
+    log(f"  {N_GMM:,} points, level 1 ({k} nodes), {GMM_BUILD_ITERS} "
+        f"iterations: kernel {ms:.3f} ms ({ms / GMM_BUILD_ITERS:.3f} ms per "
+        f"iteration)  plain {plain_ms:.1f} ms  bound {b_ms:.4f} ms ({b_by})"
+        "; one block on one SM")
+    kernels["gmmtree_level_em"] = dict(max_abs_err=worst, ms=ms,
+                                       plain_ms=plain_ms, bound_ms=b_ms,
+                                       bound_by=b_by)
+
+
+def gmm_reg_compare(name, ys, counts, table, init, maxiter):
+    """K10 against run_gmmtree_reg_fused_plain on prepared inputs at a fixed
+    depth (tol 0). Both descend from differences, so only the order of the
+    sums differs, and per pair rot and t agree to 1e-4, unless a point sits
+    on a tie of the descent's first maximum and goes to another node: then
+    the plain version in f32 and in f64 part as well, and the pair is held
+    to 3x that spread. Returns (the per-pair differences, the plain
+    version's ms)."""
+    from probreg_tpu_torch.ops import gmmtree_cuda as gc
+
+    kw = dict(max_level=2, maxiter=maxiter, tol=0.0, lambda_c=0.01)
+    got = gc._reg_cuda(ys, counts, table, init, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = gc.run_gmmtree_reg_fused_plain(ys, counts, table, init, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = (got[:, :12] - want[:, :12]).abs().amax(1)
+    over = [int(b) for b in torch.nonzero(err > 1e-4)[:, 0]]
+    spreads = []
+    for b in over:
+        w64 = gc.run_gmmtree_reg_fused_plain(
+            ys[b:b + 1].double(), counts[b:b + 1], table[b:b + 1].double(),
+            init[b:b + 1].double(), **kw)[0]
+        spreads.append(float((want[b, :12].double() - w64[:12]).abs().max()))
+    log(f"  {name}: {len(err)} pair(s), {maxiter} iterations, max |rot|, "
+        f"|t| {float(err.max()):.2e} (median {float(err.median()):.2e}), q "
+        f"rel {float((got[:, 12] / want[:, 12] - 1).abs().max()):.2e}; "
+        f"over 1e-4: {len(over)} pair(s), "
+        + ", ".join(f"{float(err[b]):.2e} against an f32-f64 spread of "
+                    f"{sp:.2e}" for b, sp in zip(over, spreads)))
+    if not bool((got[:, 13] == maxiter).all()):
+        raise AssertionError(f"registration kernel: wrong iteration count "
+                             f"({name})")
+    if not all(float(err[b]) <= 3.0 * sp for b, sp in zip(over, spreads)):
+        raise AssertionError(f"registration kernel disagrees with its plain "
+                             f"version ({name})")
+    return err, plain_ms
+
+
+def gmm_reg_inputs(targets, tmask, trees):
+    """K10's prepared inputs for (B, N, 3) targets and their trees, from the
+    identity: (ys, counts, table, init)."""
+    from probreg_tpu_torch.ops import gmmtree_cuda as gc
+    from probreg_tpu_torch.ops.em_cuda import _compact
+
+    if tmask is None:
+        counts = torch.full((targets.shape[0],), targets.shape[1],
+                            dtype=torch.int32, device=targets.device)
+    else:
+        targets, counts = _compact(targets, tmask)
+    ys, table, _ = gc.reg_tables(targets, counts.long(), *trees)
+    init = torch.zeros((targets.shape[0], 12), device=targets.device)
+    init[:, [0, 4, 8]] = 1.0    # identity; t0 = 0 stays 0 when centred
+    return ys, counts.contiguous(), table, init
+
+
+def check_gmmtree_reg(dev, kernels):
+    """K10 against its plain version on the bunny (bench.py's pair, its own
+    tree) and on the 256 ragged horse pairs (trees from one K9 build of the
+    batch) at GMM_REG_ITERS iterations, tol 0; the batch gives the kernels
+    line its numbers (criterion: gmm_reg_compare)."""
+    from probreg_tpu_torch import gmmtree as pgt
+    from probreg_tpu_torch.ops import gmmtree_cuda as gc
+    from probreg_tpu_torch.ops.em_cuda import _compact
+
+    log(f"[K10 GMMTree registration] kernel against its plain version")
+    src, tgt = bunny_clouds(z_rotation(10.0))
+    tree = [a[None] for a in pgt.GMMTree(src, device=dev)._nodes]
+    tg = torch.as_tensor(tgt, device=dev)[None]
+    err, _ = gmm_reg_compare("bunny", *gmm_reg_inputs(tg, None, tree),
+                             GMM_REG_ITERS)
+    worst = float(err.max())
+    rigid = serving_batches()[0]
+    srcs, tgts, smask, tmask = em_batch_tensors(rigid, dev)
+    s_c, s_cnt = _compact(srcs, smask)
+    trees = pgt._build_fused(s_c, pgt._leaf_indices(0, s_cnt.tolist(), 64,
+                                                    dev), s_cnt,
+                             max_level=2, lambda_s=1e-3, lambda_d=1e-4)
+    inputs = gmm_reg_inputs(tgts, tmask, trees)
+    err, plain_ms = gmm_reg_compare("serving batch", *inputs, GMM_REG_ITERS)
+    worst = max(worst, float(err.max()))
+    ys, counts, table, init = inputs
+    kw = dict(max_level=2, maxiter=GMM_REG_ITERS, tol=0.0, lambda_c=0.01)
+    ms = timed(lambda: gc._reg_cuda(ys, counts, table, init, **kw), 5)
+    # The work of this data: the descent depth of each point at the
+    # starting pose (a point stops at a level-0 node of complexity <=
+    # lambda_c) times the iterations.
+    work = 0.0
+    for b, n in enumerate(counts.tolist()):
+        node, _ = gc._descend(ys[b, :n], table[b], 2, 0.01)
+        work += float((1.0 + (node >= 8).double()).sum())
+    n_all = float(counts.sum())
+    b_ms, b_by = bound(12 * n_all + 4 * table.numel() + 64 * len(rigid),
+                       GMM_REG_ITERS * n_all * flops_gmm_reg(work / n_all))
+    log(f"  batch kernel {ms:.3f} ms  plain {plain_ms:.1f} ms (a host loop "
+        f"over the pairs)  bound {b_ms:.4f} ms ({b_by}); mean descent depth "
+        f"{work / n_all:.3f} levels")
+    kernels["gmmtree_reg"] = dict(max_abs_err=worst, ms=ms,
+                                  plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by)
+
+
+def run_gmmtree_bunny(dev, launches):
+    """examples/gmmtree_rigid.py (the bunny at voxel 0.005, 1e-3 noise, seed
+    4, rotated 10 degrees about z) and bench.py's bunny pair (seed 3) at
+    the defaults (tree_level 2, maxiter 20, tol 1e-4): per call
+    tree_level K9 launches and one K10 launch; each angle within 5e-2 rad
+    (tests/test_gmmtree.py's bar)."""
+    from probreg_tpu_torch import gmmtree
+    from probreg_tpu_torch.utils import se3_op
+
+    for name, seed in (("examples/gmmtree_rigid.py", 4), ("bench.py", 3)):
+        src, tgt = bunny_clouds(z_rotation(10.0), seed=seed)
+        gmmtree.registration_gmmtree(src, tgt)  # warm
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = gmmtree.registration_gmmtree(src, tgt)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        expect_launches(f"GMMTree {name}", gmmtree_level_em=2,
+                        gmmtree_reg=1)
+        ang = se3_op.mat2euler(res.transformation.rot.cpu()).double().numpy()
+        err = np.abs(ang - np.deg2rad([0.0, 0.0, 10.0]))
+        log(f"[GMMTree bunny] {name}: registration_gmmtree, {src.shape[0]} "
+            f"points, defaults: second call {wall:.3f} ms (build and "
+            f"registration), recovered Euler "
+            f"{np.round(np.rad2deg(ang), 4).tolist()} deg, max angle error "
+            f"{err.max():.2e} rad")
+        if not err.max() <= 5e-2:
+            raise AssertionError(f"GMMTree bunny wrong: {name}")
+    launches.update(gmmtree_level_em=2, gmmtree_reg=1)
+
+
+def run_gmmtree_batch(dev, launches):
+    """registration_gmmtree_batch on 32 copies of bench.py's bunny pair
+    (benchmarks/bench_full.py bench_gmmtree_batch: maxiter 20, tol 1e-4)
+    and on the 256 ragged horse pairs (examples/batch_serving.py's GMMTree
+    settings: maxiter 30, tol 1e-6): one K9 launch per level and one K10
+    launch per batch; every pair's registration equal bit for bit to its
+    single-pair launch on the same tree."""
+    from probreg_tpu_torch import gmmtree as pgt
+    from probreg_tpu_torch.models import transformation as tf
+    from probreg_tpu_torch.ops import gmmtree_cuda as gc
+    from probreg_tpu_torch.ops.em_cuda import _compact
+    from probreg_tpu_torch.utils import interop, se3_op
+
+    src, tgt = bunny_clouds(z_rotation(10.0))
+    rigid = serving_batches()[0]
+    cases = (("bunny x32", [src] * 32, [tgt] * 32,
+              [z_rotation(10.0)] * 32, dict(maxiter=20, tol=1e-4)),
+             ("horse 256 ragged", [p[0] for p in rigid],
+              [p[1] for p in rigid], [p[2] for p in rigid],
+              dict(maxiter=30, tol=1e-6)))
+    for name, srcs, tgts, rots, kw in cases:
+        pgt.registration_gmmtree_batch(srcs, tgts, **kw)  # warm
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = pgt.registration_gmmtree_batch(srcs, tgts, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        expect_launches(f"GMMTree batch {name}", gmmtree_level_em=2,
+                        gmmtree_reg=1)
+        errs = np.array([np.rad2deg(float(se3_op.rotation_angle(
+            r.transformation.rot.cpu().double(), torch.as_tensor(rot))))
+            for r, rot in zip(res, rots)])
+        # The same trees again, then each pair alone on its tree.
+        s_p, smask = interop.pad_ragged(srcs, device=dev)
+        t_p, tmask = interop.pad_ragged(tgts, device=dev)
+        s_c, s_cnt = _compact(s_p, smask)
+        trees = pgt._build_fused(s_c, pgt._leaf_indices(0, s_cnt.tolist(),
+                                                        64, dev), s_cnt,
+                                 max_level=2, lambda_s=1e-3, lambda_d=1e-4)
+        rkw = dict(max_level=2, lambda_c=0.01, **kw)
+        diff = 0.0
+        for b, (r, t) in enumerate(zip(res, tgts)):
+            one = gc.run_gmmtree_reg_fused(torch.as_tensor(t, device=dev),
+                                           *(a[b] for a in trees), **rkw)
+            inv = tf.RigidTransformation(one[0], one[1]).inverse()
+            diff = max(diff, float((inv.rot - r.transformation.rot)
+                                   .abs().max()),
+                       float((inv.t - r.transformation.t).abs().max()))
+        log(f"[GMMTree batch] {name}: registration_gmmtree_batch, second "
+            f"call {wall:.2f} ms ({wall / len(srcs):.3f} ms per pair); deg "
+            f"rotation error median {np.median(errs):.4f} max "
+            f"{errs.max():.4f}; max difference to the single-pair launches "
+            f"{diff:.2e}")
+        if not (diff == 0.0 and np.median(errs) <= 1.5):
+            raise AssertionError(f"GMMTree batch wrong: {name}")
+
+
+def run_gmmtree_large(dev, launches):
+    """registration_gmmtree on the 150k surface pair at the defaults: K9
+    once per level and K10 once, no plain version and no twin loop called;
+    then, on one tree, K10 against its plain version at 3 iterations."""
+    from probreg_tpu_torch import gmmtree as pgt
+    from probreg_tpu_torch.ops import gmmtree_cuda as gc
+    from probreg_tpu_torch.utils import se3_op
+
+    src, tgt, rot = gmm_surface_pair()
+    log(f"[GMMTree 150k] registration_gmmtree, {N_GMM:,} points each "
+        "(two samples of one surface), defaults")
+    t0 = time.perf_counter()
+    pgt.registration_gmmtree(src, tgt)
+    torch.cuda.synchronize()
+    log(f"  warm call {time.perf_counter() - t0:.3f} s")
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain GMMTree path ran on the card")
+
+    saved = (gc.level_em_plain, gc.run_gmmtree_reg_fused_plain,
+             pgt._run_registration, pgt._accumulate)
+    gc.level_em_plain = gc.run_gmmtree_reg_fused_plain = refuse
+    pgt._run_registration = pgt._accumulate = refuse
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = pgt.registration_gmmtree(src, tgt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = all_launches()
+    finally:
+        (gc.level_em_plain, gc.run_gmmtree_reg_fused_plain,
+         pgt._run_registration, pgt._accumulate) = saved
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches("150k GMMTree", gmmtree_level_em=2, gmmtree_reg=1)
+    launches.update(gmmtree_level_em=got["gmmtree_level_em"],
+                    gmmtree_reg=got["gmmtree_reg"])
+    err = float(se3_op.rotation_angle(res.transformation.rot.cpu().double(),
+                                      torch.as_tensor(rot)))
+    log(f"  timed call {wall:.3f} s (build and registration), peak memory "
+        f"{peak / 2**30:.3f} GiB, rotation error {err:.3e} rad, q "
+        f"{float(res.q):.6g}")
+    # One tree; K10 against its plain version at a shallow fixed depth.
+    gt = pgt.GMMTree(src, device=dev)
+    tg = torch.as_tensor(tgt, device=dev)[None]
+    inputs = gmm_reg_inputs(tg, None, [a[None] for a in gt._nodes])
+    d, plain_ms = gmm_reg_compare("150k kernel-driven against plain-driven",
+                                  *inputs, 3)
+    log(f"  (the plain-driven run took {plain_ms:.0f} ms)")
+    if not err <= ROT_ERR_MAX:
+        raise AssertionError("150k GMMTree wrong")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1856,7 +2346,12 @@ def main() -> int:
                         (run_icp_batch, (dev, launches)),
                         (run_icp_large, (dev, launches)),
                         (check_wstash, (dev, kernels)),
-                        (run_bcpd_large, (dev, launches))):
+                        (run_bcpd_large, (dev, launches)),
+                        (check_gmmtree_build, (dev, kernels)),
+                        (check_gmmtree_reg, (dev, kernels)),
+                        (run_gmmtree_bunny, (dev, launches)),
+                        (run_gmmtree_batch, (dev, launches)),
+                        (run_gmmtree_large, (dev, launches))):
         t0 = time.perf_counter()
         try:
             phase(*args)

@@ -1,6 +1,7 @@
-// Device helpers shared by the whole-EM kernels (em.cu: CPD, frg.cu:
-// FilterReg): fixed-order block reductions, the lane-group split, and
-// Horn's rotation solve by Jacobi sweeps in double.
+// Device helpers shared by the whole-loop kernels (em.cu: CPD, frg.cu:
+// FilterReg, icp.cu: ICP, gmmtree.cu: GMMTree): fixed-order block
+// reductions, the lane-group split, Horn's rotation solve by Jacobi sweeps
+// in double, and a 6 x 6 solve in double.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -119,6 +120,33 @@ __device__ void horn_rotation(double a[3][3], double rot[3][3]) {
   rot[2][0] = 2.0 * (qx * qz - qw * qy);
   rot[2][1] = 2.0 * (qy * qz + qw * qx);
   rot[2][2] = qw * qw - qx * qx - qy * qy + qz * qz;
+}
+
+// Solves the 6 x 6 system a x = b in place by elimination with partial
+// pivoting; a zero pivot leaves that component 0.
+__device__ void solve6(double a[6][6], double b[6], double x[6]) {
+  for (int k = 0; k < 6; ++k) {
+    int p = k;
+    for (int i = k + 1; i < 6; ++i)
+      if (fabs(a[i][k]) > fabs(a[p][k])) p = i;
+    if (p != k) {
+      for (int j = 0; j < 6; ++j) {
+        const double tmp = a[k][j]; a[k][j] = a[p][j]; a[p][j] = tmp;
+      }
+      const double tb = b[k]; b[k] = b[p]; b[p] = tb;
+    }
+    if (a[k][k] == 0.0) continue;
+    for (int i = k + 1; i < 6; ++i) {
+      const double f = a[i][k] / a[k][k];
+      for (int j = k; j < 6; ++j) a[i][j] -= f * a[k][j];
+      b[i] -= f * b[k];
+    }
+  }
+  for (int k = 5; k >= 0; --k) {
+    double s = b[k];
+    for (int j = k + 1; j < 6; ++j) s -= a[k][j] * x[j];
+    x[k] = a[k][k] == 0.0 ? 0.0 : s / a[k][k];
+  }
 }
 
 }  // namespace

@@ -74,33 +74,6 @@ __device__ __forceinline__ float3 apply(const State& st, float4 y) {
                      r[6] * y.x + r[7] * y.y + r[8] * y.z + st.t[2]);
 }
 
-// Solves the 6 x 6 system a x = b in place by elimination with partial
-// pivoting; a zero pivot leaves that component 0.
-__device__ void solve6(double a[6][6], double b[6], double x[6]) {
-  for (int k = 0; k < 6; ++k) {
-    int p = k;
-    for (int i = k + 1; i < 6; ++i)
-      if (fabs(a[i][k]) > fabs(a[p][k])) p = i;
-    if (p != k) {
-      for (int j = 0; j < 6; ++j) {
-        const double tmp = a[k][j]; a[k][j] = a[p][j]; a[p][j] = tmp;
-      }
-      const double tb = b[k]; b[k] = b[p]; b[p] = tb;
-    }
-    if (a[k][k] == 0.0) continue;
-    for (int i = k + 1; i < 6; ++i) {
-      const double f = a[i][k] / a[k][k];
-      for (int j = k; j < 6; ++j) a[i][j] -= f * a[k][j];
-      b[i] -= f * b[k];
-    }
-  }
-  for (int k = 5; k >= 0; --k) {
-    double s = b[k];
-    for (int j = k + 1; j < 6; ++j) s -= a[k][j] * x[j];
-    x[k] = a[k][k] == 0.0 ? 0.0 : s / a[k][k];
-  }
-}
-
 // One point-to-plane twist step from the block sums s[1..28) (the upper
 // triangle of sum_i w J J^T row by row, then sum_i w r J): (dr, dt).
 __device__ void pt2pl_step(const float* s, double dr[3][3], double dt[3]) {

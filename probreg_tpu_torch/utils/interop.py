@@ -108,6 +108,16 @@ def combined_from_reference(params: Mapping[str, Any], device=None):
         np.asarray(params["v"]), dim=rot.shape[0], device=device)
 
 
+def gmmtree_nodes_from_reference(pi, mu, cov, device=None):
+    """A GMMTree's node tensors (pi (T,), mu (T, 3), cov (T, 3, 3)) from a
+    tree the JAX package built, given as numpy (e.g. ``np.asarray`` of each
+    of its ``GMMTree._nodes``), so that both packages register against the
+    same tree. Returns the tuple ``GMMTree._nodes`` holds."""
+    dev = _config.resolve_device(device)
+    return tuple(torch.tensor(np.array(a), dtype=_config.config.dtype,
+                              device=dev) for a in (pi, mu, cov))
+
+
 def config_from_reference(fields: Mapping[str, Any]) -> "_config.Config":
     """Port Config carrying the JAX Config's fields that exist in both.
 

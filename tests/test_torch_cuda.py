@@ -700,3 +700,174 @@ def test_bcpd_culled_registration_matches_plain(dev, monkeypatch):
 
     assert np.all(diff(res, ref) <= np.maximum(10.0 * diff(other, ref),
                                                1e-6))
+
+
+def _gmm_level_inputs(n, level, dev, seed=70):
+    """A blobby surface of n points centred, the initial tree of a 2-level
+    build, and level ``level``'s state and parent map (level 1's parents
+    from one level-0 run of the plain version)."""
+    from probreg_tpu_torch import gmmtree as pgt
+    from probreg_tpu_torch.ops import gmmtree_cuda as pgc
+    from probreg_tpu_torch.utils.datagen import blobby_surface
+
+    pts = torch.as_tensor(blobby_surface(n, seed=seed), device=dev)
+    pts = (pts - pts.mean(0))[None].contiguous()
+    idxs = torch.as_tensor(np.random.default_rng(seed).integers(0, n, 64),
+                           device=dev)[None]
+    cnt = torch.tensor([n], device=dev)
+    pi, mu, cov = pgt._init_tree(pts, idxs, cnt, 2)
+    parent = torch.zeros((1, n), dtype=torch.int64, device=dev)
+    if level == 1:
+        st0 = pgt._pack_level(pi[:, :8], mu[:, :8], cov[:, :8])
+        parent = pgc.level_em_plain(pts, cnt, st0, parent, lambda_s=1e-3,
+                                    lambda_d=1e-4)[1]
+    lb, le = pgt._level_start(level), pgt._level_start(level + 1)
+    return pts, pgt._pack_level(pi[:, lb:le], mu[:, lb:le],
+                                cov[:, lb:le]), parent
+
+
+@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("maxiter", [1, 4])
+@pytest.mark.parametrize("masked", [False, True])
+def test_gmmtree_level_em_kernel_matches_plain(dev, level, maxiter, masked):
+    """K9 against its plain version at a fixed depth (lambda_s = 0), per
+    field of the state (pi, mu, cov) and for q: within 1e-4 of the largest
+    entry, or within 3x the spread between the plain version in f32 and
+    in f64 on the same inputs (the EM amplifies rounding over iterations:
+    a covariance m2 / m0 - mu mu^T of a small node cancels ~3 digits). The
+    hard child agrees on all but 0.1 % of the points (near-ties). A padded
+    batch of two is each pair's own launch bit for bit."""
+    from probreg_tpu_torch.ops import gmmtree_cuda as pgc
+
+    pts, state, parent = _gmm_level_inputs(3000, level, dev)
+    kw = dict(lambda_s=0.0, lambda_d=1e-4, maxiter=maxiter)
+    before = pgc.LAUNCHES["gmmtree_level_em"]
+    st, child, diag = pgc.level_em(pts, None, state, parent, **kw)
+    assert pgc.LAUNCHES["gmmtree_level_em"] == before + 1
+    want = pgc.level_em_plain(pts, None, state, parent, **kw)
+    w64 = pgc.level_em_plain(pts.double(), None, state.double(), parent,
+                             **kw)
+    for sl in (slice(0, 1), slice(1, 4), slice(4, 10)):
+        err = float((st[..., sl] - want[0][..., sl]).abs().max())
+        spread = float((want[0][..., sl].double() - w64[0][..., sl])
+                       .abs().max())
+        scale = float(want[0][..., sl].abs().max())
+        assert err <= max(1e-4 * scale + 1e-6, 3.0 * spread), (sl, err,
+                                                                spread)
+    assert float((child != want[1]).float().mean()) <= 1e-3
+    assert int(diag[0, 1]) == maxiter
+    q, q32, q64 = float(diag[0, 0]), float(want[2][0, 0]), float(
+        w64[2][0, 0])
+    assert abs(q - q32) <= max(1e-5 * abs(q32), 3.0 * abs(q32 - q64))
+    if masked:
+        n = 2000
+        x = torch.zeros(2, 3000, 3, device=dev)
+        x[0], x[1, :n] = pts[0], pts[0, :n]
+        par = torch.zeros(2, 3000, dtype=torch.int64, device=dev)
+        par[0], par[1, :n] = parent[0], parent[0, :n]
+        sts = torch.cat([state, state])
+        got = pgc.level_em(x, torch.tensor([3000, n], device=dev), sts, par,
+                           **kw)
+        one = pgc.level_em(x[1:, :n], None, state, par[1:, :n], **kw)
+        assert torch.equal(got[0][1], one[0][0])
+        assert torch.equal(got[1][1, :n], one[1][0])
+        assert torch.equal(got[0][0], st[0])
+
+
+def _gmm_reg_inputs(dev, n=2000, seed=71):
+    from probreg_tpu_torch import gmmtree as pgt
+    from probreg_tpu_torch.utils import se3_op
+    from probreg_tpu_torch.utils.datagen import blobby_surface
+
+    src = blobby_surface(n, seed=seed)
+    rot = se3_op.euler2mat(*np.deg2rad([4.0, -3.0, 6.0])).numpy()
+    tgt = torch.as_tensor(src @ rot.T + 0.02, dtype=torch.float32,
+                          device=dev)
+    tree = pgt.GMMTree(src, device=dev)._nodes
+    return tgt, tree
+
+
+@pytest.mark.parametrize("case", ["single", "warm", "masked"])
+def test_gmmtree_reg_kernel_matches_plain(dev, case):
+    """K10 against its plain version at a fixed depth (tol 0): rot and t to
+    1e-5 (the descent from differences in both, sums in other orders)."""
+    from probreg_tpu_torch.ops import gmmtree_cuda as pgc
+
+    tgt, tree = _gmm_reg_inputs(dev)
+    kw = dict(max_level=2, lambda_c=0.01, maxiter=10, tol=0.0)
+    rot0 = t0 = tmask = None
+    if case == "warm":
+        rot0 = torch.tensor([[1.0, -0.02, 0.0], [0.02, 1.0, 0.0],
+                             [0.0, 0.0, 1.0]], device=dev)
+        t0 = torch.tensor([0.01, 0.0, -0.01], device=dev)
+    x = tgt
+    if case == "masked":
+        x = torch.cat([tgt, torch.full((300, 3), 9.0, device=dev)])
+        tmask = torch.cat([torch.ones(2000, device=dev),
+                           torch.zeros(300, device=dev)])
+    before = pgc.LAUNCHES["gmmtree_reg"]
+    got = pgc.run_gmmtree_reg_fused(x, *tree, rot0, t0, tmask, **kw)
+    assert pgc.LAUNCHES["gmmtree_reg"] == before + 1
+    ys, table, cen = pgc.reg_tables(tgt[None], torch.tensor([2000],
+                                                            device=dev),
+                                    *(a[None] for a in tree))
+    rot0_ = torch.eye(3, device=dev) if rot0 is None else rot0
+    t0_ = torch.zeros(3, device=dev) if t0 is None else t0
+    init = torch.cat([rot0_.reshape(9), t0_ + rot0_ @ cen[0] - cen[0]])
+    want = pgc.run_gmmtree_reg_fused_plain(
+        ys, torch.tensor([2000], device=dev), table, init[None],
+        max_level=2, maxiter=10, tol=0.0, lambda_c=0.01)[0]
+    rot = want[:9].reshape(3, 3)
+    t = want[9:12] + cen[0] - rot @ cen[0]
+    assert float((got[0] - rot).abs().max()) <= 1e-5
+    assert float((got[1] - t).abs().max()) <= 1e-5
+    assert int(got[3]) == 10
+    if case == "masked":
+        one = pgc.run_gmmtree_reg_fused(tgt, *tree, **kw)
+        for a, b in zip(got, one):
+            assert torch.equal(a, b)
+
+
+def test_gmmtree_batch_is_one_launch_of_each_and_equals_single(dev,
+                                                               monkeypatch):
+    """registration_gmmtree launches K9 once per level and K10 once, and
+    never the plain versions; a ragged batch launches K9 once per level
+    and K10 once, and each pair's registration on its tree is its
+    single-pair launch bit for bit."""
+    from probreg_tpu_torch import gmmtree as pgt
+    from probreg_tpu_torch.ops import gmmtree_cuda as pgc
+    from probreg_tpu_torch.utils.datagen import blobby_surface
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called with CUDA tensors")
+
+    monkeypatch.setattr(pgc, "level_em_plain", refuse)
+    monkeypatch.setattr(pgc, "run_gmmtree_reg_fused_plain", refuse)
+    srcs = [blobby_surface(n, seed=n) for n in (700, 1000, 400)]
+    tgts = [s[::-1][:m].copy() for s, m in zip(srcs, (650, 1000, 380))]
+    pgc.reset_launches()
+    one = pgt.registration_gmmtree(srcs[0], tgts[0])
+    assert pgc.LAUNCHES == {"gmmtree_level_em": 2, "gmmtree_reg": 1}
+    pgc.reset_launches()
+    res = pgt.registration_gmmtree_batch(srcs, tgts, maxiter=20, tol=1e-4)
+    assert pgc.LAUNCHES == {"gmmtree_level_em": 2, "gmmtree_reg": 1}
+    assert len(res) == 3 and one.q is not None
+    # The batch's registration against its own trees, pair by pair.
+    from probreg_tpu_torch.utils import interop
+
+    idxs = pgt._leaf_indices(0, [700, 1000, 400], 64, dev)
+    src_p, smask = interop.pad_ragged(srcs, device=dev)
+    tgt_p, tmask = interop.pad_ragged(tgts, device=dev)
+    trees = pgt._build_fused(src_p, idxs, smask.sum(1).long(),
+                             max_level=2, lambda_s=1e-3, lambda_d=1e-4)
+    kw = dict(max_level=2, lambda_c=0.01, maxiter=20, tol=1e-4)
+    batch = pgc.run_gmmtree_reg_fused_batch(tgt_p, *trees, tmasks=tmask,
+                                            **kw)
+    for b, (r, t) in enumerate(zip(res, tgts)):
+        single = pgc.run_gmmtree_reg_fused(
+            torch.as_tensor(t, device=dev), *(a[b] for a in trees), **kw)
+        assert torch.equal(batch[0][b], single[0])
+        assert torch.equal(batch[1][b], single[1])
+        assert torch.equal(r.transformation.rot,
+                           single[0].T)
+    torch.cuda.synchronize()

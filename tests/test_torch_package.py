@@ -13,6 +13,7 @@ from probreg_tpu_torch import config as pcfg  # noqa: E402
 from probreg_tpu_torch import cpd as pcpd  # noqa: E402
 from probreg_tpu_torch import bcpd as pbcpd  # noqa: E402
 from probreg_tpu_torch import filterreg as pfilterreg  # noqa: E402
+from probreg_tpu_torch import gmmtree as pgmmtree  # noqa: E402
 from probreg_tpu_torch import icp as picp  # noqa: E402
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,6 +34,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import probreg_tpu_torch.icp, probreg_tpu_torch.bcpd\n"
         "import probreg_tpu_torch.ops.icp_cuda, probreg_tpu_torch.ops.lowrank\n"
         "import probreg_tpu_torch.ops.bcpd_cuda\n"
+        "import probreg_tpu_torch.gmmtree, probreg_tpu_torch.ops.gmmtree_cuda\n"
+        "import probreg_tpu_torch.ops.sym3\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'probreg_tpu' or m.startswith('probreg_tpu.')]\n"
         "assert not bad, bad\n"
@@ -60,6 +63,10 @@ def test_entry_point_without_cuda_raises_instead_of_running_on_cpu():
         picp.registration_icp_batch(pts[None], pts[None])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pbcpd.registration_bcpd(pts, pts)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pgmmtree.registration_gmmtree(pts, pts)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pgmmtree.registration_gmmtree_batch(pts[None], pts[None])
     assert picp.registration_icp(pts + 1.0, pts, maxiter=2,
                                  device="cpu").n_iter == 2
     res = pfilterreg.registration_filterreg(pts + 1.0, pts, maxiter=2,
@@ -75,10 +82,10 @@ def test_kernel_sources_ship_with_the_package():
     from probreg_tpu_torch.ops import _build
 
     for name in ("estep.cu", "em.cu", "frg.cu", "gt.cu", "icp.cu",
-                 "wstash.cu", "em_common.cuh"):
+                 "wstash.cu", "gmmtree.cu", "em_common.cuh"):
         assert (_build.CSRC / name).exists(), name
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
-        "em", "estep", "frg", "gt", "icp", "wstash"]
+        "em", "estep", "frg", "gmmtree", "gt", "icp", "wstash"]
     assert _build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

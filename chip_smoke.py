@@ -48,7 +48,17 @@ before it and read just after:
   blobby_surface (seeds 2 and 3), the target rotated by Euler (3, -2, 5)
   degrees: each call or batch builds its trees with one launch of the
   level-EM kernel (gmmtree_level_em) per level and registers with one
-  launch of the registration kernel (gmmtree_reg).
+  launch of the registration kernel (gmmtree_reg);
+* the coarse-to-fine CPD pyramid (examples/pyramid_rigid.py:
+  blobby_surface(n, seed=0), the target moved by Euler (5, 8, 12) degrees
+  and t = (0.05, -0.03, 0.08); levels 3, tol 1e-4) at 200,000 and
+  1,000,000 points, once through the stash kernels (stash_den,
+  stash_moment) and once with config.use_merged_stash through the
+  pipelined stash kernel (stash_merged, with stash_moment closing each
+  E-step); the affine CPD pyramid at 200,000 points (test_pyramid_affine's
+  map); and the ICP, FilterReg (pt2pt) and GMMTree pyramids at 200,000
+  points, and the BCPD pyramid at 100,000 points (bench_bcpd_guarded.py:
+  rank 64, maxiter 50, tol 1e-4, 4 levels).
 
 Prints the card, a {"kernels": [...]} line and, last, {"ok": true, ...}.
 Exits non-zero without a CUDA device or when any phase fails.
@@ -95,6 +105,7 @@ KERNELS = {
     "estep_small": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:1571"),
     "stash_den": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:393"),
     "stash_moment": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:429"),
+    "stash_merged": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:581"),
     "em_rigid": (_EM_CU, "probreg_tpu/ops/em_pallas.py:262"),
     "em_affine": (_EM_CU, "probreg_tpu/ops/em_pallas.py:262"),
     "fused_den": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:87"),
@@ -147,14 +158,36 @@ FLOPS_GMM_GAUSS = 27
 GMM_BUILD_ITERS = 10
 GMM_REG_ITERS = 20
 N_GMM = 150_000
+# The CPD pyramid: examples/pyramid_rigid.py's case and arguments.
+PYRAMID_SIZES = (200_000, 1_000_000)
+PYRAMID_ARGS = dict(levels=3, tol=1e-4)
+# The reference test's bar for the rigid pyramid (tests/test_pyramid.py:
+# 52-59): rotation angle (rad), |t - t_gt| and |scale - 1|.
+PYR_ANGLE_MAX, PYR_T_MAX, PYR_SCALE_MAX = 1e-3, 1e-4, 1e-3
+# The merged-stash (K12) and default (K3) pyramid runs must agree within
+# this in rot and t. Stated before their first run on the card: the two
+# routes' E-steps give pt1 and xx bit for bit and p1, px that differ by the
+# rounding of one association (~1e-7 of their largest entry), and both EMs
+# anneal to the same fixed point on these exact copies.
+PYR_ROUTE_TOL = 1e-5
+# check_pyramid_estep: where a kernel's output is beyond compare()'s
+# tolerance of its plain version, it must lie within this many times the
+# plain version's own distance from the f64 result (the repo's factor for
+# f32 spreads, as in the GMMTree checks). Stated after compare()'s
+# tolerance failed there on the card: p1 of K12 at 5.66e-4 of its largest
+# entry at the 200k pyramid's sigma2 of 9.9e-5 (CHANGES.md).
+PYR_ESTEP_SPREAD = 3.0
+# test_pyramid_affine's bar on b and t.
+PYR_AFFINE_MAX = 1e-2
 
 
 def flops_wstash(channels: int):
-    """f32 operations per active pair of the row-weighted E-step: pass A
-    the Gaussian with its row offset (dot 5, |y|^2 + |x|^2 - 2 y.x 3, max 1,
-    scale and offset 2, exp 1) and the column sum, 13; pass B d2 again (9,
-    no exp), p = g / den 1, e1 2, the row minimum 1 and 2 per channel."""
-    return 13, 13 + 2 * channels
+    """f32 operations per active pair of the row-weighted E-step's passes,
+    from their own inputs (no stash): pass A the Gaussian with its row
+    offset (dot 5, |y|^2 + |x|^2 - 2 y.x 3, max 1, scale and offset 2, exp
+    1) and the column sum, 13; pass B the Gaussian again (12), p = g / den
+    1, e1 2, the row minimum 1 and 2 per channel."""
+    return 13, 16 + 2 * channels
 
 
 def flops_frg(channels: int) -> int:
@@ -356,12 +389,26 @@ def plain_pass_times(ys, xs, scal, mask, tile_m, tile_n, recompute):
     return pa, pb
 
 
+def estep_pass_bounds(m, n, pairs):
+    """Bounds of the two passes of a large CPD E-step from the passes' own
+    inputs and outputs, each read or written once: pass A reads both clouds
+    and writes pt1 and inv_den, with the Gaussian and its column sum (12
+    operations per active pair); pass B reads both clouds and inv_den,
+    writes p1 and px, and needs the Gaussian again (11 + 8). A stash is a
+    kernel's intermediate, not the function's: its bytes are not charged
+    (K4 computes the same two passes without one), so K3 and K4 share these
+    bounds."""
+    return (bound(12 * (m + n) + 8 * n, pairs * FLOPS_GAUSS),
+            bound(12 * (m + n) + 4 * n + 16 * m,
+                  pairs * (FLOPS_GAUSS - 1 + FLOPS_MOMENTS)))
+
+
 def check_pass_kernels(dev, kernels, shared, names, core, plain, plan_cls,
-                       label, bounds, recompute):
+                       label, recompute):
     """Shared body of check_stash and check_fused_estep: a pair of pass
-    kernels against their plain version in both regimes, then timed.
-    ``recompute``: pass B forms the Gaussian again (K4) and K3's times on
-    the same inputs are printed beside."""
+    kernels against their plain version in both regimes, then timed
+    against estep_pass_bounds. ``recompute``: pass B forms the Gaussian
+    again (K4) and K3's times on the same inputs are printed beside."""
     out = {}
     stash_ms = shared.setdefault("stash_ms", {})  # K3's times, for K4's log
     for (regime, sigma2, ys, xs, scal, mask, tile_m, tile_n,
@@ -388,7 +435,7 @@ def check_pass_kernels(dev, kernels, shared, names, core, plain, plan_cls,
         del plan
         pa, pb = plain_pass_times(ys, xs, scal, mask, tile_m, tile_n,
                                   recompute)
-        ba, bb = bounds(m, n, pairs)
+        ba, bb = estep_pass_bounds(m, n, pairs)
         beside = ""
         if recompute:
             k3 = stash_ms[regime]
@@ -417,28 +464,86 @@ def check_stash(dev, kernels, shared):
     (an annealed sigma2), against the plain version."""
     from probreg_tpu_torch.ops import estep_cuda as ec
 
-    def bounds(m, n, pairs):  # the stash is pass A's output, pass B's input
-        return (bound(12 * (m + n) + 4 * pairs + 8 * n, pairs * FLOPS_GAUSS),
-                bound(4 * pairs + 16 * n + 16 * m, pairs * FLOPS_MOMENTS))
-
     check_pass_kernels(dev, kernels, shared, ("stash_den", "stash_moment"),
                        ec.stash_estep, ec.stash_estep_plain, ec.StashPlan,
-                       "K3 stash", bounds, recompute=False)
+                       "K3 stash", recompute=False)
 
 
 def check_fused_estep(dev, kernels, shared):
-    """K4 on the same inputs as K3: no stash, the Gaussian in both passes,
-    so both passes are bound by operations (12 and 11 + 8 per pair)."""
+    """K4 on the same inputs as K3: no stash, the Gaussian in both passes."""
     from probreg_tpu_torch.ops import estep_cuda as ec
-
-    def bounds(m, n, pairs):
-        return (bound(12 * (m + n) + 8 * n, pairs * FLOPS_GAUSS),
-                bound(12 * (m + n) + 4 * n + 16 * m,
-                      pairs * (FLOPS_GAUSS - 1 + FLOPS_MOMENTS)))
 
     check_pass_kernels(dev, kernels, shared, ("fused_den", "fused_moment"),
                        ec.fused_core, ec.fused_estep_plain, ec.FusedPlan,
-                       "K4 two-pass", bounds, recompute=True)
+                       "K4 two-pass", recompute=True)
+
+
+def check_stash_merged(dev, kernels, shared):
+    """K12 on the 150k clouds for one E-step, dense and culled: against its
+    plain version (compare()'s tolerance), and against K3 on the same
+    inputs: pt1 and xx equal bit for bit (pass A is K3a's code), p1 and px
+    within 1e-5 of their largest entry (the normalizer is folded into the
+    channels). Timed per E-step: n_j launches of K12 and the K3b epilogue.
+    The bound is the whole E-step's from its own inputs and outputs (both
+    clouds read once; pt1, xx, p1 and px written once) and 12 + 8
+    operations per active pair, the Gaussian formed once; the stash is the
+    kernel's intermediate and is not charged."""
+    from probreg_tpu_torch.ops import estep_cuda as ec
+
+    out = {}
+    stash_ms = shared.get("stash_ms", {})
+    for (regime, sigma2, ys, xs, scal, mask, tile_m, tile_n,
+         pairs) in estep_regimes(dev, shared):
+        m, n, n_j = ys.shape[0], xs.shape[0], mask.shape[1]
+        log(f"[K12 merged stash] {regime}: sigma2 {sigma2:.6g}, tiles "
+            f"{tile_m} x {tile_n}, active pairs {pairs:.4g}; launches per "
+            f"E-step {n_j} + 1 (K3: {2 * n_j})")
+        before = dict(ec.LAUNCHES)
+        got = ec.stash_merged_estep(ys, xs, scal, mask, tile_m, tile_n)
+        torch.cuda.synchronize()
+        made = {k: ec.LAUNCHES[k] - before[k] for k in before}
+        if made != {**{k: 0 for k in before}, "stash_merged": n_j,
+                    "stash_moment": 1}:
+            raise AssertionError(f"K12 E-step made launches {made}")
+        want = ec.stash_merged_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
+        torch.cuda.synchronize()
+        err = max(compare(k, a, b) for k, a, b in
+                  zip(("pt1", "p1", "px", "xx"), got, want))
+        del want
+        k3 = ec.stash_estep(ys, xs, scal, mask, tile_m, tile_n)
+        torch.cuda.synchronize()
+        same = torch.equal(got[0], k3[0]) and torch.equal(got[3], k3[3])
+        rel = [float((a - b).abs().max() / b.abs().max())
+               for a, b in ((got[1], k3[1]), (got[2], k3[2]))]
+        log(f"  against K3: pt1 and xx {'equal' if same else 'NOT equal'} "
+            f"bit for bit; p1 {rel[0]:.3e}, px {rel[1]:.3e} of the largest "
+            "entry")
+        del got, k3
+        if not (same and max(rel) <= 1e-5):
+            raise AssertionError("K12 disagrees with K3")
+        plan = ec.MergedStashPlan(ys, xs, scal, mask, tile_m, tile_n)
+
+        def estep():
+            for j in range(plan.n_j):
+                plan.merged(j)
+            plan.moment(plan.n_j - 1)
+
+        ms = timed(estep, 5)
+        del plan
+        plain_ms = timed(lambda: ec.stash_merged_estep_plain(
+            ys, xs, scal, mask, tile_m, tile_n), 2)
+        b = bound(12 * (m + n) + 8 * n + 16 * m,
+                  pairs * (FLOPS_GAUSS + FLOPS_MOMENTS))
+        k3 = stash_ms.get(regime)
+        beside = "" if k3 is None else \
+            f"  [K3 on the same inputs: {k3[0] + k3[1]:.3f} ms]"
+        log(f"  E-step kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
+            f"{b[0]:.3f} ms ({b[1]}){beside}")
+        out[regime] = (err, ms, plain_ms, b)
+    err, ms, plain_ms, b = out["dense"]
+    kernels["stash_merged"] = dict(max_abs_err=max(err, out["culled"][0]),
+                                   ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                                   bound_by=b[1])
 
 
 # --------------------------------------------------------------------------
@@ -1678,9 +1783,10 @@ def check_wstash(dev, kernels):
         pa, pb = wstash_plain_times(ys, xs, rowlog, v_t, sc, mask, tile_m,
                                     tile_n)
         fa, fb = flops_wstash(c)
-        ba = bound(16 * m + 12 * n + 4 * pairs + 8 * n, pairs * fa)
-        bb = bound(4 * pairs + 12 * (m + n) + 4 * (c + 1) * n
-                   + 4 * (c + 2) * m, pairs * fb)
+        # Each pass's own inputs and outputs; the stash is not charged.
+        ba = bound(16 * m + 12 * n + 8 * n, pairs * fa)
+        bb = bound(16 * m + 12 * n + 4 * (c + 1) * n + 4 * (c + 2) * m,
+                   pairs * fb)
         log(f"  pass A kernel {ms_a:.3f} ms  plain {pa:.3f} ms  bound "
             f"{ba[0]:.3f} ms ({ba[1]})")
         log(f"  pass B kernel {ms_b:.3f} ms  plain {pb:.3f} ms  bound "
@@ -2307,6 +2413,442 @@ def run_gmmtree_large(dev, launches):
         raise AssertionError("150k GMMTree wrong")
 
 
+# --------------------------------------------------------------------------
+# The pyramids
+# --------------------------------------------------------------------------
+
+def pyramid_case(n):
+    """examples/pyramid_rigid.py's case: blobby_surface(n, seed=0), the
+    target moved by Euler (5, 8, 12) degrees and t = (0.05, -0.03, 0.08).
+    Returns (src, tgt, rot, t)."""
+    from probreg_tpu_torch.utils import se3_op
+    from probreg_tpu_torch.utils.datagen import blobby_surface
+
+    src = blobby_surface(n, seed=0)
+    rot = se3_op.euler2mat(*np.deg2rad([5.0, 8.0, 12.0])).numpy()
+    t = np.array([0.05, -0.03, 0.08], np.float32)
+    return src, (src @ rot.T + t).astype(np.float32), rot, t
+
+
+def traced_cpd_pyramid(src, tgt, kind):
+    """One registration_cpd_pyramid call with the launch counts set to 0
+    just before it and read just after; records the points per level, the
+    host's level preparation, each level's wall time (each ends in a
+    synchronize), each culled E-step's active tile fraction, and each stash
+    E-step's host time (launching its kernels, no synchronize) and device
+    time (CUDA events around it). Keeps a copy of the inputs of the finest
+    level's first stash E-step (``info["finest_inputs"]``: ys, xs, scal,
+    mask, tile_m, tile_n) for check_pyramid_estep. Returns (result, wall s,
+    info)."""
+    from probreg_tpu_torch import cpd, pyramid
+    from probreg_tpu_torch.ops import estep_cuda as ec
+
+    info = {"level_s": [], "masks": [], "esteps": []}
+    saved = (pyramid._prepare_levels, cpd.registration_cpd, ec._active_mask,
+             ec.stash_estep, ec.stash_merged_estep)
+
+    def prepare(*a, **k):
+        out = saved[0](*a, **k)
+        info["points"] = [int(len(x)) for x in out[0]]
+        info["voxels"] = [float(v) for v in out[2]]
+        info["prep_s"] = time.perf_counter() - t0
+        return out
+
+    def register(*a, **k):
+        t1 = time.perf_counter()
+        res = saved[1](*a, **k)
+        torch.cuda.synchronize()
+        info["level_s"].append(time.perf_counter() - t1)
+        return res
+
+    def active_mask(*a):
+        mask = saved[2](*a)
+        info["masks"].append((mask.shape[0], mask.float().mean()))
+        return mask
+
+    def timed_core(core):
+        def run(ys, *a):
+            if (ys.shape[0] == info["points"][-1]
+                    and "finest_inputs" not in info):
+                info["finest_inputs"] = tuple(
+                    v.clone() if torch.is_tensor(v) else v for v in (ys, *a))
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            t1 = time.perf_counter()
+            out = core(ys, *a)
+            host = time.perf_counter() - t1
+            ev[1].record()
+            info["esteps"].append((ys.shape[0], host, ev))
+            return out
+        return run
+
+    (pyramid._prepare_levels, cpd.registration_cpd, ec._active_mask,
+     ec.stash_estep, ec.stash_merged_estep) = (
+        prepare, register, active_mask, timed_core(saved[3]),
+        timed_core(saved[4]))
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = pyramid.registration_cpd_pyramid(src, tgt, kind,
+                                               **PYRAMID_ARGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        info["launches"] = {k: v for k, v in all_launches().items() if v}
+    finally:
+        (pyramid._prepare_levels, cpd.registration_cpd, ec._active_mask,
+         ec.stash_estep, ec.stash_merged_estep) = saved
+    info["peak"] = torch.cuda.max_memory_allocated()
+    info["esteps"] = [(m, host, ev[0].elapsed_time(ev[1]) / 1e3)
+                      for m, host, ev in info["esteps"]]
+    return res, wall, info
+
+
+def log_pyramid(wall, info):
+    from probreg_tpu_torch.config import config
+
+    finest = -(-info["points"][-1] // config.tile_m)  # its source tiles
+    fine = [float(f) for n_i, f in info["masks"] if n_i == finest]
+    log(f"  timed call {wall:.3f} s: level preparation on the host "
+        f"{info['prep_s']:.3f} s, levels (coarsest first) "
+        + ", ".join(f"{p:,} points {s:.3f} s" for p, s in
+                    zip(info["points"], info["level_s"])))
+    log(f"  voxels {[round(v, 6) for v in info['voxels']]}; finest level "
+        f"{len(fine)} E-steps, active tile fraction first "
+        f"{fine[0] if fine else float('nan'):.5f} last "
+        f"{fine[-1] if fine else float('nan'):.5f}; peak memory "
+        f"{info['peak'] / 2**30:.3f} GiB")
+    for m in sorted({m for m, _, _ in info["esteps"]}):
+        host = [h for k, h, _ in info["esteps"] if k == m]
+        dev = [d for k, _, d in info["esteps"] if k == m]
+        log(f"  stash E-steps at {m:,} source points: {len(host)}, host "
+            f"(launching) {sum(host):.4f} s, device (events) {sum(dev):.4f}"
+            f" s, per E-step {1e3 * sum(dev) / len(dev):.3f} ms on the "
+            "device")
+    log(f"  launches: {info['launches']}")
+
+
+def check_pyramid_estep(n, inputs, kernels):
+    """K12 and K3 on the pyramid's own shapes: the inputs of the finest
+    level's first stash E-step of the n-point pyramid (a blobby surface at
+    the carried sigma2 ~1e-4, a few % of tile pairs active), each kernel
+    against its plain version, and K12's pt1 and xx against K3's bit for
+    bit. An output passes within compare()'s tolerance of the plain
+    version, or, where the f32 rounding of d2 = |y|^2 + |x|^2 - 2 y.x,
+    amplified by 1/(2 sigma2), exceeds it, within PYR_ESTEP_SPREAD times
+    the plain version's own distance from the same function in f64: the
+    kernel is then no less exact than its plain version. These launches
+    come after the traced run's counts were read; their errors against the
+    plain version join the kernels line."""
+    from probreg_tpu_torch.ops import estep_cuda as ec
+
+    ys, xs, scal, mask, tile_m, tile_n = inputs
+    log(f"[pyramid E-step] {n:,} points, finest level's first E-step: "
+        f"{ys.shape[0]:,} x {xs.shape[0]:,}, tiles {tile_m} x {tile_n} "
+        f"({mask.shape[0]} x {mask.shape[1]}), active tile fraction "
+        f"{float(mask.float().mean()):.5f}, sigma2 "
+        f"{0.5 / float(scal[0]):.6g}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    exact = ec.stash_estep_plain(ys.double(), xs.double(), scal.double(),
+                                 mask, tile_m, tile_n)
+    torch.cuda.synchronize()
+    log(f"  the plain version in f64: {time.perf_counter() - t0:.1f} s")
+    got, bad = {}, []
+    for name, core, plain, rows in (
+            ("K12", ec.stash_merged_estep, ec.stash_merged_estep_plain,
+             ("stash_merged", "stash_merged")),
+            ("K3", ec.stash_estep, ec.stash_estep_plain,
+             ("stash_den", "stash_moment"))):
+        t0 = time.perf_counter()
+        want = plain(*inputs)
+        torch.cuda.synchronize()
+        log(f"  {name} against its plain version (plain "
+            f"{time.perf_counter() - t0:.1f} s):")
+        out = core(*inputs)
+        torch.cuda.synchronize()
+        err = []
+        for k, a, b, e in zip(("pt1", "p1", "px", "xx"), out, want, exact):
+            a, b = a.double(), b.double()
+            scale = float(e.abs().max())
+            d_kp = float((a - b).abs().max())
+            d_k, d_p = float((a - e).abs().max()), float((b - e).abs().max())
+            ok = (d_kp <= RTOL * scale + ATOL
+                  or d_k <= PYR_ESTEP_SPREAD * d_p)
+            log(f"  {k:6s} max_abs_err {d_kp:.3e}  max_rel_err "
+                f"{d_kp / max(scale, 1e-30):.3e}; against f64: kernel "
+                f"{d_k / max(scale, 1e-30):.3e}, plain "
+                f"{d_p / max(scale, 1e-30):.3e}{'' if ok else '  FAIL'}")
+            if not ok:
+                bad.append(f"{name} {k}")
+            err.append(d_kp)
+        del want
+        for row, e in ((rows[0], max(err[0], err[3])),
+                       (rows[1], max(err[1], err[2]))):
+            kernels[row]["max_abs_err"] = max(kernels[row]["max_abs_err"], e)
+        got[name] = out
+    same = (torch.equal(got["K12"][0], got["K3"][0])
+            and torch.equal(got["K12"][3], got["K3"][3]))
+    log(f"  K12 against K3: pt1 and xx {'equal' if same else 'NOT equal'} "
+        "bit for bit")
+    if bad or not same:
+        raise AssertionError(f"{n} pyramid E-step: {bad}, pass A of K12 "
+                             f"and K3 {'equal' if same else 'differ'}")
+
+
+def run_pyramid_cpd(dev, launches, kernels):
+    """registration_cpd_pyramid rigid at 200k and 1M points, through K3
+    (the default) and through K12 (use_merged_stash), the second call of
+    each timed: each route launches its own kernels only, recovers the
+    truth within the reference test's bar, and the two agree within
+    PYR_ROUTE_TOL. Then both kernels are held to their plain versions on
+    the finest level's first E-step (check_pyramid_estep)."""
+    from probreg_tpu_torch import pyramid
+    from probreg_tpu_torch.config import config
+    from probreg_tpu_torch.utils import se3_op
+
+    for n in PYRAMID_SIZES:
+        src, tgt, rot, t_gt = pyramid_case(n)
+        runs = {}
+        for merged in (False, True):
+            route = "K12, use_merged_stash" if merged else "K3, the default"
+            log(f"[pyramid] registration_cpd_pyramid rigid, {n:,} points, "
+                f"{PYRAMID_ARGS}, {route}")
+            config.use_merged_stash = merged
+            try:
+                t0 = time.perf_counter()
+                pyramid.registration_cpd_pyramid(src, tgt, "rigid",
+                                                 **PYRAMID_ARGS)
+                torch.cuda.synchronize()
+                log(f"  warm call {time.perf_counter() - t0:.3f} s")
+                res, wall, info = traced_cpd_pyramid(src, tgt, "rigid")
+            finally:
+                config.use_merged_stash = False
+            log_pyramid(wall, info)
+            tr = res.transformation
+            ang = float(se3_op.rotation_angle(tr.rot.cpu().double(),
+                                              torch.as_tensor(rot).double()))
+            t_err = float(np.abs(tr.t.cpu().numpy() - t_gt).max())
+            s_err = abs(float(tr.scale) - 1.0)
+            log(f"  rotation error {ang:.3e} rad, |t - t_gt| {t_err:.3e}, "
+                f"|scale - 1| {s_err:.3e}, sigma2 {float(res.sigma2):.6g}")
+            got = info["launches"]
+            mine, other = (("stash_merged", "stash_den") if merged
+                           else ("stash_den", "stash_merged"))
+            if not (got.get(mine, 0) > 0 and got.get(other, 0) == 0):
+                raise AssertionError(f"{n} pyramid, {route}: launches {got}")
+            if not (ang < PYR_ANGLE_MAX and t_err <= PYR_T_MAX
+                    and s_err <= PYR_SCALE_MAX):
+                raise AssertionError(f"{n} pyramid, {route}: missed the "
+                                     "reference test's bar")
+            runs[merged] = tr
+            if merged:
+                inputs = info["finest_inputs"]
+                if n == PYRAMID_SIZES[-1]:
+                    launches["stash_merged"] = got["stash_merged"]
+            del info
+        d_rot = float((runs[True].rot - runs[False].rot).abs().max())
+        d_t = float((runs[True].t - runs[False].t).abs().max())
+        log(f"  K12 against K3 route: max |rot diff| {d_rot:.3e}, max |t "
+            f"diff| {d_t:.3e} (limit {PYR_ROUTE_TOL})")
+        if not (d_rot <= PYR_ROUTE_TOL and d_t <= PYR_ROUTE_TOL):
+            raise AssertionError(f"{n} pyramid: the two routes disagree")
+        check_pyramid_estep(n, inputs, kernels)
+        del inputs
+
+
+def run_pyramid_affine(dev, launches):
+    """registration_cpd_pyramid affine at 200k points on
+    test_pyramid_affine's map (b = I + 0.08 N, t = 0.04 N, seeded numpy),
+    the second call timed; b and t within that test's 1e-2."""
+    from probreg_tpu_torch import pyramid
+
+    src = pyramid_case(PYRAMID_SIZES[0])[0]
+    rng = np.random.default_rng(0)
+    b = np.eye(3, dtype=np.float32) \
+        + 0.08 * rng.normal(size=(3, 3)).astype(np.float32)
+    t_gt = 0.04 * rng.normal(size=3).astype(np.float32)
+    tgt = (src @ b.T + t_gt).astype(np.float32)
+    log(f"[pyramid] registration_cpd_pyramid affine, {len(src):,} points, "
+        f"{PYRAMID_ARGS}")
+    t0 = time.perf_counter()
+    pyramid.registration_cpd_pyramid(src, tgt, "affine", **PYRAMID_ARGS)
+    torch.cuda.synchronize()
+    log(f"  warm call {time.perf_counter() - t0:.3f} s")
+    res, wall, info = traced_cpd_pyramid(src, tgt, "affine")
+    log_pyramid(wall, info)
+    b_err = float(np.abs(res.transformation.b.cpu().numpy() - b).max())
+    t_err = float(np.abs(res.transformation.t.cpu().numpy() - t_gt).max())
+    log(f"  |b - b_gt| {b_err:.3e}, |t - t_gt| {t_err:.3e}, sigma2 "
+        f"{float(res.sigma2):.6g}")
+    if not info["launches"].get("stash_den", 0) > 0:
+        raise AssertionError("the affine pyramid did not run K3")
+    if not (b_err <= PYR_AFFINE_MAX and t_err <= PYR_AFFINE_MAX):
+        raise AssertionError("200k affine pyramid wrong")
+
+
+def family_pyramid(name, fn, src, tgt, refused, **kw):
+    """One call of a family pyramid with the launch counts set to 0 just
+    before it and read just after, and the plain versions in ``refused``
+    (pairs of module and attribute) replaced by a function that raises.
+    Returns (result, wall s, launches, points per level as (m, n))."""
+    from probreg_tpu_torch import pyramid
+
+    sizes = []
+    prepare = pyramid._prepare_levels
+
+    def recording(*a, **k):
+        out = prepare(*a, **k)
+        sizes.extend((len(s_i), len(t_i)) for s_i, t_i in zip(*out[:2]))
+        return out
+
+    def refuse(*a, **k):
+        raise AssertionError(f"a plain version ran in the {name} pyramid")
+
+    saved = [getattr(mod, attr) for mod, attr in refused]
+    for mod, attr in refused:
+        setattr(mod, attr, refuse)
+    pyramid._prepare_levels = recording
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fn(src, tgt, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in all_launches().items() if v}
+    finally:
+        pyramid._prepare_levels = prepare
+        for (mod, attr), fn_ in zip(refused, saved):
+            setattr(mod, attr, fn_)
+    return res, wall, got, sizes
+
+
+def run_family_pyramids(dev, launches):
+    """The ICP, FilterReg (pt2pt) and GMMTree pyramids at 200k points on
+    the rigid pyramid's case (one call each: their levels run kernels that
+    earlier phases have loaded), and the BCPD pyramid on
+    bench_bcpd_guarded.py's 100k fixture (4 levels, rank 64, maxiter 50, tol
+    1e-4, second call timed). Each runs with its kernels' plain versions
+    replaced by a function that raises, launches the kernels its levels
+    reach, and (ICP, FilterReg, GMMTree) recovers the truth within the bar
+    of its reference test (tests/test_pyramid.py: test_pyramid_icp,
+    test_pyramid_filterreg, test_pyramid_gmmtree); BCPD's full-target
+    NN-RMSE must fall. ICP and FilterReg take coarse_points=800 so that
+    their coarsest level (803 x 827 points) lies within the whole-loop
+    kernels' gates (K7: the padded pair <= 2^20; K5: M N <= 2^20); their
+    finer levels run the nearest-neighbour loop (ICP) and the dense loop
+    and the streaming loop on K6 (FilterReg)."""
+    from probreg_tpu_torch import gmmtree as pgt
+    from probreg_tpu_torch import pyramid
+    from probreg_tpu_torch.config import config
+    from probreg_tpu_torch.ops import bcpd_cuda, frg_cuda, gmmtree_cuda
+    from probreg_tpu_torch.ops import estep_cuda as ec
+    from probreg_tpu_torch.ops import gt_cuda, icp_cuda
+    from probreg_tpu_torch.utils import math_utils as mu
+    from probreg_tpu_torch.utils import se3_op
+
+    def rot_err(r, rot):
+        return float(se3_op.rotation_angle(r.cpu().double(),
+                                           torch.as_tensor(rot).double()))
+
+    masks = []
+    active_mask = ec._active_mask
+
+    def recording_mask(*a):  # one per streaming FilterReg E-step
+        mask = active_mask(*a)
+        masks.append(mask)
+        return mask
+
+    def icp_want(sizes):
+        return dict(icp=sum(icp_cuda.fused_dims_ok(m, n) for m, n in sizes))
+
+    def frg_want(sizes):
+        m, n = sizes[0]
+        k5 = (m * n <= config.fused_em_max_pairs
+              and frg_cuda.fused_dims_ok(m, n))
+        return dict(frg_pt2pt=int(k5), gauss_transform=len(masks))
+
+    def gmm_want(sizes):
+        return dict(gmmtree_level_em=2 * len(sizes),
+                    gmmtree_reg=len(sizes))
+
+    src, tgt, rot, t_gt = pyramid_case(PYRAMID_SIZES[0])
+    for name, fn, kw, refused, want, (ang_max, t_max) in (
+            ("ICP", pyramid.registration_icp_pyramid,
+             dict(levels=3, coarse_points=800),
+             ((icp_cuda, "run_icp_fused_plain"),), icp_want, (5e-3, 1e-3)),
+            ("FilterReg pt2pt", pyramid.registration_filterreg_pyramid,
+             dict(levels=3, coarse_points=800),
+             ((frg_cuda, "run_em_filterreg_fused_plain"),
+              (gt_cuda, "gauss_transform_culled_plain")), frg_want,
+             (2e-2, 1e-2)),
+            ("GMMTree", pyramid.registration_gmmtree_pyramid,
+             dict(levels=3),
+             ((gmmtree_cuda, "level_em_plain"),
+              (gmmtree_cuda, "run_gmmtree_reg_fused_plain"),
+              (pgt, "_run_registration"), (pgt, "_accumulate")), gmm_want,
+             (5e-2, 5e-2))):
+        log(f"[pyramid] {name}, {len(src):,} points, {kw}")
+        masks.clear()
+        ec._active_mask = recording_mask
+        try:
+            res, wall, got, sizes = family_pyramid(name, fn, src, tgt,
+                                                   refused, **kw)
+        finally:
+            ec._active_mask = active_mask
+        tr = res.transformation
+        err = rot_err(tr.rot, rot)
+        t_err = float(np.abs(tr.t.cpu().numpy() - t_gt).max())
+        expected = want(sizes)
+        log(f"  {wall:.3f} s (first call), levels {sizes}, rotation error "
+            f"{err:.3e} rad, |t - t_gt| {t_err:.3e} (bar {ang_max}, "
+            f"{t_max}); launches {got}, expected {expected}")
+        if not (min(expected.values()) > 0
+                and got == {k: v for k, v in expected.items() if v}):
+            raise AssertionError(f"{name} pyramid: launches {got}, "
+                                 f"expected {expected}")
+        if not (err < ang_max and t_err <= t_max):
+            raise AssertionError(f"{name} pyramid missed its reference "
+                                 "test's bar")
+
+    src, tgt, rot = bcpd_clouds()
+    kw = dict(BCPD_ARGS, levels=4)
+    log(f"[pyramid] BCPD, {len(src):,} points, {kw}")
+    t0 = time.perf_counter()
+    pyramid.registration_bcpd_pyramid(src, tgt, **kw)
+    torch.cuda.synchronize()
+    log(f"  warm call {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, got, sizes = family_pyramid(
+        "BCPD", pyramid.registration_bcpd_pyramid, src, tgt,
+        ((bcpd_cuda, "wstash_estep_plain"),
+         (gt_cuda, "gauss_transform_culled_plain")), **kw)
+    src_t = torch.as_tensor(src, device=dev)
+    tgt_t = torch.as_tensor(tgt, device=dev)
+    before = float(mu.compute_rmse(src_t, tgt_t))
+    after = float(mu.compute_rmse(res.transform(src), tgt_t))
+    rt = res.rigid_trans
+    ang = np.rad2deg(se3_op.mat2euler(rt.rot.cpu()).numpy())
+    log(f"  timed call {wall:.3f} s, levels {sizes}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+        f"{got}")
+    log(f"  full-target NN-RMSE {before:.6f} before, {after:.6f} after; "
+        f"rotation error {rot_err(rt.rot, rot):.3e} rad, recovered Euler "
+        f"{np.round(ang, 3).tolist()} deg (true [8, -4, 6]), scale "
+        f"{float(rt.scale):.5f}")
+    if not (math.isfinite(after) and after < before):
+        raise AssertionError("the BCPD pyramid did not bring the source "
+                             "closer")
+    # K8 on the levels with M N >= 2^24, K6 in the displacement's
+    # interpolation between levels.
+    if not (got.get("wstash_den", 0) > 0
+            and got.get("wstash_moment") == got["wstash_den"]
+            and got.get("gauss_transform", 0) > 0
+            and set(got) == {"wstash_den", "wstash_moment",
+                             "gauss_transform"}):
+        raise AssertionError(f"BCPD pyramid launches {got}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2330,6 +2872,7 @@ def main() -> int:
     for phase, args in ((check_small, (dev, kernels)),
                         (check_stash, (dev, kernels, shared)),
                         (check_fused_estep, (dev, kernels, shared)),
+                        (check_stash_merged, (dev, kernels, shared)),
                         (check_em, (dev, kernels)),
                         (run_large_registration, (dev, launches)),
                         (run_two_pass_path, (dev, launches)),
@@ -2351,7 +2894,10 @@ def main() -> int:
                         (check_gmmtree_reg, (dev, kernels)),
                         (run_gmmtree_bunny, (dev, launches)),
                         (run_gmmtree_batch, (dev, launches)),
-                        (run_gmmtree_large, (dev, launches))):
+                        (run_gmmtree_large, (dev, launches)),
+                        (run_pyramid_cpd, (dev, launches, kernels)),
+                        (run_pyramid_affine, (dev, launches)),
+                        (run_family_pyramids, (dev, launches))):
         t0 = time.perf_counter()
         try:
             phase(*args)

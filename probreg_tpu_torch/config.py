@@ -44,10 +44,20 @@ class Config:
     # Source / target tile sizes of the stash E-step.
     tile_m: int = 512
     tile_n: int = 1024
-    # Cap on the (M_padded, tile_n) f32 stash of one target stripe. None
+    # Pipelined stash E-step (estep_cuda.stash_merged_estep, kernel
+    # stash_merged): one launch per target stripe runs pass A of stripe j
+    # beside pass B of stripe j - 1, so an E-step makes n_j + 1 launches
+    # instead of 2 n_j, and both halves' blocks share the SMs in one
+    # launch. It keeps a SECOND (M_padded, tile_n) stash buffer, so each
+    # buffer gets half of stash_max_bytes. p1 and px differ from the
+    # default route only by rounding (the normalizer is folded into the
+    # channels); pt1 and xx are the same bit for bit.
+    use_merged_stash: bool = False
+    # Cap on the (M_padded, tile_n) f32 stash of the CPD E-step. None
     # derives it from the device: an eighth of the card's memory, 1 GiB on
-    # the CPU. Above it tile_n halves (floor 256); beyond the floor the
-    # E-step raises.
+    # the CPU. Above it tile_n halves (floor 256); beyond the floor
+    # estep_auto answers with the streaming plain E-step (estep_xla), as
+    # the reference does, and the BCPD E-step raises.
     stash_max_bytes: Optional[int] = None
     # Largest source cloud that BCPD runs through the row-weighted culled
     # stash E-step (ops/bcpd_cuda.py); above it the VI loop streams target

@@ -153,28 +153,31 @@ small_kernel(const float4* __restrict__ ys, int m,
 // Bound on this card: at full density the stash write (4 B per pair, far
 // beyond the 50 MB L2 at 150k points) takes longer than the exps, so the
 // kernel is bound by memory bandwidth; culled tiles cost neither.
+//
+// The body is stash_den_block, which the pipelined kernel K12 runs too, so
+// both give the same pt1, inv_den and xx bit for bit.
 // ---------------------------------------------------------------------------
 constexpr int kDenThreads = 256;
 
-__global__ void __launch_bounds__(kDenThreads)
-stash_den_kernel(const float4* __restrict__ ys, int m, int tile_m,
-                 const float4* __restrict__ xs, int ncols, int tile_n,
-                 const int* __restrict__ act_idx,
-                 const int* __restrict__ act_cnt,
-                 const float* __restrict__ scal,
-                 float* __restrict__ stash,     // (n_i * tile_m, tile_n)
-                 float* __restrict__ part,      // (n_i, tile_n)
-                 unsigned int* __restrict__ tickets,  // (gridDim.x), zero
-                 float* __restrict__ inv_den,   // (tile_n)
-                 float* __restrict__ pt1,       // (ncols), this stripe
-                 float* __restrict__ xx_part) { // (gridDim.x), this stripe
+// Pass A for one block: column chunk `cx` (256 columns) of the stripe
+// against slot `slot` of its active-tile list (cnt entries).
+__device__ void stash_den_block(const float4* __restrict__ ys, int m,
+                                int tile_m, const float4* __restrict__ xs,
+                                int ncols, int tile_n,
+                                const int* __restrict__ act_idx, int cnt,
+                                const float* __restrict__ scal,
+                                float* __restrict__ stash,
+                                float* __restrict__ part,
+                                unsigned int* __restrict__ tickets,
+                                float* __restrict__ inv_den,
+                                float* __restrict__ pt1,
+                                float* __restrict__ xx_part, int cx,
+                                int slot) {
   __shared__ float4 ysh[kDenThreads];
-  const int cnt = *act_cnt;
-  const int slot = blockIdx.y;
   // An all-culled stripe still needs its pt1 = 0: slot 0 then finalizes.
   const int expected = cnt > 0 ? cnt : 1;
   if (slot >= expected) return;
-  const int col = blockIdx.x * kDenThreads + threadIdx.x;
+  const int col = cx * kDenThreads + threadIdx.x;
   const bool ok = col < ncols;
   const float4 xv = ok ? xs[col] : make_float4(0.f, 0.f, 0.f, 0.f);
 
@@ -200,7 +203,7 @@ stash_den_kernel(const float4* __restrict__ ys, int m, int tile_m,
     if (ok) part[(size_t)slot * tile_n + col] = s;
   }
 
-  if (!last_block(&tickets[blockIdx.x], expected)) return;
+  if (!last_block(&tickets[cx], expected)) return;
   float xxv = 0.0f;
   if (ok) {
     float den_raw = 0.0f;
@@ -213,9 +216,26 @@ stash_den_kernel(const float4* __restrict__ ys, int m, int tile_m,
   }
   const float xx = block_sum<kDenThreads>(xxv);
   if (threadIdx.x == 0) {
-    xx_part[blockIdx.x] = xx;
-    tickets[blockIdx.x] = 0u;  // ready for the next stripe's launch
+    xx_part[cx] = xx;
+    tickets[cx] = 0u;  // ready for the next stripe's launch
   }
+}
+
+__global__ void __launch_bounds__(kDenThreads)
+stash_den_kernel(const float4* __restrict__ ys, int m, int tile_m,
+                 const float4* __restrict__ xs, int ncols, int tile_n,
+                 const int* __restrict__ act_idx,
+                 const int* __restrict__ act_cnt,
+                 const float* __restrict__ scal,
+                 float* __restrict__ stash,     // (n_i * tile_m, tile_n)
+                 float* __restrict__ part,      // (n_i, tile_n)
+                 unsigned int* __restrict__ tickets,  // (gridDim.x), zero
+                 float* __restrict__ inv_den,   // (tile_n)
+                 float* __restrict__ pt1,       // (ncols), this stripe
+                 float* __restrict__ xx_part) { // (gridDim.x), this stripe
+  stash_den_block(ys, m, tile_m, xs, ncols, tile_n, act_idx, *act_cnt, scal,
+                  stash, part, tickets, inv_den, pt1, xx_part, blockIdx.x,
+                  blockIdx.y);
 }
 
 // ---------------------------------------------------------------------------
@@ -232,24 +252,33 @@ stash_den_kernel(const float4* __restrict__ ys, int m, int tile_m,
 constexpr int kMomThreads = 256;
 constexpr int kMomRows = 64;  // rows per block
 
-__global__ void __launch_bounds__(kMomThreads)
-stash_moment_kernel(const float4* __restrict__ xs, int ncols, int tile_n,
-                    int m, int tile_m,
-                    const int* __restrict__ act_idx,
-                    const int* __restrict__ act_cnt,
-                    const float* __restrict__ stash,
-                    const float* __restrict__ inv_den,
-                    float4* __restrict__ p1px) {  // (m) accumulators
-  extern __shared__ float4 xw[];  // (ncols): x, y, z, inv_den
-  const int slot = blockIdx.y;
-  if (slot >= *act_cnt) return;
+// Pass B for one block: rows [rblk * 64, +64) of the tile in slot `slot`
+// of the stripe's active-tile list (cnt entries). xw: (ncols) float4 of
+// shared memory. kFolded (K12) folds inv_den into the channels,
+// p1 += g * inv_den and px += g * (x * inv_den), as the reference's
+// pipelined kernel does; otherwise p = g * inv_den, p1 += p, px += p * x.
+template <bool kFolded>
+__device__ void stash_moment_block(const float4* __restrict__ xs, int ncols,
+                                   int tile_n, int m, int tile_m,
+                                   const int* __restrict__ act_idx, int cnt,
+                                   const float* __restrict__ stash,
+                                   const float* __restrict__ inv_den,
+                                   float4* __restrict__ p1px, float4* xw,
+                                   int rblk, int slot) {
+  if (slot >= cnt) return;
   const int t0 = act_idx[slot] * tile_m;
-  const int rb = t0 + blockIdx.x * kMomRows;
+  const int rb = t0 + rblk * kMomRows;
   const int re = min(min(rb + kMomRows, t0 + tile_m), m);
   if (rb >= re) return;
   for (int c = threadIdx.x; c < ncols; c += kMomThreads) {
     float4 x = xs[c];
-    x.w = inv_den[c];
+    const float inv = inv_den[c];
+    if (kFolded) {
+      x.x *= inv;
+      x.y *= inv;
+      x.z *= inv;
+    }
+    x.w = inv;
     xw[c] = x;
   }
   __syncthreads();
@@ -259,11 +288,19 @@ stash_moment_kernel(const float4* __restrict__ xs, int ncols, int tile_n,
     float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
     for (int c = lane; c < ncols; c += 32) {
       const float4 x = xw[c];
-      const float p = row[c] * x.w;
-      a3 += p;
-      a0 += p * x.x;
-      a1 += p * x.y;
-      a2 += p * x.z;
+      if (kFolded) {
+        const float g = row[c];
+        a3 += g * x.w;
+        a0 += g * x.x;
+        a1 += g * x.y;
+        a2 += g * x.z;
+      } else {
+        const float p = row[c] * x.w;
+        a3 += p;
+        a0 += p * x.x;
+        a1 += p * x.y;
+        a2 += p * x.z;
+      }
     }
     a0 = warp_sum(a0); a1 = warp_sum(a1); a2 = warp_sum(a2); a3 = warp_sum(a3);
     if (lane == 0) {
@@ -272,6 +309,81 @@ stash_moment_kernel(const float4* __restrict__ xs, int ncols, int tile_n,
       p1px[r] = acc;
     }
   }
+}
+
+__global__ void __launch_bounds__(kMomThreads)
+stash_moment_kernel(const float4* __restrict__ xs, int ncols, int tile_n,
+                    int m, int tile_m,
+                    const int* __restrict__ act_idx,
+                    const int* __restrict__ act_cnt,
+                    const float* __restrict__ stash,
+                    const float* __restrict__ inv_den,
+                    float4* __restrict__ p1px) {  // (m) accumulators
+  extern __shared__ float4 xw[];  // (ncols): x, y, z, inv_den
+  stash_moment_block<false>(xs, ncols, tile_n, m, tile_m, act_idx, *act_cnt,
+                            stash, inv_den, p1px, xw, blockIdx.x,
+                            blockIdx.y);
+}
+
+// ---------------------------------------------------------------------------
+// K12: the pipelined stash E-step, one launch per target stripe.
+//
+// Replaces probreg_tpu/ops/estep_pallas.py:_stash_merged_kernel. Launch j
+// runs pass A of stripe j (stash_den_block, K3a's code: the exp once per
+// active pair into stash buffer j % 2, the column sums, inv_den, pt1, xx)
+// and pass B of stripe j - 1 (stash_moment_block with the normalizer folded
+// into the channels, from buffer (j - 1) % 2). The blocks take their role
+// from blockIdx: for each slot of the compacted lists, n_cx pass-A blocks
+// (256 columns each) and then n_rb pass-B blocks (64 rows each), so the
+// active slots, which come first, are scheduled first. The two halves touch
+// disjoint buffers; the previous launch's writes are visible by stream
+// order. After the last stripe one K3b launch closes it (as the reference's
+// epilogue does), so an E-step makes n_j + 1 launches where K3 makes 2 n_j.
+//
+// What bounds it on this card: the function needs only its operations, 12
+// + 8 per active pair (~6.7 ms per dense 150k E-step on an H100; its inputs
+// and outputs are a few MB), but this design moves the stash, 4 B per
+// active pair written by pass A and 4 B read by pass B, ~53.7 ms of HBM
+// traffic at that size. So the stash, not the exps, sets its time, as for
+// K3; the two-pass K4, which forms the Gaussian twice and keeps no stash,
+// computes the same moments faster. On the TPU the fusion hid the moment
+// half under the exp half; here both halves' blocks share the SMs within
+// one launch, so one half's memory stalls can be covered by the other's
+// arithmetic, and the launch count halves. Cross-block sums are K3a's
+// last-block ticket (no float atomics): results are deterministic.
+// ---------------------------------------------------------------------------
+static_assert(kDenThreads == kMomThreads, "K12 blocks take both roles");
+
+__global__ void __launch_bounds__(kDenThreads)
+stash_merged_kernel(const float4* __restrict__ ys, int m, int tile_m,
+                    const float4* __restrict__ xs, int ncols, int tile_n,
+                    const int* __restrict__ act_idx,
+                    const int* __restrict__ act_cnt,
+                    const float* __restrict__ scal,
+                    float* __restrict__ stash,
+                    float* __restrict__ part,
+                    unsigned int* __restrict__ tickets,
+                    float* __restrict__ inv_den,
+                    float* __restrict__ pt1,
+                    float* __restrict__ xx_part,
+                    const float4* __restrict__ pxs, int pncols,
+                    const int* __restrict__ pact_idx,
+                    const int* __restrict__ pact_cnt,  // 0 on stripe 0
+                    const float* __restrict__ pstash,
+                    const float* __restrict__ pinv_den,
+                    float4* __restrict__ p1px, int n_cx, int n_rb) {
+  extern __shared__ float4 xw[];  // pass B: (pncols)
+  const int per_slot = n_cx + n_rb;
+  const int slot = blockIdx.x / per_slot;
+  const int role = blockIdx.x - slot * per_slot;
+  if (role < n_cx)
+    stash_den_block(ys, m, tile_m, xs, ncols, tile_n, act_idx, *act_cnt,
+                    scal, stash, part, tickets, inv_den, pt1, xx_part, role,
+                    slot);
+  else
+    stash_moment_block<true>(pxs, pncols, tile_n, m, tile_m, pact_idx,
+                             *pact_cnt, pstash, pinv_den, p1px, xw,
+                             role - n_cx, slot);
 }
 
 // ---------------------------------------------------------------------------
@@ -430,6 +542,29 @@ int probreg_stash_moment(const void* xs, int ncols, int tile_n, int m,
       (const float4*)xs, ncols, tile_n, m, tile_m, (const int*)act_idx,
       (const int*)act_cnt, (const float*)stash, (const float*)inv_den,
       (float4*)p1px);
+  return (int)cudaGetLastError();
+}
+
+int probreg_stash_merged(const void* ys, int m, int tile_m, int n_i,
+                         const void* xs, int ncols, int tile_n,
+                         const void* act_idx, const void* act_cnt,
+                         const void* scal, void* stash, void* part,
+                         void* tickets, void* inv_den, void* pt1,
+                         void* xx_part, const void* pxs, int pncols,
+                         const void* pact_idx, const void* pact_cnt,
+                         const void* pstash, const void* pinv_den,
+                         void* p1px, void* stream) {
+  const int n_cx = (tile_n + kDenThreads - 1) / kDenThreads;
+  const int n_rb = (tile_m + kMomRows - 1) / kMomRows;
+  const size_t smem = (size_t)pncols * sizeof(float4);
+  stash_merged_kernel<<<n_i * (n_cx + n_rb), kDenThreads, smem,
+                        (cudaStream_t)stream>>>(
+      (const float4*)ys, m, tile_m, (const float4*)xs, ncols, tile_n,
+      (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
+      (float*)stash, (float*)part, (unsigned int*)tickets, (float*)inv_den,
+      (float*)pt1, (float*)xx_part, (const float4*)pxs, pncols,
+      (const int*)pact_idx, (const int*)pact_cnt, (const float*)pstash,
+      (const float*)pinv_den, (float4*)p1px, n_cx, n_rb);
   return (int)cudaGetLastError();
 }
 

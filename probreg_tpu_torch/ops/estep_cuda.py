@@ -10,7 +10,13 @@ path, with their helpers:
   (``stash_den``, replaces ``_stash_den_kernel``) evaluates each active
   pair's exp once, stashes it and forms the column normalizer, pt1 and xx;
   pass B (``stash_moment``, replaces ``_stash_moment_kernel``) reads the
-  stash back into p1 and px.
+  stash back into p1 and px. With ``config.use_merged_stash`` the same
+  E-step runs pipelined (``stash_merged``, replaces
+  ``_stash_merged_kernel``): one launch per stripe runs pass A of stripe j
+  beside pass B of stripe j - 1, over two stash buffers, and one
+  ``stash_moment`` launch closes the last stripe. When even tile_n = 256
+  would put the stash over its budget, ``estep_auto`` returns the streaming
+  plain E-step (``ops/estep.estep_xla``), as the reference does.
 * ``estep_fused`` / ``estep_culled``: the two-pass tile-culled E-step with
   no stash: pass A (``fused_den``, replaces ``_den_kernel``) forms the column
   normalizer, pt1 and xx, pass B (``fused_moment``, replaces
@@ -37,7 +43,7 @@ import torch
 
 from ..config import config
 from . import _build
-from .estep import EstepMoments, outlier_constant
+from .estep import EstepMoments, estep_xla, outlier_constant
 from .spatial import morton_order
 
 # exp(-x) underflows below the smallest f32 subnormal (2^-149) for
@@ -50,7 +56,7 @@ _MAX_TILE_N = 3072   # pass B keeps a stripe's columns in 48 KB of shared mem
 _MAX_GRID_Y = 65535
 
 LAUNCHES = {"estep_small": 0, "stash_den": 0, "stash_moment": 0,
-            "fused_den": 0, "fused_moment": 0}
+            "stash_merged": 0, "fused_den": 0, "fused_moment": 0}
 
 
 def reset_launches() -> None:
@@ -64,6 +70,8 @@ _SIGNATURES = {
     "probreg_stash_den": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
                           _P, _P, _P, _P, _P],
     "probreg_stash_moment": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "probreg_stash_merged": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     "probreg_fused_den": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                           _P, _P],
     "probreg_fused_moment": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P,
@@ -194,8 +202,9 @@ def _compact(mask: torch.Tensor):
 
 
 def stash_budget(device) -> int:
-    """Bytes allowed for one stripe's stash (config.stash_max_bytes, else an
-    eighth of the card's memory, or 1 GiB on the CPU)."""
+    """Bytes allowed for the stash (config.stash_max_bytes, else an eighth
+    of the card's memory, or 1 GiB on the CPU). The pipelined E-step keeps
+    two stash buffers, so estep_auto gives each half of it."""
     if config.stash_max_bytes:
         return int(config.stash_max_bytes)
     device = torch.device(device)
@@ -204,13 +213,19 @@ def stash_budget(device) -> int:
     return 1 << 30
 
 
-def _capped_tile_n(m: int, tile_m: int, tile_n: int, budget: int) -> int:
+def _capped_tile_n(m: int, tile_m: int, tile_n: int, budget: int,
+                   on_overflow: str = "raise"):
     """Halve tile_n (multiples of 128, floor 256) until the (M_padded,
-    tile_n) f32 stash fits the budget; raise beyond the floor."""
+    tile_n) f32 stash fits the budget (reference
+    ``_capped_stash_tile_n``). Beyond the floor, ``on_overflow="raise"``
+    raises and ``"fallback"`` returns None, so that the caller can take a
+    path without a stash."""
     mp = _round_up(m, tile_m)
     while tile_n > 256 and mp * tile_n * 4 > budget:
         tile_n = max(256, (tile_n // 2 // 128) * 128)
     if mp * tile_n * 4 > budget:
+        if on_overflow == "fallback":
+            return None
         raise ValueError(
             f"the E-step stash needs {mp * tile_n * 4 / 2**30:.2f} GiB even "
             f"at tile_n={tile_n} (M_padded={mp}), over the "
@@ -283,12 +298,24 @@ def estep_auto(t_source: torch.Tensor, target: torch.Tensor, sigma2,
     order (cpd.registration sorts once); the moments then come back in that
     order. Otherwise the clouds are sorted here and the moments returned in
     the input order.
+
+    ``config.use_merged_stash`` picks the pipelined kernel (two stash
+    buffers, each within half the budget). Where even tile_n = 256 would
+    exceed the budget, the streaming plain E-step answers instead
+    (reference estep_pallas.py:1466-1479): a branch by size, which both
+    packages take at the same sizes.
     """
     t_source, target = _check_points(t_source, target)
     (m, dim), n = t_source.shape, target.shape[0]
+    merged = bool(config.use_merged_stash)
+    budget = stash_budget(t_source.device)
     tile_m = min(tile_m or config.tile_m, _round_up(m, 8))
-    tile_n = min(tile_n or config.tile_n, _round_up(n, 128))
-    tile_n = _capped_tile_n(m, tile_m, tile_n, stash_budget(t_source.device))
+    tile_n = _capped_tile_n(m, tile_m,
+                            min(tile_n or config.tile_n, _round_up(n, 128)),
+                            budget // 2 if merged else budget,
+                            on_overflow="fallback")
+    if tile_n is None:
+        return estep_xla(t_source, target, sigma2, w)
     if assume_sorted:
         ys, xs = t_source, target
     else:
@@ -298,7 +325,8 @@ def estep_auto(t_source: torch.Tensor, target: torch.Tensor, sigma2,
     ymin, ymax = _tile_bounds(ys, tile_m)
     xmin, xmax = _tile_bounds(xs, tile_n)
     mask = _active_mask(ymin, ymax, xmin, xmax, scal[0])
-    pt1, p1, px, xx = stash_estep(ys, xs, scal, mask, tile_m, tile_n)
+    core = stash_merged_estep if merged else stash_estep
+    pt1, p1, px, xx = core(ys, xs, scal, mask, tile_m, tile_n)
     if not assume_sorted:
         pt1 = torch.empty_like(pt1).index_copy_(0, perm_x, pt1)
         p1 = torch.empty_like(p1).index_copy_(0, perm_y, p1)
@@ -325,8 +353,11 @@ class StashPlan:
     ``den(j)`` runs pass A on stripe j (writes the stash, inv_den, pt1 and
     xx partials), ``moment(j)`` runs pass B (adds into p1/px); a stripe's
     ``moment`` must follow its ``den``. Stripes run in order on the current
-    stream, so one stash buffer serves them all.
+    stream, so one stash buffer serves them all. Stripe j uses stash and
+    inv_den buffer j % BUFFERS.
     """
+
+    BUFFERS = 1
 
     def __init__(self, ys, xs, scal, mask, tile_m: int, tile_n: int):
         (m, self.dim), n = ys.shape, xs.shape[0]
@@ -342,11 +373,12 @@ class StashPlan:
         self.act_idx, self.act_cnt = _compact(mask)
         n_cx = -(-tile_n // _DEN_THREADS)
         new = self.ys.new_empty
-        self.stash = new((self.n_i * tile_m, tile_n))
+        self.stash = [new((self.n_i * tile_m, tile_n))
+                      for _ in range(self.BUFFERS)]
         self.part = new((self.n_i, tile_n))
         self.tickets = torch.zeros(n_cx, dtype=torch.int32,
                                    device=ys.device)
-        self.inv_den = new(tile_n)
+        self.inv_den = [new(tile_n) for _ in range(self.BUFFERS)]
         self.pt1 = new(n)
         self.xx_part = new((self.n_j, n_cx))
         self.p1px = self.ys.new_zeros((m, 4))
@@ -357,24 +389,30 @@ class StashPlan:
         c0 = j * self.tile_n
         return c0, min(self.tile_n, self.n - c0)
 
-    def den(self, j: int) -> None:
+    def _den_args(self, j: int):
+        """Pass A's arguments for stripe j (K3a and K12 take the same)."""
         c0, ncols = self._cols(j)
-        status = self.lib.probreg_stash_den(
-            self.ys.data_ptr(), self.m, self.tile_m, self.n_i,
-            self.xs[c0].data_ptr(), ncols, self.tile_n,
-            self.act_idx[j].data_ptr(), self.act_cnt[j].data_ptr(),
-            self.scal.data_ptr(), self.stash.data_ptr(), self.part.data_ptr(),
-            self.tickets.data_ptr(), self.inv_den.data_ptr(),
-            self.pt1[c0].data_ptr(), self.xx_part[j].data_ptr(), self.stream)
+        b = j % self.BUFFERS
+        return (self.ys.data_ptr(), self.m, self.tile_m, self.n_i,
+                self.xs[c0].data_ptr(), ncols, self.tile_n,
+                self.act_idx[j].data_ptr(), self.act_cnt[j].data_ptr(),
+                self.scal.data_ptr(), self.stash[b].data_ptr(),
+                self.part.data_ptr(), self.tickets.data_ptr(),
+                self.inv_den[b].data_ptr(), self.pt1[c0].data_ptr(),
+                self.xx_part[j].data_ptr())
+
+    def den(self, j: int) -> None:
+        status = self.lib.probreg_stash_den(*self._den_args(j), self.stream)
         _check(status, "stash_den")
         LAUNCHES["stash_den"] += 1
 
     def moment(self, j: int) -> None:
         c0, ncols = self._cols(j)
+        b = j % self.BUFFERS
         status = self.lib.probreg_stash_moment(
             self.xs[c0].data_ptr(), ncols, self.tile_n, self.m, self.tile_m,
             self.n_i, self.act_idx[j].data_ptr(), self.act_cnt[j].data_ptr(),
-            self.stash.data_ptr(), self.inv_den.data_ptr(),
+            self.stash[b].data_ptr(), self.inv_den[b].data_ptr(),
             self.p1px.data_ptr(), self.stream)
         _check(status, "stash_moment")
         LAUNCHES["stash_moment"] += 1
@@ -382,6 +420,49 @@ class StashPlan:
     def result(self):
         return (self.pt1, self.p1px[:, 3], self.p1px[:, :self.dim],
                 self.xx_part.sum())
+
+
+class MergedStashPlan(StashPlan):
+    """Device buffers of one pipelined stash E-step (K12): two stash and
+    inv_den buffers. ``merged(j)`` runs pass A on stripe j and, from
+    j = 1 on, pass B on stripe j - 1, in one launch; after the last
+    stripe, ``moment(n_j - 1)`` (K3b) closes it."""
+
+    BUFFERS = 2
+
+    def __init__(self, ys, xs, scal, mask, tile_m: int, tile_n: int):
+        super().__init__(ys, xs, scal, mask, tile_m, tile_n)
+        self.no_stripe = torch.zeros(1, dtype=torch.int32, device=ys.device)
+
+    def merged(self, j: int) -> None:
+        if j > 0:
+            c0, ncols = self._cols(j - 1)
+            b = (j - 1) % self.BUFFERS
+            prev = (self.xs[c0].data_ptr(), ncols,
+                    self.act_idx[j - 1].data_ptr(),
+                    self.act_cnt[j - 1].data_ptr(),
+                    self.stash[b].data_ptr(), self.inv_den[b].data_ptr())
+        else:  # no previous stripe: every pass-B block exits at once
+            prev = (self.xs.data_ptr(), 0, self.act_idx[0].data_ptr(),
+                    self.no_stripe.data_ptr(), self.stash[1].data_ptr(),
+                    self.inv_den[1].data_ptr())
+        status = self.lib.probreg_stash_merged(
+            *self._den_args(j), *prev, self.p1px.data_ptr(), self.stream)
+        _check(status, "stash_merged")
+        LAUNCHES["stash_merged"] += 1
+
+
+def stash_merged_estep(ys, xs, scal, mask, tile_m: int, tile_n: int):
+    """(pt1, p1, px, xx) of the pipelined stash E-step on sorted clouds:
+    n_j launches of K12 and one of K3b for CUDA tensors, the plain version
+    for CPU tensors."""
+    if ys.is_cuda:
+        plan = MergedStashPlan(ys, xs, scal, mask, tile_m, tile_n)
+        for j in range(plan.n_j):
+            plan.merged(j)
+        plan.moment(plan.n_j - 1)
+        return plan.result()
+    return stash_merged_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
 
 
 def _plain_pass_a(ys, y2, x, x2, scal, act_rows, n_i, tile_m):
@@ -403,27 +484,56 @@ def _plain_pass_b(g, inv_den, x):
     return p.sum(1), p @ x
 
 
+def _plain_pass_b_folded(g, inv_den, x):
+    """Pass B of one stripe with the normalizer folded into the channels:
+    p1 = g @ inv_den, px = g @ (x * inv_den) (the pipelined kernel's
+    association)."""
+    return g @ inv_den, g @ (x * inv_den[:, None])
+
+
+def _plain_stripes(ys, xs, scal, mask, tile_m: int, tile_n: int):
+    """Pass A of every stripe in order: (g, inv_den, pt1, xx, x) each."""
+    m, n_i = ys.shape[0], mask.shape[0]
+    y2, x2 = (ys * ys).sum(1), (xs * xs).sum(1)
+    for j in range(mask.shape[1]):
+        cols = slice(j * tile_n, (j + 1) * tile_n)
+        act_rows = mask[:, j].repeat_interleave(tile_m)[:m]
+        yield (*_plain_pass_a(ys, y2, xs[cols], x2[cols], scal, act_rows,
+                              n_i, tile_m), xs[cols])
+
+
 def stash_estep_plain(ys, xs, scal, mask, tile_m: int, tile_n: int):
     """Plain version of the stash kernels, stripe by stripe: per-tile
     column sums added in tile order, culled tiles contributing nothing."""
-    m, n = ys.shape[0], xs.shape[0]
-    n_i = mask.shape[0]
-    y2 = (ys * ys).sum(1)
-    x2 = (xs * xs).sum(1)
-    p1 = ys.new_zeros(m)
-    px = torch.zeros_like(ys)
-    xx = ys.new_zeros(())
+    p1, px, xx = ys.new_zeros(ys.shape[0]), torch.zeros_like(ys), \
+        ys.new_zeros(())
     pt1 = []
-    for j in range(mask.shape[1]):
-        c0 = j * tile_n
-        x, xj2 = xs[c0:c0 + tile_n], x2[c0:c0 + tile_n]
-        act_rows = mask[:, j].repeat_interleave(tile_m)[:m]
-        g, inv_den, pt1_j, xx_j = _plain_pass_a(ys, y2, x, xj2, scal,
-                                                act_rows, n_i, tile_m)
+    for g, inv_den, pt1_j, xx_j, x in _plain_stripes(ys, xs, scal, mask,
+                                                     tile_m, tile_n):
         p1_j, px_j = _plain_pass_b(g, inv_den, x)
         p1, px, xx = p1 + p1_j, px + px_j, xx + xx_j
         pt1.append(pt1_j)
     return torch.cat(pt1), p1, px, xx
+
+
+def stash_merged_estep_plain(ys, xs, scal, mask, tile_m: int, tile_n: int):
+    """Plain version of the pipelined kernel: pass A as in
+    stash_estep_plain, pass B one stripe behind with the folded
+    normalizer, and the last stripe's pass B in K3b's association (the
+    epilogue). Stripes add into p1 and px in stripe order."""
+    p1, px, xx = ys.new_zeros(ys.shape[0]), torch.zeros_like(ys), \
+        ys.new_zeros(())
+    pt1, prev = [], None
+    for g, inv_den, pt1_j, xx_j, x in _plain_stripes(ys, xs, scal, mask,
+                                                     tile_m, tile_n):
+        if prev is not None:
+            p1_j, px_j = _plain_pass_b_folded(*prev)
+            p1, px = p1 + p1_j, px + px_j
+        xx = xx + xx_j
+        pt1.append(pt1_j)
+        prev = (g, inv_den, x)
+    p1_j, px_j = _plain_pass_b(*prev)
+    return torch.cat(pt1), p1 + p1_j, px + px_j, xx
 
 
 # --------------------------------------------------------------------------

@@ -177,9 +177,12 @@ def test_carry_across_rigid_transformation():
 def test_carry_across_config():
     fields = dataclasses.asdict(jcfg.config)
     fields["small_estep_max_pairs"] = 12345
-    assert "use_merged_stash" in fields  # a TPU-only knob: left out
+    # The merged-stash knob selects a kernel in both packages, so it
+    # carries across like the other dispatch knobs.
+    fields["use_merged_stash"] = True
     cfg = interop.config_from_reference(fields)
-    assert not hasattr(cfg, "use_merged_stash")
+    assert cfg.use_merged_stash is True
+    assert pcfg.Config().use_merged_stash == jcfg.Config().use_merged_stash
     assert cfg.small_estep_max_pairs == 12345
     assert cfg.transposed_em_max_pairs == jcfg.config.transposed_em_max_pairs
     assert cfg.culled_estep_min_pairs == jcfg.config.culled_estep_min_pairs

@@ -124,6 +124,95 @@ def test_streaming_registration_kernels_match_plain(dev, monkeypatch):
                                rtol=1e-3)
 
 
+@pytest.mark.parametrize("sigma2", [0.5, 0.01, 1e-3])
+@pytest.mark.parametrize("tile_m,tile_n", [(96, 256), (512, 1024)])
+def test_stash_merged_kernel_matches_plain_and_k3(dev, sigma2, tile_m,
+                                                  tile_n):
+    """K12 on the inputs of test_stash_kernels_match_plain: n_j launches of
+    K12 and one of K3b per E-step; against its plain version by the file's
+    criterion; against K3 on the same inputs pt1 and xx equal bit for bit
+    (pass A is K3a's code) and p1, px within 1e-5 of their largest entry
+    (the normalizer folded into the channels)."""
+    m, n = 3000, 2500
+    ys, xs = _cloud(m, 3, dev), _cloud(n, 4, dev, far=700)
+    scal = pec._scalars(sigma2, 0.05, m, n, 3, dev)
+    mask = pec._active_mask(*pec._tile_bounds(ys, tile_m),
+                            *pec._tile_bounds(xs, tile_n), scal[0])
+    n_j = mask.shape[1]
+    before = dict(pec.LAUNCHES)
+    got = pec.stash_merged_estep(ys, xs, scal, mask, tile_m, tile_n)
+    made = {k: pec.LAUNCHES[k] - before[k] for k in before}
+    assert made == {**{k: 0 for k in before}, "stash_merged": n_j,
+                    "stash_moment": 1}
+    want = pec.stash_merged_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
+    for name, a, b in zip(("pt1", "p1", "px", "xx"), got, want):
+        _close(a, b, name)
+    k3 = pec.stash_estep(ys, xs, scal, mask, tile_m, tile_n)
+    assert torch.equal(got[0], k3[0]) and torch.equal(got[3], k3[3])
+    for a, b in ((got[1], k3[1]), (got[2], k3[2])):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_estep_auto_merged_on_the_card(dev, monkeypatch):
+    """use_merged_stash routes estep_auto to K12 on CUDA tensors (no plain
+    version); the moments equal the default route's up to the folded
+    association; a cap below the 256 floor answers with estep_xla."""
+    def refuse(*a):
+        raise AssertionError("plain version called with CUDA tensors")
+
+    monkeypatch.setattr(pec, "stash_merged_estep_plain", refuse)
+    monkeypatch.setattr(pec, "stash_estep_plain", refuse)
+    ys, xs = _cloud(1800, 5, dev), _cloud(2100, 6, dev)
+    base = pec.estep_auto(ys, xs, 0.05, 0.1, tile_m=128, tile_n=256)
+    monkeypatch.setattr(pcfg.config, "use_merged_stash", True)
+    before = pec.LAUNCHES["stash_merged"]
+    out = pec.estep_auto(ys, xs, 0.05, 0.1, tile_m=128, tile_n=256)
+    assert pec.LAUNCHES["stash_merged"] == before + -(-2100 // 256)
+    for name, a, b in zip(out._fields, out, base):
+        _close(a, b, name)
+    monkeypatch.setattr(pcfg.config, "stash_max_bytes", 1 << 10)
+    before = dict(pec.LAUNCHES)
+    fall = pec.estep_auto(ys, xs, 0.05, 0.1, tile_m=128, tile_n=256)
+    assert pec.LAUNCHES == before
+    for name, a, b in zip(fall._fields, fall, base):
+        _close(a, b, name)
+
+
+def test_merged_pyramid_matches_default_on_the_card(dev, monkeypatch):
+    """The rigid CPD pyramid on a 20k-point blobby surface (levels 3, 1,500
+    coarse points; the finest level streams): through K12 it launches no
+    K3a and K3 no K12, both recover pyramid_rigid.py's motion within the
+    reference test's bar, and they agree within 1e-5 (pt1 and xx are the
+    same bit for bit, p1 and px differ by one association's rounding)."""
+    from probreg_tpu_torch import pyramid
+    from probreg_tpu_torch.utils import se3_op
+    from probreg_tpu_torch.utils.datagen import blobby_surface
+
+    src = blobby_surface(20_000, seed=1)
+    rot = se3_op.euler2mat(*np.deg2rad([5.0, 8.0, 12.0]))
+    t_gt = torch.tensor([0.05, -0.03, 0.08])
+    tgt = (src @ rot.numpy().T + t_gt.numpy()).astype(np.float32)
+    runs = {}
+    for merged in (False, True):
+        monkeypatch.setattr(pcfg.config, "use_merged_stash", merged)
+        before = dict(pec.LAUNCHES)
+        res = pyramid.registration_cpd_pyramid(
+            src, tgt, "rigid", levels=3, coarse_points=1500, tol=1e-4,
+            device=dev)
+        made = {k: pec.LAUNCHES[k] - before[k] for k in before}
+        mine, other = (("stash_merged", "stash_den") if merged
+                       else ("stash_den", "stash_merged"))
+        assert made[mine] > 0 and made[other] == 0, made
+        tr = res.transformation
+        assert float(se3_op.rotation_angle(tr.rot.cpu().double(),
+                                           rot.double())) < 1e-3
+        assert float((tr.t.cpu() - t_gt).abs().max()) <= 1e-4
+        assert abs(float(tr.scale) - 1.0) <= 1e-3
+        runs[merged] = tr
+    assert float((runs[True].rot - runs[False].rot).abs().max()) <= 1e-5
+    assert float((runs[True].t - runs[False].t).abs().max()) <= 1e-5
+
+
 # --------------------------------------------------------------------------
 # The two-pass E-step kernels
 # --------------------------------------------------------------------------

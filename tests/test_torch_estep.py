@@ -210,15 +210,188 @@ def test_morton_order_matches_reference(dim):
 
 
 def test_stash_cap_shrinks_tile_then_raises(monkeypatch):
+    """The cap's own contract (the reference's _capped_stash_tile_n):
+    halve tile_n to the 256 floor, then raise, or with
+    on_overflow="fallback" return None. estep_auto takes the fallback and
+    answers with the streaming plain E-step, as the reference does
+    (estep_pallas.py:1466-1479); both packages branch at the same sizes."""
     assert pec._capped_tile_n(150_000, 512, 1024, 1 << 30) == 1024
     # 150,016 x 1024 x 4 B = 614 MB: a 400 MB cap halves tile_n to 512.
     assert pec._capped_tile_n(150_000, 512, 1024, 400 << 20) == 512
     with pytest.raises(ValueError, match="stash_max_bytes"):
         pec._capped_tile_n(150_000, 512, 1024, 64 << 20)
+    assert pec._capped_tile_n(150_000, 512, 1024, 64 << 20,
+                              on_overflow="fallback") is None
+    for args in [(150_000, 512, 1024, 1 << 30), (150_000, 512, 1024,
+                                                 400 << 20)]:
+        assert pec._capped_tile_n(*args) == jep._capped_stash_tile_n(
+            *args[:3], budget=args[3])
+    assert jep._capped_stash_tile_n(150_000, 512, 1024, budget=64 << 20,
+                                    on_overflow="fallback") is None
     monkeypatch.setattr(pcfg.config, "stash_max_bytes", 1 << 10)
     src, tgt = _two_blobs()
-    with pytest.raises(ValueError, match="stash"):
-        pec.estep_auto(_t(src), _t(tgt), 0.1)
+    taken = []
+    for fn in ("stash_estep_plain", "stash_merged_estep_plain"):
+        monkeypatch.setattr(pec, fn, lambda *a: taken.append(a))
+    out = pec.estep_auto(_t(src), _t(tgt), 0.1, 0.05)
+    assert not taken
+    _assert_moments(jeo.estep_xla(src, tgt, jnp.float32(0.1), 0.05), out)
+
+
+@pytest.mark.parametrize("merged", [False, True])
+def test_estep_auto_falls_back_past_the_floor_in_both_packages(merged):
+    """A tiny cap in both packages (config.stash_max_bytes here,
+    cpd_stash_max_bytes in the reference): both estep_auto return the
+    moments of their own streaming E-step, with and without the merged
+    knob."""
+    from probreg_tpu import config as jcmod
+
+    src, tgt = _two_blobs()
+    cap = 1 << 10
+    old = (pcfg.config.stash_max_bytes, pcfg.config.use_merged_stash,
+           jcmod.config.cpd_stash_max_bytes, jcmod.config.use_merged_stash)
+    pcfg.config.stash_max_bytes, pcfg.config.use_merged_stash = cap, merged
+    jcmod.config.cpd_stash_max_bytes = cap
+    jcmod.config.use_merged_stash = merged
+    jcmod.clear_caches()
+    try:
+        out = pec.estep_auto(_t(src), _t(tgt), 0.1, 0.05)
+        ref = jep.estep_auto(src, tgt, jnp.float32(0.1), 0.05,
+                             interpret=True)
+    finally:
+        (pcfg.config.stash_max_bytes, pcfg.config.use_merged_stash,
+         jcmod.config.cpd_stash_max_bytes,
+         jcmod.config.use_merged_stash) = old
+        jcmod.clear_caches()
+    _assert_moments(peo.estep_xla(_t(src), _t(tgt), 0.1, 0.05), out)
+    scan = jeo.estep_xla(src, tgt, jnp.float32(0.1), 0.05)
+    for name, a, b in zip(ref._fields, ref, scan):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), name)
+    _assert_moments(ref, out)
+
+
+def test_merged_knob_halves_the_stash_budget(monkeypatch):
+    """With use_merged_stash each of the two stash buffers gets half the
+    cap (reference estep_pallas.py:1468-1470): a cap that holds one
+    1024-column stash halves tile_n under the knob."""
+    seen = []
+    orig = pec._capped_tile_n
+    monkeypatch.setattr(pec, "_capped_tile_n", lambda *a, **k: seen.append(
+        orig(*a, **k)) or seen[-1])
+    src, tgt = _two_blobs(640, 700)
+    mp = 640  # tile_m 128 divides M
+    monkeypatch.setattr(pcfg.config, "stash_max_bytes", mp * 768 * 4)
+    for merged in (False, True):
+        monkeypatch.setattr(pcfg.config, "use_merged_stash", merged)
+        pec.estep_auto(_t(src), _t(tgt), 0.1, tile_m=TILE, tile_n=768)
+    assert seen == [768, 384]
+
+
+# --------------------------------------------------------------------------
+# K12: the pipelined stash E-step (use_merged_stash)
+# --------------------------------------------------------------------------
+
+def _rel(a, b):
+    """Max abs error relative to the largest entry of the reference (the
+    reference's own criterion, tests/test_culled_estep.py _rel)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-30))
+
+
+def _merged_inputs(sigma2, m=600, n=900, tm=128, tn=256, seed=7,
+                   blobs=False):
+    """The reference test's inputs (test_merged_stash_matches_two_launch):
+    uniform clouds in [-1, 1]^3 (or the two blobs), Morton-sorted, scal =
+    [0.5 / sigma2, 1e-4], as numpy for the reference and tensors for the
+    port."""
+    if blobs:
+        src, tgt = _two_blobs(m, n, seed)
+    else:
+        rng = np.random.default_rng(seed)
+        src = rng.uniform(-1, 1, (m, 3)).astype(np.float32)
+        tgt = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    src, tgt = _sorted(src, tgt)
+    scal = np.array([0.5 / sigma2, 1e-4], np.float32)
+    ys, xs = _t(src), _t(tgt)
+    mask = pec._active_mask(*pec._tile_bounds(ys, tm),
+                            *pec._tile_bounds(xs, tn), torch.tensor(scal[0]))
+    return src, tgt, scal, ys, xs, torch.from_numpy(scal), mask
+
+
+@pytest.mark.parametrize("sigma2,blobs", [(0.5, False), (1e-3, False),
+                                          (0.1, True)])
+def test_stash_merged_plain_matches_reference_kernel(sigma2, blobs):
+    """K12's plain version against the reference's fused_stash_merged_core
+    (interpret mode), 600 x 900 with 128 x 256 tiles: the reference test's
+    uniform clouds at sigma2 0.5 and 1e-3 (no tile pair of these clouds is
+    far enough apart to be culled), and the two blobs at 0.1, where tiles
+    are culled. pt1 and xx within 1e-6 of the largest entry, p1 and px
+    within 1e-5 (the two packages form d2 in different f32 operation
+    orders)."""
+    tm, tn = 128, 256
+    src, tgt, scal_np, ys, xs, scal, mask = _merged_inputs(
+        sigma2, tm=tm, tn=tn, blobs=blobs)
+    assert bool(mask.all()) != blobs
+    ys_t, y2 = jep._pad_transpose(jnp.asarray(src), tm)
+    xs_t, x2 = jep._pad_transpose(jnp.asarray(tgt), tn)
+    ref = jep.fused_stash_merged_core(jnp.asarray(scal_np), ys_t, y2, xs_t,
+                                      x2, tile_m=tm, tile_n=tn,
+                                      interpret=True)
+    pt1, p1, px, xx = pec.stash_merged_estep_plain(ys, xs, scal, mask, tm, tn)
+    m, n = src.shape[0], tgt.shape[0]
+    assert _rel(pt1.numpy(), np.asarray(ref[0])[0, :n]) <= 1e-6
+    assert _rel(xx.numpy(), np.asarray(ref[3])[0, 0]) <= 1e-6
+    assert _rel(p1.numpy(), np.asarray(ref[1])[0, :m]) <= 1e-5
+    assert _rel(px.numpy(), np.asarray(ref[2])[:3, :m].T) <= 1e-5
+
+
+@pytest.mark.parametrize("sigma2,blobs", [(0.5, False), (1e-3, False),
+                                          (0.1, True)])
+def test_stash_merged_plain_matches_stash_plain(sigma2, blobs):
+    """Against K3's plain version on the same inputs: pass A is the same
+    code, so pt1 and xx are equal; p1 and px differ only by the folded
+    normalizer's rounding (within 1e-5 of the largest entry)."""
+    _, _, _, ys, xs, scal, mask = _merged_inputs(sigma2, blobs=blobs)
+    a = pec.stash_estep_plain(ys, xs, scal, mask, 128, 256)
+    b = pec.stash_merged_estep_plain(ys, xs, scal, mask, 128, 256)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[3], b[3])
+    assert _rel(b[1].numpy(), a[1].numpy()) <= 1e-5
+    assert _rel(b[2].numpy(), a[2].numpy()) <= 1e-5
+
+
+def test_estep_auto_merged_matches_reference_merged(monkeypatch):
+    """estep_auto with use_merged_stash in both packages (the reference's
+    test_estep_auto_merged_matches_default inputs): the port routes through
+    the merged plain version and returns the reference's moments."""
+    from probreg_tpu import config as jcmod
+
+    rng = np.random.default_rng(5)
+    src = rng.uniform(-1, 1, (700, 3)).astype(np.float32)
+    tgt = rng.uniform(-1, 1, (800, 3)).astype(np.float32)
+    taken = []
+    for fn in ("stash_estep_plain", "stash_merged_estep_plain"):
+        orig = getattr(pec, fn)
+        monkeypatch.setattr(pec, fn, lambda *a, _o=orig, _n=fn:
+                            taken.append(_n) or _o(*a))
+    monkeypatch.setattr(pcfg.config, "use_merged_stash", True)
+    old = jcmod.config.use_merged_stash
+    jcmod.config.use_merged_stash = True
+    jcmod.clear_caches()
+    try:
+        ref = jep.estep_auto(src, tgt, jnp.float32(0.3), 0.1, tile_m=128,
+                             tile_n=256, interpret=True)
+    finally:
+        jcmod.config.use_merged_stash = old
+        jcmod.clear_caches()
+    out = pec.estep_auto(_t(src), _t(tgt), 0.3, 0.1, tile_m=128,
+                         tile_n=256)
+    assert taken == ["stash_merged_estep_plain"]
+    _assert_moments(ref, out)
+    monkeypatch.setattr(pcfg.config, "use_merged_stash", False)
+    base = pec.estep_auto(_t(src), _t(tgt), 0.3, 0.1, tile_m=128,
+                          tile_n=256)
+    assert taken[-1] == "stash_estep_plain"
+    _assert_moments(base, out)
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():

@@ -36,6 +36,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import probreg_tpu_torch.ops.bcpd_cuda\n"
         "import probreg_tpu_torch.gmmtree, probreg_tpu_torch.ops.gmmtree_cuda\n"
         "import probreg_tpu_torch.ops.sym3\n"
+        "import probreg_tpu_torch.pyramid\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'probreg_tpu' or m.startswith('probreg_tpu.')]\n"
         "assert not bad, bad\n"
@@ -76,6 +77,26 @@ def test_entry_point_without_cuda_raises_instead_of_running_on_cpu():
         pcfg.resolve_device(None)
     assert pcfg.resolve_device("cpu").type == "cpu"
     assert pcfg.config.device == "cuda"
+
+
+def test_pyramid_entry_points_without_cuda_raise():
+    """The pyramids run on the card by default too: without one they raise
+    before any level runs, and run on the CPU only when asked."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from probreg_tpu_torch import pyramid
+
+    pts = np.random.default_rng(0).random((50, 3)).astype(np.float32)
+    for fn in (pyramid.registration_cpd_pyramid,
+               pyramid.registration_filterreg_pyramid,
+               pyramid.registration_gmmtree_pyramid,
+               pyramid.registration_icp_pyramid,
+               pyramid.registration_bcpd_pyramid):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(pts, pts)
+    res = pyramid.registration_icp_pyramid(pts + 0.01, pts, maxiter=2,
+                                           device="cpu")
+    assert res.transformation.rot.device.type == "cpu"
 
 
 def test_kernel_sources_ship_with_the_package():

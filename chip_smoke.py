@@ -58,7 +58,18 @@ before it and read just after:
   E-step); the affine CPD pyramid at 200,000 points (test_pyramid_affine's
   map); and the ICP, FilterReg (pt2pt) and GMMTree pyramids at 200,000
   points, and the BCPD pyramid at 100,000 points (bench_bcpd_guarded.py:
-  rank 64, maxiter 50, tol 1e-4, 4 levels).
+  rank 64, maxiter 50, tol 1e-4, 4 levels);
+* the sharded CPD runners (probreg_tpu_torch.parallel) on the 150k pair,
+  culled, 40 iterations: on one NCCL rank, registration_cpd_sharded on a
+  1-D mesh (stash_den, stash_moment per shard) and registration_cpd_2d on
+  a 1 x 1 mesh (stash_den_raw, stash_finish, stash_moment: one den
+  all_reduce per stripe); then four ranks on the one card under gloo, a
+  check of the cross-shard collectives and not a 4-card figure: 2 x 2
+  registration_cpd_2d (K11 in every rank), 1-D x 4
+  registration_cpd_sharded, registration_cpd_batch_sharded on the 256
+  ragged horse pairs (one em_rigid launch per rank, bit for bit against
+  registration_cpd_batch) and the CPD pyramid with mesh= (2 x 2) at
+  200,000 points.
 
 Prints the card, a {"kernels": [...]} line and, last, {"ok": true, ...}.
 Exits non-zero without a CUDA device or when any phase fails.
@@ -106,6 +117,10 @@ KERNELS = {
     "stash_den": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:393"),
     "stash_moment": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:429"),
     "stash_merged": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:581"),
+    "stash_den_raw": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:779"),
+    # K11's finalisation: jnp code between the psum and pass B in the
+    # reference (fused_stash_core_spmd), a hand-written kernel here.
+    "stash_finish": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:906"),
     "em_rigid": (_EM_CU, "probreg_tpu/ops/em_pallas.py:262"),
     "em_affine": (_EM_CU, "probreg_tpu/ops/em_pallas.py:262"),
     "fused_den": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:87"),
@@ -179,6 +194,19 @@ PYR_ROUTE_TOL = 1e-5
 PYR_ESTEP_SPREAD = 3.0
 # test_pyramid_affine's bar on b and t.
 PYR_AFFINE_MAX = 1e-2
+# The sharded runners (probreg_tpu_torch.parallel) on the 150k clouds: a
+# 2 x 2 rank holds half of each cloud; registration_cpd_2d's default tile;
+# the depth of the 150k phase (run_large_registration, maxiter 40), fixed
+# (tol 0) so every run makes the same iterations.
+SHARD = N_LARGE // 2
+MESH_TILE = 512
+MESH_ITERS = 40
+# The 1-D and 2-D runners against each other and across mesh shapes, in rot
+# and t: they differ in tile sizes and in the order of the cross-shard sums,
+# as the two-pass and stash routes of the 150k phase do (1e-4 there).
+MESH_AGREE = 1e-4
+# Repetitions of the per-stripe all_reduce when it is timed.
+REDUCE_REPS = 1000
 
 
 def flops_wstash(channels: int):
@@ -2849,6 +2877,347 @@ def run_family_pyramids(dev, launches):
         raise AssertionError(f"BCPD pyramid launches {got}")
 
 
+def check_stash_raw(dev, kernels, shared):
+    """K11 (stash_den_raw) and its finalisation (stash_finish) on the 150k
+    clouds cut to a 2 x 2 rank's shapes: source and target shard 0 of the
+    centred, Morton-sorted clouds (75,000 points each), tiles 512 x 512
+    (registration_cpd_2d's), dense and culled as estep_regimes. Each
+    stripe's raw sums against stash_den_raw_plain, and K11 + finish + K3b
+    against the plain E-step (compare()); at one m-shard the same bit for
+    bit as K3; the two m-shards of the mesh (the source's halves) with
+    their raw sums added, against the unsharded K3 E-step (compare()).
+    Timed per E-step (n_j launches each); K11's bound is K3a's per-pass
+    bound on the shard's shapes, the finish's its columns' bytes."""
+    from probreg_tpu_torch.ops import estep_cuda as ec
+
+    out = {}
+    t = MESH_TILE
+    for (regime, sigma2, ys, xs, scal, _, _, _,
+         _) in estep_regimes(dev, shared):
+        ysl, xsl = ys[:SHARD], xs[:SHARD]
+        mask = ec._active_mask(*ec._tile_bounds(ysl, t),
+                               *ec._tile_bounds(xsl, t), scal[0])
+        n_i, n_j = mask.shape
+        rows = torch.full((n_i,), float(t), device=dev)
+        rows[-1] = SHARD - (n_i - 1) * t
+        cols = torch.full((n_j,), float(t), device=dev)
+        cols[-1] = SHARD - (n_j - 1) * t
+        pairs = float(rows @ mask.float() @ cols)
+        log(f"[K11 stash_den_raw] {regime}: sigma2 {sigma2:.6g}, shard "
+            f"{SHARD:,} x {SHARD:,}, tiles {t} x {t}, {n_j} stripes, active "
+            f"pairs {pairs:.4g}")
+        dens = []
+        got = ec.stash_estep(ysl, xsl, scal, mask, t, t,
+                             reduce_den=lambda d: dens.append(d.clone()))
+        torch.cuda.synchronize()
+        y2, x2 = (ysl * ysl).sum(1), (xsl * xsl).sum(1)
+        plain_dens = []
+        for j in range(n_j):
+            c = slice(j * t, (j + 1) * t)
+            act = mask[:, j].repeat_interleave(t)[:SHARD]
+            plain_dens.append(ec.stash_den_raw_plain(
+                ysl, y2, xsl[c], x2[c], scal, act, n_i, t)[1])
+        err_raw = compare("den_raw", torch.cat(dens), torch.cat(plain_dens))
+        del dens, plain_dens
+        want = ec.stash_estep_plain(ysl, xsl, scal, mask, t, t)
+        err_fin = max(compare("pt1", got[0], want[0]),
+                      compare("xx", got[3], want[3]))
+        compare("p1", got[1], want[1])
+        compare("px", got[2], want[2])
+        k3 = ec.stash_estep(ysl, xsl, scal, mask, t, t)
+        same = all(torch.equal(a, b) for a, b in zip(got, k3))
+        log(f"  one m-shard: K11 + finish + K3b against K3: pt1, p1, px, xx "
+            f"{'equal bit for bit' if same else 'NOT equal'}")
+        if not same:
+            raise AssertionError("K11 + finish + K3b differ from K3")
+        del want, k3
+        # The m-group of target shard 0: both source halves.
+        halves = []
+        for y in (ys[:SHARD], ys[SHARD:]):
+            halves.append((y, ec._active_mask(
+                *ec._tile_bounds(y, t), *ec._tile_bounds(xsl, t), scal[0])))
+        totals = []
+        for y, mk in halves:
+            seen = []
+            ec.stash_estep(y, xsl, scal, mk, t, t,
+                           reduce_den=lambda d: seen.append(d.clone()))
+            totals = seen if not totals else [a + b for a, b in
+                                              zip(totals, seen)]
+        parts = []
+        for y, mk in halves:
+            it = iter(totals)
+            parts.append(ec.stash_estep(
+                y, xsl, scal, mk, t, t,
+                reduce_den=lambda d: d.copy_(next(it))))
+        whole = ec.stash_estep(ys, xsl, scal, ec._active_mask(
+            *ec._tile_bounds(ys, t), *ec._tile_bounds(xsl, t), scal[0]), t, t)
+        torch.cuda.synchronize()
+        log("  two m-shards, raw sums added, against K3 on the whole source:")
+        for k, name in enumerate(("pt1", "xx")):
+            for part in parts:
+                compare(name, part[(0, 3)[k]], whole[(0, 3)[k]])
+        compare("p1", torch.cat([p[1] for p in parts]), whole[1])
+        compare("px", torch.cat([p[2] for p in parts]), whole[2])
+        del parts, whole, totals, halves
+        plan = ec.StashPlan(ysl, xsl, scal, mask, t, t)
+        stripes = range(plan.n_j)
+        ms_raw = timed(lambda: [plan.den_raw(j) for j in stripes], 5)
+        ms_fin = timed(lambda: [plan.finish(j) for j in stripes], 5)
+        del plan
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        plain_raw = plain_fin = 0.0
+        for j in range(n_j):
+            c = slice(j * t, (j + 1) * t)
+            act = mask[:, j].repeat_interleave(t)[:SHARD]
+            e[0].record()
+            _, den = ec.stash_den_raw_plain(ysl, y2, xsl[c], x2[c], scal,
+                                            act, n_i, t)
+            e[1].record()
+            ec._plain_finish(den, x2[c], scal)
+            e[2].record()
+            torch.cuda.synchronize()
+            plain_raw += e[0].elapsed_time(e[1])
+            plain_fin += e[1].elapsed_time(e[2])
+        b_raw = estep_pass_bounds(SHARD, SHARD, pairs)[0]
+        # The finish per column: reads den_raw and |x|^2, writes inv_den
+        # and pt1 (16 B); the where, the add, the division, the product
+        # and the xx term (5 operations).
+        b_fin = bound(16 * SHARD, 5 * SHARD)
+        log(f"  K11 per E-step {ms_raw:.3f} ms  plain {plain_raw:.3f} ms  "
+            f"bound {b_raw[0]:.3f} ms ({b_raw[1]}); finish {ms_fin:.3f} ms "
+            f" plain {plain_fin:.3f} ms  bound {b_fin[0]:.5f} ms "
+            f"({b_fin[1]})")
+        out[regime] = (err_raw, err_fin, ms_raw, ms_fin, plain_raw,
+                       plain_fin, b_raw, b_fin)
+    err_raw, err_fin, ms_raw, ms_fin, p_raw, p_fin, b_raw, b_fin = \
+        out["dense"]
+    kernels["stash_den_raw"] = dict(
+        max_abs_err=max(err_raw, out["culled"][0]), ms=ms_raw,
+        plain_ms=p_raw, bound_ms=b_raw[0], bound_by=b_raw[1])
+    kernels["stash_finish"] = dict(
+        max_abs_err=max(err_fin, out["culled"][1]), ms=ms_fin,
+        plain_ms=p_fin, bound_ms=b_fin[0], bound_by=b_fin[1])
+
+
+def rot_error(lin, rot):
+    from probreg_tpu_torch.utils import se3_op
+
+    return float(se3_op.rotation_angle(torch.as_tensor(lin).double(),
+                                       torch.as_tensor(rot).double()))
+
+
+def run_sharded_one_rank(dev, launches, shared):
+    """The sharded runners on one NCCL rank (world size 1, file://
+    rendezvous): registration_cpd_sharded on a 1-D mesh (K3 per shard) and
+    registration_cpd_2d on a 1 x 1 mesh (K11, one den all_reduce per stripe
+    and E-step) on the 150k pair, culled, MESH_ITERS iterations; the second
+    call of each timed beside cpd.registration_cpd at the same depth. Both
+    reach the 150k phase's bar and agree within MESH_AGREE. Then the
+    per-stripe all_reduce (MESH_TILE floats) under NCCL at world 1."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from probreg_tpu_torch import cpd
+    from probreg_tpu_torch.parallel import mesh as pmesh
+    from probreg_tpu_torch.parallel import (make_mesh, make_mesh_2d,
+                                            registration_cpd_2d,
+                                            registration_cpd_sharded)
+
+    src, tgt, rot = large_clouds(dev)
+    kw = dict(maxiter=MESH_ITERS, tol=0.0, use_culled=True, device=dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                            world_size=1, rank=0)
+    try:
+        runs = {}
+        for name, fn, mesh in (("1-D", registration_cpd_sharded,
+                                make_mesh()),
+                               ("1 x 1", registration_cpd_2d,
+                                make_mesh_2d(1, 1))):
+            log(f"[mesh, one NCCL rank] {fn.__name__} on a {name} mesh, "
+                f"{N_LARGE:,} points, culled, {MESH_ITERS} iterations")
+            fn(src, tgt, "rigid", mesh=mesh, **kw)  # warm
+            torch.cuda.synchronize()
+            reset_launches()
+            pmesh.reset_counts()
+            t0 = time.perf_counter()
+            res = fn(src, tgt, "rigid", mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: v for k, v in all_launches().items() if v}
+            counts = dict(pmesh.COUNTS)
+            err = rot_error(res.transformation.rot.cpu(), rot)
+            log(f"  timed call {wall:.3f} s, counts {counts}, rotation "
+                f"error {err:.3e} rad, sigma2 {float(res.sigma2):.6g}")
+            log(f"  launches: {got}")
+            if counts["esteps"] != MESH_ITERS:
+                raise AssertionError(f"{name}: {counts['esteps']} E-steps")
+            if name == "1 x 1":
+                if not (got.get("stash_den_raw", 0) > 0
+                        and set(got) == {"stash_den_raw", "stash_finish",
+                                         "stash_moment"}
+                        and got["stash_finish"] == got["stash_den_raw"]
+                        == counts["den_all_reduce"]):
+                    raise AssertionError(f"1 x 1 mesh launches {got}")
+                launches.update(stash_den_raw=got["stash_den_raw"],
+                                stash_finish=got["stash_finish"])
+            elif not (got.get("stash_den", 0) > 0
+                      and set(got) == {"stash_den", "stash_moment"}):
+                raise AssertionError(f"1-D mesh launches {got}")
+            if not (math.isfinite(float(res.sigma2)) and err <= ROT_ERR_MAX):
+                raise AssertionError(f"{name} mesh run missed the bar")
+            runs[name] = (res.transformation, wall)
+        cpd.registration_cpd(src, tgt, "rigid", maxiter=MESH_ITERS,
+                             tol=0.0)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = cpd.registration_cpd(src, tgt, "rigid", maxiter=MESH_ITERS,
+                                   tol=0.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        a, b = runs["1-D"][0], runs["1 x 1"][0]
+        d_rot = float((a.rot - b.rot).abs().max())
+        d_t = float((a.t - b.t).abs().max())
+        err = rot_error(one.transformation.rot.cpu(), rot)
+        log(f"  cpd.registration_cpd at the same depth {wall:.3f} s "
+            f"(rotation error {err:.3e} rad); 1-D {runs['1-D'][1]:.3f} s, "
+            f"1 x 1 {runs['1 x 1'][1]:.3f}"
+            f" s; 1-D against 1 x 1: max |rot diff| {d_rot:.3e}, max |t diff|"
+            f" {d_t:.3e}")
+        if not (d_rot <= MESH_AGREE and d_t <= MESH_AGREE):
+            raise AssertionError("the 1-D and 1 x 1 mesh runs disagree")
+        shared["one_rank"] = {k: (v[0].rot.cpu().numpy(),
+                                  v[0].t.cpu().numpy())
+                              for k, v in runs.items()}
+        buf = torch.ones(MESH_TILE, device=dev)
+        dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REDUCE_REPS):
+            dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        log(f"  per-stripe all_reduce ({MESH_TILE} floats) under NCCL, world "
+            f"1: {(time.perf_counter() - t0) * 1e3 / REDUCE_REPS:.4f} ms")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def same_on_every_rank(name, outs):
+    """Every rank made the same E-steps and returned the same numbers bit
+    for bit."""
+    first = outs[0]
+    for r, o in enumerate(outs[1:], 1):
+        res = o["result"] if isinstance(o["result"], list) else [o["result"]]
+        ref = first["result"] if isinstance(first["result"], list) \
+            else [first["result"]]
+        if o["counts"]["esteps"] != first["counts"]["esteps"] or not all(
+                np.array_equal(a[k], b[k]) for a, b in zip(res, ref)
+                for k in a):
+            raise AssertionError(f"{name}: rank {r} differs from rank 0")
+
+
+def run_mesh_on_one_card(dev, launches, shared):
+    """Four ranks on the one card under gloo (all_reduce on CUDA tensors):
+    a correctness run of the cross-shard collectives, not a 4-card figure.
+    One spawn runs, in every rank, each call twice (the second timed):
+    registration_cpd_2d on a 2 x 2 mesh and registration_cpd_sharded on a
+    1-D mesh of 4 at 150k (culled, MESH_ITERS iterations),
+    registration_cpd_batch_sharded on the 256 ragged horse pairs, the CPD
+    pyramid with mesh= (2 x 2) at 200k, and the per-stripe all_reduce's
+    cost. Every rank must report the same iterations and numbers; the 150k
+    runs reach the 150k phase's bar and agree with the one-rank runs within
+    MESH_AGREE; the batch equals registration_cpd_batch bit for bit; the
+    pyramid meets the reference test's bar."""
+    from probreg_tpu_torch import cpd
+    from probreg_tpu_torch.parallel import _spmd
+
+    src, tgt, rot = large_clouds(dev)
+    rigid, _ = serving_batches()
+    srcs, tgts = [p[0] for p in rigid], [p[1] for p in rigid]
+    psrc, ptgt, prot, pt = pyramid_case(PYRAMID_SIZES[0])
+    kw = dict(maxiter=MESH_ITERS, tol=0.0, use_culled=True)
+    calls = [("cpd_2d", (2, 2), (src, tgt, "rigid"), kw),
+             ("cpd_sharded", (4,), (src, tgt, "rigid"), kw),
+             ("cpd_batch_sharded", (4,), (srcs, tgts, "rigid"), {}),
+             ("cpd_pyramid", (2, 2), (psrc, ptgt, "rigid"), PYRAMID_ARGS),
+             ("all_reduce_cost", (2, 2), ("m", MESH_TILE, REDUCE_REPS), {})]
+    log("[mesh, 4 gloo ranks on one card] 2 x 2 registration_cpd_2d and "
+        f"1-D x 4 registration_cpd_sharded at {N_LARGE:,} points, "
+        f"registration_cpd_batch_sharded on {len(srcs)} ragged pairs, the "
+        f"CPD pyramid with mesh= at {PYRAMID_SIZES[0]:,} points")
+    t0 = time.perf_counter()
+    outs = _spmd.run_spmd(_spmd.rank_calls, 4, "gloo", "cuda:0", calls, 2,
+                          timeout=600.0)
+    log(f"  spawn and both rounds {time.perf_counter() - t0:.1f} s")
+    per_call = [[rank[i] for rank in outs] for i in range(len(calls))]
+    names = ["2 x 2", "1-D x 4", "batch", "pyramid", "all_reduce"]
+    for name, res in zip(names, per_call):
+        log(f"  {name}: timed call {max(o['seconds'] for o in res):.3f} s "
+            f"(slowest rank), counts {res[0]['counts']}, launches per rank "
+            f"{[o['launches'] for o in res]}")
+        if name != "all_reduce":  # a time, each rank's own
+            same_on_every_rank(name, res)
+    one = shared.get("one_rank", {})
+    for name, res, want, mine in (
+            ("2 x 2", per_call[0], one.get("1 x 1"), "stash_den_raw"),
+            ("1-D x 4", per_call[1], one.get("1-D"), "stash_den")):
+        r0 = res[0]["result"]
+        err = rot_error(r0["lin"], rot)
+        log(f"  {name}: rotation error {err:.3e} rad, sigma2 "
+            f"{r0['sigma2']:.6g}")
+        if not err <= ROT_ERR_MAX or res[0]["counts"]["esteps"] != \
+                MESH_ITERS:
+            raise AssertionError(f"{name} missed the bar")
+        for r, o in enumerate(res):
+            got = o["launches"]
+            want_set = ({"stash_den_raw", "stash_finish", "stash_moment"}
+                        if mine == "stash_den_raw"
+                        else {"stash_den", "stash_moment"})
+            if not (got.get(mine, 0) > 0 and set(got) == want_set):
+                raise AssertionError(f"{name}: rank {r} launches {got}")
+            if mine == "stash_den_raw" and \
+                    got[mine] != o["counts"]["den_all_reduce"]:
+                raise AssertionError(f"{name}: rank {r} den reductions")
+        if want is not None:
+            d = max(float(np.abs(r0["lin"] - want[0]).max()),
+                    float(np.abs(r0["t"] - want[1]).max()))
+            log(f"  {name} against the one-rank run: max |diff| {d:.3e}")
+            if not d <= MESH_AGREE:
+                raise AssertionError(f"{name} disagrees with one rank")
+    ref = cpd.registration_cpd_batch(srcs, tgts, "rigid")
+    got = per_call[2][0]["result"]
+    for b, (g, r) in enumerate(zip(got, ref)):
+        tr = r.transformation
+        if not (np.array_equal(g["lin"], tr.rot.cpu().numpy())
+                and np.array_equal(g["t"], tr.t.cpu().numpy())
+                and g["scale"] == float(tr.scale)
+                and g["sigma2"] == float(r.sigma2) and g["q"] == float(r.q)):
+            raise AssertionError(f"sharded batch pair {b} differs from "
+                                 "registration_cpd_batch")
+    if any(o["launches"] != {"em_rigid": 1} for o in per_call[2]):
+        raise AssertionError("sharded batch: not one K1 launch per rank")
+    log(f"  batch: all {len(got)} pairs equal registration_cpd_batch bit "
+        "for bit")
+    g = per_call[3][0]["result"]
+    ang = rot_error(g["lin"], prot)
+    t_err = float(np.abs(g["t"] - pt).max())
+    s_err = abs(g["scale"] - 1.0)
+    log(f"  pyramid: rotation error {ang:.3e} rad, |t - t_gt| {t_err:.3e}, "
+        f"|scale - 1| {s_err:.3e}")
+    if not (ang < PYR_ANGLE_MAX and t_err <= PYR_T_MAX
+            and s_err <= PYR_SCALE_MAX):
+        raise AssertionError("mesh pyramid missed the reference test's bar")
+    if not all(o["launches"].get("stash_den_raw", 0) > 0
+               for o in per_call[3]):
+        raise AssertionError("mesh pyramid did not run K11 on every rank")
+    ms = [o["result"] for o in per_call[4]]
+    log(f"  per-stripe all_reduce ({MESH_TILE} floats, m-axis of 2) under "
+        f"gloo, CUDA tensors, 4 ranks on one card: "
+        f"{', '.join(f'{x:.4f}' for x in ms)} ms per call by rank")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2873,6 +3242,7 @@ def main() -> int:
                         (check_stash, (dev, kernels, shared)),
                         (check_fused_estep, (dev, kernels, shared)),
                         (check_stash_merged, (dev, kernels, shared)),
+                        (check_stash_raw, (dev, kernels, shared)),
                         (check_em, (dev, kernels)),
                         (run_large_registration, (dev, launches)),
                         (run_two_pass_path, (dev, launches)),
@@ -2897,7 +3267,9 @@ def main() -> int:
                         (run_gmmtree_large, (dev, launches)),
                         (run_pyramid_cpd, (dev, launches, kernels)),
                         (run_pyramid_affine, (dev, launches)),
-                        (run_family_pyramids, (dev, launches))):
+                        (run_family_pyramids, (dev, launches)),
+                        (run_sharded_one_rank, (dev, launches, shared)),
+                        (run_mesh_on_one_card, (dev, launches, shared))):
         t0 = time.perf_counter()
         try:
             phase(*args)

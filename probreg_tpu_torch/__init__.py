@@ -4,9 +4,11 @@ A second package beside the JAX one. Rigid and affine CPD, rigid FilterReg
 (pt2pt and pt2pl), ICP and GMMTree run end to end, single pairs, batches
 and large clouds, and combined BCPD single pairs up to 10^5 points and
 beyond; the coarse-to-fine pyramids of these families (``pyramid``) take
-clouds of 10^6 points. They run on
+clouds of 10^6 points; rigid and affine CPD also run sharded over the ranks
+of ``torch.distributed`` (``parallel``: 1-D and 2-D meshes). They run on
 hand-written CUDA kernels for the H100 (``csrc/``): the CPD E-steps
-(``estep.cu``, the pipelined stash E-step among them), the whole-EM CPD and FilterReg kernels (``em.cu``,
+(``estep.cu``, the pipelined stash E-step and the 2-D mesh's raw pass
+among them), the whole-EM CPD and FilterReg kernels (``em.cu``,
 ``frg.cu``), the whole-ICP kernel (``icp.cu``), the tile-culled Gauss
 transform (``gt.cu``), the row-weighted culled BCPD E-step
 (``wstash.cu``) and GMMTree's level-EM and registration kernels
@@ -22,7 +24,7 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from . import bcpd, config, cpd, filterreg, gauss_transform  # noqa: E402,F401
-from . import gmmtree, icp, log, pyramid  # noqa: E402,F401
+from . import gmmtree, icp, log, parallel, pyramid  # noqa: E402,F401
 from .models import transformation  # noqa: E402,F401
 from .utils import se3_op  # noqa: E402,F401
 from .version import __version__  # noqa: E402,F401

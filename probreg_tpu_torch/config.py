@@ -57,7 +57,9 @@ class Config:
     # derives it from the device: an eighth of the card's memory, 1 GiB on
     # the CPU. Above it tile_n halves (floor 256); beyond the floor
     # estep_auto answers with the streaming plain E-step (estep_xla), as
-    # the reference does, and the BCPD E-step raises.
+    # the reference does, the sharded culled CPD runners (parallel/) raise,
+    # and so does the BCPD E-step. The reference's cpd_stash_max_bytes
+    # carries into it (interop.config_from_reference).
     stash_max_bytes: Optional[int] = None
     # Largest source cloud that BCPD runs through the row-weighted culled
     # stash E-step (ops/bcpd_cuda.py); above it the VI loop streams target

@@ -154,10 +154,72 @@ small_kernel(const float4* __restrict__ ys, int m,
 // beyond the 50 MB L2 at 150k points) takes longer than the exps, so the
 // kernel is bound by memory bandwidth; culled tiles cost neither.
 //
-// The body is stash_den_block, which the pipelined kernel K12 runs too, so
-// both give the same pt1, inv_den and xx bit for bit.
+// Pass A is three device functions that K3a, the pipelined kernel K12 and
+// the sharded pass K11 share: stash_exp_block (the exps, the stash and the
+// per-slot column sums), den_raw_sum (the slot-order sum) and
+// den_finish_chunk (inv_den, pt1 and xx from the raw sums). So all three
+// give the same pt1, inv_den and xx bit for bit on the same raw sums.
 // ---------------------------------------------------------------------------
 constexpr int kDenThreads = 256;
+
+// The exps of one block: column chunk `cx` (256 columns, this thread's
+// column xv, valid when ok) against the tile in slot `slot` of the
+// stripe's active-tile list. Writes the tile's stash rows and the block's
+// column sums to part[slot].
+__device__ void stash_exp_block(const float4* __restrict__ ys, int m,
+                                int tile_m, float4 xv, bool ok, int col,
+                                int tile_n, const int* __restrict__ act_idx,
+                                float inv2s2, float* __restrict__ stash,
+                                float* __restrict__ part, int slot) {
+  __shared__ float4 ysh[kDenThreads];
+  const int r0 = act_idx[slot] * tile_m;
+  const int r1 = min(r0 + tile_m, m);
+  float s = 0.0f;
+  for (int rc = r0; rc < r1; rc += kDenThreads) {
+    const int nr = min(kDenThreads, r1 - rc);
+    __syncthreads();
+    if (threadIdx.x < nr) ysh[threadIdx.x] = ys[rc + threadIdx.x];
+    __syncthreads();
+    if (ok) {
+      float* out = stash + (size_t)rc * tile_n + col;
+      for (int r = 0; r < nr; ++r) {
+        const float g = gauss(ysh[r], xv, inv2s2);
+        out[(size_t)r * tile_n] = g;
+        s += g;
+      }
+    }
+  }
+  if (ok) part[(size_t)slot * tile_n + col] = s;
+}
+
+// A column's raw normalizer: its per-slot sums added in slot order. Read
+// by the last block of the chunk (see last_block).
+__device__ __forceinline__ float den_raw_sum(const float* part, int cnt,
+                                             int tile_n, int col) {
+  float den_raw = 0.0f;
+  for (int k = 0; k < cnt; ++k) den_raw += __ldcg(&part[(size_t)k * tile_n + col]);
+  return den_raw;
+}
+
+// The normalizer's finalisation for one chunk of 256 columns, every thread
+// of the block taking part: inv_den = 1 / ((den_raw == 0 ? eps : den_raw)
+// + c), pt1 = den_raw * inv_den, and the chunk's xx = sum pt1 |x|^2 in
+// xx_part[cx].
+__device__ void den_finish_chunk(float den_raw, bool ok, float4 xv, float c,
+                                 int col, float* __restrict__ inv_den,
+                                 float* __restrict__ pt1,
+                                 float* __restrict__ xx_part, int cx) {
+  float xxv = 0.0f;
+  if (ok) {
+    const float inv = 1.0f / ((den_raw == 0.0f ? kEpsF32 : den_raw) + c);
+    const float p = den_raw * inv;
+    inv_den[col] = inv;
+    pt1[col] = p;
+    xxv = p * xv.w;
+  }
+  const float xx = block_sum<kDenThreads>(xxv);
+  if (threadIdx.x == 0) xx_part[cx] = xx;
+}
 
 // Pass A for one block: column chunk `cx` (256 columns) of the stripe
 // against slot `slot` of its active-tile list (cnt entries).
@@ -173,52 +235,19 @@ __device__ void stash_den_block(const float4* __restrict__ ys, int m,
                                 float* __restrict__ pt1,
                                 float* __restrict__ xx_part, int cx,
                                 int slot) {
-  __shared__ float4 ysh[kDenThreads];
   // An all-culled stripe still needs its pt1 = 0: slot 0 then finalizes.
   const int expected = cnt > 0 ? cnt : 1;
   if (slot >= expected) return;
   const int col = cx * kDenThreads + threadIdx.x;
   const bool ok = col < ncols;
   const float4 xv = ok ? xs[col] : make_float4(0.f, 0.f, 0.f, 0.f);
-
-  if (slot < cnt) {
-    const float inv2s2 = scal[0];
-    const int r0 = act_idx[slot] * tile_m;
-    const int r1 = min(r0 + tile_m, m);
-    float s = 0.0f;
-    for (int rc = r0; rc < r1; rc += kDenThreads) {
-      const int nr = min(kDenThreads, r1 - rc);
-      __syncthreads();
-      if (threadIdx.x < nr) ysh[threadIdx.x] = ys[rc + threadIdx.x];
-      __syncthreads();
-      if (ok) {
-        float* out = stash + (size_t)rc * tile_n + col;
-        for (int r = 0; r < nr; ++r) {
-          const float g = gauss(ysh[r], xv, inv2s2);
-          out[(size_t)r * tile_n] = g;
-          s += g;
-        }
-      }
-    }
-    if (ok) part[(size_t)slot * tile_n + col] = s;
-  }
-
+  if (slot < cnt)
+    stash_exp_block(ys, m, tile_m, xv, ok, col, tile_n, act_idx, scal[0],
+                    stash, part, slot);
   if (!last_block(&tickets[cx], expected)) return;
-  float xxv = 0.0f;
-  if (ok) {
-    float den_raw = 0.0f;
-    for (int k = 0; k < cnt; ++k) den_raw += __ldcg(&part[(size_t)k * tile_n + col]);
-    const float inv = 1.0f / ((den_raw == 0.0f ? kEpsF32 : den_raw) + scal[1]);
-    const float p = den_raw * inv;
-    inv_den[col] = inv;
-    pt1[col] = p;
-    xxv = p * xv.w;
-  }
-  const float xx = block_sum<kDenThreads>(xxv);
-  if (threadIdx.x == 0) {
-    xx_part[cx] = xx;
-    tickets[cx] = 0u;  // ready for the next stripe's launch
-  }
+  const float den_raw = ok ? den_raw_sum(part, cnt, tile_n, col) : 0.0f;
+  den_finish_chunk(den_raw, ok, xv, scal[1], col, inv_den, pt1, xx_part, cx);
+  if (threadIdx.x == 0) tickets[cx] = 0u;  // ready for the next stripe
 }
 
 __global__ void __launch_bounds__(kDenThreads)
@@ -236,6 +265,60 @@ stash_den_kernel(const float4* __restrict__ ys, int m, int tile_m,
   stash_den_block(ys, m, tile_m, xs, ncols, tile_n, act_idx, *act_cnt, scal,
                   stash, part, tickets, inv_den, pt1, xx_part, blockIdx.x,
                   blockIdx.y);
+}
+
+// ---------------------------------------------------------------------------
+// K11: pass A of the stash E-step on one source shard, raw sums only.
+//
+// Replaces probreg_tpu/ops/estep_pallas.py:_stash_den_raw_kernel. On a 2-D
+// (m, n) mesh a target column's normalizer sums over every source shard, so
+// pass A stops before the finalisation: the same exps, stash and slot-order
+// column sums as K3a (stash_exp_block, den_raw_sum), and the last block of
+// a chunk writes den_raw. The caller all-reduces den_raw over the m-axis
+// (torch.distributed), then stash_finish_kernel runs K3a's finalisation
+// (den_finish_chunk) on the sums, and K3b reads the stash back. So at one
+// m-shard, K11 + finish + K3b give K3's pt1, inv_den, xx, p1 and px bit for
+// bit. Bound as K3a: the stash write at full density.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kDenThreads)
+stash_den_raw_kernel(const float4* __restrict__ ys, int m, int tile_m,
+                     const float4* __restrict__ xs, int ncols, int tile_n,
+                     const int* __restrict__ act_idx,
+                     const int* __restrict__ act_cnt,
+                     const float* __restrict__ scal,
+                     float* __restrict__ stash,     // (n_i * tile_m, tile_n)
+                     float* __restrict__ part,      // (n_i, tile_n)
+                     unsigned int* __restrict__ tickets,  // (gridDim.x)
+                     float* __restrict__ den_raw) { // (ncols)
+  const int cnt = *act_cnt, cx = blockIdx.x, slot = blockIdx.y;
+  // An all-culled stripe still needs its den_raw = 0: slot 0 writes it.
+  const int expected = cnt > 0 ? cnt : 1;
+  if (slot >= expected) return;
+  const int col = cx * kDenThreads + threadIdx.x;
+  const bool ok = col < ncols;
+  const float4 xv = ok ? xs[col] : make_float4(0.f, 0.f, 0.f, 0.f);
+  if (slot < cnt)
+    stash_exp_block(ys, m, tile_m, xv, ok, col, tile_n, act_idx, scal[0],
+                    stash, part, slot);
+  if (!last_block(&tickets[cx], expected)) return;
+  if (ok) den_raw[col] = den_raw_sum(part, cnt, tile_n, col);
+  if (threadIdx.x == 0) tickets[cx] = 0u;
+}
+
+// K11's finalisation of one stripe from its all-reduced raw sums: one block
+// per chunk of 256 columns, K3a's own tail (den_finish_chunk).
+__global__ void __launch_bounds__(kDenThreads)
+stash_finish_kernel(const float4* __restrict__ xs, int ncols,
+                    const float* __restrict__ scal,
+                    const float* __restrict__ den_raw,  // (ncols)
+                    float* __restrict__ inv_den,        // (tile_n)
+                    float* __restrict__ pt1,            // (ncols)
+                    float* __restrict__ xx_part) {      // (gridDim.x)
+  const int col = blockIdx.x * kDenThreads + threadIdx.x;
+  const bool ok = col < ncols;
+  const float4 xv = ok ? xs[col] : make_float4(0.f, 0.f, 0.f, 0.f);
+  den_finish_chunk(ok ? den_raw[col] : 0.0f, ok, xv, scal[1], col, inv_den,
+                   pt1, xx_part, blockIdx.x);
 }
 
 // ---------------------------------------------------------------------------
@@ -529,6 +612,29 @@ int probreg_stash_den(const void* ys, int m, int tile_m, int n_i,
       (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
       (float*)stash, (float*)part, (unsigned int*)tickets, (float*)inv_den,
       (float*)pt1, (float*)xx_part);
+  return (int)cudaGetLastError();
+}
+
+int probreg_stash_den_raw(const void* ys, int m, int tile_m, int n_i,
+                          const void* xs, int ncols, int tile_n,
+                          const void* act_idx, const void* act_cnt,
+                          const void* scal, void* stash, void* part,
+                          void* tickets, void* den_raw, void* stream) {
+  const dim3 grid((tile_n + kDenThreads - 1) / kDenThreads, n_i);
+  stash_den_raw_kernel<<<grid, kDenThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)ys, m, tile_m, (const float4*)xs, ncols, tile_n,
+      (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
+      (float*)stash, (float*)part, (unsigned int*)tickets, (float*)den_raw);
+  return (int)cudaGetLastError();
+}
+
+int probreg_stash_finish(const void* xs, int ncols, int tile_n,
+                         const void* scal, const void* den_raw, void* inv_den,
+                         void* pt1, void* xx_part, void* stream) {
+  const int blocks = (tile_n + kDenThreads - 1) / kDenThreads;
+  stash_finish_kernel<<<blocks, kDenThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)xs, ncols, (const float*)scal, (const float*)den_raw,
+      (float*)inv_den, (float*)pt1, (float*)xx_part);
   return (int)cudaGetLastError();
 }
 

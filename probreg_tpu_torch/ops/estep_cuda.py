@@ -17,6 +17,13 @@ path, with their helpers:
   ``stash_moment`` launch closes the last stripe. When even tile_n = 256
   would put the stash over its budget, ``estep_auto`` returns the streaming
   plain E-step (``ops/estep.estep_xla``), as the reference does.
+* ``stash_estep(..., reduce_den=)``: the same E-step on one source shard of
+  a 2-D (m, n) mesh (parallel/sharded2d.py), where a target column's
+  normalizer sums over every source shard: per stripe, pass A stops at the
+  raw column sums (``stash_den_raw``, replaces ``_stash_den_raw_kernel``),
+  the caller all-reduces them over the m-axis, ``stash_finish`` forms
+  inv_den, pt1 and xx from them with pass A's own code, and pass B
+  (``stash_moment``) reads the stash back.
 * ``estep_fused`` / ``estep_culled``: the two-pass tile-culled E-step with
   no stash: pass A (``fused_den``, replaces ``_den_kernel``) forms the column
   normalizer, pt1 and xx, pass B (``fused_moment``, replaces
@@ -56,7 +63,8 @@ _MAX_TILE_N = 3072   # pass B keeps a stripe's columns in 48 KB of shared mem
 _MAX_GRID_Y = 65535
 
 LAUNCHES = {"estep_small": 0, "stash_den": 0, "stash_moment": 0,
-            "stash_merged": 0, "fused_den": 0, "fused_moment": 0}
+            "stash_merged": 0, "stash_den_raw": 0, "stash_finish": 0,
+            "fused_den": 0, "fused_moment": 0}
 
 
 def reset_launches() -> None:
@@ -70,6 +78,9 @@ _SIGNATURES = {
     "probreg_stash_den": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
                           _P, _P, _P, _P, _P],
     "probreg_stash_moment": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "probreg_stash_den_raw": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
+                              _P, _P, _P],
+    "probreg_stash_finish": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
     "probreg_stash_merged": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
                              _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     "probreg_fused_den": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P,
@@ -334,17 +345,34 @@ def estep_auto(t_source: torch.Tensor, target: torch.Tensor, sigma2,
     return EstepMoments(pt1, p1, px, p1.sum(), xx)
 
 
-def stash_estep(ys, xs, scal, mask, tile_m: int, tile_n: int):
+def stash_estep(ys, xs, scal, mask, tile_m: int, tile_n: int,
+                reduce_den=None):
     """(pt1, p1, px, xx) of the stash E-step on sorted clouds, given the
     (n_i, n_j) active-tile mask: the kernels for CUDA tensors, the plain
-    version for CPU tensors."""
-    if ys.is_cuda:
-        plan = StashPlan(ys, xs, scal, mask, tile_m, tile_n)
-        for j in range(plan.n_j):
+    version for CPU tensors.
+
+    ``reduce_den``: ys is one source shard of a 2-D mesh (reference
+    ``fused_stash_core_spmd``). Each stripe's raw column sums (a (ncols,)
+    tensor) go to ``reduce_den``, which all-reduces them in place over the
+    source shards before they are finalized; pass A then runs as
+    ``stash_den_raw`` and ``stash_finish``. pt1 and xx are the target
+    shard's, the same on every source shard; p1 and px the source shard's
+    sums over these columns. ys may be empty (a source shard past the end
+    of the cloud): it adds nothing and still takes part in each reduction.
+    """
+    if not ys.is_cuda:
+        return stash_estep_plain(ys, xs, scal, mask, tile_m, tile_n,
+                                 reduce_den)
+    plan = StashPlan(ys, xs, scal, mask, tile_m, tile_n)
+    for j in range(plan.n_j):
+        if reduce_den is None:
             plan.den(j)
-            plan.moment(j)
-        return plan.result()
-    return stash_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
+        else:
+            plan.den_raw(j)
+            reduce_den(plan.den_raw_buf[:plan._cols(j)[1]])
+            plan.finish(j)
+        plan.moment(j)
+    return plan.result()
 
 
 class StashPlan:
@@ -352,9 +380,11 @@ class StashPlan:
 
     ``den(j)`` runs pass A on stripe j (writes the stash, inv_den, pt1 and
     xx partials), ``moment(j)`` runs pass B (adds into p1/px); a stripe's
-    ``moment`` must follow its ``den``. Stripes run in order on the current
-    stream, so one stash buffer serves them all. Stripe j uses stash and
-    inv_den buffer j % BUFFERS.
+    ``moment`` must follow its ``den``. On a source shard, ``den_raw(j)``
+    and ``finish(j)`` split pass A around the reduction of ``den_raw_buf``.
+    Stripes run in order on the current stream, so one stash buffer serves
+    them all. Stripe j uses stash and inv_den buffer j % BUFFERS. An empty
+    source (n_i = 0) launches no pass A or pass B exps: its raw sums are 0.
     """
 
     BUFFERS = 1
@@ -379,6 +409,7 @@ class StashPlan:
         self.tickets = torch.zeros(n_cx, dtype=torch.int32,
                                    device=ys.device)
         self.inv_den = [new(tile_n) for _ in range(self.BUFFERS)]
+        self.den_raw_buf = new(tile_n)
         self.pt1 = new(n)
         self.xx_part = new((self.n_j, n_cx))
         self.p1px = self.ys.new_zeros((m, 4))
@@ -406,9 +437,39 @@ class StashPlan:
         _check(status, "stash_den")
         LAUNCHES["stash_den"] += 1
 
+    def den_raw(self, j: int) -> None:
+        """K11: the stash and the raw column sums of stripe j into
+        den_raw_buf[:ncols], unfinalized."""
+        c0, ncols = self._cols(j)
+        if self.n_i == 0:
+            self.den_raw_buf[:ncols].zero_()
+            return
+        status = self.lib.probreg_stash_den_raw(
+            self.ys.data_ptr(), self.m, self.tile_m, self.n_i,
+            self.xs[c0].data_ptr(), ncols, self.tile_n,
+            self.act_idx[j].data_ptr(), self.act_cnt[j].data_ptr(),
+            self.scal.data_ptr(), self.stash[0].data_ptr(),
+            self.part.data_ptr(), self.tickets.data_ptr(),
+            self.den_raw_buf.data_ptr(), self.stream)
+        _check(status, "stash_den_raw")
+        LAUNCHES["stash_den_raw"] += 1
+
+    def finish(self, j: int) -> None:
+        """inv_den, pt1 and the xx partials of stripe j from den_raw_buf
+        (pass A's own finalisation)."""
+        c0, ncols = self._cols(j)
+        status = self.lib.probreg_stash_finish(
+            self.xs[c0].data_ptr(), ncols, self.tile_n, self.scal.data_ptr(),
+            self.den_raw_buf.data_ptr(), self.inv_den[0].data_ptr(),
+            self.pt1[c0].data_ptr(), self.xx_part[j].data_ptr(), self.stream)
+        _check(status, "stash_finish")
+        LAUNCHES["stash_finish"] += 1
+
     def moment(self, j: int) -> None:
         c0, ncols = self._cols(j)
         b = j % self.BUFFERS
+        if self.n_i == 0:
+            return
         status = self.lib.probreg_stash_moment(
             self.xs[c0].data_ptr(), ncols, self.tile_n, self.m, self.tile_m,
             self.n_i, self.act_idx[j].data_ptr(), self.act_cnt[j].data_ptr(),
@@ -465,17 +526,30 @@ def stash_merged_estep(ys, xs, scal, mask, tile_m: int, tile_n: int):
     return stash_merged_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
 
 
-def _plain_pass_a(ys, y2, x, x2, scal, act_rows, n_i, tile_m):
-    """Pass A of one stripe: g (zero in culled tiles), inv_den, pt1, xx."""
+def stash_den_raw_plain(ys, y2, x, x2, scal, act_rows, n_i, tile_m):
+    """Plain version of K11 on one stripe: g (zero in culled tiles) and the
+    raw column sums, per-tile sums added in tile order."""
     d2 = torch.clamp(y2[:, None] + x2[None, :] - 2.0 * (ys @ x.T), min=0.0)
     g = torch.where(act_rows[:, None], torch.exp(-d2 * scal[0]), 0.0)
     pad = n_i * tile_m - ys.shape[0]
     part = torch.nn.functional.pad(g, (0, 0, 0, pad)).view(
-        n_i, tile_m, -1).sum(1)
-    den_raw = part.sum(0)
+        n_i, tile_m, x.shape[0]).sum(1)
+    return g, part.sum(0)
+
+
+def _plain_finish(den_raw, x2, scal):
+    """Pass A's finalisation of one stripe from its raw column sums:
+    inv_den, pt1, xx."""
     inv_den = 1.0 / (torch.where(den_raw == 0.0, _EPS, den_raw) + scal[1])
     pt1 = den_raw * inv_den
-    return g, inv_den, pt1, (pt1 * x2).sum()
+    return inv_den, pt1, (pt1 * x2).sum()
+
+
+def _plain_pass_a(ys, y2, x, x2, scal, act_rows, n_i, tile_m):
+    """Pass A of one stripe: g (zero in culled tiles), inv_den, pt1, xx."""
+    g, den_raw = stash_den_raw_plain(ys, y2, x, x2, scal, act_rows, n_i,
+                                     tile_m)
+    return (g, *_plain_finish(den_raw, x2, scal))
 
 
 def _plain_pass_b(g, inv_den, x):
@@ -491,25 +565,34 @@ def _plain_pass_b_folded(g, inv_den, x):
     return g @ inv_den, g @ (x * inv_den[:, None])
 
 
-def _plain_stripes(ys, xs, scal, mask, tile_m: int, tile_n: int):
-    """Pass A of every stripe in order: (g, inv_den, pt1, xx, x) each."""
+def _plain_stripes(ys, xs, scal, mask, tile_m: int, tile_n: int,
+                   reduce_den=None):
+    """Pass A of every stripe in order: (g, inv_den, pt1, xx, x) each; with
+    ``reduce_den``, the raw sums go through it before the finalisation."""
     m, n_i = ys.shape[0], mask.shape[0]
     y2, x2 = (ys * ys).sum(1), (xs * xs).sum(1)
     for j in range(mask.shape[1]):
         cols = slice(j * tile_n, (j + 1) * tile_n)
         act_rows = mask[:, j].repeat_interleave(tile_m)[:m]
-        yield (*_plain_pass_a(ys, y2, xs[cols], x2[cols], scal, act_rows,
-                              n_i, tile_m), xs[cols])
+        g, den_raw = stash_den_raw_plain(ys, y2, xs[cols], x2[cols], scal,
+                                         act_rows, n_i, tile_m)
+        if reduce_den is not None:
+            reduce_den(den_raw)
+        yield (g, *_plain_finish(den_raw, x2[cols], scal), xs[cols])
 
 
-def stash_estep_plain(ys, xs, scal, mask, tile_m: int, tile_n: int):
+def stash_estep_plain(ys, xs, scal, mask, tile_m: int, tile_n: int,
+                      reduce_den=None):
     """Plain version of the stash kernels, stripe by stripe: per-tile
-    column sums added in tile order, culled tiles contributing nothing."""
+    column sums added in tile order, culled tiles contributing nothing;
+    ``reduce_den`` as in stash_estep (the plain version of K11 and
+    stash_finish)."""
     p1, px, xx = ys.new_zeros(ys.shape[0]), torch.zeros_like(ys), \
         ys.new_zeros(())
     pt1 = []
     for g, inv_den, pt1_j, xx_j, x in _plain_stripes(ys, xs, scal, mask,
-                                                     tile_m, tile_n):
+                                                     tile_m, tile_n,
+                                                     reduce_den):
         p1_j, px_j = _plain_pass_b(g, inv_den, x)
         p1, px, xx = p1 + p1_j, px + px_j, xx + xx_j
         pt1.append(pt1_j)

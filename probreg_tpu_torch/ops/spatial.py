@@ -48,3 +48,14 @@ def morton_code(points: torch.Tensor) -> torch.Tensor:
 def morton_order(points: torch.Tensor) -> torch.Tensor:
     """Permutation that sorts points into Z-order (stable on ties)."""
     return torch.argsort(morton_code(points), stable=True)
+
+
+def morton_order_np(points) -> "np.ndarray":
+    """Host Z-order permutation of (N, D) points (numpy in, numpy out),
+    for the entry points that sort whole clouds once before sharding them
+    (parallel/). The reference's permutation, from morton_order on the
+    CPU."""
+    import numpy as np
+
+    pts = torch.as_tensor(np.asarray(points, np.float32))
+    return morton_order(pts).numpy()

@@ -15,9 +15,11 @@ are surfaces, so occupied voxels scale ~ (diag/v)^2).
 Each entry point runs every level through the port's own entry point for
 that family (``registration_cpd``, ``registration_filterreg``,
 ``registration_gmmtree``, ``registration_icp``, BCPD's
-``_registration_bcpd_impl``) on ``device``. Not ported yet: ``mesh=``
-(ROADMAP Queue 1 item 12), ``n_starts > 1`` (item 13) and the nonrigid CPD
-pyramid (item 4) raise ``NotImplementedError``.
+``_registration_bcpd_impl``) on ``device``; the CPD pyramid's ``mesh=``
+runs every level through ``parallel.registration_cpd_sharded``. Not ported
+yet: ``mesh=`` of the FilterReg and BCPD pyramids (ROADMAP Queue 1 item
+12), ``n_starts > 1`` (item 13) and the nonrigid CPD pyramid (item 4) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -284,8 +286,12 @@ def registration_cpd_pyramid(
         level_maxiters: Per-level maxiter (coarsest first). Default: full
             ``maxiter`` at the coarsest level, half at intermediate levels,
             ``maxiter // 5`` (>= 10) at full resolution.
-        mesh: Not ported yet (a sharded run); anything but None raises.
-        device: Device to run on (default ``config.device``, "cuda").
+        mesh: A ``torch.distributed`` device mesh: every level runs
+            through ``parallel.registration_cpd_sharded`` on it (1-D:
+            target sharded; 2-D ``(m, n)``: both clouds), every rank
+            calling with the same clouds. No callbacks with it.
+        device: Device to run on (default ``config.device``, "cuda"; with
+            ``mesh``, this rank's ``cuda:{LOCAL_RANK}``).
         **kwargs: Forwarded to registration_cpd at every level
             (update_scale, use_pallas, ...). ``dispatch_chunk`` (int)
             splits each level's EM into warm-resumed runs of at most that
@@ -305,16 +311,25 @@ def registration_cpd_pyramid(
         _refuse("the nonrigid CPD pyramid", 4)
     if int(kwargs.pop("n_starts", 1)) > 1:
         _refuse("n_starts > 1", 13)
-    if mesh is not None:
-        _refuse("the sharded pyramid (mesh=)", 12)
+    if mesh is not None and callbacks:
+        raise ValueError("mesh= pyramid supports rigid/affine without "
+                         "callbacks (the sharded runner has no callback "
+                         "path)")
     for managed in ("tf_init_params", "sigma2_init", "v_init"):
         if managed in kwargs:
             raise ValueError(f"{managed} is managed by the pyramid; pass it "
                              "to registration_cpd instead.")
-    dev = _config.resolve_device(device)
+    if mesh is None:
+        dev = _config.resolve_device(device)
+    else:  # the sharded runner takes host clouds and shards them itself
+        from .parallel import sharded as _sharded
+        from .parallel.mesh import rank_device
+
+        dev = rank_device(device)
     auto_schedule = voxel_sizes is None
     src_levels, tgt_levels, voxel_sizes = _prepare_levels(
-        source, target, voxel_sizes, levels, coarse_points, factor, dev)
+        source, target, voxel_sizes, levels, coarse_points, factor,
+        dev if mesh is None else "cpu", keep_device_last=mesh is None)
     level_maxiters = _fit_level_maxiters(
         level_maxiters, len(voxel_sizes), maxiter, 5, auto_schedule)
     dispatch_chunk = kwargs.pop("dispatch_chunk", None)
@@ -326,6 +341,11 @@ def registration_cpd_pyramid(
     for i, (s_i, t_i) in enumerate(zip(src_levels, tgt_levels)):
         def _run(mi, warm, s_i=s_i, t_i=t_i):
             tf_c, s2_c = warm
+            if mesh is not None:
+                return _sharded.registration_cpd_sharded(
+                    s_i, t_i, tf_type_name, w=w, maxiter=mi, tol=tol,
+                    mesh=mesh, tf_init_params=tf_c or None,
+                    sigma2_init=s2_c, device=dev, **kwargs)
             return _cpd.registration_cpd(
                 s_i, t_i, tf_type_name, w=w, maxiter=mi, tol=tol,
                 callbacks=callbacks, tf_init_params=tf_c or None,

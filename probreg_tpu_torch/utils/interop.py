@@ -123,9 +123,15 @@ def config_from_reference(fields: Mapping[str, Any]) -> "_config.Config":
 
     ``fields`` is e.g. ``dataclasses.asdict(probreg_tpu.config.config)``.
     Fields of the JAX Config the port does not have (TPU-only knobs) and
-    ``dtype`` (a JAX dtype object) are left out; every other field keeps
-    the port's default.
+    ``dtype`` (a JAX dtype object) are left out; ``cpd_stash_max_bytes``
+    becomes ``stash_max_bytes`` (the same cap on the CPD stash); every
+    other field keeps the port's default.
     """
     own = {f.name for f in dataclasses.fields(_config.Config)}
-    kept = {k: v for k, v in fields.items() if k in own and k != "dtype"}
-    return _config.Config(**kept)
+    kept = {_RENAMED.get(k, k): v for k, v in fields.items()}
+    return _config.Config(**{k: v for k, v in kept.items()
+                             if k in own and k != "dtype"})
+
+
+# JAX Config fields that the port keeps under another name.
+_RENAMED = {"cpd_stash_max_bytes": "stash_max_bytes"}

@@ -82,10 +82,10 @@ def test_streaming_culled_branch_matches_reference(monkeypatch):
     calls, frac = [], []
     orig = pec.stash_estep_plain
 
-    def spy(ys, xs, scal, mask, tile_m, tile_n):
+    def spy(ys, xs, scal, mask, tile_m, tile_n, reduce_den=None):
         calls.append(1)
         frac.append(float(mask.float().mean()))
-        return orig(ys, xs, scal, mask, tile_m, tile_n)
+        return orig(ys, xs, scal, mask, tile_m, tile_n, reduce_den)
 
     monkeypatch.setattr(pec, "stash_estep_plain", spy)
     src, tgt, rot = _problem()
@@ -192,6 +192,11 @@ def test_carry_across_config():
                  "pallas_min_pairs"):
         assert getattr(cfg, knob) == getattr(jcfg.config, knob), knob
         assert getattr(pcfg.Config(), knob) == getattr(jcfg.Config(), knob)
+    # The CPD stash cap carries into stash_max_bytes, which estep_auto and
+    # the sharded culled runners read with the reference's contract.
+    assert cfg.stash_max_bytes == jcfg.config.cpd_stash_max_bytes
+    fields["cpd_stash_max_bytes"] = 12345
+    assert interop.config_from_reference(fields).stash_max_bytes == 12345
     assert cfg.dtype == torch.float32 and cfg.device == "cuda"
 
 

@@ -960,3 +960,157 @@ def test_gmmtree_batch_is_one_launch_of_each_and_equals_single(dev,
         assert torch.equal(r.transformation.rot,
                            single[0].T)
     torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------------
+# K11 (stash_den_raw, stash_finish) and the sharded runners
+# --------------------------------------------------------------------------
+
+def _shard_dens(shards, xs, scal, tile_n):
+    """Each stripe's raw column sums over every source shard, from K11 runs
+    that finalize locally (the all_reduce of one process's shards)."""
+    totals = []
+    for ys, tm, mask in shards:
+        seen = []
+        pec.stash_estep(ys, xs, scal, mask, tm, tile_n,
+                        reduce_den=lambda d: seen.append(d.clone()))
+        totals = seen if not totals else [a + b for a, b in zip(totals, seen)]
+    return totals
+
+
+@pytest.mark.parametrize("sigma2", [0.5, 0.01])
+@pytest.mark.parametrize("tile_m,tile_n", [(96, 256), (512, 1024)])
+def test_stash_den_raw_kernel_matches_plain(dev, sigma2, tile_m, tile_n):
+    """K11's raw column sums per stripe against stash_den_raw_plain, and
+    K11 + stash_finish + K3b against the plain version, with stripes that
+    have no active tile (the far cluster)."""
+    m, n = 3000, 2500
+    ys, xs = _cloud(m, 3, dev), _cloud(n, 4, dev, far=700)
+    scal = pec._scalars(sigma2, 0.05, m, n, 3, dev)
+    mask = pec._active_mask(*pec._tile_bounds(ys, tile_m),
+                            *pec._tile_bounds(xs, tile_n), scal[0])
+    dens = []
+    before = dict(pec.LAUNCHES)
+    got = pec.stash_estep(ys, xs, scal, mask, tile_m, tile_n,
+                          reduce_den=lambda d: dens.append(d.clone()))
+    n_j = mask.shape[1]
+    made = {k: pec.LAUNCHES[k] - before[k] for k in before}
+    assert made == {**{k: 0 for k in before}, "stash_den_raw": n_j,
+                    "stash_finish": n_j, "stash_moment": n_j}
+    y2, x2 = (ys * ys).sum(1), (xs * xs).sum(1)
+    for j, den in enumerate(dens):
+        cols = slice(j * tile_n, (j + 1) * tile_n)
+        act = mask[:, j].repeat_interleave(tile_m)[:m]
+        _, want = pec.stash_den_raw_plain(ys, y2, xs[cols], x2[cols], scal,
+                                          act, mask.shape[0], tile_m)
+        _close(den, want, f"den_raw stripe {j}")
+    want = pec.stash_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
+    for name, a, b in zip(("pt1", "p1", "px", "xx"), got, want):
+        _close(a, b, name)
+
+
+@pytest.mark.parametrize("sigma2", [0.5, 0.01, 1e-3])
+def test_stash_den_raw_one_shard_equals_k3_bit_for_bit(dev, sigma2):
+    """At one m-shard (the reduction is the identity), K11 + stash_finish
+    + K3b give K3's pt1, p1, px and xx bit for bit: pass A's code is
+    shared."""
+    m, n = 4000, 3000
+    ys, xs = _cloud(m, 8, dev), _cloud(n, 9, dev, far=500)
+    scal = pec._scalars(sigma2, 0.05, m, n, 3, dev)
+    mask = pec._active_mask(*pec._tile_bounds(ys, 512),
+                            *pec._tile_bounds(xs, 1024), scal[0])
+    k3 = pec.stash_estep(ys, xs, scal, mask, 512, 1024)
+    k11 = pec.stash_estep(ys, xs, scal, mask, 512, 1024,
+                          reduce_den=lambda d: None)
+    for name, a, b in zip(("pt1", "p1", "px", "xx"), k11, k3):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("parts,m", [(2, 3000), (4, 3000), (4, 9)])
+def test_stash_den_raw_sharded_sum_matches_k3(dev, parts, m):
+    """The source in ``parts`` shards (9 rows in 4 leave the last shard
+    empty: 3, 3, 3, 0), their raw sums added per stripe: the shards' p1 /
+    px together, and every shard's pt1 and xx, equal the unsharded K3
+    E-step within the kernel tolerance."""
+    from probreg_tpu_torch.parallel.mesh import shard_range
+
+    n = 2500
+    ys, xs = _cloud(m, 10, dev), _cloud(n, 11, dev, far=300)
+    scal = pec._scalars(0.01, 0.05, m, n, 3, dev)
+    tm0 = min(256, pec._round_up(m, 8))
+    want = pec.stash_estep(ys, xs, scal, pec._active_mask(
+        *pec._tile_bounds(ys, tm0), *pec._tile_bounds(xs, 512), scal[0]),
+        tm0, 512)
+    shards, rows = [], []
+    for i in range(parts):
+        r0, r1 = shard_range(m, parts, i)
+        y = ys[r0:r1]
+        tm = max(8, min(256, pec._round_up(y.shape[0], 8)))
+        shards.append((y, tm, pec._active_mask(
+            *pec._tile_bounds(y, tm), *pec._tile_bounds(xs, 512), scal[0])))
+        rows.append((r0, r1))
+    assert (shards[-1][0].shape[0] == 0) == (m == 9)
+    totals = _shard_dens(shards, xs, scal, 512)
+    p1, px = torch.zeros_like(want[1]), torch.zeros_like(want[2])
+    for (y, tm, mask), (r0, r1) in zip(shards, rows):
+        it = iter(totals)
+        got = pec.stash_estep(y, xs, scal, mask, tm, 512,
+                              reduce_den=lambda d: d.copy_(next(it)))
+        p1[r0:r1], px[r0:r1] = got[1], got[2]
+        _close(got[0], want[0], "pt1")
+        _close(got[3], want[3], "xx")
+    _close(p1, want[1], "p1")
+    _close(px, want[2], "px")
+
+
+@pytest.fixture
+def nccl_world_one(dev, tmp_path):
+    """A process group of one rank under NCCL (file:// rendezvous)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            world_size=1, rank=0)
+    yield
+    dist.destroy_process_group()
+
+
+def test_sharded_runners_on_one_nccl_rank(dev, nccl_world_one, monkeypatch):
+    """registration_cpd_sharded on a 1-D mesh and registration_cpd_2d on a
+    1 x 1 mesh, culled, at 20k points: the 2-D run goes through K11 (one
+    den reduction per stripe and E-step) and never K3a, the 1-D run through
+    K3; both equal the plain-driven run of the same runner within 1e-4 and
+    each other within 1e-4 (tile sizes and the reduction differ)."""
+    from probreg_tpu_torch.parallel import make_mesh, make_mesh_2d, mesh
+    from probreg_tpu_torch.parallel import sharded, sharded2d
+
+    rng = np.random.default_rng(12)
+    src = rng.uniform(-1, 1, (20_000, 3)).astype(np.float32)
+    c, s = np.cos(0.1), np.sin(0.1)
+    rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    tgt = (src @ rot.T + 0.05).astype(np.float32)
+    kw = dict(maxiter=15, tol=0.0, use_culled=True, device=dev)
+    one_d, two_d = make_mesh(), make_mesh_2d(1, 1)
+    runs = {}
+    for name, fn, m in (("1d", sharded.registration_cpd_sharded, one_d),
+                        ("2d", sharded2d.registration_cpd_2d, two_d)):
+        pec.reset_launches()
+        mesh.reset_counts()
+        runs[name] = fn(src, tgt, "rigid", mesh=m, **kw)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in pec.LAUNCHES.items() if v}
+        assert mesh.COUNTS["esteps"] == 15
+        if name == "2d":
+            assert set(got) == {"stash_den_raw", "stash_finish",
+                                "stash_moment"}
+            assert got["stash_den_raw"] == mesh.COUNTS["den_all_reduce"]
+        else:
+            assert set(got) == {"stash_den", "stash_moment"}
+    for a, b in ((runs["1d"], runs["2d"]),):
+        assert float((a.transformation.rot - b.transformation.rot)
+                     .abs().max()) <= 1e-4
+        assert float((a.transformation.t - b.transformation.t)
+                     .abs().max()) <= 1e-4
+    monkeypatch.setattr(pec, "stash_estep", pec.stash_estep_plain)
+    plain = sharded2d.registration_cpd_2d(src, tgt, "rigid", mesh=two_d, **kw)
+    assert float((plain.transformation.rot - runs["2d"].transformation.rot)
+                 .abs().max()) <= 1e-4

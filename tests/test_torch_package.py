@@ -37,9 +37,26 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import probreg_tpu_torch.gmmtree, probreg_tpu_torch.ops.gmmtree_cuda\n"
         "import probreg_tpu_torch.ops.sym3\n"
         "import probreg_tpu_torch.pyramid\n"
+        "import probreg_tpu_torch.parallel, probreg_tpu_torch.parallel.mesh\n"
+        "import probreg_tpu_torch.parallel.sharded\n"
+        "import probreg_tpu_torch.parallel.sharded2d\n"
+        "import probreg_tpu_torch.parallel._spmd\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'probreg_tpu' or m.startswith('probreg_tpu.')]\n"
         "assert not bad, bad\n"
+        "from probreg_tpu_torch import parallel as par\n"
+        "for name in ('registration_filterreg_sharded',\n"
+        "             'registration_bcpd_sharded',\n"
+        "             'registration_gmmtree_sharded',\n"
+        "             'registration_gmmreg_sharded',\n"
+        "             'registration_svr_sharded',\n"
+        "             'registration_filterreg_2d', 'registration_bcpd_2d'):\n"
+        "    try:\n"
+        "        getattr(par, name)()\n"
+        "    except NotImplementedError as e:\n"
+        "        assert 'Queue 1 item 12' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError(name)\n"
         "import torch\n"
         "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
         "assert torch.backends.cudnn.allow_tf32 is False\n")

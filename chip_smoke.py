@@ -11,8 +11,8 @@ before it and read just after:
 
 * rigid CPD at 150,000 points (examples/largescale_rigid.py: uniform in
   [-1, 1]^3, seed 0, Euler (3, -2, 5) degrees, maxiter 40, tol 1e-8):
-  the streaming EM with the tile-culled stash kernels (stash_den,
-  stash_moment);
+  the streaming EM with the tile-culled E-step kernels (stash_den,
+  stash_moment: one launch each per E-step, no stash);
 * the same clouds with use_pallas=True at a smaller depth: the streaming EM
   with the two-pass kernels (fused_den, fused_moment);
 * the public E-step on a 1,000-point pair (RigidCPD.expectation_step):
@@ -39,7 +39,7 @@ before it and read just after:
   fixture: blobby_surface(100_000, seed=2), deformed by 0.02 sin(3x) [1,
   0.5, -0.3] and rotated by Euler (8, -4, 6) degrees; rank 64, maxiter 50,
   tol 1e-4, one level): each VI iteration runs the row-weighted culled
-  E-step kernels (wstash_den, wstash_moment) once per target stripe;
+  E-step kernels (wstash_den, wstash_moment) once each, no stash;
 * GMMTree (tree_level 2, maxiter 20, tol 1e-4 unless named): the bunny of
   examples/gmmtree_rigid.py and bench.py's bunny pair; 32 copies of that
   pair (benchmarks/bench_full.py) and the 256 ragged horse pairs (maxiter
@@ -52,17 +52,18 @@ before it and read just after:
 * the coarse-to-fine CPD pyramid (examples/pyramid_rigid.py:
   blobby_surface(n, seed=0), the target moved by Euler (5, 8, 12) degrees
   and t = (0.05, -0.03, 0.08); levels 3, tol 1e-4) at 200,000 and
-  1,000,000 points, once through the stash kernels (stash_den,
+  1,000,000 points, once through the default E-step kernels (stash_den,
   stash_moment) and once with config.use_merged_stash through the
-  pipelined stash kernel (stash_merged, with stash_moment closing each
-  E-step); the affine CPD pyramid at 200,000 points (test_pyramid_affine's
-  map); and the ICP, FilterReg (pt2pt) and GMMTree pyramids at 200,000
-  points, and the BCPD pyramid at 100,000 points (bench_bcpd_guarded.py:
-  rank 64, maxiter 50, tol 1e-4, 4 levels);
+  pipelined stash kernel (stash_merged, with the per-stripe pass B,
+  stripe_moment, closing each E-step); the affine CPD pyramid
+  at 200,000 points (test_pyramid_affine's map); and the ICP, FilterReg
+  (pt2pt) and GMMTree pyramids at 200,000 points, and the BCPD pyramid at
+  100,000 points (bench_bcpd_guarded.py: rank 64, maxiter 50, tol 1e-4, 4
+  levels);
 * the sharded CPD runners (probreg_tpu_torch.parallel) on the 150k pair,
   culled, 40 iterations: on one NCCL rank, registration_cpd_sharded on a
   1-D mesh (stash_den, stash_moment per shard) and registration_cpd_2d on
-  a 1 x 1 mesh (stash_den_raw, stash_finish, stash_moment: one den
+  a 1 x 1 mesh (stash_den_raw, stash_finish, stripe_moment: one den
   all_reduce per stripe); then four ranks on the one card under gloo, a
   check of the cross-shard collectives and not a 4-card figure: 2 x 2
   registration_cpd_2d (K11 in every rank), 1-D x 4
@@ -121,6 +122,10 @@ KERNELS = {
     # K11's finalisation: jnp code between the psum and pass B in the
     # reference (fused_stash_core_spmd), a hand-written kernel here.
     "stash_finish": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:906"),
+    # The per-stripe pass B that reads the stash back (K11's pass B, called
+    # at estep_pallas.py:874, and K12's epilogue): the same Pallas body as
+    # stash_moment, a kernel of its own here.
+    "stripe_moment": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:429"),
     "em_rigid": (_EM_CU, "probreg_tpu/ops/em_pallas.py:262"),
     "em_affine": (_EM_CU, "probreg_tpu/ops/em_pallas.py:262"),
     "fused_den": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:87"),
@@ -387,34 +392,37 @@ def estep_regimes(dev, shared):
     return regimes
 
 
-def plain_pass_times(ys, xs, scal, mask, tile_m, tile_n, recompute):
+def plain_pass_times(ys, xs, scal, mask, tile_m, tile_n):
     """ms of the plain passes A and B over all stripes, each stripe between
-    its own events. ``recompute``: pass B forms the stripe's Gaussian again
-    (the two-pass kernels' plain version) instead of keeping pass A's."""
+    its own events: (pass A, pass B from pass A's g, pass B forming the
+    stripe's Gaussian again). The second is the cheaper plain form (it
+    keeps a stripe's g in memory), the third does the kernels' work."""
     from probreg_tpu_torch.ops import estep_cuda as ec
 
     m = ys.shape[0]
     y2, x2 = (ys * ys).sum(1), (xs * xs).sum(1)
-    pa = pb = 0.0
+    pa = pb = pb_again = 0.0
     for j in range(mask.shape[1]):
         c0 = j * tile_n
         x, xj2 = xs[c0:c0 + tile_n], x2[c0:c0 + tile_n]
         act = mask[:, j].repeat_interleave(tile_m)[:m]
         args = (ys, y2, x, xj2, scal, act, mask.shape[0], tile_m)
-        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         e[0].record()
         g, inv_den, _, _ = ec._plain_pass_a(*args)
         e[1].record()
-        if recompute:
-            del g
-            g = ec._plain_pass_a(*args)[0]
         ec._plain_pass_b(g, inv_den, x)
         e[2].record()
+        del g
+        g = ec._plain_pass_a(*args)[0]
+        ec._plain_pass_b(g, inv_den, x)
+        e[3].record()
         torch.cuda.synchronize()
         pa += e[0].elapsed_time(e[1])
         pb += e[1].elapsed_time(e[2])
+        pb_again += e[2].elapsed_time(e[3])
         del g
-    return pa, pb
+    return pa, pb, pb_again
 
 
 def estep_pass_bounds(m, n, pairs):
@@ -431,12 +439,27 @@ def estep_pass_bounds(m, n, pairs):
                   pairs * (FLOPS_GAUSS - 1 + FLOPS_MOMENTS)))
 
 
+def estep_peak_mib(fn):
+    """MiB of device memory that one call of ``fn`` allocates at its peak
+    above what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
 def check_pass_kernels(dev, kernels, shared, names, core, plain, plan_cls,
-                       label, recompute):
+                       label, record):
     """Shared body of check_stash and check_fused_estep: a pair of pass
-    kernels against their plain version in both regimes, then timed
-    against estep_pass_bounds. ``recompute``: pass B forms the Gaussian
-    again (K4) and K3's times on the same inputs are printed beside."""
+    kernels (one launch per pass each) against their plain version in both
+    regimes, then timed against estep_pass_bounds, with the peak device
+    memory of one E-step. ``record``: keep these times (K3's) in
+    ``shared``; otherwise print K3's times on the same inputs beside.
+    Both plain forms of pass B are printed; the kernels line takes the one
+    each kernel has been held to since its port, K3's from pass A's g and
+    K4's with the Gaussian formed again."""
     out = {}
     stash_ms = shared.setdefault("stash_ms", {})  # K3's times, for K4's log
     for (regime, sigma2, ys, xs, scal, mask, tile_m, tile_n,
@@ -453,28 +476,30 @@ def check_pass_kernels(dev, kernels, shared, names, core, plain, plan_cls,
         err_b = max(compare("p1", got[1], want[1]),
                     compare("px", got[2], want[2]))
         del got, want
+        peak = estep_peak_mib(lambda: core(ys, xs, scal, mask, tile_m,
+                                           tile_n))
         plan = plan_cls(ys, xs, scal, mask, tile_m, tile_n)
-        if recompute:  # one launch per pass
-            ms_a, ms_b = timed(plan.den, 5), timed(plan.moment, 5)
-        else:          # one launch per stripe and pass
-            stripes = range(plan.n_j)
-            ms_a = timed(lambda: [plan.den(j) for j in stripes], 5)
-            ms_b = timed(lambda: [plan.moment(j) for j in stripes], 5)
+        ms_a, ms_b = timed(plan.den, 5), timed(plan.moment, 5)
         del plan
-        pa, pb = plain_pass_times(ys, xs, scal, mask, tile_m, tile_n,
-                                  recompute)
+        pa, pb_g, pb_again = plain_pass_times(ys, xs, scal, mask, tile_m,
+                                              tile_n)
+        pb = pb_g if record else pb_again
         ba, bb = estep_pass_bounds(m, n, pairs)
         beside = ""
-        if recompute:
+        if record:
+            stash_ms[regime] = (ms_a, ms_b)
+        else:
             k3 = stash_ms[regime]
             beside = (f"  [K3 on the same inputs: pass A {k3[0]:.3f} ms, "
                       f"pass B {k3[1]:.3f} ms]")
-        else:
-            stash_ms[regime] = (ms_a, ms_b)
+        log(f"  one E-step: peak device memory {peak:.3f} MiB above its "
+            f"inputs ({m:,} x {tile_n} f32 would be "
+            f"{4 * m * tile_n / 2**20:.1f} MiB)")
         log(f"  pass A kernel {ms_a:.3f} ms  plain {pa:.3f} ms  bound "
             f"{ba[0]:.3f} ms ({ba[1]})")
-        log(f"  pass B kernel {ms_b:.3f} ms  plain {pb:.3f} ms  bound "
-            f"{bb[0]:.3f} ms ({bb[1]}){beside}")
+        log(f"  pass B kernel {ms_b:.3f} ms  plain {pb_g:.3f} ms from pass "
+            f"A's g, {pb_again:.3f} ms forming it again  bound {bb[0]:.3f} "
+            f"ms ({bb[1]}){beside}")
         out[regime] = (err_a, err_b, ms_a, ms_b, pa, pb, ba, bb)
     # The kernels line carries the dense E-step (the first iterations of
     # the 150k run); the culled numbers are printed above.
@@ -489,12 +514,13 @@ def check_pass_kernels(dev, kernels, shared, names, core, plain, plan_cls,
 
 def check_stash(dev, kernels, shared):
     """K3 on the 150k clouds for one E-step, dense (sigma2_0) and culled
-    (an annealed sigma2), against the plain version."""
+    (an annealed sigma2), against the plain version: one launch per pass,
+    no stash."""
     from probreg_tpu_torch.ops import estep_cuda as ec
 
     check_pass_kernels(dev, kernels, shared, ("stash_den", "stash_moment"),
                        ec.stash_estep, ec.stash_estep_plain, ec.StashPlan,
-                       "K3 stash", recompute=False)
+                       "K3", record=True)
 
 
 def check_fused_estep(dev, kernels, shared):
@@ -503,15 +529,16 @@ def check_fused_estep(dev, kernels, shared):
 
     check_pass_kernels(dev, kernels, shared, ("fused_den", "fused_moment"),
                        ec.fused_core, ec.fused_estep_plain, ec.FusedPlan,
-                       "K4 two-pass", recompute=True)
+                       "K4 two-pass", record=False)
 
 
 def check_stash_merged(dev, kernels, shared):
     """K12 on the 150k clouds for one E-step, dense and culled: against its
     plain version (compare()'s tolerance), and against K3 on the same
-    inputs: pt1 and xx equal bit for bit (pass A is K3a's code), p1 and px
-    within 1e-5 of their largest entry (the normalizer is folded into the
-    channels). Timed per E-step: n_j launches of K12 and the K3b epilogue.
+    inputs: pt1 and xx equal bit for bit (the same per-tile sums in the
+    same order), p1 and px within 1e-5 of their largest entry (the
+    normalizer is folded into the channels). Timed per E-step: n_j
+    launches of K12 and the per-stripe pass B epilogue (stripe_moment).
     The bound is the whole E-step's from its own inputs and outputs (both
     clouds read once; pt1, xx, p1 and px written once) and 12 + 8
     operations per active pair, the Gaussian formed once; the stash is the
@@ -531,7 +558,7 @@ def check_stash_merged(dev, kernels, shared):
         torch.cuda.synchronize()
         made = {k: ec.LAUNCHES[k] - before[k] for k in before}
         if made != {**{k: 0 for k in before}, "stash_merged": n_j,
-                    "stash_moment": 1}:
+                    "stripe_moment": 1}:
             raise AssertionError(f"K12 E-step made launches {made}")
         want = ec.stash_merged_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
         torch.cuda.synchronize()
@@ -855,10 +882,11 @@ def run_large_registration(dev, launches):
         f"{sigma2:.6g}, rotation error {err:.3e} rad")
     log(f"  active tile fraction: first E-step {float(masks[0]):.4f}, "
         f"last {float(masks[-1]):.4f}; peak memory {peak / 2**30:.3f} GiB")
-    if not got["stash_den"] > 0:
-        raise AssertionError("the main path did not launch the stash kernels")
-    expect_launches("150k registration", stash_den=got["stash_den"],
-                    stash_moment=got["stash_den"])
+    if not masks:
+        raise AssertionError("the main path ran no culled E-step")
+    # One launch of each pass per E-step.
+    expect_launches("150k registration", stash_den=len(masks),
+                    stash_moment=len(masks))
     if not (math.isfinite(sigma2) and err <= ROT_ERR_MAX):
         raise AssertionError(f"150k registration wrong: rotation error {err}")
     # The same registration with every stash E-step run by the plain
@@ -1803,10 +1831,10 @@ def check_wstash(dev, kernels):
         sc = torch.stack([inv2s2, torch.tensor(w_over_n, device=dev),
                           torch.tensor(torch.finfo(torch.float32).eps,
                                        device=dev)])
+        peak = estep_peak_mib(lambda: bc.wstash_estep(
+            ys, xs, rowlog, v_t, sc, mask, tile_m, tile_n))
         plan = bc.WStashPlan(ys, xs, rowlog, v_t, sc, mask, tile_m, tile_n)
-        stripes = range(plan.n_j)
-        ms_a = timed(lambda: [plan.den(j) for j in stripes], 3)
-        ms_b = timed(lambda: [plan.moment(j) for j in stripes], 3)
+        ms_a, ms_b = timed(plan.den, 3), timed(plan.moment, 3)
         del plan
         pa, pb = wstash_plain_times(ys, xs, rowlog, v_t, sc, mask, tile_m,
                                     tile_n)
@@ -1815,6 +1843,9 @@ def check_wstash(dev, kernels):
         ba = bound(16 * m + 12 * n + 8 * n, pairs * fa)
         bb = bound(16 * m + 12 * n + 4 * (c + 1) * n + 4 * (c + 2) * m,
                    pairs * fb)
+        log(f"  one E-step: peak device memory {peak:.3f} MiB above its "
+            f"inputs ({m:,} x {tile_n} f32 would be "
+            f"{4 * m * tile_n / 2**20:.1f} MiB)")
         log(f"  pass A kernel {ms_a:.3f} ms  plain {pa:.3f} ms  bound "
             f"{ba[0]:.3f} ms ({ba[1]})")
         log(f"  pass B kernel {ms_b:.3f} ms  plain {pb:.3f} ms  bound "
@@ -1864,8 +1895,8 @@ def wstash_plain_times(ys, xs, rowlog, v_t, scal, mask, tile_m, tile_n):
 
 
 def run_bcpd_large(dev, launches):
-    """registration_bcpd at 100k, rank 64: every E-step through K8 (two
-    launches per target stripe), no plain-version call; quality by the
+    """registration_bcpd at 100k, rank 64: every E-step through K8 (one
+    launch of each pass), no plain-version call; quality by the
     full-target NN-RMSE; then 3 iterations against the plain-driven run."""
     from probreg_tpu_torch import bcpd
     from probreg_tpu_torch.ops import bcpd_cuda as bc
@@ -1901,11 +1932,10 @@ def run_bcpd_large(dev, launches):
     finally:
         bc.cull_mask, bc.wstash_estep_plain = cull, plain
     peak = torch.cuda.max_memory_allocated()
-    stripes = -(-N_BCPD // 1024)
     launches.update(wstash_den=got["wstash_den"],
                     wstash_moment=got["wstash_moment"])
-    expect_launches("100k BCPD", wstash_den=len(masks) * stripes,
-                    wstash_moment=len(masks) * stripes)
+    expect_launches("100k BCPD", wstash_den=len(masks),
+                    wstash_moment=len(masks))
     src_t = torch.as_tensor(src, device=dev)
     tgt_t = torch.as_tensor(tgt, device=dev)
     before = float(mu.compute_rmse(src_t, tgt_t))
@@ -2882,12 +2912,16 @@ def check_stash_raw(dev, kernels, shared):
     clouds cut to a 2 x 2 rank's shapes: source and target shard 0 of the
     centred, Morton-sorted clouds (75,000 points each), tiles 512 x 512
     (registration_cpd_2d's), dense and culled as estep_regimes. Each
-    stripe's raw sums against stash_den_raw_plain, and K11 + finish + K3b
-    against the plain E-step (compare()); at one m-shard the same bit for
-    bit as K3; the two m-shards of the mesh (the source's halves) with
-    their raw sums added, against the unsharded K3 E-step (compare()).
-    Timed per E-step (n_j launches each); K11's bound is K3a's per-pass
-    bound on the shard's shapes, the finish's its columns' bytes."""
+    stripe's raw sums against stash_den_raw_plain, and K11 + finish + the
+    per-stripe pass B against the plain E-step (compare()); at one m-shard
+    the same bit for bit as K3 (two launches, no stash); the two m-shards
+    of the mesh (the source's halves) with their raw sums added, against
+    the unsharded K3 E-step (compare()). Timed per E-step (n_j launches
+    each), and so is the per-stripe pass B that reads K11's stash back
+    (stripe_moment) against its plain version from the stripe's g; K11's
+    bound is K3's pass-A bound on the shard's shapes, the per-stripe pass
+    B's K3's pass-B bound there (the stash is the route's intermediate and
+    is not charged), the finish's its columns' bytes."""
     from probreg_tpu_torch.ops import estep_cuda as ec
 
     out = {}
@@ -2922,14 +2956,14 @@ def check_stash_raw(dev, kernels, shared):
         want = ec.stash_estep_plain(ysl, xsl, scal, mask, t, t)
         err_fin = max(compare("pt1", got[0], want[0]),
                       compare("xx", got[3], want[3]))
-        compare("p1", got[1], want[1])
-        compare("px", got[2], want[2])
+        err_mom = max(compare("p1", got[1], want[1]),
+                      compare("px", got[2], want[2]))
         k3 = ec.stash_estep(ysl, xsl, scal, mask, t, t)
         same = all(torch.equal(a, b) for a, b in zip(got, k3))
-        log(f"  one m-shard: K11 + finish + K3b against K3: pt1, p1, px, xx "
-            f"{'equal bit for bit' if same else 'NOT equal'}")
+        log(f"  one m-shard: K11 + finish + per-stripe pass B against K3: "
+            f"pt1, p1, px, xx {'equal bit for bit' if same else 'NOT equal'}")
         if not same:
-            raise AssertionError("K11 + finish + K3b differ from K3")
+            raise AssertionError("K11 + finish + pass B differ from K3")
         del want, k3
         # The m-group of target shard 0: both source halves.
         halves = []
@@ -2959,26 +2993,33 @@ def check_stash_raw(dev, kernels, shared):
         compare("p1", torch.cat([p[1] for p in parts]), whole[1])
         compare("px", torch.cat([p[2] for p in parts]), whole[2])
         del parts, whole, totals, halves
-        plan = ec.StashPlan(ysl, xsl, scal, mask, t, t)
+        plan = ec.StripeStashPlan(ysl, xsl, scal, mask, t, t)
         stripes = range(plan.n_j)
         ms_raw = timed(lambda: [plan.den_raw(j) for j in stripes], 5)
         ms_fin = timed(lambda: [plan.finish(j) for j in stripes], 5)
+        # The stash and inv_den buffers hold the last stripe's values; each
+        # stripe's pass B reads its own active tiles' rows of them.
+        ms_mom = timed(lambda: [plan.moment(j) for j in stripes], 5)
         del plan
-        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        plain_raw = plain_fin = 0.0
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        plain_raw = plain_fin = plain_mom = 0.0
         for j in range(n_j):
             c = slice(j * t, (j + 1) * t)
             act = mask[:, j].repeat_interleave(t)[:SHARD]
             e[0].record()
-            _, den = ec.stash_den_raw_plain(ysl, y2, xsl[c], x2[c], scal,
+            g, den = ec.stash_den_raw_plain(ysl, y2, xsl[c], x2[c], scal,
                                             act, n_i, t)
             e[1].record()
-            ec._plain_finish(den, x2[c], scal)
+            inv_den = ec._plain_finish(den, x2[c], scal)[0]
             e[2].record()
+            ec._plain_pass_b(g, inv_den, xsl[c])
+            e[3].record()
             torch.cuda.synchronize()
             plain_raw += e[0].elapsed_time(e[1])
             plain_fin += e[1].elapsed_time(e[2])
-        b_raw = estep_pass_bounds(SHARD, SHARD, pairs)[0]
+            plain_mom += e[2].elapsed_time(e[3])
+            del g
+        b_raw, b_mom = estep_pass_bounds(SHARD, SHARD, pairs)
         # The finish per column: reads den_raw and |x|^2, writes inv_den
         # and pt1 (16 B); the where, the add, the division, the product
         # and the xx term (5 operations).
@@ -2987,16 +3028,22 @@ def check_stash_raw(dev, kernels, shared):
             f"bound {b_raw[0]:.3f} ms ({b_raw[1]}); finish {ms_fin:.3f} ms "
             f" plain {plain_fin:.3f} ms  bound {b_fin[0]:.5f} ms "
             f"({b_fin[1]})")
+        log(f"  per-stripe pass B per E-step {ms_mom:.3f} ms  plain "
+            f"{plain_mom:.3f} ms  bound {b_mom[0]:.3f} ms ({b_mom[1]})")
         out[regime] = (err_raw, err_fin, ms_raw, ms_fin, plain_raw,
-                       plain_fin, b_raw, b_fin)
-    err_raw, err_fin, ms_raw, ms_fin, p_raw, p_fin, b_raw, b_fin = \
-        out["dense"]
+                       plain_fin, b_raw, b_fin, err_mom, ms_mom, plain_mom,
+                       b_mom)
+    (err_raw, err_fin, ms_raw, ms_fin, p_raw, p_fin, b_raw, b_fin, err_mom,
+     ms_mom, p_mom, b_mom) = out["dense"]
     kernels["stash_den_raw"] = dict(
         max_abs_err=max(err_raw, out["culled"][0]), ms=ms_raw,
         plain_ms=p_raw, bound_ms=b_raw[0], bound_by=b_raw[1])
     kernels["stash_finish"] = dict(
         max_abs_err=max(err_fin, out["culled"][1]), ms=ms_fin,
         plain_ms=p_fin, bound_ms=b_fin[0], bound_by=b_fin[1])
+    kernels["stripe_moment"] = dict(
+        max_abs_err=max(err_mom, out["culled"][8]), ms=ms_mom,
+        plain_ms=p_mom, bound_ms=b_mom[0], bound_by=b_mom[1])
 
 
 def rot_error(lin, rot):
@@ -3056,12 +3103,13 @@ def run_sharded_one_rank(dev, launches, shared):
             if name == "1 x 1":
                 if not (got.get("stash_den_raw", 0) > 0
                         and set(got) == {"stash_den_raw", "stash_finish",
-                                         "stash_moment"}
+                                         "stripe_moment"}
                         and got["stash_finish"] == got["stash_den_raw"]
-                        == counts["den_all_reduce"]):
+                        == got["stripe_moment"] == counts["den_all_reduce"]):
                     raise AssertionError(f"1 x 1 mesh launches {got}")
                 launches.update(stash_den_raw=got["stash_den_raw"],
-                                stash_finish=got["stash_finish"])
+                                stash_finish=got["stash_finish"],
+                                stripe_moment=got["stripe_moment"])
             elif not (got.get("stash_den", 0) > 0
                       and set(got) == {"stash_den", "stash_moment"}):
                 raise AssertionError(f"1-D mesh launches {got}")
@@ -3172,7 +3220,7 @@ def run_mesh_on_one_card(dev, launches, shared):
             raise AssertionError(f"{name} missed the bar")
         for r, o in enumerate(res):
             got = o["launches"]
-            want_set = ({"stash_den_raw", "stash_finish", "stash_moment"}
+            want_set = ({"stash_den_raw", "stash_finish", "stripe_moment"}
                         if mine == "stash_den_raw"
                         else {"stash_den", "stash_moment"})
             if not (got.get(mine, 0) > 0 and set(got) == want_set):

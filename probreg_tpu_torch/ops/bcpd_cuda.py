@@ -5,15 +5,19 @@ Counterpart of ``bcpd_estep_culled`` in probreg_tpu/ops/estep_pallas.py
 p_ij = exp(rowlog_i - d2_ij / 2s2) / den_j, den_j = w/N + sum_i exp(.)
 (den == 0 -> eps), with rowlog folding the mixing weight, the Sigma
 diagonal and the normalizer into the exponent (reference bcpd.py:53-72).
-On Morton-sorted clouds, one target stripe of ``tile_n`` columns at a
-time:
+On Morton-sorted clouds, two launches per E-step and no stash:
 
-* pass A (``wstash_den``) evaluates each active pair's exp once, stashes it
-  and forms the column normalizer and nu_d = den_raw / den;
-* pass B (``wstash_moment``) reads the stash back into the per-source
-  moments of a channel matrix V (C <= 8, N), and, with d2 recomputed from
-  the points (no exp), each source row's minimum d2 over active pairs and
+* pass A (``wstash_den``) walks each target stripe's active source tiles
+  and forms the column normalizer (per-256-row partial sums added in
+  order) and nu_d = den_raw / den;
+* pass B (``wstash_moment``) walks each source tile's active stripes and
+  forms each pair's Gaussian again: the per-source moments of a channel
+  matrix V (C <= 8, N), each source row's minimum d2 over active pairs and
   the residual-form sigma2 numerator e1 = sum p d2.
+
+The TPU kernels stash each exp between the passes; on the card the
+stash's bytes cost more than the exp. The tiles and the stash budget's
+cap on tile_n stay the reference's, so the sums keep their order.
 
 The cull mask uses the GLOBAL maximum rowlog clamped at -104: a tile pair
 is culled when max rowlog - lb2 / 2s2 < -104, so every culled pair is
@@ -39,8 +43,7 @@ from .estep_cuda import (_CUT, _EPS, _box_gap_lb2, _capped_tile_n, _check,
                          _check_points, _compact, _pack, _round_up, _stream,
                          _tile_bounds, stash_budget)
 
-_STAGE = 256        # source rows per pass-A block (csrc/wstash.cu kStage)
-_DEN_THREADS = 256  # columns per pass-A block (kDenThreads)
+_STAGE = 256        # source rows per pass-A partial (csrc/wstash.cu kStage)
 _MAX_C = 8          # channels of V (kMaxC)
 _MAX_TILE_N = 3072  # pass B keeps a stripe's columns in shared memory
 _MAX_GRID_Y = 65535
@@ -55,10 +58,10 @@ def reset_launches() -> None:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "probreg_wstash_den": [_P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P,
-                           _P, _P, _P, _P, _P],
-    "probreg_wstash_moment": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                              _P, _P, _P, _P, _P, _P],
+    "probreg_wstash_den": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P,
+                           _P, _P, _P],
+    "probreg_wstash_moment": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P,
+                              _P, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -130,37 +133,37 @@ def bcpd_estep_culled(t_source, target, rowlog, v_t, w_over_n, sigma2,
 
 def wstash_estep(ys, xs, rowlog, v_t, scal, mask, tile_m: int, tile_n: int):
     """(nu_d, mom (C, M), dmin over active pairs, e1) of the row-weighted
-    stash E-step on sorted clouds, given the (n_i, n_j) active-tile mask:
-    the kernels for CUDA tensors, the plain version for CPU tensors."""
+    E-step on sorted clouds, given the (n_i, n_j) active-tile mask: the
+    kernels for CUDA tensors (one launch per pass), the plain version for
+    CPU tensors."""
     if ys.is_cuda:
         plan = WStashPlan(ys, xs, rowlog, v_t, scal, mask, tile_m, tile_n)
-        for j in range(plan.n_j):
-            plan.den(j)
-            plan.moment(j)
+        plan.den()
+        plan.moment()
         return plan.result()
     return wstash_estep_plain(ys, xs, rowlog, v_t, scal, mask, tile_m,
                               tile_n)
 
 
 class WStashPlan:
-    """Device buffers of one row-weighted stash E-step and its per-stripe
-    launches: ``den(j)`` (pass A) writes the stash, inv_den and stripe j's
-    nu_d; ``moment(j)`` (pass B) adds into the moments, the row minima and
-    e1. A stripe's ``moment`` must follow its ``den``; stripes run in order
-    on the current stream, so one stash buffer serves them all."""
+    """Device buffers of one row-weighted E-step and its two launches:
+    ``den()`` (pass A over every stripe) writes inv_den and nu_d;
+    ``moment()`` (pass B over every source tile) writes the moments, the
+    row minima and the rows' e1 terms, and must follow ``den()``. Nothing
+    per pair is kept."""
 
     def __init__(self, ys, xs, rowlog, v_t, scal, mask, tile_m: int,
                  tile_n: int):
         (m, self.dim), n = ys.shape, xs.shape[0]
         self.n_i, self.n_j = mask.shape
-        self.stages = -(-tile_m // _STAGE)
-        if tile_n > _MAX_TILE_N or self.n_i * self.stages > _MAX_GRID_Y:
-            raise ValueError(f"tile_n={tile_n} / {self.n_i} source tiles "
-                             "exceed the row-weighted kernels' launch "
+        if tile_n > _MAX_TILE_N or max(self.n_i, self.n_j) > _MAX_GRID_Y:
+            raise ValueError(f"tile_n={tile_n} / {self.n_i} x {self.n_j} "
+                             "tiles exceed the row-weighted kernels' launch "
                              "limits")
         if tile_n % 4:
-            raise ValueError(f"tile_n={tile_n}: pass B reads the stash as "
-                             "float4, so tile_n must be a multiple of 4")
+            raise ValueError(f"tile_n={tile_n}: pass B reads a stripe's "
+                             "columns as float4, so tile_n must be a "
+                             "multiple of 4")
         if self.n_i != -(-m // tile_m) or self.n_j != -(-n // tile_n):
             raise ValueError("mask shape does not match the tiles")
         self.m, self.n, self.tile_m, self.tile_n = m, n, tile_m, tile_n
@@ -169,43 +172,31 @@ class WStashPlan:
         self.vt = v_t.to(torch.float32).contiguous()
         self.c = self.vt.shape[0]
         self.scal = scal.to(torch.float32).contiguous()
-        self.act_idx, self.act_cnt = _compact(mask)
+        self.col_idx, self.col_cnt = _compact(mask)      # per stripe
+        self.row_idx, self.row_cnt = _compact(mask.T)    # per source tile
         new = self.ys.new_empty
-        self.stash = new((self.n_i * tile_m, tile_n))
-        self.part = new((self.n_i * self.stages, tile_n))
-        self.tickets = torch.zeros(-(-tile_n // _DEN_THREADS),
-                                   dtype=torch.int32, device=ys.device)
-        self.inv_den = new(tile_n)
-        self.nud = new(n)
-        self.mom = self.ys.new_zeros((m, _MAX_C))
-        self.dmin = self.ys.new_full((m,), math.inf)
-        self.e1r = self.ys.new_zeros(m)
+        self.inv_den, self.nud = new(n), new(n)
+        self.mom = new((m, _MAX_C))
+        self.dmin, self.e1r = new(m), new(m)
         self.lib = _lib()
         self.stream = _stream(self.ys)
 
-    def _cols(self, j: int):
-        c0 = j * self.tile_n
-        return c0, min(self.tile_n, self.n - c0)
-
-    def den(self, j: int) -> None:
-        c0, ncols = self._cols(j)
+    def den(self) -> None:
         status = self.lib.probreg_wstash_den(
             self.ys.data_ptr(), self.rowlog.data_ptr(), self.m, self.tile_m,
-            self.n_i, self.xs[c0].data_ptr(), ncols, self.tile_n,
-            self.act_idx[j].data_ptr(), self.act_cnt[j].data_ptr(),
-            self.scal.data_ptr(), self.stash.data_ptr(), self.part.data_ptr(),
-            self.tickets.data_ptr(), self.inv_den.data_ptr(),
-            self.nud[c0].data_ptr(), self.stream)
+            self.n_i, self.xs.data_ptr(), self.n, self.tile_n, self.n_j,
+            self.col_idx.data_ptr(), self.col_cnt.data_ptr(),
+            self.scal.data_ptr(), self.inv_den.data_ptr(),
+            self.nud.data_ptr(), self.stream)
         _check(status, "wstash_den")
         LAUNCHES["wstash_den"] += 1
 
-    def moment(self, j: int) -> None:
-        c0, ncols = self._cols(j)
+    def moment(self) -> None:
         status = self.lib.probreg_wstash_moment(
-            self.ys.data_ptr(), self.xs[c0].data_ptr(),
-            self.vt.data_ptr() + 4 * c0, self.n, self.c, ncols, self.tile_n,
-            self.m, self.tile_m, self.n_i, self.act_idx[j].data_ptr(),
-            self.act_cnt[j].data_ptr(), self.stash.data_ptr(),
+            self.ys.data_ptr(), self.rowlog.data_ptr(), self.m, self.tile_m,
+            self.n_i, self.xs.data_ptr(), self.vt.data_ptr(), self.c, self.n,
+            self.tile_n, self.n_j, self.row_idx.data_ptr(),
+            self.row_cnt.data_ptr(), self.scal.data_ptr(),
             self.inv_den.data_ptr(), self.mom.data_ptr(),
             self.dmin.data_ptr(), self.e1r.data_ptr(), self.stream)
         _check(status, "wstash_moment")

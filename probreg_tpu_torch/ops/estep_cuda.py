@@ -5,30 +5,39 @@ path, with their helpers:
 
 * ``estep_small``: the whole E-step in one launch for M * N <= 2^20
   (replaces ``_small_kernel``).
-* ``estep_auto``: the single-exp, tile-culled stash E-step on Morton-sorted
-  clouds, one target stripe of ``tile_n`` columns at a time: pass A
-  (``stash_den``, replaces ``_stash_den_kernel``) evaluates each active
-  pair's exp once, stashes it and forms the column normalizer, pt1 and xx;
-  pass B (``stash_moment``, replaces ``_stash_moment_kernel``) reads the
-  stash back into p1 and px. With ``config.use_merged_stash`` the same
-  E-step runs pipelined (``stash_merged``, replaces
-  ``_stash_merged_kernel``): one launch per stripe runs pass A of stripe j
-  beside pass B of stripe j - 1, over two stash buffers, and one
-  ``stash_moment`` launch closes the last stripe. When even tile_n = 256
-  would put the stash over its budget, ``estep_auto`` returns the streaming
-  plain E-step (``ops/estep.estep_xla``), as the reference does.
-* ``stash_estep(..., reduce_den=)``: the same E-step on one source shard of
-  a 2-D (m, n) mesh (parallel/sharded2d.py), where a target column's
+* ``estep_auto``: the tile-culled E-step on Morton-sorted clouds (the
+  reference's stash E-step), two launches and no stash: pass A
+  (``stash_den``, replaces ``_stash_den_kernel``) walks each target stripe's
+  active source tiles and forms the column normalizer (per-tile partial
+  sums added in tile order), pt1 and xx; pass B (``stash_moment``, replaces
+  ``_stash_moment_kernel``) walks each source tile's active stripes, forms
+  each pair's Gaussian again and sums p1 and px. The TPU kernels stash each
+  exp between the passes; on the card the stash's bytes cost more than the
+  exp. With ``config.use_merged_stash`` the E-step runs pipelined with a
+  stash (``stash_merged``, replaces ``_stash_merged_kernel``): one launch
+  per stripe runs pass A of stripe j beside pass B of stripe j - 1, over
+  two stash buffers, and one launch of the per-stripe pass B
+  (``stripe_moment``) closes the last stripe. When even tile_n = 256 would
+  put that stash over its budget, ``estep_auto`` returns the streaming
+  plain E-step (``ops/estep.estep_xla``), as the reference does. The
+  default route keeps no stash but takes the same capped tiles and the
+  same fallback: the reference's rule, which both packages follow at the
+  same sizes.
+* ``stash_estep(..., reduce_den=)``: the stash E-step on one source shard
+  of a 2-D (m, n) mesh (parallel/sharded2d.py), where a target column's
   normalizer sums over every source shard: per stripe, pass A stops at the
-  raw column sums (``stash_den_raw``, replaces ``_stash_den_raw_kernel``),
-  the caller all-reduces them over the m-axis, ``stash_finish`` forms
-  inv_den, pt1 and xx from them with pass A's own code, and pass B
-  (``stash_moment``) reads the stash back.
+  raw column sums (``stash_den_raw``, replaces ``_stash_den_raw_kernel``)
+  and stashes the exps, the caller all-reduces the sums over the m-axis,
+  ``stash_finish`` forms inv_den, pt1 and xx from them, and the per-stripe
+  pass B (``stripe_moment``, also ``_stash_moment_kernel``'s counterpart)
+  reads the stash back. All routes give the default route's pt1, inv_den
+  and xx bit for bit on the same sums.
 * ``estep_fused`` / ``estep_culled``: the two-pass tile-culled E-step with
   no stash: pass A (``fused_den``, replaces ``_den_kernel``) forms the column
   normalizer, pt1 and xx, pass B (``fused_moment``, replaces
   ``_moment_kernel``) computes each active pair's exp again and sums p1 and
-  px. Each pass is one launch for the whole E-step.
+  px. Each pass is one launch for the whole E-step; the kernels are K3's
+  with one running sum per column and per row.
 
 A tile pair is culled when its box-gap bound proves that every exp in it
 underflows f32 to exactly 0 (sum_d max(0, gap_d)^2 * 0.5 / sigma2 > 104),
@@ -59,12 +68,12 @@ _CUT = 104.0
 _EPS = float(torch.finfo(torch.float32).eps)
 _DEN_THREADS = 256   # columns per pass-A block (csrc/estep.cu kDenThreads)
 _SMALL_COLS = 32     # columns per K2 block (kSmallCols)
-_MAX_TILE_N = 3072   # pass B keeps a stripe's columns in 48 KB of shared mem
+_MAX_TILE_N = 3072   # per-stripe pass B: a stripe's columns in 48 KB of smem
 _MAX_GRID_Y = 65535
 
 LAUNCHES = {"estep_small": 0, "stash_den": 0, "stash_moment": 0,
             "stash_merged": 0, "stash_den_raw": 0, "stash_finish": 0,
-            "fused_den": 0, "fused_moment": 0}
+            "stripe_moment": 0, "fused_den": 0, "fused_moment": 0}
 
 
 def reset_launches() -> None:
@@ -75,8 +84,10 @@ def reset_launches() -> None:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "probreg_estep_small": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "probreg_stash_den": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _P],
+    "probreg_stash_den": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                          _P, _P],
+    "probreg_stash_rows": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P,
+                           _P, _P],
     "probreg_stash_moment": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "probreg_stash_den_raw": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
                               _P, _P, _P],
@@ -303,7 +314,7 @@ def estep_small_plain(t_source, target, scal):
 def estep_auto(t_source: torch.Tensor, target: torch.Tensor, sigma2,
                w: float = 0.0, tile_m: int = None, tile_n: int = None,
                assume_sorted: bool = False) -> EstepMoments:
-    """Exact tile-culled E-step through the stash kernels.
+    """Exact tile-culled E-step through K3 (two launches, no stash).
 
     ``assume_sorted``: the caller guarantees both clouds are in Morton
     order (cpd.registration sorts once); the moments then come back in that
@@ -314,7 +325,9 @@ def estep_auto(t_source: torch.Tensor, target: torch.Tensor, sigma2,
     buffers, each within half the budget). Where even tile_n = 256 would
     exceed the budget, the streaming plain E-step answers instead
     (reference estep_pallas.py:1466-1479): a branch by size, which both
-    packages take at the same sizes.
+    packages take at the same sizes. The default route keeps no stash, but
+    takes the same tiles and the same branch, so that its bits match the
+    stash kernels' and its dispatch the reference's.
     """
     t_source, target = _check_points(t_source, target)
     (m, dim), n = t_source.shape, target.shape[0]
@@ -347,44 +360,112 @@ def estep_auto(t_source: torch.Tensor, target: torch.Tensor, sigma2,
 
 def stash_estep(ys, xs, scal, mask, tile_m: int, tile_n: int,
                 reduce_den=None):
-    """(pt1, p1, px, xx) of the stash E-step on sorted clouds, given the
-    (n_i, n_j) active-tile mask: the kernels for CUDA tensors, the plain
-    version for CPU tensors.
+    """(pt1, p1, px, xx) of the tile-culled E-step on sorted clouds, given
+    the (n_i, n_j) active-tile mask: the kernels for CUDA tensors (K3, one
+    launch per pass), the plain version for CPU tensors.
 
     ``reduce_den``: ys is one source shard of a 2-D mesh (reference
     ``fused_stash_core_spmd``). Each stripe's raw column sums (a (ncols,)
     tensor) go to ``reduce_den``, which all-reduces them in place over the
-    source shards before they are finalized; pass A then runs as
-    ``stash_den_raw`` and ``stash_finish``. pt1 and xx are the target
-    shard's, the same on every source shard; p1 and px the source shard's
-    sums over these columns. ys may be empty (a source shard past the end
-    of the cloud): it adds nothing and still takes part in each reduction.
+    source shards before they are finalized: per stripe, ``stash_den_raw``
+    (K11, which stashes the exps), ``stash_finish`` and the per-stripe pass
+    B. pt1 and xx are the target shard's, the same on every source shard;
+    p1 and px the source shard's sums over these columns. ys may be empty
+    (a source shard past the end of the cloud): it adds nothing and still
+    takes part in each reduction.
     """
     if not ys.is_cuda:
         return stash_estep_plain(ys, xs, scal, mask, tile_m, tile_n,
                                  reduce_den)
-    plan = StashPlan(ys, xs, scal, mask, tile_m, tile_n)
+    if reduce_den is None:
+        return StashPlan(ys, xs, scal, mask, tile_m, tile_n).run()
+    plan = StripeStashPlan(ys, xs, scal, mask, tile_m, tile_n)
     for j in range(plan.n_j):
-        if reduce_den is None:
-            plan.den(j)
-        else:
-            plan.den_raw(j)
-            reduce_den(plan.den_raw_buf[:plan._cols(j)[1]])
-            plan.finish(j)
+        plan.den_raw(j)
+        reduce_den(plan.den_raw_buf[:plan._cols(j)[1]])
+        plan.finish(j)
         plan.moment(j)
     return plan.result()
 
 
-class StashPlan:
-    """Device buffers of one stash E-step and its per-stripe launches.
+class TwoPassPlan:
+    """Device buffers of one E-step whose passes are one launch each, and
+    its launches: ``den()`` (pass A over every stripe: inv_den, pt1 and the
+    xx partials) must precede ``moment()`` (pass B over every source tile:
+    p1 and px). Nothing per pair is kept. K3 (``StashPlan``) and K4
+    (``FusedPlan``) take the same arguments; ``DEN`` and ``MOMENT`` name
+    each pass's C entry and its LAUNCHES key."""
 
-    ``den(j)`` runs pass A on stripe j (writes the stash, inv_den, pt1 and
-    xx partials), ``moment(j)`` runs pass B (adds into p1/px); a stripe's
-    ``moment`` must follow its ``den``. On a source shard, ``den_raw(j)``
-    and ``finish(j)`` split pass A around the reduction of ``den_raw_buf``.
-    Stripes run in order on the current stream, so one stash buffer serves
-    them all. Stripe j uses stash and inv_den buffer j % BUFFERS. An empty
-    source (n_i = 0) launches no pass A or pass B exps: its raw sums are 0.
+    DEN = MOMENT = None
+
+    def __init__(self, ys, xs, scal, mask, tile_m: int, tile_n: int):
+        (m, self.dim), n = ys.shape, xs.shape[0]
+        self.n_i, self.n_j = mask.shape
+        if max(self.n_i, self.n_j) > _MAX_GRID_Y:
+            raise ValueError(f"{self.n_i} x {self.n_j} tiles exceed the "
+                             "two-pass kernels' launch limits")
+        if self.n_i != -(-m // tile_m) or self.n_j != -(-n // tile_n):
+            raise ValueError("mask shape does not match the tiles")
+        self.m, self.n, self.tile_m, self.tile_n = m, n, tile_m, tile_n
+        self.ys, self.xs = _pack(ys), _pack(xs)
+        self.scal = scal.to(torch.float32).contiguous()
+        self.col_idx, self.col_cnt = _compact(mask)      # per stripe
+        self.row_idx, self.row_cnt = _compact(mask.T)    # per source tile
+        new = self.ys.new_empty
+        self.inv_den, self.pt1 = new(n), new(n)
+        self.xx_part = new((self.n_j, -(-tile_n // _DEN_THREADS)))
+        self.p1px = new((m, 4))
+        self.lib = _lib()
+        self.stream = _stream(self.ys)
+
+    def _launch(self, kernel, idx, cnt, *out) -> None:
+        entry, key = kernel
+        status = getattr(self.lib, entry)(
+            self.ys.data_ptr(), self.m, self.tile_m, self.n_i,
+            self.xs.data_ptr(), self.n, self.tile_n, self.n_j,
+            idx.data_ptr(), cnt.data_ptr(), self.scal.data_ptr(),
+            *(t.data_ptr() for t in out), self.stream)
+        _check(status, key)
+        LAUNCHES[key] += 1
+
+    def den(self) -> None:
+        self._launch(self.DEN, self.col_idx, self.col_cnt, self.inv_den,
+                     self.pt1, self.xx_part)
+
+    def moment(self) -> None:
+        self._launch(self.MOMENT, self.row_idx, self.row_cnt, self.inv_den,
+                     self.p1px)
+
+    def result(self):
+        return (self.pt1, self.p1px[:, 3], self.p1px[:, :self.dim],
+                self.xx_part.sum())
+
+    def run(self):
+        """Both launches; (pt1, p1, px, xx)."""
+        self.den()
+        self.moment()
+        return self.result()
+
+
+class StashPlan(TwoPassPlan):
+    """K3: pass A sums each active tile's rows apart and adds the tiles'
+    sums in tile order (the stash kernels' order), pass B sums each row's
+    stripes apart and adds them in stripe order, so the results equal the
+    per-stripe stash kernels' bit for bit."""
+
+    DEN = ("probreg_stash_den", "stash_den")
+    MOMENT = ("probreg_stash_rows", "stash_moment")
+
+
+class StripeStashPlan:
+    """Device buffers of the per-stripe stash E-step of a source shard (K11)
+    and its launches. ``den_raw(j)`` writes stripe j's stash and raw column
+    sums into ``den_raw_buf``, ``finish(j)`` forms inv_den, pt1 and the xx
+    partials from them (after the caller's reduction), ``moment(j)`` (the
+    per-stripe pass B) adds the stash back into p1/px. Stripes run in order
+    on the current stream, so one stash buffer serves them all. Stripe j
+    uses stash and inv_den buffer j % BUFFERS. An empty source (n_i = 0)
+    launches no pass A or pass B exps: its raw sums are 0.
     """
 
     BUFFERS = 1
@@ -420,23 +501,6 @@ class StashPlan:
         c0 = j * self.tile_n
         return c0, min(self.tile_n, self.n - c0)
 
-    def _den_args(self, j: int):
-        """Pass A's arguments for stripe j (K3a and K12 take the same)."""
-        c0, ncols = self._cols(j)
-        b = j % self.BUFFERS
-        return (self.ys.data_ptr(), self.m, self.tile_m, self.n_i,
-                self.xs[c0].data_ptr(), ncols, self.tile_n,
-                self.act_idx[j].data_ptr(), self.act_cnt[j].data_ptr(),
-                self.scal.data_ptr(), self.stash[b].data_ptr(),
-                self.part.data_ptr(), self.tickets.data_ptr(),
-                self.inv_den[b].data_ptr(), self.pt1[c0].data_ptr(),
-                self.xx_part[j].data_ptr())
-
-    def den(self, j: int) -> None:
-        status = self.lib.probreg_stash_den(*self._den_args(j), self.stream)
-        _check(status, "stash_den")
-        LAUNCHES["stash_den"] += 1
-
     def den_raw(self, j: int) -> None:
         """K11: the stash and the raw column sums of stripe j into
         den_raw_buf[:ncols], unfinalized."""
@@ -466,6 +530,7 @@ class StashPlan:
         LAUNCHES["stash_finish"] += 1
 
     def moment(self, j: int) -> None:
+        """The per-stripe pass B of stripe j (``stripe_moment``)."""
         c0, ncols = self._cols(j)
         b = j % self.BUFFERS
         if self.n_i == 0:
@@ -475,19 +540,19 @@ class StashPlan:
             self.n_i, self.act_idx[j].data_ptr(), self.act_cnt[j].data_ptr(),
             self.stash[b].data_ptr(), self.inv_den[b].data_ptr(),
             self.p1px.data_ptr(), self.stream)
-        _check(status, "stash_moment")
-        LAUNCHES["stash_moment"] += 1
+        _check(status, "stripe_moment")
+        LAUNCHES["stripe_moment"] += 1
 
     def result(self):
         return (self.pt1, self.p1px[:, 3], self.p1px[:, :self.dim],
                 self.xx_part.sum())
 
 
-class MergedStashPlan(StashPlan):
+class MergedStashPlan(StripeStashPlan):
     """Device buffers of one pipelined stash E-step (K12): two stash and
     inv_den buffers. ``merged(j)`` runs pass A on stripe j and, from
     j = 1 on, pass B on stripe j - 1, in one launch; after the last
-    stripe, ``moment(n_j - 1)`` (K3b) closes it."""
+    stripe, ``moment(n_j - 1)`` (the per-stripe pass B) closes it."""
 
     BUFFERS = 2
 
@@ -507,16 +572,25 @@ class MergedStashPlan(StashPlan):
             prev = (self.xs.data_ptr(), 0, self.act_idx[0].data_ptr(),
                     self.no_stripe.data_ptr(), self.stash[1].data_ptr(),
                     self.inv_den[1].data_ptr())
+        c0, ncols = self._cols(j)
+        b = j % self.BUFFERS
         status = self.lib.probreg_stash_merged(
-            *self._den_args(j), *prev, self.p1px.data_ptr(), self.stream)
+            self.ys.data_ptr(), self.m, self.tile_m, self.n_i,
+            self.xs[c0].data_ptr(), ncols, self.tile_n,
+            self.act_idx[j].data_ptr(), self.act_cnt[j].data_ptr(),
+            self.scal.data_ptr(), self.stash[b].data_ptr(),
+            self.part.data_ptr(), self.tickets.data_ptr(),
+            self.inv_den[b].data_ptr(), self.pt1[c0].data_ptr(),
+            self.xx_part[j].data_ptr(), *prev, self.p1px.data_ptr(),
+            self.stream)
         _check(status, "stash_merged")
         LAUNCHES["stash_merged"] += 1
 
 
 def stash_merged_estep(ys, xs, scal, mask, tile_m: int, tile_n: int):
     """(pt1, p1, px, xx) of the pipelined stash E-step on sorted clouds:
-    n_j launches of K12 and one of K3b for CUDA tensors, the plain version
-    for CPU tensors."""
+    n_j launches of K12 and one of the per-stripe pass B for CUDA tensors,
+    the plain version for CPU tensors."""
     if ys.is_cuda:
         plan = MergedStashPlan(ys, xs, scal, mask, tile_m, tile_n)
         for j in range(plan.n_j):
@@ -602,7 +676,7 @@ def stash_estep_plain(ys, xs, scal, mask, tile_m: int, tile_n: int,
 def stash_merged_estep_plain(ys, xs, scal, mask, tile_m: int, tile_n: int):
     """Plain version of the pipelined kernel: pass A as in
     stash_estep_plain, pass B one stripe behind with the folded
-    normalizer, and the last stripe's pass B in K3b's association (the
+    normalizer, and the last stripe's pass B in K3's association (the
     epilogue). Stripes add into p1 and px in stripe order."""
     p1, px, xx = ys.new_zeros(ys.shape[0]), torch.zeros_like(ys), \
         ys.new_zeros(())
@@ -667,58 +741,15 @@ def fused_core(ys, xs, scal, mask, tile_m: int, tile_n: int):
     version for CPU tensors."""
     if not ys.is_cuda:
         return fused_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
-    plan = FusedPlan(ys, xs, scal, mask, tile_m, tile_n)
-    plan.den()
-    plan.moment()
-    return plan.result()
+    return FusedPlan(ys, xs, scal, mask, tile_m, tile_n).run()
 
 
-class FusedPlan:
-    """Device buffers of one two-pass E-step and its two launches:
-    ``den()`` (pass A) must precede ``moment()`` (pass B)."""
+class FusedPlan(TwoPassPlan):
+    """K4: one running sum per column over every active tile (pass A) and
+    per row over every active stripe (pass B)."""
 
-    def __init__(self, ys, xs, scal, mask, tile_m: int, tile_n: int):
-        (m, self.dim), n = ys.shape, xs.shape[0]
-        self.n_i, self.n_j = mask.shape
-        if max(self.n_i, self.n_j) > _MAX_GRID_Y:
-            raise ValueError(f"{self.n_i} x {self.n_j} tiles exceed the "
-                             "two-pass kernels' launch limits")
-        if self.n_i != -(-m // tile_m) or self.n_j != -(-n // tile_n):
-            raise ValueError("mask shape does not match the tiles")
-        self.m, self.n, self.tile_m, self.tile_n = m, n, tile_m, tile_n
-        self.ys, self.xs = _pack(ys), _pack(xs)
-        self.scal = scal.to(torch.float32).contiguous()
-        self.col_idx, self.col_cnt = _compact(mask)      # per stripe
-        self.row_idx, self.row_cnt = _compact(mask.T)    # per source tile
-        new = self.ys.new_empty
-        self.inv_den, self.pt1 = new(n), new(n)
-        self.xx_part = new((self.n_j, -(-tile_n // _DEN_THREADS)))
-        self.p1px = new((m, 4))
-        self.lib = _lib()
-        self.stream = _stream(self.ys)
-
-    def _args(self, idx, cnt):
-        return (self.ys.data_ptr(), self.m, self.tile_m, self.n_i,
-                self.xs.data_ptr(), self.n, self.tile_n, self.n_j,
-                idx.data_ptr(), cnt.data_ptr(), self.scal.data_ptr())
-
-    def den(self) -> None:
-        status = self.lib.probreg_fused_den(
-            *self._args(self.col_idx, self.col_cnt), self.inv_den.data_ptr(),
-            self.pt1.data_ptr(), self.xx_part.data_ptr(), self.stream)
-        _check(status, "fused_den")
-        LAUNCHES["fused_den"] += 1
-
-    def moment(self) -> None:
-        status = self.lib.probreg_fused_moment(
-            *self._args(self.row_idx, self.row_cnt), self.inv_den.data_ptr(),
-            self.p1px.data_ptr(), self.stream)
-        _check(status, "fused_moment")
-        LAUNCHES["fused_moment"] += 1
-
-    def result(self):
-        return (self.pt1, self.p1px[:, 3], self.p1px[:, :self.dim],
-                self.xx_part.sum())
+    DEN = ("probreg_fused_den", "fused_den")
+    MOMENT = ("probreg_fused_moment", "fused_moment")
 
 
 def fused_estep_plain(ys, xs, scal, mask, tile_m: int, tile_n: int):

@@ -47,6 +47,7 @@ from probreg_tpu.utils import se3_op as jso  # noqa: E402
 from probreg_tpu_torch import bcpd as pb  # noqa: E402
 from probreg_tpu_torch import config as pcfg  # noqa: E402
 from probreg_tpu_torch.ops import bcpd_cuda as pbc  # noqa: E402
+from probreg_tpu_torch.ops import estep_cuda as pec  # noqa: E402
 from probreg_tpu_torch.ops import lowrank as plr  # noqa: E402
 from probreg_tpu_torch.utils import interop  # noqa: E402
 from probreg_tpu_torch.utils import math_utils as pmu  # noqa: E402
@@ -280,6 +281,32 @@ def test_culled_estep_plain_version_matches_reference(sigma2):
                                      tile_m=128, tile_n=128, interpret=True)
         for a, b in zip(got, want):
             assert _rel(a, b) < 1e-4
+
+
+def test_culled_estep_tile_lists_cover_the_cull_mask():
+    """The lists that K8's two passes walk (estep_cuda._compact of
+    cull_mask's mask and of its transpose) on the clustered clouds at
+    sigma2 = 0.05, where a share of the tile pairs is culled: each stripe's
+    list holds exactly its active source tiles and each source tile's
+    exactly its active stripes, ascending, so both passes visit every
+    active pair once."""
+    s, t, alpha, sdiag = _clustered()
+    sigma2 = 0.05
+    rowlog = (np.log(0.9 * alpha) - 1.5 * np.log(2 * np.pi * sigma2)
+              ).astype(np.float32)
+    mask, _ = pbc.cull_mask(_t(s), _t(t), _t(rowlog),
+                            torch.tensor(0.5 / sigma2), 128, 128)
+    col_idx, col_cnt = pec._compact(mask)
+    row_idx, row_cnt = pec._compact(mask.T)
+    active = int(mask.sum())
+    assert 0 < active < mask.numel()
+    assert int(col_cnt.sum()) == int(row_cnt.sum()) == active
+    for i in range(mask.shape[0]):
+        want = torch.nonzero(mask[i]).flatten().tolist()
+        assert row_idx[i, :int(row_cnt[i])].tolist() == want
+    for j in range(mask.shape[1]):
+        want = torch.nonzero(mask[:, j]).flatten().tolist()
+        assert col_idx[j, :int(col_cnt[j])].tolist() == want
 
 
 def test_culled_estep_all_rowlog_underflow_keeps_dmin_honest():

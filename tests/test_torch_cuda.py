@@ -80,9 +80,8 @@ def test_stash_kernels_match_plain(dev, sigma2, tile_m, tile_n):
                             *pec._tile_bounds(xs, tile_n), scal[0])
     before = dict(pec.LAUNCHES)
     got = pec.stash_estep(ys, xs, scal, mask, tile_m, tile_n)
-    n_j = mask.shape[1]
-    assert pec.LAUNCHES["stash_den"] == before["stash_den"] + n_j
-    assert pec.LAUNCHES["stash_moment"] == before["stash_moment"] + n_j
+    assert pec.LAUNCHES["stash_den"] == before["stash_den"] + 1
+    assert pec.LAUNCHES["stash_moment"] == before["stash_moment"] + 1
     want = pec.stash_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
     for name, a, b in zip(("pt1", "p1", "px", "xx"), got, want):
         _close(a, b, name)
@@ -90,6 +89,43 @@ def test_stash_kernels_match_plain(dev, sigma2, tile_m, tile_n):
     if bool(dead.any()):
         cols = dead.repeat_interleave(tile_n)[:n]
         assert bool((got[0][cols] == 0).all())
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K8"])
+def test_one_estep_allocates_no_stash(dev, kernel):
+    """One default-route E-step of K3 and of K8 at 20k x 20k points, dense,
+    tiles 1024 x 1024: the device memory it allocates at its peak stays
+    below one (M, tile_n) f32 buffer, the stash that the per-stripe kernels
+    hold (78 MiB here; the E-step's own buffers take ~1 MiB)."""
+    from probreg_tpu_torch.ops import bcpd_cuda as pbc
+
+    m = n = 20_000
+    tile = 1024
+    ys, xs, v_t, alpha = _wstash_inputs(m, n, 3, 13, dev)
+    scal = pec._scalars(0.5, 0.05, m, n, 3, dev)
+    if kernel == "K3":
+        mask = pec._active_mask(*pec._tile_bounds(ys, tile),
+                                *pec._tile_bounds(xs, tile), scal[0])
+
+        def estep():
+            return pec.stash_estep(ys, xs, scal, mask, tile, tile)
+    else:
+        rowlog = torch.log(alpha) - 1.5 * np.log(2 * np.pi * 0.5)
+        wscal = torch.tensor([1.0, 0.1 / n, 1.1920929e-07], device=dev)
+        mask, _ = pbc.cull_mask(ys, xs, rowlog, wscal[0], tile, tile)
+
+        def estep():
+            return pbc.wstash_estep(ys, xs, rowlog, v_t, wscal, mask, tile,
+                                    tile)
+    assert bool(mask.all())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = estep()
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - base
+    assert grew < m * tile * 4, grew
+    assert all(bool(torch.isfinite(t).all()) for t in out)
 
 
 def test_cuda_tensors_never_reach_the_plain_versions(dev, monkeypatch):
@@ -129,10 +165,11 @@ def test_streaming_registration_kernels_match_plain(dev, monkeypatch):
 def test_stash_merged_kernel_matches_plain_and_k3(dev, sigma2, tile_m,
                                                   tile_n):
     """K12 on the inputs of test_stash_kernels_match_plain: n_j launches of
-    K12 and one of K3b per E-step; against its plain version by the file's
-    criterion; against K3 on the same inputs pt1 and xx equal bit for bit
-    (pass A is K3a's code) and p1, px within 1e-5 of their largest entry
-    (the normalizer folded into the channels)."""
+    K12 and one of the per-stripe pass B (stripe_moment) per E-step;
+    against its plain version by the file's criterion; against K3 on the
+    same inputs pt1 and xx equal bit for bit (the same per-tile sums in the
+    same order) and p1, px within 1e-5 of their largest entry (the
+    normalizer folded into the channels)."""
     m, n = 3000, 2500
     ys, xs = _cloud(m, 3, dev), _cloud(n, 4, dev, far=700)
     scal = pec._scalars(sigma2, 0.05, m, n, 3, dev)
@@ -143,7 +180,7 @@ def test_stash_merged_kernel_matches_plain_and_k3(dev, sigma2, tile_m,
     got = pec.stash_merged_estep(ys, xs, scal, mask, tile_m, tile_n)
     made = {k: pec.LAUNCHES[k] - before[k] for k in before}
     assert made == {**{k: 0 for k in before}, "stash_merged": n_j,
-                    "stash_moment": 1}
+                    "stripe_moment": 1}
     want = pec.stash_merged_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
     for name, a, b in zip(("pt1", "p1", "px", "xx"), got, want):
         _close(a, b, name)
@@ -721,9 +758,8 @@ def test_wstash_kernels_match_plain(dev, dim, sigma2, tile_m, tile_n):
     mask, _ = pbc.cull_mask(ys, xs, rowlog, scal[0], tile_m, tile_n)
     before = dict(pbc.LAUNCHES)
     got = pbc.wstash_estep(ys, xs, rowlog, v_t, scal, mask, tile_m, tile_n)
-    n_j = mask.shape[1]
-    assert pbc.LAUNCHES["wstash_den"] == before["wstash_den"] + n_j
-    assert pbc.LAUNCHES["wstash_moment"] == before["wstash_moment"] + n_j
+    assert pbc.LAUNCHES["wstash_den"] == before["wstash_den"] + 1
+    assert pbc.LAUNCHES["wstash_moment"] == before["wstash_moment"] + 1
     want = pbc.wstash_estep_plain(ys, xs, rowlog, v_t, scal, mask, tile_m,
                                   tile_n)
     for name, i in (("nu_d", 0), ("mom", 1), ("e1", 3)):
@@ -753,7 +789,7 @@ def test_wstash_wrapper_dmin_bound_and_no_plain_call(dev, monkeypatch):
 def test_bcpd_culled_registration_matches_plain(dev, monkeypatch):
     """registration_bcpd through K8 (forced at test size) against the same
     registration through the plain version at a fixed depth; the launches
-    are two per stripe per E-step. The low-rank VI amplifies rounding, so
+    are one of each pass per E-step. The low-rank VI amplifies rounding, so
     the kernel is held to 10x the spread between two plain versions that
     differ only in the summation order (tiles of 1024 and of 512)."""
     from probreg_tpu_torch import bcpd as pb
@@ -769,9 +805,8 @@ def test_bcpd_culled_registration_matches_plain(dev, monkeypatch):
               normalize=True, callback_chunk=1, return_last=True)
     pbc.reset_launches()
     res = pb._registration_bcpd_impl(src, tgt, **kw)[2]
-    stripes = -(-4000 // 1024)
-    assert pbc.LAUNCHES["wstash_den"] == 3 * stripes
-    assert pbc.LAUNCHES["wstash_moment"] == 3 * stripes
+    assert pbc.LAUNCHES["wstash_den"] == 3
+    assert pbc.LAUNCHES["wstash_moment"] == 3
     monkeypatch.setattr(pbc, "wstash_estep", pbc.wstash_estep_plain)
     ref = pb._registration_bcpd_impl(src, tgt, **kw)[2]
     culled = pbc.bcpd_estep_culled
@@ -982,8 +1017,8 @@ def _shard_dens(shards, xs, scal, tile_n):
 @pytest.mark.parametrize("tile_m,tile_n", [(96, 256), (512, 1024)])
 def test_stash_den_raw_kernel_matches_plain(dev, sigma2, tile_m, tile_n):
     """K11's raw column sums per stripe against stash_den_raw_plain, and
-    K11 + stash_finish + K3b against the plain version, with stripes that
-    have no active tile (the far cluster)."""
+    K11 + stash_finish + the per-stripe pass B against the plain version,
+    with stripes that have no active tile (the far cluster)."""
     m, n = 3000, 2500
     ys, xs = _cloud(m, 3, dev), _cloud(n, 4, dev, far=700)
     scal = pec._scalars(sigma2, 0.05, m, n, 3, dev)
@@ -996,7 +1031,7 @@ def test_stash_den_raw_kernel_matches_plain(dev, sigma2, tile_m, tile_n):
     n_j = mask.shape[1]
     made = {k: pec.LAUNCHES[k] - before[k] for k in before}
     assert made == {**{k: 0 for k in before}, "stash_den_raw": n_j,
-                    "stash_finish": n_j, "stash_moment": n_j}
+                    "stash_finish": n_j, "stripe_moment": n_j}
     y2, x2 = (ys * ys).sum(1), (xs * xs).sum(1)
     for j, den in enumerate(dens):
         cols = slice(j * tile_n, (j + 1) * tile_n)
@@ -1012,8 +1047,8 @@ def test_stash_den_raw_kernel_matches_plain(dev, sigma2, tile_m, tile_n):
 @pytest.mark.parametrize("sigma2", [0.5, 0.01, 1e-3])
 def test_stash_den_raw_one_shard_equals_k3_bit_for_bit(dev, sigma2):
     """At one m-shard (the reduction is the identity), K11 + stash_finish
-    + K3b give K3's pt1, p1, px and xx bit for bit: pass A's code is
-    shared."""
+    + the per-stripe pass B give K3's pt1, p1, px and xx bit for bit: the
+    same sums in the same order."""
     m, n = 4000, 3000
     ys, xs = _cloud(m, 8, dev), _cloud(n, 9, dev, far=500)
     scal = pec._scalars(sigma2, 0.05, m, n, 3, dev)
@@ -1101,7 +1136,7 @@ def test_sharded_runners_on_one_nccl_rank(dev, nccl_world_one, monkeypatch):
         assert mesh.COUNTS["esteps"] == 15
         if name == "2d":
             assert set(got) == {"stash_den_raw", "stash_finish",
-                                "stash_moment"}
+                                "stripe_moment"}
             assert got["stash_den_raw"] == mesh.COUNTS["den_all_reduce"]
         else:
             assert set(got) == {"stash_den", "stash_moment"}

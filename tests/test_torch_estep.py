@@ -198,6 +198,28 @@ def test_compact_lists_active_tiles_in_order():
     assert idx[1, :3].tolist() == [0, 1, 2]
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_compact_lists_per_stripe_and_per_source_tile(seed):
+    """The lists the one-launch passes walk: _compact(mask), each stripe's
+    active source tiles (pass A), and _compact(mask.T), each source tile's
+    active stripes (pass B), ascending and counted. A random mask with a
+    source tile and a stripe that have no active partner."""
+    rng = np.random.default_rng(seed)
+    mask = torch.from_numpy(rng.random((9, 7)) < 0.4)  # (n_i, n_j)
+    mask[3, :] = False
+    mask[:, 5] = False
+    for rows in (mask.T, mask):
+        idx, cnt = pec._compact(rows.T)
+        assert idx.dtype == cnt.dtype == torch.int32
+        assert idx.is_contiguous() and idx.shape == rows.shape
+        for r in range(rows.shape[0]):
+            want = torch.nonzero(rows[r]).flatten().tolist()
+            assert int(cnt[r]) == len(want)
+            assert idx[r, :len(want)].tolist() == want
+    assert int(pec._compact(mask)[1][5]) == 0
+    assert int(pec._compact(mask.T)[1][3]) == 0
+
+
 @pytest.mark.parametrize("dim", [2, 3])
 def test_morton_order_matches_reference(dim):
     rng = np.random.default_rng(9)

@@ -53,9 +53,9 @@ before it and read just after:
   blobby_surface(n, seed=0), the target moved by Euler (5, 8, 12) degrees
   and t = (0.05, -0.03, 0.08); levels 3, tol 1e-4) at 200,000 and
   1,000,000 points, once through the default E-step kernels (stash_den,
-  stash_moment) and once with config.use_merged_stash through the
-  pipelined stash kernel (stash_merged, with the per-stripe pass B,
-  stripe_moment, closing each E-step); the affine CPD pyramid
+  stash_moment) and once with config.use_merged_stash through K3's pass A
+  and the folded pass B of the pipelined kernel (stash_den, stash_merged:
+  two launches per E-step, no stash); the affine CPD pyramid
   at 200,000 points (test_pyramid_affine's map); and the ICP, FilterReg
   (pt2pt) and GMMTree pyramids at 200,000 points, and the BCPD pyramid at
   100,000 points (bench_bcpd_guarded.py: rank 64, maxiter 50, tol 1e-4, 4
@@ -63,8 +63,9 @@ before it and read just after:
 * the sharded CPD runners (probreg_tpu_torch.parallel) on the 150k pair,
   culled, 40 iterations: on one NCCL rank, registration_cpd_sharded on a
   1-D mesh (stash_den, stash_moment per shard) and registration_cpd_2d on
-  a 1 x 1 mesh (stash_den_raw, stash_finish, stripe_moment: one den
-  all_reduce per stripe); then four ranks on the one card under gloo, a
+  a 1 x 1 mesh (stash_den_raw, stash_finish, stash_moment: three launches
+  and one den all_reduce per E-step); then four ranks on the one card
+  under gloo, a
   check of the cross-shard collectives and not a 4-card figure: 2 x 2
   registration_cpd_2d (K11 in every rank), 1-D x 4
   registration_cpd_sharded, registration_cpd_batch_sharded on the 256
@@ -120,12 +121,9 @@ KERNELS = {
     "stash_merged": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:581"),
     "stash_den_raw": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:779"),
     # K11's finalisation: jnp code between the psum and pass B in the
-    # reference (fused_stash_core_spmd), a hand-written kernel here.
+    # reference (fused_stash_core_spmd), a hand-written kernel here. K11's
+    # pass B (estep_pallas.py:874) is stash_moment's kernel.
     "stash_finish": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:906"),
-    # The per-stripe pass B that reads the stash back (K11's pass B, called
-    # at estep_pallas.py:874, and K12's epilogue): the same Pallas body as
-    # stash_moment, a kernel of its own here.
-    "stripe_moment": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:429"),
     "em_rigid": (_EM_CU, "probreg_tpu/ops/em_pallas.py:262"),
     "em_affine": (_EM_CU, "probreg_tpu/ops/em_pallas.py:262"),
     "fused_den": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:87"),
@@ -210,8 +208,10 @@ MESH_ITERS = 40
 # and t: they differ in tile sizes and in the order of the cross-shard sums,
 # as the two-pass and stash routes of the 150k phase do (1e-4 there).
 MESH_AGREE = 1e-4
-# Repetitions of the per-stripe all_reduce when it is timed.
-REDUCE_REPS = 1000
+# One E-step of K11's route: raw pass A, finish, K3's pass B.
+K11_ROUTE = ("stash_den_raw", "stash_finish", "stash_moment")
+# Repetitions of the den all_reduce when it is timed.
+REDUCE_REPS = 200
 
 
 def flops_wstash(channels: int):
@@ -355,6 +355,16 @@ def check_small(dev, kernels):
                                   bound_ms=b_ms, bound_by=b_by)
 
 
+def active_pairs(mask, m, n, tile_m, tile_n) -> float:
+    """Pairs in the active tiles of an (n_i, n_j) mask over m x n points
+    (the last row and column of tiles ragged)."""
+    rows = torch.full((mask.shape[0],), float(tile_m), device=mask.device)
+    rows[-1] = m - (rows.numel() - 1) * tile_m
+    cols = torch.full((mask.shape[1],), float(tile_n), device=mask.device)
+    cols[-1] = n - (cols.numel() - 1) * tile_n
+    return float(rows @ mask.float() @ cols)
+
+
 def estep_regimes(dev, shared):
     """One E-step on the centred, Morton-sorted 150k clouds in two regimes:
     dense (sigma2_0) and culled (an annealed sigma2): a list of (regime,
@@ -378,15 +388,11 @@ def estep_regimes(dev, shared):
         tile_m = config.tile_m
         tile_n = ec._capped_tile_n(m, tile_m, config.tile_n,
                                    ec.stash_budget(dev))
-        rows = torch.full((-(-m // tile_m),), float(tile_m), device=dev)
-        rows[-1] = m - (rows.numel() - 1) * tile_m
-        cols = torch.full((-(-n // tile_n),), float(tile_n), device=dev)
-        cols[-1] = n - (cols.numel() - 1) * tile_n
         for regime, sigma2 in (("dense", sigma2_0), ("culled", 1e-3)):
             scal = ec._scalars(sigma2, 0.0, m, n, 3, dev)
             mask = ec._active_mask(*ec._tile_bounds(ys, tile_m),
                                    *ec._tile_bounds(xs, tile_n), scal[0])
-            pairs = float(rows @ mask.float() @ cols)
+            pairs = active_pairs(mask, m, n, tile_m, tile_n)
             regimes.append((regime, sigma2, ys, xs, scal, mask, tile_m,
                             tile_n, pairs))
     return regimes
@@ -535,30 +541,29 @@ def check_fused_estep(dev, kernels, shared):
 def check_stash_merged(dev, kernels, shared):
     """K12 on the 150k clouds for one E-step, dense and culled: against its
     plain version (compare()'s tolerance), and against K3 on the same
-    inputs: pt1 and xx equal bit for bit (the same per-tile sums in the
-    same order), p1 and px within 1e-5 of their largest entry (the
-    normalizer is folded into the channels). Timed per E-step: n_j
-    launches of K12 and the per-stripe pass B epilogue (stripe_moment).
-    The bound is the whole E-step's from its own inputs and outputs (both
-    clouds read once; pt1, xx, p1 and px written once) and 12 + 8
-    operations per active pair, the Gaussian formed once; the stash is the
-    kernel's intermediate and is not charged."""
+    inputs: pt1 and xx equal bit for bit (the same pass A), p1 and px
+    within 1e-5 of their largest entry (the normalizer is folded into the
+    channels). Two launches per E-step (K3's pass A, stash_den, and the
+    folded pass B, stash_merged), timed together, with the peak device
+    memory of one E-step. The bound is the whole E-step's from its own
+    inputs and outputs (both clouds read once; pt1, xx, p1 and px written
+    once) and 12 + 8 operations per active pair, the Gaussian formed
+    once."""
     from probreg_tpu_torch.ops import estep_cuda as ec
 
     out = {}
     stash_ms = shared.get("stash_ms", {})
     for (regime, sigma2, ys, xs, scal, mask, tile_m, tile_n,
          pairs) in estep_regimes(dev, shared):
-        m, n, n_j = ys.shape[0], xs.shape[0], mask.shape[1]
-        log(f"[K12 merged stash] {regime}: sigma2 {sigma2:.6g}, tiles "
-            f"{tile_m} x {tile_n}, active pairs {pairs:.4g}; launches per "
-            f"E-step {n_j} + 1 (K3: {2 * n_j})")
+        m, n = ys.shape[0], xs.shape[0]
+        log(f"[K12 merged] {regime}: sigma2 {sigma2:.6g}, tiles {tile_m} x "
+            f"{tile_n}, active pairs {pairs:.4g}")
         before = dict(ec.LAUNCHES)
         got = ec.stash_merged_estep(ys, xs, scal, mask, tile_m, tile_n)
         torch.cuda.synchronize()
         made = {k: ec.LAUNCHES[k] - before[k] for k in before}
-        if made != {**{k: 0 for k in before}, "stash_merged": n_j,
-                    "stripe_moment": 1}:
+        if made != {**{k: 0 for k in before}, "stash_den": 1,
+                    "stash_merged": 1}:
             raise AssertionError(f"K12 E-step made launches {made}")
         want = ec.stash_merged_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
         torch.cuda.synchronize()
@@ -576,14 +581,10 @@ def check_stash_merged(dev, kernels, shared):
         del got, k3
         if not (same and max(rel) <= 1e-5):
             raise AssertionError("K12 disagrees with K3")
+        peak = estep_peak_mib(lambda: ec.stash_merged_estep(
+            ys, xs, scal, mask, tile_m, tile_n))
         plan = ec.MergedStashPlan(ys, xs, scal, mask, tile_m, tile_n)
-
-        def estep():
-            for j in range(plan.n_j):
-                plan.merged(j)
-            plan.moment(plan.n_j - 1)
-
-        ms = timed(estep, 5)
+        ms, ms_b = timed(plan.run, 5), timed(plan.moment, 5)
         del plan
         plain_ms = timed(lambda: ec.stash_merged_estep_plain(
             ys, xs, scal, mask, tile_m, tile_n), 2)
@@ -592,8 +593,10 @@ def check_stash_merged(dev, kernels, shared):
         k3 = stash_ms.get(regime)
         beside = "" if k3 is None else \
             f"  [K3 on the same inputs: {k3[0] + k3[1]:.3f} ms]"
-        log(f"  E-step kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
-            f"{b[0]:.3f} ms ({b[1]}){beside}")
+        log(f"  E-step kernel {ms:.3f} ms (its folded pass B {ms_b:.3f} ms) "
+            f" plain {plain_ms:.3f} ms  bound {b[0]:.3f} ms ({b[1]}){beside}")
+        log(f"  one E-step: peak device memory {peak:.3f} MiB above its "
+            "inputs")
         out[regime] = (err, ms, plain_ms, b)
     err, ms, plain_ms, b = out["dense"]
     kernels["stash_merged"] = dict(max_abs_err=max(err, out["culled"][0]),
@@ -2597,7 +2600,8 @@ def check_pyramid_estep(n, inputs, kernels):
     the plain version's own distance from the same function in f64: the
     kernel is then no less exact than its plain version. These launches
     come after the traced run's counts were read; their errors against the
-    plain version join the kernels line."""
+    plain version join the kernels line. Last, one E-step of each is timed
+    on these inputs beside K12's bound there."""
     from probreg_tpu_torch.ops import estep_cuda as ec
 
     ys, xs, scal, mask, tile_m, tile_n = inputs
@@ -2649,6 +2653,15 @@ def check_pyramid_estep(n, inputs, kernels):
             and torch.equal(got["K12"][3], got["K3"][3]))
     log(f"  K12 against K3: pt1 and xx {'equal' if same else 'NOT equal'} "
         "bit for bit")
+    del got
+    m, n_x = ys.shape[0], xs.shape[0]
+    pairs = active_pairs(mask, m, n_x, tile_m, tile_n)
+    b12 = bound(12 * (m + n_x) + 8 * n_x + 16 * m,
+                pairs * (FLOPS_GAUSS + FLOPS_MOMENTS))
+    ms12 = timed(lambda: ec.stash_merged_estep(*inputs), 3)
+    ms3 = timed(lambda: ec.stash_estep(*inputs), 3)
+    log(f"  one E-step on these inputs: K12 {ms12:.3f} ms, K3 {ms3:.3f} ms; "
+        f"K12's bound {b12[0]:.3f} ms ({b12[1]}), {pairs:.4g} active pairs")
     if bad or not same:
         raise AssertionError(f"{n} pyramid E-step: {bad}, pass A of K12 "
                              f"and K3 {'equal' if same else 'differ'}")
@@ -2657,7 +2670,7 @@ def check_pyramid_estep(n, inputs, kernels):
 def run_pyramid_cpd(dev, launches, kernels):
     """registration_cpd_pyramid rigid at 200k and 1M points, through K3
     (the default) and through K12 (use_merged_stash), the second call of
-    each timed: each route launches its own kernels only, recovers the
+    each timed: each route launches its own pass B only, recovers the
     truth within the reference test's bar, and the two agree within
     PYR_ROUTE_TOL. Then both kernels are held to their plain versions on
     the finest level's first E-step (check_pyramid_estep)."""
@@ -2691,8 +2704,8 @@ def run_pyramid_cpd(dev, launches, kernels):
             log(f"  rotation error {ang:.3e} rad, |t - t_gt| {t_err:.3e}, "
                 f"|scale - 1| {s_err:.3e}, sigma2 {float(res.sigma2):.6g}")
             got = info["launches"]
-            mine, other = (("stash_merged", "stash_den") if merged
-                           else ("stash_den", "stash_merged"))
+            mine, other = (("stash_merged", "stash_moment") if merged
+                           else ("stash_moment", "stash_merged"))
             if not (got.get(mine, 0) > 0 and got.get(other, 0) == 0):
                 raise AssertionError(f"{n} pyramid, {route}: launches {got}")
             if not (ang < PYR_ANGLE_MAX and t_err <= PYR_T_MAX
@@ -2908,20 +2921,18 @@ def run_family_pyramids(dev, launches):
 
 
 def check_stash_raw(dev, kernels, shared):
-    """K11 (stash_den_raw) and its finalisation (stash_finish) on the 150k
-    clouds cut to a 2 x 2 rank's shapes: source and target shard 0 of the
-    centred, Morton-sorted clouds (75,000 points each), tiles 512 x 512
-    (registration_cpd_2d's), dense and culled as estep_regimes. Each
-    stripe's raw sums against stash_den_raw_plain, and K11 + finish + the
-    per-stripe pass B against the plain E-step (compare()); at one m-shard
-    the same bit for bit as K3 (two launches, no stash); the two m-shards
-    of the mesh (the source's halves) with their raw sums added, against
-    the unsharded K3 E-step (compare()). Timed per E-step (n_j launches
-    each), and so is the per-stripe pass B that reads K11's stash back
-    (stripe_moment) against its plain version from the stripe's g; K11's
-    bound is K3's pass-A bound on the shard's shapes, the per-stripe pass
-    B's K3's pass-B bound there (the stash is the route's intermediate and
-    is not charged), the finish's its columns' bytes."""
+    """K11's route on the 150k clouds cut to a 2 x 2 rank's shapes: source
+    and target shard 0 of the centred, Morton-sorted clouds (75,000 points
+    each), tiles 512 x 512 (registration_cpd_2d's), dense and culled as
+    estep_regimes. One E-step makes three launches (stash_den_raw,
+    stash_finish, K3's pass B stash_moment) and hands reduce_den one
+    (n,) tensor: the raw sums against stash_den_raw_plain, the route
+    against the plain E-step (compare()); at one m-shard the same bit for
+    bit as K3; the two m-shards of the mesh (the source's halves) with
+    their raw sums added, against the unsharded K3 E-step (compare()).
+    Each launch is timed per E-step with its bound: K11 K3's pass-A bound
+    on the shard's shapes, pass B K3's pass-B bound there, the finish its
+    columns' bytes; and the route's peak device memory per E-step."""
     from probreg_tpu_torch.ops import estep_cuda as ec
 
     out = {}
@@ -2932,18 +2943,21 @@ def check_stash_raw(dev, kernels, shared):
         mask = ec._active_mask(*ec._tile_bounds(ysl, t),
                                *ec._tile_bounds(xsl, t), scal[0])
         n_i, n_j = mask.shape
-        rows = torch.full((n_i,), float(t), device=dev)
-        rows[-1] = SHARD - (n_i - 1) * t
-        cols = torch.full((n_j,), float(t), device=dev)
-        cols[-1] = SHARD - (n_j - 1) * t
-        pairs = float(rows @ mask.float() @ cols)
-        log(f"[K11 stash_den_raw] {regime}: sigma2 {sigma2:.6g}, shard "
-            f"{SHARD:,} x {SHARD:,}, tiles {t} x {t}, {n_j} stripes, active "
-            f"pairs {pairs:.4g}")
+        pairs = active_pairs(mask, SHARD, SHARD, t, t)
+        log(f"[K11 route] {regime}: sigma2 {sigma2:.6g}, shard {SHARD:,} x "
+            f"{SHARD:,}, tiles {t} x {t}, {n_j} stripes, active pairs "
+            f"{pairs:.4g}")
         dens = []
+        before = dict(ec.LAUNCHES)
         got = ec.stash_estep(ysl, xsl, scal, mask, t, t,
                              reduce_den=lambda d: dens.append(d.clone()))
         torch.cuda.synchronize()
+        made = {k: ec.LAUNCHES[k] - before[k] for k in before}
+        if made != {**{k: 0 for k in before}, "stash_den_raw": 1,
+                    "stash_finish": 1, "stash_moment": 1} \
+                or [tuple(d.shape) for d in dens] != [(SHARD,)]:
+            raise AssertionError(f"K11 E-step: launches {made}, reductions "
+                                 f"{[tuple(d.shape) for d in dens]}")
         y2, x2 = (ysl * ysl).sum(1), (xsl * xsl).sum(1)
         plain_dens = []
         for j in range(n_j):
@@ -2951,17 +2965,17 @@ def check_stash_raw(dev, kernels, shared):
             act = mask[:, j].repeat_interleave(t)[:SHARD]
             plain_dens.append(ec.stash_den_raw_plain(
                 ysl, y2, xsl[c], x2[c], scal, act, n_i, t)[1])
-        err_raw = compare("den_raw", torch.cat(dens), torch.cat(plain_dens))
+        err_raw = compare("den_raw", dens[0], torch.cat(plain_dens))
         del dens, plain_dens
         want = ec.stash_estep_plain(ysl, xsl, scal, mask, t, t)
         err_fin = max(compare("pt1", got[0], want[0]),
                       compare("xx", got[3], want[3]))
-        err_mom = max(compare("p1", got[1], want[1]),
-                      compare("px", got[2], want[2]))
+        compare("p1", got[1], want[1])
+        compare("px", got[2], want[2])
         k3 = ec.stash_estep(ysl, xsl, scal, mask, t, t)
         same = all(torch.equal(a, b) for a, b in zip(got, k3))
-        log(f"  one m-shard: K11 + finish + per-stripe pass B against K3: "
-            f"pt1, p1, px, xx {'equal bit for bit' if same else 'NOT equal'}")
+        log(f"  one m-shard: K11 + finish + pass B against K3: pt1, p1, px, "
+            f"xx {'equal bit for bit' if same else 'NOT equal'}")
         if not same:
             raise AssertionError("K11 + finish + pass B differ from K3")
         del want, k3
@@ -2970,19 +2984,13 @@ def check_stash_raw(dev, kernels, shared):
         for y in (ys[:SHARD], ys[SHARD:]):
             halves.append((y, ec._active_mask(
                 *ec._tile_bounds(y, t), *ec._tile_bounds(xsl, t), scal[0])))
-        totals = []
+        total = torch.zeros_like(xsl[:, 0])
         for y, mk in halves:
-            seen = []
             ec.stash_estep(y, xsl, scal, mk, t, t,
-                           reduce_den=lambda d: seen.append(d.clone()))
-            totals = seen if not totals else [a + b for a, b in
-                                              zip(totals, seen)]
-        parts = []
-        for y, mk in halves:
-            it = iter(totals)
-            parts.append(ec.stash_estep(
-                y, xsl, scal, mk, t, t,
-                reduce_den=lambda d: d.copy_(next(it))))
+                           reduce_den=lambda d: total.add_(d))
+        parts = [ec.stash_estep(y, xsl, scal, mk, t, t,
+                                reduce_den=lambda d: d.copy_(total))
+                 for y, mk in halves]
         whole = ec.stash_estep(ys, xsl, scal, ec._active_mask(
             *ec._tile_bounds(ys, t), *ec._tile_bounds(xsl, t), scal[0]), t, t)
         torch.cuda.synchronize()
@@ -2992,17 +3000,17 @@ def check_stash_raw(dev, kernels, shared):
                 compare(name, part[(0, 3)[k]], whole[(0, 3)[k]])
         compare("p1", torch.cat([p[1] for p in parts]), whole[1])
         compare("px", torch.cat([p[2] for p in parts]), whole[2])
-        del parts, whole, totals, halves
-        plan = ec.StripeStashPlan(ysl, xsl, scal, mask, t, t)
-        stripes = range(plan.n_j)
-        ms_raw = timed(lambda: [plan.den_raw(j) for j in stripes], 5)
-        ms_fin = timed(lambda: [plan.finish(j) for j in stripes], 5)
-        # The stash and inv_den buffers hold the last stripe's values; each
-        # stripe's pass B reads its own active tiles' rows of them.
-        ms_mom = timed(lambda: [plan.moment(j) for j in stripes], 5)
+        del parts, whole, total, halves
+        peak = estep_peak_mib(lambda: ec.stash_estep(
+            ysl, xsl, scal, mask, t, t, reduce_den=lambda d: None))
+        plan = ec.ShardStashPlan(ysl, xsl, scal, mask, t, t, None)
+        ms_raw = timed(plan.den_raw, 5)
+        ms_fin = timed(plan.finish, 5)
+        ms_mom = timed(plan.moment, 5)
         del plan
         e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        plain_raw = plain_fin = plain_mom = 0.0
+        plain_raw = plain_mom = 0.0
+        raws, gs = [], []
         for j in range(n_j):
             c = slice(j * t, (j + 1) * t)
             act = mask[:, j].repeat_interleave(t)[:SHARD]
@@ -3010,13 +3018,25 @@ def check_stash_raw(dev, kernels, shared):
             g, den = ec.stash_den_raw_plain(ysl, y2, xsl[c], x2[c], scal,
                                             act, n_i, t)
             e[1].record()
-            inv_den = ec._plain_finish(den, x2[c], scal)[0]
-            e[2].record()
-            ec._plain_pass_b(g, inv_den, xsl[c])
-            e[3].record()
             torch.cuda.synchronize()
             plain_raw += e[0].elapsed_time(e[1])
-            plain_fin += e[1].elapsed_time(e[2])
+            raws.append(den)
+            del g
+        den = torch.cat(raws)
+        e[0].record()
+        inv_den = ec._plain_finish(den, x2, scal)[0]
+        e[1].record()
+        torch.cuda.synchronize()
+        plain_fin = e[0].elapsed_time(e[1])
+        for j in range(n_j):  # pass B from the stripe's g, formed again
+            c = slice(j * t, (j + 1) * t)
+            act = mask[:, j].repeat_interleave(t)[:SHARD]
+            g, _ = ec.stash_den_raw_plain(ysl, y2, xsl[c], x2[c], scal, act,
+                                          n_i, t)
+            e[2].record()
+            ec._plain_pass_b(g, inv_den[c], xsl[c])
+            e[3].record()
+            torch.cuda.synchronize()
             plain_mom += e[2].elapsed_time(e[3])
             del g
         b_raw, b_mom = estep_pass_bounds(SHARD, SHARD, pairs)
@@ -3024,26 +3044,25 @@ def check_stash_raw(dev, kernels, shared):
         # and pt1 (16 B); the where, the add, the division, the product
         # and the xx term (5 operations).
         b_fin = bound(16 * SHARD, 5 * SHARD)
-        log(f"  K11 per E-step {ms_raw:.3f} ms  plain {plain_raw:.3f} ms  "
-            f"bound {b_raw[0]:.3f} ms ({b_raw[1]}); finish {ms_fin:.3f} ms "
-            f" plain {plain_fin:.3f} ms  bound {b_fin[0]:.5f} ms "
-            f"({b_fin[1]})")
-        log(f"  per-stripe pass B per E-step {ms_mom:.3f} ms  plain "
-            f"{plain_mom:.3f} ms  bound {b_mom[0]:.3f} ms ({b_mom[1]})")
+        log(f"  per E-step, one launch each: K11 {ms_raw:.3f} ms  plain "
+            f"{plain_raw:.3f} ms  bound {b_raw[0]:.3f} ms ({b_raw[1]}); "
+            f"finish {ms_fin:.4f} ms  plain {plain_fin:.4f} ms  bound "
+            f"{b_fin[0]:.5f} ms ({b_fin[1]}); pass B {ms_mom:.3f} ms  plain "
+            f"{plain_mom:.3f} ms (from the stripe's g)  bound {b_mom[0]:.3f} "
+            f"ms ({b_mom[1]}); the route {ms_raw + ms_fin + ms_mom:.3f} ms")
+        log(f"  one E-step: peak device memory {peak:.3f} MiB above its "
+            f"inputs ({SHARD:,} x {t} f32 would be "
+            f"{4 * SHARD * t / 2**20:.1f} MiB)")
         out[regime] = (err_raw, err_fin, ms_raw, ms_fin, plain_raw,
-                       plain_fin, b_raw, b_fin, err_mom, ms_mom, plain_mom,
-                       b_mom)
-    (err_raw, err_fin, ms_raw, ms_fin, p_raw, p_fin, b_raw, b_fin, err_mom,
-     ms_mom, p_mom, b_mom) = out["dense"]
+                       plain_fin, b_raw, b_fin)
+    (err_raw, err_fin, ms_raw, ms_fin, p_raw, p_fin, b_raw,
+     b_fin) = out["dense"]
     kernels["stash_den_raw"] = dict(
         max_abs_err=max(err_raw, out["culled"][0]), ms=ms_raw,
         plain_ms=p_raw, bound_ms=b_raw[0], bound_by=b_raw[1])
     kernels["stash_finish"] = dict(
         max_abs_err=max(err_fin, out["culled"][1]), ms=ms_fin,
         plain_ms=p_fin, bound_ms=b_fin[0], bound_by=b_fin[1])
-    kernels["stripe_moment"] = dict(
-        max_abs_err=max(err_mom, out["culled"][8]), ms=ms_mom,
-        plain_ms=p_mom, bound_ms=b_mom[0], bound_by=b_mom[1])
 
 
 def rot_error(lin, rot):
@@ -3056,11 +3075,12 @@ def rot_error(lin, rot):
 def run_sharded_one_rank(dev, launches, shared):
     """The sharded runners on one NCCL rank (world size 1, file://
     rendezvous): registration_cpd_sharded on a 1-D mesh (K3 per shard) and
-    registration_cpd_2d on a 1 x 1 mesh (K11, one den all_reduce per stripe
-    and E-step) on the 150k pair, culled, MESH_ITERS iterations; the second
-    call of each timed beside cpd.registration_cpd at the same depth. Both
-    reach the 150k phase's bar and agree within MESH_AGREE. Then the
-    per-stripe all_reduce (MESH_TILE floats) under NCCL at world 1."""
+    registration_cpd_2d on a 1 x 1 mesh (K11's route: three launches and
+    one den all_reduce per E-step) on the 150k pair, culled, MESH_ITERS
+    iterations; the second call of each timed beside cpd.registration_cpd
+    at the same depth. Both reach the 150k phase's bar and agree within
+    MESH_AGREE. Then the den all_reduce (N_LARGE floats, the 1 x 1 rank's
+    target shard) under NCCL at world 1."""
     import shutil
     import tempfile
 
@@ -3101,15 +3121,13 @@ def run_sharded_one_rank(dev, launches, shared):
             if counts["esteps"] != MESH_ITERS:
                 raise AssertionError(f"{name}: {counts['esteps']} E-steps")
             if name == "1 x 1":
-                if not (got.get("stash_den_raw", 0) > 0
-                        and set(got) == {"stash_den_raw", "stash_finish",
-                                         "stripe_moment"}
-                        and got["stash_finish"] == got["stash_den_raw"]
-                        == got["stripe_moment"] == counts["den_all_reduce"]):
-                    raise AssertionError(f"1 x 1 mesh launches {got}")
+                if got != dict.fromkeys(K11_ROUTE, MESH_ITERS) \
+                        or counts["den_all_reduce"] != MESH_ITERS:
+                    raise AssertionError(f"1 x 1 mesh launches {got}, den "
+                                         "reductions "
+                                         f"{counts['den_all_reduce']}")
                 launches.update(stash_den_raw=got["stash_den_raw"],
-                                stash_finish=got["stash_finish"],
-                                stripe_moment=got["stripe_moment"])
+                                stash_finish=got["stash_finish"])
             elif not (got.get("stash_den", 0) > 0
                       and set(got) == {"stash_den", "stash_moment"}):
                 raise AssertionError(f"1-D mesh launches {got}")
@@ -3138,15 +3156,15 @@ def run_sharded_one_rank(dev, launches, shared):
         shared["one_rank"] = {k: (v[0].rot.cpu().numpy(),
                                   v[0].t.cpu().numpy())
                               for k, v in runs.items()}
-        buf = torch.ones(MESH_TILE, device=dev)
+        buf = torch.ones(N_LARGE, device=dev)
         dist.all_reduce(buf)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(REDUCE_REPS):
             dist.all_reduce(buf)
         torch.cuda.synchronize()
-        log(f"  per-stripe all_reduce ({MESH_TILE} floats) under NCCL, world "
-            f"1: {(time.perf_counter() - t0) * 1e3 / REDUCE_REPS:.4f} ms")
+        log(f"  den all_reduce ({N_LARGE:,} floats) under NCCL, world 1: "
+            f"{(time.perf_counter() - t0) * 1e3 / REDUCE_REPS:.4f} ms")
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3173,8 +3191,8 @@ def run_mesh_on_one_card(dev, launches, shared):
     registration_cpd_2d on a 2 x 2 mesh and registration_cpd_sharded on a
     1-D mesh of 4 at 150k (culled, MESH_ITERS iterations),
     registration_cpd_batch_sharded on the 256 ragged horse pairs, the CPD
-    pyramid with mesh= (2 x 2) at 200k, and the per-stripe all_reduce's
-    cost. Every rank must report the same iterations and numbers; the 150k
+    pyramid with mesh= (2 x 2) at 200k, and the den all_reduce's cost
+    (SHARD floats, a 2 x 2 rank's target shard). Every rank must report the same iterations and numbers; the 150k
     runs reach the 150k phase's bar and agree with the one-rank runs within
     MESH_AGREE; the batch equals registration_cpd_batch bit for bit; the
     pyramid meets the reference test's bar."""
@@ -3190,7 +3208,7 @@ def run_mesh_on_one_card(dev, launches, shared):
              ("cpd_sharded", (4,), (src, tgt, "rigid"), kw),
              ("cpd_batch_sharded", (4,), (srcs, tgts, "rigid"), {}),
              ("cpd_pyramid", (2, 2), (psrc, ptgt, "rigid"), PYRAMID_ARGS),
-             ("all_reduce_cost", (2, 2), ("m", MESH_TILE, REDUCE_REPS), {})]
+             ("all_reduce_cost", (2, 2), ("m", SHARD, REDUCE_REPS), {})]
     log("[mesh, 4 gloo ranks on one card] 2 x 2 registration_cpd_2d and "
         f"1-D x 4 registration_cpd_sharded at {N_LARGE:,} points, "
         f"registration_cpd_batch_sharded on {len(srcs)} ragged pairs, the "
@@ -3220,14 +3238,15 @@ def run_mesh_on_one_card(dev, launches, shared):
             raise AssertionError(f"{name} missed the bar")
         for r, o in enumerate(res):
             got = o["launches"]
-            want_set = ({"stash_den_raw", "stash_finish", "stripe_moment"}
-                        if mine == "stash_den_raw"
-                        else {"stash_den", "stash_moment"})
-            if not (got.get(mine, 0) > 0 and set(got) == want_set):
-                raise AssertionError(f"{name}: rank {r} launches {got}")
-            if mine == "stash_den_raw" and \
-                    got[mine] != o["counts"]["den_all_reduce"]:
-                raise AssertionError(f"{name}: rank {r} den reductions")
+            if mine == "stash_den_raw":  # three launches, one reduction
+                ok = (got == dict.fromkeys(K11_ROUTE, MESH_ITERS)
+                      and o["counts"]["den_all_reduce"] == MESH_ITERS)
+            else:
+                ok = (got.get(mine, 0) > 0
+                      and set(got) == {"stash_den", "stash_moment"})
+            if not ok:
+                raise AssertionError(f"{name}: rank {r} launches {got}, "
+                                     f"counts {o['counts']}")
         if want is not None:
             d = max(float(np.abs(r0["lin"] - want[0]).max()),
                     float(np.abs(r0["t"] - want[1]).max()))
@@ -3261,7 +3280,7 @@ def run_mesh_on_one_card(dev, launches, shared):
                for o in per_call[3]):
         raise AssertionError("mesh pyramid did not run K11 on every rank")
     ms = [o["result"] for o in per_call[4]]
-    log(f"  per-stripe all_reduce ({MESH_TILE} floats, m-axis of 2) under "
+    log(f"  den all_reduce ({SHARD:,} floats, m-axis of 2) under "
         f"gloo, CUDA tensors, 4 ranks on one card: "
         f"{', '.join(f'{x:.4f}' for x in ms)} ms per call by rank")
 

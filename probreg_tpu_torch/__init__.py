@@ -7,8 +7,8 @@ beyond; the coarse-to-fine pyramids of these families (``pyramid``) take
 clouds of 10^6 points; rigid and affine CPD also run sharded over the ranks
 of ``torch.distributed`` (``parallel``: 1-D and 2-D meshes). They run on
 hand-written CUDA kernels for the H100 (``csrc/``): the CPD E-steps
-(``estep.cu``, the pipelined stash E-step and the 2-D mesh's raw pass
-among them), the whole-EM CPD and FilterReg kernels (``em.cu``,
+(``estep.cu``, the pipelined kernel's folded pass B and the 2-D mesh's
+raw pass among them), the whole-EM CPD and FilterReg kernels (``em.cu``,
 ``frg.cu``), the whole-ICP kernel (``icp.cu``), the tile-culled Gauss
 transform (``gt.cu``), the row-weighted culled BCPD E-step
 (``wstash.cu``) and GMMTree's level-EM and registration kernels

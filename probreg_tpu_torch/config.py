@@ -44,18 +44,19 @@ class Config:
     # Source / target tile sizes of the stash E-step.
     tile_m: int = 512
     tile_n: int = 1024
-    # Pipelined stash E-step (estep_cuda.stash_merged_estep, kernel
-    # stash_merged): one launch per target stripe runs pass A of stripe j
-    # beside pass B of stripe j - 1, so an E-step makes n_j + 1 launches
-    # instead of 2 n_j, and both halves' blocks share the SMs in one
-    # launch. It keeps a SECOND (M_padded, tile_n) stash buffer, so each
-    # buffer gets half of stash_max_bytes. p1 and px differ from the
-    # default route only by rounding (the normalizer is folded into the
-    # channels); pt1 and xx are the same bit for bit.
+    # The reference's pipelined stash E-step (estep_cuda.stash_merged_estep,
+    # kernel stash_merged): K3's pass A, then pass B with the normalizer
+    # folded into the channels for every stripe but the last, two launches
+    # and no stash. The reference keeps a SECOND (M_padded, tile_n) stash
+    # buffer, so its tiles here are those of half of stash_max_bytes. p1
+    # and px differ from the default route only by rounding (the folded
+    # normalizer); pt1 and xx are the same bit for bit.
     use_merged_stash: bool = False
-    # Cap on the (M_padded, tile_n) f32 stash of the CPD E-step. None
-    # derives it from the device: an eighth of the card's memory, 1 GiB on
-    # the CPU. Above it tile_n halves (floor 256); beyond the floor
+    # Cap on the (M_padded, tile_n) f32 stash of the reference's CPD
+    # E-step. No E-step of this package keeps a stash; the cap picks the
+    # tiles and the branches where the reference's does. None derives it
+    # from the device: an eighth of the card's memory, 1 GiB on the CPU.
+    # Above it tile_n halves (floor 256); beyond the floor
     # estep_auto answers with the streaming plain E-step (estep_xla), as
     # the reference does, the sharded culled CPD runners (parallel/) raise,
     # and so does the BCPD E-step. The reference's cpd_stash_max_bytes

@@ -29,15 +29,24 @@ __device__ __forceinline__ float gauss(float4 y, float4 x, float inv2s2) {
 
 // The sums that the E-step kernels share are spelled out with the
 // round-to-nearest intrinsics, which the compiler never contracts: a
-// column's s + g stays an add whether g is also stored (K11, K12) or not
-// (K3), and a row's moments are p1 + p, px + p * x (one FMA per channel)
-// whether p comes from a stash (per-stripe pass B) or from gauss() (K3). So
-// the kernels that share these give the same bits.
+// column's s + g stays an add, a row's moments are p1 + p, px + p * x (one
+// FMA per channel), and K12's folded moments p1 + g * inv_den, px + g * (x
+// * inv_den) (one FMA per channel), whatever else the kernel computes around
+// them. So the kernels that share an association give the same bits.
 __device__ __forceinline__ void add_moments(float p, float4 x, float4& a) {
   a.w = __fadd_rn(a.w, p);
   a.x = __fmaf_rn(p, x.x, a.x);
   a.y = __fmaf_rn(p, x.y, a.y);
   a.z = __fmaf_rn(p, x.z, a.z);
+}
+
+// K12's moments of one pair with the normalizer folded into the channels:
+// f = (x * inv_den, inv_den), p1 += g * inv_den, px += g * (x * inv_den).
+__device__ __forceinline__ void add_folded(float g, float4 f, float4& a) {
+  a.w = __fmaf_rn(g, f.w, a.w);
+  a.x = __fmaf_rn(g, f.x, a.x);
+  a.y = __fmaf_rn(g, f.y, a.y);
+  a.z = __fmaf_rn(g, f.z, a.z);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -158,68 +167,13 @@ small_kernel(const float4* __restrict__ ys, int m,
 }
 
 // ---------------------------------------------------------------------------
-// Pass A of the per-stripe stash E-step, one target stripe per launch: the
-// pass A of K11 (the sharded pass) and of the pipelined kernel K12.
-//
-// For each ACTIVE source tile of the stripe (compacted list act_idx[0..cnt)),
-// g is computed once per pair, written to the stash (rows of the tile,
-// tile_n columns, row-major so a warp writes 128 contiguous bytes) and
-// summed per column. Grid: (column chunks of 256, n_i slots); slots >= cnt
-// exit. Per-slot column sums go to `part`; the last block of a column chunk
-// adds them in slot (= tile) order and forms inv_den, pt1 and the chunk's
-// xx.
-//
-// Bound on this card: at full density the stash write (4 B per pair, far
-// beyond the 50 MB L2 at 150k points) takes longer than the exps; culled
-// tiles cost neither. The default route (K3, below) keeps no stash.
-//
-// The pieces are device functions: stash_exp_block (the exps, the stash
-// and the per-slot column sums), den_raw_sum (the slot-order sum) and
-// den_finish_col / den_finish_chunk (inv_den, pt1 and xx from the raw
-// sums). K3's pass A forms the same per-tile sums in the same order and
-// finishes with den_finish_col, so K3, K11 and K12 give the same pt1,
-// inv_den and xx bit for bit.
+// Pass A's finalisation, shared by K3 and K12 (inside their pass A) and K11
+// (after the caller's reduction): a column's raw normalizer, its per-tile
+// partial sums added in tile order, becomes inv_den, pt1 and the column's
+// share of xx, and a chunk of 256 columns sums its shares in block_sum<256>'s
+// order. So every route gives K3's pt1, inv_den and xx on the same sums.
 // ---------------------------------------------------------------------------
 constexpr int kDenThreads = 256;
-
-// The exps of one block: column chunk `cx` (256 columns, this thread's
-// column xv, valid when ok) against the tile in slot `slot` of the
-// stripe's active-tile list. Writes the tile's stash rows and the block's
-// column sums to part[slot].
-__device__ void stash_exp_block(const float4* __restrict__ ys, int m,
-                                int tile_m, float4 xv, bool ok, int col,
-                                int tile_n, const int* __restrict__ act_idx,
-                                float inv2s2, float* __restrict__ stash,
-                                float* __restrict__ part, int slot) {
-  __shared__ float4 ysh[kDenThreads];
-  const int r0 = act_idx[slot] * tile_m;
-  const int r1 = min(r0 + tile_m, m);
-  float s = 0.0f;
-  for (int rc = r0; rc < r1; rc += kDenThreads) {
-    const int nr = min(kDenThreads, r1 - rc);
-    __syncthreads();
-    if (threadIdx.x < nr) ysh[threadIdx.x] = ys[rc + threadIdx.x];
-    __syncthreads();
-    if (ok) {
-      float* out = stash + (size_t)rc * tile_n + col;
-      for (int r = 0; r < nr; ++r) {
-        const float g = gauss(ysh[r], xv, inv2s2);
-        out[(size_t)r * tile_n] = g;
-        s = __fadd_rn(s, g);
-      }
-    }
-  }
-  if (ok) part[(size_t)slot * tile_n + col] = s;
-}
-
-// A column's raw normalizer: its per-slot sums added in slot order. Read
-// by the last block of the chunk (see last_block).
-__device__ __forceinline__ float den_raw_sum(const float* part, int cnt,
-                                             int tile_n, int col) {
-  float den_raw = 0.0f;
-  for (int k = 0; k < cnt; ++k) den_raw += __ldcg(&part[(size_t)k * tile_n + col]);
-  return den_raw;
-}
 
 // One column's finalisation: inv_den = 1 / ((den_raw == 0 ? eps : den_raw)
 // + c), pt1 = den_raw * inv_den. Returns the column's share of xx,
@@ -248,238 +202,6 @@ __device__ void den_finish_chunk(float den_raw, bool ok, float4 xv, float c,
   if (threadIdx.x == 0) xx_part[cx] = xx;
 }
 
-// Pass A for one block: column chunk `cx` (256 columns) of the stripe
-// against slot `slot` of its active-tile list (cnt entries).
-__device__ void stash_den_block(const float4* __restrict__ ys, int m,
-                                int tile_m, const float4* __restrict__ xs,
-                                int ncols, int tile_n,
-                                const int* __restrict__ act_idx, int cnt,
-                                const float* __restrict__ scal,
-                                float* __restrict__ stash,
-                                float* __restrict__ part,
-                                unsigned int* __restrict__ tickets,
-                                float* __restrict__ inv_den,
-                                float* __restrict__ pt1,
-                                float* __restrict__ xx_part, int cx,
-                                int slot) {
-  // An all-culled stripe still needs its pt1 = 0: slot 0 then finalizes.
-  const int expected = cnt > 0 ? cnt : 1;
-  if (slot >= expected) return;
-  const int col = cx * kDenThreads + threadIdx.x;
-  const bool ok = col < ncols;
-  const float4 xv = ok ? xs[col] : make_float4(0.f, 0.f, 0.f, 0.f);
-  if (slot < cnt)
-    stash_exp_block(ys, m, tile_m, xv, ok, col, tile_n, act_idx, scal[0],
-                    stash, part, slot);
-  if (!last_block(&tickets[cx], expected)) return;
-  const float den_raw = ok ? den_raw_sum(part, cnt, tile_n, col) : 0.0f;
-  den_finish_chunk(den_raw, ok, xv, scal[1], col, inv_den, pt1, xx_part, cx);
-  if (threadIdx.x == 0) tickets[cx] = 0u;  // ready for the next stripe
-}
-
-// ---------------------------------------------------------------------------
-// K11: pass A of the stash E-step on one source shard, raw sums only.
-//
-// Replaces probreg_tpu/ops/estep_pallas.py:_stash_den_raw_kernel. On a 2-D
-// (m, n) mesh a target column's normalizer sums over every source shard, so
-// pass A stops before the finalisation: the exps, the stash and the
-// slot-order column sums (stash_exp_block, den_raw_sum), and the last block
-// of a chunk writes den_raw. The caller all-reduces den_raw over the m-axis
-// (torch.distributed), then stash_finish_kernel runs the finalisation
-// (den_finish_chunk) on the sums, and the per-stripe pass B
-// (stash_moment_kernel) reads the stash back. So at one m-shard, K11 +
-// finish + pass B give K3's pt1, inv_den, xx, p1 and px bit for bit. Bound:
-// the stash write at full density.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kDenThreads)
-stash_den_raw_kernel(const float4* __restrict__ ys, int m, int tile_m,
-                     const float4* __restrict__ xs, int ncols, int tile_n,
-                     const int* __restrict__ act_idx,
-                     const int* __restrict__ act_cnt,
-                     const float* __restrict__ scal,
-                     float* __restrict__ stash,     // (n_i * tile_m, tile_n)
-                     float* __restrict__ part,      // (n_i, tile_n)
-                     unsigned int* __restrict__ tickets,  // (gridDim.x)
-                     float* __restrict__ den_raw) { // (ncols)
-  const int cnt = *act_cnt, cx = blockIdx.x, slot = blockIdx.y;
-  // An all-culled stripe still needs its den_raw = 0: slot 0 writes it.
-  const int expected = cnt > 0 ? cnt : 1;
-  if (slot >= expected) return;
-  const int col = cx * kDenThreads + threadIdx.x;
-  const bool ok = col < ncols;
-  const float4 xv = ok ? xs[col] : make_float4(0.f, 0.f, 0.f, 0.f);
-  if (slot < cnt)
-    stash_exp_block(ys, m, tile_m, xv, ok, col, tile_n, act_idx, scal[0],
-                    stash, part, slot);
-  if (!last_block(&tickets[cx], expected)) return;
-  if (ok) den_raw[col] = den_raw_sum(part, cnt, tile_n, col);
-  if (threadIdx.x == 0) tickets[cx] = 0u;
-}
-
-// K11's finalisation of one stripe from its all-reduced raw sums: one block
-// per chunk of 256 columns (den_finish_chunk).
-__global__ void __launch_bounds__(kDenThreads)
-stash_finish_kernel(const float4* __restrict__ xs, int ncols,
-                    const float* __restrict__ scal,
-                    const float* __restrict__ den_raw,  // (ncols)
-                    float* __restrict__ inv_den,        // (tile_n)
-                    float* __restrict__ pt1,            // (ncols)
-                    float* __restrict__ xx_part) {      // (gridDim.x)
-  const int col = blockIdx.x * kDenThreads + threadIdx.x;
-  const bool ok = col < ncols;
-  const float4 xv = ok ? xs[col] : make_float4(0.f, 0.f, 0.f, 0.f);
-  den_finish_chunk(ok ? den_raw[col] : 0.0f, ok, xv, scal[1], col, inv_den,
-                   pt1, xx_part, blockIdx.x);
-}
-
-// ---------------------------------------------------------------------------
-// Pass B of the per-stripe stash E-step, one target stripe per launch: the
-// pass B of K11 and the epilogue of K12.
-//
-// Replaces probreg_tpu/ops/estep_pallas.py:_stash_moment_kernel on those
-// routes. Reads the stash of each active tile (no exp), p = g * inv_den,
-// and adds the row sums p1 and px = sum_j p x_j into the (M) accumulators.
-// A warp owns a row and its lanes stride the stripe's columns (coalesced
-// stash reads), so each row is written by one lane per launch: no atomics,
-// and stripes accumulate in launch order. Culled tiles add nothing, so
-// their rows keep exactly the sum of the other stripes. Bound: the stash
-// read, 4 B per active pair. K3's pass B keeps this per-row order with the
-// Gaussian formed again (moment_pass_kernel<true>).
-// ---------------------------------------------------------------------------
-constexpr int kMomThreads = 256;
-constexpr int kMomRows = 64;  // rows per block
-
-// Pass B for one block: rows [rblk * 64, +64) of the tile in slot `slot`
-// of the stripe's active-tile list (cnt entries). xw: (ncols) float4 of
-// shared memory. kFolded (K12) folds inv_den into the channels,
-// p1 += g * inv_den and px += g * (x * inv_den), as the reference's
-// pipelined kernel does; otherwise p = g * inv_den, p1 += p, px += p * x.
-template <bool kFolded>
-__device__ void stash_moment_block(const float4* __restrict__ xs, int ncols,
-                                   int tile_n, int m, int tile_m,
-                                   const int* __restrict__ act_idx, int cnt,
-                                   const float* __restrict__ stash,
-                                   const float* __restrict__ inv_den,
-                                   float4* __restrict__ p1px, float4* xw,
-                                   int rblk, int slot) {
-  if (slot >= cnt) return;
-  const int t0 = act_idx[slot] * tile_m;
-  const int rb = t0 + rblk * kMomRows;
-  const int re = min(min(rb + kMomRows, t0 + tile_m), m);
-  if (rb >= re) return;
-  for (int c = threadIdx.x; c < ncols; c += kMomThreads) {
-    float4 x = xs[c];
-    const float inv = inv_den[c];
-    if (kFolded) {
-      x.x *= inv;
-      x.y *= inv;
-      x.z *= inv;
-    }
-    x.w = inv;
-    xw[c] = x;
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = rb + warp; r < re; r += kMomThreads / 32) {
-    const float* row = stash + (size_t)r * tile_n;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int c = lane; c < ncols; c += 32) {
-      const float4 x = xw[c];
-      if (kFolded) {
-        const float g = row[c];
-        a.w += g * x.w;
-        a.x += g * x.x;
-        a.y += g * x.y;
-        a.z += g * x.z;
-      } else {
-        add_moments(__fmul_rn(row[c], x.w), x, a);
-      }
-    }
-    a = warp_sum4(a);
-    if (lane == 0) {
-      float4 acc = p1px[r];
-      acc.x += a.x; acc.y += a.y; acc.z += a.z; acc.w += a.w;
-      p1px[r] = acc;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kMomThreads)
-stash_moment_kernel(const float4* __restrict__ xs, int ncols, int tile_n,
-                    int m, int tile_m,
-                    const int* __restrict__ act_idx,
-                    const int* __restrict__ act_cnt,
-                    const float* __restrict__ stash,
-                    const float* __restrict__ inv_den,
-                    float4* __restrict__ p1px) {  // (m) accumulators
-  extern __shared__ float4 xw[];  // (ncols): x, y, z, inv_den
-  stash_moment_block<false>(xs, ncols, tile_n, m, tile_m, act_idx, *act_cnt,
-                            stash, inv_den, p1px, xw, blockIdx.x,
-                            blockIdx.y);
-}
-
-// ---------------------------------------------------------------------------
-// K12: the pipelined stash E-step, one launch per target stripe.
-//
-// Replaces probreg_tpu/ops/estep_pallas.py:_stash_merged_kernel. Launch j
-// runs pass A of stripe j (stash_den_block: the exp once per active pair
-// into stash buffer j % 2, the column sums, inv_den, pt1, xx)
-// and pass B of stripe j - 1 (stash_moment_block with the normalizer folded
-// into the channels, from buffer (j - 1) % 2). The blocks take their role
-// from blockIdx: for each slot of the compacted lists, n_cx pass-A blocks
-// (256 columns each) and then n_rb pass-B blocks (64 rows each), so the
-// active slots, which come first, are scheduled first. The two halves touch
-// disjoint buffers; the previous launch's writes are visible by stream
-// order. After the last stripe one launch of the per-stripe pass B
-// (stash_moment_kernel) closes it, as the reference's epilogue does, so an
-// E-step makes n_j + 1 launches (K3: 2).
-//
-// What bounds it on this card: the function needs only its operations, 12
-// + 8 per active pair (~6.7 ms per dense 150k E-step on an H100; its inputs
-// and outputs are a few MB), but this design moves the stash, 4 B per
-// active pair written by pass A and 4 B read by pass B, ~53.7 ms of HBM
-// traffic at that size. So the stash, not the exps, sets its time; K3 and
-// the two-pass K4, which form the Gaussian twice and keep no stash,
-// compute the same moments faster. On the TPU the fusion hid the moment
-// half under the exp half; here both halves' blocks share the SMs within
-// one launch, so one half's memory stalls can be covered by the other's
-// arithmetic. Cross-block sums take the last-block ticket (no float
-// atomics): results are deterministic.
-// ---------------------------------------------------------------------------
-static_assert(kDenThreads == kMomThreads, "K12 blocks take both roles");
-
-__global__ void __launch_bounds__(kDenThreads)
-stash_merged_kernel(const float4* __restrict__ ys, int m, int tile_m,
-                    const float4* __restrict__ xs, int ncols, int tile_n,
-                    const int* __restrict__ act_idx,
-                    const int* __restrict__ act_cnt,
-                    const float* __restrict__ scal,
-                    float* __restrict__ stash,
-                    float* __restrict__ part,
-                    unsigned int* __restrict__ tickets,
-                    float* __restrict__ inv_den,
-                    float* __restrict__ pt1,
-                    float* __restrict__ xx_part,
-                    const float4* __restrict__ pxs, int pncols,
-                    const int* __restrict__ pact_idx,
-                    const int* __restrict__ pact_cnt,  // 0 on stripe 0
-                    const float* __restrict__ pstash,
-                    const float* __restrict__ pinv_den,
-                    float4* __restrict__ p1px, int n_cx, int n_rb) {
-  extern __shared__ float4 xw[];  // pass B: (pncols)
-  const int per_slot = n_cx + n_rb;
-  const int slot = blockIdx.x / per_slot;
-  const int role = blockIdx.x - slot * per_slot;
-  if (role < n_cx)
-    stash_den_block(ys, m, tile_m, xs, ncols, tile_n, act_idx, *act_cnt,
-                    scal, stash, part, tickets, inv_den, pt1, xx_part, role,
-                    slot);
-  else
-    stash_moment_block<true>(pxs, pncols, tile_n, m, tile_m, pact_idx,
-                             *pact_cnt, pstash, pinv_den, p1px, xw,
-                             role - n_cx, slot);
-}
-
 // ---------------------------------------------------------------------------
 // K3 and K4: the CPD E-steps that keep no stash, two launches each.
 //
@@ -502,14 +224,12 @@ stash_merged_kernel(const float4* __restrict__ ys, int m, int tile_m,
 // template parameter kTileSums, which each takes from its TPU counterpart:
 // * K3 (kTileSums = true) keeps the stash kernels' order. Pass A sums each
 //   active tile's rows into a fresh partial (in row order) and adds the
-//   partials to the column's normalizer in slot (= tile) order from 0,
-//   which is den_raw_sum's sum of stash_exp_block's partials. Pass B keeps
-//   the per-stripe pass B's per-row order: lane l takes columns l, l + 32,
-//   ... of a stripe, the lanes' partials are added by warp_sum, and the
-//   stripe sums go to the row's total in ascending stripe order from 0,
-//   with p = g * inv_den and g bit for bit the g that stash_exp_block
-//   stores. So K3's inv_den, pt1, xx_part, p1 and px equal K11's and K12's
-//   on the same tiles.
+//   partials to the column's normalizer in slot (= tile) order from 0.
+//   Pass B keeps the stash read's per-row order: lane l takes columns l,
+//   l + 32, ... of a stripe, the lanes' partials are added by warp_sum,
+//   and the stripe sums go to the row's total in ascending stripe order
+//   from 0, with p = g * inv_den. K11 and K12 (below) are built from these
+//   two passes, so they share K3's sums.
 // * K4 (kTileSums = false) keeps one running sum per column over every
 //   active tile (pass A) and per row over every column of every active
 //   stripe in order (pass B), as the reference's two-pass kernels do.
@@ -530,8 +250,9 @@ constexpr int kPairThreads = kDenThreads / kColsPerThread;  // 128
 // Pass A: grid (column chunks of 256, n_j stripes), kPairThreads threads.
 // The block of chunk cx of stripe j walks the stripe's active source tiles
 // (act_idx[j][0..cnt)) and writes inv_den and pt1 of its columns and the
-// chunk's xx to xx_part[j][cx].
-template <bool kTileSums>
+// chunk's xx to xx_part[j][cx]; with kRaw (K11) it stops at the raw column
+// sums and writes den_raw of its columns instead.
+template <bool kTileSums, bool kRaw = false>
 __global__ void __launch_bounds__(kPairThreads)
 den_pass_kernel(const float4* __restrict__ ys, int m, int tile_m, int n_i,
                 const float4* __restrict__ xs, int n, int tile_n,
@@ -540,15 +261,16 @@ den_pass_kernel(const float4* __restrict__ ys, int m, int tile_m, int n_i,
                 const float* __restrict__ scal,
                 float* __restrict__ inv_den,       // (n)
                 float* __restrict__ pt1,           // (n)
-                float* __restrict__ xx_part) {     // (gridDim.y, gridDim.x)
+                float* __restrict__ xx_part,       // (gridDim.y, gridDim.x)
+                float* __restrict__ den_raw) {     // kRaw: (n)
   __shared__ float4 ysh[kDenThreads];
   __shared__ float warps[kDenThreads / 32];
   const int stripe = blockIdx.y, cx = blockIdx.x;
   const int c0 = stripe * tile_n;
   const int ncols = min(tile_n, n - c0);
-  float* xx_out = xx_part + (size_t)stripe * gridDim.x + cx;
+  const size_t xx_at = (size_t)stripe * gridDim.x + cx;
   if (cx * kDenThreads >= ncols) {  // a chunk past a ragged stripe's end
-    if (threadIdx.x == 0) *xx_out = 0.0f;
+    if (!kRaw && threadIdx.x == 0) xx_part[xx_at] = 0.0f;
     return;
   }
   int col[kColsPerThread];
@@ -593,6 +315,12 @@ den_pass_kernel(const float4* __restrict__ ys, int m, int tile_m, int n_i,
         den[k] = __fadd_rn(den[k], s[k]);
     }
   }
+  if (kRaw) {  // K11: finalized after the caller's reduction
+#pragma unroll
+    for (int k = 0; k < kColsPerThread; ++k)
+      if (ok[k]) den_raw[c0 + col[k]] = den[k];
+    return;
+  }
   // den_finish_chunk for two columns a thread: column k of warp w is
   // column w + 4 k's share in block_sum<256>.
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -608,7 +336,7 @@ den_pass_kernel(const float4* __restrict__ ys, int m, int tile_m, int n_i,
   if (threadIdx.x == 0) {
     float xx = 0.0f;
     for (int w = 0; w < kDenThreads / 32; ++w) xx += warps[w];
-    *xx_out = xx;
+    xx_part[xx_at] = xx;
   }
 }
 
@@ -628,8 +356,10 @@ __host__ __device__ constexpr int moment_block_rows() {
 // Pass B: grid (row blocks, n_i source tiles), kRowThreads threads. The
 // block of rows [rb, rb + moment_block_rows) of tile i walks the tile's
 // active target stripes (act_idx[i][0..cnt), ascending) and writes p1 and
-// px of its rows (zeros where no stripe is active).
-template <bool kTileSums>
+// px of its rows (zeros where no stripe is active). kFold (K12): every
+// stripe but the last (n_j - 1) folds the normalizer into the channels
+// (add_folded); the last keeps p = g * inv_den (add_moments).
+template <bool kTileSums, bool kFold = false>
 __global__ void __launch_bounds__(kRowThreads)
 moment_pass_kernel(const float4* __restrict__ ys, int m, int tile_m,
                    const float4* __restrict__ xs, int n, int tile_n, int n_j,
@@ -644,6 +374,7 @@ moment_pass_kernel(const float4* __restrict__ ys, int m, int tile_m,
   constexpr int kStride = kTileSums ? 32 : 1;
   __shared__ float4 xw[kColStage];  // x, y, z, |x|^2
   __shared__ float iw[kColStage];   // inv_den
+  __shared__ float4 fw[kFold ? kColStage : 1];  // x * inv_den, inv_den
   const int tile = blockIdx.y;
   const int t1 = min((tile + 1) * tile_m, m);
   const int rb = tile * tile_m + blockIdx.x * moment_block_rows<kTileSums>();
@@ -666,20 +397,36 @@ moment_pass_kernel(const float4* __restrict__ ys, int m, int tile_m,
   for (int k = 0; k < cnt; ++k) {
     const int c0 = idx[k] * tile_n;
     const int c1 = min(c0 + tile_n, n);
+    const bool fold = kFold && idx[k] != n_j - 1;
     for (int cc = c0; cc < c1; cc += kColStage) {
       const int nc = min(kColStage, c1 - cc);
       __syncthreads();
       if (threadIdx.x < nc) {
-        xw[threadIdx.x] = xs[cc + threadIdx.x];
-        iw[threadIdx.x] = inv_den[cc + threadIdx.x];
+        const float4 x = xs[cc + threadIdx.x];
+        const float inv = inv_den[cc + threadIdx.x];
+        xw[threadIdx.x] = x;
+        iw[threadIdx.x] = inv;
+        if (kFold)
+          fw[threadIdx.x] = make_float4(__fmul_rn(x.x, inv),
+                                        __fmul_rn(x.y, inv),
+                                        __fmul_rn(x.z, inv), inv);
       }
       __syncthreads();
-      for (int c = first; c < nc; c += kStride) {
-        const float4 x = xw[c];
-        const float inv = iw[c];
+      if (fold) {
+        for (int c = first; c < nc; c += kStride) {
+          const float4 x = xw[c], f = fw[c];
 #pragma unroll
-        for (int q = 0; q < kRows; ++q)
-          add_moments(__fmul_rn(gauss(y[q], x, inv2s2), inv), x, a[q]);
+          for (int q = 0; q < kRows; ++q)
+            add_folded(gauss(y[q], x, inv2s2), f, a[q]);
+        }
+      } else {
+        for (int c = first; c < nc; c += kStride) {
+          const float4 x = xw[c];
+          const float inv = iw[c];
+#pragma unroll
+          for (int q = 0; q < kRows; ++q)
+            add_moments(__fmul_rn(gauss(y[q], x, inv2s2), inv), x, a[q]);
+        }
       }
     }
     if (kTileSums) {
@@ -702,21 +449,76 @@ moment_pass_kernel(const float4* __restrict__ ys, int m, int tile_m,
   }
 }
 
-template <bool kTileSums>
+// ---------------------------------------------------------------------------
+// K11: the culled E-step on one source shard of a 2-D (m, n) mesh, three
+// launches and one normalizer reduction per E-step, no stash.
+//
+// Replaces probreg_tpu/ops/estep_pallas.py:_stash_den_raw_kernel, with
+// :_stash_moment_kernel as its pass B. A target column's normalizer sums
+// over every source shard, so pass A stops before the finalisation:
+// den_pass_kernel<true, true> walks every stripe's active source tiles as
+// K3's pass A does and writes the raw column sums of the whole target shard.
+// The caller all-reduces them over the m-axis once (torch.distributed);
+// stash_finish_kernel forms inv_den, pt1 and xx from the sums of every
+// column, in K3's pass-A chunk layout; K3's pass B forms each active pair's
+// Gaussian again. The reference scans the stripes and psums each stripe's
+// sums because its stash of one stripe must fit VMEM; a column sums the
+// same operands either way. At one m-shard the route is K3 with pass A cut
+// in two, so pt1, inv_den, xx, p1 and px equal K3's bit for bit. Bound: the
+// FP32 pipe, as K3's passes.
+// ---------------------------------------------------------------------------
+
+// Grid (column chunks of 256, n_j stripes), kDenThreads threads: chunk cx
+// of stripe j finalizes its columns from den_raw and writes xx_part[j][cx].
+__global__ void __launch_bounds__(kDenThreads)
+stash_finish_kernel(const float4* __restrict__ xs, int n, int tile_n,
+                    const float* __restrict__ scal,
+                    const float* __restrict__ den_raw,  // (n)
+                    float* __restrict__ inv_den,        // (n)
+                    float* __restrict__ pt1,            // (n)
+                    float* __restrict__ xx_part) {  // (gridDim.y, gridDim.x)
+  const int c0 = blockIdx.y * tile_n;
+  const int col = blockIdx.x * kDenThreads + threadIdx.x;
+  const bool ok = col < min(tile_n, n - c0);
+  const float4 xv = ok ? xs[c0 + col] : make_float4(0.f, 0.f, 0.f, 0.f);
+  den_finish_chunk(ok ? den_raw[c0 + col] : 0.0f, ok, xv, scal[1], c0 + col,
+                   inv_den, pt1, xx_part + (size_t)blockIdx.y * gridDim.x,
+                   blockIdx.x);
+}
+
+// ---------------------------------------------------------------------------
+// K12: the pipelined culled E-step (use_merged_stash), two launches, no
+// stash.
+//
+// Replaces probreg_tpu/ops/estep_pallas.py:_stash_merged_kernel. The TPU
+// kernel stashes each stripe's exps and, in the grid step of stripe j, runs
+// pass B of stripe j - 1 with the normalizer folded into the channels (p1
+// += g * inv_den, px += g * (x * inv_den)); an epilogue closes the last
+// stripe in the stash kernels' association (p = g * inv_den). The pipeline
+// hides the moment half under the exp half on the TPU; on this card the
+// stash (4 B per active pair written and read back) costs more than forming
+// the Gaussian again. So pass A is K3's (the same inv_den, pt1 and xx), and
+// pass B is moment_pass_kernel<true, true>: it forms each active pair's
+// Gaussian with gauss(), folds the normalizer for every stripe but the last
+// and adds a row's stripes in stripe order, as the stash read did.
+// ---------------------------------------------------------------------------
+
+template <bool kTileSums, bool kRaw = false>
 int launch_den_pass(const void* ys, int m, int tile_m, int n_i,
                     const void* xs, int n, int tile_n, int n_j,
                     const void* act_idx, const void* act_cnt,
                     const void* scal, void* inv_den, void* pt1,
-                    void* xx_part, void* stream) {
+                    void* xx_part, void* den_raw, void* stream) {
   const dim3 grid((tile_n + kDenThreads - 1) / kDenThreads, n_j);
-  den_pass_kernel<kTileSums><<<grid, kPairThreads, 0, (cudaStream_t)stream>>>(
+  den_pass_kernel<kTileSums, kRaw><<<grid, kPairThreads, 0,
+                                     (cudaStream_t)stream>>>(
       (const float4*)ys, m, tile_m, n_i, (const float4*)xs, n, tile_n,
       (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
-      (float*)inv_den, (float*)pt1, (float*)xx_part);
+      (float*)inv_den, (float*)pt1, (float*)xx_part, (float*)den_raw);
   return (int)cudaGetLastError();
 }
 
-template <bool kTileSums>
+template <bool kTileSums, bool kFold = false>
 int launch_moment_pass(const void* ys, int m, int tile_m, int n_i,
                        const void* xs, int n, int tile_n, int n_j,
                        const void* act_idx, const void* act_cnt,
@@ -724,8 +526,8 @@ int launch_moment_pass(const void* ys, int m, int tile_m, int n_i,
                        void* stream) {
   constexpr int rows = moment_block_rows<kTileSums>();
   const dim3 grid((tile_m + rows - 1) / rows, n_i);
-  moment_pass_kernel<kTileSums><<<grid, kRowThreads, 0,
-                                  (cudaStream_t)stream>>>(
+  moment_pass_kernel<kTileSums, kFold><<<grid, kRowThreads, 0,
+                                         (cudaStream_t)stream>>>(
       (const float4*)ys, m, tile_m, (const float4*)xs, n, tile_n, n_j,
       (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
       (const float*)inv_den, (float4*)p1px);
@@ -755,7 +557,7 @@ int probreg_stash_den(const void* ys, int m, int tile_m, int n_i,
                       void* xx_part, void* stream) {
   return launch_den_pass<true>(ys, m, tile_m, n_i, xs, n, tile_n, n_j,
                                act_idx, act_cnt, scal, inv_den, pt1, xx_part,
-                               stream);
+                               nullptr, stream);
 }
 
 int probreg_stash_rows(const void* ys, int m, int tile_m, int n_i,
@@ -769,62 +571,32 @@ int probreg_stash_rows(const void* ys, int m, int tile_m, int n_i,
 }
 
 int probreg_stash_den_raw(const void* ys, int m, int tile_m, int n_i,
-                          const void* xs, int ncols, int tile_n,
+                          const void* xs, int n, int tile_n, int n_j,
                           const void* act_idx, const void* act_cnt,
-                          const void* scal, void* stash, void* part,
-                          void* tickets, void* den_raw, void* stream) {
-  const dim3 grid((tile_n + kDenThreads - 1) / kDenThreads, n_i);
-  stash_den_raw_kernel<<<grid, kDenThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)ys, m, tile_m, (const float4*)xs, ncols, tile_n,
-      (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
-      (float*)stash, (float*)part, (unsigned int*)tickets, (float*)den_raw);
-  return (int)cudaGetLastError();
+                          const void* scal, void* den_raw, void* stream) {
+  return launch_den_pass<true, true>(ys, m, tile_m, n_i, xs, n, tile_n, n_j,
+                                     act_idx, act_cnt, scal, nullptr,
+                                     nullptr, nullptr, den_raw, stream);
 }
 
-int probreg_stash_finish(const void* xs, int ncols, int tile_n,
+int probreg_stash_finish(const void* xs, int n, int tile_n, int n_j,
                          const void* scal, const void* den_raw, void* inv_den,
                          void* pt1, void* xx_part, void* stream) {
-  const int blocks = (tile_n + kDenThreads - 1) / kDenThreads;
-  stash_finish_kernel<<<blocks, kDenThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)xs, ncols, (const float*)scal, (const float*)den_raw,
+  const dim3 grid((tile_n + kDenThreads - 1) / kDenThreads, n_j);
+  stash_finish_kernel<<<grid, kDenThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)xs, n, tile_n, (const float*)scal, (const float*)den_raw,
       (float*)inv_den, (float*)pt1, (float*)xx_part);
   return (int)cudaGetLastError();
 }
 
-int probreg_stash_moment(const void* xs, int ncols, int tile_n, int m,
-                         int tile_m, int n_i, const void* act_idx,
-                         const void* act_cnt, const void* stash,
-                         const void* inv_den, void* p1px, void* stream) {
-  const dim3 grid((tile_m + kMomRows - 1) / kMomRows, n_i);
-  const size_t smem = (size_t)ncols * sizeof(float4);
-  stash_moment_kernel<<<grid, kMomThreads, smem, (cudaStream_t)stream>>>(
-      (const float4*)xs, ncols, tile_n, m, tile_m, (const int*)act_idx,
-      (const int*)act_cnt, (const float*)stash, (const float*)inv_den,
-      (float4*)p1px);
-  return (int)cudaGetLastError();
-}
-
 int probreg_stash_merged(const void* ys, int m, int tile_m, int n_i,
-                         const void* xs, int ncols, int tile_n,
+                         const void* xs, int n, int tile_n, int n_j,
                          const void* act_idx, const void* act_cnt,
-                         const void* scal, void* stash, void* part,
-                         void* tickets, void* inv_den, void* pt1,
-                         void* xx_part, const void* pxs, int pncols,
-                         const void* pact_idx, const void* pact_cnt,
-                         const void* pstash, const void* pinv_den,
-                         void* p1px, void* stream) {
-  const int n_cx = (tile_n + kDenThreads - 1) / kDenThreads;
-  const int n_rb = (tile_m + kMomRows - 1) / kMomRows;
-  const size_t smem = (size_t)pncols * sizeof(float4);
-  stash_merged_kernel<<<n_i * (n_cx + n_rb), kDenThreads, smem,
-                        (cudaStream_t)stream>>>(
-      (const float4*)ys, m, tile_m, (const float4*)xs, ncols, tile_n,
-      (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
-      (float*)stash, (float*)part, (unsigned int*)tickets, (float*)inv_den,
-      (float*)pt1, (float*)xx_part, (const float4*)pxs, pncols,
-      (const int*)pact_idx, (const int*)pact_cnt, (const float*)pstash,
-      (const float*)pinv_den, (float4*)p1px, n_cx, n_rb);
-  return (int)cudaGetLastError();
+                         const void* scal, const void* inv_den, void* p1px,
+                         void* stream) {
+  return launch_moment_pass<true, true>(ys, m, tile_m, n_i, xs, n, tile_n,
+                                        n_j, act_idx, act_cnt, scal, inv_den,
+                                        p1px, stream);
 }
 
 int probreg_fused_den(const void* ys, int m, int tile_m, int n_i,
@@ -834,7 +606,7 @@ int probreg_fused_den(const void* ys, int m, int tile_m, int n_i,
                       void* xx_part, void* stream) {
   return launch_den_pass<false>(ys, m, tile_m, n_i, xs, n, tile_n, n_j,
                                 act_idx, act_cnt, scal, inv_den, pt1, xx_part,
-                                stream);
+                                nullptr, stream);
 }
 
 int probreg_fused_moment(const void* ys, int m, int tile_m, int n_i,

@@ -13,25 +13,25 @@ path, with their helpers:
   ``_stash_moment_kernel``) walks each source tile's active stripes, forms
   each pair's Gaussian again and sums p1 and px. The TPU kernels stash each
   exp between the passes; on the card the stash's bytes cost more than the
-  exp. With ``config.use_merged_stash`` the E-step runs pipelined with a
-  stash (``stash_merged``, replaces ``_stash_merged_kernel``): one launch
-  per stripe runs pass A of stripe j beside pass B of stripe j - 1, over
-  two stash buffers, and one launch of the per-stripe pass B
-  (``stripe_moment``) closes the last stripe. When even tile_n = 256 would
-  put that stash over its budget, ``estep_auto`` returns the streaming
-  plain E-step (``ops/estep.estep_xla``), as the reference does. The
-  default route keeps no stash but takes the same capped tiles and the
-  same fallback: the reference's rule, which both packages follow at the
-  same sizes.
-* ``stash_estep(..., reduce_den=)``: the stash E-step on one source shard
-  of a 2-D (m, n) mesh (parallel/sharded2d.py), where a target column's
-  normalizer sums over every source shard: per stripe, pass A stops at the
-  raw column sums (``stash_den_raw``, replaces ``_stash_den_raw_kernel``)
-  and stashes the exps, the caller all-reduces the sums over the m-axis,
-  ``stash_finish`` forms inv_den, pt1 and xx from them, and the per-stripe
-  pass B (``stripe_moment``, also ``_stash_moment_kernel``'s counterpart)
-  reads the stash back. All routes give the default route's pt1, inv_den
-  and xx bit for bit on the same sums.
+  exp. With ``config.use_merged_stash`` the E-step takes the association
+  of the reference's pipelined kernel (``_stash_merged_kernel``), two
+  launches and no stash either: K3's pass A, then ``stash_merged``, pass B
+  with the normalizer folded into the channels for every stripe but the
+  last. When even tile_n = 256 would put the reference's stash over its
+  budget (half of it under ``use_merged_stash``, which keeps two),
+  ``estep_auto`` returns the streaming plain E-step (``ops/estep.estep_xla``)
+  as the reference does: no route here keeps a stash, but all take the
+  same capped tiles and the same fallback, so that both packages branch
+  at the same sizes.
+* ``stash_estep(..., reduce_den=)``: the E-step on one source shard of a
+  2-D (m, n) mesh (parallel/sharded2d.py), where a target column's
+  normalizer sums over every source shard: pass A stops at the raw column
+  sums of every stripe (``stash_den_raw``, replaces
+  ``_stash_den_raw_kernel``), the caller all-reduces them over the m-axis
+  once, ``stash_finish`` forms inv_den, pt1 and xx from them, and K3's pass
+  B forms the Gaussian again: three launches and one reduction per E-step,
+  no stash. All routes give the default route's pt1, inv_den and xx bit
+  for bit on the same sums.
 * ``estep_fused`` / ``estep_culled``: the two-pass tile-culled E-step with
   no stash: pass A (``fused_den``, replaces ``_den_kernel``) forms the column
   normalizer, pt1 and xx, pass B (``fused_moment``, replaces
@@ -68,12 +68,11 @@ _CUT = 104.0
 _EPS = float(torch.finfo(torch.float32).eps)
 _DEN_THREADS = 256   # columns per pass-A block (csrc/estep.cu kDenThreads)
 _SMALL_COLS = 32     # columns per K2 block (kSmallCols)
-_MAX_TILE_N = 3072   # per-stripe pass B: a stripe's columns in 48 KB of smem
 _MAX_GRID_Y = 65535
 
 LAUNCHES = {"estep_small": 0, "stash_den": 0, "stash_moment": 0,
             "stash_merged": 0, "stash_den_raw": 0, "stash_finish": 0,
-            "stripe_moment": 0, "fused_den": 0, "fused_moment": 0}
+            "fused_den": 0, "fused_moment": 0}
 
 
 def reset_launches() -> None:
@@ -88,12 +87,11 @@ _SIGNATURES = {
                           _P, _P],
     "probreg_stash_rows": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P,
                            _P, _P],
-    "probreg_stash_moment": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "probreg_stash_den_raw": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
-                              _P, _P, _P],
-    "probreg_stash_finish": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
-    "probreg_stash_merged": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
-                             _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "probreg_stash_den_raw": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P,
+                              _P, _P],
+    "probreg_stash_finish": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "probreg_stash_merged": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P,
+                             _P, _P],
     "probreg_fused_den": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                           _P, _P],
     "probreg_fused_moment": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P,
@@ -224,9 +222,11 @@ def _compact(mask: torch.Tensor):
 
 
 def stash_budget(device) -> int:
-    """Bytes allowed for the stash (config.stash_max_bytes, else an eighth
-    of the card's memory, or 1 GiB on the CPU). The pipelined E-step keeps
-    two stash buffers, so estep_auto gives each half of it."""
+    """Bytes allowed for the reference's stash (config.stash_max_bytes, else
+    an eighth of the card's memory, or 1 GiB on the CPU). The reference's
+    pipelined E-step keeps two stash buffers, so estep_auto gives each half
+    of it. No route of this package keeps a stash: the budget only picks
+    the tiles and the fallback, as it does in the reference."""
     if config.stash_max_bytes:
         return int(config.stash_max_bytes)
     device = torch.device(device)
@@ -321,13 +321,14 @@ def estep_auto(t_source: torch.Tensor, target: torch.Tensor, sigma2,
     order. Otherwise the clouds are sorted here and the moments returned in
     the input order.
 
-    ``config.use_merged_stash`` picks the pipelined kernel (two stash
-    buffers, each within half the budget). Where even tile_n = 256 would
-    exceed the budget, the streaming plain E-step answers instead
+    ``config.use_merged_stash`` picks K12, the pipelined kernel's
+    association (two launches, no stash), with the reference's tiles for
+    two stash buffers, each within half the budget. Where even tile_n = 256
+    would exceed the budget, the streaming plain E-step answers instead
     (reference estep_pallas.py:1466-1479): a branch by size, which both
-    packages take at the same sizes. The default route keeps no stash, but
-    takes the same tiles and the same branch, so that its bits match the
-    stash kernels' and its dispatch the reference's.
+    packages take at the same sizes. Neither route keeps a stash, but both
+    take the reference's tiles and branch, so that their bits match the
+    stash kernels' and their dispatch the reference's.
     """
     t_source, target = _check_points(t_source, target)
     (m, dim), n = t_source.shape, target.shape[0]
@@ -365,36 +366,32 @@ def stash_estep(ys, xs, scal, mask, tile_m: int, tile_n: int,
     launch per pass), the plain version for CPU tensors.
 
     ``reduce_den``: ys is one source shard of a 2-D mesh (reference
-    ``fused_stash_core_spmd``). Each stripe's raw column sums (a (ncols,)
-    tensor) go to ``reduce_den``, which all-reduces them in place over the
-    source shards before they are finalized: per stripe, ``stash_den_raw``
-    (K11, which stashes the exps), ``stash_finish`` and the per-stripe pass
-    B. pt1 and xx are the target shard's, the same on every source shard;
-    p1 and px the source shard's sums over these columns. ys may be empty
-    (a source shard past the end of the cloud): it adds nothing and still
-    takes part in each reduction.
+    ``fused_stash_core_spmd``). The raw column sums of every stripe, one
+    (n,) tensor, go to ``reduce_den`` once, which all-reduces them in place
+    over the source shards before they are finalized: ``stash_den_raw``
+    (K11), ``stash_finish`` and K3's pass B, three launches. pt1 and xx are
+    the target shard's, the same on every source shard; p1 and px the
+    source shard's sums over these columns. ys may be empty (a source shard
+    past the end of the cloud): it adds nothing and still takes part in the
+    reduction.
     """
     if not ys.is_cuda:
         return stash_estep_plain(ys, xs, scal, mask, tile_m, tile_n,
                                  reduce_den)
     if reduce_den is None:
         return StashPlan(ys, xs, scal, mask, tile_m, tile_n).run()
-    plan = StripeStashPlan(ys, xs, scal, mask, tile_m, tile_n)
-    for j in range(plan.n_j):
-        plan.den_raw(j)
-        reduce_den(plan.den_raw_buf[:plan._cols(j)[1]])
-        plan.finish(j)
-        plan.moment(j)
-    return plan.result()
+    return ShardStashPlan(ys, xs, scal, mask, tile_m, tile_n,
+                          reduce_den).run()
 
 
 class TwoPassPlan:
     """Device buffers of one E-step whose passes are one launch each, and
     its launches: ``den()`` (pass A over every stripe: inv_den, pt1 and the
     xx partials) must precede ``moment()`` (pass B over every source tile:
-    p1 and px). Nothing per pair is kept. K3 (``StashPlan``) and K4
-    (``FusedPlan``) take the same arguments; ``DEN`` and ``MOMENT`` name
-    each pass's C entry and its LAUNCHES key."""
+    p1 and px). Nothing per pair is kept. K3 (``StashPlan``), K4
+    (``FusedPlan``) and K12 (``MergedStashPlan``) take the same arguments;
+    ``DEN`` and ``MOMENT`` name each pass's C entry and its LAUNCHES
+    key."""
 
     DEN = MOMENT = None
 
@@ -450,159 +447,79 @@ class TwoPassPlan:
 class StashPlan(TwoPassPlan):
     """K3: pass A sums each active tile's rows apart and adds the tiles'
     sums in tile order (the stash kernels' order), pass B sums each row's
-    stripes apart and adds them in stripe order, so the results equal the
-    per-stripe stash kernels' bit for bit."""
+    stripes apart and adds them in stripe order: the association of the
+    reference's stash kernels, whose stash it does without."""
 
     DEN = ("probreg_stash_den", "stash_den")
     MOMENT = ("probreg_stash_rows", "stash_moment")
 
 
-class StripeStashPlan:
-    """Device buffers of the per-stripe stash E-step of a source shard (K11)
-    and its launches. ``den_raw(j)`` writes stripe j's stash and raw column
-    sums into ``den_raw_buf``, ``finish(j)`` forms inv_den, pt1 and the xx
-    partials from them (after the caller's reduction), ``moment(j)`` (the
-    per-stripe pass B) adds the stash back into p1/px. Stripes run in order
-    on the current stream, so one stash buffer serves them all. Stripe j
-    uses stash and inv_den buffer j % BUFFERS. An empty source (n_i = 0)
-    launches no pass A or pass B exps: its raw sums are 0.
-    """
+class ShardStashPlan(StashPlan):
+    """K11's route on one source shard of a 2-D mesh: pass A of K3 cut in
+    two around the caller's reduction. ``den_raw()`` writes the raw column
+    sums of every stripe into ``den_raw_buf`` (n,), ``reduce_den`` sums
+    them over the source shards in place, ``finish()`` forms inv_den, pt1
+    and the xx partials from them; pass B is K3's. Nothing per pair is
+    kept. An empty source (n_i = 0) launches neither pass: its raw sums are
+    0 and it has no rows."""
 
-    BUFFERS = 1
+    def __init__(self, ys, xs, scal, mask, tile_m: int, tile_n: int,
+                 reduce_den):
+        super().__init__(ys, xs, scal, mask, tile_m, tile_n)
+        self.reduce_den = reduce_den
+        self.den_raw_buf = self.ys.new_empty(self.n)
 
-    def __init__(self, ys, xs, scal, mask, tile_m: int, tile_n: int):
-        (m, self.dim), n = ys.shape, xs.shape[0]
-        self.n_i, self.n_j = mask.shape
-        if tile_n > _MAX_TILE_N or self.n_i > _MAX_GRID_Y:
-            raise ValueError(f"tile_n={tile_n} / {self.n_i} source tiles "
-                             "exceed the stash kernels' launch limits")
-        if self.n_i != -(-m // tile_m) or self.n_j != -(-n // tile_n):
-            raise ValueError("mask shape does not match the tiles")
-        self.m, self.n, self.tile_m, self.tile_n = m, n, tile_m, tile_n
-        self.ys, self.xs = _pack(ys), _pack(xs)
-        self.scal = scal.to(torch.float32).contiguous()
-        self.act_idx, self.act_cnt = _compact(mask)
-        n_cx = -(-tile_n // _DEN_THREADS)
-        new = self.ys.new_empty
-        self.stash = [new((self.n_i * tile_m, tile_n))
-                      for _ in range(self.BUFFERS)]
-        self.part = new((self.n_i, tile_n))
-        self.tickets = torch.zeros(n_cx, dtype=torch.int32,
-                                   device=ys.device)
-        self.inv_den = [new(tile_n) for _ in range(self.BUFFERS)]
-        self.den_raw_buf = new(tile_n)
-        self.pt1 = new(n)
-        self.xx_part = new((self.n_j, n_cx))
-        self.p1px = self.ys.new_zeros((m, 4))
-        self.lib = _lib()
-        self.stream = _stream(self.ys)
-
-    def _cols(self, j: int):
-        c0 = j * self.tile_n
-        return c0, min(self.tile_n, self.n - c0)
-
-    def den_raw(self, j: int) -> None:
-        """K11: the stash and the raw column sums of stripe j into
-        den_raw_buf[:ncols], unfinalized."""
-        c0, ncols = self._cols(j)
+    def den_raw(self) -> None:
+        """K11: the raw column sums into den_raw_buf, unfinalized."""
         if self.n_i == 0:
-            self.den_raw_buf[:ncols].zero_()
+            self.den_raw_buf.zero_()
             return
-        status = self.lib.probreg_stash_den_raw(
-            self.ys.data_ptr(), self.m, self.tile_m, self.n_i,
-            self.xs[c0].data_ptr(), ncols, self.tile_n,
-            self.act_idx[j].data_ptr(), self.act_cnt[j].data_ptr(),
-            self.scal.data_ptr(), self.stash[0].data_ptr(),
-            self.part.data_ptr(), self.tickets.data_ptr(),
-            self.den_raw_buf.data_ptr(), self.stream)
-        _check(status, "stash_den_raw")
-        LAUNCHES["stash_den_raw"] += 1
+        self._launch(("probreg_stash_den_raw", "stash_den_raw"),
+                     self.col_idx, self.col_cnt, self.den_raw_buf)
 
-    def finish(self, j: int) -> None:
-        """inv_den, pt1 and the xx partials of stripe j from den_raw_buf
-        (pass A's own finalisation)."""
-        c0, ncols = self._cols(j)
+    def finish(self) -> None:
+        """inv_den, pt1 and the xx partials from den_raw_buf, in K3's
+        pass-A chunk layout."""
         status = self.lib.probreg_stash_finish(
-            self.xs[c0].data_ptr(), ncols, self.tile_n, self.scal.data_ptr(),
-            self.den_raw_buf.data_ptr(), self.inv_den[0].data_ptr(),
-            self.pt1[c0].data_ptr(), self.xx_part[j].data_ptr(), self.stream)
+            self.xs.data_ptr(), self.n, self.tile_n, self.n_j,
+            self.scal.data_ptr(), self.den_raw_buf.data_ptr(),
+            self.inv_den.data_ptr(), self.pt1.data_ptr(),
+            self.xx_part.data_ptr(), self.stream)
         _check(status, "stash_finish")
         LAUNCHES["stash_finish"] += 1
 
-    def moment(self, j: int) -> None:
-        """The per-stripe pass B of stripe j (``stripe_moment``)."""
-        c0, ncols = self._cols(j)
-        b = j % self.BUFFERS
-        if self.n_i == 0:
-            return
-        status = self.lib.probreg_stash_moment(
-            self.xs[c0].data_ptr(), ncols, self.tile_n, self.m, self.tile_m,
-            self.n_i, self.act_idx[j].data_ptr(), self.act_cnt[j].data_ptr(),
-            self.stash[b].data_ptr(), self.inv_den[b].data_ptr(),
-            self.p1px.data_ptr(), self.stream)
-        _check(status, "stripe_moment")
-        LAUNCHES["stripe_moment"] += 1
+    def den(self) -> None:
+        self.den_raw()
+        self.reduce_den(self.den_raw_buf)
+        self.finish()
 
-    def result(self):
-        return (self.pt1, self.p1px[:, 3], self.p1px[:, :self.dim],
-                self.xx_part.sum())
+    def moment(self) -> None:
+        if self.n_i:
+            super().moment()
 
 
-class MergedStashPlan(StripeStashPlan):
-    """Device buffers of one pipelined stash E-step (K12): two stash and
-    inv_den buffers. ``merged(j)`` runs pass A on stripe j and, from
-    j = 1 on, pass B on stripe j - 1, in one launch; after the last
-    stripe, ``moment(n_j - 1)`` (the per-stripe pass B) closes it."""
+class MergedStashPlan(TwoPassPlan):
+    """K12: K3's pass A, then pass B with the normalizer folded into the
+    channels (p1 += g * inv_den, px += g * (x * inv_den)) for every stripe
+    but the last, which keeps K3's p = g * inv_den, as the reference's
+    pipelined kernel and its epilogue associate them."""
 
-    BUFFERS = 2
-
-    def __init__(self, ys, xs, scal, mask, tile_m: int, tile_n: int):
-        super().__init__(ys, xs, scal, mask, tile_m, tile_n)
-        self.no_stripe = torch.zeros(1, dtype=torch.int32, device=ys.device)
-
-    def merged(self, j: int) -> None:
-        if j > 0:
-            c0, ncols = self._cols(j - 1)
-            b = (j - 1) % self.BUFFERS
-            prev = (self.xs[c0].data_ptr(), ncols,
-                    self.act_idx[j - 1].data_ptr(),
-                    self.act_cnt[j - 1].data_ptr(),
-                    self.stash[b].data_ptr(), self.inv_den[b].data_ptr())
-        else:  # no previous stripe: every pass-B block exits at once
-            prev = (self.xs.data_ptr(), 0, self.act_idx[0].data_ptr(),
-                    self.no_stripe.data_ptr(), self.stash[1].data_ptr(),
-                    self.inv_den[1].data_ptr())
-        c0, ncols = self._cols(j)
-        b = j % self.BUFFERS
-        status = self.lib.probreg_stash_merged(
-            self.ys.data_ptr(), self.m, self.tile_m, self.n_i,
-            self.xs[c0].data_ptr(), ncols, self.tile_n,
-            self.act_idx[j].data_ptr(), self.act_cnt[j].data_ptr(),
-            self.scal.data_ptr(), self.stash[b].data_ptr(),
-            self.part.data_ptr(), self.tickets.data_ptr(),
-            self.inv_den[b].data_ptr(), self.pt1[c0].data_ptr(),
-            self.xx_part[j].data_ptr(), *prev, self.p1px.data_ptr(),
-            self.stream)
-        _check(status, "stash_merged")
-        LAUNCHES["stash_merged"] += 1
+    DEN = StashPlan.DEN
+    MOMENT = ("probreg_stash_merged", "stash_merged")
 
 
 def stash_merged_estep(ys, xs, scal, mask, tile_m: int, tile_n: int):
-    """(pt1, p1, px, xx) of the pipelined stash E-step on sorted clouds:
-    n_j launches of K12 and one of the per-stripe pass B for CUDA tensors,
-    the plain version for CPU tensors."""
+    """(pt1, p1, px, xx) of the pipelined stash E-step's function on sorted
+    clouds: K12's two launches for CUDA tensors, the plain version for CPU
+    tensors."""
     if ys.is_cuda:
-        plan = MergedStashPlan(ys, xs, scal, mask, tile_m, tile_n)
-        for j in range(plan.n_j):
-            plan.merged(j)
-        plan.moment(plan.n_j - 1)
-        return plan.result()
+        return MergedStashPlan(ys, xs, scal, mask, tile_m, tile_n).run()
     return stash_merged_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
 
 
 def stash_den_raw_plain(ys, y2, x, x2, scal, act_rows, n_i, tile_m):
     """Plain version of K11 on one stripe: g (zero in culled tiles) and the
-    raw column sums, per-tile sums added in tile order."""
+    stripe's raw column sums, per-tile sums added in tile order."""
     d2 = torch.clamp(y2[:, None] + x2[None, :] - 2.0 * (ys @ x.T), min=0.0)
     g = torch.where(act_rows[:, None], torch.exp(-d2 * scal[0]), 0.0)
     pad = n_i * tile_m - ys.shape[0]
@@ -641,26 +558,38 @@ def _plain_pass_b_folded(g, inv_den, x):
 
 def _plain_stripes(ys, xs, scal, mask, tile_m: int, tile_n: int,
                    reduce_den=None):
-    """Pass A of every stripe in order: (g, inv_den, pt1, xx, x) each; with
-    ``reduce_den``, the raw sums go through it before the finalisation."""
-    m, n_i = ys.shape[0], mask.shape[0]
+    """Pass A of every stripe in order: (g, inv_den, pt1, xx, x) each. With
+    ``reduce_den`` the raw sums of every stripe come first, as one (n,)
+    tensor through one ``reduce_den`` call, and each stripe's g is formed
+    again for its finalisation and pass B."""
+    m, n_i, n_j = ys.shape[0], mask.shape[0], mask.shape[1]
     y2, x2 = (ys * ys).sum(1), (xs * xs).sum(1)
-    for j in range(mask.shape[1]):
+
+    def raw(j):
         cols = slice(j * tile_n, (j + 1) * tile_n)
         act_rows = mask[:, j].repeat_interleave(tile_m)[:m]
-        g, den_raw = stash_den_raw_plain(ys, y2, xs[cols], x2[cols], scal,
-                                         act_rows, n_i, tile_m)
+        return stash_den_raw_plain(ys, y2, xs[cols], x2[cols], scal,
+                                   act_rows, n_i, tile_m)
+
+    if reduce_den is not None:
+        den_raw = torch.cat([raw(j)[1] for j in range(n_j)])
+        reduce_den(den_raw)
+        reduced = den_raw.split(tile_n)
+    for j in range(n_j):
+        cols = slice(j * tile_n, (j + 1) * tile_n)
+        g, den_j = raw(j)
         if reduce_den is not None:
-            reduce_den(den_raw)
-        yield (g, *_plain_finish(den_raw, x2[cols], scal), xs[cols])
+            den_j = reduced[j]
+        yield (g, *_plain_finish(den_j, x2[cols], scal), xs[cols])
 
 
 def stash_estep_plain(ys, xs, scal, mask, tile_m: int, tile_n: int,
                       reduce_den=None):
     """Plain version of the stash kernels, stripe by stripe: per-tile
     column sums added in tile order, culled tiles contributing nothing;
-    ``reduce_den`` as in stash_estep (the plain version of K11 and
-    stash_finish)."""
+    ``reduce_den`` as in stash_estep (the plain version of K11's route:
+    every stripe's raw sums, one reduction, then the finalisation and pass
+    B)."""
     p1, px, xx = ys.new_zeros(ys.shape[0]), torch.zeros_like(ys), \
         ys.new_zeros(())
     pt1 = []

@@ -92,7 +92,7 @@ def all_reduce_cost(axis: str, numel: int, reps: int, *, mesh,
                     device) -> float:
     """ms per all_reduce of a ``numel``-float tensor over one axis of
     ``mesh``, over ``reps`` calls after a warm-up (the 2-D culled E-step's
-    per-stripe normalizer reduction)."""
+    normalizer reduction, one per E-step)."""
     grp = mesh.get_group(axis)
     buf = torch.ones(numel, device=device)
     dist.all_reduce(buf, group=grp)

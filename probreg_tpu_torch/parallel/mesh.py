@@ -37,8 +37,8 @@ M_AXIS, N_AXIS = "m", "n"
 
 # Counts of the sharded runners' work, read by tests and chip_smoke.py:
 # E-steps run (one per EM iteration, so a call's count is its iterations),
-# all_reduce calls, and among them the per-stripe normalizer reductions of
-# the 2-D culled E-step.
+# all_reduce calls, and among them the normalizer reductions of the 2-D
+# E-step (one per E-step).
 COUNTS = {"esteps": 0, "all_reduce": 0, "den_all_reduce": 0}
 
 

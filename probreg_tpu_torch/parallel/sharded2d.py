@@ -14,13 +14,14 @@ The rigid and affine M-steps need only sums over source rows, so each rank
 reduces its rows and one all_reduce over m gives every rank the same
 D x D system to solve. No rank holds an M-row or N-row array.
 
-The culled E-step (``use_culled``) is the stash E-step on the shards, one
-target stripe at a time: pass A stops at the raw column sums (kernel K11,
-``stash_den_raw``), they are all-reduced over m, ``stash_finish`` forms
-inv_den, pt1 and xx, and pass B (K3b) reads the stash back: one
-all_reduce per stripe and E-step, as the reference's psum inside its stripe
-scan. Under NCCL they are ordered on the stream; under gloo each blocks the
-host.
+The culled E-step (``use_culled``) is the tile-culled E-step on the
+shards, three launches and no stash: pass A stops at the raw column sums
+of the whole target shard (kernel K11, ``stash_den_raw``), they are
+all-reduced over m once, ``stash_finish`` forms inv_den, pt1 and xx, and
+K3's pass B forms the Gaussian again. One den all_reduce per E-step,
+where the reference psums each stripe's sums inside its stripe scan (a
+column sums the same operands). Under NCCL it is ordered on the stream;
+under gloo it blocks the host.
 
 Not ported yet: the low-rank nonrigid kind (ROADMAP.md, Queue 1 item 4),
 and the 2-D FilterReg and BCPD runners (item 12), which raise
@@ -92,8 +93,9 @@ def _run_em_2d(ys_loc, xs_loc, init, sigma2_init=None, *, kind, w, maxiter,
     ``sharded2d.py:100``). ``ys_loc`` (Ml, D) / ``xs_loc`` (Nl, D): this
     rank's source and target shards; m, n the whole clouds' counts;
     ``init`` the packed (D*D + D + 1,) start; ``sigma2_init`` > 0 replaces
-    the squared_kernel_sum start. ``use_culled``: the stash E-step with
-    K11 (clouds sorted in Morton order by the caller). Returns (lin, t,
+    the squared_kernel_sum start. ``use_culled``: the culled E-step with
+    K11, one den reduction per E-step (clouds sorted in Morton order by the
+    caller). Returns (lin, t,
     scale, sigma2, q)."""
     m_grp, n_grp = mesh.get_group(M_AXIS), mesh.get_group(N_AXIS)
     dev = ys_loc.device
@@ -182,7 +184,7 @@ def registration_cpd_2d(
     and gets the same result.
 
     Keyword Args:
-        use_culled: the stash E-step with K11 (default: the tensors are on
+        use_culled: the culled E-step with K11 (default: the tensors are on
             CUDA, ``config.use_culled_estep`` and M * N >=
             ``config.culled_estep_min_pairs``); both clouds are sorted in
             Morton order once, on the host.

@@ -91,25 +91,22 @@ def test_stash_kernels_match_plain(dev, sigma2, tile_m, tile_n):
         assert bool((got[0][cols] == 0).all())
 
 
-@pytest.mark.parametrize("kernel", ["K3", "K8"])
+@pytest.mark.parametrize("kernel", ["K3", "K8", "K11", "K12"])
 def test_one_estep_allocates_no_stash(dev, kernel):
-    """One default-route E-step of K3 and of K8 at 20k x 20k points, dense,
-    tiles 1024 x 1024: the device memory it allocates at its peak stays
-    below one (M, tile_n) f32 buffer, the stash that the per-stripe kernels
-    hold (78 MiB here; the E-step's own buffers take ~1 MiB)."""
+    """One E-step of K3, K8, K11's route (identity reduction) and K12 at 20k
+    x 20k points, dense, tiles 1024 x 1024: what it allocates at its peak
+    above its inputs is its own (M) and (N) buffers, under 4 MiB here,
+    where one (M, tile_n) f32 buffer, the stash that the per-stripe
+    kernels held, would take 78 MiB."""
     from probreg_tpu_torch.ops import bcpd_cuda as pbc
 
     m = n = 20_000
     tile = 1024
     ys, xs, v_t, alpha = _wstash_inputs(m, n, 3, 13, dev)
     scal = pec._scalars(0.5, 0.05, m, n, 3, dev)
-    if kernel == "K3":
-        mask = pec._active_mask(*pec._tile_bounds(ys, tile),
-                                *pec._tile_bounds(xs, tile), scal[0])
-
-        def estep():
-            return pec.stash_estep(ys, xs, scal, mask, tile, tile)
-    else:
+    mask = pec._active_mask(*pec._tile_bounds(ys, tile),
+                            *pec._tile_bounds(xs, tile), scal[0])
+    if kernel == "K8":
         rowlog = torch.log(alpha) - 1.5 * np.log(2 * np.pi * 0.5)
         wscal = torch.tensor([1.0, 0.1 / n, 1.1920929e-07], device=dev)
         mask, _ = pbc.cull_mask(ys, xs, rowlog, wscal[0], tile, tile)
@@ -117,6 +114,14 @@ def test_one_estep_allocates_no_stash(dev, kernel):
         def estep():
             return pbc.wstash_estep(ys, xs, rowlog, v_t, wscal, mask, tile,
                                     tile)
+    else:
+        core, kw = {"K3": (pec.stash_estep, {}),
+                    "K11": (pec.stash_estep,
+                            {"reduce_den": lambda d: None}),
+                    "K12": (pec.stash_merged_estep, {})}[kernel]
+
+        def estep():
+            return core(ys, xs, scal, mask, tile, tile, **kw)
     assert bool(mask.all())
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -124,7 +129,7 @@ def test_one_estep_allocates_no_stash(dev, kernel):
     out = estep()
     torch.cuda.synchronize()
     grew = torch.cuda.max_memory_allocated() - base
-    assert grew < m * tile * 4, grew
+    assert grew < 4 << 20, grew
     assert all(bool(torch.isfinite(t).all()) for t in out)
 
 
@@ -164,23 +169,22 @@ def test_streaming_registration_kernels_match_plain(dev, monkeypatch):
 @pytest.mark.parametrize("tile_m,tile_n", [(96, 256), (512, 1024)])
 def test_stash_merged_kernel_matches_plain_and_k3(dev, sigma2, tile_m,
                                                   tile_n):
-    """K12 on the inputs of test_stash_kernels_match_plain: n_j launches of
-    K12 and one of the per-stripe pass B (stripe_moment) per E-step;
-    against its plain version by the file's criterion; against K3 on the
-    same inputs pt1 and xx equal bit for bit (the same per-tile sums in the
-    same order) and p1, px within 1e-5 of their largest entry (the
-    normalizer folded into the channels)."""
+    """K12 on the inputs of test_stash_kernels_match_plain: two launches
+    per E-step, K3's pass A (stash_den) and the folded pass B
+    (stash_merged); against its plain version by the file's criterion;
+    against K3 on the same inputs pt1 and xx equal bit for bit (the same
+    pass A) and p1, px within 1e-5 of their largest entry (the normalizer
+    folded into the channels)."""
     m, n = 3000, 2500
     ys, xs = _cloud(m, 3, dev), _cloud(n, 4, dev, far=700)
     scal = pec._scalars(sigma2, 0.05, m, n, 3, dev)
     mask = pec._active_mask(*pec._tile_bounds(ys, tile_m),
                             *pec._tile_bounds(xs, tile_n), scal[0])
-    n_j = mask.shape[1]
     before = dict(pec.LAUNCHES)
     got = pec.stash_merged_estep(ys, xs, scal, mask, tile_m, tile_n)
     made = {k: pec.LAUNCHES[k] - before[k] for k in before}
-    assert made == {**{k: 0 for k in before}, "stash_merged": n_j,
-                    "stripe_moment": 1}
+    assert made == {**{k: 0 for k in before}, "stash_den": 1,
+                    "stash_merged": 1}
     want = pec.stash_merged_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
     for name, a, b in zip(("pt1", "p1", "px", "xx"), got, want):
         _close(a, b, name)
@@ -204,7 +208,7 @@ def test_estep_auto_merged_on_the_card(dev, monkeypatch):
     monkeypatch.setattr(pcfg.config, "use_merged_stash", True)
     before = pec.LAUNCHES["stash_merged"]
     out = pec.estep_auto(ys, xs, 0.05, 0.1, tile_m=128, tile_n=256)
-    assert pec.LAUNCHES["stash_merged"] == before + -(-2100 // 256)
+    assert pec.LAUNCHES["stash_merged"] == before + 1
     for name, a, b in zip(out._fields, out, base):
         _close(a, b, name)
     monkeypatch.setattr(pcfg.config, "stash_max_bytes", 1 << 10)
@@ -218,7 +222,7 @@ def test_estep_auto_merged_on_the_card(dev, monkeypatch):
 def test_merged_pyramid_matches_default_on_the_card(dev, monkeypatch):
     """The rigid CPD pyramid on a 20k-point blobby surface (levels 3, 1,500
     coarse points; the finest level streams): through K12 it launches no
-    K3a and K3 no K12, both recover pyramid_rigid.py's motion within the
+    K3b and K3 no K12, both recover pyramid_rigid.py's motion within the
     reference test's bar, and they agree within 1e-5 (pt1 and xx are the
     same bit for bit, p1 and px differ by one association's rounding)."""
     from probreg_tpu_torch import pyramid
@@ -237,8 +241,8 @@ def test_merged_pyramid_matches_default_on_the_card(dev, monkeypatch):
             src, tgt, "rigid", levels=3, coarse_points=1500, tol=1e-4,
             device=dev)
         made = {k: pec.LAUNCHES[k] - before[k] for k in before}
-        mine, other = (("stash_merged", "stash_den") if merged
-                       else ("stash_den", "stash_merged"))
+        mine, other = (("stash_merged", "stash_moment") if merged
+                       else ("stash_moment", "stash_merged"))
         assert made[mine] > 0 and made[other] == 0, made
         tr = res.transformation
         assert float(se3_op.rotation_angle(tr.rot.cpu().double(),
@@ -1001,24 +1005,26 @@ def test_gmmtree_batch_is_one_launch_of_each_and_equals_single(dev,
 # K11 (stash_den_raw, stash_finish) and the sharded runners
 # --------------------------------------------------------------------------
 
-def _shard_dens(shards, xs, scal, tile_n):
-    """Each stripe's raw column sums over every source shard, from K11 runs
-    that finalize locally (the all_reduce of one process's shards)."""
-    totals = []
+def _shard_den_total(shards, xs, scal, tile_n):
+    """The raw column sums of the target over every source shard, from K11
+    runs that finalize locally (the all_reduce of one process's shards)."""
+    total = torch.zeros_like(xs[:, 0])
     for ys, tm, mask in shards:
         seen = []
         pec.stash_estep(ys, xs, scal, mask, tm, tile_n,
                         reduce_den=lambda d: seen.append(d.clone()))
-        totals = seen if not totals else [a + b for a, b in zip(totals, seen)]
-    return totals
+        assert len(seen) == 1
+        total += seen[0]
+    return total
 
 
 @pytest.mark.parametrize("sigma2", [0.5, 0.01])
 @pytest.mark.parametrize("tile_m,tile_n", [(96, 256), (512, 1024)])
 def test_stash_den_raw_kernel_matches_plain(dev, sigma2, tile_m, tile_n):
-    """K11's raw column sums per stripe against stash_den_raw_plain, and
-    K11 + stash_finish + the per-stripe pass B against the plain version,
-    with stripes that have no active tile (the far cluster)."""
+    """K11's raw column sums, one (n,) reduction per E-step, against
+    stash_den_raw_plain stripe by stripe, and K11 + stash_finish + K3's
+    pass B (three launches) against the plain version, with stripes that
+    have no active tile (the far cluster)."""
     m, n = 3000, 2500
     ys, xs = _cloud(m, 3, dev), _cloud(n, 4, dev, far=700)
     scal = pec._scalars(sigma2, 0.05, m, n, 3, dev)
@@ -1028,12 +1034,12 @@ def test_stash_den_raw_kernel_matches_plain(dev, sigma2, tile_m, tile_n):
     before = dict(pec.LAUNCHES)
     got = pec.stash_estep(ys, xs, scal, mask, tile_m, tile_n,
                           reduce_den=lambda d: dens.append(d.clone()))
-    n_j = mask.shape[1]
     made = {k: pec.LAUNCHES[k] - before[k] for k in before}
-    assert made == {**{k: 0 for k in before}, "stash_den_raw": n_j,
-                    "stash_finish": n_j, "stripe_moment": n_j}
+    assert made == {**{k: 0 for k in before}, "stash_den_raw": 1,
+                    "stash_finish": 1, "stash_moment": 1}
+    assert len(dens) == 1 and dens[0].shape == (n,)
     y2, x2 = (ys * ys).sum(1), (xs * xs).sum(1)
-    for j, den in enumerate(dens):
+    for j, den in enumerate(dens[0].split(tile_n)):
         cols = slice(j * tile_n, (j + 1) * tile_n)
         act = mask[:, j].repeat_interleave(tile_m)[:m]
         _, want = pec.stash_den_raw_plain(ys, y2, xs[cols], x2[cols], scal,
@@ -1047,8 +1053,8 @@ def test_stash_den_raw_kernel_matches_plain(dev, sigma2, tile_m, tile_n):
 @pytest.mark.parametrize("sigma2", [0.5, 0.01, 1e-3])
 def test_stash_den_raw_one_shard_equals_k3_bit_for_bit(dev, sigma2):
     """At one m-shard (the reduction is the identity), K11 + stash_finish
-    + the per-stripe pass B give K3's pt1, p1, px and xx bit for bit: the
-    same sums in the same order."""
+    + K3's pass B give K3's pt1, p1, px and xx bit for bit: the same sums
+    in the same order."""
     m, n = 4000, 3000
     ys, xs = _cloud(m, 8, dev), _cloud(n, 9, dev, far=500)
     scal = pec._scalars(sigma2, 0.05, m, n, 3, dev)
@@ -1064,7 +1070,7 @@ def test_stash_den_raw_one_shard_equals_k3_bit_for_bit(dev, sigma2):
 @pytest.mark.parametrize("parts,m", [(2, 3000), (4, 3000), (4, 9)])
 def test_stash_den_raw_sharded_sum_matches_k3(dev, parts, m):
     """The source in ``parts`` shards (9 rows in 4 leave the last shard
-    empty: 3, 3, 3, 0), their raw sums added per stripe: the shards' p1 /
+    empty: 3, 3, 3, 0), their raw sums added: the shards' p1 /
     px together, and every shard's pt1 and xx, equal the unsharded K3
     E-step within the kernel tolerance."""
     from probreg_tpu_torch.parallel.mesh import shard_range
@@ -1085,12 +1091,11 @@ def test_stash_den_raw_sharded_sum_matches_k3(dev, parts, m):
             *pec._tile_bounds(y, tm), *pec._tile_bounds(xs, 512), scal[0])))
         rows.append((r0, r1))
     assert (shards[-1][0].shape[0] == 0) == (m == 9)
-    totals = _shard_dens(shards, xs, scal, 512)
+    total = _shard_den_total(shards, xs, scal, 512)
     p1, px = torch.zeros_like(want[1]), torch.zeros_like(want[2])
     for (y, tm, mask), (r0, r1) in zip(shards, rows):
-        it = iter(totals)
         got = pec.stash_estep(y, xs, scal, mask, tm, 512,
-                              reduce_den=lambda d: d.copy_(next(it)))
+                              reduce_den=lambda d: d.copy_(total))
         p1[r0:r1], px[r0:r1] = got[1], got[2]
         _close(got[0], want[0], "pt1")
         _close(got[3], want[3], "xx")
@@ -1112,8 +1117,8 @@ def nccl_world_one(dev, tmp_path):
 def test_sharded_runners_on_one_nccl_rank(dev, nccl_world_one, monkeypatch):
     """registration_cpd_sharded on a 1-D mesh and registration_cpd_2d on a
     1 x 1 mesh, culled, at 20k points: the 2-D run goes through K11 (one
-    den reduction per stripe and E-step) and never K3a, the 1-D run through
-    K3; both equal the plain-driven run of the same runner within 1e-4 and
+    den reduction and three launches per E-step) and never K3a, the 1-D
+    run through K3; both equal the plain-driven run of the same runner within 1e-4 and
     each other within 1e-4 (tile sizes and the reduction differ)."""
     from probreg_tpu_torch.parallel import make_mesh, make_mesh_2d, mesh
     from probreg_tpu_torch.parallel import sharded, sharded2d
@@ -1135,9 +1140,9 @@ def test_sharded_runners_on_one_nccl_rank(dev, nccl_world_one, monkeypatch):
         got = {k: v for k, v in pec.LAUNCHES.items() if v}
         assert mesh.COUNTS["esteps"] == 15
         if name == "2d":
-            assert set(got) == {"stash_den_raw", "stash_finish",
-                                "stripe_moment"}
-            assert got["stash_den_raw"] == mesh.COUNTS["den_all_reduce"]
+            assert got == {"stash_den_raw": 15, "stash_finish": 15,
+                           "stash_moment": 15}
+            assert mesh.COUNTS["den_all_reduce"] == 15
         else:
             assert set(got) == {"stash_den", "stash_moment"}
     for a, b in ((runs["1d"], runs["2d"]),):

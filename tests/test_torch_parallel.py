@@ -231,7 +231,8 @@ def _reference_spmd(src, tgt, shape, sigma2, w):
 def _port_spmd(src, tgt, shape, sigma2, w):
     """The port's plain K11 + finish + pass B (estep_cuda.stash_estep with
     reduce_den, on CPU tensors) on every (source shard, target shard) of a
-    shape = (pm, pn) mesh, in one process: each stripe's raw sums are
+    shape = (pm, pn) mesh, in one process: each shard's one reduction per
+    E-step hands over the raw sums of the whole target shard, which are
     summed over the source shards first (the all_reduce), then handed to
     every shard's run. Returns what _reference_spmd returns, and checks
     that pt1 and xx are the same bit for bit on every source shard."""
@@ -252,18 +253,17 @@ def _port_spmd(src, tgt, shape, sigma2, w):
             mask = pec._active_mask(*pec._tile_bounds(ys, tm),
                                     *pec._tile_bounds(xs, tn), scal[0])
             shards.append((y0, y1, ys, tm, mask))
-        totals = []   # each stripe's raw sums over every source shard
+        total = torch.zeros(xs.shape[0])  # raw sums over every shard
         for y0, y1, ys, tm, mask in shards:
             seen = []
             pec.stash_estep(ys, xs, scal, mask, tm, tn,
                             reduce_den=lambda d: seen.append(d.clone()))
-            totals = seen if not totals else [a + b for a, b in
-                                              zip(totals, seen)]
+            assert len(seen) == 1
+            total = total + seen[0]
         outs = []
         for y0, y1, ys, tm, mask in shards:
-            it = iter(totals)
             out = pec.stash_estep(ys, xs, scal, mask, tm, tn,
-                                  reduce_den=lambda d: d.copy_(next(it)))
+                                  reduce_den=lambda d: d.copy_(total))
             p1[y0:y1] += out[1].numpy()
             px[y0:y1] += out[2].numpy()
             outs.append(out)
@@ -303,6 +303,51 @@ def test_k11_plain_matches_reference_spmd(shape, m, n, regime):
                                    err_msg=name)
 
 
+def _k11_inputs(m, n, sigma2, tile_m=8, tile_n=64):
+    """Sorted clouds of m and n points (m may be 0: an empty source shard)
+    with the scalars and the active-tile mask of K11's route."""
+    src, tgt = _sorted_pair(M, N)
+    ys, xs = torch.as_tensor(src[:m]), torch.as_tensor(tgt[:n])
+    scal = pec._scalars(sigma2, 0.1, max(m, 1), n, 3, "cpu")
+    mask = pec._active_mask(*pec._tile_bounds(ys, tile_m),
+                            *pec._tile_bounds(xs, tile_n), scal[0]) \
+        if m else torch.zeros((0, -(-n // tile_n)), dtype=torch.bool)
+    return ys, xs, scal, mask, tile_m, tile_n
+
+
+K11_CASES = [(151, 257, 0.5), (151, 257, 2e-3), (0, 257, 0.5)]
+K11_IDS = ["dense", "culled", "empty-source-shard"]
+
+
+@pytest.mark.parametrize("m,n,sigma2", K11_CASES, ids=K11_IDS)
+def test_k11_reduces_the_whole_target_shard_once(m, n, sigma2):
+    """One E-step of K11's route hands reduce_den one (n,) f32 tensor, the
+    raw sums of every stripe (five stripes of 64 here), once; an empty
+    source shard hands zeros."""
+    ys, xs, scal, mask, tm, tn = _k11_inputs(m, n, sigma2)
+    assert mask.shape[1] == 5
+    seen = []
+    pec.stash_estep(ys, xs, scal, mask, tm, tn,
+                    reduce_den=lambda d: seen.append(d.clone()))
+    assert len(seen) == 1
+    assert seen[0].shape == (n,) and seen[0].dtype == torch.float32
+    assert bool((seen[0] == 0).all()) == (m == 0)
+
+
+@pytest.mark.parametrize("m,n,sigma2", K11_CASES, ids=K11_IDS)
+def test_k11_plain_with_identity_reduction_equals_stash_plain(m, n, sigma2):
+    """With a reduction that leaves the sums as they are (one m-shard), the
+    plain version of K11's route equals stash_estep_plain without
+    reduce_den bit for bit: the same sums, finalized and moved in the same
+    order."""
+    ys, xs, scal, mask, tm, tn = _k11_inputs(m, n, sigma2)
+    got = pec.stash_estep_plain(ys, xs, scal, mask, tm, tn,
+                                reduce_den=lambda d: None)
+    want = pec.stash_estep_plain(ys, xs, scal, mask, tm, tn)
+    for name, a, b in zip(("pt1", "p1", "px", "xx"), got, want):
+        assert a.shape == b.shape and torch.equal(a, b), name
+
+
 @pytest.mark.parametrize("name,entry,shape,args,kw", CASES,
                          ids=[c[0] for c in CASES])
 def test_sharded_cpd_matches_reference(spawned, name, entry, shape, args,
@@ -321,9 +366,8 @@ def test_sharded_cpd_matches_reference(spawned, name, entry, shape, args,
                   mesh=_jax_mesh(shape), **kw)
     _check(outs[0]["result"], want, name)
     if entry == "cpd_2d" and kw.get("use_culled"):
-        # One normalizer reduction per stripe and E-step on every rank.
-        assert outs[0]["counts"]["den_all_reduce"] == ITERS * -(
-            -pmesh.shard_range(N, 2, 0)[1] // TILE)
+        # One normalizer reduction per E-step on every rank.
+        assert outs[0]["counts"]["den_all_reduce"] == ITERS
 
 
 def test_batch_sharded_matches_reference(spawned):

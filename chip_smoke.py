@@ -1278,9 +1278,9 @@ def check_gt(dev, kernels):
     """K6 against its plain version on the 150k clouds, as the streaming
     FilterReg E-step calls it (points: the target / sigma; queries: the
     transformed source / sigma; h = sqrt 2): dense at the run's sigma2_0
-    with 4 and 8 channels, culled at sigma2 = 1e-3, with M != N in one case;
-    then the wrapper with sort=True on unsorted clouds and sort=False on
-    sorted ones."""
+    with 4, 5 (update_sigma2's [1, x, |x|^2]) and 8 channels, culled at
+    sigma2 = 1e-3, with M != N in one case; then the wrapper with sort=True
+    on unsorted clouds and sort=False on sorted ones."""
     from probreg_tpu_torch.ops import gt_cuda as gc
     from probreg_tpu_torch.ops.spatial import morton_order
     from probreg_tpu_torch.utils import math_utils
@@ -1298,13 +1298,14 @@ def check_gt(dev, kernels):
     nrm = nrm / nrm.norm(dim=1, keepdim=True)
     out = {}
     for label, sigma2, chans, n in (("dense", sigma2_0, 4, None),
+                                    ("dense C=5", sigma2_0, 5, None),
                                     ("dense C=8", sigma2_0, 8, None),
                                     ("culled", 1e-3, 4, None),
                                     ("dense M != N", sigma2_0, 4, 120_000)):
         x = xs[:n] if n else xs
         w = torch.cat([torch.ones_like(x[:, :1]), x]
-                      + ([(x * x).sum(1, keepdim=True), nrm[:x.shape[0]]]
-                         if chans == 8 else []), dim=1)
+                      + ([(x * x).sum(1, keepdim=True)] if chans > 4 else [])
+                      + ([nrm[:x.shape[0]]] if chans == 8 else []), dim=1)
         sigma = sigma2 ** 0.5
         ps, qs = x / sigma, ys / sigma
         cen = (ps.sum(0) + qs.sum(0)) / (ps.shape[0] + qs.shape[0])
@@ -1315,10 +1316,12 @@ def check_gt(dev, kernels):
         cols = torch.full((mask.shape[0],), float(prep[5]), device=dev)
         cols[-1] = ps.shape[0] - (cols.numel() - 1) * prep[5]
         pairs = float(cols @ mask.float() @ rows)
+        blocks, threads = gc.launch_shape(qs.shape[0])
         log(f"[K6 gauss_transform] {label}: sigma2 {sigma2:.6g}, "
             f"{qs.shape[0]} x {ps.shape[0]}, C = {chans}, active tile "
             f"fraction {float(mask.float().mean()):.4f}, active pairs "
-            f"{pairs:.4g}")
+            f"{pairs:.4g}; {blocks} blocks of {threads} threads, "
+            f"{gc.ROWS_PER_THREAD} rows a thread, {gc.SLOTS} stages at once")
         n0 = gc.LAUNCHES["gauss_transform"]
         got = gc.gt_core(*prep)
         want = gc.gauss_transform_culled_plain(*prep)
@@ -2189,6 +2192,11 @@ def check_gmmtree_build(dev, kernels):
     for name, (pts, cnt) in cases.items():
         x, counts, levels = inputs[name] = gmm_level_inputs(pts, cnt, dev)
         for lev, (state, parent) in enumerate(levels):
+            per = gc.blocks_per_pair(
+                x.shape[1], x.shape[0],
+                gc.level_capacity(state.shape[1], dev))
+            log(f"  {name} level {lev}: {x.shape[0]} pair(s) of up to "
+                f"{x.shape[1]} points, {per} block(s) per pair")
             if x.shape[0] > 1:
                 worst = max(worst, level_em_batch_check(
                     f"{name} level {lev}", x, counts, state, parent))
@@ -2204,13 +2212,18 @@ def check_gmmtree_build(dev, kernels):
     state, parent = levels[1]
     pts_s, seg, _ = gc.sort_by_parent(x, counts, parent, 8)
     ms = timed(lambda: gc.level_launch(pts_s, seg, state, **kw), 5)
+    per = gc.blocks_per_pair(x.shape[1], x.shape[0],
+                             gc.level_capacity(state.shape[1], dev))
     log(f"  256 ragged pairs, level 1, {GMM_BUILD_ITERS} iterations: kernel "
-        f"{ms:.3f} ms for the batch (one block per pair)")
+        f"{ms:.3f} ms for the batch ({per} block(s) per pair)")
     x, _, levels = inputs[f"surface {N_GMM:,}"]
     state, parent = levels[1]
     n, k = x.shape[1], state.shape[1]
     pts_s, seg, _ = gc.sort_by_parent(x, None, parent, k // 8)
+    per = gc.blocks_per_pair(n, 1, gc.level_capacity(k, dev))
     ms = timed(lambda: gc.level_launch(pts_s, seg, state, **kw), 5)
+    one_ms = timed(lambda: gc.level_launch(pts_s, seg, state, **kw,
+                                           _blocks=1), 3)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     gc.level_em_plain(x, None, state, parent, **kw)
@@ -2220,8 +2233,8 @@ def check_gmmtree_build(dev, kernels):
                        float(n) * flops_level_em(k) * GMM_BUILD_ITERS)
     log(f"  {N_GMM:,} points, level 1 ({k} nodes), {GMM_BUILD_ITERS} "
         f"iterations: kernel {ms:.3f} ms ({ms / GMM_BUILD_ITERS:.3f} ms per "
-        f"iteration)  plain {plain_ms:.1f} ms  bound {b_ms:.4f} ms ({b_by})"
-        "; one block on one SM")
+        f"iteration) on {per} blocks; {one_ms:.3f} ms on one block  plain "
+        f"{plain_ms:.1f} ms  bound {b_ms:.4f} ms ({b_by})")
     kernels["gmmtree_level_em"] = dict(max_abs_err=worst, ms=ms,
                                        plain_ms=plain_ms, bound_ms=b_ms,
                                        bound_by=b_by)
@@ -2422,8 +2435,10 @@ def run_gmmtree_batch(dev, launches):
 
 def run_gmmtree_large(dev, launches):
     """registration_gmmtree on the 150k surface pair at the defaults: K9
-    once per level and K10 once, no plain version and no twin loop called;
-    then, on one tree, K10 against its plain version at 3 iterations."""
+    once per level and K10 once, no plain version and no twin loop called,
+    the call's time split with CUDA events into K9 per level, the sorts by
+    parent, K10 and the rest (host work and the other device work); then,
+    on one tree, K10 against its plain version at 3 iterations."""
     from probreg_tpu_torch import gmmtree as pgt
     from probreg_tpu_torch.ops import gmmtree_cuda as gc
     from probreg_tpu_torch.utils import se3_op
@@ -2439,10 +2454,27 @@ def run_gmmtree_large(dev, launches):
     def refuse(*a, **k):
         raise AssertionError("a plain GMMTree path ran on the card")
 
+    spans = []   # (name, start event, end event) in launch order
+
+    def evented(name, fn):
+        def run(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            spans.append((name, e0, e1))
+            return out
+        return run
+
     saved = (gc.level_em_plain, gc.run_gmmtree_reg_fused_plain,
-             pgt._run_registration, pgt._accumulate)
+             pgt._run_registration, pgt._accumulate, gc.level_launch,
+             gc.sort_by_parent, gc._reg_cuda)
     gc.level_em_plain = gc.run_gmmtree_reg_fused_plain = refuse
     pgt._run_registration = pgt._accumulate = refuse
+    gc.level_launch = evented("K9", gc.level_launch)
+    gc.sort_by_parent = evented("sort", gc.sort_by_parent)
+    gc._reg_cuda = evented("K10", gc._reg_cuda)
     torch.cuda.reset_peak_memory_stats()
     try:
         reset_launches()
@@ -2453,7 +2485,17 @@ def run_gmmtree_large(dev, launches):
         got = all_launches()
     finally:
         (gc.level_em_plain, gc.run_gmmtree_reg_fused_plain,
-         pgt._run_registration, pgt._accumulate) = saved
+         pgt._run_registration, pgt._accumulate, gc.level_launch,
+         gc.sort_by_parent, gc._reg_cuda) = saved
+    split, level = {}, 0
+    for name, e0, e1 in spans:
+        if name == "K9":
+            name, level = f"K9 level {level}", level + 1
+        split[name] = split.get(name, 0.0) + e0.elapsed_time(e1)
+    rest = wall * 1e3 - sum(split.values())
+    log("  split of the timed call (CUDA events, ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items())
+        + f", the rest (host and other device work) {rest:.3f}")
     peak = torch.cuda.max_memory_allocated()
     expect_launches("150k GMMTree", gmmtree_level_em=2, gmmtree_reg=1)
     launches.update(gmmtree_level_em=got["gmmtree_level_em"],

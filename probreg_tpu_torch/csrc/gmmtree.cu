@@ -3,10 +3,12 @@
 //
 // level_em_kernel (K9) replaces probreg_tpu/ops/gmmtree_pallas.py:
 // _level_em_kernel (level_em): one launch runs one tree level's whole build
-// EM, the stop test included, for every pair of a batch; one thread block
-// is one pair. gmmtree_reg_kernel (K10) replaces _reg_kernel
-// (run_gmmtree_reg_fused): one launch runs whole registrations, one block
-// per pair, each pair stopping at its own iteration.
+// EM, the stop test included, for every pair of a batch, on G thread blocks
+// per pair (the wrapper picks G: 1 when the batch fills the card, else up
+// to one block per chunk of a large pair). gmmtree_reg_kernel (K10)
+// replaces _reg_kernel (run_gmmtree_reg_fused): one launch runs whole
+// registrations, one block per pair, each pair stopping at its own
+// iteration.
 //
 // The TPU kernels form the (nodes x points) log-density grid with one MXU
 // product over 10 moment features and the moments with the transposed
@@ -16,25 +18,38 @@
 // size nodes x points exists. Node tables stay in shared memory; points
 // stream from device memory (a 150k cloud is 1.8 MB, inside the 50 MB L2),
 // so the kernels' limits are the node count, not the cloud size. Both are
-// bound by operations (the Gaussians, ~25 instructions each); one pair runs
-// on one SM.
+// bound by operations (the Gaussians, ~25 instructions each).
 //
 // K9, per iteration of one level of K = 8P nodes, on the pair's centred
 // valid points sorted by parent (the wrapper sorts; seg[p] .. seg[p+1] are
-// parent p's points, seg[P] the valid count):
-//   for each parent p in order: 8 adjacent lanes take one point, lane j its
-//   child 8p + j: u_j = pi_j (norm_j exp(-d^T inv_j d / 2)), d = x - mu_j;
+// parent p's points, seg[P] the valid count n). Each parent's points are
+// cut into chunks of kChunk from the segment's start; the pair's G blocks
+// take chunks c = r, r + G, ... (in parent order):
+//   E-step of a chunk: 8 adjacent lanes take one point, lane j its child
+//   8p + j: u_j = pi_j (norm_j exp(-d^T inv_j d / 2)), d = x - mu_j;
 //   den = the sum over the 8 lanes; gamma_j = u_j / den where den > 1e-15,
 //   else 0; the hard child is the first maximum; each lane sums gamma_j
 //   [1, x, x x^T] (10 moments). The lanes of one child are summed by
-//   shuffles, then the warps in order: no atomics. The 8 children are then
-//   updated at once (children of different parents are disjoint): a node
-//   with m0 >= lambda_d gets pi = m0 / n, mu = m1 / m0, cov = m2 / m0 - mu
-//   mu^T; others pi 0, mu 0, cov I. inv and det are closed-form adjugates;
-//   det < 1e-15 gives norm 0.
-//   q = sum over points of log(max(sum over ALL K nodes of u, 1e-15)) with
-//   the updated parameters; go on while it < maxiter and (it == 0 or
+//   shuffles, then the warps in order: the chunk's 80 partials go to a
+//   scratch buffer.
+//   Barrier. Every block sums each node's partials over its parent's
+//   chunks in chunk order and updates all K nodes at once (children of
+//   different parents are disjoint): a node with m0 >= lambda_d gets
+//   pi = m0 / n, mu = m1 / m0, cov = m2 / m0 - mu mu^T; others pi 0, mu 0,
+//   cov I. inv and det are closed-form adjugates; det < 1e-15 gives norm 0.
+//   The stop test: the points are cut into ranges of kChunk (in sorted
+//   order, ignoring parents); each range's sum of log(max(sum over ALL K
+//   nodes of u, 1e-15)) with the updated parameters is one block-wide
+//   fixed-order sum, written to the scratch buffer.
+//   Barrier. Every block sums the ranges into q (lane-strided, then a
+//   fixed shuffle tree); go on while it < maxiter and (it == 0 or
 //   |q - q_prev| >= lambda_s), q starting at 0 and q_prev at inf.
+// Every block of a pair thus holds the same node table and takes the same
+// stop decision, and the result is the same bits for any G and any batch.
+// G > 1 is a cooperative launch (every block resident) and the barriers
+// are grid-wide: a pair that has stopped skips the work and waits at the
+// barriers until every pair of the batch has stopped. G = 1 is a plain
+// launch whose barriers are the block's own.
 //
 // K10, per iteration, on the targets centred on the shared centroid of
 // targets and node means (the wrapper centres and builds the node table):
@@ -55,10 +70,13 @@
 // IEEE f32 (expf, no fast-math), fixed-order sums: a result is the same
 // from run to run.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "em_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -68,6 +86,8 @@ constexpr float kEps = 1.0e-15f;
 constexpr float kTwoPi15 = 15.749609945653303f;  // (2 pi)^1.5
 constexpr int kTerms = 12;   // [mu (3), inv (6), pi, norm, 0]
 constexpr int kTable = 24;   // K10's node table, see gmmtree_cuda.reg_tables
+constexpr int kChunk = 1024;     // K9's points per chunk (gmmtree_cuda.CHUNK)
+constexpr int kPartWidth = 80;   // a chunk's moments: 8 children x 10
 
 // -d^T inv d / 2, inv packed as [00, 01, 02, 11, 12, 22].
 __device__ __forceinline__ float exponent(float d0, float d1, float d2,
@@ -133,58 +153,100 @@ struct LevelState {
   int it;
 };
 
-__global__ void __launch_bounds__(kThreads)
-level_em_kernel(const float* __restrict__ pts, int n_cap,  // (B, n_cap, 3)
-                const int* __restrict__ seg,      // (B, P + 1)
-                int k_nodes,                      // K = 8 P
-                const float* __restrict__ state0,  // (B, K, 10)
-                float lambda_s, float lambda_d, int maxiter,
-                float* __restrict__ state_out,    // (B, K, 10)
-                int* __restrict__ child,          // (B, n_cap), sorted order
-                float* __restrict__ diag) {       // (B, 2) [q, n_iter]
+struct LevelArgs {
+  const float* pts;   // (B, n_cap, 3), sorted by parent
+  int n_cap;
+  const int* seg;     // (B, P + 1)
+  int k_nodes;        // K = 8 P
+  const float* state0;  // (B, K, 10)
+  float lambda_s, lambda_d;
+  int maxiter;
+  int per_pair;       // G
+  int c_cap, l_cap;   // chunks and point ranges a pair may have
+  float* part;        // (B, c_cap, kPartWidth) chunk moments
+  float* llpart;      // (B, l_cap) range log-likelihoods
+  int* flags;         // (B,) whether a pair goes on (G > 1)
+  float* state_out;   // (B, K, 10)
+  int* child;         // (B, n_cap), sorted order
+  float* diag;        // (B, 2) [q, n_iter]
+};
+
+// Shared memory of one K9 block: parameters, E-step terms and moment
+// totals of K nodes, and the pair's seg and each parent's first chunk.
+int level_smem(int k_nodes) {
+  return 4 * (10 + kTerms + 10) * k_nodes + 8 * (k_nodes / 8 + 1);
+}
+
+template <bool kGrid>
+__device__ __forceinline__ void pair_barrier() {
+  if constexpr (kGrid) cg::this_grid().sync();
+  else __syncthreads();
+}
+
+// Two blocks a SM (32 registers a thread): a batch of 256 small pairs
+// runs in one wave, and a cooperative launch takes 264 blocks.
+template <bool kGrid>
+__global__ void __launch_bounds__(kThreads, 2)
+level_em_kernel(const LevelArgs a) {
   extern __shared__ float smem[];
+  const int k_nodes = a.k_nodes, n_par = k_nodes / 8;
   float* raw = smem;                        // K x 10 parameters
   float* terms = raw + 10 * k_nodes;        // K x kTerms
+  float* mom = terms + kTerms * k_nodes;    // K x 10 moment totals
+  int* sseg = reinterpret_cast<int*>(mom + 10 * k_nodes);  // P + 1
+  int* chunk0 = sseg + n_par + 1;   // P + 1: each parent's first chunk
   __shared__ float red[kWarps * 80];
-  __shared__ float sums[80];
   __shared__ float red1[kWarps];
   __shared__ float total[1];
   __shared__ LevelState st;
+  __shared__ int any_go;
 
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int n_par = k_nodes / 8;
-  pts += (size_t)b * n_cap * 3;
-  seg += (size_t)b * (n_par + 1);
-  state0 += (size_t)b * k_nodes * 10;
-  state_out += (size_t)b * k_nodes * 10;
-  child += (size_t)b * n_cap;
-  const int n = seg[n_par];
-  const float n_eff = (float)n;
-
-  for (int i = tid; i < 10 * k_nodes; i += kThreads) raw[i] = state0[i];
+  const int per = a.per_pair;
+  const int b = blockIdx.x / per, r = blockIdx.x % per;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* pts = a.pts + (size_t)b * a.n_cap * 3;
+  float* part = a.part + (size_t)b * a.c_cap * kPartWidth;
+  float* llpart = a.llpart + (size_t)b * a.l_cap;
+  int* child = a.child + (size_t)b * a.n_cap;
+  for (int p = tid; p <= n_par; p += kThreads)
+    sseg[p] = a.seg[(size_t)b * (n_par + 1) + p];
+  for (int i = tid; i < 10 * k_nodes; i += kThreads)
+    raw[i] = a.state0[(size_t)b * k_nodes * 10 + i];
   __syncthreads();
+  const int n = sseg[n_par];
+  const int n_ranges = (n + kChunk - 1) / kChunk;
+  const float n_eff = (float)n;
   for (int k = tid; k < k_nodes; k += kThreads)
     node_terms(raw + 10 * k, terms + kTerms * k);
   if (tid == 0) {
+    int c = 0;   // each parent's first chunk
+    for (int p = 0; p < n_par; ++p) {
+      chunk0[p] = c;
+      c += (sseg[p + 1] - sseg[p] + kChunk - 1) / kChunk;
+    }
+    chunk0[n_par] = c;
     st.q = 0.0f;
     st.q_prev = INFINITY;
     st.it = 0;
   }
   __syncthreads();
+  const int n_chunks = chunk0[n_par];
 
   const int grp = tid >> 3, j = tid & 7;   // 128 points of 8 lanes a pass
   while (true) {
     // A NaN q stops the loop.
-    const bool go = st.it < maxiter
-                    && (st.it == 0 || fabsf(st.q - st.q_prev) >= lambda_s);
-    if (!go) break;
-    for (int p = 0; p < n_par; ++p) {
-      const int s0 = seg[p], s1 = seg[p + 1];
+    const bool go = st.it < a.maxiter
+                    && (st.it == 0 || fabsf(st.q - st.q_prev) >= a.lambda_s);
+    // E-step and moments of this block's chunks (none once stopped).
+    for (int c = go ? r : n_chunks; c < n_chunks; c += per) {
+      int p = 0;   // the chunk's parent: chunk0[p] <= c < chunk0[p + 1]
+      while (chunk0[p + 1] <= c) ++p;
+      const int s0 = sseg[p] + (c - chunk0[p]) * kChunk;
+      const int s1 = min(s0 + kChunk, sseg[p + 1]);
       const float* e = terms + kTerms * (8 * p + j);
       float acc[10];
 #pragma unroll
-      for (int c = 0; c < 10; ++c) acc[c] = 0.0f;
+      for (int m = 0; m < 10; ++m) acc[m] = 0.0f;
       for (int i0 = s0; i0 < s1; i0 += kThreads / 8) {
         const int i = i0 + grp;
         const bool ok = i < s1;
@@ -218,50 +280,91 @@ level_em_kernel(const float* __restrict__ pts, int n_cap,  // (B, n_cap, 3)
       // Lanes j, j + 8, j + 16, j + 24 hold child j: shuffles, then warps
       // in order.
 #pragma unroll
-      for (int c = 0; c < 10; ++c) {
-        acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], 8);
-        acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], 16);
+      for (int m = 0; m < 10; ++m) {
+        acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], 8);
+        acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], 16);
       }
       if (lane < 8) {
 #pragma unroll
-        for (int c = 0; c < 10; ++c) red[warp * 80 + lane * 10 + c] = acc[c];
+        for (int m = 0; m < 10; ++m) red[warp * 80 + lane * 10 + m] = acc[m];
       }
       __syncthreads();
-      if (tid < 80) {
-        float s = 0.0f;
-        for (int w = 0; w < kWarps; ++w) s += red[w * 80 + tid];
-        sums[tid] = s;
+      if (tid < kPartWidth) {
+        float sum = 0.0f;
+        for (int w = 0; w < kWarps; ++w) sum += red[w * 80 + tid];
+        part[(size_t)c * kPartWidth + tid] = sum;
+      }
+      __syncthreads();   // red is free for the next chunk
+    }
+    if constexpr (kGrid) {
+      if (r == 0 && tid == 0) a.flags[b] = go;
+      pair_barrier<kGrid>();
+      if (tid == 0) {
+        int any = 0;
+        for (int q = 0; q < (int)gridDim.x / per; ++q)
+          any |= __ldcg(a.flags + q);
+        any_go = any;
       }
       __syncthreads();
-      if (tid < 8) {
-        float* s = raw + 10 * (8 * p + tid);
-        level_mstep(sums + 10 * tid, n_eff, lambda_d, s);
-        node_terms(s, terms + kTerms * (8 * p + tid));
+      if (!any_go) break;
+    } else {
+      pair_barrier<kGrid>();
+      if (!go) break;
+    }
+    if (go) {
+      // Node totals, each over its parent's chunks in chunk order.
+      for (int idx = tid; idx < 10 * k_nodes; idx += kThreads) {
+        const int node = idx / 10, p = node >> 3;
+        const int col = (node & 7) * 10 + (idx - 10 * node);
+        float sum = 0.0f;
+        for (int c = chunk0[p]; c < chunk0[p + 1]; ++c)
+          sum += __ldcg(part + (size_t)c * kPartWidth + col);
+        mom[idx] = sum;
+      }
+      __syncthreads();
+      for (int k = tid; k < k_nodes; k += kThreads) {
+        level_mstep(mom + 10 * k, n_eff, a.lambda_d, raw + 10 * k);
+        node_terms(raw + 10 * k, terms + kTerms * k);
+      }
+      __syncthreads();
+      // The stop test's log-likelihood over all K nodes, updated, one
+      // point range at a time.
+      for (int c = r; c < n_ranges; c += per) {
+        const int i = c * kChunk + tid;
+        float ll[1] = {0.0f};
+        if (i < n) {
+          const float x0 = pts[3 * i], x1 = pts[3 * i + 1];
+          const float x2 = pts[3 * i + 2];
+          float su = 0.0f;
+          for (int k = 0; k < k_nodes; ++k)
+            su += weighted_pdf(terms + kTerms * k, x0, x1, x2);
+          ll[0] = logf(fmaxf(su, kEps));
+        }
+        block_reduce<1, kThreads>(ll, red1, total);
+        if (tid == 0) llpart[c] = total[0];
       }
     }
-    __syncthreads();
-    // The stop test's log-likelihood over all K nodes, updated.
-    float ll[1] = {0.0f};
-    for (int i = tid; i < n; i += kThreads) {
-      const float x0 = pts[3 * i], x1 = pts[3 * i + 1], x2 = pts[3 * i + 2];
-      float su = 0.0f;
-      for (int k = 0; k < k_nodes; ++k)
-        su += weighted_pdf(terms + kTerms * k, x0, x1, x2);
-      ll[0] += logf(fmaxf(su, kEps));
-    }
-    block_reduce<1, kThreads>(ll, red1, total);
-    if (tid == 0) {
-      st.q_prev = st.q;
-      st.q = total[0];
-      st.it += 1;
+    pair_barrier<kGrid>();
+    if (go && warp == 0) {
+      float q = 0.0f;
+      for (int c = lane; c < n_ranges; c += 32) q += __ldcg(llpart + c);
+      q = group_sum(q, 32);
+      if (lane == 0) {
+        st.q_prev = st.q;
+        st.q = q;
+        st.it += 1;
+      }
     }
     __syncthreads();
   }
 
-  for (int i = tid; i < 10 * k_nodes; i += kThreads) state_out[i] = raw[i];
-  if (tid == 0) {
-    diag[2 * b] = st.q;
-    diag[2 * b + 1] = (float)st.it;
+  if (r == 0) {
+    for (int i = tid; i < 10 * k_nodes; i += kThreads)
+      a.state_out[(size_t)b * k_nodes * 10 + i] = raw[i];
+    if (tid == 0) {
+      a.diag[2 * b] = st.q;
+      a.diag[2 * b + 1] = (float)st.it;
+    }
   }
 }
 
@@ -489,19 +592,59 @@ gmmtree_reg_kernel(const float* __restrict__ ys, int n_cap,  // (B, n_cap, 3)
 
 extern "C" {
 
+// The blocks of K9 that can be resident at once on the current device
+// (every SM, as many as fit): a cooperative launch takes at most this many.
+int probreg_gmmtree_level_capacity(int k_nodes, void* out) {
+  const int smem = level_smem(k_nodes);
+  cudaError_t err = cudaFuncSetAttribute(
+      level_em_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, level_em_kernel<true>, kThreads, smem);
+  *(int*)out = sms * per_sm;
+  return (int)err;
+}
+
+// pts (B, n_cap, 3) sorted by parent, seg (B, P + 1) int32, state0 /
+// state_out (B, K, 10), scratch part (B, c_cap, 80), llpart (B, l_cap),
+// flags (B,) int32; per_pair blocks per pair.
 int probreg_gmmtree_level_em(const void* pts, int n_cap, const void* seg,
                              int k_nodes, const void* state0, int batch,
+                             int per_pair, int c_cap, int l_cap,
                              float lambda_s, float lambda_d, int maxiter,
+                             void* part, void* llpart, void* flags,
                              void* state_out, void* child, void* diag,
                              void* stream) {
-  const int smem = 4 * (10 + kTerms) * k_nodes;
+  if (batch <= 0 || per_pair <= 0) return (int)cudaErrorInvalidValue;
+  const LevelArgs a{(const float*)pts, n_cap, (const int*)seg, k_nodes,
+                    (const float*)state0, lambda_s, lambda_d, maxiter,
+                    per_pair, c_cap, l_cap, (float*)part, (float*)llpart,
+                    (int*)flags, (float*)state_out, (int*)child,
+                    (float*)diag};
+  const int smem = level_smem(k_nodes);
+  const auto s = (cudaStream_t)stream;
+  if (per_pair == 1) {
+    cudaError_t err = cudaFuncSetAttribute(
+        level_em_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    level_em_kernel<false><<<batch, kThreads, smem, s>>>(a);
+    return (int)cudaGetLastError();
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      level_em_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      level_em_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
-  level_em_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)pts, n_cap, (const int*)seg, k_nodes,
-      (const float*)state0, lambda_s, lambda_d, maxiter, (float*)state_out,
-      (int*)child, (float*)diag);
+  void* args[] = {(void*)&a};
+  err = cudaLaunchCooperativeKernel((const void*)level_em_kernel<true>,
+                                    dim3(batch * per_pair), dim3(kThreads),
+                                    args, smem, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

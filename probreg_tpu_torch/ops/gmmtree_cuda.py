@@ -5,9 +5,13 @@ Counterpart of probreg_tpu/ops/gmmtree_pallas.py:
 
 * ``level_em`` (K9, ``_level_em_kernel``) runs one tree level's whole build
   EM, the stop test included, in one launch of ``csrc/gmmtree.cu``
-  ``level_em_kernel``: one thread block per pair, the grid is the batch, so
-  a batch's build is one launch per level (the reference launches once per
-  pair and level).
+  ``level_em_kernel`` for the whole batch, so a batch's build is one launch
+  per level (the reference launches once per pair and level). A pair's
+  points are cut into chunks of ``CHUNK``; ``blocks_per_pair`` picks how
+  many thread blocks share a pair (1 when the batch fills the card, else up
+  to one per chunk, in one cooperative launch). The sums run over the
+  chunks in a fixed order, so the result is the same bits for any number
+  of blocks and any batch.
 * ``run_gmmtree_reg_fused_batch`` / ``run_gmmtree_reg_fused`` (K10,
   ``_reg_kernel``) run every iteration of the registration (the descent,
   the per-node moments, the twist normal equations, the solve, the compose
@@ -64,9 +68,15 @@ _TWO_PI_15 = (2.0 * math.pi) ** 1.5
 # Shared memory a block may use on the card (227 KB) less what each kernel
 # holds statically (block sums and reduction buffers, under 32 KB).
 _SMEM_BYTES = 227 * 1024 - 32 * 1024
-# Floats per node: K9 keeps [pi, mu (3), cov (6)] and the E-step terms
-# [mu (3), inv (6), pi, norm, 0]; K10's table is TABLE_WIDTH wide.
-_K9_NODE_FLOATS = 10 + 12
+# Floats per node: K9 keeps [pi, mu (3), cov (6)], the E-step terms
+# [mu (3), inv (6), pi, norm, 0] and the 10 moment totals (and two ints
+# per parent, under 1 %); K10's table is TABLE_WIDTH wide.
+_K9_NODE_FLOATS = 10 + 12 + 10
+# K9's points per chunk (csrc/gmmtree.cu kChunk) and moments per chunk.
+CHUNK = 1024
+_PART_WIDTH = 8 * 10
+# Fewest chunks in a pair for which the pair is shared by several blocks.
+_MIN_SPLIT_CHUNKS = 4
 TABLE_WIDTH = 24
 # K10's shared memory per node: the table, one [m0, m1] buffer per warp
 # (32), the node totals and three twist rows of 7.
@@ -86,9 +96,9 @@ def _n_total(max_level: int) -> int:
 
 def fused_build_ok(max_level: int) -> bool:
     """True iff K9 can build a tree of ``max_level`` levels: the deepest
-    level's 8^max_level nodes (parameters and E-step terms, 88 B each) stay
-    in one block's shared memory, so max_level <= 3. Points stay in device
-    memory, so the cloud's size does not enter."""
+    level's 8^max_level nodes (parameters, E-step terms and moment totals,
+    128 B each) stay in one block's shared memory, so max_level <= 3.
+    Points stay in device memory, so the cloud's size does not enter."""
     return 1 <= max_level and (4 * _K9_NODE_FLOATS * N_NODE ** max_level
                                <= _SMEM_BYTES)
 
@@ -108,9 +118,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gmmtree")
     if not getattr(lib, "_probreg_typed", False):
-        lib.probreg_gmmtree_level_em.argtypes = [_P, _I, _P, _I, _P, _I, _F,
-                                                 _F, _I, _P, _P, _P, _P]
+        lib.probreg_gmmtree_level_em.argtypes = [
+            _P, _I, _P, _I, _P, _I, _I, _I, _I, _F, _F, _I, _P, _P, _P, _P,
+            _P, _P, _P]
         lib.probreg_gmmtree_level_em.restype = ctypes.c_int
+        lib.probreg_gmmtree_level_capacity.argtypes = [_I, _P]
+        lib.probreg_gmmtree_level_capacity.restype = ctypes.c_int
         lib.probreg_gmmtree_reg.argtypes = [_P, _I, _P, _P, _I, _P, _I, _I,
                                             _I, _F, _F, _P, _P]
         lib.probreg_gmmtree_reg.restype = ctypes.c_int
@@ -309,19 +322,68 @@ def sort_by_parent(points, counts, parent, n_parents):
     return pts_s.contiguous(), seg.contiguous(), order
 
 
-def level_launch(pts_s, seg, state, *, lambda_s, lambda_d, maxiter):
+def blocks_per_pair(n_cap: int, batch: int, capacity: int) -> int:
+    """Thread blocks that share each pair of a K9 launch: one per chunk of
+    an ``n_cap``-point pair, as many as ``capacity`` resident blocks allow
+    for the batch; 1 for pairs of fewer than _MIN_SPLIT_CHUNKS chunks and
+    when the batch alone fills the card."""
+    per = min(-(-n_cap // CHUNK), capacity // max(batch, 1))
+    return per if per >= _MIN_SPLIT_CHUNKS else 1
+
+
+_capacity_cache = {}
+
+
+def level_capacity(k_nodes: int, device) -> int:
+    """K9 blocks of ``k_nodes`` nodes that can be resident at once on
+    ``device`` (queried once per device and node count)."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    key = (index, k_nodes)
+    if key not in _capacity_cache:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            _check(_lib().probreg_gmmtree_level_capacity(
+                k_nodes, ctypes.addressof(out)), "gmmtree_level_capacity")
+        _capacity_cache[key] = out.value
+    return _capacity_cache[key]
+
+
+def scratch_sizes(n_cap: int, k_nodes: int):
+    """(c_cap, l_cap): chunks and point ranges of K9's scratch per pair. A
+    pair's parents cut its at most n_cap points into at most
+    ceil(n_cap / CHUNK) + P chunks (each parent's segment adds at most one
+    partial chunk); the stop test cuts them into ceil(n_cap / CHUNK)
+    ranges."""
+    ranges = -(-n_cap // CHUNK)
+    return ranges + k_nodes // N_NODE, ranges
+
+
+def level_launch(pts_s, seg, state, *, lambda_s, lambda_d, maxiter,
+                 _blocks=None):
     """One launch of K9 on points sorted by ``sort_by_parent``: (state,
-    child (B, N) int32 in the sorted order, diag (B, 2))."""
+    child (B, N) int32 in the sorted order, diag (B, 2)). ``_blocks``
+    forces the blocks per pair (tests); by default ``blocks_per_pair``."""
     batch, n_cap = pts_s.shape[0], pts_s.shape[1]
+    k_nodes = state.shape[1]
+    per = _blocks or blocks_per_pair(
+        n_cap, batch, level_capacity(k_nodes, pts_s.device))
+    c_cap, l_cap = scratch_sizes(n_cap, k_nodes)
+    # One scratch buffer: chunk moments, range log-likelihoods, flags.
+    n_part, n_ll = batch * c_cap * _PART_WIDTH, batch * l_cap
+    scratch = pts_s.new_empty(n_part + n_ll + batch)
+    base = scratch.data_ptr()
     state_out = torch.empty_like(state)
     child_s = torch.zeros((batch, n_cap), dtype=torch.int32,
                           device=pts_s.device)
     diag = pts_s.new_empty((batch, 2))
     status = _lib().probreg_gmmtree_level_em(
-        pts_s.data_ptr(), n_cap, seg.data_ptr(), state.shape[1],
-        state.data_ptr(), batch, float(lambda_s), float(lambda_d),
-        int(maxiter), state_out.data_ptr(), child_s.data_ptr(),
-        diag.data_ptr(), _stream(pts_s))
+        pts_s.data_ptr(), n_cap, seg.data_ptr(), k_nodes, state.data_ptr(),
+        batch, per, c_cap, l_cap, float(lambda_s), float(lambda_d),
+        int(maxiter), base, base + 4 * n_part, base + 4 * (n_part + n_ll),
+        state_out.data_ptr(), child_s.data_ptr(), diag.data_ptr(),
+        _stream(pts_s))
     _check(status, "gmmtree_level_em")
     LAUNCHES["gmmtree_level_em"] += 1
     return state_out, child_s, diag

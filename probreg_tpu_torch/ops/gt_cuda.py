@@ -9,11 +9,14 @@ with the reference's argument order and h^2 (not 2 h^2), at most 8 weight
 channels and 2 <= D <= 8. There is no normalizer, so one pass suffices. Both
 clouds are centred on their shared centroid and, with ``sort=True``,
 Morton-sorted here (the result comes back in the caller's order). Query
-rows form tiles of 256 (one thread block each), points tiles of ``tile``;
-a tile pair is culled only when its box-gap bound proves that every exp in
-it underflows f32 to exactly 0 (``estep_cuda._active_mask`` with 1/h^2 in
-place of 1/(2 sigma2)), so culling never changes a result, and a query
-tile with no active point tile gets exact zeros.
+rows form tiles of 256, points tiles of ``tile``; a tile pair is culled
+only when its box-gap bound proves that every exp in it underflows f32 to
+exactly 0 (``estep_cuda._active_mask`` with 1/h^2 in place of
+1/(2 sigma2)), so culling never changes a result, and a query tile with no
+active point tile gets exact zeros. The kernel takes the channels at their
+own width and D = 2, 3, 4 as they are (5 <= D <= 7 padded to 8); two
+thread blocks share a query tile, ``ROWS_PER_THREAD`` rows a thread,
+``SLOTS`` stages summed at once by separate threads.
 
 The reference's fast-start branch (a bf16 cross term under an error bound
 derived for the TPU's matrix unit) is not ported: the port always takes
@@ -35,7 +38,10 @@ from . import estep_cuda as ec
 from .pairwise import sqdist_diff
 from .spatial import morton_order
 
-_ROWS = 256           # query rows per tile and thread block (csrc/gt.cu kRows)
+_ROWS = 256           # query rows per culling tile (csrc/gt.cu kTile)
+BLOCK_ROWS = 128      # query rows per thread block (kBlockRows)
+ROWS_PER_THREAD = 2   # (kRowsPerThread)
+SLOTS = 2             # stages a block sums at once (kSlots)
 MAX_CHANNELS = 8
 _PLAIN_POINTS = 1024  # points per step of the plain version
 
@@ -60,13 +66,24 @@ def _lib() -> ctypes.CDLL:
 
 
 def _pad_cols(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` contiguous with zero columns up to ``width`` (no copy when it
+    is already that wide and contiguous)."""
+    if x.shape[1] == width:
+        return x.contiguous()
     out = x.new_zeros((x.shape[0], width))
     out[:, :x.shape[1]] = x
     return out
 
 
-def _width(k: int) -> int:
-    return 4 if k <= 4 else 8
+def _width(dim: int) -> int:
+    """The kernel's width for D coordinates: D itself for D <= 4, else 8
+    (the padding adds exact zeros to d2)."""
+    return dim if dim <= 4 else 8
+
+
+def launch_shape(nq: int):
+    """(blocks, threads) of one launch on ``nq`` query rows."""
+    return -(-nq // BLOCK_ROWS), BLOCK_ROWS // ROWS_PER_THREAD * SLOTS
 
 
 def prepare(source, target, weights, h, tile: int = 256, cull: bool = True):
@@ -142,20 +159,21 @@ def gt_launcher(qs, ps, w, inv_h2, mask, tile):
     padded buffers are made here, once; each ``launch()`` queues one kernel
     launch that writes the (N, C) result into ``out``."""
     (nq, dim), (m, c) = qs.shape, w.shape
-    dp, cp = _width(dim), _width(c)
+    dp = _width(dim)
     act_idx, act_cnt = ec._compact(mask)          # per query tile
-    # The closure holds the padded copies until its last launch is queued.
-    q4, p4, w4 = _pad_cols(qs, dp), _pad_cols(ps, dp), _pad_cols(w, cp)
-    out = qs.new_empty((nq, cp))
+    # The closure holds its inputs until its last launch is queued.
+    qk, pk = _pad_cols(qs, dp), _pad_cols(ps, dp)
+    wk = w.contiguous()
+    out = qs.new_empty((nq, c))
     lib, stream = _lib(), ec._stream(qs)
 
     def launch():
         ec._check(lib.probreg_gauss_transform(
-            q4.data_ptr(), nq, p4.data_ptr(), w4.data_ptr(), m, dp, cp,
+            qk.data_ptr(), nq, pk.data_ptr(), wk.data_ptr(), m, dp, c,
             act_idx.data_ptr(), act_cnt.data_ptr(), tile, inv_h2,
             out.data_ptr(), stream), "gauss_transform")
         LAUNCHES["gauss_transform"] += 1
-    return launch, out[:, :c]
+    return launch, out
 
 
 def gauss_transform_culled_plain(qs, ps, w, inv_h2, mask, tile):

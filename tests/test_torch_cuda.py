@@ -567,12 +567,15 @@ def test_frg_batch_is_one_launch_and_equals_single_pairs(dev, objective):
     _frg_close(got, want, 1e-5, 1e-5)
 
 
-@pytest.mark.parametrize("channels", [1, 4, 5, 8])
+@pytest.mark.parametrize("channels", [1, 2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("h2", [2.0, 0.02, 1e-3])
-@pytest.mark.parametrize("dim,tile", [(3, 256), (3, 96), (5, 256)])
+@pytest.mark.parametrize("dim,tile", [(2, 256), (3, 256), (3, 96), (4, 256),
+                                      (5, 256)])
 def test_gauss_transform_kernel_matches_plain(dev, channels, h2, dim, tile):
     """Dense to mostly culled on Morton-sorted clouds with a far query
-    cluster, whose tiles see no active point tile and get exact zeros."""
+    cluster, whose tiles see no active point tile and get exact zeros;
+    every width the kernel is built for (D 2, 3, 4 and 8 for 5, C 1 to 8)
+    launches."""
     from probreg_tpu_torch.ops.spatial import morton_order as mo
 
     rng = np.random.default_rng(dim * 100 + channels)
@@ -580,7 +583,9 @@ def test_gauss_transform_kernel_matches_plain(dev, channels, h2, dim, tile):
                          dtype=torch.float32, device=dev)
     qs = torch.as_tensor(rng.uniform(-1, 1, (2500, dim)),
                          dtype=torch.float32, device=dev)
-    qs[:700, 2] += 30.0  # z leads the Morton order: whole far tiles
+    # The last of the first three axes leads the Morton order: whole far
+    # tiles.
+    qs[:700, min(dim, 3) - 1] += 30.0
     w = torch.as_tensor(rng.uniform(0, 1, (3000, channels)),
                         dtype=torch.float32, device=dev)
     perm = mo(ps)
@@ -900,6 +905,67 @@ def test_gmmtree_level_em_kernel_matches_plain(dev, level, maxiter, masked):
         assert torch.equal(got[0][1], one[0][0])
         assert torch.equal(got[1][1, :n], one[1][0])
         assert torch.equal(got[0][0], st[0])
+
+
+@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("maxiter", [1, 4])
+def test_gmmtree_level_em_many_blocks_matches_plain(dev, level, maxiter):
+    """K9 on one pair of 20,000 points, which the wrapper spreads over
+    several blocks (a cooperative launch), against its plain version under
+    test_gmmtree_level_em_kernel_matches_plain's tolerance."""
+    from probreg_tpu_torch.ops import gmmtree_cuda as pgc
+
+    pts, state, parent = _gmm_level_inputs(20_000, level, dev)
+    cap = pgc.level_capacity(state.shape[1], dev)
+    assert pgc.blocks_per_pair(20_000, 1, cap) > 1
+    kw = dict(lambda_s=0.0, lambda_d=1e-4, maxiter=maxiter)
+    st, child, diag = pgc.level_em(pts, None, state, parent, **kw)
+    want = pgc.level_em_plain(pts, None, state, parent, **kw)
+    w64 = pgc.level_em_plain(pts.double(), None, state.double(), parent,
+                             **kw)
+    for sl in (slice(0, 1), slice(1, 4), slice(4, 10)):
+        err = float((st[..., sl] - want[0][..., sl]).abs().max())
+        spread = float((want[0][..., sl].double() - w64[0][..., sl])
+                       .abs().max())
+        scale = float(want[0][..., sl].abs().max())
+        assert err <= max(1e-4 * scale + 1e-6, 3.0 * spread), (sl, err,
+                                                                spread)
+    assert float((child != want[1]).float().mean()) <= 1e-3
+    assert int(diag[0, 1]) == maxiter
+    q, q32, q64 = float(diag[0, 0]), float(want[2][0, 0]), float(
+        w64[2][0, 0])
+    assert abs(q - q32) <= max(1e-5 * abs(q32), 3.0 * abs(q32 - q64))
+
+
+@pytest.mark.parametrize("lambda_s", [0.0, 1e-3])
+def test_gmmtree_level_em_same_bits_for_any_blocks(dev, lambda_s):
+    """The same pairs through one block per pair and through many (forced
+    with level_launch's private argument) give the same state, child and
+    diag bit for bit; so does a ragged batch against each pair alone, with
+    a stop test that parts the pairs (lambda_s 1e-3)."""
+    from probreg_tpu_torch.ops import gmmtree_cuda as pgc
+
+    pts, state, parent = _gmm_level_inputs(20_000, 1, dev)
+    kw = dict(lambda_s=lambda_s, lambda_d=1e-4, maxiter=6)
+    pts_s, seg, _ = pgc.sort_by_parent(pts, None, parent, 8)
+    outs = [pgc.level_launch(pts_s, seg, state, **kw, _blocks=g)
+            for g in (1, 2, 7, 19)]
+    for out in outs[1:]:
+        for a, b in zip(outs[0], out):
+            assert torch.equal(a, b)
+    n = 9000
+    x = torch.zeros_like(pts).repeat(2, 1, 1)
+    x[0], x[1, :n] = pts[0], pts[0, :n]
+    par = torch.zeros_like(parent).repeat(2, 1)
+    par[0], par[1, :n] = parent[0], parent[0, :n]
+    counts = torch.tensor([20_000, n], device=dev)
+    got = pgc.level_em(x, counts, torch.cat([state, state]), par, **kw)
+    for b, m in enumerate((20_000, n)):
+        one = pgc.level_em(x[b:b + 1, :m], None, state, par[b:b + 1, :m],
+                           **kw)
+        assert torch.equal(got[0][b], one[0][0])
+        assert torch.equal(got[1][b, :m], one[1][0])
+        assert torch.equal(got[2][b], one[2][0])
 
 
 def _gmm_reg_inputs(dev, n=2000, seed=71):

@@ -230,3 +230,22 @@ def test_wrapper_checks():
         pgc.gauss_transform_culled(torch.zeros((0, 3)), pts, w[:0], 1.0)
     # The active mask is estep_cuda's, with 1/h^2 for 1/(2 sigma2).
     assert pgc.ec is pec
+
+
+@pytest.mark.parametrize("dim,width", [(2, 2), (3, 3), (4, 4), (5, 8),
+                                       (8, 8)])
+def test_kernel_widths_and_launch_shape(dim, width):
+    """The kernel takes D = 2, 3, 4 as they are and 5 <= D <= 8 padded to 8
+    with zero columns (which add exact zeros to d2); the channels keep
+    their own width. Two blocks share each 256-row query tile."""
+    assert pgc._width(dim) == width
+    x = torch.arange(6 * dim, dtype=torch.float32).reshape(6, dim)
+    padded = pgc._pad_cols(x, width)
+    assert padded.shape == (6, width) and padded.is_contiguous()
+    assert torch.equal(padded[:, :dim], x)
+    assert not bool(padded[:, dim:].any())
+    assert (padded is x) == (dim == width)
+    assert pgc._ROWS % pgc.BLOCK_ROWS == 0
+    blocks, threads = pgc.launch_shape(150_000)
+    assert blocks == 1172 and blocks * pgc.BLOCK_ROWS >= 150_000
+    assert threads * pgc.ROWS_PER_THREAD == pgc.BLOCK_ROWS * pgc.SLOTS

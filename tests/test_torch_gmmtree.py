@@ -213,6 +213,30 @@ def test_level_em_wrapper_masked_equals_unpadded():
     assert torch.equal(child[1, half:], torch.zeros(50, dtype=torch.int64))
 
 
+def test_level_em_scratch_and_blocks_per_pair():
+    """K9's scratch holds every chunk a pair can have (each parent's
+    segment cut into chunks of CHUNK from its start); a pair is shared by
+    several blocks only when it has enough chunks and the batch leaves room
+    on the card."""
+    c = pgc.CHUNK
+    for n_cap, segs in ((3 * c + 5, [[0, 0, c, 3 * c + 5, 3 * c + 5],
+                                     [0, 7, 7, 7, 2 * c]]),
+                        (c, [[0, 1, 2, 3, c]])):
+        n_par = len(segs[0]) - 1
+        c_cap, l_cap = pgc.scratch_sizes(n_cap, 8 * n_par)
+        for seg in segs:
+            chunks = sum(-(-(b - a) // c) for a, b in zip(seg, seg[1:]))
+            assert chunks <= c_cap and -(-seg[-1] // c) <= l_cap
+    assert pgc.scratch_sizes(3 * c + 5, 32) == (4 + 4, 4)
+    assert pgc.blocks_per_pair(150_000, 1, 132) == 132
+    assert pgc.blocks_per_pair(20_000, 1, 132) == 20
+    assert pgc.blocks_per_pair(20_000, 2, 132) == 20
+    assert pgc.blocks_per_pair(150_000, 8, 132) == 16
+    assert pgc.blocks_per_pair(3_000, 1, 132) == 1      # 3 chunks
+    assert pgc.blocks_per_pair(150_000, 40, 132) == 1   # 3 blocks a pair
+    assert pgc.blocks_per_pair(1024, 256, 132) == 1     # the batch fills it
+
+
 # --------------------------------------------------------------------------
 # The build
 # --------------------------------------------------------------------------

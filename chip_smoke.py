@@ -75,6 +75,13 @@ before it and read just after:
 
 Prints the card, a {"kernels": [...]} line and, last, {"ok": true, ...}.
 Exits non-zero without a CUDA device or when any phase fails.
+
+    python3 chip_smoke.py --parent DIR
+
+instead holds the whole-EM kernels of this checkout (K1 for CPD, K5 for
+FilterReg, K7 for ICP) bit for bit against those built from another
+checkout DIR (K1 with one block per pair and no work order), and times
+K1 and the GMMTree registration kernel (K10) of both.
 """
 
 import json
@@ -273,6 +280,20 @@ def timed(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def evented(spans, name, fn):
+    """``fn`` with each call between CUDA events, appended to ``spans`` as
+    (name, start event, end event)."""
+    def run(*a, **k):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn(*a, **k)
+        e1.record()
+        spans.append((name, e0, e1))
+        return out
+    return run
 
 
 def bound(nbytes: float, flops: float):
@@ -739,16 +760,23 @@ def check_em(dev, kernels):
             tmask[torch.as_tensor(rng.permutation(1024)[:900])] = 1.0
             worst["rigid"] = max(worst["rigid"], em_pair_check(
                 "masked 700/900", src, tgt, "rigid", smask, tmask))
+        g = em.cluster_size(1, em.sm_count(dev))
+        s_c, t_c, _ = em.compact_batch(src[None], tgt[None])
         for kind in worst:
             kw = dict(kind=kind, w=0.0, maxiter=100, tol=1e-3,
                       update_scale=True)
             its = int(em._run_em_cpd_fused(src, tgt, **kw)[4])
             ms = timed(lambda: em._run_em_cpd_fused(src, tgt, **kw), 5)
+            raw = dict(affine=kind == "affine", w=0.0, maxiter=100, tol=1e-3,
+                       update_scale=True)
+            one = timed(lambda: em._em_cuda(s_c, t_c, None, **raw,
+                                            _cluster=1), 5)
             m, n = src.shape[0], tgt.shape[0]
             b_ms, b_by = bound(12 * (m + n) + 64, its * m * n * FLOPS_EM)
             log(f"  {name} {kind}: {its} iterations in {ms:.3f} ms "
-                f"({ms / its * 1e3:.1f} us per iteration), bound "
-                f"{b_ms:.4f} ms ({b_by}); one block on one SM")
+                f"({ms / its * 1e3:.1f} us per iteration) on a cluster of "
+                f"{g} blocks; one block {one / its * 1e3:.1f} us per "
+                f"iteration; bound {b_ms:.4f} ms ({b_by})")
 
     # The serving batches, through the wrapper (masks and their compaction
     # included) against the plain version on each pair's own unpadded
@@ -791,6 +819,21 @@ def check_em(dev, kernels):
         s_c, t_c, counts = em.compact_batch(srcs, tgts, smask, tmask)
         raw = dict(affine=kind == "affine", **args)
         ms = timed(lambda: em._em_cuda(s_c, t_c, counts, **raw), 5)
+        sms = em.sm_count(dev)
+        g = em.cluster_size(len(batch), sms)
+        if g == 1 and counts is not None and len(batch) > sms:
+            order = em.work_order(counts).tolist()
+            mn = counts.prod(1).tolist()
+            arrival = timed(lambda: em._em_cuda(s_c, t_c, counts, **raw,
+                                                _cluster=1, _ordered=False), 5)
+            log(f"  {len(batch)} pairs on {sms} SMs: one block a pair, "
+                f"largest m n first (blocks 0-3 take pairs {order[:4]}, "
+                f"m n {[mn[b] for b in order[:4]]}; the last "
+                f"{order[-2:]}, m n {[mn[b] for b in order[-2:]]}); in "
+                f"arrival order {arrival:.3f} ms")
+        else:
+            log(f"  {len(batch)} pairs on {sms} SMs: clusters of {g} blocks"
+                f" a pair")
         sizes = torch.tensor([[p[0].shape[0], p[1].shape[0]] for p in batch],
                              dtype=torch.float64)
         pair_its = float(sizes.prod(1).sum()) * EM_BATCH_ITERS
@@ -976,6 +1019,7 @@ def run_bunny(dev, launches):
     """bench.py's bunny configuration, rigid and affine, each as one launch
     of the whole-EM kernel, held to the port's own dense loop."""
     from probreg_tpu_torch import cpd
+    from probreg_tpu_torch.ops import em_cuda as em
     from probreg_tpu_torch.utils import se3_op
 
     for kind, lin_true in (("rigid", z_rotation(10.0)),
@@ -984,13 +1028,22 @@ def run_bunny(dev, launches):
         kw = dict(maxiter=100, tol=1e-3)
         cpd.registration_cpd(src, tgt, kind, **kw)  # warm
         torch.cuda.synchronize()
-        reset_launches()
-        t0 = time.perf_counter()
-        res = cpd.registration_cpd(src, tgt, kind, **kw)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        spans = []
+        em_cuda = em._em_cuda
+        em._em_cuda = evented(spans, "K1", em_cuda)
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            res = cpd.registration_cpd(src, tgt, kind, **kw)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            em._em_cuda = em_cuda
+        k1 = sum(e0.elapsed_time(e1) for _, e0, e1 in spans)
         log(f"[bunny] {kind}, {src.shape[0]} points, second call "
-            f"{wall:.3f} ms")
+            f"{wall:.3f} ms, of which the K1 launch {k1:.3f} ms (CUDA "
+            f"events) on a cluster of "
+            f"{em.cluster_size(1, em.sm_count(dev))} blocks")
         expect_launches(f"bunny {kind}", **{f"em_{kind}": 1})
         ys = torch.as_tensor(src, device=dev)
         xs = torch.as_tensor(tgt, device=dev)
@@ -2433,7 +2486,7 @@ def run_gmmtree_batch(dev, launches):
             raise AssertionError(f"GMMTree batch wrong: {name}")
 
 
-def run_gmmtree_large(dev, launches):
+def run_gmmtree_large(dev, launches, kernels):
     """registration_gmmtree on the 150k surface pair at the defaults: K9
     once per level and K10 once, no plain version and no twin loop called,
     the call's time split with CUDA events into K9 per level, the sorts by
@@ -2455,26 +2508,14 @@ def run_gmmtree_large(dev, launches):
         raise AssertionError("a plain GMMTree path ran on the card")
 
     spans = []   # (name, start event, end event) in launch order
-
-    def evented(name, fn):
-        def run(*a, **k):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = fn(*a, **k)
-            e1.record()
-            spans.append((name, e0, e1))
-            return out
-        return run
-
     saved = (gc.level_em_plain, gc.run_gmmtree_reg_fused_plain,
              pgt._run_registration, pgt._accumulate, gc.level_launch,
              gc.sort_by_parent, gc._reg_cuda)
     gc.level_em_plain = gc.run_gmmtree_reg_fused_plain = refuse
     pgt._run_registration = pgt._accumulate = refuse
-    gc.level_launch = evented("K9", gc.level_launch)
-    gc.sort_by_parent = evented("sort", gc.sort_by_parent)
-    gc._reg_cuda = evented("K10", gc._reg_cuda)
+    gc.level_launch = evented(spans, "K9", gc.level_launch)
+    gc.sort_by_parent = evented(spans, "sort", gc.sort_by_parent)
+    gc._reg_cuda = evented(spans, "K10", gc._reg_cuda)
     torch.cuda.reset_peak_memory_stats()
     try:
         reset_launches()
@@ -2512,6 +2553,32 @@ def run_gmmtree_large(dev, launches):
     d, plain_ms = gmm_reg_compare("150k kernel-driven against plain-driven",
                                   *inputs, 3)
     log(f"  (the plain-driven run took {plain_ms:.0f} ms)")
+    # K10 alone on this pair at GMM_REG_ITERS iterations (tol 0), on the
+    # blocks the wrapper picks and on one block.
+    ys, counts, table, init = inputs
+    kw = dict(max_level=2, maxiter=GMM_REG_ITERS, tol=0.0, lambda_c=0.01)
+    per = gc.blocks_per_pair(ys.shape[1], 1,
+                             gc.reg_capacity(table.shape[1], dev))
+    ms = timed(lambda: gc._reg_cuda(ys, counts, table, init, **kw), 5)
+    one_ms = timed(lambda: gc._reg_cuda(ys, counts, table, init, **kw,
+                                        _blocks=1), 3)
+    node, _ = gc._descend(ys[0], table[0], 2, 0.01)
+    depth = float((1.0 + (node >= 8).double()).mean())
+    b_ms, b_by = bound(12 * N_GMM + 4 * table.numel() + 64,
+                       GMM_REG_ITERS * N_GMM * flops_gmm_reg(depth))
+    its = int(gc._reg_cuda(ys, counts, table, init, max_level=2,
+                           maxiter=20, tol=1e-4, lambda_c=0.01)[0, 13])
+    log(f"  K10 at {N_GMM:,} points: {per} blocks per pair; "
+        f"{GMM_REG_ITERS} iterations {ms:.3f} ms "
+        f"({ms / GMM_REG_ITERS * 1e3:.1f} us per iteration), on one block "
+        f"{one_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}, mean descent depth "
+        f"{depth:.3f}); at the defaults (maxiter 20, tol 1e-4) {its} "
+        "iterations")
+    kernels.setdefault("gmmtree_reg", {}).update(
+        blocks_150k=per, ms_150k=ms, one_block_ms_150k=one_ms,
+        bound_ms_150k=b_ms, launches_150k=got["gmmtree_reg"])
+    if not per > 1:
+        raise AssertionError("K10 did not spread the 150k pair")
     if not err <= ROT_ERR_MAX:
         raise AssertionError("150k GMMTree wrong")
 
@@ -3327,10 +3394,245 @@ def run_mesh_on_one_card(dev, launches, shared):
         f"{', '.join(f'{x:.4f}' for x in ms)} ms per call by rank")
 
 
+# --------------------------------------------------------------------------
+# --parent DIR: this checkout's K1 and K10 against another checkout's build
+# --------------------------------------------------------------------------
+
+def parent_libs(parent):
+    """Build ``parent``'s csrc/{em,gmmtree,frg,icp}.cu with the port's
+    flags (one nvcc each, started together) into ``parent``/build and load
+    them; K1 and K10 get their signatures of one block per pair (K5's and
+    K7's are this checkout's, set by their wrappers)."""
+    import ctypes
+
+    from probreg_tpu_torch.ops import _build
+
+    out_dir = os.path.join(parent, "build", "parent_kernels")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name in ("em", "gmmtree", "frg", "icp"):
+        out = os.path.join(out_dir, f"lib{name}.so")
+        src = os.path.join(parent, "probreg_tpu_torch", "csrc", f"{name}.cu")
+        procs[name] = (out, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (out, proc) in procs.items():
+        log_text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the parent's {name}.cu:\n"
+                               f"{log_text}")
+        libs[name] = ctypes.CDLL(out)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    libs["em"].probreg_em_cpd.argtypes = [P, I, P, I, P, I, F, I, F, I, I,
+                                          P, P]
+    libs["gmmtree"].probreg_gmmtree_reg.argtypes = [P, I, P, P, I, P, I, I,
+                                                    I, F, F, P, P]
+    return libs
+
+
+def parent_em(lib, s_c, t_c, counts, *, affine, w, maxiter, tol,
+              update_scale):
+    from probreg_tpu_torch.ops.estep_cuda import _check, _stream
+
+    out = s_c.new_empty((s_c.shape[0], 16))
+    _check(lib.probreg_em_cpd(
+        s_c.data_ptr(), s_c.shape[1], t_c.data_ptr(), t_c.shape[1],
+        None if counts is None else counts.data_ptr(), s_c.shape[0], w,
+        maxiter, tol, int(update_scale), int(affine), out.data_ptr(),
+        _stream(s_c)), "parent em_cpd")
+    return out
+
+
+def parent_reg(lib, ys, counts, table, init, *, max_level, maxiter, tol,
+               lambda_c):
+    from probreg_tpu_torch.ops.estep_cuda import _check, _stream
+
+    out = ys.new_empty((ys.shape[0], 16))
+    _check(lib.probreg_gmmtree_reg(
+        ys.data_ptr(), ys.shape[1], counts.data_ptr(), table.data_ptr(),
+        table.shape[1], init.data_ptr(), ys.shape[0], max_level, maxiter,
+        tol, lambda_c, out.data_ptr(), _stream(ys)), "parent gmmtree_reg")
+    return out
+
+
+def compare_with_parent(parent) -> int:
+    """K1 of this checkout against ``parent``'s build, bit for bit, on the
+    bunny, a 1024 x 1024 pair, the masked 700/900 pair and both serving
+    batches, for clusters of 1, 2, 4 and 8 blocks and the default, at a
+    fixed depth and with the loop test; times of both in the order parent,
+    this, this, parent. K10 of both on the 150k pair and the 256 horse
+    pairs: times and the largest difference (its sums changed order)."""
+    from probreg_tpu_torch import gmmtree as pgt
+    from probreg_tpu_torch.ops import em_cuda as em
+    from probreg_tpu_torch.ops import gmmtree_cuda as gc
+    from probreg_tpu_torch.ops.em_cuda import _compact
+
+    dev = torch.device("cuda")
+    libs = parent_libs(parent)
+    rng = np.random.default_rng(5)
+    big = rng.uniform(-1, 1, (1024, 3))
+    big_t = rng.permutation(big @ z_rotation(12.0).T
+                            + 0.01 * rng.standard_normal(big.shape))
+    smask = torch.zeros(1, 1024, device=dev)
+    tmask = torch.zeros(1, 1024, device=dev)
+    smask[0, torch.as_tensor(rng.permutation(1024)[:700])] = 1.0
+    tmask[0, torch.as_tensor(rng.permutation(1024)[:900])] = 1.0
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=dev)
+
+    rigid, affine = serving_batches()
+    cases = {"bunny": (*(t(a)[None] for a in bunny_clouds(
+        z_rotation(10.0))), None, None),
+        "1024x1024": (t(big)[None], t(big_t)[None], None, None),
+        "masked 700/900": (t(big)[None], t(big_t)[None], smask, tmask)}
+    for name, batch in (("rigid 256 ragged", rigid),
+                        ("affine 64", affine)):
+        cases[name] = em_batch_tensors(batch, dev)
+        if name.startswith("affine"):
+            cases[name] = cases[name][:2] + (None, None)
+    bad = 0
+    for name, (srcs, tgts, sm, tm) in cases.items():
+        s_c, t_c, counts = em.compact_batch(srcs, tgts, sm, tm)
+        for kind in ("rigid", "affine"):
+            if name.startswith(("rigid", "masked")) and kind == "affine":
+                continue
+            if name.startswith("affine") and kind == "rigid":
+                continue
+            for maxiter, tol in ((EM_BATCH_ITERS, 0.0), (100, 1e-3)):
+                kw = dict(affine=kind == "affine", w=0.0, maxiter=maxiter,
+                          tol=tol, update_scale=True)
+                want = parent_em(libs["em"], s_c, t_c, counts, **kw)
+                same = []
+                for g in (1, 2, 4, 8, None):
+                    got = em._em_cuda(s_c, t_c, counts, **kw, _cluster=g)
+                    same.append(bool(torch.equal(got, want)))
+                bad += not all(same)
+                log(f"[K1 against the parent] {name} {kind} maxiter "
+                    f"{maxiter} tol {tol}: bit for bit at G = 1, 2, 4, 8, "
+                    f"default: {same}")
+            kw = dict(affine=kind == "affine", w=0.0, maxiter=EM_BATCH_ITERS,
+                      tol=0.0, update_scale=True)
+            p0 = timed(lambda: parent_em(libs["em"], s_c, t_c, counts, **kw),
+                       5)
+            n0 = timed(lambda: em._em_cuda(s_c, t_c, counts, **kw), 5)
+            n1 = timed(lambda: em._em_cuda(s_c, t_c, counts, **kw), 5)
+            p1 = timed(lambda: parent_em(libs["em"], s_c, t_c, counts, **kw),
+                       5)
+            per_g = {g: timed(lambda: em._em_cuda(s_c, t_c, counts, **kw,
+                                                  _cluster=g), 5)
+                     for g in (1, 2, 4, 8)}
+            log(f"  {name} {kind}, {EM_BATCH_ITERS} iterations: parent "
+                f"{p0:.4f} / {p1:.4f} ms, this {n0:.4f} / {n1:.4f} ms "
+                f"(G = {em.cluster_size(s_c.shape[0], em.sm_count(dev))}); "
+                "at G = 1, 2, 4, 8: "
+                + ", ".join(f"{v:.4f}" for v in per_g.values()) + " ms")
+            if counts is not None and s_c.shape[0] > 1:
+                arrival = timed(lambda: em._em_cuda(
+                    s_c, t_c, counts, **kw, _cluster=1, _ordered=False), 5)
+                log(f"  in arrival order at G = 1: {arrival:.4f} ms")
+    # K10: the 150k pair and the 256 ragged horse pairs.
+    src, tgt, _ = gmm_surface_pair()
+    tree = [a[None] for a in pgt.GMMTree(src, device=dev)._nodes]
+    big_in = gmm_reg_inputs(t(tgt)[None], None, tree)
+    srcs, tgts, smask, tmask = em_batch_tensors(rigid, dev)
+    s_c, s_cnt = _compact(srcs, smask)
+    trees = pgt._build_fused(s_c, pgt._leaf_indices(0, s_cnt.tolist(), 64,
+                                                    dev), s_cnt,
+                             max_level=2, lambda_s=1e-3, lambda_d=1e-4)
+    serve_in = gmm_reg_inputs(tgts, tmask, trees)
+    kw = dict(max_level=2, maxiter=GMM_REG_ITERS, tol=0.0, lambda_c=0.01)
+    for name, inputs in ((f"{N_GMM:,} pair", big_in),
+                         ("256 horse pairs", serve_in)):
+        want = parent_reg(libs["gmmtree"], *inputs, **kw)
+        got = gc._reg_cuda(*inputs, **kw)
+        diff = float((got[:, :12] - want[:, :12]).abs().max())
+        p0 = timed(lambda: parent_reg(libs["gmmtree"], *inputs, **kw), 3)
+        n0 = timed(lambda: gc._reg_cuda(*inputs, **kw), 5)
+        n1 = timed(lambda: gc._reg_cuda(*inputs, **kw), 5)
+        p1 = timed(lambda: parent_reg(libs["gmmtree"], *inputs, **kw), 3)
+        one = timed(lambda: gc._reg_cuda(*inputs, **kw, _blocks=1), 3)
+        log(f"[K10 against the parent] {name}, {GMM_REG_ITERS} iterations: "
+            f"max |rot|, |t| difference {diff:.2e}; parent {p0:.4f} / "
+            f"{p1:.4f} ms, this {n0:.4f} / {n1:.4f} ms, this on one block "
+            f"a pair {one:.4f} ms")
+    # A pair of 32 points: a K1 iteration's fixed cost (the M-step in one
+    # thread, the barriers, the sums), per iteration.
+    s32, t32 = (c[:, :32].contiguous() for c in cases["1024x1024"][:2])
+    for kind in ("rigid", "affine"):
+        kw = dict(affine=kind == "affine", w=0.0, maxiter=EM_BATCH_ITERS,
+                  tol=0.0, update_scale=True)
+        p_us = timed(lambda: parent_em(libs["em"], s32, t32, None, **kw),
+                     5) / EM_BATCH_ITERS * 1e3
+        g_us = {g: timed(lambda: em._em_cuda(s32, t32, None, **kw,
+                                             _cluster=g), 5)
+                / EM_BATCH_ITERS * 1e3 for g in (1, 8)}
+        log(f"[K1 fixed cost] 32 x 32 {kind}: parent {p_us:.2f} us per "
+            f"iteration, this {g_us[1]:.2f} (G = 1) / {g_us[8]:.2f} (G = 8)")
+    # K5 and K7 share em_common.cuh: the parent's builds behind their own
+    # wrappers, against this checkout's, bit for bit.
+    from probreg_tpu_torch.ops import _build
+    from probreg_tpu_torch.ops import frg_cuda as fc
+    from probreg_tpu_torch.ops import icp_cuda as ic
+
+    own_load = _build.load
+
+    def parent_load(name):
+        return libs.get(name) or own_load(name)
+
+    def runs(fn):
+        """fn on this build and on the parent's: whether each output is the
+        same bits, and the ms of both in the order parent, this, this,
+        parent."""
+        outs, ms = [], []
+        for load in (own_load, parent_load, parent_load, own_load,
+                     own_load, parent_load):
+            _build.load = load
+            try:
+                if len(outs) < 2:
+                    outs.append(fn())
+                else:
+                    ms.append(timed(fn, 5))
+            finally:
+                _build.load = own_load
+        same = [bool(torch.equal(a, b)) for a, b in zip(*outs)]
+        return same, (f"parent {ms[0]:.4f} / {ms[3]:.4f} ms, this "
+                      f"{ms[1]:.4f} / {ms[2]:.4f} ms")
+
+    frg_rigid, frg_pt2pl = filterreg_batches()
+    for obj, batch in (("pt2pt", frg_rigid), ("pt2pl", frg_pt2pl)):
+        srcs, tgts, smask, tmask = em_batch_tensors(batch, dev)
+        nrms = None
+        if obj == "pt2pl":
+            nrms = t(np.stack([p[2] for p in batch]))
+            smask = tmask = None
+        args = dict(w=0.0, maxiter=50, tol=1e-3, update_sigma2=False,
+                    min_sigma2=1e-4, auto_sigma2=True,
+                    sigma2_decay=FRG_SERVE[obj].get("sigma2_decay", 1.0))
+        same, ms = runs(lambda: fc.run_em_filterreg_fused_batch(
+            srcs, tgts, nrms, smask, tmask, objective=obj, **args))
+        bad += not all(same)
+        log(f"[K5 against the parent] {obj} batch of {len(batch)}: bit for "
+            f"bit (rot, t, sigma2, q, n_iter): {same}; {ms}")
+    srcs, tgts, smask, tmask = em_batch_tensors(rigid, dev)
+    same, ms = runs(lambda: ic.run_icp_fused_batch(srcs, tgts, smask, tmask,
+                                                   maxiter=30, tol=1e-6))
+    bad += not all(same)
+    log(f"[K7 against the parent] batch of {len(rigid)}: bit for bit (rot, "
+        f"t, rmse, n_iter): {same}; {ms}")
+    log(f"cases that differ from the parent: {bad}")
+    return 1 if bad else 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--parent":
+        log(card_line())
+        return compare_with_parent(sys.argv[2])
     import probreg_tpu_torch  # noqa: F401
     from probreg_tpu_torch.ops import _build
 
@@ -3373,7 +3675,7 @@ def main() -> int:
                         (check_gmmtree_reg, (dev, kernels)),
                         (run_gmmtree_bunny, (dev, launches)),
                         (run_gmmtree_batch, (dev, launches)),
-                        (run_gmmtree_large, (dev, launches)),
+                        (run_gmmtree_large, (dev, launches, kernels)),
                         (run_pyramid_cpd, (dev, launches, kernels)),
                         (run_pyramid_affine, (dev, launches)),
                         (run_family_pyramids, (dev, launches)),

@@ -69,6 +69,13 @@ class Config:
     # about this card, and is kept so both packages take the same branch
     # at the same sizes.
     bcpd_culled_max_points: int = 750_000
+    # Cap on the (M_padded, tile_n) f32 stash of the reference's BCPD
+    # E-step. The port keeps no stash; the cap picks BCPD's tiles where the
+    # reference's does (tile_n halves, floor 256, so the sums keep the
+    # reference's order), and beyond the floor bcpd_estep_culled raises.
+    # The name and the default are the reference's, so
+    # interop.config_from_reference carries it as it is.
+    bcpd_stash_max_bytes: int = 2 << 30
 
 
 config = Config()

@@ -3,9 +3,17 @@
 // Replaces probreg_tpu/ops/em_pallas.py:_em_kernel (run_em_rigid_fused,
 // run_em_affine_fused, run_em_cpd_fused_batch): one launch runs a whole
 // registration, E-steps, M-steps and the convergence test included, with no
-// host read between launch and result. One thread block is one pair, and
-// the grid is the batch; every block keeps its own convergence state, so
-// the pairs of a ragged batch stop at their own iterations.
+// host read between launch and result. A pair runs on kThreads = 1,024
+// threads: one block (G = 1) or a thread-block cluster of G = 2, 4 or 8
+// blocks of kThreads / G threads on G SMs, which the wrapper picks when the
+// batch leaves SMs idle (em_cuda.cluster_size). The grid is the batch;
+// every pair keeps its own convergence state, so the pairs of a ragged
+// batch stop at their own iterations. When a ragged batch's blocks
+// outnumber the SMs, the wrapper hands a work order, the largest m n
+// first, so the long pairs start in the first wave and the short ones
+// fill the gaps; cluster (or block) c then registers pair order[c] and
+// writes its row. A thread has at most 64 registers at G = 1 (one block
+// an SM), 128 at G = 2 and 255 at G = 4 and 8.
 //
 // What the TPU kernel keeps in VMEM, the (M, N) posterior, does not fit the
 // 227 KB of shared memory of an SM (4 MB at 1024 x 1024), so it is never
@@ -24,7 +32,9 @@
 // centroid (computed here, as cpd._run_em_t does; t converts back at the
 // end). IEEE f32, expf, no fast-math. All sums are fixed-order trees
 // (shuffles, then warps in order): no atomics, so a result is the same from
-// run to run.
+// run to run, and the same for every G and any work order: the cluster's
+// blocks run the one-block kernel's threads with its splits and its sums'
+// trees (see em_kernel).
 //
 // The rigid M-step is Horn's quaternion method like the TPU kernel, but the
 // dominant eigenvector of the 4 x 4 matrix comes from cyclic Jacobi sweeps
@@ -34,9 +44,12 @@
 // rotation is always proper (det = +1). The affine M-step is
 // B = a inv(yp1y) with a 3 x 3 cofactor inverse, also in double.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "em_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -133,66 +146,125 @@ __device__ void mstep(State& st, const float* s, int maxiter, float tol,
                                          1.5));
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Block-wide sums of a pair's kThreads virtual threads in the parent's
+// fixed order (block_reduce's): each warp's shuffle tree, then the 32
+// warps' partials in warp order. On a cluster (G > 1) the partials of the
+// G blocks' warps are read through distributed shared memory, so every
+// block gets the same totals. The cluster barrier comes before the reads
+// only: callers alternate two ``red`` buffers, so a buffer is written
+// again only after the next cluster barrier, which every reader of its
+// last sum has passed.
+template <int K, int G>
+__device__ void pair_reduce(float (&v)[K], float* red, float* out) {
+  if constexpr (G == 1) {
+    block_reduce<K, kThreads>(v, red, out);
+  } else {
+    constexpr int kLocalWarps = kThreads / G / 32;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = group_sum(v[k], 32);
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) red[warp * K + k] = v[k];
+    }
+    cluster.sync();
+    if (threadIdx.x < K) {
+      float s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float* rw = cluster.map_shared_rank(red, w / kLocalWarps);
+        s += rw[(w % kLocalWarps) * K + threadIdx.x];
+      }
+      out[threadIdx.x] = s;
+    }
+    __syncthreads();
+  }
+}
+
+// One pair on G blocks of kThreads / G threads (a thread-block cluster when
+// G > 1). Block r of the cluster runs the virtual threads vt = r kThreads /
+// G + tid of the one-block kernel (G = 1), each walking the same columns,
+// rows and points with the same splits, and the sums keep that kernel's
+// trees (pair_reduce): the result is the same bits for every G. Each
+// block holds both whole clouds; the transformed source is formed by every
+// block, 1/den and (px, p1) by their owner and read by the others.
+// ``order`` (may be null): cluster (or block) c registers pair order[c].
+template <int G>
+__global__ void __launch_bounds__(kThreads / G)
 em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
           const float* __restrict__ tgt, int n_cap,   // (B, n_cap, 3)
           const int* __restrict__ counts,  // (B, 2) valid points, or null
+          const int* __restrict__ order,   // (B,) work order, or null
           float w, int maxiter, float tol, int update_scale, int affine,
           float* __restrict__ out) {       // (B, 16)
+  constexpr int kBlock = kThreads / G;
   extern __shared__ float4 pts[];
   float4* ys = pts;                // centred source
   float4* ts = ys + m_cap;         // transformed source, then (px, p1)
   float4* xs = ts + m_cap;         // centred target, |x|^2 in w
   float* inv_den = reinterpret_cast<float*>(xs + n_cap);
-  __shared__ float red[kWarps * kRed];
+  __shared__ float red[2][kBlock / 32 * kRed];   // see pair_reduce
   __shared__ float sums[kRed];
   __shared__ State st;
 
-  const int b = blockIdx.x, tid = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int b = order ? order[blockIdx.x / G] : blockIdx.x / G;
+  int r = 0;
+  if constexpr (G > 1) r = (int)cg::this_cluster().block_rank();
+  const int vt = r * kBlock + tid;   // the thread of the one-block kernel
   const int m = counts ? counts[2 * b] : m_cap;
   const int n = counts ? counts[2 * b + 1] : n_cap;
   src += (size_t)b * m_cap * 3;
   tgt += (size_t)b * n_cap * 3;
 
   // Load, then centre on the shared centroid of the valid points.
+  for (int i = tid; i < m; i += kBlock)
+    ys[i] = make_float4(src[3 * i], src[3 * i + 1], src[3 * i + 2], 0.0f);
+  for (int j = tid; j < n; j += kBlock)
+    xs[j] = make_float4(tgt[3 * j], tgt[3 * j + 1], tgt[3 * j + 2], 0.0f);
+  __syncthreads();
   float v[kRed];
 #pragma unroll
   for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
-  for (int i = tid; i < m; i += kThreads) {
-    const float4 p = make_float4(src[3 * i], src[3 * i + 1], src[3 * i + 2],
-                                 0.0f);
-    ys[i] = p;
+  for (int i = vt; i < m; i += kThreads) {
+    const float4 p = ys[i];
     v[0] += p.x; v[1] += p.y; v[2] += p.z;
   }
-  for (int j = tid; j < n; j += kThreads) {
-    const float4 p = make_float4(tgt[3 * j], tgt[3 * j + 1], tgt[3 * j + 2],
-                                 0.0f);
-    xs[j] = p;
+  for (int j = vt; j < n; j += kThreads) {
+    const float4 p = xs[j];
     v[3] += p.x; v[4] += p.y; v[5] += p.z;
   }
-  block_reduce<kRed, kThreads>(v, red, sums);
+  pair_reduce<kRed, G>(v, red[0], sums);
   const float inv_mn = 1.0f / (float)(m + n);
   const float cx = (sums[0] + sums[3]) * inv_mn;
   const float cy = (sums[1] + sums[4]) * inv_mn;
   const float cz = (sums[2] + sums[5]) * inv_mn;
-#pragma unroll
-  for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
-  for (int i = tid; i < m; i += kThreads) {
+  for (int i = tid; i < m; i += kBlock) {
     float4 p = ys[i];
     p.x -= cx; p.y -= cy; p.z -= cz;
     ys[i] = p;
-    v[0] += p.x; v[1] += p.y; v[2] += p.z;
-    v[6] += p.x * p.x + p.y * p.y + p.z * p.z;
   }
-  for (int j = tid; j < n; j += kThreads) {
+  for (int j = tid; j < n; j += kBlock) {
     float4 p = xs[j];
     p.x -= cx; p.y -= cy; p.z -= cz;
     p.w = p.x * p.x + p.y * p.y + p.z * p.z;
     xs[j] = p;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
+  for (int i = vt; i < m; i += kThreads) {
+    const float4 p = ys[i];
+    v[0] += p.x; v[1] += p.y; v[2] += p.z;
+    v[6] += p.x * p.x + p.y * p.y + p.z * p.z;
+  }
+  for (int j = vt; j < n; j += kThreads) {
+    const float4 p = xs[j];
     v[3] += p.x; v[4] += p.y; v[5] += p.z;
     v[7] += p.w;
   }
-  block_reduce<kRed, kThreads>(v, red, sums);
+  pair_reduce<kRed, G>(v, red[1], sums);
   if (tid == 0) {
     // sigma2_0 = mean pairwise squared distance / 3, in closed form, and q0.
     const float fm = (float)m, fn = (float)n;
@@ -217,6 +289,7 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
 
   const int split_a = pick_split<kThreads>(n);
   const int split_b = pick_split<kThreads>(m);
+  const int nslots_a = kThreads / split_a, nslots_b = kThreads / split_b;
   while (st.go) {
     const float inv2s2 = st.inv2s2, c = st.c;
     {
@@ -225,7 +298,7 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
       for (int k = 0; k < 9; ++k) l[k] = st.lin[k];
 #pragma unroll
       for (int k = 0; k < 3; ++k) t[k] = st.t[k];
-      for (int i = tid; i < m; i += kThreads) {
+      for (int i = tid; i < m; i += kBlock) {
         const float4 y = ys[i];
         ts[i] = make_float4(l[0] * y.x + l[1] * y.y + l[2] * y.z + t[0],
                             l[3] * y.x + l[4] * y.y + l[5] * y.z + t[1],
@@ -235,18 +308,27 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
     }
     __syncthreads();
 
-    // Pass A: column normalizers, complete inside the block.
+    // Pass A: column normalizers, complete inside the pair.
     float xx = 0.0f;
     {
-      const int sub = tid & (split_a - 1), slot = tid / split_a;
-      const int nslots = kThreads / split_a;
-      for (int j0 = 0; j0 < n; j0 += nslots) {
+      const int sub = vt & (split_a - 1), slot = vt / split_a;
+      for (int j0 = 0; j0 < n; j0 += nslots_a) {
         const int j = j0 + slot;
         const bool ok = j < n;
         const float4 x = ok ? xs[j] : make_float4(0.f, 0.f, 0.f, 0.f);
         float s = 0.0f;
-        if (ok)
-          for (int i = sub; i < m; i += split_a) s += gauss(ts[i], x, inv2s2);
+        if (ok) {
+          // Four Gaussians in flight, added in the loop's order.
+          int i = sub;
+          for (; i + 3 * split_a < m; i += 4 * split_a) {
+            const float g0 = gauss(ts[i], x, inv2s2);
+            const float g1 = gauss(ts[i + split_a], x, inv2s2);
+            const float g2 = gauss(ts[i + 2 * split_a], x, inv2s2);
+            const float g3 = gauss(ts[i + 3 * split_a], x, inv2s2);
+            s += g0; s += g1; s += g2; s += g3;
+          }
+          for (; i < m; i += split_a) s += gauss(ts[i], x, inv2s2);
+        }
         s = group_sum(s, split_a);
         if (ok && sub == 0) {
           const float inv = 1.0f / ((s == 0.0f ? kEpsF32 : s) + c);
@@ -255,21 +337,43 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
         }
       }
     }
+    if constexpr (G > 1) {
+      // Column j belongs to virtual thread (j mod nslots_a) split_a.
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      for (int j = tid; j < n; j += kBlock) {
+        const int owner = (j % nslots_a) * split_a / kBlock;
+        if (owner != r) inv_den[j] = cluster.map_shared_rank(inv_den, owner)[j];
+      }
+    }
     __syncthreads();
 
     // Pass B: row moments with the Gaussian recomputed.
 #pragma unroll
     for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
     {
-      const int sub = tid & (split_b - 1), slot = tid / split_b;
-      const int nslots = kThreads / split_b;
-      for (int i0 = 0; i0 < m; i0 += nslots) {
+      const int sub = vt & (split_b - 1), slot = vt / split_b;
+      for (int i0 = 0; i0 < m; i0 += nslots_b) {
         const int i = i0 + slot;
         const bool ok = i < m;
         const float4 y = ok ? ts[i] : make_float4(0.f, 0.f, 0.f, 0.f);
         float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-        if (ok)
-          for (int j = sub; j < n; j += split_b) {
+        if (ok) {
+          // Four Gaussians in flight, added in the loop's order.
+          int j = sub;
+          for (; j + 3 * split_b < n; j += 4 * split_b) {
+            const float4 x0 = xs[j], x1 = xs[j + split_b];
+            const float4 x2 = xs[j + 2 * split_b], x3 = xs[j + 3 * split_b];
+            const float p0 = gauss(y, x0, inv2s2) * inv_den[j];
+            const float p1 = gauss(y, x1, inv2s2) * inv_den[j + split_b];
+            const float p2 = gauss(y, x2, inv2s2) * inv_den[j + 2 * split_b];
+            const float p3 = gauss(y, x3, inv2s2) * inv_den[j + 3 * split_b];
+            a3 += p0; a0 += p0 * x0.x; a1 += p0 * x0.y; a2 += p0 * x0.z;
+            a3 += p1; a0 += p1 * x1.x; a1 += p1 * x1.y; a2 += p1 * x1.z;
+            a3 += p2; a0 += p2 * x2.x; a1 += p2 * x2.y; a2 += p2 * x2.z;
+            a3 += p3; a0 += p3 * x3.x; a1 += p3 * x3.y; a2 += p3 * x3.z;
+          }
+          for (; j < n; j += split_b) {
             const float4 x = xs[j];
             const float p = gauss(y, x, inv2s2) * inv_den[j];
             a3 += p;
@@ -277,6 +381,7 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
             a1 += p * x.y;
             a2 += p * x.z;
           }
+        }
         a0 = group_sum(a0, split_b); a1 = group_sum(a1, split_b);
         a2 = group_sum(a2, split_b); a3 = group_sum(a3, split_b);
         if (ok && sub == 0) {
@@ -289,7 +394,7 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
       }
     }
     v[7] = xx;
-    block_reduce<kRed, kThreads>(v, red, sums);
+    pair_reduce<kRed, G>(v, red[0], sums);
     if (tid == 0) {
       const float n_p = sums[0];
       st.n_p = n_p;
@@ -301,13 +406,21 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
     }
     __syncthreads();
 
-    // M-step sums about the weighted source mean.
+    // M-step sums about the weighted source mean. Row i's (px, p1) lies
+    // with virtual thread (i mod nslots_b) split_b of pass B.
     {
       const float my0 = st.mu_y[0], my1 = st.mu_y[1], my2 = st.mu_y[2];
 #pragma unroll
       for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
-      for (int i = tid; i < m; i += kThreads) {
-        const float4 pp = ts[i], yr = ys[i];
+      for (int i = vt; i < m; i += kThreads) {
+        float4 pp;
+        if constexpr (G == 1) {
+          pp = ts[i];
+        } else {
+          const int owner = (i % nslots_b) * split_b / kBlock;
+          pp = cg::this_cluster().map_shared_rank(ts, owner)[i];
+        }
+        const float4 yr = ys[i];
         const float h0 = yr.x - my0, h1 = yr.y - my1, h2 = yr.z - my2;
         v[0] += pp.x * h0; v[1] += pp.x * h1; v[2] += pp.x * h2;
         v[3] += pp.y * h0; v[4] += pp.y * h1; v[5] += pp.y * h2;
@@ -318,12 +431,14 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
         v[15] += w1 * h1; v[16] += w1 * h2; v[17] += w2 * h2;
       }
     }
-    block_reduce<kRed, kThreads>(v, red, sums);
+    pair_reduce<kRed, G>(v, red[1], sums);
     if (tid == 0) mstep(st, sums, maxiter, tol, update_scale, affine);
     __syncthreads();
   }
+  // No block leaves while another may still read its shared memory.
+  if constexpr (G > 1) cg::this_cluster().sync();
 
-  if (tid == 0) {
+  if (r == 0 && tid == 0) {
     float* o = out + (size_t)b * 16;
     for (int k = 0; k < 9; ++k) o[k] = st.lin[k];
     // Centred frame -> raw frame: t = t_c + cen - lin cen.
@@ -338,6 +453,34 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
   }
 }
 
+template <int G>
+cudaError_t launch_em(const float* src, int m_cap, const float* tgt,
+                      int n_cap, const int* counts, const int* order,
+                      int batch, float w, int maxiter, float tol,
+                      int update_scale, int affine, float* out, int smem,
+                      cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      em_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * G);
+  cfg.blockDim = dim3(kThreads / G);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = G > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, em_kernel<G>, src, m_cap, tgt, n_cap,
+                           counts, order, w, maxiter, tol, update_scale,
+                           affine, out);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -347,18 +490,26 @@ int probreg_em_smem_bytes(int m_cap, int n_cap) {
   return 32 * m_cap + 20 * n_cap;
 }
 
+// One launch of whole-EM CPD for a batch: cluster blocks per pair (1, 2,
+// 4 or 8), order (B,) int32 or null.
 int probreg_em_cpd(const void* src, int m_cap, const void* tgt, int n_cap,
-                   const void* counts, int batch, float w, int maxiter,
-                   float tol, int update_scale, int affine, void* out,
-                   void* stream) {
+                   const void* counts, const void* order, int batch,
+                   int cluster, float w, int maxiter, float tol,
+                   int update_scale, int affine, void* out, void* stream) {
+  if (batch <= 0) return (int)cudaErrorInvalidValue;
   const int smem = probreg_em_smem_bytes(m_cap, n_cap);
-  cudaError_t err = cudaFuncSetAttribute(
-      em_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  em_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)src, m_cap, (const float*)tgt, n_cap, (const int*)counts,
-      w, maxiter, tol, update_scale, affine, (float*)out);
-  return (int)cudaGetLastError();
+  decltype(&launch_em<1>) launch = nullptr;
+  switch (cluster) {
+    case 1: launch = launch_em<1>; break;
+    case 2: launch = launch_em<2>; break;
+    case 4: launch = launch_em<4>; break;
+    case 8: launch = launch_em<8>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)launch((const float*)src, m_cap, (const float*)tgt, n_cap,
+                     (const int*)counts, (const int*)order, batch, w,
+                     maxiter, tol, update_scale, affine, (float*)out, smem,
+                     (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -51,18 +51,26 @@ __device__ __forceinline__ int pick_split(int items) {
 // Eigenvectors of a symmetric 4 x 4 by cyclic Jacobi; returns in q the unit
 // eigenvector of the largest eigenvalue. Converges for every symmetric
 // matrix and returns a unit vector even when the top eigenvalues tie.
+// The loops over indices are unrolled, so a and v stay in registers (the
+// arithmetic and its order are those of the rolled loops).
 __device__ void dominant_eigvec4(double a[4][4], double q[4]) {
   double v[4][4];
+#pragma unroll
   for (int i = 0; i < 4; ++i)
+#pragma unroll
     for (int j = 0; j < 4; ++j) v[i][j] = (i == j) ? 1.0 : 0.0;
   for (int sweep = 0; sweep < 16; ++sweep) {
     double off = 0.0, diag = 0.0;
+#pragma unroll
     for (int i = 0; i < 4; ++i) {
       diag += a[i][i] * a[i][i];
+#pragma unroll
       for (int j = i + 1; j < 4; ++j) off += a[i][j] * a[i][j];
     }
     if (off <= 1e-32 * diag) break;
+#pragma unroll
     for (int p = 0; p < 3; ++p) {
+#pragma unroll
       for (int r = p + 1; r < 4; ++r) {
         const double apr = a[p][r];
         if (apr == 0.0) continue;
@@ -70,16 +78,19 @@ __device__ void dominant_eigvec4(double a[4][4], double q[4]) {
         const double tt = (theta >= 0.0 ? 1.0 : -1.0) /
                           (fabs(theta) + sqrt(theta * theta + 1.0));
         const double c = 1.0 / sqrt(tt * tt + 1.0), s = tt * c;
+#pragma unroll
         for (int k = 0; k < 4; ++k) {
           const double akp = a[k][p], akr = a[k][r];
           a[k][p] = c * akp - s * akr;
           a[k][r] = s * akp + c * akr;
         }
+#pragma unroll
         for (int k = 0; k < 4; ++k) {
           const double apk = a[p][k], ark = a[r][k];
           a[p][k] = c * apk - s * ark;
           a[r][k] = s * apk + c * ark;
         }
+#pragma unroll
         for (int k = 0; k < 4; ++k) {
           const double vkp = v[k][p], vkr = v[k][r];
           v[k][p] = c * vkp - s * vkr;
@@ -88,13 +99,23 @@ __device__ void dominant_eigvec4(double a[4][4], double q[4]) {
       }
     }
   }
+  // The first largest diagonal entry and its column, by selects.
   int best = 0;
+  double top = a[0][0];
+#pragma unroll
   for (int i = 1; i < 4; ++i)
-    if (a[i][i] > a[best][best]) best = i;
+    if (a[i][i] > top) { top = a[i][i]; best = i; }
+  double col[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    col[k] = best == 0 ? v[k][0] : best == 1 ? v[k][1]
+             : best == 2 ? v[k][2] : v[k][3];
   double nrm = 0.0;
-  for (int k = 0; k < 4; ++k) nrm += v[k][best] * v[k][best];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) nrm += col[k] * col[k];
   nrm = sqrt(nrm > 1e-300 ? nrm : 1e-300);
-  for (int k = 0; k < 4; ++k) q[k] = v[k][best] / nrm;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) q[k] = col[k] / nrm;
 }
 
 // Horn's quaternion method: the proper rotation maximizing tr(a^T R) for a

@@ -7,8 +7,8 @@
 // per pair (the wrapper picks G: 1 when the batch fills the card, else up
 // to one block per chunk of a large pair). gmmtree_reg_kernel (K10)
 // replaces _reg_kernel (run_gmmtree_reg_fused): one launch runs whole
-// registrations, one block per pair, each pair stopping at its own
-// iteration.
+// registrations, each pair stopping at its own iteration, on G thread
+// blocks per pair picked the same way.
 //
 // The TPU kernels form the (nodes x points) log-density grid with one MXU
 // product over 10 moment features and the moments with the transposed
@@ -52,14 +52,20 @@
 // launch whose barriers are the block's own.
 //
 // K10, per iteration, on the targets centred on the shared centroid of
-// targets and node means (the wrapper centres and builds the node table):
-//   x = R y + t; descend max_level levels from the root's 8 children: u as
-//   above with the exponent clamped at 0 (as the twin
-//   gmmtree._run_registration does), gamma normalised over the 8, the
-//   first maximum; stop at a node whose complexity <= lambda_c;
+// targets and node means (the wrapper centres and builds the node table).
+// The pair's valid targets are cut into chunks of kChunk in their stored
+// order; the pair's G blocks take chunks c = r, r + G, ...:
+//   x = R y + t, one point a thread; descend max_level levels from the
+//   root's 8 children: u as above with the exponent clamped at 0 (as the
+//   twin gmmtree._run_registration does), gamma normalised over the 8,
+//   the first maximum; stop at a node whose complexity <= lambda_c;
 //   m0[node] += gmax, m1[node] += gmax x: each warp stages its 32 points
 //   and 4 lanes add them in lane order into the warp's own node buffer,
-//   then the 32 buffers are added in warp order;
+//   then the 32 buffers are added in warp order: the chunk's T x 4
+//   partials go to a scratch buffer (two, by the iteration's parity, so
+//   that the next iteration's writes cannot meet a slow block's reads).
+//   One barrier. Every block sums each node's partials over the chunks in
+//   chunk order, then runs the rest of the iteration on the same totals:
 //   per node and eigendirection j with m0 >= f32 eps, s = m1 / m0, v_j the
 //   eigenvector scaled by sqrt(m0 / lambda_j): the row [s x v_j, v_j] and
 //   b = v_j . (mu - s); A^T A + 1e-8 I and A^T b summed in a fixed order
@@ -67,6 +73,14 @@
 //   with the exact Rodrigues rotation (se3_op.twist_mul: the increment
 //   rotates the old translation); go on while it < maxiter and (it == 0 or
 //   |q - q_prev| >= tol), both starting at inf.
+// As in K9, every block of a pair holds the same pose and takes the same
+// stop decision, so the result is the same bits for any G and any batch;
+// G > 1 is a cooperative launch with one grid-wide barrier per iteration
+// (a stopped pair keeps meeting it until the batch has stopped, read from
+// a flag per pair), G = 1 a plain launch whose barrier is the block's own.
+// K10 does ~520 operations per point and iteration against K9's ~2,200;
+// on one block (one SM of an H100 SXM at 700 W) a 150k pair's 20
+// iterations took 42.5 ms.
 // IEEE f32 (expf, no fast-math), fixed-order sums: a result is the same
 // from run to run.
 
@@ -86,7 +100,10 @@ constexpr float kEps = 1.0e-15f;
 constexpr float kTwoPi15 = 15.749609945653303f;  // (2 pi)^1.5
 constexpr int kTerms = 12;   // [mu (3), inv (6), pi, norm, 0]
 constexpr int kTable = 24;   // K10's node table, see gmmtree_cuda.reg_tables
-constexpr int kChunk = 1024;     // K9's points per chunk (gmmtree_cuda.CHUNK)
+// Points per chunk of K9 and K10 (gmmtree_cuda.CHUNK); K10 gives each
+// thread one point of a chunk.
+constexpr int kChunk = 1024;
+static_assert(kChunk == kThreads, "K10 takes one point a thread");
 constexpr int kPartWidth = 80;   // a chunk's moments: 8 children x 10
 
 // -d^T inv d / 2, inv packed as [00, 01, 02, 11, 12, 22].
@@ -429,68 +446,103 @@ __device__ void compose(RegState& st) {
   for (int k = 0; k < 3; ++k) st.t[k] = t[k];
 }
 
+struct RegArgs {
+  const float* ys;      // (B, n_cap, 3) centred targets, valid first
+  int n_cap;
+  const int* counts;    // (B,) valid targets
+  const float* table;   // (B, T, kTable)
+  int t_nodes;
+  const float* init;    // (B, 12) [rot, t]
+  int max_level, maxiter;
+  float tol, lambda_c;
+  int per_pair;         // G
+  int c_cap;            // chunks a pair may have
+  float* part;          // (2, B, c_cap, T, 4) chunk moments, by parity
+  int* flags;           // (2, B) whether a pair goes on (G > 1), by parity
+  float* out;           // (B, 16)
+};
+
+// K10's node table in shared memory: node k's kTable floats start at
+// kTable k + k / 8, so the 8 children of different parents, which the
+// lanes of a warp read at once in the descent's second level, start in
+// different banks (kTable k alone puts every parent's group in one bank).
+__device__ __forceinline__ int tab_at(int node) {
+  return kTable * node + (node >> 3);
+}
+
+__host__ __device__ int tab_floats(int t_nodes) {
+  return kTable * t_nodes + t_nodes / 8 + 1;
+}
+
+// Shared memory of one K10 block: the node table, one [m0, m1] buffer per
+// warp, the node totals and three twist rows of 7 per node.
+int reg_smem(int t_nodes) {
+  return 4 * (tab_floats(t_nodes) + (kWarps * 4 + 4 + 3 * 7) * t_nodes);
+}
+
+template <bool kGrid>
 __global__ void __launch_bounds__(kThreads)
-gmmtree_reg_kernel(const float* __restrict__ ys, int n_cap,  // (B, n_cap, 3)
-                   const int* __restrict__ counts,   // (B,) valid targets
-                   const float* __restrict__ table,  // (B, T, kTable)
-                   int t_nodes,
-                   const float* __restrict__ init,   // (B, 12) [rot, t]
-                   int max_level, int maxiter, float tol, float lambda_c,
-                   float* __restrict__ out) {        // (B, 16)
+gmmtree_reg_kernel(const RegArgs a) {
   extern __shared__ float smem[];
-  float* tab = smem;                          // T x kTable
-  float* wbuf = tab + kTable * t_nodes;       // kWarps x T x [m0, m1]
-  float* mom = wbuf + kWarps * 4 * t_nodes;   // T x [m0, m1]
-  float* rows = mom + 4 * t_nodes;            // 3 T x 7
+  const int t_nodes = a.t_nodes, width = 4 * t_nodes;
+  float* tab = smem;                          // T x kTable, see tab_at
+  float* wbuf = tab + tab_floats(t_nodes);    // kWarps x T x [m0, m1]
+  float* mom = wbuf + kWarps * width;         // T x [m0, m1]
+  float* rows = mom + width;                  // 3 T x 7
   __shared__ int stage_node[kWarps][32];
   __shared__ float stage_val[kWarps][32][4];
   __shared__ float red[kWarps * 27];
   __shared__ float sums[27];
   __shared__ RegState st;
+  __shared__ int any_go;
 
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int n = counts[b];
-  ys += (size_t)b * n_cap * 3;
-  table += (size_t)b * t_nodes * kTable;
-  for (int i = tid; i < kTable * t_nodes; i += kThreads) tab[i] = table[i];
+  const int per = a.per_pair, batch = gridDim.x / per;
+  const int b = blockIdx.x / per, r = blockIdx.x % per;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = a.counts[b];
+  const int n_chunks = (n + kChunk - 1) / kChunk;
+  const float* ys = a.ys + (size_t)b * a.n_cap * 3;
+  const float* table = a.table + (size_t)b * t_nodes * kTable;
+  for (int i = tid; i < kTable * t_nodes; i += kThreads)
+    tab[i + i / kTable / 8] = table[i];
   if (tid == 0) {
-    for (int k = 0; k < 9; ++k) st.rot[k] = init[12 * b + k];
-    for (int k = 0; k < 3; ++k) st.t[k] = init[12 * b + 9 + k];
+    for (int k = 0; k < 9; ++k) st.rot[k] = a.init[12 * b + k];
+    for (int k = 0; k < 3; ++k) st.t[k] = a.init[12 * b + 9 + k];
     st.q = st.q_prev = INFINITY;
     st.it = 0;
   }
   __syncthreads();
-  float* mybuf = wbuf + warp * 4 * t_nodes;
+  float* mybuf = wbuf + warp * width;
 
-  while (true) {
+  for (int parity = 0;; parity ^= 1) {
     // A NaN q stops the loop.
-    const bool go = st.it < maxiter
-                    && (st.it == 0 || fabsf(st.q - st.q_prev) >= tol);
-    if (!go) break;
-    float r[9], t[3];
+    const bool go = st.it < a.maxiter
+                    && (st.it == 0 || fabsf(st.q - st.q_prev) >= a.tol);
+    float* part = a.part
+                  + ((size_t)parity * batch + b) * a.c_cap * width;
+    float r9[9], t3[3];
 #pragma unroll
-    for (int k = 0; k < 9; ++k) r[k] = st.rot[k];
+    for (int k = 0; k < 9; ++k) r9[k] = st.rot[k];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) t[k] = st.t[k];
-    for (int k = lane; k < 4 * t_nodes; k += 32) mybuf[k] = 0.0f;
-    __syncwarp();
-    for (int i0 = 0; i0 < n; i0 += kThreads) {
-      const int i = i0 + tid;
+    for (int k = 0; k < 3; ++k) t3[k] = st.t[k];
+    // Descent and moments of this block's chunks (none once stopped).
+    for (int c = go ? r : n_chunks; c < n_chunks; c += per) {
+      for (int k = lane; k < width; k += 32) mybuf[k] = 0.0f;
+      const int i = c * kChunk + tid;
       int node = 0;
       float gm = 0.0f, x0 = 0.0f, x1 = 0.0f, x2 = 0.0f;
       if (i < n) {
         const float y0 = ys[3 * i], y1 = ys[3 * i + 1], y2 = ys[3 * i + 2];
-        x0 = r[0] * y0 + r[1] * y1 + r[2] * y2 + t[0];
-        x1 = r[3] * y0 + r[4] * y1 + r[5] * y2 + t[1];
-        x2 = r[6] * y0 + r[7] * y1 + r[8] * y2 + t[2];
+        x0 = r9[0] * y0 + r9[1] * y1 + r9[2] * y2 + t3[0];
+        x1 = r9[3] * y0 + r9[4] * y1 + r9[5] * y2 + t3[1];
+        x2 = r9[6] * y0 + r9[7] * y1 + r9[8] * y2 + t3[2];
         int parent = -1;
-        for (int l = 0; l < max_level; ++l) {
+        for (int l = 0; l < a.max_level; ++l) {
           const int c0 = 8 * (parent + 1);
           float u[8], den = 0.0f;
 #pragma unroll
           for (int jj = 0; jj < 8; ++jj) {
-            const float* e = tab + kTable * (c0 + jj);
+            const float* e = tab + tab_at(c0 + jj);
             const float ep = fminf(
                 exponent(x0 - e[0], x1 - e[1], x2 - e[2], e + 3), 0.0f);
             u[jj] = e[9] * (e[10] * expf(ep));
@@ -505,7 +557,7 @@ gmmtree_reg_kernel(const float* __restrict__ ys, int n_cap,  // (B, n_cap, 3)
           }
           node = c0 + best;
           gm = bg;
-          if (tab[kTable * node + 11] <= lambda_c) break;
+          if (tab[tab_at(node) + 11] <= a.lambda_c) break;
           parent = node;
         }
       }
@@ -518,67 +570,93 @@ gmmtree_reg_kernel(const float* __restrict__ ys, int n_cap,  // (B, n_cap, 3)
       if (lane < 4)
         for (int l = 0; l < 32; ++l)
           mybuf[4 * stage_node[warp][l] + lane] += stage_val[warp][l][lane];
-      __syncwarp();
-    }
-    __syncthreads();
-    for (int k = tid; k < 4 * t_nodes; k += kThreads) {
-      float s = 0.0f;
-      for (int w = 0; w < kWarps; ++w) s += wbuf[w * 4 * t_nodes + k];
-      mom[k] = s;
-    }
-    __syncthreads();
-    for (int rr = tid; rr < 3 * t_nodes; rr += kThreads)
-      twist_row(tab + kTable * (rr / 3), mom + 4 * (rr / 3), rr % 3,
-                rows + 7 * rr);
-    __syncthreads();
-    // A^T A (upper triangle, row by row) and A^T b.
-    float v[27];
-#pragma unroll
-    for (int k = 0; k < 27; ++k) v[k] = 0.0f;
-    for (int rr = tid; rr < 3 * t_nodes; rr += kThreads) {
-      const float* a = rows + 7 * rr;
-      int k = 0;
-      for (int p = 0; p < 6; ++p)
-        for (int q = p; q < 6; ++q) v[k++] += a[p] * a[q];
-      for (int p = 0; p < 6; ++p) v[21 + p] += a[p] * a[6];
-    }
-    block_reduce<27, kThreads>(v, red, sums);
-    if (tid == 0) {
-      double a[6][6], rhs[6];
-      int k = 0;
-      for (int p = 0; p < 6; ++p)
-        for (int q = p; q < 6; ++q) a[p][q] = a[q][p] = (double)sums[k++];
-      for (int p = 0; p < 6; ++p) {
-        a[p][p] += 1e-8;
-        rhs[p] = (double)sums[21 + p];
+      __syncthreads();
+      // The chunk's moments: the warps' buffers in warp order.
+      for (int k = tid; k < width; k += kThreads) {
+        float s = 0.0f;
+        for (int w = 0; w < kWarps; ++w) s += wbuf[w * width + k];
+        part[(size_t)c * width + k] = s;
       }
-      solve6(a, rhs, st.x);
+      __syncthreads();   // wbuf is free for the next chunk
     }
-    __syncthreads();
-    float res[1] = {0.0f};
-    {
-      float xf[6];
+    if constexpr (kGrid) {
+      int* flags = a.flags + parity * batch;
+      if (r == 0 && tid == 0) flags[b] = go;
+      pair_barrier<kGrid>();
+      if (tid == 0) {
+        int any = 0;
+        for (int q = 0; q < batch; ++q) any |= __ldcg(flags + q);
+        any_go = any;
+      }
+      __syncthreads();
+      if (!any_go) break;
+    } else {
+      pair_barrier<kGrid>();
+      if (!go) break;
+    }
+    if (go) {
+      // Node totals over the pair's chunks in chunk order.
+      for (int k = tid; k < width; k += kThreads) {
+        float s = 0.0f;
+        for (int c = 0; c < n_chunks; ++c)
+          s += __ldcg(part + (size_t)c * width + k);
+        mom[k] = s;
+      }
+      __syncthreads();
+      for (int rr = tid; rr < 3 * t_nodes; rr += kThreads)
+        twist_row(tab + tab_at(rr / 3), mom + 4 * (rr / 3), rr % 3,
+                  rows + 7 * rr);
+      __syncthreads();
+      // A^T A (upper triangle, row by row) and A^T b.
+      float v[27];
 #pragma unroll
-      for (int p = 0; p < 6; ++p) xf[p] = (float)st.x[p];
+      for (int k = 0; k < 27; ++k) v[k] = 0.0f;
       for (int rr = tid; rr < 3 * t_nodes; rr += kThreads) {
-        const float* a = rows + 7 * rr;
-        const float e = a[0] * xf[0] + a[1] * xf[1] + a[2] * xf[2]
-                        + a[3] * xf[3] + a[4] * xf[4] + a[5] * xf[5] - a[6];
-        res[0] += e * e;
+        const float* ar = rows + 7 * rr;
+        int k = 0;
+        for (int p = 0; p < 6; ++p)
+          for (int q = p; q < 6; ++q) v[k++] += ar[p] * ar[q];
+        for (int p = 0; p < 6; ++p) v[21 + p] += ar[p] * ar[6];
       }
-    }
-    block_reduce<1, kThreads>(res, red, sums);
-    if (tid == 0) {
-      compose(st);
-      st.q_prev = st.q;
-      st.q = sums[0];
-      st.it += 1;
+      block_reduce<27, kThreads>(v, red, sums);
+      if (tid == 0) {
+        double am[6][6], rhs[6];
+        int k = 0;
+        for (int p = 0; p < 6; ++p)
+          for (int q = p; q < 6; ++q) am[p][q] = am[q][p] = (double)sums[k++];
+        for (int p = 0; p < 6; ++p) {
+          am[p][p] += 1e-8;
+          rhs[p] = (double)sums[21 + p];
+        }
+        solve6(am, rhs, st.x);
+      }
+      __syncthreads();
+      float res[1] = {0.0f};
+      {
+        float xf[6];
+#pragma unroll
+        for (int p = 0; p < 6; ++p) xf[p] = (float)st.x[p];
+        for (int rr = tid; rr < 3 * t_nodes; rr += kThreads) {
+          const float* ar = rows + 7 * rr;
+          const float e = ar[0] * xf[0] + ar[1] * xf[1] + ar[2] * xf[2]
+                          + ar[3] * xf[3] + ar[4] * xf[4] + ar[5] * xf[5]
+                          - ar[6];
+          res[0] += e * e;
+        }
+      }
+      block_reduce<1, kThreads>(res, red, sums);
+      if (tid == 0) {
+        compose(st);
+        st.q_prev = st.q;
+        st.q = sums[0];
+        st.it += 1;
+      }
     }
     __syncthreads();
   }
 
-  if (tid == 0) {
-    float* o = out + (size_t)b * 16;
+  if (r == 0 && tid == 0) {
+    float* o = a.out + (size_t)b * 16;
     for (int k = 0; k < 9; ++k) o[k] = st.rot[k];
     for (int k = 0; k < 3; ++k) o[9 + k] = st.t[k];
     o[12] = st.q;
@@ -648,18 +726,56 @@ int probreg_gmmtree_level_em(const void* pts, int n_cap, const void* seg,
   return (int)cudaGetLastError();
 }
 
+// The blocks of K10 that can be resident at once on the current device
+// for a tree of t_nodes nodes: a cooperative launch takes at most this many.
+int probreg_gmmtree_reg_capacity(int t_nodes, void* out) {
+  const int smem = reg_smem(t_nodes);
+  cudaError_t err = cudaFuncSetAttribute(
+      gmmtree_reg_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, gmmtree_reg_kernel<true>, kThreads, smem);
+  *(int*)out = sms * per_sm;
+  return (int)err;
+}
+
+// ys (B, n_cap, 3), counts (B,) int32, table (B, T, 24), init (B, 12), out
+// (B, 16); scratch part (2, B, c_cap, T, 4), flags (2, B) int32; per_pair
+// blocks per pair.
 int probreg_gmmtree_reg(const void* ys, int n_cap, const void* counts,
                         const void* table, int t_nodes, const void* init,
-                        int batch, int max_level, int maxiter, float tol,
-                        float lambda_c, void* out, void* stream) {
-  const int smem = 4 * (kTable + kWarps * 4 + 4 + 3 * 7) * t_nodes;
+                        int batch, int per_pair, int c_cap, int max_level,
+                        int maxiter, float tol, float lambda_c, void* part,
+                        void* flags, void* out, void* stream) {
+  if (batch <= 0 || per_pair <= 0) return (int)cudaErrorInvalidValue;
+  const RegArgs a{(const float*)ys, n_cap, (const int*)counts,
+                  (const float*)table, t_nodes, (const float*)init,
+                  max_level, maxiter, tol, lambda_c, per_pair, c_cap,
+                  (float*)part, (int*)flags, (float*)out};
+  const int smem = reg_smem(t_nodes);
+  const auto s = (cudaStream_t)stream;
+  if (per_pair == 1) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gmmtree_reg_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    gmmtree_reg_kernel<false><<<batch, kThreads, smem, s>>>(a);
+    return (int)cudaGetLastError();
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      gmmtree_reg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      gmmtree_reg_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
-  gmmtree_reg_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)ys, n_cap, (const int*)counts, (const float*)table,
-      t_nodes, (const float*)init, max_level, maxiter, tol, lambda_c,
-      (float*)out);
+  void* args[] = {(void*)&a};
+  err = cudaLaunchCooperativeKernel((const void*)gmmtree_reg_kernel<true>,
+                                    dim3(batch * per_pair), dim3(kThreads),
+                                    args, smem, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

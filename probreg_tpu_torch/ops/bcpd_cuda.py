@@ -16,8 +16,10 @@ On Morton-sorted clouds, two launches per E-step and no stash:
   the residual-form sigma2 numerator e1 = sum p d2.
 
 The TPU kernels stash each exp between the passes; on the card the
-stash's bytes cost more than the exp. The tiles and the stash budget's
-cap on tile_n stay the reference's, so the sums keep their order.
+stash's bytes cost more than the exp. The tiles stay the reference's:
+``bcpd_tile_n`` caps tile_n with ``config.bcpd_stash_max_bytes`` (the
+reference's knob and default), on the CPU and on the card alike, so the
+sums keep their order.
 
 The cull mask uses the GLOBAL maximum rowlog clamped at -104: a tile pair
 is culled when max rowlog - lb2 / 2s2 < -104, so every culled pair is
@@ -39,9 +41,10 @@ import math
 import torch
 
 from . import _build
+from ..config import config
 from .estep_cuda import (_CUT, _EPS, _box_gap_lb2, _capped_tile_n, _check,
                          _check_points, _compact, _pack, _round_up, _stream,
-                         _tile_bounds, stash_budget)
+                         _tile_bounds)
 
 _STAGE = 256        # source rows per pass-A partial (csrc/wstash.cu kStage)
 _MAX_C = 8          # channels of V (kMaxC)
@@ -74,6 +77,18 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib._probreg_typed = True
     return lib
+
+
+def bcpd_tile_n(m: int, n: int, tile_m: int = 1024,
+                tile_n: int = 1024) -> int:
+    """The E-step's tile_n for M sources and N targets, as the reference's
+    ``bcpd_estep_culled`` picks it: clipped to N (a multiple of 128), then
+    halved (floor 256) until the (M_padded, tile_n) f32 stash fits
+    ``config.bcpd_stash_max_bytes``; beyond the floor it raises."""
+    tile_m = min(tile_m, _round_up(m, 8))
+    tile_n = min(tile_n, _round_up(n, 128))
+    return _capped_tile_n(m, tile_m, tile_n, config.bcpd_stash_max_bytes,
+                          knob="config.bcpd_stash_max_bytes")
 
 
 def cull_mask(ys, xs, rowlog, inv2s2, tile_m: int, tile_n: int):
@@ -114,9 +129,8 @@ def bcpd_estep_culled(t_source, target, rowlog, v_t, w_over_n, sigma2,
         raise ValueError(f"expected rowlog ({m},) and V (C <= {_MAX_C}, "
                          f"{n}), got {tuple(rowlog.shape)} and "
                          f"{tuple(v_t.shape)}")
+    tile_n = bcpd_tile_n(m, n, tile_m, tile_n)
     tile_m = min(tile_m, _round_up(m, 8))
-    tile_n = min(tile_n, _round_up(n, 128))
-    tile_n = _capped_tile_n(m, tile_m, tile_n, stash_budget(dev))
     sigma2 = torch.as_tensor(sigma2, dtype=torch.float32, device=dev)
     inv2s2 = 0.5 / sigma2
     scal = torch.stack([inv2s2, torch.as_tensor(

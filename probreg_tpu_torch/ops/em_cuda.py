@@ -3,8 +3,12 @@
 Counterpart of the CPD part of probreg_tpu/ops/em_pallas.py
 (``_em_kernel``): ``run_em_rigid_fused``, ``run_em_affine_fused`` and
 ``run_em_cpd_fused_batch`` run every EM iteration of a small 3-D pair, the
-convergence test included, inside one launch of ``csrc/em.cu``: one thread
-block per pair, the grid is the batch, no host read before the result.
+convergence test included, inside one launch of ``csrc/em.cu`` for the
+whole batch, no host read before the result. A pair runs on one block of
+1,024 threads or, when the batch leaves SMs idle, on a thread-block
+cluster of ``cluster_size`` blocks (the bunny on 8 SMs, 64 pairs on 2
+each); a batch of more pairs than SMs runs in ``work_order``, the largest
+first. Neither changes a bit of any pair's result.
 
 Unlike the reference's fused kernel, and like its twin ``cpd._run_em_t``,
 the clouds are centred on their shared centroid (inside the kernel) and d2
@@ -62,8 +66,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = _build.load("em")
     if not getattr(lib, "_probreg_typed", False):
-        lib.probreg_em_cpd.argtypes = [_P, _I, _P, _I, _P, _I, _F, _I, _F,
-                                       _I, _I, _P, _P]
+        lib.probreg_em_cpd.argtypes = [_P, _I, _P, _I, _P, _P, _I, _I, _F,
+                                       _I, _F, _I, _I, _P, _P]
         lib.probreg_em_cpd.restype = ctypes.c_int
         lib._probreg_typed = True
     return lib
@@ -134,13 +138,55 @@ def run_em_cpd_fused_batch(sources, targets, smasks=None, tmasks=None, *,
             out[:, 13], out[:, 14])
 
 
+def cluster_size(batch: int, sms: int) -> int:
+    """Blocks per pair of a K1 launch (a thread-block cluster of that many
+    blocks of 1,024 / G threads, one block an SM): the largest G of 8, 4
+    and 2 whose clusters for the whole batch fit the card's ``sms`` SMs;
+    1 for a batch of more than sms / 2 pairs."""
+    for g in (8, 4, 2):
+        if batch * g <= sms:
+            return g
+    return 1
+
+
+def work_order(counts: torch.Tensor) -> torch.Tensor:
+    """(B,) int32 order of K1's blocks from the (B, 2) counts: the pairs by
+    m n, largest first, ties by index. Block b registers pair order[b] and
+    writes its row, so the results keep the caller's order."""
+    key = counts[:, 0].long() * counts[:, 1].long()
+    return torch.sort(key, descending=True, stable=True).indices.to(
+        torch.int32)
+
+
+_sm_cache = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of ``device`` (queried once)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _sm_cache:
+        _sm_cache[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_cache[index]
+
+
 def _em_cuda(sources, targets, counts, *, affine, w, maxiter, tol,
-             update_scale):
+             update_scale, _cluster=None, _ordered=True):
+    """One launch of K1. A ragged batch whose blocks outnumber the card's
+    SMs runs in ``work_order``. For checks and timings, ``_cluster``
+    forces the blocks per pair (1, 2, 4 or 8; by default
+    ``cluster_size``) and ``_ordered=False`` the arrival order."""
     batch, m_cap, n_cap = sources.shape[0], sources.shape[1], targets.shape[1]
+    sms = sm_count(sources.device)
+    g = _cluster or cluster_size(batch, sms)
+    order = (work_order(counts) if _ordered and counts is not None
+             and batch * g > sms else None)
     out = sources.new_empty((batch, 16))
     status = _lib().probreg_em_cpd(
         sources.data_ptr(), m_cap, targets.data_ptr(), n_cap,
-        None if counts is None else counts.data_ptr(), batch, w, maxiter,
+        None if counts is None else counts.data_ptr(),
+        None if order is None else order.data_ptr(), batch, g, w, maxiter,
         tol, int(update_scale), int(affine), out.data_ptr(),
         _stream(sources))
     _check(status, "em_cpd")

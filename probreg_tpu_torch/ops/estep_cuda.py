@@ -236,12 +236,13 @@ def stash_budget(device) -> int:
 
 
 def _capped_tile_n(m: int, tile_m: int, tile_n: int, budget: int,
-                   on_overflow: str = "raise"):
+                   on_overflow: str = "raise",
+                   knob: str = "config.stash_max_bytes"):
     """Halve tile_n (multiples of 128, floor 256) until the (M_padded,
     tile_n) f32 stash fits the budget (reference
     ``_capped_stash_tile_n``). Beyond the floor, ``on_overflow="raise"``
-    raises and ``"fallback"`` returns None, so that the caller can take a
-    path without a stash."""
+    raises, naming ``knob``, and ``"fallback"`` returns None, so that the
+    caller can take a path without a stash."""
     mp = _round_up(m, tile_m)
     while tile_n > 256 and mp * tile_n * 4 > budget:
         tile_n = max(256, (tile_n // 2 // 128) * 128)
@@ -251,7 +252,7 @@ def _capped_tile_n(m: int, tile_m: int, tile_n: int, budget: int,
         raise ValueError(
             f"the E-step stash needs {mp * tile_n * 4 / 2**30:.2f} GiB even "
             f"at tile_n={tile_n} (M_padded={mp}), over the "
-            f"{budget / 2**30:.2f} GiB cap; raise config.stash_max_bytes")
+            f"{budget / 2**30:.2f} GiB cap; raise {knob}")
     return tile_n
 
 

@@ -15,8 +15,12 @@ Counterpart of probreg_tpu/ops/gmmtree_pallas.py:
 * ``run_gmmtree_reg_fused_batch`` / ``run_gmmtree_reg_fused`` (K10,
   ``_reg_kernel``) run every iteration of the registration (the descent,
   the per-node moments, the twist normal equations, the solve, the compose
-  and the stop test) in one launch of ``gmmtree_reg_kernel``, one block per
-  pair, one launch per batch.
+  and the stop test) in one launch of ``gmmtree_reg_kernel``, one launch
+  per batch. A pair's targets are cut into chunks of ``CHUNK`` in their
+  stored order and ``blocks_per_pair`` picks the blocks per pair as for
+  K9 (against K10's own capacity, ``reg_capacity``); the moments are
+  summed over the chunks in a fixed order, so the result is the same bits
+  for any number of blocks and any batch.
 
 K9 follows the twin level loop of ``gmmtree._build``: u = pi * norm *
 exp(-d^T inv d / 2) from differences d = x - mu, the closed-form adjugate
@@ -72,7 +76,8 @@ _SMEM_BYTES = 227 * 1024 - 32 * 1024
 # [mu (3), inv (6), pi, norm, 0] and the 10 moment totals (and two ints
 # per parent, under 1 %); K10's table is TABLE_WIDTH wide.
 _K9_NODE_FLOATS = 10 + 12 + 10
-# K9's points per chunk (csrc/gmmtree.cu kChunk) and moments per chunk.
+# K9's and K10's points per chunk (csrc/gmmtree.cu kChunk); K9's moments
+# per chunk.
 CHUNK = 1024
 _PART_WIDTH = 8 * 10
 # Fewest chunks in a pair for which the pair is shared by several blocks.
@@ -124,8 +129,11 @@ def _lib() -> ctypes.CDLL:
         lib.probreg_gmmtree_level_em.restype = ctypes.c_int
         lib.probreg_gmmtree_level_capacity.argtypes = [_I, _P]
         lib.probreg_gmmtree_level_capacity.restype = ctypes.c_int
+        lib.probreg_gmmtree_reg_capacity.argtypes = [_I, _P]
+        lib.probreg_gmmtree_reg_capacity.restype = ctypes.c_int
         lib.probreg_gmmtree_reg.argtypes = [_P, _I, _P, _P, _I, _P, _I, _I,
-                                            _I, _F, _F, _P, _P]
+                                            _I, _I, _I, _F, _F, _P, _P, _P,
+                                            _P]
         lib.probreg_gmmtree_reg.restype = ctypes.c_int
         lib._probreg_typed = True
     return lib
@@ -323,10 +331,10 @@ def sort_by_parent(points, counts, parent, n_parents):
 
 
 def blocks_per_pair(n_cap: int, batch: int, capacity: int) -> int:
-    """Thread blocks that share each pair of a K9 launch: one per chunk of
-    an ``n_cap``-point pair, as many as ``capacity`` resident blocks allow
-    for the batch; 1 for pairs of fewer than _MIN_SPLIT_CHUNKS chunks and
-    when the batch alone fills the card."""
+    """Thread blocks that share each pair of a K9 or K10 launch: one per
+    chunk of an ``n_cap``-point pair, as many as ``capacity`` resident
+    blocks of that kernel allow for the batch; 1 for pairs of fewer than
+    _MIN_SPLIT_CHUNKS chunks and when the batch alone fills the card."""
     per = min(-(-n_cap // CHUNK), capacity // max(batch, 1))
     return per if per >= _MIN_SPLIT_CHUNKS else 1
 
@@ -334,20 +342,27 @@ def blocks_per_pair(n_cap: int, batch: int, capacity: int) -> int:
 _capacity_cache = {}
 
 
-def level_capacity(k_nodes: int, device) -> int:
-    """K9 blocks of ``k_nodes`` nodes that can be resident at once on
-    ``device`` (queried once per device and node count)."""
+def _capacity(entry: str, nodes: int, device) -> int:
+    """Blocks of the kernel behind ``entry`` (a tree level or a tree of
+    ``nodes`` nodes) that can be resident at once on ``device``, queried
+    once per kernel, device and node count."""
     device = torch.device(device)
     index = torch.cuda.current_device() if device.index is None \
         else device.index
-    key = (index, k_nodes)
+    key = (entry, index, nodes)
     if key not in _capacity_cache:
         out = ctypes.c_int(0)
         with torch.cuda.device(index):
-            _check(_lib().probreg_gmmtree_level_capacity(
-                k_nodes, ctypes.addressof(out)), "gmmtree_level_capacity")
+            _check(getattr(_lib(), f"probreg_{entry}")(
+                nodes, ctypes.addressof(out)), entry)
         _capacity_cache[key] = out.value
     return _capacity_cache[key]
+
+
+def level_capacity(k_nodes: int, device) -> int:
+    """K9 blocks of ``k_nodes`` nodes that can be resident at once on
+    ``device``."""
+    return _capacity("gmmtree_level_capacity", k_nodes, device)
 
 
 def scratch_sizes(n_cap: int, k_nodes: int):
@@ -504,14 +519,38 @@ def run_gmmtree_reg_fused(target, pi, mu, cov, rot0=None, t0=None,
     return rot[0], t[0], q[0], it[0]
 
 
+def reg_capacity(t_nodes: int, device) -> int:
+    """K10 blocks for a tree of ``t_nodes`` nodes that can be resident at
+    once on ``device``."""
+    return _capacity("gmmtree_reg_capacity", t_nodes, device)
+
+
+def reg_scratch_sizes(n_cap: int, t_nodes: int):
+    """(c_cap, floats): the chunks of at most ``n_cap`` targets and the
+    floats of K10's scratch per pair, the T x [m0, m1] partials of every
+    chunk twice (one buffer per iteration parity)."""
+    c_cap = -(-n_cap // CHUNK)
+    return c_cap, 2 * c_cap * 4 * t_nodes
+
+
 def _reg_cuda(ys, counts, table, init, *, max_level, maxiter, tol,
-              lambda_c):
-    batch, n_cap = ys.shape[0], ys.shape[1]
+              lambda_c, _blocks=None):
+    """One launch of K10 on ``reg_tables``' inputs: (B, 16) rows as
+    ``run_gmmtree_reg_fused_plain``'s. ``_blocks`` forces the blocks per
+    pair (tests); by default ``blocks_per_pair``."""
+    batch, n_cap, t_nodes = ys.shape[0], ys.shape[1], table.shape[1]
+    per = _blocks or blocks_per_pair(n_cap, batch,
+                                     reg_capacity(t_nodes, ys.device))
+    c_cap, n_part = reg_scratch_sizes(n_cap, t_nodes)
+    # One scratch buffer: chunk partials, then the flags (int32).
+    scratch = ys.new_empty(batch * n_part + 2 * batch)
+    base = scratch.data_ptr()
     out = ys.new_empty((batch, 16))
     status = _lib().probreg_gmmtree_reg(
-        ys.data_ptr(), n_cap, counts.data_ptr(), table.data_ptr(),
-        table.shape[1], init.data_ptr(), batch, max_level, maxiter, tol,
-        lambda_c, out.data_ptr(), _stream(ys))
+        ys.data_ptr(), n_cap, counts.data_ptr(), table.data_ptr(), t_nodes,
+        init.data_ptr(), batch, per, c_cap, max_level, maxiter, tol,
+        lambda_c, base, base + 4 * batch * n_part, out.data_ptr(),
+        _stream(ys))
     _check(status, "gmmtree_reg")
     LAUNCHES["gmmtree_reg"] += 1
     return out

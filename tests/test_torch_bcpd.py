@@ -283,6 +283,28 @@ def test_culled_estep_plain_version_matches_reference(sigma2):
             assert _rel(a, b) < 1e-4
 
 
+@pytest.mark.parametrize("m", [524_288, 524_289, 750_000])
+def test_bcpd_tile_n_is_the_references(m):
+    """BCPD's tile_n is capped by config.bcpd_stash_max_bytes (2 GiB), as
+    in the reference, whatever the device: past M = 524,288 the (M_padded,
+    1024) f32 stash would exceed it and tile_n halves to 512."""
+    want = jep._capped_stash_tile_n(m, 1024, 1024)
+    assert pbc.bcpd_tile_n(m, 4096) == want
+    assert pbc.bcpd_tile_n(m, 4096, tile_n=1024) == (1024 if m <= 524_288
+                                                     else 512)
+
+
+def test_bcpd_tile_n_raises_beyond_the_floor(monkeypatch):
+    """Beyond the 256 floor the tile choice raises and names the knob, as
+    the reference's does."""
+    monkeypatch.setattr(pcfg.config, "bcpd_stash_max_bytes", 1 << 20)
+    assert pbc.bcpd_tile_n(1024, 4096) == 256
+    with pytest.raises(ValueError, match="bcpd_stash_max_bytes"):
+        pbc.bcpd_tile_n(2048, 4096)
+    with pytest.raises(ValueError, match="bcpd_stash_max_bytes"):
+        jep._capped_stash_tile_n(2048, 1024, 1024, budget=1 << 20)
+
+
 def test_culled_estep_tile_lists_cover_the_cull_mask():
     """The lists that K8's two passes walk (estep_cuda._compact of
     cull_mask's mask and of its transpose) on the clustered clouds at

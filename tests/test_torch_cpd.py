@@ -197,6 +197,12 @@ def test_carry_across_config():
     assert cfg.stash_max_bytes == jcfg.config.cpd_stash_max_bytes
     fields["cpd_stash_max_bytes"] = 12345
     assert interop.config_from_reference(fields).stash_max_bytes == 12345
+    # The BCPD stash cap keeps the reference's name and default, and
+    # carries across as it is.
+    assert (cfg.bcpd_stash_max_bytes == pcfg.Config().bcpd_stash_max_bytes
+            == jcfg.Config().bcpd_stash_max_bytes == 2 << 30)
+    fields["bcpd_stash_max_bytes"] = 4096
+    assert interop.config_from_reference(fields).bcpd_stash_max_bytes == 4096
     assert cfg.dtype == torch.float32 and cfg.device == "cuda"
 
 

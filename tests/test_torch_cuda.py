@@ -395,6 +395,89 @@ def test_whole_em_batch_is_one_launch_and_equals_single_pairs(dev):
         assert torch.equal(one[2], sigma2[i]) and torch.equal(one[4], it[i])
 
 
+def _bunny(dev):
+    """The bunny at voxel 0.005 (bench.py's source) and a copy rotated by
+    10 degrees about z with 1e-3 noise."""
+    import os
+
+    from probreg_tpu_torch.utils import io
+
+    path = os.path.join(os.path.dirname(__file__), "..", "data",
+                        "bunny.pcd")
+    src = io.voxel_down_sample(io.read_point_cloud(path), 0.005)
+    rng = np.random.default_rng(3)
+    c, s = np.cos(np.deg2rad(10.0)), np.sin(np.deg2rad(10.0))
+    tgt = src[rng.permutation(len(src))] @ np.array(
+        [[c, -s, 0], [s, c, 0], [0, 0, 1]]).T
+    tgt = tgt + 1e-3 * rng.standard_normal(tgt.shape)
+    return (torch.as_tensor(src, dtype=torch.float32, device=dev),
+            torch.as_tensor(tgt, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("case", ["bunny", "1024x1024", "masked 700/900"])
+@pytest.mark.parametrize("kind", ["rigid", "affine"])
+def test_whole_em_same_bits_for_every_cluster_size(dev, case, kind):
+    """K1 on one block and on clusters of 2, 4 and 8 blocks (forced with
+    _em_cuda's private argument) gives the same bits, at a fixed depth and
+    with the loop test."""
+    if case == "bunny":
+        src, tgt = _bunny(dev)
+    else:
+        src, tgt = _pair(1024, 1024, 17, dev)
+    smask = tmask = None
+    if case.startswith("masked"):
+        rng = np.random.default_rng(8)
+        smask = torch.zeros(1024, device=dev)
+        tmask = torch.zeros(1024, device=dev)
+        smask[torch.as_tensor(rng.permutation(1024)[:700])] = 1.0
+        tmask[torch.as_tensor(rng.permutation(1024)[:900])] = 1.0
+        smask, tmask = smask[None], tmask[None]
+    s_c, t_c, counts = pem.compact_batch(src[None], tgt[None], smask, tmask)
+    assert pem.cluster_size(1, pem.sm_count(dev)) == 8
+    for maxiter, tol in ((20, 0.0), (100, 1e-3)):
+        kw = dict(affine=kind == "affine", w=0.05, maxiter=maxiter, tol=tol,
+                  update_scale=True)
+        outs = [pem._em_cuda(s_c, t_c, counts, **kw, _cluster=g)
+                for g in (1, 2, 4, 8)]
+        outs.append(pem._em_cuda(s_c, t_c, counts, **kw))
+        for out in outs[1:]:
+            assert torch.equal(out, outs[0])
+
+
+def test_whole_em_batch_in_work_order_keeps_caller_order_and_pairs(dev):
+    """A ragged batch of more pairs than SMs runs on one block a pair in
+    work_order (largest m n first): one launch, each row the caller's pair,
+    equal bit for bit to that pair alone (on a cluster of 8)."""
+    rng = np.random.default_rng(12)
+    sms = pem.sm_count(dev)
+    batch = sms + 12
+    sizes = rng.integers(64, 300, (batch, 2))
+    pairs = [_pair(int(m), int(n), 100 + i, dev)
+             for i, (m, n) in enumerate(sizes)]
+    srcs = torch.zeros((batch, 300, 3), device=dev)
+    tgts = torch.zeros((batch, 300, 3), device=dev)
+    smask = torch.zeros((batch, 300), device=dev)
+    tmask = torch.zeros((batch, 300), device=dev)
+    for i, (s, t) in enumerate(pairs):
+        srcs[i, :s.shape[0]], smask[i, :s.shape[0]] = s, 1.0
+        tgts[i, :t.shape[0]], tmask[i, :t.shape[0]] = t, 1.0
+    _, _, counts = pem.compact_batch(srcs, tgts, smask, tmask)
+    order = pem.work_order(counts).cpu()
+    assert order.tolist() != list(range(batch))
+    assert pem.cluster_size(batch, sms) == 1
+    kw = dict(kind="rigid", w=0.05, maxiter=50, tol=1e-3, update_scale=True)
+    before = pem.LAUNCHES["em_rigid"]
+    lin, t, sigma2, q, it = pem.run_em_cpd_fused_batch(srcs, tgts, smask,
+                                                       tmask, **kw)
+    assert pem.LAUNCHES["em_rigid"] == before + 1
+    assert bool(torch.isfinite(lin).all())
+    for i, (s, tg) in enumerate(pairs):
+        one = pem._run_em_cpd_fused(s, tg, **kw)
+        assert torch.equal(one[0], lin[i]) and torch.equal(one[1], t[i])
+        assert torch.equal(one[2], sigma2[i]) and torch.equal(one[3], q[i])
+        assert torch.equal(one[4], it[i])
+
+
 def test_whole_em_kernel_degenerate_clouds_give_proper_rotations(dev):
     """A planar and a collinear cloud: Horn's matrix has tied top
     eigenvalues, the rotation must still be proper."""
@@ -1065,6 +1148,80 @@ def test_gmmtree_batch_is_one_launch_of_each_and_equals_single(dev,
         assert torch.equal(r.transformation.rot,
                            single[0].T)
     torch.cuda.synchronize()
+
+
+def _reg_batch(dev, sizes, seed=71):
+    """K10's prepared inputs for rotated samples of blobby_surface of the
+    given sizes (each pair's tree built from its source), padded into one
+    batch: (ys, counts, table, init)."""
+    from probreg_tpu_torch import gmmtree as pgt
+    from probreg_tpu_torch.ops import gmmtree_cuda as pgc
+    from probreg_tpu_torch.utils import se3_op
+    from probreg_tpu_torch.utils.datagen import blobby_surface
+
+    rot = se3_op.euler2mat(*np.deg2rad([3.0, -2.0, 5.0])).numpy()
+    n_cap = max(sizes)
+    tgts = torch.zeros((len(sizes), n_cap, 3), device=dev)
+    trees = []
+    for b, n in enumerate(sizes):
+        src = blobby_surface(n, seed=seed + b)
+        tgts[b, :n] = torch.as_tensor(
+            blobby_surface(n, seed=seed + 50 + b) @ rot.T, device=dev)
+        trees.append(pgt.GMMTree(src, device=dev)._nodes)
+    trees = [torch.stack(a) for a in zip(*trees)]
+    counts = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    ys, table, _ = pgc.reg_tables(tgts, counts.long(), *trees)
+    init = torch.zeros((len(sizes), 12), device=dev)
+    init[:, [0, 4, 8]] = 1.0
+    return ys, counts, table, init
+
+
+@pytest.mark.parametrize("tol", [0.0, 1e-4])
+def test_gmmtree_reg_same_bits_for_any_blocks(dev, tol):
+    """K10 on one 150k pair through 1, 3, 16 and the capacity's blocks
+    (forced with _reg_cuda's private argument) and the default gives the
+    same rows bit for bit, one launch each; the default spreads the pair
+    over more than one block."""
+    from probreg_tpu_torch.ops import gmmtree_cuda as pgc
+
+    ys, counts, table, init = _reg_batch(dev, [150_000])
+    cap = pgc.reg_capacity(table.shape[1], dev)
+    assert pgc.blocks_per_pair(150_000, 1, cap) > 1
+    kw = dict(max_level=2, maxiter=20, tol=tol, lambda_c=0.01)
+    outs = []
+    for g in (1, 3, 16, cap, None):
+        before = pgc.LAUNCHES["gmmtree_reg"]
+        outs.append(pgc._reg_cuda(ys, counts, table, init, **kw, _blocks=g))
+        assert pgc.LAUNCHES["gmmtree_reg"] == before + 1
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    assert bool(torch.isfinite(outs[0]).all())
+
+
+def test_gmmtree_reg_ragged_batch_equals_its_pairs_for_any_blocks(dev):
+    """A ragged batch (150k, 20k, 3,000 and 700 targets) through K10 with
+    the default blocks, 1 and 3 blocks per pair equals each pair alone bit
+    for bit (the 150k pair alone on many blocks, the 700-point pair on
+    one), at three tolerances of the stop test, one of which parts the
+    pairs."""
+    from probreg_tpu_torch.ops import gmmtree_cuda as pgc
+
+    sizes = [150_000, 20_000, 3000, 700]
+    ys, counts, table, init = _reg_batch(dev, sizes, seed=81)
+    parted = False
+    for tol in (1e-5, 1e-3, 1e-1):
+        kw = dict(max_level=2, maxiter=30, tol=tol, lambda_c=0.01)
+        batch = [pgc._reg_cuda(ys, counts, table, init, **kw, _blocks=g)
+                 for g in (None, 1, 3)]
+        for out in batch[1:]:
+            assert torch.equal(out, batch[0])
+        parted |= len(set(batch[0][:, 13].tolist())) > 1
+        for b, n in enumerate(sizes):
+            one = pgc._reg_cuda(ys[b:b + 1, :n].contiguous(),
+                                counts[b:b + 1], table[b:b + 1],
+                                init[b:b + 1], **kw)
+            assert torch.equal(one[0], batch[0][b])
+    assert parted   # some tol stops the pairs at different iterations
 
 
 # --------------------------------------------------------------------------

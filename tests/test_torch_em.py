@@ -237,3 +237,47 @@ def test_fused_dims_gate_and_wrapper_checks():
     assert torch.equal(lin, torch.eye(3)) and int(it) == 0
     np.testing.assert_allclose(
         float(s2), float(pmu.squared_kernel_sum(_t(src), _t(tgt))), rtol=1e-5)
+
+
+@pytest.mark.parametrize("batch,sms,want", [
+    (1, 132, 8),      # the bunny: one pair on 8 SMs
+    (16, 132, 8),
+    (17, 132, 4),
+    (33, 132, 4),
+    (64, 132, 2),     # the affine serving batch
+    (66, 132, 2),
+    (67, 132, 1),
+    (256, 132, 1),    # the rigid serving batch: one block a pair
+    (3, 16, 4),
+])
+def test_cluster_size_from_batch_and_sms(batch, sms, want):
+    """K1's blocks per pair: the largest of 8, 4, 2 whose clusters for the
+    whole batch fit the SMs at one block an SM, else 1."""
+    assert pem.cluster_size(batch, sms) == want
+    assert want == 1 or batch * want <= sms
+
+
+def test_work_order_is_largest_first_and_its_inverse_restores_order():
+    """Pairs by m n, largest first, ties by index; the kernel writes block
+    b's result at row order[b], so scattering the blocks' results by the
+    order gives back the caller's order."""
+    counts = torch.tensor([[300, 400], [1024, 1024], [400, 300], [10, 10],
+                           [1024, 1024], [512, 600], [600, 512], [1, 1]],
+                          dtype=torch.int32)
+    order = pem.work_order(counts)
+    assert order.dtype == torch.int32
+    assert order.tolist() == [1, 4, 5, 6, 0, 2, 3, 7]
+    key = (counts[:, 0] * counts[:, 1]).long()
+    per_block = key[order.long()]       # what block b works on
+    assert bool((per_block[:-1] >= per_block[1:]).all())
+    rows = torch.empty_like(per_block).index_copy_(0, order.long(),
+                                                   per_block)
+    assert torch.equal(rows, key)
+    rng = np.random.default_rng(3)
+    counts = torch.as_tensor(rng.integers(300, 1025, (256, 2)),
+                             dtype=torch.int32)
+    order = pem.work_order(counts).long()
+    assert sorted(order.tolist()) == list(range(256))
+    key = (counts[:, 0] * counts[:, 1]).long()
+    want = sorted(range(256), key=lambda b: (-int(key[b]), b))
+    assert order.tolist() == want

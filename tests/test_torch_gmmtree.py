@@ -237,6 +237,29 @@ def test_level_em_scratch_and_blocks_per_pair():
     assert pgc.blocks_per_pair(1024, 256, 132) == 1     # the batch fills it
 
 
+@pytest.mark.parametrize("n_cap,batch,capacity,blocks,c_cap", [
+    (150_000, 1, 132, 132, 147),   # the 150k pair: one block an SM
+    (150_000, 1, 264, 147, 147),   # room for more: one block a chunk
+    (150_000, 2, 132, 66, 147),
+    (20_000, 8, 132, 16, 20),
+    (2000, 3, 132, 1, 2),          # 2 chunks: one block
+    (1024, 256, 132, 1, 1),        # the serving batch fills the card
+])
+def test_reg_scratch_and_blocks_per_pair(n_cap, batch, capacity, blocks,
+                                         c_cap):
+    """K10 takes blocks_per_pair blocks per pair against its own capacity
+    and keeps the T x [m0, m1] partials of every chunk twice (one buffer
+    per iteration parity); the chunks c = r, r + G, ... of blocks r < G
+    cover each chunk of a pair once."""
+    t_nodes = 72
+    got = pgc.blocks_per_pair(n_cap, batch, capacity)
+    assert got == blocks and batch * got <= max(capacity, batch)
+    assert pgc.reg_scratch_sizes(n_cap, t_nodes) == (
+        c_cap, 2 * c_cap * 4 * t_nodes)
+    walked = sorted(c for r in range(got) for c in range(r, c_cap, got))
+    assert walked == list(range(c_cap))
+
+
 # --------------------------------------------------------------------------
 # The build
 # --------------------------------------------------------------------------

@@ -78,10 +78,11 @@ Exits non-zero without a CUDA device or when any phase fails.
 
     python3 chip_smoke.py --parent DIR
 
-instead holds the whole-EM kernels of this checkout (K1 for CPD, K5 for
+instead holds the whole-loop kernels of this checkout (K1 for CPD, K5 for
 FilterReg, K7 for ICP) bit for bit against those built from another
-checkout DIR (K1 with one block per pair and no work order), and times
-K1 and the GMMTree registration kernel (K10) of both.
+checkout DIR, at 1, 2, 4 and 8 blocks per pair and the default; times
+them and the GMMTree registration kernel (K10) of both; and prints the
+fixed cost of a K1, K5 and K7 iteration on a 32 x 32 pair.
 """
 
 import json
@@ -733,6 +734,41 @@ def em_batch_tensors(pairs, dev):
     return srcs, tgts, smask, tmask
 
 
+def log_launch_plan(run, counts, batch):
+    """How a whole-loop kernel (K1, K5, K7) lays out a batch launch
+    (em_cuda.launch_plan): clusters of G blocks a pair, or one block a pair
+    in work order, and then ``run``'s ms in arrival order
+    (``run(_cluster=1, _ordered=False)``)."""
+    from probreg_tpu_torch.ops import em_cuda as em
+
+    sms = em.sm_count("cuda")
+    g, order = em.launch_plan(batch, counts, sms)
+    if order is None:
+        log(f"  {batch} pairs on {sms} SMs: "
+            f"{'one block' if g == 1 else f'clusters of {g} blocks'} a pair")
+        return
+    order = order.tolist()
+    mn = counts.prod(1).tolist()
+    arrival = timed(lambda: run(_cluster=1, _ordered=False), 5)
+    log(f"  {batch} pairs on {sms} SMs: one block a pair, largest m n first "
+        f"(blocks 0-3 take pairs {order[:4]}, m n "
+        f"{[mn[b] for b in order[:4]]}; the last {order[-2:]}, m n "
+        f"{[mn[b] for b in order[-2:]]}); in arrival order {arrival:.3f} ms")
+
+
+def log_single_pair(name, run, iters, bound_text):
+    """A single pair's ms and us per iteration on its default cluster and on
+    one block (``run(_cluster=1)``)."""
+    from probreg_tpu_torch.ops import em_cuda as em
+
+    g = em.cluster_size(1, em.sm_count("cuda"))
+    ms = timed(run, 5)
+    one = timed(lambda: run(_cluster=1), 5)
+    log(f"  {name}: {iters} iterations in {ms:.3f} ms ({ms / iters * 1e3:.1f}"
+        f" us per iteration) on a cluster of {g} blocks; one block "
+        f"{one / iters * 1e3:.1f} us per iteration; {bound_text}")
+
+
 def check_em(dev, kernels):
     """K1 against run_em_cpd_fused_plain on the card: single pairs at the
     gate's edge (1024 x 1024), at the bunny's size and masked, then the two
@@ -760,23 +796,16 @@ def check_em(dev, kernels):
             tmask[torch.as_tensor(rng.permutation(1024)[:900])] = 1.0
             worst["rigid"] = max(worst["rigid"], em_pair_check(
                 "masked 700/900", src, tgt, "rigid", smask, tmask))
-        g = em.cluster_size(1, em.sm_count(dev))
         s_c, t_c, _ = em.compact_batch(src[None], tgt[None])
         for kind in worst:
-            kw = dict(kind=kind, w=0.0, maxiter=100, tol=1e-3,
-                      update_scale=True)
-            its = int(em._run_em_cpd_fused(src, tgt, **kw)[4])
-            ms = timed(lambda: em._run_em_cpd_fused(src, tgt, **kw), 5)
             raw = dict(affine=kind == "affine", w=0.0, maxiter=100, tol=1e-3,
                        update_scale=True)
-            one = timed(lambda: em._em_cuda(s_c, t_c, None, **raw,
-                                            _cluster=1), 5)
+            its = int(em._em_cuda(s_c, t_c, None, **raw)[0, 14])
             m, n = src.shape[0], tgt.shape[0]
             b_ms, b_by = bound(12 * (m + n) + 64, its * m * n * FLOPS_EM)
-            log(f"  {name} {kind}: {its} iterations in {ms:.3f} ms "
-                f"({ms / its * 1e3:.1f} us per iteration) on a cluster of "
-                f"{g} blocks; one block {one / its * 1e3:.1f} us per "
-                f"iteration; bound {b_ms:.4f} ms ({b_by})")
+            log_single_pair(f"{name} {kind}", lambda **k: em._em_cuda(
+                s_c, t_c, None, **raw, **k), its,
+                f"bound {b_ms:.4f} ms ({b_by})")
 
     # The serving batches, through the wrapper (masks and their compaction
     # included) against the plain version on each pair's own unpadded
@@ -819,21 +848,8 @@ def check_em(dev, kernels):
         s_c, t_c, counts = em.compact_batch(srcs, tgts, smask, tmask)
         raw = dict(affine=kind == "affine", **args)
         ms = timed(lambda: em._em_cuda(s_c, t_c, counts, **raw), 5)
-        sms = em.sm_count(dev)
-        g = em.cluster_size(len(batch), sms)
-        if g == 1 and counts is not None and len(batch) > sms:
-            order = em.work_order(counts).tolist()
-            mn = counts.prod(1).tolist()
-            arrival = timed(lambda: em._em_cuda(s_c, t_c, counts, **raw,
-                                                _cluster=1, _ordered=False), 5)
-            log(f"  {len(batch)} pairs on {sms} SMs: one block a pair, "
-                f"largest m n first (blocks 0-3 take pairs {order[:4]}, "
-                f"m n {[mn[b] for b in order[:4]]}; the last "
-                f"{order[-2:]}, m n {[mn[b] for b in order[-2:]]}); in "
-                f"arrival order {arrival:.3f} ms")
-        else:
-            log(f"  {len(batch)} pairs on {sms} SMs: clusters of {g} blocks"
-                f" a pair")
+        log_launch_plan(lambda **k: em._em_cuda(s_c, t_c, counts, **raw, **k),
+                        counts, len(batch))
         sizes = torch.tensor([[p[0].shape[0], p[1].shape[0]] for p in batch],
                              dtype=torch.float64)
         pair_its = float(sizes.prod(1).sum()) * EM_BATCH_ITERS
@@ -1244,15 +1260,18 @@ def check_frg(dev, kernels):
                 name, s, x, nv if obj == "pt2pl" else None, obj))
         m, n = s.shape[0], x.shape[0]
         for obj in worst:
-            kw = dict(objective=obj, maxiter=50, tol=0.0)
-            args = (s, x, nv if obj == "pt2pl" else None)
-            ms = timed(lambda: fc.run_em_filterreg_fused(*args, **kw), 5)
-            chans = 7 if obj == "pt2pl" else 4
+            pt2pl = obj == "pt2pl"
+            s_c, t_c, n_c, _ = fc.compact_batch(
+                s[None], x[None], nv[None] if pt2pl else None)
+            raw = dict(pt2pl=pt2pl, w=0.0, maxiter=50, tol=0.0,
+                       update_sigma2=False, sigma2_decay=1.0, min_sigma2=1e-4,
+                       auto_sigma2=True, sigma2_0=0.0)
+            chans = 7 if pt2pl else 4
             b_ms, b_by = bound(12 * (m + 2 * n) + 64,
                                50 * m * n * flops_frg(chans))
-            log(f"  {name} {obj}: 50 iterations in {ms:.3f} ms "
-                f"({ms / 50 * 1e3:.1f} us per iteration), bound {b_ms:.4f} "
-                f"ms ({b_by}); one block on one SM")
+            log_single_pair(f"{name} {obj}", lambda **k: fc._frg_cuda(
+                s_c, t_c, n_c, None, **raw, **k), 50,
+                f"bound {b_ms:.4f} ms ({b_by})")
     s, x, nv = pairs["1024x1024"]
     for obj in worst:
         worst[obj] = max(worst[obj], frg_pair_check(
@@ -1311,6 +1330,9 @@ def check_frg(dev, kernels):
                                                  tmask)
         raw = dict(plain)
         ms = timed(lambda: fc._frg_cuda(s_c, t_c, n_c, counts, **raw), 5)
+        log_launch_plan(lambda **k: fc._frg_cuda(s_c, t_c, n_c, counts,
+                                                 **raw, **k),
+                        counts, len(batch))
         sizes = torch.tensor([[p[0].shape[0], p[1].shape[0]] for p in batch],
                              dtype=torch.float64)
         pair_its = float(sizes.prod(1).sum()) * EM_BATCH_ITERS
@@ -1658,12 +1680,10 @@ def check_icp(dev, kernels):
         s, x = t(s)[None], t(x)[None]
         worst = max(worst, icp_compare(name, s, x, None, None, [(s, x)])[0])
         m, n = s.shape[1], x.shape[1]
-        ms = timed(lambda: ic._icp_cuda(s, x, None, None, maxiter=ICP_ITERS,
-                                        tol=0.0), 5)
         b_ms, b_by = bound(12 * (m + n) + 64, ICP_ITERS * m * n * FLOPS_ICP)
-        log(f"  {name}: {ms:.3f} ms for {ICP_ITERS} iterations "
-            f"({ms / ICP_ITERS * 1e3:.1f} us per iteration), bound "
-            f"{b_ms:.5f} ms ({b_by}); one block on one SM")
+        log_single_pair(name, lambda **k: ic._icp_cuda(
+            s, x, None, None, maxiter=ICP_ITERS, tol=0.0, **k), ICP_ITERS,
+            f"bound {b_ms:.5f} ms ({b_by})")
     rigid = serving_batches()[0]
     srcs, tgts, smask, tmask = em_batch_tensors(rigid, dev)
     own = [(t(p[0])[None], t(p[1])[None]) for p in rigid]
@@ -1673,6 +1693,9 @@ def check_icp(dev, kernels):
     s_c, t_c, counts = ic.compact_batch(srcs, tgts, smask, tmask)
     ms = timed(lambda: ic._icp_cuda(s_c, t_c, counts, None,
                                     maxiter=ICP_ITERS, tol=0.0), 5)
+    log_launch_plan(lambda **k: ic._icp_cuda(s_c, t_c, counts, None,
+                                             maxiter=ICP_ITERS, tol=0.0, **k),
+                    counts, len(rigid))
     sizes = torch.tensor([[p[0].shape[0], p[1].shape[0]] for p in rigid],
                          dtype=torch.float64)
     pair_its = float(sizes.prod(1).sum()) * ICP_ITERS
@@ -3395,14 +3418,16 @@ def run_mesh_on_one_card(dev, launches, shared):
 
 
 # --------------------------------------------------------------------------
-# --parent DIR: this checkout's K1 and K10 against another checkout's build
+# --parent DIR: this checkout's K1, K5, K7 and K10 against another
+# checkout's build
 # --------------------------------------------------------------------------
 
 def parent_libs(parent):
     """Build ``parent``'s csrc/{em,gmmtree,frg,icp}.cu with the port's
     flags (one nvcc each, started together) into ``parent``/build and load
-    them; K1 and K10 get their signatures of one block per pair (K5's and
-    K7's are this checkout's, set by their wrappers)."""
+    them: K1 (with a cluster size and a work order), K5 and K7 (one block
+    per pair) get the parent's own signatures; K10's is this checkout's
+    (parent_reg)."""
     import ctypes
 
     from probreg_tpu_torch.ops import _build
@@ -3424,36 +3449,109 @@ def parent_libs(parent):
                                f"{log_text}")
         libs[name] = ctypes.CDLL(out)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    libs["em"].probreg_em_cpd.argtypes = [P, I, P, I, P, I, F, I, F, I, I,
-                                          P, P]
-    libs["gmmtree"].probreg_gmmtree_reg.argtypes = [P, I, P, P, I, P, I, I,
-                                                    I, F, F, P, P]
+    libs["em"].probreg_em_cpd.argtypes = [P, I, P, I, P, P, I, I, F, I, F,
+                                          I, I, P, P]
+    libs["frg"].probreg_em_frg.argtypes = [P, I, P, I, P, P, I, F, I, F, I,
+                                           F, F, I, F, I, P, P]
+    libs["icp"].probreg_icp.argtypes = [P, I, P, I, P, P, I, I, F, P, P]
     return libs
 
 
 def parent_em(lib, s_c, t_c, counts, *, affine, w, maxiter, tol,
               update_scale):
+    """The parent's K1 as its own wrapper launches it (launch_plan's
+    clusters and order, which give the bits of one block per pair)."""
+    from probreg_tpu_torch.ops import em_cuda as em
     from probreg_tpu_torch.ops.estep_cuda import _check, _stream
 
+    g, order = em.launch_plan(s_c.shape[0], counts, em.sm_count(s_c.device))
     out = s_c.new_empty((s_c.shape[0], 16))
     _check(lib.probreg_em_cpd(
         s_c.data_ptr(), s_c.shape[1], t_c.data_ptr(), t_c.shape[1],
-        None if counts is None else counts.data_ptr(), s_c.shape[0], w,
+        None if counts is None else counts.data_ptr(),
+        None if order is None else order.data_ptr(), s_c.shape[0], g, w,
         maxiter, tol, int(update_scale), int(affine), out.data_ptr(),
         _stream(s_c)), "parent em_cpd")
     return out
 
 
-def parent_reg(lib, ys, counts, table, init, *, max_level, maxiter, tol,
-               lambda_c):
+def parent_frg(lib, s_c, t_c, n_c, counts, *, pt2pl, w, maxiter, tol,
+               update_sigma2, sigma2_decay, min_sigma2, auto_sigma2,
+               sigma2_0):
+    """The parent's K5: one block per pair, arrival order."""
     from probreg_tpu_torch.ops.estep_cuda import _check, _stream
 
-    out = ys.new_empty((ys.shape[0], 16))
-    _check(lib.probreg_gmmtree_reg(
-        ys.data_ptr(), ys.shape[1], counts.data_ptr(), table.data_ptr(),
-        table.shape[1], init.data_ptr(), ys.shape[0], max_level, maxiter,
-        tol, lambda_c, out.data_ptr(), _stream(ys)), "parent gmmtree_reg")
+    out = s_c.new_empty((s_c.shape[0], 16))
+    _check(lib.probreg_em_frg(
+        s_c.data_ptr(), s_c.shape[1], t_c.data_ptr(), t_c.shape[1],
+        None if n_c is None else n_c.data_ptr(),
+        None if counts is None else counts.data_ptr(), s_c.shape[0], w,
+        maxiter, tol, int(update_sigma2), sigma2_decay, min_sigma2,
+        int(auto_sigma2), sigma2_0, int(pt2pl), out.data_ptr(),
+        _stream(s_c)), "parent em_frg")
     return out
+
+
+def parent_icp(lib, s_c, t_c, counts, init, *, maxiter, tol):
+    """The parent's K7: one block per pair, arrival order."""
+    from probreg_tpu_torch.ops.estep_cuda import _check, _stream
+
+    out = s_c.new_empty((s_c.shape[0], 16))
+    _check(lib.probreg_icp(
+        s_c.data_ptr(), s_c.shape[1], t_c.data_ptr(), t_c.shape[1],
+        None if counts is None else counts.data_ptr(),
+        None if init is None else init.data_ptr(), s_c.shape[0], maxiter,
+        tol, out.data_ptr(), _stream(s_c)), "parent icp")
+    return out
+
+
+def against_parent(label, parent_fn, this_fn, depths, batch):
+    """``this_fn(_cluster=g)`` for G = 1, 2, 4, 8 and the default against
+    ``parent_fn()`` bit for bit at each (maxiter, tol) of ``depths``; then,
+    at the first depth, the ms of both in the order parent, this, this,
+    parent, this at each G, and (a ragged batch past the SMs) this in
+    arrival order. Returns the number of depths that differ."""
+    from probreg_tpu_torch.ops import em_cuda as em
+
+    bad = 0
+    for maxiter, tol in depths:
+        want = parent_fn(maxiter, tol)
+        same = [bool(torch.equal(this_fn(maxiter, tol, _cluster=g), want))
+                for g in (1, 2, 4, 8, None)]
+        bad += not all(same)
+        log(f"[{label}] maxiter {maxiter} tol {tol}: bit for bit at G = 1, "
+            f"2, 4, 8, default: {same}")
+    maxiter, tol = depths[0]
+    p0 = timed(lambda: parent_fn(maxiter, tol), 5)
+    n0 = timed(lambda: this_fn(maxiter, tol), 5)
+    n1 = timed(lambda: this_fn(maxiter, tol), 5)
+    p1 = timed(lambda: parent_fn(maxiter, tol), 5)
+    per_g = [timed(lambda: this_fn(maxiter, tol, _cluster=g), 5)
+             for g in (1, 2, 4, 8)]
+    g = em.cluster_size(batch, em.sm_count("cuda"))
+    text = (f"  {maxiter} iterations: parent {p0:.4f} / {p1:.4f} ms, this "
+            f"{n0:.4f} / {n1:.4f} ms (G = {g}); at G = 1, 2, 4, 8: "
+            + ", ".join(f"{v:.4f}" for v in per_g) + " ms")
+    if batch > em.sm_count("cuda"):
+        arrival = timed(lambda: this_fn(maxiter, tol, _cluster=1,
+                                        _ordered=False), 5)
+        text += f"; in arrival order at G = 1 {arrival:.4f} ms"
+    log(text)
+    return bad
+
+
+def parent_reg(lib, ys, counts, table, init, **kw):
+    """The parent's K10 through this checkout's wrapper: its C signature
+    (with blocks per pair and scratch) is this checkout's."""
+    from probreg_tpu_torch.ops import _build
+    from probreg_tpu_torch.ops import gmmtree_cuda as gc
+
+    own = _build.load
+    _build.load = lambda name: lib if name == "gmmtree" else own(name)
+    try:
+        return gc._reg_cuda(ys, counts, table, init, **kw)
+    finally:
+        _build.load = own
 
 
 def compare_with_parent(parent) -> int:
@@ -3462,7 +3560,9 @@ def compare_with_parent(parent) -> int:
     batches, for clusters of 1, 2, 4 and 8 blocks and the default, at a
     fixed depth and with the loop test; times of both in the order parent,
     this, this, parent. K10 of both on the 150k pair and the 256 horse
-    pairs: times and the largest difference (its sums changed order)."""
+    pairs: times and the largest difference. K5 and K7 as K1
+    (compare_frg_icp_with_parent). The fixed cost of an iteration of K1,
+    K5 and K7 on a 32 x 32 pair."""
     from probreg_tpu_torch import gmmtree as pgt
     from probreg_tpu_torch.ops import em_cuda as em
     from probreg_tpu_torch.ops import gmmtree_cuda as gc
@@ -3501,38 +3601,15 @@ def compare_with_parent(parent) -> int:
                 continue
             if name.startswith("affine") and kind == "rigid":
                 continue
-            for maxiter, tol in ((EM_BATCH_ITERS, 0.0), (100, 1e-3)):
-                kw = dict(affine=kind == "affine", w=0.0, maxiter=maxiter,
-                          tol=tol, update_scale=True)
-                want = parent_em(libs["em"], s_c, t_c, counts, **kw)
-                same = []
-                for g in (1, 2, 4, 8, None):
-                    got = em._em_cuda(s_c, t_c, counts, **kw, _cluster=g)
-                    same.append(bool(torch.equal(got, want)))
-                bad += not all(same)
-                log(f"[K1 against the parent] {name} {kind} maxiter "
-                    f"{maxiter} tol {tol}: bit for bit at G = 1, 2, 4, 8, "
-                    f"default: {same}")
-            kw = dict(affine=kind == "affine", w=0.0, maxiter=EM_BATCH_ITERS,
-                      tol=0.0, update_scale=True)
-            p0 = timed(lambda: parent_em(libs["em"], s_c, t_c, counts, **kw),
-                       5)
-            n0 = timed(lambda: em._em_cuda(s_c, t_c, counts, **kw), 5)
-            n1 = timed(lambda: em._em_cuda(s_c, t_c, counts, **kw), 5)
-            p1 = timed(lambda: parent_em(libs["em"], s_c, t_c, counts, **kw),
-                       5)
-            per_g = {g: timed(lambda: em._em_cuda(s_c, t_c, counts, **kw,
-                                                  _cluster=g), 5)
-                     for g in (1, 2, 4, 8)}
-            log(f"  {name} {kind}, {EM_BATCH_ITERS} iterations: parent "
-                f"{p0:.4f} / {p1:.4f} ms, this {n0:.4f} / {n1:.4f} ms "
-                f"(G = {em.cluster_size(s_c.shape[0], em.sm_count(dev))}); "
-                "at G = 1, 2, 4, 8: "
-                + ", ".join(f"{v:.4f}" for v in per_g.values()) + " ms")
-            if counts is not None and s_c.shape[0] > 1:
-                arrival = timed(lambda: em._em_cuda(
-                    s_c, t_c, counts, **kw, _cluster=1, _ordered=False), 5)
-                log(f"  in arrival order at G = 1: {arrival:.4f} ms")
+            kw = dict(affine=kind == "affine", w=0.0, update_scale=True)
+            bad += against_parent(
+                f"K1 against the parent] [{name} {kind}",
+                lambda it, tol: parent_em(libs["em"], s_c, t_c, counts,
+                                          maxiter=it, tol=tol, **kw),
+                lambda it, tol, **k: em._em_cuda(s_c, t_c, counts,
+                                                 maxiter=it, tol=tol, **kw,
+                                                 **k),
+                ((EM_BATCH_ITERS, 0.0), (100, 1e-3)), s_c.shape[0])
     # K10: the 150k pair and the 256 ragged horse pairs.
     src, tgt, _ = gmm_surface_pair()
     tree = [a[None] for a in pgt.GMMTree(src, device=dev)._nodes]
@@ -3564,66 +3641,121 @@ def compare_with_parent(parent) -> int:
     for kind in ("rigid", "affine"):
         kw = dict(affine=kind == "affine", w=0.0, maxiter=EM_BATCH_ITERS,
                   tol=0.0, update_scale=True)
-        p_us = timed(lambda: parent_em(libs["em"], s32, t32, None, **kw),
-                     5) / EM_BATCH_ITERS * 1e3
-        g_us = {g: timed(lambda: em._em_cuda(s32, t32, None, **kw,
-                                             _cluster=g), 5)
-                / EM_BATCH_ITERS * 1e3 for g in (1, 8)}
-        log(f"[K1 fixed cost] 32 x 32 {kind}: parent {p_us:.2f} us per "
-            f"iteration, this {g_us[1]:.2f} (G = 1) / {g_us[8]:.2f} (G = 8)")
-    # K5 and K7 share em_common.cuh: the parent's builds behind their own
-    # wrappers, against this checkout's, bit for bit.
-    from probreg_tpu_torch.ops import _build
+        log_fixed_cost(f"K1 {kind}", lambda: parent_em(libs["em"], s32, t32,
+                                                       None, **kw),
+                       lambda g: em._em_cuda(s32, t32, None, **kw,
+                                             _cluster=g))
+    bad += compare_frg_icp_with_parent(libs, dev)
+    log(f"cases that differ from the parent: {bad}")
+    return 1 if bad else 0
+
+
+def compare_frg_icp_with_parent(libs, dev) -> int:
+    """K5 (pt2pt and pt2pl, update_sigma2 both ways) and K7 of this
+    checkout against the parent's builds (one block per pair), bit for bit,
+    on the bunny, a 1024 x 1024 pair, the masked 700/900 pair and the
+    serving batches, for G = 1, 2, 4, 8 and the default, at a fixed depth
+    and with the loop test; times in the order parent, this, this, parent;
+    and a 32 x 32 pair's fixed cost per iteration. Returns the number of
+    cases that differ."""
     from probreg_tpu_torch.ops import frg_cuda as fc
     from probreg_tpu_torch.ops import icp_cuda as ic
 
-    own_load = _build.load
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=dev)
 
-    def parent_load(name):
-        return libs.get(name) or own_load(name)
-
-    def runs(fn):
-        """fn on this build and on the parent's: whether each output is the
-        same bits, and the ms of both in the order parent, this, this,
-        parent."""
-        outs, ms = [], []
-        for load in (own_load, parent_load, parent_load, own_load,
-                     own_load, parent_load):
-            _build.load = load
-            try:
-                if len(outs) < 2:
-                    outs.append(fn())
-                else:
-                    ms.append(timed(fn, 5))
-            finally:
-                _build.load = own_load
-        same = [bool(torch.equal(a, b)) for a, b in zip(*outs)]
-        return same, (f"parent {ms[0]:.4f} / {ms[3]:.4f} ms, this "
-                      f"{ms[1]:.4f} / {ms[2]:.4f} ms")
-
+    rng = np.random.default_rng(7)
+    smask = torch.zeros(1, 1024, device=dev)
+    tmask = torch.zeros(1, 1024, device=dev)
+    smask[0, torch.as_tensor(rng.permutation(1024)[:700])] = 1.0
+    tmask[0, torch.as_tensor(rng.permutation(1024)[:900])] = 1.0
+    b_src, b_tgt = bunny_clouds(z_rotation(10.0), seed=4)
+    s_big, t_big, n_big = surface_pair(1024, 6)
     frg_rigid, frg_pt2pl = filterreg_batches()
-    for obj, batch in (("pt2pt", frg_rigid), ("pt2pl", frg_pt2pl)):
-        srcs, tgts, smask, tmask = em_batch_tensors(batch, dev)
-        nrms = None
-        if obj == "pt2pl":
-            nrms = t(np.stack([p[2] for p in batch]))
-            smask = tmask = None
-        args = dict(w=0.0, maxiter=50, tol=1e-3, update_sigma2=False,
-                    min_sigma2=1e-4, auto_sigma2=True,
-                    sigma2_decay=FRG_SERVE[obj].get("sigma2_decay", 1.0))
-        same, ms = runs(lambda: fc.run_em_filterreg_fused_batch(
-            srcs, tgts, nrms, smask, tmask, objective=obj, **args))
-        bad += not all(same)
-        log(f"[K5 against the parent] {obj} batch of {len(batch)}: bit for "
-            f"bit (rot, t, sigma2, q, n_iter): {same}; {ms}")
-    srcs, tgts, smask, tmask = em_batch_tensors(rigid, dev)
-    same, ms = runs(lambda: ic.run_icp_fused_batch(srcs, tgts, smask, tmask,
-                                                   maxiter=30, tol=1e-6))
-    bad += not all(same)
-    log(f"[K7 against the parent] batch of {len(rigid)}: bit for bit (rot, "
-        f"t, rmse, n_iter): {same}; {ms}")
-    log(f"cases that differ from the parent: {bad}")
-    return 1 if bad else 0
+    cases = {"bunny": (t(b_src)[None], t(b_tgt)[None],
+                       t(estimate_normals(b_tgt))[None], None, None),
+             "1024x1024": (t(s_big)[None], t(t_big)[None], t(n_big)[None],
+                           None, None),
+             "masked 700/900": (t(s_big)[None], t(t_big)[None],
+                                t(n_big)[None], smask, tmask)}
+    srcs, tgts, sm, tm = em_batch_tensors(frg_rigid, dev)
+    cases["pt2pt 256 ragged"] = (srcs, tgts, None, sm, tm)
+    srcs, tgts, _, _ = em_batch_tensors(frg_pt2pl, dev)
+    cases["pt2pl 64"] = (srcs, tgts, t(np.stack([p[2] for p in frg_pt2pl])),
+                         None, None)
+    bad = 0
+    for name, (srcs, tgts, nrms, sm, tm) in cases.items():
+        for obj in ("pt2pt", "pt2pl"):
+            if name.startswith(("pt2pt", "pt2pl")) and \
+                    not name.startswith(obj):
+                continue
+            pt2pl = obj == "pt2pl"
+            s_c, t_c, n_c, counts = fc.compact_batch(
+                srcs, tgts, nrms if pt2pl else None, sm, tm)
+            for update_sigma2 in (False, True):
+                kw = dict(pt2pl=pt2pl, w=0.0, update_sigma2=update_sigma2,
+                          min_sigma2=1e-4, auto_sigma2=True, sigma2_0=0.0,
+                          sigma2_decay=FRG_SERVE[obj].get("sigma2_decay",
+                                                          1.0))
+                bad += against_parent(
+                    f"K5 against the parent] [{name} {obj} update_sigma2 "
+                    f"{update_sigma2}",
+                    lambda it, tol: parent_frg(
+                        libs["frg"], s_c, t_c, n_c, counts, maxiter=it,
+                        tol=tol, **kw),
+                    lambda it, tol, **k: fc._frg_cuda(
+                        s_c, t_c, n_c, counts, maxiter=it, tol=tol, **kw,
+                        **k),
+                    ((EM_BATCH_ITERS, 0.0), (50, 1e-3)), s_c.shape[0])
+    icp_cases = {name: (srcs, tgts, sm, tm)
+                 for name, (srcs, tgts, _, sm, tm) in cases.items()
+                 if not name.startswith("pt2pl")}
+    for name, (srcs, tgts, sm, tm) in icp_cases.items():
+        s_c, t_c, counts = ic.compact_batch(srcs, tgts, sm, tm)
+        warm = ic._init_rows(s_c.shape[0], z_rotation(3.0),
+                             [0.01, 0.0, -0.01], s_c)
+        for init in (None, warm):
+            bad += against_parent(
+                f"K7 against the parent] [{name} "
+                f"{'identity' if init is None else 'warm start'}",
+                lambda it, tol: parent_icp(libs["icp"], s_c, t_c, counts,
+                                           init, maxiter=it, tol=tol),
+                lambda it, tol, **k: ic._icp_cuda(s_c, t_c, counts, init,
+                                                  maxiter=it, tol=tol, **k),
+                ((ICP_ITERS, 0.0), (30, 1e-6)), s_c.shape[0])
+    # A pair of 32 points: an iteration's fixed cost (the M-step in one
+    # thread, the barriers, the sums), per iteration.
+    s32, t32, n32 = (c[:, :32].contiguous() for c in cases["1024x1024"][:3])
+    runs = {"K5 pt2pt": (
+        lambda **k: parent_frg(libs["frg"], s32, t32, None, None, pt2pl=False,
+                               **k),
+        lambda **k: fc._frg_cuda(s32, t32, None, None, pt2pl=False, **k)),
+        "K5 pt2pl": (
+        lambda **k: parent_frg(libs["frg"], s32, t32, n32, None, pt2pl=True,
+                               **k),
+        lambda **k: fc._frg_cuda(s32, t32, n32, None, pt2pl=True, **k))}
+    frg_kw = dict(w=0.0, maxiter=EM_BATCH_ITERS, tol=0.0, update_sigma2=False,
+                  sigma2_decay=1.0, min_sigma2=1e-4, auto_sigma2=True,
+                  sigma2_0=0.0)
+    for name, (par, this) in runs.items():
+        log_fixed_cost(name, lambda: par(**frg_kw),
+                       lambda g: this(**frg_kw, _cluster=g))
+    icp_kw = dict(maxiter=ICP_ITERS, tol=0.0)
+    log_fixed_cost("K7", lambda: parent_icp(libs["icp"], s32, t32, None,
+                                            None, **icp_kw),
+                   lambda g: ic._icp_cuda(s32, t32, None, None, **icp_kw,
+                                          _cluster=g))
+    return bad
+
+
+def log_fixed_cost(name, parent_run, this_run, iters=EM_BATCH_ITERS):
+    """us per iteration of a 32 x 32 pair: the parent's, and this one's on
+    one block and on a cluster of 8."""
+    p_us = timed(parent_run, 5) / iters * 1e3
+    g_us = {g: timed(lambda: this_run(g), 5) / iters * 1e3 for g in (1, 8)}
+    log(f"[{name} fixed cost] 32 x 32: parent {p_us:.2f} us per iteration, "
+        f"this {g_us[1]:.2f} (G = 1) / {g_us[8]:.2f} (G = 8)")
 
 
 def main() -> int:

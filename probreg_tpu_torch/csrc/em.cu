@@ -44,17 +44,13 @@
 // rotation is always proper (det = +1). The affine M-step is
 // B = a inv(yp1y) with a 3 x 3 cofactor inverse, also in double.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "em_common.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
 
 constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
 constexpr int kRed = 18;  // widest block reduction (the M-step sums)
 
 struct State {
@@ -146,49 +142,14 @@ __device__ void mstep(State& st, const float* s, int maxiter, float tol,
                                          1.5));
 }
 
-// Block-wide sums of a pair's kThreads virtual threads in the parent's
-// fixed order (block_reduce's): each warp's shuffle tree, then the 32
-// warps' partials in warp order. On a cluster (G > 1) the partials of the
-// G blocks' warps are read through distributed shared memory, so every
-// block gets the same totals. The cluster barrier comes before the reads
-// only: callers alternate two ``red`` buffers, so a buffer is written
-// again only after the next cluster barrier, which every reader of its
-// last sum has passed.
-template <int K, int G>
-__device__ void pair_reduce(float (&v)[K], float* red, float* out) {
-  if constexpr (G == 1) {
-    block_reduce<K, kThreads>(v, red, out);
-  } else {
-    constexpr int kLocalWarps = kThreads / G / 32;
-    cg::cluster_group cluster = cg::this_cluster();
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-    for (int k = 0; k < K; ++k) v[k] = group_sum(v[k], 32);
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) red[warp * K + k] = v[k];
-    }
-    cluster.sync();
-    if (threadIdx.x < K) {
-      float s = 0.0f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float* rw = cluster.map_shared_rank(red, w / kLocalWarps);
-        s += rw[(w % kLocalWarps) * K + threadIdx.x];
-      }
-      out[threadIdx.x] = s;
-    }
-    __syncthreads();
-  }
-}
-
 // One pair on G blocks of kThreads / G threads (a thread-block cluster when
 // G > 1). Block r of the cluster runs the virtual threads vt = r kThreads /
 // G + tid of the one-block kernel (G = 1), each walking the same columns,
 // rows and points with the same splits, and the sums keep that kernel's
-// trees (pair_reduce): the result is the same bits for every G. Each
-// block holds both whole clouds; the transformed source is formed by every
-// block, 1/den and (px, p1) by their owner and read by the others.
+// trees (pair_reduce, em_common.cuh): the result is the same bits for
+// every G. Each block holds both whole clouds; the transformed source is
+// formed by every block, 1/den and (px, p1) by their owner and read by the
+// others.
 // ``order`` (may be null): cluster (or block) c registers pair order[c].
 template <int G>
 __global__ void __launch_bounds__(kThreads / G)
@@ -210,8 +171,7 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
 
   const int tid = threadIdx.x;
   const int b = order ? order[blockIdx.x / G] : blockIdx.x / G;
-  int r = 0;
-  if constexpr (G > 1) r = (int)cg::this_cluster().block_rank();
+  const int r = cluster_rank<G>();
   const int vt = r * kBlock + tid;   // the thread of the one-block kernel
   const int m = counts ? counts[2 * b] : m_cap;
   const int n = counts ? counts[2 * b + 1] : n_cap;
@@ -235,7 +195,7 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
     const float4 p = xs[j];
     v[3] += p.x; v[4] += p.y; v[5] += p.z;
   }
-  pair_reduce<kRed, G>(v, red[0], sums);
+  pair_reduce<kRed, kThreads, G>(v, red[0], sums);
   const float inv_mn = 1.0f / (float)(m + n);
   const float cx = (sums[0] + sums[3]) * inv_mn;
   const float cy = (sums[1] + sums[4]) * inv_mn;
@@ -264,7 +224,7 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
     v[3] += p.x; v[4] += p.y; v[5] += p.z;
     v[7] += p.w;
   }
-  pair_reduce<kRed, G>(v, red[1], sums);
+  pair_reduce<kRed, kThreads, G>(v, red[1], sums);
   if (tid == 0) {
     // sigma2_0 = mean pairwise squared distance / 3, in closed form, and q0.
     const float fm = (float)m, fn = (float)n;
@@ -339,11 +299,10 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
     }
     if constexpr (G > 1) {
       // Column j belongs to virtual thread (j mod nslots_a) split_a.
-      cg::cluster_group cluster = cg::this_cluster();
-      cluster.sync();
+      pair_sync<G>();
       for (int j = tid; j < n; j += kBlock) {
         const int owner = (j % nslots_a) * split_a / kBlock;
-        if (owner != r) inv_den[j] = cluster.map_shared_rank(inv_den, owner)[j];
+        if (owner != r) inv_den[j] = owner_read<G>(inv_den, owner, j);
       }
     }
     __syncthreads();
@@ -394,7 +353,7 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
       }
     }
     v[7] = xx;
-    pair_reduce<kRed, G>(v, red[0], sums);
+    pair_reduce<kRed, kThreads, G>(v, red[0], sums);
     if (tid == 0) {
       const float n_p = sums[0];
       st.n_p = n_p;
@@ -413,13 +372,8 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
 #pragma unroll
       for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
       for (int i = vt; i < m; i += kThreads) {
-        float4 pp;
-        if constexpr (G == 1) {
-          pp = ts[i];
-        } else {
-          const int owner = (i % nslots_b) * split_b / kBlock;
-          pp = cg::this_cluster().map_shared_rank(ts, owner)[i];
-        }
+        const float4 pp =
+            owner_read<G>(ts, (i % nslots_b) * split_b / kBlock, i);
         const float4 yr = ys[i];
         const float h0 = yr.x - my0, h1 = yr.y - my1, h2 = yr.z - my2;
         v[0] += pp.x * h0; v[1] += pp.x * h1; v[2] += pp.x * h2;
@@ -431,12 +385,12 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
         v[15] += w1 * h1; v[16] += w1 * h2; v[17] += w2 * h2;
       }
     }
-    pair_reduce<kRed, G>(v, red[1], sums);
+    pair_reduce<kRed, kThreads, G>(v, red[1], sums);
     if (tid == 0) mstep(st, sums, maxiter, tol, update_scale, affine);
     __syncthreads();
   }
   // No block leaves while another may still read its shared memory.
-  if constexpr (G > 1) cg::this_cluster().sync();
+  if constexpr (G > 1) pair_sync<G>();
 
   if (r == 0 && tid == 0) {
     float* o = out + (size_t)b * 16;
@@ -451,34 +405,6 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
     o[14] = (float)st.it;
     o[15] = 0.0f;
   }
-}
-
-template <int G>
-cudaError_t launch_em(const float* src, int m_cap, const float* tgt,
-                      int n_cap, const int* counts, const int* order,
-                      int batch, float w, int maxiter, float tol,
-                      int update_scale, int affine, float* out, int smem,
-                      cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      em_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(batch * G);
-  cfg.blockDim = dim3(kThreads / G);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = G;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = G > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, em_kernel<G>, src, m_cap, tgt, n_cap,
-                           counts, order, w, maxiter, tol, update_scale,
-                           affine, out);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -498,18 +424,19 @@ int probreg_em_cpd(const void* src, int m_cap, const void* tgt, int n_cap,
                    int update_scale, int affine, void* out, void* stream) {
   if (batch <= 0) return (int)cudaErrorInvalidValue;
   const int smem = probreg_em_smem_bytes(m_cap, n_cap);
-  decltype(&launch_em<1>) launch = nullptr;
+  decltype(&em_kernel<1>) kernel = nullptr;
   switch (cluster) {
-    case 1: launch = launch_em<1>; break;
-    case 2: launch = launch_em<2>; break;
-    case 4: launch = launch_em<4>; break;
-    case 8: launch = launch_em<8>; break;
+    case 1: kernel = em_kernel<1>; break;
+    case 2: kernel = em_kernel<2>; break;
+    case 4: kernel = em_kernel<4>; break;
+    case 8: kernel = em_kernel<8>; break;
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)launch((const float*)src, m_cap, (const float*)tgt, n_cap,
-                     (const int*)counts, (const int*)order, batch, w,
-                     maxiter, tol, update_scale, affine, (float*)out, smem,
-                     (cudaStream_t)stream);
+  return (int)launch_pairs(kernel, batch, cluster, kThreads, smem,
+                           (cudaStream_t)stream, (const float*)src, m_cap,
+                           (const float*)tgt, n_cap, (const int*)counts,
+                           (const int*)order, w, maxiter, tol, update_scale,
+                           affine, (float*)out);
 }
 
 }  // extern "C"

@@ -1,9 +1,11 @@
 // Device helpers shared by the whole-loop kernels (em.cu: CPD, frg.cu:
-// FilterReg, icp.cu: ICP, gmmtree.cu: GMMTree): fixed-order block
-// reductions, the lane-group split, Horn's rotation solve by Jacobi sweeps
-// in double, and a 6 x 6 solve in double.
+// FilterReg, icp.cu: ICP, gmmtree.cu: GMMTree): fixed-order block and
+// cluster reductions, the lane-group split, Horn's rotation solve by Jacobi
+// sweeps in double, a 6 x 6 solve in double, and the launch of a batch of
+// pairs on blocks or thread-block clusters.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -37,6 +39,67 @@ __device__ void block_reduce(float (&v)[K], float* red, float* out) {
     out[threadIdx.x] = s;
   }
   __syncthreads();
+}
+
+// Sums of K values per thread over a pair's THREADS virtual threads, in
+// block_reduce's fixed order for a THREADS-wide block: each warp's shuffle
+// tree, then the THREADS / 32 warps' partials in warp order. The pair runs
+// on G blocks of THREADS / G threads (block r holding virtual threads
+// r THREADS / G + tid); when G > 1 they form a thread-block cluster and the
+// partials of the other blocks' warps are read through distributed shared
+// memory, so every block gets the same totals. The cluster barrier comes
+// before the reads only: callers alternate two ``red`` buffers, so a buffer
+// is written again only after the next cluster barrier, which every reader
+// of its last sum has passed. red holds (THREADS / G / 32) * K floats.
+template <int K, int THREADS, int G>
+__device__ void pair_reduce(float (&v)[K], float* red, float* out) {
+  if constexpr (G == 1) {
+    block_reduce<K, THREADS>(v, red, out);
+  } else {
+    constexpr int kWarps = THREADS / 32, kLocalWarps = THREADS / G / 32;
+    cooperative_groups::cluster_group cluster =
+        cooperative_groups::this_cluster();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = group_sum(v[k], 32);
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) red[warp * K + k] = v[k];
+    }
+    cluster.sync();
+    if (threadIdx.x < K) {
+      float s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float* rw = cluster.map_shared_rank(red, w / kLocalWarps);
+        s += rw[(w % kLocalWarps) * K + threadIdx.x];
+      }
+      out[threadIdx.x] = s;
+    }
+    __syncthreads();
+  }
+}
+
+// The rank of this block in its cluster of G blocks (0 when G == 1).
+template <int G>
+__device__ __forceinline__ int cluster_rank() {
+  if constexpr (G == 1) return 0;
+  else return (int)cooperative_groups::this_cluster().block_rank();
+}
+
+// A barrier of the pair: the block's when G == 1, else the cluster's.
+template <int G>
+__device__ __forceinline__ void pair_sync() {
+  if constexpr (G == 1) __syncthreads();
+  else cooperative_groups::this_cluster().sync();
+}
+
+// Element i of a shared array as held by block ``owner`` of the pair's
+// cluster (this block's own when G == 1).
+template <int G, typename T>
+__device__ __forceinline__ T owner_read(T* a, int owner, int i) {
+  if constexpr (G == 1) return a[i];
+  else return cooperative_groups::this_cluster().map_shared_rank(a, owner)[i];
 }
 
 // Lanes that share one item (a column or a row): the largest power of two
@@ -168,6 +231,34 @@ __device__ void solve6(double a[6][6], double b[6], double x[6]) {
     for (int j = k + 1; j < 6; ++j) s -= a[k][j] * x[j];
     x[k] = a[k][k] == 0.0 ? 0.0 : s / a[k][k];
   }
+}
+
+// Launches ``kernel`` for a batch of pairs, each on g blocks of threads / g
+// threads: a thread-block cluster of g blocks when g > 1, one block when
+// g == 1. smem bytes of dynamic shared memory a block. Returns the launch's
+// error, or the last error after it.
+template <typename... Params, typename... Args>
+cudaError_t launch_pairs(void (*kernel)(Params...), int batch, int g,
+                         int threads, int smem, cudaStream_t stream,
+                         Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * g);
+  cfg.blockDim = dim3(threads / g);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = g;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = g > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -3,24 +3,32 @@
 // Replaces probreg_tpu/ops/em_pallas.py:_frg_kernel (run_em_filterreg_fused,
 // run_em_filterreg_fused_batch): one launch runs a whole registration, the
 // convergence test included, with no host read between launch and result.
-// One thread block is one pair and the grid is the batch; each block keeps
-// its own state, so the pairs of a ragged batch stop at their own
-// iterations.
+// A pair runs on kThreads = 1,024 threads: one block (G = 1) or a
+// thread-block cluster of G = 2, 4 or 8 blocks of kThreads / G threads on
+// G SMs, which the wrapper picks when the batch leaves SMs idle
+// (em_cuda.launch_plan). Every pair keeps its own state, so the pairs of a
+// ragged batch stop at their own iterations; when a ragged batch's blocks
+// outnumber the SMs the wrapper hands a work order, the largest m n first,
+// and cluster (or block) c registers pair order[c] and writes its row. A
+// thread has at most 64 registers at G = 1 (one block an SM), 128 at G = 2
+// and 255 at G = 4 and 8.
 //
 // FilterReg's E-step moments are ROW sums of the unnormalized Gaussian
 // (no column normalizer), so one pass over the pair per iteration
 // suffices: a thread, or a group of 2..32 adjacent lanes when there are
 // fewer rows than threads, takes one source row, transforms it, and loops
-// over the targets in shared memory:
+// over the targets in shared memory with four Gaussians in flight:
 //   m0 = sum_j g_ij, m1 = sum_j g_ij x_j, nx = sum_j g_ij n_j (pt2pl),
 //   e2 = sum_j g_ij |t_i - x_j|^2 (sigma2 update; the reference forms it
 //        from the moments as m0 |t|^2 - 2 t.m1 + m2, the same sum),
 // with g_ij = exp(-|t_i - x_j|^2 / (2 sigma2)). Shared memory holds the
 // centred source and its moments (48 B per source point) and the centred
 // target (16 B), plus the normals for pt2pl (16 B); nothing else of the
-// pair. The kernel is bound by operations (the Gaussian and the moment
-// FMAs per pair and iteration); its device-memory traffic is reading the
-// clouds once and writing 16 floats.
+// pair; each block of a cluster holds the whole pair, and the moments of a
+// row live with the block of the thread that formed them. The kernel is
+// bound by operations (the Gaussian and the moment FMAs per pair and
+// iteration); its device-memory traffic is reading the clouds once and
+// writing 16 floats.
 //
 // M-step (reference filterreg.py:78-228, em_pallas.py:859-967), from
 // fixed-order block sums of per-row terms, solved in one thread in double:
@@ -42,7 +50,10 @@
 // points (pt2pt: the closed-form mean squared distance / 3; pt2pl: the
 // mean squared nearest-neighbour spacing of the target), so a masked pair
 // is bitwise the same registration as the pair without its padding. IEEE
-// f32, expf, no fast-math, no atomics.
+// f32, expf, no fast-math, no atomics. All sums are fixed-order trees, and
+// the blocks of a cluster run the one-block kernel's threads with its
+// splits and its sums' trees (see frg_kernel), so a result is the same
+// bits for every G and any work order.
 
 #include <cuda_runtime.h>
 
@@ -51,7 +62,6 @@
 namespace {
 
 constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
 constexpr int kRed = 31;  // widest block reduction (the pt2pl M-step sums)
 constexpr double kPi = 3.14159265358979323846;
 
@@ -110,75 +120,99 @@ __device__ void pt2pl_step(const float* s, double dr[3][3], double dt[3]) {
   dr[2][2] = c + v * nz * nz;
 }
 
-template <bool PT2PL, bool E2>
-__global__ void __launch_bounds__(kThreads)
+// One pair on G blocks of kThreads / G threads (a thread-block cluster when
+// G > 1). Block r runs the virtual threads vt = r kThreads / G + tid of the
+// one-block kernel (G = 1), each walking the same rows and points with the
+// same split, and the sums keep that kernel's trees (pair_reduce): the
+// result is the same bits for every G. Each block holds both whole clouds
+// and runs the M-step on the same sums in its own thread 0; a row's
+// moments are written by the block of the virtual thread that formed them
+// and read there by the others. ``order`` (may be null): cluster (or
+// block) c registers pair order[c].
+template <bool PT2PL, bool E2, int G>
+__global__ void __launch_bounds__(kThreads / G)
 frg_kernel(const float* __restrict__ src, int m_cap,  // (B, m_cap, 3)
            const float* __restrict__ tgt, int n_cap,  // (B, n_cap, 3)
            const float* __restrict__ nrm,   // (B, n_cap, 3) for pt2pl
            const int* __restrict__ counts,  // (B, 2) valid points, or null
+           const int* __restrict__ order,   // (B,) work order, or null
            Params prm, float* __restrict__ out) {      // (B, 16)
+  constexpr int kBlock = kThreads / G;
   extern __shared__ float4 smem[];
   float4* ys = smem;                 // centred source
   float4* mom_a = ys + m_cap;        // (m1, m0) per source row
   float4* mom_b = mom_a + m_cap;     // (nx, e2) per source row
   float4* xs = mom_b + m_cap;        // centred target
   float4* ns = xs + n_cap;           // target normals (pt2pl)
-  __shared__ float red[kWarps * kRed];
+  __shared__ float red[2][kBlock / 32 * kRed];   // see pair_reduce
   __shared__ float sums[kRed];
   __shared__ State st;
 
-  const int b = blockIdx.x, tid = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int b = order ? order[blockIdx.x / G] : blockIdx.x / G;
+  const int rank = cluster_rank<G>();
+  const int vt = rank * kBlock + tid;  // the thread of the one-block kernel
   const int m = counts ? counts[2 * b] : m_cap;
   const int n = counts ? counts[2 * b + 1] : n_cap;
   src += (size_t)b * m_cap * 3;
   tgt += (size_t)b * n_cap * 3;
+  int rb = 0;  // the red buffer of the next pair_reduce
 
   // Load, then centre on the shared centroid of the valid points.
-  float v[kRed];
-#pragma unroll
-  for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
-  for (int i = tid; i < m; i += kThreads) {
-    const float4 p = make_float4(src[3 * i], src[3 * i + 1], src[3 * i + 2],
-                                 0.0f);
-    ys[i] = p;
-    v[0] += p.x; v[1] += p.y; v[2] += p.z;
-  }
-  for (int j = tid; j < n; j += kThreads) {
-    const float4 p = make_float4(tgt[3 * j], tgt[3 * j + 1], tgt[3 * j + 2],
-                                 0.0f);
-    xs[j] = p;
-    v[3] += p.x; v[4] += p.y; v[5] += p.z;
+  for (int i = tid; i < m; i += kBlock)
+    ys[i] = make_float4(src[3 * i], src[3 * i + 1], src[3 * i + 2], 0.0f);
+  for (int j = tid; j < n; j += kBlock) {
+    xs[j] = make_float4(tgt[3 * j], tgt[3 * j + 1], tgt[3 * j + 2], 0.0f);
     if (PT2PL) {
       const float* q = nrm + ((size_t)b * n_cap + j) * 3;
       ns[j] = make_float4(q[0], q[1], q[2], 0.0f);
     }
   }
-  block_reduce<kRed, kThreads>(v, red, sums);
+  __syncthreads();
+  float v[kRed];
+#pragma unroll
+  for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
+  for (int i = vt; i < m; i += kThreads) {
+    const float4 p = ys[i];
+    v[0] += p.x; v[1] += p.y; v[2] += p.z;
+  }
+  for (int j = vt; j < n; j += kThreads) {
+    const float4 p = xs[j];
+    v[3] += p.x; v[4] += p.y; v[5] += p.z;
+  }
+  pair_reduce<kRed, kThreads, G>(v, red[rb], sums);
+  rb ^= 1;
   const float inv_mn = 1.0f / (float)(m + n);
   const float cx = (sums[0] + sums[3]) * inv_mn;
   const float cy = (sums[1] + sums[4]) * inv_mn;
   const float cz = (sums[2] + sums[5]) * inv_mn;
-#pragma unroll
-  for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
-  for (int i = tid; i < m; i += kThreads) {
+  for (int i = tid; i < m; i += kBlock) {
     float4 p = ys[i];
     p.x -= cx; p.y -= cy; p.z -= cz;
     ys[i] = p;
-    v[0] += p.x; v[1] += p.y; v[2] += p.z;
-    v[6] += p.x * p.x + p.y * p.y + p.z * p.z;
   }
-  for (int j = tid; j < n; j += kThreads) {
+  for (int j = tid; j < n; j += kBlock) {
     float4 p = xs[j];
     p.x -= cx; p.y -= cy; p.z -= cz;
     xs[j] = p;
+  }
+  __syncthreads();  // every point centred before the sums and spacing read
+#pragma unroll
+  for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
+  for (int i = vt; i < m; i += kThreads) {
+    const float4 p = ys[i];
+    v[0] += p.x; v[1] += p.y; v[2] += p.z;
+    v[6] += p.x * p.x + p.y * p.y + p.z * p.z;
+  }
+  for (int j = vt; j < n; j += kThreads) {
+    const float4 p = xs[j];
     v[3] += p.x; v[4] += p.y; v[5] += p.z;
     v[7] += p.x * p.x + p.y * p.y + p.z * p.z;
   }
-  __syncthreads();  // every target centred before the spacing pass reads it
   if (PT2PL && prm.auto_sigma2) {
     // Mean squared nearest-neighbour spacing of the target, exact matches
     // (the point itself) excluded; a point with no other counts 0.
-    for (int j = tid; j < n; j += kThreads) {
+    for (int j = vt; j < n; j += kThreads) {
       const float4 x = xs[j];
       float best = __int_as_float(0x7f800000);  // +inf
       for (int k = 0; k < n; ++k) {
@@ -190,7 +224,8 @@ frg_kernel(const float* __restrict__ src, int m_cap,  // (B, m_cap, 3)
       if (best < __int_as_float(0x7f800000)) v[8] += best;
     }
   }
-  block_reduce<kRed, kThreads>(v, red, sums);
+  pair_reduce<kRed, kThreads, G>(v, red[rb], sums);
+  rb ^= 1;
   if (tid == 0) {
     const float fm = (float)m, fn = (float)n;
     float sigma2 = prm.sigma2_0;
@@ -216,7 +251,7 @@ frg_kernel(const float* __restrict__ src, int m_cap,  // (B, m_cap, 3)
   __syncthreads();
 
   const int split = pick_split<kThreads>(m);
-  const int sub = tid & (split - 1), slot = tid / split;
+  const int sub = vt & (split - 1), slot = vt / split;
   const int nslots = kThreads / split;
   while (st.go) {
     const float sigma2 = st.sigma2;
@@ -231,8 +266,32 @@ frg_kernel(const float* __restrict__ src, int m_cap,  // (B, m_cap, 3)
       const float3 y = apply(st, ok ? ys[i] : make_float4(0.f, 0.f, 0.f, 0.f));
       float m0 = 0.f, m1x = 0.f, m1y = 0.f, m1z = 0.f;
       float nxx = 0.f, nxy = 0.f, nxz = 0.f, e2 = 0.f;
-      if (ok)
-        for (int j = sub; j < n; j += split) {
+      if (ok) {
+        // Four Gaussians in flight, added in the loop's order.
+        int j = sub;
+        for (; j + 3 * split < n; j += 4 * split) {
+          float4 x[4];
+          float d2[4], g[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            x[u] = xs[j + u * split];
+            const float dx = y.x - x[u].x, dy = y.y - x[u].y,
+                        dz = y.z - x[u].z;
+            d2[u] = dx * dx + dy * dy + dz * dz;
+            g[u] = expf(-d2[u] * inv2s2);
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            m0 += g[u];
+            m1x += g[u] * x[u].x; m1y += g[u] * x[u].y; m1z += g[u] * x[u].z;
+            if (E2) e2 += g[u] * d2[u];
+            if (PT2PL) {
+              const float4 nv = ns[j + u * split];
+              nxx += g[u] * nv.x; nxy += g[u] * nv.y; nxz += g[u] * nv.z;
+            }
+          }
+        }
+        for (; j < n; j += split) {
           const float4 x = xs[j];
           const float dx = y.x - x.x, dy = y.y - x.y, dz = y.z - x.z;
           const float d2 = dx * dx + dy * dy + dz * dz;
@@ -245,6 +304,7 @@ frg_kernel(const float* __restrict__ src, int m_cap,  // (B, m_cap, 3)
             nxx += g * nv.x; nxy += g * nv.y; nxz += g * nv.z;
           }
         }
+      }
       m0 = group_sum(m0, split);
       m1x = group_sum(m1x, split); m1y = group_sum(m1y, split);
       m1z = group_sum(m1z, split);
@@ -258,15 +318,18 @@ frg_kernel(const float* __restrict__ src, int m_cap,  // (B, m_cap, 3)
         mom_b[i] = make_float4(nxx, nxy, nxz, e2);
       }
     }
-    __syncthreads();
+    pair_sync<G>();  // every row's moments written before any block reads
 
     // M-step sums over the rows: [total weight, objective sums, q, the two
-    // sigma2-update sums].
+    // sigma2-update sums]. Row i's moments lie with virtual thread
+    // (i mod nslots) split of the E-step.
 #pragma unroll
     for (int k = 0; k < kRed; ++k) v[k] = 0.0f;
-    for (int i = tid; i < m; i += kThreads) {
+    for (int i = vt; i < m; i += kThreads) {
+      const int owner = (i % nslots) * split / kBlock;
       const float3 y = apply(st, ys[i]);
-      const float4 ma = mom_a[i], mb = mom_b[i];
+      const float4 ma = owner_read<G>(mom_a, owner, i);
+      const float4 mb = owner_read<G>(mom_b, owner, i);
       const float m0 = ma.w;
       const float mask = m0 > 0.0f ? 1.0f : 0.0f;
       const float inv_m0 = 1.0f / fmaxf(m0, kEpsF32);
@@ -299,7 +362,8 @@ frg_kernel(const float* __restrict__ src, int m_cap,  // (B, m_cap, 3)
         v[28] += wt * sqrtf(ex * ex + ey * ey + ez * ez);
       }
     }
-    block_reduce<kRed, kThreads>(v, red, sums);
+    pair_reduce<kRed, kThreads, G>(v, red[rb], sums);
+    rb ^= 1;
     const float total = sums[0];
     if (!PT2PL) {
       // Weighted Kabsch: the cross-covariance about the weighted centroids.
@@ -311,9 +375,10 @@ frg_kernel(const float* __restrict__ src, int m_cap,  // (B, m_cap, 3)
       float h[9];
 #pragma unroll
       for (int k = 0; k < 9; ++k) h[k] = 0.0f;
-      for (int i = tid; i < m; i += kThreads) {
+      for (int i = vt; i < m; i += kThreads) {
+        const int owner = (i % nslots) * split / kBlock;
         const float3 y = apply(st, ys[i]);
-        const float4 ma = mom_a[i];
+        const float4 ma = owner_read<G>(mom_a, owner, i);
         const float m0 = ma.w;
         const float mask = m0 > 0.0f ? 1.0f : 0.0f;
         const float inv_m0 = 1.0f / fmaxf(m0, kEpsF32);
@@ -331,7 +396,8 @@ frg_kernel(const float* __restrict__ src, int m_cap,  // (B, m_cap, 3)
         st.mc[0] = mcx; st.mc[1] = mcy; st.mc[2] = mcz;
         st.tc[0] = tcx; st.tc[1] = tcy; st.tc[2] = tcz;
       }
-      block_reduce<9, kThreads>(h, red, sums + 9);
+      pair_reduce<9, kThreads, G>(h, red[rb], sums + 9);
+      rb ^= 1;
     }
     if (tid == 0) {
       double dr[3][3], dt[3];
@@ -378,8 +444,10 @@ frg_kernel(const float* __restrict__ src, int m_cap,  // (B, m_cap, 3)
     }
     __syncthreads();
   }
+  // No block leaves while another may still read its shared memory.
+  if constexpr (G > 1) pair_sync<G>();
 
-  if (tid == 0) {
+  if (rank == 0 && tid == 0) {
     float* o = out + (size_t)b * 16;
     for (int k = 0; k < 9; ++k) o[k] = st.rot[k];
     // Centred frame -> raw frame: t = t_c + cen - R cen.
@@ -394,18 +462,16 @@ frg_kernel(const float* __restrict__ src, int m_cap,  // (B, m_cap, 3)
   }
 }
 
+// The kernel for the objective, the sigma2 update and the blocks per pair.
 template <bool PT2PL, bool E2>
-cudaError_t launch(const float* src, int m_cap, const float* tgt, int n_cap,
-                   const float* nrm, const int* counts, int batch,
-                   const Params& prm, float* out, cudaStream_t stream) {
-  const int smem = 48 * m_cap + (PT2PL ? 32 : 16) * n_cap;
-  cudaError_t err = cudaFuncSetAttribute(
-      frg_kernel<PT2PL, E2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  frg_kernel<PT2PL, E2><<<batch, kThreads, smem, stream>>>(
-      src, m_cap, tgt, n_cap, nrm, counts, prm, out);
-  return cudaGetLastError();
+auto pick_kernel(int cluster) -> decltype(&frg_kernel<PT2PL, E2, 1>) {
+  switch (cluster) {
+    case 1: return frg_kernel<PT2PL, E2, 1>;
+    case 2: return frg_kernel<PT2PL, E2, 2>;
+    case 4: return frg_kernel<PT2PL, E2, 4>;
+    case 8: return frg_kernel<PT2PL, E2, 8>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace
@@ -413,33 +479,32 @@ cudaError_t launch(const float* src, int m_cap, const float* tgt, int n_cap,
 extern "C" {
 
 // src (B, m_cap, 3), tgt (B, n_cap, 3), nrm (B, n_cap, 3) or null (pt2pt)
-// f32; counts (B, 2) int32 valid points (at the front) or null; out (B, 16):
-// [rot (9), t (3), sigma2, q, n_iter, 0]. sigma2_0 is used when auto_sigma2
-// is 0.
+// f32; counts (B, 2) int32 valid points (at the front) or null; order (B,)
+// int32 work order or null; cluster blocks per pair (1, 2, 4 or 8); out
+// (B, 16): [rot (9), t (3), sigma2, q, n_iter, 0]. sigma2_0 is used when
+// auto_sigma2 is 0.
 int probreg_em_frg(const void* src, int m_cap, const void* tgt, int n_cap,
-                   const void* nrm, const void* counts, int batch, float w,
-                   int maxiter, float tol, int update_sigma2,
-                   float sigma2_decay, float min_sigma2, int auto_sigma2,
-                   float sigma2_0, int pt2pl, void* out, void* stream) {
-  if (pt2pl && nrm == nullptr) return (int)cudaErrorInvalidValue;
+                   const void* nrm, const void* counts, const void* order,
+                   int batch, int cluster, float w, int maxiter, float tol,
+                   int update_sigma2, float sigma2_decay, float min_sigma2,
+                   int auto_sigma2, float sigma2_0, int pt2pl, void* out,
+                   void* stream) {
+  if (batch <= 0 || (pt2pl && nrm == nullptr))
+    return (int)cudaErrorInvalidValue;
   const Params prm{w, tol, sigma2_decay, min_sigma2, sigma2_0, maxiter,
                    update_sigma2, auto_sigma2};
-  auto s = (const float*)src;
-  auto x = (const float*)tgt;
-  auto nv = (const float*)nrm;
-  auto cnt = (const int*)counts;
-  auto o = (float*)out;
-  auto st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (pt2pl && update_sigma2)
-    err = launch<true, true>(s, m_cap, x, n_cap, nv, cnt, batch, prm, o, st);
-  else if (pt2pl)
-    err = launch<true, false>(s, m_cap, x, n_cap, nv, cnt, batch, prm, o, st);
-  else if (update_sigma2)
-    err = launch<false, true>(s, m_cap, x, n_cap, nv, cnt, batch, prm, o, st);
-  else
-    err = launch<false, false>(s, m_cap, x, n_cap, nv, cnt, batch, prm, o, st);
-  return (int)err;
+  const auto kernel =
+      pt2pl ? (update_sigma2 ? pick_kernel<true, true>(cluster)
+                             : pick_kernel<true, false>(cluster))
+            : (update_sigma2 ? pick_kernel<false, true>(cluster)
+                             : pick_kernel<false, false>(cluster));
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const int smem = 48 * m_cap + (pt2pl ? 32 : 16) * n_cap;
+  return (int)launch_pairs(kernel, batch, cluster, kThreads, smem,
+                           (cudaStream_t)stream, (const float*)src, m_cap,
+                           (const float*)tgt, n_cap, (const float*)nrm,
+                           (const int*)counts, (const int*)order, prm,
+                           (float*)out);
 }
 
 }  // extern "C"

@@ -139,10 +139,10 @@ def run_em_cpd_fused_batch(sources, targets, smasks=None, tmasks=None, *,
 
 
 def cluster_size(batch: int, sms: int) -> int:
-    """Blocks per pair of a K1 launch (a thread-block cluster of that many
-    blocks of 1,024 / G threads, one block an SM): the largest G of 8, 4
-    and 2 whose clusters for the whole batch fit the card's ``sms`` SMs;
-    1 for a batch of more than sms / 2 pairs."""
+    """Blocks per pair of a K1, K5 or K7 launch (a thread-block cluster of
+    that many blocks of 1,024 / G threads, one block an SM): the largest G
+    of 8, 4 and 2 whose clusters for the whole batch fit the card's ``sms``
+    SMs; 1 for a batch of more than sms / 2 pairs."""
     for g in (8, 4, 2):
         if batch * g <= sms:
             return g
@@ -150,9 +150,10 @@ def cluster_size(batch: int, sms: int) -> int:
 
 
 def work_order(counts: torch.Tensor) -> torch.Tensor:
-    """(B,) int32 order of K1's blocks from the (B, 2) counts: the pairs by
-    m n, largest first, ties by index. Block b registers pair order[b] and
-    writes its row, so the results keep the caller's order."""
+    """(B,) int32 order of the blocks of K1, K5 or K7 from the (B, 2)
+    counts: the pairs by m n, largest first, ties by index. Block b
+    registers pair order[b] and writes its row, so the results keep the
+    caller's order."""
     key = counts[:, 0].long() * counts[:, 1].long()
     return torch.sort(key, descending=True, stable=True).indices.to(
         torch.int32)
@@ -171,17 +172,28 @@ def sm_count(device) -> int:
     return _sm_cache[index]
 
 
+def launch_plan(batch: int, counts, sms: int, *, cluster=None,
+                ordered=True):
+    """(g, order) of a launch of a whole-loop kernel (K1, K5, K7) for
+    ``batch`` pairs with (B, 2) ``counts`` (None: every pair full) on a
+    card of ``sms`` SMs: g blocks per pair (``cluster_size``, or
+    ``cluster`` when given) and, when the batch is ragged and its blocks
+    outnumber the SMs, the ``work_order`` (else None: arrival order, as
+    ``ordered=False`` forces)."""
+    g = cluster or cluster_size(batch, sms)
+    order = (work_order(counts) if ordered and counts is not None
+             and batch * g > sms else None)
+    return g, order
+
+
 def _em_cuda(sources, targets, counts, *, affine, w, maxiter, tol,
              update_scale, _cluster=None, _ordered=True):
-    """One launch of K1. A ragged batch whose blocks outnumber the card's
-    SMs runs in ``work_order``. For checks and timings, ``_cluster``
-    forces the blocks per pair (1, 2, 4 or 8; by default
-    ``cluster_size``) and ``_ordered=False`` the arrival order."""
+    """One launch of K1 by ``launch_plan``. For checks and timings,
+    ``_cluster`` forces the blocks per pair (1, 2, 4 or 8) and
+    ``_ordered=False`` the arrival order."""
     batch, m_cap, n_cap = sources.shape[0], sources.shape[1], targets.shape[1]
-    sms = sm_count(sources.device)
-    g = _cluster or cluster_size(batch, sms)
-    order = (work_order(counts) if _ordered and counts is not None
-             and batch * g > sms else None)
+    g, order = launch_plan(batch, counts, sm_count(sources.device),
+                           cluster=_cluster, ordered=_ordered)
     out = sources.new_empty((batch, 16))
     status = _lib().probreg_em_cpd(
         sources.data_ptr(), m_cap, targets.data_ptr(), n_cap,

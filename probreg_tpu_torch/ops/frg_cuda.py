@@ -4,8 +4,11 @@ Counterpart of the FilterReg part of probreg_tpu/ops/em_pallas.py
 (``_frg_kernel``): ``run_em_filterreg_fused`` and
 ``run_em_filterreg_fused_batch`` run every EM iteration of small 3-D pairs,
 pt2pt or pt2pl, the convergence test included, inside one launch of
-``csrc/frg.cu``: one thread block per pair, the grid is the batch (the
-reference needs one launch per pair).
+``csrc/frg.cu`` for the whole batch (the reference needs one launch per
+pair). A pair runs on one block of 1,024 threads or, when the batch leaves
+SMs idle, on a thread-block cluster of 2-8 blocks, and a ragged batch of
+more blocks than SMs runs largest first (``em_cuda.launch_plan``, K1's
+rule). Neither changes a bit of any pair's result.
 
 Like the reference's twin ``filterreg._run_em_rigid``, and unlike its fused
 kernel, the pair is centred on its shared centroid inside the kernel and d2
@@ -37,12 +40,15 @@ import math
 import torch
 
 from . import _build
+from . import em_cuda
 from .em_cuda import _check_batch, _compact, _horn_rotation
 from .estep_cuda import _EPS, _check, _stream
 from .pairwise import sqdist_diff
 
 # Shared memory a block may use on the card (227 KB) less what the kernel
-# holds statically (block sums and the EM state, under 8 KB).
+# holds statically, rounded up to 8 KB: 8,176 B at its largest, one block of
+# 1,024 threads (ptxas -v; two reduction buffers of 32 warps x 31 floats,
+# the 31 sums and the EM state, 8,164 B, and alignment).
 _SMEM_POINT_BYTES = 227 * 1024 - 8192
 _OBJECTIVES = ("pt2pt", "pt2pl")
 
@@ -71,8 +77,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = _build.load("frg")
     if not getattr(lib, "_probreg_typed", False):
-        lib.probreg_em_frg.argtypes = [_P, _I, _P, _I, _P, _P, _I, _F, _I, _F,
-                                       _I, _F, _F, _I, _F, _I, _P, _P]
+        lib.probreg_em_frg.argtypes = [_P, _I, _P, _I, _P, _P, _P, _I, _I,
+                                       _F, _I, _F, _I, _F, _F, _I, _F, _I,
+                                       _P, _P]
         lib.probreg_em_frg.restype = ctypes.c_int
         lib._probreg_typed = True
     return lib
@@ -134,13 +141,20 @@ def run_em_filterreg_fused_batch(sources, targets, normals=None, smasks=None,
 
 def _frg_cuda(sources, targets, normals, counts, *, pt2pl, w, maxiter, tol,
               update_sigma2, sigma2_decay, min_sigma2, auto_sigma2,
-              sigma2_0):
+              sigma2_0, _cluster=None, _ordered=True):
+    """One launch of K5 by ``em_cuda.launch_plan``. For checks and timings,
+    ``_cluster`` forces the blocks per pair (1, 2, 4 or 8) and
+    ``_ordered=False`` the arrival order."""
     batch, m_cap, n_cap = sources.shape[0], sources.shape[1], targets.shape[1]
+    g, order = em_cuda.launch_plan(batch, counts,
+                                   em_cuda.sm_count(sources.device),
+                                   cluster=_cluster, ordered=_ordered)
     out = sources.new_empty((batch, 16))
     status = _lib().probreg_em_frg(
         sources.data_ptr(), m_cap, targets.data_ptr(), n_cap,
         None if normals is None else normals.data_ptr(),
-        None if counts is None else counts.data_ptr(), batch, w, maxiter,
+        None if counts is None else counts.data_ptr(),
+        None if order is None else order.data_ptr(), batch, g, w, maxiter,
         tol, int(update_sigma2), sigma2_decay, min_sigma2, int(auto_sigma2),
         sigma2_0, int(pt2pl), out.data_ptr(), _stream(sources))
     _check(status, "em_frg")

@@ -3,8 +3,11 @@
 Counterpart of the ICP part of probreg_tpu/ops/em_pallas.py
 (``_icp_kernel``): ``run_icp_fused`` and ``run_icp_fused_batch`` run every
 ICP iteration of small 3-D pairs, the stop test included, inside one launch
-of ``csrc/icp.cu``: one thread block per pair, the grid is the batch (the
-reference launches once per pair).
+of ``csrc/icp.cu`` for the whole batch (the reference launches once per
+pair). A pair runs on one block of 1,024 threads or, when the batch leaves
+SMs idle, on a thread-block cluster of 2-8 blocks, and a ragged batch of
+more blocks than SMs runs largest first (``em_cuda.launch_plan``, K1's
+rule). Neither changes a bit of any pair's result.
 
 Each iteration matches every source point to its nearest target (d2 from
 differences, ties to the first index, as the reference's twin
@@ -40,7 +43,9 @@ from .estep_cuda import _check, _stream
 from .pairwise import sqdist_diff
 
 # Shared memory a block may use on the card (227 KB) less what the kernel
-# holds statically (block sums and the ICP state, under 4 KB).
+# holds statically, rounded up to 4 KB: 3,488 B at its largest, one block of
+# 1,024 threads (ptxas -v; two reduction buffers of 32 warps x 13 floats,
+# the 13 sums and the ICP state, 3,484 B, and alignment).
 _SMEM_POINT_BYTES = 227 * 1024 - 4096
 
 LAUNCHES = {"icp": 0}
@@ -75,8 +80,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = _build.load("icp")
     if not getattr(lib, "_probreg_typed", False):
-        lib.probreg_icp.argtypes = [_P, _I, _P, _I, _P, _P, _I, _I, _F, _P,
-                                    _P]
+        lib.probreg_icp.argtypes = [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I,
+                                    _F, _P, _P]
         lib.probreg_icp.restype = ctypes.c_int
         lib._probreg_typed = True
     return lib
@@ -126,13 +131,21 @@ def run_icp_fused(source, target, rot0=None, t0=None, smask=None,
     return rot[0], t[0], rmse[0], it[0]
 
 
-def _icp_cuda(sources, targets, counts, init, *, maxiter, tol):
+def _icp_cuda(sources, targets, counts, init, *, maxiter, tol,
+              _cluster=None, _ordered=True):
+    """One launch of K7 by ``em_cuda.launch_plan``. For checks and timings,
+    ``_cluster`` forces the blocks per pair (1, 2, 4 or 8) and
+    ``_ordered=False`` the arrival order."""
     batch, m_cap, n_cap = sources.shape[0], sources.shape[1], targets.shape[1]
+    g, order = em_cuda.launch_plan(batch, counts,
+                                   em_cuda.sm_count(sources.device),
+                                   cluster=_cluster, ordered=_ordered)
     out = sources.new_empty((batch, 16))
     status = _lib().probreg_icp(
         sources.data_ptr(), m_cap, targets.data_ptr(), n_cap,
         None if counts is None else counts.data_ptr(),
-        None if init is None else init.data_ptr(), batch, maxiter, tol,
+        None if order is None else order.data_ptr(),
+        None if init is None else init.data_ptr(), batch, g, maxiter, tol,
         out.data_ptr(), _stream(sources))
     _check(status, "icp")
     LAUNCHES["icp"] += 1

@@ -650,6 +650,106 @@ def test_frg_batch_is_one_launch_and_equals_single_pairs(dev, objective):
     _frg_close(got, want, 1e-5, 1e-5)
 
 
+def _masks_700_900(dev, seed=8):
+    """(1, 1024) masks with 700 and 900 valid points scattered."""
+    rng = np.random.default_rng(seed)
+    smask = torch.zeros(1024, device=dev)
+    tmask = torch.zeros(1024, device=dev)
+    smask[torch.as_tensor(rng.permutation(1024)[:700])] = 1.0
+    tmask[torch.as_tensor(rng.permutation(1024)[:900])] = 1.0
+    return smask[None], tmask[None]
+
+
+def _frg_case(case, dev):
+    """(source, target, normals, smask, tmask) of a single-pair case: the
+    bunny (normals pointing away from the target's centroid), a 1024 x 1024
+    surface pair, and that pair with 700 and 900 valid points."""
+    if case == "bunny":
+        src, tgt = _bunny(dev)
+        nrm = tgt - tgt.mean(0)
+        nrm = nrm / nrm.norm(dim=1, keepdim=True)
+        return src, tgt, nrm, None, None
+    src, tgt, nrm = _frg_pair(1024, 1024, 41, dev)
+    masks = _masks_700_900(dev) if case.startswith("masked") else (None,
+                                                                  None)
+    return (src, tgt, nrm, *masks)
+
+
+@pytest.mark.parametrize("case", ["bunny", "1024x1024", "masked 700/900"])
+@pytest.mark.parametrize("objective,update_sigma2", [("pt2pt", False),
+                                                     ("pt2pt", True),
+                                                     ("pt2pl", False),
+                                                     ("pt2pl", True)])
+def test_frg_same_bits_for_every_cluster_size(dev, case, objective,
+                                              update_sigma2):
+    """K5 on one block and on clusters of 2, 4 and 8 blocks (forced with
+    _frg_cuda's private argument) gives the same bits as the default (a
+    cluster of 8 for one pair), at a fixed depth and with the loop test."""
+    src, tgt, nrm, smask, tmask = _frg_case(case, dev)
+    pt2pl = objective == "pt2pl"
+    s_c, t_c, n_c, counts = pfc.compact_batch(
+        src[None], tgt[None], nrm[None] if pt2pl else None, smask, tmask)
+    assert pem.cluster_size(1, pem.sm_count(dev)) == 8
+    for maxiter, tol in ((20, 0.0), (100, 1e-3)):
+        kw = dict(pt2pl=pt2pl, w=0.05, maxiter=maxiter, tol=tol,
+                  update_sigma2=update_sigma2, sigma2_decay=0.9,
+                  min_sigma2=1e-4, auto_sigma2=True, sigma2_0=0.0)
+        outs = [pfc._frg_cuda(s_c, t_c, n_c, counts, **kw, _cluster=g)
+                for g in (1, 2, 4, 8)]
+        outs.append(pfc._frg_cuda(s_c, t_c, n_c, counts, **kw))
+        assert bool(torch.isfinite(outs[0]).all())
+        for out in outs[1:]:
+            assert torch.equal(out, outs[0])
+
+
+def _ragged_batch(pairs, cap, dev):
+    """Pads (source, target[, normals]) pairs to (B, cap, 3) tensors with
+    their valid points first, and the (B, cap) masks."""
+    b = len(pairs)
+    srcs, tgts, nrms = (torch.zeros((b, cap, 3), device=dev)
+                        for _ in range(3))
+    smask, tmask = (torch.zeros((b, cap), device=dev) for _ in range(2))
+    for i, p in enumerate(pairs):
+        m, n = p[0].shape[0], p[1].shape[0]
+        srcs[i, :m], smask[i, :m] = p[0], 1.0
+        tgts[i, :n], tmask[i, :n] = p[1], 1.0
+        if len(p) > 2:
+            nrms[i, :n] = p[2]
+    return srcs, tgts, nrms, smask, tmask
+
+
+@pytest.mark.parametrize("objective", ["pt2pt", "pt2pl"])
+def test_frg_batch_in_work_order_keeps_caller_order_and_pairs(dev,
+                                                              objective):
+    """A ragged batch of more pairs than SMs runs K5 on one block a pair in
+    work_order (largest m n first): one launch, each row the caller's pair,
+    equal bit for bit to that pair alone (on a cluster of 8)."""
+    rng = np.random.default_rng(13)
+    sms = pem.sm_count(dev)
+    batch = sms + 12
+    sizes = rng.integers(64, 300, (batch, 2))
+    pairs = [_frg_pair(int(m), int(n), 200 + i, dev)
+             for i, (m, n) in enumerate(sizes)]
+    srcs, tgts, nrms, smask, tmask = _ragged_batch(pairs, 300, dev)
+    pt2pl = objective == "pt2pl"
+    nrms = nrms if pt2pl else None
+    _, _, _, counts = pfc.compact_batch(srcs, tgts, nrms, smask, tmask)
+    g, order = pem.launch_plan(batch, counts, sms)
+    assert g == 1 and order.cpu().tolist() != list(range(batch))
+    kw = dict(objective=objective, w=0.05, maxiter=50, tol=1e-3,
+              update_sigma2=pt2pl, sigma2_decay=0.9)
+    before = pfc.LAUNCHES["frg_" + objective]
+    got = pfc.run_em_filterreg_fused_batch(srcs, tgts, nrms, smask, tmask,
+                                           **kw)
+    assert pfc.LAUNCHES["frg_" + objective] == before + 1
+    assert bool(torch.isfinite(got[0]).all())
+    for i, (s, t, nv) in enumerate(pairs):
+        one = pfc.run_em_filterreg_fused_batch(
+            s[None], t[None], nv[None] if pt2pl else None, **kw)
+        for a, c in zip(got, one):
+            assert torch.equal(a[i], c[0])
+
+
 @pytest.mark.parametrize("channels", [1, 2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("h2", [2.0, 0.02, 1e-3])
 @pytest.mark.parametrize("dim,tile", [(2, 256), (3, 256), (3, 96), (4, 256),
@@ -819,6 +919,94 @@ def test_icp_kernel_masked_equals_unpadded_and_batch_one_launch(dev):
     assert pic.LAUNCHES["icp"] == 2
     assert torch.equal(res[0].transformation.rot, single.transformation.rot)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["bunny", "1024x1024", "masked 700/900"])
+def test_icp_same_bits_for_every_cluster_size(dev, case):
+    """K7 on one block and on clusters of 2, 4 and 8 blocks (forced with
+    _icp_cuda's private argument) gives the same bits as the default (a
+    cluster of 8 for one pair), at a fixed depth and with the stop test,
+    from the identity and from a warm start."""
+    from probreg_tpu_torch.ops import icp_cuda as pic
+
+    if case == "bunny":
+        src, tgt = _bunny(dev)
+        smask = tmask = None
+    else:
+        src, tgt = _icp_pair(1024, 1024, 43, dev)
+        smask, tmask = (_masks_700_900(dev, 9) if case.startswith("masked")
+                        else (None, None))
+    s_c, t_c, counts = pic.compact_batch(src[None], tgt[None], smask, tmask)
+    init = pic._init_rows(1, torch.eye(3, device=dev),
+                          torch.tensor([0.01, 0.0, -0.01], device=dev), s_c)
+    assert pem.cluster_size(1, pem.sm_count(dev)) == 8
+    for maxiter, tol in ((20, 0.0), (100, 1e-6)):
+        for start in (None, init):
+            kw = dict(maxiter=maxiter, tol=tol)
+            outs = [pic._icp_cuda(s_c, t_c, counts, start, **kw, _cluster=g)
+                    for g in (1, 2, 4, 8)]
+            outs.append(pic._icp_cuda(s_c, t_c, counts, start, **kw))
+            assert bool(torch.isfinite(outs[0]).all())
+            for out in outs[1:]:
+                assert torch.equal(out, outs[0])
+
+
+def test_icp_batch_in_work_order_keeps_caller_order_and_pairs(dev):
+    """A ragged batch of more pairs than SMs runs K7 on one block a pair in
+    work_order (largest m n first): one launch, each row the caller's pair,
+    equal bit for bit to that pair alone (on a cluster of 8)."""
+    from probreg_tpu_torch.ops import icp_cuda as pic
+
+    rng = np.random.default_rng(14)
+    sms = pem.sm_count(dev)
+    batch = sms + 12
+    sizes = rng.integers(64, 300, (batch, 2))
+    pairs = [_icp_pair(int(m), int(n), 300 + i, dev)
+             for i, (m, n) in enumerate(sizes)]
+    srcs, tgts, _, smask, tmask = _ragged_batch(pairs, 300, dev)
+    _, _, counts = pic.compact_batch(srcs, tgts, smask, tmask)
+    g, order = pem.launch_plan(batch, counts, sms)
+    assert g == 1 and order.cpu().tolist() != list(range(batch))
+    before = pic.LAUNCHES["icp"]
+    got = pic.run_icp_fused_batch(srcs, tgts, smask, tmask, maxiter=30,
+                                  tol=1e-6)
+    assert pic.LAUNCHES["icp"] == before + 1
+    assert bool(torch.isfinite(got[0]).all())
+    for i, (s, x) in enumerate(pairs):
+        one = pic.run_icp_fused(s, x, maxiter=30, tol=1e-6)
+        for a, c in zip(got, one):
+            assert torch.equal(a[i], c)
+
+
+@pytest.mark.parametrize("kernel,m,n", [("frg_pt2pl", 2803, 2803),
+                                        ("frg_pt2pt", 2803, 2803),
+                                        ("icp", 8, 14264)])
+def test_largest_pair_of_each_gate_launches_on_one_block(dev, kernel, m, n):
+    """The shared-memory gates of K5 and K7 reserve the kernels' static
+    shared memory at one block of 1,024 threads, their largest: the
+    largest pair each gate admits launches there and gives a finite
+    result, and one more point is refused."""
+    from probreg_tpu_torch.ops import icp_cuda as pic
+
+    rng = np.random.default_rng(15)
+    src = torch.as_tensor(rng.uniform(-1, 1, (1, m, 3)), dtype=torch.float32,
+                          device=dev)
+    tgt = torch.as_tensor(rng.uniform(-1, 1, (1, n, 3)), dtype=torch.float32,
+                          device=dev)
+    if kernel == "icp":
+        assert pic.fused_dims_ok(m, n) and not pic.fused_dims_ok(m, n + 1)
+        out = pic._icp_cuda(src, tgt, None, None, maxiter=2, tol=0.0,
+                            _cluster=1)
+    else:
+        assert pfc.fused_dims_ok(m, n) and not pfc.fused_dims_ok(m + 1, n)
+        pt2pl = kernel == "frg_pt2pl"
+        out = pfc._frg_cuda(src, tgt, tgt / tgt.norm(dim=2, keepdim=True)
+                            if pt2pl else None, None, pt2pl=pt2pl, w=0.0,
+                            maxiter=2, tol=0.0, update_sigma2=False,
+                            sigma2_decay=1.0, min_sigma2=1e-4,
+                            auto_sigma2=True, sigma2_0=0.0, _cluster=1)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out[:, :12]).all())
 
 
 def _wstash_inputs(m, n, dim, seed, dev, far=0):

@@ -281,3 +281,93 @@ def test_work_order_is_largest_first_and_its_inverse_restores_order():
     key = (counts[:, 0] * counts[:, 1]).long()
     want = sorted(range(256), key=lambda b: (-int(key[b]), b))
     assert order.tolist() == want
+
+
+def _ragged_counts(batch, seed=3):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(300, 1025, (batch, 2)),
+                           dtype=torch.int32)
+
+
+@pytest.mark.parametrize("case,batch,ragged,want_g,ordered", [
+    ("single pair", 1, False, 8, False),
+    ("64 pairs", 64, True, 2, False),         # 128 blocks fit 132 SMs
+    ("256 ragged pairs", 256, True, 1, True),
+    ("fixed-size batch", 256, False, 1, False),
+])
+def test_launch_plan_blocks_and_order(case, batch, ragged, want_g, ordered):
+    """The launch plan of K1, K5 and K7 on 132 SMs: cluster_size's blocks
+    per pair, and the work order only for a ragged batch whose blocks
+    outnumber the SMs; the hooks force the blocks and the arrival order."""
+    counts = _ragged_counts(batch) if ragged else None
+    g, order = pem.launch_plan(batch, counts, 132)
+    assert g == want_g == pem.cluster_size(batch, 132)
+    if ordered:
+        assert torch.equal(order, pem.work_order(counts))
+    else:
+        assert order is None
+    g, order = pem.launch_plan(batch, counts, 132, cluster=8)
+    assert g == 8
+    assert (order is not None) == ragged      # batch * 8 > 132
+    assert pem.launch_plan(batch, counts, 132, cluster=8,
+                           ordered=False) == (8, None)
+
+
+class _StubLib:
+    """A stand-in for a kernel library: records each call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("kernel", ["frg_pt2pt", "frg_pt2pl", "icp"])
+@pytest.mark.parametrize("batch", [1, 256])
+def test_frg_and_icp_launch_through_the_launch_plan(monkeypatch, kernel,
+                                                    batch):
+    """K5's and K7's wrappers take the blocks per pair and the work order
+    from em_cuda.launch_plan and hand both to their kernel, once per
+    launch (a stub library on the CPU stands in for the built one)."""
+    from probreg_tpu_torch.ops import frg_cuda as pfc
+    from probreg_tpu_torch.ops import icp_cuda as pic
+
+    plans, plan = [], pem.launch_plan
+
+    def spy(*a, **k):
+        plans.append(plan(*a, **k))
+        return plans[-1]
+
+    lib = _StubLib()
+    mod = pic if kernel == "icp" else pfc
+    monkeypatch.setattr(pem, "launch_plan", spy)
+    monkeypatch.setattr(pem, "sm_count", lambda device: 132)
+    monkeypatch.setattr(mod, "_lib", lambda: lib)
+    monkeypatch.setattr(mod, "_stream", lambda t: 0)
+    counts = _ragged_counts(batch)
+    srcs = torch.zeros((batch, 1024, 3))
+    tgts = torch.zeros((batch, 1024, 3))
+    before = dict(mod.LAUNCHES)
+    if kernel == "icp":
+        pic._icp_cuda(srcs, tgts, counts, None, maxiter=30, tol=1e-6)
+        (name, args), = lib.calls
+        order_ptr, g = args[5], args[8]
+    else:
+        pt2pl = kernel == "frg_pt2pl"
+        pfc._frg_cuda(srcs, tgts, tgts if pt2pl else None, counts,
+                      pt2pl=pt2pl, w=0.0, maxiter=50, tol=1e-3,
+                      update_sigma2=False, sigma2_decay=1.0,
+                      min_sigma2=1e-4, auto_sigma2=True, sigma2_0=0.0)
+        (name, args), = lib.calls
+        order_ptr, g = args[6], args[8]
+    (want_g, want_order), = plans
+    assert g == want_g == (8 if batch == 1 else 1)
+    assert order_ptr == (None if want_order is None
+                         else want_order.data_ptr())
+    assert (want_order is None) == (batch == 1)
+    key = "icp" if kernel == "icp" else kernel
+    assert mod.LAUNCHES[key] == before[key] + 1

@@ -16,7 +16,9 @@ before it and read just after:
 * the same clouds with use_pallas=True at a smaller depth: the streaming EM
   with the two-pass kernels (fused_den, fused_moment);
 * the public E-step on a 1,000-point pair (RigidCPD.expectation_step):
-  the one-launch small E-step kernel (estep_small);
+  one launch of the small E-step kernel (estep_small); then the step API
+  (expectation_step + maximization_step, 50 iterations) timed on the bunny
+  and on a 1,000-point pair;
 * rigid and affine CPD on the bunny (bench.py's configuration): the whole
   EM in one launch of the whole-EM kernel (em_rigid, em_affine);
 * registration_cpd_batch on a ragged batch of 256 pairs of 300-1024 points
@@ -78,11 +80,15 @@ Exits non-zero without a CUDA device or when any phase fails.
 
     python3 chip_smoke.py --parent DIR
 
-instead holds the whole-loop kernels of this checkout (K1 for CPD, K5 for
-FilterReg, K7 for ICP) bit for bit against those built from another
-checkout DIR, at 1, 2, 4 and 8 blocks per pair and the default; times
-them and the GMMTree registration kernel (K10) of both; and prints the
-fixed cost of a K1, K5 and K7 iteration on a 32 x 32 pair.
+instead times the small E-step kernel (K2) of this checkout and of another
+checkout DIR at every shape check_small runs, with the largest difference
+between them, and the step API (RigidCPD.expectation_step +
+maximization_step) of both in fresh processes; holds the whole-loop
+kernels of this checkout (K1 for CPD, K5 for FilterReg, K7 for ICP) bit
+for bit against those built from DIR, at 1, 2, 4 and 8 blocks per pair
+and the default; times them and the GMMTree registration kernel (K10) of
+both; and prints the fixed cost of a K1, K5 and K7 iteration on a 32 x 32
+pair.
 """
 
 import json
@@ -220,6 +226,16 @@ MESH_AGREE = 1e-4
 K11_ROUTE = ("stash_den_raw", "stash_finish", "stash_moment")
 # Repetitions of the den all_reduce when it is timed.
 REDUCE_REPS = 200
+# K2 (estep_small) at (M, N, D): the kernel table's 1000^2 row, the same
+# in 2-D, the gate's tall and wide corners (M * N = 2^20) and bench.py's
+# bunny size.
+SMALL_SHAPES = ((1000, 1000, 3), (1000, 1000, 2), (32768, 32, 3),
+                (32, 32768, 3), (390, 390, 3))
+# Back-to-back launches in one timed run of K2 or of the empty kernel.
+SMALL_REPS = 200
+# E-step + M-step pairs of the step API in one timed run (step_api_ms).
+STEP_ITERS = 50
+STEP_QUADS = 5  # --parent: the step API's order parent, this, this, parent
 
 
 def flops_wstash(channels: int):
@@ -332,49 +348,125 @@ def large_clouds(dev):
     return src, tgt, rot
 
 
-def check_small(dev, kernels):
-    from probreg_tpu_torch.ops import estep_cuda as ec
-    from probreg_tpu_torch.utils import math_utils
+def device_launches(fn, calls=20):
+    """Device activities (kernels, copies, fills) per call of ``fn``, their
+    device us per call, and the us per call of each activity by name, from
+    torch.profiler (CUPTI) over ``calls`` calls after a warm one."""
+    from torch.profiler import ProfilerActivity, profile
 
-    log("[K2 estep_small] M = N = 1000")
-    rng = np.random.default_rng(1)
-    m = n = 1000
-    ys = torch.as_tensor(rng.uniform(-1, 1, (m, 3)), dtype=torch.float32,
-                         device=dev)
-    xs = torch.as_tensor(rng.uniform(-1, 1, (n, 3)), dtype=torch.float32,
-                         device=dev)
-    sigma2 = math_utils.squared_kernel_sum(ys, xs) * 0.05
-    scal = ec._scalars(sigma2, 0.05, m, n, 3, dev)
-    mom = ec.estep_small(ys, xs, sigma2, 0.05)
-    plain = ec.estep_small_plain(ys, xs, scal)
+    fn()
     torch.cuda.synchronize()
-    err = max(compare(k, a, b) for k, a, b in
-              zip(("pt1", "p1", "px", "xx"), mom[:2] + (mom.px, mom.xx),
-                  plain))
-    # Time raw launches on prepared buffers (the wrapper's packing is not
-    # the kernel's time).
-    y4, x4 = ec._pack(ys), ec._pack(xs)
-    blocks = -(-n // ec._SMALL_COLS)
-    bufs = [y4.new_empty(n), y4.new_empty((blocks, m, 4)),
-            y4.new_empty(blocks),
-            torch.zeros(1, dtype=torch.int32, device=dev),
-            y4.new_empty((m, 4)), y4.new_empty(())]
-    lib, stream = ec._lib(), ec._stream(y4)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    count = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            count += 1
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / calls)
+    return count / calls, sum(by_name.values()), by_name
 
-    def launch():
-        ec._check(lib.probreg_estep_small(
-            y4.data_ptr(), m, x4.data_ptr(), n, scal.data_ptr(),
-            *[b.data_ptr() for b in bufs], stream), "estep_small")
 
-    reps = 200
-    ms = timed(lambda: [launch() for _ in range(reps)], 5) / reps
-    plain_ms = timed(lambda: ec.estep_small_plain(ys, xs, scal), 20)
-    nbytes = 12 * (m + n) + 4 * n + 16 * m + 12
-    b_ms, b_by = bound(nbytes, m * n * (FLOPS_GAUSS + FLOPS_MOMENTS))
-    log(f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.5f} "
-        f"ms ({b_by})")
-    kernels["estep_small"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=b_ms, bound_by=b_by)
+def device_us(fn, calls=20) -> float:
+    """Device us per call of ``fn`` (device_launches)."""
+    return device_launches(fn, calls)[1]
+
+
+def small_flat(mom):
+    """K2's five outputs in one f32 vector, for bitwise comparisons."""
+    return torch.cat([mom.pt1, mom.p1, mom.px.reshape(-1),
+                      torch.stack([mom.n_p, mom.xx])])
+
+
+def check_small(dev, kernels):
+    """K2 at every SMALL_SHAPES shape: held to its plain version (compare)
+    and to the plain version in f64 (within compare()'s tolerance, or
+    PYR_ESTEP_SPREAD times the f32 plain version's own distance from it);
+    the same bits on one block, two blocks and the default grid; the raw
+    launch and the whole estep_small call timed beside the empty kernel's
+    launch through the same ctypes path, its arguments built once as K2's
+    are (K2's floor); the device launches of a whole call counted with
+    torch.profiler. The kernels line takes the 1000^2, D = 3 row: ``ms``
+    is the host-timed raw launch (SMALL_REPS back to back), ``device_ms``
+    the kernel's device time (torch.profiler)."""
+    from probreg_tpu_torch.ops import estep_cuda as ec
+
+    def floor_ms(coop):
+        empty = ec.empty_launcher(dev, coop)
+        return (timed(lambda: [empty() for _ in range(SMALL_REPS)], 5)
+                / SMALL_REPS, device_us(empty) / 1e3)
+
+    (floor, dev_floor), (floor_coop, dev_floor_coop) = (floor_ms(False),
+                                                        floor_ms(True))
+    log(f"[K2 estep_small] floor: an empty kernel through the same path, "
+        f"{SMALL_REPS} back to back: {floor:.4f} ms a launch, "
+        f"{floor_coop:.4f} ms as a cooperative launch (the host's issue "
+        f"rate); on the device (torch.profiler) {dev_floor:.5f} / "
+        f"{dev_floor_coop:.5f} ms")
+    names = ("pt1", "p1", "px", "n_p", "xx")
+    for m, n, dim in SMALL_SHAPES:
+        ys, xs, sigma2, w = small_case(m, n, dim, dev)
+        scal = ec._scalars(sigma2, w, m, n, dim, dev)
+        plan = ec.small_plan(m, n)
+        log(f"[K2 estep_small] {m} x {n}, D = {dim}: tiles of {plan.rows} x "
+            f"{plan.cols}, {plan.tiles} of them, "
+            f"{min(plan.tiles, ec.small_capacity(dim, dev))} blocks")
+        mom = ec.estep_small(ys, xs, sigma2, w)
+        got = (mom.pt1, mom.p1, mom.px, mom.n_p, mom.xx)
+        pt1, p1, px, xx = ec.estep_small_plain(ys, xs, scal)
+        plain = (pt1, p1, px, p1.sum(), xx)
+        pt1, p1, px, xx = ec.estep_small_plain(ys.double(), xs.double(),
+                                               scal.double())
+        f64 = (pt1, p1, px, p1.sum(), xx)
+        err = max(compare(k, a, b) for k, a, b in zip(names, got, plain))
+        for k, a, b, c in zip(names, got, plain, f64):
+            d_k = float((a.double() - c).abs().max())
+            d_p = float((b.double() - c).abs().max())
+            scale = float(c.abs().max())
+            log(f"  {k:6s} from f64: kernel {d_k:.3e}, plain {d_p:.3e}")
+            if not (d_k <= RTOL * scale + ATOL
+                    or d_k <= PYR_ESTEP_SPREAD * d_p):
+                raise AssertionError(f"K2 {k} at {m} x {n}: {d_k} from f64")
+        outs = []
+        for kw in (dict(_blocks=1), dict(_blocks=2), {}):
+            launch, out = ec.small_launcher(ys, xs, sigma2, w, **kw)
+            launch()
+            outs.append(small_flat(out))
+        same = [bool(torch.equal(outs[2], o)) for o in outs]
+        log(f"  bits equal on 1 block, 2 blocks, the default grid: {same}; "
+            f"equal to estep_small's: "
+            f"{bool(torch.equal(outs[2], small_flat(mom)))}")
+        if not all(same) or not torch.equal(outs[2], small_flat(mom)):
+            raise AssertionError(f"K2's bits depend on the grid at {m} x {n}")
+        one, _ = ec.small_launcher(ys, xs, sigma2, w)
+        raw = timed(lambda: [one() for _ in range(SMALL_REPS)],
+                    5) / SMALL_REPS
+        dev_ms = device_us(one) / 1e3
+        whole = timed(lambda: ec.estep_small(ys, xs, sigma2, w), 50)
+        count, whole_dev, acts = device_launches(
+            lambda: ec.estep_small(ys, xs, sigma2, w))
+        plain_ms = timed(lambda: ec.estep_small_plain(ys, xs, scal), 20)
+        nbytes = 4 * dim * (m + n) + 4 + 4 * n + 4 * m * (1 + dim) + 8
+        b_ms, b_by = bound(nbytes, m * n * (FLOPS_GAUSS + FLOPS_MOMENTS))
+        log(f"  device time (torch.profiler): K2 {dev_ms:.5f} ms "
+            f"({dev_ms / dev_floor_coop:.2f} x the empty cooperative "
+            f"launch's); bound {b_ms:.5f} ms ({b_by})")
+        log(f"  host-timed: {SMALL_REPS} raw launches back to back {raw:.4f}"
+            f" ms each ({raw / floor_coop:.2f} x the empty one's), the "
+            f"whole estep_small call {whole:.4f} ms ({count:g} device "
+            f"launches, {whole_dev / 1e3:.5f} ms of device time: "
+            f"{sorted(acts)}); plain {plain_ms:.4f} ms")
+        if count > 2:
+            raise AssertionError(f"estep_small made {count} launches")
+        if (m, n, dim) == SMALL_SHAPES[0]:
+            kernels["estep_small"] = dict(max_abs_err=err, ms=raw,
+                                          device_ms=dev_ms,
+                                          plain_ms=plain_ms, bound_ms=b_ms,
+                                          bound_by=b_by)
 
 
 def active_pairs(mask, m, n, tile_m, tile_n) -> float:
@@ -1029,6 +1121,16 @@ def run_small_estep_path(dev, launches):
                        torch.as_tensor(tgt, device=dev), 0.1, 0.05)
     for name, a, b in zip(("pt1", "p1", "px", "n_p"), res, ref):
         compare(name, a, b)
+    # The step API as a user drives it: E-step and M-step in turn.
+    for name, (s, t) in step_clouds().items():
+        ms, out = step_api_ms(s, t)
+        sigma2 = float(out.sigma2)
+        log(f"[step API] {name}, {STEP_ITERS} iterations of "
+            f"expectation_step + maximization_step: {ms:.4f} ms per "
+            f"iteration, final sigma2 {sigma2:.4g}")
+        if not (math.isfinite(sigma2)
+                and bool(torch.isfinite(out.transformation.rot).all())):
+            raise AssertionError(f"step API on {name}: non-finite result")
 
 
 def run_bunny(dev, launches):
@@ -3425,9 +3527,9 @@ def run_mesh_on_one_card(dev, launches, shared):
 def parent_libs(parent):
     """Build ``parent``'s csrc/{em,gmmtree,frg,icp}.cu with the port's
     flags (one nvcc each, started together) into ``parent``/build and load
-    them: K1 (with a cluster size and a work order), K5 and K7 (one block
-    per pair) get the parent's own signatures; K10's is this checkout's
-    (parent_reg)."""
+    them: K1 (with a cluster size and a work order) gets the parent's own
+    signature; K5, K7 and K10 run through this checkout's wrappers, whose C
+    signatures the parent shares (through_parent)."""
     import ctypes
 
     from probreg_tpu_torch.ops import _build
@@ -3451,9 +3553,6 @@ def parent_libs(parent):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     libs["em"].probreg_em_cpd.argtypes = [P, I, P, I, P, P, I, I, F, I, F,
                                           I, I, P, P]
-    libs["frg"].probreg_em_frg.argtypes = [P, I, P, I, P, P, I, F, I, F, I,
-                                           F, F, I, F, I, P, P]
-    libs["icp"].probreg_icp.argtypes = [P, I, P, I, P, P, I, I, F, P, P]
     return libs
 
 
@@ -3475,34 +3574,36 @@ def parent_em(lib, s_c, t_c, counts, *, affine, w, maxiter, tol,
     return out
 
 
-def parent_frg(lib, s_c, t_c, n_c, counts, *, pt2pl, w, maxiter, tol,
-               update_sigma2, sigma2_decay, min_sigma2, auto_sigma2,
-               sigma2_0):
-    """The parent's K5: one block per pair, arrival order."""
-    from probreg_tpu_torch.ops.estep_cuda import _check, _stream
+def through_parent(lib, name, fn, *a, **kw):
+    """``fn``, a wrapper of this checkout, with csrc/``name``.cu's library
+    replaced by the parent's build: for kernels whose C signature the two
+    checkouts share."""
+    from probreg_tpu_torch.ops import _build
 
-    out = s_c.new_empty((s_c.shape[0], 16))
-    _check(lib.probreg_em_frg(
-        s_c.data_ptr(), s_c.shape[1], t_c.data_ptr(), t_c.shape[1],
-        None if n_c is None else n_c.data_ptr(),
-        None if counts is None else counts.data_ptr(), s_c.shape[0], w,
-        maxiter, tol, int(update_sigma2), sigma2_decay, min_sigma2,
-        int(auto_sigma2), sigma2_0, int(pt2pl), out.data_ptr(),
-        _stream(s_c)), "parent em_frg")
-    return out
+    own = _build.load
+    _build.load = lambda n: lib if n == name else own(n)
+    try:
+        return fn(*a, **kw)
+    finally:
+        _build.load = own
 
 
-def parent_icp(lib, s_c, t_c, counts, init, *, maxiter, tol):
-    """The parent's K7: one block per pair, arrival order."""
-    from probreg_tpu_torch.ops.estep_cuda import _check, _stream
+def parent_frg(lib, s_c, t_c, n_c, counts, **kw):
+    """The parent's K5 through this checkout's wrapper, whose C signature
+    the parent shares."""
+    from probreg_tpu_torch.ops import frg_cuda as fc
 
-    out = s_c.new_empty((s_c.shape[0], 16))
-    _check(lib.probreg_icp(
-        s_c.data_ptr(), s_c.shape[1], t_c.data_ptr(), t_c.shape[1],
-        None if counts is None else counts.data_ptr(),
-        None if init is None else init.data_ptr(), s_c.shape[0], maxiter,
-        tol, out.data_ptr(), _stream(s_c)), "parent icp")
-    return out
+    return through_parent(lib, "frg", fc._frg_cuda, s_c, t_c, n_c, counts,
+                          **kw)
+
+
+def parent_icp(lib, s_c, t_c, counts, init, **kw):
+    """The parent's K7 through this checkout's wrapper, whose C signature
+    the parent shares."""
+    from probreg_tpu_torch.ops import icp_cuda as ic
+
+    return through_parent(lib, "icp", ic._icp_cuda, s_c, t_c, counts, init,
+                          **kw)
 
 
 def against_parent(label, parent_fn, this_fn, depths, batch):
@@ -3543,19 +3644,255 @@ def against_parent(label, parent_fn, this_fn, depths, batch):
 def parent_reg(lib, ys, counts, table, init, **kw):
     """The parent's K10 through this checkout's wrapper: its C signature
     (with blocks per pair and scratch) is this checkout's."""
-    from probreg_tpu_torch.ops import _build
     from probreg_tpu_torch.ops import gmmtree_cuda as gc
 
-    own = _build.load
-    _build.load = lambda name: lib if name == "gmmtree" else own(name)
-    try:
-        return gc._reg_cuda(ys, counts, table, init, **kw)
-    finally:
-        _build.load = own
+    return through_parent(lib, "gmmtree", gc._reg_cuda, ys, counts, table,
+                          init, **kw)
+
+
+def small_case(m, n, dim, dev, seed=1):
+    """A K2 input of (M, N, D): uniform clouds in [-1, 1]^D, w 0.05 and
+    sigma2 a twentieth of the CPD initializer (the annealed regime, where
+    the normalizers spread over orders of magnitude)."""
+    from probreg_tpu_torch.utils import math_utils
+
+    rng = np.random.default_rng(seed)
+    ys = torch.as_tensor(rng.uniform(-1, 1, (m, dim)), dtype=torch.float32,
+                         device=dev)
+    xs = torch.as_tensor(rng.uniform(-1, 1, (n, dim)), dtype=torch.float32,
+                         device=dev)
+    return ys, xs, math_utils.squared_kernel_sum(ys, xs) * 0.05, 0.05
+
+
+def parent_small(lib, ys, xs, sigma2, w):
+    """The parent's K2 (float4-packed clouds, a ticket, one block per 32
+    targets) as its wrapper called it. Returns (launch, call): launch()
+    reruns the kernel on buffers prepared once, call() does the parent
+    wrapper's whole work (scalars, packing, allocations, launch, n_p) and
+    returns (pt1, p1, px, n_p, xx)."""
+    from probreg_tpu_torch.ops import estep_cuda as ec
+
+    (m, dim), n = ys.shape, xs.shape[0]
+
+    def pack(p):
+        out = p.new_zeros((p.shape[0], 4))
+        out[:, :dim] = p
+        out[:, 3] = (p * p).sum(1)
+        return out
+
+    def run(scal, y4, x4):
+        blocks = -(-n // 32)
+        bufs = [y4.new_empty(n), y4.new_empty((blocks, m, 4)),
+                y4.new_empty(blocks),
+                torch.zeros(1, dtype=torch.int32, device=y4.device),
+                y4.new_empty((m, 4)), y4.new_empty(())]
+
+        def launch():
+            ec._check(lib.probreg_estep_small(
+                y4.data_ptr(), m, x4.data_ptr(), n, scal.data_ptr(),
+                *[b.data_ptr() for b in bufs], ec._stream(y4)),
+                "parent estep_small")
+        return launch, bufs
+
+    launch, _ = run(ec._scalars(sigma2, w, m, n, dim, ys.device), pack(ys),
+                    pack(xs))
+
+    def call():
+        go, bufs = run(ec._scalars(sigma2, w, m, n, dim, ys.device),
+                       pack(ys), pack(xs))
+        go()
+        p1px = bufs[4]
+        return bufs[0], p1px[:, 3], p1px[:, :dim], p1px[:, 3].sum(), bufs[5]
+    return launch, call
+
+
+def parent_estep_lib(parent):
+    """``parent``'s csrc/estep.cu built with the port's flags, its K2 entry
+    typed with the parent's C signature."""
+    import ctypes
+
+    from probreg_tpu_torch.ops import _build
+
+    out_dir = os.path.join(parent, "build", "parent_kernels")
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, "libestep.so")
+    src = os.path.join(parent, "probreg_tpu_torch", "csrc", "estep.cu")
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
+                           src], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the parent's estep.cu:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(out)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.probreg_estep_small.argtypes = [P, I, P, I] + [P] * 8
+    lib.probreg_estep_small.restype = I
+    return lib
+
+
+def step_clouds():
+    """The step API's two pairs: bench.py's bunny (390 points, the target
+    turned 10 degrees about z) and a 1,000-point pair uniform in [-1, 1]^3,
+    the target turned (3, -2, 5) degrees."""
+    from probreg_tpu_torch.utils import se3_op
+
+    rng = np.random.default_rng(2)
+    src = rng.uniform(-1, 1, (1000, 3)).astype(np.float32)
+    rot = se3_op.euler2mat(*np.deg2rad([3.0, -2.0, 5.0])).double().numpy()
+    return {"bunny": bunny_clouds(z_rotation(10.0)),
+            "1000x1000": (src, (src @ rot.T).astype(np.float32))}
+
+
+def step_api_ms(src, tgt, iters=STEP_ITERS, reps=11):
+    """Wall ms per iteration of the step API (RigidCPD.expectation_step,
+    then maximization_step, the moved source and sigma2 carried on) over
+    ``iters`` iterations ending in a synchronize, the median of ``reps``
+    runs after a warm one (the host's clock: a run spreads by tens of
+    percent on a shared host); and the last M-step's result."""
+    from probreg_tpu_torch import cpd
+    from probreg_tpu_torch.utils import math_utils
+
+    dev = torch.device("cuda")
+    s = torch.as_tensor(src, device=dev)
+    t = torch.as_tensor(tgt, device=dev)
+    reg = cpd.RigidCPD(s, device=dev)
+    sigma2_0 = math_utils.squared_kernel_sum(s, t)
+
+    def run():
+        ts, sigma2 = s, sigma2_0
+        for _ in range(iters):
+            res = reg.maximization_step(
+                t, reg.expectation_step(ts, t, sigma2, 0.0))
+            ts, sigma2 = res.transformation.transform(s), res.sigma2
+        torch.cuda.synchronize()
+        return res
+
+    run()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = run()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls)) / iters * 1e3, res
+
+
+def step_api_main(npz):
+    """Print the step API's ms per iteration on the pairs saved in ``npz``
+    as one JSON line (run by step_api_in with the checkout's package first
+    on the path)."""
+    data = np.load(npz)
+    names = sorted({key.rsplit("_", 1)[0] for key in data.files})
+    print(json.dumps({name: step_api_ms(data[f"{name}_src"],
+                                        data[f"{name}_tgt"])[0]
+                      for name in names}), flush=True)
+
+
+def step_api_in(checkout):
+    """step_api_main in a fresh process whose probreg_tpu_torch is
+    ``checkout``'s (its kernels built there at first use); {pair: ms}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    npz = os.path.join(here, "build", "step_clouds.npz")
+    os.makedirs(os.path.dirname(npz), exist_ok=True)
+    np.savez(npz, **{f"{name}_{k}": a for name, pair in step_clouds().items()
+                     for k, a in zip(("src", "tgt"), pair)})
+    checkout = os.path.abspath(checkout)
+    # This file by its path: the checkout may hold a chip_smoke.py of its own.
+    code = ("import importlib.util, sys\n"
+            f"sys.path.insert(0, {checkout!r})\n"
+            "spec = importlib.util.spec_from_file_location("
+            f"'smoke', {os.path.abspath(__file__)!r})\n"
+            "smoke = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(smoke)\n"
+            f"smoke.step_api_main({npz!r})\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=checkout,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"step API run in {checkout} failed:\n"
+                           f"{out.stdout[-3000:]}{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def k2_against_parent(parent, this=True) -> int:
+    """K2 of this checkout against ``parent``'s build at every
+    SMALL_SHAPES shape: the largest difference of each output, the raw
+    launch and the whole call of both in the order parent, this, this,
+    parent; then the step API's ms per iteration in fresh processes,
+    parent, this, this, parent, STEP_QUADS times over: 2 STEP_QUADS pairs
+    of neighbours, each read as this / parent (the host's clock spreads
+    more from run to run than K2's gain, so one pair decides nothing).
+    ``this=False`` times the parent alone.
+    Returns the number of shapes where this checkout's K2 failed."""
+    from probreg_tpu_torch.ops import estep_cuda as ec
+
+    dev = torch.device("cuda")
+    lib = parent_estep_lib(parent)
+    bad = 0
+    for m, n, dim in SMALL_SHAPES:
+        ys, xs, sigma2, w = small_case(m, n, dim, dev)
+        p_launch, p_call = parent_small(lib, ys, xs, sigma2, w)
+        p_raw = [timed(lambda: [p_launch() for _ in range(SMALL_REPS)], 5)
+                 / SMALL_REPS]
+        p_whole = [timed(p_call, 50)]
+        p_dev = [device_us(p_launch) / 1e3]
+        text = f"[K2 against the parent] {m} x {n}, D = {dim}: "
+        if this:
+            want = p_call()
+            got = ec.estep_small(ys, xs, sigma2, w)
+            diff = max(float((a.double() - b.double()).abs().max()
+                             / max(float(b.double().abs().max()), 1e-30))
+                       for a, b in zip((got.pt1, got.p1, got.px, got.n_p,
+                                        got.xx), want))
+            raw, _ = ec.small_launcher(ys, xs, sigma2, w)
+            n_raw, n_whole, n_dev = [], [], []
+            for _ in range(2):
+                n_raw.append(timed(lambda: [raw() for _ in
+                                            range(SMALL_REPS)], 5)
+                             / SMALL_REPS)
+                n_whole.append(timed(lambda: ec.estep_small(ys, xs, sigma2,
+                                                            w), 50))
+                n_dev.append(device_us(raw) / 1e3)
+            text += (f"largest difference from the parent {diff:.3e} of the "
+                     f"output's largest entry; this: device "
+                     f"{n_dev[0]:.5f} / {n_dev[1]:.5f} ms, raw launch "
+                     f"{n_raw[0]:.4f} / {n_raw[1]:.4f} ms, whole call "
+                     f"{n_whole[0]:.4f} / {n_whole[1]:.4f} ms; ")
+            bad += not diff <= RTOL
+        p_raw.append(timed(lambda: [p_launch() for _ in range(SMALL_REPS)], 5)
+                     / SMALL_REPS)
+        p_whole.append(timed(p_call, 50))
+        p_dev.append(device_us(p_launch) / 1e3)
+        log(text + f"parent: device {p_dev[0]:.5f} / {p_dev[1]:.5f} ms, raw "
+            f"launch {p_raw[0]:.4f} / {p_raw[1]:.4f} ms, whole call "
+            f"{p_whole[0]:.4f} / {p_whole[1]:.4f} ms")
+    here = os.path.dirname(os.path.abspath(__file__))
+    order = (["parent", "this", "this", "parent"] * STEP_QUADS if this
+             else ["parent"] * 2)
+    runs = [step_api_in(parent if who == "parent" else here)
+            for who in order]
+    for name in runs[0]:
+        ms = [r[name] for r in runs]
+        log(f"[step API against the parent] {name}, {STEP_ITERS} "
+            f"iterations of expectation_step + maximization_step, ms per "
+            f"iteration ({', '.join(order[:4])}, ...): "
+            + " / ".join(f"{v:.4f}" for v in ms))
+        if this:
+            # Neighbours (0, 1), (2, 3), ...: one parent and one this each.
+            ratio = sorted(ms[i + (order[i] == "parent")]
+                           / ms[i + (order[i] == "this")]
+                           for i in range(0, len(ms), 2))
+            mid = len(ratio) // 2
+            med = (ratio[mid] + ratio[~mid]) / 2
+            log(f"[step API against the parent] {name}: this / parent in "
+                f"{len(ratio)} neighbouring pairs, sorted: "
+                + ", ".join(f"{r:.3f}" for r in ratio)
+                + f"; median {med:.4f}; this lower in "
+                f"{sum(r < 1 for r in ratio)} of {len(ratio)}")
+    return bad
 
 
 def compare_with_parent(parent) -> int:
-    """K1 of this checkout against ``parent``'s build, bit for bit, on the
+    """K2 and the step API of this checkout against ``parent``'s
+    (k2_against_parent). K1 of this checkout against ``parent``'s build,
+    bit for bit, on the
     bunny, a 1024 x 1024 pair, the masked 700/900 pair and both serving
     batches, for clusters of 1, 2, 4 and 8 blocks and the default, at a
     fixed depth and with the loop test; times of both in the order parent,
@@ -3569,6 +3906,7 @@ def compare_with_parent(parent) -> int:
     from probreg_tpu_torch.ops.em_cuda import _compact
 
     dev = torch.device("cuda")
+    bad = k2_against_parent(parent)
     libs = parent_libs(parent)
     rng = np.random.default_rng(5)
     big = rng.uniform(-1, 1, (1024, 3))
@@ -3593,7 +3931,6 @@ def compare_with_parent(parent) -> int:
         cases[name] = em_batch_tensors(batch, dev)
         if name.startswith("affine"):
             cases[name] = cases[name][:2] + (None, None)
-    bad = 0
     for name, (srcs, tgts, sm, tm) in cases.items():
         s_c, t_c, counts = em.compact_batch(srcs, tgts, sm, tm)
         for kind in ("rigid", "affine"):
@@ -3652,7 +3989,7 @@ def compare_with_parent(parent) -> int:
 
 def compare_frg_icp_with_parent(libs, dev) -> int:
     """K5 (pt2pt and pt2pl, update_sigma2 both ways) and K7 of this
-    checkout against the parent's builds (one block per pair), bit for bit,
+    checkout against the parent's builds (through_parent), bit for bit,
     on the bunny, a 1024 x 1024 pair, the masked 700/900 pair and the
     serving batches, for G = 1, 2, 4, 8 and the default, at a fixed depth
     and with the loop test; times in the order parent, this, this, parent;

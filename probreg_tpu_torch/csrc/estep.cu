@@ -1,19 +1,23 @@
 // CPD E-step kernels for Hopper (sm_90a), bound to Python with ctypes.
 //
-// Points arrive packed as float4 (x, y, z, |p|^2), one 16-byte load per
-// point; clouds of dimension < 3 carry zeros in the unused coordinates.
-// Every kernel computes the Gaussian of a pair exactly as the reference's
-// _dist_tile: d2 = max(|y|^2 + |x|^2 - 2 y.x, 0), g = expf(-d2 * inv2s2),
-// in IEEE f32 (FMAs, expf, IEEE division; no fast-math: FTZ or the
-// approximate exp would change results near the 104 cull bound).
+// The two-pass kernels take points packed as float4 (x, y, z, |p|^2), one
+// 16-byte load per point; clouds of dimension < 3 carry zeros in the unused
+// coordinates. K2 reads the (., D) clouds as they are and forms |p|^2
+// itself. Every kernel computes the Gaussian of a pair exactly as the
+// reference's _dist_tile: d2 = max(|y|^2 + |x|^2 - 2 y.x, 0), g =
+// expf(-d2 * inv2s2), in IEEE f32 (FMAs, expf, IEEE division; no
+// fast-math: FTZ or the approximate exp would change results near the 104
+// cull bound).
 //
-// Scalars come from the device (scal = [0.5 / sigma2, outlier c]) so an EM
-// iteration needs no host round trip. Each entry point launches on the
-// caller's stream, allocates nothing and returns cudaGetLastError().
+// Scalars come from the device (scal = [0.5 / sigma2, outlier c]; K2 forms
+// them from sigma2 itself) so an EM iteration needs no host round trip.
+// Each entry point launches on the caller's stream, allocates nothing and
+// returns cudaGetLastError().
 //
 // Reductions across blocks never use float atomics: blocks write partial
-// sums, and the last block to finish (an atomic ticket) adds them up in a
-// fixed order. So the results are deterministic from run to run.
+// sums, and a second pass, or the last block to finish (an atomic ticket),
+// adds them up in a fixed order. So the results are deterministic from run
+// to run.
 
 #include <cuda_runtime.h>
 
@@ -73,98 +77,397 @@ __device__ float block_sum(float v) {
 }
 
 // True in every thread of the block that finishes last among `expected`
-// blocks sharing `ticket`. The caller's global writes before the call are
-// visible to that block (threadfence-reduction pattern); it reads them
-// back with __ldcg, which bypasses the non-coherent L1.
+// blocks sharing `ticket`. The block's global writes before the call are
+// visible to that block: the block barrier orders them before thread 0's
+// fence and ticket, as in cooperative groups' grid barrier. The last block
+// reads them back with __ldcg, which bypasses the non-coherent L1.
 __device__ bool last_block(unsigned int* ticket, unsigned int expected) {
   __shared__ bool is_last;
-  __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0)
+  if (threadIdx.x == 0) {
+    __threadfence();
     is_last = atomicAdd(ticket, 1u) == expected - 1u;
+    if (is_last) __threadfence();
+  }
   __syncthreads();
-  if (is_last) __threadfence();
   return is_last;
 }
 
-// ---------------------------------------------------------------------------
-// K2: the whole small E-step in one launch.
-//
-// Replaces probreg_tpu/ops/estep_pallas.py:_small_kernel (estep_small). The
-// TPU kernel keeps the (M, N) posterior in VMEM; here M * N <= 2^20 pairs
-// and the cost is launch latency plus ~1e6 exps, far below any bound of the
-// card. Each block owns 32 target columns and loops over all M sources, so
-// a column's normalizer is complete inside the block (8 warps x 32 lanes,
-// partials summed in warp order). A second sweep recomputes the exps (twice
-// the exps of the TPU kernel, cheaper than a (M, 32) buffer per block) and
-// writes per-row partials of p1/px; the last block sums them over blocks in
-// block order. pt1 = den_raw / den and p = g / den use divisions as the
-// reference kernel does.
-// ---------------------------------------------------------------------------
-constexpr int kSmallCols = 32;
-constexpr int kSmallThreads = 256;
-
-__global__ void __launch_bounds__(kSmallThreads)
-small_kernel(const float4* __restrict__ ys, int m,
-             const float4* __restrict__ xs, int n,
-             const float* __restrict__ scal,
-             float* __restrict__ pt1,        // (n)
-             float4* __restrict__ part,      // (gridDim.x, m) row partials
-             float* __restrict__ xx_part,    // (gridDim.x)
-             unsigned int* __restrict__ ticket,
-             float4* __restrict__ p1px,      // (m): px in xyz, p1 in w
-             float* __restrict__ xx) {
-  __shared__ float den_w[kSmallThreads / 32][kSmallCols];
-  __shared__ float den_sh[kSmallCols];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = kSmallThreads / 32;
-  const int col = blockIdx.x * kSmallCols + lane;
-  const bool ok = col < n;
-  const float4 xv = ok ? xs[col] : make_float4(0.f, 0.f, 0.f, 0.f);
-  const float inv2s2 = scal[0], c = scal[1];
-
-  float s = 0.0f;
-  if (ok)
-    for (int r = warp; r < m; r += nwarps) s += gauss(ys[r], xv, inv2s2);
-  den_w[warp][lane] = s;
+// Counts the block in at `counter` once its global writes before the call
+// are visible (the pattern of last_block, without the answer).
+__device__ __forceinline__ void arrive(unsigned int* counter) {
   __syncthreads();
-  if (warp == 0) {
-    float den_raw = 0.0f;
-    for (int w = 0; w < nwarps; ++w) den_raw += den_w[w][lane];
-    const float den = (den_raw == 0.0f ? kEpsF32 : den_raw) + c;
-    const float p = den_raw / den;
-    den_sh[lane] = den;
-    if (ok) pt1[col] = p;
-    const float xxv = warp_sum(ok ? p * xv.w : 0.0f);
-    if (lane == 0) xx_part[blockIdx.x] = xxv;
-  }
-  __syncthreads();
-
-  const float den = den_sh[lane];
-  for (int r = warp; r < m; r += nwarps) {
-    const float p = ok ? gauss(ys[r], xv, inv2s2) / den : 0.0f;
-    const float a0 = warp_sum(p * xv.x), a1 = warp_sum(p * xv.y);
-    const float a2 = warp_sum(p * xv.z), a3 = warp_sum(p);
-    if (lane == 0)
-      part[(size_t)blockIdx.x * m + r] = make_float4(a0, a1, a2, a3);
-  }
-
-  if (!last_block(ticket, gridDim.x)) return;
-  for (int r = threadIdx.x; r < m; r += kSmallThreads) {
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int b = 0; b < (int)gridDim.x; ++b) {
-      const float4 v = __ldcg(&part[(size_t)b * m + r]);
-      acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
-    }
-    p1px[r] = acc;
-  }
   if (threadIdx.x == 0) {
-    float t = 0.0f;
-    for (int b = 0; b < (int)gridDim.x; ++b) t += __ldcg(&xx_part[b]);
-    *xx = t;
-    *ticket = 0u;  // ready for another launch on the same buffers
+    __threadfence();
+    atomicAdd(counter, 1u);
   }
 }
+
+// Waits until `count` blocks have arrived at `counter`; their writes are
+// then visible to the whole block (read them with __ldcg). Only a launch
+// whose blocks are all resident (cooperative), or whose arrivals precede it
+// (an earlier launch), may wait.
+__device__ __forceinline__ void wait_for(unsigned int* counter,
+                                         unsigned int count) {
+  if (threadIdx.x == 0) {
+    while (atomicOr(counter, 0u) < count) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// K2: the whole small E-step (M * N <= 2^20, D <= 3) in one cooperative
+// launch.
+//
+// Replaces probreg_tpu/ops/estep_pallas.py:_small_kernel (estep_small). The
+// TPU kernel keeps the (M, N) posterior in VMEM. Here M * N <= 2^20 pairs
+// cost ~2e6 exps, a few microseconds of the FP32 pipe (bound: operations):
+// what costs time is latency, so the design spreads the pairs over every
+// SM and keeps the chain of dependent steps short. The pairs are cut into
+// tiles of R sources x C targets (powers of two from 16 to 256, R C =
+// 4,096 pairs: 16 per thread of a 256-thread block in each phase; C / R
+// near sqrt(N / M), estep_cuda.small_plan), as many tiles as M * N needs
+// whatever the shape; blocks walk the tiles grid-stride, each block every
+// phase-A tile of its share before its phase-B tiles.
+//
+// Phase A, per tile: thread (k, j) holds target j and sums the Gaussians
+// of rows k, k + K, ... (K = 256 / C, four in flight) in row order; the K
+// sums go to den_part[row chunk][column] in k order, and the tile counts
+// in at its column group.
+// Phase B, per tile: once all nr row chunks of its column group have
+// counted in, the tile forms the group's den_raw from their partials
+// (thread (k, j): chunks k, k + K, ... in order, eight loads in flight,
+// then the K sums in k order; every tile of the group forms the same
+// bits), inv_den = 1 / ((den_raw == 0 ? eps : den_raw) + c) and, in the
+// tiles of row chunk 0, pt1 = den_raw inv_den and the group's xx
+// (block_sum of pt1 |x|^2), as K3's den_finish_col. Then thread (q, i)
+// holds source i and sums p = g inv_den (K3's normalisation: an IEEE
+// division per pair was phase B's dearest step) and p x over columns q,
+// q + Q, ... (Q = 256 / R, four in flight) in column order; the Q sums go
+// to part[column group][row] in q order. The last tile of a row chunk to
+// finish (an atomic ticket) finalizes its rows (thread q: groups q, q + Q,
+// ... in order, eight loads in flight, then the Q sums in q order) into
+// p1 and px, and the chunk's n_p (block_sum); the last chunk sums n_p and
+// xx over chunks and groups (thread t: t, t + 256, ... in order, then one
+// block sum of both).
+//
+// A phase-B tile waits only for its own column group, so no grid barrier
+// is needed; the cooperative launch guarantees that every block is
+// resident while some wait (the blocks never exceed
+// probreg_estep_small_capacity). Every sum's association is fixed by (M,
+// N) through the tiles, never by the grid: any block count gives the same
+// bits. No float atomics; the counters are back at 0 when the launch ends.
+// The scalars come from sigma2 (a device scalar or a host
+// value) inside the kernel, as _scalars forms them: inv2s2 = 0.5 / sigma2,
+// c = (2 pi sigma2)^(D / 2) w / (1 - w) M / N. The clouds are read as (M,
+// D) and (N, D) f32; |p|^2 is formed here.
+// ---------------------------------------------------------------------------
+constexpr int kSmallThreads = 256;
+constexpr int kSmallTilePairs = 16 * kSmallThreads;
+
+struct SmallArgs {
+  const float* ys;        // (m, D)
+  const float* xs;        // (n, D)
+  const float* sigma2;    // device f32 scalar, or null: sigma2_val
+  float sigma2_val, w, one_minus_w;
+  int m, n, rows, cols, nr, nc, log_rows, log_cols;
+  float* den_part;        // (nr, n) scratch
+  float* xx_part;         // (nc)
+  float4* part;           // (nc, m): px in xyz, p1 in w
+  float* np_part;         // (nr)
+  unsigned int* tickets;  // 1 + nc + nr, 0 at rest: all, per group, per chunk
+  float* pt1;             // (n)
+  float* p1;              // (m)
+  float* px;              // (m, D)
+  float* stats;           // [n_p, xx]
+};
+
+struct SmallShared {
+  float4 y[kSmallThreads];     // phase A: the tile's rows
+  float4 x[kSmallThreads];     // phase B: the tile's columns
+  float inv[kSmallThreads];    // phase B: their inv_den
+  float red[kSmallThreads];    // the K sums of each column
+  float4 red4[kSmallThreads];  // phase B: the Q sums of each row
+};
+
+// Point i of a (., D) cloud as (x, y, z, |p|^2), zeros past D.
+template <int D>
+__device__ __forceinline__ float4 small_point(const float* __restrict__ p,
+                                              int i) {
+  float4 v = make_float4(p[(size_t)i * D], 0.f, 0.f, 0.f);
+  if (D > 1) v.y = p[(size_t)i * D + 1];
+  if (D > 2) v.z = p[(size_t)i * D + 2];
+  float s = __fmul_rn(v.x, v.x);
+  if (D > 1) s = __fmaf_rn(v.y, v.y, s);
+  if (D > 2) s = __fmaf_rn(v.z, v.z, s);
+  v.w = s;
+  return v;
+}
+
+// The Gaussian of a pair with every rounding spelled out, so both phases
+// form the same g.
+template <int D>
+__device__ __forceinline__ float small_gauss(float4 y, float4 x,
+                                             float inv2s2) {
+  float xy = __fmul_rn(y.x, x.x);
+  if (D > 1) xy = __fmaf_rn(y.y, x.y, xy);
+  if (D > 2) xy = __fmaf_rn(y.z, x.z, xy);
+  const float d2 = fmaxf(__fmaf_rn(-2.0f, xy, __fadd_rn(y.w, x.w)), 0.0f);
+  return expf(__fmul_rn(-d2, inv2s2));
+}
+
+__device__ __forceinline__ void add4(float4& a, float4 v) {
+  a.x = __fadd_rn(a.x, v.x);
+  a.y = __fadd_rn(a.y, v.y);
+  a.z = __fadd_rn(a.z, v.z);
+  a.w = __fadd_rn(a.w, v.w);
+}
+
+__device__ __forceinline__ void add_to(float& a, float v) {
+  a = __fadd_rn(a, v);
+}
+__device__ __forceinline__ void add_to(float4& a, float4 v) { add4(a, v); }
+
+// 0 + v[first] + v[first + step] + ... (indices < count, each times
+// stride) in index order, eight L2 loads in flight.
+template <typename T>
+__device__ __forceinline__ T ordered_sum(const T* __restrict__ v,
+                                         size_t stride, int first, int step,
+                                         int count) {
+  T a{};
+  int q = first;
+  for (; q + 7 * step < count; q += 8 * step) {
+    T b[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      b[u] = __ldcg(v + (size_t)(q + u * step) * stride);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) add_to(a, b[u]);
+  }
+  for (; q < count; q += step) add_to(a, __ldcg(v + (size_t)q * stride));
+  return a;
+}
+
+template <int D>
+__device__ void small_scalars(const SmallArgs& a, float& inv2s2, float& c) {
+  const float s = a.sigma2 ? *a.sigma2 : a.sigma2_val;
+  inv2s2 = __fdiv_rn(0.5f, s);
+  const float base = __fmul_rn(6.2831855f, s);  // f32(2 pi) sigma2
+  float k = D == 1 ? __fsqrt_rn(base) : D == 2 ? base : powf(base, 1.5f);
+  k = __fdiv_rn(__fmul_rn(k, a.w), a.one_minus_w);
+  c = __fdiv_rn(__fmul_rn(k, (float)a.m), (float)a.n);
+}
+
+// Sum of one value per thread over the block in block_sum's order, valid
+// in thread 0; callable again right after.
+__device__ __forceinline__ float small_block_sum(float v) {
+  const float s = block_sum<kSmallThreads>(v);
+  __syncthreads();
+  return s;
+}
+
+// Two such sums at once (one barrier), valid in thread 0.
+__device__ __forceinline__ float2 small_block_sum2(float u, float v) {
+  __shared__ float2 warps[kSmallThreads / 32];
+  u = warp_sum(u);
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) warps[threadIdx.x >> 5] = make_float2(u, v);
+  __syncthreads();
+  float2 s = make_float2(0.0f, 0.0f);
+  if (threadIdx.x == 0)
+    for (int w = 0; w < kSmallThreads / 32; ++w) {
+      s.x += warps[w].x;
+      s.y += warps[w].y;
+    }
+  return s;
+}
+
+template <int D>
+__device__ void small_den_tile(const SmallArgs& a, int tile, float inv2s2,
+                               SmallShared& sh) {
+  const int t = threadIdx.x;
+  const int rc = tile / a.nc, cg = tile - rc * a.nc;
+  const int r0 = rc * a.rows, c0 = cg * a.cols;
+  const int nrows = min(a.rows, a.m - r0), ncols = min(a.cols, a.n - c0);
+  const int j = t & (a.cols - 1), k = t >> a.log_cols;
+  const int kk = kSmallThreads >> a.log_cols;  // K
+  const float4 x = j < ncols ? small_point<D>(a.xs, c0 + j)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();  // the block's previous tile is done with sh
+  for (int i = t; i < nrows; i += kSmallThreads)
+    sh.y[i] = small_point<D>(a.ys, r0 + i);
+  __syncthreads();
+  float s = 0.0f;
+  if (j < ncols) {
+    int i = k;
+    for (; i + 3 * kk < nrows; i += 4 * kk) {
+      const float g0 = small_gauss<D>(sh.y[i], x, inv2s2);
+      const float g1 = small_gauss<D>(sh.y[i + kk], x, inv2s2);
+      const float g2 = small_gauss<D>(sh.y[i + 2 * kk], x, inv2s2);
+      const float g3 = small_gauss<D>(sh.y[i + 3 * kk], x, inv2s2);
+      s = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(s, g0), g1), g2), g3);
+    }
+    for (; i < nrows; i += kk) s = __fadd_rn(s, small_gauss<D>(sh.y[i], x,
+                                                                inv2s2));
+  }
+  sh.red[t] = s;
+  __syncthreads();
+  if (t < ncols) {
+    float d = sh.red[t];
+    for (int q = 1; q < kk; ++q) d = __fadd_rn(d, sh.red[q * a.cols + t]);
+    a.den_part[(size_t)rc * a.n + c0 + t] = d;
+  }
+  arrive(a.tickets + 1 + cg);
+}
+
+template <int D>
+__device__ void small_moment_tile(const SmallArgs& a, int tile,
+                                  float inv2s2, float c, SmallShared& sh) {
+  const int t = threadIdx.x;
+  const int rc = tile / a.nc, cg = tile - rc * a.nc;
+  const int r0 = rc * a.rows, c0 = cg * a.cols;
+  const int nrows = min(a.rows, a.m - r0), ncols = min(a.cols, a.n - c0);
+  const int i = t & (a.rows - 1), q = t >> a.log_rows;
+  const int qq = kSmallThreads >> a.log_rows;  // Q
+  const int j = t & (a.cols - 1), k = t >> a.log_cols;
+  const int kk = kSmallThreads >> a.log_cols;  // K
+  const float4 y = i < nrows ? small_point<D>(a.ys, r0 + i)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 x = j < ncols ? small_point<D>(a.xs, c0 + j)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+  // The column group's normalizers once its phase A is done, summed as
+  // phase A's layout sums a tile (thread k: chunks k, k + K, ... in order,
+  // then the K sums in k order): every tile of the group forms the same
+  // den_raw; the tiles of row chunk 0 write pt1 and the group's xx.
+  wait_for(a.tickets + 1 + cg, a.nr);
+  sh.red[t] = j < ncols ? ordered_sum(a.den_part + c0 + j, a.n, k, kk, a.nr)
+                        : 0.0f;
+  __syncthreads();
+  float xxv = 0.0f;
+  if (t < ncols) {  // k == 0: x is column t's
+    float den_raw = sh.red[t];
+    for (int u = 1; u < kk; ++u)
+      den_raw = __fadd_rn(den_raw, sh.red[u * a.cols + t]);
+    const float inv = __fdiv_rn(
+        1.0f, __fadd_rn(den_raw == 0.0f ? kEpsF32 : den_raw, c));
+    sh.x[t] = x;
+    sh.inv[t] = inv;
+    if (rc == 0) {
+      const float p = __fmul_rn(den_raw, inv);
+      a.pt1[c0 + t] = p;
+      xxv = __fmul_rn(p, x.w);
+    }
+  }
+  if (rc == 0) {
+    const float xx = small_block_sum(xxv);
+    if (t == 0) a.xx_part[cg] = xx;
+  }
+  __syncthreads();
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (i < nrows) {
+    int u = q;  // columns q, q + Q, ...
+    for (; u + 3 * qq < ncols; u += 4 * qq) {
+      const float g0 = small_gauss<D>(y, sh.x[u], inv2s2);
+      const float g1 = small_gauss<D>(y, sh.x[u + qq], inv2s2);
+      const float g2 = small_gauss<D>(y, sh.x[u + 2 * qq], inv2s2);
+      const float g3 = small_gauss<D>(y, sh.x[u + 3 * qq], inv2s2);
+      add_moments(__fmul_rn(g0, sh.inv[u]), sh.x[u], acc);
+      add_moments(__fmul_rn(g1, sh.inv[u + qq]), sh.x[u + qq], acc);
+      add_moments(__fmul_rn(g2, sh.inv[u + 2 * qq]), sh.x[u + 2 * qq], acc);
+      add_moments(__fmul_rn(g3, sh.inv[u + 3 * qq]), sh.x[u + 3 * qq], acc);
+    }
+    for (; u < ncols; u += qq)
+      add_moments(__fmul_rn(small_gauss<D>(y, sh.x[u], inv2s2), sh.inv[u]),
+                  sh.x[u], acc);
+  }
+  sh.red4[t] = acc;
+  __syncthreads();
+  if (t < nrows) {
+    float4 v = sh.red4[t];
+    for (int u = 1; u < qq; ++u) add4(v, sh.red4[u * a.rows + t]);
+    a.part[(size_t)cg * a.m + r0 + t] = v;
+  }
+  unsigned int* ticket = a.tickets + 1 + a.nc + rc;
+  if (!last_block(ticket, a.nc)) return;
+  // The row chunk's finalisation, by the last of its column groups.
+  acc = i < nrows ? ordered_sum(a.part + r0 + i, a.m, q, qq, a.nc)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  sh.red4[t] = acc;
+  __syncthreads();
+  float p1v = 0.0f;
+  if (t < nrows) {
+    float4 v = sh.red4[t];
+    for (int u = 1; u < qq; ++u) add4(v, sh.red4[u * a.rows + t]);
+    const size_t r = (size_t)(r0 + t);
+    a.p1[r] = v.w;
+    a.px[r * D] = v.x;
+    if (D > 1) a.px[r * D + 1] = v.y;
+    if (D > 2) a.px[r * D + 2] = v.z;
+    p1v = v.w;
+  }
+  const float np = small_block_sum(p1v);
+  if (t == 0) {
+    a.np_part[rc] = np;
+    *ticket = 0u;
+  }
+  if (!last_block(a.tickets, a.nr)) return;
+  // n_p and xx, by the last row chunk.
+  const float2 tot =
+      small_block_sum2(ordered_sum(a.np_part, 1, t, kSmallThreads, a.nr),
+                       ordered_sum(a.xx_part, 1, t, kSmallThreads, a.nc));
+  if (t == 0) {
+    a.stats[0] = tot.x;
+    a.stats[1] = tot.y;
+    *a.tickets = 0u;
+  }
+  // Every tile is past its wait: phase A's counters go back to 0.
+  for (int g = t; g < a.nc; g += kSmallThreads) a.tickets[1 + g] = 0u;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kSmallThreads)
+small_kernel(const SmallArgs a) {
+  __shared__ SmallShared sh;
+  float inv2s2, c;
+  small_scalars<D>(a, inv2s2, c);
+  const int tiles = a.nr * a.nc;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+    small_den_tile<D>(a, tile, inv2s2, sh);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+    small_moment_tile<D>(a, tile, inv2s2, c, sh);
+}
+
+template <int D>
+int launch_small(const SmallArgs& a, int blocks, cudaStream_t s) {
+  void* args[] = {(void*)&a};
+  // A refused launch (too many blocks to be resident) also sets the
+  // runtime's last error: read it here so that it is not reported again
+  // by the next launch.
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)small_kernel<D>, dim3(blocks), dim3(kSmallThreads),
+      args, 0, s);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+template <int D>
+int small_capacity(int* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, small_kernel<D>, kSmallThreads, 0);
+  *out = sms * per_sm;
+  return (int)err;
+}
+
+// The floor of a launch through this library: a kernel that does nothing.
+__global__ void empty_kernel(int) {}
 
 // ---------------------------------------------------------------------------
 // Pass A's finalisation, shared by K3 and K12 (inside their pass A) and K11
@@ -538,15 +841,79 @@ int launch_moment_pass(const void* ys, int m, int tile_m, int n_i,
 
 extern "C" {
 
+// K2. ys (m, dim), xs (n, dim) f32; sigma2 a device f32 scalar or null
+// (then sigma2_val); tiles of rows x cols (powers of two from 16 to 256,
+// rows * cols = 4,096); blocks walk them (cooperative launch: at most
+// probreg_estep_small_capacity). work: 4 (nc m) + nr n + nc + nr floats;
+// tickets: 1 + nc + nr, zero, left zero. Outputs pt1 (n), p1 (m), px (m,
+// dim), stats [n_p, xx].
 int probreg_estep_small(const void* ys, int m, const void* xs, int n,
-                        const void* scal, void* pt1, void* part,
-                        void* xx_part, void* ticket, void* p1px, void* xx,
-                        void* stream) {
-  const int blocks = (n + kSmallCols - 1) / kSmallCols;
-  small_kernel<<<blocks, kSmallThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)ys, m, (const float4*)xs, n, (const float*)scal,
-      (float*)pt1, (float4*)part, (float*)xx_part, (unsigned int*)ticket,
-      (float4*)p1px, (float*)xx);
+                        int dim, const void* sigma2, float sigma2_val,
+                        float w, float one_minus_w, int rows, int cols,
+                        int blocks, void* work,
+                        void* tickets, void* pt1, void* p1, void* px,
+                        void* stats, void* stream) {
+  const bool pow2 = rows > 0 && cols > 0 && (rows & (rows - 1)) == 0 &&
+                    (cols & (cols - 1)) == 0;
+  if (!pow2 || rows * cols != kSmallTilePairs || rows > kSmallThreads ||
+      cols > kSmallThreads || m <= 0 || n <= 0 || blocks <= 0 || dim < 1 ||
+      dim > 3)
+    return (int)cudaErrorInvalidValue;
+  SmallArgs a;
+  a.ys = (const float*)ys;
+  a.xs = (const float*)xs;
+  a.sigma2 = (const float*)sigma2;
+  a.sigma2_val = sigma2_val;
+  a.w = w;
+  a.one_minus_w = one_minus_w;
+  a.m = m;
+  a.n = n;
+  a.rows = rows;
+  a.cols = cols;
+  a.nr = (m + rows - 1) / rows;
+  a.nc = (n + cols - 1) / cols;
+  a.log_rows = __builtin_ctz(rows);
+  a.log_cols = __builtin_ctz(cols);
+  a.part = (float4*)work;
+  a.den_part = (float*)(a.part + (size_t)a.nc * m);
+  a.xx_part = a.den_part + (size_t)a.nr * n;
+  a.np_part = a.xx_part + a.nc;
+  a.tickets = (unsigned int*)tickets;
+  a.pt1 = (float*)pt1;
+  a.p1 = (float*)p1;
+  a.px = (float*)px;
+  a.stats = (float*)stats;
+  const auto s = (cudaStream_t)stream;
+  switch (dim) {
+    case 1: return launch_small<1>(a, blocks, s);
+    case 2: return launch_small<2>(a, blocks, s);
+    default: return launch_small<3>(a, blocks, s);
+  }
+}
+
+// The blocks of K2's cooperative kernel for dimension dim that can be
+// resident at once on the current device.
+int probreg_estep_small_capacity(int dim, void* out) {
+  switch (dim) {
+    case 1: return small_capacity<1>((int*)out);
+    case 2: return small_capacity<2>((int*)out);
+    default: return small_capacity<3>((int*)out);
+  }
+}
+
+// One launch of a kernel that does nothing, plain or cooperative.
+int probreg_empty_launch(int cooperative, void* stream) {
+  const auto s = (cudaStream_t)stream;
+  if (cooperative) {
+    int zero = 0;
+    void* args[] = {(void*)&zero};
+    const cudaError_t err = cudaLaunchCooperativeKernel(
+        (const void*)empty_kernel, dim3(1), dim3(32), args, 0, s);
+    const cudaError_t last = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : last);
+  } else {
+    empty_kernel<<<1, 32, 0, s>>>(0);
+  }
   return (int)cudaGetLastError();
 }
 

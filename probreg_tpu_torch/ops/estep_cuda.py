@@ -3,8 +3,11 @@
 Counterpart of the kernels of probreg_tpu/ops/estep_pallas.py on the CPD
 path, with their helpers:
 
-* ``estep_small``: the whole E-step in one launch for M * N <= 2^20
-  (replaces ``_small_kernel``).
+* ``estep_small``: the whole E-step in one cooperative launch for M * N <=
+  2^20 and D <= 3 (replaces ``_small_kernel``): tiles of R sources x C
+  targets spread over every SM (``small_plan``), the scalars formed in the
+  kernel, the clouds read as they are, scratch kept per device and stream
+  (``small_scratch``); one device launch per call.
 * ``estep_auto``: the tile-culled E-step on Morton-sorted clouds (the
   reference's stash E-step), two launches and no stash: pass A
   (``stash_den``, replaces ``_stash_den_kernel``) walks each target stripe's
@@ -53,7 +56,9 @@ kernel launch adds one to ``LAUNCHES[<kernel>]``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -67,7 +72,8 @@ from .spatial import morton_order
 _CUT = 104.0
 _EPS = float(torch.finfo(torch.float32).eps)
 _DEN_THREADS = 256   # columns per pass-A block (csrc/estep.cu kDenThreads)
-_SMALL_COLS = 32     # columns per K2 block (kSmallCols)
+_SMALL_THREADS = 256  # threads of a K2 block (kSmallThreads)
+_SMALL_TILE = 16 * _SMALL_THREADS  # pairs of a K2 tile (kSmallTilePairs)
 _MAX_GRID_Y = 65535
 
 LAUNCHES = {"estep_small": 0, "stash_den": 0, "stash_moment": 0,
@@ -80,9 +86,12 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "probreg_estep_small": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "probreg_estep_small": [_P, _I, _P, _I, _I, _P, _F, _F, _F, _I, _I, _I,
+                            _P, _P, _P, _P, _P, _P, _P],
+    "probreg_estep_small_capacity": [_I, _P],
+    "probreg_empty_launch": [_I, _P],
     "probreg_stash_den": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                           _P, _P],
     "probreg_stash_rows": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P,
@@ -262,34 +271,144 @@ def _capped_tile_n(m: int, tile_m: int, tile_n: int, budget: int,
 
 def estep_small(t_source: torch.Tensor, target: torch.Tensor, sigma2,
                 w: float = 0.0) -> EstepMoments:
-    """Whole E-step in one launch (M * N <= 2^20 pairs)."""
+    """Whole E-step (M * N <= 2^20 pairs, D <= 3): one launch of K2 for
+    CUDA tensors, the plain version for CPU tensors."""
     t_source, target = _check_points(t_source, target)
+    if t_source.is_cuda:
+        launch, out = small_launcher(t_source, target, sigma2, w)
+        launch()
+        return out
     (m, dim), n = t_source.shape, target.shape[0]
     scal = _scalars(sigma2, w, m, n, dim, t_source.device)
-    if t_source.is_cuda:
-        pt1, p1, px, xx = _estep_small_cuda(t_source, target, scal)
-    else:
-        pt1, p1, px, xx = estep_small_plain(t_source, target, scal)
+    pt1, p1, px, xx = estep_small_plain(t_source, target, scal)
     return EstepMoments(pt1, p1, px, p1.sum(), xx)
 
 
-def _estep_small_cuda(t_source, target, scal):
+class SmallPlan(NamedTuple):
+    """K2's tiles: ``rows`` sources x ``cols`` targets, ``nr`` row chunks x
+    ``nc`` column groups."""
+
+    rows: int
+    cols: int
+    nr: int
+    nc: int
+
+    @property
+    def tiles(self) -> int:
+        return self.nr * self.nc
+
+    def scratch(self, m: int, n: int):
+        """(f32 work, int32 counters) that one launch needs: row partials
+        (4 nc m), column partials (nr n), xx per group (nc), n_p per chunk
+        (nr); counters 1 + nc + nr."""
+        nr, nc = self.nr, self.nc
+        return 4 * nc * m + nr * n + nc + nr, 1 + nc + nr
+
+
+@functools.lru_cache(maxsize=1024)
+def small_plan(m: int, n: int) -> SmallPlan:
+    """K2's tiles for an (M, N) E-step. A tile holds 4,096 pairs (16 a
+    thread of 256 in each phase), R x C with both powers of two from 16 to
+    256 and C / R near sqrt(N / M): then a column's finalisation (nr / K
+    partials a thread, K = 256 / C) and a row's (nc / Q, Q = 256 / R) take
+    about as many loads, and the tiles about M N / 4,096. 1000^2 -> 64 x 64
+    (256 tiles, 4 partials a thread each way), 32,768 x 32 -> 256 x 16 and
+    32 x 32,768 -> 16 x 256 (256 tiles, 8 and 2). The sums' association
+    follows the tiles, so it is set by the shape."""
+    log_rows = math.floor(6.5 + 0.5 * math.log2(m / n))
+    rows = 1 << min(max(log_rows, 4), 8)
+    cols = _SMALL_TILE // rows
+    return SmallPlan(rows, cols, -(-m // rows), -(-n // cols))
+
+
+_small_scratch = {}
+
+
+def small_scratch(device, stream: int, work: int, tickets: int):
+    """K2's scratch on ``device`` for launches on ``stream``: f32 work of at
+    least ``work`` and zeroed int32 tickets of at least ``tickets``, kept
+    and grown only when a launch needs more. The kernel writes every work
+    entry it reads and leaves the tickets at zero, so neither is cleared
+    again; growing the tickets is a fill, the only launch besides K2's."""
+    key = (str(device), stream)
+    w_buf, t_buf = _small_scratch.get(key, (None, None))
+    if w_buf is None or w_buf.numel() < work:
+        w_buf = torch.empty(work, dtype=torch.float32, device=device)
+    if t_buf is None or t_buf.numel() < tickets:
+        t_buf = torch.zeros(tickets, dtype=torch.int32, device=device)
+    _small_scratch[key] = (w_buf, t_buf)
+    return w_buf, t_buf
+
+
+_small_capacity = {}
+
+
+def small_capacity(dim: int, device) -> int:
+    """Blocks of K2's cooperative kernel that fit on ``device`` at once."""
+    key = (str(device), dim)
+    if key not in _small_capacity:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _check(_lib().probreg_estep_small_capacity(dim,
+                                                       ctypes.byref(out)),
+                   "estep_small capacity")
+        _small_capacity[key] = out.value
+    return _small_capacity[key]
+
+
+def _sigma2_arg(sigma2, device):
+    """sigma2 for K2: (a device f32 scalar to keep alive, or None; the host
+    value used when there is none). A tensor on the clouds' card is read
+    there (no host sync); anything else is read on the host."""
+    if isinstance(sigma2, torch.Tensor) and sigma2.device == device:
+        if sigma2.dim() or sigma2.dtype != torch.float32:
+            sigma2 = sigma2.reshape(()).to(torch.float32)
+        return sigma2, 0.0
+    return None, float(sigma2)
+
+
+def small_launcher(t_source, target, sigma2, w: float = 0.0, *,
+                   _blocks=None):
+    """(launch, moments) of one K2 E-step on contiguous CUDA f32 clouds:
+    the outputs and scratch are set up here and each ``launch()`` fills
+    them again. ``_blocks`` forces the grid, which changes no bit."""
     (m, dim), n = t_source.shape, target.shape[0]
-    ys, xs = _pack(t_source), _pack(target)
-    blocks = -(-n // _SMALL_COLS)
-    pt1 = ys.new_empty(n)
-    part = ys.new_empty((blocks, m, 4))
-    xx_part = ys.new_empty(blocks)
-    ticket = torch.zeros(1, dtype=torch.int32, device=ys.device)
-    p1px = ys.new_empty((m, 4))
-    xx = ys.new_empty(())
-    status = _lib().probreg_estep_small(
-        ys.data_ptr(), m, xs.data_ptr(), n, scal.data_ptr(), pt1.data_ptr(),
-        part.data_ptr(), xx_part.data_ptr(), ticket.data_ptr(),
-        p1px.data_ptr(), xx.data_ptr(), _stream(ys))
-    _check(status, "estep_small")
-    LAUNCHES["estep_small"] += 1
-    return pt1, p1px[:, 3], p1px[:, :dim], xx
+    dev = t_source.device
+    plan = small_plan(m, n)
+    blocks = _blocks or min(plan.tiles, small_capacity(dim, dev))
+    stream = _stream(t_source)
+    work, tickets = small_scratch(dev, stream, *plan.scratch(m, n))
+    dev_s, host_s = _sigma2_arg(sigma2, dev)
+    out = t_source.new_empty(n + m * (1 + dim) + 2)  # one allocation
+    pt1, p1, stats = out[:n], out[n:n + m], out[-2:]
+    px = out[n + m:n + m * (1 + dim)].view(m, dim)
+    args = (t_source.data_ptr(), m, target.data_ptr(), n, dim,
+            None if dev_s is None else dev_s.data_ptr(), host_s, float(w),
+            1.0 - float(w), plan.rows, plan.cols, blocks, work.data_ptr(),
+            tickets.data_ptr(), pt1.data_ptr(), p1.data_ptr(), px.data_ptr(),
+            stats.data_ptr(), stream)
+    lib = _lib()
+
+    def launch():
+        _check(lib.probreg_estep_small(*args), "estep_small")
+        LAUNCHES["estep_small"] += 1
+
+    # Every tensor the kernel reads or writes lives as long as launch does.
+    launch.tensors = (t_source, target, dev_s, out, work, tickets)
+    return launch, EstepMoments(pt1, p1, px, stats[0], stats[1])
+
+
+def empty_launcher(device, cooperative: bool = False):
+    """``launch()`` of a kernel that does nothing, its arguments set up
+    here as small_launcher sets up K2's: K2's floor through the same
+    path."""
+    args = (int(cooperative), torch.cuda.current_stream(device).cuda_stream)
+    lib = _lib()
+
+    def launch():
+        _check(lib.probreg_empty_launch(*args), "empty")
+
+    return launch
 
 
 def estep_small_plain(t_source, target, scal):

@@ -65,6 +65,115 @@ def test_estep_small_kernel_matches_plain(dev, m, n):
         _close(a, b, name)
 
 
+def _small_case(m, n, dim, dev, seed=1):
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.uniform(-1, 1, (m, dim)), dtype=torch.float32,
+                            device=dev),
+            torch.as_tensor(rng.uniform(-1, 1, (n, dim)), dtype=torch.float32,
+                            device=dev))
+
+
+def _small_close(ys, xs, sigma2, w):
+    """K2 against its plain version, every output (n_p too)."""
+    m, dim = ys.shape
+    got = pec.estep_small(ys, xs, sigma2, w)
+    scal = pec._scalars(sigma2, w, m, xs.shape[0], dim, ys.device)
+    pt1, p1, px, xx = pec.estep_small_plain(ys, xs, scal)
+    for name, a, b in zip(("pt1", "p1", "px", "n_p", "xx"), got,
+                          (pt1, p1, px, p1.sum(), xx)):
+        _close(a, b, name)
+    return got, pt1
+
+
+@pytest.mark.parametrize("m,n,dim,w", [
+    (32768, 32, 3, 0.1), (32, 32768, 3, 0.1), (1000, 1000, 1, 0.1),
+    (1000, 1000, 2, 0.1), (700, 500, 3, 0.0), (1, 3000, 3, 0.1),
+    (3000, 1, 3, 0.1), (1, 1, 2, 0.0)])
+def test_estep_small_shapes_dims_and_w(dev, m, n, dim, w):
+    """The gate's tall and wide corners, D = 1 and 2, w = 0, M = 1 and
+    N = 1: every output within the module's tolerance of the plain
+    version."""
+    ys, xs = _small_case(m, n, dim, dev)
+    _small_close(ys, xs, 0.05, w)
+
+
+@pytest.mark.parametrize("w", [0.0, 0.1])
+def test_estep_small_columns_with_no_mass_take_eps(dev, w):
+    """A target cluster far from every source at a small sigma2: its
+    columns' raw normalizer is exactly 0, so den takes eps (+ c) and their
+    pt1 is exactly 0, as in the plain version."""
+    ys, xs = _small_case(600, 900, 3, dev, seed=3)
+    xs[:200, 2] += 30.0
+    got, pt1 = _small_close(ys, xs, 1e-3, w)
+    assert bool((pt1[:200] == 0).all())
+    assert bool((got.pt1[:200] == 0).all())
+    assert bool(torch.isfinite(got.p1).all())
+
+
+def _small_flat(mom):
+    return torch.cat([mom.pt1, mom.p1, mom.px.reshape(-1),
+                      torch.stack([mom.n_p, mom.xx])])
+
+
+@pytest.mark.parametrize("m,n,dim", [(1000, 1000, 3), (32768, 32, 3),
+                                     (32, 32768, 2), (640, 700, 1)])
+def test_estep_small_same_bits_for_any_grid(dev, m, n, dim):
+    """One block, two blocks and the default grid give the same bits, and
+    so does a second run (no float atomics; the tickets are left at
+    zero)."""
+    ys, xs = _small_case(m, n, dim, dev)
+    sigma2 = torch.tensor(0.05, device=dev)
+    outs = []
+    for kw in (dict(_blocks=1), dict(_blocks=2), {}, {}):
+        launch, out = pec.small_launcher(ys, xs, sigma2, 0.1, **kw)
+        launch()
+        outs.append(_small_flat(out))
+    for out in outs[1:]:
+        assert torch.equal(outs[0], out)
+    assert torch.equal(outs[0],
+                       _small_flat(pec.estep_small(ys, xs, 0.05, 0.1)))
+
+
+def test_estep_small_makes_at_most_two_launches(dev):
+    """torch.profiler sees at most two device activities per estep_small
+    call, with sigma2 a host float and a device tensor."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ys, xs = _small_case(1000, 1000, 3, dev)
+    for sigma2 in (0.05, torch.tensor(0.05, device=dev)):
+        pec.estep_small(ys, xs, sigma2, 0.1)  # scratch grown, if it must
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                pec.estep_small(ys, xs, sigma2, 0.1)
+            torch.cuda.synchronize()
+        acts = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert 5 <= len(acts) <= 10, [e.name for e in acts]
+
+
+def test_estep_small_raises_and_never_falls_back(dev, monkeypatch):
+    """A cooperative grid past the card's capacity and a library that
+    cannot load both raise; the plain version is never called."""
+    def refuse(*a):
+        raise AssertionError("plain version called with CUDA tensors")
+
+    monkeypatch.setattr(pec, "estep_small_plain", refuse)
+    ys, xs = _small_case(1000, 1000, 3, dev)
+    launch, _ = pec.small_launcher(
+        ys, xs, 0.05, 0.1, _blocks=pec.small_capacity(3, dev) + 1)
+    with pytest.raises(RuntimeError, match="estep_small"):
+        launch()
+
+    def no_lib():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(pec, "_lib", no_lib)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pec.estep_small(ys, xs, 0.05, 0.1)
+
+
 @pytest.mark.parametrize("sigma2", [0.5, 0.01, 1e-3])
 @pytest.mark.parametrize("tile_m,tile_n", [(96, 256), (512, 1024)])
 def test_stash_kernels_match_plain(dev, sigma2, tile_m, tile_n):

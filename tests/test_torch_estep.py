@@ -416,6 +416,130 @@ def test_estep_auto_merged_matches_reference_merged(monkeypatch):
     _assert_moments(base, out)
 
 
+@pytest.mark.parametrize("m,n", [(1, 1), (1, 1 << 20), (1 << 20, 1),
+                                 (1000, 1000), (32768, 32), (32, 32768),
+                                 (390, 390), (37, 1000), (1000, 33),
+                                 (700, 1500)])
+def test_small_plan_tiles_cover_the_shape_at_16_pairs_a_thread(m, n):
+    """K2's tiles: powers of two from 16 to 256 holding 4,096 pairs (16 a
+    thread of 256 in each phase), covering M x N, and the scratch that one
+    launch needs for them."""
+    plan = pec.small_plan(m, n)
+    for side in (plan.rows, plan.cols):
+        assert 16 <= side <= 256 and side & (side - 1) == 0
+    assert plan.rows * plan.cols == 16 * 256
+    assert (plan.nr - 1) * plan.rows < m <= plan.nr * plan.rows
+    assert (plan.nc - 1) * plan.cols < n <= plan.nc * plan.cols
+    nr, nc = plan.nr, plan.nc
+    assert plan.scratch(m, n) == (4 * nc * m + nr * n + nc + nr,
+                                  1 + nc + nr)
+
+
+def test_small_plan_spreads_every_shape_of_the_gate_over_the_card():
+    """1000^2 and both corners of the gate (M N = 2^20) get 256 tiles, where
+    one block per 32 targets gave 32, 1 and 1,024 blocks; the tiles lean
+    the way the problem does, so that a column's finalisation and a row's
+    read about as many partials a thread."""
+    assert pec.small_plan(1000, 1000) == (64, 64, 16, 16)
+    assert pec.small_plan(32768, 32) == (256, 16, 128, 2)
+    assert pec.small_plan(32, 32768) == (16, 256, 2, 128)
+    assert pec.small_plan(390, 390).tiles == 49
+    assert pec.small_plan(1000, 33).rows == 256
+    assert pec.small_plan(37, 1000).cols == 256
+
+
+def test_small_scratch_grows_only_when_a_launch_needs_more(monkeypatch):
+    monkeypatch.setattr(pec, "_small_scratch", {})
+    cpu = torch.device("cpu")
+    work, tickets = pec.small_scratch(cpu, 7, 100, 10)
+    assert work.numel() == 100 and tickets.numel() == 10
+    assert bool((tickets == 0).all()) and tickets.dtype == torch.int32
+    again = pec.small_scratch(cpu, 7, 60, 4)
+    assert again[0] is work and again[1] is tickets
+    grown = pec.small_scratch(cpu, 7, 300, 4)
+    assert grown[0].numel() == 300 and grown[1] is tickets
+    grown = pec.small_scratch(cpu, 7, 300, 40)
+    assert grown[1].numel() == 40 and bool((grown[1] == 0).all())
+    other = pec.small_scratch(cpu, 8, 10, 2)  # another stream
+    assert other[0] is not grown[0]
+
+
+class _FakeLib:
+    """Records K2's C arguments in place of the library."""
+
+    def __init__(self):
+        self.calls = []
+
+    def probreg_estep_small(self, *args):
+        self.calls.append(args)
+        return 0
+
+    def probreg_empty_launch(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_small_launcher_arguments(monkeypatch, dim):
+    """What the wrapper hands K2: the clouds as they are with their D (the
+    kernel's template), the plan's tiles, the grid (the tiles, at most the
+    card's capacity, unless forced), sigma2 by pointer when it is a tensor
+    on the clouds' device and by value otherwise, w and 1 - w, and one
+    count per launch."""
+    lib = _FakeLib()
+    monkeypatch.setattr(pec, "_lib", lambda: lib)
+    monkeypatch.setattr(pec, "_stream", lambda t: 0)
+    monkeypatch.setattr(pec, "small_capacity", lambda d, dev: 200)
+    monkeypatch.setattr(pec, "_small_scratch", {})
+    ys, xs = torch.zeros((1000, dim)), torch.zeros((1000, dim))
+    sigma2 = torch.tensor(0.25, dtype=torch.float64)
+    before = pec.LAUNCHES["estep_small"]
+    for kw in ({}, dict(_blocks=3)):
+        launch, mom = pec.small_launcher(ys, xs, sigma2, 0.2, **kw)
+        launch()
+        assert mom.px.shape == (1000, dim) and mom.n_p.shape == ()
+    assert pec.LAUNCHES["estep_small"] == before + 2
+    assert [c[11] for c in lib.calls] == [200, 3]
+    assert all(len(c) == 19 for c in lib.calls)
+    c = lib.calls[0]
+    assert c[1] == 1000 and c[3] == 1000 and c[4] == dim
+    assert c[0] == ys.data_ptr() and c[2] == xs.data_ptr()
+    assert c[5] is not None and c[6] == 0.0
+    assert (c[7], c[8], c[9], c[10]) == (0.2, 1.0 - 0.2, 64, 64)
+    launch, _ = pec.small_launcher(ys, xs, 0.25, 0.0)
+    launch()
+    assert lib.calls[-1][5] is None and lib.calls[-1][6] == 0.25
+    # The launch keeps alive every tensor whose address it passes.
+    alive = {t.data_ptr() for t in launch.tensors if t is not None}
+    assert {lib.calls[-1][i] for i in (0, 2, 12, 13, 14)} <= alive
+
+
+@pytest.mark.parametrize("cooperative", [False, True])
+def test_empty_launcher_builds_its_arguments_once(monkeypatch, cooperative):
+    """K2's floor: each launch() hands the library the arguments built when
+    the launcher was made, as small_launcher's launch() does, and counts
+    no K2 launch."""
+    lib = _FakeLib()
+    monkeypatch.setattr(pec, "_lib", lambda: lib)
+    streams = []
+
+    class _Stream:
+        cuda_stream = 7
+
+    def current_stream(device):
+        streams.append(device)
+        return _Stream()
+
+    monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
+    before = pec.LAUNCHES["estep_small"]
+    launch = pec.empty_launcher("cuda:0", cooperative)
+    for _ in range(3):
+        launch()
+    assert lib.calls == [(int(cooperative), 7)] * 3
+    assert streams == ["cuda:0"]
+    assert pec.LAUNCHES["estep_small"] == before
+
+
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     pts = torch.zeros((10, 4))
     with pytest.raises(ValueError, match="D <= 3"):

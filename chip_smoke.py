@@ -62,18 +62,35 @@ before it and read just after:
   (pt2pt) and GMMTree pyramids at 200,000 points, and the BCPD pyramid at
   100,000 points (bench_bcpd_guarded.py: rank 64, maxiter 50, tol 1e-4, 4
   levels);
+* nonrigid CPD (examples/cpd_nonrigid2d.py's fish, beta 2, lmd 2, maxiter
+  50, tol 1e-3; and the 1,000-point cloud of the step API moved by
+  0.05 sin(2 x[::-1]), 30 iterations): one launch of the small E-step
+  kernel (estep_small) per iteration, against the plain-driven run, one
+  iteration split by CUDA events into K2, the M x M solve and the rest;
+  constrained nonrigid CPD on the fish (tests/test_cpd.py's settings, K2
+  per iteration); 50 iterations of NonRigidCPD's step API; the low-rank
+  loop (rank 60, maxiter 20) on examples/cpd_nonrigid_lowrank.py's
+  16,384-point surface (plain tensors, no kernel); and the low-rank
+  nonrigid CPD pyramid (rank 64, levels 3, maxiter 50, tol 1e-4) at
+  100,000 points (bench_bcpd_guarded.py's deformation, no rotation), the
+  displacement carried between levels by the tile-culled Gauss transform
+  (gauss_transform) where coarse x fine >= 2^28, and 3 iterations of the
+  low-rank loop on its finest clouds split by torch.profiler;
 * the sharded CPD runners (probreg_tpu_torch.parallel) on the 150k pair,
   culled, 40 iterations: on one NCCL rank, registration_cpd_sharded on a
   1-D mesh (stash_den, stash_moment per shard) and registration_cpd_2d on
   a 1 x 1 mesh (stash_den_raw, stash_finish, stash_moment: three launches
-  and one den all_reduce per E-step); then four ranks on the one card
-  under gloo, a
+  and one den all_reduce per E-step), and the low-rank nonrigid kind on
+  the 16,384-point surface (rank 60, 20 iterations) on both meshes, held
+  to the single-card low-rank run; then four ranks on the one card under
+  gloo, a
   check of the cross-shard collectives and not a 4-card figure: 2 x 2
   registration_cpd_2d (K11 in every rank), 1-D x 4
   registration_cpd_sharded, registration_cpd_batch_sharded on the 256
   ragged horse pairs (one em_rigid launch per rank, bit for bit against
-  registration_cpd_batch) and the CPD pyramid with mesh= (2 x 2) at
-  200,000 points.
+  registration_cpd_batch), the CPD pyramid with mesh= (2 x 2) at
+  200,000 points and the 2 x 2 low-rank nonrigid kind on the 16,384-point
+  surface (K11 in every rank).
 
 Prints the card, a {"kernels": [...]} line and, last, {"ok": true, ...}.
 Exits non-zero without a CUDA device or when any phase fails.
@@ -3154,6 +3171,413 @@ def run_family_pyramids(dev, launches):
         raise AssertionError(f"BCPD pyramid launches {got}")
 
 
+# --------------------------------------------------------------------------
+# Nonrigid CPD
+# --------------------------------------------------------------------------
+
+NONRIGID_ITERS = 30        # the dense 3-D run, tol 0
+NONRIGID_AGREE = 1e-4      # kernel- against plain-driven moved points
+NONRIGID_SPREAD = 8.0      # ... or this times the plain f32-f64 spread
+LOWRANK_ARGS = dict(rank=60, maxiter=20)
+N_NONRIGID_PYR = 100_000
+NONRIGID_PYR_ARGS = dict(rank=64, levels=3, maxiter=50, tol=1e-4)
+# The K6-driven nonrigid pyramid against the one with K6's plain version:
+# the carried field differs by rounding only (compare()'s 1e-4 of its
+# largest entry), and each level's loop stops on |d sigma2| < tol.
+NONRIGID_PYR_AGREE = 1e-3
+# The sharded low-rank kinds against the single-card run at a fixed depth:
+# the 1-D runner builds the same Nystrom factors (1e-4); the culled 2-D
+# runs build them from the Morton-sorted source, so other landmarks (on the
+# CPU at this size 2.7e-3 apart, residual 1.5 % higher): 1e-2, and the
+# residual within 5 %.
+SHARDED_LOWRANK_ITERS = 20
+LOWRANK_SAME_FACTORS = 1e-4
+LOWRANK_SORTED = 1e-2
+LOWRANK_RESIDUAL = 1.05
+
+
+def fish_clouds():
+    """examples/cpd_nonrigid2d.py's fish, read as the example reads it."""
+    return tuple(np.loadtxt(data_path(f"fish_{k}.txt")).astype(np.float32)
+                 for k in ("source", "target"))
+
+
+def nonrigid_3d_pair():
+    """step_clouds()' 1,000-point cloud, the target moved by
+    0.05 sin(2 x[::-1]): M N = 10^6, K2's full width."""
+    src = step_clouds()["1000x1000"][0]
+    return src, (src + 0.05 * np.sin(2.0 * src[:, ::-1])).astype(np.float32)
+
+
+def lowrank_surface():
+    """examples/cpd_nonrigid_lowrank.py's 16,384-point surface and its
+    deformation: (source, target, displacement)."""
+    g = np.linspace(0.0, 1.0, 128)
+    xx, yy = np.meshgrid(g, g)
+    src = np.stack([xx, yy, 0.3 * np.sin(2 * np.pi * xx)
+                    * np.cos(2 * np.pi * yy)], -1).reshape(-1, 3) \
+        .astype(np.float32)
+    disp = 0.08 * np.stack([np.sin(np.pi * yy), np.cos(np.pi * xx),
+                            np.sin(np.pi * (xx + yy))], -1).reshape(-1, 3) \
+        .astype(np.float32)
+    return src, src + disp, disp
+
+
+def counted_msteps():
+    """Wraps the dense nonrigid M-steps of cpd so that each call is
+    counted; returns (counter list, restore function)."""
+    from probreg_tpu_torch import cpd
+
+    calls = []
+    saved = {}
+    for name in ("nonrigid_maximization_step",
+                 "constrained_nonrigid_maximization_step"):
+        fn = getattr(cpd, name)
+        saved[name] = fn
+
+        def wrapped(*a, fn=fn, **k):
+            calls.append(1)
+            return fn(*a, **k)
+        setattr(cpd, name, wrapped)
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(cpd, name, fn)
+    return calls, restore
+
+
+def dense_nonrigid(src, tgt, kind, **kw):
+    """registration_cpd of a dense nonrigid kind with the launch counts set
+    to 0 just before it: (result, M-steps run, launches, wall s)."""
+    from probreg_tpu_torch import cpd
+
+    calls, restore = counted_msteps()
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = cpd.registration_cpd(src, tgt, kind, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in all_launches().items() if v}
+    finally:
+        restore()
+    return res, len(calls), got, wall
+
+
+def moved(res, src):
+    return res.transformation.transform(src).double()
+
+
+def split_dense_iteration(src, tgt, kw):
+    """CUDA events around the 15th iteration of the dense 3-D run and, in
+    it, around its E-step (K2's whole estep_small call) and its M x M
+    solve: (iteration ms, K2 ms, solve ms)."""
+    from probreg_tpu_torch import cpd
+    from probreg_tpu_torch.ops import estep_cuda as ec
+
+    spans = []
+    step, small, solve = cpd._nonrigid_step, ec.estep_small, torch.linalg.solve
+    cpd._nonrigid_step = evented(spans, "iteration", step)
+    ec.estep_small = evented(spans, "K2", small)
+    torch.linalg.solve = evented(spans, "solve", solve)
+    try:
+        cpd.registration_cpd(src, tgt, "nonrigid", **kw)
+        torch.cuda.synchronize()
+    finally:
+        cpd._nonrigid_step, ec.estep_small = step, small
+        torch.linalg.solve = solve
+    per = {}
+    for name, e0, e1 in spans:
+        per.setdefault(name, []).append(e0.elapsed_time(e1))
+    return per["iteration"][14], per["K2"][14], per["solve"][14]
+
+
+def nonrigid_step_api_ms(src, tgt, dev, iters=STEP_ITERS, reps=5):
+    """Wall ms per iteration of NonRigidCPD.expectation_step +
+    maximization_step(..., sigma2_p), the moved source and sigma2 carried
+    on, median of ``reps`` runs of ``iters`` after a warm one; and the
+    launches of one run."""
+    from probreg_tpu_torch import cpd
+    from probreg_tpu_torch.utils import math_utils
+
+    s = torch.as_tensor(src, device=dev)
+    t = torch.as_tensor(tgt, device=dev)
+    reg = cpd.NonRigidCPD(s, device=dev)
+    sigma2_0 = math_utils.squared_kernel_sum(s, t)
+
+    def run():
+        ts, sigma2 = s, sigma2_0
+        for _ in range(iters):
+            res = reg.maximization_step(
+                t, reg.expectation_step(ts, t, sigma2, 0.0), sigma2)
+            ts, sigma2 = res.transformation.transform(s), res.sigma2
+        torch.cuda.synchronize()
+        return res
+
+    reset_launches()
+    res = run()
+    got = {k: v for k, v in all_launches().items() if v}
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls)) / iters * 1e3, res, got
+
+
+def traced_nonrigid_pyramid(src, tgt):
+    """One low-rank nonrigid registration_cpd_pyramid call with the launch
+    counts set to 0 just before it: (result, wall s, [(points, wall s,
+    sigma2) per level], launches, [the inputs and output of each
+    displacement carry])."""
+    from probreg_tpu_torch import cpd, pyramid
+
+    levels, carries = [], []
+    entry, interp = cpd.registration_cpd, pyramid._interp_displacement
+
+    def timed_level(s_i, t_i, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = entry(s_i, t_i, *a, **k)
+        torch.cuda.synchronize()
+        levels.append((len(s_i), time.perf_counter() - t0,
+                       float(out.sigma2)))
+        return out
+
+    def recorded(*a, **k):
+        out = interp(*a, **k)
+        carries.append((a, k, out))
+        return out
+
+    cpd.registration_cpd = timed_level
+    pyramid._interp_displacement = recorded
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = pyramid.registration_cpd_pyramid(src, tgt, "nonrigid",
+                                               **NONRIGID_PYR_ARGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in all_launches().items() if v}
+    finally:
+        cpd.registration_cpd = entry
+        pyramid._interp_displacement = interp
+    return res, wall, levels, got, carries
+
+
+def run_nonrigid(dev, launches):
+    """Nonrigid and constrained CPD through registration_cpd: the dense
+    loop on the fish and at K2's full width (one K2 launch per iteration,
+    against the plain-driven run), the constrained model on the fish, the
+    step API, the low-rank loop at 16,384 points (no kernel), the
+    low-rank nonrigid pyramid at 100,000 points (K6 between levels,
+    against its plain version and the plain-driven pyramid) and the
+    low-rank loop on its finest clouds split by torch.profiler."""
+    from probreg_tpu_torch import config as pcfg
+    from probreg_tpu_torch import cpd, pyramid
+    from probreg_tpu_torch.ops import gt_cuda as gt
+    from probreg_tpu_torch.utils import math_utils as mu
+    from probreg_tpu_torch.utils.datagen import blobby_surface
+
+    # The fish at the reference defaults.
+    src, tgt = fish_clouds()
+    kw = dict(beta=2.0, lmd=2.0, maxiter=50, tol=1e-3)
+    log("[nonrigid] registration_cpd nonrigid, the fish (91 points, 2-D), "
+        f"{kw}; second calls timed")
+    dense_nonrigid(src, tgt, "nonrigid", **kw)  # warm
+    dense_nonrigid(src, tgt, "nonrigid", use_pallas=False, **kw)
+    res, iters, got, wall = dense_nonrigid(src, tgt, "nonrigid", **kw)
+    plain, p_iters, p_got, p_wall = dense_nonrigid(src, tgt, "nonrigid",
+                                                   use_pallas=False, **kw)
+    disp = float((moved(res, src) - torch.as_tensor(src).double().to(dev))
+                 .abs().mean())
+    p_disp = float((moved(plain, src) - torch.as_tensor(src).double()
+                    .to(dev)).abs().mean())
+    log(f"  {iters} iterations, {wall * 1e3:.2f} ms, launches {got}; mean "
+        f"displacement {disp:.6f}; use_pallas=False: {p_iters} iterations, "
+        f"{p_wall * 1e3:.2f} ms, launches {p_got}, mean displacement "
+        f"{p_disp:.6f}")
+    if got != {"estep_small": iters} or p_got:
+        raise AssertionError(f"fish: launches {got} for {iters} iterations")
+    if not abs(disp - p_disp) <= NONRIGID_AGREE:
+        raise AssertionError("fish: kernel- and plain-driven mean "
+                             "displacements disagree")
+
+    # K2's full width in 3-D, fixed depth.
+    src, tgt = nonrigid_3d_pair()
+    kw = dict(beta=2.0, lmd=2.0, maxiter=NONRIGID_ITERS, tol=0.0)
+    log(f"[nonrigid] registration_cpd nonrigid, {len(src):,} x "
+        f"{len(tgt):,} in 3-D, {kw}")
+    dense_nonrigid(src, tgt, "nonrigid", **kw)  # warm
+    res, iters, got, wall = dense_nonrigid(src, tgt, "nonrigid", **kw)
+    plain = dense_nonrigid(src, tgt, "nonrigid", use_pallas=False, **kw)[0]
+    dtype = pcfg.config.dtype
+    pcfg.config.dtype = torch.float64
+    try:
+        f64 = dense_nonrigid(src, tgt, "nonrigid", use_pallas=False, **kw)[0]
+    finally:
+        pcfg.config.dtype = dtype
+    err = float((moved(res, src) - moved(plain, src)).abs().max())
+    spread = float((moved(plain, src) - f64.transformation.transform(
+        src.astype(np.float64))).abs().max())
+    resid = float((moved(res, src) - torch.as_tensor(tgt, device=dev))
+                  .abs().mean())
+    it_ms, k2_ms, solve_ms = split_dense_iteration(src, tgt, kw)
+    log(f"  second call {wall:.4f} s, {iters} iterations, launches {got}; "
+        f"sigma2 {float(res.sigma2):.6g}, mean residual {resid:.6f} (initial"
+        f" {float(np.abs(src - tgt).mean()):.6f}); kernel against plain: max"
+        f" |moved diff| {err:.3e} (plain f32 against f64 {spread:.3e})")
+    log(f"  one iteration (the 15th, CUDA events): {it_ms:.4f} ms, K2's "
+        f"estep_small call {k2_ms:.4f} ms, the M x M solve {solve_ms:.4f} "
+        f"ms, the rest {it_ms - k2_ms - solve_ms:.4f} ms")
+    if got != {"estep_small": NONRIGID_ITERS} or iters != NONRIGID_ITERS:
+        raise AssertionError(f"3-D dense nonrigid: launches {got}")
+    if not err <= max(NONRIGID_AGREE, NONRIGID_SPREAD * spread):
+        raise AssertionError("3-D dense nonrigid: kernel- and plain-driven "
+                             "runs disagree")
+
+    # The constrained model: tests/test_cpd.py's settings on the fish.
+    src, tgt = fish_clouds()
+    idx = np.arange(0, len(src), 5)
+    kw = dict(beta=0.5, lmd=1.0, alpha=1e-6, idx_source=idx,
+              idx_target=idx, maxiter=60)
+    log("[nonrigid] registration_cpd nonrigid_constrained, the fish, every "
+        "fifth point a known pair, beta 0.5, lmd 1, alpha 1e-6, maxiter 60")
+    dense_nonrigid(src, tgt, "nonrigid_constrained", **kw)  # warm
+    res, iters, got, wall = dense_nonrigid(src, tgt, "nonrigid_constrained",
+                                           **kw)
+    rmse = float(torch.sqrt(((moved(res, src) - torch.as_tensor(
+        tgt, device=dev)) ** 2).sum(1)).mean())
+    rmse0 = float(np.sqrt(((src - tgt) ** 2).sum(1)).mean())
+    log(f"  {iters} iterations, {wall * 1e3:.2f} ms, launches {got}; "
+        f"residual {rmse:.6f} against {rmse0:.6f} at the start")
+    if got != {"estep_small": iters} or not rmse < 0.2 * rmse0:
+        raise AssertionError("constrained nonrigid missed its bar")
+
+    # The step API on the 1,000-point pair.
+    src, tgt = nonrigid_3d_pair()
+    ms, out, got = nonrigid_step_api_ms(src, tgt, dev)
+    log(f"[nonrigid step API] 1000 x 1000, {STEP_ITERS} iterations of "
+        f"NonRigidCPD.expectation_step + maximization_step(sigma2_p): "
+        f"{ms:.4f} ms per iteration, launches per run {got}, final sigma2 "
+        f"{float(out.sigma2):.4g}")
+    if got != {"estep_small": STEP_ITERS} \
+            or not math.isfinite(float(out.sigma2)):
+        raise AssertionError("nonrigid step API")
+
+    # The low-rank loop at 16,384 points: plain tensors, no kernel.
+    src, tgt, disp = lowrank_surface()
+    log(f"[nonrigid low-rank] registration_cpd nonrigid, {len(src):,} "
+        f"points, {LOWRANK_ARGS}")
+    cpd.registration_cpd(src, tgt, "nonrigid", **LOWRANK_ARGS)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = cpd.registration_cpd(src, tgt, "nonrigid", **LOWRANK_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: v for k, v in all_launches().items() if v}
+    resid = float((moved(res, src) - torch.as_tensor(tgt, device=dev))
+                  .abs().mean())
+    log(f"  second call {wall:.4f} s, launches {got}, residual {resid:.5f} "
+        f"(initial {float(np.abs(disp).mean()):.5f}), sigma2 "
+        f"{float(res.sigma2):.6g}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if got or not resid < 0.5 * float(np.abs(disp).mean()):
+        raise AssertionError("low-rank nonrigid missed its bar")
+
+    # The low-rank nonrigid pyramid at 100,000 points.
+    src = blobby_surface(N_NONRIGID_PYR, seed=2).astype(np.float32)
+    defo = (0.02 * np.sin(3.0 * src[:, :1])
+            * np.array([[1.0, 0.5, -0.3]])).astype(np.float32)
+    tgt = (src + defo).astype(np.float32)
+    sizes = pyramid.auto_voxel_sizes(src, tgt, NONRIGID_PYR_ARGS["levels"],
+                                     3000, 4.0)
+    counts = [len(x) for x in pyramid.build_pyramid(src, sizes)]
+    k6 = sum(a * b >= 1 << 28 for a, b in zip(counts, counts[1:]))
+    log(f"[nonrigid pyramid] registration_cpd_pyramid nonrigid, "
+        f"{N_NONRIGID_PYR:,} points (bench_bcpd_guarded.py's deformation, "
+        f"no rotation), {NONRIGID_PYR_ARGS}: levels of {counts} source "
+        f"points; {k6} transition(s) with coarse x fine >= 2^28")
+    res, wall, levels, got, carries = traced_nonrigid_pyramid(src, tgt)
+    tgt_d = torch.as_tensor(tgt, device=dev)
+    mv = res.transformation.transform(src)
+    nn0 = float(mu.compute_rmse(torch.as_tensor(src, device=dev), tgt_d))
+    nn1 = float(mu.compute_rmse(mv, tgt_d))
+    log(f"  {wall:.3f} s (first call), levels "
+        f"{[(n, round(t, 4), f'{s2:.3g}') for n, t, s2 in levels]} "
+        f"(points, s, sigma2), launches {got}; mean |moved - target| by "
+        f"index {float((mv - tgt_d).abs().mean()):.6f} (the deformation "
+        f"{float(np.abs(defo).mean()):.6f}); NN-RMSE to the target "
+        f"{nn1:.6f} (the source's {nn0:.6f})")
+    if k6 < 1 or got != {"gauss_transform": k6}:
+        raise AssertionError(f"nonrigid pyramid launches {got}, expected "
+                             f"{k6} gauss_transform")
+    # K6 on the carry it made, against its plain version; then the whole
+    # pyramid with the plain version in K6's place.
+    a, k, out = next(c for c in carries
+                     if len(c[0][0]) * len(c[0][2]) >= 1 << 28)
+    gt_cuda = gt._gt_cuda
+    gt._gt_cuda = gt.gauss_transform_culled_plain
+    try:
+        compare("carry", torch.as_tensor(out),
+                torch.as_tensor(pyramid._interp_displacement(*a, **k)))
+        plain = pyramid.registration_cpd_pyramid(src, tgt, "nonrigid",
+                                                 **NONRIGID_PYR_ARGS)
+        torch.cuda.synchronize()
+    finally:
+        gt._gt_cuda = gt_cuda
+    d = float((mv - plain.transformation.transform(src)).abs().max())
+    log(f"  the plain-driven pyramid: max |moved diff| {d:.3e} (limit "
+        f"{NONRIGID_PYR_AGREE:g})")
+    if not (d <= NONRIGID_PYR_AGREE and nn1 < nn0):
+        raise AssertionError("nonrigid pyramid missed its bar")
+    split_lowrank_loop(src, tgt, dev)
+
+
+def split_lowrank_loop(src, tgt, dev, iters=3):
+    """Device time of ``iters`` iterations of the low-rank loop
+    (_run_em_nonrigid_lowrank_t, rank 64, the pyramid's finest level) by
+    kind of device activity, from torch.profiler: the matrix products,
+    the K x K solve and the rest (exp, sums, copies); beside the wall
+    time of the same call."""
+    from probreg_tpu_torch import cpd
+    from probreg_tpu_torch.ops import lowrank
+
+    ys = torch.as_tensor(src, device=dev)
+    xs = torch.as_tensor(tgt, device=dev)
+    u, lam = lowrank.lowrank_rbf(ys, 2.0, NONRIGID_PYR_ARGS["rank"])
+
+    def run():
+        return cpd._run_em_nonrigid_lowrank_t(ys, xs, u, lam, 2.0, w=0.0,
+                                              maxiter=iters, tol=0.0)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / iters * 1e3
+    _, total, by_name = device_launches(run, calls=1)
+    groups = {"products": 0.0, "solve": 0.0, "rest": 0.0}
+    for name, us in by_name.items():
+        low = name.lower()
+        key = ("products" if any(k in low for k in ("gemm", "cutlass",
+                                                      "xmma", "sm90_"))
+               else "solve" if any(k in low for k in (
+                   "getrf", "getrs", "trsm", "laswp", "lu_", "solve"))
+               else "rest")
+        groups[key] += us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"  low-rank loop at {len(src):,} x {len(tgt):,}, rank "
+        f"{NONRIGID_PYR_ARGS['rank']}, {iters} iterations: {wall:.3f} ms "
+        f"wall and {total / iters / 1e3:.3f} ms device time per iteration; "
+        f"device ms per iteration by kind "
+        f"{ {k: round(v / iters / 1e3, 4) for k, v in groups.items()} }; "
+        f"largest: {[(n[:60], round(v / iters / 1e3, 4)) for n, v in top]}")
+
+
 def check_stash_raw(dev, kernels, shared):
     """K11's route on the 150k clouds cut to a 2 x 2 rank's shapes: source
     and target shard 0 of the centred, Morton-sorted clouds (75,000 points
@@ -3306,6 +3730,75 @@ def rot_error(lin, rot):
                                        torch.as_tensor(rot).double()))
 
 
+def lowrank_against_single(name, disp, counts, got, want_launches,
+                           single, tol):
+    """Checks a sharded low-rank nonrigid run given as its displacement
+    ``disp`` (M, D numpy) against the single-card run ``single`` = (moved
+    source, residual): E-steps, launches, max |moved diff| within ``tol``
+    and, for tol LOWRANK_SORTED, the residual within LOWRANK_RESIDUAL of
+    the single card's."""
+    src, tgt, _ = lowrank_surface()
+    mv = src + disp
+    d = float(np.abs(mv - single[0]).max())
+    resid = float(np.abs(mv - tgt).mean())
+    log(f"  {name}: counts {counts}, launches {got}; against the single "
+        f"card: max |moved diff| {d:.3e} (limit {tol:g}), residual "
+        f"{resid:.6f} against {single[1]:.6f}")
+    if counts["esteps"] != SHARDED_LOWRANK_ITERS or got != want_launches:
+        raise AssertionError(f"{name}: E-steps or launches wrong")
+    if want_launches and counts["den_all_reduce"] != SHARDED_LOWRANK_ITERS:
+        raise AssertionError(f"{name}: den reductions wrong")
+    if not d <= tol or (tol == LOWRANK_SORTED
+                        and not resid <= LOWRANK_RESIDUAL * single[1]):
+        raise AssertionError(f"{name} disagrees with the single card")
+
+
+def run_sharded_lowrank_one_rank(dev, shared):
+    """Inside run_sharded_one_rank's NCCL group: the low-rank nonrigid kind
+    on the 16,384-point surface (rank 60, SHARDED_LOWRANK_ITERS
+    iterations, tol 0) through registration_cpd_sharded on a 1-D mesh (the
+    dense sharded E-step, no kernel) and registration_cpd_2d on a culled
+    1 x 1 mesh (K11's route: three launches and one den reduction per
+    E-step), each second call timed, against cpd.registration_cpd."""
+    from probreg_tpu_torch import cpd
+    from probreg_tpu_torch.parallel import mesh as pmesh
+    from probreg_tpu_torch.parallel import (make_mesh, make_mesh_2d,
+                                            registration_cpd_2d,
+                                            registration_cpd_sharded)
+
+    src, tgt, _ = lowrank_surface()
+    kw = dict(maxiter=SHARDED_LOWRANK_ITERS, tol=0.0,
+              rank=LOWRANK_ARGS["rank"], device=dev)
+    one = cpd.registration_cpd(src, tgt, "nonrigid", **kw)
+    mv = one.transformation.transform(src).cpu().numpy()
+    single = (mv, float(np.abs(mv - tgt).mean()))
+    shared["lowrank_single"] = single
+    k11 = dict.fromkeys(K11_ROUTE, SHARDED_LOWRANK_ITERS)
+    for name, fn, mesh, want, tol in (
+            ("1-D low-rank", registration_cpd_sharded, make_mesh(), {},
+             LOWRANK_SAME_FACTORS),
+            ("1 x 1 low-rank, culled", registration_cpd_2d,
+             make_mesh_2d(1, 1), k11, LOWRANK_SORTED)):
+        extra = {} if want == {} else dict(use_culled=True)
+        log(f"[mesh, one NCCL rank] {fn.__name__} nonrigid rank "
+            f"{kw['rank']}, {len(src):,} points, {SHARDED_LOWRANK_ITERS} "
+            "iterations")
+        fn(src, tgt, "nonrigid", mesh=mesh, **kw, **extra)  # warm
+        torch.cuda.synchronize()
+        reset_launches()
+        pmesh.reset_counts()
+        t0 = time.perf_counter()
+        res = fn(src, tgt, "nonrigid", mesh=mesh, **kw, **extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tr = res.transformation
+        log(f"  timed call {wall:.4f} s")
+        lowrank_against_single(
+            name, (tr.u @ tr.zc).cpu().numpy(), dict(pmesh.COUNTS),
+            {k: v for k, v in all_launches().items() if v}, want, single,
+            tol)
+
+
 def run_sharded_one_rank(dev, launches, shared):
     """The sharded runners on one NCCL rank (world size 1, file://
     rendezvous): registration_cpd_sharded on a 1-D mesh (K3 per shard) and
@@ -3313,8 +3806,9 @@ def run_sharded_one_rank(dev, launches, shared):
     one den all_reduce per E-step) on the 150k pair, culled, MESH_ITERS
     iterations; the second call of each timed beside cpd.registration_cpd
     at the same depth. Both reach the 150k phase's bar and agree within
-    MESH_AGREE. Then the den all_reduce (N_LARGE floats, the 1 x 1 rank's
-    target shard) under NCCL at world 1."""
+    MESH_AGREE. Then the low-rank nonrigid kind on both meshes
+    (run_sharded_lowrank_one_rank) and the den all_reduce (N_LARGE floats,
+    the 1 x 1 rank's target shard) under NCCL at world 1."""
     import shutil
     import tempfile
 
@@ -3390,6 +3884,7 @@ def run_sharded_one_rank(dev, launches, shared):
         shared["one_rank"] = {k: (v[0].rot.cpu().numpy(),
                                   v[0].t.cpu().numpy())
                               for k, v in runs.items()}
+        run_sharded_lowrank_one_rank(dev, shared)
         buf = torch.ones(N_LARGE, device=dev)
         dist.all_reduce(buf)
         torch.cuda.synchronize()
@@ -3425,11 +3920,15 @@ def run_mesh_on_one_card(dev, launches, shared):
     registration_cpd_2d on a 2 x 2 mesh and registration_cpd_sharded on a
     1-D mesh of 4 at 150k (culled, MESH_ITERS iterations),
     registration_cpd_batch_sharded on the 256 ragged horse pairs, the CPD
-    pyramid with mesh= (2 x 2) at 200k, and the den all_reduce's cost
-    (SHARD floats, a 2 x 2 rank's target shard). Every rank must report the same iterations and numbers; the 150k
-    runs reach the 150k phase's bar and agree with the one-rank runs within
-    MESH_AGREE; the batch equals registration_cpd_batch bit for bit; the
-    pyramid meets the reference test's bar."""
+    pyramid with mesh= (2 x 2) at 200k, the den all_reduce's cost (SHARD
+    floats, a 2 x 2 rank's target shard) and the low-rank nonrigid kind on
+    a 2 x 2 mesh (the 16,384-point surface, culled). Every rank must
+    report the same iterations and numbers; the 150k runs reach the 150k
+    phase's bar and agree with the one-rank runs within MESH_AGREE; the
+    batch equals registration_cpd_batch bit for bit; the pyramid meets the
+    reference test's bar; the low-rank run makes K11's three launches per
+    E-step in every rank and stays within LOWRANK_SORTED of the
+    single-card run (lowrank_against_single)."""
     from probreg_tpu_torch import cpd
     from probreg_tpu_torch.parallel import _spmd
 
@@ -3438,11 +3937,15 @@ def run_mesh_on_one_card(dev, launches, shared):
     srcs, tgts = [p[0] for p in rigid], [p[1] for p in rigid]
     psrc, ptgt, prot, pt = pyramid_case(PYRAMID_SIZES[0])
     kw = dict(maxiter=MESH_ITERS, tol=0.0, use_culled=True)
+    lsrc, ltgt, _ = lowrank_surface()
     calls = [("cpd_2d", (2, 2), (src, tgt, "rigid"), kw),
              ("cpd_sharded", (4,), (src, tgt, "rigid"), kw),
              ("cpd_batch_sharded", (4,), (srcs, tgts, "rigid"), {}),
              ("cpd_pyramid", (2, 2), (psrc, ptgt, "rigid"), PYRAMID_ARGS),
-             ("all_reduce_cost", (2, 2), ("m", SHARD, REDUCE_REPS), {})]
+             ("all_reduce_cost", (2, 2), ("m", SHARD, REDUCE_REPS), {}),
+             ("cpd_2d", (2, 2), (lsrc, ltgt, "nonrigid"),
+              dict(maxiter=SHARDED_LOWRANK_ITERS, tol=0.0,
+                   rank=LOWRANK_ARGS["rank"], use_culled=True))]
     log("[mesh, 4 gloo ranks on one card] 2 x 2 registration_cpd_2d and "
         f"1-D x 4 registration_cpd_sharded at {N_LARGE:,} points, "
         f"registration_cpd_batch_sharded on {len(srcs)} ragged pairs, the "
@@ -3452,7 +3955,8 @@ def run_mesh_on_one_card(dev, launches, shared):
                           timeout=600.0)
     log(f"  spawn and both rounds {time.perf_counter() - t0:.1f} s")
     per_call = [[rank[i] for rank in outs] for i in range(len(calls))]
-    names = ["2 x 2", "1-D x 4", "batch", "pyramid", "all_reduce"]
+    names = ["2 x 2", "1-D x 4", "batch", "pyramid", "all_reduce",
+             "2 x 2 low-rank"]
     for name, res in zip(names, per_call):
         log(f"  {name}: timed call {max(o['seconds'] for o in res):.3f} s "
             f"(slowest rank), counts {res[0]['counts']}, launches per rank "
@@ -3517,6 +4021,15 @@ def run_mesh_on_one_card(dev, launches, shared):
     log(f"  den all_reduce ({SHARD:,} floats, m-axis of 2) under "
         f"gloo, CUDA tensors, 4 ranks on one card: "
         f"{', '.join(f'{x:.4f}' for x in ms)} ms per call by rank")
+    single = shared.get("lowrank_single")
+    if single is None:
+        raise AssertionError("2 x 2 low-rank: no single-card run to hold it "
+                             "to (run_sharded_one_rank failed)")
+    for r, o in enumerate(per_call[5]):
+        lowrank_against_single(
+            f"2 x 2 low-rank, rank {r}", o["result"]["disp"], o["counts"],
+            o["launches"], dict.fromkeys(K11_ROUTE, SHARDED_LOWRANK_ITERS),
+            single, LOWRANK_SORTED)
 
 
 # --------------------------------------------------------------------------
@@ -4148,6 +4661,7 @@ def main() -> int:
                         (run_pyramid_cpd, (dev, launches, kernels)),
                         (run_pyramid_affine, (dev, launches)),
                         (run_family_pyramids, (dev, launches)),
+                        (run_nonrigid, (dev, launches)),
                         (run_sharded_one_rank, (dev, launches, shared)),
                         (run_mesh_on_one_card, (dev, launches, shared))):
         t0 = time.perf_counter()

@@ -1,4 +1,5 @@
-"""Coherent Point Drift, rigid and affine (counterpart of probreg_tpu/cpd.py).
+"""Coherent Point Drift: rigid, affine, nonrigid and constrained nonrigid
+(counterpart of probreg_tpu/cpd.py).
 
 ``registration_cpd(source, target, "rigid" | "affine")`` splits by size as
 the reference does:
@@ -13,16 +14,29 @@ the reference does:
   Morton-sorted once, so every E-step goes through the tile-culled kernels
   (ops/estep_cuda.py) with no per-iteration sort.
 
-``registration_cpd_batch`` registers B pairs, fixed-size or ragged, in one
-launch of the same kernel where the pairs fit it.
+``"nonrigid"`` and ``"nonrigid_constrained"`` (Extended CPD, with
+correspondence priors) run the streaming loop ``_run_em`` on centred,
+never sorted clouds (their Gram matrix, Nystrom basis and priors are
+row-aligned with the caller's source): each iteration is one
+``estep_ops.estep`` (one launch of the small E-step kernel K2 for M * N
+up to ``config.small_estep_max_pairs`` on the card) and an M x M solve,
+or with ``rank=`` a K x K Woodbury solve. ``NonRigidCPD`` with ``rank=``
+runs the whole EM in the low-rank loop ``_run_em_nonrigid_lowrank_t``
+(plain tensors, its E-step blocked over ``config.estep_chunk`` targets),
+as the reference does.
+
+``registration_cpd_batch`` registers B rigid or affine pairs, fixed-size
+or ragged, in one launch of the whole-EM kernel where the pairs fit it.
 
 ``use_pallas`` keeps the reference's name: None picks the kernels as above,
 False runs plain tensors only (no hand-written kernel anywhere on the
-path), True pins the streaming E-steps to the two-pass kernels.
+path), True pins the streaming E-steps to the two-pass kernels. The
+nonrigid steps honour it too, where the reference's ignore it; the two
+differ only in summation order.
 
 The plain EM loops are Python loops that read q once per iteration for the
-|q - q_prev| < tol test. Nonrigid and constrained CPD, callbacks and
-multistart come with later slices of the port (ROADMAP, Queue 1 item 4).
+|q - q_prev| < tol test (sigma2 for the nonrigid kinds). Callbacks and
+multistart come with a later slice of the port (ROADMAP, Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -38,6 +52,7 @@ import torch
 from . import config as _config
 from .models import transformation as tf
 from .ops import estep as estep_ops
+from .ops import lowrank
 from .ops.estep import EstepMoments
 from .utils import interop
 from .utils import math_utils as mu
@@ -127,6 +142,65 @@ def affine_maximization_step(source, mom: EstepMoments) -> MstepResult:
                        sigma2, q)
 
 
+def _nonrigid_sigma2(source, mom: EstepMoments, t):
+    """sigma2 of a nonrigid M-step from the moved source ``t``, floored at
+    f32 eps: on clean 1:1 clouds it anneals to the f32 cancellation scale
+    and could come out <= 0."""
+    tr_pxt = (mom.px * t).sum()
+    tr_tpt = (mom.p1 * (t * t).sum(1)).sum()
+    return torch.clamp((mom.xx - 2.0 * tr_pxt + tr_tpt)
+                       / (mom.n_p * source.shape[1]), min=_F32_EPS)
+
+
+def nonrigid_maximization_step(source, mom: EstepMoments, g, lmd,
+                               sigma2_p) -> MstepResult:
+    """Solve ((p1 . G) + lmd sigma2_p I) W = PX - p1 . Y, an M x M system
+    (reference cpd.py:123). q is sigma2."""
+    m = source.shape[0]
+    lhs = (mom.p1 * g).T + lmd * sigma2_p * torch.eye(
+        m, dtype=g.dtype, device=g.device)
+    w = torch.linalg.solve(lhs, mom.px - source * mom.p1[:, None])
+    sigma2 = _nonrigid_sigma2(source, mom, source + g @ w)
+    return MstepResult(tf.NonRigidTransformation(w, g=g,
+                                                 device=source.device),
+                       sigma2, sigma2)
+
+
+def nonrigid_lowrank_maximization_step(source, mom: EstepMoments, u, lam,
+                                       lmd, sigma2_p, d_extra=None,
+                                       rhs_extra=None) -> MstepResult:
+    """The nonrigid M-step with G ~= U diag(lam) U^T: one K x K Woodbury
+    solve (ops/lowrank.woodbury_coeffs; reference cpd.py:142).
+    ``d_extra`` / ``rhs_extra`` carry the constrained model's prior terms:
+    d = p1 + d_extra, rhs += rhs_extra. q is sigma2."""
+    d = mom.p1 if d_extra is None else mom.p1 + d_extra
+    rhs = mom.px - source * mom.p1[:, None]
+    if rhs_extra is not None:
+        rhs = rhs + rhs_extra
+    zc = lowrank.woodbury_coeffs(u, lam, d, lmd * sigma2_p, rhs)
+    sigma2 = _nonrigid_sigma2(source, mom, source + u @ zc)
+    return MstepResult(tf.LowRankNonRigidTransformation(
+        zc, u, lam, device=source.device), sigma2, sigma2)
+
+
+def constrained_nonrigid_maximization_step(source, mom: EstepMoments, g,
+                                           lmd, sigma2_p, alpha, p1_tilde,
+                                           px_tilde) -> MstepResult:
+    """The nonrigid M-step with correspondence priors of reliability
+    ``alpha`` (reference cpd.py:169): an M x M system. q is sigma2."""
+    m = source.shape[0]
+    s2a = sigma2_p / alpha
+    lhs = (mom.p1 * g).T + s2a * (p1_tilde * g).T + lmd * sigma2_p \
+        * torch.eye(m, dtype=g.dtype, device=g.device)
+    rhs = mom.px - source * mom.p1[:, None] \
+        + s2a * (px_tilde - source * p1_tilde[:, None])
+    w = torch.linalg.solve(lhs, rhs)
+    sigma2 = _nonrigid_sigma2(source, mom, source + g @ w)
+    return MstepResult(tf.NonRigidTransformation(w, g=g,
+                                                 device=source.device),
+                       sigma2, sigma2)
+
+
 # --------------------------------------------------------------------------
 # Whole-EM dense loop in transposed (D, M) layout
 # --------------------------------------------------------------------------
@@ -212,7 +286,7 @@ def _run_em_t(source, target, init=None, *, kind="rigid", w, maxiter, tol,
     with lin = R for "rigid" and B (scale 1) for "affine".
     """
     if kind not in ("rigid", "affine"):
-        raise NotImplementedError(f"_run_em_t kind {kind!r} is not ported yet")
+        raise ValueError(f"_run_em_t runs 'rigid' or 'affine', not {kind!r}")
     ys_t, xs_t = source.T, target.T
     dim, m = ys_t.shape
     n = xs_t.shape[1]
@@ -294,6 +368,92 @@ def _run_em_t_ragged_batch(sources, targets, smasks, tmasks, *, kind, w,
         for s, t, sm, tm in zip(sources, targets, smasks, tmasks)])
 
 
+def _run_em_nonrigid_lowrank_t(source, target, u, lam, lmd, *, w, maxiter,
+                               tol, block=None, zc_init_t=None,
+                               sigma2_init=None):
+    """Whole-EM low-rank nonrigid loop in (D, M) layout (reference
+    cpd.py:396).
+
+    The E-step is dense and plain (the reference's is XLA too), blocked
+    over ``block`` target columns (default ``config.estep_chunk``): a
+    column's normalizer is complete within its block, so peak memory is
+    O(M * block) at any N; the last block is padded with masked columns.
+    The M-step is the K x K Woodbury solve. Both clouds are centred on
+    their joint centroid (the displacement U zc is translation invariant,
+    so nothing converts back). ``zc_init_t`` (D, K) and ``sigma2_init``
+    are warm starts. Stops when |sigma2 - sigma2_prev| < tol, at most
+    ``maxiter`` iterations, one host read of sigma2 per iteration.
+    Returns (zc_t (D, K), sigma2, q = sigma2).
+    """
+    ys_t, xs_t = source.T, target.T
+    dim, m = ys_t.shape
+    n = xs_t.shape[1]
+    k = lam.shape[0]
+    cen = (ys_t.sum(1) + xs_t.sum(1)) / (m + n)
+    ys_t = ys_t - cen[:, None]
+    xs_t = xs_t - cen[:, None]
+    if sigma2_init is not None:
+        sigma2 = torch.clamp(torch.as_tensor(sigma2_init, dtype=source.dtype,
+                                             device=source.device),
+                             min=_F32_EPS)
+    else:
+        sy, sx = ys_t.sum(1), xs_t.sum(1)
+        sigma2 = (n * (ys_t * ys_t).sum() + m * (xs_t * xs_t).sum()
+                  - 2.0 * sy @ sx) / (m * dim * n)
+    x2 = (xs_t * xs_t).sum(0, keepdim=True)                  # (1, N)
+    xs_ext = torch.cat([xs_t, torch.ones_like(x2)])          # (D + 1, N)
+    eye_k = torch.eye(k, dtype=source.dtype, device=source.device)
+    block = max(min(int(_config.config.estep_chunk if block is None
+                        else block), n), 1)
+    pad = (-n) % block
+    cmask = torch.cat([torch.ones_like(x2), x2.new_zeros((1, pad))], 1)
+    xs_p, xe_p, x2_p = (torch.cat([a, a.new_zeros((a.shape[0], pad))], 1)
+                        for a in (xs_t, xs_ext, x2))
+
+    def estep_cols(t_src_t, y2, sigma2, c, s0):
+        cols = slice(s0, s0 + block)
+        mask_b, x2_b = cmask[:, cols], x2_p[:, cols]
+        xy = t_src_t.T @ xs_p[:, cols]                       # (M, B)
+        g = torch.exp(-torch.clamp(y2 + x2_b - 2.0 * xy, min=0.0)
+                      / (2.0 * sigma2)) * mask_b
+        den_raw = g.sum(0, keepdim=True)
+        den = torch.where(den_raw == 0.0, _F32_EPS, den_raw) + c
+        pt1 = mask_b * den_raw / den
+        return xe_p[:, cols] @ (g / den).T, (pt1 * x2_b).sum()
+
+    zc_t = (torch.zeros((dim, k), dtype=source.dtype, device=source.device)
+            if zc_init_t is None
+            else torch.as_tensor(zc_init_t, dtype=source.dtype,
+                                 device=source.device))
+    q, q_prev, i = math.inf, math.inf, 0
+    while True:
+        done, q_prev_next = _converged(i, q, q_prev, maxiter, tol)
+        if done:
+            break
+        t_src_t = ys_t + zc_t @ u.T                          # (D, M)
+        y2 = (t_src_t * t_src_t).sum(0)[:, None]
+        c = estep_ops.outlier_constant(sigma2, w, m, n, dim)
+        pxp = ys_t.new_zeros((dim + 1, m))
+        xx = ys_t.new_zeros(())
+        for s0 in range(0, n + pad, block):
+            pxp_b, xx_b = estep_cols(t_src_t, y2, sigma2, c, s0)
+            pxp, xx = pxp + pxp_b, xx + xx_b
+        px_t, p1 = pxp[:dim], pxp[dim]
+        n_p = p1.sum()
+        # M-step: the Woodbury coefficients in (D, K) layout.
+        rhs_t = px_t - ys_t * p1[None, :]
+        mk = lmd * sigma2 * eye_k + ((u * p1[:, None]).T @ u) * lam[None, :]
+        zc_t = torch.linalg.solve(mk, (rhs_t @ u).T).T * lam[None, :]
+        t_t = ys_t + zc_t @ u.T
+        tr_pxt = (px_t * t_t).sum()
+        tr_tpt = (p1 * (t_t * t_t).sum(0)).sum()
+        sigma2 = torch.clamp((xx - 2.0 * tr_pxt + tr_tpt) / (n_p * dim),
+                             min=_F32_EPS)
+        q, q_prev, i = sigma2, q_prev_next, i + 1
+    return zc_t, sigma2, torch.as_tensor(q, dtype=source.dtype,
+                                         device=source.device)
+
+
 # --------------------------------------------------------------------------
 # Streaming EM
 # --------------------------------------------------------------------------
@@ -312,6 +472,53 @@ def _affine_step(source, target, transf, sigma2, aux, w, assume_sorted=False,
     mom = estep_ops.estep(t_source, target, sigma2, w, use_pallas=use_pallas,
                           assume_sorted=assume_sorted)
     return affine_maximization_step(source, mom)
+
+
+# The nonrigid steps: the previous iteration's sigma2 is the M-step's
+# sigma2_p. Their clouds are never sorted (CoherentPointDrift.registration),
+# so assume_sorted is always False; it is taken for one step signature.
+
+def _nonrigid_step(source, target, transf, sigma2, aux, w, assume_sorted=False,
+                   use_pallas=None):
+    mom = estep_ops.estep(transf._transform(source), target, sigma2, w,
+                          use_pallas=use_pallas)
+    return nonrigid_maximization_step(source, mom, transf.g, aux["lmd"],
+                                      sigma2)
+
+
+def _constrained_step(source, target, transf, sigma2, aux, w,
+                      assume_sorted=False, use_pallas=None):
+    mom = estep_ops.estep(transf._transform(source), target, sigma2, w,
+                          use_pallas=use_pallas)
+    return constrained_nonrigid_maximization_step(
+        source, mom, transf.g, aux["lmd"], sigma2, aux["alpha"],
+        aux["p1_tilde"], aux["px_tilde"])
+
+
+def _nonrigid_lowrank_step(source, target, transf, sigma2, aux, w,
+                           assume_sorted=False, use_pallas=None):
+    mom = estep_ops.estep(transf._transform(source), target, sigma2, w,
+                          use_pallas=use_pallas)
+    return nonrigid_lowrank_maximization_step(
+        source, mom, transf.u, transf.lam, aux["lmd"], sigma2)
+
+
+def _constrained_prior(source, sigma2, alpha, p1_tilde, px_tilde):
+    """The constrained model's (d_extra, rhs_extra) of the low-rank
+    M-step."""
+    s2a = sigma2 / alpha
+    return s2a * p1_tilde, s2a * (px_tilde - source * p1_tilde[:, None])
+
+
+def _constrained_lowrank_step(source, target, transf, sigma2, aux, w,
+                              assume_sorted=False, use_pallas=None):
+    mom = estep_ops.estep(transf._transform(source), target, sigma2, w,
+                          use_pallas=use_pallas)
+    d_extra, rhs_extra = _constrained_prior(
+        source, sigma2, aux["alpha"], aux["p1_tilde"], aux["px_tilde"])
+    return nonrigid_lowrank_maximization_step(
+        source, mom, transf.u, transf.lam, aux["lmd"], sigma2,
+        d_extra=d_extra, rhs_extra=rhs_extra)
 
 
 def _run_em(source, target, tf0, sigma2_0, q0, aux, *, step_fn, w, maxiter,
@@ -354,6 +561,12 @@ class CoherentPointDrift(abc.ABC):
     """
 
     _STEP: Callable = None
+    # Whether the M-step reads the moments through row sums only, so that a
+    # consistent permutation of both clouds changes nothing: true for rigid
+    # and affine. A nonrigid Gram matrix, Nystrom basis or prior vector is
+    # row-aligned with the caller's source, so those clouds are never
+    # sorted.
+    _ORDER_FREE = False
 
     def __init__(self, source=None, use_cuda: bool = False,
                  use_pallas: Optional[bool] = None,
@@ -382,9 +595,14 @@ class CoherentPointDrift(abc.ABC):
 
     def maximization_step(self, target, estep_res,
                           sigma2_p=None) -> MstepResult:
-        del sigma2_p
+        """M-step from an E-step's result; ``sigma2_p``, the previous
+        variance, is the nonrigid regularizer's (rigid and affine ignore
+        it)."""
         mom = self._moments_from_estep(estep_res, self._as_points(target))
-        return self._mstep(self._source, mom)
+        if sigma2_p is not None:
+            sigma2_p = torch.as_tensor(sigma2_p, dtype=_config.config.dtype,
+                                       device=self._device)
+        return self._mstep(self._source, mom, sigma2_p)
 
     @staticmethod
     def _moments_from_estep(estep_res, target) -> EstepMoments:
@@ -397,11 +615,14 @@ class CoherentPointDrift(abc.ABC):
         ...
 
     @abc.abstractmethod
-    def _mstep(self, source, mom: EstepMoments) -> MstepResult:
+    def _mstep(self, source, mom: EstepMoments, sigma2_p) -> MstepResult:
         ...
 
     def _step_aux(self) -> Dict:
         return {}
+
+    def _step_fn(self) -> Callable:
+        return type(self)._STEP
 
     def _initialize(self, target) -> MstepResult:
         dim = self._source.shape[1]
@@ -430,37 +651,39 @@ class CoherentPointDrift(abc.ABC):
         source = self._source - cen
 
         def _tf_to(tr, sign):
-            # sign=+1: raw -> centred; sign=-1: centred -> raw.
+            # sign=+1: raw -> centred; sign=-1: centred -> raw. A nonrigid
+            # displacement field is translation invariant: unchanged.
             if isinstance(tr, tf.RigidTransformation):
                 shift = tr.scale * (tr.rot @ cen) - cen
                 return tf.RigidTransformation(tr.rot, tr.t + sign * shift,
                                               tr.scale, device=tr.device)
-            shift = tr.b @ cen - cen
-            return tf.AffineTransformation(tr.b, tr.t + sign * shift,
-                                           device=tr.device)
+            if isinstance(tr, tf.AffineTransformation):
+                shift = tr.b @ cen - cen
+                return tf.AffineTransformation(tr.b, tr.t + sign * shift,
+                                               device=tr.device)
+            return tr
 
         # use_pallas False: no hand-written kernel anywhere, the small E-step
         # and the sorted culled branch included. True: the two-pass kernels,
         # on sorted clouds so that their tile culling fires. None: the stash
-        # kernels from culled_estep_min_pairs on.
+        # kernels from culled_estep_min_pairs on. Only the order-free
+        # families are sorted.
         if self._use_pallas is None:
             presort = (_config.config.use_culled_estep
                        and source.shape[0] * target.shape[0]
                        >= _config.config.culled_estep_min_pairs)
         else:
             presort = bool(self._use_pallas)
+        presort = presort and self._ORDER_FREE
         if presort:
             # One Morton sort enables tile culling in every E-step with no
-            # per-iteration sort. Valid for rigid and affine CPD because
-            # their M-steps consume the moments only through row reductions,
-            # so a consistent permutation changes nothing downstream. It runs
-            # before _initialize so anything derived from the source shares
-            # the permutation.
+            # per-iteration sort. It runs before _initialize so anything
+            # derived from the source shares the permutation.
             from .ops.spatial import morton_order
 
             source = source[morton_order(source)]
             target = target[morton_order(target)]
-        step_fn = partial(type(self)._STEP, assume_sorted=presort,
+        step_fn = partial(self._step_fn(), assume_sorted=presort,
                           use_pallas=self._use_pallas)
         orig_source = self._source
         self._source = source
@@ -490,6 +713,7 @@ class RigidCPD(CoherentPointDrift):
     """Rigid CPD (reference cpd.py:123-192)."""
 
     _STEP = staticmethod(_rigid_step)
+    _ORDER_FREE = True
 
     def __init__(self, source=None, update_scale: bool = True,
                  tf_init_params: Optional[Dict] = None,
@@ -512,7 +736,7 @@ class RigidCPD(CoherentPointDrift):
     def _step_aux(self):
         return {"update_scale": bool(self._update_scale)}
 
-    def _mstep(self, source, mom: EstepMoments) -> MstepResult:
+    def _mstep(self, source, mom: EstepMoments, sigma2_p) -> MstepResult:
         return rigid_maximization_step(source, mom, self._update_scale)
 
     def _registration_fast(self, target, w, maxiter, tol):
@@ -544,6 +768,7 @@ class AffineCPD(CoherentPointDrift):
     """Affine CPD (reference cpd.py:195-244)."""
 
     _STEP = staticmethod(_affine_step)
+    _ORDER_FREE = True
 
     def __init__(self, source=None, tf_init_params: Optional[Dict] = None,
                  use_cuda: bool = False, use_pallas: Optional[bool] = None,
@@ -558,7 +783,7 @@ class AffineCPD(CoherentPointDrift):
         return tf.AffineTransformation(**self._tf_init_params, dim=dim,
                                        device=self._device)
 
-    def _mstep(self, source, mom: EstepMoments) -> MstepResult:
+    def _mstep(self, source, mom: EstepMoments, sigma2_p) -> MstepResult:
         return affine_maximization_step(source, mom)
 
     def _registration_fast(self, target, w, maxiter, tol):
@@ -583,8 +808,160 @@ class AffineCPD(CoherentPointDrift):
                            sigma2, q)
 
 
+class _NonRigidModel(CoherentPointDrift):
+    """The motion-coherence model that NonRigidCPD and
+    ConstrainedNonRigidCPD share: built from the source when it is set,
+    G(Y, Y; beta) as the dense (M, M) Gram matrix, or with ``rank`` as its
+    rank-K Nystrom factors (ops/lowrank.py), the weights starting at zero
+    or, low-rank only, at ``_v_init`` projected by least squares onto the
+    basis."""
+
+    def __init__(self, source, beta, lmd, rank, use_cuda, use_pallas,
+                 sigma2_init, device, v_init=None):
+        super().__init__(source, use_cuda, use_pallas, sigma2_init, device)
+        if v_init is not None and rank is None:
+            raise ValueError("v_init requires rank= (low-rank nonrigid)")
+        self._tf_type = tf.NonRigidTransformation
+        self._beta = beta
+        self._lmd = lmd
+        self._rank = rank
+        self._v_init = None if v_init is None else self._as_points(v_init)
+        self._tf_obj: Optional[tf.Transformation] = None
+        if self._source is not None:
+            self._make_tf_obj()
+
+    def _make_tf_obj(self):
+        if self._rank is None:
+            self._tf_obj = tf.NonRigidTransformation(
+                None, self._source, self._beta, device=self._device)
+            return
+        u, lam = lowrank.lowrank_rbf(self._source, float(self._beta),
+                                     int(self._rank))
+        if self._v_init is not None:
+            zc0 = torch.linalg.lstsq(u, self._v_init).solution   # (K, D)
+        else:
+            zc0 = u.new_zeros((u.shape[1], self._source.shape[1]))
+        self._tf_obj = tf.LowRankNonRigidTransformation(zc0, u, lam,
+                                                        device=self._device)
+
+    def set_source(self, source):
+        super().set_source(source)
+        self._make_tf_obj()
+
+    def _initial_tf(self):
+        return self._tf_obj
+
+
+class NonRigidCPD(_NonRigidModel):
+    """Nonrigid (motion-coherence) CPD (reference cpd.py:1050).
+
+    ``rank``: G(Y, Y; beta) held as its rank-K Nystrom factors and every
+    M-step a K x K Woodbury solve, O(M K) memory; the whole EM then runs
+    in ``_run_em_nonrigid_lowrank_t``. Without it the dense (M, M) Gram
+    matrix and an M x M solve per iteration. ``v_init``: an (M, D)
+    starting displacement at the source points (low-rank only).
+    ``sigma2_init``: a starting variance.
+    """
+
+    _STEP = staticmethod(_nonrigid_step)
+
+    def __init__(self, source=None, beta: float = 2.0, lmd: float = 2.0,
+                 use_cuda: bool = False, use_pallas: Optional[bool] = None,
+                 rank: Optional[int] = None,
+                 sigma2_init: Optional[float] = None, v_init=None,
+                 device=None):
+        super().__init__(source, beta, lmd, rank, use_cuda, use_pallas,
+                         sigma2_init, device, v_init)
+
+    def _step_aux(self):
+        return {"lmd": self._lmd}
+
+    def _step_fn(self):
+        return _nonrigid_step if self._rank is None else _nonrigid_lowrank_step
+
+    def _mstep(self, source, mom: EstepMoments, sigma2_p) -> MstepResult:
+        if self._rank is None:
+            return nonrigid_maximization_step(source, mom, self._tf_obj.g,
+                                              self._lmd, sigma2_p)
+        return nonrigid_lowrank_maximization_step(
+            source, mom, self._tf_obj.u, self._tf_obj.lam, self._lmd,
+            sigma2_p)
+
+    def _registration_fast(self, target, w, maxiter, tol):
+        if self._rank is None:
+            return None
+        u, lam = self._tf_obj.u, self._tf_obj.lam
+        zc_t, sigma2, q = _run_em_nonrigid_lowrank_t(
+            self._source, target, u, lam, self._lmd, w=float(w),
+            maxiter=int(maxiter), tol=float(tol),
+            block=int(_config.config.estep_chunk),
+            zc_init_t=None if self._v_init is None else self._tf_obj.zc.T,
+            sigma2_init=self._sigma2_init)
+        return MstepResult(tf.LowRankNonRigidTransformation(
+            zc_t.T, u, lam, device=self._device), sigma2, q)
+
+
+class ConstrainedNonRigidCPD(_NonRigidModel):
+    """Extended CPD: nonrigid CPD with correspondence priors (reference
+    cpd.py:1133). ``idx_source[k]`` is known to match ``idx_target[k]``;
+    ``alpha`` is the prior's reliability (smaller binds harder). The prior
+    moments p1_tilde and px_tilde are scatter-added from the index pairs
+    (a repeated index accumulates) in ``_initialize``, from the target it
+    is given (the centred one in ``registration``). ``rank``: as in
+    :class:`NonRigidCPD`, through the generic loop.
+    """
+
+    _STEP = staticmethod(_constrained_step)
+
+    def __init__(self, source=None, beta: float = 2.0, lmd: float = 2.0,
+                 alpha: float = 1e-8, use_cuda: bool = False,
+                 idx_source=None, idx_target=None,
+                 use_pallas: Optional[bool] = None,
+                 rank: Optional[int] = None, device=None):
+        super().__init__(source, beta, lmd, rank, use_cuda, use_pallas,
+                         None, device)
+        self.alpha = alpha
+        self.idx_source = idx_source
+        self.idx_target = idx_target
+        self.p1_tilde = None
+        self.px_tilde = None
+
+    def _initialize(self, target) -> MstepResult:
+        p1_tilde = self._source.new_zeros(self._source.shape[0])
+        px_tilde = torch.zeros_like(self._source)
+        if self.idx_source is not None and self.idx_target is not None:
+            idx_s = torch.as_tensor(self.idx_source, dtype=torch.long,
+                                    device=self._device)
+            idx_t = torch.as_tensor(self.idx_target, dtype=torch.long,
+                                    device=self._device)
+            p1_tilde.index_add_(0, idx_s,
+                                torch.ones_like(idx_s, dtype=p1_tilde.dtype))
+            px_tilde.index_add_(0, idx_s, target[idx_t])
+        self.p1_tilde, self.px_tilde = p1_tilde, px_tilde
+        return super()._initialize(target)
+
+    def _step_aux(self):
+        return {"lmd": self._lmd, "alpha": self.alpha,
+                "p1_tilde": self.p1_tilde, "px_tilde": self.px_tilde}
+
+    def _step_fn(self):
+        return (_constrained_step if self._rank is None
+                else _constrained_lowrank_step)
+
+    def _mstep(self, source, mom: EstepMoments, sigma2_p) -> MstepResult:
+        if self._rank is None:
+            return constrained_nonrigid_maximization_step(
+                source, mom, self._tf_obj.g, self._lmd, sigma2_p,
+                self.alpha, self.p1_tilde, self.px_tilde)
+        d_extra, rhs_extra = _constrained_prior(
+            source, sigma2_p, self.alpha, self.p1_tilde, self.px_tilde)
+        return nonrigid_lowrank_maximization_step(
+            source, mom, self._tf_obj.u, self._tf_obj.lam, self._lmd,
+            sigma2_p, d_extra=d_extra, rhs_extra=rhs_extra)
+
+
 _NOT_PORTED = ("{} is not ported to probreg_tpu_torch yet (ROADMAP.md, "
-               "Queue 1 item 4); use probreg_tpu.cpd")
+               "Queue 1 item 13); use probreg_tpu.cpd")
 
 
 def registration_cpd_batch(sources, targets, tf_type_name: str = "rigid",
@@ -593,7 +970,8 @@ def registration_cpd_batch(sources, targets, tf_type_name: str = "rigid",
                            n_starts: int = 1,
                            use_pallas: Optional[bool] = None,
                            device=None) -> List[MstepResult]:
-    """Register B cloud pairs at once (reference cpd.py:1306-1431).
+    """Register B rigid or affine cloud pairs at once (reference
+    cpd.py:1306-1431; the nonrigid kinds raise ``ValueError``, as there).
 
     ``sources`` (B, M, D) and ``targets`` (B, N, D) are registered together;
     each pair stops at its own convergence. Ragged batches: ``sources`` /
@@ -656,8 +1034,8 @@ def registration_cpd(source, target, tf_type_name: str = "rigid",
     Args:
         source: Source point cloud ((M, D) ndarray, tensor or Open3D cloud).
         target: Target point cloud.
-        tf_type_name: 'rigid' or 'affine' (the nonrigid kinds are not
-            ported yet).
+        tf_type_name: 'rigid', 'affine', 'nonrigid' or
+            'nonrigid_constrained'.
         w: Weight of the uniform (outlier) distribution, 0 <= w < 1.
         maxiter: Maximum EM iterations.
         tol: Convergence tolerance on the likelihood q.
@@ -669,8 +1047,10 @@ def registration_cpd(source, target, tf_type_name: str = "rigid",
             missing CUDA device raises instead of running on the CPU.
 
     Keyword Args:
-        update_scale, tf_init_params, sigma2_init, use_pallas: as the
-            ``RigidCPD`` / ``AffineCPD`` constructors take them.
+        As the ``RigidCPD``, ``AffineCPD``, ``NonRigidCPD`` (beta, lmd,
+        rank, sigma2_init, v_init) and ``ConstrainedNonRigidCPD`` (beta,
+        lmd, alpha, idx_source, idx_target, rank) constructors take them;
+        use_pallas for all.
 
     Returns:
         MstepResult: (transformation, sigma2, q).
@@ -682,9 +1062,11 @@ def registration_cpd(source, target, tf_type_name: str = "rigid",
         cpd = RigidCPD(source, use_cuda=use_cuda, device=device, **kwargs)
     elif tf_type_name == "affine":
         cpd = AffineCPD(source, use_cuda=use_cuda, device=device, **kwargs)
-    elif tf_type_name in ("nonrigid", "nonrigid_constrained"):
-        raise NotImplementedError(
-            _NOT_PORTED.format(f"CPD kind {tf_type_name!r}"))
+    elif tf_type_name == "nonrigid":
+        cpd = NonRigidCPD(source, use_cuda=use_cuda, device=device, **kwargs)
+    elif tf_type_name == "nonrigid_constrained":
+        cpd = ConstrainedNonRigidCPD(source, use_cuda=use_cuda,
+                                     device=device, **kwargs)
     else:
         raise ValueError("Unknown transformation type %s" % tf_type_name)
     return cpd.registration(target, w, maxiter, tol)

@@ -2,9 +2,10 @@
 
 Parameters are tensors on one device. ``transform`` is the user-facing call
 (numpy, tensors or Open3D clouds in, a tensor out); ``_transform`` works on
-tensors already on the transformation's device. Of the nonrigid models,
-BCPD's combined transformation is here; the others come with later slices
-of the port.
+tensors already on the transformation's device. The nonrigid models are
+CPD's (a dense Gram matrix, or its low-rank Nystrom factors) and BCPD's
+combined transformation; like the reference's, each nonrigid displacement
+field is defined at the source points it was fitted to, row by row.
 """
 
 from __future__ import annotations
@@ -94,6 +95,60 @@ class AffineTransformation(Transformation):
 
     def __repr__(self):
         return f"AffineTransformation(b={self.b}, t={self.t})"
+
+
+class NonRigidTransformation(Transformation):
+    """x -> x + G(Y, Y; beta) W, the motion-coherence displacement field
+    (reference transformation.py:126).
+
+    ``g`` is the (M, M) RBF Gram matrix of the source points ``points``
+    (``ops.pairwise.rbf_kernel``, beta the variance), built here unless
+    given; ``w`` the (M, D) weights, zeros shaped like the points when
+    None. ``transform`` takes the source the model was fitted to.
+    """
+
+    def __init__(self, w=None, points=None, beta: float = 2.0, g=None,
+                 device=None):
+        self.device = _device_of(device, w, points, g)
+        if g is None:
+            from ..ops import pairwise
+
+            pts = _param(points, self.device)
+            g = pairwise.rbf_kernel(pts, pts, beta)
+        self.g = _param(g, self.device)
+        if w is None:
+            if points is None:
+                raise ValueError(
+                    "NonRigidTransformation(w=None) needs points= to "
+                    "shape the zero displacement field")
+            w = torch.zeros(tuple(_param(points, self.device).shape))
+        self.w = _param(w, self.device)
+
+    def _transform(self, points):
+        return points + self.g @ self.w
+
+    def __repr__(self):
+        return f"NonRigidTransformation(g={self.g}, w={self.w})"
+
+
+class LowRankNonRigidTransformation(Transformation):
+    """x -> x + U zc: the nonrigid model with G(Y, Y; beta) held as its
+    rank-K Nystrom factors U (M, K), ``lam`` (K,), and the weights as the
+    spectral coefficients zc = diag(lam) U^T W (K, D), so that G W = U zc
+    (reference transformation.py:164). O(M K) memory."""
+
+    def __init__(self, zc, u, lam, device=None):
+        self.device = _device_of(device, zc, u, lam)
+        self.zc = _param(zc, self.device)
+        self.u = _param(u, self.device)
+        self.lam = _param(lam, self.device)
+
+    def _transform(self, points):
+        return points + self.u @ self.zc
+
+    def __repr__(self):
+        return (f"LowRankNonRigidTransformation(zc={self.zc}, u={self.u}, "
+                f"lam={self.lam})")
 
 
 class CombinedTransformation(Transformation):

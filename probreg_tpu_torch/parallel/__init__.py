@@ -2,10 +2,11 @@
 
 Counterpart of probreg_tpu/parallel/. Every rank is a process; each calls
 the same entry point with the same full clouds and gets back the same
-result (mesh.py). Ported: rigid and affine CPD with the target sharded over
-a 1-D mesh (``registration_cpd_sharded``) or both clouds over a 2-D
-``(m, n)`` mesh (``registration_cpd_2d``, the culled E-step on kernel K11),
-and batches of pairs split over the ranks
+result (mesh.py). Ported: rigid, affine and nonrigid CPD with the target
+sharded over a 1-D mesh (``registration_cpd_sharded``), rigid, affine and
+low-rank nonrigid CPD with both clouds sharded over a 2-D ``(m, n)`` mesh
+(``registration_cpd_2d``, the culled E-step on kernel K11), and batches of
+pairs split over the ranks
 (``registration_cpd_batch_sharded``). The other sharded runners raise
 ``NotImplementedError`` naming ROADMAP.md Queue 1 item 12.
 """

@@ -117,8 +117,13 @@ def _sync(device):
 
 def host_result(res) -> dict:
     """An MstepResult as numpy and floats: lin (rot or b), t, scale,
-    sigma2, q."""
+    sigma2, q; for a nonrigid transformation its displacement at the
+    source points, disp (G W or U zc), in place of lin, t and scale."""
     tr = res.transformation
+    if hasattr(tr, "u") or hasattr(tr, "g"):
+        disp = tr.u @ tr.zc if hasattr(tr, "u") else tr.g @ tr.w
+        return {"disp": disp.detach().cpu().numpy(),
+                "sigma2": float(res.sigma2), "q": float(res.q)}
     lin = tr.rot if hasattr(tr, "rot") else tr.b
     return {"lin": lin.detach().cpu().numpy(),
             "t": tr.t.detach().cpu().numpy(),

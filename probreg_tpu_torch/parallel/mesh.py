@@ -155,3 +155,14 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     COUNTS["all_reduce"] += 1
     dist.all_reduce(t, group=group)
     return t
+
+
+def from_first_rank(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` as the first rank of ``group`` holds it, on every rank of
+    ``group``: an all_reduce to which every other rank adds zeros (x + 0 is
+    x). A replicated solve can differ in its last bits from rank to rank (a
+    CPU LAPACK's M x M solve is not reproducible from run to run), and the
+    ranks must hold one state and take one stop decision."""
+    t = t.contiguous() if dist.get_rank(group=group) == 0 \
+        else torch.zeros_like(t, memory_format=torch.contiguous_format)
+    return all_reduce_(t, group)

@@ -14,9 +14,14 @@ instead: each rank runs its pairs through ``cpd.registration_cpd_batch``
 (the whole-EM kernel K1 on the card) and one ``all_reduce`` of zero-filled
 buffers hands every rank every result.
 
+The nonrigid kind (``"nonrigid"``; with ``rank=`` the low-rank one)
+keeps the whole source, its Gram matrix or its Nystrom factors U and lam
+and the M-step's M x M or K x K solve replicated on every rank: only the
+E-step is sharded, over the target, with the same one ``all_reduce`` of
+the moments (``estep_sharded``).
+
 Not ported yet (ROADMAP.md, Queue 1 item 12): the sharded FilterReg, BCPD,
-GMMTree, GMMReg and SVR runners raise ``NotImplementedError``; the
-nonrigid CPD kinds raise naming item 4.
+GMMTree, GMMReg and SVR runners raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,11 +36,12 @@ from .. import cpd as cpd_mod
 from ..config import config
 from ..models import transformation as tf
 from ..ops import estep_cuda as ec
+from ..ops import lowrank, pairwise
 from ..ops.estep import EstepMoments, outlier_constant
 from ..ops.pairwise import sqdist
 from ..utils import interop
-from .mesh import (AXIS, COUNTS, all_reduce_, axis_group, make_mesh,
-                   rank_device, shard_points, shard_range)
+from .mesh import (AXIS, COUNTS, all_reduce_, axis_group, from_first_rank,
+                   make_mesh, rank_device, shard_points, shard_range)
 
 _F32_EPS = float(torch.finfo(torch.float32).eps)
 _NOT_PORTED = ("{} is not ported to probreg_tpu_torch yet (ROADMAP.md, "
@@ -95,6 +101,22 @@ def _unpack_init(init, dim: int, dev):
     return init[:d2].reshape(dim, dim), init[d2:d2 + dim], init[d2 + dim]
 
 
+def _sigma2_start(ys_t, xs_t, sigma2_init, n, grp):
+    """The starting variance: ``sigma2_init`` (floored at f32 eps), else
+    squared_kernel_sum of the replicated (D, M) source and the target from
+    its shards' sums (one all_reduce); no centring, as the reference's
+    sharded code."""
+    if sigma2_init is not None:
+        return torch.clamp(torch.as_tensor(sigma2_init, dtype=torch.float32,
+                                           device=ys_t.device), min=_F32_EPS)
+    dim, m = ys_t.shape
+    st = all_reduce_(torch.cat([(xs_t * xs_t).sum().reshape(1),
+                                xs_t.sum(1)]), grp)
+    sx = ys_t.sum(1)
+    return (n * (ys_t * ys_t).sum() + m * st[0] - 2.0 * sx @ st[1:]) \
+        / (m * dim * n)
+
+
 def _run_em_sharded_t(source, xs_loc, init, sigma2_init=None, *, kind,
                       w, maxiter, tol, update_scale, n, mesh, axis,
                       use_culled=False, culled_tile=1024):
@@ -119,15 +141,7 @@ def _run_em_sharded_t(source, xs_loc, init, sigma2_init=None, *, kind,
     ys_t, xs_t = source.T, xs_loc.T
     dim, m = ys_t.shape
     nl = xs_loc.shape[0]
-    if sigma2_init is not None:
-        sigma2 = torch.clamp(torch.as_tensor(sigma2_init, dtype=torch.float32,
-                                             device=dev), min=_F32_EPS)
-    else:  # squared_kernel_sum from the target's sums over every shard
-        st = all_reduce_(torch.cat([(xs_t * xs_t).sum().reshape(1),
-                                    xs_t.sum(1)]), grp)
-        sx = ys_t.sum(1)
-        sigma2 = (n * (ys_t * ys_t).sum() + m * st[0] - 2.0 * sx @ st[1:]) \
-            / (m * dim * n)
+    sigma2 = _sigma2_start(ys_t, xs_t, sigma2_init, n, grp)
     q = 1.0 + n * dim * 0.5 * torch.log(sigma2)
 
     if use_culled:
@@ -176,6 +190,44 @@ def _run_em_sharded_t(source, xs_loc, init, sigma2_init=None, *, kind,
     return lin, t, scale, sigma2, q
 
 
+def _run_em_sharded_nonrigid(source, xs_loc, tf0, sigma2_init=None, *,
+                             lmd, w, maxiter, tol, n, mesh, axis):
+    """Sharded whole EM of the nonrigid kinds (reference ``sharded.py:373``
+    ``_run_em_sharded``): ``tf0`` a ``NonRigidTransformation`` (dense Gram,
+    an M x M solve per iteration) or a ``LowRankNonRigidTransformation``
+    (a K x K Woodbury solve), replicated like the (M, D) ``source``; the
+    E-step's moments all-reduced over ``axis`` (``estep_sharded``). The
+    previous sigma2 is the M-step's sigma2_p; q is sigma2. Every rank
+    solves the M-step, then takes the first rank's weights and sigma2
+    (``from_first_rank``). Returns an MstepResult."""
+    grp = axis_group(mesh, axis)[0]
+    dim = source.shape[1]
+    sigma2 = _sigma2_start(source.T, xs_loc.T, sigma2_init, n, grp)
+    q = 1.0 + n * dim * 0.5 * torch.log(sigma2)
+    transf = tf0
+    q_prev, i = math.inf, 0
+    while True:
+        done, q_prev_next = cpd_mod._converged(i, q, q_prev, maxiter, tol)
+        if done:
+            break
+        mom = estep_sharded(transf._transform(source), xs_loc, sigma2, w, n,
+                            mesh, axis)
+        if isinstance(transf, tf.LowRankNonRigidTransformation):
+            transf, sigma2, _ = cpd_mod.nonrigid_lowrank_maximization_step(
+                source, mom, transf.u, transf.lam, lmd, sigma2)
+            weights = transf.zc
+        else:
+            transf, sigma2, _ = cpd_mod.nonrigid_maximization_step(
+                source, mom, transf.g, lmd, sigma2)
+            weights = transf.w
+        state = from_first_rank(torch.cat([weights.reshape(-1),
+                                           sigma2.reshape(1)]), grp)
+        weights.copy_(state[:-1].reshape(weights.shape))
+        sigma2 = q = state[-1]
+        q_prev, i = q_prev_next, i + 1
+    return cpd_mod.MstepResult(transf, sigma2, q)
+
+
 def _result(kind, lin, t, scale, sigma2, q, dev):
     if kind == "rigid":
         transf = tf.RigidTransformation(lin, t, scale, device=dev)
@@ -202,15 +254,19 @@ def registration_cpd_sharded(
     device=None,
     **kwargs: Any,
 ) -> cpd_mod.MstepResult:
-    """Multi-rank CPD registration, rigid or affine (reference
+    """Multi-rank CPD registration, rigid, affine or nonrigid (reference
     ``sharded.py:401``). Same semantics as ``cpd.registration_cpd``.
 
     Every rank calls it with the same full clouds. The target is sharded
     over the 1-D ``mesh`` (default: every rank); source and transformation
     are replicated; the moments are all-reduced. On a 2-D ``(m, n)`` mesh
     both clouds are sharded: see :func:`sharded2d.registration_cpd_2d`.
+    ``"nonrigid"`` takes ``beta`` and ``lmd``, and ``rank=`` for the
+    low-rank model (Nystrom factors and the K x K solve replicated); its
+    E-step is the dense sharded one, its clouds never sorted.
 
     Keyword Args:
+        rank: the low-rank nonrigid model's rank (nonrigid only).
         use_culled: the per-shard tile-culled stash E-step (default: the
             tensors are on CUDA, ``config.use_culled_estep`` and M * N >=
             ``config.culled_estep_min_pairs``); both clouds are then sorted
@@ -230,20 +286,40 @@ def registration_cpd_sharded(
             source, target, tf_type_name, w=w, maxiter=maxiter, tol=tol,
             mesh=mesh, update_scale=update_scale, beta=beta, lmd=lmd,
             device=device, **kwargs)
-    if tf_type_name in ("nonrigid", "nonrigid_lowrank"):
-        _refuse("the sharded nonrigid CPD", 4)
-    if tf_type_name not in ("rigid", "affine"):
+    if tf_type_name not in ("rigid", "affine", "nonrigid"):
         raise ValueError("unknown tf_type_name %s" % tf_type_name)
     use_culled = kwargs.pop("use_culled", None)
     culled_tile = int(kwargs.pop("culled_tile", 1024))
     tf_init_params = dict(kwargs.pop("tf_init_params", None) or {})
     sigma2_init = kwargs.pop("sigma2_init", None)
+    rank = kwargs.pop("rank", None)
     if kwargs:
         raise TypeError(f"registration_cpd_sharded: unknown kwargs "
                         f"{sorted(kwargs)}")
     dev = rank_device(device)
     axis = mesh.mesh_dim_names[0]
     src, tgt = _host_points(source), _host_points(target)
+    if tf_type_name == "nonrigid":
+        if tf_init_params:
+            raise ValueError("tf_init_params warm starts are rigid/affine-"
+                             "only on the sharded path (the nonrigid field "
+                             "has no packed init)")
+        xs_loc, n = shard_points(tgt, mesh, axis, dev)
+        ys = torch.as_tensor(src, device=dev)
+        grp = axis_group(mesh, axis)[0]
+        # The Gram matrix or the Nystrom factors as the first rank builds
+        # them, so that every rank holds the same model (from_first_rank).
+        if rank is None:
+            g = from_first_rank(pairwise.rbf_kernel(ys, ys, beta), grp)
+            tf0 = tf.NonRigidTransformation(None, ys, g=g, device=dev)
+        else:
+            u, lam = lowrank.lowrank_rbf(ys, float(beta), int(rank))
+            u, lam = from_first_rank(u, grp), from_first_rank(lam, grp)
+            tf0 = tf.LowRankNonRigidTransformation(
+                u.new_zeros((u.shape[1], ys.shape[1])), u, lam, device=dev)
+        return _run_em_sharded_nonrigid(
+            ys, xs_loc, tf0, sigma2_init, lmd=lmd, w=float(w),
+            maxiter=int(maxiter), tol=float(tol), n=n, mesh=mesh, axis=axis)
     if use_culled is None:
         use_culled = (dev.type == "cuda" and config.use_culled_estep
                       and src.shape[0] * tgt.shape[0]

@@ -16,10 +16,13 @@ Each entry point runs every level through the port's own entry point for
 that family (``registration_cpd``, ``registration_filterreg``,
 ``registration_gmmtree``, ``registration_icp``, BCPD's
 ``_registration_bcpd_impl``) on ``device``; the CPD pyramid's ``mesh=``
-runs every level through ``parallel.registration_cpd_sharded``. Not ported
-yet: ``mesh=`` of the FilterReg and BCPD pyramids (ROADMAP Queue 1 item
-12), ``n_starts > 1`` (item 13) and the nonrigid CPD pyramid (item 4) raise
-``NotImplementedError``.
+runs every level through ``parallel.registration_cpd_sharded``. The
+low-rank nonrigid CPD pyramid carries the displacement field: the coarse
+level's field is kernel-regressed onto the finer points
+(``_interp_displacement``, one Gauss transform) and projected onto their
+Nystrom basis (``v_init``). Not ported yet: ``mesh=`` of the FilterReg and
+BCPD pyramids (ROADMAP Queue 1 item 12) and ``n_starts > 1`` (item 13)
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -266,16 +269,19 @@ def registration_cpd_pyramid(
     device=None,
     **kwargs: Any,
 ):
-    """Coarse-to-fine rigid or affine CPD (reference pyramid.py:221).
+    """Coarse-to-fine rigid, affine or low-rank nonrigid CPD (reference
+    pyramid.py:221).
 
     Registers voxel-downsampled levels coarsest first, warm-starting each
-    finer level with the previous level's transform and variance. The
-    result is a :func:`probreg_tpu_torch.cpd.registration_cpd` result on
-    the full-resolution clouds.
+    finer level with the previous level's transform (for 'nonrigid' its
+    displacement field, interpolated to the finer points) and variance.
+    The result is a :func:`probreg_tpu_torch.cpd.registration_cpd` result
+    on the full-resolution clouds.
 
     Args:
         source / target: Point clouds (ndarray, tensor or Open3D cloud).
-        tf_type_name: 'rigid' or 'affine' ('nonrigid' is not ported yet).
+        tf_type_name: 'rigid', 'affine', or 'nonrigid' with ``rank=`` (the
+            dense model has no cross-resolution warm start).
         w, maxiter, tol, callbacks: As in registration_cpd, at every level.
         levels: Number of pyramid levels including full resolution.
         voxel_sizes: Explicit schedule (coarsest first; 0 = full res).
@@ -289,7 +295,8 @@ def registration_cpd_pyramid(
         mesh: A ``torch.distributed`` device mesh: every level runs
             through ``parallel.registration_cpd_sharded`` on it (1-D:
             target sharded; 2-D ``(m, n)``: both clouds), every rank
-            calling with the same clouds. No callbacks with it.
+            calling with the same clouds. Rigid or affine, no callbacks
+            (the sharded runners have no displacement warm start).
         device: Device to run on (default ``config.device``, "cuda"; with
             ``mesh``, this rank's ``cuda:{LOCAL_RANK}``).
         **kwargs: Forwarded to registration_cpd at every level
@@ -307,14 +314,19 @@ def registration_cpd_pyramid(
         raise ValueError(
             "registration_cpd_pyramid supports 'rigid', 'affine' and "
             "low-rank 'nonrigid' (rank= required).")
-    if tf_type_name == "nonrigid":
-        _refuse("the nonrigid CPD pyramid", 4)
+    nonrigid = tf_type_name == "nonrigid"
+    if nonrigid and kwargs.get("rank") is None:
+        raise ValueError(
+            "nonrigid pyramid requires rank= (low-rank Nystrom): the coarse "
+            "displacement field is kernel-interpolated to each finer level "
+            "and projected onto its Nystrom basis (v_init); the dense model "
+            "has no cross-resolution warm start.")
     if int(kwargs.pop("n_starts", 1)) > 1:
         _refuse("n_starts > 1", 13)
-    if mesh is not None and callbacks:
+    if mesh is not None and (nonrigid or callbacks):
         raise ValueError("mesh= pyramid supports rigid/affine without "
                          "callbacks (the sharded runner has no callback "
-                         "path)")
+                         "or displacement warm-start path)")
     for managed in ("tf_init_params", "sigma2_init", "v_init"):
         if managed in kwargs:
             raise ValueError(f"{managed} is managed by the pyramid; pass it "
@@ -338,9 +350,15 @@ def registration_cpd_pyramid(
     res = None
     tf_init = {}
     sigma2_init = None
+    v_init = None
     for i, (s_i, t_i) in enumerate(zip(src_levels, tgt_levels)):
         def _run(mi, warm, s_i=s_i, t_i=t_i):
-            tf_c, s2_c = warm
+            tf_c, v_c, s2_c = warm
+            if nonrigid:
+                return _cpd.registration_cpd(
+                    s_i, t_i, "nonrigid", w=w, maxiter=mi, tol=tol,
+                    callbacks=callbacks, sigma2_init=s2_c, v_init=v_c,
+                    device=dev, **kwargs)
             if mesh is not None:
                 return _sharded.registration_cpd_sharded(
                     s_i, t_i, tf_type_name, w=w, maxiter=mi, tol=tol,
@@ -351,18 +369,25 @@ def registration_cpd_pyramid(
                 callbacks=callbacks, tf_init_params=tf_c or None,
                 sigma2_init=s2_c, device=dev, **kwargs)
 
-        def _carry(res):
+        def _carry(res, s_i=s_i):
             s2_c = max(float(res.sigma2), _F32_EPS)
             tr = res.transformation
+            if nonrigid:  # the displacement at this level's points
+                return (None, _host(tr.transform(s_i)) - _host(s_i), s2_c)
             tf_c = _rigid_params(tr) if rigid else \
                 {"b": _host(tr.b), "t": _host(tr.t)}
-            return (tf_c, s2_c)
+            return (tf_c, None, s2_c)
 
         res = _sliced_level(level_maxiters[i], dispatch_chunk,
-                            (dict(tf_init), sigma2_init), _run, _carry,
-                            tol=tol)
+                            (dict(tf_init), v_init, sigma2_init), _run,
+                            _carry, tol=tol)
         if i + 1 < len(src_levels):
-            tf_init = _carry(res)[0]
+            tf_c, disp, _ = _carry(res)
+            if nonrigid:
+                v_init = _interp_displacement(s_i, disp, src_levels[i + 1],
+                                              voxel_sizes[i], device=dev)
+            else:
+                tf_init = tf_c
             sigma2_init = _carry_sigma2(float(res.sigma2), voxel_sizes[i],
                                         sigma2_inflation)
     return res

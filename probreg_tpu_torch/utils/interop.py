@@ -108,6 +108,26 @@ def combined_from_reference(params: Mapping[str, Any], device=None):
         np.asarray(params["v"]), dim=rot.shape[0], device=device)
 
 
+def nonrigid_from_reference(params: Mapping[str, Any], device=None):
+    """Port a nonrigid CPD transformation from a JAX one's parameters as
+    numpy: ``params`` holds ``w`` (M, D) and ``g`` (M, M) for a
+    NonRigidTransformation, or ``zc`` (K, D), ``u`` (M, K) and ``lam``
+    (K,) for a LowRankNonRigidTransformation, e.g. ``{k:
+    np.asarray(getattr(tr, k)) for k in ("zc", "u", "lam")}``."""
+    from ..models import transformation as tf
+
+    if {"w", "g"} <= set(params):
+        return tf.NonRigidTransformation(np.array(params["w"]),
+                                         g=np.array(params["g"]),
+                                         device=device)
+    if {"zc", "u", "lam"} <= set(params):
+        return tf.LowRankNonRigidTransformation(
+            *(np.array(params[k]) for k in ("zc", "u", "lam")),
+            device=device)
+    raise ValueError("nonrigid_from_reference needs w, g (dense) or zc, u, "
+                     f"lam (low-rank); got {sorted(params)}")
+
+
 def gmmtree_nodes_from_reference(pi, mu, cov, device=None):
     """A GMMTree's node tensors (pi (T,), mu (T, 3), cov (T, 3, 3)) from a
     tree the JAX package built, given as numpy (e.g. ``np.asarray`` of each

@@ -8,6 +8,38 @@ import torch
 from ..ops import pairwise
 
 
+class Normalizer:
+    """Shift and scale normalizer (reference math_utils.py:17): ``fit``
+    takes the centroid of every given cloud together and the largest
+    distance from it as the scale (floored at 1e-12)."""
+
+    def __init__(self, scale: float = 1.0, centroid=0.0):
+        self._scale = scale
+        self._centroid = centroid
+
+    @classmethod
+    def fit(cls, *clouds) -> "Normalizer":
+        """Estimate the centroid and scale from one or more clouds."""
+        allpts = torch.cat([torch.as_tensor(c) for c in clouds], dim=0)
+        centroid = allpts.mean(0)
+        scale = torch.clamp(
+            torch.linalg.norm(allpts - centroid, dim=1).max(), min=1e-12)
+        return cls(scale, centroid)
+
+    def _like(self, x):
+        x = torch.as_tensor(x)
+        return x, *(torch.as_tensor(v, dtype=x.dtype, device=x.device)
+                    for v in (self._centroid, self._scale))
+
+    def normalize(self, x) -> torch.Tensor:
+        x, centroid, scale = self._like(x)
+        return (x - centroid) / scale
+
+    def denormalize(self, x) -> torch.Tensor:
+        x, centroid, scale = self._like(x)
+        return x * scale + centroid
+
+
 def squared_kernel_sum_np(x, y) -> float:
     """Host-side :func:`squared_kernel_sum` in float64 numpy (reference
     math_utils.py:51), centred on the joint centroid."""
@@ -26,6 +58,10 @@ def compute_rmse(source: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     math_utils.py:86): the chunked search of ``pairwise.nearest_sqdist``,
     which takes differences."""
     return torch.sqrt(pairwise.nearest_sqdist(source, target)).mean()
+
+
+def rbf_kernel(x, y, beta: float) -> torch.Tensor:
+    return pairwise.rbf_kernel(x, y, beta)
 
 
 def inverse_multiquadric_kernel(x, y, c: float = 1.0) -> torch.Tensor:

@@ -219,9 +219,13 @@ def test_se3_helpers_match_reference():
 
 
 def test_unported_kinds_raise():
+    """The nonrigid kinds are ported (tests/test_torch_cpd_nonrigid.py);
+    the batch entry point refuses them as the reference's does, and an
+    unknown kind is a ValueError."""
     src, tgt, _ = _problem(50)
-    with pytest.raises(NotImplementedError, match="nonrigid"):
-        pcpd.registration_cpd(src, tgt, "nonrigid", device="cpu")
+    with pytest.raises(ValueError, match="rigid.*affine"):
+        pcpd.registration_cpd_batch(src[None], tgt[None], "nonrigid",
+                                    device="cpu")
     with pytest.raises(ValueError, match="Unknown"):
         pcpd.registration_cpd(src, tgt, "bogus", device="cpu")
 

@@ -1674,3 +1674,125 @@ def test_sharded_runners_on_one_nccl_rank(dev, nccl_world_one, monkeypatch):
     plain = sharded2d.registration_cpd_2d(src, tgt, "rigid", mesh=two_d, **kw)
     assert float((plain.transformation.rot - runs["2d"].transformation.rot)
                  .abs().max()) <= 1e-4
+
+
+# --------------------------------------------------------------------------
+# Nonrigid CPD
+# --------------------------------------------------------------------------
+
+def _nonrigid_clouds(name):
+    """The fish of examples/cpd_nonrigid2d.py, or 1,000 points uniform in
+    [-1, 1]^3 moved by 0.05 sin(2 x[::-1])."""
+    if name == "fish":
+        import os
+
+        data = os.path.join(os.path.dirname(__file__), "..", "data")
+        return tuple(np.loadtxt(os.path.join(data, f"fish_{k}.txt"))
+                     .astype(np.float32) for k in ("source", "target"))
+    rng = np.random.default_rng(0)
+    src = rng.uniform(-1, 1, (1000, 3)).astype(np.float32)
+    return src, (src + 0.05 * np.sin(2.0 * src[:, ::-1])).astype(np.float32)
+
+
+@pytest.mark.parametrize("cloud", ["fish", "3d"])
+@pytest.mark.parametrize("kind", ["nonrigid", "nonrigid_constrained"])
+def test_dense_nonrigid_runs_k2_once_per_iteration(dev, cloud, kind):
+    """Every iteration of the dense nonrigid and constrained loops is one
+    launch of K2 and no other kernel; use_pallas=False launches none. At 10
+    iterations (before sigma2 reaches the f32 floor, where the M x M solve
+    makes the loop chaotic) the kernel-driven run is within 5e-5 of the
+    plain-driven one (the CPU tests hold the packages to that bar). At
+    that depth sigma2 is still ~0.2 in 3-D, where the field has not yet
+    closed the residual: quality is the smoke's and the CPU tests'."""
+    from probreg_tpu_torch import cpd as pcpd
+
+    src, tgt = _nonrigid_clouds(cloud)
+    kw = {} if kind == "nonrigid" else dict(
+        beta=0.5, lmd=1.0, alpha=1e-3, idx_source=np.arange(0, len(src), 5),
+        idx_target=np.arange(0, len(src), 5))
+    pec.reset_launches()
+    res = pcpd.registration_cpd(src, tgt, kind, maxiter=10, tol=0.0,
+                                device=dev, **kw)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in pec.LAUNCHES.items() if v} == \
+        {"estep_small": 10}
+    pec.reset_launches()
+    plain = pcpd.registration_cpd(src, tgt, kind, maxiter=10, tol=0.0,
+                                  device=dev, use_pallas=False, **kw)
+    torch.cuda.synchronize()
+    assert not any(pec.LAUNCHES.values())
+    moved = res.transformation.transform(src)
+    assert bool(torch.isfinite(moved).all())
+    assert float((moved - plain.transformation.transform(src)).abs()
+                 .max()) <= 5e-5
+
+
+def test_nonrigid_step_api_runs_k2(dev):
+    """NonRigidCPD.expectation_step is one K2 launch; maximization_step
+    with sigma2_p runs no kernel; five iterations of the two equal the
+    plain-driven ones within 5e-5."""
+    from probreg_tpu_torch import cpd as pcpd
+
+    src, tgt = _nonrigid_clouds("3d")
+    runs = []
+    for use_pallas in (None, False):
+        reg = pcpd.NonRigidCPD(src, use_pallas=use_pallas, device=dev)
+        ts, sigma2 = torch.as_tensor(src, device=dev), 0.1
+        pec.reset_launches()
+        for _ in range(5):
+            res = reg.maximization_step(
+                tgt, reg.expectation_step(ts, tgt, sigma2), sigma2)
+            ts, sigma2 = res.transformation.transform(src), res.sigma2
+        torch.cuda.synchronize()
+        runs.append(ts)
+        assert pec.LAUNCHES["estep_small"] == (5 if use_pallas is None else 0)
+    assert float((runs[0] - runs[1]).abs().max()) <= 5e-5
+
+
+def test_nonrigid_sharded_on_one_nccl_rank(dev, nccl_world_one):
+    """The low-rank nonrigid kinds on one NCCL rank, 4,096 points of
+    examples/cpd_nonrigid_lowrank.py's surface (rank 60, 20 iterations):
+    the 1-D runner (no kernel) within 1e-4 of cpd.registration_cpd (the
+    same Nystrom factors); the culled 1 x 1 mesh through K11's route, its
+    three launches and one den reduction per E-step, within 1e-2 of it
+    (its factors come from the Morton-sorted source, so other landmarks)
+    and its residual within 5 % of it."""
+    from probreg_tpu_torch import cpd as pcpd
+    from probreg_tpu_torch.parallel import make_mesh, make_mesh_2d, mesh
+    from probreg_tpu_torch.parallel import sharded, sharded2d
+
+    g = np.linspace(0.0, 1.0, 64)
+    xx, yy = np.meshgrid(g, g)
+    src = np.stack([xx, yy, 0.3 * np.sin(2 * np.pi * xx)
+                    * np.cos(2 * np.pi * yy)], -1).reshape(-1, 3) \
+        .astype(np.float32)
+    tgt = src + 0.08 * np.stack(
+        [np.sin(np.pi * yy), np.cos(np.pi * xx), np.sin(np.pi * (xx + yy))],
+        -1).reshape(-1, 3).astype(np.float32)
+    kw = dict(maxiter=20, tol=0.0, rank=60, device=dev)
+    one = pcpd.registration_cpd(src, tgt, "nonrigid", **kw)
+    moved = one.transformation.transform(src)
+    tgt_d = torch.as_tensor(tgt, device=dev)
+
+    def residual(x):
+        return float((x - tgt_d).abs().mean())
+
+    mesh.reset_counts()
+    pec.reset_launches()
+    r1 = sharded.registration_cpd_sharded(src, tgt, "nonrigid",
+                                          mesh=make_mesh(), **kw)
+    assert not any(pec.LAUNCHES.values())
+    assert float((r1.transformation.transform(src) - moved).abs().max()) \
+        <= 1e-4
+    mesh.reset_counts()
+    pec.reset_launches()
+    r2 = sharded2d.registration_cpd_2d(src, tgt, "nonrigid",
+                                       mesh=make_mesh_2d(1, 1),
+                                       use_culled=True, **kw)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in pec.LAUNCHES.items() if v} == {
+        "stash_den_raw": 20, "stash_finish": 20, "stash_moment": 20}
+    assert mesh.COUNTS["den_all_reduce"] == 20
+    moved2 = r2.transformation.transform(src)
+    assert float((moved2 - moved).abs().max()) <= 1e-2
+    assert residual(moved2) <= 1.05 * residual(moved)

@@ -5,10 +5,13 @@ The reference runs on the conftest's virtual CPU devices; the port's ranks
 are 4 spawned processes with a gloo process group (one spawn for the whole
 module). Both run at a fixed depth (tol = 0), so the two stop alike.
 Tolerance on the transforms: 1e-5 absolute, the reference's own for its
-2-D mesh against one device (tests/test_sharded2d.py); sigma2 and q within
-1e-4 relative (summation order only: the two reduce across shards in
-different orders). Every rank must return the same iterations and the same
-transform bit for bit.
+2-D mesh against one device (tests/test_sharded2d.py), on the displacement
+at the source points for the nonrigid kinds; 1e-3 for the low-rank ones,
+whose Nystrom factors each package builds itself (they differ by up to
+5e-4 in U diag(lam) U^T, tests/test_torch_cpd_nonrigid.py); sigma2 and q
+within 1e-4 relative (summation order only: the two reduce across shards
+in different orders). Every rank must return the same iterations and the
+same transform bit for bit.
 """
 
 import functools
@@ -35,6 +38,7 @@ from probreg_tpu_torch.parallel import _spmd  # noqa: E402
 from probreg_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 
 ATOL = 1e-5
+LOWRANK_ATOL = 1e-3
 RTOL = 1e-4
 M, N = 301, 257          # uneven on every mesh axis
 ITERS = 10
@@ -87,6 +91,13 @@ CASES = [
     ("1d_rigid_culled", "cpd_sharded", (4,), ("rigid",),
      dict(use_culled=True, culled_tile=TILE)),
     ("1d_affine_dense", "cpd_sharded", (4,), ("affine",), {}),
+    ("1d_nonrigid_dense", "cpd_sharded", (4,), ("nonrigid",), {}),
+    ("1d_nonrigid_lowrank", "cpd_sharded", (4,), ("nonrigid",),
+     dict(rank=20)),
+    ("2d_nonrigid_lowrank_dense", "cpd_2d", (2, 2), ("nonrigid",),
+     dict(rank=20)),
+    ("2d_nonrigid_lowrank_culled", "cpd_2d", (2, 2), ("nonrigid",),
+     dict(rank=20, use_culled=True, culled_tile=TILE)),
 ]
 
 
@@ -118,11 +129,17 @@ def _lin(tr):
     return np.asarray(tr.rot if hasattr(tr, "rot") else tr.b)
 
 
-def _check(got, want, name):
-    np.testing.assert_allclose(got["lin"], _lin(want.transformation),
-                               atol=ATOL, err_msg=name)
-    np.testing.assert_allclose(got["t"], np.asarray(want.transformation.t),
-                               atol=ATOL, err_msg=name)
+def _check(got, want, name, atol=ATOL):
+    tr = want.transformation
+    if "disp" in got:  # nonrigid: the displacement at the source points
+        disp = tr.u @ tr.zc if hasattr(tr, "u") else tr.g @ tr.w
+        np.testing.assert_allclose(got["disp"], np.asarray(disp), atol=atol,
+                                   err_msg=name)
+    else:
+        np.testing.assert_allclose(got["lin"], _lin(tr), atol=atol,
+                                   err_msg=name)
+        np.testing.assert_allclose(got["t"], np.asarray(tr.t), atol=atol,
+                                   err_msg=name)
     np.testing.assert_allclose(got["sigma2"], float(want.sigma2), rtol=RTOL,
                                err_msg=name)
     np.testing.assert_allclose(got["q"], float(want.q), rtol=RTOL,
@@ -364,7 +381,8 @@ def test_sharded_cpd_matches_reference(spawned, name, entry, shape, args,
         kw["culled_interpret"] = True
     want = ref_fn(src, tgt, *args, maxiter=ITERS, tol=0.0,
                   mesh=_jax_mesh(shape), **kw)
-    _check(outs[0]["result"], want, name)
+    _check(outs[0]["result"], want, name,
+           LOWRANK_ATOL if "rank" in kw else ATOL)
     if entry == "cpd_2d" and kw.get("use_culled"):
         # One normalizer reduction per E-step on every rank.
         assert outs[0]["counts"]["den_all_reduce"] == ITERS
@@ -430,5 +448,33 @@ def test_sharded_stash_cap_refuses_past_the_floor(tmp_path, monkeypatch):
         res = ppar.registration_cpd_sharded(src, tgt, mesh=mesh, maxiter=2,
                                             device="cpu")
         assert res.transformation.rot.shape == (3, 3)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_nonrigid_refusals(tmp_path):
+    """As the reference: the sharded nonrigid field has no packed warm
+    start (tf_init_params), and the dense nonrigid model does not run on
+    the 2-D mesh (its M x M solve does not distribute); on a process group
+    of one gloo rank."""
+    import torch.distributed as dist
+
+    src, tgt = _rigid_pair()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            world_size=1, rank=0)
+    try:
+        one_d = ppar.make_mesh(device_type="cpu")
+        two_d = ppar.make_mesh_2d(1, 1, device_type="cpu")
+        with pytest.raises(ValueError, match="tf_init_params"):
+            ppar.registration_cpd_sharded(
+                src, tgt, "nonrigid", mesh=one_d, device="cpu",
+                tf_init_params={"rot": np.eye(3)})
+        with pytest.raises(ValueError, match="requires rank="):
+            ppar.registration_cpd_2d(src, tgt, "nonrigid", mesh=two_d,
+                                     device="cpu")
+        with pytest.raises(ValueError, match="tf_init_params"):
+            ppar.registration_cpd_2d(src, tgt, "nonrigid", mesh=two_d,
+                                     rank=8, device="cpu",
+                                     tf_init_params={"rot": np.eye(3)})
     finally:
         dist.destroy_process_group()

@@ -192,6 +192,28 @@ def test_cpd_pyramid_matches_reference(rigid_pair, kind):
     assert float(out.sigma2) == pytest.approx(float(ref.sigma2), rel=5e-3)
 
 
+def test_nonrigid_cpd_pyramid_matches_reference():
+    """The low-rank nonrigid pyramid (2 levels, rank 20) on
+    bench_bcpd_guarded.py's deformation of 2,000 points, without its
+    rotation: the moved source within 1e-3 of the reference's (the two
+    packages' Nystrom factors of one cloud differ by up to 5e-4,
+    tests/test_torch_cpd_nonrigid.py), and the residual well below the
+    deformation."""
+    src = blobby_surface(2000, seed=5)
+    defo = (0.02 * np.sin(3.0 * src[:, :1])
+            * np.array([[1.0, 0.5, -0.3]])).astype(np.float32)
+    tgt = (src + defo).astype(np.float32)
+    kw = dict(rank=20, levels=2, coarse_points=600, maxiter=20, tol=0.0)
+    ref = jpy.registration_cpd_pyramid(src, tgt, "nonrigid", **kw)
+    out = ppy.registration_cpd_pyramid(src, tgt, "nonrigid", device="cpu",
+                                       **kw)
+    moved = out.transformation.transform(src).numpy()
+    np.testing.assert_allclose(moved,
+                               np.asarray(ref.transformation.transform(src)),
+                               atol=1e-3)
+    assert np.abs(moved - tgt).mean() < 0.3 * np.abs(defo).mean()
+
+
 @pytest.fixture
 def streaming_finest_level():
     """Both packages' configs lowered so that the finest level (9e6 pairs)
@@ -333,8 +355,6 @@ def test_rejections():
     src = np.random.default_rng(0).random((100, 3)).astype(np.float32)
     cpu = dict(device="cpu")
     not_ported = [
-        lambda: ppy.registration_cpd_pyramid(src, src, "nonrigid", rank=8,
-                                             **cpu),
         lambda: ppy.registration_cpd_pyramid(src, src, n_starts=4, **cpu),
         lambda: ppy.registration_filterreg_pyramid(src, src, n_starts=2,
                                                    **cpu),
@@ -346,7 +366,7 @@ def test_rejections():
         lambda: ppy.registration_bcpd_pyramid(src, src, mesh=object(),
                                               rank=8, **cpu),
     ]
-    for item, call in zip([4, 13, 13, 12, 13, 13, 12], not_ported):
+    for item, call in zip([13, 13, 12, 13, 13, 12], not_ported):
         with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
             call()
     invalid = [
@@ -355,6 +375,11 @@ def test_rejections():
         lambda: ppy.registration_cpd_pyramid(src, src, mesh=object(),
                                              callbacks=[print], **cpu),
         lambda: ppy.registration_cpd_pyramid(src, src, "projective", **cpu),
+        # The nonrigid pyramid carries a low-rank field only, and not on a
+        # mesh.
+        lambda: ppy.registration_cpd_pyramid(src, src, "nonrigid", **cpu),
+        lambda: ppy.registration_cpd_pyramid(src, src, "nonrigid", rank=8,
+                                             mesh=object(), **cpu),
         lambda: ppy.registration_cpd_pyramid(
             src, src, tf_init_params={"rot": np.eye(3)}, **cpu),
         lambda: ppy.registration_cpd_pyramid(src, src, sigma2_init=0.1,

@@ -90,7 +90,21 @@ before it and read just after:
   ragged horse pairs (one em_rigid launch per rank, bit for bit against
   registration_cpd_batch), the CPD pyramid with mesh= (2 x 2) at
   200,000 points and the 2 x 2 low-rank nonrigid kind on the 16,384-point
-  surface (K11 in every rank).
+  surface (K11 in every rank);
+* multistart and chunked callbacks: K1 and K5 with identity start rows
+  against no rows (the same bits; the bunny at every cluster size and
+  the 256 serving pairs); bench.py's bunny turned 170 degrees about z
+  registered with n_starts 1 and 10 by rigid CPD, pt2pt FilterReg and
+  GMMTree (each search one launch of K1, K5 or K10; the kernel route
+  against the plain route on the same CUDA tensors), 64 serving pairs x
+  4 starts in one launch of K1 and of K5 beside the 256-pair batches,
+  and BCPD's search on two 2,000-point horse samples; the CPD, FilterReg
+  and GMMTree pyramids at 200,000 points and the BCPD pyramid at 100,000
+  of a lopsided surface turned by Euler (20, -10, 150) degrees, with the
+  search on the coarsest level; and a callback that records each
+  transform at callback_chunk 1 and 10 (CPD, FilterReg and GMMTree on
+  the bunny, CPD at 150,000 points on K3): the same transforms, one host
+  read per chunk.
 
 Prints the card, a {"kernels": [...]} line and, last, {"ok": true, ...}.
 Exits non-zero without a CUDA device or when any phase fails.
@@ -3172,6 +3186,413 @@ def run_family_pyramids(dev, launches):
 
 
 # --------------------------------------------------------------------------
+# Multistart (n_starts > 1) and chunked callbacks
+# --------------------------------------------------------------------------
+
+MS_STARTS = 10           # the bunny searches and the pyramid searches
+MS_TURN = 170.0          # degrees about z: the identity start misses it
+MS_ROT_MAX_DEG = 0.5     # what a search must recover the bunny's turn to
+MS_BATCH, MS_BATCH_STARTS = 64, 4   # 64 serving pairs x 4 starts = 256
+N_BCPD_MS = 2000
+BCPD_MS_STARTS = 4
+MS_PYR_TURN = (20.0, -10.0, 150.0)  # Euler degrees of the pyramid searches
+N_BCPD_MS_PYR = 100_000
+CB_CHUNK, CB_ITERS = 10, 25
+CB_LARGE_ITERS = 10
+
+
+def rot_deg(r, rot):
+    """The angle between two rotations, in degrees."""
+    from probreg_tpu_torch.utils import se3_op
+
+    return float(np.rad2deg(float(se3_op.rotation_angle(
+        r.detach().cpu().double(), torch.as_tensor(rot).double()))))
+
+
+def lopsided_surface(n, seed=0):
+    """blobby_surface's sphere with two more terms in its radius, r = 1 +
+    0.25 sin(3 theta) cos(2 phi) + 0.2 sin(theta) cos(phi - 0.4) + 0.1
+    cos(theta): blobby_surface maps onto itself under 180 degrees about
+    every axis, which an orientation search cannot tell apart; this one
+    does not."""
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(0, np.pi, n)
+    phi = rng.uniform(0, 2 * np.pi, n)
+    r = (1.0 + 0.25 * np.sin(3 * theta) * np.cos(2 * phi)
+         + 0.2 * np.sin(theta) * np.cos(phi - 0.4) + 0.1 * np.cos(theta))
+    return np.stack([r * np.sin(theta) * np.cos(phi),
+                     r * np.sin(theta) * np.sin(phi),
+                     r * np.cos(theta)], axis=1).astype(np.float32)
+
+
+def turned_bunny(deg):
+    """bench.py's bunny pair with the target turned by ``deg`` degrees
+    about z around the source's centroid. A GMMTree search turns the
+    target about the shared centroid of the targets and the tree's node
+    means, which lies near the target: for clouds turned about a far
+    origin its starts keep the offset between the clouds, and the
+    reference's search misses the bunny turned 170 degrees about the
+    origin too."""
+    src, tgt = bunny_clouds(np.eye(3))
+    cen = src.mean(0)
+    return src, ((tgt - cen) @ z_rotation(deg).T + cen).astype(np.float32)
+
+
+def identity_rows(batch, dev, width):
+    """Identity start rows of K1 (width 14, sigma2_0 = 0) or K5 (12)."""
+    rows = torch.zeros((batch, width), device=dev)
+    rows[:, [0, 4, 8]] = 1.0
+    if width == 14:
+        rows[:, 12] = 1.0
+    return rows
+
+
+def check_init_bits(dev, kernels):
+    """K1 and K5 with identity start rows against no rows: the bunny on one
+    block, on clusters of 2, 4 and 8 blocks and on the default, and the
+    256 ragged serving pairs (pt2pt for K5) on the default plan, with the
+    loop test: the same bits."""
+    from probreg_tpu_torch.ops import em_cuda as em
+    from probreg_tpu_torch.ops import frg_cuda as fc
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    src, tgt = bunny_clouds(z_rotation(10.0))
+    s, x, nv = t(src), t(tgt), t(estimate_normals(tgt))
+    rigid = serving_batches()[0]
+    srcs, tgts, smask, tmask = em_batch_tensors(rigid, dev)
+    kw = dict(affine=False, w=0.0, maxiter=100, tol=1e-3, update_scale=True)
+    cases = [("bunny", *em.compact_batch(s[None], x[None]), (1, 2, 4, 8,
+                                                             None)),
+             ("serving batch", *em.compact_batch(srcs, tgts, smask, tmask),
+              (None,))]
+    for name, s_c, t_c, counts, clusters in cases:
+        rows = identity_rows(s_c.shape[0], dev, 14)
+        for g in clusters:
+            if not torch.equal(em._em_cuda(s_c, t_c, counts, rows, **kw,
+                                           _cluster=g),
+                               em._em_cuda(s_c, t_c, counts, **kw,
+                                           _cluster=g)):
+                raise AssertionError(f"K1: identity rows change the bits "
+                                     f"({name}, cluster {g})")
+        log(f"[start rows] K1 {name}: identity rows give the bits of none "
+            f"(clusters {[g or 'default' for g in clusters]})")
+    for obj in ("pt2pt", "pt2pl"):
+        pt2pl = obj == "pt2pl"
+        kw = dict(pt2pl=pt2pl, w=0.0, maxiter=100, tol=1e-3,
+                  update_sigma2=pt2pl, sigma2_decay=0.9, min_sigma2=1e-4,
+                  auto_sigma2=True, sigma2_0=0.0)
+        cases = [("bunny", *fc.compact_batch(
+            s[None], x[None], nv[None] if pt2pl else None), (1, 2, 4, 8,
+                                                             None))]
+        if not pt2pl:
+            cases.append(("serving batch", *fc.compact_batch(
+                srcs, tgts, None, smask, tmask), (None,)))
+        for name, s_c, t_c, n_c, counts, clusters in cases:
+            rows = identity_rows(s_c.shape[0], dev, 12)
+            for g in clusters:
+                if not torch.equal(
+                        fc._frg_cuda(s_c, t_c, n_c, counts, rows, **kw,
+                                     _cluster=g),
+                        fc._frg_cuda(s_c, t_c, n_c, counts, **kw,
+                                     _cluster=g)):
+                    raise AssertionError(f"K5: identity rows change the "
+                                         f"bits ({obj} {name}, cluster {g})")
+            log(f"[start rows] K5 {obj} {name}: identity rows give the bits "
+                f"of none")
+
+
+def same_start(name, kernel_run, plain_run, atol):
+    """The kernel route and the plain route of one search on the same CUDA
+    tensors: the same winning start, the transforms within ``atol``."""
+    (tf_k, best_k), (tf_p, best_p) = kernel_run(), plain_run()
+    err = float((tf_k - tf_p).abs().max())
+    log(f"  {name}: winning start kernel {best_k.tolist()} plain "
+        f"{best_p.tolist()}, |rot, t| {err:.2e} (limit {atol})")
+    if not (torch.equal(best_k, best_p) and err <= atol):
+        raise AssertionError(f"{name}: the kernel route and the plain route "
+                             "disagree")
+
+
+def run_multistart(dev, launches):
+    """The orientation searches through the entry points: the bunny
+    (bench.py's configuration) turned by MS_TURN degrees about z, rigid
+    CPD, pt2pt FilterReg (sigma2_decay 0.9) and GMMTree with n_starts 1
+    and MS_STARTS (each search one launch of K1, K5 or K10; the
+    MS_STARTS search must recover the turn to MS_ROT_MAX_DEG); the kernel
+    route against the plain route on the same CUDA tensors (the same
+    winning start); MS_BATCH serving pairs x MS_BATCH_STARTS starts in one
+    launch, timed beside the 256-pair batch; and the BCPD search on a
+    2,000-point pair."""
+    from probreg_tpu_torch import bcpd, cpd, filterreg, gmmtree
+    from probreg_tpu_torch.ops import em_cuda as em
+    from probreg_tpu_torch.ops import frg_cuda as fc
+    from probreg_tpu_torch.utils import math_utils as mu
+
+    truth = z_rotation(MS_TURN)
+    src, tgt = turned_bunny(MS_TURN)
+    frg_kw = FRG_SERVE["pt2pt"]
+    families = (
+        ("CPD", lambda n: cpd.registration_cpd(src, tgt, n_starts=n),
+         dict(em_rigid=1), "em_rigid"),
+        ("FilterReg pt2pt", lambda n: filterreg.registration_filterreg(
+            src, tgt, n_starts=n, **frg_kw), dict(frg_pt2pt=1), "frg_pt2pt"),
+        ("GMMTree", lambda n: gmmtree.registration_gmmtree(
+            src, tgt, n_starts=n), dict(gmmtree_level_em=2, gmmtree_reg=1),
+         "gmmtree_reg"))
+    for name, run, want, key in families:
+        errs, walls = {}, {}
+        for n in (1, MS_STARTS):
+            run(n)  # warm
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            res = run(n)
+            torch.cuda.synchronize()
+            walls[n] = (time.perf_counter() - t0) * 1e3
+            expect_launches(f"{name} n_starts={n}", **want)
+            errs[n] = rot_deg(res.transformation.rot, truth)
+        log(f"[multistart] {name}, bunny {len(src)} points turned "
+            f"{MS_TURN:g} deg about its centroid: rotation error "
+            f"n_starts=1 {errs[1]:.3f} deg "
+            f"({walls[1]:.3f} ms), n_starts={MS_STARTS} "
+            f"{errs[MS_STARTS]:.4f} deg ({walls[MS_STARTS]:.3f} ms, one "
+            f"{key} launch)")
+        if not errs[MS_STARTS] <= MS_ROT_MAX_DEG:
+            raise AssertionError(f"{name}: the search missed the turn")
+
+    log("[multistart] kernel route against plain route, the same CUDA "
+        "tensors")
+    s, x = (torch.as_tensor(a, device=dev)[None] for a in (src, tgt))
+    kw = dict(w=0.0, maxiter=100, tol=1e-3, update_scale=True, fused=True)
+    inits = cpd._multistart_inits(MS_STARTS, 3)
+
+    def cpd_run():
+        (lin, t, *_), best, _ = cpd._run_em_t_multistart_batch(s, x, inits,
+                                                             **kw)
+        return torch.cat([lin.reshape(-1), t.reshape(-1)]), best
+
+    def plain(mod, attr, fn, run):
+        def go():
+            own = getattr(mod, attr)
+            setattr(mod, attr, fn)
+            try:
+                return run()
+            finally:
+                setattr(mod, attr, own)
+        return go
+
+    same_start("CPD (K1)", cpd_run,
+               plain(em, "_em_cuda", em.run_em_cpd_fused_plain, cpd_run),
+               2e-4)
+    rots0 = filterreg._multistart_rots(MS_STARTS, 3)
+    fkw = dict(objective_type="pt2pt", update_sigma2=False, w=0.0,
+               maxiter=100, tol=1e-3, min_sigma2=1e-4, auto_sigma2=True,
+               fused=True, **frg_kw)
+
+    def frg_run():
+        (rot, t, *_), best, _ = filterreg._run_em_rigid_multistart_batch(
+            s, x, None, rots0, 0.0, **fkw)
+        return torch.cat([rot.reshape(-1), t.reshape(-1)]), best
+
+    same_start("FilterReg (K5)", frg_run, plain(
+        fc, "_frg_cuda", fc.run_em_filterreg_fused_plain, frg_run), 2e-4)
+    nodes = [a[None] for a in gmmtree.GMMTree(src, device=dev)._nodes]
+    gkw = dict(max_level=2, lambda_c=0.01, maxiter=20, tol=1e-4)
+
+    def gmm_run():
+        (rot, t, _), best, _ = gmmtree._run_registration_multistart_batch(
+            x, *nodes, gmmtree._multistart_rots(MS_STARTS, 3), **gkw)
+        return torch.cat([rot.reshape(-1), t.reshape(-1)]), best
+
+    # gmm_reg_compare's criterion: 1e-4, more where a point sits on a tie
+    # of the descent (logged there as the f32-f64 spread, up to ~1e-3).
+    same_start("GMMTree (K10)", gmm_run, plain(
+        gmmtree, "_fused_reg_ok", lambda *a: False, gmm_run), 1e-3)
+
+    rigid = serving_batches()[0]
+    frg_pt2pt = filterreg_batches()[0]
+    for name, fn, key, kw, batch in (
+            ("CPD", cpd.registration_cpd_batch, "em_rigid", {}, rigid),
+            ("FilterReg pt2pt", filterreg.registration_filterreg_batch,
+             "frg_pt2pt", frg_kw, frg_pt2pt)):
+        mod, attr = (em, "_em_cuda") if key == "em_rigid" \
+            else (fc, "_frg_cuda")
+        own = getattr(mod, attr)
+        times = {}
+        for label, pairs, n in (
+                (f"{len(batch)} pairs", batch, 1),
+                (f"{MS_BATCH} pairs x {MS_BATCH_STARTS} starts",
+                 batch[:MS_BATCH], MS_BATCH_STARTS)):
+            srcs, tgts = [p[0] for p in pairs], [p[1] for p in pairs]
+            fn(srcs, tgts, n_starts=n, **kw)  # warm
+            torch.cuda.synchronize()
+            spans = []
+            setattr(mod, attr, evented(spans, key, own))
+            try:
+                reset_launches()
+                t0 = time.perf_counter()
+                res = fn(srcs, tgts, n_starts=n, **kw)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            finally:
+                setattr(mod, attr, own)
+            expect_launches(f"{name} {label}", **{key: 1})
+            k_ms = sum(e0.elapsed_time(e1) for _, e0, e1 in spans)
+            errs = [rot_deg(r.transformation.rot, p[-1])
+                    for r, p in zip(res, pairs)]
+            times[label] = (k_ms, wall)
+            log(f"[multistart] {name} batch, {label} in one launch: kernel "
+                f"{k_ms:.3f} ms (CUDA events), call {wall:.2f} ms; rotation "
+                f"error max {max(errs):.3f} median {np.median(errs):.3f} deg")
+            if not max(errs) <= 5.0:
+                raise AssertionError(f"{name} {label}: registration wrong")
+
+    from probreg_tpu_torch.utils import io
+    horse = io.read_point_cloud(data_path("horse.ply")).astype(np.float32)
+    rng = np.random.default_rng(11)
+    b_src = horse[rng.choice(len(horse), N_BCPD_MS, replace=False)]
+    b_tgt = horse[rng.choice(len(horse), N_BCPD_MS, replace=False)]
+    cen = b_src.mean(0)
+    b_tgt = ((b_tgt - cen) @ truth.T.astype(np.float32) + cen).astype(
+        np.float32)
+    tgt_t = torch.as_tensor(b_tgt, device=dev)
+    errs, rmses = {}, {}
+    for n in (1, BCPD_MS_STARTS):
+        bcpd.registration_bcpd(b_src, b_tgt, n_starts=n, lmd=10.0)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = bcpd.registration_bcpd(b_src, b_tgt, n_starts=n, lmd=10.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rmses[n] = float(mu.compute_rmse(res.transform(b_src), tgt_t))
+        errs[n] = rot_deg(res.rigid_trans.rot, truth)
+        log(f"[multistart] BCPD, two {N_BCPD_MS}-point horse samples turned "
+            f"{MS_TURN:g} deg, lmd 10, n_starts={n}: {wall:.3f} s, rotation "
+            f"error {errs[n]:.3f} deg, scale "
+            f"{float(res.rigid_trans.scale):.4f}, NN-RMSE {rmses[n]:.6f}")
+    # The search keeps the start of least NN-RMSE, the identity start (the
+    # single run, the same bits) among them. Whether that start is the
+    # turn's is the criterion's to decide: the displacement field absorbs
+    # most of a misalignment, so the starts' scores lie close (PERF.md).
+    if not rmses[BCPD_MS_STARTS] <= rmses[1]:
+        raise AssertionError("BCPD: the search kept a worse start")
+
+
+def run_multistart_pyramids(dev, launches):
+    """The CPD, FilterReg and GMMTree pyramids at 200,000 points of
+    lopsided_surface and the BCPD pyramid at 100,000, the target the same
+    points turned by Euler MS_PYR_TURN degrees and shifted (as
+    tests/test_pyramid.py's large-rotation test moves its source):
+    n_starts=1 and MS_STARTS (BCPD_MS_STARTS for BCPD), the search on the
+    coarsest level only (one launch of K1, K5 or K10 there); the search
+    must recover the turn within the bar of the family's pyramid test
+    (tests/test_pyramid.py: CPD 1e-3 rad, FilterReg 2e-2, GMMTree 5e-2).
+    BCPD's is reported: its NN-RMSE criterion parts its starts by a few
+    percent only, in the reference as in the port (PERF.md)."""
+    from probreg_tpu_torch import pyramid
+    from probreg_tpu_torch.utils import se3_op
+
+    truth = se3_op.euler2mat(*np.deg2rad(MS_PYR_TURN)).double().numpy()
+    for name, fn, n, kw, key, bar in (
+            ("CPD", pyramid.registration_cpd_pyramid, PYRAMID_SIZES[0],
+             dict(levels=3, coarse_points=800, tol=1e-4), "em_rigid", 1e-3),
+            ("FilterReg pt2pt", pyramid.registration_filterreg_pyramid,
+             PYRAMID_SIZES[0], dict(levels=3, coarse_points=800),
+             "frg_pt2pt", 2e-2),
+            ("GMMTree", pyramid.registration_gmmtree_pyramid,
+             PYRAMID_SIZES[0], dict(levels=3), "gmmtree_reg", 5e-2),
+            ("BCPD", pyramid.registration_bcpd_pyramid, N_BCPD_MS_PYR,
+             dict(BCPD_ARGS, levels=4), None, None)):
+        src = lopsided_surface(n, seed=0)
+        tgt = (src @ truth.T.astype(np.float32)
+               + np.float32([0.05, -0.03, 0.08]))
+        starts = BCPD_MS_STARTS if name == "BCPD" else MS_STARTS
+        errs = {}
+        for s in (1, starts):
+            reset_launches()
+            t0 = time.perf_counter()
+            res = fn(src, tgt, n_starts=s, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: v for k, v in all_launches().items() if v}
+            rot = res.rigid_trans.rot if name == "BCPD" \
+                else res.transformation.rot
+            errs[s] = np.deg2rad(rot_deg(rot, truth))
+            log(f"[multistart pyramid] {name}, {n:,} points, n_starts={s}: "
+                f"{wall:.3f} s (first call), rotation error {errs[s]:.3e} "
+                f"rad; launches {got}")
+        if key == "gmmtree_reg":
+            want = kw["levels"]   # one per level, the search one of them
+        else:
+            want = 1 if key else None
+        if key and got.get(key) != want:
+            raise AssertionError(f"{name} pyramid: {key} launched "
+                                 f"{got.get(key)} times, expected {want}")
+        if not (np.isfinite(errs[starts])
+                and (bar is None or errs[starts] <= bar)):
+            raise AssertionError(f"{name} pyramid: the search missed the turn")
+
+
+def run_callbacks(dev, launches):
+    """A callback that records each transform, at callback_chunk 1 and
+    CB_CHUNK: CPD (K2 per iteration), pt2pt FilterReg and GMMTree on the
+    bunny (CB_ITERS iterations, tol 0), and CPD at 150,000 points (K3, two
+    launches per iteration, CB_LARGE_ITERS iterations): the same
+    transforms bit for bit, ceil(iterations / K) host reads, and the
+    per-iteration time of both."""
+    from probreg_tpu_torch import cpd, filterreg, gmmtree
+    from probreg_tpu_torch.utils import chunked
+
+    src, tgt = bunny_clouds(z_rotation(10.0))
+    big_src, big_tgt, _ = large_clouds(dev)
+    for name, fn, a, b, iters, want, kw in (
+            ("CPD bunny", cpd.registration_cpd, src, tgt, CB_ITERS,
+             dict(estep_small=CB_ITERS), {}),
+            ("FilterReg pt2pt bunny", filterreg.registration_filterreg, src,
+             tgt, CB_ITERS, {}, FRG_SERVE["pt2pt"]),
+            ("GMMTree bunny", gmmtree.registration_gmmtree, src, tgt,
+             CB_ITERS, dict(gmmtree_level_em=2), {}),
+            ("CPD 150k", cpd.registration_cpd, big_src, big_tgt,
+             CB_LARGE_ITERS, dict(stash_den=CB_LARGE_ITERS,
+                                  stash_moment=CB_LARGE_ITERS), {})):
+        seen, per_it = {}, {}
+        for chunk in (1, CB_CHUNK):
+            rec = []
+
+            def record(tr, rec=rec):
+                rec.append(torch.cat([tr.rot.reshape(-1), tr.t]).clone())
+
+            fn(a, b, maxiter=iters, tol=0.0, callbacks=[record],
+               callback_chunk=chunk, **kw)   # warm
+            rec.clear()
+            torch.cuda.synchronize()
+            reset_launches()
+            chunked.reset_fetches()
+            t0 = time.perf_counter()
+            fn(a, b, maxiter=iters, tol=0.0, callbacks=[record],
+               callback_chunk=chunk, **kw)
+            torch.cuda.synchronize()
+            per_it[chunk] = (time.perf_counter() - t0) * 1e3 / iters
+            expect_launches(f"{name} callbacks, chunk {chunk}", **want)
+            if chunked.FETCHES != math.ceil(iters / chunk):
+                raise AssertionError(f"{name}: {chunked.FETCHES} host reads "
+                                     f"at chunk {chunk}")
+            seen[chunk] = rec
+        same = len(seen[1]) == len(seen[CB_CHUNK]) == iters and all(
+            torch.equal(p, q) for p, q in zip(seen[1], seen[CB_CHUNK]))
+        log(f"[callbacks] {name}, {iters} iterations: chunk 1 "
+            f"{per_it[1]:.3f} ms per iteration ({iters} host reads), chunk "
+            f"{CB_CHUNK} {per_it[CB_CHUNK]:.3f} ms per iteration "
+            f"({math.ceil(iters / CB_CHUNK)} host reads); transforms bit for "
+            f"bit equal: {same}")
+        if not same:
+            raise AssertionError(f"{name}: chunked callbacks saw other "
+                                 "transforms")
+
+
+# --------------------------------------------------------------------------
 # Nonrigid CPD
 # --------------------------------------------------------------------------
 
@@ -4040,9 +4461,9 @@ def run_mesh_on_one_card(dev, launches, shared):
 def parent_libs(parent):
     """Build ``parent``'s csrc/{em,gmmtree,frg,icp}.cu with the port's
     flags (one nvcc each, started together) into ``parent``/build and load
-    them: K1 (with a cluster size and a work order) gets the parent's own
-    signature; K5, K7 and K10 run through this checkout's wrappers, whose C
-    signatures the parent shares (through_parent)."""
+    them: K1 and K5 (which have since gained start rows) get the parent's
+    own signatures; K7 and K10 run through this checkout's wrappers, whose
+    C signatures the parent shares (through_parent)."""
     import ctypes
 
     from probreg_tpu_torch.ops import _build
@@ -4066,6 +4487,8 @@ def parent_libs(parent):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     libs["em"].probreg_em_cpd.argtypes = [P, I, P, I, P, P, I, I, F, I, F,
                                           I, I, P, P]
+    libs["frg"].probreg_em_frg.argtypes = [P, I, P, I, P, P, P, I, I, F, I,
+                                           F, I, F, F, I, F, I, P, P]
     return libs
 
 
@@ -4101,13 +4524,25 @@ def through_parent(lib, name, fn, *a, **kw):
         _build.load = own
 
 
-def parent_frg(lib, s_c, t_c, n_c, counts, **kw):
-    """The parent's K5 through this checkout's wrapper, whose C signature
-    the parent shares."""
-    from probreg_tpu_torch.ops import frg_cuda as fc
+def parent_frg(lib, s_c, t_c, n_c, counts, *, pt2pl, w, maxiter, tol,
+               update_sigma2, sigma2_decay, min_sigma2, auto_sigma2,
+               sigma2_0):
+    """The parent's K5 as its own wrapper launches it (its C signature has
+    no start rows; launch_plan's clusters and order)."""
+    from probreg_tpu_torch.ops import em_cuda as em
+    from probreg_tpu_torch.ops.estep_cuda import _check, _stream
 
-    return through_parent(lib, "frg", fc._frg_cuda, s_c, t_c, n_c, counts,
-                          **kw)
+    g, order = em.launch_plan(s_c.shape[0], counts, em.sm_count(s_c.device))
+    out = s_c.new_empty((s_c.shape[0], 16))
+    _check(lib.probreg_em_frg(
+        s_c.data_ptr(), s_c.shape[1], t_c.data_ptr(), t_c.shape[1],
+        None if n_c is None else n_c.data_ptr(),
+        None if counts is None else counts.data_ptr(),
+        None if order is None else order.data_ptr(), s_c.shape[0], g, w,
+        maxiter, tol, int(update_sigma2), sigma2_decay, min_sigma2,
+        int(auto_sigma2), sigma2_0, int(pt2pl), out.data_ptr(),
+        _stream(s_c)), "parent em_frg")
+    return out
 
 
 def parent_icp(lib, s_c, t_c, counts, init, **kw):
@@ -4661,6 +5096,10 @@ def main() -> int:
                         (run_pyramid_cpd, (dev, launches, kernels)),
                         (run_pyramid_affine, (dev, launches)),
                         (run_family_pyramids, (dev, launches)),
+                        (check_init_bits, (dev, kernels)),
+                        (run_multistart, (dev, launches)),
+                        (run_multistart_pyramids, (dev, launches)),
+                        (run_callbacks, (dev, launches)),
                         (run_nonrigid, (dev, launches)),
                         (run_sharded_one_rank, (dev, launches, shared)),
                         (run_mesh_on_one_card, (dev, launches, shared))):

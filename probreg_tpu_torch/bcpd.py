@@ -13,13 +13,19 @@ Counterpart of probreg_tpu/bcpd.py, the single-pair VI:
   once per iteration, keeps the best state visited and scores the last
   iterate once more at the end.
 * ``CombinedBCPD`` with the dense IMQ Gram matrix or its rank-K Nystrom
-  factors (``ops/lowrank.py``), and ``registration_bcpd``.
+  factors (``ops/lowrank.py``), and ``registration_bcpd``; its callbacks
+  loop queues ``callback_chunk`` steps between two host reads
+  (utils/chunked.py; the callbacks see the same transforms for every K).
+* ``n_starts > 1`` (normalized, no callbacks, no warm start; single pairs):
+  the VI from each rotation of the orientation grid applied to the source,
+  the Gram matrix or its factors computed once (the IMQ kernel is
+  rotation-invariant), the run of least NN-RMSE kept and composed back.
 
-Multistart (``n_starts > 1``), chunked callbacks (``callback_chunk > 1``)
-and the batch entry point are not ported yet and raise
-``NotImplementedError``. The reference's worker-fault guards
-(``_hw_guard``, the callback-size refusal) act only on a TPU backend and
-have no counterpart here.
+The batch entry point ``registration_bcpd_batch`` is not ported yet and
+raises ``NotImplementedError`` (ROADMAP, Queue 1 item 9; its multistart
+waits for it). The reference's worker-fault guards (``_hw_guard``, the
+callback-size refusal) act only on a TPU backend and have no counterpart
+here.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from .ops import bcpd_cuda
 from .ops import lowrank as _lowrank
 from .ops import pairwise
 from .ops.spatial import morton_order
+from .utils import chunked
 from .utils import interop
 from .utils import math_utils as mu
 
@@ -425,10 +432,8 @@ class BayesianCoherentPointDrift(abc.ABC):
                 or extra_init is not None:
             raise ValueError("warm starts are only supported without "
                              "callbacks")
-        if int(callback_chunk) > 1:
-            raise NotImplementedError(_NOT_PORTED.format(
-                "callback_chunk > 1"))
-        return self._registration_loop(target, w, maxiter, tol)
+        return self._registration_loop(target, w, maxiter, tol,
+                                       int(callback_chunk))
 
     @abc.abstractmethod
     def _registration_jit(self, target, w, maxiter, tol,
@@ -438,7 +443,7 @@ class BayesianCoherentPointDrift(abc.ABC):
         ...
 
     @abc.abstractmethod
-    def _registration_loop(self, target, w, maxiter, tol):
+    def _registration_loop(self, target, w, maxiter, tol, chunk=1):
         ...
 
 
@@ -574,27 +579,41 @@ class CombinedBCPD(BayesianCoherentPointDrift):
                 sigma_diag=unsort(sdiag_l), rmse_last=rmse_l, rmse_best=rmse)
         return transf
 
-    def _registration_loop(self, target, w, maxiter, tol):
-        """The callbacks loop (reference bcpd.py:838, callback_chunk 1):
-        the dense reference-shaped E- and M-steps, the callbacks after each
-        M-step, the NN-RMSE stop test on the host."""
-        res = self._initialize(target)
-        rmse = None
-        for i in range(maxiter):
-            t_source = res.transformation._transform(self._source)
-            est = self.expectation_step(
-                t_source, target, res.transformation.rigid_trans.scale,
-                res.alpha, res.sigma_mat, res.sigma2, w)
-            res = self.maximization_step(
-                target, res.transformation.rigid_trans, est, res.sigma2)
+    def _registration_loop(self, target, w, maxiter, tol, chunk=1):
+        """The callbacks loop (reference bcpd.py:838-905): the dense
+        reference-shaped E- and M-steps, ``chunk`` of them queued between
+        two host reads; the host replays the callbacks after each M-step
+        and the NN-RMSE stop test."""
+        res0 = self._initialize(target)
+        steps = []
+        prev = {"rmse": None}
+
+        def chunk_fn(res, k):
+            steps.clear()
+            for _ in range(k):
+                t_source = res.transformation._transform(self._source)
+                est = self.expectation_step(
+                    t_source, target, res.transformation.rigid_trans.scale,
+                    res.alpha, res.sigma_mat, res.sigma2, w)
+                res = self.maximization_step(
+                    target, res.transformation.rigid_trans, est, res.sigma2)
+                steps.append((res.transformation,
+                              mu.compute_rmse(t_source, target)))
+            return res, chunked.stack_history([(r,) for _, r in steps])
+
+        def handle(i, host, j):
+            transf = steps[j][0]
             for c in self._callbacks:
-                c(res.transformation)
-            tmp_rmse = float(mu.compute_rmse(t_source, target))
+                c(transf)
+            tmp_rmse = float(host[0][j])
             log.debug("Iteration: {}, Criteria: {}".format(i, tmp_rmse))
-            if rmse is not None and abs(rmse - tmp_rmse) < tol:
-                break
-            rmse = tmp_rmse
-        return res.transformation
+            stop = prev["rmse"] is not None \
+                and abs(prev["rmse"] - tmp_rmse) < tol
+            prev["rmse"] = tmp_rmse
+            return stop, transf
+
+        out = chunked.run_chunked(chunk_fn, res0, maxiter, chunk, handle)
+        return out if out is not None else res0.transformation
 
 
 def _last_state(bc):
@@ -637,6 +656,70 @@ def _last_state_kwargs(bc, centroid, scale):
     }
 
 
+def _run_bcpd_multistart(source, target, gamma, lmd, k, rots0, *, w,
+                         maxiter, tol, rank, block):
+    """The VI from each grid rotation ``rots0`` (S, D, D) of the source
+    (reference bcpd.py:1131, unmasked): the IMQ Gram matrix (or its Nystrom
+    factors) is rotation-invariant, so it is computed once; each run is
+    scored by its final NN-RMSE (NaN as inf) and the winner composed back
+    into the source's frame: T(R0 y) = s (R R0) (y + R0^T v) + t. Returns
+    (the winner's CombinedTransformation, its final sigma2, the winning
+    start, every start's score)."""
+    if rank is None:
+        gmat = mu.inverse_multiquadric_kernel(source, source)
+    else:
+        gmat = tuple(_lowrank.lowrank_imq(source, 1.0, int(rank)))
+    rots0 = torch.as_tensor(rots0, dtype=source.dtype, device=source.device)
+    runs = []
+    for rot0 in rots0:
+        src_r = source @ rot0.T
+        sigma2_0 = gamma * mu.squared_kernel_sum(src_r, target)
+        transf, _, _, s2, rmse, _ = _run_bcpd(
+            src_r, target, gmat, lmd, k, sigma2_0, w=w, maxiter=maxiter,
+            tol=tol, block=block)
+        rt = transf.rigid_trans
+        runs.append((tf.CombinedTransformation(
+            rt.rot @ rot0, rt.t, rt.scale, transf.v @ rot0,
+            dim=source.shape[1]), s2, rmse))
+    scores = [math.inf if math.isnan(r) else r for _, _, r in runs]
+    best = int(np.argmin(scores))
+    return runs[best][0], runs[best][1], best, scores
+
+
+def _registration_bcpd_multistart(src, tgt, *, w, maxiter, tol, n_starts,
+                                  device, lmd=2.0, k=1.0e20, gamma=1.0,
+                                  rank=None):
+    """Normalized multistart BCPD of one pair (the reference's
+    _registration_bcpd_multistart_batch, bcpd.py:1311-1360, at B = 1):
+    host float64 clouds in, (raw-frame CombinedTransformation, the
+    winner's raw-frame sigma2, the winning start) out."""
+    from . import cost_functions as cf
+
+    (m, dim), n = src.shape, tgt.shape[0]
+    if dim != 3:
+        raise ValueError("n_starts > 1 supports 3-D clouds only")
+    centroid = (src.sum(0) + tgt.sum(0)) / (m + n)
+    src_h, tgt_h = src - centroid, tgt - centroid
+    skc = ((src_h ** 2).sum() * n + (tgt_h ** 2).sum() * m
+           - 2.0 * src_h.sum(0) @ tgt_h.sum(0)) / (m * dim * n)
+    scale = max(float(np.sqrt(skc)), 1e-12)
+    dt = _config.config.dtype
+
+    def dev_t(x):
+        return torch.as_tensor(np.asarray(x, np.float64), dtype=dt).to(device)
+
+    transf, s2_n, best, _ = _run_bcpd_multistart(
+        dev_t(src_h / scale), dev_t(tgt_h / scale), dev_t(gamma), dev_t(lmd),
+        dev_t(k), cf.RigidCostFunction.initial_multistart_rots(int(n_starts)),
+        w=float(w), maxiter=int(maxiter), tol=float(tol), rank=rank,
+        block=int(_config.config.estep_chunk))
+    rt = transf.rigid_trans
+    cen = torch.as_tensor(centroid, dtype=transf.v.dtype).to(device)
+    out = tf.CombinedTransformation(rt.rot, scale * rt.t + cen, rt.scale,
+                                    scale * transf.v - cen, dim=dim)
+    return out, float(s2_n) * scale ** 2, best
+
+
 def _registration_bcpd_impl(
     source, target, *, w, maxiter, tol, callbacks, normalize,
     callback_chunk, tf_init_params=None, v_init=None, sigma2_init=None,
@@ -648,10 +731,20 @@ def _registration_bcpd_impl(
     ``return_last``, the raw-frame final iterate as warm-start kwargs and
     the {'best', 'last'} NN-RMSE."""
     dev = _config.resolve_device(device)
-    if int(kwargs.pop("n_starts", 1)) > 1:
-        raise NotImplementedError(_NOT_PORTED.format("n_starts > 1"))
     src = np.asarray(interop.as_points(source, device="cpu"), np.float64)
     tgt = np.asarray(interop.as_points(target, device="cpu"), np.float64)
+    n_starts = int(kwargs.pop("n_starts", 1))
+    if n_starts > 1:
+        if callbacks or not normalize:
+            raise ValueError("n_starts > 1 requires the normalized "
+                             "no-callback path")
+        if tf_init_params or v_init is not None or sigma2_init is not None:
+            raise ValueError("n_starts > 1 is incompatible with warm "
+                             "starts (the orientation grid replaces them)")
+        out, s2_raw, _ = _registration_bcpd_multistart(
+            src, tgt, w=w, maxiter=maxiter, tol=tol, n_starts=n_starts,
+            device=dev, **kwargs)
+        return (out, s2_raw, None, None) if return_last else (out, s2_raw)
     extra = None if _alpha_init is None and _sdiag_init is None \
         else (_alpha_init, _sdiag_init)
     if not normalize:
@@ -746,7 +839,8 @@ def registration_bcpd(
             sigma2_0 = squared_kernel_sum is exactly 1, then denormalize
             the result (the reference's default; its hyperparameters are
             only well-behaved near that regime).
-        callback_chunk: Only 1 is ported; larger values raise.
+        callback_chunk: VI iterations queued between two host reads in
+            callback mode; the callbacks still fire every iteration.
         tf_init_params / v_init / sigma2_init: Warm start in RAW
             coordinates: {'rot', 't', 'scale'}, the (M, D) displacement
             field and the starting variance.
@@ -755,6 +849,9 @@ def registration_bcpd(
 
     Keyword Args:
         lmd, k, gamma, rank: as ``CombinedBCPD`` takes them.
+        n_starts (int): VI restarts over the orientation grid (3-D,
+            normalized, no callbacks, no warm start); the least final
+            NN-RMSE wins.
 
     Returns:
         CombinedTransformation: the estimated transformation.
@@ -768,5 +865,6 @@ def registration_bcpd(
 
 
 def registration_bcpd_batch(*args, **kwargs):
-    """Not ported yet (reference bcpd.py:1225)."""
-    raise NotImplementedError(_NOT_PORTED.format("registration_bcpd_batch"))
+    """Not ported yet (reference bcpd.py:1225), nor its multistart."""
+    raise NotImplementedError(_NOT_PORTED.format(
+        "registration_bcpd_batch (and its n_starts > 1)"))

@@ -28,6 +28,17 @@ as the reference does.
 ``registration_cpd_batch`` registers B rigid or affine pairs, fixed-size
 or ragged, in one launch of the whole-EM kernel where the pairs fit it.
 
+``n_starts > 1`` (rigid, ``RigidCPD`` and ``registration_cpd_batch``) runs
+the EM from each rotation of the orientation grid
+(``cost_functions.RigidCostFunction.initial_multistart_rots``) about the
+clouds' shared centroid and keeps the start of least final sigma2: for 3-D
+pairs within the whole-EM kernel's gate all S starts of all B pairs are
+ONE launch of B S pairs, otherwise the dense loop runs once per start.
+
+``callbacks`` run the streaming loop's step, the callbacks after each
+iteration; ``callback_chunk`` K queues K iterations between host reads
+(utils/chunked.py) and gives the callbacks the same transforms for every K.
+
 ``use_pallas`` keeps the reference's name: None picks the kernels as above,
 False runs plain tensors only (no hand-written kernel anywhere on the
 path), True pins the streaming E-steps to the two-pass kernels. The
@@ -35,8 +46,7 @@ nonrigid steps honour it too, where the reference's ignore it; the two
 differ only in summation order.
 
 The plain EM loops are Python loops that read q once per iteration for the
-|q - q_prev| < tol test (sigma2 for the nonrigid kinds). Callbacks and
-multistart come with a later slice of the port (ROADMAP, Queue 1 item 13).
+|q - q_prev| < tol test (sigma2 for the nonrigid kinds).
 """
 
 from __future__ import annotations
@@ -47,13 +57,16 @@ from collections import namedtuple
 from functools import partial
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from . import config as _config
+from .log import log
 from .models import transformation as tf
 from .ops import estep as estep_ops
 from .ops import lowrank
 from .ops.estep import EstepMoments
+from .utils import chunked
 from .utils import interop
 from .utils import math_utils as mu
 
@@ -368,6 +381,103 @@ def _run_em_t_ragged_batch(sources, targets, smasks, tmasks, *, kind, w,
         for s, t, sm, tm in zip(sources, targets, smasks, tmasks)])
 
 
+def _multistart_inits(n_starts: int, dim: int) -> np.ndarray:
+    """(S, D*D + D + 1) packed [rot, t, scale] starts on the orientation
+    grid (reference cpd.py:1223): rot from the grid, t 0, scale 1."""
+    from . import cost_functions as cf
+
+    rots = cf.RigidCostFunction.initial_multistart_rots(n_starts, dim)
+    out = np.zeros((len(rots), dim * dim + dim + 1), np.float32)
+    out[:, :dim * dim] = rots.reshape(len(rots), -1)
+    out[:, -1] = 1.0
+    return out
+
+
+def _pair_centroid(source, target, smask=None, tmask=None):
+    """The shared centroid of a pair's (valid) points."""
+    if smask is None:
+        return (source.sum(0) + target.sum(0)) / (source.shape[0]
+                                                  + target.shape[0])
+    return ((smask @ source + tmask @ target)
+            / torch.clamp(smask.sum() + tmask.sum(), min=1.0))
+
+
+def _about_centroid(inits, cen):
+    """Raw-frame starts that rotate about the shared centroid ``cen``:
+    t0 + cen - s0 L0 cen for each packed (S, D*D + D + 1) start (reference
+    cpd.py:1256; rotating about the origin would fling clouds far from it
+    away)."""
+    dim = cen.shape[0]
+    lin0 = inits[:, :dim * dim].reshape(-1, dim, dim)
+    s0 = inits[:, -1]
+    t0 = inits[:, dim * dim:dim * dim + dim] + cen \
+        - s0[:, None] * (lin0 @ cen)
+    return torch.cat([inits[:, :dim * dim], t0, inits[:, -1:]], 1)
+
+
+def first_min(score: torch.Tensor) -> torch.Tensor:
+    """argmin over the last axis with ``jnp.argmin``'s rules: the first of
+    equal minima, and the first NaN where there is one."""
+    return torch.where(torch.isnan(score), -math.inf, score).argmin(-1)
+
+
+def _run_em_t_multistart_all(sources, targets, inits, *, w, maxiter, tol,
+                             update_scale, smasks=None, tmasks=None,
+                             sigma2_init=None, fused=False):
+    """Every start of every pair: ``sources`` (B, M, D), ``targets`` (B, N,
+    D), packed ``inits`` (S, D*D + D + 1) turned about each pair's centroid.
+    ``fused``: all B S runs as ONE launch of the whole-EM kernel (3-D, its
+    gate checked by the caller); else ``_run_em_t`` per start. Returns
+    (lin, t, scale, sigma2, q), each with leading (B, S) axes."""
+    nb, dim = sources.shape[0], sources.shape[2]
+    inits = torch.as_tensor(inits, dtype=sources.dtype, device=sources.device)
+    ns = inits.shape[0]
+    rows = torch.stack([_about_centroid(inits, _pair_centroid(
+        sources[b], targets[b], None if smasks is None else smasks[b],
+        None if tmasks is None else tmasks[b])) for b in range(nb)])
+    if fused:
+        from .ops import em_cuda
+
+        def rep(x):
+            return None if x is None else x.repeat_interleave(ns, 0)
+
+        s2 = 0.0 if sigma2_init is None else max(float(sigma2_init),
+                                                  _F32_EPS)
+        flat = rows.reshape(nb * ns, -1)
+        lin, t, sigma2, q, _ = em_cuda.run_em_cpd_fused_batch(
+            rep(sources), rep(targets), rep(smasks), rep(tmasks),
+            kind="rigid", w=w, maxiter=maxiter, tol=tol,
+            update_scale=update_scale,
+            inits=em_cuda.init_rows(
+                flat[:, :9].reshape(-1, 3, 3), flat[:, 9:12], flat[:, 12],
+                s2))
+        lin, scale = em_cuda.unpack_rigid(lin)
+        out = (lin, t, scale, sigma2, q)
+    else:
+        out = _stack_runs([
+            _run_em_t(sources[b], targets[b], rows[b, s], kind="rigid", w=w,
+                      maxiter=maxiter, tol=tol, update_scale=update_scale,
+                      smask=None if smasks is None else smasks[b],
+                      tmask=None if tmasks is None else tmasks[b],
+                      sigma2_init=sigma2_init)
+            for b in range(nb) for s in range(ns)])
+    return tuple(x.reshape(nb, ns, *x.shape[1:]) for x in out)
+
+
+def _run_em_t_multistart_batch(sources, targets, inits, *, smasks=None,
+                               tmasks=None, **kw):
+    """The multistart of a batch (reference cpd.py:1236-1302): per pair the
+    start of least final sigma2, the first of ties (and a NaN first).
+    Returns (lin, t, scale, sigma2, q) stacked over the batch, the winning
+    start of each pair and every start's final sigma2 (B, S)."""
+    lin, t, scale, sigma2, q = _run_em_t_multistart_all(
+        sources, targets, inits, smasks=smasks, tmasks=tmasks, **kw)
+    best = first_min(sigma2)
+    rows = torch.arange(sources.shape[0], device=best.device)
+    return (lin[rows, best], t[rows, best], scale[rows, best],
+            sigma2[rows, best], q[rows, best]), best, sigma2
+
+
 def _run_em_nonrigid_lowrank_t(source, target, u, lam, lmd, *, w, maxiter,
                                tol, block=None, zc_init_t=None,
                                sigma2_init=None):
@@ -575,6 +685,7 @@ class CoherentPointDrift(abc.ABC):
         self._device = _config.resolve_device(device)
         self._source = None if source is None else self._as_points(source)
         self._tf_type = None
+        self._callbacks: List[Callable] = []
         self._use_pallas = use_pallas
         self._sigma2_init = sigma2_init
 
@@ -583,6 +694,9 @@ class CoherentPointDrift(abc.ABC):
 
     def set_source(self, source):
         self._source = self._as_points(source)
+
+    def set_callbacks(self, callbacks):
+        self._callbacks.extend(callbacks)
 
     # ------------------------------------------------------------------ API
     def expectation_step(self, t_source, target, sigma2,
@@ -636,13 +750,21 @@ class CoherentPointDrift(abc.ABC):
         return MstepResult(self._initial_tf(), sigma2, q)
 
     def registration(self, target, w: float = 0.0, maxiter: int = 50,
-                     tol: float = 0.001) -> MstepResult:
-        """Run the EM registration."""
+                     tol: float = 0.001,
+                     callback_chunk: int = 1) -> MstepResult:
+        """Run the EM registration. With callbacks, ``callback_chunk`` EM
+        iterations are queued between two host reads; the callbacks still
+        see every iteration's transform (utils/chunked.py)."""
         assert self._tf_type is not None, "transformation type is None."
         target = self._as_points(target)
-        fast = self._registration_fast(target, w, maxiter, tol)
-        if fast is not None:
-            return fast
+        if getattr(self, "_n_starts", 1) > 1 and self._callbacks:
+            # The callbacks loop has no multistart; dropping the search
+            # would return a wrong-basin pose.
+            raise ValueError("n_starts > 1 requires the no-callback path")
+        if not self._callbacks:
+            fast = self._registration_fast(target, w, maxiter, tol)
+            if fast is not None:
+                return fast
         # Shared-centroid centring for the streaming loop; the rigid and
         # affine initial parameters convert in and the result converts back.
         cen = ((self._source.sum(0) + target.sum(0))
@@ -667,14 +789,14 @@ class CoherentPointDrift(abc.ABC):
         # and the sorted culled branch included. True: the two-pass kernels,
         # on sorted clouds so that their tile culling fires. None: the stash
         # kernels from culled_estep_min_pairs on. Only the order-free
-        # families are sorted.
+        # families are sorted, and not for callbacks (as the reference).
         if self._use_pallas is None:
             presort = (_config.config.use_culled_estep
                        and source.shape[0] * target.shape[0]
                        >= _config.config.culled_estep_min_pairs)
         else:
             presort = bool(self._use_pallas)
-        presort = presort and self._ORDER_FREE
+        presort = presort and self._ORDER_FREE and not self._callbacks
         if presort:
             # One Morton sort enables tile culling in every E-step with no
             # per-iteration sort. It runs before _initialize so anything
@@ -692,10 +814,50 @@ class CoherentPointDrift(abc.ABC):
             aux = self._step_aux()
         finally:
             self._source = orig_source
-        out = _run_em(source, target, _tf_to(res.transformation, +1.0),
-                      res.sigma2, res.q, aux, step_fn=step_fn, w=float(w),
-                      maxiter=int(maxiter), tol=float(tol))
+        res = res._replace(transformation=_tf_to(res.transformation, +1.0))
+        if self._callbacks:
+            return self._callback_loop(source, target, res, aux, step_fn,
+                                       float(w), int(maxiter), float(tol),
+                                       int(callback_chunk), _tf_to)
+        out = _run_em(source, target, res.transformation, res.sigma2, res.q,
+                      aux, step_fn=step_fn, w=float(w), maxiter=int(maxiter),
+                      tol=float(tol))
         return out._replace(transformation=_tf_to(out.transformation, -1.0))
+
+    def _callback_loop(self, source, target, res, aux, step_fn, w, maxiter,
+                       tol, chunk, tf_to):
+        """The callbacks loop (reference cpd.py:850-880) on the centred
+        clouds: each chunk queues ``chunk`` steps of the streaming loop;
+        the host replays the callbacks with each step's raw-frame transform
+        and the test |q - q_prev| < tol, q_prev starting at q0."""
+        steps = []
+        prev = {"q": float(res.q)}
+
+        def chunk_fn(state, k):
+            transf, sigma2 = state
+            steps.clear()
+            for _ in range(k):
+                transf, sigma2, q = step_fn(source, target, transf, sigma2,
+                                            aux, w)
+                steps.append((transf, sigma2, q))
+            return (transf, sigma2), chunked.stack_history(
+                [(s2, q) for _, s2, q in steps])
+
+        def handle(i, host, j):
+            transf, sigma2, q = steps[j]
+            out = MstepResult(tf_to(transf, -1.0), sigma2, q)
+            for c in self._callbacks:
+                c(out.transformation)
+            qv = float(host[1][j])
+            log.debug("Iteration: {}, Criteria: {}".format(i, qv))
+            stop = abs(qv - prev["q"]) < tol
+            prev["q"] = qv
+            return stop, out
+
+        out = chunked.run_chunked(chunk_fn, (res.transformation, res.sigma2),
+                                  maxiter, chunk, handle)
+        return out if out is not None else res._replace(
+            transformation=tf_to(res.transformation, -1.0))
 
     def _registration_fast(self, target, w, maxiter, tol):
         """Whole-EM paths (one kernel launch, or the dense loop); None
@@ -721,12 +883,13 @@ class RigidCPD(CoherentPointDrift):
                  n_starts: int = 1, sigma2_init: Optional[float] = None,
                  device=None):
         super().__init__(source, use_cuda, use_pallas, sigma2_init, device)
-        if int(n_starts) > 1:
-            raise NotImplementedError(_NOT_PORTED.format("n_starts > 1"))
         self._tf_type = tf.RigidTransformation
         self._update_scale = update_scale
         self._tf_init_params = dict(tf_init_params or {})
         self._tf_init_params.pop("xp", None)
+        # n_starts > 1: EM restarts over the orientation grid, the least
+        # final sigma2 wins; recovers rotations the identity start cannot.
+        self._n_starts = int(n_starts)
 
     def _initial_tf(self):
         dim = self._source.shape[1]
@@ -742,9 +905,31 @@ class RigidCPD(CoherentPointDrift):
     def _registration_fast(self, target, w, maxiter, tol):
         m, n = self._source.shape[0], target.shape[0]
         if m * n > _config.config.transposed_em_max_pairs:
+            if self._n_starts > 1:
+                # The streaming loop has no multistart; dropping the search
+                # would return a wrong-basin pose.
+                raise ValueError(
+                    "n_starts > 1 requires M*N <= "
+                    f"config.transposed_em_max_pairs ({m}*{n} given); "
+                    "use registration_cpd_pyramid(n_starts=...): the "
+                    "orientation search runs on the small coarsest level")
             return None  # the dense posterior would not fit: stream
         args = dict(w=float(w), maxiter=int(maxiter), tol=float(tol),
                     update_scale=bool(self._update_scale))
+        if self._n_starts > 1:
+            if self._tf_init_params:
+                raise ValueError("n_starts > 1 and tf_init_params are "
+                                 "mutually exclusive")
+            dim = self._source.shape[1]
+            # sigma2_init composes with the search: every start anneals
+            # from it (reference cpd.py:944).
+            (lin, t, scale, sigma2, q), *_ = _run_em_t_multistart_batch(
+                self._source[None], target[None],
+                _multistart_inits(self._n_starts, dim), **args,
+                sigma2_init=self._sigma2_init,
+                fused=_fused_em_ok(m, n, dim, self._use_pallas))
+            return MstepResult(tf.RigidTransformation(
+                lin[0], t[0], scale[0], device=self._device), sigma2[0], q[0])
         if self._fused_ok(target, bool(self._tf_init_params)):
             from .ops import em_cuda
 
@@ -960,10 +1145,6 @@ class ConstrainedNonRigidCPD(_NonRigidModel):
             sigma2_p, d_extra=d_extra, rhs_extra=rhs_extra)
 
 
-_NOT_PORTED = ("{} is not ported to probreg_tpu_torch yet (ROADMAP.md, "
-               "Queue 1 item 13); use probreg_tpu.cpd")
-
-
 def registration_cpd_batch(sources, targets, tf_type_name: str = "rigid",
                            w: float = 0.0, maxiter: int = 50,
                            tol: float = 0.001, update_scale: bool = True,
@@ -982,12 +1163,15 @@ def registration_cpd_batch(sources, targets, tf_type_name: str = "rigid",
 
     3-D pairs within ``config.fused_em_max_pairs`` run as ONE launch of the
     whole-EM kernel for the whole batch; others run the dense loop pair by
-    pair. Returns a list of ``MstepResult``.
+    pair. ``n_starts > 1`` (rigid only): each pair's orientation search, the
+    S starts of the B pairs one launch of B S pairs on the kernel. Returns
+    a list of ``MstepResult``.
     """
     if tf_type_name not in ("rigid", "affine"):
         raise ValueError("batch registration supports 'rigid' and 'affine'")
-    if int(n_starts) > 1:
-        raise NotImplementedError(_NOT_PORTED.format("n_starts > 1"))
+    n_starts = int(n_starts)
+    if n_starts > 1 and tf_type_name != "rigid":
+        raise ValueError("n_starts > 1 supports rigid batches only")
     from .ops import em_cuda
 
     dev = _config.resolve_device(device)
@@ -1003,7 +1187,13 @@ def registration_cpd_batch(sources, targets, tf_type_name: str = "rigid",
     m, n, dim = sources.shape[1], targets.shape[1], sources.shape[2]
     args = dict(kind=tf_type_name, w=float(w), maxiter=int(maxiter),
                 tol=float(tol), update_scale=bool(update_scale))
-    if _fused_em_ok(m, n, dim, use_pallas):
+    if n_starts > 1:
+        del args["kind"]
+        (lin, t, scale, sigma2, q), *_ = _run_em_t_multistart_batch(
+            sources, targets, _multistart_inits(n_starts, dim),
+            smasks=smasks, tmasks=tmasks, **args,
+            fused=_fused_em_ok(m, n, dim, use_pallas))
+    elif _fused_em_ok(m, n, dim, use_pallas):
         lin, t, sigma2, q, _ = em_cuda.run_em_cpd_fused_batch(
             sources, targets, smasks, tmasks, **args)
         # lin = scale * R for rigid (scale 1 when update_scale is False).
@@ -1039,25 +1229,24 @@ def registration_cpd(source, target, tf_type_name: str = "rigid",
         w: Weight of the uniform (outlier) distribution, 0 <= w < 1.
         maxiter: Maximum EM iterations.
         tol: Convergence tolerance on the likelihood q.
-        callbacks: Not ported yet: a non-empty list raises.
+        callbacks: Called with the current transformation each iteration.
         use_cuda: Ignored; see ``device``.
-        callback_chunk: Accepted for the reference's signature; it only
-            means something with callbacks.
+        callback_chunk: EM iterations queued between two host reads in
+            callback mode; the callbacks still fire every iteration.
         device: Device to run on (default ``config.device``, "cuda"). A
             missing CUDA device raises instead of running on the CPU.
 
     Keyword Args:
-        As the ``RigidCPD``, ``AffineCPD``, ``NonRigidCPD`` (beta, lmd,
-        rank, sigma2_init, v_init) and ``ConstrainedNonRigidCPD`` (beta,
-        lmd, alpha, idx_source, idx_target, rank) constructors take them;
-        use_pallas for all.
+        As the ``RigidCPD`` (update_scale, tf_init_params, n_starts,
+        sigma2_init), ``AffineCPD``, ``NonRigidCPD`` (beta, lmd, rank,
+        sigma2_init, v_init) and ``ConstrainedNonRigidCPD`` (beta, lmd,
+        alpha, idx_source, idx_target, rank) constructors take them;
+        use_pallas for all. ``n_starts`` (rigid, up to 10 in 3-D): EM
+        restarts over the orientation grid, the least final sigma2 wins.
 
     Returns:
         MstepResult: (transformation, sigma2, q).
     """
-    del callback_chunk
-    if callbacks:
-        raise NotImplementedError(_NOT_PORTED.format("callbacks"))
     if tf_type_name == "rigid":
         cpd = RigidCPD(source, use_cuda=use_cuda, device=device, **kwargs)
     elif tf_type_name == "affine":
@@ -1069,4 +1258,6 @@ def registration_cpd(source, target, tf_type_name: str = "rigid",
                                      device=device, **kwargs)
     else:
         raise ValueError("Unknown transformation type %s" % tf_type_name)
-    return cpd.registration(target, w, maxiter, tol)
+    cpd.set_callbacks(list(callbacks or []))
+    return cpd.registration(target, w, maxiter, tol,
+                            callback_chunk=callback_chunk)

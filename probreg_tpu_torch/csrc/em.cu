@@ -30,7 +30,10 @@
 //
 // d2 is (y - x).(y - x) in f32 FMAs on clouds centred on their shared
 // centroid (computed here, as cpd._run_em_t does; t converts back at the
-// end). IEEE f32, expf, no fast-math. All sums are fixed-order trees
+// end). A pair may start from its own pose (``init``: the multistart
+// searches run S starts of B pairs as one launch of B S pairs): the raw-frame
+// start converts to the centred frame as _run_em_t's does, and sigma2_0 is
+// still the closed form of the un-moved clouds unless the row gives one. IEEE f32, expf, no fast-math. All sums are fixed-order trees
 // (shuffles, then warps in order): no atomics, so a result is the same from
 // run to run, and the same for every G and any work order: the cluster's
 // blocks run the one-block kernel's threads with its splits and its sums'
@@ -157,6 +160,7 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
           const float* __restrict__ tgt, int n_cap,   // (B, n_cap, 3)
           const int* __restrict__ counts,  // (B, 2) valid points, or null
           const int* __restrict__ order,   // (B,) work order, or null
+          const float* __restrict__ init,  // (B, 14) start rows, or null
           float w, int maxiter, float tol, int update_scale, int affine,
           float* __restrict__ out) {       // (B, 16)
   constexpr int kBlock = kThreads / G;
@@ -230,10 +234,23 @@ em_kernel(const float* __restrict__ src, int m_cap,   // (B, m_cap, 3)
     const float fm = (float)m, fn = (float)n;
     const float dot = sums[0] * sums[3] + sums[1] * sums[4]
                       + sums[2] * sums[5];
-    const float sigma2 = (fn * sums[6] + fm * sums[7] - 2.0f * dot)
-                         / (fm * 3.0f * fn);
-    for (int k = 0; k < 9; ++k) st.lin[k] = (k % 4 == 0) ? 1.0f : 0.0f;
-    st.t[0] = st.t[1] = st.t[2] = 0.0f;
+    float sigma2 = (fn * sums[6] + fm * sums[7] - 2.0f * dot)
+                   / (fm * 3.0f * fn);
+    if (init) {
+      // Row [lin0 (9), t0 (3), scale0, sigma2_0]. Raw frame -> centred
+      // frame: lin = scale0 lin0, t_c = t0 + lin cen - cen (exact for the
+      // identity); sigma2_0 <= 0 keeps the closed form above.
+      const float* p = init + (size_t)b * 14;
+      for (int k = 0; k < 9; ++k) st.lin[k] = p[12] * p[k];
+      const float c3[3] = {cx, cy, cz};
+      for (int i = 0; i < 3; ++i)
+        st.t[i] = p[9 + i] + (st.lin[3 * i] * cx + st.lin[3 * i + 1] * cy
+                              + st.lin[3 * i + 2] * cz) - c3[i];
+      if (p[13] > 0.0f) sigma2 = p[13];
+    } else {
+      for (int k = 0; k < 9; ++k) st.lin[k] = (k % 4 == 0) ? 1.0f : 0.0f;
+      st.t[0] = st.t[1] = st.t[2] = 0.0f;
+    }
     st.cen[0] = cx; st.cen[1] = cy; st.cen[2] = cz;
     st.sigma2 = sigma2;
     st.q = 1.0f + fn * 1.5f * logf(sigma2);
@@ -417,11 +434,14 @@ int probreg_em_smem_bytes(int m_cap, int n_cap) {
 }
 
 // One launch of whole-EM CPD for a batch: cluster blocks per pair (1, 2,
-// 4 or 8), order (B,) int32 or null.
+// 4 or 8), order (B,) int32 or null, init (B, 14) f32 rows [lin0 (9), t0
+// (3, raw frame), scale0, sigma2_0 (<= 0: the closed form)] or null (the
+// identity and the closed form).
 int probreg_em_cpd(const void* src, int m_cap, const void* tgt, int n_cap,
                    const void* counts, const void* order, int batch,
                    int cluster, float w, int maxiter, float tol,
-                   int update_scale, int affine, void* out, void* stream) {
+                   int update_scale, int affine, const void* init, void* out,
+                   void* stream) {
   if (batch <= 0) return (int)cudaErrorInvalidValue;
   const int smem = probreg_em_smem_bytes(m_cap, n_cap);
   decltype(&em_kernel<1>) kernel = nullptr;
@@ -435,8 +455,8 @@ int probreg_em_cpd(const void* src, int m_cap, const void* tgt, int n_cap,
   return (int)launch_pairs(kernel, batch, cluster, kThreads, smem,
                            (cudaStream_t)stream, (const float*)src, m_cap,
                            (const float*)tgt, n_cap, (const int*)counts,
-                           (const int*)order, w, maxiter, tol, update_scale,
-                           affine, (float*)out);
+                           (const int*)order, (const float*)init, w,
+                           maxiter, tol, update_scale, affine, (float*)out);
 }
 
 }  // extern "C"

@@ -46,7 +46,10 @@
 //
 // Like the twin _run_em_rigid (and unlike the reference's fused kernel)
 // the pair is centred on its shared centroid here and d2 is taken from
-// differences. The automatic sigma2_0 is computed here from the valid
+// differences. A pair may start from its own pose (``init``, as K7 takes
+// it; the multistart searches run S starts of B pairs as one launch): the
+// raw-frame start converts to the centred frame as _run_em_rigid's does,
+// after sigma2_0, which stays that of the un-moved clouds. The automatic sigma2_0 is computed here from the valid
 // points (pt2pt: the closed-form mean squared distance / 3; pt2pl: the
 // mean squared nearest-neighbour spacing of the target), so a masked pair
 // is bitwise the same registration as the pair without its padding. IEEE
@@ -136,6 +139,7 @@ frg_kernel(const float* __restrict__ src, int m_cap,  // (B, m_cap, 3)
            const float* __restrict__ nrm,   // (B, n_cap, 3) for pt2pl
            const int* __restrict__ counts,  // (B, 2) valid points, or null
            const int* __restrict__ order,   // (B,) work order, or null
+           const float* __restrict__ init,  // (B, 12) [rot0, t0], or null
            Params prm, float* __restrict__ out) {      // (B, 16)
   constexpr int kBlock = kThreads / G;
   extern __shared__ float4 smem[];
@@ -239,8 +243,19 @@ frg_kernel(const float* __restrict__ src, int m_cap,  // (B, m_cap, 3)
                        / (fm * 3.0f * fn), prm.min_sigma2);
       }
     }
-    for (int k = 0; k < 9; ++k) st.rot[k] = (k % 4 == 0) ? 1.0f : 0.0f;
-    st.t[0] = st.t[1] = st.t[2] = 0.0f;
+    if (init) {
+      // Raw frame -> centred frame: t_c = t0 + rot0 cen - cen (exact for
+      // the identity).
+      const float* r0 = init + (size_t)b * 12;
+      const float c3[3] = {cx, cy, cz};
+      for (int k = 0; k < 9; ++k) st.rot[k] = r0[k];
+      for (int i = 0; i < 3; ++i)
+        st.t[i] = r0[9 + i] + (r0[3 * i] * cx + r0[3 * i + 1] * cy
+                               + r0[3 * i + 2] * cz) - c3[i];
+    } else {
+      for (int k = 0; k < 9; ++k) st.rot[k] = (k % 4 == 0) ? 1.0f : 0.0f;
+      st.t[0] = st.t[1] = st.t[2] = 0.0f;
+    }
     st.cen[0] = cx; st.cen[1] = cy; st.cen[2] = cz;
     st.sigma2 = sigma2;
     st.q = 1e30f;
@@ -480,15 +495,16 @@ extern "C" {
 
 // src (B, m_cap, 3), tgt (B, n_cap, 3), nrm (B, n_cap, 3) or null (pt2pt)
 // f32; counts (B, 2) int32 valid points (at the front) or null; order (B,)
-// int32 work order or null; cluster blocks per pair (1, 2, 4 or 8); out
-// (B, 16): [rot (9), t (3), sigma2, q, n_iter, 0]. sigma2_0 is used when
-// auto_sigma2 is 0.
+// int32 work order or null; cluster blocks per pair (1, 2, 4 or 8); init
+// (B, 12) f32 [rot0 (9), t0 (3)] raw-frame starts or null (the identity);
+// out (B, 16): [rot (9), t (3), sigma2, q, n_iter, 0]. sigma2_0 is used
+// when auto_sigma2 is 0.
 int probreg_em_frg(const void* src, int m_cap, const void* tgt, int n_cap,
                    const void* nrm, const void* counts, const void* order,
                    int batch, int cluster, float w, int maxiter, float tol,
                    int update_sigma2, float sigma2_decay, float min_sigma2,
-                   int auto_sigma2, float sigma2_0, int pt2pl, void* out,
-                   void* stream) {
+                   int auto_sigma2, float sigma2_0, int pt2pl,
+                   const void* init, void* out, void* stream) {
   if (batch <= 0 || (pt2pl && nrm == nullptr))
     return (int)cudaErrorInvalidValue;
   const Params prm{w, tol, sigma2_decay, min_sigma2, sigma2_0, maxiter,
@@ -503,8 +519,8 @@ int probreg_em_frg(const void* src, int m_cap, const void* tgt, int n_cap,
   return (int)launch_pairs(kernel, batch, cluster, kThreads, smem,
                            (cudaStream_t)stream, (const float*)src, m_cap,
                            (const float*)tgt, n_cap, (const float*)nrm,
-                           (const int*)counts, (const int*)order, prm,
-                           (float*)out);
+                           (const int*)counts, (const int*)order,
+                           (const float*)init, prm, (float*)out);
 }
 
 }  // extern "C"

@@ -18,16 +18,24 @@ splits by size as the reference does (filterreg.py:555-822):
 ``registration_filterreg_batch`` registers B pairs, fixed-size or ragged,
 in one launch of the whole-EM kernel where the pairs fit it.
 
+``n_starts > 1`` (rigid, dense, no callbacks; single pairs and batches)
+runs the EM from each rotation of the orientation grid about the pair's
+shared centroid and keeps the start of least final sigma2 (with
+``update_sigma2``) or q: for 3-D pairs within the whole-EM kernel's gate
+all S starts of all B pairs are ONE launch of B S pairs, otherwise the
+dense loop runs once per start.
+
 ``use_pallas`` keeps the reference's name: False keeps pairs off the
 whole-EM kernel (the dense loop runs instead); the streaming E-step's
 Gauss transform follows its own size gate, as in the reference.
 
 The EM loops are Python loops that read q once per iteration for the
 |q - q_prev| < tol test. ``callbacks`` run the reference's host loop over
-``expectation_step`` / ``maximization_step``. The permutohedral lattice
-E-step, the deformable-kinematic model, feature functions, multistart and
-chunked callbacks come with later slices of the port (ROADMAP, Queue 1
-item 6).
+``expectation_step`` / ``maximization_step``, ``callback_chunk`` K of its
+steps queued between two host reads (utils/chunked.py): the callbacks see
+the same transforms for every K. The permutohedral lattice E-step, the
+deformable-kinematic model and feature functions come with a later slice
+of the port (ROADMAP, Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -40,12 +48,13 @@ from typing import Any, Callable, List, Optional
 import torch
 
 from . import config as _config
-from .cpd import _converged
+from .cpd import _converged, _pair_centroid, first_min
 from .log import log
 from .models import transformation as tf
 from .ops import gausstransform as gto
 from .ops import pairwise as _pw
 from .ops import rigid_solvers
+from .utils import chunked
 from .utils import interop
 from .utils import math_utils as mu
 from .utils import se3_op as so
@@ -184,6 +193,24 @@ def _auto_sigma2(source, target, objective_type, min_sigma2, smask=None,
     return torch.clamp(s2, min=min_sigma2)
 
 
+def _rigid_mstep(t_source, target, estep_res, trans_p, sigma2, w,
+                 objective_type):
+    """The rigid M-step of the host loop from an E-step's moments: (rot, t,
+    sigma2 estimated or as given, q)."""
+    m, dim = t_source.shape
+    m0, m1, m2, nx = estep_res
+    sigma2 = torch.as_tensor(sigma2, dtype=t_source.dtype,
+                             device=t_source.device)
+    c = _outlier_c(sigma2, w, m, target.shape[0], dim)
+    if objective_type == "pt2pt":
+        return rigid_mstep_pt2pt(t_source, m0, m1, m2, trans_p.rot,
+                                 trans_p.t, sigma2, c)
+    if objective_type == "pt2pl":
+        return rigid_mstep_pt2pl(t_source, m0, m1, m2, nx, trans_p.rot,
+                                 trans_p.t, sigma2, c)
+    raise ValueError("Unknown objective_type: %s." % objective_type)
+
+
 def _run_em_rigid(source, target, normals, rot0, t0, sigma2_0, *,
                   objective_type, update_sigma2, w, maxiter, tol, min_sigma2,
                   sigma2_decay=1.0, auto_sigma2=False, smask=None,
@@ -316,6 +343,61 @@ def _stack_runs(runs):
             torch.stack([r.q for r in runs]))
 
 
+def _multistart_rots(n_starts: int, dim: int):
+    """(S, D, D) rotation starts on the orientation grid (reference
+    filterreg.py:1316)."""
+    from . import cost_functions as cf
+
+    return cf.RigidCostFunction.initial_multistart_rots(n_starts, dim)
+
+
+def _run_em_rigid_multistart_batch(sources, targets, normals, rots0,
+                                   sigma2_0, *, smasks=None, tmasks=None,
+                                   fused=False, **kw):
+    """The orientation search of a batch (reference filterreg.py:1323-1400):
+    each start rotation ``rots0`` (S, D, D) about each pair's shared
+    centroid (t0 = c - R0 c). ``fused``: all B S runs as ONE launch of the
+    whole-EM kernel (3-D, its gate checked by the caller); else
+    ``_run_em_rigid`` per start. Per pair the start of least final sigma2
+    (``update_sigma2``) or q wins, the first of ties. Returns (rot, t,
+    sigma2, q) stacked over the batch, the winning starts and every
+    start's score (B, S)."""
+    nb = sources.shape[0]
+    rots0 = torch.as_tensor(rots0, dtype=sources.dtype,
+                            device=sources.device)
+    ns = rots0.shape[0]
+    cens = torch.stack([_pair_centroid(
+        sources[b], targets[b], None if smasks is None else smasks[b],
+        None if tmasks is None else tmasks[b]) for b in range(nb)])
+    t0 = cens[:, None, :] - (rots0[None] @ cens[:, None, :, None])[..., 0]
+    if fused:
+        from .ops import frg_cuda
+
+        def rep(x):
+            return None if x is None else x.repeat_interleave(ns, 0)
+
+        rows = torch.cat([rots0.expand(nb, ns, 3, 3).reshape(nb * ns, 9),
+                          t0.reshape(nb * ns, 3)], 1)
+        kw = dict(kw)
+        out = frg_cuda.run_em_filterreg_fused_batch(
+            rep(sources), rep(targets), rep(normals), rep(smasks),
+            rep(tmasks), sigma2_0, objective=kw.pop("objective_type"),
+            inits=rows, **kw)[:4]
+    else:
+        out = _stack_runs([_run_em_rigid(
+            sources[b], targets[b], None if normals is None else normals[b],
+            rots0[s], t0[b, s], sigma2_0,
+            smask=None if smasks is None else smasks[b],
+            tmask=None if tmasks is None else tmasks[b], **kw)
+            for b in range(nb) for s in range(ns)])
+    rot, t, sigma2, q = (x.reshape(nb, ns, *x.shape[1:]) for x in out)
+    score = sigma2 if kw["update_sigma2"] else q
+    best = first_min(score)
+    rows = torch.arange(nb, device=best.device)
+    return (rot[rows, best], t[rows, best], sigma2[rows, best],
+            q[rows, best]), best, score
+
+
 def _run_em_rigid_batch(sources, targets, normals, sigma2_0, smasks=None,
                         tmasks=None, **kw):
     """``_run_em_rigid`` from the identity over a (B, M, D) x (B, N, D)
@@ -445,27 +527,47 @@ class FilterReg(abc.ABC):
                      feature_fn: Callable = lambda x: x,
                      sigma2_decay: float = 1.0, n_starts: int = 1,
                      callback_chunk: int = 1) -> MstepResult:
-        """Run the EM registration (reference filterreg.py:555)."""
+        """Run the EM registration (reference filterreg.py:555).
+        ``n_starts > 1``: the orientation search (rigid dense path, no
+        callbacks). ``callback_chunk``: EM iterations queued between two
+        host reads in callback mode; the callbacks still fire every
+        iteration (utils/chunked.py)."""
         assert self._tf_type is not None, "transformation type is None."
+        target = self._as_points(target)
         if int(n_starts) > 1:
-            raise NotImplementedError(_NOT_PORTED.format("n_starts > 1"))
-        if int(callback_chunk) > 1:
-            raise NotImplementedError(_NOT_PORTED.format(
-                "callback_chunk > 1"))
+            if (not isinstance(self, RigidFilterReg) or self._callbacks
+                    or not _is_identity_feature(feature_fn)):
+                raise ValueError("n_starts > 1 requires the rigid dense "
+                                 "no-callback path")
+            m, n = self._source.shape[0], target.shape[0]
+            if m * n > _config.config.transposed_em_max_pairs:
+                # The search runs n_starts dense (M, N) loops, a size the
+                # single start streams instead.
+                raise ValueError(
+                    "n_starts > 1 FilterReg materializes n_starts dense "
+                    f"(M, N) kernels; M*N = {m}*{n} exceeds "
+                    "config.transposed_em_max_pairs. Run the orientation "
+                    "search on a downsampled cloud "
+                    "(pyramid.registration_filterreg_pyramid(n_starts=)) "
+                    "and warm-start the full size with tf_init_params.")
         if not _is_identity_feature(feature_fn):
             raise NotImplementedError(_NOT_PORTED.format(
                 "a feature_fn (ops/fpfh)"))
         _check_objective(objective_type, self._target_normals)
         normals = self._target_normals if objective_type == "pt2pl" else None
-        target = self._as_points(target)
         args = dict(objective_type=objective_type,
                     update_sigma2=bool(self._update_sigma2), w=float(w),
                     maxiter=int(maxiter), tol=float(tol),
                     min_sigma2=float(min_sigma2),
                     sigma2_decay=float(sigma2_decay))
         if self._callbacks:
-            return self._registration_host_loop(target, normals, **args)
-        res = self._registration_whole(target, normals, **args)
+            return self._registration_host_loop(target, normals,
+                                                int(callback_chunk), **args)
+        if int(n_starts) > 1:
+            res = self._registration_multistart(target, normals,
+                                                int(n_starts), **args)
+        else:
+            res = self._registration_whole(target, normals, **args)
         self._tf_result = res.transformation
         self._sigma2 = float(res.sigma2)
         return res
@@ -474,37 +576,79 @@ class FilterReg(abc.ABC):
         """The whole-EM runners; every registration without callbacks."""
         raise NotImplementedError
 
-    def _registration_host_loop(self, target, normals, *, objective_type,
-                                update_sigma2, w, maxiter, tol, min_sigma2,
-                                sigma2_decay):
-        """One E-step and M-step per host iteration, the callbacks after
-        each (reference filterreg.py:881)."""
+    def _registration_multistart(self, target, normals, n_starts,
+                                 **args) -> MstepResult:
+        """The orientation search from the grid (reference
+        filterreg.py:567-600); it ignores the start pose, as there."""
+        m, dim = self._source.shape
+        auto = self._sigma2 is None
+        (rot, t, sigma2, q), *_ = _run_em_rigid_multistart_batch(
+            self._source[None], target[None],
+            None if normals is None else normals[None],
+            _multistart_rots(n_starts, dim),
+            0.0 if auto else float(self._sigma2), auto_sigma2=auto,
+            fused=_fused_batch_ok(m, target.shape[0], dim, self._use_pallas),
+            **args)
+        return MstepResult(tf.RigidTransformation(rot[0], t[0],
+                                                  device=self._device),
+                           sigma2[0], q[0])
+
+    def _registration_host_loop(self, target, normals, chunk, *,
+                                objective_type, update_sigma2, w, maxiter,
+                                tol, min_sigma2, sigma2_decay):
+        """One E-step and M-step per iteration, the callbacks after each
+        (reference filterreg.py:881), ``chunk`` iterations queued between
+        two host reads: the chunk carries sigma2 in float64 as the host
+        loop's Python float, and an iteration whose moments are all zero
+        ends the loop with the previous pose and q, as there."""
         if self._sigma2 is None:
             self._sigma2 = float(_auto_sigma2(self._source, target,
                                               objective_type, min_sigma2))
-        q = None
-        res = MstepResult(self._tf_result, self._sigma2, None)
-        for i in range(maxiter):
-            t_source = self._tf_result._transform(self._source)
-            estep_res = self.expectation_step(
-                t_source, target, target, self._sigma2, update_sigma2,
-                objective_type)
-            res = self.maximization_step(t_source, target, estep_res, w=w,
-                                         objective_type=objective_type)
-            if res.q is None:
-                res = res._replace(q=q)
-                break
+        dt = self._source.dtype
+        steps = []
+        prev = {"q": None}
+
+        def chunk_fn(state, k):
+            trans, s2 = state
+            steps.clear()
+            for _ in range(k):
+                s32 = s2.to(dt)
+                t_source = trans._transform(self._source)
+                estep_res = self.expectation_step(
+                    t_source, target, target, s32, update_sigma2,
+                    objective_type)
+                rot, t, s2_m, q = _rigid_mstep(t_source, target, estep_res,
+                                               trans, s32, w, objective_type)
+                trans = tf.RigidTransformation(rot, t, device=self._device)
+                s2 = torch.clamp(s2_m.double() if update_sigma2
+                                 else s2 * sigma2_decay, min=min_sigma2)
+                empty = ~(estep_res.m0 > 0.0).any()
+                steps.append((MstepResult(trans, s2_m, q), s2, empty))
+            return (trans, s2), chunked.stack_history(
+                [(res.q, s2_next, empty) for res, s2_next, empty in steps])
+
+        def handle(i, host, j):
+            qs, s2s, empties = host
+            if bool(empties[j]):  # no weight anywhere: keep the last pose
+                return True, MstepResult(self._tf_result, self._sigma2,
+                                         prev["q"])
+            res = steps[j][0]
             self._tf_result = res.transformation
-            s2_next = (float(res.sigma2) if update_sigma2
-                       else float(self._sigma2) * sigma2_decay)
-            self._sigma2 = max(s2_next, min_sigma2)
+            self._sigma2 = float(s2s[j])
             for c in self._callbacks:
                 c(self._tf_result)
-            log.debug("Iteration: {}, Criteria: {}".format(i, res.q))
-            if q is not None and abs(float(res.q) - float(q)) < tol:
-                break
-            q = float(res.q)
-        return res
+            qv = float(qs[j])
+            log.debug("Iteration: {}, Criteria: {}".format(i, qv))
+            stop = prev["q"] is not None and abs(qv - prev["q"]) < tol
+            prev["q"] = qv
+            return stop, res
+
+        out = chunked.run_chunked(
+            chunk_fn, (self._tf_result, torch.tensor(
+                self._sigma2, dtype=torch.float64, device=self._device)),
+            maxiter, chunk, handle)
+        return out if out is not None else MstepResult(
+            self._tf_result, self._sigma2, None)
 
 
 class RigidFilterReg(FilterReg):
@@ -533,22 +677,10 @@ class RigidFilterReg(FilterReg):
     @staticmethod
     def _maximization_step(t_source, target, estep_res, trans_p, sigma2,
                            w=0.0, objective_type="pt2pt"):
-        m, dim = t_source.shape
-        n = target.shape[0]
-        m0, m1, m2, nx = estep_res
-        if not bool((m0 > 0.0).any()):
+        if not bool((estep_res[0] > 0.0).any()):
             return MstepResult(trans_p, sigma2, None)
-        sigma2 = torch.as_tensor(sigma2, dtype=t_source.dtype,
-                                 device=t_source.device)
-        c = _outlier_c(sigma2, w, m, n, dim)
-        if objective_type == "pt2pt":
-            rot, t, s2, q = rigid_mstep_pt2pt(
-                t_source, m0, m1, m2, trans_p.rot, trans_p.t, sigma2, c)
-        elif objective_type == "pt2pl":
-            rot, t, s2, q = rigid_mstep_pt2pl(
-                t_source, m0, m1, m2, nx, trans_p.rot, trans_p.t, sigma2, c)
-        else:
-            raise ValueError("Unknown objective_type: %s." % objective_type)
+        rot, t, s2, q = _rigid_mstep(t_source, target, estep_res, trans_p,
+                                     sigma2, w, objective_type)
         return MstepResult(tf.RigidTransformation(rot, t,
                                                   device=t_source.device),
                            s2, q)
@@ -622,11 +754,11 @@ def registration_filterreg_batch(
     registering each pair without its padding). Each pair stops at its own
     convergence. 3-D pairs within ``config.fused_em_max_pairs`` run as ONE
     launch of the whole-EM kernel for the whole batch; others run the dense
-    loop pair by pair. Returns a list of ``MstepResult``.
+    loop pair by pair. ``n_starts > 1``: each pair's orientation search, the
+    S starts of the B pairs one launch of B S pairs on the kernel. Returns a
+    list of ``MstepResult``.
     """
     _check_objective(objective_type, target_normals)
-    if int(n_starts) > 1:
-        raise NotImplementedError(_NOT_PORTED.format("n_starts > 1"))
     dev = _config.resolve_device(device)
     pt2pl = objective_type == "pt2pl"
     ragged = isinstance(sources, (list, tuple)) \
@@ -647,8 +779,15 @@ def registration_filterreg_batch(
                 maxiter=int(maxiter), tol=float(tol),
                 min_sigma2=float(min_sigma2),
                 sigma2_decay=float(sigma2_decay), auto_sigma2=auto)
-    if _fused_batch_ok(sources.shape[1], targets.shape[1], sources.shape[2],
-                       use_pallas):
+    fused = _fused_batch_ok(sources.shape[1], targets.shape[1],
+                            sources.shape[2], use_pallas)
+    if int(n_starts) > 1:
+        (rot, t, sigma2s, qs), *_ = _run_em_rigid_multistart_batch(
+            sources, targets, normals,
+            _multistart_rots(int(n_starts), sources.shape[2]), sigma2_0,
+            smasks=smasks, tmasks=tmasks, fused=fused,
+            objective_type=objective_type, **args)
+    elif fused:
         from .ops import frg_cuda
 
         rot, t, sigma2s, qs, _ = frg_cuda.run_em_filterreg_fused_batch(
@@ -699,7 +838,11 @@ def registration_filterreg(
         callbacks: Called with the current transformation each iteration.
         sigma2_decay: Per-iteration factor on sigma2 when ``update_sigma2``
             is False, floored at ``min_sigma2``.
-        n_starts, callback_chunk: Only 1 is ported; more raises.
+        n_starts: EM restarts over the orientation grid (rigid dense path,
+            no callbacks); the least final sigma2 (``update_sigma2``) or q
+            wins.
+        callback_chunk: EM iterations queued between two host reads in
+            callback mode; the callbacks still fire every iteration.
         device: Device to run on (default ``config.device``, "cuda"). A
             missing CUDA device raises instead of running on the CPU.
 

@@ -15,15 +15,20 @@ are (j + 1) 8 ... (j + 1) 8 + 7, and level l spans [8 (8^l - 1) / 7,
   pair or a whole batch. The pose is carried in the frame of the shared
   centroid of target and node means, and every result converts back.
 * ``GMMTree``, ``registration_gmmtree`` and ``registration_gmmtree_batch``
-  (fixed-size and ragged), and the callbacks host loop.
+  (fixed-size and ragged), and the callbacks host loop, ``callback_chunk``
+  K of its steps queued between two host reads (utils/chunked.py; the
+  callbacks see the same transforms for every K).
+* ``n_starts > 1``: each start rotation of the orientation grid about the
+  shared centroid, all S starts of all B pairs one registration batch of
+  B S pairs (one K10 launch on the card within its gate, the kernel's
+  plain version otherwise); each final pose is rescored by one descent
+  E-step (``_multistart_scores``) and the best kept.
 
 Moment sums are one-hot products, never ``index_add_`` / ``scatter_add_``,
 whose float atomics on the card differ from run to run. The leaf indices
 are drawn from a ``torch.Generator`` seeded with ``seed``, so a tree differs
 from the reference's for the same seed (its ``jax.random`` bits differ);
-the tests hand the reference's indices to the port. Multistart
-(``n_starts > 1``), chunked callbacks (``callback_chunk > 1``) and the
-GMMTree pyramid are not ported yet.
+the tests hand the reference's indices to the port.
 """
 
 from __future__ import annotations
@@ -35,12 +40,14 @@ import numpy as np
 import torch
 
 from . import config as _config
+from .cpd import first_min
 from .log import log
 from .models import transformation as tf
 from .ops import gmmtree_cuda
 from .ops.em_cuda import _compact
 from .ops.gmmtree_cuda import _go
 from .ops.sym3 import eigh3
+from .utils import chunked
 from .utils import interop
 from .utils import se3_op as so
 
@@ -49,8 +56,6 @@ _EPS = 1.0e-15
 _EPS32 = float(np.finfo(np.float32).eps)
 _LAMBDA_D = 1.0e-4
 _BUILD_MAXITER = 50
-_NOT_PORTED = ("{} is not ported to probreg_tpu_torch yet (ROADMAP.md, "
-               "Queue 1 item 10); use probreg_tpu.gmmtree")
 
 EstepResult = namedtuple("EstepResult", ["moments"])
 MstepResult = namedtuple("MstepResult", ["transformation", "q"])
@@ -429,6 +434,126 @@ def _run_registration(target, pi, mu, cov, rot0, t0, *, max_level, lambda_c,
     return rot, t + cen - rot @ cen, q
 
 
+def _multistart_rots(n_starts: int, dim: int):
+    """(S, D, D) rotation starts on the orientation grid (reference
+    gmmtree.py:425)."""
+    from . import cost_functions as cf
+
+    return cf.RigidCostFunction.initial_multistart_rots(n_starts, dim)
+
+
+def _descend_batch(x, table, max_level, lambda_c):
+    """``gmmtree_cuda._descend`` for P pairs at once: x (P, n, 3) and the
+    (P, T, 24) tables of ``gmmtree_cuda.reg_tables``; (node, gmax) (P, n)."""
+    p, n = x.shape[:2]
+    eight = torch.arange(N_NODE, device=x.device)
+
+    def take(col, idx):   # rows idx (P, n, 8) of table columns col
+        flat = idx.reshape(p, -1, 1).expand(-1, -1, col.stop - col.start)
+        return torch.gather(table[..., col], 1, flat).reshape(
+            p, n, N_NODE, -1)
+
+    parent = torch.full((p, n), -1, dtype=torch.int64, device=x.device)
+    search = torch.zeros((p, n), dtype=torch.int64, device=x.device)
+    gmax = x.new_zeros((p, n))
+    stopped = torch.zeros((p, n), dtype=torch.bool, device=x.device)
+    for _ in range(max_level):
+        cidx = ((parent + 1) * N_NODE)[..., None] + eight
+        ep = gmmtree_cuda.mahalanobis_exponent(
+            x[:, :, None, :] - take(slice(0, 3), cidx),
+            take(slice(3, 9), cidx))
+        pn = take(slice(9, 11), cidx)
+        u = pn[..., 0] * (pn[..., 1] * torch.exp(torch.clamp(ep, max=0.0)))
+        den = u.sum(-1, keepdim=True)
+        g = torch.where(den > _EPS, u / den, torch.zeros_like(u))
+        arg = g.argmax(-1, keepdim=True)          # the first maximum
+        search = torch.where(stopped, search, cidx.gather(-1, arg)[..., 0])
+        gmax = torch.where(stopped, gmax, g.gather(-1, arg)[..., 0])
+        cplx = torch.gather(table[..., 11], 1, search)
+        stopped = stopped | (cplx <= lambda_c)
+        parent = torch.where(stopped, parent, search)
+    return search, gmax
+
+
+def _multistart_scores(ys, counts, table, rot, t_c, *, max_level, lambda_c):
+    """The rescore of final poses (reference gmmtree.py:500-515): ``ys``
+    (P, n, 3) centred targets with ``counts`` (P,) valid first, ``table``
+    (P, T, 24), the pose (rot (P, 3, 3), t_c (P, 3)) in the centred frame.
+    One descent E-step, then the m0-weighted squared distance of each
+    node's assigned-point centroid to its mean; unmatched mass (at most
+    1e-3 of the valid points) and NaN score inf. The twist residual q
+    cannot select: a start that matches no node reports q = 0."""
+    x = ys @ rot.transpose(1, 2) + t_c[:, None, :]
+    node, gmax = _descend_batch(x, table, max_level, lambda_c)
+    valid = torch.arange(ys.shape[1], device=ys.device)[None, :] \
+        < counts[:, None]
+    gmax = gmax * valid.to(gmax.dtype)
+    nodes = torch.arange(table.shape[1], device=ys.device)
+    scores = []
+    for b in range(ys.shape[0]):   # one (T, n) one-hot at a time
+        onehot = (nodes[:, None] == node[b][None, :]).to(ys.dtype)
+        m0 = onehot @ gmax[b]
+        m1 = onehot @ (gmax[b][:, None] * x[b])
+        d2 = ((m1 / torch.clamp(m0, min=_EPS)[:, None]
+               - table[b, :, 0:3]) ** 2).sum(1)
+        mass = m0.sum()
+        score = torch.where(
+            mass > 1e-3 * counts[b].to(ys.dtype),
+            (m0 * d2).sum() / torch.clamp(mass, min=_EPS),
+            torch.full_like(mass, float("inf")))
+        scores.append(torch.where(torch.isnan(score),
+                                  torch.full_like(score, float("inf")),
+                                  score))
+    return torch.stack(scores)
+
+
+def _run_registration_multistart_batch(targets, pi, mu, cov, rots0, *,
+                                       max_level, lambda_c, maxiter, tol,
+                                       tmasks=None):
+    """The orientation search of B pairs (reference gmmtree.py:479-520):
+    every start rotation of ``rots0`` (S, 3, 3) about each pair's shared
+    centroid of targets and node means, the B S registrations one call of
+    ``gmmtree_cuda.run_gmmtree_reg_fused_batch`` (one K10 launch on the
+    card within its gate, its plain version otherwise), each final pose
+    rescored, the best (the first of ties) kept. Returns (rot, t, q)
+    stacked over the batch in the raw frame, the winning starts and every
+    start's score (B, S)."""
+    nb, n_cap = targets.shape[:2]
+    rots0 = torch.as_tensor(rots0, dtype=targets.dtype,
+                            device=targets.device)
+    ns = rots0.shape[0]
+    cens = torch.stack([_tree_centroid(
+        targets[b], mu[b], None if tmasks is None else tmasks[b])
+        for b in range(nb)])
+    rot0 = rots0.expand(nb, ns, 3, 3).reshape(nb * ns, 3, 3)
+    t0 = (cens[:, None, :] - (rots0[None] @ cens[:, None, :, None])[..., 0]
+          ).reshape(nb * ns, 3)
+
+    def rep(x):
+        return None if x is None else x.repeat_interleave(ns, 0)
+
+    tgt, pis, mus, covs, tms = (rep(x) for x in (targets, pi, mu, cov,
+                                                 tmasks))
+    kw = dict(max_level=max_level, lambda_c=lambda_c)
+    rot, t, q, _ = gmmtree_cuda.run_gmmtree_reg_fused_batch(
+        tgt, pis, mus, covs, rot0, t0, tms, maxiter=maxiter, tol=tol,
+        plain=not _fused_reg_ok(targets, max_level), **kw)
+    if tms is None:
+        counts = torch.full((nb * ns,), n_cap, dtype=torch.int64,
+                            device=targets.device)
+    else:
+        tgt, counts = _compact(tgt, tms)
+        counts = counts.long()
+    ys, table, cen = gmmtree_cuda.reg_tables(tgt, counts, pis.float(),
+                                             mus.float(), covs.float())
+    t_c = t + (rot @ cen[:, :, None])[..., 0] - cen
+    scores = _multistart_scores(ys, counts, table, rot, t_c, **kw)
+    scores = scores.reshape(nb, ns)
+    best = first_min(scores)
+    idx = torch.arange(nb, device=best.device) * ns + best
+    return (rot[idx], t[idx], q[idx]), best, scores
+
+
 def _fused_build_ok(points: torch.Tensor, tree_level: int) -> bool:
     """The level-EM kernel's branch (reference gmmtree.py:563-569, a CUDA
     device in place of the TPU backend)."""
@@ -510,16 +635,23 @@ class GMMTree:
     def registration(self, target, maxiter: int = 20, tol: float = 1.0e-4,
                      n_starts: int = 1,
                      callback_chunk: int = 1) -> MstepResult:
-        if int(n_starts) > 1:
-            raise NotImplementedError(_NOT_PORTED.format("n_starts > 1"))
-        if int(callback_chunk) > 1:
-            raise NotImplementedError(_NOT_PORTED.format(
-                "callback_chunk > 1"))
+        """``n_starts > 1``: the orientation search from the grid (no
+        callbacks; it ignores the start pose, as the reference's does).
+        ``callback_chunk``: EM iterations queued between two host reads in
+        callback mode; the callbacks still fire every iteration."""
         target = interop.as_points(target, device=self._device)
         pi, mu, cov = self._nodes
+        kw = dict(max_level=self._tree_level, lambda_c=self._lambda_c,
+                  maxiter=int(maxiter), tol=float(tol))
+        if int(n_starts) > 1:
+            if self._callbacks:
+                raise ValueError("n_starts > 1 requires no callbacks")
+            (rot, t, q), *_ = _run_registration_multistart_batch(
+                target[None], pi[None], mu[None], cov[None],
+                _multistart_rots(int(n_starts), target.shape[1]), **kw)
+            self._tf_result = tf.RigidTransformation(rot[0], t[0])
+            return MstepResult(self._tf_result.inverse(), q[0])
         if not self._callbacks:
-            kw = dict(max_level=self._tree_level, lambda_c=self._lambda_c,
-                      maxiter=int(maxiter), tol=float(tol))
             if _fused_reg_ok(target, self._tree_level):
                 rot, t, q, _ = gmmtree_cuda.run_gmmtree_reg_fused(
                     target, pi, mu, cov, self._tf_result.rot,
@@ -530,13 +662,15 @@ class GMMTree:
                     self._tf_result.t, **kw)
             self._tf_result = tf.RigidTransformation(rot, t)
             return MstepResult(self._tf_result.inverse(), q)
-        return self._callback_loop(target, int(maxiter), float(tol))
+        return self._callback_loop(target, int(maxiter), float(tol),
+                                   int(callback_chunk))
 
-    def _callback_loop(self, target, maxiter, tol) -> MstepResult:
+    def _callback_loop(self, target, maxiter, tol, chunk) -> MstepResult:
         """The reference's host loop over expectation_step /
         maximization_step (gmmtree.py:668-705), in the same shared-centroid
         frame as _run_registration: nodes and target centred in, every
-        emitted transformation converted back."""
+        emitted transformation converted back; ``chunk`` steps queued
+        between two host reads."""
         pi, mu, cov = self._nodes
         cen = _tree_centroid(target, mu).double()
         target_c = target - cen.to(target.dtype)[None, :]
@@ -548,25 +682,38 @@ class GMMTree:
             r = tr.rot.double()
             return tf.RigidTransformation(r, tr.t.double() + cen - r @ cen)
 
+        steps = []
+        prev = {"q": None}
+
+        def chunk_fn(tr, k):
+            steps.clear()
+            for _ in range(k):
+                res = self.maximization_step(
+                    self.expectation_step(tr._transform(target_c)), tr)
+                tr = res.transformation
+                steps.append((to_raw(tr), res.q))
+            return tr, chunked.stack_history([(q,) for _, q in steps])
+
+        def handle(i, host, j):
+            raw, q = steps[j]
+            self._tf_result = raw
+            for c in self._callbacks:
+                c(raw.inverse())
+            qv = float(host[0][j])
+            log.debug("Iteration: {}, Criteria: {}".format(i, qv))
+            stop = prev["q"] is not None and abs(qv - prev["q"]) < tol
+            prev["q"] = qv
+            return stop, MstepResult(raw.inverse(), q)
+
         saved_nodes = self._nodes
-        q = None
-        res = MstepResult(tf_c, None)
         try:
             self._nodes = (pi, mu - cen.to(mu.dtype)[None, :], cov)
-            for i in range(maxiter):
-                estep_res = self.expectation_step(
-                    res.transformation._transform(target_c))
-                res = self.maximization_step(estep_res, res.transformation)
-                self._tf_result = to_raw(res.transformation)
-                for c in self._callbacks:
-                    c(self._tf_result.inverse())
-                log.debug("Iteration: {}, Criteria: {}".format(i, res.q))
-                if q is not None and abs(float(res.q) - q) < tol:
-                    break
-                q = float(res.q)
+            out = chunked.run_chunked(chunk_fn, tf_c, maxiter, chunk,
+                                      handle)
         finally:
             self._nodes = saved_nodes
-        return MstepResult(self._tf_result.inverse(), res.q)
+        return out if out is not None else MstepResult(
+            self._tf_result.inverse(), None)
 
 
 def registration_gmmtree(
@@ -592,7 +739,8 @@ def registration_gmmtree(
         tol: Convergence tolerance on the residual q.
         callbacks: Called with the current (inverse) transformation each
             iteration.
-        n_starts: Multistart is not ported yet: > 1 raises.
+        n_starts: Restarts over the orientation grid (no callbacks); each
+            final pose is rescored and the best kept.
         device: Device to run on (default ``config.device``, "cuda"). A
             missing CUDA device raises instead of running on the CPU.
 
@@ -602,19 +750,17 @@ def registration_gmmtree(
         lambda_s (float): Build log-likelihood tolerance.
         tf_init_params (dict): Initializer for the rigid transformation.
         seed (int): Seed of the leaf initialization.
-        callback_chunk (int): Only 1 is ported: > 1 raises.
+        callback_chunk (int): EM iterations queued between two host reads
+            in callback mode.
 
     Returns:
         MstepResult: (transformation, q).
     """
     callback_chunk = int(kwargs.pop("callback_chunk", 1))
-    if int(n_starts) > 1:
-        raise NotImplementedError(_NOT_PORTED.format("n_starts > 1"))
-    if callback_chunk > 1:
-        raise NotImplementedError(_NOT_PORTED.format("callback_chunk > 1"))
     gt = GMMTree(source, device=device, **kwargs)
     gt.set_callbacks(list(callbacks or []))
-    return gt.registration(target, maxiter, tol)
+    return gt.registration(target, maxiter, tol, n_starts=n_starts,
+                           callback_chunk=callback_chunk)
 
 
 def registration_gmmtree_batch(
@@ -638,11 +784,12 @@ def registration_gmmtree_batch(
     On a CUDA device the trees are built with one launch of the level-EM
     kernel per level for the whole batch, and all pairs register in one
     launch of the registration kernel; otherwise the twin loops run pair by
-    pair. Same target-transform / inverse-return convention as
-    :func:`registration_gmmtree`. Returns a list of ``MstepResult``.
+    pair. ``n_starts > 1``: each pair's orientation search, the S starts of
+    the B pairs one registration batch of B S pairs (one launch of the
+    registration kernel on the card). Same target-transform /
+    inverse-return convention as :func:`registration_gmmtree`. Returns a
+    list of ``MstepResult``.
     """
-    if int(n_starts) > 1:
-        raise NotImplementedError(_NOT_PORTED.format("n_starts > 1"))
     dev = _config.resolve_device(device)
     ragged = isinstance(sources, (list, tuple)) \
         or isinstance(targets, (list, tuple))
@@ -664,7 +811,11 @@ def registration_gmmtree_batch(
                                fused=_fused_build_ok(src, tree_level))
     kw = dict(max_level=tree_level, lambda_c=float(lambda_c),
               maxiter=int(maxiter), tol=float(tol))
-    if _fused_reg_ok(tgt, tree_level):
+    if int(n_starts) > 1:
+        (rot, t, q), *_ = _run_registration_multistart_batch(
+            tgt, pi, mu, cov, _multistart_rots(int(n_starts), tgt.shape[2]),
+            tmasks=tmask, **kw)
+    elif _fused_reg_ok(tgt, tree_level):
         rot, t, q, _ = gmmtree_cuda.run_gmmtree_reg_fused_batch(
             tgt, pi, mu, cov, tmasks=tmask, **kw)
     else:

@@ -20,6 +20,13 @@ and hands the kernel the counts, so a block never sees a masked point, and
 sigma2_0, q0 and the outlier ratio use the true counts. A masked pair is
 therefore the same registration as the pair without its padding.
 
+A pair may start from its own pose: ``inits`` (B, 14) rows [lin0 (9), t0
+(3), scale0, sigma2_0] in the raw frame (``init_rows``), converted to the
+centred frame inside as ``cpd._run_em_t`` converts its start; sigma2_0 <= 0
+keeps the closed-form start variance of the un-moved clouds. So S starts of
+B pairs are one launch of B S pairs (the multistart searches). No rows, or
+identity rows with sigma2_0 = 0, give the bits of the identity start.
+
 CUDA tensors run the kernel; CPU tensors run ``run_em_cpd_fused_plain``, the
 same arithmetic in tensors with the loop test on the host. Nothing else picks
 between them. Every launch adds one to ``LAUNCHES["em_rigid"]`` or
@@ -67,7 +74,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("em")
     if not getattr(lib, "_probreg_typed", False):
         lib.probreg_em_cpd.argtypes = [_P, _I, _P, _I, _P, _P, _I, _I, _F,
-                                       _I, _F, _I, _I, _P, _P]
+                                       _I, _F, _I, _I, _P, _P, _P]
         lib.probreg_em_cpd.restype = ctypes.c_int
         lib._probreg_typed = True
     return lib
@@ -120,20 +127,36 @@ def compact_batch(sources, targets, smasks=None, tmasks=None, dims_ok=None):
     return sources, targets, torch.stack([m_cnt, n_cnt], dim=1).contiguous()
 
 
+def init_rows(lin0, t0, scale0=1.0, sigma2_0=0.0):
+    """(B, 14) f32 start rows [lin0 (9), t0 (3), scale0, sigma2_0] from
+    (B, 3, 3) / (B, 3) tensors and scalars or (B,) tensors."""
+    batch = lin0.shape[0]
+    col = [torch.as_tensor(v, dtype=torch.float32, device=lin0.device)
+           .reshape(-1, 1).expand(batch, 1) for v in (scale0, sigma2_0)]
+    return torch.cat([lin0.reshape(batch, 9).float(),
+                      t0.reshape(batch, 3).float(), *col], 1).contiguous()
+
+
 def run_em_cpd_fused_batch(sources, targets, smasks=None, tmasks=None, *,
                            kind="rigid", w=0.0, maxiter=50, tol=1e-3,
-                           update_scale=True):
+                           update_scale=True, inits=None):
     """(B, M, 3) x (B, N, 3) [+ (B, M) / (B, N) 0/1 masks] -> stacked
     (lin (B, 3, 3), t (B, 3), sigma2 (B,), q (B,), n_iter (B,)) in ONE
     kernel launch for the whole batch. ``lin`` is scale * R for ``kind``
-    "rigid" (scale 1 when ``update_scale`` is False) and B for "affine"."""
+    "rigid" (scale 1 when ``update_scale`` is False) and B for "affine".
+    ``inits``: optional (B, 14) start rows (``init_rows``)."""
     if kind not in ("rigid", "affine"):
         raise ValueError(f"unknown kind {kind!r}")
     sources, targets, counts = compact_batch(sources, targets, smasks, tmasks)
+    if inits is not None:
+        if tuple(inits.shape) != (sources.shape[0], 14):
+            raise ValueError(f"inits {tuple(inits.shape)}: expected "
+                             f"({sources.shape[0]}, 14)")
+        inits = inits.to(sources).contiguous()
     args = dict(affine=kind == "affine", w=float(w), maxiter=int(maxiter),
                 tol=float(tol), update_scale=bool(update_scale))
     run = _em_cuda if sources.is_cuda else run_em_cpd_fused_plain
-    out = run(sources, targets, counts, **args)
+    out = run(sources, targets, counts, inits, **args)
     return (out[:, :9].reshape(-1, 3, 3), out[:, 9:12], out[:, 12],
             out[:, 13], out[:, 14])
 
@@ -186,8 +209,8 @@ def launch_plan(batch: int, counts, sms: int, *, cluster=None,
     return g, order
 
 
-def _em_cuda(sources, targets, counts, *, affine, w, maxiter, tol,
-             update_scale, _cluster=None, _ordered=True):
+def _em_cuda(sources, targets, counts, inits=None, *, affine, w, maxiter,
+             tol, update_scale, _cluster=None, _ordered=True):
     """One launch of K1 by ``launch_plan``. For checks and timings,
     ``_cluster`` forces the blocks per pair (1, 2, 4 or 8) and
     ``_ordered=False`` the arrival order."""
@@ -199,7 +222,8 @@ def _em_cuda(sources, targets, counts, *, affine, w, maxiter, tol,
         sources.data_ptr(), m_cap, targets.data_ptr(), n_cap,
         None if counts is None else counts.data_ptr(),
         None if order is None else order.data_ptr(), batch, g, w, maxiter,
-        tol, int(update_scale), int(affine), out.data_ptr(),
+        tol, int(update_scale), int(affine),
+        None if inits is None else inits.data_ptr(), out.data_ptr(),
         _stream(sources))
     _check(status, "em_cpd")
     LAUNCHES["em_affine" if affine else "em_rigid"] += 1
@@ -290,17 +314,25 @@ def _plain_mstep(a, yp1y, mu_x, mu_y, n_p, xx, update_scale, affine):
     return lin.float(), t.float(), sigma2.float(), q.float()
 
 
-def _plain_pair(ys, xs, *, affine, w, maxiter, tol, update_scale):
-    """One pair of valid points: the (16,) output row of the kernel."""
+def _plain_pair(ys, xs, init=None, *, affine, w, maxiter, tol,
+                update_scale):
+    """One pair of valid points from the identity or the (14,) start row
+    ``init``: the (16,) output row of the kernel."""
     m, n = ys.shape[0], xs.shape[0]
     cen = (ys.sum(0) + xs.sum(0)) / (m + n)
     ys, xs = ys - cen, xs - cen
     x2 = (xs * xs).sum(1)
     sigma2 = (n * (ys * ys).sum() + m * x2.sum()
               - 2.0 * ys.sum(0) @ xs.sum(0)) / (m * 3.0 * n)
+    if init is None:
+        lin = torch.eye(3, dtype=ys.dtype, device=ys.device)
+        t = ys.new_zeros(3)
+    else:  # raw frame -> centred frame, as the kernel converts it
+        lin = init[12] * init[:9].reshape(3, 3)
+        t = init[9:12] + lin @ cen - cen
+        if float(init[13]) > 0.0:
+            sigma2 = init[13]
     q = 1.0 + n * 1.5 * torch.log(sigma2)
-    lin = torch.eye(3, dtype=ys.dtype, device=ys.device)
-    t = ys.new_zeros(3)
     wratio = w / (1.0 - w) * m / n if w > 0.0 else 0.0
     q_prev, it = math.inf, 0
     while it < maxiter:
@@ -330,16 +362,18 @@ def _plain_pair(ys, xs, *, affine, w, maxiter, tol, update_scale):
                       t.new_tensor([float(it), 0.0])])
 
 
-def run_em_cpd_fused_plain(sources, targets, counts=None, *, affine, w,
-                           maxiter, tol, update_scale):
+def run_em_cpd_fused_plain(sources, targets, counts=None, inits=None, *,
+                           affine, w, maxiter, tol, update_scale):
     """Plain version of the whole-EM kernel: (B, 16) rows [lin (9), t (3),
     sigma2, q, n_iter, 0]. ``counts`` (B, 2) int32 gives each pair's valid
-    points, which lie at the front; None means all."""
+    points, which lie at the front; None means all. ``inits``: optional
+    (B, 14) start rows."""
     rows = []
     for b in range(sources.shape[0]):
         m, n = ((sources.shape[1], targets.shape[1]) if counts is None
                 else (int(counts[b, 0]), int(counts[b, 1])))
         rows.append(_plain_pair(sources[b, :m], targets[b, :n],
+                                None if inits is None else inits[b],
                                 affine=affine, w=w, maxiter=maxiter, tol=tol,
                                 update_scale=update_scale))
     return torch.stack(rows)

@@ -26,6 +26,13 @@ min_sigma2 / 100), so a masked pair is the same registration, bit for bit,
 as the pair without its padding, and a batch pair the same as its
 single-pair launch.
 
+A pair may start from its own pose: ``inits`` (B, 12) rows [rot0 (9), t0
+(3)] in the raw frame, converted to the centred frame inside as
+``filterreg._run_em_rigid`` converts its start; the automatic sigma2_0 is
+still that of the un-moved clouds. So S starts of B pairs are one launch of
+B S pairs (the multistart searches). No rows, or identity rows, give the
+bits of the identity start.
+
 CUDA tensors run the kernel; CPU tensors run
 ``run_em_filterreg_fused_plain``, the same arithmetic in tensors with the
 loop test on the host. Nothing else picks between them. Every launch adds
@@ -79,7 +86,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_probreg_typed", False):
         lib.probreg_em_frg.argtypes = [_P, _I, _P, _I, _P, _P, _P, _I, _I,
                                        _F, _I, _F, _I, _F, _F, _I, _F, _I,
-                                       _P, _P]
+                                       _P, _P, _P]
         lib.probreg_em_frg.restype = ctypes.c_int
         lib._probreg_typed = True
     return lib
@@ -116,11 +123,12 @@ def run_em_filterreg_fused_batch(sources, targets, normals=None, smasks=None,
                                  objective="pt2pt", w=0.0, maxiter=50,
                                  tol=1e-3, update_sigma2=False,
                                  sigma2_decay=1.0, min_sigma2=1e-4,
-                                 auto_sigma2=True):
+                                 auto_sigma2=True, inits=None):
     """(B, M, 3) x (B, N, 3) [+ (B, N, 3) normals for pt2pl, (B, M) / (B, N)
     0/1 masks] -> stacked (rot (B, 3, 3), t (B, 3), sigma2 (B,), q (B,),
     n_iter (B,)) in ONE kernel launch for the whole batch. ``sigma2_0`` is
-    the starting variance of every pair when ``auto_sigma2`` is False."""
+    the starting variance of every pair when ``auto_sigma2`` is False.
+    ``inits``: optional (B, 12) start rows [rot0 (9), t0 (3)]."""
     if objective not in _OBJECTIVES:
         raise ValueError(f"unknown objective {objective!r}")
     if objective == "pt2pl" and normals is None:
@@ -128,20 +136,25 @@ def run_em_filterreg_fused_batch(sources, targets, normals=None, smasks=None,
     sources, targets, normals, counts = compact_batch(
         sources, targets, normals if objective == "pt2pl" else None, smasks,
         tmasks)
+    if inits is not None:
+        if tuple(inits.shape) != (sources.shape[0], 12):
+            raise ValueError(f"inits {tuple(inits.shape)}: expected "
+                             f"({sources.shape[0]}, 12)")
+        inits = inits.to(sources).contiguous()
     args = dict(pt2pl=objective == "pt2pl", w=float(w), maxiter=int(maxiter),
                 tol=float(tol), update_sigma2=bool(update_sigma2),
                 sigma2_decay=float(sigma2_decay),
                 min_sigma2=float(min_sigma2), auto_sigma2=bool(auto_sigma2),
                 sigma2_0=float(sigma2_0))
     run = _frg_cuda if sources.is_cuda else run_em_filterreg_fused_plain
-    out = run(sources, targets, normals, counts, **args)
+    out = run(sources, targets, normals, counts, inits, **args)
     return (out[:, :9].reshape(-1, 3, 3), out[:, 9:12], out[:, 12],
             out[:, 13], out[:, 14])
 
 
-def _frg_cuda(sources, targets, normals, counts, *, pt2pl, w, maxiter, tol,
-              update_sigma2, sigma2_decay, min_sigma2, auto_sigma2,
-              sigma2_0, _cluster=None, _ordered=True):
+def _frg_cuda(sources, targets, normals, counts, inits=None, *, pt2pl, w,
+              maxiter, tol, update_sigma2, sigma2_decay, min_sigma2,
+              auto_sigma2, sigma2_0, _cluster=None, _ordered=True):
     """One launch of K5 by ``em_cuda.launch_plan``. For checks and timings,
     ``_cluster`` forces the blocks per pair (1, 2, 4 or 8) and
     ``_ordered=False`` the arrival order."""
@@ -156,7 +169,8 @@ def _frg_cuda(sources, targets, normals, counts, *, pt2pl, w, maxiter, tol,
         None if counts is None else counts.data_ptr(),
         None if order is None else order.data_ptr(), batch, g, w, maxiter,
         tol, int(update_sigma2), sigma2_decay, min_sigma2, int(auto_sigma2),
-        sigma2_0, int(pt2pl), out.data_ptr(), _stream(sources))
+        sigma2_0, int(pt2pl), None if inits is None else inits.data_ptr(),
+        out.data_ptr(), _stream(sources))
     _check(status, "em_frg")
     LAUNCHES["frg_pt2pl" if pt2pl else "frg_pt2pt"] += 1
     return out
@@ -220,16 +234,22 @@ def _pt2pl_step(ata, atb):
     return dr, x[3:]
 
 
-def _plain_pair(ys, xs, ns, *, pt2pl, w, maxiter, tol, update_sigma2,
-                sigma2_decay, min_sigma2, auto_sigma2, sigma2_0):
-    """One pair of valid points: the (16,) output row of the kernel."""
+def _plain_pair(ys, xs, ns, init=None, *, pt2pl, w, maxiter, tol,
+                update_sigma2, sigma2_decay, min_sigma2, auto_sigma2,
+                sigma2_0):
+    """One pair of valid points from the identity or the (12,) start row
+    ``init``: the (16,) output row of the kernel."""
     m, n = ys.shape[0], xs.shape[0]
     cen = (ys.sum(0) + xs.sum(0)) / (m + n)
     ys, xs = ys - cen, xs - cen
     sigma2 = (_auto_sigma2(ys, xs, pt2pl, min_sigma2) if auto_sigma2
               else ys.new_tensor(sigma2_0))
-    rot = torch.eye(3, dtype=ys.dtype, device=ys.device)
-    t = ys.new_zeros(3)
+    if init is None:
+        rot = torch.eye(3, dtype=ys.dtype, device=ys.device)
+        t = ys.new_zeros(3)
+    else:  # raw frame -> centred frame, as the kernel converts it
+        rot = init[:9].reshape(3, 3)
+        t = init[9:12] + rot @ cen - cen
     q = ys.new_tensor(1e30)
     wratio = w / (1.0 - w) * n / m if w > 0.0 else 0.0
     it, go = 0, maxiter > 0
@@ -279,19 +299,21 @@ def _plain_pair(ys, xs, ns, *, pt2pl, w, maxiter, tol, update_sigma2,
 
 
 def run_em_filterreg_fused_plain(sources, targets, normals=None, counts=None,
-                                 *, pt2pl, w, maxiter, tol, update_sigma2,
-                                 sigma2_decay, min_sigma2, auto_sigma2,
-                                 sigma2_0):
+                                 inits=None, *, pt2pl, w, maxiter, tol,
+                                 update_sigma2, sigma2_decay, min_sigma2,
+                                 auto_sigma2, sigma2_0):
     """Plain version of the whole-EM FilterReg kernel: (B, 16) rows [rot
     (9), t (3), sigma2, q, n_iter, 0]. ``counts`` (B, 2) int32 gives each
-    pair's valid points, which lie at the front; None means all."""
+    pair's valid points, which lie at the front; None means all. ``inits``:
+    optional (B, 12) start rows."""
     rows = []
     for b in range(sources.shape[0]):
         m, n = ((sources.shape[1], targets.shape[1]) if counts is None
                 else (int(counts[b, 0]), int(counts[b, 1])))
         ns = None if normals is None else normals[b, :n]
         rows.append(_plain_pair(
-            sources[b, :m], targets[b, :n], ns, pt2pl=pt2pl, w=w,
+            sources[b, :m], targets[b, :n], ns,
+            None if inits is None else inits[b], pt2pl=pt2pl, w=w,
             maxiter=maxiter, tol=tol, update_sigma2=update_sigma2,
             sigma2_decay=sigma2_decay, min_sigma2=min_sigma2,
             auto_sigma2=auto_sigma2, sigma2_0=sigma2_0))

@@ -468,7 +468,7 @@ def reg_tables(targets, counts, pi, mu, cov):
 
 def run_gmmtree_reg_fused_batch(targets, pi, mu, cov, rot0=None, t0=None,
                                 tmasks=None, *, max_level, lambda_c, maxiter,
-                                tol):
+                                tol, plain=False):
     """Whole GMMTree registrations of a batch as ONE launch of K10.
 
     ``targets`` (B, N, 3) [+ ``tmasks`` (B, N) 0/1], trees ``pi`` (B, T),
@@ -476,12 +476,13 @@ def run_gmmtree_reg_fused_batch(targets, pi, mu, cov, rot0=None, t0=None,
     ``rot0`` / ``t0`` the starting pose, (3, 3) / (3,) for every pair or
     (B, 3, 3) / (B, 3), identity by default. Returns (rot (B, 3, 3),
     t (B, 3), q (B,), n_iter (B,) int) in the raw frame: x -> rot x + t
-    moves each target onto its tree."""
+    moves each target onto its tree. ``plain``: the plain version on any
+    device and for any depth (a route outside the kernel's gate)."""
     targets = _check_points(targets, "targets")
     if pi.shape[1] != _n_total(max_level):
         raise ValueError(f"a tree of {pi.shape[1]} nodes is not one of "
                          f"{max_level} levels")
-    if not fused_reg_ok(max_level):
+    if not plain and not fused_reg_ok(max_level):
         raise ValueError(f"a tree of {max_level} levels does not fit one "
                          "block's shared memory (see fused_reg_ok)")
     batch = targets.shape[0]
@@ -500,7 +501,8 @@ def run_gmmtree_reg_fused_batch(targets, pi, mu, cov, rot0=None, t0=None,
     t0 = t0.reshape(-1, 3).expand(batch, 3)
     t0c = t0 + (rot0 @ cen[:, :, None])[:, :, 0] - cen   # centred frame
     init = torch.cat([rot0.reshape(batch, 9), t0c], 1).contiguous()
-    run = _reg_cuda if targets.is_cuda else run_gmmtree_reg_fused_plain
+    run = _reg_cuda if targets.is_cuda and not plain \
+        else run_gmmtree_reg_fused_plain
     out = run(ys, counts.to(torch.int32).contiguous(), table, init,
               max_level=int(max_level), maxiter=int(maxiter),
               tol=float(tol), lambda_c=float(lambda_c))

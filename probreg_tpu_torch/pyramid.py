@@ -20,9 +20,10 @@ runs every level through ``parallel.registration_cpd_sharded``. The
 low-rank nonrigid CPD pyramid carries the displacement field: the coarse
 level's field is kernel-regressed onto the finer points
 (``_interp_displacement``, one Gauss transform) and projected onto their
-Nystrom basis (``v_init``). Not ported yet: ``mesh=`` of the FilterReg and
-BCPD pyramids (ROADMAP Queue 1 item 12) and ``n_starts > 1`` (item 13)
-raise ``NotImplementedError``.
+Nystrom basis (``v_init``). ``n_starts > 1`` (rigid) runs the orientation
+search on the coarsest level only; every finer level refines the carried
+pose. Not ported yet: ``mesh=`` of the FilterReg and BCPD pyramids
+(ROADMAP Queue 1 item 12) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -303,7 +304,9 @@ def registration_cpd_pyramid(
             (update_scale, use_pallas, ...). ``dispatch_chunk`` (int)
             splits each level's EM into warm-resumed runs of at most that
             many iterations (an exact resume: CPD's result is its last EM
-            iterate). ``n_starts > 1`` is not ported yet and raises.
+            iterate). ``n_starts`` (rigid, no callbacks) applies to the
+            COARSEST level only, which then runs whole, on one device even
+            with ``mesh``; finer levels refine the carried pose.
 
     Returns:
         MstepResult from the finest (full-resolution) level.
@@ -321,8 +324,13 @@ def registration_cpd_pyramid(
             "displacement field is kernel-interpolated to each finer level "
             "and projected onto its Nystrom basis (v_init); the dense model "
             "has no cross-resolution warm start.")
-    if int(kwargs.pop("n_starts", 1)) > 1:
-        _refuse("n_starts > 1", 13)
+    n_starts = int(kwargs.pop("n_starts", 1))
+    if n_starts > 1 and tf_type_name != "rigid":
+        raise ValueError("n_starts > 1 supports the rigid pyramid only")
+    if n_starts > 1 and callbacks:
+        raise ValueError("n_starts > 1 and callbacks are incompatible "
+                         "(the multistart coarsest level runs the "
+                         "no-callback path)")
     if mesh is not None and (nonrigid or callbacks):
         raise ValueError("mesh= pyramid supports rigid/affine without "
                          "callbacks (the sharded runner has no callback "
@@ -352,13 +360,23 @@ def registration_cpd_pyramid(
     sigma2_init = None
     v_init = None
     for i, (s_i, t_i) in enumerate(zip(src_levels, tgt_levels)):
-        def _run(mi, warm, s_i=s_i, t_i=t_i):
+        # The orientation search belongs to the coarsest level: finer
+        # levels carry a warm start, which excludes it, and a new search
+        # would discard the carry. It runs whole (a resumed run would
+        # carry a warm start into it).
+        multistart = n_starts > 1 and i == 0
+
+        def _run(mi, warm, s_i=s_i, t_i=t_i, multistart=multistart):
             tf_c, v_c, s2_c = warm
             if nonrigid:
                 return _cpd.registration_cpd(
                     s_i, t_i, "nonrigid", w=w, maxiter=mi, tol=tol,
                     callbacks=callbacks, sigma2_init=s2_c, v_init=v_c,
                     device=dev, **kwargs)
+            if multistart:  # one device even with mesh=: the level is small
+                return _cpd.registration_cpd(
+                    s_i, t_i, tf_type_name, w=w, maxiter=mi, tol=tol,
+                    n_starts=n_starts, device=dev, **kwargs)
             if mesh is not None:
                 return _sharded.registration_cpd_sharded(
                     s_i, t_i, tf_type_name, w=w, maxiter=mi, tol=tol,
@@ -378,7 +396,8 @@ def registration_cpd_pyramid(
                 {"b": _host(tr.b), "t": _host(tr.t)}
             return (tf_c, None, s2_c)
 
-        res = _sliced_level(level_maxiters[i], dispatch_chunk,
+        res = _sliced_level(level_maxiters[i],
+                            None if multistart else dispatch_chunk,
                             (dict(tf_init), v_init, sigma2_init), _run,
                             _carry, tol=tol)
         if i + 1 < len(src_levels):
@@ -456,9 +475,10 @@ def registration_bcpd_pyramid(
         :func:`registration_cpd_pyramid`; ``level_maxiters`` defaults to
         ``maxiter // 3`` (>= 10) at full resolution. ``dispatch_chunk``
         splits each level's VI into warm-resumed runs (the resume carries
-        the final VI iterate). Callbacks are not supported (as in the
-        reference); ``mesh=`` (the 2-D mesh runner) and ``n_starts > 1``
-        are not ported yet and raise. The reference's TPU-only guard,
+        the final VI iterate). ``n_starts`` applies to the COARSEST level
+        only, which then runs whole. Callbacks are not supported (as in
+        the reference); ``mesh=`` (the 2-D mesh runner) is not ported yet
+        and raises. The reference's TPU-only guard,
         which splits large levels on a TPU backend, has no counterpart.
 
     Returns:
@@ -476,8 +496,7 @@ def registration_bcpd_pyramid(
     kwargs.pop("callbacks", None)
     normalize = bool(kwargs.pop("normalize", True))
     dispatch_chunk = kwargs.pop("dispatch_chunk", None)
-    if int(kwargs.pop("n_starts", 1)) > 1:
-        _refuse("n_starts > 1", 13)
+    n_starts = int(kwargs.pop("n_starts", 1))
     if mesh is not None:
         if dispatch_chunk:
             raise ValueError("dispatch_chunk is not supported with mesh= "
@@ -503,12 +522,18 @@ def registration_bcpd_pyramid(
     sigma2_init = None
     for i, (s_i, t_i) in enumerate(zip(src_levels, tgt_levels)):
         out = {}
+        # The orientation search on the coarsest level only, run whole.
+        multistart = n_starts > 1 and i == 0
 
-        def _run(mi, warm, s_i=s_i, t_i=t_i, out=out):
+        def _run(mi, warm, s_i=s_i, t_i=t_i, out=out,
+                 multistart=multistart):
+            if multistart:
+                warm = {}
             res, sigma2_raw, last, rinfo = _bcpd._registration_bcpd_impl(
                 s_i, t_i, w=w, maxiter=mi, tol=tol, callbacks=[],
                 normalize=normalize, callback_chunk=1, return_last=True,
-                device=dev, **warm, **kwargs)
+                n_starts=n_starts if multistart else 1, device=dev, **warm,
+                **kwargs)
             out["sigma2_raw"], out["last"] = sigma2_raw, last
             rinfo = rinfo or {}
             rmse = rinfo.get("best")
@@ -536,7 +561,7 @@ def registration_bcpd_pyramid(
             return a is not None and b is not None and abs(a - b) < tol
 
         res = _sliced_level(
-            level_maxiters[i], dispatch_chunk,
+            level_maxiters[i], None if multistart else dispatch_chunk,
             {"tf_init_params": tf_init, "v_init": v_init,
              "sigma2_init": sigma2_init},
             _run, _carry, tol=tol, stop=_stop)
@@ -586,16 +611,20 @@ def registration_filterreg_pyramid(
     its final sigma2 would hand finer levels a cloud-scale variance. With
     annealing (or ``update_sigma2``) the converged variance is carried
     like CPD's; without either, each level estimates its own and only the
-    transform is carried. ``mesh=`` and ``n_starts > 1`` are not ported
-    yet and raise.
+    transform is carried. ``n_starts`` (no callbacks) applies to the
+    COARSEST level only, which then runs whole. ``mesh=`` is not ported
+    yet and raises.
     """
     from . import filterreg as _frg
 
     if "tf_init_params" in kwargs or "sigma2" in kwargs:
         raise ValueError("tf_init_params/sigma2 are managed by the pyramid; "
                          "pass them to registration_filterreg instead.")
-    if int(kwargs.pop("n_starts", 1)) > 1:
-        _refuse("n_starts > 1", 13)
+    n_starts = int(kwargs.pop("n_starts", 1))
+    if n_starts > 1 and callbacks:
+        raise ValueError("n_starts > 1 and callbacks are incompatible "
+                         "(the multistart coarsest level runs the "
+                         "no-callback rigid dense path)")
     if mesh is not None:
         _refuse("the sharded pyramid (mesh=)", 12)
     dev = _config.resolve_device(device)
@@ -612,9 +641,12 @@ def registration_filterreg_pyramid(
     sigma2_meaningful = update_sigma2 or sigma2_decay < 1.0
     for i, (s_i, t_i) in enumerate(zip(src_levels, tgt_levels)):
         last = i + 1 == len(src_levels)
+        # The orientation search on the coarsest level only, run whole.
+        multistart = n_starts > 1 and i == 0
 
-        def _run(mi, warm, s_i=s_i, t_i=t_i, last=last):
-            tf_c, s2_c = warm
+        def _run(mi, warm, s_i=s_i, t_i=t_i, last=last,
+                 multistart=multistart):
+            tf_c, s2_c = (None, None) if multistart else warm
             return _frg.registration_filterreg(
                 s_i, t_i,
                 target_normals=target_normals if last else None,
@@ -622,14 +654,16 @@ def registration_filterreg_pyramid(
                 objective_type=objective_type if last else "pt2pt",
                 maxiter=mi, tol=tol, min_sigma2=min_sigma2,
                 sigma2_decay=sigma2_decay, update_sigma2=update_sigma2,
-                callbacks=callbacks, tf_init_params=tf_c or {}, device=dev,
+                callbacks=callbacks, tf_init_params=tf_c or {},
+                n_starts=n_starts if multistart else 1, device=dev,
                 **kwargs)
 
         def _carry(res):
             return (_rigid_params(res.transformation, scale=False),
                     float(res.sigma2))
 
-        res = _sliced_level(level_maxiters[i], dispatch_chunk,
+        res = _sliced_level(level_maxiters[i],
+                            None if multistart else dispatch_chunk,
                             (tf_init, sigma2), _run, _carry, tol=tol)
         if not last:
             tf_init = _rigid_params(res.transformation, scale=False)
@@ -662,15 +696,15 @@ def registration_gmmtree_pyramid(
     covariances come from each level's tree. Args as in
     :func:`probreg_tpu_torch.gmmtree.registration_gmmtree`, schedule args
     as in :func:`registration_cpd_pyramid` (``maxiter // 2`` polish).
-    ``n_starts > 1`` is not ported yet and raises.
+    ``n_starts`` applies to the COARSEST level only (not with
+    ``dispatch_chunk``).
     """
     from . import gmmtree as _gt
 
     if "tf_init_params" in kwargs:
         raise ValueError("tf_init_params is managed by the pyramid; pass it "
                          "to registration_gmmtree instead.")
-    if int(kwargs.pop("n_starts", 1)) > 1:
-        _refuse("n_starts > 1", 13)
+    n_starts = int(kwargs.pop("n_starts", 1))
     dev = _config.resolve_device(device)
     auto_schedule = voxel_sizes is None
     src_levels, tgt_levels, voxel_sizes = _prepare_levels(
@@ -678,14 +712,17 @@ def registration_gmmtree_pyramid(
     level_maxiters = _fit_level_maxiters(
         level_maxiters, len(voxel_sizes), maxiter, 2, auto_schedule)
     dispatch_chunk = kwargs.pop("dispatch_chunk", None)
+    if dispatch_chunk and n_starts > 1:
+        raise ValueError("dispatch_chunk is incompatible with n_starts > 1")
 
     res = None
     tf_init: dict = {}
     for i, (s_i, t_i) in enumerate(zip(src_levels, tgt_levels)):
-        def _run(mi, warm, s_i=s_i, t_i=t_i):
+        def _run(mi, warm, s_i=s_i, t_i=t_i, i=i):
             return _gt.registration_gmmtree(
                 s_i, t_i, maxiter=mi, tol=tol, callbacks=callbacks,
-                tf_init_params=dict(warm) or {}, device=dev, **kwargs)
+                tf_init_params=dict(warm) or {},
+                n_starts=n_starts if i == 0 else 1, device=dev, **kwargs)
 
         def _carry(res):
             return _rigid_params(res.transformation.inverse(), scale=False)

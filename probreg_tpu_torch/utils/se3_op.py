@@ -2,12 +2,16 @@
 
 Only what the port's paths, tests and smoke run need: static-frame xyz
 Euler angles (transforms3d's 'sxyz' default, as in the reference), the
-geodesic angle between two rotations, and the twist helpers of FilterReg's
-point-to-plane M-step (``skew``, ``twist_trans``, ``twist_mul``).
+geodesic angle between two rotations, the twist helpers of FilterReg's
+point-to-plane M-step (``skew``, ``twist_trans``, ``twist_mul``) and the
+quaternion helpers of the multistart orientation grid (``quat2mat``,
+``quat2mat_np``, ``mat2quat``). The jacobians ``diff_rot_from_quaternion``
+and ``diff_x_from_twist`` come with the L2-distance family.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Squared rotation angle below which a twist's rotation is the identity
@@ -101,3 +105,58 @@ def twist_mul(tw, rot, t, linear: bool = False):
     old translation too (reference se3_op.py:58)."""
     tr, tt = twist_trans(tw, linear=linear)
     return tr @ rot, t @ tr.T + tt
+
+
+def _quat_rows(w, x, y, z, s):
+    xx, yy, zz = x * x * s, y * y * s, z * z * s
+    xy, xz, yz = x * y * s, x * z * s, y * z * s
+    wx, wy, wz = w * x * s, w * y * s, w * z * s
+    return ((1.0 - yy - zz, xy - wz, xz + wy),
+            (xy + wz, 1.0 - xx - zz, yz - wx),
+            (xz - wy, yz + wx, 1.0 - xx - yy))
+
+
+def quat2mat(q) -> torch.Tensor:
+    """Rotation matrix from a quaternion (w, x, y, z), normalized inside
+    (transforms3d's quat2mat, reference se3_op.py:80)."""
+    q = _t(q)
+    w, x, y, z = q.unbind(0)
+    s = 2.0 / torch.clamp(w * w + x * x + y * y + z * z, min=_EPS)
+    return torch.stack([torch.stack(row)
+                        for row in _quat_rows(w, x, y, z, s)])
+
+
+def quat2mat_np(q) -> np.ndarray:
+    """:func:`quat2mat` in float64 numpy (reference se3_op.py:104)."""
+    w, x, y, z = np.asarray(q, np.float64)
+    s = 2.0 / max(w * w + x * x + y * y + z * z, _EPS)
+    return np.array(_quat_rows(w, x, y, z, s))
+
+
+def mat2quat(rot) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) of a rotation matrix (reference
+    se3_op.py:129): the construction of each of the four pivots, the one
+    of the largest of (trace, r00, r11, r22) taken."""
+    rot = _t(rot)
+    (m00, m01, m02), (m10, m11, m12), (m20, m21, m22) = (
+        r.unbind(0) for r in rot.unbind(0))
+    tr = m00 + m11 + m22
+
+    def root2(v):
+        return torch.sqrt(torch.clamp(v, min=_EPS)) * 2.0
+
+    s0 = root2(1.0 + tr)
+    s1 = root2(1.0 + m00 - m11 - m22)
+    s2 = root2(1.0 - m00 + m11 - m22)
+    s3 = root2(1.0 - m00 - m11 + m22)
+    cands = torch.stack([
+        torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0,
+                     (m10 - m01) / s0]),
+        torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1,
+                     (m02 + m20) / s1]),
+        torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2,
+                     (m12 + m21) / s2]),
+        torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3,
+                     0.25 * s3])])
+    q = cands[torch.argmax(torch.stack([tr, m00, m11, m22]))]
+    return q / torch.linalg.norm(q)

@@ -471,11 +471,24 @@ def test_combined_from_reference_moves_source_as_jax_does():
 
 def test_unported_options_raise_and_branches(monkeypatch):
     src, tgt = _fish()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    # n_starts and callback_chunk run (tests/test_torch_multistart.py,
+    # test_torch_callbacks.py) with the reference's refusals; the batch
+    # entry point, and its multistart, wait for item 9.
+    with pytest.raises(ValueError, match="3-D clouds only"):
         pb.registration_bcpd(src, tgt, device="cpu", n_starts=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        pb.registration_bcpd(src, tgt, device="cpu", callbacks=[print],
-                             callback_chunk=4)
+    with pytest.raises(ValueError, match="normalized no-callback"):
+        pb.registration_bcpd(src, tgt, device="cpu", n_starts=4,
+                             callbacks=[print])
+    with pytest.raises(ValueError, match="normalized no-callback"):
+        pb.registration_bcpd(src, tgt, device="cpu", n_starts=4,
+                             normalize=False)
+    with pytest.raises(ValueError, match="warm"):
+        pb.registration_bcpd(src, tgt, device="cpu", n_starts=4,
+                             sigma2_init=0.1)
+    seen = []
+    pb.registration_bcpd(src, tgt, device="cpu", maxiter=3, tol=0.0,
+                         callbacks=[seen.append], callback_chunk=4)
+    assert len(seen) == 3
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         pb.registration_bcpd_batch([src], [tgt])
     # The culled branch needs a CUDA device, the knob, the size and rank=.

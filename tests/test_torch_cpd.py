@@ -431,14 +431,24 @@ def test_use_pallas_pins_the_streaming_estep(monkeypatch, use_pallas, branch):
 
 
 def test_callbacks_and_multistart_are_named_as_not_ported():
+    """Callbacks and n_starts were the last raises of CPD; both run now.
+    What the reference refuses stays refused, with its ValueError."""
     src, tgt, _ = _problem(50)
-    with pytest.raises(NotImplementedError, match="callbacks.*ROADMAP"):
-        pcpd.registration_cpd(src, tgt, callbacks=[print], device="cpu")
-    with pytest.raises(NotImplementedError, match="n_starts.*ROADMAP"):
-        pcpd.registration_cpd(src, tgt, n_starts=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="n_starts.*ROADMAP"):
-        pcpd.registration_cpd_batch(src[None], tgt[None], n_starts=4,
-                                    device="cpu")
+    seen = []
+    pcpd.registration_cpd(src, tgt, maxiter=4, tol=0.0,
+                          callbacks=[seen.append], device="cpu")
+    assert len(seen) == 4
+    got = pcpd.registration_cpd(src, tgt, n_starts=4, device="cpu")
+    want = jcpd.registration_cpd(src, tgt, n_starts=4)
+    np.testing.assert_allclose(got.transformation.rot.numpy(),
+                               np.asarray(want.transformation.rot),
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="no-callback"):
+        pcpd.registration_cpd(src, tgt, n_starts=4, callbacks=[print],
+                              device="cpu")
+    with pytest.raises(ValueError, match="rigid batches only"):
+        pcpd.registration_cpd_batch(src[None], tgt[None], "affine",
+                                    n_starts=4, device="cpu")
     with pytest.raises(ValueError, match="rigid.*affine"):
         pcpd.registration_cpd_batch(src[None], tgt[None], "nonrigid",
                                     device="cpu")

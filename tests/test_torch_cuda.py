@@ -1796,3 +1796,168 @@ def test_nonrigid_sharded_on_one_nccl_rank(dev, nccl_world_one):
     moved2 = r2.transformation.transform(src)
     assert float((moved2 - moved).abs().max()) <= 1e-2
     assert residual(moved2) <= 1.05 * residual(moved)
+
+
+# --------------------------------------------------------------------------
+# Start rows of K1 and K5, and the multistart searches
+# --------------------------------------------------------------------------
+
+def _k1_rows(batch, dev, sigma2_0=0.0):
+    eye = torch.eye(3, device=dev).expand(batch, 3, 3)
+    return pem.init_rows(eye, torch.zeros(batch, 3, device=dev), 1.0,
+                         sigma2_0)
+
+
+@pytest.mark.parametrize("case", ["bunny", "1024x1024", "masked 700/900"])
+def test_identity_start_rows_keep_k1_and_k5_bits(dev, case):
+    """Identity rows (sigma2_0 = 0) give the bits of no rows on one block,
+    clusters of 2, 4 and 8 blocks and the default, for K1 and K5."""
+    src, tgt, nrm, smask, tmask = _frg_case(case, dev)
+    s_c, t_c, counts = pem.compact_batch(src[None], tgt[None], smask, tmask)
+    kw = dict(affine=False, w=0.05, maxiter=20, tol=0.0, update_scale=True)
+    for g in (1, 2, 4, 8, None):
+        assert torch.equal(
+            pem._em_cuda(s_c, t_c, counts, _k1_rows(1, dev), **kw,
+                         _cluster=g),
+            pem._em_cuda(s_c, t_c, counts, **kw, _cluster=g))
+    rows = torch.cat([torch.eye(3, device=dev).reshape(1, 9),
+                      torch.zeros(1, 3, device=dev)], 1)
+    for pt2pl in (False, True):
+        s_c, t_c, n_c, counts = pfc.compact_batch(
+            src[None], tgt[None], nrm[None] if pt2pl else None, smask, tmask)
+        kw = dict(pt2pl=pt2pl, w=0.05, maxiter=20, tol=0.0,
+                  update_sigma2=pt2pl, sigma2_decay=0.9, min_sigma2=1e-4,
+                  auto_sigma2=True, sigma2_0=0.0)
+        for g in (1, 2, 4, 8, None):
+            assert torch.equal(
+                pfc._frg_cuda(s_c, t_c, n_c, counts, rows, **kw, _cluster=g),
+                pfc._frg_cuda(s_c, t_c, n_c, counts, **kw, _cluster=g))
+
+
+def test_start_rows_match_the_plain_version(dev):
+    """K1 and K5 from a rotated start and K1 with a given sigma2_0, against
+    their plain versions with the same rows (lin, t 2e-4 over 20
+    iterations)."""
+    src, tgt = _bunny(dev)
+    c, s = np.cos(2.9), np.sin(2.9)
+    rot = torch.tensor([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]],
+                       dtype=torch.float32, device=dev)
+    t0 = torch.tensor([0.01, -0.02, 0.0], device=dev)
+    kw = dict(affine=False, w=0.0, maxiter=20, tol=0.0, update_scale=True)
+    for s2 in (0.0, 0.02):
+        rows = pem.init_rows(rot[None], t0[None], 1.05, s2)
+        got = pem._em_cuda(src[None], tgt[None], None, rows, **kw)
+        want = pem.run_em_cpd_fused_plain(src[None], tgt[None], None, rows,
+                                          **kw)
+        assert float((got[:, :12] - want[:, :12]).abs().max()) <= 2e-4
+    rows = torch.cat([rot.reshape(1, 9), t0[None]], 1)
+    kw = dict(pt2pl=False, w=0.0, maxiter=20, tol=0.0, update_sigma2=True,
+              sigma2_decay=1.0, min_sigma2=1e-4, auto_sigma2=True,
+              sigma2_0=0.0)
+    got = pfc._frg_cuda(src[None], tgt[None], None, None, rows, **kw)
+    want = pfc.run_em_filterreg_fused_plain(src[None], tgt[None], None, None,
+                                            rows, **kw)
+    assert float((got[:, :12] - want[:, :12]).abs().max()) <= 2e-4
+
+
+def _turned_bunny(dev, deg=170.0):
+    """The bunny and a copy turned by ``deg`` about z around its centroid
+    (GMMTree's search turns the target about a centroid near it, so
+    clouds turned about a far origin keep their offset)."""
+    src, _ = _bunny(dev)
+    c, s = np.cos(np.deg2rad(deg)), np.sin(np.deg2rad(deg))
+    rot = torch.tensor([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]],
+                       dtype=torch.float32, device=dev)
+    cen = src.mean(0)
+    return src, (src - cen) @ rot.T + cen, rot
+
+
+def test_multistart_searches_are_one_launch_and_pick_the_plain_start(
+        dev, monkeypatch):
+    """CPD (K1), FilterReg (K5) and GMMTree (K10): ten starts of the bunny
+    turned by 170 degrees, and four starts of eight pairs, are one launch
+    each; the kernel route and the plain route on the same CUDA tensors
+    pick the same start, and the search recovers the rotation."""
+    from probreg_tpu_torch import filterreg as pf
+    from probreg_tpu_torch import gmmtree as pgt
+    from probreg_tpu_torch.ops import gmmtree_cuda as pgmc
+
+    src, tgt, rot = _turned_bunny(dev)
+    pem.reset_launches()
+    res = pcpd.registration_cpd(src, tgt, n_starts=10, device=dev)
+    assert pem.LAUNCHES == {"em_rigid": 1, "em_affine": 0}
+    assert float((res.transformation.rot - rot).abs().max()) < 1e-2
+    pem.reset_launches()
+    pcpd.registration_cpd_batch(src[None].expand(8, -1, -1),
+                                tgt[None].expand(8, -1, -1), n_starts=4,
+                                device=dev)
+    assert pem.LAUNCHES["em_rigid"] == 1
+    inits = pcpd._multistart_inits(10, 3)
+    kw = dict(w=0.0, maxiter=50, tol=1e-3, update_scale=True, fused=True)
+    (lin_k, *_), best_k, _ = pcpd._run_em_t_multistart_batch(
+        src[None], tgt[None], inits, **kw)
+    monkeypatch.setattr(pem, "_em_cuda", pem.run_em_cpd_fused_plain)
+    (lin_p, *_), best_p, _ = pcpd._run_em_t_multistart_batch(
+        src[None], tgt[None], inits, **kw)
+    monkeypatch.undo()
+    assert torch.equal(best_k, best_p)
+    assert float((lin_k - lin_p).abs().max()) <= 2e-4
+
+    pfc.reset_launches()
+    res = pf.registration_filterreg(src, tgt, n_starts=10, sigma2_decay=0.9,
+                                    device=dev)
+    assert pfc.LAUNCHES == {"frg_pt2pt": 1, "frg_pt2pl": 0}
+    assert float((res.transformation.rot - rot).abs().max()) < 1e-2
+    rots0 = pf._multistart_rots(10, 3)
+    kw = dict(objective_type="pt2pt", update_sigma2=False, w=0.0, maxiter=50,
+              tol=1e-3, min_sigma2=1e-4, sigma2_decay=0.9, auto_sigma2=True,
+              fused=True)
+    (rot_k, *_), best_k, _ = pf._run_em_rigid_multistart_batch(
+        src[None], tgt[None], None, rots0, 0.0, **kw)
+    monkeypatch.setattr(pfc, "_frg_cuda", pfc.run_em_filterreg_fused_plain)
+    (rot_p, *_), best_p, _ = pf._run_em_rigid_multistart_batch(
+        src[None], tgt[None], None, rots0, 0.0, **kw)
+    monkeypatch.undo()
+    assert torch.equal(best_k, best_p)
+    assert float((rot_k - rot_p).abs().max()) <= 2e-4
+
+    pgmc.reset_launches()
+    res = pgt.registration_gmmtree(src, tgt, n_starts=10, device=dev)
+    assert pgmc.LAUNCHES == {"gmmtree_level_em": 2, "gmmtree_reg": 1}
+    assert float((res.transformation.rot - rot).abs().max()) < 1e-2
+    gt = pgt.GMMTree(src, device=dev)
+    kw = dict(max_level=2, lambda_c=0.01, maxiter=30, tol=1e-4)
+    nodes = [x[None] for x in gt._nodes]
+    (rot_k, *_), best_k, _ = pgt._run_registration_multistart_batch(
+        tgt[None], *nodes, pgt._multistart_rots(10, 3), **kw)
+    monkeypatch.setattr(pgt, "_fused_reg_ok", lambda *a: False)
+    (rot_p, *_), best_p, _ = pgt._run_registration_multistart_batch(
+        tgt[None], *nodes, pgt._multistart_rots(10, 3), **kw)
+    assert torch.equal(best_k, best_p)
+    assert float((rot_k - rot_p).abs().max()) <= 1e-3
+
+
+def test_chunked_callbacks_equal_chunk_one_on_the_card(dev):
+    """CPD (K2 E-steps), FilterReg and GMMTree on the bunny: the transforms
+    the callbacks see at callback_chunk 10 equal those at 1, bit for bit,
+    with one host read per chunk."""
+    import math
+
+    from probreg_tpu_torch import filterreg as pf
+    from probreg_tpu_torch import gmmtree as pgt
+    from probreg_tpu_torch.utils import chunked
+
+    src, tgt = _bunny(dev)
+    for run in (pcpd.registration_cpd, pf.registration_filterreg,
+                pgt.registration_gmmtree):
+        seen = {}
+        for chunk in (1, 10):
+            seen[chunk] = []
+            chunked.reset_fetches()
+            run(src, tgt, maxiter=25, tol=0.0, callback_chunk=chunk,
+                callbacks=[lambda tr, k=chunk: seen[k].append(
+                    torch.cat([tr.rot.reshape(-1), tr.t]).cpu())],
+                device=dev)
+            assert chunked.FETCHES == math.ceil(25 / chunk)
+        assert len(seen[1]) == len(seen[10]) == 25
+        assert all(torch.equal(a, b) for a, b in zip(seen[1], seen[10]))

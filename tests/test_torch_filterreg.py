@@ -537,7 +537,7 @@ def test_batch_matches_single_pairs_and_reference(monkeypatch, objective,
         _same_tf(dense[b], ref[b], 1e-4)
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(monkeypatch):
     src, tgt = _clouds(m=40)
     msg = "not ported.*Queue 1 item 6"
     with pytest.raises(NotImplementedError, match="lattice.*" + msg):
@@ -548,14 +548,18 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="feature_fn.*" + msg):
         pf.registration_filterreg(src, tgt, feature_fn=lambda x: x * 2.0,
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="callback_chunk.*" + msg):
-        pf.registration_filterreg(src, tgt, callbacks=[print],
-                                  callback_chunk=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="n_starts.*" + msg):
+    # Chunked callbacks and n_starts run (tests/test_torch_callbacks.py,
+    # test_torch_multistart.py); the search keeps the reference's refusals.
+    seen = []
+    pf.registration_filterreg(src, tgt, callbacks=[seen.append], maxiter=5,
+                              tol=0.0, callback_chunk=4, device="cpu")
+    assert len(seen) == 5
+    with pytest.raises(ValueError, match="no-callback"):
+        pf.registration_filterreg(src, tgt, n_starts=4, callbacks=[print],
+                                  device="cpu")
+    monkeypatch.setattr(pcfg.config, "transposed_em_max_pairs", 16)
+    with pytest.raises(ValueError, match="transposed_em_max_pairs"):
         pf.registration_filterreg(src, tgt, n_starts=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="n_starts.*" + msg):
-        pf.registration_filterreg_batch(src[None], tgt[None], n_starts=4,
-                                        device="cpu")
     with pytest.raises(ValueError, match="pt2pl requires"):
         pf.registration_filterreg(src, tgt, objective_type="pt2pl",
                                   device="cpu")

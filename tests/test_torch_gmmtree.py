@@ -577,13 +577,16 @@ def test_callbacks_path_matches_reference(horse_cloud, monkeypatch):
 
 def test_unported_paths_and_devices_raise():
     pts = blobby_surface(60, seed=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        pgt.registration_gmmtree(pts, pts, n_starts=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        pgt.registration_gmmtree(pts, pts, callback_chunk=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        pgt.registration_gmmtree_batch(pts[None], pts[None], n_starts=2,
-                                       device="cpu")
+    # n_starts and callback_chunk run (tests/test_torch_multistart.py,
+    # test_torch_callbacks.py); the search takes no callbacks.
+    with pytest.raises(ValueError, match="no callbacks"):
+        pgt.registration_gmmtree(pts, pts, n_starts=4, callbacks=[print],
+                                 device="cpu")
+    seen = []
+    pgt.registration_gmmtree(pts, pts, maxiter=3, tol=0.0,
+                             callbacks=[seen.append], callback_chunk=4,
+                             device="cpu")
+    assert len(seen) == 3
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             pgt.registration_gmmtree(pts, pts)

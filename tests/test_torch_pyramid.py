@@ -355,21 +355,26 @@ def test_rejections():
     src = np.random.default_rng(0).random((100, 3)).astype(np.float32)
     cpu = dict(device="cpu")
     not_ported = [
-        lambda: ppy.registration_cpd_pyramid(src, src, n_starts=4, **cpu),
-        lambda: ppy.registration_filterreg_pyramid(src, src, n_starts=2,
-                                                   **cpu),
         lambda: ppy.registration_filterreg_pyramid(src, src, mesh=object(),
                                                    **cpu),
-        lambda: ppy.registration_gmmtree_pyramid(src, src, n_starts=2,
-                                                 **cpu),
-        lambda: ppy.registration_bcpd_pyramid(src, src, n_starts=2, **cpu),
         lambda: ppy.registration_bcpd_pyramid(src, src, mesh=object(),
                                               rank=8, **cpu),
     ]
-    for item, call in zip([13, 13, 12, 13, 13, 12], not_ported):
+    for item, call in zip([12, 12], not_ported):
         with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
             call()
     invalid = [
+        # n_starts (ported) is the rigid coarsest level's, without
+        # callbacks, and GMMTree's not with dispatch_chunk (as the
+        # reference's).
+        lambda: ppy.registration_cpd_pyramid(src, src, "affine", n_starts=4,
+                                             **cpu),
+        lambda: ppy.registration_cpd_pyramid(src, src, n_starts=4,
+                                             callbacks=[print], **cpu),
+        lambda: ppy.registration_filterreg_pyramid(src, src, n_starts=2,
+                                                   callbacks=[print], **cpu),
+        lambda: ppy.registration_gmmtree_pyramid(src, src, n_starts=2,
+                                                 dispatch_chunk=3, **cpu),
         # The CPD pyramid's mesh= is ported; like the reference's, it takes
         # no callbacks.
         lambda: ppy.registration_cpd_pyramid(src, src, mesh=object(),

@@ -104,7 +104,18 @@ before it and read just after:
   search on the coarsest level; and a callback that records each
   transform at callback_chunk 1 and 10 (CPD, FilterReg and GMMTree on
   the bunny, CPD at 150,000 points on K3): the same transforms, one host
-  read per chunk.
+  read per chunk;
+* the L2-distance family (no custom kernel on its path: the cost, the GMM
+  and one-class SVM fits, the batched BFGS and the IFGT are torch
+  operations): rigid SVR and GMMReg (200 components) on bench.py's bunny
+  pair (examples/svr_rigid.py: 10 degrees about z), GMMReg with 10 starts
+  on the bunny turned 170 degrees (examples/global_rigid.py), TPS SVR and
+  GMMReg on the fish (examples/svr_nonrigid2d.py), the 16-pair batches of
+  examples/l2dist_batch.py (GMMReg 200 components x 4 starts, SVR 2
+  rounds) and GaussTransform(method="ifgt") against the exact transform
+  on the 150,000-point cloud (h 0.4, eps 1e-4): each against the truth and
+  against the port's CPU run of the same inputs, with the second call's
+  time, BFGS iterations and host reads per solve and peak memory.
 
 Prints the card, a {"kernels": [...]} line and, last, {"ok": true, ...}.
 Exits non-zero without a CUDA device or when any phase fails.
@@ -2722,17 +2733,20 @@ def run_gmmtree_large(dev, launches, kernels):
     depth = float((1.0 + (node >= 8).double()).mean())
     b_ms, b_by = bound(12 * N_GMM + 4 * table.numel() + 64,
                        GMM_REG_ITERS * N_GMM * flops_gmm_reg(depth))
+    plain_ms = timed(lambda: gc.run_gmmtree_reg_fused_plain(
+        ys, counts, table, init, **kw), 1)
     its = int(gc._reg_cuda(ys, counts, table, init, max_level=2,
                            maxiter=20, tol=1e-4, lambda_c=0.01)[0, 13])
     log(f"  K10 at {N_GMM:,} points: {per} blocks per pair; "
         f"{GMM_REG_ITERS} iterations {ms:.3f} ms "
         f"({ms / GMM_REG_ITERS * 1e3:.1f} us per iteration), on one block "
-        f"{one_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}, mean descent depth "
-        f"{depth:.3f}); at the defaults (maxiter 20, tol 1e-4) {its} "
-        "iterations")
+        f"{one_ms:.3f} ms; plain {plain_ms:.1f} ms; bound {b_ms:.4f} ms "
+        f"({b_by}, mean descent depth {depth:.3f}); at the defaults "
+        f"(maxiter 20, tol 1e-4) {its} iterations")
     kernels.setdefault("gmmtree_reg", {}).update(
         blocks_150k=per, ms_150k=ms, one_block_ms_150k=one_ms,
-        bound_ms_150k=b_ms, launches_150k=got["gmmtree_reg"])
+        plain_ms_150k=plain_ms, bound_ms_150k=b_ms,
+        launches_150k=got["gmmtree_reg"])
     if not per > 1:
         raise AssertionError("K10 did not spread the 150k pair")
     if not err <= ROT_ERR_MAX:
@@ -5043,6 +5057,218 @@ def log_fixed_cost(name, parent_run, this_run, iters=EM_BATCH_ITERS):
         f"this {g_us[1]:.2f} (G = 1) / {g_us[8]:.2f} (G = 8)")
 
 
+L2_TRUTH_EULER = 0.1     # rad: tests/test_l2dist_regs.py's Euler bound
+L2_TRUTH_T = 1e-2        # ... and its translation bound
+L2_MS_DEG = 5.0          # the multistart must recover the turn to this
+L2_ROT_AGREE = 1e-3      # rad: card run against the CPU run
+L2_T_AGREE = 1e-3        # of the target's extent, card against CPU
+L2_TPS_AGREE = 1e-3      # of the fish's extent, card against CPU
+L2_BATCH = 16            # examples/l2dist_batch.py
+L2_BATCH_CPU = 2         # pairs of the batch that the CPU run repeats
+IFGT_H = 0.4             # 0.2 x the 150k cloud's range, inside the envelope
+IFGT_EPS = 1e-4
+IFGT_CPU_TARGETS = 2000  # targets the CPU run evaluates
+L2_PROFILE_CALLS = 1     # the profiler's post-processing of a call's
+                         # ~10^4-10^5 activities takes seconds
+
+
+def l2_batch_clouds():
+    """examples/l2dist_batch.py: the bunny at voxel 0.005 and 16 copies
+    turned by Euler angles uniform in +-15 degrees (seed 0)."""
+    from probreg_tpu_torch.utils import se3_op
+
+    src = bunny_clouds(np.eye(3))[0]
+    angs = np.random.default_rng(0).uniform(-np.pi / 12, np.pi / 12,
+                                            size=(L2_BATCH, 3))
+    tgts = np.stack([src @ se3_op.euler2mat(*a).numpy().T for a in angs])
+    return np.stack([src] * L2_BATCH), tgts.astype(np.float32), angs
+
+
+def l2_timed(name, fn, profile=False):
+    """Run ``fn`` twice on the card; log the second call's wall time, its
+    BFGS iterations and host reads per solve and its peak MiB above what
+    was allocated before it, with no custom kernel launched; with
+    ``profile``, also its device activities and device time per call
+    (torch.profiler over L2_PROFILE_CALLS calls) and so the device's busy
+    share of the wall time. Returns the result and the figures."""
+    from probreg_tpu_torch.ops import bfgs
+
+    fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bfgs.reset_counts()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect_launches(name)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    solves = max(bfgs.SOLVES, 1)
+    fig = dict(ms=wall * 1e3, solves=bfgs.SOLVES,
+               iters=bfgs.ITERS / solves, reads=bfgs.READS / solves,
+               evals=bfgs.EVALS / solves, peak_mib=peak)
+    log(f"[L2] {name}: {fig['ms']:.1f} ms (second call), {bfgs.SOLVES} "
+        f"BFGS solves, per solve {fig['iters']:.1f} iterations, "
+        f"{fig['evals']:.1f} evaluations, {fig['reads']:.1f} host reads; "
+        f"peak {peak:.1f} MiB")
+    if profile:
+        t0 = time.perf_counter()
+        count, dev_us, by_name = device_launches(fn, L2_PROFILE_CALLS)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        log(f"  device: {count:.0f} activities a call, {dev_us / 1e3:.2f} ms "
+            f"of device time ({dev_us / 1e3 / fig['ms']:.1%} of the wall "
+            f"time); most: " + ", ".join(f"{k[:40]} {v / 1e3:.2f} ms"
+                                         for k, v in top)
+            + f" (profiled in {time.perf_counter() - t0:.1f} s)")
+    return out, fig
+
+
+def l2_cpu(fn):
+    """``fn()``, the port's CPU run of a case, with its wall time logged."""
+    t0 = time.perf_counter()
+    out = fn()
+    log(f"  CPU run {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def l2_rigid_check(name, res, truth_rot, truth_t, cpu, extent):
+    """The reference tests' truth bounds, and the card run against the
+    CPU run of the same inputs (``cpu``; None: the truth only)."""
+    from probreg_tpu_torch.utils import se3_op
+
+    rot = res.rot.detach().cpu().double()
+    err = (se3_op.mat2euler(rot) - se3_op.mat2euler(
+        torch.as_tensor(truth_rot).double())).abs().max()
+    terr = float((res.t.detach().cpu().double()
+                  - torch.as_tensor(truth_t).double()).abs().max())
+    text = f"  {name}: Euler error {float(err):.2e} rad, t error {terr:.2e}"
+    if cpu is not None:
+        agree = np.deg2rad(rot_deg(rot, cpu.rot.double().numpy()))
+        tagree = float((res.t.cpu().double() - cpu.t.double()).abs().max()) \
+            / extent
+        text += (f"; card vs CPU: rotation {agree:.2e} rad, t {tagree:.2e} "
+                 "of the extent")
+    log(text)
+    if not (err <= L2_TRUTH_EULER and terr <= L2_TRUTH_T):
+        raise AssertionError(f"{name}: misses the truth bounds")
+    if cpu is not None and not (agree <= L2_ROT_AGREE
+                                and tagree <= L2_T_AGREE):
+        raise AssertionError(f"{name}: card and CPU runs part")
+
+
+def run_l2dist(dev, launches):
+    """The L2-distance family through its entry points: rigid SVR and
+    GMMReg (n_gmm_components 200) on bench.py's bunny pair turned 10 deg
+    about z (examples/svr_rigid.py), GMMReg with 10 starts on the bunny
+    turned MS_TURN deg (examples/global_rigid.py), TPS SVR and GMMReg on
+    the fish (examples/svr_nonrigid2d.py, tests/test_batch.py:567), the
+    16-pair batches of examples/l2dist_batch.py (GMMReg 200 components x 4
+    starts, SVR 2 rounds) and the IFGT against the exact Gauss transform
+    on the 150k cloud. Each held to the truth and to the CPU run of the
+    same inputs (batches: the first L2_BATCH_CPU pairs; IFGT: the first
+    IFGT_CPU_TARGETS targets). No custom kernel lies on this path: the
+    cost, the fits, the BFGS and the IFGT are torch operations."""
+    from probreg_tpu_torch import gauss_transform, l2dist_regs as l2
+
+    cpu = dict(device="cpu")
+    src, tgt = bunny_clouds(z_rotation(10.0))
+    ext = float(np.ptp(tgt, 0).max())
+    truth = z_rotation(10.0)
+    for name, fn, kw in (("SVR bunny", l2.registration_svr, {}),
+                         ("GMMReg bunny", l2.registration_gmmreg,
+                          dict(n_gmm_components=200))):
+        res, _ = l2_timed(name, lambda: fn(src, tgt, **kw),
+                          profile=name.startswith("GMMReg"))
+        l2_rigid_check(name, res, truth, np.zeros(3),
+                       l2_cpu(lambda: fn(src, tgt, **kw, **cpu)), ext)
+
+    ms_src, ms_tgt = turned_bunny(MS_TURN)
+    truth = z_rotation(MS_TURN)
+    cen = ms_src.mean(0).astype(np.float64)
+    kw = dict(n_gmm_components=200, n_starts=MS_STARTS)
+    res, _ = l2_timed(f"GMMReg bunny turned {MS_TURN:g} deg, "
+                      f"{MS_STARTS} starts",
+                      lambda: l2.registration_gmmreg(ms_src, ms_tgt, **kw))
+    err = rot_deg(res.rot, truth)
+    log(f"  rotation error {err:.3f} deg")
+    if not err <= L2_MS_DEG:
+        raise AssertionError("GMMReg multistart misses the turn")
+    l2_rigid_check("GMMReg multistart", res, truth, cen - truth @ cen,
+                   l2_cpu(lambda: l2.registration_gmmreg(ms_src, ms_tgt,
+                                                         **kw, **cpu)),
+                   float(np.ptp(ms_tgt, 0).max()))
+
+    f_src, f_tgt = fish_clouds()
+    f_ext = float(np.ptp(f_tgt, 0).max())
+
+    def nn(a):
+        d2 = ((a[:, None].astype(np.float64) - f_tgt[None]) ** 2).sum(-1)
+        return float(np.sqrt(d2.min(1).mean()))
+
+    for name, fn, kw in (("TPS SVR fish", l2.registration_svr,
+                          dict(opt_maxiter=30)),
+                         ("TPS GMMReg fish", l2.registration_gmmreg,
+                          dict(n_gmm_components=40))):
+        res, _ = l2_timed(name, lambda: fn(f_src, f_tgt, "nonrigid", **kw))
+        moved = res.transform(f_src).cpu().numpy()
+        moved_cpu = l2_cpu(lambda: fn(f_src, f_tgt, "nonrigid", **kw,
+                                      **cpu)).transform(f_src).numpy()
+        agree = float(np.abs(moved - moved_cpu).max()) / f_ext
+        log(f"  {name}: NN-RMSE {nn(f_src):.4f} -> {nn(moved):.4f}; card "
+            f"vs CPU moved points {agree:.2e} of the extent")
+        if not nn(moved) < nn(f_src):
+            raise AssertionError(f"{name}: no closer to the target")
+        if not agree <= L2_TPS_AGREE:
+            raise AssertionError(f"{name}: card and CPU runs part")
+
+    srcs, tgts, angs = l2_batch_clouds()
+    from probreg_tpu_torch.utils import se3_op
+
+    for name, fn, kw in (("GMMReg batch", l2.registration_gmmreg_batch,
+                          dict(n_gmm_components=200, n_starts=4)),
+                         ("SVR batch", l2.registration_svr_batch,
+                          dict(maxiter=2))):
+        res, fig = l2_timed(f"{name} of {L2_BATCH} bunny pairs",
+                            lambda: fn(srcs, tgts, **kw),
+                            profile=name.startswith("SVR"))
+        log(f"  {fig['ms'] / L2_BATCH:.2f} ms per pair")
+        head = l2_cpu(lambda: fn(srcs[:L2_BATCH_CPU], tgts[:L2_BATCH_CPU],
+                                 **kw, **cpu))
+        for i, r in enumerate(res):
+            rot = se3_op.euler2mat(*angs[i]).double().numpy()
+            l2_rigid_check(f"{name} pair {i}", r, rot, np.zeros(3),
+                           head[i] if i < L2_BATCH_CPU else None,
+                           float(np.ptp(tgts[i], 0).max()))
+
+    big_src, big_tgt, _ = large_clouds(dev)
+    w = np.random.default_rng(12).uniform(0.2, 1.0, len(big_src)) \
+        .astype(np.float32)
+    gt_ifgt, _ = l2_timed(
+        f"IFGT build, {N_LARGE:,} points, h {IFGT_H:g}, eps {IFGT_EPS:g}",
+        lambda: gauss_transform.GaussTransform(big_src, IFGT_H, IFGT_EPS,
+                                               method="ifgt"))
+    out, _ = l2_timed(f"IFGT compute at {N_LARGE:,} targets",
+                      lambda: gt_ifgt.compute(big_tgt, w), profile=True)
+    exact = gauss_transform.GaussTransform(big_src, IFGT_H).compute(big_tgt,
+                                                                    w)
+    err = float((out.double() - exact.double()).abs().max()) / float(w.sum())
+    cpu_out = l2_cpu(lambda: gauss_transform.GaussTransform(
+        big_src, IFGT_H, IFGT_EPS, method="ifgt", **cpu).compute(
+            big_tgt[:IFGT_CPU_TARGETS], w))
+    agree = float((out[:IFGT_CPU_TARGETS].cpu().double()
+                   - cpu_out.double()).abs().max()) / float(w.sum())
+    log(f"  IFGT against exact: {err:.2e} of sum|w| (bound "
+        f"{IFGT_EPS + 2e-6:g}); card vs CPU {agree:.2e} of sum|w|; "
+        f"{gt_ifgt._impl._cluster.centers.shape[0]} clusters, order "
+        f"{gt_ifgt._impl._p}")
+    if not err <= IFGT_EPS + 2e-6:
+        raise AssertionError("IFGT misses its error bound")
+    if not agree <= 1e-5:
+        raise AssertionError("IFGT: card and CPU runs part")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5101,6 +5327,7 @@ def main() -> int:
                         (run_multistart_pyramids, (dev, launches)),
                         (run_callbacks, (dev, launches)),
                         (run_nonrigid, (dev, launches)),
+                        (run_l2dist, (dev, launches)),
                         (run_sharded_one_rank, (dev, launches, shared)),
                         (run_mesh_on_one_card, (dev, launches, shared))):
         t0 = time.perf_counter()

@@ -2,8 +2,9 @@
 
 ``Direct`` and ``GaussTransform`` keep the reference's constructor
 signature (h, eps, sw_h). The exact transform (ops/gausstransform.py) is
-the method; ``eps`` and ``sw_h`` are accepted and unused. Results are
-tensors on the port's device.
+the default method; ``method="ifgt"`` takes the eps-approximate Improved
+Fast Gauss Transform (ops/ifgt.py), to which ``eps`` goes; ``sw_h`` is
+accepted and unused. Results are tensors on the port's device.
 """
 
 from __future__ import annotations
@@ -39,22 +40,23 @@ class GaussTransform:
     Args:
         source: Source points.
         h: Bandwidth: exp(-d^2 / h^2).
-        eps, sw_h: Accepted for the reference's signature; unused.
-        method: 'exact'. The reference's 'ifgt' is not ported yet.
+        eps: IFGT target error (method='ifgt' only).
+        sw_h: Accepted for the reference's signature; unused.
+        method: 'exact' (default) or 'ifgt' (:class:`ops.ifgt.Ifgt`).
         device: Device to run on (default ``config.device``).
     """
 
     def __init__(self, source, h: float, eps: float = 1.0e-4,
                  sw_h: float = 0.01, method: str = "exact", device=None):
-        del eps, sw_h
+        del sw_h
         if method == "ifgt":
-            raise NotImplementedError(
-                "method='ifgt' is not ported to probreg_tpu_torch yet "
-                "(ROADMAP.md, Queue 1 item 8); use method='exact' or "
-                "probreg_tpu.gauss_transform")
-        if method != "exact":
+            from .ops.ifgt import Ifgt
+
+            self._impl = Ifgt(source, h, eps, device=device)
+        elif method == "exact":
+            self._impl = Direct(source, h, device=device)
+        else:
             raise ValueError(f"unknown method {method!r}")
-        self._impl = Direct(source, h, device=device)
 
     def compute(self, target,
                 weights: Optional[object] = None) -> torch.Tensor:
@@ -68,5 +70,7 @@ class GaussTransform:
         if weights.dim() == 1:
             return impl.compute(target, weights)
         if weights.dim() == 2:
-            return impl.compute(target, weights.T).T
+            if isinstance(impl, Direct):
+                return impl.compute(target, weights.T).T
+            return torch.stack([impl.compute(target, w) for w in weights])
         raise ValueError("weights.ndim must be 1 or 2.")

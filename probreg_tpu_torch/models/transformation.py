@@ -3,9 +3,11 @@
 Parameters are tensors on one device. ``transform`` is the user-facing call
 (numpy, tensors or Open3D clouds in, a tensor out); ``_transform`` works on
 tensors already on the transformation's device. The nonrigid models are
-CPD's (a dense Gram matrix, or its low-rank Nystrom factors) and BCPD's
-combined transformation; like the reference's, each nonrigid displacement
-field is defined at the source points it was fitted to, row by row.
+CPD's (a dense Gram matrix, or its low-rank Nystrom factors), BCPD's
+combined transformation and the thin-plate spline of the L2-distance
+registrations; like the reference's, each nonrigid CPD or BCPD
+displacement field is defined at the source points it was fitted to, row
+by row, while the thin-plate spline moves any points.
 """
 
 from __future__ import annotations
@@ -170,3 +172,74 @@ class CombinedTransformation(Transformation):
     def __repr__(self):
         return (f"CombinedTransformation(rigid_trans={self.rigid_trans!r}, "
                 f"v={self.v})")
+
+
+def tps_design(landmarks: torch.Tensor, control_pts: torch.Tensor, kfn):
+    """The TPS basis of ``landmarks`` and the bending kernel (reference
+    transformation.py:241-253).
+
+    ``basis`` is [1, landmarks, U(landmarks, control_pts) pp] and
+    ``kernel`` is pp^T U(control_pts, control_pts) pp, where pp, the
+    columns of U past d + 1 of the full SVD of [1, control_pts], is an
+    orthonormal basis of the null space of the control points' design
+    matrix. Those columns belong to zero singular values, so any
+    orthonormal basis of that space is as good and two SVDs may return
+    different ones: the nonrigid weights v are coordinates in this basis
+    (``interop.tps_from_reference`` carries them across).
+    """
+    pm = torch.cat([landmarks.new_ones((landmarks.shape[0], 1)), landmarks],
+                   1)
+    pp = null_basis(control_pts)
+    kk = kfn(control_pts, control_pts)
+    uu = kfn(landmarks, control_pts)
+    return torch.cat([pm, uu @ pp], 1), pp.T @ kk @ pp
+
+
+def null_basis(control_pts: torch.Tensor) -> torch.Tensor:
+    """pp of :func:`tps_design`: the (N, N - d - 1) null-space basis of
+    [1, control_pts] that the weights v are expressed in."""
+    n, d = control_pts.shape
+    pn = torch.cat([control_pts.new_ones((n, 1)), control_pts], 1)
+    return torch.linalg.svd(pn, full_matrices=True)[0][:, d + 1:]
+
+
+class TPSTransformation(Transformation):
+    """Thin-plate-spline transformation x -> [1, x, U(x, c) pp] [a; v]
+    (reference transformation.py:220): ``a`` (d + 1, d) is the affine
+    part, ``v`` (N - d - 1, d) the nonrigid weights in the null-space basis
+    pp of the N control points ``control_pts`` (see :func:`tps_design`).
+    ``kernel`` is a callable U(x, y), or "auto" for the thin-plate kernel
+    of the points' dimension."""
+
+    def __init__(self, a, v, control_pts, kernel="auto", device=None):
+        self.device = _device_of(device, a, v, control_pts)
+        self.a = _param(a, self.device)
+        self.v = _param(v, self.device)
+        self.control_pts = _param(control_pts, self.device)
+        self._kernel = kernel
+
+    def _kfn(self, x, y):
+        if callable(self._kernel):
+            return self._kernel(x, y)
+        from ..ops import pairwise
+
+        if x.shape[1] == 2:
+            return pairwise.tps_kernel_2d(x, y)
+        return pairwise.tps_kernel_3d(x, y)
+
+    def prepare(self, landmarks):
+        """(basis, kernel) of ``landmarks`` (reference
+        transformation.py:241)."""
+        return tps_design(_param(landmarks, self.device), self.control_pts,
+                          self._kfn)
+
+    def transform_basis(self, basis):
+        return basis @ torch.cat([self.a, self.v], 0)
+
+    def _transform(self, points):
+        basis, _ = self.prepare(points)
+        return self.transform_basis(basis)
+
+    def __repr__(self):
+        return (f"TPSTransformation(a={self.a}, v={self.v}, "
+                f"control_pts={self.control_pts})")

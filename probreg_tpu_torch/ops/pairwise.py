@@ -26,6 +26,23 @@ def sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x2 + y2 - 2.0 * (x @ y.T), min=0.0)
 
 
+def sqdist_batch(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(B, M, N) squared distances of (B, M, D) and (B, N, D): ``sqdist``
+    pair by pair, each pair centred on its own joint mean."""
+    cen = (x.sum(1) + y.sum(1)) / (x.shape[1] + y.shape[1])
+    x = x - cen[:, None, :]
+    y = y - cen[:, None, :]
+    x2 = (x * x).sum(-1)[:, :, None]
+    y2 = (y * y).sum(-1)[:, None, :]
+    return torch.clamp(x2 + y2 - 2.0 * (x @ y.transpose(1, 2)), min=0.0)
+
+
+def squared_kernel(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Alias of :func:`sqdist` under the reference's C++ name (reference
+    pairwise.py:58)."""
+    return sqdist(x, y)
+
+
 def rbf_kernel(x: torch.Tensor, y: torch.Tensor, beta: float) -> torch.Tensor:
     """exp(-d^2 / (2 beta)) Gram matrix (reference pairwise.py:63; beta
     enters linearly, it is the variance)."""
@@ -36,6 +53,19 @@ def inverse_multiquadric_kernel(x: torch.Tensor, y: torch.Tensor,
                                 c: float = 1.0) -> torch.Tensor:
     """1 / sqrt(d^2 + c) Gram matrix (reference pairwise.py:86), BCPD's G."""
     return 1.0 / torch.sqrt(sqdist(x, y) + c)
+
+
+def tps_kernel_2d(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """d^2 log(d) thin-plate-spline kernel in 2-D (reference pairwise.py:72),
+    0 at d^2 <= 1e-6: the floor of the expanded form's f32 noise."""
+    d2 = sqdist(x, y)
+    safe = torch.clamp(d2, min=1e-6)
+    return torch.where(d2 > 1e-6, safe * torch.log(torch.sqrt(safe)), 0.0)
+
+
+def tps_kernel_3d(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """-d thin-plate-spline kernel in 3-D (reference pairwise.py:81)."""
+    return -torch.sqrt(sqdist(x, y))
 
 
 def sqdist_diff(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -414,10 +414,12 @@ def registration_gmmtree_sharded(*args, **kwargs):
 
 
 def registration_gmmreg_sharded(*args, **kwargs):
-    """Not ported yet (ROADMAP.md, Queue 1 item 12; after item 8)."""
+    """Not ported yet (ROADMAP.md, Queue 1 item 12.4; the single-card
+    L2-distance family it shards is `l2dist_regs`)."""
     _refuse("registration_gmmreg_sharded")
 
 
 def registration_svr_sharded(*args, **kwargs):
-    """Not ported yet (ROADMAP.md, Queue 1 item 12; after item 8)."""
+    """Not ported yet (ROADMAP.md, Queue 1 item 12.4; the single-card
+    L2-distance family it shards is `l2dist_regs`)."""
     _refuse("registration_svr_sharded")

@@ -155,3 +155,28 @@ def config_from_reference(fields: Mapping[str, Any]) -> "_config.Config":
 
 # JAX Config fields that the port keeps under another name.
 _RENAMED = {"cpd_stash_max_bytes": "stash_max_bytes"}
+
+
+def tps_from_reference(params: Mapping[str, Any], device=None):
+    """Port TPSTransformation from a JAX one's parameters as numpy.
+
+    ``params`` holds ``a`` (d + 1, d), ``v`` (N - d - 1, d),
+    ``control_pts`` (N, d) and ``null_basis`` (N, N - d - 1): the columns
+    past d + 1 of U of the reference's own full SVD of [1, control_pts]
+    (``jnp.linalg.svd(pn, full_matrices=True)[0][:, d + 1:]``), the basis
+    its ``v`` is expressed in. Those columns belong to zero singular
+    values, so the port's SVD may return another orthonormal basis pp of
+    the same null space; ``v`` is carried across as pp^T pp_ref v_ref,
+    which moves every point exactly as the reference's does (both bases
+    span one space, so pp pp^T pp_ref = pp_ref).
+    """
+    from ..models.transformation import TPSTransformation, null_basis
+
+    dev = _config.resolve_device(device)
+    f64 = dict(dtype=torch.float64, device=dev)
+    ctrl = torch.as_tensor(np.asarray(params["control_pts"]), **f64)
+    pp = null_basis(ctrl.to(_config.config.dtype)).double()
+    v = pp.T @ (torch.as_tensor(np.asarray(params["null_basis"]), **f64)
+                @ torch.as_tensor(np.asarray(params["v"]), **f64))
+    return TPSTransformation(np.asarray(params["a"]), v.to(_config.config.dtype),
+                             ctrl.to(_config.config.dtype), device=dev)

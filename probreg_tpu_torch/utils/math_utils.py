@@ -64,6 +64,18 @@ def rbf_kernel(x, y, beta: float) -> torch.Tensor:
     return pairwise.rbf_kernel(x, y, beta)
 
 
+def tps_kernel(x, y) -> torch.Tensor:
+    """The thin-plate-spline kernel of the points' dimension (reference
+    math_utils.py:100): ``tps_kernel_2d`` or ``tps_kernel_3d``."""
+    if x.shape[1] != y.shape[1]:
+        raise ValueError("x and y must have same dimensions.")
+    if x.shape[1] == 2:
+        return pairwise.tps_kernel_2d(x, y)
+    if x.shape[1] == 3:
+        return pairwise.tps_kernel_3d(x, y)
+    raise ValueError("Invalid dimension of x: %d." % x.shape[1])
+
+
 def inverse_multiquadric_kernel(x, y, c: float = 1.0) -> torch.Tensor:
     return pairwise.inverse_multiquadric_kernel(x, y, c)
 

@@ -5,8 +5,10 @@ Euler angles (transforms3d's 'sxyz' default, as in the reference), the
 geodesic angle between two rotations, the twist helpers of FilterReg's
 point-to-plane M-step (``skew``, ``twist_trans``, ``twist_mul``) and the
 quaternion helpers of the multistart orientation grid (``quat2mat``,
-``quat2mat_np``, ``mat2quat``). The jacobians ``diff_rot_from_quaternion``
-and ``diff_x_from_twist`` come with the L2-distance family.
+``quat2mat_np``, ``mat2quat``), which the rigid L2-distance cost also
+differentiates through. The jacobians ``diff_rot_from_quaternion`` and
+``diff_x_from_twist`` come with the rest of FilterReg (ROADMAP, Queue 1
+item 6): the L2-distance costs take their gradients from autograd.
 """
 
 from __future__ import annotations
@@ -118,12 +120,13 @@ def _quat_rows(w, x, y, z, s):
 
 def quat2mat(q) -> torch.Tensor:
     """Rotation matrix from a quaternion (w, x, y, z), normalized inside
-    (transforms3d's quat2mat, reference se3_op.py:80)."""
+    (transforms3d's quat2mat, reference se3_op.py:80). A (..., 4) stack of
+    quaternions gives a (..., 3, 3) stack of matrices."""
     q = _t(q)
-    w, x, y, z = q.unbind(0)
+    w, x, y, z = q.unbind(-1)
     s = 2.0 / torch.clamp(w * w + x * x + y * y + z * z, min=_EPS)
-    return torch.stack([torch.stack(row)
-                        for row in _quat_rows(w, x, y, z, s)])
+    return torch.stack([torch.stack(row, -1)
+                        for row in _quat_rows(w, x, y, z, s)], -2)
 
 
 def quat2mat_np(q) -> np.ndarray:

@@ -1961,3 +1961,129 @@ def test_chunked_callbacks_equal_chunk_one_on_the_card(dev):
             assert chunked.FETCHES == math.ceil(25 / chunk)
         assert len(seen[1]) == len(seen[10]) == 25
         assert all(torch.equal(a, b) for a, b in zip(seen[1], seen[10]))
+
+
+# ------------------------------------------------ the L2-distance family
+#
+# Every entry point of GMMReg / SVR and the IFGT on the card against the
+# port's CPU run of the same inputs: the same algorithm on other BLAS, so
+# rigid results within 1e-3 rad and 1e-3 of the extent, TPS moved points
+# within 1e-3 of the extent, the IFGT within 1e-5 sum|w|. The GMM's seed
+# centres come from a CPU generator, the same on both devices.
+
+_DATA = __import__("os").path.join(
+    __import__("os").path.dirname(__file__), "..", "data")
+
+
+def _bunny_pair(deg=(0.0, 0.0, 10.0)):
+    from probreg_tpu_torch.utils import io, se3_op
+
+    src = io.voxel_down_sample(
+        io.read_point_cloud(f"{_DATA}/bunny.pcd"), 0.005).astype(np.float32)
+    rot = se3_op.euler2mat(*np.deg2rad(deg)).numpy()
+    return src, (src @ rot.T).astype(np.float32)
+
+
+def _fish():
+    return tuple(np.loadtxt(f"{_DATA}/fish_{k}.txt").astype(np.float32)
+                 for k in ("source", "target"))
+
+
+def _rigid_agree(card, cpu, extent):
+    from probreg_tpu_torch.utils import se3_op
+
+    ang = float(se3_op.rotation_angle(card.rot.cpu().double(),
+                                      cpu.rot.double()))
+    assert ang <= 1e-3, ang
+    assert float((card.t.cpu() - cpu.t).abs().max()) <= 1e-3 * extent
+
+
+_L2_RIGID = {
+    "svr": ("registration_svr", {}),
+    "svr_scipy": ("registration_svr", dict(optimizer="scipy")),
+    "gmmreg": ("registration_gmmreg", dict(n_gmm_components=200)),
+    "gmmreg_scipy": ("registration_gmmreg",
+                     dict(n_gmm_components=200, optimizer="scipy")),
+    "gmmreg_10_starts": ("registration_gmmreg",
+                         dict(n_gmm_components=200, n_starts=10)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_L2_RIGID))
+def test_l2dist_rigid_on_the_card_matches_the_cpu(dev, case):
+    from probreg_tpu_torch import l2dist_regs as pl
+
+    name, kw = _L2_RIGID[case]
+    deg = (0.0, 0.0, 150.0) if "starts" in case else (0.0, 0.0, 10.0)
+    src, tgt = _bunny_pair(deg)
+    card = getattr(pl, name)(src, tgt, **kw)
+    assert card.rot.device.type == "cuda"
+    cpu = getattr(pl, name)(src, tgt, **kw, device="cpu")
+    _rigid_agree(card, cpu, float(np.ptp(tgt, 0).max()))
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("registration_svr", dict(opt_maxiter=30)),
+    ("registration_gmmreg", dict(n_gmm_components=40)),
+])
+def test_l2dist_tps_on_the_card_matches_the_cpu(dev, name, kw):
+    from probreg_tpu_torch import l2dist_regs as pl
+
+    src, tgt = _fish()
+    card = getattr(pl, name)(src, tgt, "nonrigid", **kw)
+    cpu = getattr(pl, name)(src, tgt, "nonrigid", **kw, device="cpu")
+    moved = card.transform(src).cpu()
+    assert float((moved - cpu.transform(src)).abs().max()) \
+        <= 1e-3 * float(np.ptp(tgt, 0).max())
+
+
+@pytest.mark.parametrize("name,ragged,kw", [
+    ("registration_svr_batch", False, dict(maxiter=2)),
+    ("registration_gmmreg_batch", True,
+     dict(n_gmm_components=100, n_starts=4)),
+])
+def test_l2dist_batches_on_the_card_match_the_cpu(dev, name, ragged, kw):
+    from probreg_tpu_torch import l2dist_regs as pl
+    from probreg_tpu_torch.utils import se3_op
+
+    src = _bunny_pair()[0]
+    angs = np.random.default_rng(0).uniform(-np.pi / 12, np.pi / 12, (3, 3))
+    srcs = [src, src[::2], src[::3]] if ragged else [src] * 3
+    tgts = [s @ se3_op.euler2mat(*a).numpy().T for s, a in zip(srcs, angs)]
+    if not ragged:
+        srcs, tgts = np.stack(srcs), np.stack(tgts).astype(np.float32)
+    card = getattr(pl, name)(srcs, tgts, **kw)
+    cpu = getattr(pl, name)(srcs, tgts, **kw, device="cpu")
+    for c, p, t in zip(card, cpu, tgts):
+        _rigid_agree(c, p, float(np.ptp(t, 0).max()))
+
+
+def test_bfgs_on_the_card_matches_the_cpu(dev):
+    from probreg_tpu_torch.ops import bfgs
+
+    def rosen(x):
+        return (100.0 * (x[:, 1:] - x[:, :-1] ** 2) ** 2
+                + (1 - x[:, :-1]) ** 2).sum(1)
+
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(-1.5, 1.5, (6, 4)))
+    card = bfgs.minimize(rosen, x0.to(dev), maxiter=30)
+    cpu = bfgs.minimize(rosen, x0, maxiter=30)
+    assert torch.equal(card.status.cpu(), cpu.status)
+    assert torch.equal(card.nit.cpu(), cpu.nit)
+    assert float((card.x.cpu() - cpu.x).abs().max()) <= 1e-8
+
+
+def test_ifgt_on_the_card_matches_the_cpu_and_exact(dev):
+    from probreg_tpu_torch import gauss_transform as pgt
+
+    g = np.random.default_rng(12)
+    src = g.uniform(-1, 1, (20000, 3)).astype(np.float32)
+    tgt = g.uniform(-1, 1, (5000, 3)).astype(np.float32)
+    w = g.uniform(0.2, 1.0, 20000).astype(np.float32)
+    card = pgt.GaussTransform(src, 0.4, 1e-4, method="ifgt").compute(tgt, w)
+    assert card.device.type == "cuda"
+    cpu = pgt.GaussTransform(src, 0.4, 1e-4, method="ifgt",
+                             device="cpu").compute(tgt, w)
+    exact = pgt.GaussTransform(src, 0.4).compute(tgt, w)
+    assert float((card.cpu() - cpu).abs().max()) <= 1e-5 * w.sum()
+    assert float((card - exact).abs().max()) <= (1e-4 + 2e-6) * w.sum()

@@ -212,8 +212,16 @@ def test_facade_matches_reference():
     _close(ones, jgtf.GaussTransform(src, 0.5).compute(tgt))
     _close(pgtf.Direct(src, 0.5, device="cpu").compute(tgt, w),
            jgtf.Direct(src, 0.5).compute(tgt, w))
-    with pytest.raises(NotImplementedError, match="ifgt.*Queue 1 item 8"):
-        pgtf.GaussTransform(src, 0.5, method="ifgt", device="cpu")
+    # method="ifgt": the reference's facade, IFGT against IFGT within
+    # 1e-5 sum|w| (tests/test_torch_ifgt.py holds the transform itself).
+    ref3 = jgtf.GaussTransform(src, 0.5, method="ifgt").compute(tgt, w.T)
+    out3 = pgtf.GaussTransform(src, 0.5, method="ifgt",
+                               device="cpu").compute(tgt, w.T)
+    assert out3.shape == ref3.shape == (5, 90)
+    np.testing.assert_allclose(out3.numpy(), np.asarray(ref3),
+                               atol=1e-5 * float(np.abs(w).sum(0).max()))
+    with pytest.raises(ValueError, match="unknown method"):
+        pgtf.GaussTransform(src, 0.5, method="fgt", device="cpu")
 
 
 def test_wrapper_checks():

@@ -41,6 +41,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import probreg_tpu_torch.parallel.sharded\n"
         "import probreg_tpu_torch.parallel.sharded2d\n"
         "import probreg_tpu_torch.parallel._spmd\n"
+        "import probreg_tpu_torch.l2dist_regs, probreg_tpu_torch.features\n"
+        "import probreg_tpu_torch.cost_functions\n"
+        "import probreg_tpu_torch.ops.bfgs, probreg_tpu_torch.ops.ifgt\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'probreg_tpu' or m.startswith('probreg_tpu.')]\n"
         "assert not bad, bad\n"
@@ -114,6 +117,39 @@ def test_pyramid_entry_points_without_cuda_raise():
     res = pyramid.registration_icp_pyramid(pts + 0.01, pts, maxiter=2,
                                            device="cpu")
     assert res.transformation.rot.device.type == "cpu"
+
+
+def test_l2dist_entry_points_without_cuda_raise():
+    """GMMReg, SVR, their batches and the IFGT run on the card by default:
+    without one they raise, and run on the CPU only when asked."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from probreg_tpu_torch import gauss_transform as pgt
+    from probreg_tpu_torch import l2dist_regs as pl
+
+    rng = np.random.default_rng(0)
+    pts = rng.random((40, 3)).astype(np.float32)
+    tgt = pts + np.float32(0.01)
+    calls = (
+        (pl.registration_svr, (pts, tgt), dict(opt_maxiter=3)),
+        (pl.registration_gmmreg, (pts, tgt),
+         dict(n_gmm_components=8)),
+        (pl.registration_svr_batch, (pts[None], tgt[None]),
+         dict(opt_maxiter=3)),
+        (pl.registration_gmmreg_batch, (pts[None], tgt[None]),
+         dict(n_gmm_components=8, opt_maxiter=3)),
+    )
+    for fn, args, kw in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(*args, **kw)
+        res = fn(*args, **kw, device="cpu")
+        res = res[0] if isinstance(res, list) else res
+        assert res.rot.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pgt.GaussTransform(pts, 0.5, method="ifgt")
+    out = pgt.GaussTransform(pts, 0.5, method="ifgt",
+                             device="cpu").compute(tgt)
+    assert out.shape == (40,) and out.device.type == "cpu"
 
 
 def test_kernel_sources_ship_with_the_package():

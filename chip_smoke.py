@@ -115,10 +115,36 @@ before it and read just after:
   rounds) and GaussTransform(method="ifgt") against the exact transform
   on the 150,000-point cloud (h 0.4, eps 1e-4): each against the truth and
   against the port's CPU run of the same inputs, with the second call's
-  time, BFGS iterations and host reads per solve and peak memory.
+  time, BFGS iterations and host reads per solve and peak memory;
+* BCPD batches through registration_bcpd_batch (no custom kernel on the
+  path: the reference's batch path reaches none): 16 pairs of
+  data/horse.ply[::4] turned by 8-10 degrees (lmd 10, gamma 0.1, maxiter
+  50, tol 0), 16 ragged horse pairs of 490-1,468 points turned alike, 8
+  ragged low-rank pairs of blobby_surface at 10,000-12,000 points (rank
+  64, maxiter 50, tol 1e-4), and 4 pairs x 10 starts (two turned 120
+  degrees about z; tol 0): one VI loop for all rows, the second call's
+  time, host reads and peak memory, one iteration split into the batched
+  solve and the E-step, each pair's NN-RMSE to its target against its
+  start, and at depth 6 the card against the CPU and each pair against
+  its single-pair call (to 8 times the CPU's f32-f64 spread: the VI
+  amplifies rounding);
+* the trackers: RigidTracker with CPD, FilterReg and ICP frame to frame
+  and CPD on a keyframe over a 30-frame sequence of bench.py's bunny
+  moving 2 degrees and 5 mm a frame (each world pose against the truth;
+  ICP one launch of its whole-loop kernel a frame, CPD and FilterReg one
+  at the cold first solve), and NonrigidTracker over 10 frames of a
+  deforming horse[::2] (tests/test_tracking.py's deformation), against a
+  cold registration_bcpd of each frame.
 
 Prints the card, a {"kernels": [...]} line and, last, {"ok": true, ...}.
 Exits non-zero without a CUDA device or when any phase fails.
+
+    python3 chip_smoke.py --bcpd-search-parent DIR
+
+times BCPD's single-pair searches (the 2,000-point horse pair of the
+multistart phase and the 100,000-point BCPD pyramid, 1 and 4 starts) of
+this checkout and of another checkout DIR, each in fresh processes,
+parent, this, this, parent.
 
     python3 chip_smoke.py --parent DIR
 
@@ -3463,14 +3489,7 @@ def run_multistart(dev, launches):
             if not max(errs) <= 5.0:
                 raise AssertionError(f"{name} {label}: registration wrong")
 
-    from probreg_tpu_torch.utils import io
-    horse = io.read_point_cloud(data_path("horse.ply")).astype(np.float32)
-    rng = np.random.default_rng(11)
-    b_src = horse[rng.choice(len(horse), N_BCPD_MS, replace=False)]
-    b_tgt = horse[rng.choice(len(horse), N_BCPD_MS, replace=False)]
-    cen = b_src.mean(0)
-    b_tgt = ((b_tgt - cen) @ truth.T.astype(np.float32) + cen).astype(
-        np.float32)
+    b_src, b_tgt = bcpd_search_pair()
     tgt_t = torch.as_tensor(b_tgt, device=dev)
     errs, rmses = {}, {}
     for n in (1, BCPD_MS_STARTS):
@@ -3492,6 +3511,82 @@ def run_multistart(dev, launches):
     # most of a misalignment, so the starts' scores lie close (PERF.md).
     if not rmses[BCPD_MS_STARTS] <= rmses[1]:
         raise AssertionError("BCPD: the search kept a worse start")
+
+
+def bcpd_search_pair():
+    """run_multistart's BCPD pair: two N_BCPD_MS-point samples of
+    data/horse.ply (seed 11), the target turned MS_TURN degrees about z
+    around the source's centroid."""
+    horse = horse_cloud()
+    rng = np.random.default_rng(11)
+    b_src = horse[rng.choice(len(horse), N_BCPD_MS, replace=False)]
+    b_tgt = horse[rng.choice(len(horse), N_BCPD_MS, replace=False)]
+    cen = b_src.mean(0)
+    return b_src, ((b_tgt - cen) @ z_rotation(MS_TURN).T.astype(np.float32)
+                   + cen).astype(np.float32)
+
+
+def bcpd_search_main():
+    """Print, as one JSON line, the second call's seconds of BCPD's
+    single-pair search: run_multistart's 2,000-point horse pair with 1 and
+    BCPD_MS_STARTS starts (lmd 10), and run_multistart_pyramids' BCPD
+    pyramid at N_BCPD_MS_PYR points with 1 and BCPD_MS_STARTS starts (run
+    by bcpd_search_in with a checkout's package first on the path)."""
+    from probreg_tpu_torch import bcpd, pyramid
+    from probreg_tpu_torch.utils import se3_op
+
+    b_src, b_tgt = bcpd_search_pair()
+    src = lopsided_surface(N_BCPD_MS_PYR, seed=0)
+    rot = se3_op.euler2mat(*np.deg2rad(MS_PYR_TURN)).numpy()
+    tgt = (src @ rot.T + np.float32([0.05, -0.03, 0.08])).astype(np.float32)
+    runs = {}
+    for n in (1, BCPD_MS_STARTS):
+        runs[f"horse {N_BCPD_MS}, {n} starts"] = lambda n=n: \
+            bcpd.registration_bcpd(b_src, b_tgt, n_starts=n, lmd=10.0)
+        runs[f"pyramid {N_BCPD_MS_PYR}, {n} starts"] = lambda n=n: \
+            pyramid.registration_bcpd_pyramid(src, tgt, n_starts=n,
+                                              levels=4, **BCPD_ARGS)
+    out = {}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+
+
+def bcpd_search_in(checkout):
+    """bcpd_search_main in a fresh process whose probreg_tpu_torch is
+    ``checkout``'s; {case: s}."""
+    checkout = os.path.abspath(checkout)
+    code = ("import importlib.util, sys\n"
+            f"sys.path.insert(0, {checkout!r})\n"
+            "spec = importlib.util.spec_from_file_location("
+            f"'smoke', {os.path.abspath(__file__)!r})\n"
+            "smoke = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(smoke)\n"
+            "smoke.bcpd_search_main()\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=checkout,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"BCPD search run in {checkout} failed:\n"
+                           f"{out.stdout[-3000:]}{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def bcpd_search_against_parent(parent) -> int:
+    """BCPD's single-pair searches of this checkout and of ``parent``, in
+    fresh processes, parent, this, this, parent: the seconds of each."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = [(label, bcpd_search_in(where)) for label, where in
+            (("parent", parent), ("this", here), ("this", here),
+             ("parent", parent))]
+    for case in runs[0][1]:
+        log(f"[BCPD search] {case}: " + ", ".join(
+            f"{label} {got[case]:.3f} s" for label, got in runs))
+    return 0
 
 
 def run_multistart_pyramids(dev, launches):
@@ -5269,6 +5364,407 @@ def run_l2dist(dev, launches):
         raise AssertionError("IFGT: card and CPU runs part")
 
 
+# BCPD batches (run_bcpd_batch) and the sequence trackers (run_tracking).
+BB_PAIRS = 16                     # the fixed and the ragged dense batch
+BB_TURN = 10.0                    # each pair turned by at most this (deg)
+# ... and at least this: a cloud turned less lies within about a point
+# spacing of itself, and no registration halves its NN-RMSE.
+BB_TURN_MIN = 8.0
+BB_STRIDES = (2, 3, 4, 6)         # horse[o::s]: 1,468 to 490 points
+BB_ARGS = dict(lmd=10.0, maxiter=50, tol=0.0, gamma=0.1)
+# The comparisons' depth. At 734 points the f32 VI parts from its f64 run
+# by >= 1.2e-4 of the extent by the time the kept state first moves
+# (gamma 0.1: 1.5e-4 at 6 iterations, 1.2e-2 at 12), so the card is held
+# to BB_SPREAD times the CPU's own f32-f64 spread (the rule of the
+# nonrigid phase) where that exceeds BB_AGREE.
+BB_DEPTH = dict(BB_ARGS, maxiter=6)
+BB_SPREAD = 8.0
+BB_AGREE = 1e-4                   # of the extent: card / CPU, batch / single
+BB_CPU_POINTS = 734               # the largest pair the CPU runs
+BB_MOVED = 1e-2                   # of the extent: each compared pair moved
+BB_GAIN = 0.5                     # NN-RMSE after / before, test_batch.py
+BB_FIXED_STRIDE = 4               # horse[::4]: 734 points
+BB_LOWRANK_SIZES = tuple(10_000 + 2_000 * i // 7 for i in range(8))
+BB_LOWRANK_ARGS = dict(rank=64, maxiter=50, tol=1e-4)
+BB_LOWRANK_GAIN = 0.9
+BB_SEARCH_PAIRS, BB_SEARCH_TURN = 4, 120.0
+BB_SEARCH_ARGS = dict(n_starts=10, lmd=10.0, maxiter=50, tol=0.0)
+TRACK_FRAMES = 30
+TRACK_STEP = (2.0, 0.005)         # degrees and metres a frame
+TRACK_ROT_DEG, TRACK_T_FRAC = 1.0, 0.01
+TRACK_ARGS = dict(maxiter=50, tol=1e-6)
+# FilterReg's default variance floor (1e-4, a 1 cm sigma) is ~7 % of the
+# bunny: a solve cannot land closer than that allows, and 29 of them
+# drift; the floor a user tracking a 15 cm object would set.
+TRACK_FRG = dict(min_sigma2=1e-6)
+NR_FRAMES = 10
+NR_ARGS = dict(rank=48, maxiter=30, tol=1e-4, lmd=10.0)
+# tests/test_tracking.py's aggregate bar: the mean NN-RMSE of the warm
+# frames (the second on) below this times the mean at the start. Its
+# per-frame bar (0.7) it calls rounding-sensitive: the result is the best
+# state visited on a chaotic f32 VI trajectory.
+NR_GAIN = 0.45
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def horse_cloud():
+    from probreg_tpu_torch.utils import io
+
+    return io.read_point_cloud(data_path("horse.ply")).astype(np.float32)
+
+
+def turns(rng, n, deg):
+    """n rotations, each by an angle of BB_TURN_MIN to ``deg`` degrees
+    about an axis uniform on the sphere (Rodrigues' formula)."""
+    out = []
+    for _ in range(n):
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        ang = np.deg2rad(rng.uniform(BB_TURN_MIN, deg))
+        k = np.array([[0.0, -axis[2], axis[1]], [axis[2], 0.0, -axis[0]],
+                      [-axis[1], axis[0], 0.0]])
+        out.append(np.eye(3) + np.sin(ang) * k
+                   + (1.0 - np.cos(ang)) * (k @ k))
+    return out
+
+
+def nn_rmse(moved, tgt, dev):
+    from probreg_tpu_torch.utils import math_utils as mu
+
+    return float(mu.compute_rmse(torch.as_tensor(moved, device=dev),
+                                 torch.as_tensor(tgt, device=dev)))
+
+
+def bcpd_batch_cases(seed=17):
+    """(name, sources, targets, registration kwargs, quality bar) of the
+    batch phase: 16 pairs of horse[::4] turned within +- BB_TURN (a fixed
+    batch); 16 horse pairs horse[o::s], s in BB_STRIDES, o in 0..3,
+    turned alike (ragged); 8 blobby_surface pairs of 10,000-12,000 points
+    turned (3, -2, 5) degrees with bench_bcpd_guarded.py's deformation at
+    half its amplitude (ragged, low rank); 4 pairs of horse[::4], the
+    first two turned BB_SEARCH_TURN about z (the batch search)."""
+    from probreg_tpu_torch.utils import se3_op
+    from probreg_tpu_torch.utils.datagen import blobby_surface
+
+    horse = horse_cloud()
+    rng = np.random.default_rng(seed)
+    quarter = horse[::BB_FIXED_STRIDE]
+    fixed = [quarter] * BB_PAIRS
+    ragged = [horse[o::s] for s in BB_STRIDES for o in range(4)][:BB_PAIRS]
+    rot = se3_op.euler2mat(*np.deg2rad([3.0, -2.0, 5.0])).double().numpy()
+    lowrank = [blobby_surface(n, seed=20 + i)
+               for i, n in enumerate(BB_LOWRANK_SIZES)]
+    low_t = [((s + 0.01 * np.sin(3.0 * s[:, :1]) * np.array([1.0, 0.5, -0.3]))
+              @ rot.T).astype(np.float32) for s in lowrank]
+    big = [z_rotation(BB_SEARCH_TURN)] * 2 + turns(rng, BB_SEARCH_PAIRS - 2,
+                                                    BB_TURN)
+    search = [quarter] * BB_SEARCH_PAIRS
+
+    def moved(srcs, rots):
+        return [(s @ r.T).astype(np.float32) for s, r in zip(srcs, rots)]
+
+    return (("fixed dense", np.stack(fixed),
+             np.stack(moved(fixed, turns(rng, BB_PAIRS, BB_TURN))), BB_ARGS,
+             BB_GAIN),
+            ("ragged dense", ragged, moved(ragged, turns(rng, BB_PAIRS,
+                                                           BB_TURN)),
+             BB_ARGS, BB_GAIN),
+            ("ragged low-rank", lowrank, low_t, BB_LOWRANK_ARGS,
+             BB_LOWRANK_GAIN),
+            ("search", np.stack(search), np.stack(moved(search, big)),
+             BB_SEARCH_ARGS, BB_LOWRANK_GAIN))
+
+
+def timed_batch(fn, dev):
+    """fn's second call: (result, wall ms ending in a synchronize, the VI
+    loop's host reads, peak MiB above the memory held before)."""
+    from probreg_tpu_torch import bcpd
+
+    fn()  # warm
+    sync(dev)
+    bcpd.reset_reads()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = ((torch.cuda.max_memory_allocated() - held) / 2 ** 20
+            if dev.type == "cuda" else float("nan"))
+    return out, wall, bcpd.READS, peak
+
+
+def log_batch_split(srcs, tgts, dev):
+    """One iteration of a dense batch's loop split by CUDA events: the
+    batched M x M solve of the M-step and the E-step, at the batch's
+    padded shapes (each median of 5)."""
+    from probreg_tpu_torch import bcpd
+    from probreg_tpu_torch.ops import lowrank
+    from probreg_tpu_torch.utils import interop
+
+    src, smask = interop.pad_ragged(list(srcs), device=dev)
+    tgt, tmask = interop.pad_ragged(list(tgts), device=dev)
+    b, m = smask.shape
+    gmat = bcpd._gram_rows(src, None)
+    shifted = 10.0 * torch.eye(m, device=dev) + gmat * 0.5
+    ys_t, xs_t = src.transpose(1, 2), tgt.transpose(1, 2)
+    v_chan = torch.cat([xs_t, torch.ones_like(xs_t[:, :1]),
+                        (xs_t * xs_t).sum(1, keepdim=True)], 1)
+    sigma2 = torch.full((b,), 0.1, device=dev)
+    solve_ms = timed(lambda: lowrank.solve(shifted, gmat), 5)
+    estep_ms = timed(lambda: bcpd._estep_all(
+        ys_t, xs_t, v_chan, smask / m, sigma2, 0.0, 4096,
+        tmask[:, None, :]), 5)
+    log(f"  one iteration at ({b}, {m}, {m}): the batched solve "
+        f"{solve_ms:.3f} ms, the E-step {estep_ms:.3f} ms (CUDA events)")
+
+
+SOLVE_SHAPES = ((16, 734), (16, 1468), (40, 734), (4, 1600), (4, 1800),
+                (4, 2000), (1, 2000))
+
+
+def log_solve_shapes(dev):
+    """The M-step's (B, M, M) solve with M right-hand sides at the shapes
+    of this phase and of the 2,000-point search: torch.linalg.solve_ex of
+    the batch against the same systems one at a time (CUDA events, each
+    median of 3)."""
+    for b, m in SOLVE_SHAPES:
+        g = torch.rand((b, m, m), device=dev)
+        a = 10.0 * torch.eye(m, device=dev) + g * 0.5
+        batched = timed(lambda: torch.linalg.solve_ex(a, g), 3)
+        single = timed(lambda: [torch.linalg.solve_ex(x, y)
+                                for x, y in zip(a, g)], 3)
+        log(f"  solve ({b}, {m}, {m}): batched {batched:.3f} ms, one at a "
+            f"time {single:.3f} ms")
+
+
+def moved_points(res, srcs, dev):
+    return [r.transform(torch.as_tensor(s, device=dev)).double().cpu()
+            .numpy() for r, s in zip(res, srcs)]
+
+
+def run_bcpd_batch(dev, launches):
+    """registration_bcpd_batch on the cases of bcpd_batch_cases: one VI
+    loop for all rows (B pairs, or B pairs x S starts), no custom kernel
+    (the reference's batch path reaches none). Each second call's wall ms,
+    host reads and peak MiB; each pair's NN-RMSE to its target below the
+    case's bar times its start; the dense batches also at BB_DEPTH against
+    the same batch on the CPU (its pairs of BB_CPU_POINTS points or fewer)
+    and each pair against its own single-pair call, transform(source)
+    within the larger of BB_AGREE and BB_SPREAD times the CPU's own f32-f64
+    spread of the extent; the search timed against 10 single-start calls
+    of the same batch; the M-step's solve batched against one at a time."""
+    from probreg_tpu_torch import bcpd
+    from probreg_tpu_torch import config as pcfg
+
+    if dev.type == "cuda":
+        log_solve_shapes(dev)
+    for name, srcs, tgts, kw, gain in bcpd_batch_cases():
+        b = len(srcs)
+        sizes = sorted({len(s) for s in srcs})
+        reset_launches()
+        res, wall, reads, peak = timed_batch(
+            lambda: bcpd.registration_bcpd_batch(srcs, tgts, device=dev,
+                                                 **kw), dev)
+        expect_launches(f"BCPD batch {name}")
+        before = [nn_rmse(s, t, dev) for s, t in zip(srcs, tgts)]
+        after = [nn_rmse(m, t, dev) for m, t in
+                 zip(moved_points(res, srcs, dev), tgts)]
+        ratio = [a / max(s, 1e-30) for a, s in zip(after, before)]
+        rows = b * kw.get("n_starts", 1)
+        log(f"[BCPD batch] {name}: {b} pairs of {sizes[0]}-{sizes[-1]} "
+            f"points, {kw}: {rows} VI rows in one loop, second call "
+            f"{wall:.1f} ms ({wall / b:.2f} ms a pair), {reads} host reads, "
+            f"peak {peak:.1f} MiB; NN-RMSE after / before max "
+            f"{max(ratio):.3f} median {np.median(ratio):.3f}")
+        check = range(b) if kw.get("n_starts", 1) == 1 else range(2)
+        if not all(ratio[i] < gain for i in check):
+            raise AssertionError(f"BCPD batch {name}: a pair did not "
+                                 f"register (ratios {ratio})")
+        if kw is BB_SEARCH_ARGS:
+            single = dict(kw, n_starts=1)
+            t0 = time.perf_counter()
+            for _ in range(kw["n_starts"]):
+                bcpd.registration_bcpd_batch(srcs, tgts, device=dev,
+                                             **single)
+            sync(dev)
+            log(f"  the search against {kw['n_starts']} single-start "
+                f"calls of the batch: {wall:.1f} ms against "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        if kw is not BB_ARGS:
+            continue
+        if dev.type == "cuda":
+            log_batch_split(srcs, tgts, dev)
+        card = moved_points(bcpd.registration_bcpd_batch(
+            srcs, tgts, device=dev, **BB_DEPTH), srcs, dev)
+        one = [moved_points([bcpd.registration_bcpd(
+            s, t, device=dev, **BB_DEPTH)], [s], dev)[0]
+            for s, t in zip(srcs, tgts)]
+        ext = [float(np.ptp(t, 0).max()) for t in tgts]
+        d_one = max(np.abs(c - o).max() / e for c, o, e in zip(card, one, ext))
+        moved_by = min(np.abs(c - s).max() / e
+                       for c, s, e in zip(card, srcs, ext))
+        # The CPU solves M x M systems one pair at a time: the ragged
+        # batch's CPU run takes the pairs of BB_CPU_POINTS points or fewer
+        # (the same sub-batch on both devices).
+        sub = [i for i, s in enumerate(srcs) if len(s) <= BB_CPU_POINTS]
+        s_sub, t_sub = [srcs[i] for i in sub], [tgts[i] for i in sub]
+        if len(sub) < b:
+            card = moved_points(bcpd.registration_bcpd_batch(
+                s_sub, t_sub, device=dev, **BB_DEPTH), s_sub, dev)
+        else:
+            card = [card[i] for i in sub]
+        cpu = moved_points(bcpd.registration_bcpd_batch(
+            s_sub, t_sub, device="cpu", **BB_DEPTH), s_sub,
+            torch.device("cpu"))
+        pcfg.config.dtype = torch.float64
+        try:
+            f64 = moved_points(bcpd.registration_bcpd_batch(
+                s_sub, t_sub, device="cpu", **BB_DEPTH), s_sub,
+                torch.device("cpu"))
+        finally:
+            pcfg.config.dtype = torch.float32
+        d_cpu = max(np.abs(c - p).max() / ext[i]
+                    for c, p, i in zip(card, cpu, sub))
+        spread = max(np.abs(p - q).max() / ext[i]
+                     for p, q, i in zip(cpu, f64, sub))
+        bound = max(BB_AGREE, BB_SPREAD * spread)
+        log(f"  depth {BB_DEPTH['maxiter']}: card against CPU {d_cpu:.2e} "
+            f"({len(sub)} pairs), each pair against its single-pair call "
+            f"{d_one:.2e} of the extent; the CPU's f32 against f64 "
+            f"{spread:.2e}, bound {bound:.2e}; the least moved by "
+            f"{moved_by:.2e}")
+        if not (d_cpu <= bound and d_one <= bound):
+            raise AssertionError(f"BCPD batch {name}: the runs part")
+        if not moved_by > max(BB_MOVED, 10.0 * bound):
+            raise AssertionError(f"BCPD batch {name}: a pair kept (near) "
+                                 "its start; the comparison is void")
+
+
+def track_frames(base, n, step_deg, step_t, seed=0):
+    """``base`` and n - 1 frames, each turned ``step_deg`` degrees about a
+    fixed axis and moved ``step_t`` along a fixed direction from the last;
+    with the true world poses (rot, t) of every frame."""
+    from probreg_tpu_torch.utils import se3_op
+
+    rng = np.random.default_rng(seed)
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    d_rot = se3_op.euler2mat(0.0, 0.0, np.deg2rad(step_deg)).double().numpy()
+    # The same turn about ``axis``: conjugate the z turn by a rotation
+    # taking z to ``axis``.
+    z = np.array([0.0, 0.0, 1.0])
+    v, c = np.cross(z, axis), float(z @ axis)
+    vx = np.array([[0.0, -v[2], v[1]], [v[2], 0.0, -v[0]],
+                   [-v[1], v[0], 0.0]])
+    to_axis = np.eye(3) + vx + vx @ vx / (1.0 + c)
+    d_rot = to_axis @ d_rot @ to_axis.T
+    d_t = step_t * rng.normal(size=3)
+    d_t *= step_t / np.linalg.norm(d_t)
+    cen = base.mean(0)
+    poses, frames = [(np.eye(3), np.zeros(3))], [base]
+    for _ in range(n - 1):
+        r, t = poses[-1]
+        # About the cloud's own centre, as an object moves in front of a
+        # sensor: x -> d_rot (x - cen) + cen + d_t on the last frame.
+        r_new = d_rot @ r
+        t_new = d_rot @ (t - cen) + cen + d_t
+        poses.append((r_new, t_new))
+        frames.append((base @ r_new.T + t_new).astype(np.float32))
+    return frames, poses
+
+
+def run_tracking(dev, launches):
+    """The trackers on a TRACK_FRAMES-frame sequence of bench.py's bunny,
+    moving TRACK_STEP a frame: RigidTracker with CPD, FilterReg and ICP
+    frame to frame and CPD on a keyframe (n_rekeys logged), each world pose
+    held to the truth within TRACK_ROT_DEG and TRACK_T_FRAC of the extent
+    at every frame, with ms and launches a frame; NonrigidTracker on
+    NR_FRAMES frames of a deforming horse[::2], the template's mean
+    NN-RMSE to the warm frames below NR_GAIN times the mean at the start,
+    its ms a frame against a cold registration_bcpd of the same frame."""
+    from probreg_tpu_torch import bcpd, tracking
+
+    base = bunny_clouds(np.eye(3))[0]
+    frames, poses = track_frames(base, TRACK_FRAMES, *TRACK_STEP)
+    extent = float(np.ptp(base, 0).max())
+    # The reference's gates keep warm-started CPD and FilterReg solves off
+    # their whole-loop kernels (cold first solve only); ICP's kernel takes
+    # the warm pose, one launch a frame.
+    solves = TRACK_FRAMES - 1
+    for algo, mode, want in (("cpd", "frame_to_frame", dict(em_rigid=1)),
+                             ("filterreg", "frame_to_frame",
+                              dict(frg_pt2pt=1)),
+                             ("icp", "frame_to_frame", dict(icp=solves)),
+                             ("cpd", "keyframe", dict(em_rigid=1))):
+        extra = TRACK_FRG if algo == "filterreg" else {}
+        trk = tracking.RigidTracker(algorithm=algo, mode=mode, device=dev,
+                                    **TRACK_ARGS, **extra)
+        trk.update(frames[0])
+        reset_launches()
+        worst_deg = worst_t = 0.0
+        t0 = time.perf_counter()
+        for f, (r, t) in zip(frames[1:], poses[1:]):
+            pose = trk.update(f)
+            worst_deg = max(worst_deg, rot_deg(pose.rot, r))
+            worst_t = max(worst_t, float(np.abs(
+                pose.t.double().cpu().numpy() - t).max()) / extent)
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3 / solves
+        got = {k: v for k, v in all_launches().items() if v}
+        log(f"[tracking] RigidTracker {algo} {mode}, bunny {len(base)} "
+            f"points, {TRACK_FRAMES} frames of {TRACK_STEP[0]:g} deg and "
+            f"{TRACK_STEP[1] * 1e3:g} mm: {ms:.2f} ms a frame, launches "
+            f"{got} ({sum(got.values()) / solves:.2f} a frame), worst pose "
+            f"error {worst_deg:.4f} deg and {worst_t:.2e} of the extent"
+            + (f", n_rekeys {trk.n_rekeys}" if mode == "keyframe" else ""))
+        expect_launches(f"tracking {algo} {mode}", **want)
+        if not (worst_deg <= TRACK_ROT_DEG and worst_t <= TRACK_T_FRAC):
+            raise AssertionError(f"RigidTracker {algo} {mode} lost the "
+                                 "pose")
+
+    # tests/test_tracking.py's deformation: the amplitude grows and the
+    # phase drifts from frame to frame (here in units of half the
+    # horse's extent).
+    template = horse_cloud()[::2]
+    half = float(np.ptp(template, 0).max()) / 2.0
+    x = (template[:, :1] - template[:, :1].mean()) / half
+    nr_frames = [template] + [
+        (template + 0.02 * k * half * np.sin(2.5 * x + 0.1 * k)
+         * np.array([[1.0, 0.6, -0.4]])).astype(np.float32)
+        for k in range(1, NR_FRAMES)]
+    trk = tracking.NonrigidTracker(device=dev, **NR_ARGS)
+    trk.update(nr_frames[0])
+    warm_ms, cold_ms, after, before = [], [], [], []
+    for f in nr_frames[1:]:
+        t0 = time.perf_counter()
+        res = trk.update(f)
+        sync(dev)
+        warm_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        bcpd.registration_bcpd(template, f, device=dev, **NR_ARGS)
+        sync(dev)
+        cold_ms.append((time.perf_counter() - t0) * 1e3)
+        before.append(nn_rmse(template, f, dev))
+        after.append(nn_rmse(res.transform(torch.as_tensor(
+            template, device=dev)), f, dev))
+    gain = float(np.mean(after[1:]) / np.mean(before[1:]))
+    by_frame = [round(a / b, 3) for a, b in zip(after, before)]
+    log(f"[tracking] NonrigidTracker, horse[::2] template ({len(template)} "
+        f"points), {NR_FRAMES} frames, {NR_ARGS}: {np.median(warm_ms):.1f} "
+        f"ms a frame (median; the first, cold, {warm_ms[0]:.1f}) against a "
+        f"cold registration_bcpd {np.median(cold_ms):.1f} ms; NN-RMSE "
+        f"after / start by frame {by_frame}, "
+        f"the warm frames' means {gain:.3f}")
+    if not (np.isfinite(after).all() and gain < NR_GAIN):
+        raise AssertionError("NonrigidTracker lost the template")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5276,6 +5772,9 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--parent":
         log(card_line())
         return compare_with_parent(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--bcpd-search-parent":
+        log(card_line())
+        return bcpd_search_against_parent(sys.argv[2])
     import probreg_tpu_torch  # noqa: F401
     from probreg_tpu_torch.ops import _build
 
@@ -5328,6 +5827,8 @@ def main() -> int:
                         (run_callbacks, (dev, launches)),
                         (run_nonrigid, (dev, launches)),
                         (run_l2dist, (dev, launches)),
+                        (run_bcpd_batch, (dev, launches)),
+                        (run_tracking, (dev, launches)),
                         (run_sharded_one_rank, (dev, launches, shared)),
                         (run_mesh_on_one_card, (dev, launches, shared))):
         t0 = time.perf_counter()

@@ -3,7 +3,9 @@
 A second package beside the JAX one. Rigid, affine, nonrigid and
 constrained nonrigid CPD (dense or low-rank), rigid FilterReg (pt2pt and
 pt2pl), ICP and GMMTree run end to end, single pairs, batches and large
-clouds, and combined BCPD single pairs up to 10^5 points and beyond; the
+clouds, and combined BCPD single pairs up to 10^5 points and beyond and
+batches of pairs (fixed-size or ragged, dense or low-rank, one VI loop for
+all of them); the
 L2-distance family (``l2dist_regs``: GMMReg and SVR, rigid and thin-plate
 spline, single pairs and rigid batches, on the features of ``features``,
 the costs of ``cost_functions`` and a batched BFGS) and the IFGT
@@ -12,7 +14,9 @@ FilterReg, GMMTree, BCPD and the rigid L2 registrations take ``n_starts``
 (an orientation search); the loops take callbacks. The
 coarse-to-fine pyramids of these families (``pyramid``) take clouds of
 10^6 points; CPD also runs sharded over the ranks of
-``torch.distributed`` (``parallel``: 1-D and 2-D meshes). They run on
+``torch.distributed`` (``parallel``: 1-D and 2-D meshes). ``tracking``
+follows a sequence of frames with warm-started solves (``RigidTracker``
+on CPD, FilterReg or ICP; ``NonrigidTracker`` on BCPD). They run on
 hand-written CUDA kernels for the H100 (``csrc/``): the CPD E-steps
 (``estep.cu``, the pipelined kernel's folded pass B and the 2-D mesh's
 raw pass among them), the whole-EM CPD and FilterReg kernels (``em.cu``,
@@ -33,7 +37,7 @@ _torch.backends.cudnn.allow_tf32 = False
 from . import bcpd, config, cost_functions, cpd  # noqa: E402,F401
 from . import features, filterreg, gauss_transform  # noqa: E402,F401
 from . import gmmtree, icp, l2dist_regs, log, parallel  # noqa: E402,F401
-from . import pyramid  # noqa: E402,F401
+from . import pyramid, tracking  # noqa: E402,F401
 from .models import transformation  # noqa: E402,F401
 from .utils import se3_op  # noqa: E402,F401
 from .version import __version__  # noqa: E402,F401

@@ -1,31 +1,36 @@
 """Bayesian Coherent Point Drift (variational inference, combined transform).
 
-Counterpart of probreg_tpu/bcpd.py, the single-pair VI:
+Counterpart of probreg_tpu/bcpd.py:
 
 * ``bcpd_estep`` / ``combined_mstep``: the reference-shaped dense E-step
   and M-step (reference probreg bcpd.py:53-72, 125-155), kron-free; used by
   the callbacks loop.
-* ``_run_bcpd``: the whole VI loop in the transposed (D, M) layout of the
-  reference, with its three E-steps: dense, blocked over target columns
-  (``n > config.estep_chunk``), and the tile-culled row-weighted stash
-  E-step (``ops/bcpd_cuda.py``; its kernels on a CUDA device, its plain
-  version on the CPU). The loop reads the NN-RMSE criterion on the host
-  once per iteration, keeps the best state visited and scores the last
-  iterate once more at the end.
-* ``CombinedBCPD`` with the dense IMQ Gram matrix or its rank-K Nystrom
-  factors (``ops/lowrank.py``), and ``registration_bcpd``; its callbacks
-  loop queues ``callback_chunk`` steps between two host reads
+* ``_vi_loop``: the one VI loop, over a batch of rows in the transposed
+  (..., D, M) layout of the reference's ``_run_bcpd`` as ``jax.vmap`` runs
+  it: pairs, or pairs x orientation-grid starts, with optional ragged
+  padding masks; each row stops on its own NN-RMSE criterion and keeps its
+  state thereafter, and the loop reads one flag tensor on the host per
+  iteration for all rows (``READS``). Its E-steps: dense, blocked over
+  target columns (``n > config.estep_chunk``), and, for one unmasked row,
+  the tile-culled row-weighted stash E-step (``ops/bcpd_cuda.py``; its
+  kernels on a CUDA device, its plain version on the CPU). The M-step
+  ``_vi_mstep_t`` takes leading batch axes: a batched M x M solve, or the
+  batched K x K Woodbury core of the Nystrom factors (``ops/lowrank.py``).
+* ``_run_bcpd``: the loop of one pair; ``CombinedBCPD`` with the dense
+  IMQ Gram matrix or its rank-K factors, and ``registration_bcpd``; its
+  callbacks loop queues ``callback_chunk`` steps between two host reads
   (utils/chunked.py; the callbacks see the same transforms for every K).
-* ``n_starts > 1`` (normalized, no callbacks, no warm start; single pairs):
-  the VI from each rotation of the orientation grid applied to the source,
-  the Gram matrix or its factors computed once (the IMQ kernel is
-  rotation-invariant), the run of least NN-RMSE kept and composed back.
+* ``n_starts > 1`` (normalized, no callbacks, no warm start): the VI from
+  each rotation of the orientation grid applied to the source, a pair's
+  Gram matrix or factors shared by its starts (the IMQ kernel is
+  rotation-invariant), all starts in one loop, the run of least NN-RMSE
+  kept and composed back.
+* ``registration_bcpd_batch``: B pairs in one loop, fixed-size or ragged
+  (masked E-step, true counts in the normalizers, Nystrom landmarks over
+  the valid points), dense or ``rank=``, with ``n_starts``: B x S rows.
 
-The batch entry point ``registration_bcpd_batch`` is not ported yet and
-raises ``NotImplementedError`` (ROADMAP, Queue 1 item 9; its multistart
-waits for it). The reference's worker-fault guards (``_hw_guard``, the
-callback-size refusal) act only on a TPU backend and have no counterpart
-here.
+The reference's worker-fault guards (``_hw_guard``, the callback-size
+refusal) act only on a TPU backend and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -63,35 +68,61 @@ MstepResult.__doc__ = """Result of Maximization step.
 """
 
 _EPS = float(np.finfo(np.float32).eps)
-_NOT_PORTED = ("{} is not ported to probreg_tpu_torch yet (ROADMAP.md, "
-               "Queue 1 item 9); use probreg_tpu.bcpd")
+# Host reads of the VI loop and of the runners: one per iteration for all
+# the loop's rows (its stop test), and a fixed count per call for the
+# results the host needs (ops/bfgs.READS counts its loops' reads alike).
+READS = 0
+
+
+def reset_reads() -> None:
+    global READS
+    READS = 0
+
+
+def _fetch(x: torch.Tensor) -> torch.Tensor:
+    """``x`` copied to the host: one device-to-host read, counted."""
+    global READS
+    READS += 1
+    return x.cpu()
+
+
+_lead = _lowrank._lead
 
 
 def _svd_rotation(s_xu: torch.Tensor) -> torch.Tensor:
-    """phi diag(1, .., det(phi psih)) psih from the SVD of s_xu."""
+    """phi diag(1, .., det(phi psih)) psih from the SVD of s_xu (..., D,
+    D)."""
     phi, _, psih = torch.linalg.svd(s_xu, full_matrices=True)
-    c = torch.ones(s_xu.shape[0], dtype=s_xu.dtype, device=s_xu.device)
-    c[-1] = torch.linalg.det(phi @ psih)
-    return (phi * c) @ psih
+    c = torch.ones(s_xu.shape[:-1], dtype=s_xu.dtype, device=s_xu.device)
+    c[..., -1] = torch.linalg.det(phi @ psih)
+    return (phi * c[..., None, :]) @ psih
+
+
+def _trace(a: torch.Tensor) -> torch.Tensor:
+    return torch.diagonal(a, dim1=-2, dim2=-1).sum(-1)
 
 
 def _digamma_alpha(k, nu, k_m, n_p):
     """exp(digamma(k + nu) - digamma(k m + n_p)): the mixing weights."""
     return torch.exp(torch.special.digamma(k + nu)
-                     - torch.special.digamma(k_m + n_p))
+                     - _lead(torch.special.digamma(k_m + n_p), 1))
 
 
 def bcpd_estep(t_source, target, scale, alpha, sigma_mat_diag, sigma2,
-               w=0.0) -> EstepResult:
+               w=0.0, with_rmse=False):
     """BCPD E-step moments (reference bcpd.py:82), dense:
 
     pmat_mj = (1-w) alpha_m exp(-|x_j - y_m|^2 / 2s2) / (2 pi s2)^(D/2)
               * exp(-scale^2 / (2 s2) * Sigma_mm * D)
     den_j   = w / N + sum_m pmat_mj
+
+    ``with_rmse`` also returns the source-to-target NN-RMSE criterion from
+    the same d2: ``(EstepResult, rmse)``.
     """
     dim = t_source.shape[1]
     n = target.shape[0]
     d2 = pairwise.sqdist(t_source, target)
+    rmse = torch.sqrt(d2.amin(1)).mean() if with_rmse else None
     row = (1.0 - w) * alpha * torch.exp(
         -(scale ** 2) / (2.0 * sigma2) * sigma_mat_diag * dim)
     g = torch.exp(-d2 / (2.0 * sigma2)) / (2.0 * math.pi * sigma2) ** (
@@ -104,7 +135,8 @@ def bcpd_estep(t_source, target, scale, alpha, sigma_mat_diag, sigma2,
     nu = pmat.sum(1)
     px = pmat @ target
     x_hat = px / torch.clamp(nu, min=_EPS)[:, None]
-    return EstepResult(nu_d, nu, torch.clamp(nu.sum(), min=_EPS), px, x_hat)
+    res = EstepResult(nu_d, nu, torch.clamp(nu.sum(), min=_EPS), px, x_hat)
+    return (res, rmse) if with_rmse else res
 
 
 def combined_mstep(source, target, rot, t, scale, estep_res, gmat, lmd, k,
@@ -164,11 +196,18 @@ def combined_mstep(source, target, rot, t, scale, estep_res, gmat, lmd, k,
 
 
 def _vi_mstep_t(ys_t, rot, t, scale, sigma2, gmat, lmd, k, px_t, nu, s1,
-                m_eff=None, e1=None, t_src_t=None, v_prev_t=None):
+                m_eff=None, e1=None, t_src_t=None, v_prev_t=None,
+                rows=None):
     """CombinedBCPD M-step in the transposed (D, M) layout from the E-step
-    moments (px_t, nu, s1) (reference bcpd.py:210). ``gmat`` dense or
-    (u, lam). ``m_eff``: the true source count feeding the Dirichlet
-    normalizer (default M).
+    moments (px_t, nu, s1) (reference bcpd.py:210), of one row or of a
+    batch of rows: every argument may carry the same leading axes (``ys_t``
+    (..., D, M), ``rot`` (..., D, D), ``t`` (..., D), ``scale``, ``sigma2``
+    and ``s1`` (...), ``nu`` (..., M)); ``gmat`` the dense (..., M, M) IMQ
+    Gram matrix or its (u (..., M, K), lam (..., K)) factors, broadcast
+    over rows that share them. ``m_eff``: the true source count feeding
+    the Dirichlet normalizer (default M). ``rows``: host flags of the rows
+    whose results are kept; the dense solves of the others may be skipped
+    (``ops/lowrank.solve``).
 
     sigma2, two forms:
 
@@ -180,49 +219,57 @@ def _vi_mstep_t(ys_t, rot, t, scale, sigma2, gmat, lmd, k, px_t, nu, s1,
       every term O(residual), no cancellation;
     * expanded form (``e1`` None): the reference's s1 - 2 s2 + s3.
 
-    Both keep the f32 eps floor as a backstop."""
-    dim, m = ys_t.shape
+    Both keep the f32 eps floor as a backstop. The M x M and K x K solves
+    (``ops/lowrank.solve``) do not check for a singular matrix, so on a
+    CUDA device they do not wait for the card."""
+    dim, m = ys_t.shape[-2:]
     if m_eff is None:
         m_eff = m
-    n_p = torch.clamp(nu.sum(), min=_EPS)
-    x_hat_t = px_t / torch.clamp(nu, min=_EPS)[None, :]
+    eye_d = torch.eye(dim, dtype=ys_t.dtype, device=ys_t.device)
+    n_p = torch.clamp(nu.sum(-1), min=_EPS)
+    x_hat_t = px_t / torch.clamp(nu, min=_EPS)[..., None, :]
     s2s2 = scale ** 2 / (sigma2 ** 2)
-    residual_t = rot.T @ ((x_hat_t - t[:, None]) / scale) - ys_t
+    residual_t = rot.transpose(-1, -2) @ (
+        (x_hat_t - t[..., :, None]) / _lead(scale, 2)) - ys_t
+    weighted_t = residual_t * nu[..., None, :]
     if isinstance(gmat, (tuple, list)):
         umat, lam = gmat
         s_core, sigma_diag_new = _lowrank.regularized_sigma(
             umat, lam, nu, s2s2, lmd)
-        v_new_t = (s2s2 / lmd) * (
-            ((residual_t * nu[None, :]) @ umat) @ s_core) @ umat.T
+        v_new_t = _lead(s2s2 / lmd, 2) * (
+            ((weighted_t @ umat) @ s_core) @ umat.transpose(-1, -2))
     else:
-        shifted = lmd * torch.eye(m, dtype=ys_t.dtype, device=ys_t.device) \
-            + s2s2 * gmat * nu[None, :]
-        sigma_mat = torch.linalg.solve(shifted, gmat)
-        sigma_mat = 0.5 * (sigma_mat + sigma_mat.T)
-        sigma_diag_new = torch.diagonal(sigma_mat)
-        v_new_t = s2s2 * ((residual_t * nu[None, :]) @ sigma_mat)
+        shifted = _lead(lmd, 2) * torch.eye(m, dtype=ys_t.dtype,
+                                            device=ys_t.device) \
+            + _lead(s2s2, 2) * gmat * nu[..., None, :]
+        sigma_mat = _lowrank.solve(shifted, gmat, rows)
+        sigma_mat = 0.5 * (sigma_mat + sigma_mat.transpose(-1, -2))
+        sigma_diag_new = torch.diagonal(sigma_mat, dim1=-2, dim2=-1)
+        v_new_t = _lead(s2s2, 2) * (weighted_t @ sigma_mat)
     u_hat_t = ys_t + v_new_t
     alpha_new = _digamma_alpha(k, nu, k * m_eff, n_p)
-    x_m = x_hat_t @ nu / n_p
-    sigma2_m = (nu * sigma_diag_new).sum() / n_p
-    u_m = u_hat_t @ nu / n_p
-    u_hm = u_hat_t - u_m[:, None]
-    s_xu = ((x_hat_t - x_m[:, None]) * nu[None, :]) @ u_hm.T
-    s_uu = (u_hm * nu[None, :]) @ u_hm.T / n_p \
-        + sigma2_m * torch.eye(dim, dtype=ys_t.dtype, device=ys_t.device)
-    s_xu = s_xu / n_p
+    x_m = (x_hat_t @ nu[..., :, None])[..., 0] / _lead(n_p, 1)
+    sigma2_m = (nu * sigma_diag_new).sum(-1) / n_p
+    u_m = (u_hat_t @ nu[..., :, None])[..., 0] / _lead(n_p, 1)
+    u_hm = u_hat_t - u_m[..., :, None]
+    s_xu = ((x_hat_t - x_m[..., :, None]) * nu[..., None, :]) \
+        @ u_hm.transpose(-1, -2)
+    s_uu = (u_hm * nu[..., None, :]) @ u_hm.transpose(-1, -2) \
+        / _lead(n_p, 2) + _lead(sigma2_m, 2) * eye_d
+    s_xu = s_xu / _lead(n_p, 2)
     rot_new = _svd_rotation(s_xu)
-    scale_new = torch.trace(rot_new @ s_xu) / torch.trace(s_uu)
-    t_new = x_m - scale_new * rot_new @ u_m
+    scale_new = _trace(rot_new @ s_xu) / _trace(s_uu)
+    t_new = x_m - _lead(scale_new, 1) * (rot_new @ u_m[..., :, None])[..., 0]
     if e1 is not None:
-        delta_t = scale * (rot @ (v_new_t - v_prev_t))
-        r_t = px_t - nu[None, :] * t_src_t
-        numer = (e1 - 2.0 * (r_t * delta_t).sum()
-                 + (nu * (delta_t * delta_t).sum(0)).sum())
+        delta_t = _lead(scale, 2) * (rot @ (v_new_t - v_prev_t))
+        r_t = px_t - nu[..., None, :] * t_src_t
+        numer = (e1 - 2.0 * (r_t * delta_t).sum((-2, -1))
+                 + (nu * (delta_t * delta_t).sum(-2)).sum(-1))
     else:
-        y_hat_t = scale * rot @ (ys_t + v_new_t) + t[:, None]
-        s2v = (px_t * y_hat_t).sum()
-        s3 = (nu * (y_hat_t * y_hat_t).sum(0)).sum()
+        y_hat_t = _lead(scale, 2) * (rot @ (ys_t + v_new_t)) \
+            + t[..., :, None]
+        s2v = (px_t * y_hat_t).sum((-2, -1))
+        s3 = (nu * (y_hat_t * y_hat_t).sum(-2)).sum(-1)
         numer = s1 - 2.0 * s2v + s3
     sigma2_new = torch.clamp(numer / (n_p * dim) + scale_new ** 2 * sigma2_m,
                              min=_EPS)
@@ -230,31 +277,40 @@ def _vi_mstep_t(ys_t, rot, t, scale, sigma2, gmat, lmd, k, px_t, nu, s1,
             sigma2_new)
 
 
-def _estep_cols(t_src_t, y2, row, sigma2, xs_b, v_b, w_over_n):
-    """Moments (C, M), per-source-row min d2 and e1 = sum p d2 of one (M, B)
-    block of the posterior (reference bcpd.py:377), d2 in the expanded form
-    the reference uses."""
-    dim = t_src_t.shape[0]
-    x2b = (xs_b * xs_b).sum(0, keepdim=True)
-    d2 = torch.clamp(y2 + x2b - 2.0 * (t_src_t.T @ xs_b), min=0.0)
-    dmin = d2.amin(1)
-    g = torch.exp(-d2 / (2.0 * sigma2)) / (2.0 * math.pi * sigma2) ** (
-        dim * 0.5)
-    pmat = g * row[:, None]
-    den = w_over_n + pmat.sum(0, keepdim=True)
+def _estep_cols(t_src_t, y2, row, sigma2, xs_b, v_b, w_over_n, mask_b=None):
+    """Moments (..., C, M), per-source-row min d2 (..., M) and e1 = sum p d2
+    (...) of one (..., M, B) block of the posterior (reference
+    bcpd.py:377), d2 in the expanded form the reference uses; ``mask_b``
+    (..., 1, B) zeroes padded targets (a ragged batch)."""
+    dim = t_src_t.shape[-2]
+    x2b = (xs_b * xs_b).sum(-2, keepdim=True)
+    d2 = torch.clamp(y2 + x2b - 2.0 * (t_src_t.transpose(-1, -2) @ xs_b),
+                     min=0.0)
+    s2 = _lead(sigma2, 2)
+    g = torch.exp(-d2 / (2.0 * s2)) / (2.0 * math.pi * s2) ** (dim * 0.5)
+    if mask_b is None:
+        dmin = d2.amin(-1)
+    else:
+        dmin = torch.where(mask_b > 0, d2, math.inf).amin(-1)
+        g = g * mask_b
+    pmat = g * row[..., :, None]
+    den = w_over_n + pmat.sum(-2, keepdim=True)
     den = torch.where(den == 0.0, _EPS, den)
     pmat = pmat / den
-    return v_b @ pmat.T, dmin, (pmat * d2).sum()
+    return v_b @ pmat.transpose(-1, -2), dmin, (pmat * d2).sum((-2, -1))
 
 
-def _estep_all(t_src_t, xs_t, v_chan, row, sigma2, w_over_n, block):
-    """_estep_cols over all targets, in column blocks of ``block``."""
-    y2 = (t_src_t * t_src_t).sum(0)[:, None]
+def _estep_all(t_src_t, xs_t, v_chan, row, sigma2, w_over_n, block,
+               cmask=None):
+    """_estep_cols over all targets, in column blocks of ``block``:
+    (..., M, block) temporaries."""
+    y2 = (t_src_t * t_src_t).sum(-2)[..., :, None]
     mom = minrow = e1 = None
-    for c0 in range(0, xs_t.shape[1], block):
-        mom_b, dmin, e1_b = _estep_cols(t_src_t, y2, row, sigma2,
-                                        xs_t[:, c0:c0 + block],
-                                        v_chan[:, c0:c0 + block], w_over_n)
+    for c0 in range(0, xs_t.shape[-1], block):
+        cols = slice(c0, c0 + block)
+        mom_b, dmin, e1_b = _estep_cols(
+            t_src_t, y2, row, sigma2, xs_t[..., cols], v_chan[..., cols],
+            w_over_n, None if cmask is None else cmask[..., cols])
         if mom is None:
             mom, minrow, e1 = mom_b, dmin, e1_b
         else:
@@ -273,105 +329,194 @@ def _culled_rowlog(row, dim, sigma2):
         torch.tensor(-1e30, dtype=row.dtype, device=row.device))
 
 
-def _run_bcpd(source, target, gmat, lmd, k, sigma2_0, *, w, maxiter, tol,
-              block=None, use_culled=False, init_params=None):
-    """The whole VI loop in transposed (D, M) layout (reference
-    bcpd.py:313): (transformation, sigma_diag, alpha, sigma2, rmse, last).
+def _vi_loop(source, target, gmat, lmd, k, sigma2_0, *, w, maxiter, tol,
+             block=None, smask=None, tmask=None, use_culled=False,
+             init=None):
+    """The VI loop over a batch of rows in transposed (D, M) layout: the
+    reference's _run_bcpd (bcpd.py:313) as jax.vmap runs it.
 
-    ``gmat``: the dense (M, M) IMQ Gram matrix or its ``(u, lam)`` Nystrom
-    factors. The E-step is dense, blocked over target columns when
-    N > ``block`` (default ``config.estep_chunk``), or the tile-culled
-    row-weighted E-step when ``use_culled`` (the caller Morton-sorted both
-    clouds). ``init_params``: optional ``(rot0, t0, scale0, v0_t)`` or
-    ``(rot0, t0, scale0, v0_t, alpha0, sdiag0)`` warm start in the frame of
-    ``source`` / ``target`` (``v0_t`` (D, M) or None; alpha0 / sdiag0 may be
-    None).
+    ``source`` (..., M, D) and ``target`` (..., N, D): one row per leading
+    index (pairs, or pairs x starts); every other argument broadcasts over
+    the rows, so the S starts of a pair share its target, its masks and
+    its Gram matrix or factors without a copy. ``gmat`` is the dense
+    (..., M, M) IMQ Gram matrix or its (u (..., M, K), lam (..., K))
+    Nystrom factors; ``sigma2_0`` (...) each row's start temperature.
+    ``smask`` (..., M) / ``tmask`` (..., N): ragged padding (alpha0 =
+    smask / m_eff, padded rows and columns carry no mass, the masked
+    NN-RMSE, the Dirichlet normalizer of the true count). The E-step is
+    dense, blocked over target columns when N > ``block`` (default
+    ``config.estep_chunk``), or, for one row without masks, the tile-culled
+    row-weighted E-step (``use_culled``; the caller Morton-sorted both
+    clouds). ``init``: optional (rot0, t0, scale0, v0_t, alpha0, sdiag0)
+    tensors of the rows' shapes, any of v0_t, alpha0, sdiag0 None.
 
-    The loop stops at ``maxiter`` or, from the third iteration on, when the
-    NN-RMSE criterion moves less than ``tol``. It keeps the best state
-    visited by that criterion; the last iterate is scored once more after
-    the loop and the better of the two is returned. ``last`` is the raw
-    final iterate (rot, t, scale, v_t, sigma2, sigma_diag, alpha, rmse).
+    A row is live while i < maxiter and (i < 2 or its NN-RMSE criterion
+    moved by at least ``tol``); a finished row's state, best state and
+    criterion stay as they were. The loop reads one (...) flag tensor per
+    iteration from the third on, and ends when no row is live. It keeps
+    each row's best state visited; afterwards each row's last iterate is
+    scored once at its sigma2_0 with unit row weights, and the better of
+    the two is returned.
+
+    Returns ((rot, t, scale, v_t, sigma2), rmse, last): the kept state, its
+    NN-RMSE (...), and the raw final iterate (rot, t, scale, v_t, sigma2,
+    sigma_diag, alpha, rmse_last), all device tensors.
     """
-    m, dim = source.shape
-    n = target.shape[0]
+    m, dim = source.shape[-2:]
+    n = target.shape[-2]
+    lead = source.shape[:-2]
     dt, dev = source.dtype, source.device
-    ys_t, xs_t = source.T, target.T
-    x2 = (xs_t * xs_t).sum(0, keepdim=True)
+    masked = smask is not None
+    if use_culled and (masked or lead != (1,)):
+        raise ValueError("the culled E-step runs one row without masks")
+    ys_t, xs_t = source.transpose(-1, -2), target.transpose(-1, -2)
+    x2 = (xs_t * xs_t).sum(-2, keepdim=True)
     # Channels [x (D); ones; |x|^2]: the moments give px_t (D, M), nu (M)
     # and sum_j p_ij |x_j|^2, whose total is s1.
-    v_chan = torch.cat([xs_t, torch.ones_like(x2), x2], dim=0)
+    v_chan = torch.cat([xs_t, torch.ones_like(x2), x2], dim=-2)
     block = int(_config.config.estep_chunk) if block is None else int(block)
     block = max(min(block, n), 1)
-    w_over_n = w / n
+    if masked:
+        m_eff, n_eff = smask.sum(-1), tmask.sum(-1)
+        w_over_n, cmask = _lead(w / n_eff, 2), tmask[..., None, :]
+    else:
+        m_eff, w_over_n, cmask = None, w / n, None
 
     def estep(t_src_t, row, sigma2):
         if use_culled:
-            rowlog = _culled_rowlog(row, dim, sigma2)
             _, mom, minrow, e1 = bcpd_cuda.bcpd_estep_culled(
-                t_src_t.T, target, rowlog, v_chan, w_over_n, sigma2)
-            return mom, minrow, e1
+                t_src_t[0].T, target[0], _culled_rowlog(row[0], dim,
+                                                        sigma2[0]),
+                v_chan[0], w_over_n, sigma2[0])
+            return mom[None], minrow[None], e1.reshape(1)
         return _estep_all(t_src_t, xs_t, v_chan, row, sigma2, w_over_n,
-                          block)
+                          block, cmask)
 
-    def as_t(x):
-        if isinstance(x, np.ndarray):
-            x = np.array(x)  # a writable copy (broadcast views are not)
-        return torch.as_tensor(x, dtype=dt).to(dev)
+    def nn_rmse(minrow):
+        if masked:
+            return torch.where(smask > 0, torch.sqrt(minrow),
+                               0.0).sum(-1) / m_eff
+        return torch.sqrt(minrow).mean(-1)
 
-    alpha = torch.full((m,), 1.0 / m, dtype=dt, device=dev)
-    sigma_diag = torch.ones((m,), dtype=dt, device=dev)
-    if init_params is None:
-        rot = torch.eye(dim, dtype=dt, device=dev)
-        t = torch.zeros(dim, dtype=dt, device=dev)
-        scale = torch.ones((), dtype=dt, device=dev)
-        v_t = torch.zeros_like(ys_t)
-    else:
-        rot, t, scale = (as_t(x) for x in init_params[:3])
-        v_t = torch.zeros_like(ys_t) if init_params[3] is None \
-            else as_t(init_params[3])
-        if len(init_params) == 6:
-            if init_params[4] is not None:
-                alpha = as_t(init_params[4])
-            if init_params[5] is not None:
-                sigma_diag = as_t(init_params[5])
-    sigma2 = as_t(sigma2_0)
-    best = (rot, t, scale, v_t, sigma2)
-    best_rmse = math.inf
-    rmse, rmse_prev, i = math.inf, math.inf, 0
-    while i < maxiter and (i < 2 or abs(rmse - rmse_prev) >= tol):
-        t_src_t = scale * rot @ (ys_t + v_t) + t[:, None]
+    def moved(rot, t, scale, v_t):
+        return _lead(scale, 2) * (rot @ (ys_t + v_t)) + t[..., :, None]
+
+    if init is None:
+        init = (torch.eye(dim, dtype=dt, device=dev).expand(
+            lead + (dim, dim)), torch.zeros(lead + (dim,), dtype=dt,
+                                            device=dev),
+                torch.ones(lead, dtype=dt, device=dev), None, None, None)
+    rot, t, scale, v_t, alpha, sigma_diag = init
+    if v_t is None:
+        v_t = torch.zeros(lead + (dim, m), dtype=dt, device=dev)
+    if alpha is None:
+        alpha = (smask / _lead(m_eff, 1) if masked
+                 else torch.full((m,), 1.0 / m, dtype=dt, device=dev)
+                 ).expand(lead + (m,))
+    if sigma_diag is None:
+        sigma_diag = torch.ones(lead + (m,), dtype=dt, device=dev)
+    sigma2 = torch.as_tensor(sigma2_0, dtype=dt, device=dev).expand(lead)
+    inf = torch.full(lead, math.inf, dtype=dt, device=dev)
+    state = (rot, t, scale, v_t, sigma_diag, alpha, sigma2)
+    best, best_rmse = (rot, t, scale, v_t, sigma2), inf
+    rmse, rmse_prev, live, rows, i = inf, inf, None, None, 0
+    while i < maxiter:
+        if i >= 2:
+            go = (rmse - rmse_prev).abs() >= tol
+            live = go if live is None else live & go
+            flags = _fetch(live)
+            if not bool(flags.any()):
+                break
+            rows = None if bool(flags.all()) else flags.reshape(-1).tolist()
+        rot, t, scale, v_t, sigma_diag, alpha, sigma2 = state
+        t_src_t = moved(rot, t, scale, v_t)
         row = (1.0 - w) * alpha * torch.exp(
-            -(scale ** 2) / (2.0 * sigma2) * sigma_diag * dim)
+            _lead(-(scale ** 2) / (2.0 * sigma2), 1) * sigma_diag * dim)
+        if masked:
+            row = row * smask
         mom, minrow, e1 = estep(t_src_t, row, sigma2)
-        rmse_t = torch.sqrt(minrow).mean()
-        px_t, nu, s1 = mom[:dim], mom[dim], mom[dim + 1].sum()
-        (rot_n, t_n, scale_n, v_n, sigma_diag, alpha, sigma2_n) = _vi_mstep_t(
-            ys_t, rot, t, scale, sigma2, gmat, lmd, k, px_t, nu, s1,
-            e1=e1, t_src_t=t_src_t, v_prev_t=v_t)
-        # rmse scores the INCOMING state; the VI keeps trading scale
+        rmse_t = nn_rmse(minrow)
+        new = _vi_mstep_t(
+            ys_t, rot, t, scale, sigma2, gmat, lmd, k, mom[..., :dim, :],
+            mom[..., dim, :], mom[..., dim + 1, :].sum(-1), m_eff=m_eff,
+            e1=e1, t_src_t=t_src_t, v_prev_t=v_t, rows=rows)
+        # rmse_t scores the INCOMING state; the VI keeps trading scale
         # against v after convergence, so the last iterate can be worse
         # than one it passed through.
-        rmse_prev, rmse = rmse, float(rmse_t)
-        if rmse < best_rmse:
-            best, best_rmse = (rot, t, scale, v_t, sigma2), rmse
-        rot, t, scale, v_t, sigma2 = rot_n, t_n, scale_n, v_n, sigma2_n
+        better = rmse_t < best_rmse
+        new_best = tuple(torch.where(_lead(better, x.dim() - better.dim()),
+                                     x, b) for x, b in zip(state[:4]
+                                                          + (sigma2,), best))
+        new_vals = (new, (rmse_t, rmse), new_best,
+                    (torch.minimum(rmse_t, best_rmse),))
+        old_vals = (state, (rmse, rmse_prev), best, (best_rmse,))
+        if rows is not None:
+            # Finished rows keep every value they had.
+            new_vals = tuple(
+                tuple(torch.where(_lead(live, x.dim() - live.dim()), x, o)
+                      for x, o in zip(nv, ov))
+                for nv, ov in zip(new_vals, old_vals))
+        state, (rmse, rmse_prev), best, (best_rmse,) = new_vals
         i += 1
-    log.debug("BCPD VI: %d iterations, criterion %s", i, rmse)
+    log.debug("BCPD VI: %d iterations of %d rows", i, math.prod(lead))
 
-    # Score the last iterate once, at the start temperature with unit row
+    # Score each last iterate once, at its start temperature with unit row
     # weights, and keep the better of (last, best visited).
-    t_src_t = scale * rot @ (ys_t + v_t) + t[:, None]
-    sigma2_0 = as_t(sigma2_0)
-    row1 = torch.ones((m,), dtype=dt, device=dev)
-    _, minrow, _ = estep(t_src_t, row1, sigma2_0)
-    rmse_last = float(torch.sqrt(minrow).mean())
+    rot, t, scale, v_t, sigma_diag, alpha, sigma2 = state
+    _, minrow, _ = estep(moved(rot, t, scale, v_t),
+                         torch.ones(lead + (m,), dtype=dt, device=dev),
+                         torch.as_tensor(sigma2_0, dtype=dt,
+                                         device=dev).expand(lead))
+    rmse_last = nn_rmse(minrow)
+    use_last = rmse_last <= best_rmse
+    kept = tuple(torch.where(_lead(use_last, x.dim() - use_last.dim()), x, b)
+                 for x, b in zip((rot, t, scale, v_t, sigma2), best))
     last = (rot, t, scale, v_t, sigma2, sigma_diag, alpha, rmse_last)
-    if not rmse_last <= best_rmse:
-        rot, t, scale, v_t, sigma2 = best
-    rmse = min(rmse_last, best_rmse)
-    return (tf.CombinedTransformation(rot, t, scale, v_t.T, dim=dim),
-            sigma_diag, alpha, sigma2, rmse, last)
+    return kept, torch.minimum(rmse_last, best_rmse), last
+
+
+def _run_bcpd(source, target, gmat, lmd, k, sigma2_0, *, w, maxiter, tol,
+              block=None, smask=None, tmask=None, use_culled=False,
+              init_params=None):
+    """The VI loop of one pair (reference bcpd.py:313): ``_vi_loop`` with
+    one row. Returns (transformation, sigma_diag, alpha, sigma2, rmse,
+    last), ``rmse`` and last's rmse_last host floats.
+
+    ``gmat``: the dense (M, M) IMQ Gram matrix or its ``(u, lam)`` Nystrom
+    factors. ``smask`` (M,) / ``tmask`` (N,): padding masks. ``init_params``:
+    optional ``(rot0, t0, scale0, v0_t)`` or ``(rot0, t0, scale0, v0_t,
+    alpha0, sdiag0)`` warm start in the frame of ``source`` / ``target``
+    (``v0_t`` (D, M) or None; alpha0 / sdiag0 may be None). ``last`` is
+    the raw final iterate (rot, t, scale, v_t, sigma2, sigma_diag, alpha,
+    rmse)."""
+    dt, dev = source.dtype, source.device
+
+    def row_of(x):
+        if x is None:
+            return None
+        if isinstance(x, np.ndarray):
+            x = np.array(x)  # a writable copy (broadcast views are not)
+        return torch.as_tensor(x, dtype=dt).to(dev)[None]
+
+    init = None
+    if init_params is not None:
+        init = tuple(row_of(x) for x in init_params)
+        init = init + (None,) * (6 - len(init))
+    gmat = tuple(a[None] for a in gmat) if isinstance(gmat, (tuple, list)) \
+        else gmat[None]
+    kept, rmse, last = _vi_loop(
+        source[None], target[None], gmat, lmd, k,
+        torch.as_tensor(sigma2_0, dtype=dt).to(dev).reshape(1), w=w,
+        maxiter=maxiter, tol=tol, block=block,
+        smask=None if smask is None else smask[None],
+        tmask=None if tmask is None else tmask[None], use_culled=use_culled,
+        init=init)
+    rmse, rmse_last = _fetch(torch.cat([rmse, last[-1]])).tolist()
+    rot, t, scale, v_t, sigma2 = (x[0] for x in kept)
+    last = tuple(x[0] for x in last[:-1]) + (rmse_last,)
+    return (tf.CombinedTransformation(rot, t, scale, v_t.T,
+                                      dim=source.shape[1]),
+            last[5], last[6], sigma2, rmse, last)
 
 
 class BayesianCoherentPointDrift(abc.ABC):
@@ -656,68 +801,167 @@ def _last_state_kwargs(bc, centroid, scale):
     }
 
 
-def _run_bcpd_multistart(source, target, gamma, lmd, k, rots0, *, w,
-                         maxiter, tol, rank, block):
-    """The VI from each grid rotation ``rots0`` (S, D, D) of the source
-    (reference bcpd.py:1131, unmasked): the IMQ Gram matrix (or its Nystrom
-    factors) is rotation-invariant, so it is computed once; each run is
-    scored by its final NN-RMSE (NaN as inf) and the winner composed back
-    into the source's frame: T(R0 y) = s (R R0) (y + R0^T v) + t. Returns
-    (the winner's CombinedTransformation, its final sigma2, the winning
-    start, every start's score)."""
+def _gram_rows(sources, rank, smasks=None, min_m=None):
+    """The dense IMQ Gram matrices (..., M, M) of ``sources`` (..., M, D),
+    or with ``rank`` their Nystrom factors over each cloud's valid points
+    (reference bcpd.py:1139-1143, 1195-1199, 1212-1215)."""
     if rank is None:
-        gmat = mu.inverse_multiquadric_kernel(source, source)
-    else:
-        gmat = tuple(_lowrank.lowrank_imq(source, 1.0, int(rank)))
-    rots0 = torch.as_tensor(rots0, dtype=source.dtype, device=source.device)
-    runs = []
-    for rot0 in rots0:
-        src_r = source @ rot0.T
-        sigma2_0 = gamma * mu.squared_kernel_sum(src_r, target)
-        transf, _, _, s2, rmse, _ = _run_bcpd(
-            src_r, target, gmat, lmd, k, sigma2_0, w=w, maxiter=maxiter,
-            tol=tol, block=block)
-        rt = transf.rigid_trans
-        runs.append((tf.CombinedTransformation(
-            rt.rot @ rot0, rt.t, rt.scale, transf.v @ rot0,
-            dim=source.shape[1]), s2, rmse))
-    scores = [math.inf if math.isnan(r) else r for _, _, r in runs]
-    best = int(np.argmin(scores))
-    return runs[best][0], runs[best][1], best, scores
+        return 1.0 / torch.sqrt(pairwise.sqdist_batch(sources, sources) + 1.0)
+    return tuple(_lowrank.lowrank_imq(sources, 1.0, int(rank), valid=smasks,
+                                      max_landmarks=min_m))
 
 
-def _registration_bcpd_multistart(src, tgt, *, w, maxiter, tol, n_starts,
-                                  device, lmd=2.0, k=1.0e20, gamma=1.0,
-                                  rank=None):
-    """Normalized multistart BCPD of one pair (the reference's
-    _registration_bcpd_multistart_batch, bcpd.py:1311-1360, at B = 1):
-    host float64 clouds in, (raw-frame CombinedTransformation, the
-    winner's raw-frame sigma2, the winning start) out."""
+def _squared_kernel_sums(x, y, smask=None, tmask=None):
+    """squared_kernel_sum of each pair (..., M, D), (..., N, D) in closed
+    form: unmasked on the pair's joint centre (reference math_utils.py:39),
+    masked over the valid points with the true counts (reference
+    math_utils.py:69)."""
+    dim = x.shape[-1]
+    if smask is None:
+        m, n = x.shape[-2], y.shape[-2]
+        cen = (x.sum(-2) + y.sum(-2)) / (m + n)
+        x, y = x - cen[..., None, :], y - cen[..., None, :]
+        return (n * (x * x).sum((-2, -1)) + m * (y * y).sum((-2, -1))
+                - 2.0 * (x.sum(-2) * y.sum(-2)).sum(-1)) / float(m * dim * n)
+    m, n = smask.sum(-1), tmask.sum(-1)
+    s2 = ((x * x).sum(-1) * smask).sum(-1)
+    t2 = ((y * y).sum(-1) * tmask).sum(-1)
+    ssum = (x * smask[..., None]).sum(-2)
+    tsum = (y * tmask[..., None]).sum(-2)
+    return (s2 * n + t2 * m - 2.0 * (ssum * tsum).sum(-1)) / (m * dim * n)
+
+
+def _run_bcpd_batch(sources, targets, sigma2_0s, lmd, k, *, w, maxiter, tol,
+                    rank, block, smasks=None, tmasks=None, min_m=None):
+    """B pairs (B, M, D), (B, N, D) in one VI loop (reference bcpd.py:1191,
+    1209): each pair's Gram matrix or factors (with ``smasks``, over its
+    valid points, ``min_m`` landmarks at most), its start temperature
+    ``sigma2_0s`` (B,). Returns device tensors (rot (B, D, D), t (B, D),
+    scale (B,), v (B, M, D))."""
+    gmat = _gram_rows(sources, rank, smasks, min_m)
+    (rot, t, scale, v_t, _), _, _ = _vi_loop(
+        sources, targets, gmat, lmd, k, sigma2_0s, w=w, maxiter=maxiter,
+        tol=tol, block=block, smask=smasks, tmask=tmasks)
+    return rot, t, scale, v_t.transpose(-1, -2)
+
+
+def _run_bcpd_multistart_batch(sources, targets, gamma, lmd, k, rots0, *, w,
+                               maxiter, tol, rank, block, smasks=None,
+                               tmasks=None, min_m=None):
+    """B pairs x S starts in one VI loop (reference bcpd.py:1131-1186): the
+    VI from each grid rotation ``rots0`` (S, D, D) of each source. The IMQ
+    Gram matrix (or its factors) is rotation-invariant, so a pair's starts
+    share it; each start's temperature is gamma times the squared-kernel
+    sum of its rotated source. Each start is scored by its NN-RMSE (NaN as
+    inf), the first of the least wins, and the winner is composed back
+    into the source's frame: T(R0 y) = s (R R0) (y + R0^T v) + t.
+
+    Returns device tensors (rot (B, D, D), t (B, D), scale (B,), v (B, M,
+    D), the winner's final sigma2 (B,), the winning start (B,), every
+    start's score (B, S))."""
+    bsz, m, dim = sources.shape
+    rots0 = torch.as_tensor(rots0, dtype=sources.dtype).to(sources.device)
+    nst = rots0.shape[0]
+    gmat = _gram_rows(sources, rank, smasks, min_m)
+    gmat = tuple(a[:, None] for a in gmat) if isinstance(gmat, tuple) \
+        else gmat[:, None]
+    src_r = sources[:, None] @ rots0.transpose(-1, -2)       # (B, S, M, D)
+    tgt_r = targets[:, None]
+    sm = None if smasks is None else smasks[:, None]
+    tm = None if tmasks is None else tmasks[:, None]
+    sigma2_0 = gamma * _squared_kernel_sums(src_r, tgt_r, sm, tm)
+    (rot, t, scale, v_t, s2), rmse, _ = _vi_loop(
+        src_r, tgt_r, gmat, lmd, k, sigma2_0, w=w, maxiter=maxiter, tol=tol,
+        block=block, smask=sm, tmask=tm)
+    scores = torch.where(torch.isnan(rmse), math.inf, rmse)
+    best = torch.argmin(scores, dim=1)
+    pick = torch.arange(bsz, device=sources.device), best
+    rot0 = rots0[best]
+    return (rot[pick] @ rot0, t[pick], scale[pick],
+            v_t[pick].transpose(-1, -2) @ rot0, s2[pick], best, scores)
+
+
+def _run_bcpd_multistart(source, target, gamma, lmd, k, rots0, *, w,
+                         maxiter, tol, rank, block, smask=None, tmask=None,
+                         min_m=None):
+    """The search of one pair (reference bcpd.py:1131): returns (the
+    winner's CombinedTransformation, its final sigma2, the winning start,
+    every start's score as host floats)."""
+    rot, t, scale, v, s2, best, scores = _run_bcpd_multistart_batch(
+        source[None], target[None], gamma, lmd, k, rots0, w=w,
+        maxiter=maxiter, tol=tol, rank=rank, block=block,
+        smasks=None if smask is None else smask[None],
+        tmasks=None if tmask is None else tmask[None], min_m=min_m)
+    host = _fetch(torch.cat([best.to(scores.dtype), scores[0]])).tolist()
+    return (tf.CombinedTransformation(rot[0], t[0], scale[0], v[0],
+                                      dim=source.shape[1]),
+            s2[0], int(host[0]), host[1:])
+
+
+def _normalizers(srcs, tgts):
+    """Per-pair joint centroid (B, D) and the square root of its
+    squared-kernel sum (B,), host float64 (reference bcpd.py:1278-1285)."""
+    cents, scales = [], []
+    for sr, tg in zip(srcs, tgts):
+        m, n, dim = sr.shape[0], tg.shape[0], sr.shape[1]
+        cen = (sr.sum(0) + tg.sum(0)) / (m + n)
+        sh, th = sr - cen, tg - cen
+        skc = ((sh ** 2).sum() * n + (th ** 2).sum() * m
+               - 2.0 * float(sh.sum(0) @ th.sum(0))) / (m * dim * n)
+        cents.append(cen)
+        scales.append(max(float(np.sqrt(skc)), 1e-12))
+    return np.stack(cents), np.asarray(scales)
+
+
+def _denormalized(rot, t, scale, v, cents, scales, sizes=None):
+    """CombinedTransformations in raw coordinates from a batch's normalized
+    results: y -> s R (y + v_raw) + t_raw with v_raw = sc v - c and
+    t_raw = sc t + c; ``sizes`` slices each v back to its pair's source."""
+    dev = v.device
+    sc = torch.as_tensor(scales, dtype=torch.float64, device=dev)
+    cen = torch.as_tensor(cents, dtype=torch.float64, device=dev)
+    t_raw = sc[:, None] * t.double() + cen
+    v_raw = sc[:, None, None] * v.double() - cen[:, None, :]
+    dim = v.shape[-1]
+    if sizes is None:
+        sizes = [v.shape[1]] * v.shape[0]
+    return [tf.CombinedTransformation(rot[i], t_raw[i], scale[i],
+                                      v_raw[i, :sizes[i]], dim=dim)
+            for i in range(len(sizes))]
+
+
+def _registration_bcpd_multistart_batch(sources, targets, *, w, maxiter,
+                                        tol, n_starts, device, lmd=2.0,
+                                        k=1.0e20, gamma=1.0, rank=None):
+    """Normalized multistart BCPD of an equal-size batch (reference
+    bcpd.py:1311): B pairs x S starts in one VI loop. ``sources`` /
+    ``targets``: (B, M, D) / (B, N, D) or lists of equal-size clouds.
+    Returns (raw-frame CombinedTransformations, the winners' raw-frame
+    sigma2 (B,) and winning starts (B,) as host arrays)."""
     from . import cost_functions as cf
 
-    (m, dim), n = src.shape, tgt.shape[0]
-    if dim != 3:
+    src = np.stack([np.asarray(interop.as_points(s, device="cpu"),
+                               np.float64) for s in sources])
+    tgt = np.stack([np.asarray(interop.as_points(t, device="cpu"),
+                               np.float64) for t in targets])
+    if src.shape[-1] != 3:
         raise ValueError("n_starts > 1 supports 3-D clouds only")
-    centroid = (src.sum(0) + tgt.sum(0)) / (m + n)
-    src_h, tgt_h = src - centroid, tgt - centroid
-    skc = ((src_h ** 2).sum() * n + (tgt_h ** 2).sum() * m
-           - 2.0 * src_h.sum(0) @ tgt_h.sum(0)) / (m * dim * n)
-    scale = max(float(np.sqrt(skc)), 1e-12)
+    cents, scales = _normalizers(src, tgt)
     dt = _config.config.dtype
 
     def dev_t(x):
         return torch.as_tensor(np.asarray(x, np.float64), dtype=dt).to(device)
 
-    transf, s2_n, best, _ = _run_bcpd_multistart(
-        dev_t(src_h / scale), dev_t(tgt_h / scale), dev_t(gamma), dev_t(lmd),
-        dev_t(k), cf.RigidCostFunction.initial_multistart_rots(int(n_starts)),
+    rot, t, scale, v, s2, best, _ = _run_bcpd_multistart_batch(
+        dev_t((src - cents[:, None]) / scales[:, None, None]),
+        dev_t((tgt - cents[:, None]) / scales[:, None, None]), dev_t(gamma),
+        dev_t(lmd), dev_t(k),
+        cf.RigidCostFunction.initial_multistart_rots(int(n_starts)),
         w=float(w), maxiter=int(maxiter), tol=float(tol), rank=rank,
         block=int(_config.config.estep_chunk))
-    rt = transf.rigid_trans
-    cen = torch.as_tensor(centroid, dtype=transf.v.dtype).to(device)
-    out = tf.CombinedTransformation(rt.rot, scale * rt.t + cen, rt.scale,
-                                    scale * transf.v - cen, dim=dim)
-    return out, float(s2_n) * scale ** 2, best
+    host = _fetch(torch.stack([s2.double(), best.double()])).numpy()
+    return (_denormalized(rot, t, scale, v, cents, scales),
+            host[0] * scales ** 2, host[1].astype(np.int64))
 
 
 def _registration_bcpd_impl(
@@ -741,9 +985,10 @@ def _registration_bcpd_impl(
         if tf_init_params or v_init is not None or sigma2_init is not None:
             raise ValueError("n_starts > 1 is incompatible with warm "
                              "starts (the orientation grid replaces them)")
-        out, s2_raw, _ = _registration_bcpd_multistart(
-            src, tgt, w=w, maxiter=maxiter, tol=tol, n_starts=n_starts,
+        outs, s2_raws, _ = _registration_bcpd_multistart_batch(
+            [src], [tgt], w=w, maxiter=maxiter, tol=tol, n_starts=n_starts,
             device=dev, **kwargs)
+        out, s2_raw = outs[0], float(s2_raws[0])
         return (out, s2_raw, None, None) if return_last else (out, s2_raw)
     extra = None if _alpha_init is None and _sdiag_init is None \
         else (_alpha_init, _sdiag_init)
@@ -864,7 +1109,130 @@ def registration_bcpd(
     return transf
 
 
-def registration_bcpd_batch(*args, **kwargs):
-    """Not ported yet (reference bcpd.py:1225), nor its multistart."""
-    raise NotImplementedError(_NOT_PORTED.format(
-        "registration_bcpd_batch (and its n_starts > 1)"))
+def _registration_bcpd_ragged(sources, targets, *, w, maxiter, tol, lmd, k,
+                              gamma, rank, normalize, n_starts, device):
+    """Ragged-batch BCPD (reference bcpd.py:1365): per-pair normalization
+    on the host in float64, the masked VI of all pairs (or pairs x starts)
+    in one loop, v sliced back to each pair's source."""
+    from . import cost_functions as cf
+
+    srcs = [np.asarray(interop.as_points(s, device="cpu"), np.float64)
+            for s in sources]
+    tgts = [np.asarray(interop.as_points(t, device="cpu"), np.float64)
+            for t in targets]
+    dim = srcs[0].shape[1]
+    if normalize:
+        cents, scales = _normalizers(srcs, tgts)
+        # sigma2_0 = gamma * the normalized pair's squared-kernel sum,
+        # exactly gamma: that is what the rescale enforces.
+        sig0s = np.full(len(srcs), float(gamma))
+    else:
+        cents, scales = np.zeros((len(srcs), dim)), np.ones(len(srcs))
+        sig0s = gamma * np.asarray([mu.squared_kernel_sum_np(sr, tg)
+                                    for sr, tg in zip(srcs, tgts)])
+    dt = _config.config.dtype
+    src_p, smask = interop.pad_ragged(
+        [(sr - c) / s for sr, c, s in zip(srcs, cents, scales)], dt, device)
+    tgt_p, tmask = interop.pad_ragged(
+        [(tg - c) / s for tg, c, s in zip(tgts, cents, scales)], dt, device)
+    min_m = min(sr.shape[0] for sr in srcs)
+    if rank is not None and int(rank) > min_m:
+        raise ValueError(
+            "rank=%d exceeds the smallest source cloud (%d points) in the "
+            "ragged batch" % (int(rank), min_m))
+
+    def dev_t(x):
+        return torch.as_tensor(np.asarray(x, np.float64), dtype=dt).to(device)
+
+    kw = dict(w=float(w), maxiter=int(maxiter), tol=float(tol),
+              rank=None if rank is None else int(rank),
+              block=int(_config.config.estep_chunk), smasks=smask,
+              tmasks=tmask, min_m=None if rank is None else min_m)
+    if n_starts > 1:
+        rot, t, scale, v, *_ = _run_bcpd_multistart_batch(
+            src_p, tgt_p, dev_t(gamma), dev_t(lmd), dev_t(k),
+            cf.RigidCostFunction.initial_multistart_rots(int(n_starts), dim),
+            **kw)
+    else:
+        rot, t, scale, v = _run_bcpd_batch(
+            src_p, tgt_p, dev_t(sig0s), dev_t(lmd), dev_t(k), **kw)
+    return _denormalized(rot, t, scale, v, cents, scales,
+                         [sr.shape[0] for sr in srcs])
+
+
+def registration_bcpd_batch(
+    sources,
+    targets,
+    w: float = 0.0,
+    maxiter: int = 50,
+    tol: float = 0.001,
+    lmd: float = 2.0,
+    k: float = 1.0e20,
+    gamma: float = 1.0,
+    rank=None,
+    normalize: bool = True,
+    n_starts: int = 1,
+    device=None,
+) -> List[tf.CombinedTransformation]:
+    """Register B cloud pairs with BCPD in one VI loop (reference
+    bcpd.py:1225; the reference's registration_bcpd takes one pair).
+
+    Args:
+        sources: (B, M, D) or a list of (M_b, D) clouds.
+        targets: (B, N, D) or a list of (N_b, D) clouds. Lists of clouds
+            of different sizes are a ragged batch: zero-padded, with masks
+            under which padded points carry no posterior mass and the
+            Dirichlet and outlier normalizers and the Nystrom landmarks use
+            the true counts.
+        w, maxiter, tol, lmd, k, gamma, rank, normalize: as
+            :func:`registration_bcpd` takes them, for every pair; each pair
+            is normalized on its own (on the host, in float64).
+        n_starts: VI restarts over the orientation grid for every pair
+            (normalized only; a fixed batch 3-D only): B x S rows in one
+            loop, each pair's least final NN-RMSE wins.
+        device: Device to run on (default ``config.device``, "cuda"). A
+            missing CUDA device raises instead of running on the CPU.
+
+    All rows run in one loop, one host read per iteration for all of them;
+    a row whose criterion has converged keeps its state while the others
+    go on.
+
+    Returns:
+        A list of B CombinedTransformations; each ``v`` has its source's
+        true size.
+    """
+    dev = _config.resolve_device(device)
+    ragged = isinstance(sources, (list, tuple)) \
+        or isinstance(targets, (list, tuple))
+    if n_starts > 1 and not normalize:
+        raise ValueError("n_starts > 1 requires the normalized path")
+    if n_starts > 1 and not ragged:
+        return _registration_bcpd_multistart_batch(
+            sources, targets, w=w, maxiter=maxiter, tol=tol,
+            n_starts=n_starts, device=dev, lmd=lmd, k=k, gamma=gamma,
+            rank=rank)[0]
+    if ragged:
+        return _registration_bcpd_ragged(
+            list(sources), list(targets), w=w, maxiter=maxiter, tol=tol,
+            lmd=lmd, k=k, gamma=gamma, rank=rank, normalize=normalize,
+            n_starts=n_starts, device=dev)
+    src = np.asarray(interop.as_points(sources, device="cpu"), np.float64)
+    tgt = np.asarray(interop.as_points(targets, device="cpu"), np.float64)
+    bsz, _, dim = src.shape
+    if normalize:
+        cents, scales = _normalizers(src, tgt)
+    else:
+        cents, scales = np.zeros((bsz, dim)), np.ones(bsz)
+    dt = _config.config.dtype
+
+    def dev_t(x):
+        return torch.as_tensor(np.asarray(x, np.float64), dtype=dt).to(dev)
+
+    src_t = dev_t((src - cents[:, None]) / scales[:, None, None])
+    tgt_t = dev_t((tgt - cents[:, None]) / scales[:, None, None])
+    rot, t, scale, v = _run_bcpd_batch(
+        src_t, tgt_t, dev_t(gamma) * _squared_kernel_sums(src_t, tgt_t),
+        dev_t(lmd), dev_t(k), w=float(w), maxiter=int(maxiter),
+        tol=float(tol), rank=None if rank is None else int(rank),
+        block=int(_config.config.estep_chunk))
+    return _denormalized(rot, t, scale, v, cents, scales)

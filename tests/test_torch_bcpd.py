@@ -472,8 +472,8 @@ def test_combined_from_reference_moves_source_as_jax_does():
 def test_unported_options_raise_and_branches(monkeypatch):
     src, tgt = _fish()
     # n_starts and callback_chunk run (tests/test_torch_multistart.py,
-    # test_torch_callbacks.py) with the reference's refusals; the batch
-    # entry point, and its multistart, wait for item 9.
+    # test_torch_callbacks.py) with the reference's refusals, and so does
+    # the batch entry point (tests/test_torch_bcpd_batch.py).
     with pytest.raises(ValueError, match="3-D clouds only"):
         pb.registration_bcpd(src, tgt, device="cpu", n_starts=4)
     with pytest.raises(ValueError, match="normalized no-callback"):
@@ -489,8 +489,15 @@ def test_unported_options_raise_and_branches(monkeypatch):
     pb.registration_bcpd(src, tgt, device="cpu", maxiter=3, tol=0.0,
                          callbacks=[seen.append], callback_chunk=4)
     assert len(seen) == 3
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        pb.registration_bcpd_batch([src], [tgt])
+    with pytest.raises(ValueError, match="requires the normalized path"):
+        pb.registration_bcpd_batch([src], [tgt], device="cpu", n_starts=4,
+                                   normalize=False)
+    with pytest.raises(ValueError, match="3-D clouds only"):
+        pb.registration_bcpd_batch(src[None], tgt[None], device="cpu",
+                                   n_starts=4)
+    with pytest.raises(ValueError, match="exceeds the smallest source"):
+        pb.registration_bcpd_batch([src, src[:20]], [tgt, tgt[:20]],
+                                   device="cpu", rank=30)
     # The culled branch needs a CUDA device, the knob, the size and rank=.
     assert pcfg.config.bcpd_culled_max_points == 750_000
     bc = pb.CombinedBCPD(src, rank=20, device="cpu")

@@ -2087,3 +2087,134 @@ def test_ifgt_on_the_card_matches_the_cpu_and_exact(dev):
     exact = pgt.GaussTransform(src, 0.4).compute(tgt, w)
     assert float((card.cpu() - cpu).abs().max()) <= 1e-5 * w.sum()
     assert float((card - exact).abs().max()) <= (1e-4 + 2e-6) * w.sum()
+
+
+# --------------------------------------------------------------------------
+# BCPD batches and the sequence trackers: the card against the CPU
+# --------------------------------------------------------------------------
+
+def _horse_subsets():
+    import os
+
+    from probreg_tpu_torch.utils import io as pio
+
+    pts = pio.read_point_cloud(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data",
+        "horse.ply"))
+    return pts[::16].astype(np.float32), pts[::24].astype(np.float32)
+
+
+def _turned(pts, deg):
+    from probreg_tpu_torch.utils import se3_op
+
+    rot = se3_op.euler2mat(*np.deg2rad(deg)).numpy()
+    return (pts @ rot.T).astype(np.float32)
+
+
+def _bcpd_batch_case(case):
+    big, small = _horse_subsets()
+    turned = [_turned(big, [8.0, -4.0, 6.0]),
+              _turned(small, [0.0, 0.0, 10.0]) + 0.01]
+    return {
+        "fixed": (np.stack([big, big]), np.stack(
+            [turned[0], _turned(big, [0.0, 0.0, 10.0]) + 0.01]), {}),
+        "ragged": ([big, small], turned, {}),
+        "ragged_rank16": ([big, small], turned, dict(rank=16)),
+        "search4": ([big, small], [_turned(big, [0.0, 0.0, 120.0]),
+                                   turned[1]], dict(n_starts=4)),
+    }[case]
+
+
+def _moved_np(res, sources):
+    return [r.transform(torch.as_tensor(s, device=r.device)).double().cpu()
+            .numpy() for r, s in zip(res, sources)]
+
+
+@pytest.mark.parametrize("case", ["fixed", "ragged", "ragged_rank16",
+                                  "search4"])
+def test_bcpd_batch_on_the_card_matches_the_cpu(dev, case):
+    """registration_bcpd_batch at depth 12 (tol 0), the card against the
+    CPU: transform(source) within 1e-4 of the extent (the bound of
+    tests/test_torch_bcpd_batch.py against the JAX package); no kernel."""
+    from probreg_tpu_torch import bcpd as pb
+    from probreg_tpu_torch.ops import bcpd_cuda as pbc
+
+    sources, targets, kw = _bcpd_batch_case(case)
+    kw = dict(kw, maxiter=12, tol=0.0, lmd=10.0)
+    before = dict(pbc.LAUNCHES)
+    card = _moved_np(pb.registration_bcpd_batch(sources, targets,
+                                                device=dev, **kw), sources)
+    assert pbc.LAUNCHES == before
+    cpu = _moved_np(pb.registration_bcpd_batch(sources, targets,
+                                               device="cpu", **kw), sources)
+    for a, b, t, s in zip(card, cpu, targets, sources):
+        extent = float(np.ptp(t, 0).max())
+        assert np.abs(b - s).max() > 1e-2 * extent
+        np.testing.assert_allclose(a, b, atol=1e-4 * extent)
+
+
+def test_bcpd_batch_pair_matches_its_single_call_on_the_card(dev):
+    """Each pair of a batch on the card against registration_bcpd of that
+    pair on the card, at depth 12: 1e-4 of the extent."""
+    from probreg_tpu_torch import bcpd as pb
+
+    sources, targets, _ = _bcpd_batch_case("ragged")
+    kw = dict(maxiter=12, tol=0.0, lmd=10.0)
+    batch = _moved_np(pb.registration_bcpd_batch(sources, targets,
+                                                 device=dev, **kw), sources)
+    for got, s, t in zip(batch, sources, targets):
+        one = _moved_np([pb.registration_bcpd(s, t, device=dev, **kw)],
+                        [s])[0]
+        np.testing.assert_allclose(got, one,
+                                   atol=1e-4 * float(np.ptp(t, 0).max()))
+
+
+def _track_frames(n=5):
+    big, _ = _horse_subsets()
+    frames = [big]
+    for k in range(1, n):
+        frames.append(_turned(big, [1.0 * k, -0.5 * k, 2.0 * k])
+                      + np.float32(0.005 * k))
+    return frames
+
+
+@pytest.mark.parametrize("algorithm", ["cpd", "filterreg", "icp"])
+def test_rigid_tracker_on_the_card_matches_the_cpu(dev, algorithm):
+    """Five frames: world poses within 1e-4 (entries; t of the extent);
+    ICP's solves are one K7 launch each on the card."""
+    from probreg_tpu_torch import tracking
+    from probreg_tpu_torch.ops import icp_cuda
+
+    frames = _track_frames()
+    extent = float(np.ptp(frames[0], 0).max())
+    kw = dict(algorithm=algorithm, maxiter=30, tol=1e-6)
+    before = icp_cuda.LAUNCHES["icp"]
+    card = [tracking.RigidTracker(device=dev, **kw)]
+    cpu = [tracking.RigidTracker(device="cpu", **kw)]
+    for f in frames:
+        a, b = card[0].update(f), cpu[0].update(f)
+        np.testing.assert_allclose(a.rot.cpu().numpy(), b.rot.numpy(),
+                                   atol=1e-4)
+        np.testing.assert_allclose(a.t.cpu().numpy(), b.t.numpy(),
+                                   atol=1e-4 * extent)
+    if algorithm == "icp":
+        assert icp_cuda.LAUNCHES["icp"] == before + len(frames) - 1
+
+
+def test_nonrigid_tracker_on_the_card_matches_the_cpu(dev):
+    """Five frames at maxiter 4 (the warm-started VI amplifies rounding
+    past that depth: tests/test_torch_tracking.py): the template moved
+    onto each frame within 1e-4 of the extent."""
+    from probreg_tpu_torch import tracking
+
+    frames = _track_frames()
+    template = frames[0]
+    kw = dict(maxiter=4, tol=0.0, lmd=10.0, rank=16)
+    card = tracking.NonrigidTracker(device=dev, **kw)
+    cpu = tracking.NonrigidTracker(device="cpu", **kw)
+    for f in frames:
+        a = card.update(f).transform(torch.as_tensor(template, device=dev))
+        b = cpu.update(f).transform(torch.as_tensor(template))
+        np.testing.assert_allclose(a.double().cpu().numpy(),
+                                   b.double().numpy(),
+                                   atol=1e-4 * float(np.ptp(f, 0).max()))

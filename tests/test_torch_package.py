@@ -44,6 +44,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import probreg_tpu_torch.l2dist_regs, probreg_tpu_torch.features\n"
         "import probreg_tpu_torch.cost_functions\n"
         "import probreg_tpu_torch.ops.bfgs, probreg_tpu_torch.ops.ifgt\n"
+        "import probreg_tpu_torch.tracking\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'probreg_tpu' or m.startswith('probreg_tpu.')]\n"
         "assert not bad, bad\n"

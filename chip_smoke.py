@@ -134,7 +134,20 @@ before it and read just after:
   ICP one launch of its whole-loop kernel a frame, CPD and FilterReg one
   at the cold first solve), and NonrigidTracker over 10 frames of a
   deforming horse[::2] (tests/test_tracking.py's deformation), against a
-  cold registration_bcpd of each frame.
+  cold registration_bcpd of each frame;
+* the rest of FilterReg, with no kernel of its own (the reference's
+  lattice, FPFH and Gauss-Newton step are XLA): lattice FilterReg
+  (estep_method='lattice') on the 150k clouds at the FilterReg phase's
+  settings, against the truth and the dense K6 route, and a 2,000-point
+  lattice on the card against the CPU; DeformableKinematicFilterReg on
+  the bent bar of examples/filterreg_deformable.py (card against CPU)
+  and on a 20,000-point blobby_surface skinned to 4 nodes and moved by
+  known twists (M N = 4e8: every E-step one launch of the tile-culled
+  Gauss transform, gauss_transform, counted into its launches; the node
+  poses against the truth), a 1,000-point piece card against CPU; FPFH of
+  the bunny at examples/filterreg_feature.py's settings (card against
+  CPU) and feature FilterReg on that bunny turned 10 degrees;
+* a checkpoint round trip of a card result and profiling.time_fn.
 
 Prints the card, a {"kernels": [...]} line and, last, {"ok": true, ...}.
 Exits non-zero without a CUDA device or when any phase fails.
@@ -5765,6 +5778,374 @@ def run_tracking(dev, launches):
         raise AssertionError("NonrigidTracker lost the template")
 
 
+# --------------------------------------------------------------------------
+# The rest of FilterReg (run_filterreg_lattice, run_deformable, run_fpfh)
+# and the small modules (run_modules). No kernel of their own: the lattice,
+# FPFH and the Gauss-Newton M-step are torch operations, as they are XLA in
+# the reference; the deformable E-step at M N >= 2^28 is K6.
+# --------------------------------------------------------------------------
+
+LAT_ARGS = dict(maxiter=40, tol=1e-8, sigma2_decay=0.9)   # run_filterreg_large's
+LAT_ROT_ERR_MAX = FRG_ROT_ERR_MAX
+# rad, the lattice pose against the dense K6 route's: each is within
+# FRG_ROT_ERR_MAX of the truth after these 40 annealing iterations.
+LAT_DENSE_AGREE = FRG_ROT_ERR_MAX
+LAT_CHECK_POINTS = 1_000          # per cloud: the 2,000-point card/CPU check
+DEF_POINTS = 20_000
+DEF_NODES = np.array([[-0.8, 0, 0], [-0.27, 0, 0], [0.27, 0, 0],
+                      [0.8, 0, 0]], np.float32)
+DEF_TWISTS = np.array([[0, 0, 0, 0, 0, 0],
+                       [0.03, 0.05, 0.08, 0.01, 0.02, 0.0],
+                       [0.0, -0.06, 0.1, 0.02, 0.03, -0.01],
+                       [0.05, 0.0, 0.15, 0.03, 0.05, -0.02]], np.float32)
+# examples/filterreg_deformable.py's maxiter: on the CPU at 20,000 points
+# the node poses settle to 1.6e-4 by iteration 45 (4.2e-2 at 30).
+DEF_ARGS = dict(maxiter=50, tol=1e-6)
+DEF_SIGMA2 = 0.01
+DEF_DQ_ERR_MAX = 1e-3
+DEF_CPU_POINTS = 1_000
+DEF_AGREE = 1e-4                  # card / CPU dual quaternions, fixed depth
+BAR_RMSE_MAX = 0.04               # the reference's example ends at 0.0374
+FPFH_ARGS = dict(radius_normal=0.02, radius_feature=0.05)
+FPFH_OFF_SHARE = 0.03             # tests/test_torch_fpfh.py's rule
+FPFH_TIMING_POINTS = 20_000
+FEAT_TRUTH_DEG = 3.0              # both packages end 10 deg -> 8.32 deg
+FEAT_AGREE_DEG = 0.5
+
+
+def lattice_counted():
+    """Wraps ops/permutohedral.build to count the builds (each one device
+    synchronisation: the vertex count sizes the table); returns the list of
+    counts and the restore function."""
+    from probreg_tpu_torch.ops import permutohedral as ph
+
+    calls, build = [], ph.build
+
+    def counted(*a, **k):
+        calls.append(1)
+        return build(*a, **k)
+
+    ph.build = counted
+    return calls, lambda: setattr(ph, "build", build)
+
+
+def run_filterreg_lattice(dev, launches):
+    """Lattice FilterReg (estep_method='lattice') on the 150k pair of
+    examples/largescale_rigid.py at run_filterreg_large's settings: the
+    pose against the truth and against the dense K6 route's, the second
+    call's wall time, builds and host reads an iteration, peak memory. Then
+    the lattice build and filter of a 2,000-point pair on the card against
+    the CPU, to tests/test_torch_lattice.py's tolerances."""
+    from probreg_tpu_torch import filterreg
+    from probreg_tpu_torch.ops import permutohedral as ph
+    from probreg_tpu_torch.utils import se3_op
+
+    src, tgt, rot = large_clouds(dev)
+    log(f"[FilterReg lattice] registration_filterreg(estep_method="
+        f"'lattice'), {N_LARGE:,} points, {LAT_ARGS}")
+    t0 = time.perf_counter()
+    filterreg.registration_filterreg(src, tgt, estep_method="lattice",
+                                     device=dev, **LAT_ARGS)
+    sync(dev)
+    log(f"  warm call {time.perf_counter() - t0:.3f} s")
+    iters = []
+    step = filterreg._mstep_from_moments_t
+
+    def counted_mstep(*a, **k):
+        iters.append(1)
+        return step(*a, **k)
+
+    calls, restore = lattice_counted()
+    filterreg._mstep_from_moments_t = counted_mstep
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = filterreg.registration_filterreg(
+            src, tgt, estep_method="lattice", device=dev, **LAT_ARGS)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+        filterreg._mstep_from_moments_t = step
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    expect_launches("150k lattice FilterReg")
+    dense = filterreg.registration_filterreg(src, tgt, device=dev,
+                                             **LAT_ARGS)
+    err = rot_err(res.transformation.rot, rot)
+    agree = float(se3_op.rotation_angle(
+        res.transformation.rot.cpu().double(),
+        dense.transformation.rot.cpu().double()))
+    n = len(iters)
+    log(f"  timed call {wall:.3f} s ({wall / n * 1e3:.1f} ms an iteration), "
+        f"{n} iterations, {len(calls)} lattice builds ({len(calls) / n:.2f} "
+        f"an iteration), host reads {(len(calls) + n) / n:.2f} an iteration "
+        f"(each build's vertex count and the loop test), peak "
+        f"{peak:.1f} MiB; rotation error {err:.3e} rad against the truth, "
+        f"{agree:.3e} rad against the dense K6 route's pose")
+    if not (err <= LAT_ROT_ERR_MAX and agree <= LAT_DENSE_AGREE
+            and math.isfinite(float(res.sigma2))):
+        raise AssertionError("150k lattice FilterReg wrong")
+
+    fin = np.concatenate([src[:LAT_CHECK_POINTS], tgt[:LAT_CHECK_POINTS]]) \
+        / 0.05
+    vals = np.random.default_rng(1).standard_normal(
+        (len(fin), 5)).astype(np.float32)
+    for blur in (True, False):
+        lat_c = ph.build(torch.from_numpy(fin), with_blur=blur)
+        lat_g = ph.build(torch.from_numpy(fin).to(dev), with_blur=blur)
+        same = (lat_c.size == lat_g.size and all(
+            torch.equal(a, b.cpu()) for a, b in (
+                (lat_c.offsets, lat_g.offsets), (lat_c.n1, lat_g.n1),
+                (lat_c.n2, lat_g.n2))))
+        d_bary = float((lat_c.barycentric - lat_g.barycentric.cpu())
+                       .abs().max())
+        want = ph.filter(lat_c, torch.from_numpy(vals),
+                         start=LAT_CHECK_POINTS, with_blur=blur)
+        got = ph.filter(lat_g, torch.from_numpy(vals).to(dev),
+                        start=LAT_CHECK_POINTS, with_blur=blur).cpu()
+        d_out = float((got - want).abs().max() / want.abs().max())
+        log(f"  lattice of {len(fin):,} points (blur {blur}), card against "
+            f"CPU: {lat_g.size} vertices, structure "
+            f"{'identical' if same else 'DIFFERENT'}, barycentric max diff "
+            f"{d_bary:.2e}, filter max diff {d_out:.2e} of its largest")
+        if not (same and d_bary <= 2e-6 and d_out <= 2e-6):
+            raise AssertionError("card lattice disagrees with the CPU's")
+
+
+def rot_err(rot_got, rot_true):
+    from probreg_tpu_torch.utils import se3_op
+
+    return float(se3_op.rotation_angle(rot_got.cpu().double(),
+                                       torch.as_tensor(rot_true).double()))
+
+
+def skinned_surface(n):
+    """blobby_surface(n, seed=5) skinned to the 4 DEF_NODES (each point's
+    two nearest, weighted by inverse distance) and moved by DEF_TWISTS."""
+    from probreg_tpu_torch.models import transformation as tf
+    from probreg_tpu_torch.utils import datagen
+    from probreg_tpu_torch.utils import dualquat as dq
+
+    pts = datagen.blobby_surface(n, seed=5).astype(np.float32)
+    d = np.linalg.norm(pts[:, None] - DEF_NODES[None], axis=2)
+    pair = np.argsort(d, 1)[:, :2]
+    inv = 1.0 / np.maximum(np.take_along_axis(d, pair, 1), 1e-3)
+    ws = tf.DeformableKinematicModel.SkinningWeight(
+        pair, (inv / inv.sum(1, keepdims=True)).astype(np.float32))
+    truth = dq.from_twist(torch.from_numpy(DEF_TWISTS))
+    tgt = tf.DeformableKinematicModel(truth, ws, device="cpu").transform(
+        pts).numpy()
+    return pts, tgt, ws, truth
+
+
+def dq_error(got, truth):
+    """Largest entry error of dual quaternions, each sign-aligned (q and -q
+    are one pose)."""
+    got = got.cpu()
+    sign = torch.sign((got[:, :4] * truth[:, :4]).sum(1, keepdim=True))
+    return float((got * sign - truth).abs().max())
+
+
+def run_deformable(dev, launches):
+    """DeformableKinematicFilterReg: the bent bar of
+    examples/filterreg_deformable.py (its colinear skinning leaves the node
+    poses unobservable: both packages end at the same non-truth poses, the
+    CPU tests hold the port to the reference there), card against CPU; a
+    DEF_POINTS blobby_surface skinned to 4 nodes and moved by known twists
+    (M N = 4e8 >= 2^28: every E-step is one K6 launch, counted into K6's
+    launches), the node poses against the truth, EM iterations and
+    Gauss-Newton steps, the E-step and M-step device times, the second
+    call's wall time and peak memory; then card against CPU on a
+    DEF_CPU_POINTS piece at a fixed depth."""
+    from probreg_tpu_torch import filterreg
+    from probreg_tpu_torch.models import transformation as tf
+    from probreg_tpu_torch.utils import dualquat as dq
+    from probreg_tpu_torch.utils import se3_op
+
+    n = 30
+    bar = np.array([[i * 0.05, 0.0, 0.0] for i in range(n)], np.float32)
+    q1 = dq.from_rot_trans(se3_op.mat2quat(se3_op.euler2mat(
+        0.0, 0.0, np.deg2rad(30.0)).float()), torch.tensor([0.0, 0.0, 0.3]))
+    w = np.arange(n, dtype=np.float32) / n
+    ws = tf.DeformableKinematicModel.SkinningWeight(
+        np.tile([[0, 1]], (n, 1)), np.stack([w, 1.0 - w], 1))
+    bar_tgt = tf.DeformableKinematicModel(
+        torch.stack([dq.identity(), q1]), ws, device="cpu").transform(
+        bar).numpy()
+    out = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        reg = filterreg.DeformableKinematicFilterReg(bar, ws, 0.01,
+                                                     update_sigma2=True,
+                                                     device=d)
+        out[where] = reg.registration(bar_tgt, maxiter=50, tol=1e-6)
+    moved = out["card"].transformation.transform(bar).cpu().numpy()
+    rmse = float(np.sqrt(((moved - bar_tgt) ** 2).mean()))
+    d_bar = float((out["card"].transformation.dualquats.cpu()
+                   - out["cpu"].transformation.dualquats).abs().max())
+    log(f"[deformable] the bent bar (30 points, sigma2 0.01, maxiter 50): "
+        f"residual RMSE {rmse:.4f}, card against CPU dual quaternions "
+        f"{d_bar:.2e}")
+    if not (rmse <= BAR_RMSE_MAX and d_bar <= DEF_AGREE):
+        raise AssertionError("the bent bar's deformable registration")
+
+    src, tgt, ws, truth = skinned_surface(DEF_POINTS)
+    log(f"[deformable] {DEF_POINTS:,}-point blobby_surface, 4 nodes, "
+        f"sigma2 {DEF_SIGMA2}, update_sigma2, {DEF_ARGS}")
+
+    def register():
+        reg = filterreg.DeformableKinematicFilterReg(
+            src, ws, DEF_SIGMA2, update_sigma2=True, device=dev)
+        return reg.registration(tgt, **DEF_ARGS)
+
+    t0 = time.perf_counter()
+    register()
+    sync(dev)
+    log(f"  warm call {time.perf_counter() - t0:.3f} s")
+    spans = []
+    moments, mstep = filterreg.gto.filterreg_moments, \
+        filterreg._deformable_mstep
+    filterreg.gto.filterreg_moments = evented(spans, "estep", moments)
+    filterreg._deformable_mstep = evented(spans, "mstep", mstep)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = register()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        filterreg.gto.filterreg_moments = moments
+        filterreg._deformable_mstep = mstep
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    n_em = sum(1 for s in spans if s[0] == "estep")
+    n_gt = all_launches()["gauss_transform"]
+    expect_launches("deformable 20k", gauss_transform=n_em)
+    launches["gauss_transform"] = launches.get("gauss_transform", 0) + n_gt
+    ms = {k: float(np.median([a.elapsed_time(b) for name, a, b in spans
+                              if name == k])) for k in ("estep", "mstep")}
+    err = dq_error(res.transformation.dualquats, truth)
+    moved = res.transformation.transform(src).cpu().numpy()
+    rmse = float(np.sqrt(((moved - tgt) ** 2).sum(1).mean()))
+    log(f"  timed call {wall:.3f} s, {n_em} EM iterations, K6 launches "
+        f"{n_gt}, Gauss-Newton steps {50 * n_em} (50 an M-step, frozen once "
+        f"converged: no host read inside), E-step {ms['estep']:.3f} ms and "
+        f"M-step {ms['mstep']:.3f} ms (medians, CUDA events), peak "
+        f"{peak:.1f} MiB; node dual quaternions {err:.2e} from the truth, "
+        f"residual RMSE {rmse:.2e}")
+    if not (n_gt == n_em and err <= DEF_DQ_ERR_MAX):
+        raise AssertionError("deformable 20k registration wrong")
+
+    src, tgt, ws, truth = skinned_surface(DEF_CPU_POINTS)
+    got = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        pair, val = ws.tensors(torch.float32, d)
+        got[where] = filterreg._run_em_deformable(
+            torch.from_numpy(src).to(d), torch.from_numpy(tgt).to(d),
+            dq.identity(device=d).repeat(4, 1), pair, val, DEF_SIGMA2,
+            update_sigma2=True, w=0.0, maxiter=8, tol=0.0,
+            min_sigma2=1e-4)[0].cpu()
+    d_cpu = float((got["card"] - got["cpu"]).abs().max())
+    log(f"  {DEF_CPU_POINTS:,} points, 8 iterations: card against CPU dual "
+        f"quaternions {d_cpu:.2e}")
+    if not d_cpu <= DEF_AGREE:
+        raise AssertionError("card deformable loop disagrees with the CPU")
+
+
+def feature_bunny():
+    """examples/filterreg_feature.py: the bunny at voxel 0.01, a shuffled
+    copy with 1e-3 noise turned 10 degrees about z (seed 4, no outliers)."""
+    from probreg_tpu_torch.utils import io
+
+    rng = np.random.default_rng(4)
+    src = io.voxel_down_sample(io.read_point_cloud(data_path("bunny.pcd")),
+                               0.01)
+    tgt = src.copy()
+    rng.shuffle(tgt)
+    tgt = tgt + 1e-3 * rng.standard_normal(tgt.shape)
+    return src.astype(np.float32), (tgt @ z_rotation(10.0).T).astype(
+        np.float32)
+
+
+def run_fpfh(dev, launches):
+    """FPFH at examples/filterreg_feature.py's settings: the bunny's
+    histograms on the card against the CPU (the share of entries apart by
+    more than 0.1, tests/test_torch_fpfh.py's rule), the time of one FPFH
+    of the bunny and of a FPFH_TIMING_POINTS surface; feature-space
+    FilterReg of that bunny turned 10 degrees against the truth and
+    against the CPU run."""
+    from probreg_tpu_torch import features, filterreg
+    from probreg_tpu_torch.utils import datagen
+
+    src, tgt = feature_bunny()
+    fn_c = features.FPFH(**FPFH_ARGS, device="cpu")
+    fn_g = features.FPFH(**FPFH_ARGS, device=dev)
+    want, got = fn_c(src), fn_g(src).cpu()
+    off = float(((got - want).abs() > 0.1).double().mean())
+    ms = timed(lambda: fn_g(src), 5)
+    big = torch.from_numpy(datagen.blobby_surface(
+        FPFH_TIMING_POINTS, seed=1).astype(np.float32)).to(dev)
+    fn_big = features.FPFH(0.05, 0.12, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    ms_big = timed(lambda: fn_big(big), 3)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"[FPFH] bunny {len(src)} points {FPFH_ARGS}: card against CPU, "
+        f"{off:.2%} of the entries apart by more than 0.1; {ms:.3f} ms a "
+        f"call; {FPFH_TIMING_POINTS:,}-point surface {ms_big:.2f} ms, peak "
+        f"{peak:.1f} MiB")
+    if not (got.shape == (len(src), 33) and off <= FPFH_OFF_SHARE):
+        raise AssertionError("card FPFH disagrees with the CPU's")
+    euler = {}
+    for where, d, fn in (("card", dev, fn_g),
+                         ("cpu", torch.device("cpu"), fn_c)):
+        t0 = time.perf_counter()
+        res = filterreg.registration_filterreg(
+            src, tgt, objective_type="pt2pt", feature_fn=fn, device=d)
+        sync(d)
+        euler[where] = (np.rad2deg(_euler(res.transformation.rot)),
+                        time.perf_counter() - t0)
+    deg, wall = euler["card"]
+    log(f"  feature FilterReg (FPFH), bunny turned 10 deg: {wall:.3f} s, "
+        f"recovered {np.round(deg, 3).tolist()} deg (CPU "
+        f"{np.round(euler['cpu'][0], 3).tolist()})")
+    if not (abs(deg[2] - 10.0) <= FEAT_TRUTH_DEG
+            and np.abs(deg - euler["cpu"][0]).max() <= FEAT_AGREE_DEG):
+        raise AssertionError("feature FilterReg wrong")
+
+
+def _euler(rot):
+    from probreg_tpu_torch.utils import se3_op
+
+    return se3_op.mat2euler(rot.cpu()).numpy()
+
+
+def run_modules(dev, launches):
+    """The small modules: a card result saved with utils/checkpoint and
+    loaded back onto the card, and utils/profiling.time_fn of one bunny
+    FilterReg registration."""
+    import tempfile
+
+    from probreg_tpu_torch import filterreg
+    from probreg_tpu_torch.utils import checkpoint, profiling
+
+    src, tgt = bunny_clouds(z_rotation(10.0))
+    res = filterreg.registration_filterreg(src, tgt, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        checkpoint.save_state(path, res)
+        back = checkpoint.load_state(path, res)
+    same = (back.transformation.rot.device == res.transformation.rot.device
+            and torch.equal(back.transformation.rot, res.transformation.rot)
+            and torch.equal(back.transformation.t, res.transformation.t))
+    sec = profiling.time_fn(filterreg.registration_filterreg, src, tgt,
+                            device=dev, n_iter=5)
+    log(f"[modules] checkpoint round trip of a card result: "
+        f"{'same bits' if same else 'DIFFERENT'}; profiling.time_fn of the "
+        f"bunny FilterReg {sec * 1e3:.3f} ms")
+    if not same:
+        raise AssertionError("checkpoint round trip changed the result")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5829,6 +6210,10 @@ def main() -> int:
                         (run_l2dist, (dev, launches)),
                         (run_bcpd_batch, (dev, launches)),
                         (run_tracking, (dev, launches)),
+                        (run_filterreg_lattice, (dev, launches)),
+                        (run_deformable, (dev, launches)),
+                        (run_fpfh, (dev, launches)),
+                        (run_modules, (dev, launches)),
                         (run_sharded_one_rank, (dev, launches, shared)),
                         (run_mesh_on_one_card, (dev, launches, shared))):
         t0 = time.perf_counter()

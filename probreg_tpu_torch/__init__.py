@@ -1,8 +1,10 @@
 """probreg_tpu_torch: the PyTorch / CUDA port of probreg_tpu.
 
 A second package beside the JAX one. Rigid, affine, nonrigid and
-constrained nonrigid CPD (dense or low-rank), rigid FilterReg (pt2pt and
-pt2pl), ICP and GMMTree run end to end, single pairs, batches and large
+constrained nonrigid CPD (dense or low-rank), FilterReg (rigid pt2pt and
+pt2pl with the exact or the permutohedral-lattice E-step and any feature
+map, FPFH among them; and deformable-kinematic on dual quaternions), ICP
+and GMMTree run end to end, single pairs, batches and large
 clouds, and combined BCPD single pairs up to 10^5 points and beyond and
 batches of pairs (fixed-size or ragged, dense or low-rank, one VI loop for
 all of them); the
@@ -34,10 +36,19 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
+# The package surface of probreg_tpu/__init__.py.
 from . import bcpd, config, cost_functions, cpd  # noqa: E402,F401
 from . import features, filterreg, gauss_transform  # noqa: E402,F401
-from . import gmmtree, icp, l2dist_regs, log, parallel  # noqa: E402,F401
-from . import pyramid, tracking  # noqa: E402,F401
-from .models import transformation  # noqa: E402,F401
-from .utils import se3_op  # noqa: E402,F401
+from . import gaussian_filtering, gmmtree, icp, l2dist_regs  # noqa: E402,F401
+from . import log, math_utils, parallel, pyramid  # noqa: E402,F401
+from . import se3_op, tracking, transformation  # noqa: E402,F401
 from .version import __version__  # noqa: E402,F401
+
+
+def __getattr__(name):
+    # callbacks may pull in matplotlib or open3d: imported on first use.
+    if name == "callbacks":
+        import importlib
+
+        return importlib.import_module(".callbacks", __name__)
+    raise AttributeError(name)

@@ -9,6 +9,8 @@ port's device:
   on the box-constrained simplex, each projection exact in one shot over
   all 2n breakpoints; the support vectors are the means.
 
+:class:`FPFH` is FilterReg's feature map: 33-D histograms (ops/fpfh.py).
+
 Both fit a batch of clouds at once, (B, N, D) with an optional (B, N)
 validity mask for ragged batches: padded points never seed a centre,
 carry no responsibility and hold a zero dual weight, and every normalizer
@@ -48,6 +50,16 @@ class Feature(abc.ABC):
 
     def __call__(self, data):
         return self.compute(data)
+
+
+def np_prng_key(seed: int) -> np.ndarray:
+    """The reference's threefry key data of ``seed`` as numpy uint32 (2,)
+    (reference features.py:49). The port draws from ``torch.Generator``
+    (:func:`_seed_indices`); this keeps the reference's name for code that
+    passes keys across."""
+    seed = int(seed)
+    return np.asarray([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                      np.uint32)
 
 
 def _seed_indices(seed: int, n: int, k: int, smask=None, device=None):
@@ -250,17 +262,44 @@ class OneClassSVM(Feature):
 
 
 class FPFH(Feature):
-    """Fast Point Feature Histograms (reference features.py:263): not
-    ported yet."""
+    """Fast Point Feature Histograms, 33-D (reference features.py:263): the
+    descriptor of ``ops/fpfh`` on the port's device. Used as FilterReg's
+    ``feature_fn``: ``compute`` takes a cloud and returns (N, 33)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "features.FPFH needs ops/fpfh.py, not ported to "
-            "probreg_tpu_torch yet (ROADMAP.md, Queue 1 item 6); use "
-            "probreg_tpu.features.FPFH")
+    def __init__(self, radius_normal: float = 0.1,
+                 radius_feature: float = 0.5, max_nn_normal: int = 30,
+                 max_nn_feature: int = 100, device=None):
+        self._radius_normal = radius_normal
+        self._radius_feature = radius_feature
+        self._max_nn_normal = max_nn_normal
+        self._max_nn_feature = max_nn_feature
+        self.device = device
 
     def init(self):
         pass
 
+    def _points(self, data):
+        from .utils import interop
+
+        if isinstance(data, torch.Tensor) and self.device is None:
+            return data.to(torch.float32)
+        return interop.as_points(data, dtype=torch.float32,
+                                 device=self.device)
+
+    def estimate_normals(self, points):
+        """(N, 3) normals of a cloud (the reference sets them on its Open3D
+        cloud; here they are returned)."""
+        from .ops import fpfh as fpfh_ops
+
+        return fpfh_ops.estimate_normals(
+            self._points(points), radius=self._radius_normal,
+            max_nn=self._max_nn_normal)
+
     def compute(self, data):
-        raise NotImplementedError
+        from .ops import fpfh as fpfh_ops
+
+        return fpfh_ops.fpfh(
+            self._points(data), radius_normal=self._radius_normal,
+            radius_feature=self._radius_feature,
+            max_nn_normal=self._max_nn_normal,
+            max_nn_feature=self._max_nn_feature)

@@ -1,9 +1,14 @@
-"""Rigid FilterReg, pt2pt and pt2pl (counterpart of probreg_tpu/filterreg.py).
+"""FilterReg: rigid (pt2pt and pt2pl) and deformable-kinematic
+(counterpart of probreg_tpu/filterreg.py).
 
 The E-step moments M0, M1, M2 and NX of each source point are exact Gauss
 transforms of the target (ops/gausstransform.filterreg_moments), as in the
-reference's default ``estep_method='dense'``. ``registration_filterreg``
-splits by size as the reference does (filterreg.py:555-822):
+reference's default ``estep_method='dense'``, or, with
+``estep_method='lattice'``, the reference's permutohedral-lattice
+approximation (ops/permutohedral.py; it underestimates the moments by a
+d-dependent factor of ~0.7, so it is held to the reference's lattice, not
+to the dense moments). ``registration_filterreg`` splits by size as the
+reference does (filterreg.py:555-822):
 
 * a 3-D pair from the identity with M * N <= ``config.fused_em_max_pairs``
   (and the kernel's shared-memory gate): the whole EM in one launch of the
@@ -14,6 +19,15 @@ splits by size as the reference does (filterreg.py:555-822):
   Morton-sorted once, so from ``config.culled_estep_min_pairs`` on every
   E-step is one launch of the tile-culled Gauss transform
   (ops/gt_cuda.py).
+
+The other whole-EM loops: ``_run_em_rigid_lattice`` (the lattice rebuilt
+every iteration), ``_run_em_rigid_feature`` (a ``feature_fn``: the E-step
+in feature space, the M-step in point space, the source's features
+recomputed every iteration) and ``_run_em_deformable``
+(``DeformableKinematicFilterReg``: dual-quaternion blended skinning, a
+Gauss-Newton M-step over all node twists; its exact E-step takes the
+tile-culled kernel from M * N >= 2^28). A ``feature_fn`` may be any
+callable: a numpy result is moved to the loop's device.
 
 ``registration_filterreg_batch`` registers B pairs, fixed-size or ragged,
 in one launch of the whole-EM kernel where the pairs fit it.
@@ -30,12 +44,12 @@ whole-EM kernel (the dense loop runs instead); the streaming E-step's
 Gauss transform follows its own size gate, as in the reference.
 
 The EM loops are Python loops that read q once per iteration for the
-|q - q_prev| < tol test. ``callbacks`` run the reference's host loop over
+|q - q_prev| < tol test. ``callbacks``, and the combinations no whole-EM
+loop takes (the deformable model with the lattice or a ``feature_fn``,
+the lattice with a ``feature_fn``), run the reference's host loop over
 ``expectation_step`` / ``maximization_step``, ``callback_chunk`` K of its
 steps queued between two host reads (utils/chunked.py): the callbacks see
-the same transforms for every K. The permutohedral lattice E-step, the
-deformable-kinematic model and feature functions come with a later slice
-of the port (ROADMAP, Queue 1 item 6).
+the same transforms for every K.
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ import math
 from collections import namedtuple
 from typing import Any, Callable, List, Optional
 
+import numpy as np
 import torch
 
 from . import config as _config
@@ -53,8 +68,10 @@ from .log import log
 from .models import transformation as tf
 from .ops import gausstransform as gto
 from .ops import pairwise as _pw
+from .ops import permutohedral as phops
 from .ops import rigid_solvers
 from .utils import chunked
+from .utils import dualquat as dq
 from .utils import interop
 from .utils import math_utils as mu
 from .utils import se3_op as so
@@ -71,8 +88,12 @@ MstepResult.__doc__ = """Result of Maximization step.
 
 _EPS = float(torch.finfo(torch.float32).eps)
 _OBJECTIVES = ("pt2pt", "pt2pl")
-_NOT_PORTED = ("{} is not ported to probreg_tpu_torch yet (ROADMAP.md, "
-               "Queue 1 item 6); use probreg_tpu.filterreg")
+# The blur switch of the lattice E-step: blur while the lattice has at
+# most alpha * N vertices (reference filterreg.py:491).
+_ALPHA = 0.015
+
+# Module-level alias (reference filterreg.py:58).
+dualquat_from_twist = dq.from_twist
 
 
 def _check_objective(objective_type, normals):
@@ -418,6 +439,238 @@ def _run_em_rigid_batch(sources, targets, normals, sigma2_0, smasks=None,
 
 
 # --------------------------------------------------------------------------
+# The lattice E-step, feature maps and the deformable-kinematic M-step
+# --------------------------------------------------------------------------
+
+def _features(feature_fn, x: torch.Tensor) -> torch.Tensor:
+    """``feature_fn(x)`` as a tensor on x's device and dtype; a numpy (or
+    other array) result is moved there."""
+    f = feature_fn(x)
+    if not isinstance(f, torch.Tensor):
+        f = torch.as_tensor(np.asarray(f))
+    return f.to(device=x.device, dtype=x.dtype)
+
+
+def _lattice_filter(fin, vin, m, n, alpha):
+    """The lattice E-step's filter (reference filterreg.py:516-531): splat
+    the target rows of ``vin`` from ``m`` on, slice the first m rows. The
+    blur runs while the blurred lattice has at most alpha n vertices, else
+    the lattice is rebuilt without blur (the blurred one's neighbours are
+    then never searched). The switch reads no more from the device than
+    the build does (its vertex count sizes the table)."""
+    lat = phops.build(fin, with_blur=True, max_size=int(n * alpha))
+    blur = lat is not None
+    if not blur:
+        lat = phops.build(fin, with_blur=False)
+    return phops.filter(lat, vin, start=m, with_blur=blur)[:m]
+
+
+def _run_em_rigid_lattice(source, target, normals, rot0, t0, sigma2_0, *,
+                          objective_type, update_sigma2, w, maxiter, tol,
+                          min_sigma2, sigma2_decay=1.0, auto_sigma2=False,
+                          alpha=_ALPHA):
+    """Whole-EM rigid FilterReg with the permutohedral-lattice E-step
+    (reference filterreg.py:914): the lattice of the transformed source and
+    the target, scaled by 1 / sigma, is rebuilt every iteration. Host
+    reads per iteration: one per lattice build (two when the blur switch
+    rebuilds) and the loop test."""
+    m, dim = source.shape
+    n = target.shape[0]
+    dev, dt = source.device, source.dtype
+    if auto_sigma2:
+        sigma2 = _auto_sigma2(source, target, objective_type, min_sigma2)
+    else:
+        sigma2 = torch.as_tensor(sigma2_0, dtype=dt, device=dev)
+    pt2pl = objective_type == "pt2pl"
+    vals = gto.moment_channels(target, normals if pt2pl else None,
+                               update_sigma2)
+    vin = torch.cat([vals.new_zeros((m, vals.shape[1])), vals])
+    rot = torch.as_tensor(rot0, dtype=dt, device=dev)
+    t = torch.as_tensor(t0, dtype=dt, device=dev)
+    q = torch.tensor(math.inf, dtype=dt, device=dev)
+    q_prev, i = math.inf, 0
+    while True:
+        done, q_prev_next = _converged(i, q, q_prev, maxiter, tol)
+        if done:
+            break
+        t_src = source @ rot.T + t
+        out = _lattice_filter(torch.cat([t_src, target]) / torch.sqrt(sigma2),
+                              vin, m, n, alpha)
+        m0, m1, m2, nx = gto.split_moments(out, dim, update_sigma2, pt2pl)
+        rot, t, s2, q = _mstep_from_moments_t(
+            t_src.T, m0, m1.T, m2, None if nx is None else nx.T, rot, t,
+            sigma2, w, m, n, dim, objective_type)
+        sigma2 = _anneal(s2, sigma2, update_sigma2, sigma2_decay, min_sigma2)
+        q_prev, i = q_prev_next, i + 1
+    return MstepResult(tf.RigidTransformation(rot, t, device=dev), sigma2, q)
+
+
+def _feature_sigma2(source, target, ftarget, feature_fn, objective_type,
+                    min_sigma2):
+    """Starting sigma2 of a feature-space registration (reference
+    filterreg.py:802-817): pt2pl the target's point spacing (in point
+    space), pt2pt the mean squared feature distance / feature width."""
+    if objective_type == "pt2pl":
+        return _auto_sigma2(None, target, "pt2pl", min_sigma2)
+    return _auto_sigma2(_features(feature_fn, source), ftarget, "pt2pt",
+                        min_sigma2)
+
+
+def _run_em_rigid_feature(source, target, normals, ftarget, rot0, t0,
+                          sigma2_0, *, feature_fn, objective_type,
+                          update_sigma2, w, maxiter, tol, min_sigma2,
+                          sigma2_decay=1.0, auto_sigma2=False):
+    """Whole-EM rigid FilterReg in a feature space (reference
+    filterreg.py:1232): the E-step filters ``feature_fn`` of the moved
+    source against ``ftarget`` (the target's features), the M-step moves
+    the points. Feature spaces wider than 8 (FPFH's 33) take the dense
+    blocked transform, as in the reference."""
+    m, dim = source.shape
+    n = target.shape[0]
+    dev, dt = source.device, source.dtype
+    pt2pl = objective_type == "pt2pl"
+    if auto_sigma2:
+        sigma2 = _feature_sigma2(source, target, ftarget, feature_fn,
+                                 objective_type, min_sigma2)
+    else:
+        sigma2 = torch.as_tensor(sigma2_0, dtype=dt, device=dev)
+    rot = torch.as_tensor(rot0, dtype=dt, device=dev)
+    t = torch.as_tensor(t0, dtype=dt, device=dev)
+    q = torch.tensor(math.inf, dtype=dt, device=dev)
+    q_prev, i = math.inf, 0
+    while True:
+        done, q_prev_next = _converged(i, q, q_prev, maxiter, tol)
+        if done:
+            break
+        t_src = source @ rot.T + t
+        sigma = torch.sqrt(sigma2)
+        m0, m1, m2, nx = gto.filterreg_moments(
+            _features(feature_fn, t_src) / sigma, ftarget / sigma, target,
+            normals if pt2pl else None, need_m2=bool(update_sigma2))
+        c = _outlier_c(sigma2, w, m, n, dim)
+        if pt2pl:
+            rot, t, s2, q = rigid_mstep_pt2pl(t_src, m0, m1, m2, nx, rot, t,
+                                              sigma2, c)
+        else:
+            rot, t, s2, q = rigid_mstep_pt2pt(t_src, m0, m1, m2, rot, t,
+                                              sigma2, c)
+        sigma2 = _anneal(s2, sigma2, update_sigma2, sigma2_decay, min_sigma2)
+        q_prev, i = q_prev_next, i + 1
+    return MstepResult(tf.RigidTransformation(rot, t, device=dev), sigma2, q)
+
+
+def _node_weights(pair, val, n_nodes):
+    """(P, n_nodes) skinning weight of each point on each node: the two
+    weights of its pair put in their nodes' columns (one-hot, so the sums
+    below are fixed-order products instead of scatter-adds)."""
+    oh = torch.nn.functional.one_hot(pair, n_nodes).to(val.dtype)
+    return oh[:, 0] * val[:, :1] + oh[:, 1] * val[:, 1:]
+
+
+def _blend(dualquats, pair, val, points):
+    """The points moved by their pair's linear blend of ``dualquats``."""
+    return dq.transform_point(dq.dlb2(val[:, 0], dualquats[pair[:, 0]],
+                                      val[:, 1], dualquats[pair[:, 1]]),
+                              points)
+
+
+def _deformable_mstep(t_source, m0, m1, m2, dualquats, pair, val, sigma2, c,
+                      gn_maxiter=50, gn_tol=1.0e-4):
+    """Blended-skinning Gauss-Newton M-step (reference filterreg.py:1087):
+    (new dual quaternions (n_nodes, 8), sigma2 estimate, q).
+
+    The normal matrix J^T J over all node twists is fixed within the step,
+    so its SVD is taken once and every Gauss-Newton step is a least-squares
+    solve through it with the reference's rcond = 1e-5: singular values
+    below rcond times the largest are cut, as ``jnp.linalg.lstsq`` does.
+    The matrix is exactly singular for degenerate clouds (rotation about a
+    colinear bar is unobservable), which CUDA's ``torch.linalg.lstsq``
+    (``gels``, full rank assumed) would not survive. The loop runs all
+    ``gn_maxiter`` steps with no host read: once a step's norm falls below
+    ``gn_tol`` the twists are frozen, which is the reference's early stop.
+    Each step is capped at norm 0.5."""
+    dim = t_source.shape[1]
+    n6d = dim * 2
+    n_nodes = dualquats.shape[0]
+    m0 = torch.clamp(m0, min=_EPS)
+    m1m0 = m1 / m0[:, None]
+    m0m0 = m0 / (m0 + c)
+    drxdx = torch.sqrt(m0m0 / sigma2)
+    drxdz = drxdx[:, None, None] * so.diff_x_from_twist(t_source)  # (M,3,6)
+    wn = _node_weights(pair, val, n_nodes)                        # (M, K)
+    jtj = torch.einsum("mik,mil->mkl", drxdz, drxdz).reshape(-1, n6d * n6d)
+    ww = (wn[:, :, None] * wn[:, None, :]).reshape(-1, n_nodes * n_nodes)
+    a = (ww.T @ jtj).reshape(n_nodes, n_nodes, n6d, n6d).permute(
+        0, 2, 1, 3).reshape(n_nodes * n6d, n_nodes * n6d)
+    u, s, vh = torch.linalg.svd(a)
+    keep = s >= 1e-5 * s[0]
+    s_inv = torch.where(keep, 1.0 / torch.where(keep, s, 1.0), 0.0)
+
+    def blend_apply(tw):
+        return _blend(dq.from_twist(tw.reshape(n_nodes, n6d)), pair, val,
+                      t_source)
+
+    tw = t_source.new_zeros(n_nodes * n6d)
+    done = torch.zeros((), dtype=torch.bool, device=t_source.device)
+    for _ in range(gn_maxiter):
+        rx = drxdx[:, None] * (blend_apply(tw) - m1m0)
+        jr = torch.einsum("mik,mi->mk", drxdz, rx)                 # (M, 6)
+        dtw = vh.T @ (s_inv * (u.T @ (wn.T @ jr).reshape(-1)))
+        dn = torch.linalg.norm(dtw)
+        dtw = dtw * torch.clamp(0.5 / torch.clamp(dn, min=_EPS), max=1.0)
+        tw = torch.where(done, tw, tw - dtw)
+        done = done | (torch.clamp(dn, max=0.5) < gn_tol)
+
+    new_dq = dq.mul(dq.from_twist(tw.reshape(n_nodes, n6d)), dualquats)
+    rx = drxdx[:, None] * (blend_apply(tw) - m1m0)
+    q = (rx * rx).sum()
+    s2 = sigma2
+    if m2 is not None:
+        num = (m0 * (t_source * t_source).sum(1)
+               - 2.0 * (t_source * m1).sum(1) + m2)
+        s2 = (num / (m0 + c)).sum() / (3.0 * m0m0.sum())
+    return new_dq, s2, q
+
+
+def _run_em_deformable(source, target, dq0, pair, val, sigma2_in, *,
+                       update_sigma2, w, maxiter, tol, min_sigma2,
+                       sigma2_decay=1.0, auto_sigma2=False, gn_maxiter=50,
+                       gn_tol=1.0e-4):
+    """Whole-EM DeformableKinematicFilterReg (reference
+    filterreg.py:1178): the exact E-step on the blended source (the
+    tile-culled Gauss transform once M * N >= 2^28), then
+    :func:`_deformable_mstep`. One host read per iteration, the loop test.
+    Returns (dual quaternions, sigma2, q)."""
+    m = source.shape[0]
+    n = target.shape[0]
+    dev, dt = source.device, source.dtype
+    c = w / (1.0 - w) * n / m
+    if auto_sigma2:
+        sigma2 = torch.clamp(mu.squared_kernel_sum(source, target),
+                             min=min_sigma2)
+    else:
+        sigma2 = torch.as_tensor(sigma2_in, dtype=dt, device=dev)
+    dqs = torch.as_tensor(dq0, dtype=dt, device=dev)
+    q = torch.tensor(math.inf, dtype=dt, device=dev)
+    q_prev, i = math.inf, 0
+    while True:
+        done, q_prev_next = _converged(i, q, q_prev, maxiter, tol)
+        if done:
+            break
+        t_src = _blend(dqs, pair, val, source)
+        sigma = torch.sqrt(sigma2)
+        m0, m1, m2, _ = gto.filterreg_moments(
+            t_src / sigma, target / sigma, target, None,
+            need_m2=bool(update_sigma2))
+        dqs, s2, q = _deformable_mstep(t_src, m0, m1, m2, dqs, pair, val,
+                                       sigma2, c, gn_maxiter=gn_maxiter,
+                                       gn_tol=gn_tol)
+        sigma2 = _anneal(s2, sigma2, update_sigma2, sigma2_decay, min_sigma2)
+        q_prev, i = q_prev_next, i + 1
+    return dqs, sigma2, q
+
+
+# --------------------------------------------------------------------------
 # Object surface (drop-in for the reference classes)
 # --------------------------------------------------------------------------
 
@@ -450,8 +703,8 @@ class FilterReg(abc.ABC):
         target_normals: Normals of the target points (pt2pl objective).
         sigma2: Fixed starting variance; None = estimated.
         update_sigma2: Update sigma2 in the M-step.
-        estep_method: 'dense' (exact, the default). The reference's
-            'lattice' is not ported yet.
+        estep_method: 'dense' (exact, the default) or 'lattice' (the
+            permutohedral lattice).
         use_pallas: None or True: small pairs may run the whole-EM kernel;
             False keeps them on the dense loop.
         device: Device to run on (default ``config.device``).
@@ -460,10 +713,7 @@ class FilterReg(abc.ABC):
     def __init__(self, source=None, target_normals=None, sigma2=None,
                  update_sigma2: bool = False, estep_method: str = "dense",
                  use_pallas: Optional[bool] = None, device=None):
-        if estep_method == "lattice":
-            raise NotImplementedError(_NOT_PORTED.format(
-                "estep_method='lattice' (ops/permutohedral)"))
-        if estep_method != "dense":
+        if estep_method not in ("dense", "lattice"):
             raise ValueError(f"unknown estep_method {estep_method!r}")
         self._device = _config.resolve_device(device)
         self._source = None if source is None else self._as_points(source)
@@ -471,6 +721,7 @@ class FilterReg(abc.ABC):
                                                   device=self._device)
         self._sigma2 = sigma2
         self._update_sigma2 = update_sigma2
+        self._estep_method = estep_method
         self._use_pallas = use_pallas
         self._tf_type = None
         self._tf_result = None
@@ -491,23 +742,31 @@ class FilterReg(abc.ABC):
 
     def expectation_step(self, t_source, target, y, sigma2,
                          update_sigma2=False, objective_type: str = "pt2pt",
-                         alpha: float = 0.015) -> EstepResult:
+                         alpha: float = _ALPHA) -> EstepResult:
         """E-step moments (reference filterreg.py:489): the filtering runs
-        in the space of ``t_source`` / ``target`` scaled by 1/sigma, and the
-        moments are of ``y``, the raw target points. ``alpha`` only means
-        something for the lattice E-step."""
-        del alpha
+        in the space of ``t_source`` / ``target`` (positions or features)
+        scaled by 1/sigma, and the moments are of ``y``, the raw target
+        points. ``alpha``: the lattice's blur switch."""
         t_source, target, y = (self._as_points(v) for v in
                                (t_source, target, y))
         need_nx = objective_type == "pt2pl"
         if need_nx and self._target_normals is None:
             raise ValueError("pt2pl requires target_normals.")
+        normals = self._target_normals if need_nx else None
         sigma = torch.sqrt(torch.as_tensor(sigma2, dtype=t_source.dtype,
                                            device=self._device))
-        return EstepResult(*gto.filterreg_moments(
-            t_source / sigma, target / sigma, y,
-            self._target_normals if need_nx else None,
-            need_m2=bool(update_sigma2)))
+        if self._estep_method == "dense":
+            return EstepResult(*gto.filterreg_moments(
+                t_source / sigma, target / sigma, y, normals,
+                need_m2=bool(update_sigma2)))
+        m = t_source.shape[0]
+        vals = gto.moment_channels(y, normals, update_sigma2)
+        out = _lattice_filter(
+            torch.cat([t_source / sigma, target / sigma]),
+            torch.cat([vals.new_zeros((m, vals.shape[1])), vals]), m,
+            target.shape[0], alpha)
+        return EstepResult(*gto.split_moments(out, y.shape[1],
+                                              update_sigma2, need_nx))
 
     def maximization_step(self, t_source, target, estep_res, w=0.0,
                           objective_type: str = "pt2pt") -> MstepResult:
@@ -528,15 +787,18 @@ class FilterReg(abc.ABC):
                      sigma2_decay: float = 1.0, n_starts: int = 1,
                      callback_chunk: int = 1) -> MstepResult:
         """Run the EM registration (reference filterreg.py:555).
+        ``feature_fn``: the map of both clouds into the space the E-step
+        filters in (identity by default; e.g. ``features.FPFH()``).
         ``n_starts > 1``: the orientation search (rigid dense path, no
         callbacks). ``callback_chunk``: EM iterations queued between two
         host reads in callback mode; the callbacks still fire every
         iteration (utils/chunked.py)."""
         assert self._tf_type is not None, "transformation type is None."
         target = self._as_points(target)
+        identity = _is_identity_feature(feature_fn)
         if int(n_starts) > 1:
             if (not isinstance(self, RigidFilterReg) or self._callbacks
-                    or not _is_identity_feature(feature_fn)):
+                    or self._estep_method != "dense" or not identity):
                 raise ValueError("n_starts > 1 requires the rigid dense "
                                  "no-callback path")
             m, n = self._source.shape[0], target.shape[0]
@@ -550,9 +812,6 @@ class FilterReg(abc.ABC):
                     "search on a downsampled cloud "
                     "(pyramid.registration_filterreg_pyramid(n_starts=)) "
                     "and warm-start the full size with tf_init_params.")
-        if not _is_identity_feature(feature_fn):
-            raise NotImplementedError(_NOT_PORTED.format(
-                "a feature_fn (ops/fpfh)"))
         _check_objective(objective_type, self._target_normals)
         normals = self._target_normals if objective_type == "pt2pl" else None
         args = dict(objective_type=objective_type,
@@ -560,21 +819,25 @@ class FilterReg(abc.ABC):
                     maxiter=int(maxiter), tol=float(tol),
                     min_sigma2=float(min_sigma2),
                     sigma2_decay=float(sigma2_decay))
-        if self._callbacks:
-            return self._registration_host_loop(target, normals,
-                                                int(callback_chunk), **args)
         if int(n_starts) > 1:
             res = self._registration_multistart(target, normals,
                                                 int(n_starts), **args)
         else:
-            res = self._registration_whole(target, normals, **args)
+            res = None if self._callbacks else self._registration_whole(
+                target, normals, None if identity else feature_fn, **args)
+            if res is None:
+                return self._registration_host_loop(
+                    target, feature_fn, int(callback_chunk), **args)
         self._tf_result = res.transformation
         self._sigma2 = float(res.sigma2)
         return res
 
-    def _registration_whole(self, target, normals, **args) -> MstepResult:
-        """The whole-EM runners; every registration without callbacks."""
-        raise NotImplementedError
+    @abc.abstractmethod
+    def _registration_whole(self, target, normals, feature_fn,
+                            **args) -> Optional[MstepResult]:
+        """The whole-EM loop of this class, estep method and feature map
+        (``feature_fn`` None: the identity), or None where the reference
+        has none and the host loop runs."""
 
     def _registration_multistart(self, target, normals, n_starts,
                                  **args) -> MstepResult:
@@ -593,17 +856,26 @@ class FilterReg(abc.ABC):
                                                   device=self._device),
                            sigma2[0], q[0])
 
-    def _registration_host_loop(self, target, normals, chunk, *,
+    @abc.abstractmethod
+    def _mstep(self, t_source, target, estep_res, trans, sigma2, w,
+               objective_type):
+        """The host loop's M-step with no host read: (transformation,
+        sigma2 estimated or as given, q, whether every moment is zero)."""
+
+    def _registration_host_loop(self, target, feature_fn, chunk, *,
                                 objective_type, update_sigma2, w, maxiter,
                                 tol, min_sigma2, sigma2_decay):
-        """One E-step and M-step per iteration, the callbacks after each
-        (reference filterreg.py:881), ``chunk`` iterations queued between
-        two host reads: the chunk carries sigma2 in float64 as the host
-        loop's Python float, and an iteration whose moments are all zero
-        ends the loop with the previous pose and q, as there."""
+        """One E-step (in ``feature_fn``'s space) and M-step per iteration,
+        the callbacks after each (reference filterreg.py:881), ``chunk``
+        iterations queued between two host reads: the chunk carries sigma2
+        in float64 as the host loop's Python float, and an iteration whose
+        moments are all zero ends the loop with the previous pose and q,
+        as there (rigid only: the deformable M-step floors m0)."""
+        ftarget = _features(feature_fn, target)
         if self._sigma2 is None:
-            self._sigma2 = float(_auto_sigma2(self._source, target,
-                                              objective_type, min_sigma2))
+            self._sigma2 = float(_feature_sigma2(
+                self._source, target, ftarget, feature_fn, objective_type,
+                min_sigma2))
         dt = self._source.dtype
         steps = []
         prev = {"q": None}
@@ -615,14 +887,13 @@ class FilterReg(abc.ABC):
                 s32 = s2.to(dt)
                 t_source = trans._transform(self._source)
                 estep_res = self.expectation_step(
-                    t_source, target, target, s32, update_sigma2,
+                    _features(feature_fn, t_source), ftarget, target, s32,
+                    update_sigma2, objective_type)
+                trans, s2_m, q, empty = self._mstep(
+                    t_source, target, estep_res, trans, s32, w,
                     objective_type)
-                rot, t, s2_m, q = _rigid_mstep(t_source, target, estep_res,
-                                               trans, s32, w, objective_type)
-                trans = tf.RigidTransformation(rot, t, device=self._device)
                 s2 = torch.clamp(s2_m.double() if update_sigma2
                                  else s2 * sigma2_decay, min=min_sigma2)
-                empty = ~(estep_res.m0 > 0.0).any()
                 steps.append((MstepResult(trans, s2_m, q), s2, empty))
             return (trans, s2), chunked.stack_history(
                 [(res.q, s2_next, empty) for res, s2_next, empty in steps])
@@ -685,15 +956,34 @@ class RigidFilterReg(FilterReg):
                                                   device=t_source.device),
                            s2, q)
 
-    def _registration_whole(self, target, normals, **args) -> MstepResult:
+    def _mstep(self, t_source, target, estep_res, trans, sigma2, w,
+               objective_type):
+        rot, t, s2, q = _rigid_mstep(t_source, target, estep_res, trans,
+                                     sigma2, w, objective_type)
+        return (tf.RigidTransformation(rot, t, device=self._device), s2, q,
+                ~(estep_res.m0 > 0.0).any())
+
+    def _registration_whole(self, target, normals, feature_fn,
+                            **args) -> Optional[MstepResult]:
         m, n = self._source.shape[0], target.shape[0]
         auto = self._sigma2 is None
         sigma2_0 = 0.0 if auto else float(self._sigma2)
+        rot0, t0 = self._tf_result.rot, self._tf_result.t
+        if self._estep_method == "lattice":
+            if feature_fn is not None:
+                return None
+            return _run_em_rigid_lattice(self._source, target, normals, rot0,
+                                         t0, sigma2_0, auto_sigma2=auto,
+                                         **args)
+        if feature_fn is not None:
+            return _run_em_rigid_feature(
+                self._source, target, normals, _features(feature_fn, target),
+                rot0, t0, sigma2_0, feature_fn=feature_fn, auto_sigma2=auto,
+                **args)
         if m * n > _config.config.transposed_em_max_pairs:
             return _run_em_rigid_streaming(
-                self._source, target, normals, self._tf_result.rot,
-                self._tf_result.t, sigma2_0, auto_sigma2=auto, **args)
-        rot0, t0 = self._tf_result.rot, self._tf_result.t
+                self._source, target, normals, rot0, t0, sigma2_0,
+                auto_sigma2=auto, **args)
         identity = (self._source.shape[1] == 3
                     and bool(torch.allclose(rot0, torch.eye(
                         3, dtype=rot0.dtype, device=rot0.device)))
@@ -713,16 +1003,63 @@ class RigidFilterReg(FilterReg):
 
 
 class DeformableKinematicFilterReg(FilterReg):
-    """Deformable-kinematic FilterReg (reference filterreg.py:1054): not
-    ported yet; constructing one raises."""
+    """Deformable-kinematic FilterReg (reference filterreg.py:1054): each
+    point follows the dual-quaternion blend of its two skinning nodes, and
+    the M-step is a Gauss-Newton loop over all node twists.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED.format(
-            "DeformableKinematicFilterReg (utils/dualquat)"))
+    Args:
+        source: Source point cloud (3-D).
+        skinning_weight: ``DeformableKinematicModel.SkinningWeight``, one
+            row per source point.
+        sigma2: Fixed starting variance; None = estimated.
+        **kwargs: ``update_sigma2``, ``estep_method``, ``device``.
+    """
+
+    def __init__(self, source=None, skinning_weight=None, sigma2=None,
+                 **kwargs):
+        super().__init__(source, sigma2=sigma2, **kwargs)
+        self._tf_type = tf.DeformableKinematicModel
+        self._skinning_weight = skinning_weight
+        idq = dq.identity(device=self._device).repeat(
+            skinning_weight.n_nodes, 1)
+        self._tf_result = self._tf_type(idq, skinning_weight,
+                                        device=self._device)
 
     @staticmethod
-    def _maximization_step(*args, **kwargs):
-        raise NotImplementedError
+    def _maximization_step(t_source, target, estep_res, trans_p, sigma2,
+                           w=0.0, objective_type="", maxiter=50,
+                           tol=1.0e-4):
+        m0, m1, m2, _ = estep_res
+        c = w / (1.0 - w) * target.shape[0] / t_source.shape[0]
+        pair, val = trans_p.weights.tensors(t_source.dtype, t_source.device)
+        new_dq, s2, q = _deformable_mstep(
+            t_source, m0, m1, m2, trans_p.dualquats, pair, val,
+            torch.as_tensor(sigma2, dtype=t_source.dtype,
+                            device=t_source.device), c,
+            gn_maxiter=maxiter, gn_tol=tol)
+        return MstepResult(tf.DeformableKinematicModel(
+            new_dq, trans_p.weights, device=t_source.device), s2, q)
+
+    def _mstep(self, t_source, target, estep_res, trans, sigma2, w,
+               objective_type):
+        res = self._maximization_step(t_source, target, estep_res, trans,
+                                      sigma2, w)
+        return (res.transformation, res.sigma2, res.q,
+                torch.zeros((), dtype=torch.bool, device=self._device))
+
+    def _registration_whole(self, target, normals, feature_fn,
+                            **args) -> Optional[MstepResult]:
+        if self._estep_method != "dense" or feature_fn is not None:
+            return None
+        del args["objective_type"]
+        auto = self._sigma2 is None
+        weights = self._skinning_weight
+        pair, val = weights.tensors(self._source.dtype, self._device)
+        dqs, s2, q = _run_em_deformable(
+            self._source, target, self._tf_result.dualquats, pair, val,
+            0.0 if auto else float(self._sigma2), auto_sigma2=auto, **args)
+        return MstepResult(tf.DeformableKinematicModel(
+            dqs, weights, device=self._device), s2, q)
 
 
 def _pad(clouds, dev):
@@ -834,7 +1171,9 @@ def registration_filterreg(
         w: Weight of the uniform outlier distribution.
         objective_type: 'pt2pt' or 'pt2pl'.
         maxiter / tol / min_sigma2: EM controls.
-        feature_fn: Only the identity is ported; any other raises.
+        feature_fn: Map of both clouds into the space the E-step filters
+            in (e.g. ``features.FPFH()``); a numpy result is moved to the
+            device.
         callbacks: Called with the current transformation each iteration.
         sigma2_decay: Per-iteration factor on sigma2 when ``update_sigma2``
             is False, floored at ``min_sigma2``.
@@ -848,7 +1187,7 @@ def registration_filterreg(
 
     Keyword Args:
         tf_init_params (dict): Initial rigid transformation.
-        estep_method (str): 'dense' (the default; 'lattice' raises).
+        estep_method (str): 'dense' (the default, exact) or 'lattice'.
         use_pallas (bool): See ``FilterReg``.
 
     Returns:

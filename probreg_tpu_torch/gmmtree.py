@@ -201,36 +201,31 @@ def _build(points, idxs, *, max_level, lambda_s, lambda_d, smask=None,
 
     ``points`` (N, 3); ``idxs`` (8^max_level,) the leaf indices, in
     [0, n_eff) when masked. ``smask``: optional (N,) validity mask of a
-    padded cloud whose padding sits at the tail; every responsibility of a
-    padded point is zeroed and the normalizers use the true count, which
-    is the unpadded build. ``fused`` runs each level on K9 (its plain
-    version for CPU tensors); otherwise the twin level loop runs here.
-    Returns (pi (T,), mu (T, 3), cov (T, 3, 3)) in the raw frame.
+    padded cloud; both routes move its valid points to the front in order
+    and build on them alone, so the masked build is the unpadded build bit
+    for bit. ``fused`` runs each level on K9 (its plain version for CPU
+    tensors); otherwise the twin level loop runs here. Returns (pi (T,),
+    mu (T, 3), cov (T, 3, 3)) in the raw frame.
     """
+    if smask is None:
+        counts = torch.tensor([points.shape[0]], device=points.device)
+        pts = points[None]
+    else:
+        pts, counts = _compact(points[None], smask[None])
     if fused:
-        if smask is None:
-            counts = torch.tensor([points.shape[0]], device=points.device)
-            pts = points[None]
-        else:
-            pts, counts = _compact(points[None], smask[None])
         pi, mu, cov = _build_fused(pts, idxs[None], counts,
                                    max_level=max_level, lambda_s=lambda_s,
                                    lambda_d=lambda_d)
         return pi[0], mu[0], cov[0]
+    points = pts[0, :int(counts[0])]
     n, dim = points.shape
     n_total = _n_total(max_level)
-    masked = smask is not None
-    n_eff = smask.sum() if masked else torch.tensor(
-        float(n), dtype=points.dtype, device=points.device)
+    n_eff = torch.tensor(float(n), dtype=points.dtype, device=points.device)
     # Centring: every covariance here is of the cancellation-prone
     # m2 / m0 - mu mu^T form; node means shift back at the end.
-    if masked:
-        cen = (smask @ points) / torch.clamp(n_eff, min=1.0)
-    else:
-        cen = points.mean(0)
+    cen = points.mean(0)
     points = points - cen[None, :]
-    pz = points * smask[:, None] if masked else points
-    pi, mu, cov = (a[0] for a in _init_tree(pz[None], idxs[None],
+    pi, mu, cov = (a[0] for a in _init_tree(points[None], idxs[None],
                                             n_eff[None], max_level))
 
     parent_idx = torch.full((n,), -1, dtype=torch.int64,
@@ -246,8 +241,7 @@ def _build(points, idxs, *, max_level, lambda_s, lambda_d, smask=None,
             p = pi[None, sl] * _pdf(points, mu[sl].expand(n, k, dim),
                                     inv.expand(n, k, dim, dim),
                                     norm.expand(n, k))
-            ll = torch.log(torch.clamp(p.sum(1), min=_EPS))
-            return (ll * smask).sum() if masked else ll.sum()
+            return torch.log(torch.clamp(p.sum(1), min=_EPS)).sum()
 
         q, q_prev, it = np.float32(0.0), np.float32(np.inf), 0
         cur = parent_idx
@@ -255,8 +249,6 @@ def _build(points, idxs, *, max_level, lambda_s, lambda_d, smask=None,
             inv, norm, _ = _log_pdf_terms(cov)
             gamma, cidx = _gamma_children(points, parent_idx, pi, mu, inv,
                                           norm)
-            if masked:
-                gamma = gamma * smask[:, None]
             m0, m1, m2 = _accumulate(pts_rep, gamma.reshape(-1),
                                      cidx.reshape(-1), n_total)
             # mlEstimator (gmmtree.cc:84-97) on this level only.

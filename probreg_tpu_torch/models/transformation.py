@@ -7,13 +7,16 @@ CPD's (a dense Gram matrix, or its low-rank Nystrom factors), BCPD's
 combined transformation and the thin-plate spline of the L2-distance
 registrations; like the reference's, each nonrigid CPD or BCPD
 displacement field is defined at the source points it was fitted to, row
-by row, while the thin-plate spline moves any points.
+by row, while the thin-plate spline moves any points. The deformable
+kinematic model blends its nodes' dual quaternions with the skinning
+weights of each point.
 """
 
 from __future__ import annotations
 
 import abc
 
+import numpy as np
 import torch
 
 from .. import config as _config
@@ -243,3 +246,64 @@ class TPSTransformation(Transformation):
     def __repr__(self):
         return (f"TPSTransformation(a={self.a}, v={self.v}, "
                 f"control_pts={self.control_pts})")
+
+
+class DeformableKinematicModel(Transformation):
+    """Dual-quaternion blended skinning (reference transformation.py:274):
+    each point moves by the linear blend of its two nodes' dual
+    quaternions. ``dualquats`` (n_nodes, 8) as in ``utils/dualquat``;
+    ``weights`` a :class:`SkinningWeight`, one row per point, so
+    ``transform`` takes the points the weights were made for."""
+
+    class SkinningWeight:
+        """Per point a pair of node ids and a pair of weights: ``pair``
+        (P, 2) int and ``val`` (P, 2) float, kept as numpy arrays (the
+        reference keeps these two arrays too)."""
+
+        def __init__(self, pair, val):
+            self.pair = np.asarray(pair, dtype=np.int64)
+            self.val = np.asarray(val, dtype=np.float32)
+
+        def __len__(self):
+            return self.pair.shape[0]
+
+        @property
+        def n_nodes(self):
+            return int(self.pair.max()) + 1
+
+        def pairs_set(self):
+            import itertools
+
+            return itertools.permutations(range(self.n_nodes), 2)
+
+        def in_pair(self, pair):
+            return np.argwhere((self.pair == np.asarray(pair)).all(1)
+                               ).flatten()
+
+        def tensors(self, dtype, device):
+            """(pair (P, 2) int64, val (P, 2)) as tensors on ``device``."""
+            return (torch.as_tensor(self.pair, device=device),
+                    torch.as_tensor(self.val, dtype=dtype, device=device))
+
+    @classmethod
+    def make_weight(cls, pairs, vals):
+        return cls.SkinningWeight(pairs, vals)
+
+    def __init__(self, dualquats, weights, device=None):
+        if isinstance(dualquats, (list, tuple)):
+            dualquats = torch.stack([torch.as_tensor(q) for q in dualquats])
+        self.device = _device_of(device, dualquats)
+        self.dualquats = _param(dualquats, self.device)
+        self.weights = weights
+
+    def _transform(self, points):
+        from ..utils import dualquat as dq
+
+        pair, val = self.weights.tensors(points.dtype, points.device)
+        blended = dq.dlb2(val[:, 0], self.dualquats[pair[:, 0]],
+                          val[:, 1], self.dualquats[pair[:, 1]])
+        return dq.transform_point(blended, points)
+
+    def __repr__(self):
+        return (f"DeformableKinematicModel(dualquats={self.dualquats}, "
+                f"n_points={len(self.weights)})")

@@ -57,6 +57,31 @@ def gauss_transform(source: torch.Tensor, target: torch.Tensor,
     return out[:, 0] if squeeze else out
 
 
+def moment_channels(y: torch.Tensor, normals: Optional[torch.Tensor],
+                    need_m2: bool) -> torch.Tensor:
+    """(N, C) channels [1, y, |y|^2 (need_m2), normals] whose Gauss
+    transform (or lattice filter) gives FilterReg's moments."""
+    chans = [torch.ones_like(y[:, :1]), y]
+    if need_m2:
+        chans.append((y * y).sum(1, keepdim=True))
+    if normals is not None:
+        chans.append(normals.to(y))
+    return torch.cat(chans, dim=1)
+
+
+def split_moments(out: torch.Tensor, dim: int, need_m2: bool,
+                  need_nx: bool):
+    """(m0 (M,), m1 (M, D), m2 (M,) or None, nx (M, D) or None) from the
+    (M, C) sums of :func:`moment_channels`."""
+    col = 1 + dim
+    m2 = None
+    if need_m2:
+        m2 = out[:, col]
+        col += 1
+    nx = out[:, col:col + dim] if need_nx else None
+    return out[:, 0], out[:, 1:1 + dim], m2, nx
+
+
 def filterreg_moments(f_source: torch.Tensor, f_target: torch.Tensor,
                       y: torch.Tensor, normals: Optional[torch.Tensor],
                       need_m2: bool = False, block: Optional[int] = None,
@@ -70,20 +95,7 @@ def filterreg_moments(f_source: torch.Tensor, f_target: torch.Tensor,
     the moments come out per source point. Returns (m0 (M,), m1 (M, D),
     m2 (M,) or None, nx (M, D) or None).
     """
-    dim = y.shape[1]
-    chans = [torch.ones_like(y[:, :1]), y]
-    if need_m2:
-        chans.append((y * y).sum(1, keepdim=True))
-    if normals is not None:
-        chans.append(normals.to(y))
-    out = gauss_transform(f_target, f_source, torch.cat(chans, dim=1),
-                          2.0 ** 0.5, block=block,
-                          assume_sorted=assume_sorted)
-    m0, m1 = out[:, 0], out[:, 1:1 + dim]
-    col = 1 + dim
-    m2 = None
-    if need_m2:
-        m2 = out[:, col]
-        col += 1
-    nx = out[:, col:col + dim] if normals is not None else None
-    return m0, m1, m2, nx
+    out = gauss_transform(f_target, f_source,
+                          moment_channels(y, normals, need_m2), 2.0 ** 0.5,
+                          block=block, assume_sorted=assume_sorted)
+    return split_moments(out, y.shape[1], need_m2, normals is not None)

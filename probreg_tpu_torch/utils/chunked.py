@@ -91,3 +91,15 @@ def run_chunked(chunk_fn: Callable, state, maxiter: int, chunk: int,
                 return result
         it += k
     return result
+
+
+def slice_tree(tree, j: int):
+    """Row ``j`` of every leaf of a stacked history (a tuple, list or dict
+    of tensors or arrays; reference chunked.py:72)."""
+    if isinstance(tree, dict):
+        return {k: slice_tree(v, j) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        rows = [slice_tree(v, j) for v in tree]
+        return type(tree)(*rows) if hasattr(tree, "_fields") \
+            else type(tree)(rows)
+    return tree[j]

@@ -22,6 +22,21 @@ except ImportError:  # pragma: no cover
     _o3 = None
 
 
+def has_open3d() -> bool:
+    return _o3 is not None
+
+
+def maybe_o3_roundtrip(points, original):
+    """``points`` in the container type of ``original``: an Open3D
+    ``Vector3dVector`` in gives one out (as the reference's
+    ``Transformation.transform`` does), anything else the points as
+    they are."""
+    if _o3 is not None and isinstance(original, _o3.utility.Vector3dVector):
+        return _o3.utility.Vector3dVector(
+            np.asarray(torch.as_tensor(points).cpu(), dtype=np.float64))
+    return points
+
+
 def as_points(x: Any, dtype=None, device=None) -> torch.Tensor:
     """Convert point-cloud-ish input to an (N, D) tensor on ``device``.
 
@@ -126,6 +141,19 @@ def nonrigid_from_reference(params: Mapping[str, Any], device=None):
             device=device)
     raise ValueError("nonrigid_from_reference needs w, g (dense) or zc, u, "
                      f"lam (low-rank); got {sorted(params)}")
+
+
+def deformable_from_reference(model, device=None):
+    """Port DeformableKinematicModel from a JAX one: its ``dualquats``
+    (n_nodes, 8) and its skinning weights' ``pair`` and ``val`` (P, 2),
+    read with ``np.asarray``."""
+    from ..models.transformation import DeformableKinematicModel as Dkm
+
+    w = model.weights
+    return Dkm(torch.tensor(np.array(model.dualquats),
+                            dtype=_config.config.dtype),
+               Dkm.SkinningWeight(np.array(w.pair), np.array(w.val)),
+               device=_config.resolve_device(device))
 
 
 def gmmtree_nodes_from_reference(pi, mu, cov, device=None):

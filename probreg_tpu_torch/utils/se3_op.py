@@ -6,9 +6,9 @@ geodesic angle between two rotations, the twist helpers of FilterReg's
 point-to-plane M-step (``skew``, ``twist_trans``, ``twist_mul``) and the
 quaternion helpers of the multistart orientation grid (``quat2mat``,
 ``quat2mat_np``, ``mat2quat``), which the rigid L2-distance cost also
-differentiates through. The jacobians ``diff_rot_from_quaternion`` and
-``diff_x_from_twist`` come with the rest of FilterReg (ROADMAP, Queue 1
-item 6): the L2-distance costs take their gradients from autograd.
+differentiates through, and the jacobians ``diff_x_from_twist`` (the
+deformable FilterReg's Gauss-Newton step) and
+``diff_rot_from_quaternion``.
 """
 
 from __future__ import annotations
@@ -85,6 +85,15 @@ def skew(x) -> torch.Tensor:
         torch.stack([-x[..., 1], x[..., 0], z], dim=-1)], dim=-2)
 
 
+def diff_x_from_twist(x) -> torch.Tensor:
+    """d(T(tw) x) / d(tw) at tw = 0: the 3 x 6 jacobian [-skew(x) | I]
+    (reference se3_op.py:70), batched ``(..., 3) -> (..., 3, 6)``."""
+    x = _t(x)
+    eye = torch.eye(3, dtype=x.dtype, device=x.device).expand(
+        *x.shape[:-1], 3, 3)
+    return torch.cat([-skew(x), eye], dim=-1)
+
+
 def twist_trans(tw, linear: bool = False):
     """Twist (w | v) -> (R, t) by the exact Rodrigues formula, or its
     linearization I + [w]x (reference se3_op.py:38). A rotation angle with
@@ -134,6 +143,35 @@ def quat2mat_np(q) -> np.ndarray:
     w, x, y, z = np.asarray(q, np.float64)
     s = 2.0 / max(w * w + x * x + y * y + z * z, _EPS)
     return np.array(_quat_rows(w, x, y, z, s))
+
+
+# quat2mat(q) = I + s P(q), s = 2 / |q|^2, each P_ij = q^T A_ij q with
+# these symmetric (4, 4) forms (the rows of _quat_rows over w, x, y, z).
+_QUAT_FORMS = np.zeros((3, 3, 4, 4))
+for (_i, _j), _terms in {
+        (0, 0): ((2, 2, -1), (3, 3, -1)), (0, 1): ((1, 2, 1), (0, 3, -1)),
+        (0, 2): ((1, 3, 1), (0, 2, 1)), (1, 0): ((1, 2, 1), (0, 3, 1)),
+        (1, 1): ((1, 1, -1), (3, 3, -1)), (1, 2): ((2, 3, 1), (0, 1, -1)),
+        (2, 0): ((1, 3, 1), (0, 2, -1)), (2, 1): ((2, 3, 1), (0, 1, 1)),
+        (2, 2): ((1, 1, -1), (2, 2, -1))}.items():
+    for _a, _b, _c in _terms:
+        _QUAT_FORMS[_i, _j, _a, _b] += _c / (1.0 if _a == _b else 2.0)
+        if _a != _b:
+            _QUAT_FORMS[_i, _j, _b, _a] += _c / 2.0
+
+
+def diff_rot_from_quaternion(q) -> torch.Tensor:
+    """dR(q) / dq of :func:`quat2mat` (reference se3_op.py:164), batched
+    ``(..., 4) -> (..., 4, 3, 3)``: entry [k, i, j] is dR_ij / dq_k, from
+    R = I + s P(q): dR_ij / dq_k = 2 s (A_ij q)_k - s^2 q_k P_ij."""
+    q = _t(q)
+    forms = torch.as_tensor(_QUAT_FORMS, dtype=q.dtype, device=q.device)
+    s = 2.0 / torch.clamp((q * q).sum(-1), min=_EPS)
+    aq = torch.einsum("ijab,...b->...ija", forms, q)        # (..., 3, 3, 4)
+    p = (aq * q[..., None, None, :]).sum(-1)                 # (..., 3, 3)
+    jac = (2.0 * s[..., None, None, None] * aq
+           - (s * s)[..., None, None, None] * p[..., None] * q[..., None, None, :])
+    return jac.movedim(-1, -3)
 
 
 def mat2quat(rot) -> torch.Tensor:

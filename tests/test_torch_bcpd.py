@@ -52,6 +52,17 @@ from probreg_tpu_torch.ops import lowrank as plr  # noqa: E402
 from probreg_tpu_torch.utils import interop  # noqa: E402
 from probreg_tpu_torch.utils import math_utils as pmu  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: under the suite's workers torch's default pool
+    oversubscribes the cores, and this file's many small products spin."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -33,6 +33,17 @@ from probreg_tpu_torch.ops import em_cuda as pem  # noqa: E402
 from probreg_tpu_torch.ops import estep_cuda as pec  # noqa: E402
 from probreg_tpu_torch.utils import interop, se3_op as pso  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: under the suite's workers torch's default pool
+    oversubscribes the cores, and this file's many small products spin."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ANGLES = np.deg2rad([10.0, -6.0, 15.0])
 
 

@@ -2218,3 +2218,169 @@ def test_nonrigid_tracker_on_the_card_matches_the_cpu(dev):
         np.testing.assert_allclose(a.double().cpu().numpy(),
                                    b.double().numpy(),
                                    atol=1e-4 * float(np.ptp(f, 0).max()))
+
+
+# ------------------------------------------------- the rest of FilterReg
+# The lattice, FPFH and the deformable M-step have no kernel of their own;
+# on the card they are held to the same calls on the CPU. Lattice structure
+# exact, barycentric weights 2e-6, filters 2e-6 of their largest entry
+# (index_add_'s atomics add in no fixed order); FPFH at most 3 % of the
+# entries apart by more than 0.1 (a vote at a bin edge moves); the loops at
+# a fixed depth, rotations 1e-5 and dual quaternions 1e-4.
+
+def _blob(n, seed):
+    from probreg_tpu_torch.utils import datagen
+
+    return datagen.blobby_surface(n, seed=seed).astype(np.float32)
+
+
+@pytest.mark.parametrize("blur", [True, False])
+def test_lattice_on_the_card_matches_the_cpu(dev, blur):
+    from probreg_tpu_torch.ops import permutohedral as ph
+
+    f = torch.from_numpy(_blob(2000, 1) / 0.05)
+    vals = torch.randn(2000, 5, generator=torch.Generator().manual_seed(0))
+    cpu, gpu = ph.build(f, with_blur=blur), ph.build(f.to(dev),
+                                                     with_blur=blur)
+    assert cpu.size == gpu.size
+    for a, b in ((cpu.offsets, gpu.offsets), (cpu.n1, gpu.n1),
+                 (cpu.n2, gpu.n2)):
+        assert torch.equal(a, b.cpu())
+    assert float((cpu.barycentric - gpu.barycentric.cpu()).abs().max()) \
+        <= 2e-6
+    for start, reverse in ((0, False), (1000, True)):
+        want = ph.filter(cpu, vals, start=start, reverse=reverse,
+                         with_blur=blur)
+        got = ph.filter(gpu, vals.to(dev), start=start, reverse=reverse,
+                        with_blur=blur).cpu()
+        assert float((got - want).abs().max()) \
+            <= 2e-6 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("callbacks", [False, True])
+def test_lattice_filterreg_on_the_card_matches_the_cpu(dev, callbacks):
+    from probreg_tpu_torch import filterreg as pfr
+    from probreg_tpu_torch.utils import se3_op
+
+    src = _blob(600, 2)
+    rot = se3_op.euler2mat(0.1, -0.05, 0.2).numpy()
+    tgt = (src @ rot.T + 0.02).astype(np.float32)
+    out = [pfr.registration_filterreg(
+        src, tgt, estep_method="lattice", maxiter=8, tol=0.0,
+        update_sigma2=True, device=d,
+        callbacks=[lambda tr: None] if callbacks else None)
+        for d in (dev, "cpu")]
+    for k in ("rot", "t"):
+        assert float((getattr(out[0].transformation, k).cpu()
+                      - getattr(out[1].transformation, k)).abs().max()) \
+            <= 1e-5
+
+
+def test_fpfh_on_the_card_matches_the_cpu(dev):
+    from probreg_tpu_torch import features as pfe
+
+    pts = _blob(3000, 3)
+    want = pfe.FPFH(0.15, 0.3, device="cpu")(pts)
+    got = pfe.FPFH(0.15, 0.3, device=dev)(pts).cpu()
+    off = (got - want).abs() > 0.1
+    assert float(off.double().mean()) <= 0.03
+    assert float((got - want)[~off].abs().max()) <= 0.1
+
+
+def test_feature_filterreg_on_the_card_matches_the_cpu(dev):
+    from probreg_tpu_torch import filterreg as pfr
+    from probreg_tpu_torch.utils import se3_op
+
+    src = _blob(500, 4)
+    rot = se3_op.euler2mat(0.1, 0.0, 0.15).numpy()
+    tgt = (src @ rot.T).astype(np.float32)
+
+    def feat(x):
+        return torch.cat([x, 0.5 * torch.sin(2.0 * x)], 1)
+
+    out = [pfr.registration_filterreg(src, tgt, feature_fn=feat, maxiter=8,
+                                      tol=0.0, device=d)
+           for d in (dev, "cpu")]
+    assert float((out[0].transformation.rot.cpu()
+                  - out[1].transformation.rot).abs().max()) <= 1e-5
+
+
+def _skinned(n, dev):
+    from probreg_tpu_torch.models import transformation as ptf
+    from probreg_tpu_torch.utils import dualquat as dq
+
+    pts = _blob(n, 5)
+    wr = np.clip(0.5 + pts[:, 0] / 2.0, 0.0, 1.0)
+    ws = ptf.DeformableKinematicModel.SkinningWeight(
+        np.tile([[0, 1]], (n, 1)), np.stack([1 - wr, wr], 1))
+    truth = dq.from_twist(torch.tensor([[0.0] * 6,
+                                        [0.05, 0.0, 0.15, 0.02, 0.04, 0.0]]))
+    tgt = ptf.DeformableKinematicModel(truth, ws, device="cpu").transform(
+        pts).numpy()
+    return pts, tgt, ws
+
+
+def test_deformable_mstep_on_the_card_matches_the_cpu(dev):
+    """The singular (colinear) bar: the SVD's rcond cut on both devices."""
+    from probreg_tpu_torch import filterreg as pfr
+    from probreg_tpu_torch.ops import gausstransform as pgt
+    from probreg_tpu_torch.utils import dualquat as dq
+
+    n = 30
+    bar = torch.tensor([[i * 0.05, 0.0, 0.0] for i in range(n)])
+    tgt = bar + torch.tensor([0.0, 0.1, 0.0]) * bar[:, :1]
+    w = torch.arange(n, dtype=torch.float32)[:, None] / n
+    pair = torch.tensor([[0, 1]]).repeat(n, 1)
+    val = torch.cat([w, 1 - w], 1)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        m0, m1, m2, _ = pgt.filterreg_moments(bar.to(d) / 0.1,
+                                              tgt.to(d) / 0.1, tgt.to(d),
+                                              None, need_m2=True)
+        outs.append([a.cpu() for a in pfr._deformable_mstep(
+            bar.to(d), m0, m1, m2, dq.identity(device=d).repeat(2, 1),
+            pair.to(d), val.to(d), torch.tensor(0.01, device=d), 0.0)])
+    assert float((outs[0][0] - outs[1][0]).abs().max()) <= 1e-4
+    assert torch.isfinite(outs[0][0]).all()
+
+
+@pytest.mark.parametrize("callbacks", [False, True])
+def test_deformable_on_the_card_matches_the_cpu(dev, callbacks):
+    from probreg_tpu_torch import filterreg as pfr
+
+    pts, tgt, ws = _skinned(1000, dev)
+    out = []
+    for d in (dev, "cpu"):
+        reg = pfr.DeformableKinematicFilterReg(pts, ws, 0.01,
+                                               update_sigma2=True, device=d)
+        if callbacks:
+            reg.set_callbacks([lambda tr: None])
+        out.append(reg.registration(tgt, maxiter=8, tol=0.0)
+                   .transformation.dualquats.cpu())
+    assert float((out[0] - out[1]).abs().max()) <= 1e-4
+
+
+def test_deformable_large_pair_launches_k6(dev):
+    """M N >= 2^28: every E-step of the deformable loop is one K6 launch."""
+    from probreg_tpu_torch import filterreg as pfr
+
+    pts, tgt, ws = _skinned(17_000, dev)
+    before = pgc.LAUNCHES["gauss_transform"]
+    reg = pfr.DeformableKinematicFilterReg(pts, ws, 0.01,
+                                           update_sigma2=True, device=dev)
+    res = reg.registration(tgt, maxiter=3, tol=0.0)
+    assert pgc.LAUNCHES["gauss_transform"] == before + 3
+    assert torch.isfinite(res.transformation.dualquats).all()
+
+
+def test_checkpoint_of_a_card_result(dev, tmp_path):
+    from probreg_tpu_torch import filterreg as pfr
+    from probreg_tpu_torch.utils import checkpoint
+
+    src = _blob(300, 6)
+    res = pfr.registration_filterreg(src, src + 0.01, maxiter=5, device=dev)
+    path = str(tmp_path / "s.npz")
+    checkpoint.save_state(path, res)
+    back = checkpoint.load_state(path, res)
+    assert back.transformation.rot.device == res.transformation.rot.device
+    assert torch.equal(back.transformation.rot, res.transformation.rot)

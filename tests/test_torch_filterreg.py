@@ -41,6 +41,7 @@ from probreg_tpu.ops import rigid_solvers as jrs  # noqa: E402
 from probreg_tpu.utils import se3_op as jso  # noqa: E402
 from probreg_tpu_torch import config as pcfg  # noqa: E402
 from probreg_tpu_torch import filterreg as pf  # noqa: E402
+from probreg_tpu_torch.models import transformation as ptf  # noqa: E402
 from probreg_tpu_torch.ops import frg_cuda as pfc  # noqa: E402
 from probreg_tpu_torch.ops import gausstransform as pgt  # noqa: E402
 from probreg_tpu_torch.ops import gt_cuda as pgc  # noqa: E402
@@ -48,6 +49,16 @@ from probreg_tpu_torch.ops import pairwise as ppw  # noqa: E402
 from probreg_tpu_torch.ops import rigid_solvers as prs  # noqa: E402
 from probreg_tpu_torch.utils import interop  # noqa: E402
 from probreg_tpu_torch.utils import se3_op as pso  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: under the suite's workers torch's default pool
+    oversubscribes the cores, and this file's many small products spin."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _t(a):
@@ -538,16 +549,24 @@ def test_batch_matches_single_pairs_and_reference(monkeypatch, objective,
 
 
 def test_unported_paths_raise(monkeypatch):
+    """The paths that once raised (the lattice E-step, the deformable
+    model, a feature_fn) run; the search keeps the reference's refusals.
+    (tests/test_torch_lattice.py, test_torch_deformable.py and
+    test_torch_fpfh.py hold them to the reference.)"""
     src, tgt = _clouds(m=40)
-    msg = "not ported.*Queue 1 item 6"
-    with pytest.raises(NotImplementedError, match="lattice.*" + msg):
-        pf.registration_filterreg(src, tgt, estep_method="lattice",
-                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="Deformable.*" + msg):
-        pf.DeformableKinematicFilterReg(src)
-    with pytest.raises(NotImplementedError, match="feature_fn.*" + msg):
-        pf.registration_filterreg(src, tgt, feature_fn=lambda x: x * 2.0,
-                                  device="cpu")
+    res = pf.registration_filterreg(src, tgt, estep_method="lattice",
+                                    maxiter=3, device="cpu")
+    assert torch.isfinite(res.transformation.rot).all()
+    weights = ptf.DeformableKinematicModel.SkinningWeight(
+        np.tile([[0, 1]], (len(src), 1)),
+        np.full((len(src), 2), 0.5, np.float32))
+    res = pf.DeformableKinematicFilterReg(src, weights, 0.01,
+                                          device="cpu").registration(
+        tgt, maxiter=3)
+    assert res.transformation.dualquats.shape == (2, 8)
+    res = pf.registration_filterreg(src, tgt, feature_fn=lambda x: x * 2.0,
+                                    maxiter=3, device="cpu")
+    assert torch.isfinite(res.transformation.rot).all()
     # Chunked callbacks and n_starts run (tests/test_torch_callbacks.py,
     # test_torch_multistart.py); the search keeps the reference's refusals.
     seen = []

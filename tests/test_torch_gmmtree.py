@@ -45,6 +45,17 @@ from probreg_tpu_torch.ops import sym3 as psym  # noqa: E402
 from probreg_tpu_torch.utils import interop  # noqa: E402
 from probreg_tpu_torch.utils import se3_op as pso  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: under the suite's workers torch's default pool
+    oversubscribes the cores, and this file's many small products spin."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BUILD = dict(max_level=2, lambda_s=0.001, lambda_d=1e-4)
 REG = dict(max_level=2, lambda_c=0.01)
 
@@ -308,27 +319,27 @@ def test_build_meets_reference_quality(fused):
     assert _recovers(pts, got) < 5e-2
 
 
-def test_masked_build_is_the_unpadded_build():
-    """On the K9 route the wrapper compacts, so a padded cloud gets its
-    unpadded tree bit for bit. The twin loop keeps the reference's masks
-    (padded rows join its sums with weight 0, which moves their rounding):
-    level 0 agrees to rounding, and the leaves by the quality bar."""
+@pytest.mark.parametrize("threads", [1, 2, 6])
+def test_masked_build_is_the_unpadded_build(threads):
+    """Both routes move a padded cloud's valid points to the front and
+    build on them alone, so the masked build is the unpadded tree bit for
+    bit, on the K9 route and on the twin level loop, at any torch thread
+    count."""
     pts = blobby_surface(200, seed=2).astype(np.float32)
     idxs = torch.from_numpy(np.random.default_rng(1).integers(0, 200, 64))
     padded = torch.cat([_t(pts), torch.full((30, 3), 5.0)])
     smask = torch.cat([torch.ones(200), torch.zeros(30)])
-    plain = pgt._build(_t(pts), idxs, fused=True, **BUILD)
-    masked = pgt._build(padded, idxs, smask=smask, fused=True, **BUILD)
-    for a, b in zip(plain, masked):
-        assert torch.equal(a, b)
-    plain = [a.numpy() for a in pgt._build(_t(pts), idxs, **BUILD)]
-    masked = [a.numpy() for a in pgt._build(padded, idxs, smask=smask,
-                                            **BUILD)]
-    np.testing.assert_allclose(masked[0][:8], plain[0][:8], atol=1e-5)
-    np.testing.assert_allclose(masked[1][:8], plain[1][:8], atol=1e-4)
-    assert masked[0][8:].sum() >= plain[0][8:].sum() - 0.02
-    ll_p, ll_m = _leaf_ll(pts, *plain), _leaf_ll(pts, *masked)
-    assert ll_m >= ll_p - 0.10 * abs(ll_p), (ll_p, ll_m)
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        for fused in (True, False):
+            plain = pgt._build(_t(pts), idxs, fused=fused, **BUILD)
+            masked = pgt._build(padded, idxs, smask=smask, fused=fused,
+                                **BUILD)
+            for a, b in zip(plain, masked):
+                assert torch.equal(a, b), fused
+    finally:
+        torch.set_num_threads(before)
 
 
 # --------------------------------------------------------------------------
@@ -337,8 +348,10 @@ def test_masked_build_is_the_unpadded_build():
 
 @pytest.mark.parametrize("pad", [0, 57])
 def test_reg_plain_matches_reference_kernel(blob_tree, pad):
+    """At a fixed depth (tol 0, 25 iterations): near q's f32 resolution a
+    stop at tol 1e-6 falls iterations apart with the thread count."""
     pts, tgt, tree = blob_tree
-    kw = dict(**REG, maxiter=25, tol=1e-6)
+    kw = dict(**REG, maxiter=25, tol=0.0)
     r0, t0 = jnp.eye(3, dtype=jnp.float32), jnp.zeros(3, jnp.float32)
     tgt_p = np.concatenate([tgt, np.zeros((pad, 3), np.float32)])
     tm = np.concatenate([np.ones(len(tgt)), np.zeros(pad)]).astype(
@@ -351,7 +364,7 @@ def test_reg_plain_matches_reference_kernel(blob_tree, pad):
         _t(tgt_p), *nodes, tmask=_t(tm) if pad else None, **kw)
     np.testing.assert_allclose(rp.numpy(), np.asarray(rj), atol=2e-5)
     np.testing.assert_allclose(tp.numpy(), np.asarray(tj), atol=2e-5)
-    assert 1 < int(it) < 25
+    assert int(it) == 25
     if pad:
         one = pgc.run_gmmtree_reg_fused(_t(tgt), *nodes, **kw)
         for a, b in zip((rp, tp, qp, it), one):

@@ -36,6 +36,16 @@ from probreg_tpu_torch.ops import icp_cuda as pic  # noqa: E402
 from probreg_tpu_torch.utils import se3_op as pso  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: under the suite's workers torch's default pool
+    oversubscribes the cores, and this file's many small products spin."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

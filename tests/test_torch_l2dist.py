@@ -353,8 +353,13 @@ def test_ocsvm_dual(horse, masked):
 
 
 def test_fpfh_names_its_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        pft.FPFH()
+    """FPFH is ported (tests/test_torch_fpfh.py holds it to the
+    reference): it builds and computes 33-D histograms."""
+    pts = np.random.default_rng(0).normal(size=(60, 3)).astype(np.float32)
+    h = pft.FPFH(0.8, 1.5, 10, 20, **CPU).compute(pts)
+    assert h.shape == (60, 33) and torch.isfinite(h).all()
+    np.testing.assert_allclose(h.reshape(60, 3, 11).sum(2).numpy(), 200.0,
+                               rtol=1e-4)
 
 
 # ---------------------------------------------------- single registrations

@@ -27,6 +27,17 @@ from probreg_tpu_torch import pyramid as ppy  # noqa: E402
 from probreg_tpu_torch.ops import estep_cuda as pec  # noqa: E402
 from probreg_tpu_torch.utils import se3_op as pso  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: under the suite's workers torch's default pool
+    oversubscribes the cores, and this file's many small products spin."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 KW = dict(levels=2, coarse_points=800)
 T_GT = np.array([0.05, -0.03, 0.08], np.float32)
 
@@ -189,7 +200,11 @@ def test_cpd_pyramid_matches_reference(rigid_pair, kind):
                                    atol=1e-4)
         np.testing.assert_allclose(out.transformation.b.numpy(), b,
                                    atol=1e-2)
-    assert float(out.sigma2) == pytest.approx(float(ref.sigma2), rel=5e-3)
+    # The targets are exact copies, so sigma2 ends at the f32 floor in both
+    # packages, where its last bits follow the summation order (ROADMAP,
+    # Queue 3): both must reach the floor.
+    floor = 10 * float(np.finfo(np.float32).eps)
+    assert float(ref.sigma2) < floor and float(out.sigma2) < floor
 
 
 def test_nonrigid_cpd_pyramid_matches_reference():

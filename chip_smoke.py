@@ -91,6 +91,17 @@ before it and read just after:
   registration_cpd_batch), the CPD pyramid with mesh= (2 x 2) at
   200,000 points and the 2 x 2 low-rank nonrigid kind on the 16,384-point
   surface (K11 in every rank);
+* the other sharded families, each held to the single-card call: on one
+  NCCL rank registration_filterreg_sharded on the 150k pair (one
+  gauss_transform launch per E-step, counted into its row),
+  registration_bcpd_sharded on the 100k BCPD clouds (one wstash_den and
+  one wstash_moment launch per E-step, counted into theirs),
+  registration_gmmtree_sharded on the 150k GMMTree pair, and
+  registration_gmmreg_sharded and registration_svr_sharded on bench.py's
+  bunny; then four gloo ranks on the one card: 2 x 2
+  registration_filterreg_2d at 150k, 2 x 2 registration_bcpd_2d on the
+  16,384-point surface, the FilterReg pyramid on a mesh of 4 and the BCPD
+  pyramid on 2 x 2 at 200,000 points, every rank's bits equal;
 * multistart and chunked callbacks: K1 and K5 with identity start rows
   against no rows (the same bits; the bunny at every cluster size and
   the 256 serving pairs); bench.py's bunny turned 170 degrees about z
@@ -2159,10 +2170,12 @@ def wstash_plain_times(ys, xs, rowlog, v_t, scal, mask, tile_m, tile_n):
     return pa, pb
 
 
-def run_bcpd_large(dev, launches):
+def run_bcpd_large(dev, launches, shared):
     """registration_bcpd at 100k, rank 64: every E-step through K8 (one
     launch of each pass), no plain-version call; quality by the
-    full-target NN-RMSE; then 3 iterations against the plain-driven run."""
+    full-target NN-RMSE; then 3 iterations against the plain-driven run.
+    Keeps the spread between two plain versions at each depth in
+    ``shared["bcpd_spread"]`` for the sharded BCPD's check."""
     from probreg_tpu_torch import bcpd
     from probreg_tpu_torch.ops import bcpd_cuda as bc
     from probreg_tpu_torch.utils import math_utils as mu
@@ -2239,6 +2252,7 @@ def run_bcpd_large(dev, launches):
         other = bcpd_final_iterate(src, tgt, depth, plain=True, tiles=512)
         got, ref = bcpd_spread(src, kern, plain), bcpd_spread(src, other,
                                                               plain)
+        shared.setdefault("bcpd_spread", {})[depth] = ref
         for label, d in (("kernel - plain", got),
                          ("plain, tiles 512 - plain", ref)):
             log(f"  {depth} iteration(s), {label}: max |diff| "
@@ -4576,6 +4590,339 @@ def run_mesh_on_one_card(dev, launches, shared):
 
 
 # --------------------------------------------------------------------------
+# The sharded families: FilterReg, BCPD, GMMTree, GMMReg, SVR and the
+# FilterReg and BCPD pyramids on meshes
+# --------------------------------------------------------------------------
+
+FRG_MESH_ARGS = dict(maxiter=MESH_ITERS, tol=0.0, sigma2_decay=0.9)
+# The FilterReg pyramids (mesh and single card) at a fixed depth, so that
+# both run every level's budget.
+FRG_PYR_ARGS = dict(levels=3, tol=0.0)
+BCPD_2D_ARGS = dict(rank=LOWRANK_ARGS["rank"], maxiter=SHARDED_LOWRANK_ITERS,
+                    tol=0.0)
+# The BCPD pyramid on the 2 x 2 mesh: its 4 ranks share the card, and each
+# rank's E-step holds (M / 2, config.estep_chunk) temporaries, a few of
+# them live at once: ~1.6 GB each at 200,000 points, so a rank's peak
+# stays well inside a quarter of the card, where 500,000 points would
+# reach it. Stated before the first run.
+N_BCPD_MESH_PYR = 200_000
+QUARTER_CARD_GIB = 20.0
+# A mesh run's full-target NN-RMSE against the single card's of the same
+# call: the two build their Nystrom factors from differently ordered
+# sources (the single card sorts its clouds for K8) and the low-rank VI
+# amplifies rounding, so the runs part by more than rounding; their
+# registrations must be as good. The 2 x 2 run at 16k is held to the
+# worse of the single card's two routes (run_families_on_one_card).
+BCPD_MESH_RESIDUAL = 1.05
+# GMMTree: the mesh's plain descent in the raw frame against K10 in the
+# centred frame on one tree: a point near a descent tie flips and moves
+# the pose by ~1e-3 (tests/test_torch_gmmtree.py).
+GMM_MESH_AGREE = 2e-3
+# GMMReg: the sharded fit draws its seed centres from numpy's generator (as
+# the reference's sharded fit), the single card from torch's; the two fits
+# differ and the poses part by 1.3e-3 rad on the CPU. SVR has no seeds and
+# meets L2_ROT_AGREE.
+L2_SEED_AGREE = 5e-3
+# The FilterReg pyramid on the mesh against the single card's: the same
+# levels and carries, the coarsest level's dense loop (single card) against
+# the sharded Gauss transform.
+FRG_PYR_AGREE = 1e-3
+
+
+def counted_call(name, fn):
+    """``fn()`` twice; the second with the launch and mesh counts set to 0
+    just before it and read just after, and timed. Returns (result,
+    launches, counts, wall s)."""
+    from probreg_tpu_torch.parallel import mesh as pmesh
+
+    fn()
+    torch.cuda.synchronize()
+    reset_launches()
+    pmesh.reset_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: v for k, v in all_launches().items() if v}
+    counts = dict(pmesh.COUNTS)
+    log(f"  {name}: timed call {wall:.3f} s, counts {counts}, launches "
+        f"{got}")
+    return res, got, counts, wall
+
+
+def moved_combined(res, src):
+    return res.transform(torch.as_tensor(src, device=res.v.device)) \
+        .cpu().numpy()
+
+
+def full_rmse(moved, tgt, dev):
+    from probreg_tpu_torch.utils import math_utils as mu
+
+    return float(mu.compute_rmse(torch.as_tensor(moved, device=dev),
+                                 torch.as_tensor(tgt, device=dev)))
+
+
+def run_families_one_rank(dev, launches, shared):
+    """The sharded families on one NCCL rank (world 1, a 1-D mesh), each
+    held to the single-card run of the same call:
+    registration_filterreg_sharded on the 150k pair (pt2pt, MESH_ITERS
+    iterations, tol 0, sigma2_decay 0.9: one K6 launch per E-step, counted
+    into K6's row) within MESH_AGREE; registration_bcpd_sharded on the
+    100k BCPD clouds with BCPD_ARGS (K8, one launch of each pass per
+    E-step, counted into K8's rows), its NN-RMSE within BCPD_MESH_RESIDUAL
+    and, at 1 and BCPD_COMPARE_ITERS iterations, its moved source within
+    10x run_bcpd_large's plain-to-plain spread; registration_gmmtree_sharded
+    on the 150k GMMTree pair (the tree built through K9, the plain descent)
+    within GMM_MESH_AGREE; registration_svr_sharded and
+    registration_gmmreg_sharded on bench.py's bunny turned 10 deg (within
+    L2_ROT_AGREE / L2_SEED_AGREE and the truth bounds)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from probreg_tpu_torch import bcpd, filterreg, gmmtree
+    from probreg_tpu_torch import l2dist_regs as l2
+    from probreg_tpu_torch.parallel import (make_mesh,
+                                            registration_bcpd_sharded,
+                                            registration_filterreg_sharded,
+                                            registration_gmmreg_sharded,
+                                            registration_gmmtree_sharded,
+                                            registration_svr_sharded)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        src, tgt, rot = large_clouds(dev)
+        log(f"[mesh families, one NCCL rank] registration_filterreg_sharded"
+            f", {N_LARGE:,} points, pt2pt, {FRG_MESH_ARGS}")
+        res, got, counts, _ = counted_call(
+            "FilterReg 1-D", lambda: registration_filterreg_sharded(
+                src, tgt, mesh=mesh, device=dev, **FRG_MESH_ARGS))
+        if got != {"gauss_transform": MESH_ITERS} \
+                or counts["esteps"] != MESH_ITERS:
+            raise AssertionError("sharded FilterReg: not one K6 launch per "
+                                 "E-step")
+        launches["gauss_transform"] += got["gauss_transform"]
+        one = filterreg.registration_filterreg(src, tgt, **FRG_MESH_ARGS)
+        a, b = res.transformation, one.transformation
+        d = max(float((a.rot - b.rot).abs().max()),
+                float((a.t - b.t).abs().max()))
+        err = rot_error(a.rot.cpu(), rot)
+        log(f"  against registration_filterreg: max |diff| {d:.3e}; "
+            f"rotation error {err:.3e} rad")
+        if not (d <= MESH_AGREE and err <= FRG_ROT_ERR_MAX):
+            raise AssertionError("sharded FilterReg disagrees with the "
+                                 "single card")
+        shared["frg_one_rank"] = (a.rot.cpu().numpy(), a.t.cpu().numpy())
+
+        bsrc, btgt, _ = bcpd_clouds()
+        log(f"[mesh families, one NCCL rank] registration_bcpd_sharded, "
+            f"{N_BCPD:,} points, {BCPD_ARGS}")
+        res, got, counts, _ = counted_call(
+            "BCPD 1-D", lambda: registration_bcpd_sharded(
+                bsrc, btgt, mesh=mesh, device=dev, **BCPD_ARGS))
+        n_e = counts["esteps"]
+        if got != {"wstash_den": n_e, "wstash_moment": n_e}:
+            raise AssertionError("sharded BCPD: not one K8 launch pair per "
+                                 "E-step")
+        launches["wstash_den"] += n_e
+        launches["wstash_moment"] += n_e
+        one = bcpd.registration_bcpd(bsrc, btgt, **BCPD_ARGS)
+        before = full_rmse(bsrc, btgt, dev)
+        after = full_rmse(moved_combined(res, bsrc), btgt, dev)
+        after_one = full_rmse(moved_combined(one, bsrc), btgt, dev)
+        log(f"  full-target NN-RMSE {before:.6f} before, {after:.6f} after "
+            f"(single card {after_one:.6f})")
+        if not (after < before and after <= BCPD_MESH_RESIDUAL * after_one):
+            raise AssertionError("sharded BCPD falls short of the single "
+                                 "card")
+        spread = shared.get("bcpd_spread")
+        if spread is None:
+            raise AssertionError("no plain-to-plain BCPD spread to hold the "
+                                 "sharded runs to (run_bcpd_large failed)")
+        for depth in (1, BCPD_COMPARE_ITERS):
+            kw = dict(BCPD_ARGS, maxiter=depth, tol=0.0)
+            d = float(np.abs(moved_combined(registration_bcpd_sharded(
+                bsrc, btgt, mesh=mesh, device=dev, **kw), bsrc)
+                - moved_combined(bcpd.registration_bcpd(bsrc, btgt, **kw),
+                                 bsrc)).max())
+            bar = max(10.0 * spread[depth]["moved"], 1e-6)
+            log(f"  {depth} iteration(s): max |moved diff| against the "
+                f"single card {d:.2e} (bar {bar:.2e})")
+            if not d <= bar:
+                raise AssertionError("sharded BCPD disagrees with the single"
+                                     f" card at {depth} iteration(s)")
+
+        gsrc, gtgt, grot = gmm_surface_pair()
+        log(f"[mesh families, one NCCL rank] registration_gmmtree_sharded, "
+            f"{N_GMM:,} points each, defaults")
+        res, got, counts, _ = counted_call(
+            "GMMTree 1-D", lambda: registration_gmmtree_sharded(
+                gsrc, gtgt, mesh=mesh, device=dev))
+        if got != {"gmmtree_level_em": 2}:
+            raise AssertionError("sharded GMMTree: the tree build did not "
+                                 "run K9 once per level")
+        one = gmmtree.registration_gmmtree(gsrc, gtgt)
+        a, b = res.transformation, one.transformation
+        d = max(float((a.rot - b.rot).abs().max()),
+                float((a.t - b.t).abs().max()))
+        err = rot_error(a.rot.cpu(), grot)
+        log(f"  {counts['esteps']} iterations; against registration_gmmtree"
+            f" (K10): max |diff| {d:.3e}; rotation error {err:.3e} rad")
+        if not (d <= GMM_MESH_AGREE and err <= ROT_ERR_MAX):
+            raise AssertionError("sharded GMMTree disagrees with the single "
+                                 "card")
+
+        lsrc, ltgt = bunny_clouds(z_rotation(10.0))
+        ext = float(np.ptp(ltgt, 0).max())
+        for name, fn, single, kw, agree in (
+                ("SVR", registration_svr_sharded, l2.registration_svr, {},
+                 L2_ROT_AGREE),
+                ("GMMReg", registration_gmmreg_sharded,
+                 l2.registration_gmmreg, dict(n_gmm_components=200),
+                 L2_SEED_AGREE)):
+            log(f"[mesh families, one NCCL rank] {fn.__name__}, bunny "
+                f"turned 10 deg, {kw}")
+            res, got, _, _ = counted_call(f"{name} 1-D", lambda: fn(
+                lsrc, ltgt, mesh=mesh, device=dev, **kw))
+            one = single(lsrc, ltgt, **kw)
+            d = np.deg2rad(rot_deg(res.rot.cpu().double(),
+                                   one.rot.cpu().double().numpy()))
+            dt = float((res.t - one.t).abs().max()) / ext
+            log(f"  against {single.__name__}: rotation {d:.2e} rad, t "
+                f"{dt:.2e} of the extent")
+            l2_rigid_check(f"{name} 1-D", res, z_rotation(10.0), np.zeros(3),
+                           None, ext)
+            if got or not (d <= agree and dt <= L2_T_AGREE):
+                raise AssertionError(f"sharded {name} disagrees with the "
+                                     "single card")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_families_on_one_card(dev, launches, shared):
+    """Four ranks on the one card under gloo, one spawn (a check of the
+    collectives, not a 4-card figure): registration_filterreg_2d (2 x 2) on
+    the 150k pair as run_families_one_rank runs it (K6 per rank per
+    E-step; within MESH_AGREE of the one-rank run), registration_bcpd_2d
+    (2 x 2) on the 16,384-point surface (BCPD_2D_ARGS: one den reduction
+    per E-step, no kernel), the FilterReg pyramid with mesh= of 4 at
+    PYRAMID_SIZES[0] points and the BCPD pyramid with mesh= of 2 x 2 at
+    N_BCPD_MESH_PYR points (BCPD_ARGS, 3 levels; each rank's peak memory
+    inside a quarter of the card). Every rank returns the same bits; the
+    BCPD runs reach the single card's NN-RMSE within BCPD_MESH_RESIDUAL,
+    the FilterReg pyramid its reference test's bar and the single card's
+    pyramid within FRG_PYR_AGREE."""
+    from probreg_tpu_torch import bcpd, pyramid
+    from probreg_tpu_torch.config import config
+    from probreg_tpu_torch.parallel import _spmd
+
+    src, tgt, rot = large_clouds(dev)
+    lsrc, ltgt, _ = lowrank_surface()
+    fsrc, ftgt, frot, ft = pyramid_case(PYRAMID_SIZES[0])
+    bsrc, btgt, _, _ = pyramid_case(N_BCPD_MESH_PYR)
+    bpyr = dict(BCPD_ARGS, levels=3)
+    calls = [("filterreg_2d", (2, 2), (src, tgt), FRG_MESH_ARGS),
+             ("bcpd_2d", (2, 2), (lsrc, ltgt), BCPD_2D_ARGS),
+             ("filterreg_pyramid", (4,), (fsrc, ftgt), FRG_PYR_ARGS),
+             ("bcpd_pyramid", (2, 2), (bsrc, btgt), bpyr)]
+    # The ranks share the card with this process: hand back the blocks
+    # its allocator keeps from the earlier phases (tens of GiB after the
+    # 10^6-point pyramid), or the BCPD pyramid's ranks (~8 GiB each) do
+    # not fit.
+    held = torch.cuda.memory_reserved() / 2**30
+    torch.cuda.empty_cache()
+    log(f"  this process's allocator held {held:.2f} GiB, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB after emptying")
+    log("[mesh families, 4 gloo ranks on one card] 2 x 2 "
+        f"registration_filterreg_2d at {N_LARGE:,} points, 2 x 2 "
+        f"registration_bcpd_2d at {len(lsrc):,}, the FilterReg pyramid "
+        f"(mesh of 4) at {len(fsrc):,} and the BCPD pyramid (2 x 2) at "
+        f"{len(bsrc):,} points")
+    t0 = time.perf_counter()
+    outs = _spmd.run_spmd(_spmd.rank_calls, 4, "gloo", "cuda:0", calls,
+                          timeout=600.0)
+    log(f"  spawn and the calls {time.perf_counter() - t0:.1f} s")
+    per_call = [[rank[i] for rank in outs] for i in range(len(calls))]
+    names = ["FilterReg 2 x 2", "BCPD 2 x 2", "FilterReg pyramid",
+             "BCPD pyramid"]
+    for name, res in zip(names, per_call):
+        log(f"  {name}: {max(o['seconds'] for o in res):.3f} s (slowest "
+            f"rank), counts {res[0]['counts']}, launches per rank "
+            f"{[o['launches'] for o in res]}, peak MiB per rank "
+            f"{[round(o['peak_mib']) for o in res]}")
+        same_on_every_rank(name, res)
+    frg, bc2, fpyr, bpyr_out = per_call
+    r0 = frg[0]["result"]
+    one = shared.get("frg_one_rank")
+    if one is None:
+        raise AssertionError("FilterReg 2 x 2: no one-rank run to hold it "
+                             "to (run_families_one_rank failed)")
+    d = max(float(np.abs(r0["lin"] - one[0]).max()),
+            float(np.abs(r0["t"] - one[1]).max()))
+    log(f"  FilterReg 2 x 2 against the one-rank run: max |diff| {d:.3e}; "
+        f"rotation error {rot_error(r0['lin'], rot):.3e} rad")
+    if not d <= MESH_AGREE or any(
+            o["launches"] != {"gauss_transform": MESH_ITERS} for o in frg):
+        raise AssertionError("FilterReg 2 x 2 wrong")
+    # The single card's two routes: K8 on Morton-sorted clouds (the
+    # default, Nystrom factors of the sorted source) and the dense E-step
+    # (the mesh's factors). Both are correct, and the low-rank VI parts
+    # them by more than BCPD_MESH_RESIDUAL at this depth, so the mesh run
+    # is held to the worse of the two.
+    bone = bcpd.registration_bcpd(lsrc, ltgt, **BCPD_2D_ARGS)
+    culled = config.use_culled_estep
+    config.use_culled_estep = False
+    try:
+        bdense = bcpd.registration_bcpd(lsrc, ltgt, **BCPD_2D_ARGS)
+    finally:
+        config.use_culled_estep = culled
+    g = bc2[0]["result"]
+    mv = g["scale"] * (lsrc + g["v"]) @ g["lin"].T + g["t"]
+    after = full_rmse(mv, ltgt, dev)
+    singles = [full_rmse(moved_combined(r, lsrc), ltgt, dev)
+               for r in (bone, bdense)]
+    log(f"  BCPD 2 x 2: NN-RMSE {full_rmse(lsrc, ltgt, dev):.6f} before, "
+        f"{after:.6f} after (single card, K8 route {singles[0]:.6f}, dense "
+        f"route {singles[1]:.6f}); max |moved diff| against the dense route "
+        f"{np.abs(mv - moved_combined(bdense, lsrc)).max():.3e}")
+    if not (after <= BCPD_MESH_RESIDUAL * max(singles) and all(
+            o["counts"]["den_all_reduce"] == o["counts"]["esteps"]
+            == SHARDED_LOWRANK_ITERS + 1 and not o["launches"]
+            for o in bc2)):
+        raise AssertionError("BCPD 2 x 2 wrong")
+    g = fpyr[0]["result"]
+    err, t_err = rot_error(g["lin"], frot), float(np.abs(g["t"] - ft).max())
+    fone = pyramid.registration_filterreg_pyramid(fsrc, ftgt, **FRG_PYR_ARGS)
+    d = max(float(np.abs(g["lin"] - fone.transformation.rot.cpu().numpy())
+                  .max()),
+            float(np.abs(g["t"] - fone.transformation.t.cpu().numpy())
+                  .max()))
+    log(f"  FilterReg pyramid: rotation error {err:.3e} rad, |t - t_gt| "
+        f"{t_err:.3e}; against the single card's pyramid max |diff| "
+        f"{d:.3e}")
+    if not (err < 2e-2 and t_err <= 1e-2 and d <= FRG_PYR_AGREE and all(
+            o["launches"].get("gauss_transform", 0) > 0 for o in fpyr)):
+        raise AssertionError("FilterReg pyramid on the mesh wrong")
+    g = bpyr_out[0]["result"]
+    mv = g["scale"] * (bsrc + g["v"]) @ g["lin"].T + g["t"]
+    bone = pyramid.registration_bcpd_pyramid(bsrc, btgt, **bpyr)
+    before = full_rmse(bsrc, btgt, dev)
+    after = full_rmse(mv, btgt, dev)
+    after_one = full_rmse(moved_combined(bone, bsrc), btgt, dev)
+    peak = max(o["peak_mib"] for o in bpyr_out) / 1024
+    log(f"  BCPD pyramid 2 x 2 at {len(bsrc):,} points: NN-RMSE {before:.6f}"
+        f" before, {after:.6f} after (single card {after_one:.6f}); peak "
+        f"{peak:.2f} GiB on the largest rank (limit {QUARTER_CARD_GIB} GiB)")
+    if not (after < before and after <= BCPD_MESH_RESIDUAL * after_one
+            and peak <= QUARTER_CARD_GIB):
+        raise AssertionError("BCPD pyramid on the mesh wrong")
+
+
+# --------------------------------------------------------------------------
 # --parent DIR: this checkout's K1, K5, K7 and K10 against another
 # checkout's build
 # --------------------------------------------------------------------------
@@ -6193,7 +6540,7 @@ def main() -> int:
                         (run_icp_batch, (dev, launches)),
                         (run_icp_large, (dev, launches)),
                         (check_wstash, (dev, kernels)),
-                        (run_bcpd_large, (dev, launches)),
+                        (run_bcpd_large, (dev, launches, shared)),
                         (check_gmmtree_build, (dev, kernels)),
                         (check_gmmtree_reg, (dev, kernels)),
                         (run_gmmtree_bunny, (dev, launches)),
@@ -6215,7 +6562,10 @@ def main() -> int:
                         (run_fpfh, (dev, launches)),
                         (run_modules, (dev, launches)),
                         (run_sharded_one_rank, (dev, launches, shared)),
-                        (run_mesh_on_one_card, (dev, launches, shared))):
+                        (run_mesh_on_one_card, (dev, launches, shared)),
+                        (run_families_one_rank, (dev, launches, shared)),
+                        (run_families_on_one_card,
+                         (dev, launches, shared))):
         t0 = time.perf_counter()
         try:
             phase(*args)

@@ -329,9 +329,36 @@ def _culled_rowlog(row, dim, sigma2):
         torch.tensor(-1e30, dtype=row.dtype, device=row.device))
 
 
+def _estep_of(target, w_over_n, block, cmask=None, use_culled=False):
+    """The VI E-step against ``target`` (..., N, D): estep(t_src_t, row,
+    sigma2) -> (moments (..., D + 2, M) of the channels [x; 1; |x|^2],
+    per-source-row min d2 (..., M), e1 = sum p d2 (...)). Dense in column
+    blocks of ``block`` (``cmask`` (..., 1, N) zeroes padded columns), or,
+    for one row (``use_culled``, clouds Morton-sorted), the tile-culled
+    row-weighted E-step (``ops/bcpd_cuda.py``)."""
+    dim = target.shape[-1]
+    xs_t = target.transpose(-1, -2)
+    x2 = (xs_t * xs_t).sum(-2, keepdim=True)
+    # Channels [x (D); ones; |x|^2]: the moments give px_t (D, M), nu (M)
+    # and sum_j p_ij |x_j|^2, whose total is s1.
+    v_chan = torch.cat([xs_t, torch.ones_like(x2), x2], dim=-2)
+
+    def estep(t_src_t, row, sigma2):
+        if use_culled:
+            _, mom, minrow, e1 = bcpd_cuda.bcpd_estep_culled(
+                t_src_t[0].T, target[0], _culled_rowlog(row[0], dim,
+                                                        sigma2[0]),
+                v_chan[0], w_over_n, sigma2[0])
+            return mom[None], minrow[None], e1.reshape(1)
+        return _estep_all(t_src_t, xs_t, v_chan, row, sigma2, w_over_n,
+                          block, cmask)
+
+    return estep
+
+
 def _vi_loop(source, target, gmat, lmd, k, sigma2_0, *, w, maxiter, tol,
              block=None, smask=None, tmask=None, use_culled=False,
-             init=None):
+             init=None, estep=None, agree=None):
     """The VI loop over a batch of rows in transposed (D, M) layout: the
     reference's _run_bcpd (bcpd.py:313) as jax.vmap runs it.
 
@@ -349,6 +376,10 @@ def _vi_loop(source, target, gmat, lmd, k, sigma2_0, *, w, maxiter, tol,
     row-weighted E-step (``use_culled``; the caller Morton-sorted both
     clouds). ``init``: optional (rot0, t0, scale0, v0_t, alpha0, sdiag0)
     tensors of the rows' shapes, any of v0_t, alpha0, sdiag0 None.
+    ``estep``: an E-step in :func:`_estep_of`'s form in place of the one
+    against ``target`` (the sharded runner's, whose sums and minima span
+    the mesh); ``agree``: applied to each M-step's new state tuple (the
+    sharded runner hands every rank the first rank's).
 
     A row is live while i < maxiter and (i < 2 or its NN-RMSE criterion
     moved by at least ``tol``); a finished row's state, best state and
@@ -363,34 +394,23 @@ def _vi_loop(source, target, gmat, lmd, k, sigma2_0, *, w, maxiter, tol,
     sigma_diag, alpha, rmse_last), all device tensors.
     """
     m, dim = source.shape[-2:]
-    n = target.shape[-2]
     lead = source.shape[:-2]
     dt, dev = source.dtype, source.device
     masked = smask is not None
     if use_culled and (masked or lead != (1,)):
         raise ValueError("the culled E-step runs one row without masks")
-    ys_t, xs_t = source.transpose(-1, -2), target.transpose(-1, -2)
-    x2 = (xs_t * xs_t).sum(-2, keepdim=True)
-    # Channels [x (D); ones; |x|^2]: the moments give px_t (D, M), nu (M)
-    # and sum_j p_ij |x_j|^2, whose total is s1.
-    v_chan = torch.cat([xs_t, torch.ones_like(x2), x2], dim=-2)
-    block = int(_config.config.estep_chunk) if block is None else int(block)
-    block = max(min(block, n), 1)
-    if masked:
-        m_eff, n_eff = smask.sum(-1), tmask.sum(-1)
-        w_over_n, cmask = _lead(w / n_eff, 2), tmask[..., None, :]
-    else:
-        m_eff, w_over_n, cmask = None, w / n, None
-
-    def estep(t_src_t, row, sigma2):
-        if use_culled:
-            _, mom, minrow, e1 = bcpd_cuda.bcpd_estep_culled(
-                t_src_t[0].T, target[0], _culled_rowlog(row[0], dim,
-                                                        sigma2[0]),
-                v_chan[0], w_over_n, sigma2[0])
-            return mom[None], minrow[None], e1.reshape(1)
-        return _estep_all(t_src_t, xs_t, v_chan, row, sigma2, w_over_n,
-                          block, cmask)
+    ys_t = source.transpose(-1, -2)
+    m_eff = smask.sum(-1) if masked else None
+    if estep is None:
+        n = target.shape[-2]
+        block = int(_config.config.estep_chunk) if block is None \
+            else int(block)
+        if masked:
+            estep = _estep_of(target, _lead(w / tmask.sum(-1), 2),
+                              max(min(block, n), 1), tmask[..., None, :])
+        else:
+            estep = _estep_of(target, w / n, max(min(block, n), 1),
+                              use_culled=use_culled)
 
     def nn_rmse(minrow):
         if masked:
@@ -440,6 +460,8 @@ def _vi_loop(source, target, gmat, lmd, k, sigma2_0, *, w, maxiter, tol,
             ys_t, rot, t, scale, sigma2, gmat, lmd, k, mom[..., :dim, :],
             mom[..., dim, :], mom[..., dim + 1, :].sum(-1), m_eff=m_eff,
             e1=e1, t_src_t=t_src_t, v_prev_t=v_t, rows=rows)
+        if agree is not None:
+            new = agree(new)
         # rmse_t scores the INCOMING state; the VI keeps trading scale
         # against v after convergence, so the last iterate can be worse
         # than one it passed through.

@@ -117,29 +117,39 @@ def _weights(m0, c, sigma2):
             mask * torch.sqrt(m0m0 / sigma2))
 
 
-def rigid_mstep_pt2pt(t_source, m0, m1, m2, rot_p, t_p, sigma2, c):
+def rigid_mstep_pt2pt(t_source, m0, m1, m2, rot_p, t_p, sigma2, c,
+                      reduce=None):
     """Weighted Kabsch on the virtual targets m1 / m0 (reference
-    filterreg.py:78): (rot, t, sigma2 updated or as given, q)."""
+    filterreg.py:78): (rot, t, sigma2 updated or as given, q).
+    ``reduce``: where the source rows are one shard of a mesh, sums a
+    tensor of row sums over the ranks holding the other rows (the 2-D
+    mesh's m axis)."""
     mask, m0s, m0m0, drxdx = _weights(m0, c, sigma2)
     m1m0 = m1 / m0s[:, None]
-    dr, dt = rigid_solvers.weighted_kabsch(t_source, m1m0, drxdx)
+    dr, dt = rigid_solvers.weighted_kabsch(t_source, m1m0, drxdx, reduce)
     q = torch.linalg.norm(drxdx[:, None] * (t_source - m1m0), dim=1).sum()
-    sigma2_new = _sigma2_update(t_source, m0, m1, m2, m0m0, c, mask, sigma2)
+    if reduce is not None:
+        q = reduce(q.reshape(1))[0]
+    sigma2_new = _sigma2_update(t_source, m0, m1, m2, m0m0, c, mask, sigma2,
+                                reduce)
     return dr @ rot_p, t_p @ dr.T + dt, sigma2_new, q
 
 
-def rigid_mstep_pt2pl(t_source, m0, m1, m2, nx, rot_p, t_p, sigma2, c):
+def rigid_mstep_pt2pl(t_source, m0, m1, m2, nx, rot_p, t_p, sigma2, c,
+                      reduce=None):
     """One point-to-plane Gauss-Newton twist step (reference
-    filterreg.py:99)."""
+    filterreg.py:99); ``reduce`` as :func:`rigid_mstep_pt2pt`."""
     mask, m0s, m0m0, drxdx = _weights(m0, c, sigma2)
     tw, q = rigid_solvers.twist_for_pt2pl(t_source, m1 / m0s[:, None],
-                                          nx / m0s[:, None], drxdx)
+                                          nx / m0s[:, None], drxdx, reduce)
     rot, t = so.twist_mul(tw, rot_p, t_p)
-    sigma2_new = _sigma2_update(t_source, m0, m1, m2, m0m0, c, mask, sigma2)
+    sigma2_new = _sigma2_update(t_source, m0, m1, m2, m0m0, c, mask, sigma2,
+                                reduce)
     return rot, t, sigma2_new, q
 
 
-def _sigma2_update(t_source, m0, m1, m2, m0m0, c, mask, sigma2_old):
+def _sigma2_update(t_source, m0, m1, m2, m0m0, c, mask, sigma2_old,
+                   reduce=None):
     """Reference filterreg.py:112; returns ``sigma2_old`` when m2 is None.
     Divides by the cloud's dimension (the reference's own deviation from
     the original's fixed 3)."""
@@ -149,7 +159,10 @@ def _sigma2_update(t_source, m0, m1, m2, m0m0, c, mask, sigma2_old):
     num = (m0 * (t_source * t_source).sum(1)
            - 2.0 * (t_source * m1).sum(1) + m2)
     s2 = (mask * num / torch.clamp(m0 + c, min=_EPS)).sum()
-    return s2 / (dim * torch.clamp((mask * m0m0).sum(), min=_EPS))
+    mass = (mask * m0m0).sum()
+    if reduce is not None:
+        s2, mass = reduce(torch.stack([s2, mass]))
+    return s2 / (dim * torch.clamp(mass, min=_EPS))
 
 
 def _outlier_c(sigma2, w, m, n, dim):

@@ -13,7 +13,10 @@ sigma by delta each round.
 * ``"jax"`` (the default) names the on-device route: each round fits the
   source and the target and runs the batched BFGS of ``ops/bfgs.py`` over
   the starts (``n_starts``), all on the device, with one host read of the
-  round's result;
+  round's result. A feature generator without ``fused_fit`` (the sharded
+  fits of ``parallel/sharded.py``) takes the reference's second on-device
+  route instead: its ``compute()`` mixtures of the source and the target,
+  then the BFGS from the one warm start (``_jax_optimizer``);
 * any other value, or any callback, runs the host route: scipy's BFGS
   (``jac=True``) on ``cost_fn.__call__``, whose value and gradient are
   computed on the device; only theta and that pair cross to the host.
@@ -218,6 +221,33 @@ class L2DistRegistration:
         i = fs.argmin()
         return xs[i], fs[i]
 
+    def _jax_optimizer(self, x_ini, mu_s, phi_s, mu_t, phi_t,
+                       opt_maxiter: int, opt_tol: float):
+        """The BFGS of ``ops/bfgs.py`` on the device over two fitted
+        mixtures, from the one start ``x_ini`` (reference
+        l2dist_regs.py:178): (x (P,), fun ())."""
+        dt = _config.config.dtype
+
+        def dev_t(a):
+            return torch.as_tensor(a, dtype=dt, device=self._device)
+
+        mu_s, phi_s, mu_t, phi_t = (dev_t(a) for a in (mu_s, phi_s, mu_t,
+                                                       phi_t))
+        sigma = torch.tensor([float(self._sigma)], dtype=dt,
+                             device=self._device)
+        x0 = dev_t(x_ini)[None]
+        if isinstance(self._cost_fn, cf.RigidCostFunction):
+            xs, fs = _bfgs_solve(cf.RigidCostFunction.batch_objective, x0,
+                                 (mu_s[None], phi_s[None], mu_t[None],
+                                  phi_t[None], sigma), opt_maxiter, opt_tol)
+        else:
+            extra = cf.TPSCostFunction.pure_prepare(
+                mu_s, *self._cost_fn.extra_args())
+            xs, fs = _bfgs_solve(cf.TPSCostFunction.batch_objective, x0,
+                                 (mu_s, phi_s, mu_t, phi_t, sigma) + extra,
+                                 opt_maxiter, opt_tol)
+        return xs[0], fs[0]
+
     def _start_stack(self, x_ini: np.ndarray) -> np.ndarray:
         """(S, P) starts: the warm start first, then the orientation
         grid."""
@@ -264,7 +294,9 @@ class L2DistRegistration:
 
     def _registration_impl(self, target, maxiter, tol, opt_maxiter,
                            opt_tol, x_ini, f):
-        use_fused = self._optimizer == "jax" and not self._callbacks
+        use_jax_opt = (self._optimizer == "jax" and not self._callbacks
+                       and hasattr(self._cost_fn, "batch_objective"))
+        use_fused = use_jax_opt and hasattr(self._feature_gen, "fused_fit")
         dt = _config.config.dtype
         if use_fused:
             src_dev = torch.as_tensor(np.asarray(self._source), dtype=dt,
@@ -285,15 +317,22 @@ class L2DistRegistration:
                 mu_source, phi_source = self._feature_gen.compute(
                     self._source)
                 mu_target, phi_target = self._feature_gen.compute(target)
-                args = (mu_source, phi_source, mu_target, phi_target,
-                        self._sigma)
-                res = minimize(
-                    self._cost_fn, x_ini, args=args, method="BFGS", jac=True,
-                    tol=opt_tol,
-                    options={"maxiter": opt_maxiter,
-                             "disp": log.level == logging.DEBUG},
-                    callback=self.optimization_cb)
-                res_fun, res_x = res.fun, res.x
+                if use_jax_opt:
+                    rx, rf = self._jax_optimizer(
+                        x_ini, mu_source, phi_source, mu_target, phi_target,
+                        opt_maxiter, opt_tol)
+                    host = torch.cat([rx, rf[None]]).double().cpu().numpy()
+                    res_fun, res_x = float(host[-1]), host[:-1]
+                else:
+                    args = (mu_source, phi_source, mu_target, phi_target,
+                            self._sigma)
+                    res = minimize(
+                        self._cost_fn, x_ini, args=args, method="BFGS",
+                        jac=True, tol=opt_tol,
+                        options={"maxiter": opt_maxiter,
+                                 "disp": log.level == logging.DEBUG},
+                        callback=self.optimization_cb)
+                    res_fun, res_x = res.fun, res.x
             self._annealing()
             self._feature_gen.annealing()
             if f is not None and abs(res_fun - f) < tol:

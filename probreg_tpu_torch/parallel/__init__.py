@@ -1,14 +1,16 @@
-"""Multi-rank execution on ``torch.distributed``: meshes, sharded CPD.
+"""Multi-rank execution on ``torch.distributed``: meshes and the sharded
+runners.
 
 Counterpart of probreg_tpu/parallel/. Every rank is a process; each calls
 the same entry point with the same full clouds and gets back the same
-result (mesh.py). Ported: rigid, affine and nonrigid CPD with the target
-sharded over a 1-D mesh (``registration_cpd_sharded``), rigid, affine and
-low-rank nonrigid CPD with both clouds sharded over a 2-D ``(m, n)`` mesh
-(``registration_cpd_2d``, the culled E-step on kernel K11), and batches of
-pairs split over the ranks
-(``registration_cpd_batch_sharded``). The other sharded runners raise
-``NotImplementedError`` naming ROADMAP.md Queue 1 item 12.
+result (mesh.py). With the target sharded over a 1-D mesh: rigid, affine
+and nonrigid CPD (``registration_cpd_sharded``), rigid FilterReg, BCPD,
+GMMTree, GMMReg and SVR (``registration_{filterreg,bcpd,gmmtree,gmmreg,
+svr}_sharded``). With both clouds sharded over a 2-D ``(m, n)`` mesh:
+rigid, affine and low-rank nonrigid CPD (``registration_cpd_2d``, the
+culled E-step on kernel K11), rigid FilterReg and low-rank BCPD
+(``registration_filterreg_2d``, ``registration_bcpd_2d``). Batches of CPD
+pairs split over the ranks: ``registration_cpd_batch_sharded``.
 """
 
 from .mesh import (  # noqa: F401

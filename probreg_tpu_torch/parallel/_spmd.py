@@ -18,6 +18,7 @@ from __future__ import annotations
 import datetime
 import os
 import shutil
+import socket
 import tempfile
 import time
 
@@ -52,13 +53,24 @@ def run_spmd(fn, world: int, backend: str, device, *args, workdir=None,
 
 
 def _rank_main(rank, fn, world, backend, device, workdir, timeout, args):
+    if backend == "gloo" and "GLOO_SOCKET_IFNAME" not in os.environ and any(
+            name == "lo" for _, name in socket.if_nameindex()):
+        # The ranks share one host: gloo's pairs over the loopback device
+        # (by default gloo binds the hostname's interface, which can be a
+        # much slower path: 4.4 ms against 0.57 ms per small all_reduce
+        # measured on a CPU host).
+        os.environ["GLOO_SOCKET_IFNAME"] = "lo"
     dev = torch.device(device)
     if dev.type == "cuda":
         if dev.index is None:  # a card per rank, as far as there are cards
             dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
-    else:  # ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    else:
+        # One thread a rank: the ranks share the host's cores, and a rank
+        # whose threads are descheduled holds up every collective (4 CPU
+        # ranks under a loaded host took 30 s with one thread each against
+        # 46 s with two).
+        torch.set_num_threads(1)
     dist.init_process_group(
         backend, init_method=f"file://{os.path.join(workdir, 'pg')}",
         world_size=world, rank=rank,
@@ -85,6 +97,15 @@ def _entry(name: str):
             "cpd_2d": sharded2d.registration_cpd_2d,
             "cpd_batch_sharded": sharded.registration_cpd_batch_sharded,
             "cpd_pyramid": pyramid.registration_cpd_pyramid,
+            "filterreg_sharded": sharded.registration_filterreg_sharded,
+            "filterreg_2d": sharded2d.registration_filterreg_2d,
+            "filterreg_pyramid": pyramid.registration_filterreg_pyramid,
+            "bcpd_sharded": sharded.registration_bcpd_sharded,
+            "bcpd_2d": sharded2d.registration_bcpd_2d,
+            "bcpd_pyramid": pyramid.registration_bcpd_pyramid,
+            "gmmtree_sharded": sharded.registration_gmmtree_sharded,
+            "gmmreg_sharded": sharded.registration_gmmreg_sharded,
+            "svr_sharded": sharded.registration_svr_sharded,
             "all_reduce_cost": all_reduce_cost}[name]
 
 
@@ -105,9 +126,12 @@ def all_reduce_cost(axis: str, numel: int, reps: int, *, mesh,
 
 
 def _kernel_launches():
-    from ..ops import em_cuda, estep_cuda
+    from ..ops import (bcpd_cuda, em_cuda, estep_cuda, frg_cuda,
+                       gmmtree_cuda, gt_cuda, icp_cuda)
 
-    return estep_cuda.LAUNCHES, em_cuda.LAUNCHES
+    return tuple(mod.LAUNCHES for mod in (estep_cuda, em_cuda, frg_cuda,
+                                          gt_cuda, icp_cuda, bcpd_cuda,
+                                          gmmtree_cuda))
 
 
 def _sync(device):
@@ -116,31 +140,44 @@ def _sync(device):
 
 
 def host_result(res) -> dict:
-    """An MstepResult as numpy and floats: lin (rot or b), t, scale,
-    sigma2, q; for a nonrigid transformation its displacement at the
-    source points, disp (G W or U zc), in place of lin, t and scale."""
-    tr = res.transformation
+    """A result as numpy and floats: an MstepResult's sigma2 and q (those
+    it has) beside its transformation's numbers, or a bare
+    transformation's. Rigid and affine: lin (rot or b), t, scale; combined
+    (BCPD): those of its rigid part and v; nonrigid: the displacement at
+    the source points, disp (G W or U zc); TPS: the moved control points,
+    moved."""
+    out, tr = {}, res
+    if hasattr(res, "transformation"):
+        tr = res.transformation
+        out = {k: float(getattr(res, k)) for k in ("sigma2", "q")
+               if getattr(res, k, None) is not None}
+
+    def host(x):
+        return x.detach().cpu().numpy()
+
     if hasattr(tr, "u") or hasattr(tr, "g"):
         disp = tr.u @ tr.zc if hasattr(tr, "u") else tr.g @ tr.w
-        return {"disp": disp.detach().cpu().numpy(),
-                "sigma2": float(res.sigma2), "q": float(res.q)}
+        return {"disp": host(disp), **out}
+    if hasattr(tr, "control_pts"):
+        return {"moved": host(tr.transform(tr.control_pts)), **out}
+    if hasattr(tr, "rigid_trans"):
+        out["v"] = host(tr.v)
+        tr = tr.rigid_trans
     lin = tr.rot if hasattr(tr, "rot") else tr.b
-    return {"lin": lin.detach().cpu().numpy(),
-            "t": tr.t.detach().cpu().numpy(),
-            "scale": float(getattr(tr, "scale", 1.0)),
-            "sigma2": float(res.sigma2), "q": float(res.q)}
+    return {"lin": host(lin), "t": host(tr.t),
+            "scale": float(getattr(tr, "scale", 1.0)), **out}
 
 
 def rank_calls(device, calls, repeats: int = 1):
     """One rank's part of a list of sharded calls. Each call is (entry,
-    mesh_shape, args, kwargs): the entry point named ``entry``
-    (``cpd_sharded``, ``cpd_2d``, ``cpd_batch_sharded``, ``cpd_pyramid``,
+    mesh_shape, args, kwargs): the entry point named ``entry`` (a key of
+    ``_entry``: ``cpd_sharded``, ``filterreg_2d``, ``bcpd_pyramid``, ...,
     or ``all_reduce_cost``) called ``repeats`` times with ``mesh=`` a mesh
     of ``mesh_shape`` ((P,) or (Pm, Pn)) over the world and ``device=``.
     Returns, per call, the last run's result (``host_result``; a list for a
     batch; a float for the cost), its kernel launches, ``mesh.COUNTS`` (its
-    E-steps are its iterations) and wall seconds (ending in a
-    synchronize)."""
+    E-steps are its iterations), wall seconds (ending in a synchronize)
+    and, on a CUDA device, the rank's peak allocated MiB."""
     meshes, outs = {}, []
     for entry, mesh_shape, args, kwargs in calls:
         shape = tuple(mesh_shape)
@@ -153,6 +190,8 @@ def rank_calls(device, calls, repeats: int = 1):
                     launches[k] = 0
             reset_counts()
             _sync(device)
+            if torch.device(device).type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
             t0 = time.perf_counter()
             res = fn(*args, mesh=meshes[shape], device=device, **kwargs)
             _sync(device)
@@ -164,6 +203,9 @@ def rank_calls(device, calls, repeats: int = 1):
             res = [host_result(r) for r in res]
         elif not isinstance(res, float):
             res = host_result(res)
+        peak = (torch.cuda.max_memory_allocated(device) / 2**20
+                if torch.device(device).type == "cuda" else None)
         outs.append({"result": res, "launches": got,
-                     "counts": dict(COUNTS), "seconds": seconds})
+                     "counts": dict(COUNTS), "seconds": seconds,
+                     "peak_mib": peak})
     return outs

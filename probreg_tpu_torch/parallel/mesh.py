@@ -13,8 +13,10 @@ masks the padding; the port's kernels take any size, so there is no
 padding and no mask). An empty shard computes nothing and adds exact zeros
 to every sum.
 
-Collectives are ``all_reduce`` only (``all_reduce_``): gloo runs it on CUDA
-tensors too, so several ranks can share one card, which NCCL refuses. The
+Collectives are ``all_reduce`` only (``all_reduce_`` for sums,
+``all_reduce_min_`` for minima; a gather is an ``all_reduce`` of a
+zero-filled buffer, ``gather_shards``): gloo runs it on CUDA tensors too,
+so several ranks can share one card, which NCCL refuses. The
 backend is the one of the caller's process group; nothing here changes it
 or moves a tensor to the host to get round it.
 """
@@ -155,6 +157,25 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     COUNTS["all_reduce"] += 1
     dist.all_reduce(t, group=group)
     return t
+
+
+def all_reduce_min_(t: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise minimum of ``t`` in place over the ranks of ``group``;
+    returns it."""
+    COUNTS["all_reduce"] += 1
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+    return t
+
+
+def gather_shards(loc: torch.Tensor, n: int, mesh, axis: str) -> torch.Tensor:
+    """The whole (N, ...) array on every rank from each rank's shard
+    ``loc`` along ``axis`` (``shard_range``'s rows): one all_reduce of a
+    zero-filled buffer, exact (x + 0 is x)."""
+    grp, index, parts = axis_group(mesh, axis)
+    start, stop = shard_range(n, parts, index)
+    buf = loc.new_zeros((n,) + tuple(loc.shape[1:]))
+    buf[start:stop] = loc
+    return all_reduce_(buf, grp)
 
 
 def from_first_rank(t: torch.Tensor, group) -> torch.Tensor:

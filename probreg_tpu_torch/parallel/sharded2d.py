@@ -1,6 +1,7 @@
-"""CPD on a 2-D ``(m, n)`` mesh: source AND target sharded.
+"""CPD, FilterReg and BCPD on a 2-D ``(m, n)`` mesh: source AND target
+sharded.
 
-Counterpart of the CPD part of probreg_tpu/parallel/sharded2d.py. Rank
+Counterpart of probreg_tpu/parallel/sharded2d.py. Rank
 (i, j) holds source shard i (M / Pm rows) and target shard j (N / Pn
 columns) and computes its block of the posterior once:
 
@@ -33,8 +34,13 @@ for the returned transformation. The dense nonrigid model raises
 ``ValueError`` here, as in the reference: its M x M solve does not
 distribute.
 
-Not ported yet: the 2-D FilterReg and BCPD runners (ROADMAP.md, Queue 1
-item 12), which raise ``NotImplementedError``.
+FilterReg (``registration_filterreg_2d``) needs no normalizer across
+source rows: the block's moments are all_reduced over n and the M-step's
+row sums over m. BCPD (``registration_bcpd_2d``, ``rank=`` only) has
+CPD's column normalizer: the block's raw column sums, formed in column
+chunks, are all_reduced over m once per E-step, its moments over n, and
+the Woodbury K x K core and the normal-equation strips over m, with U
+sharded over m with the source.
 """
 
 from __future__ import annotations
@@ -51,9 +57,10 @@ from ..models import transformation as tf
 from ..ops import estep_cuda as ec
 from ..ops import lowrank
 from ..ops.estep import outlier_constant
-from .mesh import (COUNTS, M_AXIS, N_AXIS, all_reduce_, from_first_rank,
-                   make_mesh_2d, rank_device, shard_points)
-from .sharded import (_F32_EPS, _host_points, _pack_init, _refuse, _result,
+from .mesh import (COUNTS, M_AXIS, N_AXIS, all_reduce_, all_reduce_min_,
+                   from_first_rank, gather_shards, make_mesh_2d, rank_device,
+                   shard_points)
+from .sharded import (_F32_EPS, _amax, _host_points, _pack_init, _result,
                       _unpack_init)
 
 
@@ -64,6 +71,17 @@ def _check_mesh_2d(mesh, who: str):
     if tuple(mesh.mesh_dim_names) != (M_AXIS, N_AXIS):
         raise ValueError(f"2-D mesh axes must be named ({M_AXIS!r}, "
                          f"{N_AXIS!r}); got {mesh.mesh_dim_names}")
+
+
+def _kernel_sum_2d(ys_t, xs_t, m, n, m_grp, n_grp):
+    """squared_kernel_sum of the whole clouds from a (D, Ml) source shard
+    and a (D, Nl) target shard: source sums over m, target sums over n."""
+    dim = ys_t.shape[0]
+    sy = all_reduce_(torch.cat([(ys_t * ys_t).sum().reshape(1),
+                                ys_t.sum(1)]), m_grp)
+    sx = all_reduce_(torch.cat([(xs_t * xs_t).sum().reshape(1),
+                                xs_t.sum(1)]), n_grp)
+    return (n * sy[0] + m * sx[0] - 2.0 * sy[1:] @ sx[1:]) / (m * dim * n)
 
 
 def _mstep_2d(kind, ys_t, p1, px_t, xx, update_scale, m_grp):
@@ -160,13 +178,8 @@ def _run_em_2d(ys_loc, xs_loc, init, sigma2_init=None, *, kind, w, maxiter,
     if sigma2_init is not None and sigma2_init > 0.0:
         sigma2 = torch.clamp(torch.as_tensor(sigma2_init, dtype=torch.float32,
                                              device=dev), min=_F32_EPS)
-    else:  # squared_kernel_sum: source sums over m, target sums over n
-        sy = all_reduce_(torch.cat([(ys_t * ys_t).sum().reshape(1),
-                                    ys_t.sum(1)]), m_grp)
-        sx = all_reduce_(torch.cat([(xs_t * xs_t).sum().reshape(1),
-                                    xs_t.sum(1)]), n_grp)
-        sigma2 = (n * sy[0] + m * sx[0] - 2.0 * sy[1:] @ sx[1:]) \
-            / (m * dim * n)
+    else:
+        sigma2 = _kernel_sum_2d(ys_t, xs_t, m, n, m_grp, n_grp)
     q = 1.0 + n * dim * 0.5 * torch.log(sigma2)
     x2 = (xs_t * xs_t).sum(0, keepdim=True)
     xs_ext = torch.cat([xs_t, torch.ones_like(x2)])
@@ -319,11 +332,331 @@ def registration_cpd_2d(
         q)
 
 
-def registration_filterreg_2d(*args, **kwargs):
-    """Not ported yet (ROADMAP.md, Queue 1 item 12)."""
-    _refuse("registration_filterreg_2d")
+def registration_filterreg_2d(
+    source,
+    target,
+    target_normals=None,
+    objective_type: str = "pt2pt",
+    sigma2: Optional[float] = None,
+    w: float = 0.0,
+    maxiter: int = 50,
+    tol: float = 0.001,
+    min_sigma2: float = 1.0e-4,
+    sigma2_decay: float = 1.0,
+    update_sigma2: bool = False,
+    mesh=None,
+    tf_init_params: Optional[dict] = None,
+    device=None,
+):
+    """Rigid FilterReg on a 2-D ``(m, n)`` mesh, both clouds sharded
+    (reference ``sharded2d.py:686``). FilterReg's moments are per source
+    row sums over the target, with no normalizer across source rows: rank
+    (i, j) forms the moments of source shard i against target shard j
+    (the Gauss transform, K6 from ``config.culled_estep_min_pairs``), one
+    all_reduce over n completes them, and the M-step's sums over source
+    rows (weighted Kabsch, the point-to-plane normal equations, q and
+    sigma2) are all_reduced over m. No rank holds an M-row or N-row
+    array. Same semantics as registration_filterreg_sharded; returns an
+    MstepResult."""
+    from .. import filterreg as frg
+    from .sharded import (_frg_clouds, _point_spacing, _rigid_init,
+                          _run_filterreg_mesh)
+
+    if mesh is None:
+        mesh = make_mesh_2d()
+    _check_mesh_2d(mesh, "registration_filterreg_2d")
+    m_grp, n_grp = mesh.get_group(M_AXIS), mesh.get_group(N_AXIS)
+    dev = rank_device(device)
+    src, tgt, nrm = _frg_clouds(source, target, target_normals,
+                                objective_type)
+    m, dim = src.shape
+    ys_loc, _ = shard_points(src, mesh, M_AXIS, dev)
+    xs_loc, n = shard_points(tgt, mesh, N_AXIS, dev)
+    nrm_loc = None if nrm is None \
+        else shard_points(nrm, mesh, N_AXIS, dev)[0]
+    if sigma2 is not None:
+        sigma2_0 = torch.as_tensor(sigma2, dtype=ys_loc.dtype, device=dev)
+    elif objective_type == "pt2pl":
+        sigma2_0 = torch.clamp(_point_spacing(xs_loc, n, mesh, N_AXIS),
+                               min=min_sigma2 * 0.01)
+    else:
+        sigma2_0 = torch.clamp(_kernel_sum_2d(ys_loc.T, xs_loc.T, m, n,
+                                              m_grp, n_grp), min=min_sigma2)
+    rot, t, sigma2_out, q = _run_filterreg_mesh(
+        ys_loc, xs_loc, nrm_loc, sigma2_0,
+        *_rigid_init(tf_init_params, dim, dev),
+        objective_type=objective_type, update_sigma2=bool(update_sigma2),
+        w=float(w), maxiter=int(maxiter), tol=float(tol),
+        min_sigma2=float(min_sigma2), sigma2_decay=float(sigma2_decay), m=m,
+        n=n, n_grp=n_grp, reduce=lambda x: all_reduce_(x, m_grp))
+    return frg.MstepResult(tf.RigidTransformation(rot, t, device=dev),
+                           sigma2_out, q)
 
 
-def registration_bcpd_2d(*args, **kwargs):
-    """Not ported yet (ROADMAP.md, Queue 1 item 12)."""
-    _refuse("registration_bcpd_2d")
+# --------------------------------------------------------------------------
+# BCPD (low-rank) on the 2-D mesh
+# --------------------------------------------------------------------------
+
+def _bcpd_estep_2d(t_src_t, row, sigma2, xs_t, w_over_n, chunk, m_grp,
+                   n_grp):
+    """The VI E-step of a (D, Ml) source shard against a (D, Nl) target
+    shard (reference sharded2d.py:787): a target column's normalizer spans
+    every source shard, so the block's raw column sums are formed in
+    column chunks of ``chunk`` and all_reduced over m once, then the
+    moments of the normalized block are formed again chunk by chunk:
+    (Ml, chunk) temporaries. Returns (moments (D + 2, Ml) of [x; 1; |x|^2]
+    summed over n, e1 = sum p d2 summed over n, per-row min d2 over the
+    whole target)."""
+    dim, ml = t_src_t.shape
+    nl = xs_t.shape[1]
+    y2 = (t_src_t * t_src_t).sum(0)[:, None]
+    weight = (row / (2.0 * math.pi * sigma2) ** (dim * 0.5))[:, None]
+
+    def block(c0):
+        # In place where it can be: the (Ml, chunk) temporaries are the
+        # E-step's memory.
+        xb = xs_t[:, c0:c0 + chunk]
+        d2 = torch.addmm(y2 + (xb * xb).sum(0, keepdim=True), t_src_t.T, xb,
+                         alpha=-2.0).clamp_(min=0.0)
+        return xb, d2, torch.exp(d2 * (-0.5 / sigma2)).mul_(weight)
+
+    starts = range(0, nl, chunk)
+    den_raw = t_src_t.new_zeros(nl)
+    dmin = t_src_t.new_full((ml,), math.inf)
+    for c0 in starts:
+        _, d2, pmat = block(c0)
+        den_raw[c0:c0 + chunk] = pmat.sum(0)
+        dmin = torch.minimum(dmin, d2.amin(1))
+    COUNTS["den_all_reduce"] += 1
+    den = w_over_n + all_reduce_(den_raw, m_grp)
+    den = torch.where(den == 0.0, _F32_EPS, den)
+    mom = t_src_t.new_zeros((dim + 2, ml))
+    e1 = t_src_t.new_zeros(())
+    for c0 in starts:
+        xb, d2, pmat = block(c0)
+        pmat.div_(den[None, c0:c0 + chunk])
+        x2b = (xb * xb).sum(0, keepdim=True)
+        mom = mom + torch.cat([xb, torch.ones_like(x2b), x2b]) @ pmat.T
+        e1 = e1 + torch.dot(pmat.reshape(-1), d2.reshape(-1))
+    sums = all_reduce_(torch.cat([mom.reshape(-1), e1.reshape(1)]), n_grp)
+    COUNTS["esteps"] += 1
+    return (sums[:-1].reshape(dim + 2, ml), sums[-1],
+            all_reduce_min_(dmin, n_grp))
+
+
+def _run_bcpd_2d(ys_t, xs_t, u_loc, lam, lmd, k, sigma2_0, init, v0_t, *,
+                 w, maxiter, tol, m, n, chunk, m_grp, n_grp):
+    """The low-rank BCPD VI on the 2-D mesh (reference sharded2d.py:760):
+    ``ys_t`` (D, Ml) / ``xs_t`` (D, Nl) this rank's shards, ``u_loc``
+    (Ml, K) its rows of the Nystrom factor U, ``init`` (rot, t, scale),
+    ``v0_t`` (D, Ml) the starting displacement of its rows. The E-step is
+    :func:`_bcpd_estep_2d`; the M-step is bcpd._vi_mstep_t's Woodbury
+    algebra with its sums over source rows all_reduced over m (three
+    calls: the K x K core's moments and the normal-equation strip with
+    the E-step's totals, the weighted means, the cross-covariances and
+    the sigma2 terms), the K x K core taken from rank (0, 0)
+    (``from_first_rank``, its solve may differ in the last bits between
+    ranks). The K x K solve does not check for a singular matrix, as the
+    single card's (``lowrank.solve``): once sigma2 nears the f32 floor
+    the core can be singular to f32 and the loop keeps its best state.
+    Returns the kept state (rot, t, scale, v_t, sigma2) as
+    registration_bcpd keeps it: the best visited by the NN-RMSE or the
+    last iterate rescored, whichever is better."""
+    from ..bcpd import _digamma_alpha, _svd_rotation
+
+    dim, ml = ys_t.shape
+    dt, dev = ys_t.dtype, ys_t.device
+    krank = lam.shape[0]
+    eye_k = torch.eye(krank, dtype=dt, device=dev)
+    eye_d = torch.eye(dim, dtype=dt, device=dev)
+    w_over_n = w / n
+
+    def estep(t_src_t, row, sigma2, w_over_n=w_over_n):
+        """(moments, e1, this shard's sum of the rows' NN distances): a
+        NaN row (a state past a singular solve) makes the NN-RMSE NaN,
+        which ends the loop and is never kept, as in the reference."""
+        mom, e1, dmin = _bcpd_estep_2d(t_src_t, row, sigma2, xs_t, w_over_n,
+                                       chunk, m_grp, n_grp)
+        return mom, e1, torch.sqrt(dmin).sum()
+
+    def weights(scale, sigma2, sigma_diag, alpha):
+        """The rows' mixing weights and the outlier term, both divided by
+        the largest row weight over every source shard (one min
+        all_reduce over m). The posterior is a ratio of the two, so this
+        is the reference's E-step in exact arithmetic; in f32 it keeps a
+        warm start whose sigma2 is small against its scale (every row's
+        exp(-s^2 d sdiag / (2 sigma2)) under f32's range at sdiag = 1)
+        from a posterior of 0 / 0."""
+        logrow = math.log(1.0 - w) + torch.log(alpha) \
+            - (scale ** 2) / (2.0 * sigma2) * sigma_diag * dim
+        top = -all_reduce_min_(-_amax(logrow).reshape(1), m_grp)[0]
+        return (torch.exp(logrow - top),
+                w_over_n * torch.exp(-top) if w else 0.0)
+
+    def moved(rot, t, scale, v_t):
+        return scale * (rot @ (ys_t + v_t)) + t[:, None]
+
+    rot, t, scale = init
+    v_t = v0_t
+    sigma_diag = torch.ones(ml, dtype=dt, device=dev)
+    alpha = torch.full((ml,), 1.0 / m, dtype=dt, device=dev)
+    sigma2 = torch.as_tensor(sigma2_0, dtype=dt, device=dev)
+    best = (rot, t, scale, v_t, sigma2)
+    best_rmse = rmse = rmse_prev = math.inf
+    i = 0
+    while i < maxiter and (i < 2 or abs(rmse - rmse_prev) >= tol):
+        t_src_t = moved(rot, t, scale, v_t)
+        row, w_shifted = weights(scale, sigma2, sigma_diag, alpha)
+        mom, e1, root_sum = estep(t_src_t, row, sigma2, w_shifted)
+        px_t, nu = mom[:dim], mom[dim]
+        x_hat_t = px_t / torch.clamp(nu, min=_F32_EPS)[None, :]
+        s2s2 = scale ** 2 / (sigma2 ** 2)
+        residual_t = rot.T @ ((x_hat_t - t[:, None]) / scale) - ys_t
+        first = all_reduce_(torch.cat([
+            nu.sum().reshape(1), e1.reshape(1), root_sum.reshape(1),
+            ((u_loc * nu[:, None]).T @ u_loc).reshape(-1),
+            ((residual_t * nu[None, :]) @ u_loc).reshape(-1)]), m_grp)
+        n_p = torch.clamp(first[0], min=_F32_EPS)
+        e1 = first[1]
+        rmse_t = float(first[2]) / m
+        cmat = first[3:3 + krank * krank].reshape(krank, krank)
+        strip = first[3 + krank * krank:].reshape(dim, krank)
+        mk = lmd * eye_k + s2s2 * lam[:, None] * cmat
+        s_core = torch.diag(lam) - s2s2 * lowrank.solve(
+            mk, lam[:, None] * cmat * lam[None, :])
+        s_core = 0.5 * (s_core + s_core.T)
+        for grp in (m_grp, n_grp):
+            s_core = from_first_rank(s_core, grp)
+        sigma_diag_new = ((u_loc @ s_core) * u_loc).sum(1) / lmd
+        v_new_t = (s2s2 / lmd) * ((strip @ s_core) @ u_loc.T)
+        u_hat_t = ys_t + v_new_t
+        alpha_new = _digamma_alpha(k, nu, k * m, n_p)
+        second = all_reduce_(torch.cat([
+            x_hat_t @ nu, (nu * sigma_diag_new).sum().reshape(1),
+            u_hat_t @ nu]), m_grp)
+        x_m = second[:dim] / n_p
+        sigma2_m = second[dim] / n_p
+        u_m = second[dim + 1:] / n_p
+        u_hm = u_hat_t - u_m[:, None]
+        delta_t = scale * (rot @ (v_new_t - v_t))
+        r_t = px_t - nu[None, :] * t_src_t
+        third = all_reduce_(torch.cat([
+            (((x_hat_t - x_m[:, None]) * nu[None, :]) @ u_hm.T).reshape(-1),
+            ((u_hm * nu[None, :]) @ u_hm.T).reshape(-1),
+            (r_t * delta_t).sum().reshape(1),
+            (nu * (delta_t * delta_t).sum(0)).sum().reshape(1)]), m_grp)
+        d2_ = dim * dim
+        s_xu = third[:d2_].reshape(dim, dim) / n_p
+        s_uu = third[d2_:2 * d2_].reshape(dim, dim) / n_p + sigma2_m * eye_d
+        rot_new = _svd_rotation(s_xu)
+        scale_new = torch.trace(rot_new @ s_xu) / torch.trace(s_uu)
+        t_new = x_m - scale_new * (rot_new @ u_m)
+        numer = e1 - 2.0 * third[2 * d2_] + third[2 * d2_ + 1]
+        sigma2_new = torch.clamp(numer / (n_p * dim)
+                                 + scale_new ** 2 * sigma2_m, min=_F32_EPS)
+        # rmse_t scores the incoming state; keep the best visited.
+        if rmse_t < best_rmse:
+            best, best_rmse = (rot, t, scale, v_t, sigma2), rmse_t
+        rot, t, scale, v_t = rot_new, t_new, scale_new, v_new_t
+        sigma_diag, alpha, sigma2 = sigma_diag_new, alpha_new, sigma2_new
+        rmse, rmse_prev, i = rmse_t, rmse, i + 1
+    # Score the last iterate once, at the start temperature with unit row
+    # weights, and keep the better of (last, best visited).
+    _, _, root_sum = estep(moved(rot, t, scale, v_t),
+                           torch.ones(ml, dtype=dt, device=dev),
+                           torch.as_tensor(sigma2_0, dtype=dt, device=dev))
+    rmse_last = float(all_reduce_(root_sum.reshape(1), m_grp)) / m
+    if rmse_last <= best_rmse:
+        return rot, t, scale, v_t, sigma2
+    return best
+
+
+def registration_bcpd_2d(
+    source,
+    target,
+    w: float = 0.0,
+    maxiter: int = 50,
+    tol: float = 0.001,
+    lmd: float = 2.0,
+    k: float = 1.0e20,
+    gamma: float = 1.0,
+    rank: Optional[int] = 64,
+    normalize: bool = True,
+    mesh=None,
+    tf_init_params: Optional[dict] = None,
+    v_init=None,
+    sigma2_init: Optional[float] = None,
+    return_sigma2: bool = False,
+    device=None,
+):
+    """BCPD on a 2-D ``(m, n)`` mesh, both clouds sharded, low-rank Sigma
+    (reference ``sharded2d.py:960``). Same semantics (the default scale
+    normalization, ``rank=`` Nystrom factors) as registration_bcpd with
+    ``rank=``; per-rank memory O(M/Pm * (chunk + K)), the E-step's target
+    columns taken ``config.estep_chunk`` at a time. U is sharded over m
+    with the source; the Woodbury K x K core and the normal-equation
+    strips are all_reduced over m, the moments over n.
+
+    ``tf_init_params`` ({'rot', 't', 'scale'}), ``v_init`` ((M, D) field)
+    and ``sigma2_init`` warm-start the VI in raw coordinates (the
+    pyramid's carries); ``return_sigma2`` also returns the kept state's
+    sigma2 in raw units. Returns a CombinedTransformation (and sigma2).
+    """
+    if mesh is None:
+        mesh = make_mesh_2d()
+    _check_mesh_2d(mesh, "registration_bcpd_2d")
+    if rank is None:
+        raise ValueError("registration_bcpd_2d requires rank= (the dense "
+                         "M x M Sigma solve does not distribute)")
+    from .sharded import _bcpd_normalized
+
+    m_grp, n_grp = mesh.get_group(M_AXIS), mesh.get_group(N_AXIS)
+    dev = rank_device(device)
+    src_n, tgt_n, centroid, scale0 = _bcpd_normalized(source, target,
+                                                      normalize)
+    m, dim = src_n.shape
+    n = tgt_n.shape[0]
+    # The Nystrom factors of the whole source as rank (0, 0) builds them,
+    # on every rank; then this rank's rows of U, as its source shard.
+    u, lam = lowrank.lowrank_imq(torch.as_tensor(src_n, device=dev), 1.0,
+                                 int(rank))
+    for grp in (m_grp, n_grp):
+        u, lam = from_first_rank(u, grp), from_first_rank(lam, grp)
+    if normalize:  # the squared kernel sum of the normalized clouds is 1
+        sigma2_0 = float(gamma)
+    else:
+        from ..utils import math_utils as mu
+
+        sigma2_0 = float(gamma) * mu.squared_kernel_sum_np(src_n, tgt_n)
+    if sigma2_init is not None:
+        sigma2_0 = max(float(sigma2_init) / scale0 ** 2, _F32_EPS)
+    # Raw -> normalized warm starts: t_n = (t - c) / s, v_n = (v + c) / s
+    # (a raw pose without a field is v_raw = 0).
+    p = dict(tf_init_params or {})
+    warm = bool(p) or v_init is not None
+    t0 = (np.asarray(p.get("t", np.zeros(dim)), np.float64) - centroid) \
+        / scale0 if warm else np.zeros(dim)
+    v_n = ((np.zeros((m, dim)) if v_init is None
+            else np.asarray(v_init, np.float64)) + centroid) / scale0 \
+        if warm else np.zeros((m, dim))
+    init = (torch.as_tensor(np.asarray(p.get("rot", np.eye(dim)),
+                                       np.float32), device=dev),
+            torch.as_tensor(t0, dtype=torch.float32, device=dev),
+            torch.as_tensor(float(p.get("scale", 1.0)), dtype=torch.float32,
+                            device=dev))
+    ys_loc, _ = shard_points(src_n, mesh, M_AXIS, dev)
+    xs_loc, _ = shard_points(tgt_n, mesh, N_AXIS, dev)
+    v0_loc, _ = shard_points(v_n.astype(np.float32), mesh, M_AXIS, dev)
+    rot, t, scale, v_t, sigma2 = _run_bcpd_2d(
+        ys_loc.T, xs_loc.T, shard_points(u, mesh, M_AXIS, dev)[0], lam,
+        float(lmd), float(k), sigma2_0, init, v0_loc.T.contiguous(),
+        w=float(w), maxiter=int(maxiter), tol=float(tol), m=m, n=n,
+        chunk=max(int(config.estep_chunk), 1), m_grp=m_grp, n_grp=n_grp)
+    # Every rank gets the whole field: its rows from each source shard.
+    v = gather_shards(v_t.T.contiguous(), m, mesh, M_AXIS)
+    cen = torch.as_tensor(centroid, dtype=v.dtype, device=dev)
+    out = tf.CombinedTransformation(rot, scale0 * t + cen, scale,
+                                    scale0 * v - cen, dim=dim, device=dev)
+    if return_sigma2:
+        return out, float(sigma2) * scale0 ** 2
+    return out

@@ -22,8 +22,10 @@ level's field is kernel-regressed onto the finer points
 (``_interp_displacement``, one Gauss transform) and projected onto their
 Nystrom basis (``v_init``). ``n_starts > 1`` (rigid) runs the orientation
 search on the coarsest level only; every finer level refines the carried
-pose. Not ported yet: ``mesh=`` of the FilterReg and BCPD pyramids
-(ROADMAP Queue 1 item 12) raises ``NotImplementedError``.
+pose. ``mesh=`` of the FilterReg pyramid runs every level through
+``parallel.registration_filterreg_sharded`` (1-D or 2-D mesh), that of the
+BCPD pyramid through ``parallel.registration_bcpd_2d`` (2-D mesh,
+``rank=``).
 """
 
 from __future__ import annotations
@@ -48,12 +50,6 @@ __all__ = [
 ]
 
 _F32_EPS = float(np.finfo(np.float32).eps)
-_NOT_PORTED = ("{} is not ported to probreg_tpu_torch yet (ROADMAP.md, "
-               "Queue 1 item {}); use probreg_tpu.pyramid")
-
-
-def _refuse(what: str, item: int):
-    raise NotImplementedError(_NOT_PORTED.format(what, item))
 
 
 def _np_dtype():
@@ -477,9 +473,12 @@ def registration_bcpd_pyramid(
         splits each level's VI into warm-resumed runs (the resume carries
         the final VI iterate). ``n_starts`` applies to the COARSEST level
         only, which then runs whole. Callbacks are not supported (as in
-        the reference); ``mesh=`` (the 2-D mesh runner) is not ported yet
-        and raises. The reference's TPU-only guard,
-        which splits large levels on a TPU backend, has no counterpart.
+        the reference). ``mesh=`` (a 2-axis ``(m, n)`` mesh, ``rank=``
+        required, no ``dispatch_chunk``) runs every level through
+        ``parallel.registration_bcpd_2d`` with the same raw-frame
+        carries, the multistart coarsest level on this rank's device
+        alone. The reference's TPU-only guard, which splits large levels
+        on a TPU backend, has no counterpart.
 
     Returns:
         CombinedTransformation for the full-resolution source.
@@ -505,16 +504,21 @@ def registration_bcpd_pyramid(
         if kwargs.get("rank") is None:
             raise ValueError("mesh= BCPD pyramid requires rank= "
                              "(registration_bcpd_2d is low-rank only)")
-        _refuse("the BCPD pyramid on a 2-D mesh (mesh=, _bcpd_pyramid_2d)",
-                12)
+        from .parallel.mesh import rank_device
 
-    dev = _config.resolve_device(device)
+        dev = rank_device(device)
+    else:
+        dev = _config.resolve_device(device)
     auto_schedule = voxel_sizes is None
     src_levels, tgt_levels, voxel_sizes = _prepare_levels(
         source, target, voxel_sizes, levels, coarse_points, factor, dev,
         keep_device_last=False)
     level_maxiters = _fit_level_maxiters(
         level_maxiters, len(voxel_sizes), maxiter, 3, auto_schedule)
+    if mesh is not None:
+        return _bcpd_pyramid_2d(src_levels, tgt_levels, voxel_sizes,
+                                level_maxiters, mesh, w, tol, normalize,
+                                sigma2_inflation, n_starts, dev, kwargs)
 
     res = None
     tf_init = None
@@ -579,6 +583,45 @@ def registration_bcpd_pyramid(
     return res
 
 
+def _bcpd_pyramid_2d(src_levels, tgt_levels, voxel_sizes, level_maxiters,
+                     mesh, w, tol, normalize, sigma2_inflation, n_starts, dev,
+                     kwargs):
+    """The BCPD pyramid's levels on a 2-D ``(m, n)`` mesh (reference
+    pyramid.py:655): every level through
+    ``parallel.registration_bcpd_2d`` with the single-device schedule's
+    raw-frame carries (rot / t / scale, the interpolated displacement as
+    ``v_init``, the inflated sigma2); a multistart coarsest level
+    (``n_starts > 1``) on ``dev`` alone, the 2-D runner having no
+    orientation search."""
+    from . import bcpd as _bcpd
+    from .parallel import sharded2d as _s2d
+
+    res = None
+    tf_init = None
+    v_init = None
+    sigma2_init = None
+    for i, (s_i, t_i) in enumerate(zip(src_levels, tgt_levels)):
+        if n_starts > 1 and i == 0:
+            res, sigma2_raw = _bcpd._registration_bcpd_impl(
+                s_i, t_i, w=w, maxiter=int(level_maxiters[i]), tol=tol,
+                callbacks=[], normalize=normalize, callback_chunk=1,
+                n_starts=n_starts, device=dev, **kwargs)
+        else:
+            res, sigma2_raw = _s2d.registration_bcpd_2d(
+                s_i, t_i, w=w, maxiter=int(level_maxiters[i]), tol=tol,
+                normalize=normalize, mesh=mesh, tf_init_params=tf_init,
+                v_init=v_init, sigma2_init=sigma2_init, return_sigma2=True,
+                device=dev, **kwargs)
+        if i + 1 < len(src_levels):
+            tf_init = _rigid_params(res.rigid_trans)
+            v_init = _interp_displacement(s_i, res.v, src_levels[i + 1],
+                                          voxel_sizes[i], device=dev)
+            if sigma2_raw is not None:
+                sigma2_init = _carry_sigma2(sigma2_raw, voxel_sizes[i],
+                                            sigma2_inflation)
+    return res
+
+
 def registration_filterreg_pyramid(
     source,
     target,
@@ -612,8 +655,12 @@ def registration_filterreg_pyramid(
     annealing (or ``update_sigma2``) the converged variance is carried
     like CPD's; without either, each level estimates its own and only the
     transform is carried. ``n_starts`` (no callbacks) applies to the
-    COARSEST level only, which then runs whole. ``mesh=`` is not ported
-    yet and raises.
+    COARSEST level only, which then runs whole. ``mesh=`` runs every level
+    through ``parallel.registration_filterreg_sharded`` (a 1-axis mesh
+    shards the target, a 2-axis one both clouds) with the same carries,
+    the multistart coarsest level on this rank's device alone; it takes
+    neither callbacks nor ``dispatch_chunk`` nor other keyword arguments
+    (``ValueError``).
     """
     from . import filterreg as _frg
 
@@ -625,15 +672,29 @@ def registration_filterreg_pyramid(
         raise ValueError("n_starts > 1 and callbacks are incompatible "
                          "(the multistart coarsest level runs the "
                          "no-callback rigid dense path)")
-    if mesh is not None:
-        _refuse("the sharded pyramid (mesh=)", 12)
-    dev = _config.resolve_device(device)
+    dispatch_chunk = kwargs.pop("dispatch_chunk", None)
+    if mesh is not None and (callbacks or dispatch_chunk):
+        raise ValueError("mesh= FilterReg pyramid supports neither "
+                         "callbacks nor dispatch_chunk")
+    if mesh is not None and kwargs:
+        raise ValueError(
+            f"mesh= FilterReg pyramid does not support {sorted(kwargs)}; "
+            "supported there: sigma2/w/maxiter/tol/min_sigma2/"
+            "sigma2_decay/update_sigma2/objective_type/target_normals/"
+            "n_starts.")
+    if mesh is None:
+        dev = _config.resolve_device(device)
+    else:  # the sharded runner takes host clouds and shards them itself
+        from .parallel import sharded as _sharded
+        from .parallel.mesh import rank_device
+
+        dev = rank_device(device)
     auto_schedule = voxel_sizes is None
     src_levels, tgt_levels, voxel_sizes = _prepare_levels(
-        source, target, voxel_sizes, levels, coarse_points, factor, dev)
+        source, target, voxel_sizes, levels, coarse_points, factor,
+        dev if mesh is None else "cpu", keep_device_last=mesh is None)
     level_maxiters = _fit_level_maxiters(
         level_maxiters, len(voxel_sizes), maxiter, 3, auto_schedule)
-    dispatch_chunk = kwargs.pop("dispatch_chunk", None)
 
     res = None
     tf_init = None
@@ -647,6 +708,15 @@ def registration_filterreg_pyramid(
         def _run(mi, warm, s_i=s_i, t_i=t_i, last=last,
                  multistart=multistart):
             tf_c, s2_c = (None, None) if multistart else warm
+            if mesh is not None and not multistart:
+                return _sharded.registration_filterreg_sharded(
+                    s_i, t_i,
+                    target_normals=target_normals if last else None,
+                    objective_type=objective_type if last else "pt2pt",
+                    sigma2=s2_c, w=w, maxiter=mi, tol=tol,
+                    min_sigma2=min_sigma2, sigma2_decay=sigma2_decay,
+                    update_sigma2=update_sigma2, mesh=mesh,
+                    tf_init_params=tf_c, device=dev)
             return _frg.registration_filterreg(
                 s_i, t_i,
                 target_normals=target_normals if last else None,

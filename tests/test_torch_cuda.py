@@ -1799,6 +1799,173 @@ def test_nonrigid_sharded_on_one_nccl_rank(dev, nccl_world_one):
 
 
 # --------------------------------------------------------------------------
+# The sharded families (FilterReg, BCPD, GMMTree, GMMReg, SVR)
+# --------------------------------------------------------------------------
+
+def _family_surface(n, seed=2):
+    from probreg_tpu_torch.utils.datagen import blobby_surface
+
+    return blobby_surface(n, seed=seed).astype(np.float32)
+
+
+def _family_target(src, deg=(3.0, -2.0, 5.0), t=(0.02, -0.01, 0.03)):
+    from probreg_tpu_torch.utils import se3_op
+
+    rot = se3_op.euler2mat(*np.deg2rad(deg)).numpy()
+    return (src @ rot.T + np.float32(t)).astype(np.float32)
+
+
+def _launched():
+    from probreg_tpu_torch.ops import bcpd_cuda, gmmtree_cuda
+
+    out = {}
+    for mod in (pec, pem, pfc, pgc, bcpd_cuda, gmmtree_cuda):
+        out.update({k: v for k, v in mod.LAUNCHES.items() if v})
+    return out
+
+
+def _reset_launches():
+    from probreg_tpu_torch.ops import bcpd_cuda, gmmtree_cuda
+
+    for mod in (pec, pem, pfc, pgc, bcpd_cuda, gmmtree_cuda):
+        mod.reset_launches()
+
+
+def test_sharded_filterreg_runs_k6_on_one_nccl_rank(dev, nccl_world_one,
+                                                    monkeypatch):
+    """registration_filterreg_sharded (1-D) and registration_filterreg_2d
+    (1 x 1) at 20k points, 15 iterations: one K6 launch per E-step and no
+    other kernel; within 1e-4 of registration_filterreg's streaming loop
+    and of the plain-driven sharded run."""
+    from probreg_tpu_torch import filterreg as pfrg
+    from probreg_tpu_torch.parallel import make_mesh, make_mesh_2d, mesh
+    from probreg_tpu_torch.parallel import sharded
+
+    rng = np.random.default_rng(12)
+    src = rng.uniform(-1, 1, (20_000, 3)).astype(np.float32)
+    tgt = _family_target(src)
+    kw = dict(maxiter=15, tol=0.0, sigma2_decay=0.9)
+    one = pfrg.registration_filterreg(src, tgt, device=dev, **kw)
+    for m in (make_mesh(), make_mesh_2d(1, 1)):
+        _reset_launches()
+        mesh.reset_counts()
+        res = sharded.registration_filterreg_sharded(src, tgt, mesh=m,
+                                                     device=dev, **kw)
+        torch.cuda.synchronize()
+        assert _launched() == {"gauss_transform": 15}
+        assert mesh.COUNTS["esteps"] == 15
+        for a, b in ((res.transformation.rot, one.transformation.rot),
+                     (res.transformation.t, one.transformation.t)):
+            assert float((a - b).abs().max()) <= 1e-4
+    monkeypatch.setattr(pgc, "gt_core", pgc.gauss_transform_culled_plain)
+    plain = sharded.registration_filterreg_sharded(src, tgt, mesh=make_mesh(),
+                                                   device=dev, **kw)
+    assert float((plain.transformation.rot - res.transformation.rot)
+                 .abs().max()) <= 1e-4
+
+
+def test_sharded_bcpd_runs_k8_on_one_nccl_rank(dev, nccl_world_one):
+    """registration_bcpd_sharded (1-D, rank 32) at 5,000 points, 3
+    iterations: one K8 launch pair per E-step (the loop's and the final
+    rescore), within 1e-3 of registration_bcpd's moved source (the same
+    VI on one rank); registration_bcpd_2d (1 x 1): no kernel, one den
+    reduction per E-step, its NN-RMSE within 5 % of the single card's."""
+    from probreg_tpu_torch import bcpd as pbcpd
+    from probreg_tpu_torch.parallel import make_mesh, make_mesh_2d, mesh
+    from probreg_tpu_torch.parallel import sharded, sharded2d
+    from probreg_tpu_torch.utils import math_utils as mu
+
+    src = _family_surface(5000)
+    tgt = _family_target(src + 0.02 * np.sin(3.0 * src[:, ::-1]))
+    kw = dict(rank=32, maxiter=3, tol=0.0, gamma=0.1, lmd=10.0)
+    one = pbcpd.registration_bcpd(src, tgt, device=dev, **kw)
+    _reset_launches()
+    mesh.reset_counts()
+    res = sharded.registration_bcpd_sharded(src, tgt, mesh=make_mesh(),
+                                            device=dev, **kw)
+    torch.cuda.synchronize()
+    assert mesh.COUNTS["esteps"] == 4
+    assert _launched() == {"wstash_den": 4, "wstash_moment": 4}
+    s = torch.as_tensor(src, device=dev)
+    assert float((res.transform(s) - one.transform(s)).abs().max()) <= 1e-3
+    _reset_launches()
+    mesh.reset_counts()
+    two = sharded2d.registration_bcpd_2d(src, tgt, mesh=make_mesh_2d(1, 1),
+                                         device=dev, **kw)
+    torch.cuda.synchronize()
+    assert not _launched()
+    assert mesh.COUNTS["den_all_reduce"] == mesh.COUNTS["esteps"] == 4
+    t = torch.as_tensor(tgt, device=dev)
+    assert float(mu.compute_rmse(two.transform(s), t)) <= \
+        1.05 * float(mu.compute_rmse(one.transform(s), t))
+
+
+def test_sharded_gmmtree_and_l2_on_one_nccl_rank(dev, nccl_world_one):
+    """registration_gmmtree_sharded at 20k points: the tree built through
+    K9 (one launch per level), the plain descent, within 2e-3 of
+    registration_gmmtree's K10 run (descent ties); registration_svr_sharded
+    and registration_gmmreg_sharded on 1,000 points launch no kernel, SVR
+    within 1e-3 of registration_svr (the same dual, no seeds), GMMReg
+    within 5e-3 (its seed centres come from another generator)."""
+    from probreg_tpu_torch import gmmtree as pgt
+    from probreg_tpu_torch import l2dist_regs as pl2
+    from probreg_tpu_torch.parallel import make_mesh
+    from probreg_tpu_torch.parallel import sharded
+
+    src = _family_surface(20_000)
+    tgt = _family_target(_family_surface(20_000, seed=3))
+    one = pgt.registration_gmmtree(src, tgt, device=dev)
+    _reset_launches()
+    res = sharded.registration_gmmtree_sharded(src, tgt, mesh=make_mesh(),
+                                               device=dev)
+    torch.cuda.synchronize()
+    assert _launched() == {"gmmtree_level_em": 2}
+    for a, b in ((res.transformation.rot, one.transformation.rot),
+                 (res.transformation.t, one.transformation.t)):
+        assert float((a - b).abs().max()) <= 2e-3
+    small, small_t = src[::20], tgt[::20]
+    for fn, single, kw, bar in (
+            (sharded.registration_svr_sharded, pl2.registration_svr, {},
+             1e-3),
+            (sharded.registration_gmmreg_sharded, pl2.registration_gmmreg,
+             dict(n_gmm_components=100), 5e-3)):
+        _reset_launches()
+        got = fn(small, small_t, mesh=make_mesh(), device=dev, **kw)
+        torch.cuda.synchronize()
+        assert not _launched()
+        want = single(small, small_t, device=dev, **kw)
+        assert float((got.rot - want.rot).abs().max()) <= bar
+        assert float((got.t - want.t).abs().max()) <= bar
+
+
+def test_families_on_four_gloo_ranks_share_bits(dev):
+    """Four gloo ranks on one card: registration_filterreg_2d (2 x 2, 12k
+    points, 10 iterations; K6 on every rank's 6k x 6k block, one launch
+    per E-step) and registration_bcpd_2d (2 x 2, 4,000 points, rank 32, 5
+    iterations; one den reduction per E-step): every rank returns the same
+    bits."""
+    from probreg_tpu_torch.parallel import _spmd
+
+    rng = np.random.default_rng(5)
+    src = rng.uniform(-1, 1, (12_000, 3)).astype(np.float32)
+    bsrc = _family_surface(4000)
+    calls = [("filterreg_2d", (2, 2), (src, _family_target(src)),
+              dict(maxiter=10, tol=0.0)),
+             ("bcpd_2d", (2, 2), (bsrc, _family_target(bsrc)),
+              dict(rank=32, maxiter=5, tol=0.0))]
+    outs = _spmd.run_spmd(_spmd.rank_calls, 4, "gloo", "cuda:0", calls,
+                          timeout=300.0)
+    for i, want in ((0, {"gauss_transform": 10}), (1, {})):
+        first = outs[0][i]
+        for rank in outs:
+            assert rank[i]["launches"] == want
+            assert rank[i]["counts"] == first["counts"]
+            for k, v in first["result"].items():
+                assert np.array_equal(rank[i]["result"][k], v), k
+    assert outs[0][1]["counts"]["den_all_reduce"] == 6
+
+
+# --------------------------------------------------------------------------
 # Start rows of K1 and K5, and the multistart searches
 # --------------------------------------------------------------------------
 

@@ -545,3 +545,38 @@ def test_ragged_masked_pair_is_the_unpadded_pair(horse):
                                atol=1e-5)
     np.testing.assert_allclose(ragged[0].t.numpy(), plain[0].t.numpy(),
                                atol=1e-5)
+
+
+class _NoFusedFit:
+    """A feature generator that hides ``fused_fit`` and delegates the rest,
+    attribute writes too (the reference's _ShardedFeatureWrapper's shape):
+    the registration must take the second on-device route."""
+
+    def __init__(self, base):
+        object.__setattr__(self, "_base", base)
+
+    def __setattr__(self, name, value):
+        setattr(self._base, name, value)
+
+    def __getattr__(self, name):
+        if name == "fused_fit":
+            raise AttributeError(name)
+        return getattr(self._base, name)
+
+
+@pytest.mark.parametrize("kind", sorted(RIGID_CASES))
+def test_feature_without_fused_fit_takes_the_second_route(rigid_pair,
+                                                          ref_seeds, kind):
+    """compute() mixtures, then one on-device BFGS solve a round, in both
+    packages (reference l2dist_regs.py:329-345), two rounds, tol 0."""
+    src, tgt, ang = rigid_pair
+    jcls, pcls, kw = RIGID_CASES[kind]
+    ref_reg = jcls(src, **kw)
+    ref_reg._feature_gen = _NoFusedFit(ref_reg._feature_gen)
+    ref = ref_reg.registration(tgt, maxiter=2, tol=0.0)
+    port_reg = pcls(src, **kw, **CPU)
+    port_reg._feature_gen = _NoFusedFit(port_reg._feature_gen)
+    bfgs.reset_counts()
+    port = port_reg.registration(tgt, maxiter=2, tol=0.0)
+    assert bfgs.SOLVES == 2
+    check_rigid(ref, port, float(np.ptp(tgt, 0).max()), ang)

@@ -409,22 +409,43 @@ def test_pyramid_mesh_matches_reference(spawned):
     assert outs[0]["counts"]["esteps"] == sum(PYR_KW["level_maxiters"])
 
 
-def test_not_ported_sharded_names_raise():
-    for fn in (ppar.registration_filterreg_sharded,
-               ppar.registration_bcpd_sharded,
-               ppar.registration_gmmtree_sharded,
-               ppar.registration_gmmreg_sharded,
-               ppar.registration_svr_sharded,
-               ppar.registration_filterreg_2d, ppar.registration_bcpd_2d):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            fn(None, None)
+def test_not_ported_sharded_names_raise(tmp_path):
+    """Every runner, mesh builder and shard helper of probreg_tpu.parallel
+    is the port's too, and none refuses as not ported any more. What
+    still raises is what the reference refuses, with its ValueErrors
+    (shown on a 1 x 1 mesh of one gloo rank and the reference's 1 x 1
+    mesh): GMMTree, GMMReg and SVR on a 2-axis mesh, and BCPD on a 2-D
+    mesh without rank=."""
     import probreg_tpu.parallel as jpar
+    import torch.distributed as dist
 
     exported = {k for k in dir(jpar) if k.startswith(("registration_",
                                                        "make_mesh",
                                                        "shard_points",
                                                        "estep_"))}
     assert exported <= set(dir(ppar)), exported - set(dir(ppar))
+    src, tgt = _rigid_pair()
+    ref_2d = _jax_mesh((1, 1))
+    refusals = [("registration_gmmtree_sharded", {}, "1-axis meshes only"),
+                ("registration_gmmreg_sharded", {}, "1-axis meshes only"),
+                ("registration_svr_sharded", {}, "1-axis meshes only"),
+                ("registration_bcpd_sharded", {}, "requires rank=")]
+    for name, kw, match in refusals:
+        with pytest.raises(ValueError, match=match):
+            getattr(jpar, name)(src, tgt, mesh=ref_2d, **kw)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            world_size=1, rank=0)
+    try:
+        two_d = ppar.make_mesh_2d(1, 1, device_type="cpu")
+        for name, kw, match in refusals:
+            with pytest.raises(ValueError, match=match):
+                getattr(ppar, name)(src, tgt, mesh=two_d, device="cpu",
+                                    **kw)
+        with pytest.raises(ValueError, match="requires rank="):
+            ppar.registration_bcpd_2d(src, tgt, mesh=two_d, rank=None,
+                                      device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def test_sharded_stash_cap_refuses_past_the_floor(tmp_path, monkeypatch):

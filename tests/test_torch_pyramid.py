@@ -369,15 +369,17 @@ def test_interp_displacement_matches_reference(voxel):
 def test_rejections():
     src = np.random.default_rng(0).random((100, 3)).astype(np.float32)
     cpu = dict(device="cpu")
-    not_ported = [
-        lambda: ppy.registration_filterreg_pyramid(src, src, mesh=object(),
-                                                   **cpu),
-        lambda: ppy.registration_bcpd_pyramid(src, src, mesh=object(),
-                                              rank=8, **cpu),
+    # The FilterReg pyramid's mesh= (ported) refuses what the reference's
+    # refuses, before any level runs.
+    mesh_refusals = [
+        (dict(callbacks=[print]), "neither callbacks nor dispatch_chunk"),
+        (dict(dispatch_chunk=3), "neither callbacks nor dispatch_chunk"),
+        (dict(use_pallas=False), "does not support \\['use_pallas'\\]"),
     ]
-    for item, call in zip([12, 12], not_ported):
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-            call()
+    for kw, match in mesh_refusals:
+        with pytest.raises(ValueError, match=match):
+            ppy.registration_filterreg_pyramid(src, src, mesh=object(),
+                                               **kw, **cpu)
     invalid = [
         # n_starts (ported) is the rigid coarsest level's, without
         # callbacks, and GMMTree's not with dispatch_chunk (as the

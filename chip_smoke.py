@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from probreg_tpu_torch/csrc/ (one nvcc per source,
-all started together), holds each kernel against its plain PyTorch version
+all started together, with the native point-cloud loader, io_native.cpp, by
+the host C++ compiler), holds each kernel against its plain PyTorch version
 on the card at the shapes its path gives it, then drives the port's paths
 through the user entry points, each with the launch counters set to 0 just
 before it and read just after:
@@ -24,6 +25,17 @@ before it and read just after:
 * registration_cpd_batch on a ragged batch of 256 pairs of 300-1024 points
   (rigid) and a fixed-size batch of 64 pairs (affine): one launch of the
   whole-EM kernel for each batch;
+* the native data loader (probreg_tpu_torch._io_native, host code): the
+  horse and bunny read natively and by the numpy plain versions (bit for
+  bit), voxel_down_sample of the 10^6-point pyramid cloud at the 1M
+  pyramid's two voxel sizes and the Morton order of that cloud (native
+  against the numpy / torch route, same bits, both timed), the CPD
+  pyramids' level preparation at 200,000 and 10^6 points through both
+  routes, and read_batch of 256 files (128 seeded horse and bunny serving
+  pairs written as ascii, binary little- and big-endian PLY and ascii and
+  binary PCD) on one thread and on the default pool against the per-file
+  plain loads, the loaded pairs then registered by registration_cpd_batch
+  (one launch of the whole-EM kernel);
 * rigid FilterReg at 150,000 points (examples/largescale_rigid.py: maxiter
   40, tol 1e-8, sigma2_decay 0.9): the streaming EM, each E-step one launch
   of the tile-culled Gauss transform (gauss_transform);
@@ -169,6 +181,12 @@ times BCPD's single-pair searches (the 2,000-point horse pair of the
 multistart phase and the 100,000-point BCPD pyramid, 1 and 4 starts) of
 this checkout and of another checkout DIR, each in fresh processes,
 parent, this, this, parent.
+
+    python3 chip_smoke.py --pyramid-parent DIR
+
+times the rigid CPD pyramid at 200,000 and 10^6 points (the second call,
+and its host level preparation) of this checkout and of DIR, each in fresh
+processes, parent, this, this, parent.
 
     python3 chip_smoke.py --parent DIR
 
@@ -1325,6 +1343,223 @@ def run_batch(dev, launches):
         if not (max(errs) <= limit[0] and np.median(errs) <= limit[1]
                 and d_single <= 1e-6):
             raise AssertionError(f"{kind} batch registration wrong")
+
+
+# --------------------------------------------------------------------------
+# The native data loader (host code: csrc/io_native.cpp)
+# --------------------------------------------------------------------------
+
+LOADER_PAIRS = 128        # serving pairs written to 2 files each
+LOADER_FORMATS = ("ply ascii", "ply binary_little_endian",
+                  "ply binary_big_endian", "pcd ascii", "pcd binary")
+
+
+def host_ms(fn, reps):
+    """Median host-clock ms of ``fn`` over ``reps`` calls, and its last
+    result."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def write_cloud(path, pts, fmt):
+    """``pts`` as float32 in one of LOADER_FORMATS."""
+    from probreg_tpu_torch.utils import io
+
+    kind, enc = fmt.split()
+    if kind == "pcd":
+        return io.write_pcd(path, pts, binary=enc == "binary")
+    if enc != "binary_big_endian":
+        return io.write_ply(path, pts, binary=enc != "ascii")
+    pts = np.ascontiguousarray(pts, ">f4")
+    with open(path, "wb") as f:
+        f.write(("ply\nformat binary_big_endian 1.0\nelement vertex %d\n"
+                 "property float x\nproperty float y\nproperty float z\n"
+                 "end_header\n" % len(pts)).encode())
+        f.write(pts.tobytes())
+
+
+def loader_files(folder, seed=20):
+    """LOADER_PAIRS seeded rigid serving pairs (horse and bunny in turn;
+    subsets of 300-1024 and 300-397 points, turned by Euler angles up to
+    15 degrees, shifted, 5e-4 noise) written to 2 files each, the formats
+    in turn. Returns the paths (source, target, ...) and the rotations."""
+    from probreg_tpu_torch.utils import io, se3_op
+
+    clouds = (io.read_ply_plain(data_path("horse.ply")),
+              io.read_pcd_plain(data_path("bunny.pcd")))
+    rng = np.random.default_rng(seed)
+    paths, rots = [], []
+    for i in range(LOADER_PAIRS):
+        base = clouds[i % 2]
+        hi = min(1024, len(base))
+        m, n = rng.integers(min(300, hi - 1), hi + 1, 2)
+        rot = se3_op.euler2mat(*np.deg2rad(rng.uniform(-15, 15, 3))
+                               ).double().numpy()
+        src = base[rng.choice(len(base), m, replace=False)]
+        tgt = base[rng.choice(len(base), n, replace=False)]
+        tgt = (tgt @ rot.T + rng.uniform(-0.01, 0.01, 3)
+               + 5e-4 * rng.standard_normal(tgt.shape))
+        fmt = LOADER_FORMATS[i % len(LOADER_FORMATS)]
+        for j, pts in enumerate((src, tgt)):
+            ext = fmt.split()[0]
+            paths.append(os.path.join(folder, f"pair{i:03d}_{j}.{ext}"))
+            write_cloud(paths[-1], pts, fmt)
+        rots.append(rot)
+    return paths, rots
+
+
+def run_native_io(dev, launches):
+    """The port's native loader on the card's host: every route that
+    utils.io and the pyramids take is the native one, each native result
+    equals the numpy / torch plain version's bit for bit, and both are
+    timed; the loaded serving pairs are registered on the card."""
+    import tempfile
+
+    from probreg_tpu_torch import _io_native, cpd, pyramid
+    from probreg_tpu_torch.ops import _build, spatial
+    from probreg_tpu_torch.utils import io, se3_op
+
+    # 1. The library loads, and utils.io, the pyramid's probe and
+    # morton_order_np call into it.
+    log(f"[native io] {_build._target('io_native').name}, "
+        f"{os.cpu_count()} host cores")
+    calls, lib = [], _io_native._lib
+    _io_native._lib = lambda: calls.append(1) or lib()
+    tiny = np.random.default_rng(0).random((64, 3))
+    try:
+        for name, fn in (
+                ("read_ply", lambda: io.read_ply(data_path("horse.ply"))),
+                ("read_pcd", lambda: io.read_pcd(data_path("bunny.pcd"))),
+                ("voxel_down_sample", lambda: io.voxel_down_sample(tiny, .1)),
+                ("read_batch", lambda: io.read_batch([data_path("horse.ply")])),
+                ("pyramid._voxel_count",
+                 lambda: pyramid._voxel_count(tiny, 0.1)),
+                ("morton_order_np", lambda: spatial.morton_order_np(tiny))):
+            del calls[:]
+            fn()
+            if not calls:
+                raise AssertionError(f"{name} did not take the native route")
+    finally:
+        _io_native._lib = lib
+    log("  utils.io read_ply / read_pcd / voxel_down_sample / read_batch, "
+        "pyramid._voxel_count and morton_order_np take the native route")
+    bad = []
+
+    def same(name, a, b):
+        ok = a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+        if not ok:
+            bad.append(name)
+        return "equal" if ok else "NOT equal"
+
+    # 2. The fixtures.
+    for name, nat, plain in (("horse.ply", io.read_ply, io.read_ply_plain),
+                             ("bunny.pcd", io.read_pcd, io.read_pcd_plain)):
+        t_n, a = host_ms(lambda: nat(data_path(name)), 5)
+        t_p, b = host_ms(lambda: plain(data_path(name)), 5)
+        log(f"  {name}: {len(a):,} points, native {t_n:.3f} ms, plain "
+            f"{t_p:.3f} ms, {same(name, a, b)}")
+
+    # 3. voxel_down_sample and the Morton order at 10^6 points.
+    src, tgt, _, _ = pyramid_case(PYRAMID_SIZES[-1])
+    voxels = pyramid.auto_voxel_sizes(src, tgt, PYRAMID_ARGS["levels"])[:-1]
+    pts = np.asarray(src, np.float64)
+    for v in voxels:
+        t_n, a = host_ms(lambda: io.voxel_down_sample(pts, v), 5)
+        t_p, b = host_ms(lambda: io.voxel_down_sample_plain(pts, v), 2)
+        log(f"  voxel_down_sample {len(pts):,} points at {v:.6g}: "
+            f"{len(a):,} voxels, native {t_n:.1f} ms, plain {t_p:.1f} ms "
+            f"({t_p / t_n:.1f}x), {same(f'voxel {v}', a, b)}")
+    pts32 = np.asarray(src, np.float32)
+    t_n, a = host_ms(lambda: _io_native.morton_order(pts32), 5)
+    t_p, b = host_ms(lambda: spatial.morton_order(torch.as_tensor(pts32))
+                     .numpy(), 5)
+    routed = []
+    own = _io_native.morton_order
+    _io_native.morton_order = lambda p: routed.append(1) or own(p)
+    try:
+        spatial.morton_order_np(pts32)
+    finally:
+        _io_native.morton_order = own
+    log(f"  morton_order {len(pts32):,} points: native {t_n:.1f} ms, torch "
+        f"({torch.get_num_threads()} threads) {t_p:.1f} ms, "
+        f"{same('morton', a, b)}; morton_order_np takes the "
+        f"{'native' if routed else 'torch'} route")
+
+    # The CPD pyramids' level preparation through both routes.
+    def plain_route(fn):
+        saved = (io.voxel_down_sample, pyramid._voxel_count)
+        io.voxel_down_sample = io.voxel_down_sample_plain
+        pyramid._voxel_count = pyramid._voxel_count_plain
+        try:
+            return fn()
+        finally:
+            io.voxel_down_sample, pyramid._voxel_count = saved
+
+    for n in PYRAMID_SIZES:
+        s_n, t_n = pyramid_case(n)[:2]
+
+        def prep():
+            out = pyramid._prepare_levels(s_n, t_n, None,
+                                          PYRAMID_ARGS["levels"], 3000, 4.0,
+                                          dev)
+            torch.cuda.synchronize()
+            return out
+
+        ms_n, a = host_ms(prep, 3)
+        ms_p, b = host_ms(lambda: plain_route(prep), 2)
+        levels = [np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                  for x in a[0] + a[1]]
+        plain = [np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                 for x in b[0] + b[1]]
+        ok = a[2] == b[2] and all(np.array_equal(x, y)
+                                  for x, y in zip(levels, plain))
+        if not ok:
+            bad.append(f"levels {n}")
+        log(f"  pyramid level preparation at {n:,} points: native "
+            f"{ms_n:.1f} ms, plain {ms_p:.1f} ms ({ms_p / ms_n:.1f}x), "
+            f"levels {'equal' if ok else 'NOT equal'} "
+            f"({[len(x) for x in levels]})")
+
+    # 4. read_batch of the serving files, then 5. their registration.
+    with tempfile.TemporaryDirectory() as folder:
+        t0 = time.perf_counter()
+        paths, rots = loader_files(folder)
+        log(f"  {len(paths)} files written in "
+            f"{time.perf_counter() - t0:.2f} s ({', '.join(LOADER_FORMATS)})")
+        t_plain, want = host_ms(lambda: io.read_batch_plain(paths), 3)
+        t_one, one = host_ms(lambda: io.read_batch(paths, threads=1), 5)
+        t_pool, got = host_ms(lambda: io.read_batch(paths), 5)
+        eq = all(same("read_batch", x, y) == "equal" and
+                 same("read_batch threads", z, y) == "equal"
+                 for x, z, y in zip(got, one, want))
+        log(f"  read_batch {len(paths)} files: one thread {t_one:.2f} ms, "
+            f"default pool {t_pool:.2f} ms ({t_one / t_pool:.1f}x), "
+            f"plain sequential {t_plain:.2f} ms; "
+            f"{'equal' if eq else 'NOT equal'} to the per-file plain loads")
+    srcs, tgts = got[0::2], got[1::2]
+    cpd.registration_cpd_batch(srcs, tgts, "rigid")  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = cpd.registration_cpd_batch(srcs, tgts, "rigid")
+    torch.cuda.synchronize()
+    t_reg = (time.perf_counter() - t0) * 1e3
+    expect_launches("loaded batch", em_rigid=1)
+    errs = [np.rad2deg(float(se3_op.rotation_angle(
+        r.transformation.rot.cpu().double(), torch.as_tensor(rot))))
+        for r, rot in zip(res, rots)]
+    log(f"  {len(srcs)} loaded pairs: load (read_batch, default pool) "
+        f"{t_pool:.2f} ms, registration_cpd_batch {t_reg:.2f} ms (one "
+        f"em_rigid launch); rotation error max {max(errs):.4f} median "
+        f"{np.median(errs):.4f} deg")
+    if not (max(errs) <= 5.0 and np.median(errs) <= 1.0):
+        bad.append("loaded batch registration")
+    if bad:
+        raise AssertionError(f"native loader: {bad}")
 
 
 # --------------------------------------------------------------------------
@@ -2903,7 +3138,7 @@ def log_pyramid(wall, info):
     finest = -(-info["points"][-1] // config.tile_m)  # its source tiles
     fine = [float(f) for n_i, f in info["masks"] if n_i == finest]
     log(f"  timed call {wall:.3f} s: level preparation on the host "
-        f"{info['prep_s']:.3f} s, levels (coarsest first) "
+        f"(the native loader) {info['prep_s']:.3f} s, levels (coarsest first) "
         + ", ".join(f"{p:,} points {s:.3f} s" for p, s in
                     zip(info["points"], info["level_s"])))
     log(f"  voxels {[round(v, 6) for v in info['voxels']]}; finest level "
@@ -3558,7 +3793,7 @@ def bcpd_search_main():
     single-pair search: run_multistart's 2,000-point horse pair with 1 and
     BCPD_MS_STARTS starts (lmd 10), and run_multistart_pyramids' BCPD
     pyramid at N_BCPD_MS_PYR points with 1 and BCPD_MS_STARTS starts (run
-    by bcpd_search_in with a checkout's package first on the path)."""
+    by main_in with a checkout's package first on the path)."""
     from probreg_tpu_torch import bcpd, pyramid
     from probreg_tpu_torch.utils import se3_op
 
@@ -3584,9 +3819,9 @@ def bcpd_search_main():
     print(json.dumps(out), flush=True)
 
 
-def bcpd_search_in(checkout):
-    """bcpd_search_main in a fresh process whose probreg_tpu_torch is
-    ``checkout``'s; {case: s}."""
+def main_in(checkout, main):
+    """chip_smoke's ``main`` (a function printing one JSON line) in a fresh
+    process whose probreg_tpu_torch is ``checkout``'s; the line's object."""
     checkout = os.path.abspath(checkout)
     code = ("import importlib.util, sys\n"
             f"sys.path.insert(0, {checkout!r})\n"
@@ -3594,11 +3829,11 @@ def bcpd_search_in(checkout):
             f"'smoke', {os.path.abspath(__file__)!r})\n"
             "smoke = importlib.util.module_from_spec(spec)\n"
             "spec.loader.exec_module(smoke)\n"
-            "smoke.bcpd_search_main()\n")
+            f"smoke.{main}()\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=checkout,
                          capture_output=True, text=True, timeout=600)
     if out.returncode != 0:
-        raise RuntimeError(f"BCPD search run in {checkout} failed:\n"
+        raise RuntimeError(f"{main} in {checkout} failed:\n"
                            f"{out.stdout[-3000:]}{out.stderr[-3000:]}")
     return json.loads(out.stdout.strip().splitlines()[-1])
 
@@ -3607,12 +3842,44 @@ def bcpd_search_against_parent(parent) -> int:
     """BCPD's single-pair searches of this checkout and of ``parent``, in
     fresh processes, parent, this, this, parent: the seconds of each."""
     here = os.path.dirname(os.path.abspath(__file__))
-    runs = [(label, bcpd_search_in(where)) for label, where in
+    runs = [(label, main_in(where, "bcpd_search_main")) for label, where in
             (("parent", parent), ("this", here), ("this", here),
              ("parent", parent))]
     for case in runs[0][1]:
         log(f"[BCPD search] {case}: " + ", ".join(
             f"{label} {got[case]:.3f} s" for label, got in runs))
+    return 0
+
+
+def pyramid_prep_main():
+    """Print, as one JSON line, the second call of the rigid CPD pyramid at
+    each of PYRAMID_SIZES (run_pyramid_cpd's default route): {case: [wall
+    s, host level preparation s]} (run by main_in with a checkout's package
+    first on the path)."""
+    from probreg_tpu_torch import pyramid
+
+    out = {}
+    for n in PYRAMID_SIZES:
+        src, tgt = pyramid_case(n)[:2]
+        pyramid.registration_cpd_pyramid(src, tgt, "rigid", **PYRAMID_ARGS)
+        torch.cuda.synchronize()
+        _, wall, info = traced_cpd_pyramid(src, tgt, "rigid")
+        out[f"CPD pyramid {n:,}"] = [wall, info["prep_s"]]
+    print(json.dumps(out), flush=True)
+
+
+def pyramid_prep_against_parent(parent) -> int:
+    """The rigid CPD pyramids' wall and host level preparation of this
+    checkout and of ``parent``, in fresh processes, parent, this, this,
+    parent."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = [(label, main_in(where, "pyramid_prep_main")) for label, where
+            in (("parent", parent), ("this", here), ("this", here),
+                ("parent", parent))]
+    for case in runs[0][1]:
+        log(f"[pyramid prep] {case}: " + ", ".join(
+            f"{label} {got[case][0]:.3f} s (preparation {got[case][1]:.3f} "
+            "s)" for label, got in runs))
     return 0
 
 
@@ -6503,6 +6770,9 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--bcpd-search-parent":
         log(card_line())
         return bcpd_search_against_parent(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--pyramid-parent":
+        log(card_line())
+        return pyramid_prep_against_parent(sys.argv[2])
     import probreg_tpu_torch  # noqa: F401
     from probreg_tpu_torch.ops import _build
 
@@ -6530,6 +6800,7 @@ def main() -> int:
                         (run_small_estep_path, (dev, launches)),
                         (run_bunny, (dev, launches)),
                         (run_batch, (dev, launches)),
+                        (run_native_io, (dev, launches)),
                         (check_frg, (dev, kernels)),
                         (check_gt, (dev, kernels)),
                         (run_filterreg_large, (dev, launches)),

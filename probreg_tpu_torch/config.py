@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -79,6 +80,15 @@ class Config:
 
 
 config = Config()
+
+
+def eps(dtype=None) -> float:
+    """Machine epsilon of ``dtype`` (a torch or numpy dtype; default
+    ``config.dtype``), as ``probreg_tpu.config.eps``."""
+    dtype = config.dtype if dtype is None else dtype
+    if isinstance(dtype, torch.dtype):
+        return float(torch.finfo(dtype).eps)
+    return float(np.finfo(dtype).eps)
 
 
 def resolve_device(device=None) -> torch.device:

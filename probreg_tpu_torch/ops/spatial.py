@@ -53,9 +53,14 @@ def morton_order(points: torch.Tensor) -> torch.Tensor:
 def morton_order_np(points) -> "np.ndarray":
     """Host Z-order permutation of (N, D) points (numpy in, numpy out),
     for the entry points that sort whole clouds once before sharding them
-    (parallel/). The reference's permutation, from morton_order on the
-    CPU."""
+    (parallel/). The reference's permutation: 2-D and 3-D clouds from the
+    native loader's radix sort (``_io_native.morton_order``, the same
+    codes and order), other widths from morton_order on the CPU."""
     import numpy as np
 
-    pts = torch.as_tensor(np.asarray(points, np.float32))
-    return morton_order(pts).numpy()
+    from .. import _io_native
+
+    pts = np.asarray(points, np.float32)
+    if pts.ndim == 2 and pts.shape[1] in (2, 3) and pts.shape[0] > 0:
+        return _io_native.morton_order(pts)
+    return morton_order(torch.as_tensor(pts)).numpy()

@@ -8,9 +8,10 @@ start-temperature iterations and runs in the annealed regime, where the
 tile-culled E-step kernels skip most tile pairs (ops/estep_cuda.py).
 
 Levels are built on the host with :func:`probreg_tpu_torch.utils.io.
-voxel_down_sample`. The voxel schedule is geometric; the coarsest size is
-fitted so the coarsest clouds hold ``coarse_points`` points (point clouds
-are surfaces, so occupied voxels scale ~ (diag/v)^2).
+voxel_down_sample`, the port's native loader, which also counts the voxels
+of the schedule's density probes. The voxel schedule is geometric; the
+coarsest size is fitted so the coarsest clouds hold ``coarse_points``
+points (point clouds are surfaces, so occupied voxels scale ~ (diag/v)^2).
 
 Each entry point runs every level through the port's own entry point for
 that family (``registration_cpd``, ``registration_filterreg``,
@@ -35,6 +36,7 @@ from typing import Any, Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from . import _io_native
 from . import config as _config
 from .utils import interop
 from .utils import io as pio
@@ -57,7 +59,13 @@ def _np_dtype():
 
 
 def _voxel_count(points: np.ndarray, voxel_size: float) -> int:
-    """Number of occupied voxels at ``voxel_size`` (density probe)."""
+    """Number of occupied voxels at ``voxel_size`` (density probe), counted
+    by the native loader with the keys of :func:`_voxel_count_plain`."""
+    return _io_native.voxel_count(points, voxel_size)
+
+
+def _voxel_count_plain(points: np.ndarray, voxel_size: float) -> int:
+    """numpy version of :func:`_voxel_count`."""
     keys = np.floor((points - points.min(axis=0)) / voxel_size).astype(np.int64)
     flat = pio.pack_voxel_keys(keys)
     if flat is None:

@@ -1,11 +1,18 @@
 """Point-cloud IO: PLY / PCD readers and voxel downsampling.
 
-The reference leans on Open3D's C++ IO (examples/utils.py, tests). This
-is the pure-numpy reader of probreg_tpu/utils/io.py, copied so the port
-imports nothing of the JAX package (whose optional native loader is not
-used here). It reads the ASCII/binary PLY and PCD variants used by the probreg
-fixtures (data/horse.ply is binary_big_endian, examples/bunny.pcd is ASCII
-v.5) and implement ``voxel_down_sample`` (average per voxel, like Open3D).
+Counterpart of probreg_tpu/utils/io.py (the reference leans on Open3D's C++
+IO). ``read_ply``, ``read_pcd``, ``read_batch`` and ``voxel_down_sample`` of
+(N, 3) points run the port's native loader (``probreg_tpu_torch._io_native``,
+csrc/io_native.cpp, built at first use with the host C++ compiler), as the
+reference's do with its own; ``read_batch`` reads on native threads. Only
+``.txt`` files and points of another width than 3 stay on numpy. Without a
+C++ compiler the native route raises: it never gives way to numpy. The numpy
+bodies stay as the plain versions (``read_ply_plain``, ``read_pcd_plain``,
+``voxel_down_sample_plain``, the sequential ``read_batch_plain``), which the
+tests hold the native route to, bit for bit. Both read the ASCII/binary PLY
+and PCD variants used by the probreg fixtures (data/horse.ply is
+binary_little_endian, data/bunny.pcd is ASCII v0.7); ``voxel_down_sample``
+averages the points of each voxel, like Open3D.
 """
 
 from __future__ import annotations
@@ -15,6 +22,8 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+from .. import _io_native
 
 _PLY_DTYPES = {
     "float": "f4", "float32": "f4", "float64": "f8", "double": "f8",
@@ -26,6 +35,16 @@ _PLY_DTYPES = {
 
 def read_ply(path) -> np.ndarray:
     """Read vertex x/y/z from a PLY file (ascii or binary, either endian)."""
+    return _io_native.read_ply(path)
+
+
+def read_pcd(path) -> np.ndarray:
+    """Read x/y/z from a PCD file (ascii or binary DATA)."""
+    return _io_native.read_pcd(path)
+
+
+def read_ply_plain(path) -> np.ndarray:
+    """numpy version of :func:`read_ply`."""
     raw = Path(path).read_bytes()
     # CRLF-tolerant AND line-anchored: a bare substring search matched
     # 'end_header' inside comment lines and truncated the header (review
@@ -73,8 +92,8 @@ def read_ply(path) -> np.ndarray:
     ).astype(np.float64)
 
 
-def read_pcd(path) -> np.ndarray:
-    """Read x/y/z from a PCD file (ascii or binary DATA)."""
+def read_pcd_plain(path) -> np.ndarray:
+    """numpy version of :func:`read_pcd`."""
     raw = Path(path).read_bytes()
     # \r? before \n: CRLF-written PCD headers (review finding).
     m = re.search(rb"DATA[ \t]+(\w+)[ \t]*\r?\n", raw)
@@ -175,11 +194,15 @@ def write_point_cloud(path, points: np.ndarray) -> None:
 
 
 def read_point_cloud(path) -> np.ndarray:
+    return _read_point_cloud(path, read_ply, read_pcd)
+
+
+def _read_point_cloud(path, ply, pcd) -> np.ndarray:
     path = str(path)
     if path.endswith(".ply"):
-        return read_ply(path)
+        return ply(path)
     if path.endswith(".pcd"):
-        return read_pcd(path)
+        return pcd(path)
     if path.endswith(".txt"):
         return np.loadtxt(path)
     raise ValueError("unsupported point cloud format: %s" % path)
@@ -188,17 +211,38 @@ def read_point_cloud(path) -> np.ndarray:
 def read_batch(paths, voxel_size: float = 0.0, threads: int = 0):
     """Load many PLY/PCD files (optionally voxel-downsampled) concurrently.
 
-    A sequential loop over :func:`read_point_cloud`.
+    The .ply / .pcd files are read on ``threads`` native threads (0:
+    min(len(paths), the host's cores)) with the interpreter lock released,
+    the data-loader for serving pipelines that overlap host IO with device
+    compute (it pairs with :func:`probreg_tpu_torch.cpd.
+    registration_cpd_batch`); ``.txt`` files are read with numpy. A file
+    that cannot be read raises ValueError naming it.
 
     Returns a list of (N_i, 3) float64 arrays, in input order.
     """
     paths = [str(p) for p in paths]
-    del threads
+    clouds = iter(_io_native.read_batch(
+        [p for p in paths if not p.endswith(".txt")], float(voxel_size),
+        int(threads)))
     out = []
     for p in paths:
-        pts = read_point_cloud(p)
+        if not p.endswith(".txt"):
+            out.append(next(clouds))
+            continue
+        pts = np.loadtxt(p)
         if voxel_size > 0.0:
             pts = voxel_down_sample(pts, voxel_size)
+        out.append(np.asarray(pts, dtype=np.float64))
+    return out
+
+
+def read_batch_plain(paths, voxel_size: float = 0.0):
+    """Sequential numpy version of :func:`read_batch`."""
+    out = []
+    for p in paths:
+        pts = _read_point_cloud(p, read_ply_plain, read_pcd_plain)
+        if voxel_size > 0.0:
+            pts = voxel_down_sample_plain(pts, voxel_size)
         out.append(np.asarray(pts, dtype=np.float64))
     return out
 
@@ -218,10 +262,22 @@ def pack_voxel_keys(keys: np.ndarray) -> Optional[np.ndarray]:
 
 
 def voxel_down_sample(points: np.ndarray, voxel_size: float) -> np.ndarray:
-    """Average points falling in the same voxel (Open3D-compatible)."""
+    """Average points falling in the same voxel (Open3D-compatible), the
+    voxels in lexicographic key order; (N, 3) points natively."""
     if not voxel_size > 0.0:
-        # Open3D raises the same; without this the fallback's divide
-        # produces an int64-wrapped garbage voxelization (review finding).
+        raise ValueError("voxel_size must be positive, got %r" % voxel_size)
+    points = np.asarray(points, dtype=np.float64)
+    if points.ndim == 2 and points.shape[1] == 3:
+        return _io_native.voxel_down_sample(points, float(voxel_size))
+    return voxel_down_sample_plain(points, voxel_size)
+
+
+def voxel_down_sample_plain(points: np.ndarray,
+                            voxel_size: float) -> np.ndarray:
+    """numpy version of :func:`voxel_down_sample`, for any width."""
+    if not voxel_size > 0.0:
+        # Open3D raises the same; without this the divide produces an
+        # int64-wrapped garbage voxelization (review finding).
         raise ValueError("voxel_size must be positive, got %r" % voxel_size)
     points = np.asarray(points, dtype=np.float64)
     vmin = points.min(axis=0)

@@ -88,6 +88,16 @@ def test_public_symbol_parity(mod_name):
     assert "jax" not in getattr(ours, "__file__", "")
 
 
+def test_config_eps_matches_reference():
+    from probreg_tpu import config as jconfig
+    from probreg_tpu_torch import config as pconfig
+
+    assert pconfig.eps() == jconfig.eps()
+    for jd, pd in ((np.float32, torch.float32), (np.float64, torch.float64),
+                   (np.float16, torch.float16)):
+        assert pconfig.eps(pd) == pconfig.eps(jd) == jconfig.eps(jd)
+
+
 def _rigid_result(pkg):
     rot = np.eye(3, dtype=np.float32)[[1, 0, 2]]
     t = np.array([0.1, -0.2, 0.3], np.float32)

@@ -161,3 +161,9 @@ def test_kernel_sources_ship_with_the_package():
     assert _build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    # The native point-cloud loader: host C++, IEEE arithmetic.
+    assert (_build.CSRC / "io_native.cpp").exists()
+    assert sorted(p.stem for p in _build.CSRC.glob("*.cpp")) == ["io_native"]
+    for flag in ("--use_fast_math", "-ffast-math", "-Ofast"):
+        assert flag not in _build.CXX_FLAGS
+    assert _build._target("io_native").parent == _build.BUILD_DIR

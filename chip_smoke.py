@@ -14,6 +14,20 @@ before it and read just after:
   [-1, 1]^3, seed 0, Euler (3, -2, 5) degrees, maxiter 40, tol 1e-8):
   the streaming EM with the tile-culled E-step kernels (stash_den,
   stash_moment: one launch each per E-step, no stash);
+* the start-temperature fast branch (config.estep_fast_start): on
+  benchmarks/bench_stash_passes.py's case (blobby_surface(131072, seed=0)
+  against a copy jittered by 0.002, sigma2 0.67, where the gate fires) K3's
+  fast passes (stash_den_fast, stash_moment_fast: the cross term on bf16
+  tensor cores) and its bf16-stash pass B (stash_moment_bf16, and K12's,
+  stash_merged_bf16) against their plain versions, timed beside the exact
+  passes, and K6's fast kernel (gauss_transform_fast) on FilterReg's first
+  E-step of that pair; one gated K3 and K6 call under
+  torch.cuda.set_sync_debug_mode("error"); rigid CPD and FilterReg on
+  blobby_surface(150_000, seed=0) against itself turned by Euler (3, -2,
+  5) degrees and jittered, fast start on and off (each gated call
+  launches both branches' kernels, the device flag picks the one that
+  runs; the E-steps on the fast branch counted on the device), and 10
+  iterations with config.stash_dtype = bfloat16 through K3 and K12;
 * the same clouds with use_pallas=True at a smaller depth: the streaming EM
   with the two-pass kernels (fused_den, fused_moment);
 * the public E-step on a 1,000-point pair (RigidCPD.expectation_step):
@@ -217,6 +231,8 @@ import torch
 # them.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# bf16 on the tensor cores, dense (the same data sheet).
+PEAK_BF16_FLOPS = 989e12
 # f32 operations per pair, counting one exp as one operation: the Gaussian
 # (dot 5, |y|^2 + |x|^2 - 2 y.x 3, max and scale 2, exp 1) is 11, its column
 # sum 1; normalizing (1) and the p1 / px sums (1 + 6) are 8.
@@ -261,7 +277,22 @@ KERNELS = {
     "gmmtree_level_em": (_GMMTREE_CU,
                          "probreg_tpu/ops/gmmtree_pallas.py:109"),
     "gmmtree_reg": (_GMMTREE_CU, "probreg_tpu/ops/gmmtree_pallas.py:297"),
+    # The start-temperature fast branch: the DEFAULT-precision (one bf16
+    # pass) instantiations of the stash kernels and of _gt_kernel that the
+    # reference runs under its gate, and K3's and K12's pass B reading a
+    # bf16 stash (config.stash_dtype).
+    "stash_den_fast": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:393"),
+    "stash_moment_fast": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:429"),
+    "gauss_transform_fast": (_GT_CU, "probreg_tpu/ops/estep_pallas.py:1210"),
+    "stash_moment_bf16": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:429"),
+    "stash_merged_bf16": (_ESTEP_CU, "probreg_tpu/ops/estep_pallas.py:581"),
 }
+# Each gated call (K3 through estep_auto, K6 through gauss_transform_culled)
+# launches the exact kernel and its fast twin; the device flag picks the one
+# that runs, and the other returns at once.
+FAST_TWIN = {"stash_den": "stash_den_fast",
+             "stash_moment": "stash_moment_fast",
+             "gauss_transform": "gauss_transform_fast"}
 # A whole EM iteration needs, per pair, the Gaussian once and the moments
 # once: that is what the bound charges. (The kernel itself forms the
 # Gaussian again in its second pass, 32 operations per pair, because the
@@ -298,6 +329,10 @@ FLOPS_GMM_GAUSS = 27
 # exactly this many iterations). At 150k |q| is ~1e5, so one f32 ulp of q
 # passes lambda_s = 1e-3 and a stop test cannot be compared there.
 GMM_BUILD_ITERS = 10
+# The ragged batch's single-iteration checks from the plain version's state
+# (level_em_batch_check): the first GMM_STEP_CHECKS of the GMM_BUILD_ITERS
+# iterations.
+GMM_STEP_CHECKS = 5
 GMM_REG_ITERS = 20
 N_GMM = 150_000
 # The CPD pyramid: examples/pyramid_rigid.py's case and arguments.
@@ -423,9 +458,12 @@ def evented(spans, name, fn):
     return run
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, bf16_flops: float = 0.0):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over their peak rates (f32 outside the
+    tensor cores, bf16 on them, each at its own rate)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = (flops / PEAK_F32_FLOPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -622,12 +660,17 @@ def estep_regimes(dev, shared):
     return regimes
 
 
-def plain_pass_times(ys, xs, scal, mask, tile_m, tile_n):
+def plain_pass_times(ys, xs, scal, mask, tile_m, tile_n, fast=False,
+                     round_g=False):
     """ms of the plain passes A and B over all stripes, each stripe between
     its own events: (pass A, pass B from pass A's g, pass B forming the
     stripe's Gaussian again). The second is the cheaper plain form (it
-    keeps a stripe's g in memory), the third does the kernels' work."""
+    keeps a stripe's g in memory), the third does the kernels' work.
+    ``fast``: the fast branch's plain passes; ``round_g``: pass B from g
+    rounded to bf16."""
     from probreg_tpu_torch.ops import estep_cuda as ec
+
+    round_g = round_g or fast
 
     m = ys.shape[0]
     y2, x2 = (ys * ys).sum(1), (xs * xs).sum(1)
@@ -639,13 +682,13 @@ def plain_pass_times(ys, xs, scal, mask, tile_m, tile_n):
         args = (ys, y2, x, xj2, scal, act, mask.shape[0], tile_m)
         e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         e[0].record()
-        g, inv_den, _, _ = ec._plain_pass_a(*args)
+        g, inv_den, _, _ = ec._plain_pass_a(*args, fast)
         e[1].record()
-        ec._plain_pass_b(g, inv_den, x)
+        ec._plain_pass_b(g, inv_den, x, round_g)
         e[2].record()
         del g
-        g = ec._plain_pass_a(*args)[0]
-        ec._plain_pass_b(g, inv_den, x)
+        g = ec._plain_pass_a(*args, fast)[0]
+        ec._plain_pass_b(g, inv_den, x, round_g)
         e[3].record()
         torch.cuda.synchronize()
         pa += e[0].elapsed_time(e[1])
@@ -1095,6 +1138,12 @@ def all_launches():
     return out
 
 
+def with_twins(**want):
+    """``want`` with each gated kernel's fast twin launched as often."""
+    return {**want, **{FAST_TWIN[k]: v for k, v in want.items()
+                       if k in FAST_TWIN}}
+
+
 def expect_launches(path, **want):
     """Every kernel named launched that often on ``path``, no other did."""
     got = all_launches()
@@ -1148,9 +1197,12 @@ def run_large_registration(dev, launches):
         f"last {float(masks[-1]):.4f}; peak memory {peak / 2**30:.3f} GiB")
     if not masks:
         raise AssertionError("the main path ran no culled E-step")
-    # One launch of each pass per E-step.
-    expect_launches("150k registration", stash_den=len(masks),
-                    stash_moment=len(masks))
+    # One launch of each pass per E-step, and of each fast twin (the gate
+    # never fires on this cube: its bound at sigma2_0 is 0.0348).
+    expect_launches("150k registration", **with_twins(
+        stash_den=len(masks), stash_moment=len(masks)))
+    if ec.fast_steps():
+        raise AssertionError("the cube's E-steps took the fast branch")
     if not (math.isfinite(sigma2) and err <= ROT_ERR_MAX):
         raise AssertionError(f"150k registration wrong: rotation error {err}")
     # The same registration with every stash E-step run by the plain
@@ -1176,6 +1228,366 @@ def run_large_registration(dev, launches):
         f" against {float(res.sigma2):.6g}")
     if not (d_rot <= 1e-4 and d_t <= 1e-4):
         raise AssertionError("kernel and plain registrations disagree")
+
+
+# --------------------------------------------------------------------------
+# The start-temperature fast branch (config.estep_fast_start)
+# --------------------------------------------------------------------------
+
+# benchmarks/bench_stash_passes.py:54-62: blobby_surface(131072, seed=0) and
+# a copy jittered by 0.002 (seed 1), both Morton-sorted, sigma2 0.67 (dense:
+# no tile culled), c 1e-6; tiles 512 x 1024 (the config's).
+FAST_M = 131_072
+FAST_SIGMA2 = 0.67
+FAST_C = 1e-6
+# The flat rigid CPD: blobby_surface(150_000, seed=0) against itself turned
+# by Euler (3, -2, 5) degrees and jittered by 0.002 (seed 1); the FilterReg
+# run on the same pair (run_filterreg_large's settings).
+N_FAST_CPD = 150_000
+FAST_TURN = (3.0, -2.0, 5.0)
+FAST_CPD_ARGS = dict(maxiter=40, tol=1e-8)
+FAST_FRG_ARGS = dict(maxiter=40, tol=1e-8, sigma2_decay=0.9)
+FAST_STASH_ITERS = 10     # the bf16-stash runs (tol 0)
+# Stated before the first run (PERF.md): the fast branch moves only the
+# first E-step(s), each exp argument by at most the bound (<= 0.02), and
+# the runs then anneal alike: fast on and off (and the bf16 stash against
+# the f32 one) end within this in every entry of the rotation matrix. A
+# 6,000-point CPU rehearsal of the same runs parted by 1.9e-7 (CPD),
+# 2.4e-6 (FilterReg) and 8.5e-6 (bf16 stash).
+FAST_ROT_AGREE = 1e-4
+# f32 operations per pair of the fast passes (bound()'s count without the
+# dot, which the tensor cores take: 2 D bf16 operations a pair): pass A the
+# Gaussian from the cross term (|y|^2 + |x|^2 - 2 y.x 3, max and scale 2,
+# exp 1) and its column sum; pass B the Gaussian, its bf16 rounding and the
+# moments. K6's fast kernel: the same 6 and 2 per channel.
+FLOPS_FAST_A = 6 + 1
+FLOPS_FAST_B = 6 + 1 + FLOPS_MOMENTS
+
+
+def fast_case(dev):
+    """The bench case's clouds on the card, Morton-sorted as the bench
+    sorts them."""
+    from probreg_tpu_torch.ops.spatial import morton_order_np
+    from probreg_tpu_torch.utils.datagen import blobby_surface
+
+    src = blobby_surface(FAST_M, seed=0)
+    tgt = (src + 0.002 * np.random.default_rng(1).normal(size=src.shape)
+           ).astype(np.float32)
+    src, tgt = src[morton_order_np(src)], tgt[morton_order_np(tgt)]
+    return torch.as_tensor(src, device=dev), torch.as_tensor(tgt, device=dev)
+
+
+def fast_pair():
+    """The flat runs' pair: (src, tgt, rot)."""
+    from probreg_tpu_torch.utils import se3_op
+    from probreg_tpu_torch.utils.datagen import blobby_surface
+
+    src = blobby_surface(N_FAST_CPD, seed=0)
+    rot = se3_op.euler2mat(*np.deg2rad(FAST_TURN)).numpy()
+    tgt = (src @ rot.T + 0.002 * np.random.default_rng(1).normal(
+        size=src.shape)).astype(np.float32)
+    return src, tgt, rot
+
+
+def check_fast_start(dev, kernels):
+    """K3's fast passes and its bf16-stash pass B (K3's and K12's) on the
+    bench case for one E-step, each against its plain version on the same
+    CUDA tensors (compare()'s tolerance: both round the same coordinates
+    and Gaussians to bf16, so they differ by f32 sum orders), with the
+    gate's bound, each pass's time beside its bound and the plain
+    version's, and the exact passes on the same inputs; then K6's fast
+    kernel on FilterReg's first E-step of the same pair (sigma2 0.67:
+    points the target / sigma with channels [1, x], queries the source /
+    sigma, h = sqrt 2), likewise."""
+    from probreg_tpu_torch.config import config
+    from probreg_tpu_torch.ops import estep_cuda as ec
+    from probreg_tpu_torch.ops import gt_cuda as gc
+
+    ys, xs = fast_case(dev)
+    m, n = ys.shape[0], xs.shape[0]
+    tile_m, tile_n = config.tile_m, config.tile_n
+    scal = torch.tensor([0.5 / FAST_SIGMA2, FAST_C], dtype=torch.float32,
+                        device=dev)
+    mask = ec._active_mask(*ec._tile_bounds(ys, tile_m),
+                           *ec._tile_bounds(xs, tile_n), scal[0])
+    pairs = active_pairs(mask, m, n, tile_m, tile_n)
+    y2, x2 = (ys * ys).sum(1), (xs * xs).sum(1)
+    a = float(ec.fast_bound(y2, x2, scal[0]))
+    gate = ec.fast_gate(y2, x2, scal[0])
+    log(f"[fast start K3] bench_stash_passes case {m:,} x {n:,}, sigma2 "
+        f"{FAST_SIGMA2}, tiles {tile_m} x {tile_n}, active tile fraction "
+        f"{float(mask.float().mean()):.4f}; the gate's bound {a:.6f} (tol "
+        f"{config.estep_fast_start_tol}), flag {int(gate)}")
+    if int(gate) != 1:
+        raise AssertionError("the gate does not fire on the bench case")
+    got = ec.stash_estep(ys, xs, scal, mask, tile_m, tile_n, gate=gate)
+    want = ec.stash_estep_plain(ys, xs, scal, mask, tile_m, tile_n, None,
+                                gate)
+    torch.cuda.synchronize()
+    err_a = max(compare("pt1", got[0], want[0]),
+                compare("xx", got[3], want[3]))
+    err_b = max(compare("p1", got[1], want[1]),
+                compare("px", got[2], want[2]))
+    exact = ec.stash_estep(ys, xs, scal, mask, tile_m, tile_n)
+    rel = [float((f - e).abs().max() / e.abs().max())
+           for f, e in zip(got, exact)]
+    log(f"  fast against exact kernels (pt1, p1, px, xx), of the largest "
+        f"entry: {', '.join(f'{r:.3e}' for r in rel)} (the bound allows "
+        f"{math.exp(2 * a) * (1 + 2.0 ** -8) - 1:.3e} of each moment's "
+        "terms)")
+    del got, want, exact
+    r16 = ec.stash_estep(ys, xs, scal, mask, tile_m, tile_n, round_g=True)
+    w16 = ec.stash_estep_plain(ys, xs, scal, mask, tile_m, tile_n, None,
+                               None, True)
+    torch.cuda.synchronize()
+    log("  bf16 stash, K3's pass B (stash_moment_bf16):")
+    err16 = max(compare("p1", r16[1], w16[1]), compare("px", r16[2], w16[2]))
+    del r16, w16
+    r12 = ec.stash_merged_estep(ys, xs, scal, mask, tile_m, tile_n, True)
+    w12 = ec.stash_merged_estep_plain(ys, xs, scal, mask, tile_m, tile_n,
+                                      True)
+    torch.cuda.synchronize()
+    log("  bf16 stash, K12's pass B (stash_merged_bf16):")
+    err12 = max(compare("p1", r12[1], w12[1]), compare("px", r12[2], w12[2]))
+    del r12, w12
+    plan = ec.StashPlan(ys, xs, scal, mask, tile_m, tile_n, gate=gate)
+    ms_a, ms_b = timed(plan.den_fast, 5), timed(plan.moment_fast, 5)
+    ms_gated = timed(plan.run, 5)
+    del plan
+    plan = ec.StashPlan(ys, xs, scal, mask, tile_m, tile_n)
+    ex_a, ex_b = timed(plan.den, 5), timed(plan.moment, 5)
+    del plan
+    plan = ec.StashPlan(ys, xs, scal, mask, tile_m, tile_n, round_g=True)
+    ms16 = timed(plan.moment, 5)
+    del plan
+    plan = ec.MergedStashPlan(ys, xs, scal, mask, tile_m, tile_n, True)
+    ms12 = timed(plan.run, 5)
+    del plan
+    pa, pb, _ = plain_pass_times(ys, xs, scal, mask, tile_m, tile_n,
+                                 fast=True)
+    _, pb16, _ = plain_pass_times(ys, xs, scal, mask, tile_m, tile_n,
+                                  round_g=True)
+    p12 = timed(lambda: ec.stash_merged_estep_plain(
+        ys, xs, scal, mask, tile_m, tile_n, True), 1)
+    cross = pairs * 2 * ys.shape[1]
+    ba = bound(12 * (m + n) + 8 * n, pairs * FLOPS_FAST_A, cross)
+    bb = bound(12 * (m + n) + 4 * n + 16 * m, pairs * FLOPS_FAST_B, cross)
+    b16 = bound(12 * (m + n) + 4 * n + 16 * m,
+                pairs * (FLOPS_GAUSS - 1 + FLOPS_MOMENTS + 1))
+    b12 = bound(12 * (m + n) + 8 * n + 16 * m,
+                pairs * (FLOPS_GAUSS + FLOPS_MOMENTS + 1))
+    log(f"  fast pass A {ms_a:.3f} ms  plain {pa:.3f} ms  bound {ba[0]:.3f} "
+        f"ms ({ba[1]})  [exact pass A {ex_a:.3f} ms]")
+    log(f"  fast pass B {ms_b:.3f} ms  plain {pb:.3f} ms (from pass A's g) "
+        f" bound {bb[0]:.3f} ms ({bb[1]})  [exact pass B {ex_b:.3f} ms]")
+    log(f"  one gated E-step (both branches' launches, the fast ones run) "
+        f"{ms_gated:.3f} ms; exact E-step {ex_a + ex_b:.3f} ms")
+    log(f"  bf16-stash pass B {ms16:.3f} ms  plain {pb16:.3f} ms  bound "
+        f"{b16[0]:.3f} ms ({b16[1]}); K12 E-step with it {ms12:.3f} ms  "
+        f"plain {p12:.3f} ms  bound {b12[0]:.3f} ms ({b12[1]})")
+    kernels["stash_den_fast"] = dict(max_abs_err=err_a, ms=ms_a, plain_ms=pa,
+                                     bound_ms=ba[0], bound_by=ba[1])
+    kernels["stash_moment_fast"] = dict(max_abs_err=err_b, ms=ms_b,
+                                        plain_ms=pb, bound_ms=bb[0],
+                                        bound_by=bb[1])
+    kernels["stash_moment_bf16"] = dict(max_abs_err=err16, ms=ms16,
+                                        plain_ms=pb16, bound_ms=b16[0],
+                                        bound_by=b16[1])
+    kernels["stash_merged_bf16"] = dict(max_abs_err=err12, ms=ms12,
+                                        plain_ms=p12, bound_ms=b12[0],
+                                        bound_by=b12[1])
+    del mask, scal, y2, x2
+
+    # K6: FilterReg's first E-step on the same pair.
+    sigma = FAST_SIGMA2 ** 0.5
+    w = torch.cat([torch.ones_like(xs[:, :1]), xs], dim=1)
+    ps, qs = xs / sigma, ys / sigma
+    cen = (ps.sum(0) + qs.sum(0)) / (ps.shape[0] + qs.shape[0])
+    ps, qs = ps - cen, qs - cen
+    prep = gc.prepare(ps, qs, w, 2.0 ** 0.5)
+    a6 = float(ec.fast_bound((qs * qs).sum(1), (ps * ps).sum(1), 0.5))
+    gate6 = ec.fast_gate((qs * qs).sum(1), (ps * ps).sum(1), 0.5)
+    mask6 = prep[4]
+    rows = torch.full((mask6.shape[1],), float(gc._ROWS), device=dev)
+    rows[-1] = qs.shape[0] - (rows.numel() - 1) * gc._ROWS
+    cols = torch.full((mask6.shape[0],), float(prep[5]), device=dev)
+    cols[-1] = ps.shape[0] - (cols.numel() - 1) * prep[5]
+    pairs6 = float(cols @ mask6.float() @ rows)
+    log(f"[fast start K6] FilterReg's first E-step, {qs.shape[0]:,} x "
+        f"{ps.shape[0]:,}, C = 4, sigma2 {FAST_SIGMA2}: the gate's bound "
+        f"{a6:.6f}, flag {int(gate6)}; active pairs {pairs6:.4g}")
+    if int(gate6) != 1:
+        raise AssertionError("K6's gate does not fire on FilterReg's first "
+                             "E-step")
+    got = gc.gt_core(*prep, gate=gate6)
+    want = gc.gauss_transform_culled_plain(*prep, gate6)
+    torch.cuda.synchronize()
+    err6 = compare("out", got, want)
+    exact = gc.gt_core(*prep)
+    log(f"  fast against exact kernel: "
+        f"{float((got - exact).abs().max() / exact.abs().max()):.3e} of the "
+        f"largest entry (the bound allows "
+        f"{math.exp(a6) * (1 + 2.0 ** -8) - 1:.3e} of sum_j g |w|)")
+    del got, want, exact
+    launch = gc.gt_launcher(*prep, gate=gate6)[0]
+    ms6, ms6_gated = timed(launch.fast, 5), timed(launch, 5)
+    ex6 = timed(gc.gt_launcher(*prep)[0], 5)
+    p6 = timed(lambda: gc.gauss_transform_culled_plain(*prep, gate6), 2)
+    nq, mp = qs.shape[0], ps.shape[0]
+    b6 = bound(4 * (3 * (nq + mp) + 4 * (mp + nq)), pairs6 * (6 + 2 * 4),
+               pairs6 * 2 * 3)
+    log(f"  fast kernel {ms6:.3f} ms  plain {p6:.3f} ms  bound {b6[0]:.3f} "
+        f"ms ({b6[1]})  [both launches {ms6_gated:.3f} ms; exact kernel "
+        f"{ex6:.3f} ms]")
+    kernels["gauss_transform_fast"] = dict(max_abs_err=err6, ms=ms6,
+                                           plain_ms=p6, bound_ms=b6[0],
+                                           bound_by=b6[1])
+
+
+def run_fast_start(dev, launches):
+    """The fast branch on the main paths: one gated K3 and one gated K6
+    call under torch.cuda.set_sync_debug_mode("error") (the flag is read on
+    the device only); the flat rigid registration_cpd on the 150k blobby
+    pair with estep_fast_start on and off (second calls timed; E-steps on
+    the fast branch from the device tally; the two rotations against each
+    other and the truth); registration_filterreg on the same pair (K6's
+    fast twin on its first E-steps); and FAST_STASH_ITERS iterations with
+    config.stash_dtype = bfloat16 through K3 and through K12."""
+    from probreg_tpu_torch import cpd, filterreg
+    from probreg_tpu_torch.config import config
+    from probreg_tpu_torch.ops import estep_cuda as ec
+    from probreg_tpu_torch.ops import gt_cuda as gc
+    from probreg_tpu_torch.utils import se3_op
+
+    ys, xs = fast_case(dev)
+    s2 = torch.tensor(FAST_SIGMA2, device=dev)
+    w = torch.cat([torch.ones_like(xs[:, :1]), xs], dim=1)
+    sigma = FAST_SIGMA2 ** 0.5
+
+    def gated_calls():
+        ec.estep_auto(ys, xs, s2, 0.0, assume_sorted=True)
+        gc.gauss_transform_culled(xs / sigma, ys / sigma, w, 2.0 ** 0.5,
+                                  sort=False)
+
+    gated_calls()
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gated_calls()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"[fast start] one gated K3 E-step and one gated K6 call under "
+        f"set_sync_debug_mode('error'): no sync; fast branch taken "
+        f"{ec.fast_steps()} and {gc.fast_steps()} time(s)")
+    if not ec.fast_steps() == gc.fast_steps() == 1:
+        raise AssertionError("the gated calls missed the fast branch")
+    del ys, xs, w
+
+    src, tgt, rot = fast_pair()
+    runs = {}
+    for on in (True, False):
+        config.estep_fast_start = on
+        try:
+            cpd.registration_cpd(src, tgt, "rigid", **FAST_CPD_ARGS)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            res = cpd.registration_cpd(src, tgt, "rigid", **FAST_CPD_ARGS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_fast = ec.fast_steps()
+            got = {k: v for k, v in all_launches().items() if v}
+        finally:
+            config.estep_fast_start = True
+        n_e = got.get("stash_den", 0)
+        err = float(se3_op.rotation_angle(
+            res.transformation.rot.cpu().double(),
+            torch.as_tensor(rot).double()))
+        log(f"[fast start] registration_cpd rigid, blobby_surface "
+            f"{N_FAST_CPD:,} turned {FAST_TURN} deg, {FAST_CPD_ARGS}, "
+            f"estep_fast_start {on}: {wall:.3f} s (second call), E-steps "
+            f"{n_e}, on the fast branch {n_fast}, final sigma2 "
+            f"{float(res.sigma2):.6g}, rotation error {err:.3e} rad; "
+            f"launches {got}")
+        want = (with_twins(stash_den=n_e, stash_moment=n_e) if on
+                else dict(stash_den=n_e, stash_moment=n_e))
+        if not (n_e > 0 and got == want and (n_fast >= 1 if on
+                                             else n_fast == 0)
+                and err <= ROT_ERR_MAX):
+            raise AssertionError(f"fast start {on}: launches {got}, "
+                                 f"{n_fast} fast E-steps, error {err}")
+        if on:
+            launches["stash_den_fast"] = got["stash_den_fast"]
+            launches["stash_moment_fast"] = got["stash_moment_fast"]
+        runs[on] = res.transformation.rot
+    d_rot = float((runs[True] - runs[False]).abs().max())
+    log(f"  fast start on against off: max |rot diff| {d_rot:.3e} (limit "
+        f"{FAST_ROT_AGREE:g})")
+    if not d_rot <= FAST_ROT_AGREE:
+        raise AssertionError("fast start on and off disagree")
+
+    frg = {}
+    for on in (True, False):
+        config.estep_fast_start = on
+        try:
+            filterreg.registration_filterreg(src, tgt, **FAST_FRG_ARGS)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            res = filterreg.registration_filterreg(src, tgt, **FAST_FRG_ARGS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: v for k, v in all_launches().items() if v}
+            n_fast = gc.fast_steps()
+        finally:
+            config.estep_fast_start = True
+        n_e = got.get("gauss_transform", 0)
+        err = float(se3_op.rotation_angle(
+            res.transformation.rot.cpu().double(),
+            torch.as_tensor(rot).double()))
+        log(f"[fast start] registration_filterreg on the same pair, "
+            f"{FAST_FRG_ARGS}, estep_fast_start {on}: {wall:.3f} s (second "
+            f"call), E-steps {n_e}, on the fast branch {n_fast}, rotation "
+            f"error {err:.3e} rad; launches {got}")
+        want = (with_twins(gauss_transform=n_e) if on
+                else dict(gauss_transform=n_e))
+        if not (n_e > 0 and got == want and (n_fast >= 1 if on
+                                             else n_fast == 0)):
+            raise AssertionError(f"FilterReg fast start {on}: launches "
+                                 f"{got}, {n_fast} fast E-steps")
+        if on:
+            launches["gauss_transform_fast"] = got["gauss_transform_fast"]
+        frg[on] = res.transformation.rot
+    d_rot = float((frg[True] - frg[False]).abs().max())
+    log(f"  FilterReg fast start on against off: max |rot diff| {d_rot:.3e} "
+        f"(limit {FAST_ROT_AGREE:g})")
+    if not d_rot <= FAST_ROT_AGREE:
+        raise AssertionError("FilterReg's fast start on and off disagree")
+
+    kw = dict(maxiter=FAST_STASH_ITERS, tol=0.0)
+    ref = cpd.registration_cpd(src, tgt, "rigid", **kw).transformation.rot
+    for merged, key in ((False, "stash_moment_bf16"),
+                        (True, "stash_merged_bf16")):
+        config.stash_dtype, config.use_merged_stash = torch.bfloat16, merged
+        try:
+            reset_launches()
+            res = cpd.registration_cpd(src, tgt, "rigid", **kw)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in all_launches().items() if v}
+        finally:
+            config.stash_dtype = torch.float32
+            config.use_merged_stash = False
+        d = float((res.transformation.rot - ref).abs().max())
+        log(f"[fast start] stash_dtype bfloat16, "
+            f"{'merged' if merged else 'K3'} route, {FAST_STASH_ITERS} "
+            f"iterations: launches {got}; max |rot diff| against the f32 "
+            f"stash {d:.3e}")
+        if got != {"stash_den": FAST_STASH_ITERS, key: FAST_STASH_ITERS} \
+                or ec.fast_steps() or not d <= FAST_ROT_AGREE:
+            raise AssertionError(f"bf16 stash, merged {merged}: {got}")
+        launches[key] = got[key]
 
 
 def run_two_pass_path(dev, launches):
@@ -1438,7 +1850,8 @@ def run_native_io(dev, launches):
                 ("read_batch", lambda: io.read_batch([data_path("horse.ply")])),
                 ("pyramid._voxel_count",
                  lambda: pyramid._voxel_count(tiny, 0.1)),
-                ("morton_order_np", lambda: spatial.morton_order_np(tiny))):
+                ("morton_order_np", lambda: spatial.morton_order_np(
+                    tiny.astype(np.float32)))):
             del calls[:]
             fn()
             if not calls:
@@ -1904,7 +2317,8 @@ def run_filterreg_large(dev, launches):
     finally:
         ec._active_mask, gc.gauss_transform_culled_plain = active_mask, plain
     n_gt = all_launches()["gauss_transform"]
-    expect_launches("150k FilterReg", gauss_transform=len(masks))
+    expect_launches("150k FilterReg",
+                    **with_twins(gauss_transform=len(masks)))
     launches["gauss_transform"] = n_gt
     peak = torch.cuda.max_memory_allocated()
     err = float(se3_op.rotation_angle(res.transformation.rot.cpu().double(),
@@ -2634,7 +3048,8 @@ def level_em_batch_check(name, x, counts, state, parent):
     that differ only in the order of the points do, logged below). So:
     whole launches at 1 and 3 iterations and each of GMM_BUILD_ITERS
     one-iteration launches from the plain version's state along its own
-    trajectory are held pair by pair as in level_em_check; in the whole
+    trajectory (the first GMM_STEP_CHECKS) are held pair by pair as in
+    level_em_check; in the whole
     launch at GMM_BUILD_ITERS a pair's field is within 1e-4 of its largest
     entry or within 3x the largest per-pair difference between those two
     plain versions. Returns the max abs error of the pair-by-pair checks."""
@@ -2643,11 +3058,11 @@ def level_em_batch_check(name, x, counts, state, parent):
     worst = max(level_em_check(name, x, counts, state, parent, m)[0]
                 for m in (1, 3))
     st, step_worst = state, 0.0
-    for _ in range(GMM_BUILD_ITERS):
+    for _ in range(GMM_STEP_CHECKS):
         err, st = level_em_check(f"{name}, stepwise", x, counts, st, parent,
                                  1, quiet=True)
         step_worst = max(step_worst, err)
-    log(f"  {name}, {x.shape[0]} pair(s), each of {GMM_BUILD_ITERS} single "
+    log(f"  {name}, {x.shape[0]} pair(s), each of {GMM_STEP_CHECKS} single "
         f"iterations from the plain version's state: max {step_worst:.2e}, "
         "every pair within the pair-by-pair criterion")
     kw = dict(lambda_s=0.0, lambda_d=1e-4, maxiter=GMM_BUILD_ITERS)
@@ -3095,11 +3510,12 @@ def traced_cpd_pyramid(src, tgt, kind):
         return mask
 
     def timed_core(core):
-        def run(ys, *a):
+        def run(ys, *a):  # a[5:]: the gate and stash options
             if (ys.shape[0] == info["points"][-1]
                     and "finest_inputs" not in info):
                 info["finest_inputs"] = tuple(
-                    v.clone() if torch.is_tensor(v) else v for v in (ys, *a))
+                    v.clone() if torch.is_tensor(v) else v
+                    for v in (ys, *a[:5]))
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
             t1 = time.perf_counter()
@@ -3404,7 +3820,8 @@ def run_family_pyramids(dev, launches):
         m, n = sizes[0]
         k5 = (m * n <= config.fused_em_max_pairs
               and frg_cuda.fused_dims_ok(m, n))
-        return dict(frg_pt2pt=int(k5), gauss_transform=len(masks))
+        return dict(frg_pt2pt=int(k5),
+                    **with_twins(gauss_transform=len(masks)))
 
     def gmm_want(sizes):
         return dict(gmmtree_level_em=2 * len(sizes),
@@ -3482,8 +3899,9 @@ def run_family_pyramids(dev, launches):
     if not (got.get("wstash_den", 0) > 0
             and got.get("wstash_moment") == got["wstash_den"]
             and got.get("gauss_transform", 0) > 0
+            and got.get("gauss_transform_fast") == got["gauss_transform"]
             and set(got) == {"wstash_den", "wstash_moment",
-                             "gauss_transform"}):
+                             "gauss_transform", "gauss_transform_fast"}):
         raise AssertionError(f"BCPD pyramid launches {got}")
 
 
@@ -3958,8 +4376,8 @@ def run_callbacks(dev, launches):
             ("GMMTree bunny", gmmtree.registration_gmmtree, src, tgt,
              CB_ITERS, dict(gmmtree_level_em=2), {}),
             ("CPD 150k", cpd.registration_cpd, big_src, big_tgt,
-             CB_LARGE_ITERS, dict(stash_den=CB_LARGE_ITERS,
-                                  stash_moment=CB_LARGE_ITERS), {})):
+             CB_LARGE_ITERS, with_twins(stash_den=CB_LARGE_ITERS,
+                                        stash_moment=CB_LARGE_ITERS), {})):
         seen, per_it = {}, {}
         for chunk in (1, CB_CHUNK):
             rec = []
@@ -4335,7 +4753,7 @@ def run_nonrigid(dev, launches):
         f"index {float((mv - tgt_d).abs().mean()):.6f} (the deformation "
         f"{float(np.abs(defo).mean()):.6f}); NN-RMSE to the target "
         f"{nn1:.6f} (the source's {nn0:.6f})")
-    if k6 < 1 or got != {"gauss_transform": k6}:
+    if k6 < 1 or got != with_twins(gauss_transform=k6):
         raise AssertionError(f"nonrigid pyramid launches {got}, expected "
                              f"{k6} gauss_transform")
     # K6 on the carry it made, against its plain version; then the whole
@@ -6634,7 +7052,7 @@ def run_deformable(dev, launches):
     peak = torch.cuda.max_memory_allocated() / 2**20
     n_em = sum(1 for s in spans if s[0] == "estep")
     n_gt = all_launches()["gauss_transform"]
-    expect_launches("deformable 20k", gauss_transform=n_em)
+    expect_launches("deformable 20k", **with_twins(gauss_transform=n_em))
     launches["gauss_transform"] = launches.get("gauss_transform", 0) + n_gt
     ms = {k: float(np.median([a.elapsed_time(b) for name, a, b in spans
                               if name == k])) for k in ("estep", "mstep")}
@@ -6796,6 +7214,8 @@ def main() -> int:
                         (check_stash_raw, (dev, kernels, shared)),
                         (check_em, (dev, kernels)),
                         (run_large_registration, (dev, launches)),
+                        (check_fast_start, (dev, kernels)),
+                        (run_fast_start, (dev, launches)),
                         (run_two_pass_path, (dev, launches)),
                         (run_small_estep_path, (dev, launches)),
                         (run_bunny, (dev, launches)),

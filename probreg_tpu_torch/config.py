@@ -22,6 +22,11 @@ class Config:
     device: str = "cuda"
     # dtype used for point clouds and EM state.
     dtype: torch.dtype = torch.float32
+    # dtype of the operands of the plain cross-term and moment products
+    # (ops/estep.estep_xla, ops/pairwise.sqdist). torch.bfloat16 rounds the
+    # operands to bf16; the product itself stays f32, as the reference's
+    # preferred_element_type=f32 keeps it.
+    matmul_dtype: torch.dtype = torch.float32
     # Target-block size of the streaming plain E-step (ops/estep.estep_xla).
     estep_chunk: int = 4096
     # Largest M*N routed to the one-launch E-step kernel (estep_small).
@@ -53,6 +58,26 @@ class Config:
     # and px differ from the default route only by rounding (the folded
     # normalizer); pt1 and xx are the same bit for bit.
     use_merged_stash: bool = False
+    # What the reference's stash holds between its passes. No E-step of
+    # this package keeps a stash: with torch.bfloat16 each pass B rounds
+    # every Gaussian to bf16 before its moment FMAs, as reading the
+    # reference's bf16 stash would; the normalizer, pt1 and xx stay f32,
+    # the tiles are those of a 2-byte stash, and the fast start (below)
+    # is off. The mesh E-steps keep f32, as in the reference.
+    stash_dtype: torch.dtype = torch.float32
+    # Start-temperature fast branch of the large E-steps (estep_auto and
+    # the tile-culled Gauss transform): where the bf16 rounding of the
+    # cross term cannot move any exp argument by more than
+    # estep_fast_start_tol, by the reference's bound (1/2s2) * 8 * 2^-9 *
+    # sqrt(max|y|^2 max|x|^2) (1/h^2 for the Gauss transform), the cross
+    # term y.x runs on the tensor cores with bf16 operands and an f32 sum,
+    # and the CPD E-step's pass B reads each Gaussian rounded to bf16 (the
+    # reference's bf16 stash). The bound is decided on the device, per
+    # call, with no host read. On by default, as in the reference; the
+    # mesh E-steps never take it (their reference never reaches it).
+    estep_fast_start: bool = True
+    # Largest exp-argument error admitted on the fast branch.
+    estep_fast_start_tol: float = 0.02
     # Cap on the (M_padded, tile_n) f32 stash of the reference's CPD
     # E-step. No E-step of this package keeps a stash; the cap picks the
     # tiles and the branches where the reference's does. None derives it

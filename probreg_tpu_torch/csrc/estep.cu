@@ -19,7 +19,12 @@
 // adds them up in a fixed order. So the results are deterministic from run
 // to run.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "bf16_mma.cuh"
 
 namespace {
 
@@ -562,10 +567,12 @@ den_pass_kernel(const float4* __restrict__ ys, int m, int tile_m, int n_i,
                 const int* __restrict__ act_idx,   // (n_j, n_i)
                 const int* __restrict__ act_cnt,   // (n_j)
                 const float* __restrict__ scal,
+                const int* __restrict__ skip,      // null, or the fast flag
                 float* __restrict__ inv_den,       // (n)
                 float* __restrict__ pt1,           // (n)
                 float* __restrict__ xx_part,       // (gridDim.y, gridDim.x)
                 float* __restrict__ den_raw) {     // kRaw: (n)
+  if (skip != nullptr && *skip != 0) return;  // the fast branch runs
   __shared__ float4 ysh[kDenThreads];
   __shared__ float warps[kDenThreads / 32];
   const int stripe = blockIdx.y, cx = blockIdx.x;
@@ -656,21 +663,31 @@ __host__ __device__ constexpr int moment_block_rows() {
                    : kRowThreads * kRowsPerThread;
 }
 
+// g rounded to bf16 (to nearest even) and back: what a pass reads from the
+// reference's bf16 stash.
+__device__ __forceinline__ float round_bf16(float g) {
+  return __bfloat162float(__float2bfloat16_rn(g));
+}
+
 // Pass B: grid (row blocks, n_i source tiles), kRowThreads threads. The
 // block of rows [rb, rb + moment_block_rows) of tile i walks the tile's
 // active target stripes (act_idx[i][0..cnt), ascending) and writes p1 and
 // px of its rows (zeros where no stripe is active). kFold (K12): every
 // stripe but the last (n_j - 1) folds the normalizer into the channels
-// (add_folded); the last keeps p = g * inv_den (add_moments).
-template <bool kTileSums, bool kFold = false>
+// (add_folded); the last keeps p = g * inv_den (add_moments). kRound
+// (config.stash_dtype = bfloat16): each g is rounded to bf16 before its
+// moments, as the reference's bf16 stash holds it.
+template <bool kTileSums, bool kFold = false, bool kRound = false>
 __global__ void __launch_bounds__(kRowThreads)
 moment_pass_kernel(const float4* __restrict__ ys, int m, int tile_m,
                    const float4* __restrict__ xs, int n, int tile_n, int n_j,
                    const int* __restrict__ act_idx,   // (n_i, n_j)
                    const int* __restrict__ act_cnt,   // (n_i)
                    const float* __restrict__ scal,
+                   const int* __restrict__ skip,      // null, or the fast flag
                    const float* __restrict__ inv_den, // (n)
                    float4* __restrict__ p1px) {  // (m): px in xyz, p1 in w
+  if (skip != nullptr && *skip != 0) return;  // the fast branch runs
   // K3: every lane of a warp holds the warp's rows and the lanes stride
   // the columns; K4: a thread holds its own rows and walks every column.
   constexpr int kRows = kTileSums ? kRowsPerWarp : kRowsPerThread;
@@ -719,16 +736,20 @@ moment_pass_kernel(const float4* __restrict__ ys, int m, int tile_m,
         for (int c = first; c < nc; c += kStride) {
           const float4 x = xw[c], f = fw[c];
 #pragma unroll
-          for (int q = 0; q < kRows; ++q)
-            add_folded(gauss(y[q], x, inv2s2), f, a[q]);
+          for (int q = 0; q < kRows; ++q) {
+            const float g = gauss(y[q], x, inv2s2);
+            add_folded(kRound ? round_bf16(g) : g, f, a[q]);
+          }
         }
       } else {
         for (int c = first; c < nc; c += kStride) {
           const float4 x = xw[c];
           const float inv = iw[c];
 #pragma unroll
-          for (int q = 0; q < kRows; ++q)
-            add_moments(__fmul_rn(gauss(y[q], x, inv2s2), inv), x, a[q]);
+          for (int q = 0; q < kRows; ++q) {
+            const float g = gauss(y[q], x, inv2s2);
+            add_moments(__fmul_rn(kRound ? round_bf16(g) : g, inv), x, a[q]);
+          }
         }
       }
     }
@@ -806,34 +827,313 @@ stash_finish_kernel(const float4* __restrict__ xs, int n, int tile_n,
 // and adds a row's stripes in stripe order, as the stash read did.
 // ---------------------------------------------------------------------------
 
+// ---------------------------------------------------------------------------
+// K3's fast branch (config.estep_fast_start): two launches, no stash.
+//
+// Replaces the DEFAULT-precision instantiation of
+// probreg_tpu/ops/estep_pallas.py:_stash_den_kernel (pass A) and
+// :_stash_moment_kernel (pass B) that the reference's estep_auto runs, with
+// a bf16 stash, where its start-temperature bound allows (estep_cuda.
+// fast_gate): there the cross term y.x is one bf16 pass of the TPU's matrix
+// unit. Here it is one mma.sync.m16n8k8 (bf16 operands, f32 accumulator) per
+// 16 sources x 8 targets: the coordinates are rounded to bf16 to nearest
+// and zero-padded from D <= 3 to k = 8. Everything else is K3's: |y|^2 and
+// |x|^2 in f32 from the unrounded points (the packed w), d2 = max(|y|^2 +
+// |x|^2 - 2 y.x, 0) and expf with every rounding spelled out, the same
+// culled tiles, pass A's column sums per active tile added in tile order,
+// the finalisation of den_finish_col, and pass B's sums per stripe added in
+// stripe order with p = g * inv_den; pass B rounds each g to bf16 before
+// its moments (the reference's bf16 stash) and den stays f32 (summed before
+// the rounding, as the reference sums it before its cast).
+//
+// Same g in both passes: both put the sources in the A operand (rows) and
+// the targets in B (columns), in 16-row groups from a source tile's start
+// and 8-column groups from a stripe's start, so each pair takes the same
+// fragment slot of the same instruction in either pass, and both call
+// fast_gauss on it.
+//
+// The tile helpers (pack_bf16, mma_bf16, fast_gauss) are bf16_mma.cuh's.
+//
+// Bound: the FP32 pipe, as K3's passes: the tensor cores take the cross
+// term (~3 of K3's ~17 instructions per pair), and the rest of the
+// Gaussian, the sums and the moments stay on the FP32 pipe and the MUFU.
+// The launch takes a device flag and returns at once where it is 0 (K3's
+// exact kernels, launched beside it, return where it is 1).
+// ---------------------------------------------------------------------------
+
+// A point's bf16 coordinates for k slots 0-1 (x, y) and 2-3 (z, 0); slots
+// 4-7 are zero.
+__device__ __forceinline__ uint2 bf16_coords(float4 p) {
+  return make_uint2(pack_bf16(p.x, p.y), pack_bf16(p.z, 0.0f));
+}
+
+// The operand register of lane tig: k slots 2 tig and 2 tig + 1.
+__device__ __forceinline__ uint32_t frag_k(uint2 v, int tig) {
+  return tig == 0 ? v.x : (tig == 1 ? v.y : 0u);
+}
+
+__device__ __forceinline__ float quad_sum(float v) {  // over the 4 tig lanes
+  v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float4 quad_sum4(float4 v) {
+  return make_float4(quad_sum(v.x), quad_sum(v.y), quad_sum(v.z),
+                     quad_sum(v.w));
+}
+
+constexpr int kFastWarpCols = kDenThreads / (kPairThreads / 32);  // 64
+constexpr int kFastColTiles = kFastWarpCols / 8;                   // 8
+
+// Pass A: K3's grid (column chunks of 256, n_j stripes), kPairThreads
+// threads; warp w holds columns [64 w, 64 w + 64) of the chunk as 8 column
+// tiles and walks the stripe's active source tiles 256 rows at a time, 16
+// at a time through the tensor cores. A lane sums its two rows of each
+// group for its two columns of each column tile; at a tile's end the 8
+// lanes of a column add their sums (a butterfly: the same bits in each)
+// and the tile's sum goes into the column's den.
+// kDump (tests only): every g the pass forms also goes to g_dump (m, n).
+template <bool kDump>
+__global__ void __launch_bounds__(kPairThreads)
+den_fast_kernel(const float4* __restrict__ ys, int m, int tile_m, int n_i,
+                const float4* __restrict__ xs, int n, int tile_n,
+                const int* __restrict__ act_idx,   // (n_j, n_i)
+                const int* __restrict__ act_cnt,   // (n_j)
+                const float* __restrict__ scal,
+                const int* __restrict__ run,       // the fast flag
+                float* __restrict__ inv_den,       // (n)
+                float* __restrict__ pt1,           // (n)
+                float* __restrict__ xx_part,       // (gridDim.y, gridDim.x)
+                float* __restrict__ g_dump) {
+  if (*run == 0) return;  // the exact branch runs
+  __shared__ uint2 yb[kDenThreads];   // staged rows' bf16 coordinates
+  __shared__ float y2s[kDenThreads];  // and their |y|^2
+  __shared__ float warps[kPairThreads / 32];
+  const int stripe = blockIdx.y, cx = blockIdx.x;
+  const int c0 = stripe * tile_n;
+  const int ncols = min(tile_n, n - c0);
+  const size_t xx_at = (size_t)stripe * gridDim.x + cx;
+  if (cx * kDenThreads >= ncols) {  // a chunk past a ragged stripe's end
+    if (threadIdx.x == 0) xx_part[xx_at] = 0.0f;
+    return;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wc = cx * kDenThreads + warp * kFastWarpCols;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  uint32_t bf[kFastColTiles];
+  float x2c[kFastColTiles][2], den[kFastColTiles][2];
+#pragma unroll
+  for (int q = 0; q < kFastColTiles; ++q) {
+    const int cb = wc + 8 * q + gid;
+    bf[q] = frag_k(bf16_coords(cb < ncols ? xs[c0 + cb] : zero), tig);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int cc = wc + 8 * q + 2 * tig + e;
+      x2c[q][e] = cc < ncols ? xs[c0 + cc].w : 0.0f;
+      den[q][e] = 0.0f;
+    }
+  }
+  const float inv2s2 = scal[0];
+  const int cnt = act_cnt[stripe];
+  const int* idx = act_idx + (size_t)stripe * n_i;
+  for (int t = 0; t < cnt; ++t) {
+    const int r0 = idx[t] * tile_m;
+    const int r1 = min(r0 + tile_m, m);
+    float s[kFastColTiles][2] = {};  // this tile's sums
+    for (int rc = r0; rc < r1; rc += kDenThreads) {
+      const int nr = min(kDenThreads, r1 - rc);
+      __syncthreads();
+      for (int r = threadIdx.x; r < kDenThreads; r += kPairThreads) {
+        const float4 y = r < nr ? ys[rc + r] : zero;
+        yb[r] = bf16_coords(y);
+        y2s[r] = y.w;
+      }
+      __syncthreads();
+      for (int g0 = 0; g0 < nr; g0 += 16) {
+        const int ra = g0 + gid, rb = ra + 8;
+        const uint32_t a0 = frag_k(yb[ra], tig), a1 = frag_k(yb[rb], tig);
+        const float y2a = y2s[ra], y2b = y2s[rb];
+        const bool va = ra < nr, vb = rb < nr;
+#pragma unroll
+        for (int q = 0; q < kFastColTiles; ++q) {
+          float d[4];
+          mma_bf16(d, a0, a1, bf[q]);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float ga = fast_gauss(d[e], y2a, x2c[q][e], inv2s2);
+            const float gb = fast_gauss(d[2 + e], y2b, x2c[q][e], inv2s2);
+            // Selects, not branches: a branch around each pair keeps the
+            // compiler from interleaving the pairs' exp chains. Adding +0
+            // to a sum that starts at +0 changes no bit.
+            s[q][e] = __fadd_rn(__fadd_rn(s[q][e], va ? ga : 0.0f),
+                                vb ? gb : 0.0f);
+            const int cc = wc + 8 * q + 2 * tig + e;
+            if (kDump && cc < ncols) {
+              if (va) g_dump[(size_t)(rc + ra) * n + c0 + cc] = ga;
+              if (vb) g_dump[(size_t)(rc + rb) * n + c0 + cc] = gb;
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kFastColTiles; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = s[q][e];
+        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 4));
+        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 8));
+        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 16));
+        den[q][e] = __fadd_rn(den[q][e], v);
+      }
+  }
+  // The lanes of gid 0 finalize their columns; the chunk's xx is the sum of
+  // each such lane's shares (column tiles in order), over the warp, then
+  // over the warps in order.
+  float xxv = 0.0f;
+  if (gid == 0) {
+#pragma unroll
+    for (int q = 0; q < kFastColTiles; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cc = wc + 8 * q + 2 * tig + e;
+        if (cc < ncols)
+          xxv = __fadd_rn(xxv, den_finish_col(
+                                   den[q][e],
+                                   make_float4(0.f, 0.f, 0.f, x2c[q][e]),
+                                   scal[1], c0 + cc, inv_den, pt1));
+      }
+  }
+  const float v = warp_sum(xxv);
+  if (lane == 0) warps[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float xx = 0.0f;
+    for (int w = 0; w < kPairThreads / 32; ++w) xx += warps[w];
+    xx_part[xx_at] = xx;
+  }
+}
+
+constexpr int kFastBlockRows = kRowThreads / 32 * 16;  // 128
+
+// Pass B: grid (row blocks of 128, n_i source tiles), kRowThreads threads;
+// warp w holds rows [16 w, 16 w + 16) of the block (a lane rows gid and
+// gid + 8) and walks the tile's active stripes, 256 columns staged at a
+// time, 8 at a time through the tensor cores. A lane adds p = bf16(g) *
+// inv_den and p x of its two columns of each column tile into its rows'
+// stripe sums; at a stripe's end the 4 lanes of a row add their sums (a
+// butterfly) and the stripe's sum goes into the row's total.
+// kDump (tests only): every g the pass forms, before its rounding, also
+// goes to g_dump (m, n).
+template <bool kDump>
+__global__ void __launch_bounds__(kRowThreads)
+moment_fast_kernel(const float4* __restrict__ ys, int m, int tile_m,
+                   const float4* __restrict__ xs, int n, int tile_n, int n_j,
+                   const int* __restrict__ act_idx,   // (n_i, n_j)
+                   const int* __restrict__ act_cnt,   // (n_i)
+                   const float* __restrict__ scal,
+                   const int* __restrict__ run,       // the fast flag
+                   const float* __restrict__ inv_den, // (n)
+                   float4* __restrict__ p1px,    // (m): px in xyz, p1 in w
+                   float* __restrict__ g_dump) {
+  if (*run == 0) return;  // the exact branch runs
+  __shared__ uint2 xb[kColStage];    // staged columns' bf16 coordinates
+  __shared__ float4 xw[kColStage];   // x, y, z, |x|^2
+  __shared__ float iw[kColStage];    // inv_den
+  static_assert(kColStage == kRowThreads, "one column a thread");
+  const int tile = blockIdx.y;
+  const int t1 = min((tile + 1) * tile_m, m);
+  const int rb = tile * tile_m + blockIdx.x * kFastBlockRows;
+  if (rb >= t1) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int ra = rb + warp * 16 + gid, rb8 = ra + 8;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // Rows past the tile: any valid point, never written.
+  const float4 ya = ys[min(ra, t1 - 1)], yb = ys[min(rb8, t1 - 1)];
+  const uint32_t a0 = frag_k(bf16_coords(ya), tig);
+  const uint32_t a1 = frag_k(bf16_coords(yb), tig);
+  float4 acc[2] = {zero, zero}, tot[2] = {zero, zero};
+  const float inv2s2 = scal[0];
+  const int cnt = act_cnt[tile];
+  const int* idx = act_idx + (size_t)tile * n_j;
+  for (int k = 0; k < cnt; ++k) {
+    const int c0 = idx[k] * tile_n;
+    const int c1 = min(c0 + tile_n, n);
+    for (int cc = c0; cc < c1; cc += kColStage) {
+      const int nc = min(kColStage, c1 - cc);
+      __syncthreads();
+      {
+        const bool ok = (int)threadIdx.x < nc;
+        const float4 x = ok ? xs[cc + threadIdx.x] : zero;
+        xb[threadIdx.x] = bf16_coords(x);
+        xw[threadIdx.x] = x;
+        iw[threadIdx.x] = ok ? inv_den[cc + threadIdx.x] : 0.0f;
+      }
+      __syncthreads();
+      for (int c8 = 0; c8 < nc; c8 += 8) {
+        float d[4];
+        mma_bf16(d, a0, a1, frag_k(xb[c8 + gid], tig));
+        // Columns past nc were staged as x = 0 and inv_den = 0: their p is
+        // exactly 0 and adds nothing (no branch, see pass A).
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = c8 + 2 * tig + e;
+          const float4 x = xw[c];
+          const float inv = iw[c];
+          const float ga = fast_gauss(d[e], ya.w, x.w, inv2s2);
+          const float gb = fast_gauss(d[2 + e], yb.w, x.w, inv2s2);
+          add_moments(__fmul_rn(round_bf16(ga), inv), x, acc[0]);
+          add_moments(__fmul_rn(round_bf16(gb), inv), x, acc[1]);
+          if (kDump && c < nc) {
+            if (ra < t1) g_dump[(size_t)ra * n + cc + c] = ga;
+            if (rb8 < t1) g_dump[(size_t)rb8 * n + cc + c] = gb;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      add4(tot[r], quad_sum4(acc[r]));
+      acc[r] = zero;
+    }
+  }
+  if (tig == 0) {
+    if (ra < t1) p1px[ra] = tot[0];
+    if (rb8 < t1) p1px[rb8] = tot[1];
+  }
+}
+
 template <bool kTileSums, bool kRaw = false>
 int launch_den_pass(const void* ys, int m, int tile_m, int n_i,
                     const void* xs, int n, int tile_n, int n_j,
                     const void* act_idx, const void* act_cnt,
-                    const void* scal, void* inv_den, void* pt1,
-                    void* xx_part, void* den_raw, void* stream) {
+                    const void* scal, const void* skip, void* inv_den,
+                    void* pt1, void* xx_part, void* den_raw, void* stream) {
   const dim3 grid((tile_n + kDenThreads - 1) / kDenThreads, n_j);
   den_pass_kernel<kTileSums, kRaw><<<grid, kPairThreads, 0,
                                      (cudaStream_t)stream>>>(
       (const float4*)ys, m, tile_m, n_i, (const float4*)xs, n, tile_n,
       (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
-      (float*)inv_den, (float*)pt1, (float*)xx_part, (float*)den_raw);
+      (const int*)skip, (float*)inv_den, (float*)pt1, (float*)xx_part,
+      (float*)den_raw);
   return (int)cudaGetLastError();
 }
 
-template <bool kTileSums, bool kFold = false>
+template <bool kTileSums, bool kFold = false, bool kRound = false>
 int launch_moment_pass(const void* ys, int m, int tile_m, int n_i,
                        const void* xs, int n, int tile_n, int n_j,
                        const void* act_idx, const void* act_cnt,
-                       const void* scal, const void* inv_den, void* p1px,
-                       void* stream) {
+                       const void* scal, const void* skip,
+                       const void* inv_den, void* p1px, void* stream) {
   constexpr int rows = moment_block_rows<kTileSums>();
   const dim3 grid((tile_m + rows - 1) / rows, n_i);
-  moment_pass_kernel<kTileSums, kFold><<<grid, kRowThreads, 0,
-                                         (cudaStream_t)stream>>>(
+  moment_pass_kernel<kTileSums, kFold, kRound><<<grid, kRowThreads, 0,
+                                                 (cudaStream_t)stream>>>(
       (const float4*)ys, m, tile_m, (const float4*)xs, n, tile_n, n_j,
       (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
-      (const float*)inv_den, (float4*)p1px);
+      (const int*)skip, (const float*)inv_den, (float4*)p1px);
   return (int)cudaGetLastError();
 }
 
@@ -923,8 +1223,8 @@ int probreg_stash_den(const void* ys, int m, int tile_m, int n_i,
                       const void* scal, void* inv_den, void* pt1,
                       void* xx_part, void* stream) {
   return launch_den_pass<true>(ys, m, tile_m, n_i, xs, n, tile_n, n_j,
-                               act_idx, act_cnt, scal, inv_den, pt1, xx_part,
-                               nullptr, stream);
+                               act_idx, act_cnt, scal, nullptr, inv_den, pt1,
+                               xx_part, nullptr, stream);
 }
 
 int probreg_stash_rows(const void* ys, int m, int tile_m, int n_i,
@@ -933,8 +1233,8 @@ int probreg_stash_rows(const void* ys, int m, int tile_m, int n_i,
                        const void* scal, const void* inv_den, void* p1px,
                        void* stream) {
   return launch_moment_pass<true>(ys, m, tile_m, n_i, xs, n, tile_n, n_j,
-                                  act_idx, act_cnt, scal, inv_den, p1px,
-                                  stream);
+                                  act_idx, act_cnt, scal, nullptr, inv_den,
+                                  p1px, stream);
 }
 
 int probreg_stash_den_raw(const void* ys, int m, int tile_m, int n_i,
@@ -943,7 +1243,8 @@ int probreg_stash_den_raw(const void* ys, int m, int tile_m, int n_i,
                           const void* scal, void* den_raw, void* stream) {
   return launch_den_pass<true, true>(ys, m, tile_m, n_i, xs, n, tile_n, n_j,
                                      act_idx, act_cnt, scal, nullptr,
-                                     nullptr, nullptr, den_raw, stream);
+                                     nullptr, nullptr, nullptr, den_raw,
+                                     stream);
 }
 
 int probreg_stash_finish(const void* xs, int n, int tile_n, int n_j,
@@ -962,8 +1263,8 @@ int probreg_stash_merged(const void* ys, int m, int tile_m, int n_i,
                          const void* scal, const void* inv_den, void* p1px,
                          void* stream) {
   return launch_moment_pass<true, true>(ys, m, tile_m, n_i, xs, n, tile_n,
-                                        n_j, act_idx, act_cnt, scal, inv_den,
-                                        p1px, stream);
+                                        n_j, act_idx, act_cnt, scal, nullptr,
+                                        inv_den, p1px, stream);
 }
 
 int probreg_fused_den(const void* ys, int m, int tile_m, int n_i,
@@ -972,8 +1273,8 @@ int probreg_fused_den(const void* ys, int m, int tile_m, int n_i,
                       const void* scal, void* inv_den, void* pt1,
                       void* xx_part, void* stream) {
   return launch_den_pass<false>(ys, m, tile_m, n_i, xs, n, tile_n, n_j,
-                                act_idx, act_cnt, scal, inv_den, pt1, xx_part,
-                                nullptr, stream);
+                                act_idx, act_cnt, scal, nullptr, inv_den, pt1,
+                                xx_part, nullptr, stream);
 }
 
 int probreg_fused_moment(const void* ys, int m, int tile_m, int n_i,
@@ -982,8 +1283,101 @@ int probreg_fused_moment(const void* ys, int m, int tile_m, int n_i,
                          const void* scal, const void* inv_den, void* p1px,
                          void* stream) {
   return launch_moment_pass<false>(ys, m, tile_m, n_i, xs, n, tile_n, n_j,
-                                   act_idx, act_cnt, scal, inv_den, p1px,
-                                   stream);
+                                   act_idx, act_cnt, scal, nullptr, inv_den,
+                                   p1px, stream);
+}
+
+// K3's exact passes for the gated route: they return at once where *gate
+// is 1 (the fast passes below run).
+int probreg_stash_den_gated(const void* ys, int m, int tile_m, int n_i,
+                            const void* xs, int n, int tile_n, int n_j,
+                            const void* act_idx, const void* act_cnt,
+                            const void* scal, const void* gate,
+                            void* inv_den, void* pt1, void* xx_part,
+                            void* stream) {
+  return launch_den_pass<true>(ys, m, tile_m, n_i, xs, n, tile_n, n_j,
+                               act_idx, act_cnt, scal, gate, inv_den, pt1,
+                               xx_part, nullptr, stream);
+}
+
+int probreg_stash_rows_gated(const void* ys, int m, int tile_m, int n_i,
+                             const void* xs, int n, int tile_n, int n_j,
+                             const void* act_idx, const void* act_cnt,
+                             const void* scal, const void* gate,
+                             const void* inv_den, void* p1px, void* stream) {
+  return launch_moment_pass<true>(ys, m, tile_m, n_i, xs, n, tile_n, n_j,
+                                  act_idx, act_cnt, scal, gate, inv_den,
+                                  p1px, stream);
+}
+
+// K3's fast passes: they run only where *gate is 1. g_dump: null, or an
+// (m, n) buffer that takes every g the pass forms (tests only).
+int probreg_stash_den_fast(const void* ys, int m, int tile_m, int n_i,
+                           const void* xs, int n, int tile_n, int n_j,
+                           const void* act_idx, const void* act_cnt,
+                           const void* scal, const void* gate, void* inv_den,
+                           void* pt1, void* xx_part, void* g_dump,
+                           void* stream) {
+  if (gate == nullptr) return (int)cudaErrorInvalidValue;
+  const dim3 grid((tile_n + kDenThreads - 1) / kDenThreads, n_j);
+  const auto s = (cudaStream_t)stream;
+  if (g_dump == nullptr)
+    den_fast_kernel<false><<<grid, kPairThreads, 0, s>>>(
+        (const float4*)ys, m, tile_m, n_i, (const float4*)xs, n, tile_n,
+        (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
+        (const int*)gate, (float*)inv_den, (float*)pt1, (float*)xx_part,
+        nullptr);
+  else
+    den_fast_kernel<true><<<grid, kPairThreads, 0, s>>>(
+        (const float4*)ys, m, tile_m, n_i, (const float4*)xs, n, tile_n,
+        (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
+        (const int*)gate, (float*)inv_den, (float*)pt1, (float*)xx_part,
+        (float*)g_dump);
+  return (int)cudaGetLastError();
+}
+
+int probreg_stash_rows_fast(const void* ys, int m, int tile_m, int n_i,
+                            const void* xs, int n, int tile_n, int n_j,
+                            const void* act_idx, const void* act_cnt,
+                            const void* scal, const void* gate,
+                            const void* inv_den, void* p1px, void* g_dump,
+                            void* stream) {
+  if (gate == nullptr) return (int)cudaErrorInvalidValue;
+  const dim3 grid((tile_m + kFastBlockRows - 1) / kFastBlockRows, n_i);
+  const auto s = (cudaStream_t)stream;
+  if (g_dump == nullptr)
+    moment_fast_kernel<false><<<grid, kRowThreads, 0, s>>>(
+        (const float4*)ys, m, tile_m, (const float4*)xs, n, tile_n, n_j,
+        (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
+        (const int*)gate, (const float*)inv_den, (float4*)p1px, nullptr);
+  else
+    moment_fast_kernel<true><<<grid, kRowThreads, 0, s>>>(
+        (const float4*)ys, m, tile_m, (const float4*)xs, n, tile_n, n_j,
+        (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
+        (const int*)gate, (const float*)inv_den, (float4*)p1px,
+        (float*)g_dump);
+  return (int)cudaGetLastError();
+}
+
+// K3's and K12's pass B with each g rounded to bf16 (config.stash_dtype).
+int probreg_stash_rows_bf16(const void* ys, int m, int tile_m, int n_i,
+                            const void* xs, int n, int tile_n, int n_j,
+                            const void* act_idx, const void* act_cnt,
+                            const void* scal, const void* inv_den,
+                            void* p1px, void* stream) {
+  return launch_moment_pass<true, false, true>(
+      ys, m, tile_m, n_i, xs, n, tile_n, n_j, act_idx, act_cnt, scal,
+      nullptr, inv_den, p1px, stream);
+}
+
+int probreg_stash_merged_bf16(const void* ys, int m, int tile_m, int n_i,
+                              const void* xs, int n, int tile_n, int n_j,
+                              const void* act_idx, const void* act_cnt,
+                              const void* scal, const void* inv_den,
+                              void* p1px, void* stream) {
+  return launch_moment_pass<true, true, true>(
+      ys, m, tile_m, n_i, xs, n, tile_n, n_j, act_idx, act_cnt, scal,
+      nullptr, inv_den, p1px, stream);
 }
 
 }  // extern "C"

@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import config
+from .pairwise import mm_operand
 
 
 class EstepMoments(NamedTuple):
@@ -55,21 +56,22 @@ def _block_moments(t_source, x_blk, sigma2, c, eps):
 
     Same arithmetic as the reference: operands pre-scaled by
     1/sqrt(2 sigma2), the normalizer applied as a reciprocal multiply, p1
-    from the px product through an appended ones column.
+    from the px product through an appended ones column, the operands of
+    both products in ``config.matmul_dtype`` (pairwise.mm_operand).
     """
     inv_s = torch.rsqrt(2.0 * sigma2)
     ys = t_source * inv_s
     xs = x_blk * inv_s
     y2 = (ys * ys).sum(-1)[:, None]
     x2 = (xs * xs).sum(-1)[None, :]
-    yx = ys @ xs.T
+    yx = mm_operand(ys) @ mm_operand(xs).T
     g = torch.exp(torch.clamp(yx + yx - y2 - x2, max=0.0))
     den_raw = g.sum(0)
     inv_den = 1.0 / (torch.where(den_raw == 0.0, eps, den_raw) + c)
     pt1 = den_raw * inv_den
     pmat = g * inv_den[None, :]
     xb_ext = torch.cat([x_blk, torch.ones_like(x_blk[:, :1])], dim=1)
-    pxp = pmat @ xb_ext
+    pxp = mm_operand(pmat) @ mm_operand(xb_ext)
     x2r = (x_blk * x_blk).sum(1)
     # Pad filter on the squared norm (pad rows sit at |x|^2 ~ D * 1e30).
     xx = (pt1 * torch.where(x2r < 0.5 * _PAD_BIG ** 2, x2r, 0.0)).sum()
@@ -116,9 +118,11 @@ def estep(t_source: torch.Tensor, target: torch.Tensor, sigma2,
           w: float = 0.0, use_pallas: Optional[bool] = None,
           assume_sorted: bool = False) -> EstepMoments:
     """Dispatch by size: the one-launch kernel for small problems, the
-    Morton-sorted tile-culled stash kernels for large ones (exact: only
-    tiles whose exps provably underflow are skipped), the streaming plain
-    E-step otherwise (and for D > 3, which the kernels do not take).
+    Morton-sorted tile-culled stash kernels for large ones (only tiles
+    whose exps provably underflow are skipped; at the start temperature
+    the reference's gate may pick the bf16 cross term,
+    ``estep_cuda.estep_auto``), the streaming plain E-step otherwise (and
+    for D > 3, which the kernels do not take).
 
     ``use_pallas`` keeps the reference's name and order of tests: None
     picks as above, and then the two-pass kernels (estep_fused) only where

@@ -44,9 +44,23 @@ path, with their helpers:
 
 A tile pair is culled when its box-gap bound proves that every exp in it
 underflows f32 to exactly 0 (sum_d max(0, gap_d)^2 * 0.5 / sigma2 > 104),
-so culling never changes a result. The reference's fast-start branch (bf16
-cross term and stash under an error bound derived for the TPU) is not
-ported: the port always runs the exact branch.
+so culling never changes a result.
+
+``estep_auto`` also takes the reference's start-temperature fast branch
+(``config.estep_fast_start``, ``fast_gate``): where the bf16 rounding of
+the cross term cannot move any exp argument by more than
+``config.estep_fast_start_tol``, pass A (``stash_den_fast``) and pass B
+(``stash_moment_fast``) form y.x on the tensor cores from bf16 coordinates
+with an f32 sum, everything else as K3 forms it, and pass B rounds each
+Gaussian to bf16 before its moment FMAs (the reference's bf16 stash). The
+decision is a flag on the device: K3's exact passes and the fast passes
+are both launched, and each reads the flag and returns at once unless it
+is its branch, so no E-step reads the flag on the host. ``FAST_STEPS``
+counts, on the device, the gated E-steps that took the fast branch.
+``config.stash_dtype = torch.bfloat16`` (fast branch off) rounds pass B's
+Gaussians the same way (``stash_moment_bf16``, ``stash_merged_bf16``).
+Culling stays exact on the fast branch: a culled tile's exact argument
+exceeds 104, and the branch moves no argument by more than the tolerance.
 
 Each wrapper runs its CUDA kernel (``csrc/estep.cu``) on CUDA tensors and
 its plain version on CPU tensors; nothing else picks between them. Every
@@ -60,6 +74,7 @@ import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import config
@@ -78,12 +93,75 @@ _MAX_GRID_Y = 65535
 
 LAUNCHES = {"estep_small": 0, "stash_den": 0, "stash_moment": 0,
             "stash_merged": 0, "stash_den_raw": 0, "stash_finish": 0,
-            "fused_den": 0, "fused_moment": 0}
+            "fused_den": 0, "fused_moment": 0, "stash_den_fast": 0,
+            "stash_moment_fast": 0, "stash_moment_bf16": 0,
+            "stash_merged_bf16": 0}
+# Gated E-steps that took the fast branch, per device: an int32 tensor that
+# each gated E-step adds its flag to on the device (read it after a run).
+FAST_STEPS = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    FAST_STEPS.clear()
+
+
+def fast_steps(tally=None) -> int:
+    """Gated calls that took the fast branch since the last
+    reset_launches(), over every device (``tally``: FAST_STEPS, or
+    gt_cuda's): one host read a device."""
+    tally = FAST_STEPS if tally is None else tally
+    return int(sum(int(t) for t in tally.values()))
+
+
+def tally_fast(tally, gate: torch.Tensor) -> None:
+    """Adds a gated call's flag to ``tally`` on its device (no host read)."""
+    key = str(gate.device)
+    if key not in tally:
+        tally[key] = torch.zeros((), dtype=torch.int32, device=gate.device)
+    tally[key].add_(gate.reshape(()))
+
+
+# --------------------------------------------------------------------------
+# The start-temperature gate
+# --------------------------------------------------------------------------
+#
+# Rounding a coordinate to bf16 (8 significant bits, round to nearest) moves
+# it by at most 2^-9 of itself, so each product y_d x_d moves by at most
+# (2 * 2^-9 + 2^-18) |y_d x_d| and, by Cauchy-Schwarz over d, 2 y.x by at
+# most ~4 * 2^-9 |y| |x|; the products of two bf16 values are exact in f32
+# and the tensor cores sum them in f32. The reference's bound, (1/2s2) * 8
+# * 2^-9 * sqrt(max|y|^2 max|x|^2) for the CPD E-step and 1/h^2 in place of
+# 1/2s2 for the Gauss transform, keeps a factor 2 over that for the f32
+# sums; bf16 is the format the reference's one-pass DEFAULT product used,
+# so the bound holds here as derived there. Each exp argument then moves by
+# at most the bound, each Gaussian by a factor within e^(+-bound).
+
+def fast_bound(y2: torch.Tensor, x2: torch.Tensor, inv) -> torch.Tensor:
+    """The reference's bound on the exp-argument error of the bf16 cross
+    term, as a 0-d f32 tensor on the clouds' device: inv * 8 * 2^-9 *
+    sqrt(max y2 * max x2), from the squared norms of both clouds and inv
+    = 1/(2 sigma2) (a device tensor) or 1/h^2 (a number, taken in f32;
+    the scalings by 8 and 2^-9 are exact, so both forms round as the
+    reference's f32 product does). No host read, no copy to the device."""
+    root = torch.sqrt(y2.amax() * x2.amax())
+    if isinstance(inv, torch.Tensor):
+        return inv.to(torch.float32) * 8.0 * (2.0 ** -9) * root
+    return root * (float(np.float32(inv)) * 8.0 * 2.0 ** -9)
+
+
+def fast_gate(y2, x2, inv, tol=None) -> torch.Tensor:
+    """The fast branch's flag, a 0-d int32 tensor on the clouds' device:
+    1 where fast_bound <= tol (default config.estep_fast_start_tol). No
+    host read."""
+    tol = config.estep_fast_start_tol if tol is None else tol
+    return (fast_bound(y2, x2, inv) <= tol).to(torch.int32)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (to nearest even) and back to f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -105,6 +183,18 @@ _SIGNATURES = {
                           _P, _P],
     "probreg_fused_moment": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P,
                              _P, _P],
+    "probreg_stash_den_gated": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P,
+                                _P, _P, _P, _P, _P],
+    "probreg_stash_rows_gated": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P,
+                                 _P, _P, _P, _P],
+    "probreg_stash_den_fast": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P,
+                               _P, _P, _P, _P, _P, _P],
+    "probreg_stash_rows_fast": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P,
+                                _P, _P, _P, _P, _P],
+    "probreg_stash_rows_bf16": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P,
+                                _P, _P, _P],
+    "probreg_stash_merged_bf16": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P,
+                                  _P, _P, _P, _P],
 }
 
 
@@ -246,21 +336,21 @@ def stash_budget(device) -> int:
 
 def _capped_tile_n(m: int, tile_m: int, tile_n: int, budget: int,
                    on_overflow: str = "raise",
-                   knob: str = "config.stash_max_bytes"):
+                   knob: str = "config.stash_max_bytes", itemsize: int = 4):
     """Halve tile_n (multiples of 128, floor 256) until the (M_padded,
-    tile_n) f32 stash fits the budget (reference
+    tile_n) stash of ``itemsize``-byte entries fits the budget (reference
     ``_capped_stash_tile_n``). Beyond the floor, ``on_overflow="raise"``
     raises, naming ``knob``, and ``"fallback"`` returns None, so that the
     caller can take a path without a stash."""
     mp = _round_up(m, tile_m)
-    while tile_n > 256 and mp * tile_n * 4 > budget:
+    while tile_n > 256 and mp * tile_n * itemsize > budget:
         tile_n = max(256, (tile_n // 2 // 128) * 128)
-    if mp * tile_n * 4 > budget:
+    if mp * tile_n * itemsize > budget:
         if on_overflow == "fallback":
             return None
         raise ValueError(
-            f"the E-step stash needs {mp * tile_n * 4 / 2**30:.2f} GiB even "
-            f"at tile_n={tile_n} (M_padded={mp}), over the "
+            f"the E-step stash needs {mp * tile_n * itemsize / 2**30:.2f} "
+            f"GiB even at tile_n={tile_n} (M_padded={mp}), over the "
             f"{budget / 2**30:.2f} GiB cap; raise {knob}")
     return tile_n
 
@@ -433,8 +523,9 @@ def estep_small_plain(t_source, target, scal):
 
 def estep_auto(t_source: torch.Tensor, target: torch.Tensor, sigma2,
                w: float = 0.0, tile_m: int = None, tile_n: int = None,
-               assume_sorted: bool = False) -> EstepMoments:
-    """Exact tile-culled E-step through K3 (two launches, no stash).
+               assume_sorted: bool = False,
+               fast_start: bool = None) -> EstepMoments:
+    """Tile-culled E-step through K3 (two launches, no stash).
 
     ``assume_sorted``: the caller guarantees both clouds are in Morton
     order (cpd.registration sorts once); the moments then come back in that
@@ -449,18 +540,35 @@ def estep_auto(t_source: torch.Tensor, target: torch.Tensor, sigma2,
     packages take at the same sizes. Neither route keeps a stash, but both
     take the reference's tiles and branch, so that their bits match the
     stash kernels' and their dispatch the reference's.
+
+    ``fast_start`` (default ``config.estep_fast_start``): the reference's
+    start-temperature gate (estep_pallas.py:1462-1541). It applies only off
+    the merged route, with an f32 ``config.stash_dtype`` and where the
+    tiles under two thirds of the budget equal the full budget's (the
+    reference's two resident stashes); then ``fast_gate`` decides on the
+    device between K3's exact passes and its fast passes.
     """
     t_source, target = _check_points(t_source, target)
     (m, dim), n = t_source.shape, target.shape[0]
     merged = bool(config.use_merged_stash)
+    round_g = config.stash_dtype == torch.bfloat16
+    if fast_start is None:
+        fast_start = bool(config.estep_fast_start)
+    fast_start = fast_start and not merged and not round_g
+    itemsize = 2 if round_g else 4
     budget = stash_budget(t_source.device)
+    budget = budget // 2 if merged else budget
     tile_m = min(tile_m or config.tile_m, _round_up(m, 8))
-    tile_n = _capped_tile_n(m, tile_m,
-                            min(tile_n or config.tile_n, _round_up(n, 128)),
-                            budget // 2 if merged else budget,
-                            on_overflow="fallback")
-    if tile_n is None:
+    tile_n = min(tile_n or config.tile_n, _round_up(n, 128))
+    capped = _capped_tile_n(m, tile_m, tile_n, budget,
+                            on_overflow="fallback", itemsize=itemsize)
+    if capped is None:
         return estep_xla(t_source, target, sigma2, w)
+    if fast_start:
+        gated = _capped_tile_n(m, tile_m, tile_n, budget * 2 // 3,
+                               on_overflow="fallback", itemsize=itemsize)
+        fast_start = gated is not None and gated >= capped
+    tile_n = capped
     if assume_sorted:
         ys, xs = t_source, target
     else:
@@ -470,8 +578,18 @@ def estep_auto(t_source: torch.Tensor, target: torch.Tensor, sigma2,
     ymin, ymax = _tile_bounds(ys, tile_m)
     xmin, xmax = _tile_bounds(xs, tile_n)
     mask = _active_mask(ymin, ymax, xmin, xmax, scal[0])
-    core = stash_merged_estep if merged else stash_estep
-    pt1, p1, px, xx = core(ys, xs, scal, mask, tile_m, tile_n)
+    # Positional arguments throughout: callers may put the plain versions,
+    # which take the same ones, in the kernels' place.
+    if merged:
+        pt1, p1, px, xx = stash_merged_estep(ys, xs, scal, mask, tile_m,
+                                             tile_n, round_g)
+    else:
+        gate = None
+        if fast_start:
+            gate = fast_gate((ys * ys).sum(1), (xs * xs).sum(1), scal[0])
+            tally_fast(FAST_STEPS, gate)
+        pt1, p1, px, xx = stash_estep(ys, xs, scal, mask, tile_m, tile_n,
+                                      None, gate, round_g)
     if not assume_sorted:
         pt1 = torch.empty_like(pt1).index_copy_(0, perm_x, pt1)
         p1 = torch.empty_like(p1).index_copy_(0, perm_y, p1)
@@ -480,7 +598,7 @@ def estep_auto(t_source: torch.Tensor, target: torch.Tensor, sigma2,
 
 
 def stash_estep(ys, xs, scal, mask, tile_m: int, tile_n: int,
-                reduce_den=None):
+                reduce_den=None, gate=None, round_g: bool = False):
     """(pt1, p1, px, xx) of the tile-culled E-step on sorted clouds, given
     the (n_i, n_j) active-tile mask: the kernels for CUDA tensors (K3, one
     launch per pass), the plain version for CPU tensors.
@@ -494,12 +612,20 @@ def stash_estep(ys, xs, scal, mask, tile_m: int, tile_n: int,
     source shard's sums over these columns. ys may be empty (a source shard
     past the end of the cloud): it adds nothing and still takes part in the
     reduction.
+
+    ``gate``: fast_gate's 0-d int32 flag (single card only). Where it is 1
+    the E-step takes the fast branch (``stash_den_fast``,
+    ``stash_moment_fast``); on CUDA tensors both branches' passes are
+    launched and each runs only where the flag picks it. ``round_g``: pass
+    B rounds each Gaussian to bf16 (``config.stash_dtype``; the fast
+    branch always does).
     """
     if not ys.is_cuda:
         return stash_estep_plain(ys, xs, scal, mask, tile_m, tile_n,
-                                 reduce_den)
+                                 reduce_den, gate, round_g)
     if reduce_den is None:
-        return StashPlan(ys, xs, scal, mask, tile_m, tile_n).run()
+        return StashPlan(ys, xs, scal, mask, tile_m, tile_n, gate=gate,
+                         round_g=round_g).run()
     return ShardStashPlan(ys, xs, scal, mask, tile_m, tile_n,
                           reduce_den).run()
 
@@ -541,7 +667,7 @@ class TwoPassPlan:
             self.ys.data_ptr(), self.m, self.tile_m, self.n_i,
             self.xs.data_ptr(), self.n, self.tile_n, self.n_j,
             idx.data_ptr(), cnt.data_ptr(), self.scal.data_ptr(),
-            *(t.data_ptr() for t in out), self.stream)
+            *(None if t is None else t.data_ptr() for t in out), self.stream)
         _check(status, key)
         LAUNCHES[key] += 1
 
@@ -568,10 +694,59 @@ class StashPlan(TwoPassPlan):
     """K3: pass A sums each active tile's rows apart and adds the tiles'
     sums in tile order (the stash kernels' order), pass B sums each row's
     stripes apart and adds them in stripe order: the association of the
-    reference's stash kernels, whose stash it does without."""
+    reference's stash kernels, whose stash it does without.
+
+    ``gate`` (fast_gate's flag): each pass launches K3's exact kernel,
+    which returns at once where the flag is 1, and the fast kernel
+    (``stash_den_fast``, ``stash_moment_fast``), which returns at once
+    where it is 0. ``round_g``: pass B rounds each Gaussian to bf16
+    (``stash_moment_bf16``)."""
 
     DEN = ("probreg_stash_den", "stash_den")
     MOMENT = ("probreg_stash_rows", "stash_moment")
+    DEN_GATED = ("probreg_stash_den_gated", "stash_den")
+    MOMENT_GATED = ("probreg_stash_rows_gated", "stash_moment")
+    DEN_FAST = ("probreg_stash_den_fast", "stash_den_fast")
+    MOMENT_FAST = ("probreg_stash_rows_fast", "stash_moment_fast")
+    MOMENT_BF16 = ("probreg_stash_rows_bf16", "stash_moment_bf16")
+
+    def __init__(self, ys, xs, scal, mask, tile_m: int, tile_n: int,
+                 gate=None, round_g: bool = False):
+        super().__init__(ys, xs, scal, mask, tile_m, tile_n)
+        if gate is not None and round_g:
+            raise ValueError("a gated E-step takes an f32 stash (the "
+                             "reference's gate is off under a bf16 one)")
+        self.gate = None if gate is None else \
+            gate.to(torch.int32).reshape(1).contiguous()
+        if round_g:
+            self.MOMENT = self.MOMENT_BF16
+
+    def den(self) -> None:
+        if self.gate is None:
+            return super().den()
+        self._launch(self.DEN_GATED, self.col_idx, self.col_cnt, self.gate,
+                     self.inv_den, self.pt1, self.xx_part)
+        self.den_fast()
+
+    def moment(self) -> None:
+        if self.gate is None:
+            return super().moment()
+        self._launch(self.MOMENT_GATED, self.row_idx, self.row_cnt,
+                     self.gate, self.inv_den, self.p1px)
+        self.moment_fast()
+
+    def den_fast(self, g_dump=None) -> None:
+        """The fast pass A alone (it runs where the gate is 1).
+        ``g_dump`` (tests only): an (m, n) f32 buffer that takes every
+        Gaussian the pass forms."""
+        self._launch(self.DEN_FAST, self.col_idx, self.col_cnt, self.gate,
+                     self.inv_den, self.pt1, self.xx_part, g_dump)
+
+    def moment_fast(self, g_dump=None) -> None:
+        """The fast pass B alone; ``g_dump`` as in den_fast (each g before
+        its rounding)."""
+        self._launch(self.MOMENT_FAST, self.row_idx, self.row_cnt, self.gate,
+                     self.inv_den, self.p1px, g_dump)
 
 
 class ShardStashPlan(StashPlan):
@@ -622,25 +797,39 @@ class MergedStashPlan(TwoPassPlan):
     """K12: K3's pass A, then pass B with the normalizer folded into the
     channels (p1 += g * inv_den, px += g * (x * inv_den)) for every stripe
     but the last, which keeps K3's p = g * inv_den, as the reference's
-    pipelined kernel and its epilogue associate them."""
+    pipelined kernel and its epilogue associate them. ``round_g``: pass B
+    rounds each Gaussian to bf16 (``stash_merged_bf16``)."""
 
     DEN = StashPlan.DEN
     MOMENT = ("probreg_stash_merged", "stash_merged")
 
+    def __init__(self, ys, xs, scal, mask, tile_m: int, tile_n: int,
+                 round_g: bool = False):
+        super().__init__(ys, xs, scal, mask, tile_m, tile_n)
+        if round_g:
+            self.MOMENT = ("probreg_stash_merged_bf16", "stash_merged_bf16")
 
-def stash_merged_estep(ys, xs, scal, mask, tile_m: int, tile_n: int):
+
+def stash_merged_estep(ys, xs, scal, mask, tile_m: int, tile_n: int,
+                       round_g: bool = False):
     """(pt1, p1, px, xx) of the pipelined stash E-step's function on sorted
     clouds: K12's two launches for CUDA tensors, the plain version for CPU
-    tensors."""
+    tensors. ``round_g`` as in stash_estep."""
     if ys.is_cuda:
-        return MergedStashPlan(ys, xs, scal, mask, tile_m, tile_n).run()
-    return stash_merged_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
+        return MergedStashPlan(ys, xs, scal, mask, tile_m, tile_n,
+                               round_g).run()
+    return stash_merged_estep_plain(ys, xs, scal, mask, tile_m, tile_n,
+                                    round_g)
 
 
-def stash_den_raw_plain(ys, y2, x, x2, scal, act_rows, n_i, tile_m):
+def stash_den_raw_plain(ys, y2, x, x2, scal, act_rows, n_i, tile_m,
+                        fast: bool = False):
     """Plain version of K11 on one stripe: g (zero in culled tiles) and the
-    stripe's raw column sums, per-tile sums added in tile order."""
-    d2 = torch.clamp(y2[:, None] + x2[None, :] - 2.0 * (ys @ x.T), min=0.0)
+    stripe's raw column sums, per-tile sums added in tile order. ``fast``:
+    the cross term from the bf16-rounded coordinates, summed in f32 (the
+    fast branch's pass A; y2 and x2 stay those of the f32 points)."""
+    cross = _bf16(ys) @ _bf16(x).T if fast else ys @ x.T
+    d2 = torch.clamp(y2[:, None] + x2[None, :] - 2.0 * cross, min=0.0)
     g = torch.where(act_rows[:, None], torch.exp(-d2 * scal[0]), 0.0)
     pad = n_i * tile_m - ys.shape[0]
     part = torch.nn.functional.pad(g, (0, 0, 0, pad)).view(
@@ -656,32 +845,36 @@ def _plain_finish(den_raw, x2, scal):
     return inv_den, pt1, (pt1 * x2).sum()
 
 
-def _plain_pass_a(ys, y2, x, x2, scal, act_rows, n_i, tile_m):
+def _plain_pass_a(ys, y2, x, x2, scal, act_rows, n_i, tile_m,
+                  fast: bool = False):
     """Pass A of one stripe: g (zero in culled tiles), inv_den, pt1, xx."""
     g, den_raw = stash_den_raw_plain(ys, y2, x, x2, scal, act_rows, n_i,
-                                     tile_m)
+                                     tile_m, fast)
     return (g, *_plain_finish(den_raw, x2, scal))
 
 
-def _plain_pass_b(g, inv_den, x):
-    """Pass B of one stripe: the stripe's p1 and px contributions."""
-    p = g * inv_den[None, :]
+def _plain_pass_b(g, inv_den, x, round_g: bool = False):
+    """Pass B of one stripe: the stripe's p1 and px contributions.
+    ``round_g``: g read as a bf16 stash holds it."""
+    p = (_bf16(g) if round_g else g) * inv_den[None, :]
     return p.sum(1), p @ x
 
 
-def _plain_pass_b_folded(g, inv_den, x):
+def _plain_pass_b_folded(g, inv_den, x, round_g: bool = False):
     """Pass B of one stripe with the normalizer folded into the channels:
     p1 = g @ inv_den, px = g @ (x * inv_den) (the pipelined kernel's
     association)."""
+    g = _bf16(g) if round_g else g
     return g @ inv_den, g @ (x * inv_den[:, None])
 
 
 def _plain_stripes(ys, xs, scal, mask, tile_m: int, tile_n: int,
-                   reduce_den=None):
+                   reduce_den=None, fast: bool = False):
     """Pass A of every stripe in order: (g, inv_den, pt1, xx, x) each. With
     ``reduce_den`` the raw sums of every stripe come first, as one (n,)
     tensor through one ``reduce_den`` call, and each stripe's g is formed
-    again for its finalisation and pass B."""
+    again for its finalisation and pass B. ``fast``: the fast branch's
+    cross term."""
     m, n_i, n_j = ys.shape[0], mask.shape[0], mask.shape[1]
     y2, x2 = (ys * ys).sum(1), (xs * xs).sum(1)
 
@@ -689,7 +882,7 @@ def _plain_stripes(ys, xs, scal, mask, tile_m: int, tile_n: int,
         cols = slice(j * tile_n, (j + 1) * tile_n)
         act_rows = mask[:, j].repeat_interleave(tile_m)[:m]
         return stash_den_raw_plain(ys, y2, xs[cols], x2[cols], scal,
-                                   act_rows, n_i, tile_m)
+                                   act_rows, n_i, tile_m, fast)
 
     if reduce_den is not None:
         den_raw = torch.cat([raw(j)[1] for j in range(n_j)])
@@ -704,41 +897,48 @@ def _plain_stripes(ys, xs, scal, mask, tile_m: int, tile_n: int,
 
 
 def stash_estep_plain(ys, xs, scal, mask, tile_m: int, tile_n: int,
-                      reduce_den=None):
+                      reduce_den=None, gate=None, round_g: bool = False):
     """Plain version of the stash kernels, stripe by stripe: per-tile
     column sums added in tile order, culled tiles contributing nothing;
     ``reduce_den`` as in stash_estep (the plain version of K11's route:
     every stripe's raw sums, one reduction, then the finalisation and pass
-    B)."""
+    B). ``gate`` (fast_gate's flag or a bool, read here): where it is set,
+    the fast branch (the bf16 cross term in pass A, and pass B from g
+    rounded to bf16); ``round_g``: pass B from g rounded to bf16 (a bf16
+    stash). The same arguments as stash_estep."""
+    fast = gate is not None and bool(gate)
+    round_g = round_g or fast
     p1, px, xx = ys.new_zeros(ys.shape[0]), torch.zeros_like(ys), \
         ys.new_zeros(())
     pt1 = []
     for g, inv_den, pt1_j, xx_j, x in _plain_stripes(ys, xs, scal, mask,
                                                      tile_m, tile_n,
-                                                     reduce_den):
-        p1_j, px_j = _plain_pass_b(g, inv_den, x)
+                                                     reduce_den, fast):
+        p1_j, px_j = _plain_pass_b(g, inv_den, x, round_g)
         p1, px, xx = p1 + p1_j, px + px_j, xx + xx_j
         pt1.append(pt1_j)
     return torch.cat(pt1), p1, px, xx
 
 
-def stash_merged_estep_plain(ys, xs, scal, mask, tile_m: int, tile_n: int):
+def stash_merged_estep_plain(ys, xs, scal, mask, tile_m: int, tile_n: int,
+                             round_g: bool = False):
     """Plain version of the pipelined kernel: pass A as in
     stash_estep_plain, pass B one stripe behind with the folded
     normalizer, and the last stripe's pass B in K3's association (the
-    epilogue). Stripes add into p1 and px in stripe order."""
+    epilogue). Stripes add into p1 and px in stripe order. ``round_g``:
+    pass B from g rounded to bf16."""
     p1, px, xx = ys.new_zeros(ys.shape[0]), torch.zeros_like(ys), \
         ys.new_zeros(())
     pt1, prev = [], None
     for g, inv_den, pt1_j, xx_j, x in _plain_stripes(ys, xs, scal, mask,
                                                      tile_m, tile_n):
         if prev is not None:
-            p1_j, px_j = _plain_pass_b_folded(*prev)
+            p1_j, px_j = _plain_pass_b_folded(*prev, round_g)
             p1, px = p1 + p1_j, px + px_j
         xx = xx + xx_j
         pt1.append(pt1_j)
         prev = (g, inv_den, x)
-    p1_j, px_j = _plain_pass_b(*prev)
+    p1_j, px_j = _plain_pass_b(*prev, round_g)
     return torch.cat(pt1), p1 + p1_j, px + px_j, xx
 
 

@@ -7,10 +7,12 @@ Large problems go to the tile-culled kernel (ops/gt_cuda.py) under the
 reference's gate, less its backend test: ``config.use_culled_estep``, at
 most 8 channels, 2 <= D <= 8, and M * N >= ``config.culled_estep_min_pairs``
 for callers whose clouds are already Morton-sorted (``assume_sorted``), or
->= max(that, 2^28) for the others, which pay a sort on every call. The
-kernel's wrapper runs the kernel for CUDA tensors and its plain version
-for CPU tensors. Everything else is the dense transform streamed over
-source blocks, in plain tensors.
+>= max(that, 2^28) for the others, which pay a sort on every call; there
+the reference's start-temperature gate picks between the exact kernel and
+its bf16 cross term (``gt_cuda.gauss_transform_culled``, ``fast_start``).
+The kernel's wrapper runs the kernel for CUDA tensors and its plain
+version for CPU tensors. Everything else is the dense transform streamed
+over source blocks, in plain tensors.
 """
 
 from __future__ import annotations
@@ -33,10 +35,13 @@ def _culled_ok(m: int, n: int, dim: int, c: int, assume_sorted: bool) -> bool:
 
 def gauss_transform(source: torch.Tensor, target: torch.Tensor,
                     weights: torch.Tensor, h, block: Optional[int] = None,
-                    assume_sorted: bool = False) -> torch.Tensor:
-    """Exact Gauss transform: ``weights`` (M,) or (M, C), h the bandwidth
+                    assume_sorted: bool = False,
+                    fast_start: Optional[bool] = None) -> torch.Tensor:
+    """Gauss transform: ``weights`` (M,) or (M, C), h the bandwidth
     (exp(-d^2 / h^2), the reference's convention). Returns (len(target),
-    C), or (len(target),) for 1-D weights."""
+    C), or (len(target),) for 1-D weights. ``fast_start``: the culled
+    kernel's start-temperature gate (gt_cuda.gauss_transform_culled;
+    default ``config.estep_fast_start``, False for the exact branch)."""
     squeeze = weights.dim() == 1
     if squeeze:
         weights = weights[:, None]
@@ -44,7 +49,8 @@ def gauss_transform(source: torch.Tensor, target: torch.Tensor,
     n = target.shape[0]
     if _culled_ok(m, n, dim, weights.shape[1], assume_sorted):
         out = gt_cuda.gauss_transform_culled(source, target, weights, h,
-                                             sort=not assume_sorted)
+                                             sort=not assume_sorted,
+                                             fast_start=fast_start)
         return out[:, 0] if squeeze else out
     h2 = torch.as_tensor(h, dtype=source.dtype, device=source.device) ** 2
     if block is None:

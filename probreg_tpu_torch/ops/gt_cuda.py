@@ -18,13 +18,20 @@ own width and D = 2, 3, 4 as they are (5 <= D <= 7 padded to 8); two
 thread blocks share a query tile, ``ROWS_PER_THREAD`` rows a thread,
 ``SLOTS`` stages summed at once by separate threads.
 
-The reference's fast-start branch (a bf16 cross term under an error bound
-derived for the TPU's matrix unit) is not ported: the port always takes
-the exact branch, as it does for the CPD E-step.
+With ``config.estep_fast_start`` (the reference's start-temperature
+branch, ``fast_start=False`` to refuse it) the transform takes the fast
+branch where ``estep_cuda.fast_gate`` on the centred clouds and 1/h^2 says
+so: ``gauss_transform_fast`` forms q.p on the tensor cores from bf16
+coordinates with an f32 sum and d2 in the expanded form |q|^2 + |p|^2 -
+2 q.p (as ``_gt_kernel``), with |q|^2 and |p|^2 from the f32 points; the
+weights' sums stay f32 FMAs. Both kernels are launched and each returns at
+once unless the device flag picks it; ``FAST_STEPS`` counts the calls that
+took the fast branch, on the device.
 
-CUDA tensors run the kernel (``csrc/gt.cu``); CPU tensors run
+CUDA tensors run the kernels (``csrc/gt.cu``); CPU tensors run
 ``gauss_transform_culled_plain``. Nothing else picks between them. Every
-launch adds one to ``LAUNCHES["gauss_transform"]``.
+launch adds one to ``LAUNCHES["gauss_transform"]`` or
+``LAUNCHES["gauss_transform_fast"]``.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import ctypes
 
 import torch
 
+from ..config import config
 from . import _build
 from . import estep_cuda as ec
 from .pairwise import sqdist_diff
@@ -45,11 +53,20 @@ SLOTS = 2             # stages a block sums at once (kSlots)
 MAX_CHANNELS = 8
 _PLAIN_POINTS = 1024  # points per step of the plain version
 
-LAUNCHES = {"gauss_transform": 0}
+LAUNCHES = {"gauss_transform": 0, "gauss_transform_fast": 0}
+# Calls that took the fast branch, per device (estep_cuda.tally_fast).
+FAST_STEPS = {}
 
 
 def reset_launches() -> None:
-    LAUNCHES["gauss_transform"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    FAST_STEPS.clear()
+
+
+def fast_steps() -> int:
+    """Calls that took the fast branch since reset_launches()."""
+    return ec.fast_steps(FAST_STEPS)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -59,8 +76,12 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("gt")
     if not getattr(lib, "_probreg_typed", False):
         lib.probreg_gauss_transform.argtypes = [_P, _I, _P, _P, _I, _I, _I,
-                                                _P, _P, _I, _F, _P, _P]
-        lib.probreg_gauss_transform.restype = ctypes.c_int
+                                                _P, _P, _I, _F, _P, _P, _P]
+        lib.probreg_gauss_transform_fast.argtypes = [
+            _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P]
+        for fn in (lib.probreg_gauss_transform,
+                   lib.probreg_gauss_transform_fast):
+            fn.restype = ctypes.c_int
         lib._probreg_typed = True
     return lib
 
@@ -104,10 +125,13 @@ def prepare(source, target, weights, h, tile: int = 256, cull: bool = True):
 
 
 def gauss_transform_culled(source, target, weights, h, tile: int = 256,
-                           cull: bool = True, sort: bool = True):
-    """Tile-culled exact Gauss transform: (len(target), C), or
-    (len(target),) for 1-D weights. ``sort=False`` trusts the caller's
-    (Morton) order, as the streaming FilterReg loop that sorts once."""
+                           cull: bool = True, sort: bool = True,
+                           fast_start: bool = None):
+    """Tile-culled Gauss transform: (len(target), C), or (len(target),) for
+    1-D weights. ``sort=False`` trusts the caller's (Morton) order, as the
+    streaming FilterReg loop that sorts once. ``fast_start`` (default
+    ``config.estep_fast_start``): take the reference's gate (the fast
+    branch where its bound allows); False keeps the exact branch."""
     squeeze = weights.dim() == 1
     if squeeze:
         weights = weights[:, None]
@@ -134,30 +158,38 @@ def gauss_transform_culled(source, target, weights, h, tile: int = 256,
         perm_p, perm_q = morton_order(source), morton_order(target)
         source, weights, target = source[perm_p], weights[perm_p], \
             target[perm_q]
-    out = gt_core(*prepare(source, target, weights, h, tile, cull))
+    gate = None
+    if config.estep_fast_start if fast_start is None else fast_start:
+        gate = ec.fast_gate((target * target).sum(1),
+                            (source * source).sum(1), 1.0 / float(h) ** 2)
+        ec.tally_fast(FAST_STEPS, gate)
+    out = gt_core(*prepare(source, target, weights, h, tile, cull), gate)
     if sort:
         out = torch.empty_like(out).index_copy_(0, perm_q, out)
     return out[:, 0] if squeeze else out
 
 
-def gt_core(qs, ps, w, inv_h2, mask, tile):
-    """(N, C) Gauss transform of prepared inputs: one kernel launch for
-    CUDA tensors, the plain version for CPU tensors."""
+def gt_core(qs, ps, w, inv_h2, mask, tile, gate=None):
+    """(N, C) Gauss transform of prepared inputs: the kernel for CUDA
+    tensors (with ``gate``, fast_gate's flag, both branches' kernels, each
+    running only where the flag picks it), the plain version for CPU
+    tensors."""
     if qs.is_cuda:
-        return _gt_cuda(qs, ps, w, inv_h2, mask, tile)
-    return gauss_transform_culled_plain(qs, ps, w, inv_h2, mask, tile)
+        return _gt_cuda(qs, ps, w, inv_h2, mask, tile, gate)
+    return gauss_transform_culled_plain(qs, ps, w, inv_h2, mask, tile, gate)
 
 
-def _gt_cuda(qs, ps, w, inv_h2, mask, tile):
-    launch, out = gt_launcher(qs, ps, w, inv_h2, mask, tile)
+def _gt_cuda(qs, ps, w, inv_h2, mask, tile, gate=None):
+    launch, out = gt_launcher(qs, ps, w, inv_h2, mask, tile, gate)
     launch()
     return out
 
 
-def gt_launcher(qs, ps, w, inv_h2, mask, tile):
+def gt_launcher(qs, ps, w, inv_h2, mask, tile, gate=None):
     """(launch, out) for prepared CUDA inputs: the active-tile lists and
     padded buffers are made here, once; each ``launch()`` queues one kernel
-    launch that writes the (N, C) result into ``out``."""
+    launch that writes the (N, C) result into ``out`` (with ``gate``, the
+    exact kernel's and the fast kernel's, one of which returns at once)."""
     (nq, dim), (m, c) = qs.shape, w.shape
     dp = _width(dim)
     act_idx, act_cnt = ec._compact(mask)          # per query tile
@@ -166,27 +198,54 @@ def gt_launcher(qs, ps, w, inv_h2, mask, tile):
     wk = w.contiguous()
     out = qs.new_empty((nq, c))
     lib, stream = _lib(), ec._stream(qs)
+    if gate is not None:
+        gate = gate.to(torch.int32).reshape(1).contiguous()
+        q2, p2 = (qs * qs).sum(1), (ps * ps).sum(1)
+    gate_ptr = None if gate is None else gate.data_ptr()
+
+    def launch_fast():
+        ec._check(lib.probreg_gauss_transform_fast(
+            qk.data_ptr(), q2.data_ptr(), nq, pk.data_ptr(), p2.data_ptr(),
+            wk.data_ptr(), m, dp, c, act_idx.data_ptr(), act_cnt.data_ptr(),
+            tile, inv_h2, gate_ptr, out.data_ptr(), stream),
+            "gauss_transform_fast")
+        LAUNCHES["gauss_transform_fast"] += 1
 
     def launch():
         ec._check(lib.probreg_gauss_transform(
             qk.data_ptr(), nq, pk.data_ptr(), wk.data_ptr(), m, dp, c,
             act_idx.data_ptr(), act_cnt.data_ptr(), tile, inv_h2,
-            out.data_ptr(), stream), "gauss_transform")
+            gate_ptr, out.data_ptr(), stream), "gauss_transform")
         LAUNCHES["gauss_transform"] += 1
+        if gate is not None:
+            launch_fast()
+
+    # The fast kernel alone (with a gate), for timing it.
+    launch.fast = launch_fast if gate is not None else None
     return launch, out
 
 
-def gauss_transform_culled_plain(qs, ps, w, inv_h2, mask, tile):
+def gauss_transform_culled_plain(qs, ps, w, inv_h2, mask, tile, gate=None):
     """Plain version of the kernel: d2 from differences, exp(-d2 / h^2)
     zeroed in culled tile pairs, summed against the weights, point tile by
-    point tile."""
+    point tile. ``gate`` (fast_gate's flag or a bool, read here): where it
+    is set, the fast kernel's d2 = max(|q|^2 + |p|^2 - 2 q.p, 0) with q.p
+    from the bf16-rounded coordinates summed in f32, |q|^2 and |p|^2 from
+    the f32 points. The same arguments as gt_core."""
+    fast = gate is not None and bool(gate)
     nq = qs.shape[0]
     rows = torch.arange(nq, device=qs.device) // _ROWS
     out = qs.new_zeros((nq, w.shape[1]))
     step = max(tile, _PLAIN_POINTS // tile * tile)
+    if fast:
+        q2, qb = (qs * qs).sum(1), ec._bf16(qs)
     for p0 in range(0, ps.shape[0], step):
         p = ps[p0:p0 + step]
-        d2 = sqdist_diff(qs, p)
+        if fast:
+            d2 = torch.clamp(q2[:, None] + (p * p).sum(1)[None, :]
+                             - 2.0 * (qb @ ec._bf16(p).T), min=0.0)
+        else:
+            d2 = sqdist_diff(qs, p)
         cols = torch.arange(p0, p0 + p.shape[0], device=qs.device) // tile
         act = mask[cols][:, rows].T                      # (N, step)
         g = torch.where(act, torch.exp(-d2 * inv_h2), 0.0)

@@ -4,13 +4,27 @@ Distances use the expanded form |x|^2 + |y|^2 - 2 x.y after centring on the
 joint mean: the expanded form loses ~|x|^2 * eps to f32 cancellation, and
 squared distances are translation invariant, so centring restores O(1)
 accuracy at O(M + N) cost. Matmuls run in full f32 (TF32 is off, see the
-package __init__). The nearest-neighbour search takes differences instead
-(``sqdist_diff``), so a point is exactly 0 from itself.
+package __init__); ``config.matmul_dtype = torch.bfloat16`` rounds the
+cross term's operands to bf16 first, as the reference's does. The
+nearest-neighbour search takes differences instead (``sqdist_diff``), so
+a point is exactly 0 from itself.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..config import config
+
+
+def mm_operand(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to ``config.matmul_dtype`` and back to its own dtype:
+    an operand of the plain cross-term and moment products, which the
+    reference feeds to its matrix unit in that dtype with an f32 result.
+    No copy at the default float32."""
+    if config.matmul_dtype == torch.float32:
+        return x
+    return x.to(config.matmul_dtype).to(x.dtype)
 
 
 def _center(x: torch.Tensor, y: torch.Tensor):
@@ -23,7 +37,8 @@ def sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     x, y = _center(x, y)
     x2 = (x * x).sum(-1)[:, None]
     y2 = (y * y).sum(-1)[None, :]
-    return torch.clamp(x2 + y2 - 2.0 * (x @ y.T), min=0.0)
+    return torch.clamp(x2 + y2 - 2.0 * (mm_operand(x) @ mm_operand(y).T),
+                       min=0.0)
 
 
 def sqdist_batch(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -53,14 +53,17 @@ def morton_order(points: torch.Tensor) -> torch.Tensor:
 def morton_order_np(points) -> "np.ndarray":
     """Host Z-order permutation of (N, D) points (numpy in, numpy out),
     for the entry points that sort whole clouds once before sharding them
-    (parallel/). The reference's permutation: 2-D and 3-D clouds from the
-    native loader's radix sort (``_io_native.morton_order``, the same
-    codes and order), other widths from morton_order on the CPU."""
+    (parallel/). The reference's permutation: float32 2-D and 3-D clouds
+    from the native loader's radix sort (``_io_native.morton_order``, the
+    same codes and order), every other cloud from morton_order on the CPU
+    in its own dtype (the reference quantizes a float64 cloud in
+    float64)."""
     import numpy as np
 
     from .. import _io_native
 
-    pts = np.asarray(points, np.float32)
-    if pts.ndim == 2 and pts.shape[1] in (2, 3) and pts.shape[0] > 0:
+    pts = np.asarray(points)
+    if pts.dtype == np.float32 and pts.ndim == 2 \
+            and pts.shape[1] in (2, 3) and pts.shape[0] > 0:
         return _io_native.morton_order(pts)
     return morton_order(torch.as_tensor(pts)).numpy()

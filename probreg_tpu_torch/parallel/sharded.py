@@ -461,8 +461,12 @@ def _run_filterreg_mesh(ys, xs_loc, nrm_loc, sigma2, rot, t, *,
             break
         t_src = ys @ rot.T + t
         sigma = torch.sqrt(sigma2)
+        # Exact: the reference's mesh E-step forms its moments at HIGHEST
+        # (probreg_tpu/parallel/sharded.py:611-628), never through the
+        # start-temperature gate.
         out = gto.gauss_transform(xs_loc / sigma, t_src / sigma, chans,
-                                  2.0 ** 0.5, assume_sorted=True)
+                                  2.0 ** 0.5, assume_sorted=True,
+                                  fast_start=False)
         COUNTS["esteps"] += 1
         m0, m1, m2, nx = gto.split_moments(all_reduce_(out, n_grp), dim,
                                            bool(update_sigma2), pt2pl)

@@ -172,17 +172,37 @@ def config_from_reference(fields: Mapping[str, Any]) -> "_config.Config":
     ``fields`` is e.g. ``dataclasses.asdict(probreg_tpu.config.config)``.
     Fields of the JAX Config the port does not have (TPU-only knobs) and
     ``dtype`` (a JAX dtype object) are left out; ``cpd_stash_max_bytes``
-    becomes ``stash_max_bytes`` (the same cap on the CPD stash); every
-    other field keeps the port's default.
+    becomes ``stash_max_bytes`` (the same cap on the CPD stash);
+    ``matmul_dtype`` and ``stash_dtype`` become the torch dtype of the
+    same name (float32 or bfloat16); every other field keeps the port's
+    default.
     """
     own = {f.name for f in dataclasses.fields(_config.Config)}
     kept = {_RENAMED.get(k, k): v for k, v in fields.items()}
+    for k in _DTYPES:
+        if k in kept:
+            kept[k] = _torch_dtype(kept[k])
     return _config.Config(**{k: v for k, v in kept.items()
                              if k in own and k != "dtype"})
 
 
 # JAX Config fields that the port keeps under another name.
 _RENAMED = {"cpd_stash_max_bytes": "stash_max_bytes"}
+# JAX Config fields that hold a dtype, carried as the torch dtype.
+_DTYPES = ("matmul_dtype", "stash_dtype")
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """float32 or bfloat16 from a JAX / numpy dtype, its name or a torch
+    dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = str(np.dtype(dtype)) if not isinstance(dtype, str) else dtype
+    out = {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(name)
+    if out is None:
+        raise ValueError(f"no torch counterpart for dtype {dtype!r}: the "
+                         "port takes float32 or bfloat16")
+    return out
 
 
 def tps_from_reference(params: Mapping[str, Any], device=None):

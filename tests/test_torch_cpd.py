@@ -93,10 +93,10 @@ def test_streaming_culled_branch_matches_reference(monkeypatch):
     calls, frac = [], []
     orig = pec.stash_estep_plain
 
-    def spy(ys, xs, scal, mask, tile_m, tile_n, reduce_den=None):
+    def spy(ys, xs, scal, mask, tile_m, tile_n, *branch):
         calls.append(1)
         frac.append(float(mask.float().mean()))
-        return orig(ys, xs, scal, mask, tile_m, tile_n, reduce_den)
+        return orig(ys, xs, scal, mask, tile_m, tile_n, *branch)
 
     monkeypatch.setattr(pec, "stash_estep_plain", spy)
     src, tgt, rot = _problem()

@@ -2551,3 +2551,143 @@ def test_checkpoint_of_a_card_result(dev, tmp_path):
     back = checkpoint.load_state(path, res)
     assert back.transformation.rot.device == res.transformation.rot.device
     assert torch.equal(back.transformation.rot, res.transformation.rot)
+
+
+# --------------------------------------------------------------------------
+# The start-temperature fast branch (K3 and K6 on bf16 tensor cores)
+# --------------------------------------------------------------------------
+
+def _flag(value, dev):
+    return torch.tensor(value, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("sigma2", [0.5, 0.05])
+@pytest.mark.parametrize("tile_m,tile_n", [(96, 256), (512, 1024)])
+def test_fast_stash_kernels_match_plain(dev, sigma2, tile_m, tile_n):
+    """The fast passes (flag 1) against the plain fast branch on the same
+    CUDA tensors, ragged tiles, a far cluster culled: both round the
+    coordinates to bf16 alike, so they differ by the f32 order of the cross
+    term's three products and of the sums (the same _close), and the exact
+    passes, also launched, leave the outputs alone."""
+    m, n = 3000, 2500
+    ys, xs = _cloud(m, 3, dev), _cloud(n, 4, dev, far=700)
+    scal = pec._scalars(sigma2, 0.05, m, n, 3, dev)
+    mask = pec._active_mask(*pec._tile_bounds(ys, tile_m),
+                            *pec._tile_bounds(xs, tile_n), scal[0])
+    before = dict(pec.LAUNCHES)
+    got = pec.stash_estep(ys, xs, scal, mask, tile_m, tile_n,
+                          gate=_flag(1, dev))
+    for k in ("stash_den", "stash_moment", "stash_den_fast",
+              "stash_moment_fast"):
+        assert pec.LAUNCHES[k] == before[k] + 1, k
+    want = pec.stash_estep_plain(ys, xs, scal, mask, tile_m, tile_n, None,
+                                 True)
+    for name, a, b in zip(("pt1", "p1", "px", "xx"), got, want):
+        _close(a, b, name)
+    exact = pec.stash_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
+    assert not torch.equal(got[1], exact[1])  # the fast branch ran
+    dead = ~mask.any(0)
+    if bool(dead.any()):
+        cols = dead.repeat_interleave(tile_n)[:n]
+        assert bool((got[0][cols] == 0).all())
+
+
+@pytest.mark.parametrize("tile_m,tile_n", [(96, 256), (512, 1024)])
+def test_fast_passes_form_the_same_g(dev, tile_m, tile_n):
+    """Pass A's Gaussian of every active pair equals pass B's bit for bit
+    (each dumped before pass B's bf16 rounding), and equals the plain fast
+    branch's to f32 rounding."""
+    m, n = 1100, 900
+    ys, xs = _cloud(m, 7, dev), _cloud(n, 8, dev, far=200)
+    scal = pec._scalars(0.3, 0.0, m, n, 3, dev)
+    mask = pec._active_mask(*pec._tile_bounds(ys, tile_m),
+                            *pec._tile_bounds(xs, tile_n), scal[0])
+    plan = pec.StashPlan(ys, xs, scal, mask, tile_m, tile_n,
+                         gate=_flag(1, dev))
+    g_a = torch.full((m, n), float("nan"), device=dev)
+    g_b = torch.full((m, n), float("nan"), device=dev)
+    plan.den_fast(g_dump=g_a)
+    plan.moment_fast(g_dump=g_b)
+    torch.cuda.synchronize()
+    live = mask.repeat_interleave(tile_m, 0)[:m].repeat_interleave(
+        tile_n, 1)[:, :n]
+    assert bool(torch.isnan(g_a[~live]).all())
+    assert bool(torch.isnan(g_b[~live]).all())
+    assert bool(torch.isfinite(g_a[live]).all())
+    assert torch.equal(g_a[live], g_b[live])
+    act = torch.ones(m, dtype=torch.bool, device=dev)
+    y2, x2 = (ys * ys).sum(1), (xs * xs).sum(1)
+    g_plain, _ = pec.stash_den_raw_plain(ys, y2, xs, x2, scal, act, 1, m,
+                                         True)
+    _close(g_a[live], g_plain[live], "g")
+
+
+def test_gated_exact_route_keeps_its_bits(dev):
+    """Flag 0: K3's gated exact passes (the fast ones launched too) give
+    the ungated kernels' bits; K6 likewise."""
+    m, n = 3000, 2500
+    ys, xs = _cloud(m, 3, dev), _cloud(n, 4, dev, far=700)
+    scal = pec._scalars(0.05, 0.05, m, n, 3, dev)
+    mask = pec._active_mask(*pec._tile_bounds(ys, 512),
+                            *pec._tile_bounds(xs, 1024), scal[0])
+    a = pec.stash_estep(ys, xs, scal, mask, 512, 1024)
+    b = pec.stash_estep(ys, xs, scal, mask, 512, 1024, gate=_flag(0, dev))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    w = torch.rand((3000, 4), device=dev)
+    prep = pgc.prepare(ys, xs, w, 0.3, 256)
+    before = dict(pgc.LAUNCHES)
+    ga = pgc.gt_core(*prep)
+    gb = pgc.gt_core(*prep, gate=_flag(0, dev))
+    assert torch.equal(ga, gb)
+    assert pgc.LAUNCHES["gauss_transform"] == before["gauss_transform"] + 2
+    assert pgc.LAUNCHES["gauss_transform_fast"] == \
+        before["gauss_transform_fast"] + 1
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4, 8])
+@pytest.mark.parametrize("dim", [2, 3, 5, 8])
+def test_fast_gauss_transform_kernel_matches_plain(dev, channels, dim):
+    """K6's fast kernel (flag 1) against the plain fast branch on the same
+    CUDA tensors, a far query cluster culled to exact zeros."""
+    from probreg_tpu_torch.ops.spatial import morton_order as mo
+
+    rng = np.random.default_rng(dim * 10 + channels)
+    ps = torch.as_tensor(rng.uniform(-1, 1, (3000, dim)),
+                         dtype=torch.float32, device=dev)
+    qs = torch.as_tensor(rng.uniform(-1, 1, (2500, dim)),
+                         dtype=torch.float32, device=dev)
+    qs[:700, min(dim, 3) - 1] += 30.0
+    w = torch.as_tensor(rng.uniform(0, 1, (3000, channels)),
+                        dtype=torch.float32, device=dev)
+    perm = mo(ps)
+    ps, w, qs = ps[perm], w[perm], qs[mo(qs)]
+    prep = pgc.prepare(ps, qs, w, 2.0, 256)
+    got = pgc.gt_core(*prep, gate=_flag(1, dev))
+    want = pgc.gauss_transform_culled_plain(*prep, True)
+    _close(got, want, "fast gauss_transform")
+    exact = pgc.gauss_transform_culled_plain(*prep)
+    assert not torch.equal(got, exact)
+    dead = (~prep[4].any(0)).repeat_interleave(pgc._ROWS)[:2500]
+    assert bool(dead.any()) and bool((got[dead] == 0).all())
+
+
+def test_gated_estep_reads_nothing_on_the_host(dev):
+    """One gated E-step of each kind (K3 through estep_auto, K6 through
+    gauss_transform_culled) under torch.cuda.set_sync_debug_mode("error"):
+    the gate is decided on the device, so nothing syncs."""
+    ys, xs = _cloud(4000, 9, dev), _cloud(3500, 10, dev)
+    w = torch.rand((4000, 4), device=dev)
+    pec.estep_auto(ys, xs, 2.0, 0.05, assume_sorted=True)
+    pgc.gauss_transform_culled(ys, xs, w, 3.0, sort=False)
+    torch.cuda.synchronize()
+    sigma2 = torch.tensor(2.0, device=dev)
+    pec.reset_launches()
+    pgc.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pec.estep_auto(ys, xs, sigma2, 0.05, assume_sorted=True)
+        pgc.gauss_transform_culled(ys, xs, w, 3.0, sort=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert pec.fast_steps() == 1 and pgc.fast_steps() == 1

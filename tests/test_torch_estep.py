@@ -306,7 +306,10 @@ def test_estep_auto_falls_back_past_the_floor_in_both_packages(merged):
 def test_merged_knob_halves_the_stash_budget(monkeypatch):
     """With use_merged_stash each of the two stash buffers gets half the
     cap (reference estep_pallas.py:1468-1470): a cap that holds one
-    1024-column stash halves tile_n under the knob."""
+    1024-column stash halves tile_n under the knob. Off the merged route
+    the start-temperature gate also asks for the tiles under two thirds of
+    the cap (estep_pallas.py:1488-1493): 384 < 768, so the fast branch is
+    off there, and the E-step keeps the full cap's 768."""
     seen = []
     orig = pec._capped_tile_n
     monkeypatch.setattr(pec, "_capped_tile_n", lambda *a, **k: seen.append(
@@ -317,7 +320,7 @@ def test_merged_knob_halves_the_stash_budget(monkeypatch):
     for merged in (False, True):
         monkeypatch.setattr(pcfg.config, "use_merged_stash", merged)
         pec.estep_auto(_t(src), _t(tgt), 0.1, tile_m=TILE, tile_n=768)
-    assert seen == [768, 384]
+    assert seen == [768, 384, 384]
 
 
 # --------------------------------------------------------------------------

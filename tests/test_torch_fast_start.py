@@ -1,0 +1,477 @@
+"""The start-temperature fast branch of the large E-steps, ``matmul_dtype``
+and ``stash_dtype``, held to the JAX package.
+
+The same numpy clouds (made from a seed) go through the JAX package's
+functions (its Pallas kernels in interpret mode) and the port's, which run
+their kernels' plain versions here because the tensors lie on the CPU.
+
+* The gate: the port's branch (read from its device tally, ``FAST_STEPS``)
+  against the reference's own expression (estep_pallas.py:1462-1541 for the
+  CPD E-step, :1324-1340 for the Gauss transform) on the same inputs,
+  across sigma2 and h on both sides of the threshold, and the reference's
+  conditions that switch the gate off (the merged route, a bf16 stash, a
+  budget whose two-thirds tiles are smaller).
+* The plain fast branch against the reference's fast branch. On the CPU
+  the reference's DEFAULT-precision product gives the bits of its HIGHEST
+  one, so its fast branch differs from its exact one only by its bf16
+  stash; the port's plain fast branch also rounds the cross term's
+  operands to bf16. Tolerance, derived: the bound a (<= tol) caps the move
+  of every exp argument, so each Gaussian moves by a factor within
+  e^(+-a); a normalizer den (a sum of Gaussians) moves within the same
+  factor, so p = g / den within e^(+-2a); the two stashes round p's g to
+  bf16 apart (2^-9 each: (1 + 2^-9)^2 < 1 + 2^-8). So every CPD moment,
+  a sum of terms of one sign per entry (p, p |x|, pt1 |x|^2), moves by at
+  most (e^(2a) (1 + 2^-8) - 1) of the sum of its terms' magnitudes; the
+  Gauss transform (no normalizer, no stash) by (e^a (1 + 2^-8) - 1) of
+  sum_j g |w|, the 2^-8 there covering the f32 sums. The cases keep a <=
+  tol / 2, where both lie under the issue's e^tol (1 + 2^-8) - 1. An
+  absolute 1e-6 of the largest entry covers f32 summation order.
+* The bound: on random clouds, the exp argument of the plain fast branch
+  moves from the exact branch's by at most ``fast_bound``.
+* ``stash_dtype`` and ``matmul_dtype`` = bf16 against the reference set the
+  same way: both round the same f32 values to bf16, which the two
+  packages may hold one f32 ulp apart, so a term may round to the other
+  neighbour: 2^-8 of the sum of the terms' magnitudes, plus the absolute
+  1e-6.
+"""
+
+import dataclasses
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from probreg_tpu import config as jcfg  # noqa: E402
+from probreg_tpu.ops import estep as jeo  # noqa: E402
+from probreg_tpu.ops import estep_pallas as jep  # noqa: E402
+from probreg_tpu.ops import pairwise as jpw  # noqa: E402
+from probreg_tpu_torch import config as pcfg  # noqa: E402
+from probreg_tpu_torch.ops import estep as peo  # noqa: E402
+from probreg_tpu_torch.ops import estep_cuda as pec  # noqa: E402
+from probreg_tpu_torch.ops import gausstransform as pgt  # noqa: E402
+from probreg_tpu_torch.ops import gt_cuda as pgc  # noqa: E402
+from probreg_tpu_torch.ops import pairwise as ppw  # noqa: E402
+from probreg_tpu_torch.utils import interop  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+TOL = 0.02          # both packages' estep_fast_start_tol
+TILE_M, TILE_N = 128, 256
+ATOL = 1e-6         # of the largest entry: f32 summation order
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _surface(n, seed, jitter=0.002):
+    """A wavy sheet in 3-D: a smooth surface like the port's
+    blobby_surface, small enough for the plain versions."""
+    rng = np.random.default_rng(seed)
+    uv = rng.uniform(-1, 1, (n, 2))
+    z = 0.3 * np.sin(2.5 * uv[:, 0]) * np.cos(2.0 * uv[:, 1])
+    pts = np.column_stack([uv, z]) + rng.normal(0, jitter, (n, 3))
+    return pts.astype(np.float32)
+
+
+def _pair(m=700, n=650, seed=3):
+    src = _surface(m, seed)
+    c, s = math.cos(0.2), math.sin(0.2)
+    rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    tgt = (_surface(n, seed + 1) @ rot.T).astype(np.float32)
+    return src, tgt
+
+
+def _ref_bound_k3(src, tgt, sigma2):
+    """The reference's estep_auto bound, by its own helpers: scal[0] * 8 *
+    2^-9 * sqrt(max y2 * max x2) over the padded transposes."""
+    _, y2 = jep._pad_transpose(jnp.asarray(src), TILE_M)
+    _, x2 = jep._pad_transpose(jnp.asarray(tgt), TILE_N)
+    inv = (0.5 / jnp.asarray(sigma2, jnp.float32)).astype(jnp.float32)
+    y2max = jnp.max(jnp.where(y2 < jep._BIG * 0.5, y2, 0.0))
+    x2max = jnp.max(jnp.where(x2 < jep._BIG * 0.5, x2, 0.0))
+    return inv * 8.0 * (2.0 ** -9) * jnp.sqrt(y2max * x2max)
+
+
+def _ref_takes_fast_k3(src, tgt, sigma2, merged=False, stash=jnp.float32,
+                       budget=6 << 30):
+    """The reference estep_auto's branch: its static conditions, its
+    tile budgets (estep_pallas.py:1462-1493) and its bound."""
+    m, n = src.shape[0], tgt.shape[0]
+    if merged or jnp.dtype(stash) != jnp.dtype(jnp.float32):
+        return False
+    eff = budget // 2 if merged else budget
+    tn0 = min(TILE_N, ((n + 127) // 128) * 128)
+    tn = jep._capped_stash_tile_n(m, TILE_M, tn0, budget=eff,
+                                  on_overflow="fallback")
+    gated = jep._capped_stash_tile_n(m, TILE_M, tn0, budget=eff * 2 // 3,
+                                     on_overflow="fallback")
+    if tn is None or gated is None or gated < tn:
+        return False
+    return bool(_ref_bound_k3(src, tgt, sigma2) <= TOL)
+
+
+def _port_takes_fast_k3(src, tgt, sigma2):
+    pec.reset_launches()
+    pec.estep_auto(_t(src), _t(tgt), sigma2, 0.05, tile_m=TILE_M,
+                   tile_n=TILE_N)
+    return pec.fast_steps() == 1
+
+
+def _threshold_k3(src, tgt):
+    """sigma2 at which the reference's bound equals TOL (the bound is
+    0.5 / sigma2 times its value at 1 / (2 sigma2) = 1)."""
+    return 0.5 * float(_ref_bound_k3(src, tgt, 0.5)) / TOL
+
+
+# --------------------------------------------------------------------------
+# The gate
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("factor", [0.5, 0.9, 0.99, 1.01, 1.1, 2.0])
+def test_k3_gate_takes_the_references_branch(factor):
+    src, tgt = _pair()
+    sigma2 = _threshold_k3(src, tgt) * factor
+    want = _ref_takes_fast_k3(src, tgt, sigma2)
+    assert want == (factor > 1.0)
+    assert _port_takes_fast_k3(src, tgt, sigma2) == want
+
+
+@pytest.mark.parametrize("knob", ["merged", "bf16_stash", "budget",
+                                  "fast_start_off"])
+def test_k3_gate_is_off_where_the_reference_switches_it_off(monkeypatch,
+                                                            knob):
+    """Each condition alone turns the fast branch off at a sigma2 where
+    the bound fires: the merged route, a bf16 stash, a budget that holds
+    the full tiles but not within two thirds of it (the reference's two
+    resident stashes), and config.estep_fast_start."""
+    src, tgt = _pair()
+    sigma2 = _threshold_k3(src, tgt) * 2.0
+    assert _ref_takes_fast_k3(src, tgt, sigma2)
+    if knob == "merged":
+        monkeypatch.setattr(pcfg.config, "use_merged_stash", True)
+        assert not _ref_takes_fast_k3(src, tgt, sigma2, merged=True)
+    elif knob == "bf16_stash":
+        monkeypatch.setattr(pcfg.config, "stash_dtype", torch.bfloat16)
+        assert not _ref_takes_fast_k3(src, tgt, sigma2, stash=jnp.bfloat16)
+    elif knob == "budget":
+        mp = -(-src.shape[0] // TILE_M) * TILE_M
+        budget = mp * TILE_N * 4          # the full tiles fit exactly
+        monkeypatch.setattr(pcfg.config, "stash_max_bytes", budget)
+        assert not _ref_takes_fast_k3(src, tgt, sigma2, budget=budget)
+    else:
+        monkeypatch.setattr(pcfg.config, "estep_fast_start", False)
+    assert not _port_takes_fast_k3(src, tgt, sigma2)
+
+
+def test_k3_gate_through_the_dispatcher(monkeypatch):
+    """ops/estep.estep reaches the gate on its culled branch, as the
+    reference's estep reaches estep_auto."""
+    monkeypatch.setattr(pcfg.config, "culled_estep_min_pairs", 1000)
+    monkeypatch.setattr(pcfg.config, "small_estep_max_pairs", 0)
+    monkeypatch.setattr(pcfg.config, "tile_m", TILE_M)
+    monkeypatch.setattr(pcfg.config, "tile_n", TILE_N)
+    src, tgt = _pair()
+    thr = _threshold_k3(src, tgt)
+    for factor, want in ((2.0, 1), (0.5, 0)):
+        pec.reset_launches()
+        peo.estep(_t(src), _t(tgt), thr * factor, 0.05, assume_sorted=True)
+        assert pec.fast_steps() == want
+
+
+def _centred(src, tgt):
+    both = np.concatenate([src, tgt]).astype(np.float32)
+    cen = both.sum(0, dtype=np.float32) / np.float32(len(both))
+    return src - cen, tgt - cen
+
+
+def _ref_bound_k6(src, tgt, h):
+    """gauss_transform_culled's bound (estep_pallas.py:1333-1336) on the
+    centred clouds."""
+    s_c, t_c = _centred(src, tgt)
+    _, q2 = jep._pad_transpose(jnp.asarray(t_c), 256)
+    _, p2 = jep._pad_transpose(jnp.asarray(s_c), 128)
+    inv = 1.0 / (jnp.asarray(h, jnp.float32) ** 2)
+    q2max = jnp.max(jnp.where(q2 < jep._BIG * 0.5, q2, 0.0))
+    p2max = jnp.max(jnp.where(p2 < jep._BIG * 0.5, p2, 0.0))
+    return inv * 8.0 * (2.0 ** -9) * jnp.sqrt(q2max * p2max)
+
+
+def _weights(m, seed=5, c=4):
+    return np.random.default_rng(seed).uniform(0.1, 1.0, (m, c)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("factor", [0.5, 0.9, 0.99, 1.01, 1.1, 2.0])
+def test_k6_gate_takes_the_references_branch(factor):
+    src, tgt = _pair(500, 450)
+    # h at which the bound equals TOL (it scales as 1 / h^2).
+    h = math.sqrt(float(_ref_bound_k6(src, tgt, 1.0)) / TOL * factor)
+    want = bool(_ref_bound_k6(src, tgt, h) <= TOL)
+    assert want == (factor > 1.0)
+    w = _weights(500)
+    for fast_start, took in ((None, want), (False, False)):
+        pgc.reset_launches()
+        pgc.gauss_transform_culled(_t(src), _t(tgt), _t(w), h, tile=128,
+                                   fast_start=fast_start)
+        assert pgc.fast_steps() == int(took)
+
+
+def test_k6_gate_through_gauss_transform(monkeypatch):
+    """ops/gausstransform.gauss_transform reaches the gate on its culled
+    branch; ``fast_start=False`` (the sharded FilterReg's shards) and
+    ``config.estep_fast_start = False`` keep the exact branch."""
+    monkeypatch.setattr(pcfg.config, "culled_estep_min_pairs", 1000)
+    src, tgt = _pair(500, 450)
+    h = math.sqrt(float(_ref_bound_k6(src, tgt, 1.0)) / TOL * 2.0)
+    w = _weights(500)
+    for kw, want in (({}, 1), ({"fast_start": False}, 0)):
+        pgc.reset_launches()
+        pgt.gauss_transform(_t(src), _t(tgt), _t(w), h, assume_sorted=True,
+                            **kw)
+        assert pgc.fast_steps() == want
+    monkeypatch.setattr(pcfg.config, "estep_fast_start", False)
+    pgc.reset_launches()
+    pgt.gauss_transform(_t(src), _t(tgt), _t(w), h, assume_sorted=True)
+    assert pgc.fast_steps() == 0
+
+
+# --------------------------------------------------------------------------
+# Against the reference's fast branch
+# --------------------------------------------------------------------------
+
+def _dense_terms(src, tgt, sigma2, w):
+    """f64 magnitudes of each moment's terms: (sum_j p_ij, sum_j p_ij
+    |x_j|, sum_i p_ij (= pt1's magnitude), sum_j pt1_j |x_j|^2)."""
+    y, x = src.astype(np.float64), tgt.astype(np.float64)
+    d2 = ((y[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    g = np.exp(-d2 / (2 * sigma2))
+    dim, m, n = y.shape[1], y.shape[0], x.shape[0]
+    c = (2 * np.pi * sigma2) ** (dim / 2) * w / (1 - w) * m / n
+    p = g / (g.sum(0) + c)
+    pt1 = p.sum(0)
+    return p.sum(1), p @ np.abs(x), pt1, (pt1 * (x * x).sum(1)).sum()
+
+
+def _within(name, got, want, mag, rel):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = float(np.abs(want).max())
+    assert np.all(np.abs(got - want) <= rel * mag + ATOL * scale), (
+        name, float((np.abs(got - want) - rel * mag).max()))
+
+
+@pytest.mark.parametrize("factor", [2.5, 6.0])
+@pytest.mark.parametrize("w", [0.0, 0.1])
+def test_k3_plain_fast_branch_matches_the_references_fast_branch(factor, w):
+    """At sigma2 = factor x the threshold (a = tol / factor <= tol / 2),
+    the port's plain fast branch against the reference's estep_auto with
+    fast_start=True, within (e^(2a) (1 + 2^-8) - 1) of each moment's terms'
+    magnitude."""
+    src, tgt = _pair()
+    sigma2 = _threshold_k3(src, tgt) * factor
+    a = float(_ref_bound_k3(src, tgt, sigma2))
+    assert a <= TOL / 2
+    ref = jep.estep_auto(src, tgt, jnp.float32(sigma2), w, tile_m=TILE_M,
+                         tile_n=TILE_N, interpret=True, fast_start=True)
+    pec.reset_launches()
+    out = pec.estep_auto(_t(src), _t(tgt), sigma2, w, tile_m=TILE_M,
+                         tile_n=TILE_N)
+    assert pec.fast_steps() == 1
+    rel = math.exp(2 * a) * (1 + 2.0 ** -8) - 1
+    p1_mag, px_mag, pt1_mag, xx_mag = _dense_terms(src, tgt, sigma2, w)
+    _within("pt1", out.pt1, ref.pt1, pt1_mag, rel)
+    _within("p1", out.p1, ref.p1, p1_mag, rel)
+    _within("px", out.px, ref.px, px_mag, rel)
+    _within("xx", out.xx, ref.xx, xx_mag, rel)
+    _within("n_p", out.n_p, ref.n_p, p1_mag.sum(), rel)
+    # The exact branch of both packages stays within the repo's own 1e-5.
+    ex = pec.estep_auto(_t(src), _t(tgt), sigma2, w, tile_m=TILE_M,
+                        tile_n=TILE_N, fast_start=False)
+    ref_ex = jep.estep_auto(src, tgt, jnp.float32(sigma2), w, tile_m=TILE_M,
+                            tile_n=TILE_N, interpret=True, fast_start=False)
+    for name, a_, b_ in zip(ref_ex._fields, ref_ex, ex):
+        np.testing.assert_allclose(b_.numpy(), np.asarray(a_), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("factor", [2.5, 6.0])
+def test_k6_plain_fast_branch_matches_the_references_fast_branch(factor):
+    """gauss_transform_culled with the gate on in both packages, at h with
+    a = tol / factor: within (e^a (1 + 2^-8) - 1) of sum_j g |w|."""
+    src, tgt = _pair(500, 450)
+    h = math.sqrt(float(_ref_bound_k6(src, tgt, 1.0)) / TOL * factor)
+    a = float(_ref_bound_k6(src, tgt, h))
+    assert a <= TOL / 2 and jcfg.config.estep_fast_start
+    w = _weights(500)
+    ref = jep.gauss_transform_culled(src, tgt, w, h, tile=128,
+                                     interpret=True)
+    pgc.reset_launches()
+    out = pgc.gauss_transform_culled(_t(src), _t(tgt), _t(w), h, tile=128)
+    assert pgc.fast_steps() == 1
+    d2 = ((tgt[:, None, :].astype(np.float64) - src[None]) ** 2).sum(-1)
+    mag = np.exp(-d2 / h ** 2) @ np.abs(w.astype(np.float64))
+    _within("gt", out, ref, mag, math.exp(a) * (1 + 2.0 ** -8) - 1)
+
+
+# --------------------------------------------------------------------------
+# The bound
+# --------------------------------------------------------------------------
+
+def _clouds_for_bound(seed):
+    rng = np.random.default_rng(seed)
+    yield rng.normal(size=(300, 3)), rng.normal(size=(260, 3))
+    yield (rng.uniform(-1, 1, (300, 3)) + [4.0, -3.0, 2.0],
+           rng.uniform(-1, 1, (280, 3)) + [4.0, -3.0, 2.5])
+    yield rng.normal(size=(200, 3)) * [5.0, 0.1, 1.0], \
+        rng.normal(size=(240, 3)) * [4.0, 0.2, 1.0]
+    yield rng.normal(size=(250, 2)) * 3.0, rng.normal(size=(230, 2))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_exp_argument_error_stays_under_the_bound(seed):
+    """The plain fast branch's exp argument (the bf16 cross term, f32 sum)
+    against the exact branch's, for the CPD E-step (1 / 2 sigma2) and the
+    Gauss transform's expanded form (1 / h^2, 5-D too): never beyond
+    fast_bound, at any inverse scale (the bound is linear in it)."""
+    rng = np.random.default_rng(seed + 10)
+    for y, x in list(_clouds_for_bound(seed)) + [
+            (rng.normal(size=(150, 5)), rng.normal(size=(170, 5)))]:
+        y, x = _t(y), _t(x)
+        y2, x2 = (y * y).sum(1), (x * x).sum(1)
+        inv = 0.37
+        exact = -torch.clamp(y2[:, None] + x2[None] - 2.0 * (y @ x.T),
+                             min=0.0) * inv
+        fast = -torch.clamp(y2[:, None] + x2[None]
+                            - 2.0 * (pec._bf16(y) @ pec._bf16(x).T),
+                            min=0.0) * inv
+        bound = float(pec.fast_bound(y2, x2, inv))
+        err = float((fast - exact).abs().max())
+        assert 0.0 < err <= bound, (err, bound)
+        # The kernels' plain versions stay within it too.
+        live = exact > -80.0
+        nq_tiles = -(-x.shape[0] // pgc._ROWS)
+        g6 = pgc.gauss_transform_culled_plain(
+            x, y, torch.eye(y.shape[0]), inv,
+            torch.ones((1, nq_tiles), dtype=torch.bool), y.shape[0], True)
+        gots = [g6.T]
+        if y.shape[1] <= 3:
+            act = torch.ones(y.shape[0], dtype=torch.bool)
+            gots.append(pec.stash_den_raw_plain(
+                y, y2, x, x2, torch.tensor([inv, 0.0]), act, 1, y.shape[0],
+                True)[0])
+        for g in gots:
+            arg = torch.log(g.double())[live]
+            assert float((arg - exact.double()[live]).abs().max()) \
+                <= bound + 1e-5
+
+
+# --------------------------------------------------------------------------
+# stash_dtype and matmul_dtype
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("merged", [False, True])
+def test_bf16_stash_matches_the_reference(monkeypatch, merged):
+    """config.stash_dtype = bfloat16 against the reference's estep_auto
+    with stash_dtype=bfloat16 (its merged core too): pass B reads g
+    rounded to bf16, den stays f32, and the fast branch is off in both."""
+    src, tgt = _pair()
+    sigma2, w = 0.05, 0.05
+    old = jcfg.config.use_merged_stash
+    jcfg.config.use_merged_stash = merged
+    jcfg.clear_caches()
+    try:
+        ref = jep.estep_auto(src, tgt, jnp.float32(sigma2), w, tile_m=TILE_M,
+                             tile_n=TILE_N, interpret=True,
+                             stash_dtype=jnp.bfloat16)
+    finally:
+        jcfg.config.use_merged_stash = old
+        jcfg.clear_caches()
+    monkeypatch.setattr(pcfg.config, "use_merged_stash", merged)
+    monkeypatch.setattr(pcfg.config, "stash_dtype", torch.bfloat16)
+    pec.reset_launches()
+    out = pec.estep_auto(_t(src), _t(tgt), sigma2, w, tile_m=TILE_M,
+                         tile_n=TILE_N)
+    assert pec.fast_steps() == 0
+    p1_mag, px_mag, pt1_mag, xx_mag = _dense_terms(src, tgt, sigma2, w)
+    # pt1 and xx never see the rounding: the repo's 1e-5.
+    np.testing.assert_allclose(out.pt1.numpy(), np.asarray(ref.pt1),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(float(out.xx), float(ref.xx), rtol=1e-5)
+    _within("p1", out.p1, ref.p1, p1_mag, 2.0 ** -8)
+    _within("px", out.px, ref.px, px_mag, 2.0 ** -8)
+    # And it is not the f32 stash: the rounding shows in p1.
+    monkeypatch.setattr(pcfg.config, "stash_dtype", torch.float32)
+    f32 = pec.estep_auto(_t(src), _t(tgt), sigma2, w, tile_m=TILE_M,
+                         tile_n=TILE_N)
+    assert not torch.equal(f32.p1, out.p1)
+
+
+@pytest.fixture
+def bf16_matmul(monkeypatch):
+    old = jcfg.config.matmul_dtype
+    jcfg.config.matmul_dtype = jnp.bfloat16
+    jcfg.clear_caches()
+    monkeypatch.setattr(pcfg.config, "matmul_dtype", torch.bfloat16)
+    yield
+    jcfg.config.matmul_dtype = old
+    jcfg.clear_caches()
+
+
+def test_bf16_matmul_estep_xla_matches_the_reference(bf16_matmul):
+    """estep_xla with matmul_dtype = bfloat16 in both packages: the cross
+    term's operands (pre-scaled by 1 / sqrt(2 sigma2)) and the moment
+    product's (pmat and [x, 1]) rounded to bf16, the products in f32."""
+    src, tgt = _pair(400, 380)
+    sigma2, w = 0.05, 0.05
+    ref = jeo.estep_xla(src, tgt, jnp.float32(sigma2), w)
+    out = peo.estep_xla(_t(src), _t(tgt), sigma2, w)
+    p1_mag, px_mag, pt1_mag, xx_mag = _dense_terms(src, tgt, sigma2, w)
+    _within("p1", out.p1, ref.p1, p1_mag, 2.0 ** -8)
+    _within("px", out.px, ref.px, px_mag, 2.0 ** -8)
+    _within("pt1", out.pt1, ref.pt1, pt1_mag, 2.0 ** -8)
+    _within("xx", out.xx, ref.xx, xx_mag, 2.0 ** -8)
+    # It is not the f32 product: the rounding shows.
+    pcfg.config.matmul_dtype = torch.float32
+    f32 = peo.estep_xla(_t(src), _t(tgt), sigma2, w)
+    pcfg.config.matmul_dtype = torch.bfloat16
+    assert not torch.equal(f32.p1, out.p1)
+
+
+def test_bf16_matmul_sqdist_matches_the_reference(bf16_matmul):
+    src, tgt = _pair(300, 280)
+    ref = np.asarray(jpw.sqdist(src, tgt))
+    out = ppw.sqdist(_t(src), _t(tgt)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5 * ref.max())
+    exact = ((src[:, None].astype(np.float64) - tgt[None]) ** 2).sum(-1)
+    assert np.abs(out - exact).max() > 1e-4  # the bf16 rounding shows
+
+
+# --------------------------------------------------------------------------
+# The carry across
+# --------------------------------------------------------------------------
+
+def test_config_from_reference_carries_the_four_fields():
+    fields = dataclasses.asdict(jcfg.Config())
+    cfg = interop.config_from_reference(fields)
+    assert cfg.estep_fast_start is True and cfg.estep_fast_start_tol == 0.02
+    assert cfg.matmul_dtype == torch.float32
+    assert cfg.stash_dtype == torch.float32
+    fields.update(estep_fast_start=False, estep_fast_start_tol=0.005,
+                  matmul_dtype=jnp.bfloat16, stash_dtype=jnp.bfloat16)
+    cfg = interop.config_from_reference(fields)
+    assert cfg.estep_fast_start is False and cfg.estep_fast_start_tol == 0.005
+    assert cfg.matmul_dtype == torch.bfloat16
+    assert cfg.stash_dtype == torch.bfloat16
+    with pytest.raises(ValueError):
+        interop.config_from_reference({"stash_dtype": jnp.float16})

@@ -154,7 +154,8 @@ def test_kernel_sources_ship_with_the_package():
     from probreg_tpu_torch.ops import _build
 
     for name in ("estep.cu", "em.cu", "frg.cu", "gt.cu", "icp.cu",
-                 "wstash.cu", "gmmtree.cu", "em_common.cuh"):
+                 "wstash.cu", "gmmtree.cu", "em_common.cuh",
+                 "bf16_mma.cuh"):
         assert (_build.CSRC / name).exists(), name
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
         "em", "estep", "frg", "gmmtree", "gt", "icp", "wstash"]

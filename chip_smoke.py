@@ -17,17 +17,20 @@ before it and read just after:
 * the start-temperature fast branch (config.estep_fast_start): on
   benchmarks/bench_stash_passes.py's case (blobby_surface(131072, seed=0)
   against a copy jittered by 0.002, sigma2 0.67, where the gate fires) K3's
-  fast passes (stash_den_fast, stash_moment_fast: the cross term on bf16
-  tensor cores) and its bf16-stash pass B (stash_moment_bf16, and K12's,
-  stash_merged_bf16) against their plain versions, timed beside the exact
-  passes, and K6's fast kernel (gauss_transform_fast) on FilterReg's first
-  E-step of that pair; one gated K3 and K6 call under
+  fast passes (stash_den_fast, stash_moment_fast: the cross term, and pass
+  B's moments, on bf16 tensor cores, the Gaussian by exp2f) and its
+  bf16-stash pass B (stash_moment_bf16, and K12's, stash_merged_bf16)
+  against their plain versions, each fast pass timed in turns with its
+  exact twin, and K6's fast kernel (gauss_transform_fast) on FilterReg's
+  first E-step of that pair; one gated K3 and K6 call under
   torch.cuda.set_sync_debug_mode("error"); rigid CPD and FilterReg on
   blobby_surface(150_000, seed=0) against itself turned by Euler (3, -2,
   5) degrees and jittered, fast start on and off (each gated call
   launches both branches' kernels, the device flag picks the one that
-  runs; the E-steps on the fast branch counted on the device), and 10
-  iterations with config.stash_dtype = bfloat16 through K3 and K12;
+  runs; the E-steps on the fast branch counted on the device; the fast
+  launches that an exact E-step makes and does not take timed by CUDA
+  events), and 10 iterations with config.stash_dtype = bfloat16 through
+  K3 and K12;
 * the same clouds with use_pallas=True at a smaller depth: the streaming EM
   with the two-pass kernels (fused_den, fused_moment);
 * the public E-step on a 1,000-point pair (RigidCPD.expectation_step):
@@ -233,6 +236,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 # bf16 on the tensor cores, dense (the same data sheet).
 PEAK_BF16_FLOPS = 989e12
+# The MUFU (the SFU: ex2, lg2, rcp) returns 16 results a clock an SM on
+# compute capability 9.0 (CUDA C++ Programming Guide, "Arithmetic
+# Instructions", throughput of native arithmetic instructions), 132 SMs at
+# the H100 SXM's 1.98 GHz boost clock (data sheet): exps a second. bound()
+# counts it as its own pipe beside the f32 one.
+PEAK_SFU_OPS = 16 * 132 * 1.98e9
 # f32 operations per pair, counting one exp as one operation: the Gaussian
 # (dot 5, |y|^2 + |x|^2 - 2 y.x 3, max and scale 2, exp 1) is 11, its column
 # sum 1; normalizing (1) and the p1 / px sums (1 + 6) are 8.
@@ -409,6 +418,12 @@ def flops_level_em(k: int) -> int:
     return 8 * (FLOPS_GMM_GAUSS + 3 + 20) + 6 + k * (FLOPS_GMM_GAUSS + 1) + 2
 
 
+def mufu_level_em(k: int) -> int:
+    """MUFU results per point and iteration of K9 (flops_level_em's): the
+    8 children's exps, the stop test's k exps and its log."""
+    return 8 + k + 1
+
+
 def flops_gmm_reg(levels: float) -> float:
     """f32 operations per point and iteration of K10 whose descent visits
     ``levels`` levels on average: the transform (18), per level 8 Gaussians
@@ -458,13 +473,18 @@ def evented(spans, name, fn):
     return run
 
 
-def bound(nbytes: float, flops: float, bf16_flops: float = 0.0):
-    """(ms, "bytes" or "operations"): the larger of the bytes over the
-    memory rate and the operations over their peak rates (f32 outside the
-    tensor cores, bf16 on them, each at its own rate)."""
+def bound(nbytes: float, flops: float, bf16_flops: float = 0.0,
+          exps: float = 0.0):
+    """(ms, "bytes", "operations" or "operations, SFU"): the largest of the
+    bytes over the memory rate, the f32 and bf16 operations over their peak
+    rates (f32 outside the tensor cores, bf16 on them, the two times
+    added), and the exps (and logs) over the MUFU's rate, PEAK_SFU_OPS.
+    The kernels line names the last one "operations" too."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = (flops / PEAK_F32_FLOPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_sfu = exps / PEAK_SFU_OPS * 1e3
+    return max((t_bytes, "bytes"), (t_ops, "operations"),
+               (t_sfu, "operations, SFU"), key=lambda b: b[0])
 
 
 def compare(name, got, want):
@@ -599,7 +619,8 @@ def check_small(dev, kernels):
             lambda: ec.estep_small(ys, xs, sigma2, w))
         plain_ms = timed(lambda: ec.estep_small_plain(ys, xs, scal), 20)
         nbytes = 4 * dim * (m + n) + 4 + 4 * n + 4 * m * (1 + dim) + 8
-        b_ms, b_by = bound(nbytes, m * n * (FLOPS_GAUSS + FLOPS_MOMENTS))
+        b_ms, b_by = bound(nbytes, m * n * (FLOPS_GAUSS + FLOPS_MOMENTS),
+                           exps=m * n)
         log(f"  device time (torch.profiler): K2 {dev_ms:.5f} ms "
             f"({dev_ms / dev_floor_coop:.2f} x the empty cooperative "
             f"launch's); bound {b_ms:.5f} ms ({b_by})")
@@ -703,13 +724,13 @@ def estep_pass_bounds(m, n, pairs):
     inputs and outputs, each read or written once: pass A reads both clouds
     and writes pt1 and inv_den, with the Gaussian and its column sum (12
     operations per active pair); pass B reads both clouds and inv_den,
-    writes p1 and px, and needs the Gaussian again (11 + 8). A stash is a
-    kernel's intermediate, not the function's: its bytes are not charged
-    (K4 computes the same two passes without one), so K3 and K4 share these
-    bounds."""
-    return (bound(12 * (m + n) + 8 * n, pairs * FLOPS_GAUSS),
+    writes p1 and px, and needs the Gaussian again (11 + 8); one exp a
+    pair in each pass. A stash is a kernel's intermediate, not the
+    function's: its bytes are not charged (K4 computes the same two passes
+    without one), so K3 and K4 share these bounds."""
+    return (bound(12 * (m + n) + 8 * n, pairs * FLOPS_GAUSS, exps=pairs),
             bound(12 * (m + n) + 4 * n + 16 * m,
-                  pairs * (FLOPS_GAUSS - 1 + FLOPS_MOMENTS)))
+                  pairs * (FLOPS_GAUSS - 1 + FLOPS_MOMENTS), exps=pairs))
 
 
 def estep_peak_mib(fn):
@@ -856,7 +877,7 @@ def check_stash_merged(dev, kernels, shared):
         plain_ms = timed(lambda: ec.stash_merged_estep_plain(
             ys, xs, scal, mask, tile_m, tile_n), 2)
         b = bound(12 * (m + n) + 8 * n + 16 * m,
-                  pairs * (FLOPS_GAUSS + FLOPS_MOMENTS))
+                  pairs * (FLOPS_GAUSS + FLOPS_MOMENTS), exps=pairs)
         k3 = stash_ms.get(regime)
         beside = "" if k3 is None else \
             f"  [K3 on the same inputs: {k3[0] + k3[1]:.3f} ms]"
@@ -1047,7 +1068,8 @@ def check_em(dev, kernels):
                        update_scale=True)
             its = int(em._em_cuda(s_c, t_c, None, **raw)[0, 14])
             m, n = src.shape[0], tgt.shape[0]
-            b_ms, b_by = bound(12 * (m + n) + 64, its * m * n * FLOPS_EM)
+            b_ms, b_by = bound(12 * (m + n) + 64, its * m * n * FLOPS_EM,
+                               exps=its * m * n)
             log_single_pair(f"{name} {kind}", lambda **k: em._em_cuda(
                 s_c, t_c, None, **raw, **k), its,
                 f"bound {b_ms:.4f} ms ({b_by})")
@@ -1099,7 +1121,7 @@ def check_em(dev, kernels):
                              dtype=torch.float64)
         pair_its = float(sizes.prod(1).sum()) * EM_BATCH_ITERS
         b_ms, b_by = bound(float(12 * sizes.sum() + 64 * len(batch)),
-                           pair_its * FLOPS_EM)
+                           pair_its * FLOPS_EM, exps=pair_its)
         log(f"  kernel {ms:.3f} ms  plain {plain_ms:.1f} ms (a host loop "
             f"over the pairs)  bound {b_ms:.4f} ms ({b_by}), "
             f"{pair_its:.4g} pair-iterations")
@@ -1114,7 +1136,8 @@ def check_em(dev, kernels):
         log(f"  served (maxiter 50, tol 1e-3): iterations {int(it.min())}-"
             f"{int(it.max())}, kernel {ms:.3f} ms, {pair_its:.4g} "
             f"pair-iterations, bound "
-            f"{bound(0.0, pair_its * FLOPS_EM)[0]:.4f} ms (operations)")
+            f"{bound(0.0, pair_its * FLOPS_EM, exps=pair_its)[0]:.4f} ms "
+            "(operations)")
 
 
 def _kernel_modules():
@@ -1350,13 +1373,23 @@ def check_fast_start(dev, kernels):
     log("  bf16 stash, K12's pass B (stash_merged_bf16):")
     err12 = max(compare("p1", r12[1], w12[1]), compare("px", r12[2], w12[2]))
     del r12, w12
-    plan = ec.StashPlan(ys, xs, scal, mask, tile_m, tile_n, gate=gate)
-    ms_a, ms_b = timed(plan.den_fast, 5), timed(plan.moment_fast, 5)
-    ms_gated = timed(plan.run, 5)
-    del plan
-    plan = ec.StashPlan(ys, xs, scal, mask, tile_m, tile_n)
-    ex_a, ex_b = timed(plan.den, 5), timed(plan.moment, 5)
-    del plan
+    # Each fast pass and its exact twin on the same inputs, in turns (fast,
+    # exact, exact, fast), pass B after its own pass A.
+    fast = ec.StashPlan(ys, xs, scal, mask, tile_m, tile_n, gate=gate)
+    exact = ec.StashPlan(ys, xs, scal, mask, tile_m, tile_n)
+    turns = {"fast A": [], "exact A": [], "fast B": [], "exact B": []}
+    for a_fn, b_fn, key in ((fast.den_fast, fast.moment_fast, "fast"),
+                            (exact.den, exact.moment, "exact"),
+                            (exact.den, exact.moment, "exact"),
+                            (fast.den_fast, fast.moment_fast, "fast")):
+        turns[key + " A"].append(timed(a_fn, 5))
+        turns[key + " B"].append(timed(b_fn, 5))
+    ms_a, ex_a, ms_b, ex_b = (float(np.mean(turns[k])) for k in (
+        "fast A", "exact A", "fast B", "exact B"))
+    ms_op = timed(lambda: ec.moment_operand(fast.xs, fast.inv_den, tile_n),
+                  5)
+    ms_gated = timed(fast.run, 5)
+    del fast, exact
     plan = ec.StashPlan(ys, xs, scal, mask, tile_m, tile_n, round_g=True)
     ms16 = timed(plan.moment, 5)
     del plan
@@ -1370,16 +1403,23 @@ def check_fast_start(dev, kernels):
     p12 = timed(lambda: ec.stash_merged_estep_plain(
         ys, xs, scal, mask, tile_m, tile_n, True), 1)
     cross = pairs * 2 * ys.shape[1]
-    ba = bound(12 * (m + n) + 8 * n, pairs * FLOPS_FAST_A, cross)
-    bb = bound(12 * (m + n) + 4 * n + 16 * m, pairs * FLOPS_FAST_B, cross)
+    ba = bound(12 * (m + n) + 8 * n, pairs * FLOPS_FAST_A, cross, pairs)
+    bb = bound(12 * (m + n) + 4 * n + 16 * m, pairs * FLOPS_FAST_B, cross,
+               pairs)
     b16 = bound(12 * (m + n) + 4 * n + 16 * m,
-                pairs * (FLOPS_GAUSS - 1 + FLOPS_MOMENTS + 1))
+                pairs * (FLOPS_GAUSS - 1 + FLOPS_MOMENTS + 1), exps=pairs)
     b12 = bound(12 * (m + n) + 8 * n + 16 * m,
-                pairs * (FLOPS_GAUSS + FLOPS_MOMENTS + 1))
+                pairs * (FLOPS_GAUSS + FLOPS_MOMENTS + 1), exps=pairs)
+    for key in turns:
+        log(f"  {key} in turns (fast, exact, exact, fast): "
+            f"{', '.join(f'{t:.3f}' for t in turns[key])} ms")
     log(f"  fast pass A {ms_a:.3f} ms  plain {pa:.3f} ms  bound {ba[0]:.3f} "
-        f"ms ({ba[1]})  [exact pass A {ex_a:.3f} ms]")
-    log(f"  fast pass B {ms_b:.3f} ms  plain {pb:.3f} ms (from pass A's g) "
-        f" bound {bb[0]:.3f} ms ({bb[1]})  [exact pass B {ex_b:.3f} ms]")
+        f"ms ({ba[1]})  [exact pass A {ex_a:.3f} ms: fast / exact "
+        f"{ms_a / ex_a:.3f}]")
+    log(f"  fast pass B {ms_b:.3f} ms (its moment_operand {ms_op:.3f} ms of "
+        f"it)  plain {pb:.3f} ms (from pass A's g)  bound {bb[0]:.3f} ms "
+        f"({bb[1]})  [exact pass B {ex_b:.3f} ms: fast / exact "
+        f"{ms_b / ex_b:.3f}]")
     log(f"  one gated E-step (both branches' launches, the fast ones run) "
         f"{ms_gated:.3f} ms; exact E-step {ex_a + ex_b:.3f} ms")
     log(f"  bf16-stash pass B {ms16:.3f} ms  plain {pb16:.3f} ms  bound "
@@ -1435,7 +1475,7 @@ def check_fast_start(dev, kernels):
     p6 = timed(lambda: gc.gauss_transform_culled_plain(*prep, gate6), 2)
     nq, mp = qs.shape[0], ps.shape[0]
     b6 = bound(4 * (3 * (nq + mp) + 4 * (mp + nq)), pairs6 * (6 + 2 * 4),
-               pairs6 * 2 * 3)
+               pairs6 * 2 * 3, pairs6)
     log(f"  fast kernel {ms6:.3f} ms  plain {p6:.3f} ms  bound {b6[0]:.3f} "
         f"ms ({b6[1]})  [both launches {ms6_gated:.3f} ms; exact kernel "
         f"{ex6:.3f} ms]")
@@ -1527,6 +1567,7 @@ def run_fast_start(dev, launches):
         f"{FAST_ROT_AGREE:g})")
     if not d_rot <= FAST_ROT_AGREE:
         raise AssertionError("fast start on and off disagree")
+    not_taken_fast_launches(src, tgt)
 
     frg = {}
     for on in (True, False):
@@ -1588,6 +1629,45 @@ def run_fast_start(dev, launches):
                 or ec.fast_steps() or not d <= FAST_ROT_AGREE:
             raise AssertionError(f"bf16 stash, merged {merged}: {got}")
         launches[key] = got[key]
+
+
+def not_taken_fast_launches(src, tgt):
+    """The cost of the fast branch on the E-steps that do not take it: one
+    more fast-start run of the flat 150k CPD with each fast pass call (pass
+    A's launch; pass B's moment_operand and launch) between CUDA events,
+    summed over the E-steps whose flag was 0."""
+    from probreg_tpu_torch import cpd
+    from probreg_tpu_torch.ops import estep_cuda as ec
+
+    spans = []
+    saved = ec.StashPlan.den_fast, ec.StashPlan.moment_fast
+
+    def traced(name, fn):
+        def run(self, g_dump=None):
+            return evented(spans, (name, self.gate), fn)(self, g_dump)
+        return run
+
+    ec.StashPlan.den_fast = traced("A", saved[0])
+    ec.StashPlan.moment_fast = traced("B", saved[1])
+    try:
+        t0 = time.perf_counter()
+        cpd.registration_cpd(src, tgt, "rigid", **FAST_CPD_ARGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ec.StashPlan.den_fast, ec.StashPlan.moment_fast = saved
+    idle = {"A": [], "B": []}
+    for (name, gate), e0, e1 in spans:
+        if int(gate) == 0:
+            idle[name].append(e0.elapsed_time(e1))
+    total = sum(idle["A"]) + sum(idle["B"])
+    log(f"  not-taken fast launches, {len(idle['A'])} exact E-steps of "
+        f"{len(spans) // 2} (CUDA events): fast pass A "
+        f"{np.mean(idle['A']):.4f} ms, moment_operand + fast pass B "
+        f"{np.mean(idle['B']):.4f} ms per E-step; {total:.3f} ms of the "
+        f"{wall:.3f} s call (events on)")
+    if not idle["A"] or len(idle["A"]) != len(idle["B"]):
+        raise AssertionError("no exact E-step launched the fast passes")
 
 
 def run_two_pass_path(dev, launches):
@@ -2110,7 +2190,8 @@ def check_frg(dev, kernels):
                        auto_sigma2=True, sigma2_0=0.0)
             chans = 7 if pt2pl else 4
             b_ms, b_by = bound(12 * (m + 2 * n) + 64,
-                               50 * m * n * flops_frg(chans))
+                               50 * m * n * flops_frg(chans),
+                               exps=50 * m * n)
             log_single_pair(f"{name} {obj}", lambda **k: fc._frg_cuda(
                 s_c, t_c, n_c, None, **raw, **k), 50,
                 f"bound {b_ms:.4f} ms ({b_by})")
@@ -2182,7 +2263,8 @@ def check_frg(dev, kernels):
         nbytes = float(12 * sizes[:, 0].sum()
                        + (24 if obj == "pt2pl" else 12) * sizes[:, 1].sum()
                        + 64 * len(batch))
-        b_ms, b_by = bound(nbytes, pair_its * flops_frg(chans))
+        b_ms, b_by = bound(nbytes, pair_its * flops_frg(chans),
+                           exps=pair_its)
         log(f"  kernel {ms:.3f} ms  plain {plain_ms:.1f} ms (a host loop "
             f"over the pairs)  bound {b_ms:.4f} ms ({b_by}), "
             f"{pair_its:.4g} pair-iterations")
@@ -2250,7 +2332,7 @@ def check_gt(dev, kernels):
         plain_ms = timed(lambda: gc.gauss_transform_culled_plain(*prep), 2)
         nq, m = qs.shape[0], ps.shape[0]
         b_ms, b_by = bound(4 * (3 * (nq + m) + chans * (m + nq)),
-                           pairs * flops_frg(chans))
+                           pairs * flops_frg(chans), exps=pairs)
         log(f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
             f"{b_ms:.3f} ms ({b_by})")
         out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -2765,9 +2847,9 @@ def check_wstash(dev, kernels):
                                     tile_n)
         fa, fb = flops_wstash(c)
         # Each pass's own inputs and outputs; the stash is not charged.
-        ba = bound(16 * m + 12 * n + 8 * n, pairs * fa)
+        ba = bound(16 * m + 12 * n + 8 * n, pairs * fa, exps=pairs)
         bb = bound(16 * m + 12 * n + 4 * (c + 1) * n + 4 * (c + 2) * m,
-                   pairs * fb)
+                   pairs * fb, exps=pairs)
         log(f"  one E-step: peak device memory {peak:.3f} MiB above its "
             f"inputs ({m:,} x {tile_n} f32 would be "
             f"{4 * m * tile_n / 2**20:.1f} MiB)")
@@ -3153,7 +3235,8 @@ def check_gmmtree_build(dev, kernels):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     b_ms, b_by = bound(16 * n + 80 * k + 8,
-                       float(n) * flops_level_em(k) * GMM_BUILD_ITERS)
+                       float(n) * flops_level_em(k) * GMM_BUILD_ITERS,
+                       exps=float(n) * mufu_level_em(k) * GMM_BUILD_ITERS)
     log(f"  {N_GMM:,} points, level 1 ({k} nodes), {GMM_BUILD_ITERS} "
         f"iterations: kernel {ms:.3f} ms ({ms / GMM_BUILD_ITERS:.3f} ms per "
         f"iteration) on {per} blocks; {one_ms:.3f} ms on one block  plain "
@@ -3257,7 +3340,8 @@ def check_gmmtree_reg(dev, kernels):
         work += float((1.0 + (node >= 8).double()).sum())
     n_all = float(counts.sum())
     b_ms, b_by = bound(12 * n_all + 4 * table.numel() + 64 * len(rigid),
-                       GMM_REG_ITERS * n_all * flops_gmm_reg(work / n_all))
+                       GMM_REG_ITERS * n_all * flops_gmm_reg(work / n_all),
+                       exps=GMM_REG_ITERS * 8 * work)
     log(f"  batch kernel {ms:.3f} ms  plain {plain_ms:.1f} ms (a host loop "
         f"over the pairs)  bound {b_ms:.4f} ms ({b_by}); mean descent depth "
         f"{work / n_all:.3f} levels")
@@ -3435,7 +3519,8 @@ def run_gmmtree_large(dev, launches, kernels):
     node, _ = gc._descend(ys[0], table[0], 2, 0.01)
     depth = float((1.0 + (node >= 8).double()).mean())
     b_ms, b_by = bound(12 * N_GMM + 4 * table.numel() + 64,
-                       GMM_REG_ITERS * N_GMM * flops_gmm_reg(depth))
+                       GMM_REG_ITERS * N_GMM * flops_gmm_reg(depth),
+                       exps=GMM_REG_ITERS * N_GMM * 8 * depth)
     plain_ms = timed(lambda: gc.run_gmmtree_reg_fused_plain(
         ys, counts, table, init, **kw), 1)
     its = int(gc._reg_cuda(ys, counts, table, init, max_level=2,
@@ -3640,7 +3725,7 @@ def check_pyramid_estep(n, inputs, kernels):
     m, n_x = ys.shape[0], xs.shape[0]
     pairs = active_pairs(mask, m, n_x, tile_m, tile_n)
     b12 = bound(12 * (m + n_x) + 8 * n_x + 16 * m,
-                pairs * (FLOPS_GAUSS + FLOPS_MOMENTS))
+                pairs * (FLOPS_GAUSS + FLOPS_MOMENTS), exps=pairs)
     ms12 = timed(lambda: ec.stash_merged_estep(*inputs), 3)
     ms3 = timed(lambda: ec.stash_estep(*inputs), 3)
     log(f"  one E-step on these inputs: K12 {ms12:.3f} ms, K3 {ms3:.3f} ms; "
@@ -7271,7 +7356,8 @@ def main() -> int:
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],
-         **kernels[name], "library_ms": None}
+         **kernels[name], "bound_by": kernels[name]["bound_by"].split(",")[0],
+         "library_ms": None}
         for name, (source, replaces) in KERNELS.items()]}
     print(json.dumps(line))
     print(card)

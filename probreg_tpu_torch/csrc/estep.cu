@@ -3,11 +3,12 @@
 // The two-pass kernels take points packed as float4 (x, y, z, |p|^2), one
 // 16-byte load per point; clouds of dimension < 3 carry zeros in the unused
 // coordinates. K2 reads the (., D) clouds as they are and forms |p|^2
-// itself. Every kernel computes the Gaussian of a pair exactly as the
+// itself. Every exact kernel computes the Gaussian of a pair as the
 // reference's _dist_tile: d2 = max(|y|^2 + |x|^2 - 2 y.x, 0), g =
 // expf(-d2 * inv2s2), in IEEE f32 (FMAs, expf, IEEE division; no
 // fast-math: FTZ or the approximate exp would change results near the 104
-// cull bound).
+// cull bound). K3's fast passes (below) take exp2f on a pre-scaled
+// argument, still without FTZ.
 //
 // Scalars come from the device (scal = [0.5 / sigma2, outlier c]; K2 forms
 // them from sigma2 itself) so an EM iteration needs no host round trip.
@@ -837,26 +838,39 @@ stash_finish_kernel(const float4* __restrict__ xs, int n, int tile_n,
 // fast_gate): there the cross term y.x is one bf16 pass of the TPU's matrix
 // unit. Here it is one mma.sync.m16n8k8 (bf16 operands, f32 accumulator) per
 // 16 sources x 8 targets: the coordinates are rounded to bf16 to nearest
-// and zero-padded from D <= 3 to k = 8. Everything else is K3's: |y|^2 and
-// |x|^2 in f32 from the unrounded points (the packed w), d2 = max(|y|^2 +
-// |x|^2 - 2 y.x, 0) and expf with every rounding spelled out, the same
-// culled tiles, pass A's column sums per active tile added in tile order,
-// the finalisation of den_finish_col, and pass B's sums per stripe added in
-// stripe order with p = g * inv_den; pass B rounds each g to bf16 before
-// its moments (the reference's bf16 stash) and den stays f32 (summed before
-// the rounding, as the reference sums it before its cast).
+// and zero-padded from D <= 3 to k = 8. |y|^2 and |x|^2 stay f32 from the
+// unrounded points (the packed w), pre-scaled: -|x|^2 / 2 is the mma's
+// addend and |y|^2 k a row's, so fast_gauss forms exp2f(max(d2, 0) k) with
+// one FMA and one min before the exp; the culled tiles are K3's; pass A
+// sums each column per active tile and adds the tiles in tile order, then
+// den_finish_col; den stays f32 (summed before any rounding, as the
+// reference sums it before its cast).
+//
+// Pass B reads the reference's bf16 stash: p = bf16(g) inv_den, px = x . p.
+// Written as sum_n bf16(g)_mn v_n with v_n = inv_den_n (x_n, y_n, z_n, 1),
+// it is a product on the tensor cores: estep_cuda.moment_operand splits
+// each f32 v_n into three bf16 pieces (hi, mid, lo: their sum is v_n to
+// ~2^-24), laid out in the B-fragment order of mma.sync.m16n8k16. g is
+// exactly bf16, so each product with a piece is exact in the f32
+// accumulator. The C fragments of two adjacent m16n8 cross-term tiles,
+// each Gaussian packed to bf16 (the reference's cast), are the A fragment
+// of m16n8k16 as they stand (FlashAttention-2's register reuse): per 16
+// sources x 16 targets, two mma.sync m16n8k8 form the cross terms and two
+// m16n8k16 the moments (B columns: channel c's hi and mid in 2c and 2c + 1
+// of the first, its lo in 2c of the second), so lane tig ends with channel
+// tig of its rows. Each stripe's sums (hi + (mid + lo)) go into the row's
+// total in stripe order, K3's association at the stripe level.
 //
 // Same g in both passes: both put the sources in the A operand (rows) and
 // the targets in B (columns), in 16-row groups from a source tile's start
 // and 8-column groups from a stripe's start, so each pair takes the same
 // fragment slot of the same instruction in either pass, and both call
-// fast_gauss on it.
+// fast_gauss on it with the same k.
 //
-// The tile helpers (pack_bf16, mma_bf16, fast_gauss) are bf16_mma.cuh's.
-//
-// Bound: the FP32 pipe, as K3's passes: the tensor cores take the cross
-// term (~3 of K3's ~17 instructions per pair), and the rest of the
-// Gaussian, the sums and the moments stay on the FP32 pipe and the MUFU.
+// Bound: the MUFU, 16 ex2 a clock an SM, one a pair. A pair's other work
+// issues faster: the FMA and the min, exp2f's subnormal scaling (a compare
+// and two predicated multiplies), and pass A's column sum or pass B's half
+// a bf16 pack, ~6 of the 128 FP32-pipe lanes' slots against the MUFU's 8.
 // The launch takes a device flag and returns at once where it is 0 (K3's
 // exact kernels, launched beside it, return where it is 1).
 // ---------------------------------------------------------------------------
@@ -872,29 +886,25 @@ __device__ __forceinline__ uint32_t frag_k(uint2 v, int tig) {
   return tig == 0 ? v.x : (tig == 1 ? v.y : 0u);
 }
 
-__device__ __forceinline__ float quad_sum(float v) {  // over the 4 tig lanes
-  v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
+constexpr int kFastDenWarps = 8;   // pass A's block
+constexpr int kFastDenThreads = 32 * kFastDenWarps;
+constexpr int kFastWarpCols = kDenThreads / kFastDenWarps;  // 32
+constexpr int kFastColTiles = kFastWarpCols / 8;            // 4
+constexpr int kFastDenGroups = 4;  // 16-row groups in flight a warp
 
-__device__ __forceinline__ float4 quad_sum4(float4 v) {
-  return make_float4(quad_sum(v.x), quad_sum(v.y), quad_sum(v.z),
-                     quad_sum(v.w));
-}
-
-constexpr int kFastWarpCols = kDenThreads / (kPairThreads / 32);  // 64
-constexpr int kFastColTiles = kFastWarpCols / 8;                   // 8
-
-// Pass A: K3's grid (column chunks of 256, n_j stripes), kPairThreads
-// threads; warp w holds columns [64 w, 64 w + 64) of the chunk as 8 column
-// tiles and walks the stripe's active source tiles 256 rows at a time, 16
-// at a time through the tensor cores. A lane sums its two rows of each
-// group for its two columns of each column tile; at a tile's end the 8
-// lanes of a column add their sums (a butterfly: the same bits in each)
-// and the tile's sum goes into the column's den.
+// Pass A: K3's grid (column chunks of 256, n_j stripes), kFastDenThreads
+// threads; warp w holds columns [32 w, 32 w + 32) of the chunk as 4 column
+// tiles and walks the stripe's active source tiles 256 rows at a time, 64
+// at a time through the tensor cores (four 16-row groups in flight: as
+// many independent exp chains as the card measured fastest). A lane sums
+// its two rows of each group for its two columns of each column tile, the
+// groups in row order; at a tile's end the 8 lanes of a column add their
+// sums (a butterfly: the same bits in each) and the tile's sum goes into
+// the column's den. Rows past a tile's end are staged with |y|^2 k = -inf:
+// their Gaussian is exactly 0, so every pair adds without a select.
 // kDump (tests only): every g the pass forms also goes to g_dump (m, n).
 template <bool kDump>
-__global__ void __launch_bounds__(kPairThreads)
+__global__ void __launch_bounds__(kFastDenThreads)
 den_fast_kernel(const float4* __restrict__ ys, int m, int tile_m, int n_i,
                 const float4* __restrict__ xs, int n, int tile_n,
                 const int* __restrict__ act_idx,   // (n_j, n_i)
@@ -907,8 +917,8 @@ den_fast_kernel(const float4* __restrict__ ys, int m, int tile_m, int n_i,
                 float* __restrict__ g_dump) {
   if (*run == 0) return;  // the exact branch runs
   __shared__ uint2 yb[kDenThreads];   // staged rows' bf16 coordinates
-  __shared__ float y2s[kDenThreads];  // and their |y|^2
-  __shared__ float warps[kPairThreads / 32];
+  __shared__ float y2s[kDenThreads];  // and their |y|^2 k
+  __shared__ float warps[kFastDenWarps];
   const int stripe = blockIdx.y, cx = blockIdx.x;
   const int c0 = stripe * tile_n;
   const int ncols = min(tile_n, n - c0);
@@ -923,6 +933,7 @@ den_fast_kernel(const float4* __restrict__ ys, int m, int tile_m, int n_i,
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   uint32_t bf[kFastColTiles];
   float x2c[kFastColTiles][2], den[kFastColTiles][2];
+  float4 xc[kFastColTiles];  // the mma's addend: -|x|^2 / 2 at both rows
 #pragma unroll
   for (int q = 0; q < kFastColTiles; ++q) {
     const int cb = wc + 8 * q + gid;
@@ -933,8 +944,10 @@ den_fast_kernel(const float4* __restrict__ ys, int m, int tile_m, int n_i,
       x2c[q][e] = cc < ncols ? xs[c0 + cc].w : 0.0f;
       den[q][e] = 0.0f;
     }
+    const float l = fast_col(x2c[q][0]), h = fast_col(x2c[q][1]);
+    xc[q] = make_float4(l, h, l, h);
   }
-  const float inv2s2 = scal[0];
+  const float k = fast_scale(scal[0]);
   const int cnt = act_cnt[stripe];
   const int* idx = act_idx + (size_t)stripe * n_i;
   for (int t = 0; t < cnt; ++t) {
@@ -944,37 +957,43 @@ den_fast_kernel(const float4* __restrict__ ys, int m, int tile_m, int n_i,
     for (int rc = r0; rc < r1; rc += kDenThreads) {
       const int nr = min(kDenThreads, r1 - rc);
       __syncthreads();
-      for (int r = threadIdx.x; r < kDenThreads; r += kPairThreads) {
-        const float4 y = r < nr ? ys[rc + r] : zero;
+      for (int r = threadIdx.x; r < kDenThreads; r += kFastDenThreads) {
+        const bool ok = r < nr;
+        const float4 y = ok ? ys[rc + r] : zero;
         yb[r] = bf16_coords(y);
-        y2s[r] = y.w;
+        y2s[r] = ok ? fast_row(y.w, k) : -__int_as_float(0x7f800000);
       }
       __syncthreads();
-      for (int g0 = 0; g0 < nr; g0 += 16) {
-        const int ra = g0 + gid, rb = ra + 8;
-        const uint32_t a0 = frag_k(yb[ra], tig), a1 = frag_k(yb[rb], tig);
-        const float y2a = y2s[ra], y2b = y2s[rb];
-        const bool va = ra < nr, vb = rb < nr;
+      for (int g0 = 0; g0 < nr; g0 += 16 * kFastDenGroups) {
+        uint32_t a0[kFastDenGroups], a1[kFastDenGroups];
+        float y2a[kFastDenGroups], y2b[kFastDenGroups];
 #pragma unroll
-        for (int q = 0; q < kFastColTiles; ++q) {
-          float d[4];
-          mma_bf16(d, a0, a1, bf[q]);
+        for (int j = 0; j < kFastDenGroups; ++j) {
+          const int ra = g0 + 16 * j + gid, rb = ra + 8;
+          a0[j] = frag_k(yb[ra], tig);
+          a1[j] = frag_k(yb[rb], tig);
+          y2a[j] = y2s[ra];
+          y2b[j] = y2s[rb];
+        }
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float ga = fast_gauss(d[e], y2a, x2c[q][e], inv2s2);
-            const float gb = fast_gauss(d[2 + e], y2b, x2c[q][e], inv2s2);
-            // Selects, not branches: a branch around each pair keeps the
-            // compiler from interleaving the pairs' exp chains. Adding +0
-            // to a sum that starts at +0 changes no bit.
-            s[q][e] = __fadd_rn(__fadd_rn(s[q][e], va ? ga : 0.0f),
-                                vb ? gb : 0.0f);
-            const int cc = wc + 8 * q + 2 * tig + e;
-            if (kDump && cc < ncols) {
-              if (va) g_dump[(size_t)(rc + ra) * n + c0 + cc] = ga;
-              if (vb) g_dump[(size_t)(rc + rb) * n + c0 + cc] = gb;
+        for (int q = 0; q < kFastColTiles; ++q)
+#pragma unroll
+          for (int j = 0; j < kFastDenGroups; ++j) {
+            float d[4];
+            mma_bf16(d, a0[j], a1[j], bf[q], xc[q]);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float ga = fast_gauss(d[e], y2a[j], k);
+              const float gb = fast_gauss(d[2 + e], y2b[j], k);
+              s[q][e] = __fadd_rn(__fadd_rn(s[q][e], ga), gb);
+              const int cc = wc + 8 * q + 2 * tig + e;
+              const int ra = g0 + 16 * j + gid, rb = ra + 8;
+              if (kDump && cc < ncols) {
+                if (ra < nr) g_dump[(size_t)(rc + ra) * n + c0 + cc] = ga;
+                if (rb < nr) g_dump[(size_t)(rc + rb) * n + c0 + cc] = gb;
+              }
             }
           }
-        }
       }
     }
 #pragma unroll
@@ -1010,99 +1029,148 @@ den_fast_kernel(const float4* __restrict__ ys, int m, int tile_m, int n_i,
   __syncthreads();
   if (threadIdx.x == 0) {
     float xx = 0.0f;
-    for (int w = 0; w < kPairThreads / 32; ++w) xx += warps[w];
+    for (int w = 0; w < kFastDenWarps; ++w) xx += warps[w];
     xx_part[xx_at] = xx;
   }
 }
 
-constexpr int kFastBlockRows = kRowThreads / 32 * 16;  // 128
+constexpr int kFastRowWarps = 4;   // pass B's block
+constexpr int kFastRowThreads = 32 * kFastRowWarps;
+constexpr int kFastRowGroups = 4;  // 16-row groups a warp holds
+constexpr int kFastBlockRows = 16 * kFastRowWarps * kFastRowGroups;  // 256
+constexpr int kFastStageGroups = kColStage / 16;  // operand groups a stage
 
-// Pass B: grid (row blocks of 128, n_i source tiles), kRowThreads threads;
-// warp w holds rows [16 w, 16 w + 16) of the block (a lane rows gid and
-// gid + 8) and walks the tile's active stripes, 256 columns staged at a
-// time, 8 at a time through the tensor cores. A lane adds p = bf16(g) *
-// inv_den and p x of its two columns of each column tile into its rows'
-// stripe sums; at a stripe's end the 4 lanes of a row add their sums (a
-// butterfly) and the stripe's sum goes into the row's total.
+// Pass B: grid (row blocks of 256, n_i source tiles), kFastRowThreads
+// threads; warp w holds rows [64 w, 64 w + 64) of the block as four 16-row
+// groups (a lane rows gid and gid + 8 of each; as many independent exp
+// chains as the card measured fastest) and walks the tile's active
+// stripes, 256 columns staged at a time, 16 at a time: per group two
+// m16n8k8 cross terms, the 8 Gaussians of the lane packed to bf16 as the
+// A fragment, and two m16n8k16 against the staged moment operand. Columns
+// past a stripe's end carry a zero operand (the Gaussian of a zero-staged
+// point is finite), so they add nothing. Rows past the tile are any valid
+// point and are never written.
 // kDump (tests only): every g the pass forms, before its rounding, also
 // goes to g_dump (m, n).
 template <bool kDump>
-__global__ void __launch_bounds__(kRowThreads)
+__global__ void __launch_bounds__(kFastRowThreads)
 moment_fast_kernel(const float4* __restrict__ ys, int m, int tile_m,
                    const float4* __restrict__ xs, int n, int tile_n, int n_j,
                    const int* __restrict__ act_idx,   // (n_i, n_j)
                    const int* __restrict__ act_cnt,   // (n_i)
                    const float* __restrict__ scal,
                    const int* __restrict__ run,       // the fast flag
-                   const float* __restrict__ inv_den, // (n)
-                   float4* __restrict__ p1px,    // (m): px in xyz, p1 in w
+                   const uint4* __restrict__ mop,     // moment_operand
+                   float* __restrict__ p1px,  // (m, 4): px in 0-2, p1 in 3
                    float* __restrict__ g_dump) {
   if (*run == 0) return;  // the exact branch runs
   __shared__ uint2 xb[kColStage];    // staged columns' bf16 coordinates
-  __shared__ float4 xw[kColStage];   // x, y, z, |x|^2
-  __shared__ float iw[kColStage];    // inv_den
-  static_assert(kColStage == kRowThreads, "one column a thread");
+  // their -|x|^2 / 2 as mma_bf16's addend: [8-column group][tig]
+  __shared__ float4 xcs[kColStage / 8][4];
+  __shared__ uint4 ms[kFastStageGroups * 32];  // their moment operand
   const int tile = blockIdx.y;
   const int t1 = min((tile + 1) * tile_m, m);
   const int rb = tile * tile_m + blockIdx.x * kFastBlockRows;
   if (rb >= t1) return;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const int ra = rb + warp * 16 + gid, rb8 = ra + 8;
+  const int gps = (tile_n + 15) / 16;  // operand groups a stripe
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  // Rows past the tile: any valid point, never written.
-  const float4 ya = ys[min(ra, t1 - 1)], yb = ys[min(rb8, t1 - 1)];
-  const uint32_t a0 = frag_k(bf16_coords(ya), tig);
-  const uint32_t a1 = frag_k(bf16_coords(yb), tig);
-  float4 acc[2] = {zero, zero}, tot[2] = {zero, zero};
-  const float inv2s2 = scal[0];
+  int row[kFastRowGroups][2];
+  uint32_t a[kFastRowGroups][2];
+  float y2k[kFastRowGroups][2];
+  const float k = fast_scale(scal[0]);
+  float acc[kFastRowGroups][2][4];  // [group][mma][fragment]
+  float tot[kFastRowGroups][2];     // channel tig of rows gid, gid + 8
+#pragma unroll
+  for (int h = 0; h < kFastRowGroups; ++h)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      row[h][r] = rb + warp * 16 * kFastRowGroups + 16 * h + gid + 8 * r;
+      const float4 y = ys[min(row[h][r], t1 - 1)];
+      a[h][r] = frag_k(bf16_coords(y), tig);
+      y2k[h][r] = fast_row(y.w, k);
+      tot[h][r] = 0.0f;
+    }
   const int cnt = act_cnt[tile];
   const int* idx = act_idx + (size_t)tile * n_j;
-  for (int k = 0; k < cnt; ++k) {
-    const int c0 = idx[k] * tile_n;
+  for (int s = 0; s < cnt; ++s) {
+    const int j = idx[s];
+    const int c0 = j * tile_n;
     const int c1 = min(c0 + tile_n, n);
+#pragma unroll
+    for (int h = 0; h < kFastRowGroups; ++h)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[h][q][e] = 0.0f;
     for (int cc = c0; cc < c1; cc += kColStage) {
       const int nc = min(kColStage, c1 - cc);
+      const int ng = (nc + 15) / 16;
+      const uint4* src = mop + ((size_t)j * gps + (cc - c0) / 16) * 32;
       __syncthreads();
-      {
-        const bool ok = (int)threadIdx.x < nc;
-        const float4 x = ok ? xs[cc + threadIdx.x] : zero;
-        xb[threadIdx.x] = bf16_coords(x);
-        xw[threadIdx.x] = x;
-        iw[threadIdx.x] = ok ? inv_den[cc + threadIdx.x] : 0.0f;
+      for (int t = threadIdx.x; t < kColStage; t += kFastRowThreads) {
+        const float4 x = t < nc ? xs[cc + t] : zero;
+        xb[t] = bf16_coords(x);
+        float* c = &xcs[t >> 3][(t >> 1) & 3].x + (t & 1);
+        c[0] = c[2] = fast_col(x.w);
       }
+      for (int t = threadIdx.x; t < ng * 32; t += kFastRowThreads)
+        ms[t] = src[t];
       __syncthreads();
-      for (int c8 = 0; c8 < nc; c8 += 8) {
-        float d[4];
-        mma_bf16(d, a0, a1, frag_k(xb[c8 + gid], tig));
-        // Columns past nc were staged as x = 0 and inv_den = 0: their p is
-        // exactly 0 and adds nothing (no branch, see pass A).
+      for (int g = 0; g < ng; ++g) {
+        const int c16 = 16 * g;
+        const uint32_t b0 = frag_k(xb[c16 + gid], tig);
+        const uint32_t b1 = frag_k(xb[c16 + 8 + gid], tig);
+        const float4 xl = xcs[2 * g][tig], xh = xcs[2 * g + 1][tig];
+        const uint4 o = ms[g * 32 + lane];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = c8 + 2 * tig + e;
-          const float4 x = xw[c];
-          const float inv = iw[c];
-          const float ga = fast_gauss(d[e], ya.w, x.w, inv2s2);
-          const float gb = fast_gauss(d[2 + e], yb.w, x.w, inv2s2);
-          add_moments(__fmul_rn(round_bf16(ga), inv), x, acc[0]);
-          add_moments(__fmul_rn(round_bf16(gb), inv), x, acc[1]);
-          if (kDump && c < nc) {
-            if (ra < t1) g_dump[(size_t)ra * n + cc + c] = ga;
-            if (rb8 < t1) g_dump[(size_t)rb8 * n + cc + c] = gb;
+        for (int h = 0; h < kFastRowGroups; ++h) {
+          float d0[4], d1[4];
+          mma_bf16(d0, a[h][0], a[h][1], b0, xl);
+          mma_bf16(d1, a[h][0], a[h][1], b1, xh);
+          // gv[4 t + 2 r + e]: column tile t, row gid + 8 r, column 2 tig + e.
+          float gv[8];
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              gv[2 * r + e] = fast_gauss(d0[2 * r + e], y2k[h][r], k);
+              gv[4 + 2 * r + e] = fast_gauss(d1[2 * r + e], y2k[h][r], k);
+            }
+          const uint32_t p0 = pack_bf16(gv[0], gv[1]);
+          const uint32_t p1 = pack_bf16(gv[2], gv[3]);
+          const uint32_t p2 = pack_bf16(gv[4], gv[5]);
+          const uint32_t p3 = pack_bf16(gv[6], gv[7]);
+          mma_bf16_k16(acc[h][0], p0, p1, p2, p3, o.x, o.y);
+          mma_bf16_k16(acc[h][1], p0, p1, p2, p3, o.z, o.w);
+          if (kDump) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const int c = c16 + 8 * (e >> 2) + 2 * tig + (e & 1);
+              const int rr = row[h][(e >> 1) & 1];
+              if (c < nc && rr < t1) g_dump[(size_t)rr * n + cc + c] = gv[e];
+            }
           }
         }
       }
     }
+    // Channel tig of each row: hi (column 2 tig of the first product) +
+    // (mid (2 tig + 1) + lo (2 tig of the second)).
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      add4(tot[r], quad_sum4(acc[r]));
-      acc[r] = zero;
-    }
+    for (int h = 0; h < kFastRowGroups; ++h)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        tot[h][r] = __fadd_rn(
+            tot[h][r],
+            __fadd_rn(acc[h][0][2 * r],
+                      __fadd_rn(acc[h][0][2 * r + 1], acc[h][1][2 * r])));
   }
-  if (tig == 0) {
-    if (ra < t1) p1px[ra] = tot[0];
-    if (rb8 < t1) p1px[rb8] = tot[1];
-  }
+#pragma unroll
+  for (int h = 0; h < kFastRowGroups; ++h)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row[h][r] < t1) p1px[(size_t)row[h][r] * 4 + tig] = tot[h][r];
 }
 
 template <bool kTileSums, bool kRaw = false>
@@ -1322,13 +1390,13 @@ int probreg_stash_den_fast(const void* ys, int m, int tile_m, int n_i,
   const dim3 grid((tile_n + kDenThreads - 1) / kDenThreads, n_j);
   const auto s = (cudaStream_t)stream;
   if (g_dump == nullptr)
-    den_fast_kernel<false><<<grid, kPairThreads, 0, s>>>(
+    den_fast_kernel<false><<<grid, kFastDenThreads, 0, s>>>(
         (const float4*)ys, m, tile_m, n_i, (const float4*)xs, n, tile_n,
         (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
         (const int*)gate, (float*)inv_den, (float*)pt1, (float*)xx_part,
         nullptr);
   else
-    den_fast_kernel<true><<<grid, kPairThreads, 0, s>>>(
+    den_fast_kernel<true><<<grid, kFastDenThreads, 0, s>>>(
         (const float4*)ys, m, tile_m, n_i, (const float4*)xs, n, tile_n,
         (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
         (const int*)gate, (float*)inv_den, (float*)pt1, (float*)xx_part,
@@ -1340,22 +1408,21 @@ int probreg_stash_rows_fast(const void* ys, int m, int tile_m, int n_i,
                             const void* xs, int n, int tile_n, int n_j,
                             const void* act_idx, const void* act_cnt,
                             const void* scal, const void* gate,
-                            const void* inv_den, void* p1px, void* g_dump,
+                            const void* mop, void* p1px, void* g_dump,
                             void* stream) {
   if (gate == nullptr) return (int)cudaErrorInvalidValue;
   const dim3 grid((tile_m + kFastBlockRows - 1) / kFastBlockRows, n_i);
   const auto s = (cudaStream_t)stream;
   if (g_dump == nullptr)
-    moment_fast_kernel<false><<<grid, kRowThreads, 0, s>>>(
+    moment_fast_kernel<false><<<grid, kFastRowThreads, 0, s>>>(
         (const float4*)ys, m, tile_m, (const float4*)xs, n, tile_n, n_j,
         (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
-        (const int*)gate, (const float*)inv_den, (float4*)p1px, nullptr);
+        (const int*)gate, (const uint4*)mop, (float*)p1px, nullptr);
   else
-    moment_fast_kernel<true><<<grid, kRowThreads, 0, s>>>(
+    moment_fast_kernel<true><<<grid, kFastRowThreads, 0, s>>>(
         (const float4*)ys, m, tile_m, (const float4*)xs, n, tile_n, n_j,
         (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
-        (const int*)gate, (const float*)inv_den, (float4*)p1px,
-        (float*)g_dump);
+        (const int*)gate, (const uint4*)mop, (float*)p1px, (float*)g_dump);
   return (int)cudaGetLastError();
 }
 

@@ -236,8 +236,10 @@ gt_kernel(const float* __restrict__ qs, int nq,     // (nq, D)
 // accumulator) per 16 query rows x 8 points, the coordinates zero-padded to
 // k = 8 (D <= 8). d2 takes the expanded form of _gt_kernel's _dist_tile,
 // max(|q|^2 + |p|^2 - 2 q.p, 0), with |q|^2 and |p|^2 in f32 from the
-// unrounded centred points (the wrapper's q2 and p2), then expf(-d2 *
-// inv_h2); the weights' sums stay f32 FMAs. The culling tiles and their
+// unrounded centred points (the wrapper's q2 and p2), as bf16_mma.cuh's
+// fast_gauss forms it for K3's fast passes: -|p|^2 / 2 is the mma's addend,
+// |q|^2 k a row's (k = -inv_h2 log2(e), once a launch), then exp2f; the
+// weights' sums stay f32 FMAs. The culling tiles and their
 // lists are the exact kernel's: a block holds 128 query rows of a 256-row
 // tile, eight warps of 16 rows, and walks the tile's active point tiles 256
 // points (a stage) at a time. A lane adds g w of its two points of each
@@ -264,12 +266,13 @@ gt_fast_kernel(const float* __restrict__ qs,               // (nq, d)
   if (*run == 0) return;  // the exact branch runs
   constexpr int CS = staged(C);
   __shared__ uint4 sb[kStage];                 // bf16 coordinates, k 0-7
-  __shared__ float sp2[kStage];
+  __shared__ __align__(16) float sp2[kStage];
   __shared__ __align__(16) float sw[kStage * CS];
   const int qt = blockIdx.x / (kTile / kBlockRows);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int row0 = blockIdx.x * kBlockRows + warp * 16 + gid;  // and + 8
+  const float ex2_scale = fast_scale(inv_h2);
   uint32_t a[2];
   float qn[2];
 #pragma unroll
@@ -280,7 +283,7 @@ gt_fast_kernel(const float* __restrict__ qs,               // (nq, d)
     if (row < nq) {
       if (2 * tig < d) lo = qs[(size_t)row * d + 2 * tig];
       if (2 * tig + 1 < d) hi = qs[(size_t)row * d + 2 * tig + 1];
-      qn[r] = q2[row];
+      qn[r] = fast_row(q2[row], ex2_scale);
     }
     a[r] = pack_bf16(lo, hi);
   }
@@ -307,7 +310,7 @@ gt_fast_kernel(const float* __restrict__ qs,               // (nq, d)
         v[u] = (j < ns && u < d) ? ps[(size_t)(s0 + j) * d + u] : 0.0f;
       sb[j] = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
                          pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
-      sp2[j] = j < ns ? p2[s0 + j] : 0.0f;
+      sp2[j] = j < ns ? fast_col(p2[s0 + j]) : 0.0f;  // -|p|^2 / 2
     }
     // The weights, zeros past ns: a point past the stage adds g * 0.
     for (int e = threadIdx.x; e < kStage * C; e += kFastThreads) {
@@ -325,7 +328,8 @@ gt_fast_kernel(const float* __restrict__ qs,               // (nq, d)
       const uint32_t b = tig == 0 ? bv.x : tig == 1 ? bv.y
                        : tig == 2 ? bv.z : bv.w;
       float dd[4];
-      mma_bf16(dd, a[0], a[1], b);
+      const float2 pc = *reinterpret_cast<const float2*>(&sp2[c8 + 2 * tig]);
+      mma_bf16(dd, a[0], a[1], b, make_float4(pc.x, pc.y, pc.x, pc.y));
       // No branch per pair (it would keep the compiler from interleaving
       // the pairs' exp chains): points past ns carry zero weights.
 #pragma unroll
@@ -333,8 +337,8 @@ gt_fast_kernel(const float* __restrict__ qs,               // (nq, d)
         const int j = c8 + 2 * tig + e;
         float wj[CS];
         lds<CS>(sw + j * CS, wj);
-        const float g0 = fast_gauss(dd[e], qn[0], sp2[j], inv_h2);
-        const float g1 = fast_gauss(dd[2 + e], qn[1], sp2[j], inv_h2);
+        const float g0 = fast_gauss(dd[e], qn[0], ex2_scale);
+        const float g1 = fast_gauss(dd[2 + e], qn[1], ex2_scale);
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           part[0][c] = fmaf(g0, wj[c], part[0][c]);

@@ -51,8 +51,10 @@ so culling never changes a result.
 the cross term cannot move any exp argument by more than
 ``config.estep_fast_start_tol``, pass A (``stash_den_fast``) and pass B
 (``stash_moment_fast``) form y.x on the tensor cores from bf16 coordinates
-with an f32 sum, everything else as K3 forms it, and pass B rounds each
-Gaussian to bf16 before its moment FMAs (the reference's bf16 stash). The
+with an f32 sum and the Gaussian as exp2f on a pre-scaled argument; pass B
+rounds each Gaussian to bf16 (the reference's bf16 stash) and takes its
+moments on the tensor cores against ``moment_operand``, inv_den (x, 1)
+split into three bf16 pieces, formed on the device after pass A. The
 decision is a flag on the device: K3's exact passes and the fast passes
 are both launched, and each reads the flag and returns at once unless it
 is its branch, so no E-step reads the flag on the host. ``FAST_STEPS``
@@ -162,6 +164,57 @@ def fast_gate(y2, x2, inv, tol=None) -> torch.Tensor:
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     """``x`` rounded to bf16 (to nearest even) and back to f32."""
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+# --------------------------------------------------------------------------
+# The fast pass B's moment operand
+# --------------------------------------------------------------------------
+#
+# The fast pass B computes sum_n bf16(g)_mn v_n, v_n = inv_den_n (x_n, y_n,
+# z_n, 1), on the tensor cores (mma.sync m16n8k16, csrc/estep.cu
+# moment_fast_kernel). Each f32 v_n goes in as three bf16 pieces whose sum
+# is v_n to ~2^-24 of it; bf16(g) times a piece is exact in the f32
+# accumulator, so the product rebuilds the reference's f32 p = bf16(g)
+# inv_den and p x.
+
+def moment_pieces(xs: torch.Tensor, inv_den: torch.Tensor) -> torch.Tensor:
+    """(n, 3, 4) bf16: hi = bf16(v), mid = bf16(v - hi), lo = bf16(v - hi -
+    mid) of v = inv_den (x, y, z, 1) in f32, from the (n, >= 3) packed
+    targets (their first three columns; zeros past D) and inv_den (n). Each
+    difference is exact in f32; a zero inv_den gives zero pieces."""
+    v = torch.cat([xs[:, :3] * inv_den[:, None], inv_den[:, None]], 1)
+    hi = v.to(torch.bfloat16)
+    rest = v - hi.float()
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.float()).to(torch.bfloat16)
+    return torch.stack([hi, mid, lo], 1)
+
+
+def moment_operand(xs: torch.Tensor, inv_den: torch.Tensor,
+                   tile_n: int) -> torch.Tensor:
+    """The fast pass B's B operand: moment_pieces laid out in the fragment
+    order of mma.sync.m16n8k16, each stripe of ``tile_n`` targets padded
+    with zeros to a multiple of 16 (so a stripe starts a group). Shape
+    (n_j * ceil(tile_n / 16), 32, 8) bf16: group G, lane 4 gid + tig, then
+    the first product's b0, b1 and the second's b0, b1 (two bf16 each),
+    where b0 holds targets 2 tig, 2 tig + 1 and b1 targets 2 tig + 8,
+    2 tig + 9 of the group at B column gid. The first product's column 2c
+    is channel c's hi and 2c + 1 its mid; the second's column 2c its lo,
+    2c + 1 zero (channels x, y, z, 1)."""
+    n = xs.shape[0]
+    n_j, gps = -(-n // tile_n), -(-tile_n // 16)
+    q = moment_pieces(xs, inv_den)                       # (n, 3, 4)
+    q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, n_j * tile_n - n))
+    q = torch.nn.functional.pad(q.view(n_j, tile_n, 3, 4),
+                                (0, 0, 0, 0, 0, 16 * gps - tile_n))
+    hi, mid, lo = q.unbind(2)                            # (n_j, T, 4) each
+    first = torch.stack([hi, mid], -1).flatten(-2)       # column 2c + piece
+    second = torch.stack([lo, torch.zeros_like(lo)], -1).flatten(-2)
+    b = torch.stack([first, second], -2)                 # (n_j, T, 2, 8)
+    # target 16 G + 8 half + 2 tig + e, product, column gid ->
+    # [G, gid, tig, product, half, e]
+    b = b.view(n_j, gps, 2, 4, 2, 2, 8).permute(0, 1, 6, 3, 5, 2, 4)
+    return b.reshape(n_j * gps, 32, 8).contiguous()
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -743,10 +796,12 @@ class StashPlan(TwoPassPlan):
                      self.inv_den, self.pt1, self.xx_part, g_dump)
 
     def moment_fast(self, g_dump=None) -> None:
-        """The fast pass B alone; ``g_dump`` as in den_fast (each g before
-        its rounding)."""
+        """The fast pass B alone, after pass A: moment_operand from inv_den
+        (elementwise, on the device), then the kernel; ``g_dump`` as in
+        den_fast (each g before its rounding)."""
+        mop = moment_operand(self.xs, self.inv_den, self.tile_n)
         self._launch(self.MOMENT_FAST, self.row_idx, self.row_cnt, self.gate,
-                     self.inv_den, self.p1px, g_dump)
+                     mop, self.p1px, g_dump)
 
 
 class ShardStashPlan(StashPlan):

@@ -2561,14 +2561,23 @@ def _flag(value, dev):
     return torch.tensor(value, dtype=torch.int32, device=dev)
 
 
+# (40, 200): every source tile's rows and every stripe's targets end in a
+# partial group (40 = 2 x 16 + 8 rows, 200 = 12 x 16 + 8 targets).
+_FAST_TILES = [(96, 256), (512, 1024), (40, 200)]
+
+
 @pytest.mark.parametrize("sigma2", [0.5, 0.05])
-@pytest.mark.parametrize("tile_m,tile_n", [(96, 256), (512, 1024)])
+@pytest.mark.parametrize("tile_m,tile_n", _FAST_TILES)
 def test_fast_stash_kernels_match_plain(dev, sigma2, tile_m, tile_n):
     """The fast passes (flag 1) against the plain fast branch on the same
     CUDA tensors, ragged tiles, a far cluster culled: both round the
     coordinates to bf16 alike, so they differ by the f32 order of the cross
-    term's three products and of the sums (the same _close), and the exact
-    passes, also launched, leave the outputs alone."""
+    term's three products and of the sums, and pass B's exp2f and its
+    moments from moment_operand's pieces (each within f32 rounding; the
+    same _close), and the exact passes, also launched, leave the outputs
+    alone. m = 3000 and n = 2500 leave a last source tile of 24 rows at
+    tile_m 96 and a last stripe of 196 targets (a last group of 4) at
+    tile_n 256."""
     m, n = 3000, 2500
     ys, xs = _cloud(m, 3, dev), _cloud(n, 4, dev, far=700)
     scal = pec._scalars(sigma2, 0.05, m, n, 3, dev)
@@ -2592,7 +2601,7 @@ def test_fast_stash_kernels_match_plain(dev, sigma2, tile_m, tile_n):
         assert bool((got[0][cols] == 0).all())
 
 
-@pytest.mark.parametrize("tile_m,tile_n", [(96, 256), (512, 1024)])
+@pytest.mark.parametrize("tile_m,tile_n", _FAST_TILES)
 def test_fast_passes_form_the_same_g(dev, tile_m, tile_n):
     """Pass A's Gaussian of every active pair equals pass B's bit for bit
     (each dumped before pass B's bf16 rounding), and equals the plain fast
@@ -2620,6 +2629,19 @@ def test_fast_passes_form_the_same_g(dev, tile_m, tile_n):
     g_plain, _ = pec.stash_den_raw_plain(ys, y2, xs, x2, scal, act, 1, m,
                                          True)
     _close(g_a[live], g_plain[live], "g")
+
+
+@pytest.mark.parametrize("n,tile_n", [(2500, 256), (2100, 200)])
+def test_moment_operand_on_the_card_has_the_cpus_bits(dev, n, tile_n):
+    """The fast pass B's operand, formed on the card after pass A, equals
+    the CPU's (the layout the CPU tests check), bit for bit."""
+    rng = np.random.default_rng(n)
+    xs = torch.as_tensor(rng.normal(size=(n, 4)), dtype=torch.float32)
+    inv_den = torch.as_tensor(rng.uniform(0, 5, n), dtype=torch.float32)
+    inv_den[::5] = 0.0
+    got = pec.moment_operand(xs.to(dev), inv_den.to(dev), tile_n)
+    want = pec.moment_operand(xs, inv_den, tile_n)
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
 
 
 def test_gated_exact_route_keeps_its_bits(dev):

@@ -26,6 +26,12 @@ their kernels' plain versions here because the tensors lie on the CPU.
   sum_j g |w|, the 2^-8 there covering the f32 sums. The cases keep a <=
   tol / 2, where both lie under the issue's e^tol (1 + 2^-8) - 1. An
   absolute 1e-6 of the largest entry covers f32 summation order.
+* The fast pass B's tensor-core form: ``moment_pieces`` rebuilds inv_den
+  (x, y, z, 1) within 2^-24 of each value, ``moment_operand`` is its
+  mma.sync.m16n8k16 fragment order, and the pass's association (bf16(g)
+  times each piece in f32, a stripe's hi + (mid + lo), stripes in order)
+  written in plain torch stays within the tolerance above of the
+  reference's fast branch.
 * The bound: on random clouds, the exp argument of the plain fast branch
   moves from the exact branch's by at most ``fast_bound``.
 * ``stash_dtype`` and ``matmul_dtype`` = bf16 against the reference set the
@@ -55,6 +61,7 @@ from probreg_tpu_torch.ops import estep_cuda as pec  # noqa: E402
 from probreg_tpu_torch.ops import gausstransform as pgt  # noqa: E402
 from probreg_tpu_torch.ops import gt_cuda as pgc  # noqa: E402
 from probreg_tpu_torch.ops import pairwise as ppw  # noqa: E402
+from probreg_tpu_torch.ops.spatial import morton_order  # noqa: E402
 from probreg_tpu_torch.utils import interop  # noqa: E402
 
 
@@ -322,6 +329,108 @@ def test_k6_plain_fast_branch_matches_the_references_fast_branch(factor):
     d2 = ((tgt[:, None, :].astype(np.float64) - src[None]) ** 2).sum(-1)
     mag = np.exp(-d2 / h ** 2) @ np.abs(w.astype(np.float64))
     _within("gt", out, ref, mag, math.exp(a) * (1 + 2.0 ** -8) - 1)
+
+
+# --------------------------------------------------------------------------
+# The fast pass B on the tensor cores: its operand and its association
+# --------------------------------------------------------------------------
+
+def _moment_values(xs, inv_den):
+    return torch.cat([xs[:, :3] * inv_den[:, None], inv_den[:, None]], 1)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_moment_pieces_rebuild_the_moment_values(seed):
+    """hi + mid + lo of every value of v = inv_den (x, y, z, 1) is v within
+    2^-24 of it (f32's half ulp), in f32 over the magnitudes a normalizer
+    takes (1 / (den + c) from ~1e-30 to ~1e30), and a zero inv_den gives
+    zero pieces."""
+    rng = np.random.default_rng(seed)
+    n = 777
+    xs = _t(rng.normal(size=(n, 4)) * 10.0 ** rng.uniform(-3, 3, (n, 1)))
+    inv_den = _t(10.0 ** rng.uniform(-30, 30, n))
+    inv_den[::7] = 0.0
+    pieces = pec.moment_pieces(xs, inv_den)
+    assert pieces.dtype == torch.bfloat16 and pieces.shape == (n, 3, 4)
+    v = _moment_values(xs, inv_den).double()
+    p = pieces.double()
+    rebuilt = p[:, 0] + p[:, 1] + p[:, 2]
+    assert bool(((rebuilt - v).abs() <= 2.0 ** -24 * v.abs()).all())
+    assert bool((pieces[::7] == 0).all())
+
+
+@pytest.mark.parametrize("n,tile_n", [(50, 24), (700, 256), (2100, 1024)])
+def test_moment_operand_is_the_mma_fragment_order(n, tile_n):
+    """moment_operand against the fragment map of mma.sync.m16n8k16's B
+    operand (PTX ISA: b0 holds rows 2 tig, 2 tig + 1 and b1 rows 2 tig + 8,
+    2 tig + 9 of column gid), the first product's column 2c channel c's hi
+    and 2c + 1 its mid, the second's 2c its lo and 2c + 1 zero, each stripe
+    of tile_n targets zero-padded to a multiple of 16."""
+    rng = np.random.default_rng(n)
+    xs, inv_den = _t(rng.normal(size=(n, 4))), _t(rng.uniform(0, 5, n))
+    pieces = pec.moment_pieces(xs, inv_den).float()
+    op = pec.moment_operand(xs, inv_den, tile_n).float()
+    gps = -(-tile_n // 16)
+    assert op.shape == (-(-n // tile_n) * gps, 32, 8)
+    lane = torch.arange(32)
+    gid, tig = lane // 4, lane % 4
+    for g in range(op.shape[0]):
+        j, local = divmod(g, gps)
+        for slot in range(8):     # [product][b0 / b1][e]
+            prod, half, e = slot // 4, (slot // 2) % 2, slot % 2
+            t_local = 16 * local + 8 * half + 2 * tig + e
+            t = j * tile_n + t_local
+            ok = (t_local < tile_n) & (t < n)
+            piece = gid % 2 if prod == 0 else torch.full_like(gid, 2)
+            live = ok & ((gid % 2 == 0) | (prod == 0))
+            want = torch.where(
+                live, pieces[t.clamp(max=n - 1), piece, gid // 2], 0.0)
+            assert torch.equal(op[g, :, slot], want), (g, slot)
+
+
+@pytest.mark.parametrize("factor", [2.5, 6.0])
+@pytest.mark.parametrize("w", [0.0, 0.1])
+def test_k3_fast_moments_from_pieces_match_the_references_fast_branch(
+        factor, w):
+    """The fast pass B's association in plain torch: per stripe, bf16(g)
+    times each piece of moment_pieces in f32 (exact products), the stripe's
+    hi + (mid + lo), stripes added in order; pass A's g, inv_den, pt1 and
+    xx from the plain fast pass A. Against the reference's estep_auto with
+    fast_start=True, within (e^(2a) (1 + 2^-8) - 1) of each moment's
+    terms' magnitude (the derivation above)."""
+    src, tgt = _pair()
+    sigma2 = _threshold_k3(src, tgt) * factor
+    a = float(_ref_bound_k3(src, tgt, sigma2))
+    assert a <= TOL / 2
+    ref = jep.estep_auto(src, tgt, jnp.float32(sigma2), w, tile_m=TILE_M,
+                         tile_n=TILE_N, interpret=True, fast_start=True)
+    y, x = _t(src), _t(tgt)
+    perm_y, perm_x = morton_order(y), morton_order(x)
+    ys, xs = y[perm_y], x[perm_x]
+    m, n = ys.shape[0], xs.shape[0]
+    scal = pec._scalars(sigma2, w, m, n, 3, ys.device)
+    mask = pec._active_mask(*pec._tile_bounds(ys, TILE_M),
+                            *pec._tile_bounds(xs, TILE_N), scal[0])
+    p1, px, xx, pt1 = torch.zeros(m), torch.zeros(m, 3), torch.zeros(()), []
+    for g, inv_den, pt1_j, xx_j, x_j in pec._plain_stripes(
+            ys, xs, scal, mask, TILE_M, TILE_N, fast=True):
+        gb = pec._bf16(g)
+        hi, mid, lo = (gb @ piece.float() for piece in
+                       pec.moment_pieces(x_j, inv_den).unbind(1))
+        stripe = hi + (mid + lo)
+        p1, px = p1 + stripe[:, 3], px + stripe[:, :3]
+        xx = xx + xx_j
+        pt1.append(pt1_j)
+    pt1 = torch.empty(n).index_copy_(0, perm_x, torch.cat(pt1))
+    p1 = torch.empty(m).index_copy_(0, perm_y, p1)
+    px = torch.empty(m, 3).index_copy_(0, perm_y, px)
+    rel = math.exp(2 * a) * (1 + 2.0 ** -8) - 1
+    p1_mag, px_mag, pt1_mag, xx_mag = _dense_terms(src, tgt, sigma2, w)
+    _within("pt1", pt1, ref.pt1, pt1_mag, rel)
+    _within("p1", p1, ref.p1, p1_mag, rel)
+    _within("px", px, ref.px, px_mag, rel)
+    _within("xx", xx, ref.xx, xx_mag, rel)
+    _within("n_p", p1.sum(), ref.n_p, p1_mag.sum(), rel)
 
 
 # --------------------------------------------------------------------------

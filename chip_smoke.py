@@ -19,10 +19,12 @@ before it and read just after:
   against a copy jittered by 0.002, sigma2 0.67, where the gate fires) K3's
   fast passes (stash_den_fast, stash_moment_fast: the cross term, and pass
   B's moments, on bf16 tensor cores, the Gaussian by exp2f) and its
-  bf16-stash pass B (stash_moment_bf16, and K12's, stash_merged_bf16)
-  against their plain versions, each fast pass timed in turns with its
-  exact twin, and K6's fast kernel (gauss_transform_fast) on FilterReg's
-  first E-step of that pair; one gated K3 and K6 call under
+  bf16-stash pass B (stash_moment_bf16, and K12's, stash_merged_bf16: one
+  kernel, the exact Gaussian packed to bf16 as the tensor cores' operand
+  for the moments; K3's and K12's bf16 E-steps held bit for bit) against
+  their plain versions, each fast pass and the bf16 pass B timed in turns
+  with the exact twin, and K6's fast kernel (gauss_transform_fast) on
+  FilterReg's first E-step of that pair; one gated K3 and K6 call under
   torch.cuda.set_sync_debug_mode("error"); rigid CPD and FilterReg on
   blobby_surface(150_000, seed=0) against itself turned by Euler (3, -2,
   5) degrees and jittered, fast start on and off (each gated call
@@ -205,17 +207,24 @@ times the rigid CPD pyramid at 200,000 and 10^6 points (the second call,
 and its host level preparation) of this checkout and of DIR, each in fresh
 processes, parent, this, this, parent.
 
+    python3 chip_smoke.py --stash-parent DIR
+
+holds the f32 E-steps of K3, K4, K11's route and K12 of this checkout
+bit for bit against DIR's build of csrc/estep.cu (a dense 131,072^2 and a
+culled 150,000^2 E-step) and times the bf16-stash pass B and the K12 bf16
+E-step of both, parent, this, this, parent.
+
     python3 chip_smoke.py --parent DIR
 
 instead times the small E-step kernel (K2) of this checkout and of another
 checkout DIR at every shape check_small runs, with the largest difference
 between them, and the step API (RigidCPD.expectation_step +
-maximization_step) of both in fresh processes; holds the whole-loop
-kernels of this checkout (K1 for CPD, K5 for FilterReg, K7 for ICP) bit
-for bit against those built from DIR, at 1, 2, 4 and 8 blocks per pair
-and the default; times them and the GMMTree registration kernel (K10) of
-both; and prints the fixed cost of a K1, K5 and K7 iteration on a 32 x 32
-pair.
+maximization_step) of both in fresh processes; runs --stash-parent DIR;
+holds the whole-loop kernels of this checkout (K1 for CPD, K5 for
+FilterReg, K7 for ICP) bit for bit against those built from DIR, at 1,
+2, 4 and 8 blocks per pair and the default; times them and the GMMTree
+registration kernel (K10) of both; and prints the fixed cost of a K1, K5
+and K7 iteration on a 32 x 32 pair.
 """
 
 import json
@@ -550,6 +559,24 @@ def small_flat(mom):
                       torch.stack([mom.n_p, mom.xx])])
 
 
+def k2_device_ms(launch, acts, reads=3) -> float:
+    """K2's device ms per launch: torch.profiler over its raw launches,
+    read up to ``reads`` times until a reading is positive (a profile of
+    those launches has come back with no device activity), else K2's
+    activity in the whole-call profile ``acts`` (device_launches' by-name
+    us). Raises if no reading is positive: a device time is never 0."""
+    for i in range(reads):
+        ms = device_us(launch) / 1e3
+        if ms > 0:
+            return ms
+        log(f"  K2's raw-launch profile {i + 1} read no device time")
+    ms = sum(us for name, us in acts.items() if "small_kernel" in name) / 1e3
+    log(f"  K2's device time from the whole-call profile: {ms:.5f} ms")
+    if not ms > 0:
+        raise AssertionError("no profile read K2's device time")
+    return ms
+
+
 def check_small(dev, kernels):
     """K2 at every SMALL_SHAPES shape: held to its plain version (compare)
     and to the plain version in f64 (within compare()'s tolerance, or
@@ -613,17 +640,19 @@ def check_small(dev, kernels):
         one, _ = ec.small_launcher(ys, xs, sigma2, w)
         raw = timed(lambda: [one() for _ in range(SMALL_REPS)],
                     5) / SMALL_REPS
-        dev_ms = device_us(one) / 1e3
         whole = timed(lambda: ec.estep_small(ys, xs, sigma2, w), 50)
         count, whole_dev, acts = device_launches(
             lambda: ec.estep_small(ys, xs, sigma2, w))
+        dev_ms = k2_device_ms(one, acts)
         plain_ms = timed(lambda: ec.estep_small_plain(ys, xs, scal), 20)
         nbytes = 4 * dim * (m + n) + 4 + 4 * n + 4 * m * (1 + dim) + 8
         b_ms, b_by = bound(nbytes, m * n * (FLOPS_GAUSS + FLOPS_MOMENTS),
                            exps=m * n)
-        log(f"  device time (torch.profiler): K2 {dev_ms:.5f} ms "
-            f"({dev_ms / dev_floor_coop:.2f} x the empty cooperative "
-            f"launch's); bound {b_ms:.5f} ms ({b_by})")
+        ratio = (f"{dev_ms / dev_floor_coop:.2f} x the empty cooperative "
+                 f"launch's" if dev_floor_coop > 0 else
+                 "the empty launch's profile read no device time")
+        log(f"  device time (torch.profiler): K2 {dev_ms:.5f} ms ({ratio});"
+            f" bound {b_ms:.5f} ms ({b_by})")
         log(f"  host-timed: {SMALL_REPS} raw launches back to back {raw:.4f}"
             f" ms each ({raw / floor_coop:.2f} x the empty one's), the "
             f"whole estep_small call {whole:.4f} ms ({count:g} device "
@@ -1285,6 +1314,12 @@ FAST_ROT_AGREE = 1e-4
 # moments. K6's fast kernel: the same 6 and 2 per channel.
 FLOPS_FAST_A = 6 + 1
 FLOPS_FAST_B = 6 + 1 + FLOPS_MOMENTS
+# The bf16-stash pass B (moment_bf16_kernel): the exact Gaussian on the FP32
+# pipe without its column sum (FLOPS_GAUSS - 1; its exp also one MUFU op),
+# its bf16 pack (1), and the moments on the tensor cores: 2 products x 4
+# channels x 3 bf16 pieces, BF16_MOMENT_OPS bf16 operations a pair.
+FLOPS_BF16_B = FLOPS_GAUSS - 1 + 1
+BF16_MOMENT_OPS = 2 * 4 * 3
 
 
 def fast_case(dev):
@@ -1318,8 +1353,10 @@ def check_fast_start(dev, kernels):
     CUDA tensors (compare()'s tolerance: both round the same coordinates
     and Gaussians to bf16, so they differ by f32 sum orders), with the
     gate's bound, each pass's time beside its bound and the plain
-    version's, and the exact passes on the same inputs; then K6's fast
-    kernel on FilterReg's first E-step of the same pair (sigma2 0.67:
+    version's, and the exact passes on the same inputs (the fast passes
+    and the bf16 pass B each timed in turns with the exact twin; K3's and
+    K12's bf16 E-steps held bit for bit); then K6's fast kernel on
+    FilterReg's first E-step of the same pair (sigma2 0.67:
     points the target / sigma with channels [1, x], queries the source /
     sigma, h = sqrt 2), likewise."""
     from probreg_tpu_torch.config import config
@@ -1365,14 +1402,19 @@ def check_fast_start(dev, kernels):
     torch.cuda.synchronize()
     log("  bf16 stash, K3's pass B (stash_moment_bf16):")
     err16 = max(compare("p1", r16[1], w16[1]), compare("px", r16[2], w16[2]))
-    del r16, w16
+    del w16
     r12 = ec.stash_merged_estep(ys, xs, scal, mask, tile_m, tile_n, True)
     w12 = ec.stash_merged_estep_plain(ys, xs, scal, mask, tile_m, tile_n,
                                       True)
     torch.cuda.synchronize()
     log("  bf16 stash, K12's pass B (stash_merged_bf16):")
     err12 = max(compare("p1", r12[1], w12[1]), compare("px", r12[2], w12[2]))
-    del r12, w12
+    same = [bool(torch.equal(a, b)) for a, b in zip(r16, r12)]
+    log(f"  K3's and K12's bf16 E-steps bit for bit (pt1, p1, px, xx): "
+        f"{same}")
+    if not all(same):
+        raise AssertionError("K3's and K12's bf16 E-steps differ")
+    del r16, r12, w12
     # Each fast pass and its exact twin on the same inputs, in turns (fast,
     # exact, exact, fast), pass B after its own pass A.
     fast = ec.StashPlan(ys, xs, scal, mask, tile_m, tile_n, gate=gate)
@@ -1389,10 +1431,18 @@ def check_fast_start(dev, kernels):
     ms_op = timed(lambda: ec.moment_operand(fast.xs, fast.inv_den, tile_n),
                   5)
     ms_gated = timed(fast.run, 5)
-    del fast, exact
+    # The bf16-stash pass B (with its moment_operand) and the exact pass B
+    # on the same inputs, in turns (bf16, exact, exact, bf16).
     plan = ec.StashPlan(ys, xs, scal, mask, tile_m, tile_n, round_g=True)
-    ms16 = timed(plan.moment, 5)
-    del plan
+    plan.den()
+    turns16 = {"bf16 B": [], "exact B": []}
+    for fn, key in ((plan.moment, "bf16 B"), (exact.moment, "exact B"),
+                    (exact.moment, "exact B"), (plan.moment, "bf16 B")):
+        turns16[key].append(timed(fn, 5))
+    ms16, ex16 = (float(np.mean(turns16[k])) for k in ("bf16 B", "exact B"))
+    ms_op16 = timed(lambda: ec.moment_operand(plan.xs, plan.inv_den, tile_n),
+                    5)
+    del fast, exact, plan
     plan = ec.MergedStashPlan(ys, xs, scal, mask, tile_m, tile_n, True)
     ms12 = timed(plan.run, 5)
     del plan
@@ -1406,13 +1456,16 @@ def check_fast_start(dev, kernels):
     ba = bound(12 * (m + n) + 8 * n, pairs * FLOPS_FAST_A, cross, pairs)
     bb = bound(12 * (m + n) + 4 * n + 16 * m, pairs * FLOPS_FAST_B, cross,
                pairs)
-    b16 = bound(12 * (m + n) + 4 * n + 16 * m,
-                pairs * (FLOPS_GAUSS - 1 + FLOPS_MOMENTS + 1), exps=pairs)
-    b12 = bound(12 * (m + n) + 8 * n + 16 * m,
-                pairs * (FLOPS_GAUSS + FLOPS_MOMENTS + 1), exps=pairs)
+    b16 = bound(12 * (m + n) + 4 * n + 16 * m, pairs * FLOPS_BF16_B,
+                pairs * BF16_MOMENT_OPS, exps=pairs)
+    b12 = bound(12 * (m + n) + 8 * n + 16 * m, pairs * (FLOPS_GAUSS + 1),
+                pairs * BF16_MOMENT_OPS, exps=pairs)
     for key in turns:
         log(f"  {key} in turns (fast, exact, exact, fast): "
             f"{', '.join(f'{t:.3f}' for t in turns[key])} ms")
+    for key in turns16:
+        log(f"  {key} in turns (bf16, exact, exact, bf16): "
+            f"{', '.join(f'{t:.3f}' for t in turns16[key])} ms")
     log(f"  fast pass A {ms_a:.3f} ms  plain {pa:.3f} ms  bound {ba[0]:.3f} "
         f"ms ({ba[1]})  [exact pass A {ex_a:.3f} ms: fast / exact "
         f"{ms_a / ex_a:.3f}]")
@@ -1422,9 +1475,11 @@ def check_fast_start(dev, kernels):
         f"{ms_b / ex_b:.3f}]")
     log(f"  one gated E-step (both branches' launches, the fast ones run) "
         f"{ms_gated:.3f} ms; exact E-step {ex_a + ex_b:.3f} ms")
-    log(f"  bf16-stash pass B {ms16:.3f} ms  plain {pb16:.3f} ms  bound "
-        f"{b16[0]:.3f} ms ({b16[1]}); K12 E-step with it {ms12:.3f} ms  "
-        f"plain {p12:.3f} ms  bound {b12[0]:.3f} ms ({b12[1]})")
+    log(f"  bf16-stash pass B {ms16:.3f} ms (its moment_operand "
+        f"{ms_op16:.3f} ms of it)  plain {pb16:.3f} ms (from pass A's g)  "
+        f"bound {b16[0]:.3f} ms ({b16[1]})  [exact pass B {ex16:.3f} ms: "
+        f"bf16 / exact {ms16 / ex16:.3f}]; K12 E-step with it {ms12:.3f} ms"
+        f"  plain {p12:.3f} ms  bound {b12[0]:.3f} ms ({b12[1]})")
     kernels["stash_den_fast"] = dict(max_abs_err=err_a, ms=ms_a, plain_ms=pa,
                                      bound_ms=ba[0], bound_by=ba[1])
     kernels["stash_moment_fast"] = dict(max_abs_err=err_b, ms=ms_b,
@@ -5700,9 +5755,9 @@ def run_families_on_one_card(dev, launches, shared):
 def parent_libs(parent):
     """Build ``parent``'s csrc/{em,gmmtree,frg,icp}.cu with the port's
     flags (one nvcc each, started together) into ``parent``/build and load
-    them: K1 and K5 (which have since gained start rows) get the parent's
-    own signatures; K7 and K10 run through this checkout's wrappers, whose
-    C signatures the parent shares (through_parent)."""
+    them: K1 and K5 get their C signatures typed here and run with no
+    start rows; K7 and K10 run through this checkout's wrappers, whose C
+    signatures the parent shares (through_parent)."""
     import ctypes
 
     from probreg_tpu_torch.ops import _build
@@ -5725,16 +5780,17 @@ def parent_libs(parent):
         libs[name] = ctypes.CDLL(out)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     libs["em"].probreg_em_cpd.argtypes = [P, I, P, I, P, P, I, I, F, I, F,
-                                          I, I, P, P]
+                                          I, I, P, P, P]
     libs["frg"].probreg_em_frg.argtypes = [P, I, P, I, P, P, P, I, I, F, I,
-                                           F, I, F, F, I, F, I, P, P]
+                                           F, I, F, F, I, F, I, P, P, P]
     return libs
 
 
 def parent_em(lib, s_c, t_c, counts, *, affine, w, maxiter, tol,
               update_scale):
     """The parent's K1 as its own wrapper launches it (launch_plan's
-    clusters and order, which give the bits of one block per pair)."""
+    clusters and order, which give the bits of one block per pair), with
+    no start rows (init null)."""
     from probreg_tpu_torch.ops import em_cuda as em
     from probreg_tpu_torch.ops.estep_cuda import _check, _stream
 
@@ -5744,7 +5800,7 @@ def parent_em(lib, s_c, t_c, counts, *, affine, w, maxiter, tol,
         s_c.data_ptr(), s_c.shape[1], t_c.data_ptr(), t_c.shape[1],
         None if counts is None else counts.data_ptr(),
         None if order is None else order.data_ptr(), s_c.shape[0], g, w,
-        maxiter, tol, int(update_scale), int(affine), out.data_ptr(),
+        maxiter, tol, int(update_scale), int(affine), None, out.data_ptr(),
         _stream(s_c)), "parent em_cpd")
     return out
 
@@ -5766,8 +5822,8 @@ def through_parent(lib, name, fn, *a, **kw):
 def parent_frg(lib, s_c, t_c, n_c, counts, *, pt2pl, w, maxiter, tol,
                update_sigma2, sigma2_decay, min_sigma2, auto_sigma2,
                sigma2_0):
-    """The parent's K5 as its own wrapper launches it (its C signature has
-    no start rows; launch_plan's clusters and order)."""
+    """The parent's K5 as its own wrapper launches it (launch_plan's
+    clusters and order), with no start rows (init null)."""
     from probreg_tpu_torch.ops import em_cuda as em
     from probreg_tpu_torch.ops.estep_cuda import _check, _stream
 
@@ -5779,7 +5835,7 @@ def parent_frg(lib, s_c, t_c, n_c, counts, *, pt2pl, w, maxiter, tol,
         None if counts is None else counts.data_ptr(),
         None if order is None else order.data_ptr(), s_c.shape[0], g, w,
         maxiter, tol, int(update_sigma2), sigma2_decay, min_sigma2,
-        int(auto_sigma2), sigma2_0, int(pt2pl), out.data_ptr(),
+        int(auto_sigma2), sigma2_0, int(pt2pl), None, out.data_ptr(),
         _stream(s_c)), "parent em_frg")
     return out
 
@@ -5852,53 +5908,29 @@ def small_case(m, n, dim, dev, seed=1):
 
 
 def parent_small(lib, ys, xs, sigma2, w):
-    """The parent's K2 (float4-packed clouds, a ticket, one block per 32
-    targets) as its wrapper called it. Returns (launch, call): launch()
-    reruns the kernel on buffers prepared once, call() does the parent
-    wrapper's whole work (scalars, packing, allocations, launch, n_p) and
-    returns (pt1, p1, px, n_p, xx)."""
+    """The parent's K2 through this checkout's wrapper (through_parent: the
+    two share K2's C signature). Returns (launch, call): launch() reruns
+    the kernel on buffers prepared once, call() does a whole estep_small
+    call and returns (pt1, p1, px, n_p, xx)."""
     from probreg_tpu_torch.ops import estep_cuda as ec
 
-    (m, dim), n = ys.shape, xs.shape[0]
-
-    def pack(p):
-        out = p.new_zeros((p.shape[0], 4))
-        out[:, :dim] = p
-        out[:, 3] = (p * p).sum(1)
-        return out
-
-    def run(scal, y4, x4):
-        blocks = -(-n // 32)
-        bufs = [y4.new_empty(n), y4.new_empty((blocks, m, 4)),
-                y4.new_empty(blocks),
-                torch.zeros(1, dtype=torch.int32, device=y4.device),
-                y4.new_empty((m, 4)), y4.new_empty(())]
-
-        def launch():
-            ec._check(lib.probreg_estep_small(
-                y4.data_ptr(), m, x4.data_ptr(), n, scal.data_ptr(),
-                *[b.data_ptr() for b in bufs], ec._stream(y4)),
-                "parent estep_small")
-        return launch, bufs
-
-    launch, _ = run(ec._scalars(sigma2, w, m, n, dim, ys.device), pack(ys),
-                    pack(xs))
+    launch, _ = through_parent(lib, "estep", ec.small_launcher, ys, xs,
+                               sigma2, w)
 
     def call():
-        go, bufs = run(ec._scalars(sigma2, w, m, n, dim, ys.device),
-                       pack(ys), pack(xs))
-        go()
-        p1px = bufs[4]
-        return bufs[0], p1px[:, 3], p1px[:, :dim], p1px[:, 3].sum(), bufs[5]
+        mom = through_parent(lib, "estep", ec.estep_small, ys, xs, sigma2, w)
+        return mom.pt1, mom.p1, mom.px, mom.n_p, mom.xx
     return launch, call
 
 
 def parent_estep_lib(parent):
-    """``parent``'s csrc/estep.cu built with the port's flags, its K2 entry
-    typed with the parent's C signature."""
+    """``parent``'s csrc/estep.cu built with the port's flags, its K2
+    entries typed with this checkout's signatures (the parent's are the
+    same), so through_parent can hand it to this checkout's K2 wrapper."""
     import ctypes
 
     from probreg_tpu_torch.ops import _build
+    from probreg_tpu_torch.ops import estep_cuda as ec
 
     out_dir = os.path.join(parent, "build", "parent_kernels")
     os.makedirs(out_dir, exist_ok=True)
@@ -5910,9 +5942,11 @@ def parent_estep_lib(parent):
         raise RuntimeError(f"nvcc failed for the parent's estep.cu:\n"
                            f"{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(out)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.probreg_estep_small.argtypes = [P, I, P, I] + [P] * 8
-    lib.probreg_estep_small.restype = I
+    for name in ("probreg_estep_small", "probreg_estep_small_capacity",
+                 "probreg_empty_launch"):
+        getattr(lib, name).argtypes = ec._SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    lib._probreg_typed = True  # estep_cuda._lib() types no other entry
     return lib
 
 
@@ -6076,6 +6110,125 @@ def k2_against_parent(parent, this=True) -> int:
     return bad
 
 
+def typed_parent_stash(lib):
+    """Types ``lib``'s (a parent's estep build) K3, K4, K11 and K12
+    entries with the C signatures they had before the bf16 pass B took the
+    moment operand: pass A (..., scal, inv_den, pt1, xx_part, stream) and
+    every pass B (..., scal, inv_den, p1px, stream)."""
+    import ctypes
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    head = [P, I, I, I, P, I, I, I, P, P, P]
+    types = {"probreg_stash_den": head + [P, P, P, P],
+             "probreg_fused_den": head + [P, P, P, P],
+             "probreg_stash_den_raw": head + [P, P],
+             "probreg_stash_finish": [P, I, I, I, P, P, P, P, P, P]}
+    for name in ("probreg_stash_rows", "probreg_stash_merged",
+                 "probreg_fused_moment", "probreg_stash_rows_bf16",
+                 "probreg_stash_merged_bf16"):
+        types[name] = head + [P, P, P]
+    for name, argtypes in types.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = I
+    return lib
+
+
+def stash_against_parent(parent) -> int:
+    """K3's, K4's, K11's (one shard, no reduction) and K12's f32 E-steps
+    of this checkout against ``parent``'s build of csrc/estep.cu, bit for
+    bit (pt1, p1, px, the xx partials and inv_den), K3's f32 passes timed,
+    on check_fast_start's case (dense) and on the 150k clouds' culled
+    E-step; there too the bf16-stash pass B of both (the parent's through
+    its own C signature, inv_den in place of the operand; this checkout's
+    with its moment_operand) and the K12 bf16 E-step, timed parent, this,
+    this, parent, with the largest difference between the two. Returns
+    the number of f32 outputs that differ."""
+    from probreg_tpu_torch.config import config
+    from probreg_tpu_torch.ops import estep_cuda as ec
+
+    dev = torch.device("cuda")
+    plib = typed_parent_stash(parent_estep_lib(parent))
+    ys, xs = fast_case(dev)
+    scal = torch.tensor([0.5 / FAST_SIGMA2, FAST_C], dtype=torch.float32,
+                        device=dev)
+    cases = [("dense 131k^2, sigma2 0.67", ys, xs, scal, config.tile_m,
+              config.tile_n)]
+    for regime, sigma2, y, x, sc, _, tm, tn, _ in estep_regimes(dev, {}):
+        if regime == "culled":
+            cases.append((f"culled 150k^2, sigma2 {sigma2}", y, x, sc, tm,
+                          tn))
+    bad = 0
+    for label, ys, xs, scal, tile_m, tile_n in cases:
+        mask = ec._active_mask(*ec._tile_bounds(ys, tile_m),
+                               *ec._tile_bounds(xs, tile_n), scal[0])
+
+        def plans(cls, **kw):
+            this = cls(ys, xs, scal, mask, tile_m, tile_n, **kw)
+            kw.pop("round_g", None)
+            old = cls(ys, xs, scal, mask, tile_m, tile_n, **kw)
+            old.lib = plib
+            return this, old
+
+        for name, cls in (("K3", ec.StashPlan), ("K4", ec.FusedPlan),
+                          ("K11's route", ec.ShardStashPlan),
+                          ("K12", ec.MergedStashPlan)):
+            kw = ({"reduce_den": lambda d: None}
+                  if cls is ec.ShardStashPlan else {})
+            this, old = plans(cls, **kw)
+            this.run()
+            old.run()
+            torch.cuda.synchronize()
+            same = [bool(torch.equal(getattr(this, k), getattr(old, k)))
+                    for k in ("pt1", "p1px", "xx_part", "inv_den")]
+            log(f"[{name} f32 against the parent] {label}: pt1, p1px, xx "
+                f"partials, inv_den bit for bit: {same}")
+            bad += not all(same)
+            if name == "K3":  # gauss() of both, parent, this, this, parent
+                t = {k: [] for k in ("A parent", "A this", "B parent",
+                                     "B this")}
+                for who in ("parent", "this", "this", "parent"):
+                    plan = old if who == "parent" else this
+                    t[f"A {who}"].append(timed(plan.den, 5))
+                    t[f"B {who}"].append(timed(plan.moment, 5))
+                log(f"  K3 f32 passes, parent / this in turns: "
+                    + "; ".join(f"{k} {v[0]:.3f} / {v[1]:.3f} ms"
+                                for k, v in t.items()))
+        this, old = plans(ec.StashPlan, round_g=True)
+        this.den()
+        old.den()
+
+        def old_b():
+            old._launch(("probreg_stash_rows_bf16", "stash_moment_bf16"),
+                        old.row_idx, old.row_cnt, old.inv_den, old.p1px)
+
+        ms = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            ms[who].append(timed(old_b if who == "parent" else this.moment,
+                                 5))
+        diff = float((this.p1px - old.p1px).abs().max()
+                     / old.p1px.abs().max())
+        this, old = plans(ec.MergedStashPlan, round_g=True)
+        old.MOMENT = ("probreg_stash_merged_bf16", "stash_merged_bf16")
+        e12 = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            e12[who].append(timed(old.run if who == "parent" else this.run,
+                                  5))
+        d12 = float((this.p1px - old.p1px).abs().max()
+                    / old.p1px.abs().max())
+        log(f"[bf16 pass B against the parent] {label}: K3's pass B parent "
+            f"{ms['parent'][0]:.3f} / {ms['parent'][1]:.3f} ms, this "
+            f"{ms['this'][0]:.3f} / {ms['this'][1]:.3f} ms (with its "
+            f"moment_operand): this / parent "
+            f"{np.mean(ms['this']) / np.mean(ms['parent']):.3f}; largest "
+            f"difference {diff:.3e} of the largest entry. K12 bf16 E-step "
+            f"parent {e12['parent'][0]:.3f} / {e12['parent'][1]:.3f} ms, "
+            f"this {e12['this'][0]:.3f} / {e12['this'][1]:.3f} ms: this / "
+            f"parent {np.mean(e12['this']) / np.mean(e12['parent']):.3f}; "
+            f"largest difference {d12:.3e}")
+        del this, old
+    return bad
+
+
 def compare_with_parent(parent) -> int:
     """K2 and the step API of this checkout against ``parent``'s
     (k2_against_parent). K1 of this checkout against ``parent``'s build,
@@ -6094,6 +6247,7 @@ def compare_with_parent(parent) -> int:
 
     dev = torch.device("cuda")
     bad = k2_against_parent(parent)
+    bad += stash_against_parent(parent)
     libs = parent_libs(parent)
     rng = np.random.default_rng(5)
     big = rng.uniform(-1, 1, (1024, 3))
@@ -7270,6 +7424,9 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--parent":
         log(card_line())
         return compare_with_parent(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--stash-parent":
+        log(card_line())
+        return stash_against_parent(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--bcpd-search-parent":
         log(card_line())
         return bcpd_search_against_parent(sys.argv[2])

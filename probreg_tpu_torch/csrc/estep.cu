@@ -31,10 +31,19 @@ namespace {
 
 constexpr float kEpsF32 = 1.1920928955078125e-07f;  // np.finfo(f32).eps
 
+// The Gaussian of one pair with every rounding spelled out, so that each
+// kernel that calls it forms the same bits whatever the compiler does
+// around it: the dot as y.y x.y rounded, then y.x x.x and y.z x.z fused
+// into it (the contraction nvcc gives the plain sum y.x x.x + y.y x.y +
+// y.z x.z, so the bits are the plain expression's), and |y|^2 + |x|^2 -
+// 2 y.x with the doubling fused: 2 y.x is exact in f32, so fma(-2, y.x,
+// |y|^2 + |x|^2) rounds once, to the value that subtracting the doubled
+// dot gives, in one instruction fewer.
 __device__ __forceinline__ float gauss(float4 y, float4 x, float inv2s2) {
-  float xy = y.x * x.x + y.y * x.y + y.z * x.z;
-  float d2 = fmaxf(y.w + x.w - 2.0f * xy, 0.0f);
-  return expf(-d2 * inv2s2);
+  const float xy =
+      __fmaf_rn(y.z, x.z, __fmaf_rn(y.x, x.x, __fmul_rn(y.y, x.y)));
+  const float d2 = fmaxf(__fmaf_rn(-2.0f, xy, __fadd_rn(y.w, x.w)), 0.0f);
+  return expf(__fmul_rn(-d2, inv2s2));
 }
 
 // The sums that the E-step kernels share are spelled out with the
@@ -560,8 +569,9 @@ constexpr int kPairThreads = kDenThreads / kColsPerThread;  // 128
 // The block of chunk cx of stripe j walks the stripe's active source tiles
 // (act_idx[j][0..cnt)) and writes inv_den and pt1 of its columns and the
 // chunk's xx to xx_part[j][cx]; with kRaw (K11) it stops at the raw column
-// sums and writes den_raw of its columns instead.
-template <bool kTileSums, bool kRaw = false>
+// sums and writes den_raw of its columns instead. kDump (tests only): every
+// g the pass forms also goes to g_dump (m, n).
+template <bool kTileSums, bool kRaw = false, bool kDump = false>
 __global__ void __launch_bounds__(kPairThreads)
 den_pass_kernel(const float4* __restrict__ ys, int m, int tile_m, int n_i,
                 const float4* __restrict__ xs, int n, int tile_n,
@@ -572,7 +582,8 @@ den_pass_kernel(const float4* __restrict__ ys, int m, int tile_m, int n_i,
                 float* __restrict__ inv_den,       // (n)
                 float* __restrict__ pt1,           // (n)
                 float* __restrict__ xx_part,       // (gridDim.y, gridDim.x)
-                float* __restrict__ den_raw) {     // kRaw: (n)
+                float* __restrict__ den_raw,       // kRaw: (n)
+                float* __restrict__ g_dump) {      // kDump: (m, n)
   if (skip != nullptr && *skip != 0) return;  // the fast branch runs
   __shared__ float4 ysh[kDenThreads];
   __shared__ float warps[kDenThreads / 32];
@@ -617,6 +628,7 @@ den_pass_kernel(const float4* __restrict__ ys, int m, int tile_m, int n_i,
             s[k] = __fadd_rn(s[k], g);
           else
             den[k] = __fadd_rn(den[k], g);
+          if (kDump && ok[k]) g_dump[(size_t)(rc + r) * n + c0 + col[k]] = g;
         }
       }
     }
@@ -664,21 +676,14 @@ __host__ __device__ constexpr int moment_block_rows() {
                    : kRowThreads * kRowsPerThread;
 }
 
-// g rounded to bf16 (to nearest even) and back: what a pass reads from the
-// reference's bf16 stash.
-__device__ __forceinline__ float round_bf16(float g) {
-  return __bfloat162float(__float2bfloat16_rn(g));
-}
-
 // Pass B: grid (row blocks, n_i source tiles), kRowThreads threads. The
 // block of rows [rb, rb + moment_block_rows) of tile i walks the tile's
 // active target stripes (act_idx[i][0..cnt), ascending) and writes p1 and
 // px of its rows (zeros where no stripe is active). kFold (K12): every
 // stripe but the last (n_j - 1) folds the normalizer into the channels
-// (add_folded); the last keeps p = g * inv_den (add_moments). kRound
-// (config.stash_dtype = bfloat16): each g is rounded to bf16 before its
-// moments, as the reference's bf16 stash holds it.
-template <bool kTileSums, bool kFold = false, bool kRound = false>
+// (add_folded); the last keeps p = g * inv_den (add_moments). The bf16
+// stash's pass B is moment_bf16_kernel (below).
+template <bool kTileSums, bool kFold = false>
 __global__ void __launch_bounds__(kRowThreads)
 moment_pass_kernel(const float4* __restrict__ ys, int m, int tile_m,
                    const float4* __restrict__ xs, int n, int tile_n, int n_j,
@@ -739,7 +744,7 @@ moment_pass_kernel(const float4* __restrict__ ys, int m, int tile_m,
 #pragma unroll
           for (int q = 0; q < kRows; ++q) {
             const float g = gauss(y[q], x, inv2s2);
-            add_folded(kRound ? round_bf16(g) : g, f, a[q]);
+            add_folded(g, f, a[q]);
           }
         }
       } else {
@@ -749,7 +754,7 @@ moment_pass_kernel(const float4* __restrict__ ys, int m, int tile_m,
 #pragma unroll
           for (int q = 0; q < kRows; ++q) {
             const float g = gauss(y[q], x, inv2s2);
-            add_moments(__fmul_rn(kRound ? round_bf16(g) : g, inv), x, a[q]);
+            add_moments(__fmul_rn(g, inv), x, a[q]);
           }
         }
       }
@@ -825,7 +830,8 @@ stash_finish_kernel(const float4* __restrict__ xs, int n, int tile_n,
 // the Gaussian again. So pass A is K3's (the same inv_den, pt1 and xx), and
 // pass B is moment_pass_kernel<true, true>: it forms each active pair's
 // Gaussian with gauss(), folds the normalizer for every stripe but the last
-// and adds a row's stripes in stripe order, as the stash read did.
+// and adds a row's stripes in stripe order, as the stash read did. With a
+// bf16 stash its pass B is K3's, moment_bf16_kernel (below).
 // ---------------------------------------------------------------------------
 
 // ---------------------------------------------------------------------------
@@ -1173,23 +1179,215 @@ moment_fast_kernel(const float4* __restrict__ ys, int m, int tile_m,
       if (row[h][r] < t1) p1px[(size_t)row[h][r] * 4 + tig] = tot[h][r];
 }
 
-template <bool kTileSums, bool kRaw = false>
+// ---------------------------------------------------------------------------
+// K3's and K12's pass B reading a bf16 stash (config.stash_dtype =
+// bfloat16): one kernel for both routes.
+//
+// Replaces probreg_tpu/ops/estep_pallas.py:_stash_moment_kernel reading a
+// bf16 stash (p = bf16(g) inv_den, then px = x . p) and the pass B of
+// :_stash_merged_kernel with a bf16 stash (chan = (x inv_den, inv_den),
+// then chan . bf16(g)). Both compute sum_n bf16(g_mn) v_n with v_n =
+// inv_den_n (x_n, y_n, z_n, 1); they differ only in f32 rounding order,
+// which the tensor cores change anyway, so both routes launch this kernel
+// on the same operand and give the same bits.
+//
+// g is the exact f32 Gaussian of pass A (den_pass_kernel<true>): the same
+// gauss(), on the same packed points, so the stash's bf16(g) is bf16 of
+// pass A's own g (a card test holds the two passes' g bit for bit). No
+// cross term goes to the tensor cores. Lane 4 gid + tig forms the 8
+// Gaussians of rows gid and gid + 8 of a 16-row group at columns 2 tig,
+// 2 tig + 1, 2 tig + 8 and 2 tig + 9 of a 16-column group: the k slots of
+// the A fragment of mma.sync.m16n8k16 (mma_bf16_k16). Packed to bf16 to
+// nearest even (pack_bf16: cvt.rn.bf16x2.f32, subnormals kept, the bits of
+// __float2bfloat16_rn), they are the A operand as they stand. Two
+// m16n8k16 against the staged moment_operand (moment_fast_kernel's
+// layout: inv_den (x, 1) as three bf16 pieces, exact products with a bf16
+// g in the f32 accumulator) give each channel's hi, mid and lo; a stripe's
+// hi + (mid + lo) goes into the row's total in stripe order, as in
+// moment_fast_kernel. Columns past a stripe's end are staged as zero
+// points and carry the operand's zero padding, so they add nothing; rows
+// past the tile are any valid point and are never written; culled tiles
+// are never visited and add exact zeros.
+//
+// Bound: the FP32 pipe. The exact Gaussian is 15 issue slots a pair (the
+// dot 3, d2 and its clamp 3, the scale 1, expf's range reduction around
+// its one MUFU.EX2 8), its bf16 pack half a slot; the 24 bf16 operations
+// of the moments go to the tensor cores, and a lane's four column loads
+// and one operand load (shared memory, broadcast across the 8 lanes of a
+// tig) serve all its row groups. Blocks of 4 warps x 4 row groups (256
+// rows) were the fastest shape on the card at 131,072^2 dense; every
+// shape gives the same bits. Blocks take the source tiles heaviest first
+// (order: the tiles by active stripe count, descending): in a culled
+// E-step a tile's work varies ~3x, and a heavy tile started last runs on
+// alone at the end.
+// kDump (tests only): every g the pass forms, before its rounding, also
+// goes to g_dump (m, n).
+constexpr int kB16Warps = 4;   // pass B's block
+constexpr int kB16Groups = 4;  // 16-row groups a warp holds
+
+template <bool kDump, int kWarps = kB16Warps, int kGroups = kB16Groups>
+__global__ void __launch_bounds__(32 * kWarps)
+moment_bf16_kernel(const float4* __restrict__ ys, int m, int tile_m,
+                   const float4* __restrict__ xs, int n, int tile_n, int n_j,
+                   const int* __restrict__ act_idx,   // (n_i, n_j)
+                   const int* __restrict__ act_cnt,   // (n_i)
+                   const int* __restrict__ order,     // (n_i)
+                   const float* __restrict__ scal,
+                   const uint4* __restrict__ mop,     // moment_operand
+                   float* __restrict__ p1px,  // (m, 4): px in 0-2, p1 in 3
+                   float* __restrict__ g_dump) {
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int kBlockRows = 16 * kWarps * kGroups;
+  __shared__ float4 xw[kColStage];             // x, y, z, |x|^2
+  __shared__ uint4 ms[kFastStageGroups * 32];  // their moment operand
+  const int tile = order[blockIdx.y];
+  const int t1 = min((tile + 1) * tile_m, m);
+  const int rb = tile * tile_m + blockIdx.x * kBlockRows;
+  if (rb >= t1) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int gps = (tile_n + 15) / 16;  // operand groups a stripe
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float inv2s2 = scal[0];
+  int row[kGroups][2];
+  float4 y[kGroups][2];
+  float acc[kGroups][2][4];  // [group][mma][fragment]
+  float tot[kGroups][2];     // channel tig of rows gid, gid + 8
+#pragma unroll
+  for (int h = 0; h < kGroups; ++h)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      row[h][r] = rb + warp * 16 * kGroups + 16 * h + gid + 8 * r;
+      y[h][r] = ys[min(row[h][r], t1 - 1)];
+      tot[h][r] = 0.0f;
+    }
+  const int cnt = act_cnt[tile];
+  const int* idx = act_idx + (size_t)tile * n_j;
+  for (int s = 0; s < cnt; ++s) {
+    const int j = idx[s];
+    const int c0 = j * tile_n;
+    const int c1 = min(c0 + tile_n, n);
+#pragma unroll
+    for (int h = 0; h < kGroups; ++h)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[h][q][e] = 0.0f;
+    for (int cc = c0; cc < c1; cc += kColStage) {
+      const int nc = min(kColStage, c1 - cc);
+      const int ng = (nc + 15) / 16;
+      const uint4* src = mop + ((size_t)j * gps + (cc - c0) / 16) * 32;
+      __syncthreads();
+      for (int t = threadIdx.x; t < 16 * ng; t += kThreads)
+        xw[t] = t < nc ? xs[cc + t] : zero;
+      for (int t = threadIdx.x; t < ng * 32; t += kThreads) ms[t] = src[t];
+      __syncthreads();
+      for (int g = 0; g < ng; ++g) {
+        // xc[2 t + e]: column 16 g + 8 t + 2 tig + e of the stage.
+        const int c = 16 * g + 2 * tig;
+        const float4 xc[4] = {xw[c], xw[c + 1], xw[c + 8], xw[c + 9]};
+        const uint4 o = ms[g * 32 + lane];
+#pragma unroll
+        for (int h = 0; h < kGroups; ++h) {
+          // gv[4 t + 2 r + e]: column 8 t + 2 tig + e, row gid + 8 r.
+          float gv[8];
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                gv[4 * t + 2 * r + e] = gauss(y[h][r], xc[2 * t + e], inv2s2);
+          const uint32_t p0 = pack_bf16(gv[0], gv[1]);
+          const uint32_t p1 = pack_bf16(gv[2], gv[3]);
+          const uint32_t p2 = pack_bf16(gv[4], gv[5]);
+          const uint32_t p3 = pack_bf16(gv[6], gv[7]);
+          mma_bf16_k16(acc[h][0], p0, p1, p2, p3, o.x, o.y);
+          mma_bf16_k16(acc[h][1], p0, p1, p2, p3, o.z, o.w);
+          if (kDump) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const int cl = c + 8 * (e >> 2) + (e & 1);
+              const int rr = row[h][(e >> 1) & 1];
+              if (cl < nc && rr < t1) g_dump[(size_t)rr * n + cc + cl] = gv[e];
+            }
+          }
+        }
+      }
+    }
+    // Channel tig of each row: hi (column 2 tig of the first product) +
+    // (mid (2 tig + 1) + lo (2 tig of the second)).
+#pragma unroll
+    for (int h = 0; h < kGroups; ++h)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        tot[h][r] = __fadd_rn(
+            tot[h][r],
+            __fadd_rn(acc[h][0][2 * r],
+                      __fadd_rn(acc[h][0][2 * r + 1], acc[h][1][2 * r])));
+  }
+#pragma unroll
+  for (int h = 0; h < kGroups; ++h)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row[h][r] < t1) p1px[(size_t)row[h][r] * 4 + tig] = tot[h][r];
+}
+
+template <int kWarps = kB16Warps, int kGroups = kB16Groups>
+int launch_moment_bf16(const void* ys, int m, int tile_m, int n_i,
+                       const void* xs, int n, int tile_n, int n_j,
+                       const void* act_idx, const void* act_cnt,
+                       const void* order, const void* scal, const void* mop,
+                       void* p1px, void* g_dump, void* stream) {
+  if (order == nullptr) return (int)cudaErrorInvalidValue;
+  constexpr int rows = 16 * kWarps * kGroups;
+  const dim3 grid((tile_m + rows - 1) / rows, n_i);
+  const auto s = (cudaStream_t)stream;
+  if (g_dump == nullptr)
+    moment_bf16_kernel<false, kWarps, kGroups><<<grid, 32 * kWarps, 0, s>>>(
+        (const float4*)ys, m, tile_m, (const float4*)xs, n, tile_n, n_j,
+        (const int*)act_idx, (const int*)act_cnt, (const int*)order,
+        (const float*)scal, (const uint4*)mop, (float*)p1px, nullptr);
+  else
+    moment_bf16_kernel<true, kWarps, kGroups><<<grid, 32 * kWarps, 0, s>>>(
+        (const float4*)ys, m, tile_m, (const float4*)xs, n, tile_n, n_j,
+        (const int*)act_idx, (const int*)act_cnt, (const int*)order,
+        (const float*)scal, (const uint4*)mop, (float*)p1px,
+        (float*)g_dump);
+  return (int)cudaGetLastError();
+}
+
+// Tests only: pack_bf16 of (g[2 i], g[2 i + 1]) into packed[i], and each
+// g by __float2bfloat16_rn (the conversion of a bf16 stash) into
+// rounded[i], so a test can hold the pass's packing to it bit for bit.
+__global__ void pack_check_kernel(const float* __restrict__ g, int pairs,
+                                  uint32_t* __restrict__ packed,
+                                  __nv_bfloat16* __restrict__ rounded) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= pairs) return;
+  packed[i] = pack_bf16(g[2 * i], g[2 * i + 1]);
+  rounded[2 * i] = __float2bfloat16_rn(g[2 * i]);
+  rounded[2 * i + 1] = __float2bfloat16_rn(g[2 * i + 1]);
+}
+
+template <bool kTileSums, bool kRaw = false, bool kDump = false>
 int launch_den_pass(const void* ys, int m, int tile_m, int n_i,
                     const void* xs, int n, int tile_n, int n_j,
                     const void* act_idx, const void* act_cnt,
                     const void* scal, const void* skip, void* inv_den,
-                    void* pt1, void* xx_part, void* den_raw, void* stream) {
+                    void* pt1, void* xx_part, void* den_raw, void* stream,
+                    void* g_dump = nullptr) {
   const dim3 grid((tile_n + kDenThreads - 1) / kDenThreads, n_j);
-  den_pass_kernel<kTileSums, kRaw><<<grid, kPairThreads, 0,
-                                     (cudaStream_t)stream>>>(
+  den_pass_kernel<kTileSums, kRaw, kDump><<<grid, kPairThreads, 0,
+                                            (cudaStream_t)stream>>>(
       (const float4*)ys, m, tile_m, n_i, (const float4*)xs, n, tile_n,
       (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
       (const int*)skip, (float*)inv_den, (float*)pt1, (float*)xx_part,
-      (float*)den_raw);
+      (float*)den_raw, (float*)g_dump);
   return (int)cudaGetLastError();
 }
 
-template <bool kTileSums, bool kFold = false, bool kRound = false>
+template <bool kTileSums, bool kFold = false>
 int launch_moment_pass(const void* ys, int m, int tile_m, int n_i,
                        const void* xs, int n, int tile_n, int n_j,
                        const void* act_idx, const void* act_cnt,
@@ -1197,8 +1395,8 @@ int launch_moment_pass(const void* ys, int m, int tile_m, int n_i,
                        const void* inv_den, void* p1px, void* stream) {
   constexpr int rows = moment_block_rows<kTileSums>();
   const dim3 grid((tile_m + rows - 1) / rows, n_i);
-  moment_pass_kernel<kTileSums, kFold, kRound><<<grid, kRowThreads, 0,
-                                                 (cudaStream_t)stream>>>(
+  moment_pass_kernel<kTileSums, kFold><<<grid, kRowThreads, 0,
+                                         (cudaStream_t)stream>>>(
       (const float4*)ys, m, tile_m, (const float4*)xs, n, tile_n, n_j,
       (const int*)act_idx, (const int*)act_cnt, (const float*)scal,
       (const int*)skip, (const float*)inv_den, (float4*)p1px);
@@ -1426,25 +1624,51 @@ int probreg_stash_rows_fast(const void* ys, int m, int tile_m, int n_i,
   return (int)cudaGetLastError();
 }
 
-// K3's and K12's pass B with each g rounded to bf16 (config.stash_dtype).
+// K3's and K12's pass B reading a bf16 stash (config.stash_dtype): both
+// launch moment_bf16_kernel against mop, moment_operand of inv_den after
+// pass A, the source tiles in ``order`` (n_i). g_dump: null, or an (m, n)
+// buffer that takes every g the pass forms, before its rounding (tests
+// only).
 int probreg_stash_rows_bf16(const void* ys, int m, int tile_m, int n_i,
                             const void* xs, int n, int tile_n, int n_j,
                             const void* act_idx, const void* act_cnt,
-                            const void* scal, const void* inv_den,
-                            void* p1px, void* stream) {
-  return launch_moment_pass<true, false, true>(
-      ys, m, tile_m, n_i, xs, n, tile_n, n_j, act_idx, act_cnt, scal,
-      nullptr, inv_den, p1px, stream);
+                            const void* scal, const void* order,
+                            const void* mop, void* p1px, void* g_dump,
+                            void* stream) {
+  return launch_moment_bf16(ys, m, tile_m, n_i, xs, n, tile_n, n_j, act_idx,
+                            act_cnt, order, scal, mop, p1px, g_dump, stream);
 }
 
 int probreg_stash_merged_bf16(const void* ys, int m, int tile_m, int n_i,
                               const void* xs, int n, int tile_n, int n_j,
                               const void* act_idx, const void* act_cnt,
-                              const void* scal, const void* inv_den,
-                              void* p1px, void* stream) {
-  return launch_moment_pass<true, true, true>(
+                              const void* scal, const void* order,
+                              const void* mop, void* p1px, void* g_dump,
+                              void* stream) {
+  return launch_moment_bf16(ys, m, tile_m, n_i, xs, n, tile_n, n_j, act_idx,
+                            act_cnt, order, scal, mop, p1px, g_dump, stream);
+}
+
+// Tests only: K3's pass A (probreg_stash_den) with every g it forms also
+// written to g_dump (m, n).
+int probreg_stash_den_dump(const void* ys, int m, int tile_m, int n_i,
+                           const void* xs, int n, int tile_n, int n_j,
+                           const void* act_idx, const void* act_cnt,
+                           const void* scal, void* inv_den, void* pt1,
+                           void* xx_part, void* g_dump, void* stream) {
+  if (g_dump == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_den_pass<true, false, true>(
       ys, m, tile_m, n_i, xs, n, tile_n, n_j, act_idx, act_cnt, scal,
-      nullptr, inv_den, p1px, stream);
+      nullptr, inv_den, pt1, xx_part, nullptr, stream, g_dump);
+}
+
+// Tests only: pack_check_kernel over the 2 * pairs f32 values of g.
+int probreg_pack_bf16_check(const void* g, int pairs, void* packed,
+                            void* rounded, void* stream) {
+  if (pairs <= 0) return (int)cudaErrorInvalidValue;
+  pack_check_kernel<<<(pairs + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)g, pairs, (uint32_t*)packed, (__nv_bfloat16*)rounded);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

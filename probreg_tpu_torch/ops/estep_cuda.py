@@ -217,6 +217,23 @@ def moment_operand(xs: torch.Tensor, inv_den: torch.Tensor,
     return b.reshape(n_j * gps, 32, 8).contiguous()
 
 
+def pack_bf16_check(g: torch.Tensor):
+    """Tests only: the bf16 bits that the bf16-stash pass B packs for each
+    value of the f32 CUDA tensor ``g`` (even length; csrc/estep.cu
+    pack_bf16, pairwise), beside __float2bfloat16_rn's of the same values,
+    formed by one kernel: (packed, rounded), two bf16 tensors of g's
+    length."""
+    if not g.is_cuda or g.dtype != torch.float32 or g.numel() % 2:
+        raise ValueError("expected an f32 CUDA tensor of even length")
+    g = g.reshape(-1).contiguous()
+    packed = torch.empty(g.numel() // 2, dtype=torch.int32, device=g.device)
+    rounded = torch.empty(g.numel(), dtype=torch.bfloat16, device=g.device)
+    _check(_lib().probreg_pack_bf16_check(
+        g.data_ptr(), g.numel() // 2, packed.data_ptr(), rounded.data_ptr(),
+        _stream(g)), "pack_bf16_check")
+    return packed.view(torch.bfloat16), rounded
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "probreg_estep_small": [_P, _I, _P, _I, _I, _P, _F, _F, _F, _I, _I, _I,
@@ -245,9 +262,12 @@ _SIGNATURES = {
     "probreg_stash_rows_fast": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P,
                                 _P, _P, _P, _P, _P],
     "probreg_stash_rows_bf16": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P,
-                                _P, _P, _P],
+                                _P, _P, _P, _P, _P],
     "probreg_stash_merged_bf16": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P,
-                                  _P, _P, _P, _P],
+                                  _P, _P, _P, _P, _P, _P],
+    "probreg_stash_den_dump": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P,
+                               _P, _P, _P, _P, _P],
+    "probreg_pack_bf16_check": [_P, _I, _P, _P, _P],
 }
 
 
@@ -690,11 +710,12 @@ class TwoPassPlan:
     p1 and px). Nothing per pair is kept. K3 (``StashPlan``), K4
     (``FusedPlan``) and K12 (``MergedStashPlan``) take the same arguments;
     ``DEN`` and ``MOMENT`` name each pass's C entry and its LAUNCHES
-    key."""
+    key; ``round_g`` (K3 and K12) takes pass B from ``MOMENT_BF16``."""
 
-    DEN = MOMENT = None
+    DEN = MOMENT = MOMENT_BF16 = None
 
-    def __init__(self, ys, xs, scal, mask, tile_m: int, tile_n: int):
+    def __init__(self, ys, xs, scal, mask, tile_m: int, tile_n: int,
+                 round_g: bool = False):
         (m, self.dim), n = ys.shape, xs.shape[0]
         self.n_i, self.n_j = mask.shape
         if max(self.n_i, self.n_j) > _MAX_GRID_Y:
@@ -713,6 +734,7 @@ class TwoPassPlan:
         self.p1px = new((m, 4))
         self.lib = _lib()
         self.stream = _stream(self.ys)
+        self.round_g = round_g
 
     def _launch(self, kernel, idx, cnt, *out) -> None:
         entry, key = kernel
@@ -729,8 +751,23 @@ class TwoPassPlan:
                      self.pt1, self.xx_part)
 
     def moment(self) -> None:
+        if self.round_g:
+            return self.moment_bf16()
         self._launch(self.MOMENT, self.row_idx, self.row_cnt, self.inv_den,
                      self.p1px)
+
+    def moment_bf16(self, g_dump=None) -> None:
+        """Pass B reading a bf16 stash, after pass A: moment_operand from
+        inv_den (elementwise, on the device), then the kernel, whose moments
+        run on the tensor cores (K3's and K12's alike), on the source tiles
+        heaviest first (by active stripe count; the bits do not depend on
+        the order). ``g_dump`` (tests only): an (m, n) f32 buffer that
+        takes every Gaussian the pass forms, before its rounding."""
+        mop = moment_operand(self.xs, self.inv_den, self.tile_n)
+        order = torch.argsort(self.row_cnt, descending=True,
+                              stable=True).to(torch.int32)
+        self._launch(self.MOMENT_BF16, self.row_idx, self.row_cnt, order,
+                     mop, self.p1px, g_dump)
 
     def result(self):
         return (self.pt1, self.p1px[:, 3], self.p1px[:, :self.dim],
@@ -752,8 +789,8 @@ class StashPlan(TwoPassPlan):
     ``gate`` (fast_gate's flag): each pass launches K3's exact kernel,
     which returns at once where the flag is 1, and the fast kernel
     (``stash_den_fast``, ``stash_moment_fast``), which returns at once
-    where it is 0. ``round_g``: pass B rounds each Gaussian to bf16
-    (``stash_moment_bf16``)."""
+    where it is 0. ``round_g``: pass B reads each Gaussian rounded to
+    bf16 (``stash_moment_bf16``)."""
 
     DEN = ("probreg_stash_den", "stash_den")
     MOMENT = ("probreg_stash_rows", "stash_moment")
@@ -765,14 +802,12 @@ class StashPlan(TwoPassPlan):
 
     def __init__(self, ys, xs, scal, mask, tile_m: int, tile_n: int,
                  gate=None, round_g: bool = False):
-        super().__init__(ys, xs, scal, mask, tile_m, tile_n)
+        super().__init__(ys, xs, scal, mask, tile_m, tile_n, round_g)
         if gate is not None and round_g:
             raise ValueError("a gated E-step takes an f32 stash (the "
                              "reference's gate is off under a bf16 one)")
         self.gate = None if gate is None else \
             gate.to(torch.int32).reshape(1).contiguous()
-        if round_g:
-            self.MOMENT = self.MOMENT_BF16
 
     def den(self) -> None:
         if self.gate is None:
@@ -787,6 +822,13 @@ class StashPlan(TwoPassPlan):
         self._launch(self.MOMENT_GATED, self.row_idx, self.row_cnt,
                      self.gate, self.inv_den, self.p1px)
         self.moment_fast()
+
+    def den_dump(self, g_dump) -> None:
+        """Tests only: the exact pass A (``stash_den``'s kernel) with
+        every Gaussian it forms also written to ``g_dump`` (m, n) f32."""
+        self._launch(("probreg_stash_den_dump", "stash_den"), self.col_idx,
+                     self.col_cnt, self.inv_den, self.pt1, self.xx_part,
+                     g_dump)
 
     def den_fast(self, g_dump=None) -> None:
         """The fast pass A alone (it runs where the gate is 1).
@@ -853,16 +895,13 @@ class MergedStashPlan(TwoPassPlan):
     channels (p1 += g * inv_den, px += g * (x * inv_den)) for every stripe
     but the last, which keeps K3's p = g * inv_den, as the reference's
     pipelined kernel and its epilogue associate them. ``round_g``: pass B
-    rounds each Gaussian to bf16 (``stash_merged_bf16``)."""
+    reads each Gaussian rounded to bf16 (``stash_merged_bf16``): K3's
+    bf16 pass B, since sum_n bf16(g) inv_den (x, 1) is one product either
+    way on the tensor cores, so both routes give the same bits."""
 
     DEN = StashPlan.DEN
     MOMENT = ("probreg_stash_merged", "stash_merged")
-
-    def __init__(self, ys, xs, scal, mask, tile_m: int, tile_n: int,
-                 round_g: bool = False):
-        super().__init__(ys, xs, scal, mask, tile_m, tile_n)
-        if round_g:
-            self.MOMENT = ("probreg_stash_merged_bf16", "stash_merged_bf16")
+    MOMENT_BF16 = ("probreg_stash_merged_bf16", "stash_merged_bf16")
 
 
 def stash_merged_estep(ys, xs, scal, mask, tile_m: int, tile_n: int,

@@ -2713,3 +2713,148 @@ def test_gated_estep_reads_nothing_on_the_host(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert pec.fast_steps() == 1 and pgc.fast_steps() == 1
+
+
+# --------------------------------------------------------------------------
+# The bf16-stash pass B (config.stash_dtype = bfloat16): one kernel for K3's
+# and K12's routes, the exact Gaussian rounded to bf16 as the A operand of
+# mma.sync m16n8k16 against moment_operand
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("merged", [False, True])
+@pytest.mark.parametrize("sigma2", [0.5, 0.05])
+@pytest.mark.parametrize("tile_m,tile_n", _FAST_TILES)
+def test_bf16_stash_pass_b_matches_plain(dev, merged, sigma2, tile_m,
+                                         tile_n):
+    """Both routes' bf16-stash E-step against their plain versions (the
+    reference's associations: p = bf16(g) inv_den for K3, the folded
+    channels for K12) on the same CUDA tensors, by the file's criterion:
+    the kernel sums bf16(g) times the three bf16 pieces of inv_den (x, 1)
+    on the tensor cores, so the two differ by f32 rounding order. Two
+    launches, pass A and the bf16 pass B; a far target cluster gives
+    culled tiles and stripes with no active tile (pt1 exactly 0)."""
+    m, n = 3000, 2500
+    ys, xs = _cloud(m, 3, dev), _cloud(n, 4, dev, far=700)
+    scal = pec._scalars(sigma2, 0.05, m, n, 3, dev)
+    mask = pec._active_mask(*pec._tile_bounds(ys, tile_m),
+                            *pec._tile_bounds(xs, tile_n), scal[0])
+    assert not bool(mask.all())
+    key = "stash_merged_bf16" if merged else "stash_moment_bf16"
+    before = dict(pec.LAUNCHES)
+    if merged:
+        got = pec.stash_merged_estep(ys, xs, scal, mask, tile_m, tile_n, True)
+        want = pec.stash_merged_estep_plain(ys, xs, scal, mask, tile_m,
+                                            tile_n, True)
+    else:
+        got = pec.stash_estep(ys, xs, scal, mask, tile_m, tile_n,
+                              round_g=True)
+        want = pec.stash_estep_plain(ys, xs, scal, mask, tile_m, tile_n,
+                                     None, None, True)
+    made = {k: pec.LAUNCHES[k] - before[k] for k in before}
+    assert made == {**{k: 0 for k in before}, "stash_den": 1, key: 1}
+    for name, a, b in zip(("pt1", "p1", "px", "xx"), got, want):
+        _close(a, b, name)
+    exact = pec.stash_estep_plain(ys, xs, scal, mask, tile_m, tile_n)
+    assert not torch.equal(got[1], exact[1])  # g was rounded
+    dead = ~mask.any(0)
+    if bool(dead.any()):
+        cols = dead.repeat_interleave(tile_n)[:n]
+        assert bool((got[0][cols] == 0).all())
+
+
+@pytest.mark.parametrize("tile_m,tile_n", _FAST_TILES)
+def test_bf16_stash_pass_b_forms_pass_as_g(dev, tile_m, tile_n):
+    """The bf16 pass B's Gaussian of every active pair, dumped before its
+    rounding, equals pass A's (stash_den's kernel, dumped) bit for bit,
+    and the plain version's to f32 rounding; culled pairs are formed in
+    neither pass."""
+    m, n = 1100, 900
+    ys, xs = _cloud(m, 7, dev), _cloud(n, 8, dev, far=200)
+    scal = pec._scalars(0.3, 0.0, m, n, 3, dev)
+    mask = pec._active_mask(*pec._tile_bounds(ys, tile_m),
+                            *pec._tile_bounds(xs, tile_n), scal[0])
+    plan = pec.StashPlan(ys, xs, scal, mask, tile_m, tile_n, round_g=True)
+    g_a = torch.full((m, n), float("nan"), device=dev)
+    g_b = torch.full((m, n), float("nan"), device=dev)
+    plan.den_dump(g_a)
+    plan.moment_bf16(g_dump=g_b)
+    torch.cuda.synchronize()
+    live = mask.repeat_interleave(tile_m, 0)[:m].repeat_interleave(
+        tile_n, 1)[:, :n]
+    assert bool(torch.isnan(g_a[~live]).all())
+    assert bool(torch.isnan(g_b[~live]).all())
+    assert bool(torch.isfinite(g_a[live]).all())
+    assert torch.equal(g_a[live], g_b[live])
+    act = torch.ones(m, dtype=torch.bool, device=dev)
+    y2, x2 = (ys * ys).sum(1), (xs * xs).sum(1)
+    g_plain, _ = pec.stash_den_raw_plain(ys, y2, xs, x2, scal, act, 1, m)
+    _close(g_a[live], g_plain[live], "g")
+    # The dump leaves pass A's outputs as stash_den writes them.
+    ref = pec.StashPlan(ys, xs, scal, mask, tile_m, tile_n)
+    ref.den()
+    assert torch.equal(plan.inv_den, ref.inv_den)
+    assert torch.equal(plan.pt1, ref.pt1)
+    assert torch.equal(plan.xx_part, ref.xx_part)
+
+
+@pytest.mark.parametrize("tile_m,tile_n", _FAST_TILES)
+def test_bf16_stash_routes_agree_bit_for_bit(dev, monkeypatch, tile_m,
+                                             tile_n):
+    """K3's and K12's bf16 E-steps (the same pass A, then the same pass B
+    on the same operand) give the same pt1, p1, px and xx, through the
+    cores and through estep_auto, whose bf16 routes reach neither the
+    plain versions nor the f32 pass B."""
+    def refuse(*a):
+        raise AssertionError("plain version called with CUDA tensors")
+
+    m, n = 3000, 2500
+    ys, xs = _cloud(m, 3, dev), _cloud(n, 4, dev, far=700)
+    scal = pec._scalars(0.05, 0.05, m, n, 3, dev)
+    mask = pec._active_mask(*pec._tile_bounds(ys, tile_m),
+                            *pec._tile_bounds(xs, tile_n), scal[0])
+    k3 = pec.stash_estep(ys, xs, scal, mask, tile_m, tile_n, round_g=True)
+    k12 = pec.stash_merged_estep(ys, xs, scal, mask, tile_m, tile_n, True)
+    for a, b in zip(k3, k12):
+        assert torch.equal(a, b)
+    monkeypatch.setattr(pec, "stash_estep_plain", refuse)
+    monkeypatch.setattr(pec, "stash_merged_estep_plain", refuse)
+    monkeypatch.setattr(pcfg.config, "stash_dtype", torch.bfloat16)
+    outs = []
+    for merged in (False, True):
+        monkeypatch.setattr(pcfg.config, "use_merged_stash", merged)
+        pec.reset_launches()
+        outs.append(pec.estep_auto(ys, xs, 0.05, 0.05, tile_m=tile_m,
+                                   tile_n=tile_n))
+        key = "stash_merged_bf16" if merged else "stash_moment_bf16"
+        assert {k: v for k, v in pec.LAUNCHES.items() if v} == {
+            "stash_den": 1, key: 1}
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_pack_bf16_is_round_bf16(dev):
+    """The pass's pairwise bf16 pack (cvt.rn.bf16x2.f32) against
+    __float2bfloat16_rn in the same kernel and against rounding to nearest
+    even written on the bits, bit for bit: every subnormal f32 and zero,
+    the ties and their neighbours at every exponent of [2^-126, 2], and 2^22
+    random normal values of (0, 2), both signs."""
+    sub = torch.arange(0, 1 << 23, dtype=torch.int32)
+    exps = torch.arange(1, 129, dtype=torch.int32) << 23
+    mant = torch.randint(0, 1 << 7, (128, 64), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(0)) << 16
+    near = torch.tensor([0x7fff, 0x8000, 0x8001, 0xffff, 0x0000, 0x0001],
+                        dtype=torch.int32)
+    ties = (exps[:, None, None] + mant[:, :, None] + near).reshape(-1)
+    rand = torch.randint(1 << 23, 0x40000000, (1 << 22,), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    bits = torch.cat([sub, ties, rand])
+    bits = torch.cat([bits, bits | torch.tensor(-(1 << 31),
+                                                dtype=torch.int32)])
+    g = bits.view(torch.float32)
+    packed, rounded = pec.pack_bf16_check(g.to(dev))
+    u = bits.to(torch.int64) & 0xffffffff
+    want = ((u + 0x7fff + ((u >> 16) & 1)) >> 16).to(torch.int32)
+    want = want.to(torch.int16)  # wraps the sign bit into int16's
+    assert torch.equal(packed.cpu().view(torch.int16), want)
+    assert torch.equal(rounded.cpu().view(torch.int16), want)
+    assert bool((want[1:1 << 23] != 0).any())  # subnormals kept

@@ -38,7 +38,10 @@ their kernels' plain versions here because the tensors lie on the CPU.
   same way: both round the same f32 values to bf16, which the two
   packages may hold one f32 ulp apart, so a term may round to the other
   neighbour: 2^-8 of the sum of the terms' magnitudes, plus the absolute
-  1e-6.
+  1e-6. The bf16-stash pass B's tensor-core form (bf16 of pass A's exact
+  g times each piece of ``moment_pieces``, a stripe's hi + (mid + lo),
+  stripes in order; K3's and K12's routes alike) written in plain torch
+  stays within the same 2^-8 of either of the reference's cores.
 """
 
 import dataclasses
@@ -524,6 +527,61 @@ def test_bf16_stash_matches_the_reference(monkeypatch, merged):
     f32 = pec.estep_auto(_t(src), _t(tgt), sigma2, w, tile_m=TILE_M,
                          tile_n=TILE_N)
     assert not torch.equal(f32.p1, out.p1)
+
+
+@pytest.mark.parametrize("merged", [False, True])
+def test_bf16_stash_moments_from_pieces_match_the_reference(merged):
+    """The bf16-stash pass B's association on the card (moment_bf16_kernel,
+    both routes) in plain torch: per stripe, bf16 of pass A's exact g times
+    each piece of moment_pieces in f32 (exact products), the stripe's hi +
+    (mid + lo), stripes added in order. Against the reference's estep_auto
+    with stash_dtype=bfloat16 (its merged core too), within the 2^-8 of
+    test_bf16_stash_matches_the_reference; pt1 and xx, which never see the
+    rounding, within the repo's 1e-5. A far cluster of 300 sources makes
+    whole source tiles that every stripe culls (their rows' moments are
+    exact zeros)."""
+    src, tgt = _pair()
+    src[:300, 2] += 30.0
+    sigma2, w = 0.05, 0.05
+    old = jcfg.config.use_merged_stash
+    jcfg.config.use_merged_stash = merged
+    jcfg.clear_caches()
+    try:
+        ref = jep.estep_auto(src, tgt, jnp.float32(sigma2), w, tile_m=TILE_M,
+                             tile_n=TILE_N, interpret=True,
+                             stash_dtype=jnp.bfloat16)
+    finally:
+        jcfg.config.use_merged_stash = old
+        jcfg.clear_caches()
+    y, x = _t(src), _t(tgt)
+    perm_y, perm_x = morton_order(y), morton_order(x)
+    ys, xs = y[perm_y], x[perm_x]
+    m, n = ys.shape[0], xs.shape[0]
+    scal = pec._scalars(sigma2, w, m, n, 3, ys.device)
+    mask = pec._active_mask(*pec._tile_bounds(ys, TILE_M),
+                            *pec._tile_bounds(xs, TILE_N), scal[0])
+    assert not bool(mask.all())
+    p1, px, xx, pt1 = torch.zeros(m), torch.zeros(m, 3), torch.zeros(()), []
+    for g, inv_den, pt1_j, xx_j, x_j in pec._plain_stripes(
+            ys, xs, scal, mask, TILE_M, TILE_N):
+        gb = pec._bf16(g)
+        hi, mid, lo = (gb @ piece.float() for piece in
+                       pec.moment_pieces(x_j, inv_den).unbind(1))
+        stripe = hi + (mid + lo)
+        p1, px = p1 + stripe[:, 3], px + stripe[:, :3]
+        xx = xx + xx_j
+        pt1.append(pt1_j)
+    pt1 = torch.empty(n).index_copy_(0, perm_x, torch.cat(pt1))
+    p1 = torch.empty(m).index_copy_(0, perm_y, p1)
+    px = torch.empty(m, 3).index_copy_(0, perm_y, px)
+    assert bool((p1[:300] == 0).all()) and bool((px[:300] == 0).all())
+    p1_mag, px_mag, _, _ = _dense_terms(src, tgt, sigma2, w)
+    np.testing.assert_allclose(pt1.numpy(), np.asarray(ref.pt1), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(float(xx), float(ref.xx), rtol=1e-5)
+    _within("p1", p1, ref.p1, p1_mag, 2.0 ** -8)
+    _within("px", px, ref.px, px_mag, 2.0 ** -8)
+    _within("n_p", p1.sum(), ref.n_p, p1_mag.sum(), 2.0 ** -8)
 
 
 @pytest.fixture

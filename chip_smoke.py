@@ -212,7 +212,16 @@ processes, parent, this, this, parent.
 holds the f32 E-steps of K3, K4, K11's route and K12 of this checkout
 bit for bit against DIR's build of csrc/estep.cu (a dense 131,072^2 and a
 culled 150,000^2 E-step) and times the bf16-stash pass B and the K12 bf16
-E-step of both, parent, this, this, parent.
+E-step of both, parent, this, this, parent; likewise the exact K6 against
+DIR's build of csrc/gt.cu on a dense 131,072^2 and a culled 150,000^2
+FilterReg E-step, bit for bit, and both fast K6 kernels, in turns.
+
+    python3 chip_smoke.py --gt-fast-shapes
+
+builds K6's fast kernel at every shape of GT_SHAPES (warps a block,
+16-row groups a warp) from a scratch source that includes csrc/gt.cu,
+and times each against the default's bits on FilterReg's first E-step of
+the 131,072^2 bench case and of the 150k blobby pair.
 
     python3 chip_smoke.py --parent DIR
 
@@ -1320,6 +1329,17 @@ FLOPS_FAST_B = 6 + 1 + FLOPS_MOMENTS
 # channels x 3 bf16 pieces, BF16_MOMENT_OPS bf16 operations a pair.
 FLOPS_BF16_B = FLOPS_GAUSS - 1 + 1
 BF16_MOMENT_OPS = 2 * 4 * 3
+# K6's fast kernel (gt_fast_kernel): the Gaussian from the cross term (6, as
+# pass A's) and the split of g into two bf16 pieces (3: a pack, an unpack, a
+# subtraction and a pack per two pairs) on the FP32 pipe; on the tensor
+# cores the cross term (2 D) and the weights' five products (g_hi against
+# three weight pieces, g_lo against two; 2 operations a channel each).
+FLOPS_FAST_GT = 6 + 3
+
+
+def gt_fast_bf16(dim: int, channels: int) -> int:
+    """bf16 operations a pair of K6's fast kernel."""
+    return 2 * dim + 10 * channels
 
 
 def fast_case(dev):
@@ -1345,6 +1365,27 @@ def fast_pair():
     tgt = (src @ rot.T + 0.002 * np.random.default_rng(1).normal(
         size=src.shape)).astype(np.float32)
     return src, tgt, rot
+
+
+def frg_estep(ys, xs, sigma2):
+    """K6's prepared inputs (gt_cuda.prepare) of a FilterReg E-step as
+    filterreg_moments forms it: queries ys / sigma, points xs / sigma (both
+    centred on their shared centroid), channels [1, x], h = sqrt 2."""
+    from probreg_tpu_torch.ops import gt_cuda as gc
+
+    sigma = sigma2 ** 0.5
+    w = torch.cat([torch.ones_like(xs[:, :1]), xs], dim=1)
+    ps, qs = xs / sigma, ys / sigma
+    cen = (ps.sum(0) + qs.sum(0)) / (ps.shape[0] + qs.shape[0])
+    return gc.prepare(ps - cen, qs - cen, w, 2.0 ** 0.5)
+
+
+def gt_pairs(prep) -> float:
+    """Pairs in the active tiles of K6's prepared inputs."""
+    from probreg_tpu_torch.ops import gt_cuda as gc
+
+    qs, ps, mask, tile = prep[0], prep[1], prep[4], prep[5]
+    return active_pairs(mask, ps.shape[0], qs.shape[0], tile, gc._ROWS)
 
 
 def check_fast_start(dev, kernels):
@@ -1494,20 +1535,11 @@ def check_fast_start(dev, kernels):
     del mask, scal, y2, x2
 
     # K6: FilterReg's first E-step on the same pair.
-    sigma = FAST_SIGMA2 ** 0.5
-    w = torch.cat([torch.ones_like(xs[:, :1]), xs], dim=1)
-    ps, qs = xs / sigma, ys / sigma
-    cen = (ps.sum(0) + qs.sum(0)) / (ps.shape[0] + qs.shape[0])
-    ps, qs = ps - cen, qs - cen
-    prep = gc.prepare(ps, qs, w, 2.0 ** 0.5)
+    prep = frg_estep(ys, xs, FAST_SIGMA2)
+    qs, ps, w = prep[:3]
     a6 = float(ec.fast_bound((qs * qs).sum(1), (ps * ps).sum(1), 0.5))
     gate6 = ec.fast_gate((qs * qs).sum(1), (ps * ps).sum(1), 0.5)
-    mask6 = prep[4]
-    rows = torch.full((mask6.shape[1],), float(gc._ROWS), device=dev)
-    rows[-1] = qs.shape[0] - (rows.numel() - 1) * gc._ROWS
-    cols = torch.full((mask6.shape[0],), float(prep[5]), device=dev)
-    cols[-1] = ps.shape[0] - (cols.numel() - 1) * prep[5]
-    pairs6 = float(cols @ mask6.float() @ rows)
+    pairs6 = gt_pairs(prep)
     log(f"[fast start K6] FilterReg's first E-step, {qs.shape[0]:,} x "
         f"{ps.shape[0]:,}, C = 4, sigma2 {FAST_SIGMA2}: the gate's bound "
         f"{a6:.6f}, flag {int(gate6)}; active pairs {pairs6:.4g}")
@@ -1524,16 +1556,32 @@ def check_fast_start(dev, kernels):
         f"largest entry (the bound allows "
         f"{math.exp(a6) * (1 + 2.0 ** -8) - 1:.3e} of sum_j g |w|)")
     del got, want, exact
+    # The fast kernel and the exact one on the same inputs, in turns (fast,
+    # exact, exact, fast).
     launch = gc.gt_launcher(*prep, gate=gate6)[0]
-    ms6, ms6_gated = timed(launch.fast, 5), timed(launch, 5)
-    ex6 = timed(gc.gt_launcher(*prep)[0], 5)
+    exact_launch = gc.gt_launcher(*prep)[0]
+    turns6 = {"fast": [], "exact": []}
+    for key in ("fast", "exact", "exact", "fast"):
+        turns6[key].append(timed(launch.fast if key == "fast"
+                                 else exact_launch, 5))
+    ms6, ex6 = (float(np.mean(turns6[k])) for k in ("fast", "exact"))
+    ms6_gated = timed(launch, 5)
     p6 = timed(lambda: gc.gauss_transform_culled_plain(*prep, gate6), 2)
     nq, mp = qs.shape[0], ps.shape[0]
-    b6 = bound(4 * (3 * (nq + mp) + 4 * (mp + nq)), pairs6 * (6 + 2 * 4),
-               pairs6 * 2 * 3, pairs6)
+    c6, d6 = w.shape[1], qs.shape[1]
+    nbytes6 = 4 * (d6 * (nq + mp) + c6 * (mp + nq))
+    b6 = bound(nbytes6, pairs6 * FLOPS_FAST_GT, pairs6 * gt_fast_bf16(d6, c6),
+               pairs6)
+    log(f"  fast kernel in turns (fast, exact, exact, fast): "
+        f"{turns6['fast'][0]:.3f}, {turns6['exact'][0]:.3f}, "
+        f"{turns6['exact'][1]:.3f}, {turns6['fast'][1]:.3f} ms")
     log(f"  fast kernel {ms6:.3f} ms  plain {p6:.3f} ms  bound {b6[0]:.3f} "
-        f"ms ({b6[1]})  [both launches {ms6_gated:.3f} ms; exact kernel "
-        f"{ex6:.3f} ms]")
+        f"ms ({b6[1]}; by term: bytes "
+        f"{nbytes6 / PEAK_BYTES_PER_S * 1e3:.3f}, f32 "
+        f"{pairs6 * FLOPS_FAST_GT / PEAK_F32_FLOPS * 1e3:.3f} + bf16 "
+        f"{pairs6 * gt_fast_bf16(d6, c6) / PEAK_BF16_FLOPS * 1e3:.3f}, SFU "
+        f"{pairs6 / PEAK_SFU_OPS * 1e3:.3f} ms)  [exact kernel {ex6:.3f} ms: "
+        f"fast / exact {ms6 / ex6:.3f}; both launches {ms6_gated:.3f} ms]")
     kernels["gauss_transform_fast"] = dict(max_abs_err=err6, ms=ms6,
                                            plain_ms=p6, bound_ms=b6[0],
                                            bound_by=b6[1])
@@ -5929,19 +5977,11 @@ def parent_estep_lib(parent):
     same), so through_parent can hand it to this checkout's K2 wrapper."""
     import ctypes
 
-    from probreg_tpu_torch.ops import _build
     from probreg_tpu_torch.ops import estep_cuda as ec
 
-    out_dir = os.path.join(parent, "build", "parent_kernels")
-    os.makedirs(out_dir, exist_ok=True)
-    out = os.path.join(out_dir, "libestep.so")
-    src = os.path.join(parent, "probreg_tpu_torch", "csrc", "estep.cu")
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
-                           src], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for the parent's estep.cu:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(out)
+    lib = nvcc_lib(
+        os.path.join(parent, "probreg_tpu_torch", "csrc", "estep.cu"),
+        os.path.join(parent, "build", "parent_kernels", "libestep.so"))[0]
     for name in ("probreg_estep_small", "probreg_estep_small_capacity",
                  "probreg_empty_launch"):
         getattr(lib, name).argtypes = ec._SIGNATURES[name]
@@ -6111,25 +6151,16 @@ def k2_against_parent(parent, this=True) -> int:
 
 
 def typed_parent_stash(lib):
-    """Types ``lib``'s (a parent's estep build) K3, K4, K11 and K12
-    entries with the C signatures they had before the bf16 pass B took the
-    moment operand: pass A (..., scal, inv_den, pt1, xx_part, stream) and
-    every pass B (..., scal, inv_den, p1px, stream)."""
+    """Types ``lib``'s (a parent's estep build) entries with this
+    checkout's C signatures (estep_cuda._SIGNATURES: the parent's since the
+    bf16 pass B took the moment operand and the tile order)."""
     import ctypes
 
-    P, I = ctypes.c_void_p, ctypes.c_int
-    head = [P, I, I, I, P, I, I, I, P, P, P]
-    types = {"probreg_stash_den": head + [P, P, P, P],
-             "probreg_fused_den": head + [P, P, P, P],
-             "probreg_stash_den_raw": head + [P, P],
-             "probreg_stash_finish": [P, I, I, I, P, P, P, P, P, P]}
-    for name in ("probreg_stash_rows", "probreg_stash_merged",
-                 "probreg_fused_moment", "probreg_stash_rows_bf16",
-                 "probreg_stash_merged_bf16"):
-        types[name] = head + [P, P, P]
-    for name, argtypes in types.items():
+    from probreg_tpu_torch.ops import estep_cuda as ec
+
+    for name, argtypes in ec._SIGNATURES.items():
         getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = I
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -6138,11 +6169,11 @@ def stash_against_parent(parent) -> int:
     of this checkout against ``parent``'s build of csrc/estep.cu, bit for
     bit (pt1, p1, px, the xx partials and inv_den), K3's f32 passes timed,
     on check_fast_start's case (dense) and on the 150k clouds' culled
-    E-step; there too the bf16-stash pass B of both (the parent's through
-    its own C signature, inv_den in place of the operand; this checkout's
-    with its moment_operand) and the K12 bf16 E-step, timed parent, this,
-    this, parent, with the largest difference between the two. Returns
-    the number of f32 outputs that differ."""
+    E-step; there too the bf16-stash pass B of both (each with its
+    moment_operand; the parent's build through this checkout's C
+    signatures) and the K12 bf16 E-step, timed parent, this, this, parent,
+    with the largest difference between the two; then gt_against_parent.
+    Returns the number of f32 and exact K6 outputs that differ."""
     from probreg_tpu_torch.config import config
     from probreg_tpu_torch.ops import estep_cuda as ec
 
@@ -6162,10 +6193,9 @@ def stash_against_parent(parent) -> int:
         mask = ec._active_mask(*ec._tile_bounds(ys, tile_m),
                                *ec._tile_bounds(xs, tile_n), scal[0])
 
-        def plans(cls, **kw):
-            this = cls(ys, xs, scal, mask, tile_m, tile_n, **kw)
-            kw.pop("round_g", None)
-            old = cls(ys, xs, scal, mask, tile_m, tile_n, **kw)
+        def plans(cls, *a, **kw):
+            this = cls(ys, xs, scal, mask, tile_m, tile_n, *a, **kw)
+            old = cls(ys, xs, scal, mask, tile_m, tile_n, *a, **kw)
             old.lib = plib
             return this, old
 
@@ -6196,19 +6226,13 @@ def stash_against_parent(parent) -> int:
         this, old = plans(ec.StashPlan, round_g=True)
         this.den()
         old.den()
-
-        def old_b():
-            old._launch(("probreg_stash_rows_bf16", "stash_moment_bf16"),
-                        old.row_idx, old.row_cnt, old.inv_den, old.p1px)
-
         ms = {"parent": [], "this": []}
         for who in ("parent", "this", "this", "parent"):
-            ms[who].append(timed(old_b if who == "parent" else this.moment,
-                                 5))
+            ms[who].append(timed(old.moment if who == "parent"
+                                 else this.moment, 5))
         diff = float((this.p1px - old.p1px).abs().max()
                      / old.p1px.abs().max())
-        this, old = plans(ec.MergedStashPlan, round_g=True)
-        old.MOMENT = ("probreg_stash_merged_bf16", "stash_merged_bf16")
+        this, old = plans(ec.MergedStashPlan, True)
         e12 = {"parent": [], "this": []}
         for who in ("parent", "this", "this", "parent"):
             e12[who].append(timed(old.run if who == "parent" else this.run,
@@ -6226,6 +6250,213 @@ def stash_against_parent(parent) -> int:
             f"parent {np.mean(e12['this']) / np.mean(e12['parent']):.3f}; "
             f"largest difference {d12:.3e}")
         del this, old
+    return bad + gt_against_parent(parent)
+
+
+def nvcc_lib(src, out):
+    """``src`` built with the port's flags into ``out``, loaded."""
+    import ctypes
+
+    from probreg_tpu_torch.ops import _build
+
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
+                           src], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    return ctypes.CDLL(out), proc.stdout + proc.stderr
+
+
+class GtLib:
+    """A build of csrc/gt.cu whose K6 entries gt_cuda's launchers call:
+    ``lib``'s probreg_gauss_transform(_fast), typed as this checkout's (a
+    parent with the same C signatures), or with ``shape`` the scratch
+    build's probreg_gt_fast_shape(shape, ...) in place of the fast entry."""
+
+    def __init__(self, lib, shape=None):
+        import ctypes
+
+        from probreg_tpu_torch.ops import gt_cuda as gc
+
+        mine = gc._lib()
+        exact = lib.probreg_gauss_transform
+        exact.argtypes = mine.probreg_gauss_transform.argtypes
+        if shape is None:
+            fast = lib.probreg_gauss_transform_fast
+            fast.argtypes = mine.probreg_gauss_transform_fast.argtypes
+            self.probreg_gauss_transform_fast = fast
+        else:
+            fast = lib.probreg_gt_fast_shape
+            fast.argtypes = [ctypes.c_int] + list(
+                mine.probreg_gauss_transform_fast.argtypes)
+            self.probreg_gauss_transform_fast = (
+                lambda *a: fast(shape, *a))
+        exact.restype = fast.restype = ctypes.c_int
+        self.probreg_gauss_transform = exact
+
+    def launcher(self, *prep, gate=None):
+        """gt_cuda.gt_launcher(*prep, gate=gate) through this build."""
+        from probreg_tpu_torch.ops import gt_cuda as gc
+
+        saved = gc._lib
+        gc._lib = lambda: self
+        try:
+            return gc.gt_launcher(*prep, gate=gate)
+        finally:
+            gc._lib = saved
+
+
+def gt_against_parent(parent) -> int:
+    """The exact K6 of this checkout against ``parent``'s build of
+    csrc/gt.cu, bit for bit, on FilterReg's first E-step of
+    check_fast_start's case (dense 131,072^2, sigma2 0.67) and on the 150k
+    clouds' culled E-step (sigma2 1e-3); there, both checkouts' exact and
+    fast K6 (the flag set) timed parent, this, this, parent, with the
+    largest difference between the two fast outputs. Returns the number of
+    cases whose exact outputs differ."""
+    from probreg_tpu_torch.ops import gt_cuda as gc
+
+    dev = torch.device("cuda")
+    plib = GtLib(nvcc_lib(
+        os.path.join(parent, "probreg_tpu_torch", "csrc", "gt.cu"),
+        os.path.join(parent, "build", "parent_kernels", "libgt.so"))[0])
+    ys, xs = fast_case(dev)
+    cases = [(f"dense 131k^2, sigma2 {FAST_SIGMA2}",
+              frg_estep(ys, xs, FAST_SIGMA2))]
+    for regime, sigma2, y, x, *_ in estep_regimes(dev, {}):
+        if regime == "culled":
+            cases.append((f"culled 150k^2, sigma2 {sigma2}",
+                          frg_estep(y, x, sigma2)))
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    bad = 0
+    for label, prep in cases:
+        this_exact, this_out = gc.gt_launcher(*prep)
+        old_exact, old_out = plib.launcher(*prep)
+        this_exact()
+        old_exact()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(this_out, old_out))
+        bad += not same
+        this_fast, this_f = gc.gt_launcher(*prep, gate=one)
+        old_fast, old_f = plib.launcher(*prep, gate=one)
+        ms = {"parent": [], "this": []}
+        ex = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            ms[who].append(timed(old_fast.fast if who == "parent"
+                                 else this_fast.fast, 5))
+            ex[who].append(timed(old_exact if who == "parent"
+                                 else this_exact, 5))
+        diff = float((this_f - old_f).abs().max() / old_f.abs().max())
+        log(f"[K6 against the parent] {label}, {gt_pairs(prep):.4g} active "
+            f"pairs: exact K6 bit for bit: {same} (parent "
+            f"{ex['parent'][0]:.3f} / {ex['parent'][1]:.3f} ms, this "
+            f"{ex['this'][0]:.3f} / {ex['this'][1]:.3f} ms); fast K6 (flag 1)"
+            f" parent "
+            f"{ms['parent'][0]:.3f} / {ms['parent'][1]:.3f} ms, this "
+            f"{ms['this'][0]:.3f} / {ms['this'][1]:.3f} ms: this / parent "
+            f"{np.mean(ms['this']) / np.mean(ms['parent']):.3f}; largest "
+            f"difference {diff:.3e} of the largest entry (bit for bit: "
+            f"{bool(torch.equal(this_f, old_f))})")
+    return bad
+
+
+# K6 fast's shapes (warps a block, 16-row groups a warp, blocks an SM the
+# registers must allow: __launch_bounds__'s second argument) that
+# gt_fast_shapes builds and times; the first is csrc/gt.cu's default.
+GT_SHAPES = ((4, 2, 8), (4, 2, 1), (8, 2, 1), (8, 2, 4), (4, 4, 1),
+             (4, 4, 4), (2, 4, 8), (8, 1, 1), (2, 2, 1))
+
+
+def gt_fast_shapes() -> int:
+    """K6's fast kernel at every GT_SHAPES shape: a scratch source under
+    build/ that includes csrc/gt.cu and launches launch_fast<.., W, G>,
+    built with the port's flags; each shape timed on FilterReg's first
+    E-step of check_fast_start's case (131,072^2, dense) and of the 150k
+    blobby pair (fast_pair; sigma2 filterreg's own start, the mean squared
+    distance / D), three rounds in alternating order, its output held bit
+    for bit against the default build's. Returns the number of shapes
+    whose bits differ."""
+    from probreg_tpu_torch.ops import gt_cuda as gc
+    from probreg_tpu_torch.ops.spatial import morton_order
+    from probreg_tpu_torch.utils import math_utils
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    gt_cu = os.path.join(here, "probreg_tpu_torch", "csrc", "gt.cu")
+    src = os.path.join(here, "build", "gt_shapes", "gt_shapes.cu")
+    os.makedirs(os.path.dirname(src), exist_ok=True)
+    cases = "\n".join(
+        f"    case {i}: return shape_launch<{wa}, {gr}, {nb}>(a);"
+        for i, (wa, gr, nb) in enumerate(GT_SHAPES))
+    with open(src, "w") as f:
+        f.write(f'''#include "{gt_cu}"
+
+namespace {{
+template <int W, int G, int B>
+int shape_launch(const Args& a) {{
+  return (int)(a.c <= 4 ? launch_fast<1, false, W, G, B>(a)
+                        : launch_fast<2, false, W, G, 1>(a));
+}}
+}}  // namespace
+
+extern "C" int probreg_gt_fast_shape(
+    int shape, const void* qs, const void* q2, int nq, const void* ps,
+    const void* p2, const void* w, int m, int d, int c, const void* act_idx,
+    const void* act_cnt, int tile, float inv_h2, const void* gate, void* out,
+    void* stream) {{
+  if (!fast_ok(nq, m, d, tile, gate)) return (int)cudaErrorInvalidValue;
+  const Args a = fast_args(qs, q2, nq, ps, p2, w, m, d, c, act_idx, act_cnt,
+                           tile, inv_h2, gate, out, nullptr, stream);
+  switch (shape) {{
+{cases}
+    default: return (int)cudaErrorInvalidValue;
+  }}
+}}
+''')
+    t0 = time.perf_counter()
+    lib, report = nvcc_lib(src, os.path.join(here, "build", "gt_shapes",
+                                             "libgt_shapes.so"))
+    log(f"[K6 fast shapes] scratch build {time.perf_counter() - t0:.1f} s")
+    for line in report.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log(f"  {line.strip()}")
+    dev = torch.device("cuda")
+    ys, xs = fast_case(dev)
+    cases = [("bench case 131,072^2, sigma2 0.67",
+              frg_estep(ys, xs, FAST_SIGMA2))]
+    src_np, tgt_np, _ = fast_pair()
+    y = torch.as_tensor(src_np, device=dev)
+    x = torch.as_tensor(tgt_np, device=dev)
+    y, x = y[morton_order(y)], x[morton_order(x)]
+    s2 = float(math_utils.squared_kernel_sum(y, x))
+    cases.append((f"150k blobby pair, sigma2 {s2:.6g}", frg_estep(y, x, s2)))
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    bad = 0
+    for label, prep in cases:
+        want = gc.gt_core(*prep, gate=one)
+        runs = []
+        for i in range(len(GT_SHAPES)):
+            launch, out = GtLib(lib, i).launcher(*prep, gate=one)
+            launch.fast()
+            torch.cuda.synchronize()
+            same = bool(torch.equal(out, want))
+            bad += not same
+            runs.append((launch.fast, same))
+        ms = [[] for _ in GT_SHAPES]
+        for r in range(3):
+            order = range(len(GT_SHAPES))
+            for i in (order if r % 2 == 0 else reversed(order)):
+                ms[i].append(timed(runs[i][0], 5))
+        n_tiles = -(-prep[0].shape[0] // gc._ROWS)
+        log(f"[K6 fast shapes] {label}, {gt_pairs(prep):.4g} active pairs, "
+            f"{n_tiles} query tiles:")
+        for i, (wa, gr, nb) in enumerate(GT_SHAPES):
+            log(f"  {wa} warps x {gr} groups, launch bound {nb} ("
+                f"{16 * wa * gr} rows, "
+                f"{n_tiles * (gc._ROWS // (16 * wa * gr))} blocks): "
+                f"{', '.join(f'{t:.3f}' for t in ms[i])} ms, median "
+                f"{float(np.median(ms[i])):.3f}; the default's bits: "
+                f"{runs[i][1]}")
     return bad
 
 
@@ -7427,6 +7658,9 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--stash-parent":
         log(card_line())
         return stash_against_parent(sys.argv[2])
+    if len(sys.argv) == 2 and sys.argv[1] == "--gt-fast-shapes":
+        log(card_line())
+        return gt_fast_shapes()
     if len(sys.argv) == 3 and sys.argv[1] == "--bcpd-search-parent":
         log(card_line())
         return bcpd_search_against_parent(sys.argv[2])

@@ -182,7 +182,15 @@ def moment_pieces(xs: torch.Tensor, inv_den: torch.Tensor) -> torch.Tensor:
     mid) of v = inv_den (x, y, z, 1) in f32, from the (n, >= 3) packed
     targets (their first three columns; zeros past D) and inv_den (n). Each
     difference is exact in f32; a zero inv_den gives zero pieces."""
-    v = torch.cat([xs[:, :3] * inv_den[:, None], inv_den[:, None]], 1)
+    return bf16_pieces(torch.cat([xs[:, :3] * inv_den[:, None],
+                                  inv_den[:, None]], 1))
+
+
+def bf16_pieces(v: torch.Tensor) -> torch.Tensor:
+    """(n, 3, k) bf16: hi = bf16(v), mid = bf16(v - hi), lo = bf16(v - hi -
+    mid) of the (n, k) f32 ``v``, each rounded to nearest even and each
+    difference exact in f32, so hi + mid + lo is v to ~2^-24 of it (the
+    tensor-core operands of moment_operand and of K6's fast kernel)."""
     hi = v.to(torch.bfloat16)
     rest = v - hi.float()
     mid = rest.to(torch.bfloat16)

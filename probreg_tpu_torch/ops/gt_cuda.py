@@ -23,10 +23,12 @@ branch, ``fast_start=False`` to refuse it) the transform takes the fast
 branch where ``estep_cuda.fast_gate`` on the centred clouds and 1/h^2 says
 so: ``gauss_transform_fast`` forms q.p on the tensor cores from bf16
 coordinates with an f32 sum and d2 in the expanded form |q|^2 + |p|^2 -
-2 q.p (as ``_gt_kernel``), with |q|^2 and |p|^2 from the f32 points; the
-weights' sums stay f32 FMAs. Both kernels are launched and each returns at
-once unless the device flag picks it; ``FAST_STEPS`` counts the calls that
-took the fast branch, on the device.
+2 q.p (as ``_gt_kernel``), with |q|^2 and |p|^2 from the f32 points, and
+the weights' sums on the tensor cores too: g in two bf16 pieces against the
+weights in three (``weight_pieces``, split inside the kernel), which keeps
+the reference's f32 product to ~2^-17 of sum_j g |w|. Both kernels are
+launched and each returns at once unless the device flag picks it;
+``FAST_STEPS`` counts the calls that took the fast branch, on the device.
 
 CUDA tensors run the kernels (``csrc/gt.cu``); CPU tensors run
 ``gauss_transform_culled_plain``. Nothing else picks between them. Every
@@ -79,8 +81,12 @@ def _lib() -> ctypes.CDLL:
                                                 _P, _P, _I, _F, _P, _P, _P]
         lib.probreg_gauss_transform_fast.argtypes = [
             _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P]
+        lib.probreg_gauss_transform_fast_dump.argtypes = [
+            _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P,
+            _P]
         for fn in (lib.probreg_gauss_transform,
-                   lib.probreg_gauss_transform_fast):
+                   lib.probreg_gauss_transform_fast,
+                   lib.probreg_gauss_transform_fast_dump):
             fn.restype = ctypes.c_int
         lib._probreg_typed = True
     return lib
@@ -185,11 +191,13 @@ def _gt_cuda(qs, ps, w, inv_h2, mask, tile, gate=None):
     return out
 
 
-def gt_launcher(qs, ps, w, inv_h2, mask, tile, gate=None):
+def gt_launcher(qs, ps, w, inv_h2, mask, tile, gate=None, g_dump=None):
     """(launch, out) for prepared CUDA inputs: the active-tile lists and
     padded buffers are made here, once; each ``launch()`` queues one kernel
     launch that writes the (N, C) result into ``out`` (with ``gate``, the
-    exact kernel's and the fast kernel's, one of which returns at once)."""
+    exact kernel's and the fast kernel's, one of which returns at once).
+    ``g_dump`` (tests only, with ``gate``): an (N, M) f32 buffer that takes
+    every Gaussian the fast kernel forms."""
     (nq, dim), (m, c) = qs.shape, w.shape
     dp = _width(dim)
     act_idx, act_cnt = ec._compact(mask)          # per query tile
@@ -204,11 +212,15 @@ def gt_launcher(qs, ps, w, inv_h2, mask, tile, gate=None):
     gate_ptr = None if gate is None else gate.data_ptr()
 
     def launch_fast():
-        ec._check(lib.probreg_gauss_transform_fast(
-            qk.data_ptr(), q2.data_ptr(), nq, pk.data_ptr(), p2.data_ptr(),
-            wk.data_ptr(), m, dp, c, act_idx.data_ptr(), act_cnt.data_ptr(),
-            tile, inv_h2, gate_ptr, out.data_ptr(), stream),
-            "gauss_transform_fast")
+        args = (qk.data_ptr(), q2.data_ptr(), nq, pk.data_ptr(),
+                p2.data_ptr(), wk.data_ptr(), m, dp, c, act_idx.data_ptr(),
+                act_cnt.data_ptr(), tile, inv_h2, gate_ptr, out.data_ptr())
+        if g_dump is None:
+            err = lib.probreg_gauss_transform_fast(*args, stream)
+        else:
+            err = lib.probreg_gauss_transform_fast_dump(
+                *args, g_dump.data_ptr(), stream)
+        ec._check(err, "gauss_transform_fast")
         LAUNCHES["gauss_transform_fast"] += 1
 
     def launch():
@@ -225,17 +237,34 @@ def gt_launcher(qs, ps, w, inv_h2, mask, tile, gate=None):
     return launch, out
 
 
-def gauss_transform_culled_plain(qs, ps, w, inv_h2, mask, tile, gate=None):
-    """Plain version of the kernel: d2 from differences, exp(-d2 / h^2)
-    zeroed in culled tile pairs, summed against the weights, point tile by
-    point tile. ``gate`` (fast_gate's flag or a bool, read here): where it
-    is set, the fast kernel's d2 = max(|q|^2 + |p|^2 - 2 q.p, 0) with q.p
-    from the bf16-rounded coordinates summed in f32, |q|^2 and |p|^2 from
-    the f32 points. The same arguments as gt_core."""
-    fast = gate is not None and bool(gate)
+def gt_fast_dump(qs, ps, w, inv_h2, mask, tile):
+    """Tests only: the fast kernel (flag 1) on prepared CUDA inputs, with
+    every Gaussian it forms, before its split: (out (N, C), g (N, M)), g NaN
+    at the pairs of culled tiles."""
+    g = qs.new_full((qs.shape[0], ps.shape[0]), float("nan"))
+    gate = torch.ones((), dtype=torch.int32, device=qs.device)
+    launch, out = gt_launcher(qs, ps, w, inv_h2, mask, tile, gate, g)
+    launch.fast()
+    return out, g
+
+
+def weight_pieces(w: torch.Tensor) -> torch.Tensor:
+    """(M, 3, C) bf16: the fast kernel's split of the (M, C) f32 weights,
+    hi = bf16(w), mid = bf16(w - hi), lo = bf16(w - hi - mid), each
+    difference exact in f32 (estep_cuda.bf16_pieces). The kernel forms the
+    same pieces while it stages each weight; this documents its operand and
+    serves the tests."""
+    return ec.bf16_pieces(w)
+
+
+def plain_blocks(qs, ps, inv_h2, mask, tile, fast=False):
+    """The plain version's Gaussians, point block by point block: (p0,
+    g (N, step)) with g zeroed in culled tile pairs; with ``fast``, the
+    fast kernel's d2 = max(|q|^2 + |p|^2 - 2 q.p, 0) with q.p from the
+    bf16-rounded coordinates summed in f32, |q|^2 and |p|^2 from the f32
+    points."""
     nq = qs.shape[0]
     rows = torch.arange(nq, device=qs.device) // _ROWS
-    out = qs.new_zeros((nq, w.shape[1]))
     step = max(tile, _PLAIN_POINTS // tile * tile)
     if fast:
         q2, qb = (qs * qs).sum(1), ec._bf16(qs)
@@ -248,6 +277,17 @@ def gauss_transform_culled_plain(qs, ps, w, inv_h2, mask, tile, gate=None):
             d2 = sqdist_diff(qs, p)
         cols = torch.arange(p0, p0 + p.shape[0], device=qs.device) // tile
         act = mask[cols][:, rows].T                      # (N, step)
-        g = torch.where(act, torch.exp(-d2 * inv_h2), 0.0)
-        out = out + g @ w[p0:p0 + step]
+        yield p0, torch.where(act, torch.exp(-d2 * inv_h2), 0.0)
+
+
+def gauss_transform_culled_plain(qs, ps, w, inv_h2, mask, tile, gate=None):
+    """Plain version of the kernel: d2 from differences, exp(-d2 / h^2)
+    zeroed in culled tile pairs, summed against the weights in f32 (the
+    reference's g @ w), point tile by point tile. ``gate`` (fast_gate's
+    flag or a bool, read here): where it is set, the fast kernel's d2
+    (plain_blocks). The same arguments as gt_core."""
+    fast = gate is not None and bool(gate)
+    out = qs.new_zeros((qs.shape[0], w.shape[1]))
+    for p0, g in plain_blocks(qs, ps, inv_h2, mask, tile, fast):
+        out = out + g @ w[p0:p0 + g.shape[1]]
     return out

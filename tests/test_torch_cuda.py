@@ -2667,11 +2667,12 @@ def test_gated_exact_route_keeps_its_bits(dev):
         before["gauss_transform_fast"] + 1
 
 
-@pytest.mark.parametrize("channels", [1, 3, 4, 8])
+@pytest.mark.parametrize("channels", [1, 3, 4, 8, 2, 5, 6, 7])
 @pytest.mark.parametrize("dim", [2, 3, 5, 8])
 def test_fast_gauss_transform_kernel_matches_plain(dev, channels, dim):
     """K6's fast kernel (flag 1) against the plain fast branch on the same
-    CUDA tensors, a far query cluster culled to exact zeros."""
+    CUDA tensors, a far query cluster culled to exact zeros, every channel
+    count (one or two quads of channels on the tensor cores)."""
     from probreg_tpu_torch.ops.spatial import morton_order as mo
 
     rng = np.random.default_rng(dim * 10 + channels)
@@ -2692,6 +2693,73 @@ def test_fast_gauss_transform_kernel_matches_plain(dev, channels, dim):
     assert not torch.equal(got, exact)
     dead = (~prep[4].any(0)).repeat_interleave(pgc._ROWS)[:2500]
     assert bool(dead.any()) and bool((got[dead] == 0).all())
+
+
+def _fast_gt_case(dev, m, nq, channels, seed, tile):
+    """Prepared fast-K6 inputs: points and queries uniform in [-1, 1]^3,
+    Morton-sorted, the first fifth of the queries moved 30 away (their
+    tiles culled), signed weights, h = 2."""
+    rng = np.random.default_rng(seed)
+    ps = torch.as_tensor(rng.uniform(-1, 1, (m, 3)), dtype=torch.float32,
+                         device=dev)
+    qs = torch.as_tensor(rng.uniform(-1, 1, (nq, 3)), dtype=torch.float32,
+                         device=dev)
+    qs[:nq // 5, 2] += 30.0
+    w = torch.as_tensor(rng.uniform(-1, 1, (m, channels)),
+                        dtype=torch.float32, device=dev)
+    perm = morton_order(ps)
+    ps, w, qs = ps[perm], w[perm], qs[morton_order(qs)]
+    return pgc.prepare(ps, qs, w, 2.0, tile)
+
+
+# m and tile cut stages that end inside a 16-point group: a single point,
+# tiles of 100 and 200 points (stages of 100 / 200), a last tile of 1, 5 or
+# 207 points, tiles of 512 and 1024 (two and four stages of 256).
+_RAGGED_GT = [(1, 256), (37, 256), (300, 100), (1001, 200), (2049, 512),
+              (5007, 1024)]
+
+
+@pytest.mark.parametrize("m,tile", _RAGGED_GT)
+def test_fast_gauss_transform_kernel_ragged_stages(dev, m, tile):
+    """K6's fast kernel (flag 1) against the plain fast branch where a
+    stage's points end inside a 16-point group (zero-staged points with
+    zero weight pieces) and the queries end inside a 16-row group."""
+    channels = m % 8 + 1
+    prep = _fast_gt_case(dev, m, 333, channels, m, tile)
+    got = pgc.gt_core(*prep, gate=_flag(1, dev))
+    want = pgc.gauss_transform_culled_plain(*prep, True)
+    _close(got, want, "fast gauss_transform")
+    dead = (~prep[4].any(0)).repeat_interleave(pgc._ROWS)[:333]
+    assert bool((got[dead] == 0).all())
+
+
+@pytest.mark.parametrize("channels", [1, 4, 5, 8])
+@pytest.mark.parametrize("m,tile", [(3000, 256), (1001, 200)])
+def test_fast_gauss_transform_kernel_sums_its_own_g(dev, channels, m, tile):
+    """The fast kernel's output against the f64 sum of its own Gaussians
+    (every g it forms, dumped before its split) times the f32 weights,
+    within 2^-16 of sum_j g |w|: g in two bf16 pieces and the weights in
+    three keep each product to ~2^-17 of g w, and the tensor cores' f32
+    sums lose less. Culled pairs are formed nowhere; the dumped g agree
+    with the plain fast branch's to f32 rounding."""
+    nq = 2500
+    prep = _fast_gt_case(dev, m, nq, channels, 7 * channels + m, tile)
+    out, g = pgc.gt_fast_dump(*prep)
+    torch.cuda.synchronize()
+    qs, ps, w, inv_h2, mask, tile = prep
+    live = mask.T.repeat_interleave(pgc._ROWS, 0)[:nq].repeat_interleave(
+        tile, 1)[:, :m]
+    assert bool(torch.isnan(g[~live]).all())
+    assert bool(torch.isfinite(g[live]).all())
+    gl = torch.where(live, g, 0.0).double()
+    want = gl @ w.double()
+    mag = gl @ w.double().abs()
+    err = (out.double() - want).abs()
+    assert bool((err <= 2.0 ** -16 * mag).all()), float(
+        (err - 2.0 ** -16 * mag).max())
+    plain = torch.cat([gb for _, gb in pgc.plain_blocks(
+        qs, ps, inv_h2, mask, tile, fast=True)], 1)
+    _close(g[live], plain[live], "g")
 
 
 def test_gated_estep_reads_nothing_on_the_host(dev):

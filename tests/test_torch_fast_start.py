@@ -32,6 +32,15 @@ their kernels' plain versions here because the tensors lie on the CPU.
   times each piece in f32, a stripe's hi + (mid + lo), stripes in order)
   written in plain torch stays within the tolerance above of the
   reference's fast branch.
+* K6's fast kernel on the tensor cores: ``weight_pieces`` rebuilds every
+  weight within 2^-24 of it (2^-134, half of bf16's subnormal step, below
+  ~2^-110), and the kernel's association (g in two bf16 pieces, hi and
+  lo, the weights in three; per stage, as the kernel stages the points,
+  (g_hi + g_lo) w_hi, (g_hi + g_lo) w_mid and g_hi w_lo with exact
+  products, each stage's hi + (mid + lo) in f32, stages in order) written
+  in plain torch on the port's plain fast g stays within 2^-16 of
+  sum_j g |w| of the f64 product, and within the tolerance above of the
+  reference's fast branch.
 * The bound: on random clouds, the exp argument of the plain fast branch
   moves from the exact branch's by at most ``fast_bound``.
 * ``stash_dtype`` and ``matmul_dtype`` = bf16 against the reference set the
@@ -434,6 +443,124 @@ def test_k3_fast_moments_from_pieces_match_the_references_fast_branch(
     _within("px", px, ref.px, px_mag, rel)
     _within("xx", xx, ref.xx, xx_mag, rel)
     _within("n_p", p1.sum(), ref.n_p, p1_mag.sum(), rel)
+
+
+# --------------------------------------------------------------------------
+# K6's fast kernel on the tensor cores: its weight operand and its
+# association
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_weight_pieces_rebuild_the_weights(seed):
+    """hi + mid + lo of every weight is the weight within 2^-24 of it
+    (f32's half ulp) over the magnitudes FilterReg's channels take and far
+    beyond, zeros give zero pieces, and subnormal and tiny normal weights
+    come back within 2^-134: bf16's subnormals are multiples of 2^-133, so
+    no three pieces hold a finer remainder."""
+    rng = np.random.default_rng(seed)
+    m, c = 999, 5
+    w = rng.normal(size=(m, c)) * 10.0 ** rng.uniform(-30, 30, (m, 1))
+    w[5::13] = rng.uniform(-1, 1, (len(w[5::13]), c)) * 2.0 ** -127
+    w[7::17, 0] = np.float32(2.0 ** -140)     # subnormal in f32
+    w[9::19, 1] = np.float32(-3 * 2.0 ** -133)  # exactly a bf16 subnormal
+    w[::11] = 0.0
+    w = _t(w)
+    pieces = pgc.weight_pieces(w)
+    assert pieces.dtype == torch.bfloat16 and pieces.shape == (m, 3, c)
+    p = pieces.double()
+    rebuilt = p[:, 0] + p[:, 1] + p[:, 2]
+    wd = w.double()
+    err = (rebuilt - wd).abs()
+    assert bool((err <= torch.clamp(2.0 ** -24 * wd.abs(),
+                                    min=2.0 ** -134)).all())
+    normal = wd.abs() >= 2.0 ** -100
+    assert bool(normal.sum() > m) and bool(
+        (err[normal] <= 2.0 ** -24 * wd.abs()[normal]).all())
+    assert bool((pieces[::11] == 0).all())
+    assert bool((rebuilt[9::19, 1] == wd[9::19, 1]).all())
+    # The pieces are those of estep_cuda's moment operand.
+    assert torch.equal(pieces.view(torch.int16),
+                       pec.bf16_pieces(w).view(torch.int16))
+
+
+def _stage_starts(m, tile):
+    """The kernel's stages: each point tile from its start, 256 points at
+    a time (csrc/gt.cu)."""
+    return [s0 for t0 in range(0, m, tile)
+            for s0 in range(t0, min(t0 + tile, m), 256)] + [m]
+
+
+def _k6_fast_association(g, w, tile):
+    """K6's fast kernel's sum, in plain torch: g (N, M) f32 split into
+    hi = bf16(g) and lo = bf16(g - hi), the weights into weight_pieces;
+    per stage (g_hi + g_lo) w_hi, (g_hi + g_lo) w_mid and g_hi w_lo with
+    exact products (f64), each rounded to f32, the stage's hi + (mid + lo)
+    in f32, stages added in order in f32."""
+    g_hi = pec._bf16(g)
+    g_lo = pec._bf16(g - g_hi)
+    pieces = pgc.weight_pieces(w).double()
+    starts = _stage_starts(g.shape[1], tile)
+    tot = torch.zeros((g.shape[0], w.shape[1]))
+    for s0, s1 in zip(starts[:-1], starts[1:]):
+        gh, gl = g_hi[:, s0:s1].double(), g_lo[:, s0:s1].double()
+        w_hi, w_mid, w_lo = pieces[s0:s1].unbind(1)
+        hi = ((gh + gl) @ w_hi).float()
+        mid = ((gh + gl) @ w_mid).float()
+        lo = (gh @ w_lo).float()
+        tot = tot + (hi + (mid + lo))
+    return tot
+
+
+def _far_queries(tgt, n_far, dist, seed):
+    """``tgt`` with n_far points near -dist (1, 1, 1) and n_far near +dist
+    (1, 1, 1) appended: the shared centroid stays near the origin, so the
+    gate still fires at a large h, and the Morton order puts each far
+    cluster in query tiles of its own, which are culled."""
+    rng = np.random.default_rng(seed)
+    far = rng.normal(0, 0.5, (2 * n_far, 3))
+    far[:n_far] -= dist
+    far[n_far:] += dist
+    return np.concatenate([tgt, far]).astype(np.float32)
+
+
+@pytest.mark.parametrize("channels", [1, 4, 8])
+def test_k6_fast_association_matches_f64_and_the_references_fast_branch(
+        channels):
+    """The fast kernel's association on the port's plain fast g (far
+    query clusters culled, signed weights), against the f64 product of the
+    same g within 2^-16 of sum_j g |w| (the split drops ~2^-17 of each
+    g w, the f32 sums less), and against the reference's
+    gauss_transform_culled on its fast branch within (e^a (1 + 2^-8) - 1)
+    of sum_j g |w| (test_k6_plain_fast_branch_matches_the_references_fast
+    _branch's tolerance)."""
+    src, tgt = _pair(500, 450)
+    tgt = _far_queries(tgt, 300, 400.0, channels)
+    h = math.sqrt(float(_ref_bound_k6(src, tgt, 1.0)) / TOL * 2.5)
+    a = float(_ref_bound_k6(src, tgt, h))
+    assert a <= TOL / 2 and jcfg.config.estep_fast_start
+    w = np.random.default_rng(channels).uniform(
+        -1, 1, (500, channels)).astype(np.float32)
+    ref = jep.gauss_transform_culled(src, tgt, w, h, tile=128,
+                                     interpret=True)
+    s_t, t_t, w_t = _t(src), _t(tgt), _t(w)
+    cen = (s_t.sum(0) + t_t.sum(0)) / (s_t.shape[0] + t_t.shape[0])
+    s_t, t_t = s_t - cen, t_t - cen
+    perm_p, perm_q = morton_order(s_t), morton_order(t_t)
+    qs, ps, wk, inv_h2, mask, tile = pgc.prepare(
+        s_t[perm_p], t_t[perm_q], w_t[perm_p], h, 128)
+    assert not bool(mask.all()) and bool(mask.any())
+    g = torch.cat([gb for _, gb in pgc.plain_blocks(qs, ps, inv_h2, mask,
+                                                    tile, fast=True)], 1)
+    got = _k6_fast_association(g, wk, tile)
+    want = g.double() @ wk.double()
+    mag = g.double() @ wk.double().abs()
+    assert bool(((got.double() - want).abs() <= 2.0 ** -16 * mag).all())
+    dead = (~mask.any(0)).repeat_interleave(pgc._ROWS)[:qs.shape[0]]
+    assert bool(dead.any()) and bool((got[dead] == 0).all())
+    out = torch.empty_like(got).index_copy_(0, perm_q, got)
+    d2 = ((tgt[:, None, :].astype(np.float64) - src[None]) ** 2).sum(-1)
+    mag_ref = np.exp(-d2 / h ** 2) @ np.abs(w.astype(np.float64))
+    _within("gt", out, ref, mag_ref, math.exp(a) * (1 + 2.0 ** -8) - 1)
 
 
 # --------------------------------------------------------------------------
